@@ -1,0 +1,280 @@
+"""Dependency-free counters / gauges / histograms .
+
+The serving and training hot paths need latency quantiles (TTFT, TPOT,
+queue wait, step time) without growing a metrics dependency, so the
+histogram here is the classic fixed-boundary streaming kind: geometric
+bucket boundaries spanning microseconds to hours, `observe` is a bisect
+plus three adds, and `quantile` interpolates inside the winning bucket.
+Up to ``exact_cap`` raw samples are also retained so SMALL populations
+(a serve run's few hundred requests) report *exact* quantiles — bit-
+matching ``numpy.percentile(..., 'linear')`` — and only unbounded
+streams degrade to the bucket estimate (bounded relative error set by
+the per-decade bucket count).
+
+Metric naming convention: ``<subsystem>.<noun>`` with
+a unit suffix for measurements (``_s``, ``_us``, ``_bytes``) and a
+``_total`` suffix for monotonic counters, e.g. ``serve.ttft_s``,
+``kvpool.cow_copies_total``.
+
+A **disabled** :class:`Registry` hands every caller the same shared
+:data:`NULL_METRIC` no-op instrument and records nothing — instrument
+construction in a disabled process allocates zero record objects, which
+is what keeps always-on call sites free (``bench_obs --smoke`` holds the
+enabled path under 2% tokens/sec as well).
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+class NullMetric:
+    """Shared no-op instrument: every mutator is a pass.
+
+    One singleton (:data:`NULL_METRIC`) serves every name a disabled
+    registry is asked for, so disabled instrumentation allocates
+    nothing and identity checks (`a is b`) hold across names.
+    """
+
+    __slots__ = ()
+
+    def inc(self, n: float = 1) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+
+NULL_METRIC = NullMetric()
+
+
+class Counter:
+    """Monotonic count (requests admitted, COW copies, cache hits)."""
+
+    kind = "counter"
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0.0
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"value": self.value}
+
+
+class Gauge:
+    """Point-in-time level (queue depth, blocks in use, loss)."""
+
+    kind = "gauge"
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        self.value = float(value)
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"value": self.value}
+
+
+def geometric_bounds(lo: float = 1e-6, hi: float = 1e4,
+                     per_decade: int = 20) -> Tuple[float, ...]:
+    """Geometric bucket upper bounds covering [lo, hi].
+
+    ``per_decade`` buckets per factor of 10 bounds the bucket-estimate
+    quantile's relative error at ``10**(1/per_decade) - 1`` (~12% at the
+    default 20) for in-range values; an extra leading bucket catches
+    everything below ``lo`` (incl. zeros).
+    """
+    if not (lo > 0 and hi > lo and per_decade >= 1):
+        raise ValueError("need 0 < lo < hi and per_decade >= 1")
+    n = int(math.ceil(per_decade * math.log10(hi / lo)))
+    return tuple(lo * (10.0 ** (i / per_decade)) for i in range(n + 1))
+
+
+_DEFAULT_BOUNDS = geometric_bounds()
+
+
+class Histogram:
+    """Streaming distribution with p50/p95/p99-style quantiles.
+
+    Every `observe` lands in a fixed geometric bucket; the first
+    ``exact_cap`` samples are ALSO kept raw so small populations answer
+    `quantile` exactly (matching ``numpy.percentile`` linear
+    interpolation).  Past the cap the raw reservoir is dropped and
+    quantiles come from the buckets: find the bucket holding rank
+    ``q * (count - 1)``, interpolate linearly inside it, and clamp to
+    the observed min/max so estimates never leave the data's range.
+    """
+
+    kind = "histogram"
+    __slots__ = ("name", "help", "bounds", "bucket_counts", "count",
+                 "sum", "min", "max", "_exact", "_exact_cap")
+
+    def __init__(self, name: str, help: str = "",
+                 bounds: Optional[Sequence[float]] = None,
+                 exact_cap: int = 4096):
+        self.name = name
+        self.help = help
+        self.bounds = tuple(bounds) if bounds is not None \
+            else _DEFAULT_BOUNDS
+        if list(self.bounds) != sorted(self.bounds):
+            raise ValueError("histogram bounds must be sorted")
+        self.bucket_counts = [0] * (len(self.bounds) + 1)
+        self.count = 0
+        self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self._exact: Optional[List[float]] = []
+        self._exact_cap = exact_cap
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        self.bucket_counts[bisect.bisect_left(self.bounds, value)] += 1
+        self.count += 1
+        self.sum += value
+        if value < self.min:
+            self.min = value
+        if value > self.max:
+            self.max = value
+        if self._exact is not None:
+            if len(self._exact) < self._exact_cap:
+                self._exact.append(value)
+            else:
+                self._exact = None          # stream mode from here on
+
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """q in [0, 1]; 0.0 for an empty histogram."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        if self.count == 0:
+            return 0.0
+        if self._exact is not None:
+            xs = sorted(self._exact)
+            rank = q * (len(xs) - 1)
+            lo = int(math.floor(rank))
+            hi = min(lo + 1, len(xs) - 1)
+            return xs[lo] + (rank - lo) * (xs[hi] - xs[lo])
+        # bucket estimate: locate the bucket containing the rank
+        rank = q * (self.count - 1)
+        seen = 0
+        for i, c in enumerate(self.bucket_counts):
+            if c == 0:
+                continue
+            if rank < seen + c:
+                lo = self.bounds[i - 1] if i > 0 else self.min
+                hi = self.bounds[i] if i < len(self.bounds) else self.max
+                frac = (rank - seen + 0.5) / c
+                est = lo + frac * (hi - lo)
+                return min(max(est, self.min), self.max)
+            seen += c
+        return self.max
+
+    def snapshot(self) -> Dict[str, Any]:
+        if self.count == 0:
+            return {"count": 0, "sum": 0.0}
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "mean": self.mean,
+            "min": self.min,
+            "max": self.max,
+            "p50": self.quantile(0.50),
+            "p95": self.quantile(0.95),
+            "p99": self.quantile(0.99),
+        }
+
+
+class Registry:
+    """Named-instrument registry; DISABLED registries are pure no-ops.
+
+    ``Registry(enabled=False)`` returns :data:`NULL_METRIC` from every
+    constructor and stores nothing — the identity a hot call site can
+    bind once and call forever for free.  Asking an enabled registry for
+    an existing name returns the existing instrument (so independent
+    call sites share one series); asking with a different kind raises.
+    """
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self._metrics: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_make(self, cls, name: str, help: str, **kwargs):
+        if not self.enabled:
+            return NULL_METRIC
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, help, **kwargs)
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as {m.kind}, "
+                    f"requested {cls.kind}")
+            return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_make(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_make(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "",
+                  bounds: Optional[Sequence[float]] = None) -> Histogram:
+        if not self.enabled:
+            return NULL_METRIC
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = Histogram(name, help,
+                                                    bounds=bounds)
+            elif not isinstance(m, Histogram):
+                raise TypeError(
+                    f"metric {name!r} already registered as {m.kind}, "
+                    "requested histogram")
+            return m
+
+    def get(self, name: str):
+        with self._lock:
+            return self._metrics.get(name)
+
+    def metrics(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self._metrics)
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """JSON-ready ``{name: {kind, ...values}}`` of every instrument."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for name, m in sorted(self.metrics().items()):
+            entry = {"kind": m.kind}
+            entry.update(m.snapshot())
+            out[name] = entry
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._metrics)
