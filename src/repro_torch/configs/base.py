@@ -2,14 +2,15 @@
 
 Every architecture provides `get_config()` (the exact public config) and
 `reduced()` (same family, tiny dims — used by the CPU tests).  The
-dry-run shape grid and the loss config stay in the JAX package until the
-training slice needs them.
+dry-run shape grid stays in the JAX package (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from repro_torch.core.types import LossConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +68,8 @@ class Arch:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return -(-self.vocab_size // m) * m
+
+    def loss_config(self, **kw) -> LossConfig:
+        """The fused loss's config: pad rows of the lm_head masked."""
+        kw.setdefault("valid_vocab", self.vocab_size)
+        return LossConfig(**kw)

@@ -25,6 +25,7 @@ def reduced() -> Arch:
         name="paper-lm-reduced",
         d_model=128, n_layers=2,
         num_heads=4, num_kv_heads=4, head_dim=32,
-        d_ff=256, vocab_size=1024)
+        d_ff=256, vocab_size=1024,
+        chunk_q=32, chunk_k=32)
     return Arch("paper-lm", "transformer", cfg, tags=("dense", "paper"),
                 vocab_pad_multiple=16)

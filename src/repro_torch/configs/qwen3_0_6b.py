@@ -27,6 +27,6 @@ def reduced() -> Arch:
         d_model=64, n_layers=2,
         num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=96, vocab_size=512,
-        qk_norm=True)
+        qk_norm=True, chunk_q=32, chunk_k=32)
     return Arch("qwen3-0.6b", "transformer", cfg, tags=("dense",),
                 vocab_pad_multiple=16)

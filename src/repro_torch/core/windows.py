@@ -17,6 +17,13 @@ Unlike the TPU's grid, blocks run in parallel and in no order, so a
 smaller ``bv`` buys more blocks in flight rather than a longer pipeline.
 The field ``vmem_bytes`` keeps its name for parity with the JAX
 `BlockPlan`; here it holds the block's shared-memory bytes.
+
+`choose_blocks` is the decode-shaped plan of `sample_topk` (8 rows).
+The fused-CE kernels of a training step see thousands of rows and have
+their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles and
+64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
+split of the forward grid sized so that even a few hundred rows fill the
+card.
 """
 
 from __future__ import annotations
@@ -79,3 +86,36 @@ def choose_blocks(
                          "of shared memory; the kernel keeps all of h's d "
                          "in a block")
     return BlockPlan(_ROWS, bv, nbytes)
+
+
+# ---------------------------------------------------------------------------
+# fused-CE kernels (training): their own plan rule
+# ---------------------------------------------------------------------------
+
+N_SMS = 132                     # H100 SXM
+CE_FWD_ROWS = 128               # forward tile rows   (fused_ce.cu kFwdRows)
+CE_FWD_COLS = 128               # forward tile columns (kFwdCols)
+CE_FWD_SLOTS = 2 * N_SMS        # forward blocks resident at once
+
+
+@dataclasses.dataclass(frozen=True)
+class CEPlan:
+    """Launch plan of the fused-CE kernels: the number of vocab slices the
+    forward grid cuts W into (one block per (row block, slice)).  The
+    tiles are fixed in the source: ``shape`` is the forward tile, and the
+    backward grids are (rows / 64, d / 256) for dH and (V / 64, d / 256)
+    for dW."""
+    v_splits: int
+    shape = (CE_FWD_ROWS, CE_FWD_COLS)
+
+
+def choose_ce_plan(n_rows: int, vocab: int, d: int) -> CEPlan:
+    """Forward vocab split: as many slices as keep ~`CE_FWD_SLOTS` blocks
+    in one wave (rounded down, so 8192 rows -> 64 row blocks x 4 slices
+    = 256 blocks), never more slices than vocab tiles.  Few rows get many
+    slices (1000 rows -> 8 x 33); the partials are merged in a second
+    kernel."""
+    del d
+    row_blocks = -(-max(n_rows, 1) // CE_FWD_ROWS)
+    tiles = -(-max(vocab, 1) // CE_FWD_COLS)
+    return CEPlan(max(1, min(tiles, CE_FWD_SLOTS // row_blocks)))

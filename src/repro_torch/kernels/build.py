@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parents[2] / "build"
 # kernel name -> source, relative to this directory
 SOURCES = {
     "sample_topk": "sample_topk/csrc/sample_topk.cu",
+    "fused_ce": "fused_ce/csrc/fused_ce.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

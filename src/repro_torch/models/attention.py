@@ -1,16 +1,20 @@
-"""GQA attention, serving subset: prefill over a fresh segment + cached decode.
+"""GQA attention: blockwise training attention, slab-cache prefill and
+cached decode (port of `repro.models.attention`).
 
-The port of `repro.models.attention` for the slab-cache serving path.
-Both attentions are plain PyTorch (neither is a Pallas kernel in the JAX
-package): scores in f32 through `_tile_scores` — which keeps the GQA
+Every attention here is plain PyTorch (none is a Pallas kernel in the
+JAX package): scores in f32 through `_tile_scores` — which keeps the GQA
 grouping and the optional `attn_softcap` that
 `scaled_dot_product_attention` has no place for — then a masked softmax
 in f32.
 
-  * `prefill_attention` is one tile of the JAX package's blockwise
-    recurrence (``p = exp(s - m)``, ``acc = p @ v`` with p in the value
-    dtype, ``out = acc / a``): the whole (T, T) score block at once, which
-    serving prompts (T <= max_len) afford.
+  * `blockwise_attention` (a cache-free forward: training) is the JAX
+    package's online-softmax recurrence over (chunk_q x chunk_k) score
+    tiles, with its FlashAttention-style backward as a
+    `torch.autograd.Function` that recomputes the tiles.
+  * `prefill_attention` (serving prefill into a cache) is one tile of
+    that recurrence (``p = exp(s - m)``, ``acc = p @ v`` with p in the
+    value dtype, ``out = acc / a``): the whole (T, T) score block at
+    once, which serving prompts (T <= max_len) afford.
   * `decode_attention` keeps the softmax-then-matmul order of
     `repro.models.attention.decode_attention`.
 
@@ -27,6 +31,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -43,6 +48,9 @@ class AttnConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
+    causal: bool = True                   # local windows: ROADMAP A8
+    chunk_q: int = 512
+    chunk_k: int = 1024
     n_layers_scale: int = 1
 
 
@@ -118,6 +126,181 @@ def prefill_attention(q, k, v, cfg: AttnConfig):
     return out.reshape(b, t, nq, hd).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# blockwise (training) attention
+# ---------------------------------------------------------------------------
+
+
+def _block_mask(qpos, kpos, kv_len, cfg: AttnConfig):
+    mask = kpos[None, :] < kv_len
+    if cfg.causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    return mask
+
+
+def _kv_bounds(qi, cq, ck, nkb, cfg: AttnConfig):
+    """KV-block range [lo, hi) visible from query block qi."""
+    hi = min(((qi + 1) * cq + ck - 1) // ck, nkb) if cfg.causal else nkb
+    return 0, hi
+
+
+def _q_bounds(kj, cq, ck, nqb, cfg: AttnConfig):
+    """Query-block range [lo, hi) that can see kv block kj."""
+    lo = (kj * ck) // cq if cfg.causal else 0
+    return lo, nqb
+
+
+def _flash_fwd_impl(q, k, v, cfg: AttnConfig, kv_len: int):
+    """Returns (out (B,Tq,nq,hd) f32, lse (B,nkv,g,Tq) f32); T padded to
+    whole chunks."""
+    b, tq_p, nq, hd = q.shape
+    tk_p, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    cq, ck = min(cfg.chunk_q, tq_p), min(cfg.chunk_k, tk_p)
+    nqb, nkb = tq_p // cq, tk_p // ck
+    q5 = q.reshape(b, nqb, cq, nkv, g, hd)
+    dev = q.device
+    outs, lses = [], []
+    for qi in range(nqb):
+        qb = q5[:, qi]                                   # (B,cq,nkv,g,hd)
+        qpos = qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, nkv, g, cq), _NEG_INF, device=dev)
+        a = torch.zeros((b, nkv, g, cq), device=dev)
+        acc = torch.zeros((b, nkv, g, cq, hd), device=dev)
+        lo, hi = _kv_bounds(qi, cq, ck, nkb, cfg)
+        for kj in range(lo, hi):
+            kb = k[:, kj * ck:(kj + 1) * ck]
+            vb = v[:, kj * ck:(kj + 1) * ck]
+            s = _tile_scores(qb, kb, cfg)                # (B,nkv,g,cq,ck)
+            kpos = kj * ck + torch.arange(ck, device=dev)
+            s = s.masked_fill(~_block_mask(qpos, kpos, kv_len, cfg),
+                              _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            scale_prev = torch.exp(m - m_safe)
+            a = a * scale_prev + p.sum(dim=-1)
+            pv = torch.einsum("bngqk,bknh->bngqh", p.to(vb.dtype).float(),
+                              vb.float())
+            acc = acc * scale_prev[..., None] + pv
+            m = m_new
+        a_safe = torch.clamp_min(a, 1e-30)
+        out = acc / a_safe[..., None]
+        m_fin = torch.where(torch.isneginf(m), 0.0, m)
+        lses.append(m_fin + torch.log(a_safe))           # (B,nkv,g,cq)
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B,cq,nkv,g,hd)
+    out = torch.cat(outs, dim=1).reshape(b, tq_p, nq, hd)
+    lse = torch.stack(lses, dim=3).reshape(b, nkv, g, tq_p)
+    return out, lse
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, cfg: AttnConfig, kv_len: int):
+    """FlashAttention-style backward: recompute the score tiles blockwise;
+    f32 throughout.  Returns f32 (dq, dk, dv)."""
+    b, tq_p, nq, hd = q.shape
+    tk_p, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    cq, ck = min(cfg.chunk_q, tq_p), min(cfg.chunk_k, tk_p)
+    nqb, nkb = tq_p // cq, tk_p // ck
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    dev = q.device
+
+    q5 = q.reshape(b, nqb, cq, nkv, g, hd)
+    do5 = dout.reshape(b, nqb, cq, nkv, g, hd)
+    dsum = (dout.float() * out.float()).sum(dim=-1)     # D_i, (B, Tq, nq)
+    dsum = dsum.reshape(b, nqb, cq, nkv, g)
+    lse5 = lse.reshape(b, nkv, g, nqb, cq).movedim(3, 1)
+
+    def q_block(qi):
+        dob = do5[:, qi].float().permute(0, 2, 3, 1, 4)  # (B,nkv,g,cq,hd)
+        lse_b = lse5[:, qi][..., None]                   # (B,nkv,g,cq,1)
+        ds_b = dsum[:, qi].permute(0, 2, 3, 1)[..., None]
+        qpos = qi * cq + torch.arange(cq, device=dev)
+        return q5[:, qi], dob, lse_b, ds_b, qpos
+
+    def tile(qb, kb, vb, dob, lse_b, ds_b, qpos, kpos):
+        """p (softmax tile) and d(score) with the softcap chain factor."""
+        s_c = _tile_scores(qb, kb, cfg)
+        s_m = s_c.masked_fill(~_block_mask(qpos, kpos, kv_len, cfg),
+                              _NEG_INF)
+        p = torch.exp(s_m - lse_b)
+        dp = torch.einsum("bngqh,bknh->bngqk", dob, vb.float())
+        dsc = p * (dp - ds_b)
+        if cfg.attn_softcap is not None:
+            dsc = dsc * (1.0 - (s_c / cfg.attn_softcap) ** 2)
+        return p, dsc
+
+    dq_blocks = []
+    for qi in range(nqb):
+        qb, dob, lse_b, ds_b, qpos = q_block(qi)
+        dq = torch.zeros((b, cq, nkv, g, hd), device=dev)
+        lo, hi = _kv_bounds(qi, cq, ck, nkb, cfg)
+        for kj in range(lo, hi):
+            kb = k[:, kj * ck:(kj + 1) * ck]
+            vb = v[:, kj * ck:(kj + 1) * ck]
+            kpos = kj * ck + torch.arange(ck, device=dev)
+            _, dsc = tile(qb, kb, vb, dob, lse_b, ds_b, qpos, kpos)
+            dq = dq + torch.einsum("bngqk,bknh->bqngh", dsc,
+                                   kb.float()) * scale
+        dq_blocks.append(dq)
+    dq = torch.cat(dq_blocks, dim=1).reshape(b, tq_p, nq, hd)
+
+    dk_blocks, dv_blocks = [], []
+    for kj in range(nkb):
+        kb = k[:, kj * ck:(kj + 1) * ck]
+        vb = v[:, kj * ck:(kj + 1) * ck]
+        kpos = kj * ck + torch.arange(ck, device=dev)
+        dk = torch.zeros((b, ck, nkv, hd), device=dev)
+        dv = torch.zeros((b, ck, nkv, hd), device=dev)
+        lo, hi = _q_bounds(kj, cq, ck, nqb, cfg)
+        for qi in range(lo, hi):
+            qb, dob, lse_b, ds_b, qpos = q_block(qi)
+            p, dsc = tile(qb, kb, vb, dob, lse_b, ds_b, qpos, kpos)
+            dv = dv + torch.einsum("bngqk,bngqh->bknh", p, dob)
+            dk = dk + torch.einsum("bngqk,bqngh->bknh", dsc,
+                                   qb.float()) * scale
+        dk_blocks.append(dk)
+        dv_blocks.append(dv)
+    return dq, torch.cat(dk_blocks, dim=1), torch.cat(dv_blocks, dim=1)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: AttnConfig, kv_len: int):
+        out, lse = _flash_fwd_impl(q, k, v, cfg, kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg, ctx.kv_len = cfg, kv_len
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout, ctx.cfg,
+                                     ctx.kv_len)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def _pad_axis1(x, pad):
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
+
+
+def blockwise_attention(q, k, v, cfg: AttnConfig, *,
+                        kv_len: Optional[int] = None):
+    """Online-softmax (FlashAttention-style) attention with its own
+    backward: q (B, Tq, nq, hd), k/v (B, Tk, nkv, hd) -> (B, Tq, nq, hd).
+
+    Score tiles exist one (chunk_q x chunk_k) block at a time, forward
+    and backward (the backward recomputes them); `kv_len` masks padded
+    kv positions (default Tk)."""
+    tq, tk = q.shape[1], k.shape[1]
+    kv_len = tk if kv_len is None else kv_len
+    cq, ck = min(cfg.chunk_q, tq), min(cfg.chunk_k, tk)
+    pad_q, pad_k = (-tq) % cq, (-tk) % ck
+    out = _Flash.apply(_pad_axis1(q, pad_q), _pad_axis1(k, pad_k),
+                       _pad_axis1(v, pad_k), cfg, kv_len)
+    return out[:, :tq].to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, cfg: AttnConfig):
     """Cached decode: q (B, Tq, nq, hd) vs cache (B, S, nkv, hd).
 
@@ -178,11 +361,12 @@ def attention_layer(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention layer: returns (out, new_cache).
 
-    cache: None (a cache-free forward: attention within the segment) or a
-    dense slab {'k', 'v', 'len'}.  With a cache, T > 1 is a prefill — the
-    segment is written at ``len`` and attends within itself (the cache is
-    empty before a prefill) — and T == 1 (or ``decode=True``) appends and
-    attends over the whole cache.  The k/v tensors of the cache are
+    cache: None (a cache-free forward, as in training, through
+    `blockwise_attention`) or a dense slab {'k', 'v', 'len'}.  With a
+    cache, T > 1 is a prefill — the segment is written at ``len`` and
+    attends within itself (the cache is empty before a prefill) — and
+    T == 1 (or ``decode=True``) appends and attends over the whole
+    cache.  The k/v tensors of the cache are
     updated in place; the returned cache carries the new ``len``.
     """
     b, t, _ = x.shape
@@ -196,7 +380,7 @@ def attention_layer(
     q, k, v = _project_qkv(params, x, positions, cfg)
     new_cache = None
     if cache is None:
-        out = prefill_attention(q, k, v, cfg)
+        out = blockwise_attention(q, k, v, cfg)
     elif "table" in cache:
         raise NotImplementedError("paged KV attention comes with ROADMAP A3")
     elif "pos" in cache:

@@ -3,6 +3,9 @@
 
 Layers run as a Python loop over a list of per-layer param dicts (the
 JAX package scans stacked params; `repro_torch.weights` unstacks them).
+A cache-free forward under autograd rematerializes each block in its
+backward (`torch.utils.checkpoint`, non-reentrant) when `remat` is set,
+as the JAX package's ``jax.checkpoint`` per block.
 The serve caches keep the JAX package's stacked layout,
 ``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}``, and each layer reads
 its own views of them.
@@ -14,6 +17,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -35,8 +39,11 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     logit_softcap: Optional[float] = None
     num_experts: int = 0                    # MoE: ROADMAP A8
+    remat: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    chunk_q: int = 512
+    chunk_k: int = 1024
 
     @property
     def resolved_head_dim(self) -> int:
@@ -47,7 +54,8 @@ class TransformerConfig:
             d_model=self.d_model, num_heads=self.num_heads,
             num_kv_heads=self.num_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
-            rope_theta=self.rope_theta, n_layers_scale=self.n_layers)
+            rope_theta=self.rope_theta, chunk_q=self.chunk_q,
+            chunk_k=self.chunk_k, n_layers_scale=self.n_layers)
 
     @property
     def is_moe(self) -> bool:
@@ -130,7 +138,12 @@ def forward(
     x = L.embed_lookup(params["embed"]["table"], tokens).to(
         dtype_of(cfg.compute_dtype))
     lens = []
+    remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
+        if remat:
+            x = checkpoint(lambda x_, p_=p: apply_block(p_, x_, cfg)[0], x,
+                           use_reentrant=False)
+            continue
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i],
