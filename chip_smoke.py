@@ -39,6 +39,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the last below the first.  Prints step ms p50 (steps 1-5), tokens/s
      and peak memory, and from one more step under `torch.profiler` the
      fused-CE kernels' device ms against the step's device-busy ms.
+  5. paged serving at full width — the same qwen3-0.6b params as phase 3
+     served by `PagedEngine(batch_size=8, max_len=512, block_size=16)`
+     (a pool at slab parity, 257 blocks) with the prefix cache on: 16
+     requests, each a shared 128-token system prompt plus a seeded
+     8..64-token suffix, 32 new tokens each, greedy.  The counters are
+     zeroed just before the run and must show 28 `paged_attn` launches a
+     decode step and one `sample_topk` launch per prefill and per decode
+     step; 15 prefix hits of the 8 shared blocks; every served token
+     within the bf16 tolerance of a cache-free forward's best logit.
+     Prints tokens/s, decode-step and prefill ms (cold and hit), TTFT,
+     the prefill tokens saved, the live pool bytes against the pool's,
+     and the share of tokens equal to the slab `Engine`'s on the same
+     requests (printed, not gated: bf16 near-ties may flip).
+
+Phase 2 also holds `paged_attn` to its plain version at the decode
+shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
+16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
+ghost rows and with a poisoned null block, each timed beside its bound,
+its plain version and `F.scaled_dot_product_attention` over the
+gathered K/V.
 
 The last lines are the `{"kernels": [...]}` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -78,6 +98,11 @@ TRAIN_STEPS = 6
 # 1e-3, so a near-tie may flip; a wrong cache or position instead costs
 # the served token several 1e-2 (a random token against the best).
 GREEDY_TOL = 2e-3
+# paged_attn's bf16 output against its plain version (f32 arithmetic on
+# the same bf16 inputs, then cast): |out| <= 1 (a softmax-weighted mean
+# of unit-normal values), so one bf16 rounding is <= 2^-8 and the two
+# may round a value on either side of a tie: atol and rtol 1e-2.
+PAGED_ATOL, PAGED_RTOL = 1e-2, 1e-2
 
 
 def card_line():
@@ -562,6 +587,222 @@ def phase_serve(torch, np, arch, card, dev):
           f"{np.median(prefill) * 1e3:.2f} ms p50, TTFT p50 "
           f"{st['ttft_s']['p50'] * 1e3:.1f} ms (queue incl.), occupancy "
           f"{st['occupancy']:.3f} on {card}", flush=True)
+    return launches, params
+
+
+def paged_bound_ms(q, kp, lens, capacity):
+    """Least time on an H100: each row's live K and V entries (positions
+    below its length) read once, q read and the output written once; the
+    2 + 2 flops per key, head dim and query row are far below the bf16
+    tensor-core line."""
+    b, tq, nq, hd = q.shape
+    nkv = kp.shape[2]
+    tokens = int(lens.clamp(max=capacity).sum())
+    nbytes = tokens * nkv * hd * 2 * 2 + 2 * q.numel() * 2
+    flops = 4 * tokens * nq * tq * hd
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_paged_attn(torch, np, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attn import (gather_paged_kv,
+                                                paged_attention,
+                                                paged_attention_ref)
+
+    b, nq, nkv, hd, bs, nb = 8, 16, 8, 128, 16, 32
+    cases = [("decode", 1, None, "seeded"), ("full512", 1, None, "full"),
+             ("tq4_softcap30", 4, 30.0, "seeded"), ("ghost", 1, None, "zero"),
+             ("null_poison", 1, None, "poison")]
+    results = {}
+    for i, (name, tq, cap, kind) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        n_pool = b * nb + 1
+        kp = torch.randn((n_pool, bs, nkv, hd), generator=gen,
+                         device=dev).bfloat16()
+        vp = torch.randn((n_pool, bs, nkv, hd), generator=gen,
+                         device=dev).bfloat16()
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev) + 1
+        table = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+        lens = torch.randint(16, nb * bs + 1, (b,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if kind == "full":
+            lens.fill_(nb * bs)
+        elif kind == "zero":
+            lens.zero_()
+        elif kind == "poison":
+            kp[0] = 1e9
+            vp[0] = 1e9
+            table[:, 4:] = 0                  # chains of 4 blocks, then null
+            lens = torch.randint(tq, 4 * bs + 1, (b,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        q = torch.randn((b, tq, nq, hd), generator=gen,
+                        device=dev).bfloat16()
+        out = paged_attention(q, kp, vp, table, lens, softcap=cap)
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(q, kp, vp, table, lens, softcap=cap)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=PAGED_ATOL, rtol=PAGED_RTOL)
+        if kind == "zero" and bool(out.abs().max() != 0):
+            raise AssertionError("paged_attn: ghost rows are not zero")
+        err = float((out.float() - ref.float()).abs().max())
+        ms = cuda_ms(torch, lambda: paged_attention(q, kp, vp, table, lens,
+                                                    softcap=cap), iters=50)
+        plain_ms = cuda_ms(torch, lambda: paged_attention_ref(
+            q, kp, vp, table, lens, softcap=cap))
+        # the yardstick: SDPA over the gathered chains, causal on absolute
+        # positions through a boolean mask (timed only; GQA by the call)
+        kg = gather_paged_kv(kp, table).transpose(1, 2)
+        vg = gather_paged_kv(vp, table).transpose(1, 2)
+        qpos = lens.long()[:, None] - tq + torch.arange(tq, device=dev)
+        mask = (torch.arange(nb * bs, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=True), iters=50)
+        bound_ms, bound_by = paged_bound_ms(q, kp, lens, nb * bs)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        print(f"[kernel] paged_attn {name} (B {b}, Tq {tq}, nq {nq}, nkv "
+              f"{nkv}, hd {hd}, bs {bs}, nb {nb}, lens "
+              f"{lens.min().item()}..{lens.max().item()}, softcap {cap}): "
+              f"max_abs_err {err:.3g} (atol {PAGED_ATOL}), {ms:.4f} ms vs "
+              f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} "
+              f"ms, sdpa over the gathered K/V {library_ms:.4f} ms",
+              flush=True)
+    return results
+
+
+def phase_paged_serve(torch, np, arch, params, card, dev):
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attn import LAUNCHES as PAGED_LAUNCHES
+    from repro_torch.kernels.sample_topk import LAUNCHES as TOPK_LAUNCHES
+    from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
+                                   ServeConfig)
+
+    n_layers = arch.cfg.n_layers
+    sc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16)
+    t0 = time.perf_counter()
+    eng = PagedEngine(arch, params, sc, device=dev)
+    warm = np.arange(1, 40)
+    eng.generate([warm, np.concatenate([warm, [7, 8, 9]])], 4)   # warm-up
+    torch.cuda.synchronize()
+    print(f"[paged] set-up {time.perf_counter() - t0:.1f}s: qwen3-0.6b "
+          f"{n_layers} layers, PagedEngine batch 8, max_len 512, block 16, "
+          f"{eng.paged_stats()['pool_blocks']} pool blocks", flush=True)
+
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, arch.vocab_size, 128).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        1, arch.vocab_size, n).astype(np.int32)])
+        for n in rng.integers(8, 65, 16)]
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = PagedEngine(arch, params, sc, device=dev)
+        peak_blocks = [0]
+
+        def on_token(rid, tok, done):       # pool blocks in use, at peak
+            peak_blocks[0] = max(peak_blocks[0], eng.pool.used_blocks)
+
+        sched = ContinuousScheduler(eng, max_new_tokens=32,
+                                    on_token=on_token)
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = [sched.submit(p) for p in prompts]
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"paged_attn": PAGED_LAUNCHES.count,
+                    "sample_topk": TOPK_LAUNCHES.count}
+    finally:
+        obs.disable()
+    outs = [results[r] for r in rids]
+    if any(len(o) != 32 for o in outs):
+        raise AssertionError("a request did not get its 32 tokens")
+    prefills, steps = len(sched.admit_order), sched.decode_steps
+    if launches["paged_attn"] != steps * n_layers:
+        raise AssertionError(f"paged_attn launched {launches['paged_attn']}"
+                             f" times, expected {steps} decode steps x "
+                             f"{n_layers} layers")
+    if launches["sample_topk"] != prefills + steps:
+        raise AssertionError(f"sample_topk launched "
+                             f"{launches['sample_topk']} times, expected "
+                             f"{prefills} prefills + {steps} decode steps")
+    ps = eng.paged_stats()
+    pre = ps["prefix"]
+    if pre["hits"] != 15 or pre["hit_blocks"] != 15 * 8:
+        raise AssertionError(f"prefix cache: {pre['hits']} hits of "
+                             f"{pre['hit_blocks']} blocks, expected 15 of 8")
+    print(f"[paged] launches {launches}: paged_attn = {steps} decode steps x "
+          f"{n_layers} layers, sample_topk = {prefills} prefills + {steps} "
+          f"decode steps; prefix hits {pre['hits']} of {pre['lookups']} "
+          f"lookups, {pre['hit_blocks']} blocks", flush=True)
+
+    # every served token against a cache-free forward of its request
+    from repro_torch.kernels.sample_topk import topk_scores_ref
+    from repro_torch.models.registry import forward_hidden
+    worst, agree = 0.0, []
+    head = params["lm_head"]
+    with torch.no_grad():
+        for prompt, out in zip(prompts, outs):
+            seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+            h, _, _ = forward_hidden(arch, params, {
+                "tokens": torch.from_numpy(seq[None]).to(dev)})
+            hp = h[0, len(prompt) - 1:]
+            vals, ids = topk_scores_ref(hp, head, 1,
+                                        valid_vocab=arch.vocab_size)
+            served = torch.from_numpy(out.astype(np.int64)).to(dev)
+            z = (hp.float() * head[served].float()).sum(-1)
+            worst = max(worst, float((vals[:, 0] - z).max()))
+            agree.append(ids[:, 0].cpu().numpy() == out)
+    if worst > GREEDY_TOL:
+        raise AssertionError(f"paged: a served token trails the cache-free "
+                             f"forward's best logit by {worst:.3g} > "
+                             f"{GREEDY_TOL}")
+
+    slab = Engine(arch, params, ServeConfig(batch_size=8, max_len=512),
+                  device=dev)
+    slab_sched = ContinuousScheduler(slab, max_new_tokens=32)
+    slab_rids = [slab_sched.submit(p) for p in prompts]
+    slab_res = slab_sched.run()
+    same = np.mean([np.mean(results[r] == slab_res[q])
+                    for r, q in zip(rids, slab_rids)])
+
+    step_ms = [x.duration * 1e3 for x in tracer.spans
+               if x.name == "engine.decode_step"]
+    pf = [x for x in tracer.spans if x.name == "engine.prefill"]
+    cold = [x.duration * 1e3 for x in pf if not x.args.get("ext")]
+    hit = [x.duration * 1e3 for x in pf if x.args.get("ext")]
+    ext_rid = {rid: bool(x.args.get("ext"))
+               for rid, x in zip(sched.admit_order, pf)}
+    ttft_cold = [sched.ttft[r] * 1e3 for r, e in ext_rid.items() if not e]
+    ttft_hit = [sched.ttft[r] * 1e3 for r, e in ext_rid.items() if e]
+    total = sum(len(o) for o in outs)
+    pool_bytes = ps["block_bytes"] * ps["pool_blocks"]
+    log = eng.prefill_token_log
+    print(f"[paged] {len(rids)} requests, {total} tokens in {dt:.3f}s: "
+          f"{total / dt:.1f} tok/s, decode step {np.median(step_ms):.2f} ms "
+          f"p50 ({np.mean(step_ms):.2f} mean, {steps} steps); prefill p50 "
+          f"cold {np.median(cold):.2f} ms ({len(cold)}), hit "
+          f"{np.median(hit):.2f} ms ({len(hit)}); TTFT p50 (queue incl.) "
+          f"cold {np.median(ttft_cold):.1f} ms, hit {np.median(ttft_hit):.1f}"
+          f" ms, all {sched.stats()['ttft_s']['p50'] * 1e3:.1f} ms; prefill "
+          f"tokens {ps['prefill_tokens']} (cold bucket {log[0]}, hits "
+          f"{min(log[1:])}..{max(log[1:])}), {pre['hit_tokens']} prompt "
+          f"tokens reused; pool in use at peak {peak_blocks[0]} of "
+          f"{ps['pool_blocks']} blocks ({peak_blocks[0] * ps['block_bytes']}"
+          f" B of {pool_bytes} B), at the end {ps['live_cache_bytes']} B "
+          f"({ps['used_blocks']} blocks, {pre['resident_blocks']} held by "
+          f"the trie) on {card}", flush=True)
+    agree = np.concatenate(agree)
+    print(f"[paged] served tokens vs cache-free forward: {agree.mean():.3f} "
+          f"of {agree.size} greedy tokens equal, served logit trails the "
+          f"best by at most {max(worst, 0.0):.3g} (limit {GREEDY_TOL}); "
+          f"{same:.3f} of tokens equal to the slab Engine's on the same "
+          f"requests (not gated)", flush=True)
     return launches
 
 
@@ -598,7 +839,10 @@ def main():
     dev = torch.device("cuda")
     kernels = phase_topk(torch, np, arch, dev)
     ce, ce_errs = phase_fused_ce(torch, np, arch, dev)
-    launches = phase_serve(torch, np, arch, card, dev)
+    paged = phase_paged_attn(torch, np, dev)
+    launches, params = phase_serve(torch, np, arch, card, dev)
+    paged_launches = phase_paged_serve(torch, np, arch, params, card, dev)
+    del params
     train_launches = phase_train(torch, np, arch, card, dev)
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
@@ -623,6 +867,16 @@ def main():
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = paged["decode"]                   # the paged serving decode shape
+    record["kernels"].append({
+        "name": "paged_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
+        "launches": paged_launches["paged_attn"],
+        "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,145 @@
+"""Paged decode attention over a block-pool KV cache, without gathering it.
+
+Replaces ``repro/kernels/paged_attn/kernel.py:_paged_kernel``, the Pallas
+TPU kernel behind ``pallas_paged_attention``, with a hand-written CUDA
+kernel for Hopper (`csrc/paged_attn.cu`, built by
+`repro_torch.kernels.build`).
+
+Bound on an H100 SXM: the kernel must read each row's live K/V pages
+once (plus q, and write the output); at the serving cell's decode shape
+(B 8, 8 KV heads, head_dim 128, block 16) a full 512-token chain is
+16.8 MB a layer, ~5 us at 3.35 TB/s, and the products are far below the
+tensor-core line: it is memory-bound, and at short chains bound by
+launch latency.  The design: one CTA per (row, KV head) walks its own
+row of the block table (the TPU kernel's scalar-prefetch index maps and
+sequential chain axis have no counterpart on the GPU), stopping at
+``ceil(lens / bs)`` pages; the g * Tq query rows of its KV head sit in
+shared memory as f32 and K/V pages stream through a cp.async ring.  See
+the source's header.
+
+Contract (the JAX kernel's, minus its tunable ``pages_per_step``, which
+waits for the autotuner, ROADMAP A2 item 4): q (B, Tq, nq, hd), kp/vp
+(N, bs, nkv, hd), table (B, nb) int32 chains (null block 0 past each
+chain), lens (B,) int32 lengths after the Tq appends.  Query ``i`` sits
+at ``lens - Tq + i``; rows with ``lens == 0`` give zeros.  Output
+(B, Tq, nq, hd) in q's dtype.
+
+`paged_attention_ref` is the plain PyTorch version.  `paged_attention`
+runs it for tensors on the CPU; for CUDA tensors it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+
+MAX_HEAD_DIM = 256
+LAUNCHES = build.counter("paged_attn")
+
+_configured = set()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("paged_attn")
+    if id(lib) not in _configured:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_attn_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, f, i, f, p]
+        lib.paged_attn_launch.restype = i
+        lib.paged_attn_smem_bytes.argtypes = [i, i, i]
+        lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attn_max_smem.restype = i
+        lib.paged_attn_error_string.argtypes = [i]
+        lib.paged_attn_error_string.restype = ctypes.c_char_p
+        _configured.add(id(lib))
+    return lib
+
+
+def _check_cuda_args(q, kp, vp, table, lens):
+    tensors = {"q": q, "kp": kp, "vp": vp, "table": table, "lens": lens}
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1 or not q.is_cuda:
+        raise ValueError("q, kp, vp, table and lens must lie on one CUDA "
+                         "device, got " + ", ".join(
+                             f"{k} {t.device}" for k, t in tensors.items()))
+    for name, t in (("q", q), ("kp", kp), ("vp", vp)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"the kernel takes bf16 {name}, got {t.dtype}")
+    for name, t in (("table", table), ("lens", lens)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if q.dim() != 4 or kp.dim() != 4 or kp.shape != vp.shape:
+        raise ValueError(f"need q (B, Tq, nq, hd) and kp/vp (N, bs, nkv, "
+                         f"hd), got {tuple(q.shape)}, {tuple(kp.shape)}, "
+                         f"{tuple(vp.shape)}")
+    b, tq, nq, hd = q.shape
+    n_pool, bs, nkv, hd_kv = kp.shape
+    if hd_kv != hd or nq % nkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match pools "
+                         f"{tuple(kp.shape)} (head_dim, nq % nkv == 0)")
+    if table.dim() != 2 or table.shape[0] != b or lens.shape != (b,):
+        raise ValueError(f"need table (B, nb) and lens (B,) for B={b}, got "
+                         f"{tuple(table.shape)} and {tuple(lens.shape)}")
+    if min(b, tq, n_pool, bs, table.shape[1]) < 1:
+        raise ValueError(f"empty input: q {tuple(q.shape)}, pools "
+                         f"{tuple(kp.shape)}, table {tuple(table.shape)}")
+    if hd % 8 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel needs head_dim % 8 == 0 and <= "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.data_ptr() % 16 or kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("q, kp and vp must be 16-byte aligned")
+
+
+def paged_attention(
+    q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+    table: torch.Tensor, lens: torch.Tensor, *,
+    kp_scale: Optional[torch.Tensor] = None,
+    vp_scale: Optional[torch.Tensor] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention of q (B, Tq, nq, hd) over the block chains of
+    kp/vp (N, bs, nkv, hd) -> (B, Tq, nq, hd) in q's dtype.
+
+    CPU tensors go to `paged_attention_ref`.  CUDA tensors go to the
+    kernel, which takes bf16 q and pools, int32 table and lens, all
+    contiguous on one device, ``hd % 8 == 0`` and ``hd <= 256``; it
+    raises ValueError on anything else.  int8 pools with scale pools
+    (`kp_scale` / `vp_scale`) come with ROADMAP A6."""
+    if kp_scale is not None or vp_scale is not None:
+        raise NotImplementedError("int8 paged KV pools (kp_scale / "
+                                  "vp_scale) come with ROADMAP A6")
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, kp, vp, table, lens, softcap=softcap)
+    _check_cuda_args(q, kp, vp, table, lens)
+    b, tq, nq, hd = q.shape
+    n_pool, bs, nkv, _ = kp.shape
+    lib = _lib()
+    smem = lib.paged_attn_smem_bytes(bs, hd, (nq // nkv) * tq)
+    if smem > lib.paged_attn_max_smem():
+        raise ValueError(f"{smem} bytes of shared memory a block (block "
+                         f"size {bs}, head_dim {hd}, {nq // nkv * tq} query "
+                         f"rows a KV head) exceed the card's "
+                         f"{lib.paged_attn_max_smem()}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):     # a no-op on the current device
+        err = lib.paged_attn_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs,
+            table.shape[1], 1.0 / math.sqrt(hd), int(softcap is not None),
+            float(softcap or 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("paged_attn launch failed: "
+                           + lib.paged_attn_error_string(err).decode())
+    LAUNCHES.inc()
+    return out

@@ -2,10 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--arch qwen3-0.6b] [--reduced] [--device cpu] [--batch 8] \
-        [--max-len 512] [--prompt-len 128] [--steps 8] [--top 12]
+        [--max-len 512] [--prompt-len 128] [--steps 8] [--top 12] \
+        [--paged [--block-size 16]]
 
-Fills every slot of an `Engine` with a seeded prompt, warms up, then
-measures `--steps` plain decode steps twice:
+Fills every slot of an `Engine` (a `PagedEngine` with ``--paged``: the
+block-pool cache, every layer's decode attention through the paged
+kernel) with a seeded prompt, warms up, then measures `--steps` plain
+decode steps twice:
 
   * unprofiled: host wall time per step (the step ends with the sampled
     ids on the host, so it is synchronous) and, on CUDA, the device
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.registry import get_arch, init_params
-from repro_torch.serve import Engine, ServeConfig, resolve_device
+from repro_torch.serve import (Engine, PagedEngine, ServeConfig,
+                               resolve_device)
 
 
 def _device_events(prof):
@@ -58,6 +62,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged block-pool engine (PagedEngine)")
+    ap.add_argument("--block-size", type=int, default=16)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -65,9 +72,10 @@ def main(argv=None):
     arch = get_arch(args.arch, reduced=args.reduced)
     params = init_params(
         arch, torch.Generator(device=device).manual_seed(args.seed), device)
-    eng = Engine(arch, params, ServeConfig(batch_size=args.batch,
-                                           max_len=args.max_len),
-                 device=device)
+    sc = ServeConfig(batch_size=args.batch, max_len=args.max_len,
+                     paged=args.paged, block_size=args.block_size)
+    eng = (PagedEngine if sc.paged else Engine)(arch, params, sc,
+                                                device=device)
     rng = np.random.default_rng(args.seed)
     for slot in range(args.batch):
         eng.prefill_into_slot(slot, rng.integers(1, arch.vocab_size,
@@ -126,8 +134,9 @@ def main(argv=None):
              if e.self_cpu_time_total > 0),
             key=lambda r: -r[1])[:args.top],
     }
-    print(f"[profile] {arch.arch_id} {arch.cfg.n_layers} layers, batch "
-          f"{args.batch}, max_len {args.max_len}, prompts "
+    cache = f"paged (block {args.block_size})" if args.paged else "slab"
+    print(f"[profile] {arch.arch_id} {arch.cfg.n_layers} layers, {cache} "
+          f"cache, batch {args.batch}, max_len {args.max_len}, prompts "
           f"{args.prompt_len}, {args.steps} decode steps on {device}")
     print(f"[profile] decode step: wall p50 {wall_ms:.4f} ms, device "
           f"timeline {_fmt(gpu_ms, ' ms')}, device busy "

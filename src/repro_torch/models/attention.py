@@ -1,5 +1,5 @@
-"""GQA attention: blockwise training attention, slab-cache prefill and
-cached decode (port of `repro.models.attention`).
+"""GQA attention: blockwise training attention, slab-cache prefill,
+cached decode and paged decode (port of `repro.models.attention`).
 
 Every attention here is plain PyTorch (none is a Pallas kernel in the
 JAX package): scores in f32 through `_tile_scores` — which keeps the GQA
@@ -17,9 +17,18 @@ in f32.
     once, which serving prompts (T <= max_len) afford.
   * `decode_attention` keeps the softmax-then-matmul order of
     `repro.models.attention.decode_attention`.
+  * `extend_attention` (a paged prefix hit's suffix prefill over the
+    cached prefix) replays `prefill_attention`'s arithmetic, so a hit's
+    rows match a cold prefill's.
 
-Cache writes (`_update_cache`) are IN PLACE on the cache tensors they are
-given, and clamp every position into the cache as JAX's
+Paged decode (a cache dict with a ``'table'``) goes through the
+hand-written Hopper kernel `repro_torch.kernels.paged_attn` when
+``paged_impl='kernel'`` (its plain version for CPU tensors), or through
+`decode_attention` over `gather_paged_kv` when ``paged_impl='plain'``
+(CPU tensors only).
+
+Cache writes (`_update_cache`, `_paged_update`) are IN PLACE on the
+cache tensors they are given, and clamp every position into the cache as JAX's
 ``dynamic_update_slice`` and clipped scatter do: free slots keep decoding
 past ``max_len``.
 """
@@ -33,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.paged_attn import gather_paged_kv, paged_attention
 from repro_torch.models import layers as L
 
 _NEG_INF = float("-inf")
@@ -48,10 +58,12 @@ class AttnConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
-    causal: bool = True                   # local windows: ROADMAP A8
+    causal: bool = True
+    window: Optional[int] = None          # local windows: ROADMAP A8
     chunk_q: int = 512
     chunk_k: int = 1024
     n_layers_scale: int = 1
+    paged_impl: str = "kernel"            # 'kernel' | 'plain' (CPU only)
 
 
 def init_attention(cfg: AttnConfig, generator: torch.Generator,
@@ -319,6 +331,52 @@ def decode_attention(q, k_cache, v_cache, cache_len, cfg: AttnConfig):
     return _pv(p, v_cache).reshape(b, tq, nq, hd).to(q.dtype)
 
 
+def extend_attention(q, k_cache, v_cache, cache_len, cfg: AttnConfig):
+    """Suffix-prefill attention: new queries over [cached prefix | fresh].
+
+    `decode_attention`'s signature and masking with `prefill_attention`'s
+    arithmetic (``p = exp(s - m)``, ``acc = p @ v`` with p in the value
+    dtype, ``out = acc / max(a, 1e-30)``): a prefix hit's suffix rows
+    repeat the rows of a cold prefill of the whole prompt, which reduces
+    over the same number of keys (the paged engine pads the suffix so
+    that shared + suffix is the cold bucket)."""
+    b, tq, nq, hd = q.shape
+    s_len, nkv = k_cache.shape[1], k_cache.shape[2]
+    q5 = q.reshape(b, tq, nkv, nq // nkv, hd)
+    s = _tile_scores(q5, k_cache, cfg)                   # (B,nkv,g,Tq,S)
+    kpos = torch.arange(s_len, device=q.device)
+    qpos = cache_len[:, None] - tq + torch.arange(tq, device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]       # (B, Tq, S)
+    s = s.masked_fill(~mask[:, None, None], _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    a = p.sum(dim=-1)                                    # (B,nkv,g,Tq)
+    out = _pv(p, v_cache) / a.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, tq, nq, hd).to(q.dtype)
+
+
+def _paged_update(pool, table, new_vals, cur_len):
+    """Scatter new_vals (B, t, nkv, hd) into the shared block pool
+    (N, bs, nkv, hd), IN PLACE, and return the pool.
+
+    Position ``p`` of row ``b`` lives in block ``table[b, p // bs]`` at
+    slot ``p % bs``; rows own disjoint blocks, so live writes never
+    collide.  Positions past a row's table clamp into its last column,
+    and free slots' null-filled rows land in the reserved null block 0,
+    which nothing reads (JAX's clipped gather and scatter)."""
+    b, t = new_vals.shape[:2]
+    n, bs = pool.shape[:2]
+    pos = cur_len.long()[:, None] + torch.arange(t, device=pool.device)
+    col = (pos // bs).clamp(0, table.shape[1] - 1)
+    blk = table.long().gather(1, col)                    # (B, t)
+    slot = (blk * bs + pos % bs).reshape(-1)
+    flat = pool.view((n * bs,) + tuple(pool.shape[2:]))
+    flat.index_put_((slot,), new_vals.reshape(
+        (b * t,) + tuple(new_vals.shape[2:])).to(pool.dtype))
+    return pool
+
+
 def _update_cache(cache_arr, new_vals, cur_len):
     """Write new_vals (B, t, ...) at each row's position `cur_len` (B,),
     IN PLACE, and return the cache.
@@ -358,18 +416,31 @@ def attention_layer(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     decode: bool = False,
+    prefill_ext: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention layer: returns (out, new_cache).
 
     cache: None (a cache-free forward, as in training, through
-    `blockwise_attention`) or a dense slab {'k', 'v', 'len'}.  With a
-    cache, T > 1 is a prefill — the segment is written at ``len`` and
-    attends within itself (the cache is empty before a prefill) — and
-    T == 1 (or ``decode=True``) appends and attends over the whole
-    cache.  The k/v tensors of the cache are
-    updated in place; the returned cache carries the new ``len``.
+    `blockwise_attention`), a dense slab {'k', 'v', 'len'} or a paged
+    block pool {'kp', 'vp', 'table', 'len'}.  With a cache, T > 1 is a
+    prefill — the segment is written at ``len`` and attends within
+    itself (the cache is empty before a prefill) — and T == 1 (or
+    ``decode=True``) appends and attends over the whole cache.
+    ``prefill_ext=True`` (with ``decode=True``, paged only) marks the
+    suffix prefill of a prefix hit: the new tokens attend over the
+    cached prefix through `extend_attention`.  The cache's k/v tensors
+    or pools are updated in place; the returned cache carries the new
+    ``len``.
     """
     b, t, _ = x.shape
+    is_decode = decode or t == 1
+    if cfg.window is not None:
+        if cache is not None and "table" in cache and is_decode:
+            raise NotImplementedError(
+                "paged decode has no local-window path (windowed caches "
+                "are ring buffers, already O(window))")
+        raise NotImplementedError("local-window attention comes with "
+                                  "ROADMAP A8")
     if positions is None:
         if cache is not None:
             positions = cache["len"][:, None] + torch.arange(
@@ -381,8 +452,32 @@ def attention_layer(
     new_cache = None
     if cache is None:
         out = blockwise_attention(q, k, v, cfg)
-    elif "table" in cache:
-        raise NotImplementedError("paged KV attention comes with ROADMAP A3")
+    elif "table" in cache:                               # paged block pool
+        if "kp_scale" in cache:
+            raise NotImplementedError("int8 paged KV pools come with "
+                                      "ROADMAP A6")
+        table = cache["table"]
+        kp = _paged_update(cache["kp"], table, k, cache["len"])
+        vp = _paged_update(cache["vp"], table, v, cache["len"])
+        new_len = cache["len"] + t
+        new_cache = {"kp": kp, "vp": vp, "table": table, "len": new_len}
+        if not is_decode:
+            # cold prefill: the chain is empty, attend within the segment
+            out = prefill_attention(q, k, v, cfg)
+        elif prefill_ext:
+            out = extend_attention(q, gather_paged_kv(kp, table),
+                                   gather_paged_kv(vp, table), new_len, cfg)
+        elif cfg.paged_impl == "kernel":
+            out = paged_attention(q, kp, vp, table, new_len,
+                                  softcap=cfg.attn_softcap)
+        elif cfg.paged_impl == "plain":
+            if q.device.type != "cpu":
+                raise ValueError("paged_impl='plain' (the gather oracle) "
+                                 "runs on CPU tensors only")
+            out = decode_attention(q, gather_paged_kv(kp, table),
+                                   gather_paged_kv(vp, table), new_len, cfg)
+        else:
+            raise ValueError(f"unknown paged_impl {cfg.paged_impl!r}")
     elif "pos" in cache:
         raise NotImplementedError("ring-buffer local attention comes with "
                                   "ROADMAP A8")
@@ -393,7 +488,7 @@ def attention_layer(
         v_cache = _update_cache(cache["v"], v, cache["len"])
         new_len = cache["len"] + t
         new_cache = {"k": k_cache, "v": v_cache, "len": new_len}
-        if decode or t == 1:
+        if is_decode:
             out = decode_attention(q, k_cache, v_cache, new_len, cfg)
         else:
             out = prefill_attention(q, k, v, cfg)

@@ -4,9 +4,12 @@
 The registry pads the lm_head to `arch.padded_vocab` rows; the pad rows
 are masked by ``valid_vocab`` in every sampler.  The serve cache of the
 transformer family is the stacked slab tree
-``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}``: its batch axis is
-known (1 for every leaf), so the per-slot surgery below needs no shape
-discovery.  The surgery updates the batched tree IN PLACE and returns it.
+``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}`` or its paged form
+``{'kp', 'vp': (L, N, bs, nkv, hd), 'table': (L, B, nb), 'len': (L, B)}``.
+The batch axis is known (1 for every leaf but the pools, which have
+none: every slot shares them), so the per-slot surgery below needs no
+shape discovery.  It updates the batched tree IN PLACE and returns it;
+the pools are never copied or cloned — a slot view shares them.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ _CONFIG_MODULES = {
     "paper-lm": "repro_torch.configs.paper_lm",
 }
 
-_BATCH_AXIS = 1                  # (L, B, ...) for every serve-cache leaf
+_BATCH_AXIS = 1                  # (L, B, ...) for every batched leaf
+_POOL_KEYS = ("kp", "vp")        # paged pools: no batch axis, shared
 
 
 def get_arch(arch_id: str, *, reduced: bool = False, **overrides) -> Arch:
@@ -58,43 +62,61 @@ def init_params(arch: Arch, generator: torch.Generator, device="cpu"):
 
 
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
-                   caches=None, decode: bool = False):
-    """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens']."""
+                   caches=None, decode: bool = False,
+                   prefill_ext: bool = False):
+    """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'];
+    ``prefill_ext`` (with ``decode``) is the paged engine's suffix-only
+    prefill after a prefix hit."""
     _require_transformer(arch)
     return transformer.forward(params, batch["tokens"], arch.cfg,
-                               caches=caches, decode=decode)
+                               caches=caches, decode=decode,
+                               prefill_ext=prefill_ext)
 
 
 def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cpu",
-                      quantize: bool = False):
-    """Zeroed slab caches for `batch_size` slots."""
+                      quantize: bool = False, paged=None):
+    """Zeroed caches for `batch_size` slots: slab, or paged with `paged`
+    (a `serve.kvpool.PagedConfig`)."""
     _require_transformer(arch)
     return transformer.init_caches(arch.cfg, batch_size, max_len, dtype,
-                                   device, quantize=quantize)
+                                   device, quantize=quantize, paged=paged)
 
 
 def empty_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                        dtype=torch.bfloat16, device="cpu",
-                       quantize: bool = False):
+                       quantize: bool = False, paged=None):
     """The batched container whose slots await per-slot prefill inserts.
     For the transformer family it IS `init_serve_caches` (the JAX
     package differs only for enc-dec, whose init runs the encoder)."""
     return init_serve_caches(arch, batch_size, max_len, dtype=dtype,
-                             device=device, quantize=quantize)
+                             device=device, quantize=quantize, paged=paged)
 
 
 def take_slot_caches(caches, slot: int):
-    """A copy of one slot (size-1 batch axis kept) of a batched cache."""
-    return {k: v.narrow(_BATCH_AXIS, slot, 1).clone()
-            for k, v in caches.items()}
+    """One slot (size-1 batch axis kept) of a batched cache: a copy of
+    every batched leaf; the paged pools are shared, not copied."""
+    return {k: v if k in _POOL_KEYS else v.narrow(_BATCH_AXIS, slot, 1)
+            .clone() for k, v in caches.items()}
 
 
 def insert_slot_caches(caches, slot_caches, slot: int):
-    """Write a batch=1 cache tree into slot `slot` of `caches`, in place."""
+    """Write a batch=1 cache tree into slot `slot` of `caches`, in place.
+    The pools (no batch axis) are left untouched."""
     for k, v in caches.items():
-        v.narrow(_BATCH_AXIS, slot, 1).copy_(slot_caches[k])
+        if k not in _POOL_KEYS:
+            v.narrow(_BATCH_AXIS, slot, 1).copy_(slot_caches[k])
     return caches
+
+
+def merge_slot_caches(caches, slot_caches, slot: int):
+    """`insert_slot_caches` that also ADOPTS the slot tree's pools: a
+    batch=1 paged prefill writes straight into the shared pools, so the
+    slot tree's pool leaves are the authoritative ones.  (The port's
+    pools are updated in place, so they are the same tensors.)"""
+    insert_slot_caches(caches, slot_caches, slot)
+    return dict(caches, **{k: slot_caches[k] for k in _POOL_KEYS
+                           if k in caches})
 
 
 def reset_slot_caches(caches, template, slot: int):

@@ -6,9 +6,10 @@ JAX package scans stacked params; `repro_torch.weights` unstacks them).
 A cache-free forward under autograd rematerializes each block in its
 backward (`torch.utils.checkpoint`, non-reentrant) when `remat` is set,
 as the JAX package's ``jax.checkpoint`` per block.
-The serve caches keep the JAX package's stacked layout,
-``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}``, and each layer reads
-its own views of them.
+The serve caches keep the JAX package's stacked layout — slab
+``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}`` or paged
+``{'kp', 'vp': (L, N, bs, nkv, hd), 'table': (L, B, nb), 'len': (L, B)}``
+— and each layer reads its own views of them.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class TransformerConfig:
     compute_dtype: str = "float32"
     chunk_q: int = 512
     chunk_k: int = 1024
+    paged_impl: str = "kernel"    # paged-KV decode: 'kernel' | 'plain'
 
     @property
     def resolved_head_dim(self) -> int:
@@ -55,7 +57,8 @@ class TransformerConfig:
             num_kv_heads=self.num_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, chunk_q=self.chunk_q,
-            chunk_k=self.chunk_k, n_layers_scale=self.n_layers)
+            chunk_k=self.chunk_k, n_layers_scale=self.n_layers,
+            paged_impl=self.paged_impl)
 
     @property
     def is_moe(self) -> bool:
@@ -115,12 +118,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def apply_block(p, x, cfg: TransformerConfig, *, cache=None,
-                decode: bool = False):
+                decode: bool = False, prefill_ext: bool = False):
     """Pre-norm block; returns (x, new_cache)."""
     _require_dense(cfg)
     h, new_cache = A.attention_layer(
         p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
-        cfg.attn_config(), cache=cache, decode=decode)
+        cfg.attn_config(), cache=cache, decode=decode,
+        prefill_ext=prefill_ext)
     x = x + h
     x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
     return x, new_cache
@@ -130,11 +134,14 @@ def forward(
     params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     caches: Optional[Dict[str, torch.Tensor]] = None,
     decode: bool = False,
+    prefill_ext: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """tokens (B, T) -> (hidden (B, T, d), aux_loss, new_caches).
 
-    With `caches`, each layer writes its K/V into the stacked k/v tensors
-    IN PLACE; the returned tree holds the same k/v and the new lens."""
+    With `caches`, each layer gets its own views of every stacked leaf and
+    writes its K/V into them IN PLACE (slab k/v or paged pools); the
+    returned tree holds the same tensors and the new lens.
+    ``prefill_ext`` marks a paged suffix prefill (`attention_layer`)."""
     x = L.embed_lookup(params["embed"]["table"], tokens).to(
         dtype_of(cfg.compute_dtype))
     lens = []
@@ -146,24 +153,31 @@ def forward(
             continue
         cache = None
         if caches is not None:
-            cache = {"k": caches["k"][i], "v": caches["v"][i],
-                     "len": caches["len"][i]}
-        x, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode)
+            cache = {key: val[i] for key, val in caches.items()}
+        x, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode,
+                                   prefill_ext=prefill_ext)
         if new_cache is not None:
             lens.append(new_cache["len"])
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None
     if caches is not None:
-        new_caches = {"k": caches["k"], "v": caches["v"],
-                      "len": torch.stack(lens)}
+        new_caches = dict(caches, len=torch.stack(lens))
     return x, aux, new_caches
 
 
 def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cpu", quantize: bool = False):
-    """Stacked per-layer slab caches: k/v (L, B, S, nkv, hd), len (L, B)."""
-    one = A.init_cache(batch, max_len, cfg.attn_config(), dtype, device,
+                dtype=torch.bfloat16, device="cpu", quantize: bool = False,
+                paged=None):
+    """Stacked per-layer slab caches: k/v (L, B, S, nkv, hd), len (L, B);
+    with `paged` (a `serve.kvpool.PagedConfig`), the paged form of them
+    (`serve.kvpool.paged_tree`; the slab is never allocated)."""
+    one = A.init_cache(batch, max_len, cfg.attn_config(), dtype,
+                       "meta" if paged is not None else device,
                        quantize=quantize)
-    return {key: val[None].repeat((cfg.n_layers,) + (1,) * val.dim())
+    slab = {key: val[None].repeat((cfg.n_layers,) + (1,) * val.dim())
             for key, val in one.items()}
+    if paged is None:
+        return slab
+    from repro_torch.serve.kvpool import paged_tree
+    return paged_tree(slab, paged, device=device)

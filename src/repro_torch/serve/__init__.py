@@ -1,6 +1,10 @@
-"""Serving stack of the port: slot engine, scheduler, streaming samplers."""
+"""Serving stack of the port: slot and paged engines, the block pool, the
+scheduler, streaming samplers."""
 
 from repro_torch.serve.engine import Engine, ServeConfig, resolve_device
+from repro_torch.serve.kvpool import (BlockPool, PagedConfig, PoolExhausted,
+                                      PrefixCache, paged_config)
+from repro_torch.serve.paged import PagedEngine, PagedSelfSpecEngine
 from repro_torch.serve.sampler import (sample_tokens, streaming_topk,
                                        top_p_mask)
 from repro_torch.serve.scheduler import ContinuousScheduler

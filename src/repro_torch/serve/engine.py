@@ -5,7 +5,10 @@ row of one live batched cache tree is an independent *slot*:
 
   * `prefill_into_slot(i, prompt)` runs the model over one prompt at
     batch=1 (padded to a power-of-two bucket), samples the first token,
-    and copies the resulting cache into slot `i` of the live tree;
+    and copies the resulting cache into slot `i` of the live tree —
+    through the hooks `_slot_prefill_view` (the inputs and the slot's
+    cache view) and `_commit_slot` (publish it), which the paged engine
+    overrides (`serve/paged.py`);
   * `decode_step()` advances EVERY slot one token with one forward and
     one streaming top-k sample — on the card through the hand-written
     `sample_topk` kernel, so the step never forms the (B, V) logits;
@@ -47,6 +50,13 @@ class ServeConfig:
     quantize_cache: bool = False   # int8 KV: ROADMAP A6
     head_dtype: Optional[str] = None  # quantized lm_head: ROADMAP A6
     sampler_impl: str = "kernel"   # 'kernel' | 'plain' (CPU tensors only)
+    autotune: bool = False         # tuned block plans: ROADMAP A2 item 4
+    # paged KV cache (serve/paged.PagedEngine)
+    paged: bool = False            # block-pool KV instead of dense slabs
+    block_size: int = 16           # tokens per pool block
+    pool_blocks: int = 0           # total pool blocks (0: slab parity)
+    paged_impl: str = "kernel"     # 'kernel' | 'plain' (CPU tensors only)
+    prefix_cache: bool = True      # shared-prefix block reuse (trie)
 
 
 def resolve_device(device) -> torch.device:
@@ -76,6 +86,9 @@ class Engine:
                                                       "float32"):
             raise NotImplementedError("quantized KV caches and lm_heads "
                                       "come with ROADMAP A6")
+        if sc.autotune:
+            raise NotImplementedError("autotuned block plans (top-k and "
+                                      "paged) come with ROADMAP A2 item 4")
         self.arch = arch
         self.params = params
         self.sc = sc
@@ -96,11 +109,14 @@ class Engine:
     def batch_size(self) -> int:
         return self.sc.batch_size
 
-    def reset(self, seed: int = 0):
-        """Fresh batched cache container + per-slot pristine template."""
-        self.caches = empty_serve_caches(
+    def _empty_caches(self):
+        return empty_serve_caches(
             self.arch, self.sc.batch_size, self.sc.max_len, dtype=self._cdt,
             device=self.device)
+
+    def reset(self, seed: int = 0):
+        """Fresh batched cache container + per-slot pristine template."""
+        self.caches = self._empty_caches()
         self._template = take_slot_caches(self.caches, 0)
         self.cur = np.zeros((self.sc.batch_size,), np.int32)
         self._gen = torch.Generator(device=self.device)
@@ -117,30 +133,69 @@ class Engine:
 
     # -- slot operations ----------------------------------------------------
 
-    @torch.no_grad()
-    def prefill_into_slot(self, slot: int, prompt) -> int:
-        """Prefill one prompt at batch=1 into slot `slot`; returns the
-        FIRST sampled token (the time-to-first-token token)."""
+    def _bucket_for(self, true_len: int, cap: Optional[int] = None) -> int:
+        """Padded prefill length of a `true_len`-token segment: its
+        power-of-two bucket when that fits under `cap` (default
+        `max_len`), else the exact length."""
+        cap = self.sc.max_len if cap is None else min(cap, self.sc.max_len)
+        t_b = _bucket_len(true_len, self.sc.max_len)
+        return t_b if t_b <= cap else true_len
+
+    def _prefill_inputs(self, prompt, pad_cap: Optional[int] = None,
+                        pad_to: Optional[int] = None):
+        """(tokens (1, T_pad) on the device, true_len) of one batch=1
+        prefill: validation and bucketing.  `pad_cap` bounds the padded
+        length; `pad_to` forces it (the paged engine pads a prefix hit's
+        suffix so that shared + padded is the cold prefill's bucket)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         true_len = prompt.shape[0]
         if not 1 <= true_len <= self.sc.max_len:
             raise ValueError(f"prompt length {true_len} outside "
                              f"[1, {self.sc.max_len}]")
-        t_b = _bucket_len(true_len, self.sc.max_len)
+        if pad_to is not None:
+            if pad_to < true_len:
+                raise ValueError(f"pad_to={pad_to} < prompt {true_len}")
+            t_b = pad_to
+        else:
+            t_b = self._bucket_for(true_len, pad_cap)
         tokens = np.zeros((1, t_b), np.int32)
         tokens[0, :true_len] = prompt
+        return torch.from_numpy(tokens).to(self.device), true_len
+
+    def _slot_prefill_view(self, slot: int, prompt,
+                           match_len: Optional[int] = None):
+        """(tokens, slot_caches, true_len, ctx) of one slot prefill: a
+        fresh batch=1 slab here.  `ctx` is threaded to `_commit_slot`;
+        its ``'ext'`` key selects the cache-extension prefill (the paged
+        engine's prefix hits).  `match_len` caps the paged prefix match;
+        the slab engine has no prefix reuse and ignores it."""
+        del slot, match_len
+        tokens, true_len = self._prefill_inputs(prompt)
+        slot_caches = init_serve_caches(self.arch, 1, self.sc.max_len,
+                                        dtype=self._cdt, device=self.device)
+        return tokens, slot_caches, true_len, {"ext": False}
+
+    def _commit_slot(self, slot: int, slot_caches, ctx):
+        """Publish a finished prefill's slot tree into the live batch."""
+        del ctx
+        insert_slot_caches(self.caches, slot_caches, slot)
+
+    @torch.no_grad()
+    def prefill_into_slot(self, slot: int, prompt) -> int:
+        """Prefill one prompt at batch=1 into slot `slot`; returns the
+        FIRST sampled token (the time-to-first-token token)."""
+        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, prompt)
+        t_b = tokens.shape[1]
+        ext = bool(ctx.get("ext"))
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
-                               tokens=t_b, ext=False):
-            slot_caches = init_serve_caches(
-                self.arch, 1, self.sc.max_len, dtype=self._cdt,
-                device=self.device)
+                               tokens=t_b, ext=ext):
             h, _, slot_caches = forward_hidden(
-                self.arch, self.params,
-                {"tokens": torch.from_numpy(tokens).to(self.device)},
-                caches=slot_caches)
+                self.arch, self.params, {"tokens": tokens},
+                caches=slot_caches, decode=ext, prefill_ext=ext)
             slot_caches = shift_cache_lens(slot_caches, t_b - true_len)
             tok = self._sample(h[:, true_len - 1, :])
-            insert_slot_caches(self.caches, slot_caches, slot)
+            self._commit_slot(slot, slot_caches, ctx)
             tok = int(tok[0].item())
         self._m_prefills.inc()
         self._m_prefill_tokens.inc(t_b)

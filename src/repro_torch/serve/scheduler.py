@@ -10,6 +10,12 @@ cycles  free -> prefill -> decode -> recycled-on-eos :
   * **recycle** — a slot whose request hits its EOS id or its token
     budget is reset and immediately eligible for the next admit.
 
+On a paged engine an admit that finds the block pool dry
+(`PoolExhausted`) puts the request back at the queue head and stops
+admission for the tick: running slots keep decoding and free blocks as
+they finish.  A request that cannot fit even with nothing running
+raises.
+
 The metric and span names are the JAX package's.  Eval, beam and best-of
 requests (`submit_eval`, `submit_beam`, `submit_best_of`) come with
 ROADMAP A4 and A5 and raise until then.
@@ -19,12 +25,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.serve.kvpool import PoolExhausted
+
+log = logging.getLogger("repro_torch.serve")
 
 _UNSET = object()
 
@@ -93,6 +103,10 @@ class ContinuousScheduler:
                                      "decode tokens emitted")
         self._m_admitted = reg.counter("serve.requests_admitted_total")
         self._m_finished = reg.counter("serve.requests_finished_total")
+        self._m_exhausted = reg.counter(
+            "serve.pool_exhausted_total",
+            "admissions requeued because the block pool ran dry")
+        self._exhausted_streak = 0
 
     # -- submission ---------------------------------------------------------
 
@@ -175,6 +189,33 @@ class ContinuousScheduler:
             self._finish(idx)
         return done
 
+    def _requeue_exhausted(self, req: Request):
+        """`PoolExhausted` backpressure: the request goes BACK to the
+        queue head (FIFO-with-requeue) and admission stops for this
+        tick; if nothing is running either, the request can never fit
+        and the error re-raises."""
+        self._note_pool_exhausted(req)
+        self.queue.appendleft(req)
+        if self.active == 0:
+            raise
+
+    def _note_pool_exhausted(self, req: Request):
+        """Count the requeue, and log the pool's state once a dry spell."""
+        self._m_exhausted.inc()
+        self._exhausted_streak += 1
+        if self._exhausted_streak > 1:
+            return
+        ps = self.engine.paged_stats()
+        pre = ps.get("prefix", {})
+        log.warning(
+            "pool exhausted admitting request %d (%d prompt tokens): "
+            "requeued at queue head, %d running / %d queued; pool %d/%d "
+            "blocks in use, %d free, trie holds %d resident blocks (%d "
+            "evicted so far)", req.rid, len(req.prompt), self.active,
+            len(self.queue) + 1, ps["used_blocks"], ps["pool_blocks"],
+            ps["free_blocks"], pre.get("resident_blocks", 0),
+            pre.get("evicted_blocks", 0))
+
     def _admit(self):
         """Admit queued requests (strict FIFO) while a slot is free."""
         while self.queue:
@@ -185,7 +226,12 @@ class ContinuousScheduler:
             idx = free[0]
             t_admit = time.perf_counter()
             self.queue_wait[req.rid] = t_admit - self._submit_t[req.rid]
-            first = self.engine.prefill_into_slot(idx, req.prompt)
+            try:
+                first = self.engine.prefill_into_slot(idx, req.prompt)
+            except PoolExhausted:
+                self._requeue_exhausted(req)
+                return
+            self._exhausted_streak = 0
             self.slots[idx] = _Slot(req, [])
             t_first = time.perf_counter()
             self.admit_order.append(req.rid)
@@ -258,7 +304,7 @@ class ContinuousScheduler:
                     "p95": h.quantile(0.95),
                     "p99": h.quantile(0.99)}
 
-        return {
+        out = {
             "requests": len(self.results),
             "decode_steps": self.decode_steps,
             "occupancy": self.occupancy,
@@ -270,3 +316,7 @@ class ContinuousScheduler:
             "queue_wait_s": _summ(self.queue_wait),
             "tpot_s": _summ(self.tpot),
         }
+        paged = getattr(self.engine, "paged_stats", None)
+        if paged is not None:
+            out["paged"] = paged()
+        return out

@@ -9,7 +9,9 @@ in f32 (TF32 off) on the same bf16 inputs: lse and z_target rtol 1e-5 /
 atol 1e-4, z_sum atol 1e-3 (a sum over the vocab of values in another
 order); dH and dW rtol 3e-4 / atol 1e-6, the JAX kernels' own tolerance
 (`tests/test_kernel_fused_ce.py`) — the kernels contract g as two bf16
-halves, |g - hi - lo| <= 2^-17 |g|."""
+halves, |g - hi - lo| <= 2^-17 |g|.  paged_attn: bf16 outputs within
+atol / rtol 1e-2 of the plain version in f32, cast (one bf16 rounding
+at |out| <= ~1)."""
 
 import numpy as np
 import pytest
@@ -224,3 +226,115 @@ def test_fused_ce_refuses_what_it_does_not_support(cuda):
     with pytest.raises(NotImplementedError):
         bwd_grads(h, w.to(torch.int8), y, lse, lse, lse, cfg)
     assert {k: c.count for k, c in build.COUNTERS.items()} == before
+
+
+# ---------------------------------------------------------------------------
+# paged_attn
+# ---------------------------------------------------------------------------
+
+
+def _paged_problem(cuda, b, tq, nq, nkv, hd, bs, nb, seed, lens=None):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_pool = b * nb + 1
+    kp = torch.randn((n_pool, bs, nkv, hd), generator=gen,
+                     device=cuda).bfloat16()
+    vp = torch.randn((n_pool, bs, nkv, hd), generator=gen,
+                     device=cuda).bfloat16()
+    perm = torch.randperm(n_pool - 1, generator=gen, device=cuda) + 1
+    table = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+    if lens is None:
+        lens = torch.randint(tq, nb * bs + 1, (b,), generator=gen,
+                             device=cuda, dtype=torch.int32)
+    q = torch.randn((b, tq, nq, hd), generator=gen, device=cuda).bfloat16()
+    return q, kp, vp, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,nq,nkv,hd,bs,nb,cap", [
+    (8, 1, 16, 8, 128, 16, 32, None),   # the serving decode shape
+    (8, 4, 16, 8, 128, 16, 32, 30.0),   # spec verify + softcap
+    (3, 8, 4, 2, 16, 4, 6, None),       # Tq 8, small blocks
+    (2, 3, 6, 3, 256, 8, 5, 20.0),      # head_dim 256, g = 2
+    (4, 2, 8, 1, 40, 3, 7, None),       # MQA, hd 40, odd block size
+])
+def test_paged_attn_matches_plain_version(cuda, b, tq, nq, nkv, hd, bs, nb,
+                                          cap):
+    """bf16 outputs against the plain version in f32, cast: atol / rtol
+    1e-2, one bf16 rounding at |out| <= ~1 either side of a tie."""
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, lens = _paged_problem(cuda, b, tq, nq, nkv, hd, bs, nb,
+                                            seed=b * 10 + tq)
+    before = LAUNCHES.count
+    out = paged_attention(q, kp, vp, table, lens, softcap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 1
+    ref = paged_attention_ref(q, kp, vp, table, lens, softcap=cap)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_paged_attn_ghost_rows_and_poisoned_null_block(cuda):
+    from repro_torch.kernels.paged_attn import (paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, _ = _paged_problem(cuda, 4, 1, 16, 8, 128, 16, 8, 3)
+    kp[0] = 1e9
+    vp[0] = 1e9
+    table[:, 3:] = 0
+    lens = torch.tensor([0, 1, 40, 48], dtype=torch.int32, device=cuda)
+    out = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert float(out.float().abs().max()) < 10
+
+
+@pytest.mark.cuda
+def test_paged_attn_refuses_what_it_does_not_support(cuda):
+    from repro_torch.kernels.paged_attn import LAUNCHES, paged_attention
+    q, kp, vp, table, lens = _paged_problem(cuda, 2, 1, 4, 2, 16, 4, 3, 0)
+    before = LAUNCHES.count
+    with pytest.raises(ValueError, match="bf16"):
+        paged_attention(q, kp.float(), vp.float(), table, lens)
+    with pytest.raises(NotImplementedError, match="A6"):
+        paged_attention(q, kp, vp, table, lens, kp_scale=kp[..., :1].float(),
+                        vp_scale=vp[..., :1].float())
+    q12, kp12, vp12, t12, l12 = _paged_problem(cuda, 2, 1, 4, 2, 12, 4, 3, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(q12, kp12, vp12, t12, l12)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_attention(q, kp, vp, table.cpu(), lens)
+    assert LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+def test_one_paged_decode_step_launches_once_per_layer(cuda):
+    """A paged engine's decode step runs the kernel once in every layer
+    (and the sampler once); the gather oracle refuses CUDA tensors."""
+    import dataclasses
+    from repro_torch.kernels.paged_attn import LAUNCHES
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import PagedEngine, ServeConfig
+    arch = get_arch("qwen3-0.6b", reduced=True)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, param_dtype="bfloat16", compute_dtype="bfloat16"))
+    params = init_params(arch, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    eng = PagedEngine(arch, params, ServeConfig(batch_size=2, max_len=64,
+                                                paged=True, block_size=16),
+                      device=cuda)
+    eng.prefill_into_slot(0, np.arange(1, 20))
+    before = LAUNCHES.count
+    eng.decode_step()
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + arch.cfg.n_layers
+    plain = PagedEngine(arch, params, ServeConfig(
+        batch_size=2, max_len=64, paged=True, paged_impl="plain"),
+        device=cuda)
+    plain.prefill_into_slot(0, np.arange(1, 20))
+    with pytest.raises(ValueError, match="plain"):
+        plain.decode_step()
