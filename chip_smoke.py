@@ -53,12 +53,46 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      and the share of tokens equal to the slab `Engine`'s on the same
      requests (printed, not gated: bf16 near-ties may flip).
 
+  6. speculative serving at full width — the same seeded qwen3-0.6b with
+     4 MTP heads attached (`with_mtp`), k 4: (a) `PagedSelfSpecEngine`
+     in rejection mode (temperature 0.7, top_k 40) on phase 5's traffic,
+     gated on 2 `score_tokens` and 2 `sample_topk` launches a step and
+     1 and 2 a prefill, 28 `paged_attn` launches a step at Tq 5, 15
+     prefix hits, ids below the vocab and 1..5 tokens a slot-step; (b)
+     a slab `SpecEngine` in rejection mode with a 1-layer full-width
+     draft (`small_draft`, d 1024) on phase 3's traffic, gated on 2
+     `score_tokens` and K + 1 `sample_topk` launches a step.  In (a) and
+     (b) every scoring call is recorded and must pass the vocab, softcap
+     and sampling temperature of its model, and its logps must equal the
+     plain version's on the same hidden states; (c) a slab
+     `SelfSpecEngine`, greedy, on phase 3's traffic: no `score_tokens`
+     launch, and every token within the bf16 tolerance of a cache-free
+     forward's best logit (random heads are rejected almost always, so
+     the rollback runs nearly every step).  Each prints tokens/s,
+     spec-step ms p50, acceptance, tokens per slot-step and TTFT p50;
+  7. loglikelihood eval at full width — `PagedEngine` with the prefix
+     cache on, the phase-6 params: 8 seeded 128-token prompts x 4
+     continuations of 8 tokens through `submit_eval`, gated on one
+     `score_tokens` launch a continuation, no `sample_topk`, 24 prefix
+     hits (3 a prompt), and every logp within 1e-4 of `log_softmax` of
+     a cache-free forward's f32 logits over the valid columns, a limit
+     that must lie below the reading of the same softmax over all the
+     padded head's columns.  Prints tokens scored a second and prefill
+     ms p50, cold and hit.
+
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
 ghost rows and with a poisoned null block, each timed beside its bound,
 its plain version and `F.scaled_dot_product_attention` over the
-gathered K/V.
+gathered K/V; and `score_tokens` on the padded head at the spec shape
+(rows 32, P 1, T 0.7), the self-spec prefill's 4 head rows at T 0.7,
+the eval shape (rows 8), rows 32 with P 4,
+softcap 30, duplicated, -1, past-valid and pad-row ids, and 1000 rows of
+a `col_offset` shard, each against its plain version, twice for bit
+identity, with -inf exactly where the JAX kernel puts it, and timed
+beside its bound, its plain version and ``torch.log_softmax`` of the
+logits gathered at the ids.
 
 The last lines are the `{"kernels": [...]}` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -103,6 +137,18 @@ GREEDY_TOL = 2e-3
 # of unit-normal values), so one bf16 rounding is <= 2^-8 and the two
 # may round a value on either side of a tie: atol and rtol 1e-2.
 PAGED_ATOL, PAGED_RTOL = 1e-2, 1e-2
+# eval logps against log_softmax of a cache-free forward's f32 logits over
+# the valid columns.  At 136 tokens the cache-free forward attends in one
+# 512-wide tile, as the served prefill (bucketed, cached, trie replays)
+# does, so the hidden states agree and only the logit sums differ in
+# order: the H100 reading was 9.5e-7 (PERF.md).  The limit has to sit
+# below the error of the likeliest fault: counting the 128 zero pad
+# columns of the padded head in lse moves every logp by about
+# log(1 + 128/151936) = 8.4e-4 under the seeded head (logits of std
+# ~0.08); phase 7 measures that reading too and fails if the limit would
+# not catch it.  A wrong position or a stale cache moves a logp by ~0.1.
+EVAL_ATOL = 1e-4
+SPEC_K = 4
 
 
 def card_line():
@@ -497,6 +543,45 @@ def phase_train(torch, np, arch, card, dev):
     return launches
 
 
+def serve_prompts(np, vocab):
+    """Phase 3's traffic: 16 prompts of seeded lengths 16..200."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 201, 16)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lens]
+
+
+def shared_prompts(np, vocab):
+    """Phase 5's traffic: one 128-token system prompt plus a seeded
+    8..64-token suffix, 16 prompts."""
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, vocab, 128).astype(np.int32)
+    return [np.concatenate([system, rng.integers(1, vocab, n).astype(
+        np.int32)]) for n in rng.integers(8, 65, 16)]
+
+
+def best_logit_deficit(torch, np, arch, params, prompts, outs, dev):
+    """(worst, agree): how far each served token's logit trails the best
+    one of a cache-free forward over its request (teacher-forced), and
+    whether it is that best token."""
+    from repro_torch.kernels.sample_topk import topk_scores_ref
+    from repro_torch.models.registry import forward_hidden
+    worst, agree = 0.0, []
+    head = params["lm_head"]
+    with torch.no_grad():
+        for prompt, out in zip(prompts, outs):
+            seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+            h, _, _ = forward_hidden(arch, params, {
+                "tokens": torch.from_numpy(seq[None]).to(dev)})
+            hp = h[0, len(prompt) - 1:]
+            vals, ids = topk_scores_ref(hp, head, 1,
+                                        valid_vocab=arch.vocab_size)
+            served = torch.from_numpy(out.astype(np.int64)).to(dev)
+            z = (hp.float() * head[served].float()).sum(-1)
+            worst = max(worst, float((vals[:, 0] - z).max()))
+            agree.append(ids[:, 0].cpu().numpy() == out)
+    return worst, np.concatenate(agree)
+
+
 def phase_serve(torch, np, arch, card, dev):
     from repro_torch import obs
     from repro_torch.kernels import build
@@ -516,10 +601,7 @@ def phase_serve(torch, np, arch, card, dev):
           f"{arch.vocab_size} (head {arch.padded_vocab}) bf16, "
           f"batch 8, max_len 512", flush=True)
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 201, 16)
-    prompts = [rng.integers(1, arch.vocab_size, n).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(np, arch.vocab_size)
     reg, tracer = obs.enable(trace=True)
     try:
         eng = Engine(arch, params, ServeConfig(batch_size=8, max_len=512),
@@ -694,11 +776,7 @@ def phase_paged_serve(torch, np, arch, params, card, dev):
           f"{n_layers} layers, PagedEngine batch 8, max_len 512, block 16, "
           f"{eng.paged_stats()['pool_blocks']} pool blocks", flush=True)
 
-    rng = np.random.default_rng(5)
-    system = rng.integers(1, arch.vocab_size, 128).astype(np.int32)
-    prompts = [np.concatenate([system, rng.integers(
-        1, arch.vocab_size, n).astype(np.int32)])
-        for n in rng.integers(8, 65, 16)]
+    prompts = shared_prompts(np, arch.vocab_size)
     reg, tracer = obs.enable(trace=True)
     try:
         eng = PagedEngine(arch, params, sc, device=dev)
@@ -742,22 +820,8 @@ def phase_paged_serve(torch, np, arch, params, card, dev):
           f"lookups, {pre['hit_blocks']} blocks", flush=True)
 
     # every served token against a cache-free forward of its request
-    from repro_torch.kernels.sample_topk import topk_scores_ref
-    from repro_torch.models.registry import forward_hidden
-    worst, agree = 0.0, []
-    head = params["lm_head"]
-    with torch.no_grad():
-        for prompt, out in zip(prompts, outs):
-            seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
-            h, _, _ = forward_hidden(arch, params, {
-                "tokens": torch.from_numpy(seq[None]).to(dev)})
-            hp = h[0, len(prompt) - 1:]
-            vals, ids = topk_scores_ref(hp, head, 1,
-                                        valid_vocab=arch.vocab_size)
-            served = torch.from_numpy(out.astype(np.int64)).to(dev)
-            z = (hp.float() * head[served].float()).sum(-1)
-            worst = max(worst, float((vals[:, 0] - z).max()))
-            agree.append(ids[:, 0].cpu().numpy() == out)
+    worst, agree = best_logit_deficit(torch, np, arch, params, prompts,
+                                      outs, dev)
     if worst > GREEDY_TOL:
         raise AssertionError(f"paged: a served token trails the cache-free "
                              f"forward's best logit by {worst:.3g} > "
@@ -797,13 +861,439 @@ def phase_paged_serve(torch, np, arch, params, card, dev):
           f" B of {pool_bytes} B), at the end {ps['live_cache_bytes']} B "
           f"({ps['used_blocks']} blocks, {pre['resident_blocks']} held by "
           f"the trie) on {card}", flush=True)
-    agree = np.concatenate(agree)
     print(f"[paged] served tokens vs cache-free forward: {agree.mean():.3f} "
           f"of {agree.size} greedy tokens equal, served logit trails the "
           f"best by at most {max(worst, 0.0):.3g} (limit {GREEDY_TOL}); "
           f"{same:.3f} of tokens equal to the slab Engine's on the same "
           f"requests (not gated)", flush=True)
     return launches
+
+
+def score_bound_ms(rows, d, v, p):
+    """Least time on an H100: h, W and the ids read once, lse and the
+    candidate logits written once; 2*rows*d*v bf16 operations."""
+    nbytes = rows * d * 2 + v * d * 2 + rows * p * 4 * 2 + rows * 4
+    flops = 2 * rows * d * v
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_score(torch, np, arch, dev):
+    from repro_torch.kernels.score_tokens import (score_stats,
+                                                  score_stats_ref,
+                                                  score_tokens)
+
+    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    w = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
+    w[valid:] = 0.0                                # the padded head rows
+    w = w.bfloat16()
+    cases = [
+        # name, rows, P, softcap, temperature, col_offset
+        ("spec_rows32_t0.7", 32, 1, None, 0.7, 0),
+        ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0),
+        ("eval_rows8", 8, 1, None, None, 0),
+        ("rows32_p4_softcap30", 32, 4, 30.0, None, 0),
+        ("rows1000_offset", 1000, 1, None, None, 4096),
+    ]
+    results = {}
+    for name, rows, p, cap, temp, off in cases:
+        h = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        tot_valid = valid + off                  # shard [off, off + v)
+        ids = torch.randint(off, off + valid, (rows, p), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if p > 1:
+            # a duplicate, then -1, an id past valid, a pad row of the
+            # head and one past the head, in turn
+            ids[:, 1] = ids[:, 0]
+            odd = torch.tensor([-1, valid, valid + 50, v + 3],
+                               dtype=torch.int32, device=dev)
+            ids[:, 3] = odd.repeat(rows // 4 + 1)[:rows]
+        if off:
+            ids[::7, 0] = torch.randint(0, off, (len(ids[::7]),),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)
+        kw = dict(valid_vocab=tot_valid, logit_softcap=cap,
+                  temperature=temp, col_offset=off)
+        lse, zc = score_stats(h, w, ids, **kw)
+        lse2, zc2 = score_stats(h, w, ids, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(lse, lse2) and torch.equal(zc, zc2)):
+            raise AssertionError(f"score_tokens {name}: two calls differ")
+        rl, rz = score_stats_ref(h, w, ids, **kw)
+        torch.testing.assert_close(lse, rl, rtol=VAL_RTOL, atol=VAL_ATOL)
+        torch.testing.assert_close(zc, rz, rtol=VAL_RTOL, atol=VAL_ATOL)
+        err = max(float((lse - rl).abs().max()), float((zc - rz).abs().max()))
+        logp, _ = score_tokens(h, w, ids, **kw)
+        want_inf = (ids < 0) | (ids >= tot_valid)   # the JAX ops rule
+        if not torch.equal(torch.isneginf(logp), want_inf):
+            raise AssertionError(f"score_tokens {name}: -inf misplaced")
+        if off == 0 and bool((logp[~want_inf] > 1e-5).any()):
+            raise AssertionError(f"score_tokens {name}: a logp above 0")
+        ms = cuda_ms(torch, lambda: score_stats(h, w, ids, **kw), iters=50)
+        plain_ms = cuda_ms(torch, lambda: score_stats_ref(h, w, ids, **kw),
+                           iters=5)
+        library_ms = None
+        if off == 0:                  # the library call has no shard offset
+            def library():
+                z = (h @ w[:valid].T).float()
+                if cap is not None:
+                    z = cap * torch.tanh(z / cap)
+                if temp is not None:
+                    z = z / temp
+                return torch.log_softmax(z, -1).gather(
+                    1, ids.clamp(0, valid - 1).long())
+            library_ms = cuda_ms(torch, library, iters=20)
+        bound_ms, bound_by = score_bound_ms(rows, d, v, p)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        print(f"[kernel] score_tokens {name} (rows {rows}, P {p}, V {v}, "
+              f"valid {tot_valid}, offset {off}, softcap {cap}, T {temp}): "
+              f"max_abs_err {err:.3g} (rtol {VAL_RTOL}, atol {VAL_ATOL}), "
+              f"two calls bit-identical, -inf where JAX puts it; {ms:.4f} "
+              f"ms vs bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, log_softmax(h @ w.T).gather {lib} ms",
+              flush=True)
+    return results
+
+
+def counted_run(torch, np, make_engine, submit, build, obs):
+    """Build an engine under live tracing and drive a scheduler over it,
+    every launch counter zeroed just before and read just after; records
+    each step's (tokens, counts).  Returns (engine, sched, results, rids,
+    seconds, launches, steps, tracer)."""
+    from repro_torch.serve import ContinuousScheduler
+
+    steps = []
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = make_engine()
+        inner = eng.decode_step_multi
+
+        def recording():
+            toks, counts = inner()
+            steps.append((toks.copy(), counts.copy()))
+            return toks, counts
+
+        eng.decode_step_multi = recording
+        sched = ContinuousScheduler(eng, max_new_tokens=32)
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = submit(sched)
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.count for k, c in build.COUNTERS.items()}
+    finally:
+        obs.disable()
+    return eng, sched, results, rids, dt, launches, steps, tracer
+
+
+def spec_summary(np, tag, sched, results, rids, dt, tracer, card):
+    outs = [results[r] for r in rids]
+    total = sum(len(o) for o in outs)
+    step_ms = [x.duration * 1e3 for x in tracer.spans if x.name == "spec.step"]
+    st = sched.stats()
+    print(f"[spec] {tag}: {len(rids)} requests, {total} tokens in {dt:.3f}s: "
+          f"{total / dt:.1f} tok/s, spec step {np.median(step_ms):.2f} ms p50 "
+          f"({np.mean(step_ms):.2f} mean, {len(step_ms)} steps), acceptance "
+          f"{sched.acceptance_rate:.4f} ({sched.spec_accepted} of "
+          f"{sched.spec_drafted} drafts), {sched.tokens_per_step:.3f} tokens "
+          f"a slot-step, TTFT p50 {st['ttft_s']['p50'] * 1e3:.1f} ms (queue "
+          f"incl.) on {card}", flush=True)
+
+
+def check_spec_outputs(np, tag, arch, results, rids, steps):
+    outs = [results[r] for r in rids]
+    if any(len(o) != 32 for o in outs):
+        raise AssertionError(f"{tag}: a request did not get its 32 tokens")
+    if not all(((o >= 0) & (o < arch.vocab_size)).all() for o in outs):
+        raise AssertionError(f"{tag}: an emitted id lies outside the vocab")
+    counts = np.concatenate([c for _, c in steps])
+    if counts.min() < 1 or counts.max() > SPEC_K + 1:
+        raise AssertionError(f"{tag}: counts outside 1..{SPEC_K + 1}")
+
+
+def spy_scores(spec_mod, calls):
+    """Wrap the speculative engines' scorer `_score_lp` so that every call
+    records its inputs, keywords and output; returns the real one."""
+    real = spec_mod._score_lp
+
+    def spy(h2, w, ids, **kw):
+        out = real(h2, w, ids, **kw)
+        calls.append((h2.clone(), w, ids.clone(), kw, out.clone()))
+        return out
+
+    spec_mod._score_lp = spy
+    return real
+
+
+def check_scores(torch, tag, calls, lm_heads, valid, cap, temp):
+    """Every recorded scoring call passed the vocab, softcap and sampling
+    temperature its model serves at, the served lm_heads took equal
+    shares of the calls (draft and target in the sidecar step), and the
+    logps equal the plain
+    version's (f32 logits, TF32 off) plus the -inf rule within VAL_RTOL /
+    VAL_ATOL.  Returns (calls, max |err|)."""
+    from repro_torch.kernels.score_tokens import score_stats_ref
+
+    per_head = [sum(w is x for _, w, _, _, _ in calls) for x in lm_heads]
+    if not calls or per_head != [len(calls) // len(lm_heads)] * len(
+            lm_heads) or sum(per_head) != len(calls):
+        raise AssertionError(f"{tag}: {len(calls)} scoring calls, by "
+                             f"lm_head {per_head}: each head should take "
+                             "an equal share")
+    err = 0.0
+    for h2, w, ids, kw, got in calls:
+        if kw != dict(valid=valid, cap=cap, temp=temp):
+            raise AssertionError(f"{tag}: a scoring call passed {kw}, "
+                                 f"expected valid {valid}, cap {cap}, T "
+                                 f"{temp}")
+        lse, z = score_stats_ref(h2, w, ids, valid_vocab=valid,
+                                 logit_softcap=cap, temperature=temp)
+        ok = (ids >= 0) & (ids < valid)
+        want = torch.where(ok, z - lse[:, None], float("-inf"))
+        if not torch.equal(torch.isneginf(got), ~ok):
+            raise AssertionError(f"{tag}: a step's -inf is misplaced")
+        torch.testing.assert_close(got[ok], want[ok], rtol=VAL_RTOL,
+                                   atol=VAL_ATOL)
+        err = max(err, float((got[ok] - want[ok]).abs().max()))
+    return len(calls), err
+
+
+def phase_spec(torch, np, arch, card, dev):
+    """Phase 6; returns (params with MTP heads, score_tokens launches)."""
+    from repro_torch import obs
+    from repro_torch.configs.base import with_mtp
+    from repro_torch.kernels import build
+    from repro_torch.models import attention
+    from repro_torch.models.registry import init_params
+    from repro_torch.serve import (PagedSelfSpecEngine, SelfSpecEngine,
+                                   ServeConfig, SpecConfig, SpecEngine,
+                                   small_draft)
+    from repro_torch.serve import spec as spec_mod
+
+    n_layers = arch.cfg.n_layers
+    arch6 = with_mtp(arch, SPEC_K)
+    # the same trunk as phases 3 and 5 (same seed, drawn first), plus heads
+    params = init_params(arch6, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    spec = SpecConfig(k=SPEC_K)
+    warm = [np.arange(1, 40), np.arange(1, 43)]
+    score_launches = 0
+
+    # (a) paged self-speculation, rejection mode, phase 5's traffic
+    sc = ServeConfig(batch_size=8, max_len=512, temperature=0.7, top_k=40,
+                     paged=True, block_size=16)
+    t0 = time.perf_counter()
+    PagedSelfSpecEngine(arch6, params, sc, spec, device=dev).generate(
+        warm, 8)
+    torch.cuda.synchronize()
+    print(f"[spec] set-up {time.perf_counter() - t0:.1f}s: qwen3-0.6b "
+          f"{n_layers} layers + {SPEC_K} MTP heads, k {SPEC_K}", flush=True)
+    prompts = shared_prompts(np, arch.vocab_size)
+    real_paged = attention.paged_attention
+    tq_seen = {}
+
+    def recording_paged(q, *a, **kw):      # the Tq of every paged call
+        tq_seen[q.shape[1]] = tq_seen.get(q.shape[1], 0) + 1
+        return real_paged(q, *a, **kw)
+
+    attention.paged_attention = recording_paged
+    calls = []
+    real_score = spy_scores(spec_mod, calls)
+    try:
+        eng, sched, results, rids, dt, launches, steps, tracer = \
+            counted_run(torch, np, lambda: PagedSelfSpecEngine(
+                arch6, params, sc, spec, device=dev),
+                lambda s: [s.submit(p) for p in prompts], build, obs)
+    finally:
+        attention.paged_attention = real_paged
+        spec_mod._score_lp = real_score
+    tag = "paged self-spec, T 0.7"
+    check_spec_outputs(np, tag, arch, results, rids, steps)
+    n_calls, err = check_scores(torch, tag, calls, [params["lm_head"]],
+                                arch.vocab_size, arch.cfg.logit_softcap,
+                                sc.temperature)
+    del calls
+    print(f"[spec] {tag}: all {n_calls} scoring calls (prefill heads, "
+          f"verifier, redraft) at T {sc.temperature} equal the plain "
+          f"version's logps within {err:.3g} (rtol {VAL_RTOL}, atol "
+          f"{VAL_ATOL})", flush=True)
+    n_steps, prefills = len(steps), len(sched.admit_order)
+    want = {"score_tokens": 2 * n_steps + prefills,
+            "sample_topk": 2 * n_steps + 2 * prefills,
+            "paged_attn": n_layers * n_steps}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or tq_seen != {SPEC_K + 1: n_layers * n_steps}:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}; "
+                             f"paged calls by Tq {tq_seen}")
+    pre = eng.paged_stats()["prefix"]
+    if pre["hits"] != 15:
+        raise AssertionError(f"{tag}: {pre['hits']} prefix hits, not 15")
+    score_launches += got["score_tokens"]
+    print(f"[spec] {tag}: launches {got} = score_tokens 2 a step x "
+          f"{n_steps} + 1 a prefill x {prefills}, sample_topk 2 a step + 2 "
+          f"a prefill, paged_attn {n_layers} a step, all at Tq "
+          f"{SPEC_K + 1}; prefix hits {pre['hits']}", flush=True)
+    spec_summary(np, tag, sched, results, rids, dt, tracer, card)
+
+    # (b) slab SpecEngine, rejection mode, a 1-layer full-width draft
+    cfg = arch.cfg
+    draft_arch, draft_params = small_draft(
+        arch, seed=7, device=dev, d_model=cfg.d_model,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff)
+    sc = ServeConfig(batch_size=8, max_len=512, temperature=0.7, top_k=40)
+    SpecEngine(arch6, params, sc, draft_arch, draft_params, spec,
+               device=dev).generate(warm, 8)
+    prompts = serve_prompts(np, arch.vocab_size)
+    calls = []
+    real_score = spy_scores(spec_mod, calls)
+    try:
+        eng, sched, results, rids, dt, launches, steps, tracer = \
+            counted_run(torch, np, lambda: SpecEngine(
+                arch6, params, sc, draft_arch, draft_params, spec,
+                device=dev), lambda s: [s.submit(p) for p in prompts],
+                build, obs)
+    finally:
+        spec_mod._score_lp = real_score
+    tag = f"sidecar draft (1 layer, d {cfg.d_model}), T 0.7"
+    check_spec_outputs(np, tag, arch, results, rids, steps)
+    n_calls, err = check_scores(
+        torch, tag, calls, [params["lm_head"], draft_params["lm_head"]],
+        arch.vocab_size, arch.cfg.logit_softcap, sc.temperature)
+    del calls
+    print(f"[spec] {tag}: all {n_calls} scoring calls (draft and target) "
+          f"at T {sc.temperature} equal the plain version's logps within "
+          f"{err:.3g} (rtol {VAL_RTOL}, atol {VAL_ATOL})", flush=True)
+    n_steps, prefills = len(steps), len(sched.admit_order)
+    want = {"score_tokens": 2 * n_steps,
+            "sample_topk": (SPEC_K + 1) * n_steps + 2 * prefills}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    score_launches += got["score_tokens"]
+    print(f"[spec] {tag}: launches {got} = score_tokens 2 a step x "
+          f"{n_steps}, sample_topk {SPEC_K + 1} a step + 2 a prefill x "
+          f"{prefills}", flush=True)
+    spec_summary(np, tag, sched, results, rids, dt, tracer, card)
+    del eng, draft_params
+
+    # (c) slab SelfSpecEngine, greedy: exact against a cache-free forward
+    sc = ServeConfig(batch_size=8, max_len=512)
+    SelfSpecEngine(arch6, params, sc, spec, device=dev).generate(warm, 8)
+    eng, sched, results, rids, dt, launches, steps, tracer = counted_run(
+        torch, np, lambda: SelfSpecEngine(arch6, params, sc, spec,
+                                          device=dev),
+        lambda s: [s.submit(p) for p in prompts], build, obs)
+    tag = "slab self-spec, greedy"
+    check_spec_outputs(np, tag, arch, results, rids, steps)
+    n_steps, prefills = len(steps), len(sched.admit_order)
+    got = {k: launches.get(k, 0) for k in ("score_tokens", "sample_topk")}
+    if got != {"score_tokens": 0, "sample_topk": 2 * n_steps + 2 * prefills}:
+        raise AssertionError(f"{tag}: launches {got} over {n_steps} steps "
+                             f"and {prefills} prefills")
+    worst, agree = best_logit_deficit(torch, np, arch6, params, prompts,
+                                      [results[r] for r in rids], dev)
+    if worst > GREEDY_TOL:
+        raise AssertionError(f"{tag}: a served token trails the cache-free "
+                             f"forward's best logit by {worst:.3g} > "
+                             f"{GREEDY_TOL}")
+    print(f"[spec] {tag}: launches {got} (no scoring pass); "
+          f"{agree.mean():.3f} of {agree.size} tokens equal the cache-free "
+          f"forward's argmax, served logit trails the best by at most "
+          f"{max(worst, 0.0):.3g} (limit {GREEDY_TOL})", flush=True)
+    spec_summary(np, tag, sched, results, rids, dt, tracer, card)
+    return params, score_launches
+
+
+def phase_eval(torch, np, arch, params, card, dev):
+    """Phase 7; returns the score_tokens launches."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import forward_hidden
+    from repro_torch.serve import ContinuousScheduler, PagedEngine, ServeConfig
+
+    sc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16)
+    warm = PagedEngine(arch, params, sc, device=dev)
+    warm.score_in_slot(0, np.arange(1, 40), np.arange(3, 11))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(7)
+    vocab = arch.vocab_size
+    prompts = [rng.integers(1, vocab, 128).astype(np.int32) for _ in range(8)]
+    conts = [[rng.integers(1, vocab, 8).astype(np.int32) for _ in range(4)]
+             for _ in prompts]
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = PagedEngine(arch, params, sc, device=dev)
+        sched = ContinuousScheduler(eng)
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = [sched.submit_eval(p, c) for p, c in zip(prompts, conts)]
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.count for k, c in build.COUNTERS.items()}
+    finally:
+        obs.disable()
+    n_cont = sum(len(c) for c in conts)
+    got = {k: launches.get(k, 0) for k in ("score_tokens", "sample_topk")}
+    if got != {"score_tokens": n_cont, "sample_topk": 0}:
+        raise AssertionError(f"eval: launches {got}, expected one "
+                             f"score_tokens a continuation ({n_cont}) and "
+                             "no sample_topk")
+    pre = eng.paged_stats()["prefix"]
+    if pre["hits"] != 3 * len(prompts):
+        raise AssertionError(f"eval: {pre['hits']} prefix hits, expected "
+                             f"{3 * len(prompts)}")
+    # every logp against log_softmax of a cache-free forward's f32 logits
+    # over the valid columns; beside it, the reading of a pad leak (the
+    # same softmax over all the padded head's columns)
+    head = params["lm_head"].float()
+    worst = leak = 0.0
+    with torch.no_grad():
+        for prompt, cs, rid in zip(prompts, conts, rids):
+            for cont, got_lp in zip(cs, results[rid]):
+                seq = np.concatenate([prompt, cont]).astype(np.int64)
+                h, _, _ = forward_hidden(arch, params, {
+                    "tokens": torch.from_numpy(seq[None]).to(dev)})
+                hp = h[0, len(prompt) - 1:-1].float()            # (8, d)
+                z = hp @ head.T
+                cid = torch.from_numpy(cont.astype(np.int64)).to(dev)
+                want = torch.log_softmax(z[:, :vocab], -1).gather(
+                    1, cid[:, None])[:, 0]
+                padded = torch.log_softmax(z, -1).gather(
+                    1, cid[:, None])[:, 0]
+                if not np.all(np.isfinite(got_lp)):
+                    raise AssertionError("eval: a logp is not finite")
+                worst = max(worst, float(np.abs(
+                    got_lp - want.cpu().numpy()).max()))
+                leak = max(leak, float((padded - want).abs().max()))
+    if worst > EVAL_ATOL:
+        raise AssertionError(f"eval: a logp is {worst:.3g} from the "
+                             f"cache-free forward's (limit {EVAL_ATOL})")
+    if leak <= EVAL_ATOL:
+        raise AssertionError(f"eval: counting the pad columns moves a logp "
+                             f"by only {leak:.3g}; the limit {EVAL_ATOL} "
+                             "would not catch that fault")
+    pf = [x for x in tracer.spans if x.name == "engine.prefill"]
+    cold = [x.duration * 1e3 for x in pf if not x.args.get("ext")]
+    hit = [x.duration * 1e3 for x in pf if x.args.get("ext")]
+    scored = sched.eval_tokens_scored
+    print(f"[eval] launches {got} = one score_tokens a continuation; prefix "
+          f"hits {pre['hits']} ({pre['hit_tokens']} tokens reused); every "
+          f"logp within {worst:.3g} of the cache-free forward's (limit "
+          f"{EVAL_ATOL}; the pad columns counted in lse would read "
+          f"{leak:.3g})", flush=True)
+    print(f"[eval] {len(prompts)} prompts x 4 continuations, {scored} tokens "
+          f"scored in {dt:.3f}s: {scored / dt:.1f} tokens scored/s; prefill "
+          f"p50 cold {np.median(cold):.2f} ms ({len(cold)}), hit "
+          f"{np.median(hit):.2f} ms ({len(hit)}) on {card}", flush=True)
+    return got["score_tokens"]
 
 
 def main():
@@ -840,8 +1330,12 @@ def main():
     kernels = phase_topk(torch, np, arch, dev)
     ce, ce_errs = phase_fused_ce(torch, np, arch, dev)
     paged = phase_paged_attn(torch, np, dev)
+    score = phase_score(torch, np, arch, dev)
     launches, params = phase_serve(torch, np, arch, card, dev)
     paged_launches = phase_paged_serve(torch, np, arch, params, card, dev)
+    del params
+    params, score_launches = phase_spec(torch, np, arch, card, dev)
+    score_launches += phase_eval(torch, np, arch, params, card, dev)
     del params
     train_launches = phase_train(torch, np, arch, card, dev)
 
@@ -874,6 +1368,16 @@ def main():
         "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
         "launches": paged_launches["paged_attn"],
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
+    row = score["spec_rows32_t0.7"]         # the speculative verifier's rows
+    record["kernels"].append({
+        "name": "score_tokens", "route": "cuda",
+        "source": "src/repro_torch/kernels/score_tokens/csrc/score_tokens.cu",
+        "replaces": "src/repro/kernels/score_tokens/kernel.py:54",
+        "launches": score_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in score.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]})

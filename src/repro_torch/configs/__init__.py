@@ -1,3 +1,3 @@
 """Architecture configs of the port (transformer family)."""
 
-from repro_torch.configs.base import Arch, MTPConfig
+from repro_torch.configs.base import Arch, MTPConfig, with_mtp

@@ -19,9 +19,8 @@ class MTPConfig:
 
     Horizon 0 is the trunk's own next-token prediction; head h in
     1..n_heads predicts the token at offset h+1 through `head_depth`
-    residual MLP blocks and the shared lm_head.  The port carries the
-    config so that `Arch` keeps its fields; the heads themselves come
-    with ROADMAP A4.
+    residual MLP blocks and the shared lm_head (`models/mtp.py`); the
+    self-speculative engines draft from them.
     """
 
     n_heads: int = 0
@@ -73,3 +72,8 @@ class Arch:
         """The fused loss's config: pad rows of the lm_head masked."""
         kw.setdefault("valid_vocab", self.vocab_size)
         return LossConfig(**kw)
+
+
+def with_mtp(arch: Arch, n_heads: int, **kw) -> Arch:
+    """`arch` with an `MTPConfig(n_heads=n_heads, **kw)` block attached."""
+    return dataclasses.replace(arch, mtp=MTPConfig(n_heads=n_heads, **kw))

@@ -30,6 +30,7 @@ SOURCES = {
     "sample_topk": "sample_topk/csrc/sample_topk.cu",
     "fused_ce": "fused_ce/csrc/fused_ce.cu",
     "paged_attn": "paged_attn/csrc/paged_attn.cu",
+    "score_tokens": "score_tokens/csrc/score_tokens.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

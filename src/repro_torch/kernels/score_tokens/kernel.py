@@ -1,0 +1,149 @@
+"""Candidate-token logits and lse of ``h @ W^T`` without the (N, V) logits.
+
+Replaces ``repro/kernels/score_tokens/kernel.py:_score_kernel``, the
+Pallas TPU kernel behind ``score_stats``, with a hand-written CUDA kernel
+for Hopper (`csrc/score_tokens.cu`, built by `repro_torch.kernels.build`).
+
+Bound on an H100 SXM: the kernel must read W once.  For qwen3-0.6b's
+padded lm_head (152064 x 1024 bf16, 311 MB) that is ~93 us at 3.35 TB/s,
+against ~10 us of bf16 tensor-core time for the 10 GFLOP of products at
+the speculative verifier's 32 rows: it is memory-bound.  The design is
+`sample_topk`'s: the vocab is cut into ``block_v``-column slices, one
+block each, every block streams its slice of W once through ``mma.sync``
+against up to 32 rows of h held in shared memory and keeps per-row
+online-softmax ``(m, a)`` in f32; a second small kernel merges the
+slices' states in a fixed order.  The one slice that owns a candidate id
+writes its logit.  See the source's header.
+
+Contract (the JAX kernel's): a column is valid iff its local index is
+``< V`` and its global id ``local + col_offset < valid_vocab``; logits are
+softcapped, then scaled by 1/T (f32); ``z_cand`` is 0 for an id that is no
+valid column of this shard.  Two calls on the same inputs are
+bit-identical.
+
+`score_stats` runs the plain version (`ref.score_stats_ref`) for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.score_tokens.ref import (inv_temperature,
+                                                  score_stats_ref)
+
+LAUNCHES = build.counter("score_tokens")
+BLOCK_V = 256            # vocab columns a block: 594 blocks at V = 152064
+
+_configured = set()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("score_tokens")
+    if id(lib) not in _configured:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.score_tokens_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            i, i, i, f, f, p]
+        lib.score_tokens_launch.restype = i
+        lib.score_tokens_smem_bytes.argtypes = [i, i, i]
+        lib.score_tokens_smem_bytes.restype = ctypes.c_longlong
+        lib.score_tokens_max_smem.restype = i
+        lib.score_tokens_max_cand.restype = i
+        lib.score_tokens_error_string.argtypes = [i]
+        lib.score_tokens_error_string.restype = ctypes.c_char_p
+        _configured.add(id(lib))
+    return lib
+
+
+def _check_cuda_args(h, w, ids):
+    if not (h.is_cuda and w.device == h.device and ids.device == h.device):
+        raise ValueError(f"h ({h.device}), w ({w.device}) and ids "
+                         f"({ids.device}) must lie on one CUDA device")
+    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes bf16 h and w, got {h.dtype} "
+                         f"and {w.dtype}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32, got {ids.dtype}")
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"need h (N, d) and w (V, d), got {tuple(h.shape)}"
+                         f" and {tuple(w.shape)}")
+    if ids.dim() != 2 or ids.shape[0] != h.shape[0]:
+        raise ValueError(f"need ids (N, P) for N={h.shape[0]}, got "
+                         f"{tuple(ids.shape)}")
+    for name, t in (("h", h), ("w", w), ("ids", ids)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if h.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("h and w must be 16-byte aligned")
+    if min(h.shape[0], w.shape[0], ids.shape[1]) < 1:
+        raise ValueError(f"empty input: h {tuple(h.shape)}, w "
+                         f"{tuple(w.shape)}, ids {tuple(ids.shape)}")
+    if h.shape[1] % 64:
+        raise ValueError(f"the kernel needs d % 64 == 0, got d="
+                         f"{h.shape[1]}")
+
+
+def score_stats(
+    h: torch.Tensor, w: torch.Tensor, ids: torch.Tensor, *,
+    valid_vocab: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+    temperature: Optional[float] = None,
+    col_offset: int = 0,
+    w_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse (N,) f32, z_cand (N, P) f32) of candidate ids under ``h @ w.T``.
+
+    h: (N, d); w: (V, d); ids: (N,) or (N, P) global ids.  CPU tensors go
+    to `score_stats_ref`.  CUDA tensors go to the kernel, which takes bf16
+    h and w, int32 ids, all contiguous on one device, ``d % 64 == 0``,
+    ``1 <= P <= 64`` and a d small enough that 32 rows of h fit in shared
+    memory beside the candidate list (d <= 3328 at P = 64); it raises
+    ValueError on anything else.  `w_scale` (quantized heads) comes with
+    ROADMAP A6."""
+    if w_scale is not None and h.device.type != "cpu":
+        raise NotImplementedError("score_tokens on CUDA has no w_scale "
+                                  "(quantized lm_head) yet: ROADMAP A6")
+    if ids.dim() == 1:
+        ids = ids[:, None]
+    if h.device.type == "cpu":
+        return score_stats_ref(h, w, ids, valid_vocab=valid_vocab,
+                               logit_softcap=logit_softcap,
+                               temperature=temperature,
+                               col_offset=col_offset, w_scale=w_scale)
+    _check_cuda_args(h, w, ids)
+    n, d = h.shape
+    v = w.shape[0]
+    n_cand = ids.shape[1]
+    valid = v if valid_vocab is None else valid_vocab
+    lib = _lib()
+    if n_cand > lib.score_tokens_max_cand():
+        raise ValueError(f"the kernel scores at most "
+                         f"{lib.score_tokens_max_cand()} candidates a row, "
+                         f"got P={n_cand}")
+    smem = lib.score_tokens_smem_bytes(n, d, n_cand)
+    if smem > lib.score_tokens_max_smem():
+        raise ValueError(f"{smem} bytes of shared memory a block (32 rows "
+                         f"of d={d} and {n_cand} candidates a row) exceed "
+                         f"the card's {lib.score_tokens_max_smem()}")
+    n_split = -(-v // BLOCK_V)
+    dev = h.device
+    part = torch.empty((n, n_split, 2), dtype=torch.float32, device=dev)
+    lse = torch.empty((n,), dtype=torch.float32, device=dev)
+    zc = torch.empty((n, n_cand), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):          # a no-op on the current device
+        err = lib.score_tokens_launch(
+            h.data_ptr(), w.data_ptr(), ids.data_ptr(), part.data_ptr(),
+            lse.data_ptr(), zc.data_ptr(), n, d, v, int(valid),
+            int(col_offset), n_cand, BLOCK_V,
+            int(logit_softcap is not None), float(logit_softcap or 0.0),
+            inv_temperature(temperature),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("score_tokens launch failed: "
+                           + lib.score_tokens_error_string(err).decode())
+    LAUNCHES.inc()
+    return lse, zc

@@ -3,12 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--arch qwen3-0.6b] [--reduced] [--device cpu] [--batch 8] \
         [--max-len 512] [--prompt-len 128] [--steps 8] [--top 12] \
-        [--paged [--block-size 16]]
+        [--paged [--block-size 16]] [--spec-self]
 
 Fills every slot of an `Engine` (a `PagedEngine` with ``--paged``: the
 block-pool cache, every layer's decode attention through the paged
 kernel) with a seeded prompt, warms up, then measures `--steps` plain
-decode steps twice:
+decode steps twice.  ``--spec-self`` profiles self-speculative steps
+instead (`SelfSpecEngine`, `PagedSelfSpecEngine` with ``--paged``; the
+arch gets 4 MTP heads, k 4) in rejection mode (temperature 0.7, top_k
+40), so that every step runs the `score_tokens` kernel twice:
 
   * unprofiled: host wall time per step (the step ends with the sampled
     ids on the host, so it is synchronous) and, on CUDA, the device
@@ -18,7 +21,9 @@ decode steps twice:
     overlap), the top kernels by time, and the top host-side ops by
     their own CPU time (the profiler's overhead included).
 
-The device's idle share is ``1 - busy / wall``.  Prints ``[profile] ...``
+The device's idle share is ``1 - busy / wall``; the device time of the
+three hand-written kernel families (`score_tokens`, `paged_attn`,
+`sample_topk`) is summed a step.  Prints ``[profile] ...``
 lines and returns the summary dict.  On the CPU no device time exists
 and those fields are None.
 """
@@ -32,9 +37,16 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.base import with_mtp
 from repro_torch.models.registry import get_arch, init_params
-from repro_torch.serve import (Engine, PagedEngine, ServeConfig,
+from repro_torch.serve import (Engine, PagedEngine, PagedSelfSpecEngine,
+                               SelfSpecEngine, ServeConfig, SpecConfig,
                                resolve_device)
+
+# device-kernel name fragments of the port's hand-written kernels
+KERNEL_FAMILIES = {"score_tokens": "score_", "paged_attn": "paged_attn",
+                   "sample_topk": "topk_"}
+SPEC_K, SPEC_TEMPERATURE = 4, 0.7   # --spec-self: rejection mode
 
 
 def _device_events(prof):
@@ -65,23 +77,36 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="the paged block-pool engine (PagedEngine)")
     ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--spec-self", action="store_true",
+                    help="self-speculative steps (4 MTP heads, k 4) at "
+                         "temperature 0.7")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     arch = get_arch(args.arch, reduced=args.reduced)
+    if args.spec_self:
+        arch = with_mtp(arch, SPEC_K)
     params = init_params(
         arch, torch.Generator(device=device).manual_seed(args.seed), device)
+    temp = SPEC_TEMPERATURE if args.spec_self else 0.0
     sc = ServeConfig(batch_size=args.batch, max_len=args.max_len,
-                     paged=args.paged, block_size=args.block_size)
-    eng = (PagedEngine if sc.paged else Engine)(arch, params, sc,
-                                                device=device)
+                     temperature=temp, paged=args.paged,
+                     block_size=args.block_size)
+    if args.spec_self:
+        cls = PagedSelfSpecEngine if sc.paged else SelfSpecEngine
+        eng = cls(arch, params, sc, SpecConfig(k=SPEC_K), device=device)
+        step = eng.decode_step_multi
+    else:
+        eng = (PagedEngine if sc.paged else Engine)(arch, params, sc,
+                                                    device=device)
+        step = eng.decode_step
     rng = np.random.default_rng(args.seed)
     for slot in range(args.batch):
         eng.prefill_into_slot(slot, rng.integers(1, arch.vocab_size,
                                                  args.prompt_len))
     for _ in range(3):
-        eng.decode_step()
+        step()
 
     walls = []
     if cuda:
@@ -91,7 +116,7 @@ def main(argv=None):
         start.record()
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        eng.decode_step()
+        step()
         walls.append(time.perf_counter() - t0)
     gpu_ms = None
     if cuda:
@@ -104,7 +129,7 @@ def main(argv=None):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.steps):
-            eng.decode_step()
+            step()
     host_ops = sum(1 for e in prof.events()           # top-level aten ops
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.name.startswith("aten::")
@@ -125,6 +150,10 @@ def main(argv=None):
         "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         "kernels_per_step": len(dev) / args.steps if dev else None,
         "aten_ops_per_step": host_ops / args.steps,
+        "kernel_us_per_step": {
+            fam: sum(us for n, (us, _) in per_name.items() if frag in n)
+            / args.steps for fam, frag in KERNEL_FAMILIES.items()}
+        if dev else None,
         "top": sorted(((n, us / args.steps / 1e3, c / args.steps)
                        for n, (us, c) in per_name.items()),
                       key=lambda r: -r[1])[:args.top],
@@ -135,15 +164,22 @@ def main(argv=None):
             key=lambda r: -r[1])[:args.top],
     }
     cache = f"paged (block {args.block_size})" if args.paged else "slab"
+    kind = (f"self-spec steps (k {SPEC_K}, temperature {temp})"
+            if args.spec_self else "decode steps")
     print(f"[profile] {arch.arch_id} {arch.cfg.n_layers} layers, {cache} "
           f"cache, batch {args.batch}, max_len {args.max_len}, prompts "
-          f"{args.prompt_len}, {args.steps} decode steps on {device}")
-    print(f"[profile] decode step: wall p50 {wall_ms:.4f} ms, device "
+          f"{args.prompt_len}, {args.steps} {kind} on {device}")
+    print(f"[profile] {'self-spec' if args.spec_self else 'decode'} step: "
+          f"wall p50 {wall_ms:.4f} ms, device "
           f"timeline {_fmt(gpu_ms, ' ms')}, device busy "
           f"{_fmt(busy_ms, ' ms')}, idle share "
           f"{_fmt(summary['idle_share'])}, kernels/step "
           f"{_fmt(summary['kernels_per_step'])}, aten ops/step "
           f"{summary['aten_ops_per_step']:.1f}")
+    kus = summary["kernel_us_per_step"]
+    print("[profile] hand-written kernels, device us/step: " + (
+        ", ".join(f"{k} {v:.1f}" for k, v in kus.items()) if kus
+        else "not measured"))
     for title, rows in (("device kernels", summary["top"]),
                         ("host ops, self time", summary["top_host"])):
         print(f"[profile] top {title}:")

@@ -3,11 +3,27 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         [--reduced] [--device cpu] --batch 4 --prompt-len 16 --max-new 16 \
         [--paged [--block-size 16] [--pool-blocks 0] [--paged-impl kernel]
-         [--no-prefix-cache]]
+         [--no-prefix-cache]] [--temperature 0.7] \
+        [--spec-self [--mtp-heads N] | --spec-draft self|<arch-id>] \
+        [--spec-k 4] [--mode eval [--eval-conts 4] [--cont-len 8]] \
+        [--stats-json [PATH]]
 
 ``--paged`` serves from the block-pool KV cache with shared-prefix reuse
 (`PagedEngine`), every decode step through the hand-written paged
 attention kernel, and prints the pool's ``[serve] paged: ...`` line.
+
+Speculative decoding: ``--spec-self`` drafts from the target's own
+multi-token-prediction heads (`SelfSpecEngine`, `PagedSelfSpecEngine`
+with ``--paged``; ``--mtp-heads`` sets the head count, default
+``--spec-k``); ``--spec-draft`` drafts with a sidecar model (`SpecEngine`:
+``self`` drafts with the target itself, an arch id with that arch's
+config).  Each step emits up to ``--spec-k`` + 1 tokens; at a temperature
+above 0 every step scores the drafts through the `score_tokens` kernel.
+``--mode eval`` scores ``--eval-conts`` seeded continuations of
+``--cont-len`` tokens per prompt (`submit_eval`, loglikelihood eval
+through `score_tokens`) instead of generating.  ``--stats-json`` dumps
+the scheduler's report (TTFT, tokens per step, acceptance rate) as JSON
+to PATH, or to stdout without one.
 
 Builds the model from a seeded random init (nothing is downloaded),
 submits `--requests` prompts (default: one per slot) to the continuous
@@ -24,9 +40,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.configs.base import with_mtp
 from repro_torch.models.registry import get_arch, init_params
 from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
-                               ServeConfig, resolve_device)
+                               PagedSelfSpecEngine, SelfSpecEngine,
+                               ServeConfig, SpecConfig, SpecEngine,
+                               resolve_device)
 
 
 def main(argv=None):
@@ -59,10 +79,44 @@ def main(argv=None):
                          "on the CPU) or the gather oracle (CPU only)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="paged: disable the shared-prefix trie")
+    ap.add_argument("--spec-draft", default=None,
+                    help="draft arch id for speculative decoding ('self': "
+                         "draft with the target model)")
+    ap.add_argument("--spec-self", action="store_true",
+                    help="self-speculate from the target's own MTP heads "
+                         "(no sidecar draft model or cache tree)")
+    ap.add_argument("--mtp-heads", type=int, default=0,
+                    help="multi-token-prediction heads to attach (0 with "
+                         "--spec-self: --spec-k heads)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per speculative step")
+    ap.add_argument("--mode", default="generate",
+                    choices=("generate", "eval"),
+                    help="'eval': score --eval-conts continuations per "
+                         "prompt (loglikelihood, logits-free) instead of "
+                         "generating")
+    ap.add_argument("--eval-conts", type=int, default=4,
+                    help="eval mode: continuations per prompt")
+    ap.add_argument("--cont-len", type=int, default=8,
+                    help="eval mode: tokens per continuation")
+    ap.add_argument("--stats-json", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="dump the scheduler stats report as JSON (to "
+                         "stdout when PATH is omitted)")
     args = ap.parse_args(argv)
 
+    if args.spec_self and args.spec_draft:
+        ap.error("--spec-self and --spec-draft are mutually exclusive")
+    if args.paged and args.spec_draft:
+        ap.error("--paged supports plain and --spec-self decoding; the "
+                 "sidecar draft engine keeps its dense slabs")
+    if args.mode == "eval" and (args.spec_draft or args.spec_self):
+        ap.error("--mode eval needs the plain one-token engines (no "
+                 "--spec-*)")
     device = resolve_device(args.device)
     arch = get_arch(args.arch, reduced=args.reduced)
+    if args.mtp_heads or args.spec_self:
+        arch = with_mtp(arch, args.mtp_heads or args.spec_k)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(arch, gen, device)
@@ -73,8 +127,30 @@ def main(argv=None):
                      pool_blocks=args.pool_blocks,
                      paged_impl=args.paged_impl,
                      prefix_cache=not args.no_prefix_cache)
-    eng = (PagedEngine if sc.paged else Engine)(arch, params, sc,
-                                                device=device)
+    if args.spec_self:
+        cls = PagedSelfSpecEngine if args.paged else SelfSpecEngine
+        eng = cls(arch, params, sc,
+                  SpecConfig(k=min(args.spec_k, arch.mtp.n_heads)),
+                  device=device)
+        mode = f"spec(self-mtp, heads={arch.mtp.n_heads}, k={eng.spec_k})"
+        if args.paged:
+            mode = "paged+" + mode
+    elif args.spec_draft:
+        if args.spec_draft == "self":
+            draft_arch, draft_params = arch, params
+        else:
+            draft_arch = get_arch(args.spec_draft, reduced=args.reduced)
+            draft_params = init_params(draft_arch, torch.Generator(
+                device=device).manual_seed(args.seed + 1), device)
+        eng = SpecEngine(arch, params, sc, draft_arch, draft_params,
+                         SpecConfig(k=args.spec_k), device=device)
+        mode = f"spec(draft={args.spec_draft}, k={args.spec_k})"
+    elif args.paged:
+        eng = PagedEngine(arch, params, sc, device=device)
+        mode = f"paged(block={args.block_size}, impl={args.paged_impl})"
+    else:
+        eng = Engine(arch, params, sc, device=device)
+        mode = "continuous"
     eng.reset(args.seed)
     rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.batch
@@ -83,19 +159,42 @@ def main(argv=None):
 
     sched = ContinuousScheduler(eng, max_new_tokens=args.max_new)
     t0 = time.perf_counter()
-    rids = [sched.submit(p) for p in prompts]
+    if args.mode == "eval":
+        mode = "eval+" + mode
+        conts = [rng.integers(1, arch.vocab_size,
+                              (args.eval_conts, args.cont_len)
+                              ).astype(np.int32) for _ in prompts]
+        rids = [sched.submit_eval(p, list(c))
+                for p, c in zip(prompts, conts)]
+    else:
+        rids = [sched.submit(p) for p in prompts]
     results = sched.run()
     dt = time.perf_counter() - t0
-    total = sum(len(results[r]) for r in rids)
-    print(f"[serve] arch={arch.arch_id} mode=continuous served "
-          f"{len(rids)} requests ({total} tokens) in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s "
-          f"incl. first-call setup; occupancy {sched.occupancy:.2f}, "
-          f"{sched.decode_steps} decode steps, "
-          f"{sched.tokens_per_step:.2f} tok/slot-step) on {device}")
-    out = np.stack([np.pad(np.asarray(results[r], np.int32),
-                           (0, args.max_new - len(results[r])))
-                    for r in rids])
+    if args.mode == "eval":
+        total = sum(sum(len(s) for s in results[r]) for r in rids)
+        lls = [float(sum(s.sum() for s in results[r])) for r in rids]
+        print(f"[serve] arch={arch.arch_id} mode={mode} scored "
+              f"{len(rids)} prompts x {args.eval_conts} continuations "
+              f"({total} tokens) in {dt:.2f}s ({total / dt:.1f} tok/s "
+              f"incl. first-call setup); mean loglikelihood "
+              f"{np.mean(lls) / max(args.eval_conts, 1):.3f} on {device}")
+        out = np.stack([np.concatenate(
+            [np.asarray(s, np.float32) for s in results[r]])
+            for r in rids])
+    else:
+        total = sum(len(results[r]) for r in rids)
+        print(f"[serve] arch={arch.arch_id} mode={mode} served "
+              f"{len(rids)} requests ({total} tokens) in {dt:.2f}s "
+              f"({total / dt:.1f} tok/s "
+              f"incl. first-call setup; occupancy {sched.occupancy:.2f}, "
+              f"{sched.decode_steps} decode steps, "
+              f"{sched.tokens_per_step:.2f} tok/slot-step"
+              + (f", acceptance {sched.acceptance_rate:.2f}"
+                 if args.spec_draft or args.spec_self else "")
+              + f") on {device}")
+        out = np.stack([np.pad(np.asarray(results[r], np.int32),
+                               (0, args.max_new - len(results[r])))
+                        for r in rids])
     if args.paged:
         ps = eng.paged_stats()
         pre = ps.get("prefix", {})
@@ -104,7 +203,13 @@ def main(argv=None):
               f"{ps['prefill_tokens']} prefill tokens, prefix hits "
               f"{pre.get('hits', 0)} ({pre.get('hit_tokens', 0)} tokens "
               "reused)")
-    print("[serve] sample row:", out[0][:16])
+    if args.stats_json is not None:
+        obs.export.dump_json(sched.stats(), args.stats_json,
+                             label="stats", tag="serve")
+    if args.mode == "eval":
+        print("[serve] sample scores:", np.round(out[0][:8], 3))
+    else:
+        print("[serve] sample row:", out[0][:16])
     return out
 
 

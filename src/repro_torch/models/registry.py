@@ -27,6 +27,8 @@ _CONFIG_MODULES = {
     "paper-lm": "repro_torch.configs.paper_lm",
 }
 
+MTP_FAMILIES = ("transformer",)   # the recurrent families come with A8
+
 _BATCH_AXIS = 1                  # (L, B, ...) for every batched leaf
 _POOL_KEYS = ("kp", "vp")        # paged pools: no batch axis, shared
 
@@ -46,19 +48,39 @@ def _require_transformer(arch: Arch):
                                   "ROADMAP A8")
 
 
+def supports_mtp(arch: Arch) -> bool:
+    """True when this arch can carry multi-token prediction heads AND its
+    config asks for them (`arch.mtp.n_heads > 0`)."""
+    return arch.family in MTP_FAMILIES and arch.mtp.n_heads > 0
+
+
 def init_params(arch: Arch, generator: torch.Generator, device="cpu"):
     """Random params (seeded by `generator`, which lives on `device`) with
-    the lm_head padded to `arch.padded_vocab` rows of zeros."""
+    the lm_head padded to `arch.padded_vocab` rows of zeros, and the
+    ``'mtp'`` head subtree when ``arch.mtp.n_heads > 0``."""
     _require_transformer(arch)
-    if arch.mtp.n_heads:
-        raise NotImplementedError("MTP heads come with ROADMAP A4")
     params = transformer.init_params(arch.cfg, generator, device)
     pad = arch.padded_vocab - arch.vocab_size
     if pad:
         head = params["lm_head"]
         params["lm_head"] = torch.cat(
             [head, head.new_zeros((pad, head.shape[1]))])
+    if arch.mtp.n_heads:
+        from repro_torch.models.mtp import init_heads
+        params["mtp"] = init_heads(
+            generator, arch.cfg.d_model, arch.mtp,
+            dtype=transformer.dtype_of(arch.cfg.param_dtype), device=device)
     return params
+
+
+def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
+    """Per-head hidden states (..., n, d) from trunk hiddens (..., d)."""
+    if "mtp" not in params:
+        raise ValueError(
+            "params carry no 'mtp' head subtree: init them via init_params "
+            "on an arch with mtp.n_heads > 0")
+    from repro_torch.models.mtp import apply_heads
+    return apply_heads(params["mtp"], h, eps=arch.cfg.norm_eps)
 
 
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
@@ -131,3 +153,28 @@ def shift_cache_lens(caches, delta):
     resumes at the true prompt length (pad entries past it are dead and
     overwritten by the next appends)."""
     return dict(caches, len=caches["len"] - delta)
+
+
+def spec_cache_strategy(arch: Arch) -> str:
+    """How this family's serve caches roll back rejected drafted tokens:
+    ``'len'`` (attention KV caches: per-slot length arithmetic, one cached
+    multi-token verify forward) or ``'scan'`` (recurrent state: per-step
+    snapshots, ROADMAP A8)."""
+    return "len" if arch.family in ("transformer", "encdec") else "scan"
+
+
+def rollback_slot_caches(caches, n_reject):
+    """Retract `n_reject` (an int or a per-slot (B,) tensor) entries from
+    the tail of every slot's cache: the speculative rollback of the
+    ``'len'`` strategy.  The rejected entries stay in place as dead tail
+    entries, masked now and overwritten by the next append.  Raises for a
+    tree with no ``len`` leaf (recurrent state rolls back by snapshot
+    selection, ROADMAP A8)."""
+    if not isinstance(caches, dict) or "len" not in caches:
+        raise ValueError(
+            "rollback_slot_caches needs position-addressed caches with a "
+            "'len' leaf; recurrent state rolls back by snapshot selection "
+            "(spec_cache_strategy == 'scan', ROADMAP A8)")
+    if torch.is_tensor(n_reject):      # keep the int32 lengths int32
+        n_reject = n_reject.to(caches["len"].dtype)
+    return shift_cache_lens(caches, n_reject)

@@ -1,5 +1,5 @@
 """Serving stack of the port: slot and paged engines, the block pool, the
-scheduler, streaming samplers."""
+scheduler, streaming samplers, speculative engines."""
 
 from repro_torch.serve.engine import Engine, ServeConfig, resolve_device
 from repro_torch.serve.kvpool import (BlockPool, PagedConfig, PoolExhausted,
@@ -8,3 +8,5 @@ from repro_torch.serve.paged import PagedEngine, PagedSelfSpecEngine
 from repro_torch.serve.sampler import (sample_tokens, streaming_topk,
                                        top_p_mask)
 from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.spec import (SelfSpecEngine, SpecConfig, SpecEngine,
+                                    small_draft)

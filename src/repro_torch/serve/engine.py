@@ -19,6 +19,13 @@ it raises if CUDA is asked for and missing, and never falls back.  Cache
 updates are in place.  Free slots still run the batched decode (their
 outputs are discarded and their caches overwritten at the next prefill);
 their lengths grow past ``max_len`` and every cache write clamps.
+
+`score_in_slot` is the loglikelihood-eval primitive (the JAX package's
+`Engine.score_in_slot` with the forward-and-gather of its
+`ModeFns.eval_score`, which lives here in `_eval_logp`: the port has no
+`serve/modes.py` until the other request modes, ROADMAP A5): one
+batch=1 prefill over prompt + continuation whose hidden states at the
+continuation's positions go through the `score_tokens` kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from repro_torch.models.registry import (empty_serve_caches, forward_hidden,
                                          reset_slot_caches, shift_cache_lens,
                                          take_slot_caches)
 from repro_torch.serve.sampler import sample_tokens
+
+_NO_ID = -1                    # pad id of an eval continuation: scores -inf
 
 
 @dataclasses.dataclass
@@ -68,6 +77,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def make_sampler(arch: Arch, sc: ServeConfig):
+    """Streaming-sampler closure over the arch's softcap and the serve
+    knobs: ``sample(h2, w, temperature, generator) -> (N,) int32``.  The
+    temperature stays a call-site argument: the speculative engines draw
+    drafts at the draft temperature and verify picks at the target's
+    through the same closure."""
+    def sample(h2, w, temperature, generator):
+        return sample_tokens(h2.contiguous(), w, generator=generator,
+                             temperature=temperature, top_k=sc.top_k,
+                             top_p=sc.top_p, valid_vocab=arch.vocab_size,
+                             logit_softcap=arch.cfg.logit_softcap,
+                             impl=sc.sampler_impl)
+
+    return sample
+
+
 def _bucket_len(true_len: int, max_len: int) -> int:
     """Smallest power-of-two >= true_len (floor 8, capped at max_len)."""
     b = 8
@@ -79,6 +104,8 @@ def _bucket_len(true_len: int, max_len: int) -> int:
 class Engine:
     """Slot-level serving engine over the model registry (one batched
     cache tree; rows are independently prefilled/recycled slots)."""
+
+    supports_modes = True      # eval scoring (the speculative engines: no)
 
     def __init__(self, arch: Arch, params, sc: ServeConfig,
                  device="cuda"):
@@ -94,6 +121,7 @@ class Engine:
         self.sc = sc
         self.device = resolve_device(device)
         self._cdt = getattr(torch, sc.cache_dtype)
+        self._sampler = make_sampler(arch, sc)
         self._tracer = obs.get_tracer()
         _reg = obs.get_registry()
         self._m_prefills = _reg.counter("engine.prefills_total")
@@ -123,13 +151,8 @@ class Engine:
         self._gen.manual_seed(seed)
 
     def _sample(self, h2: torch.Tensor) -> torch.Tensor:
-        return sample_tokens(h2.contiguous(), self.params["lm_head"],
-                             generator=self._gen,
-                             temperature=self.sc.temperature,
-                             top_k=self.sc.top_k, top_p=self.sc.top_p,
-                             valid_vocab=self.arch.vocab_size,
-                             logit_softcap=self.arch.cfg.logit_softcap,
-                             impl=self.sc.sampler_impl)
+        return self._sampler(h2, self.params["lm_head"],
+                             self.sc.temperature, self._gen)
 
     # -- slot operations ----------------------------------------------------
 
@@ -180,6 +203,17 @@ class Engine:
         del ctx
         insert_slot_caches(self.caches, slot_caches, slot)
 
+    def _prefill_forward(self, tokens, slot_caches, true_len: int,
+                         ext: bool):
+        """The forward of one batch=1 prefill and the shift of the caches'
+        length back by the bucket pad: (h (1, T_pad, d), caches).
+        ``ext`` makes it a cache extension (a paged prefix hit's
+        suffix-only prefill)."""
+        h, _, slot_caches = forward_hidden(
+            self.arch, self.params, {"tokens": tokens}, caches=slot_caches,
+            decode=ext, prefill_ext=ext)
+        return h, shift_cache_lens(slot_caches, tokens.shape[1] - true_len)
+
     @torch.no_grad()
     def prefill_into_slot(self, slot: int, prompt) -> int:
         """Prefill one prompt at batch=1 into slot `slot`; returns the
@@ -190,10 +224,8 @@ class Engine:
         ext = bool(ctx.get("ext"))
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext):
-            h, _, slot_caches = forward_hidden(
-                self.arch, self.params, {"tokens": tokens},
-                caches=slot_caches, decode=ext, prefill_ext=ext)
-            slot_caches = shift_cache_lens(slot_caches, t_b - true_len)
+            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+                                                   true_len, ext)
             tok = self._sample(h[:, true_len - 1, :])
             self._commit_slot(slot, slot_caches, ctx)
             tok = int(tok[0].item())
@@ -230,7 +262,7 @@ class Engine:
         reset_slot_caches(self.caches, self._template, slot)
         self.cur[slot] = 0
 
-    # -- request-mode hooks (ROADMAP A4, A5) ----------------------------------
+    # -- request modes: eval here, the others with ROADMAP A5 ----------------
 
     def set_slot_mask(self, slot: int, allowed) -> None:
         raise NotImplementedError("constrained decoding masks come with "
@@ -244,9 +276,54 @@ class Engine:
         raise NotImplementedError("top-k prefills (beam / best-of) come "
                                   "with ROADMAP A5")
 
-    def score_in_slot(self, slot: int, prompt, continuation):
-        raise NotImplementedError("loglikelihood eval comes with "
-                                  "ROADMAP A4")
+    def _eval_logp(self, hs: torch.Tensor, ids: torch.Tensor):
+        """(N,) ``log p(ids | hs)`` under the full-vocab softmax through
+        `score_tokens` (the kernel on CUDA tensors, its plain version on
+        CPU ones)."""
+        from repro_torch.kernels.score_tokens import score_tokens
+        logp, _ = score_tokens(hs, self.params["lm_head"], ids,
+                               valid_vocab=self.arch.vocab_size,
+                               logit_softcap=self.arch.cfg.logit_softcap)
+        return logp
+
+    @torch.no_grad()
+    def score_in_slot(self, slot: int, prompt, continuation) -> np.ndarray:
+        """Per-token ``log p(continuation | prompt)`` (len(cont),) f32 in
+        ONE batch=1 forward over prompt + continuation through slot
+        `slot`.  The hidden state before each continuation token goes
+        through `score_tokens` (candidate logit and lse a row, never a
+        logits row).  On paged engines the prompt replays through the
+        prefix trie (``match_len`` caps the match at the prompt, so every
+        scored position lies in the suffix forward).  The slot's cache is
+        left holding prompt + continuation; the caller resets it."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        cont = np.asarray(continuation, np.int32).reshape(-1)
+        if cont.size == 0:
+            return np.zeros((0,), np.float32)
+        seq = np.concatenate([prompt, cont])
+        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, seq, match_len=len(prompt))
+        t_b = tokens.shape[1]
+        p_pad = max(8, _bucket_len(len(cont), 1 << 30))
+        ids = np.full((p_pad,), _NO_ID, np.int32)
+        ids[:len(cont)] = cont
+        # the hidden state BEFORE continuation token i, clipped into the
+        # bucket (pad rows score -1: -inf, sliced off below)
+        pos = np.clip(true_len - len(cont) - 1 + np.arange(p_pad), 0,
+                      t_b - 1)
+        ext = bool(ctx.get("ext"))
+        with self._tracer.span("engine.prefill", cat="engine", slot=slot,
+                               tokens=t_b, ext=ext, mode="eval"):
+            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+                                                   true_len, ext)
+            hs = h[0, torch.from_numpy(pos).to(self.device)]   # (p_pad, d)
+            logp = self._eval_logp(hs, torch.from_numpy(ids).to(
+                self.device))
+            self._commit_slot(slot, slot_caches, ctx)
+            logp = logp.cpu().numpy().astype(np.float32)
+        self._m_prefills.inc()
+        self._m_prefill_tokens.inc(t_b)
+        return logp[:len(cont)]
 
     def fork_slot(self, dst: int, src: int) -> None:
         raise NotImplementedError("slot forks (beam / best-of) come with "

@@ -19,9 +19,11 @@ per-slot KV slabs replaced by the `serve/kvpool` block pool:
     prefilled — a cache-extension forward over the shared prefix,
     padded so that shared + suffix is the cold prefill's bucket.
 
-Self-speculative decoding on the pool (`PagedSelfSpecEngine`) comes with
-ROADMAP A4, chain forks through beams (`fork_slot`) with A5, int8 pools
-with A6 and the paged autotuner with A2 item 4.
+`PagedSelfSpecEngine` self-speculates on the pool: before a step every
+live chain reserves room for the K+1 verify appends, after it the host
+lengths advance by each slot's emitted count.  Chain forks through beams
+(`fork_slot`) come with ROADMAP A5, int8 pools with A6 and the paged
+autotuner with A2 item 4.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from repro_torch.models.registry import (empty_serve_caches,
                                          merge_slot_caches, take_slot_caches)
 from repro_torch.serve import kvpool
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.spec import SelfSpecEngine
 
 
 class _PagedMixin:
@@ -212,6 +215,18 @@ class _PagedMixin:
         self._advance(np.ones((self.sc.batch_size,), np.int64))
         return toks
 
+    def decode_step_multi(self):
+        k = int(getattr(self, "spec_k", 0))
+        if not k:
+            # the plain multi-step delegates to decode_step, which already
+            # reserves and advances
+            return super().decode_step_multi()
+        self._reserve(k + 1)
+        self._sync_tables()
+        toks, counts = super().decode_step_multi()
+        self._advance(counts)
+        return toks, counts
+
     # -- recycling -----------------------------------------------------------
 
     def reset_slot(self, slot: int):
@@ -254,9 +269,12 @@ class PagedEngine(_PagedMixin, Engine):
     """Slot engine on the paged KV cache (plain one-token decode)."""
 
 
-class PagedSelfSpecEngine:
-    """Self-speculative (MTP-head) engine on the paged KV cache."""
+class PagedSelfSpecEngine(_PagedMixin, SelfSpecEngine):
+    """Self-speculative (MTP-head) engine on the paged KV cache.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("self-speculative decoding on the paged "
-                                  "cache comes with ROADMAP A4")
+    The verify forward appends K+1 entries a slot (through `paged_attn`
+    at Tq = K+1 in every layer) and rolls the rejected tail back by
+    length arithmetic: on the pool that is block-table truncation.  The
+    rolled-back entries stay in the slot's own pre-reserved tail blocks
+    and are overwritten by the next append, and `_make_writable` keeps
+    every shared prefix block out of the append window."""

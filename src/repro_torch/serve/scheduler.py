@@ -16,9 +16,14 @@ admission for the tick: running slots keep decoding and free blocks as
 they finish.  A request that cannot fit even with nothing running
 raises.
 
-The metric and span names are the JAX package's.  Eval, beam and best-of
-requests (`submit_eval`, `submit_beam`, `submit_best_of`) come with
-ROADMAP A4 and A5 and raise until then.
+A speculative engine's step emits 1..K+1 tokens a slot
+(`decode_step_multi`); the scheduler counts drafted and accepted tokens
+(`acceptance_rate`, the ``spec.*`` counters).  Loglikelihood-eval
+requests (`submit_eval`) score their continuations synchronously at
+admission through `Engine.score_in_slot`, on the plain one-token engines
+only.  The metric and span names are the JAX package's.  Beam and
+best-of requests (`submit_beam`, `submit_best_of`) come with ROADMAP A5
+and raise until then.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ class Request:
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: Optional[int]
+    kind: str = "generate"          # | "eval"
+    payload: Optional[Dict[str, Any]] = None  # kind-specific state
 
 
 @dataclasses.dataclass
@@ -83,6 +90,11 @@ class ContinuousScheduler:
         self.tpot: Dict[int, float] = {}  # per-token time after the first
         self._submit_t: Dict[int, float] = {}
         self._first_t: Dict[int, float] = {}
+        # speculative-decoding counters (stay 0 for plain engines)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.eval_requests = 0
+        self.eval_tokens_scored = 0
         self.tracer = obs.get_tracer()
         reg = obs.get_registry()
         self._m_qdepth = reg.gauge("serve.queue_depth",
@@ -106,6 +118,12 @@ class ContinuousScheduler:
         self._m_exhausted = reg.counter(
             "serve.pool_exhausted_total",
             "admissions requeued because the block pool ran dry")
+        self._m_drafted = reg.counter("spec.drafted_total")
+        self._m_accepted = reg.counter("spec.accepted_total")
+        self._m_eval_reqs = reg.counter("serve.eval_requests_total")
+        self._m_eval_tokens = reg.counter(
+            "serve.eval_tokens_scored_total",
+            "continuation tokens loglikelihood-scored")
         self._exhausted_streak = 0
 
     # -- submission ---------------------------------------------------------
@@ -119,10 +137,16 @@ class ContinuousScheduler:
                    else max_new_tokens)
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
-        if len(prompt) + max_new - 1 > self.engine.sc.max_len:
+        budget = len(prompt) + max_new - 1          # cache entries needed
+        # a speculative engine can overshoot the budget by up to K cache
+        # entries mid-verify (rolled back, but they must fit)
+        margin = int(getattr(self.engine, "spec_k", 0))
+        if budget + margin > self.engine.sc.max_len:
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
-                f"the engine cache capacity max_len={self.engine.sc.max_len}")
+                f"prompt ({len(prompt)}) + max_new ({max_new})"
+                + (f" + spec margin ({margin})" if margin else "")
+                + f" exceeds the engine cache capacity "
+                f"max_len={self.engine.sc.max_len}")
         rid = self._next_rid
         self._next_rid += 1
         self._submit_t[rid] = time.perf_counter()
@@ -132,9 +156,39 @@ class ContinuousScheduler:
         self._m_qdepth.set(len(self.queue))
         return rid
 
+    def _require_modes(self, what: str):
+        if not getattr(self.engine, "supports_modes", False):
+            raise NotImplementedError(
+                f"{what} needs the plain one-token engines "
+                f"({type(self.engine).__name__} does not support "
+                "request modes)")
+
     def submit_eval(self, prompt, continuations) -> int:
-        raise NotImplementedError("loglikelihood eval requests come with "
-                                  "ROADMAP A4")
+        """Queue one loglikelihood-eval request: score every continuation
+        under `prompt` (lm-eval-style multiple choice).  ``results[rid]``
+        becomes a list of per-token logprob arrays, one per continuation,
+        in order.  On paged engines with the prefix cache the prompt
+        forward runs once; later continuations replay it from the trie
+        and prefill only their suffix."""
+        self._require_modes("loglikelihood eval")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        conts = [np.asarray(c, np.int32).reshape(-1) for c in continuations]
+        if not conts:
+            raise ValueError("submit_eval needs >= 1 continuation")
+        for c in conts:
+            if c.size < 1:
+                raise ValueError("empty continuation")
+            if len(prompt) + c.size > self.engine.sc.max_len:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + continuation ({c.size}) "
+                    f"exceeds max_len={self.engine.sc.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._submit_t[rid] = time.perf_counter()
+        self.queue.append(Request(rid, prompt, 1, None, kind="eval",
+                                  payload={"conts": conts, "scores": []}))
+        self._m_qdepth.set(len(self.queue))
+        return rid
 
     def submit_beam(self, prompt, *, n_beams: int, **kw) -> int:
         raise NotImplementedError("beam-search requests come with "
@@ -155,24 +209,30 @@ class ContinuousScheduler:
         total = self.decode_steps * self.engine.batch_size
         return self.slot_busy_steps / total if total else 0.0
 
+    def _finish_request(self, rid: int, **span_kw) -> float:
+        """Completion bookkeeping shared by every request kind; returns
+        the completion time."""
+        t_end = time.perf_counter()
+        t_sub = self._submit_t[rid]
+        self.latency[rid] = t_end - t_sub
+        self._m_latency.observe(self.latency[rid])
+        self._m_finished.inc()
+        self.tracer.add_span("req", t_sub, t_end, rid=rid, **span_kw)
+        return t_end
+
     def _finish(self, idx: int):
         slot = self.slots[idx]
         rid = slot.req.rid
         self.results[rid] = np.asarray(slot.tokens, np.int32)
-        t_end = time.perf_counter()
-        t_sub = self._submit_t[rid]
-        self.latency[rid] = t_end - t_sub
         n_tok = len(slot.tokens)
+        t_end = self._finish_request(rid, tokens=n_tok)
         if n_tok > 1:
             self.tpot[rid] = ((self.latency[rid] - self.ttft[rid])
                               / (n_tok - 1))
             self._m_tpot.observe(self.tpot[rid])
-        self._m_latency.observe(self.latency[rid])
-        self._m_finished.inc()
         t_first = self._first_t.get(rid, t_end)
         self.tracer.add_span("req.decode", t_first, t_end, cat="request",
                              rid=rid, tokens=n_tok)
-        self.tracer.add_span("req", t_sub, t_end, rid=rid, tokens=n_tok)
         self.slots[idx] = None
         self.engine.reset_slot(idx)
 
@@ -216,6 +276,23 @@ class ContinuousScheduler:
             ps["free_blocks"], pre.get("resident_blocks", 0),
             pre.get("evicted_blocks", 0))
 
+    def _stamp_admit(self, req: Request, t_admit: float):
+        """Admission bookkeeping shared by every request kind (the
+        prefill, or for eval the whole scoring pass, just ran)."""
+        self._exhausted_streak = 0
+        self.admit_order.append(req.rid)
+        t_first = time.perf_counter()
+        self.ttft[req.rid] = t_first - self._submit_t[req.rid]
+        self._first_t[req.rid] = t_first
+        self._m_qdepth.set(len(self.queue))
+        self._m_admitted.inc()
+        self._m_qwait.observe(self.queue_wait[req.rid])
+        self._m_ttft.observe(self.ttft[req.rid])
+        self.tracer.add_span("req.queue", self._submit_t[req.rid], t_admit,
+                             cat="request", rid=req.rid)
+        self.tracer.add_span("req.prefill", t_admit, t_first, cat="request",
+                             rid=req.rid, prompt_len=len(req.prompt))
+
     def _admit(self):
         """Admit queued requests (strict FIFO) while a slot is free."""
         while self.queue:
@@ -227,30 +304,49 @@ class ContinuousScheduler:
             t_admit = time.perf_counter()
             self.queue_wait[req.rid] = t_admit - self._submit_t[req.rid]
             try:
-                first = self.engine.prefill_into_slot(idx, req.prompt)
+                if req.kind == "eval":
+                    self._run_eval(req, idx)
+                else:
+                    first = self.engine.prefill_into_slot(idx, req.prompt)
             except PoolExhausted:
                 self._requeue_exhausted(req)
                 return
-            self._exhausted_streak = 0
-            self.slots[idx] = _Slot(req, [])
-            t_first = time.perf_counter()
-            self.admit_order.append(req.rid)
-            self.ttft[req.rid] = t_first - self._submit_t[req.rid]
-            self._first_t[req.rid] = t_first
-            self._m_qdepth.set(len(self.queue))
-            self._m_admitted.inc()
-            self._m_qwait.observe(self.queue_wait[req.rid])
-            self._m_ttft.observe(self.ttft[req.rid])
-            self.tracer.add_span("req.queue", self._submit_t[req.rid],
-                                 t_admit, cat="request", rid=req.rid)
-            self.tracer.add_span("req.prefill", t_admit, t_first,
-                                 cat="request", rid=req.rid,
-                                 prompt_len=len(req.prompt))
-            self._token_arrived(idx, first)
+            self._stamp_admit(req, t_admit)
+            if req.kind == "eval":
+                self._finish_request(req.rid, conts=len(
+                    req.payload["conts"]))
+            else:
+                self.slots[idx] = _Slot(req, [])
+                self._token_arrived(idx, first)
+
+    def _run_eval(self, req: Request, idx: int):
+        """Score every continuation of an eval request through slot `idx`,
+        synchronously (each scoring pass is a batch=1 prefill, the cost
+        one admit already pays).  Partial scores survive a
+        `PoolExhausted` requeue: the retry resumes at the first unscored
+        continuation, and the earlier continuations' trie insertions make
+        the retried prompt replay cheap."""
+        conts = req.payload["conts"]
+        scores = req.payload["scores"]
+        with self.tracer.span("req.eval", cat="request", rid=req.rid,
+                              conts=len(conts)):
+            while len(scores) < len(conts):
+                cont = conts[len(scores)]
+                logp = self.engine.score_in_slot(idx, req.prompt, cont)
+                self.engine.reset_slot(idx)
+                scores.append(logp)
+                self.eval_tokens_scored += len(cont)
+                self._m_eval_tokens.inc(len(cont))
+        self.eval_requests += 1
+        self._m_eval_reqs.inc()
+        self.results[req.rid] = list(scores)
 
     def step(self) -> int:
         """One scheduler tick: admit, then advance every busy slot by one
-        engine step.  Returns the number of busy slots."""
+        engine step: one token for plain engines, up to ``spec_k + 1`` for
+        a speculative engine.  A slot that hits EOS or its budget
+        mid-burst finishes there and the rest of its burst is dropped
+        (its caches are reset).  Returns the number of busy slots."""
         self._admit()
         self.peak_active = max(self.peak_active, self.active)
         busy = [i for i, s in enumerate(self.slots) if s is not None]
@@ -262,12 +358,19 @@ class ContinuousScheduler:
             toks, counts = self.engine.decode_step_multi()
         self.decode_steps += 1
         self.slot_busy_steps += len(busy)
+        spec_k = int(getattr(self.engine, "spec_k", 0))
         emitted0 = self.tokens_emitted
         for idx in busy:
-            for j in range(int(counts[idx])):
+            n = int(counts[idx])
+            for j in range(n):
                 self.tokens_emitted += 1
                 if self._token_arrived(idx, int(toks[idx, j])):
                     break
+            if spec_k:
+                self.spec_drafted += spec_k
+                self.spec_accepted += n - 1   # the bonus token is no draft
+                self._m_drafted.inc(spec_k)
+                self._m_accepted.inc(n - 1)
         step_toks = self.tokens_emitted - emitted0
         self._m_tokens.inc(step_toks)
         self._m_tps.observe(step_toks / len(busy))
@@ -280,6 +383,12 @@ class ContinuousScheduler:
         return dict(self.results)
 
     # -- reporting ----------------------------------------------------------
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted drafted tokens / drafted tokens (0.0 for plain)."""
+        return self.spec_accepted / self.spec_drafted \
+            if self.spec_drafted else 0.0
 
     @property
     def tokens_per_step(self) -> float:
@@ -316,7 +425,21 @@ class ContinuousScheduler:
             "queue_wait_s": _summ(self.queue_wait),
             "tpot_s": _summ(self.tpot),
         }
+        if self.eval_requests:
+            out["modes"] = {"eval_requests": self.eval_requests,
+                            "eval_tokens_scored": self.eval_tokens_scored}
         paged = getattr(self.engine, "paged_stats", None)
         if paged is not None:
             out["paged"] = paged()
+        spec_k = int(getattr(self.engine, "spec_k", 0))
+        if spec_k:
+            out["spec"] = {
+                "k": spec_k,
+                # 'self' (the target's own MTP heads, one cache tree) or
+                # 'sidecar' (a draft model and a second cache tree)
+                "mode": getattr(self.engine, "spec_mode", "sidecar"),
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": round(self.acceptance_rate, 4),
+            }
         return out

@@ -3,7 +3,9 @@
 `params_from_jax` takes the JAX param tree after
 ``jax.tree.map(np.asarray, params)`` — nested dicts of numpy arrays — and
 returns the port's params: the same nesting, with the scanned ``blocks``
-leaves ``(L, ...)`` unstacked into a list of per-layer dicts.  Every
+leaves ``(L, ...)`` unstacked into a list of per-layer dicts.  Every other
+subtree crosses as it is, the MTP heads' head x depth stacked ``mtp``
+subtree included (`models/mtp.py` indexes it as JAX does).  Every
 layout stays the JAX package's (``wq (d, nq, hd)``, ``wo (nq, hd, d)``,
 ``lm_head (V_pad, d)``, ...), so the move is a copy with no transposes.
 bf16 arrays (numpy's ``bfloat16`` extension dtype) cross as their raw

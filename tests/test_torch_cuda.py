@@ -11,7 +11,10 @@ order); dH and dW rtol 3e-4 / atol 1e-6, the JAX kernels' own tolerance
 (`tests/test_kernel_fused_ce.py`) — the kernels contract g as two bf16
 halves, |g - hi - lo| <= 2^-17 |g|.  paged_attn: bf16 outputs within
 atol / rtol 1e-2 of the plain version in f32, cast (one bf16 rounding
-at |out| <= ~1)."""
+at |out| <= ~1).  score_tokens: lse and candidate logits rtol 1e-5 /
+atol 1e-4 of the plain version (f32 sums of bf16 products in another
+order, as sample_topk's values), -inf exactly where the plain version
+puts it, and two calls bit for bit."""
 
 import numpy as np
 import pytest
@@ -338,3 +341,75 @@ def test_one_paged_decode_step_launches_once_per_layer(cuda):
     plain.prefill_into_slot(0, np.arange(1, 20))
     with pytest.raises(ValueError, match="plain"):
         plain.decode_step()
+
+
+# ---------------------------------------------------------------------------
+# score_tokens
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,v,d,valid,off,cap,temp", [
+    (32, 1, 20_000, 1024, 19_900, 0, None, 0.7),   # the spec-verify rows
+    (8, 1, 20_000, 1024, 19_900, 0, None, None),   # the eval rows
+    (4, 4, 5_000, 256, 4_990, 0, 30.0, None),      # self-spec prefill, cap
+    (77, 8, 3_001, 128, 9_000, 2_000, 5.0, 0.5),   # ragged, shard offset
+    (1, 64, 1_000, 64, 1_000, 0, None, 2.0),       # the most candidates
+])
+def test_score_tokens_matches_plain_version(cuda, n, p, v, d, valid, off,
+                                            cap, temp):
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref,
+                                                  score_tokens)
+    gen = torch.Generator(device=cuda).manual_seed(n * 7 + p)
+    h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    ids = torch.randint(off, min(valid, off + v), (n, p), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    if p > 1:          # a pad, an id past valid, one past the shard, a dup
+        ids[:, -1] = torch.tensor([-1, valid, off + v, -7], device=cuda,
+                                  dtype=torch.int32).repeat(n)[:n]
+        ids[:, 1] = ids[:, 0]
+    kw = dict(valid_vocab=valid, logit_softcap=cap, temperature=temp,
+              col_offset=off)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, w, ids, **kw)
+    lse2, zc2 = score_stats(h, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+    if off == 0:
+        logp, _ = score_tokens(h, w, ids, valid_vocab=valid,
+                               logit_softcap=cap, temperature=temp)
+        bad = (ids < 0) | (ids >= valid)
+        assert torch.equal(torch.isneginf(logp), bad)
+        assert bool((logp[~bad] <= 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_score_tokens_refuses_what_it_does_not_support(cuda):
+    from repro_torch.kernels.score_tokens import LAUNCHES, score_stats
+    h = torch.zeros((4, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((512, 128), dtype=torch.bfloat16, device=cuda)
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    before = LAUNCHES.count
+    with pytest.raises(NotImplementedError, match="A6"):
+        score_stats(h, w, ids, w_scale=torch.ones((512,), device=cuda))
+    with pytest.raises(ValueError, match="d % 64"):
+        score_stats(h[:, :96].contiguous(), w[:, :96].contiguous(), ids)
+    with pytest.raises(ValueError, match="candidates"):
+        score_stats(h, w, torch.zeros((4, 65), dtype=torch.int32,
+                                      device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        score_stats(h, w, ids.long())
+    with pytest.raises(ValueError, match="shared memory"):
+        score_stats(torch.zeros((32, 8192), dtype=torch.bfloat16,
+                                device=cuda),
+                    torch.zeros((64, 8192), dtype=torch.bfloat16,
+                                device=cuda),
+                    torch.zeros((32, 2), dtype=torch.int32, device=cuda))
+    assert LAUNCHES.count == before

@@ -200,8 +200,9 @@ def test_generate_and_waiting_options(model):
                                   slab.generate(prompts, 4))
     assert eng.live_cache_bytes() == eng.pool.used_blocks * 2 * 2 * 8 * 2 \
         * 16 * 4                           # L, k+v, bs, nkv, hd, f32
-    with pytest.raises(NotImplementedError, match="A4"):
-        PagedSelfSpecEngine(tarch, tparams, ServeConfig(paged=True))
+    with pytest.raises(ValueError, match="MTP heads"):    # no heads here
+        PagedSelfSpecEngine(tarch, tparams, ServeConfig(paged=True),
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         eng.fork_slot(1, 0)
     with pytest.raises(NotImplementedError, match="A2"):
