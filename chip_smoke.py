@@ -20,7 +20,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      held to its plain version (f32 logits, TF32 off) and timed beside
      its bound, the plain version and the canonical two-stage loss in
      PyTorch (``h @ w.T`` in cuBLAS, ``F.cross_entropy`` on f32 logits),
-     with the peak memory of both losses' forward + backward;
+     with the peak memory of both losses' forward + backward; then the
+     gradient filter at the training shape: (i) the forward's tile
+     statistic (10% ignored rows, and a 1000-row `col_offset` shard) with
+     lse, z* and sum z bit for bit the call without it and tmax held to
+     the plain version, -inf in the same places; (ii) the random problem
+     at eps 1e-5: nothing skipped, the filtered dH / dW bit for bit the
+     exact kernels (the gating's cost timed beside them); (iii) a peaked
+     problem (h = 24 W[y] + 24 W[y2] + noise, `PEAK_A` / `PEAK_B`)
+     skipping > 50% of the 64 x 64 tiles: the filtered kernels held to
+     the plain version given the
+     same mask, and within 2^-8 of the largest exact entry of the exact
+     kernels' grads; (iv) an all-ignored batch: every tile skipped, dH =
+     dW = 0 exactly.  Each prints the mask entries that flip between the
+     kernel's and the plain tmax, and is timed beside its bound (the live
+     share of the exact operations), the exact kernel, the plain version
+     and the canonical loss (which computes the exact gradient);
   3. the main path at full width — qwen3-0.6b (28 layers, bf16, seeded
      random weights) served by `Engine(batch_size=8, max_len=512)` and a
      `ContinuousScheduler`: 16 requests with seeded prompt lengths
@@ -80,6 +95,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      padded head's columns.  Prints tokens scored a second and prefill
      ms p50, cold and hit.
 
+  8. filtered training, MTP heads and gradient accumulation at full
+     width — phase 4's model, data and optimizer: (a) ``grad_filter_eps``
+     1e-5, 6 steps: at random init step 0 skips no tile with a valid
+     column (only the padded head's pad-only tiles, whose terms are
+     zero), its loss and bf16 lm_head gradient bit for bit the exact
+     kernels'; the counters,
+     zeroed just before the loop, show one tile-stat forward, one
+     filtered dH and one filtered dW a step and no exact dH / dW; (b)
+     ``grad_filter_eps`` 1e-3, 6 steps: every mask recorded (wrapping
+     `core.filtering.tile_skip_mask`), each step's skipped fraction > 0,
+     step 0's loss bit for bit the exact path's, its mask the one its
+     tile statistic gives, and its bf16 lm_head gradient bit for bit the
+     filtered dW kernel's on that mask, cast, whose f32 result is held to
+     the plain version on the same mask; every loss finite and the last
+     below the first;
+     step ms p50 and tokens/s beside phase 4's; (c) two MTP heads (depth
+     1), ``grad_accum`` 2, eps 0, 3 steps: (1 + 2) x 2 launches of each
+     exact fused-CE kernel and of `sample_topk` (the ``acc_h*`` metrics)
+     a step, step 0's loss within 1e-4 of the canonical loss's,
+     ``ce_h*`` / ``acc_h*`` finite with acc in [0, 1]; step ms p50,
+     tokens/s, peak memory and `sample_topk`'s time at 4096 rows beside
+     ``torch.topk(h @ w.T, 1)``.
+
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
@@ -126,6 +164,28 @@ CE_GRAD_RTOL, CE_GRAD_ATOL, CE_GRAD_FRO = 3e-4, 1e-6, 1e-4
 # gradient within a relative Frobenius error of 1e-2
 TRAIN_LOSS_RTOL, TRAIN_HEAD_FRO = 1e-4, 1e-2
 TRAIN_STEPS = 6
+# the gradient filter: the peaked problem's h rows are PEAK_A W[y] +
+# PEAK_B W[y2] + small noise, W's rows of norm ~1, so each row's mass
+# splits between y and y2 (lse ~ PEAK_A + log 2) and a 64 x 64 tile
+# holding neither has logits ~N(0, 1) and a bound 64 exp(tmax - lse) far
+# below FILTER_EPS; the filtered gradient may then deviate from the
+# exact one by at most 2^-8 of the largest exact entry (the JAX
+# package's guarantee, tests/test_grad_filtering.py).  With PEAK_B well
+# below PEAK_A, g = p - 1 at the target cancels to 1 - p ~ exp(PEAK_B -
+# PEAK_A), so the ~1e-5 absolute difference of two f32 logit sums near
+# 24 (kernel and plain version) reads as a relative gradient error of
+# 1e-5 / (1 - p): 3.1e-4 at 24 / 20 on the H100, against the exact
+# kernels' CE_GRAD_FRO, which holds where 1 - p is O(1)
+PEAK_A, PEAK_B = 24.0, 24.0
+FILTER_EPS = 1e-5
+FILTER_DEV = 2.0 ** -8
+MTP_STEPS = 3
+# phase 8: the training run's shape, and the filter thresholds of (a) and
+# (b): at random init the seeded head's logits are near flat (std ~0.08),
+# so a 64-column tile's bound is ~64 exp(0.3 - 11.93) ~ 6e-4: 1e-5 skips
+# nothing, 1e-3 nearly every tile without a target
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+FILTER_TRAIN_EPS = (1e-5, 1e-3)
 # A served greedy token may trail the cache-free forward's best logit by
 # at most this much: cached decode and the cache-free forward round to
 # bf16 in different places.  The seeded init's top-2 logit gaps are a few
@@ -421,6 +481,225 @@ def phase_fused_ce(torch, np, arch, dev):
     return results, errs
 
 
+def filtered_bound_ms(kind, n, v, d, live):
+    """Least time on an H100 for a filtered dH or dW: `live` (the share of
+    unskipped tiles) of the exact kernel's products, against the bytes of
+    the exact kernel plus the (n/64, v/64) mask."""
+    flops = live * 2 * 2 * n * v * d
+    nbytes = (n * d * 2 + v * d * 2 + 4 * n * 4
+              + (n if kind == "dh" else v) * d * 4
+              + -(-n // 64) * -(-v // 64))
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_tmax(torch, got, want):
+    """tmax within the forward's tolerance, -inf in the same places;
+    returns the max |err| over the finite entries."""
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise AssertionError("tile statistic: -inf in other places")
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=VAL_RTOL,
+                               atol=VAL_ATOL)
+    return float((got[fin] - want[fin]).abs().max())
+
+
+def phase_ce_filter(torch, np, arch, dev, lib_ms, n=8 * 1024):
+    """Phase 2's gradient-filter cases at the training shape: (i) the
+    tile statistic, (ii) the flat random problem at FILTER_EPS (nothing
+    skipped: bit for bit the exact kernels), (iii) a peaked problem (most
+    tiles skipped) and (iv) an all-ignored batch."""
+    from repro_torch.core import LossConfig
+    from repro_torch.core.filtering import skipped_fraction, tile_skip_mask
+    from repro_torch.core.streaming import row_scale
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+
+    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
+    out = {"errs": {}}
+
+    def problem(seed, peaked=False, ign=0.0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        w = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
+        w[valid:] = 0.0                             # the padded head rows
+        y = torch.randint(0, valid, (n,), generator=gen, device=dev)
+        if peaked:
+            y2 = torch.randint(0, valid, (n,), generator=gen, device=dev)
+            h = PEAK_A * w[y] + PEAK_B * w[y2] + 0.1 * torch.randn(
+                (n, d), generator=gen, device=dev) / d ** 0.5
+        else:
+            h = torch.randn((n, d), generator=gen, device=dev)
+        if ign:
+            drop = torch.rand((n,), generator=gen, device=dev) < ign
+            y = torch.where(drop, -100, y)
+        return h.bfloat16(), w.bfloat16(), y.to(torch.int32)
+
+    # (i) the tile statistic: 10% ignored rows, and a col_offset shard
+    errs = []
+    for name, rows, off, seed in (("ignore10pct", n, 0, 21),
+                                  ("ragged1000_offset", min(n, 1000), 4096,
+                                   22)):
+        h, w, y = problem(seed, ign=0.1)
+        h, y = h[:rows].contiguous(), y[:rows].contiguous()
+        cfg = LossConfig(grad_filter_eps=FILTER_EPS)
+        kw = dict(col_offset=off, total_valid=valid + off)
+        got = fwd_stats(h, w, y, cfg, return_tile_stats=True, **kw)
+        exact = fwd_stats(h, w, y, cfg, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], exact):
+            if not torch.equal(a, b):
+                raise AssertionError(f"tile statistic {name}: the row "
+                                     "statistics moved")
+        want = ref_stats(h, w, y, cfg, return_tile_stats=True, **kw)[3]
+        errs.append(check_tmax(torch, got[3], want))
+        mask_k = tile_skip_mask(got[3], got[0], y, cfg, block_rows=64,
+                                block_v=64, col_offset=off)
+        mask_p = tile_skip_mask(want, got[0], y, cfg, block_rows=64,
+                                block_v=64, col_offset=off)
+        flips = int((mask_k != mask_p).sum())
+        row = dict(ms=cuda_ms(torch, lambda: fwd_stats(
+            h, w, y, cfg, return_tile_stats=True, **kw), iters=5, warmup=1),
+            exact_ms=cuda_ms(torch, lambda: fwd_stats(h, w, y, cfg, **kw),
+                             iters=5, warmup=1),
+            plain_ms=cuda_ms(torch, lambda: ref_stats(
+                h, w, y, cfg, return_tile_stats=True, **kw), iters=2,
+                warmup=1))
+        bound, by = ce_bound_ms("fwd", rows, v, d)
+        row.update(bound_ms=bound + got[3].numel() * 4 / H100_BYTES_PER_S
+                   * 1e3, bound_by=by, library_ms=lib_ms.get("fwd")
+                   if off == 0 else None)
+        out[f"stats_{name}"] = row
+        print(f"[filter] tile statistic {name} (n {rows}, grid "
+              f"{tuple(got[3].shape)}): lse, z*, sum z bit-identical to the "
+              f"call without it; tmax max_abs_err {errs[-1]:.3g}, -inf in "
+              f"the same {int(torch.isneginf(want).sum())} places; "
+              f"{flips} mask entries flip between the kernel's and the "
+              f"plain tmax at eps {FILTER_EPS}; {row['ms']:.3f} ms vs "
+              f"{row['exact_ms']:.3f} ms without it, bound "
+              f"{row['bound_ms']:.3f} ms ({by}), plain "
+              f"{row['plain_ms']:.3f} ms", flush=True)
+        del got, exact, want
+    out["errs"]["fused_ce_fwd_tile_stats"] = max(errs)
+
+    def grads_case(name, h, w, y, cfg, expect):
+        lse, _, _, tmax = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+        mask = tile_skip_mask(tmax, lse, y, cfg, block_rows=64, block_v=64)
+        plain_tmax = ref_stats(h, w, y, cfg, return_tile_stats=True)[3]
+        flips = int((mask != tile_skip_mask(
+            plain_tmax, lse, y, cfg, block_rows=64, block_v=64)).sum())
+        del plain_tmax
+        frac = float(skipped_fraction(mask))
+        gamma = row_scale(torch.ones((), device=dev), y, cfg)
+        gargs = (h, w, y, lse, gamma, gamma, cfg)
+        fdh = dh_grads(*gargs, skip_mask=mask)
+        fdw = dw_grads(*gargs, skip_mask=mask)
+        edh, edw = dh_grads(*gargs), dw_grads(*gargs)
+        torch.cuda.synchronize()
+        expect(frac, fdh, fdw, edh, edw)
+        err, fro = {}, {}
+        for label, got, plain in (("dh", fdh, ref_dh), ("dw", fdw, ref_dw)):
+            ref = plain(*gargs, skip_mask=mask)
+            torch.testing.assert_close(got, ref, rtol=CE_GRAD_RTOL,
+                                       atol=CE_GRAD_ATOL)
+            err[label] = float((got - ref).abs().max())
+            norm = float(ref.norm())
+            fro[label] = float((got - ref).norm()) / norm if norm else 0.0
+            if not fro[label] <= CE_GRAD_FRO:
+                raise AssertionError(f"filtered {label} {name}: relative "
+                                     f"Frobenius error {fro[label]:.3g}")
+            del ref
+        scale = max(float(edh.abs().max()), float(edw.abs().max()))
+        dev_ = max(float((fdh - edh).abs().max()),
+                   float((fdw - edw).abs().max()))
+        if not dev_ <= FILTER_DEV * scale:
+            raise AssertionError(f"{name}: filtered grads deviate {dev_:.3g} "
+                                 f"from the exact ones, above 2^-8 of "
+                                 f"{scale:.3g}")
+        row = {}
+        for kind, fn, efn, plain in (
+                ("dh", lambda: dh_grads(*gargs, skip_mask=mask),
+                 lambda: dh_grads(*gargs),
+                 lambda: ref_dh(*gargs, skip_mask=mask)),
+                ("dw", lambda: dw_grads(*gargs, skip_mask=mask),
+                 lambda: dw_grads(*gargs),
+                 lambda: ref_dw(*gargs, skip_mask=mask))):
+            bound, by = filtered_bound_ms(kind, n, v, d, 1.0 - frac)
+            row[kind] = dict(ms=cuda_ms(torch, fn, iters=3, warmup=1),
+                             exact_ms=cuda_ms(torch, efn, iters=3, warmup=1),
+                             plain_ms=cuda_ms(torch, plain, iters=2,
+                                              warmup=1),
+                             bound_ms=bound, bound_by=by, skipped=frac,
+                             max_abs_err=err[kind])
+            r = row[kind]
+            print(f"[filter] {name} {kind}: skipped {frac:.4f} of "
+                  f"{mask.numel()} tiles ({flips} flip between the kernel's "
+                  f"and the plain tmax); max_abs_err {err[kind]:.3g} (rel "
+                  f"fro {fro[kind]:.3g}) vs the plain version on the same "
+                  f"mask; deviation from the exact grads {dev_:.3g} (limit "
+                  f"{FILTER_DEV * scale:.3g}); {r['ms']:.3f} ms vs bound "
+                  f"{r['bound_ms']:.3f} ms ({by}), exact kernel "
+                  f"{r['exact_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"canonical loss forward + d{kind[1]} (exact gradient) "
+                  f"{lib_ms.get(kind, float('nan')):.3f} ms", flush=True)
+        return row
+
+    # (ii) the flat random problem: nothing to skip at FILTER_EPS
+    def flat_expect(frac, fdh, fdw, edh, edw):
+        if frac != 0.0 or not (torch.equal(fdh, edh)
+                               and torch.equal(fdw, edw)):
+            raise AssertionError(f"flat problem: skipped {frac}, or the "
+                                 "filtered grads differ from the exact")
+
+    h, w, y = problem(7)
+    out["flat"] = grads_case("flat", h, w, y,
+                             LossConfig(grad_filter_eps=FILTER_EPS),
+                             flat_expect)
+    del h, w, y
+
+    # (iii) the peaked problem: most tiles skipped
+    def peaked_expect(frac, fdh, fdw, edh, edw):
+        if not frac > 0.5:
+            raise AssertionError(f"peaked problem skipped only {frac}")
+
+    h, w, y = problem(8, peaked=True)
+    print(f"[filter] peaked problem: h = {PEAK_A} W[y] + {PEAK_B} W[y2] + "
+          f"0.1 N(0, 1/d), W rows N(0, 1/d) (norm ~1), eps {FILTER_EPS}",
+          flush=True)
+    out["peaked"] = grads_case("peaked", h, w, y,
+                               LossConfig(grad_filter_eps=FILTER_EPS),
+                               peaked_expect)
+    out["errs"]["fused_ce_dh_filtered"] = max(
+        out[c]["dh"]["max_abs_err"] for c in ("flat", "peaked"))
+    out["errs"]["fused_ce_dw_filtered"] = max(
+        out[c]["dw"]["max_abs_err"] for c in ("flat", "peaked"))
+    del h, w, y
+
+    # (iv) an all-ignored batch: every tile skipped, exact zeros
+    h, w, y = problem(9, ign=1.0)
+    cfg = LossConfig(grad_filter_eps=FILTER_EPS)
+    lse, _, _, tmax = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    mask = tile_skip_mask(tmax, lse, y, cfg, block_rows=64, block_v=64)
+    zero = torch.zeros((n,), device=dev)
+    fdh = dh_grads(h, w, y, lse, zero, zero, cfg, skip_mask=mask)
+    fdw = dw_grads(h, w, y, lse, zero, zero, cfg, skip_mask=mask)
+    torch.cuda.synchronize()
+    if not bool(mask.all()) or bool(fdh.any()) or bool(fdw.any()):
+        raise AssertionError("all-ignored batch: not every tile skipped, or "
+                             "a non-zero gradient")
+    ms = {k: cuda_ms(torch, fn, iters=3, warmup=1) for k, fn in (
+        ("dh", lambda: dh_grads(h, w, y, lse, zero, zero, cfg,
+                                skip_mask=mask)),
+        ("dw", lambda: dw_grads(h, w, y, lse, zero, zero, cfg,
+                                skip_mask=mask)))}
+    print(f"[filter] all-ignored batch: skipped 1.0, dH = dW = 0 exactly; "
+          f"dh {ms['dh']:.3f} ms, dw {ms['dw']:.3f} ms (bounds "
+          f"{filtered_bound_ms('dh', n, v, d, 0.0)[0]:.3f} / "
+          f"{filtered_bound_ms('dw', n, v, d, 0.0)[0]:.3f} ms, bytes)",
+          flush=True)
+    return out
+
+
 def phase_train(torch, np, arch, card, dev):
     from repro_torch import obs
     from repro_torch.data import (DataConfig, DeviceLoader, SyntheticLM,
@@ -540,7 +819,264 @@ def phase_train(torch, np, arch, card, dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print("[train] profiled step, top device kernels (ms): "
           + "; ".join(f"{k} {v / 1e3:.2f}" for k, v in top), flush=True)
-    return launches
+    return launches, p50
+
+
+def train_run(torch, np, build, tc, arch, dev, data, steps):
+    """`steps` steps of `train_loop` from a seeded init, the launch counters
+    zeroed just before the loop; returns (state, history, counts, step ms
+    of steps 1.., peak GiB)."""
+    from repro_torch import obs
+    from repro_torch.data import DeviceLoader
+    from repro_torch.train import build_train_step, train_loop
+    init_fn, step_fn = build_train_step(arch, tc)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0), dev)
+    reg, tracer = obs.enable(trace=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counters()
+        state, history = train_loop(
+            state=state, step_fn=step_fn, data=DeviceLoader(data, dev),
+            num_steps=steps, log_every=1)
+        torch.cuda.synchronize()
+        counts = {k: c.count for k, c in build.COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        obs.disable()
+    spans = [sp.duration * 1e3 for sp in tracer.spans
+             if sp.name == "train.step"]
+    losses = [m["loss"] for _, m in history]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    return state, history, counts, spans[1:], peak
+
+
+def head_grad(torch, build_loss_fn, arch, tc, params, batch):
+    """(loss, bf16 lm_head gradient) of one loss evaluation."""
+    loss_fn = build_loss_fn(arch, tc)
+    loss, _ = loss_fn(params, batch)
+    (g,) = torch.autograd.grad(loss, [params["lm_head"]])
+    return float(loss.detach()), g
+
+
+def phase_train_filtered(torch, np, arch, card, dev, phase4_p50):
+    """Phase 8: filtered training, MTP heads and gradient accumulation at
+    full width."""
+    import dataclasses
+    from repro_torch.configs import with_mtp
+    from repro_torch.core import filtering
+    from repro_torch.core.streaming import row_scale
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import dw_grads, fwd_stats, ref_dw
+    from repro_torch.kernels.sample_topk import cuda_topk
+    from repro_torch.models.registry import forward_hidden
+    from repro_torch.train import (TrainConfig, build_loss_fn,
+                                   build_train_step)
+
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    base = TrainConfig(peak_lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                       total_steps=TRAIN_STEPS, loss_impl="kernel",
+                       loss_block_v=min(2048, arch.padded_vocab))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    batch0 = to_device(data.batch(0), dev)
+    masks = []
+    real_mask = filtering.tile_skip_mask
+
+    def recording(*a, **k):
+        masks.append(real_mask(*a, **k))
+        return masks[-1]
+
+    filtering.tile_skip_mask = recording
+    out = {"launches": {}}
+    try:
+        # (a) and (b): the filter at eps 1e-5 (only the pad-only vocab
+        # tiles go) and 1e-3 (almost every target-free tile while the
+        # logits are flat), step-0 checks first
+        for tag, eps in zip("ab", FILTER_TRAIN_EPS):
+            tc = dataclasses.replace(base, grad_filter_eps=eps)
+            init_fn = build_train_step(arch, tc)[0]
+            params = init_fn(torch.Generator(device=dev).manual_seed(0),
+                             dev)["params"]
+            lx, gx = head_grad(torch, build_loss_fn, arch,
+                               dataclasses.replace(tc, grad_filter_eps=0.0),
+                               params, batch0)
+            masks.clear()
+            lf, gf = head_grad(torch, build_loss_fn, arch, tc, params,
+                               batch0)
+            frac0 = float(filtering.skipped_fraction(masks[0]))
+            if lf != lx:
+                raise AssertionError(f"({tag}) step-0 loss {lf} through the "
+                                     f"tile-stat forward vs {lx} exact")
+            if tag == "a":
+                # at random init only the head's pad tiles (no valid
+                # column: tmax -inf, bound 0) may go, and they add zeros
+                live_tiles = -(-arch.vocab_size // 64)
+                if bool(masks[0][:, :live_tiles].any()):
+                    raise AssertionError("(a) step 0 skipped a tile with "
+                                         "valid columns")
+                if not torch.equal(gf, gx):
+                    raise AssertionError("(a) step-0 lm_head grad differs "
+                                         "from the exact kernels'")
+                print(f"[filter-train] (a) eps {eps}: step 0 skips "
+                      f"{int(masks[0].sum())} of {masks[0].numel()} tiles "
+                      f"({frac0:.3g}), all in the head's "
+                      f"{masks[0].shape[1] - live_tiles} pad-only vocab "
+                      f"tiles; loss {lf:.6f} and bf16 lm_head grad "
+                      f"bit-identical to the exact kernels'", flush=True)
+            else:
+                # the lm_head grad in f32 through the filtered dW kernel
+                # against the plain version on the kernel's own mask
+                with torch.no_grad():
+                    h, _, _ = forward_hidden(arch, params, batch0)
+                    rows = h.reshape(-1, h.shape[-1])
+                    y = batch0["targets"].reshape(-1)
+                    cfg = arch.loss_config(block_v=tc.loss_block_v,
+                                           grad_filter_eps=eps)
+                    w = params["lm_head"]
+                    lse, _, _, tmax = fwd_stats(rows, w, y, cfg,
+                                                return_tile_stats=True)
+                    mask = real_mask(tmax, lse, y, cfg, block_rows=64,
+                                     block_v=64)
+                    gamma = row_scale(torch.ones((), device=dev), y, cfg)
+                    gargs = (rows, w, y, lse, gamma, gamma, cfg)
+                    kdw = dw_grads(*gargs, skip_mask=mask)
+                    pdw = ref_dw(*gargs, skip_mask=mask)
+                torch.testing.assert_close(kdw, pdw, rtol=CE_GRAD_RTOL,
+                                           atol=CE_GRAD_ATOL)
+                fro = float((kdw - pdw).norm() / pdw.norm())
+                if not fro <= CE_GRAD_FRO:
+                    raise AssertionError(f"(b) step-0 lm_head grad rel fro "
+                                         f"{fro:.3g}")
+                # the step's own gradient: its mask is the one above and
+                # its bf16 lm_head grad is that filtered dW, cast
+                if not torch.equal(masks[0], mask):
+                    raise AssertionError("(b) the step's skip mask differs "
+                                         "from the one its own tile "
+                                         "statistic gives")
+                same = torch.equal(kdw.to(gf.dtype), gf)
+                if not same:
+                    raise AssertionError(
+                        "(b) the step's bf16 lm_head grad is not the "
+                        "filtered dW kernel's on the step's mask, cast; max "
+                        f"diff {float((kdw - gf.float()).abs().max()):.3g}")
+                print(f"[filter-train] (b) eps {eps}: step 0 skips "
+                      f"{frac0:.4f} of {masks[0].numel()} tiles; loss "
+                      f"{lf:.6f} bit-identical to the exact path's; f32 "
+                      f"lm_head grad vs the plain filtered version on the "
+                      f"kernel's mask: max_abs_err "
+                      f"{float((kdw - pdw).abs().max()):.3g}, rel fro "
+                      f"{fro:.3g}; the step's mask is that mask and its "
+                      f"bf16 grad is that grad cast: {same}", flush=True)
+                del h, rows, kdw, pdw
+            del params, gx, gf
+            torch.cuda.empty_cache()
+            masks.clear()
+            state, hist, counts, ms, peak = train_run(
+                torch, np, build, tc, arch, dev, data, TRAIN_STEPS)
+            losses = [m["loss"] for _, m in hist]
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"({tag}) loss did not fall: {losses}")
+            want = {"fused_ce_fwd": TRAIN_STEPS,
+                    "fused_ce_dh_filtered": TRAIN_STEPS,
+                    "fused_ce_dw_filtered": TRAIN_STEPS,
+                    "fused_ce_dh": 0, "fused_ce_dw": 0, "sample_topk": 0}
+            got = {k: counts.get(k, 0) for k in want}
+            if got != want or len(masks) != TRAIN_STEPS:
+                raise AssertionError(f"({tag}) launches {got}, {len(masks)} "
+                                     f"masks over {TRAIN_STEPS} steps")
+            fracs = [float(filtering.skipped_fraction(m)) for m in masks]
+            if tag == "b" and not min(fracs) > 0.0:
+                raise AssertionError(f"(b) skipped fractions {fracs}")
+            for k in ("fused_ce_fwd", "fused_ce_dh_filtered",
+                      "fused_ce_dw_filtered"):
+                out["launches"][k] = out["launches"].get(k, 0) + got[k]
+            p50 = float(np.median(ms))
+            print(f"[filter-train] ({tag}) eps {eps}, {TRAIN_STEPS} steps: "
+                  f"loss " + " ".join(f"{x:.4f}" for x in losses)
+                  + "; skipped " + " ".join(f"{f:.4f}" for f in fracs)
+                  + f"; launches {got}; step {p50:.1f} ms p50 over steps "
+                  f"1-{TRAIN_STEPS - 1} (" + ", ".join(f"{x:.1f}" for x in ms)
+                  + f" ms), {tok / (p50 / 1e3):.0f} tokens/s against phase "
+                  f"4's {phase4_p50:.1f} ms ({tok / (phase4_p50 / 1e3):.0f} "
+                  f"tokens/s), peak {peak:.2f} GiB on {card}", flush=True)
+            out[tag] = dict(p50=p50, fracs=fracs, peak=peak)
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        filtering.tile_skip_mask = real_mask
+
+    # (c) two MTP heads, two microbatches, the exact kernels
+    march = with_mtp(arch, 2, head_depth=1, track_accuracy=True)
+    tc = dataclasses.replace(base, total_steps=MTP_STEPS, grad_accum=2)
+    init_fn = build_train_step(march, tc)[0]
+    params = init_fn(torch.Generator(device=dev).manual_seed(0),
+                     dev)["params"]
+    step0 = {}
+    with torch.no_grad():
+        for impl in ("kernel", "canonical"):
+            loss_fn = build_loss_fn(march, dataclasses.replace(
+                tc, loss_impl=impl))
+            step0[impl] = sum(float(loss_fn(params, {
+                k: v.reshape((2, TRAIN_BATCH // 2) + tuple(v.shape[1:]))[i]
+                for k, v in batch0.items()})[0]) for i in range(2)) / 2
+    del params
+    torch.cuda.empty_cache()
+    rel = abs(step0["kernel"] - step0["canonical"]) / abs(step0["canonical"])
+    state, hist, counts, ms, peak = train_run(
+        torch, np, build, tc, march, dev, data, MTP_STEPS)
+    h0 = hist[0][1]
+    rel_step = abs(h0["loss"] - step0["canonical"]) / abs(step0["canonical"])
+    if not (rel <= TRAIN_LOSS_RTOL and rel_step <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"(c) step-0 loss {h0['loss']} (kernels, no "
+                             f"grad {step0['kernel']}) vs canonical "
+                             f"{step0['canonical']}")
+    per = (1 + 2) * 2
+    want = {"fused_ce_fwd": per * MTP_STEPS, "fused_ce_dh": per * MTP_STEPS,
+            "fused_ce_dw": per * MTP_STEPS, "sample_topk": per * MTP_STEPS,
+            "fused_ce_dh_filtered": 0, "fused_ce_dw_filtered": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"(c) launches {got}, want {want}")
+    for _, m in hist:
+        for key in [f"{p}_h{i}" for p in ("ce", "acc") for i in range(3)]:
+            if not np.isfinite(m[key]):
+                raise AssertionError(f"(c) {key} = {m[key]}")
+        if not all(0.0 <= m[f"acc_h{i}"] <= 1.0 for i in range(3)):
+            raise AssertionError(f"(c) accuracies {m}")
+    p50 = float(np.median(ms))
+    w = state["params"]["lm_head"]
+    rows = torch.randn((tok // 2, arch.cfg.d_model), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3)
+                       ).to(w.dtype)
+    topk_ms = cuda_ms(torch, lambda: cuda_topk(
+        rows, w, 1, valid_vocab=arch.vocab_size), iters=5, warmup=1)
+    wv = w[:arch.vocab_size]
+    topk_lib_ms = cuda_ms(torch, lambda: torch.topk(rows @ wv.T, 1),
+                          iters=5, warmup=1)
+    print(f"[mtp-train] (c) 2 MTP heads (depth 1), grad_accum 2, eps 0, "
+          f"{MTP_STEPS} steps: step-0 loss {h0['loss']:.6f} vs canonical "
+          f"{step0['canonical']:.6f} (rel {rel_step:.3g}, limit "
+          f"{TRAIN_LOSS_RTOL}); launches {got} = (1 + 2) x 2 a step; "
+          + "; ".join(f"step {i}: " + " ".join(
+              f"{k} {m[k]:.4f}" for k in sorted(m) if k[:3] in ("ce_",
+                                                             "acc"))
+              for i, m in hist), flush=True)
+    print(f"[mtp-train] (c) step {p50:.1f} ms p50 over steps 1-"
+          f"{MTP_STEPS - 1} (" + ", ".join(f"{x:.1f}" for x in ms)
+          + f" ms), {tok / (p50 / 1e3):.0f} tokens/s, peak {peak:.2f} GiB; "
+          f"sample_topk k=1 at {tok // 2} rows {topk_ms:.3f} ms (bound "
+          f"{topk_bound_ms(tok // 2, arch.cfg.d_model, arch.padded_vocab, 1)[0]:.3f}"
+          f" ms), torch.topk(h @ w.T, 1) {topk_lib_ms:.3f} ms on {card}",
+          flush=True)
+    out["c"] = dict(p50=p50, peak=peak, topk_ms=topk_ms,
+                    topk_lib_ms=topk_lib_ms)
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_prompts(np, vocab):
@@ -1329,6 +1865,8 @@ def main():
     dev = torch.device("cuda")
     kernels = phase_topk(torch, np, arch, dev)
     ce, ce_errs = phase_fused_ce(torch, np, arch, dev)
+    filt = phase_ce_filter(torch, np, arch, dev, {
+        k: ce["main"][k]["library_ms"] for k in ("fwd", "dh", "dw")})
     paged = phase_paged_attn(torch, np, dev)
     score = phase_score(torch, np, arch, dev)
     launches, params = phase_serve(torch, np, arch, card, dev)
@@ -1337,7 +1875,8 @@ def main():
     params, score_launches = phase_spec(torch, np, arch, card, dev)
     score_launches += phase_eval(torch, np, arch, params, card, dev)
     del params
-    train_launches = phase_train(torch, np, arch, card, dev)
+    train_launches, train_p50 = phase_train(torch, np, arch, card, dev)
+    ftrain = phase_train_filtered(torch, np, arch, card, dev, train_p50)
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -1361,6 +1900,26 @@ def main():
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = filt["stats_ignore10pct"]         # the training shape
+    record["kernels"].append({
+        "name": "fused_ce_fwd_tile_stats", "route": "cuda",
+        "source": ce_source,
+        "replaces": "src/repro/kernels/fused_ce/kernel.py:80",
+        "launches": ftrain["launches"]["fused_ce_fwd"],
+        "max_abs_err": filt["errs"]["fused_ce_fwd_tile_stats"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
+    for kind, line in (("dh", 308), ("dw", 336)):
+        name = f"fused_ce_{kind}_filtered"
+        row = filt["peaked"][kind]            # most tiles skipped
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": ce_source,
+            "replaces": f"src/repro/kernels/fused_ce/kernel.py:{line}",
+            "launches": ftrain["launches"][name],
+            "max_abs_err": filt["errs"][name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
     row = paged["decode"]                   # the paged serving decode shape
     record["kernels"].append({
         "name": "paged_attn", "route": "cuda",

@@ -13,6 +13,10 @@ Implementations (semantically identical, verified against each other):
                 JAX package picks 'pallas' only on a TPU).
 
 Inputs may be (B, T, d)/(B, T) or already flattened (N, d)/(N,).
+``cfg.grad_filter_eps > 0`` runs the gradient-filtered backward of
+'streaming' (one row block, `block_v` chunks) and 'kernel' (the 64 x 64
+tile grid), so their filtered gradients differ from each other as the
+JAX package's 'streaming' and 'pallas' do; 'canonical' ignores it.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ softmax state (m, a) and the target / valid-sum statistics are carried
 across chunks, so the (N, V) logits are never formed: the peak
 intermediate is one (N, block_v) tile.  The backward
 (`torch.autograd.Function`) re-streams the vocabulary, recomputes each
-tile, forms ``g`` on the fly and contracts it into dH and dW.
+tile, forms ``g`` on the fly and contracts it into dH and dW.  With
+``cfg.grad_filter_eps > 0`` the forward also keeps each chunk's max
+logit over live rows, and the backward skips the chunks whose softmax
+mass is provably below the threshold (`core/filtering.py`).
 
 This is the CPU path of `fused_cross_entropy(impl='auto')` and the
 semantic twin of the kernels in `repro_torch.kernels.fused_ce`.
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.canonical import reduce_loss
-from repro_torch.core.types import LossConfig, require_exact_backward
+from repro_torch.core.types import LossConfig
 from repro_torch.core.windows import BlockPlan
 
 _NEG_INF = float("-inf")
@@ -54,10 +57,12 @@ def streaming_stats(
 
     Tensor-parallel shards pass `col_offset` (global id of w's first row)
     and `total_valid` (global valid vocab); `y` keeps global ids, and a
-    row whose target lies outside the shard gets z_target == 0."""
-    if return_tile_stats:
-        raise NotImplementedError("per-chunk tile statistics come with "
-                                  "ROADMAP A7")
+    row whose target lies outside the shard gets z_target == 0.
+
+    With `return_tile_stats=True` a fourth tensor is returned: the
+    (n_chunks,) max logit of each chunk over live rows (ignored rows
+    excluded) and valid columns, the gradient filter's statistic; the
+    other three are computed the same way either way."""
     n, _ = h.shape
     v_orig = w.shape[0]
     valid = total_valid if total_valid is not None else (
@@ -68,13 +73,16 @@ def streaming_stats(
     a = torch.zeros((n,), dtype=torch.float32, device=h.device)
     z_sum = torch.zeros_like(a)
     z_tgt = torch.zeros_like(a)
+    live_row = y != cfg.ignore_index
+    tmax = []
     for start in range(0, v_orig, cfg.block_v):
         z, col, col_valid = _chunk_logits(
             h32, w[start:start + cfg.block_v], start, col_offset, v_orig,
             valid, cfg)
         # online max / accumulator update (paper lines 8-14); the guard
         # keeps exp(-inf - -inf) out while every column so far is padding
-        m_new = torch.maximum(m, z.amax(dim=-1))
+        m_chunk = z.amax(dim=-1)
+        m_new = torch.maximum(m, m_chunk)
         safe_m = torch.where(torch.isneginf(m_new), 0.0, m_new)
         a = a * torch.exp(m - safe_m) + torch.exp(
             z - safe_m[:, None]).sum(dim=-1)
@@ -84,6 +92,10 @@ def streaming_stats(
         # shard's global ids and must never match a target
         is_tgt = (col[None, :] == y[:, None]) & col_valid[None, :]
         z_tgt = z_tgt + torch.where(is_tgt, z, 0.0).sum(dim=-1)
+        if return_tile_stats:
+            tmax.append(torch.where(live_row, m_chunk, _NEG_INF).amax())
+    if return_tile_stats:
+        return m + torch.log(a), z_tgt, z_sum, torch.stack(tmax)
     return m + torch.log(a), z_tgt, z_sum
 
 
@@ -120,11 +132,13 @@ def streaming_grads(
         dH = sum_chunks g_chunk @ W_chunk,   dW_chunk = g_chunk^T @ H
 
     Each dW chunk is an f32 sum stored in the weight dtype, and dH is
-    returned in h's dtype, as the JAX package does."""
-    if tile_stats is not None:
-        raise NotImplementedError("the filtered backward comes with "
-                                  "ROADMAP A7")
-    require_exact_backward(cfg)
+    returned in h's dtype, as the JAX package does.
+
+    With ``cfg.grad_filter_eps > 0`` and `tile_stats` (the forward's
+    per-chunk max logits), a chunk whose mass bound falls below the
+    threshold and holds no target runs no product: its dW rows are exact
+    zeros and dH gets nothing from it.  The mask has one row block
+    spanning all rows.  Otherwise this is the exact backward."""
     n, d = h.shape
     v_orig = w.shape[0]
     valid = total_valid if total_valid is not None else (
@@ -133,10 +147,19 @@ def streaming_grads(
     y = y.long()
     eps = cfg.label_smoothing
     p_coeff = gamma * (1.0 + 2.0 * cfg.z_loss * lse)
+    skip = None
+    if cfg.filter_grads and tile_stats is not None:
+        from repro_torch.core.filtering import tile_skip_mask
+        skip = tile_skip_mask(tile_stats[None, :], lse, y, cfg,
+                              block_rows=n, block_v=cfg.block_v,
+                              col_offset=col_offset)[0].tolist()
     dh = torch.zeros((n, d), dtype=torch.float32, device=h.device)
     dw_chunks = []
-    for start in range(0, v_orig, cfg.block_v):
+    for idx, start in enumerate(range(0, v_orig, cfg.block_v)):
         w_chunk = w[start:start + cfg.block_v]
+        if skip is not None and skip[idx]:
+            dw_chunks.append(torch.zeros_like(w_chunk))
+            continue
         z, col, col_valid = _chunk_logits(
             h32, w_chunk, start, col_offset, v_orig, valid, cfg)
         p = torch.exp(z - lse[:, None])
@@ -154,18 +177,24 @@ def streaming_grads(
 class _StreamingLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, y, cfg: LossConfig):
-        lse, z_tgt, z_sum = streaming_stats(h, w, y, cfg)
+        tmax = None
+        if cfg.filter_grads:
+            lse, z_tgt, z_sum, tmax = streaming_stats(
+                h, w, y, cfg, return_tile_stats=True)
+        else:
+            lse, z_tgt, z_sum = streaming_stats(h, w, y, cfg)
         valid = cfg.resolve_vocab(w.shape[0])
         rows = rows_from_stats(lse, z_tgt, z_sum, y, valid, cfg)
-        ctx.save_for_backward(h, w, y, lse)
+        ctx.save_for_backward(h, w, y, lse, tmax)
         ctx.cfg = cfg
         return reduce_loss(rows, y, cfg)
 
     @staticmethod
     def backward(ctx, gbar):
-        h, w, y, lse = ctx.saved_tensors
+        h, w, y, lse, tmax = ctx.saved_tensors
         gamma = row_scale(gbar.float(), y, ctx.cfg)
-        dh, dw = streaming_grads(h, w, y, lse, gamma, ctx.cfg)
+        dh, dw = streaming_grads(h, w, y, lse, gamma, ctx.cfg,
+                                 tile_stats=tmax)
         return dh, dw, None, None
 
 
@@ -181,7 +210,6 @@ def streaming_loss(
     `plan.block_v`, when a plan is given, overrides `cfg.block_v` as the
     window size (the scan streams whole rows, so rows do not apply)."""
     cfg = cfg or LossConfig()
-    require_exact_backward(cfg)
     if plan is not None:
         cfg = dataclasses.replace(cfg, block_v=plan.block_v)
     return _StreamingLoss.apply(h, w, y, cfg)

@@ -31,7 +31,8 @@ class LossConfig:
       block_v: vocabulary chunk of the streaming implementation.
       accum_dtype: accumulator dtype of the online-softmax state.
       grad_filter_eps: threshold of the gradient-filtered backward
-        (ROADMAP A7 in the port; 0.0 is the exact backward).
+        (`core/filtering.py`; 0.0 is the exact backward).  The canonical
+        loss ignores it.
     """
 
     reduction: str = "mean"
@@ -74,10 +75,3 @@ class LossConfig:
                 f"valid_vocab={v} exceeds weight rows {padded_vocab}")
         return v
 
-
-def require_exact_backward(cfg: LossConfig) -> None:
-    """The gradient-filtered backward is not ported yet."""
-    if cfg.filter_grads:
-        raise NotImplementedError(
-            "grad_filter_eps > 0 (the gradient-filtered backward) comes "
-            "with ROADMAP A7")

@@ -23,7 +23,8 @@ The fused-CE kernels of a training step see thousands of rows and have
 their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles and
 64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
 split of the forward grid sized so that even a few hundred rows fill the
-card.
+card.  The gradient filter works on one 64 x 64 tile grid
+(`ce_tile_grid`) for the statistic, the mask and both backward kernels.
 """
 
 from __future__ import annotations
@@ -96,6 +97,18 @@ N_SMS = 132                     # H100 SXM
 CE_FWD_ROWS = 128               # forward tile rows   (fused_ce.cu kFwdRows)
 CE_FWD_COLS = 128               # forward tile columns (kFwdCols)
 CE_FWD_SLOTS = 2 * N_SMS        # forward blocks resident at once
+# the tile grid shared by the forward's tile statistic (a quarter of a
+# forward tile), the skip mask and both backward kernels: a dH block owns
+# CE_TILE_ROWS rows of h and streams W in CE_TILE_COLS-row tiles, a dW
+# block owns CE_TILE_COLS rows of W and streams h in CE_TILE_ROWS-row tiles
+CE_TILE_ROWS = 64               # fused_ce.cu kBwdRows
+CE_TILE_COLS = 64               # fused_ce.cu kBwdCols
+
+
+def ce_tile_grid(n_rows: int, vocab: int):
+    """(row tiles, vocab tiles) of the fused-CE tile grid: the shape of
+    the tile statistic and of the backward's skip mask."""
+    return -(-n_rows // CE_TILE_ROWS), -(-vocab // CE_TILE_COLS)
 
 
 @dataclasses.dataclass(frozen=True)

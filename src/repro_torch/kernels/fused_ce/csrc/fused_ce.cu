@@ -2,8 +2,10 @@
 // statistics and the two backward contractions, without the (rows, V)
 // logits ever reaching device memory.
 //
-// Replaces repro/kernels/fused_ce/kernel.py:_fwd_kernel, _dh_kernel and
-// _dw_kernel (the exact Pallas TPU kernels).  Same contract:
+// Replaces repro/kernels/fused_ce/kernel.py:_fwd_kernel (with its
+// return_tile_stats option), _dh_kernel and _dw_kernel (the exact Pallas
+// TPU kernels) and _dh_kernel_filtered / _dw_kernel_filtered (the
+// gradient-filtered ones).  Same contract:
 //   * a column (vocab row of W) is valid iff local < v_orig and
 //     local + col_offset < valid; z = h . w (f32 sums of exact bf16
 //     products), tanh-softcapped when cap > 0;
@@ -12,7 +14,13 @@
 //     column (else 0), z_sum = sum of the valid z;
 //   * backward, per (row, column): g = pc*p - gamma*((1-eps)*onehot +
 //     eps/valid), times 1 - (zc/cap)^2 under softcap, 0 off the valid
-//     columns and past the rows; dH = g W and dW = g^T H, both f32.
+//     columns and past the rows; dH = g W and dW = g^T H, both f32;
+//   * tile statistic (optional, forward): tmax[rt, ct] = the max
+//     post-softcap z over the 64 x 64 tile (rows 64 rt.., columns
+//     64 ct..) restricted to live rows (row < n, y != ignore_index) and
+//     valid columns, -inf where the tile has none;
+//   * filtered backward: tile (rt, ct) of that grid is left out of dH and
+//     dW where skip[rt, ct] (a (ceil(n/64), ceil(v/64)) byte mask).
 //
 // Bound (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s): at qwen3-0.6b's training
 // shape (8192 rows, W 152064 x 1024 bf16) each pass is a 2.55 TFLOP
@@ -50,6 +58,20 @@
 //     (row blocks x d ranges) streaming the vocab, and a dW pass over
 //     (vocab blocks x d ranges) streaming the rows.  No atomics: the sums
 //     run in a fixed order and repeat bit for bit.
+//   * the gradient filter shares one 64 x 64 tile grid between the
+//     statistic, the mask and both backward grids: a dH block owns 64
+//     rows of h and streams W in 64-row tiles (mask row rt), a dW block
+//     owns 64 rows of W and streams h in 64-row tiles (mask column ct).
+//     A forward tile (128 x 128, warps 2 x 4 of 64 x 32) holds four grid
+//     tiles whole, each the max of two warps: reduced in registers and
+//     the warp, combined through shared memory, written once, with no
+//     cross-block merge.  A filtered backward block first compacts its
+//     mask row or column into an ascending list of live tiles in shared
+//     memory (warp ballots), then walks only that list: a skipped tile
+//     costs neither its bytes nor its recompute, and an all-False mask
+//     walks 0..n-1 in the exact kernel's order, bit for bit.  Live
+//     tiles are uneven across blocks (target tiles pin some): no load
+//     balancing yet.
 // Operands stream through a 3-stage cp.async ring of k chunks (32 wide in
 // the forward; 128 wide in the backward, whose 64 x 64 recompute tile does
 // too little between two barriers at 32: dH took 155 ms at 32 and 107 ms
@@ -231,17 +253,23 @@ __device__ __forceinline__ void tile_dot(
 
 // grid (ceil(n / 128), n_split), kFwdThreads threads.  Writes the partial
 // state (m, a, z_target, z_sum) of every row over its vocab slice to
-// part[(row * n_split + split) * 4 ...].
+// part[(row * n_split + split) * 4 ...].  kStats: also the tile statistic
+// tmax (num_r, num_v) of the 64 x 64 grid, every entry written by the one
+// block that owns it; the other outputs are computed the same way.
+template <bool kStats>
 __global__ void __launch_bounds__(kFwdThreads)
     fce_fwd_partial(const bf16* __restrict__ h, const bf16* __restrict__ w,
                     const int* __restrict__ y, float* __restrict__ part,
                     int n, int d, int v_orig, int valid, int col_offset,
                     int n_split, int tiles_per_split, int has_cap,
-                    float cap) {
+                    float cap, int ignore_index, float* __restrict__ tmax) {
   constexpr int WM = 2, WN = 4;
   constexpr int MT = kFwdRows / WM / 16;  // 4
   constexpr int NT = kFwdCols / WN / 8;   // 4
+  static_assert(kFwdRows / WM == kBwdRows && 2 * kFwdCols / WN == kBwdCols,
+                "a warp pair covers one tile of the filter's grid");
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sTq[WM * WN];          // per-warp tile maxima
   bf16* sS = reinterpret_cast<bf16*>(smem);
   bf16* sT = sS + kStages * kFwdRows * ld_of(kFwdBK);
 
@@ -277,6 +305,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     float acc[MT][NT][4];
     tile_dot<kFwdRows, kFwdCols, kFwdBK, WM, WN, kFwdThreads>(
         acc, h, r0, n, w, c0, v_orig, d, sS, sT);
+    float tq = -INFINITY;   // this thread's max over its live rows
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -307,7 +336,30 @@ __global__ void __launch_bounds__(kFwdThreads)
         for (int i = 0; i < NT * 2; ++i) sum += expf(z[i] - safe);
         a[mt][hh] = a[mt][hh] * expf(m[mt][hh] - safe) + sum;
         m[mt][hh] = m_new;
+        if (kStats) {
+          const int row = r0 + wm * 64 + mt * 16 + g + 8 * hh;
+          if (row < n && yv[mt][hh] != ignore_index) tq = fmaxf(tq, lmax);
+        }
       }
+    if (kStats) {
+      // warp (wm, wn) covers grid tile (2 * blockIdx.x + wm, 2 * tile +
+      // wn / 2); its partner is wn ^ 1
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tq = fmaxf(tq, __shfl_xor_sync(0xffffffffu, tq, off));
+      if (lane == 0) sTq[warp] = tq;
+      __syncthreads();
+      if (tid < WM * 2) {
+        const int qr = tid >> 1, qc = tid & 1;
+        const int rt = blockIdx.x * WM + qr, ct = tile * 2 + qc;
+        const int num_r = (n + kBwdRows - 1) / kBwdRows;
+        const int num_v = (v_orig + kBwdCols - 1) / kBwdCols;
+        if (rt < num_r && ct < num_v)
+          tmax[(size_t)rt * num_v + ct] =
+              fmaxf(sTq[qr * WN + 2 * qc], sTq[qr * WN + 2 * qc + 1]);
+      }
+      // the next tile's tile_dot passes a barrier before sTq is rewritten
+    }
   }
 
   // merge the quad (the 4 lanes that share rows), then the 4 column warps
@@ -385,13 +437,17 @@ __global__ void fce_fwd_merge(const float* __restrict__ part,
 // grid (ceil(S rows / 64), ceil(d / 256)), kBwdThreads threads.  For each
 // 64-row tile of T: z = S_blk T_tile^T (recompute over all of d), g from z
 // into shared memory as bf16 hi/lo, then acc += g T_tile[:, d range].
-template <bool kDW>
+// kFiltered: only the T tiles whose skip entry is 0 (skip is the
+// (ceil(n/64), ceil(v_orig/64)) mask; dH reads row blockIdx.x, dW column
+// blockIdx.x), in ascending order; the exact kernel walks them all.
+template <bool kDW, bool kFiltered>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     fce_grad(const bf16* __restrict__ h, const bf16* __restrict__ w,
              const int* __restrict__ y, const float* __restrict__ lse,
              const float* __restrict__ gamma, const float* __restrict__ pc,
-             float* __restrict__ out, int n, int d, int v_orig, int valid,
-             int col_offset, int has_cap, float cap, float eps) {
+             const uint8_t* __restrict__ skip, float* __restrict__ out,
+             int n, int d, int v_orig, int valid, int col_offset,
+             int has_cap, float cap, float eps) {
   constexpr int WM = 4, WN = 4;  // recompute layout: 16 x 16 a warp
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sS = reinterpret_cast<bf16*>(smem);
@@ -403,6 +459,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float* sL = reinterpret_cast<float*>(sY + 64);
   float* sG = sL + 64;
   float* sP = sG + 64;
+  int* sCnt = reinterpret_cast<int*>(sP + 64);  // filtered: warp counts
+  int* sList = sCnt + kBwdWarps;                // filtered: live tiles
 
   const bf16* S = kDW ? w : h;
   const bf16* T = kDW ? h : w;
@@ -446,7 +504,34 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int i = 0; i < 4; ++i) run[mt][nt][i] = 0.f;
 
   const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  int n_live = n_tiles;
+  if (kFiltered) {
+    // compact this block's mask row (dH) or column (dW) into sList, in
+    // ascending order: one ballot a warp, warp offsets from sCnt
+    const int num_v = (v_orig + kBwdCols - 1) / kBwdCols;
+    n_live = 0;
+    for (int base = 0; base < n_tiles; base += kBwdThreads) {
+      const int i = base + tid;
+      const bool live =
+          i < n_tiles &&
+          !skip[kDW ? (size_t)i * num_v + blockIdx.x
+                    : (size_t)blockIdx.x * num_v + i];
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) sCnt[warp] = __popc(bal);
+      __syncthreads();
+      int off = n_live, tot = 0;
+      for (int k = 0; k < kBwdWarps; ++k) {
+        const int c = sCnt[k];
+        off += k < warp ? c : 0;
+        tot += c;
+      }
+      if (live) sList[off + __popc(bal & ((1u << lane) - 1u))] = i;
+      n_live += tot;
+      __syncthreads();  // sCnt is rewritten next round; sList is complete
+    }
+  }
+  for (int li = 0; li < n_live; ++li) {
+    const int tile = kFiltered ? sList[li] : li;
     const int t0 = tile * kBwdCols;
     __syncthreads();  // the last contraction is done with panel, g, stats
     if (kDW) load_stats(t0);
@@ -568,25 +653,39 @@ constexpr size_t kBwdSmem =
     (size_t)kBwdCols * kPLd * sizeof(bf16) + 4 * 64 * sizeof(float);
 static_assert(kFwdSmem >= (size_t)4 * kFwdRows * 4 * sizeof(float),
               "the forward reduction reuses the ring");
+constexpr size_t kSmemMax = 232448;   // H100: dynamic smem a block can use
+// a filtered block adds the warp counts and its live-tile list; a longer
+// streamed operand (over 1.19M rows of W or h) is refused as an invalid
+// argument before any launch
+constexpr int kMaxFilteredTiles =
+    (int)((kSmemMax - kBwdSmem) / sizeof(int)) - kBwdWarps;
 
-template <bool kDW>
+template <bool kDW, bool kFiltered>
 int launch_grad(const void* h, const void* w, const void* y, const void* lse,
-                const void* gamma, const void* pc, void* out, int n, int d,
-                int v_orig, int valid, int col_offset, int has_cap, float cap,
-                float eps, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fce_grad<kDW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kBwdSmem);
-  if (err != cudaSuccess) return (int)err;
+                const void* gamma, const void* pc, const void* skip,
+                void* out, int n, int d, int v_orig, int valid,
+                int col_offset, int has_cap, float cap, float eps,
+                void* stream) {
   const int s_rows = kDW ? v_orig : n;
+  const int t_rows = kDW ? n : v_orig;
+  const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
+  if (kFiltered && n_tiles > kMaxFilteredTiles)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kBwdSmem + (kFiltered ? (size_t)(kBwdWarps + n_tiles) * sizeof(int)
+                            : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      fce_grad<kDW, kFiltered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((s_rows + kBwdRows - 1) / kBwdRows, (d + kBwdD - 1) / kBwdD);
-  fce_grad<kDW><<<grid, kBwdThreads, kBwdSmem,
-                  reinterpret_cast<cudaStream_t>(stream)>>>(
+  fce_grad<kDW, kFiltered><<<grid, kBwdThreads, smem,
+                             reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(y), static_cast<const float*>(lse),
       static_cast<const float*>(gamma), static_cast<const float*>(pc),
-      static_cast<float*>(out), n, d, v_orig, valid, col_offset, has_cap,
-      cap, eps);
+      static_cast<const uint8_t*>(skip), static_cast<float*>(out), n, d,
+      v_orig, valid, col_offset, has_cap, cap, eps);
   return (int)cudaGetLastError();
 }
 
@@ -595,23 +694,27 @@ int launch_grad(const void* h, const void* w, const void* y, const void* lse,
 extern "C" {
 
 // Forward statistics: part is (n, n_split, 4) f32 scratch; lse, ztgt, zsum
-// are (n,) f32.  Returns the cudaError_t of the launches.
+// are (n,) f32.  tmax, when not null, receives the (ceil(n/64),
+// ceil(v_orig/64)) f32 tile statistic over the rows whose y is not
+// ignore_index.  Returns the cudaError_t of the launches.
 int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
                         void* part, void* lse, void* ztgt, void* zsum, int n,
                         int d, int v_orig, int valid, int col_offset,
-                        int n_split, int has_cap, float cap, void* stream) {
+                        int n_split, int has_cap, float cap, int ignore_index,
+                        void* tmax, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto kern = tmax ? fce_fwd_partial<true> : fce_fwd_partial<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fce_fwd_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kFwdSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (v_orig + kFwdCols - 1) / kFwdCols;
   const int per = (n_tiles + n_split - 1) / n_split;
   dim3 grid((n + kFwdRows - 1) / kFwdRows, n_split);
-  fce_fwd_partial<<<grid, kFwdThreads, kFwdSmem, s>>>(
+  kern<<<grid, kFwdThreads, kFwdSmem, s>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(y), static_cast<float*>(part), n, d, v_orig,
-      valid, col_offset, n_split, per, has_cap, cap);
+      valid, col_offset, n_split, per, has_cap, cap, ignore_index,
+      static_cast<float*>(tmax));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fce_fwd_merge<<<(n + 255) / 256, 256, 0, s>>>(
@@ -620,24 +723,30 @@ int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
   return (int)cudaGetLastError();
 }
 
-// dH (n, d) f32 from h, W and the row statistics.
+// dH (n, d) f32 from h, W and the row statistics.  skip, when not null,
+// is the (ceil(n/64), ceil(v_orig/64)) byte mask of the tiles to leave out.
 int fused_ce_dh_launch(const void* h, const void* w, const void* y,
                        const void* lse, const void* gamma, const void* pc,
-                       void* dh, int n, int d, int v_orig, int valid,
-                       int col_offset, int has_cap, float cap, float eps,
-                       void* stream) {
-  return launch_grad<false>(h, w, y, lse, gamma, pc, dh, n, d, v_orig, valid,
-                            col_offset, has_cap, cap, eps, stream);
+                       const void* skip, void* dh, int n, int d, int v_orig,
+                       int valid, int col_offset, int has_cap, float cap,
+                       float eps, void* stream) {
+  const auto launch = skip ? launch_grad<false, true>
+                           : launch_grad<false, false>;
+  return launch(h, w, y, lse, gamma, pc, skip, dh, n, d, v_orig, valid,
+                col_offset, has_cap, cap, eps, stream);
 }
 
-// dW (v_orig, d) f32 from h, W and the row statistics.
+// dW (v_orig, d) f32 from h, W and the row statistics; skip as for dH
+// (read by column).
 int fused_ce_dw_launch(const void* h, const void* w, const void* y,
                        const void* lse, const void* gamma, const void* pc,
-                       void* dw, int n, int d, int v_orig, int valid,
-                       int col_offset, int has_cap, float cap, float eps,
-                       void* stream) {
-  return launch_grad<true>(h, w, y, lse, gamma, pc, dw, n, d, v_orig, valid,
-                           col_offset, has_cap, cap, eps, stream);
+                       const void* skip, void* dw, int n, int d, int v_orig,
+                       int valid, int col_offset, int has_cap, float cap,
+                       float eps, void* stream) {
+  const auto launch = skip ? launch_grad<true, true>
+                           : launch_grad<true, false>;
+  return launch(h, w, y, lse, gamma, pc, skip, dw, n, d, v_orig, valid,
+                col_offset, has_cap, cap, eps, stream);
 }
 
 const char* fused_ce_error_string(int err) {

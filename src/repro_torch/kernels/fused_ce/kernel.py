@@ -1,32 +1,37 @@
 """Fused output projection + cross-entropy without the (N, V) logits.
 
-Replaces the exact Pallas TPU kernels of
-``repro/kernels/fused_ce/kernel.py`` — ``_fwd_kernel`` (forward
-statistics), ``_dh_kernel`` and ``_dw_kernel`` (the two backward
-contractions) — with hand-written CUDA kernels for Hopper
-(`csrc/fused_ce.cu`, built by `repro_torch.kernels.build`).
+Replaces the Pallas TPU kernels of ``repro/kernels/fused_ce/kernel.py``
+— ``_fwd_kernel`` (forward statistics, with its ``return_tile_stats``
+option), ``_dh_kernel`` and ``_dw_kernel`` (the two backward
+contractions) and ``_dh_kernel_filtered`` / ``_dw_kernel_filtered``
+(the gradient-filtered backward) — with hand-written CUDA kernels for
+Hopper (`csrc/fused_ce.cu`, built by `repro_torch.kernels.build`).
 
 Bound on an H100 SXM: at qwen3-0.6b's training shape (8192 rows, W
 152064 x 1024 bf16) the forward is one 2.55 TFLOP product (~2.58 ms at
 989 TFLOP/s) and dH and dW two each (recompute and contraction, ~5.16 ms
-each); the bytes (~0.33 GB a pass, ~0.1 ms) do not bind.  The source's
-header gives the design: vocab slices across blocks with a merge kernel
-for the forward (the TPU kernel's sequential vocab axis has no
-counterpart on the GPU), ``g`` kept to f32 precision as two bf16 halves
-on the tensor cores, 256-wide d ranges a backward block so any d works,
-and the reference's deterministic two-pass dW (no atomics).
+each); the bytes (~0.33 GB a pass, ~0.1 ms) do not bind.  A filtered
+backward does the live tiles' share of that work.  The source's header
+gives the design: vocab slices across blocks with a merge kernel for the
+forward (the TPU kernel's sequential vocab axis has no counterpart on
+the GPU), ``g`` kept to f32 precision as two bf16 halves on the tensor
+cores, 256-wide d ranges a backward block so any d works, the
+reference's deterministic two-pass dW (no atomics), and one 64 x 64 tile
+grid (`core.windows.ce_tile_grid`) for the tile statistic, the skip mask
+and both filtered kernels, which walk a compacted list of live tiles.
 
 Contract (the JAX kernels'): h (N, d), w (V, d), y (N,); a column is
 valid iff its local index is < V and ``local + col_offset < valid``;
-forward -> (lse, z_target, z_sum), three (N,) f32; backward -> (dH, dW)
-in f32.  On the card the kernels take bf16 h and w with ``d % 64 == 0``.
+forward -> (lse, z_target, z_sum), three (N,) f32, plus the (row tiles,
+vocab tiles) f32 tile statistic with ``return_tile_stats``; backward ->
+(dH, dW) in f32, filtered by ``tile_stats`` (with ``cfg.grad_filter_eps
+> 0``) or by an explicit ``skip_mask``.  On the card the kernels take
+bf16 h and w with ``d % 64 == 0``.
 
 `ref_stats` / `ref_grads` (`ref.py`) are the plain versions.  The
 wrappers run them for tensors on the CPU; for CUDA tensors they launch
-the kernels or raise.  Options off the training path raise
-NotImplementedError on every device: `return_tile_stats`, `tile_stats`
-and `skip_mask` (the filtered backward, ROADMAP A7) and `w_scale`
-(quantized heads, ROADMAP A6).
+the kernels or raise.  ``w_scale`` (quantized heads, ROADMAP A6) raises
+NotImplementedError on every device.
 """
 
 from __future__ import annotations
@@ -36,14 +41,20 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import filtering
 from repro_torch.core.types import LossConfig
-from repro_torch.core.windows import CEPlan, choose_ce_plan
+from repro_torch.core.windows import (CE_TILE_COLS, CE_TILE_ROWS, CEPlan,
+                                      ce_tile_grid, choose_ce_plan)
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_ce.ref import ref_dh, ref_dw, ref_stats
 
+# the forward counts its launches with and without the tile statistic
+# together; dH and dW count the exact and the filtered kernels apart
 FWD_LAUNCHES = build.counter("fused_ce_fwd")
 DH_LAUNCHES = build.counter("fused_ce_dh")
 DW_LAUNCHES = build.counter("fused_ce_dw")
+DH_FILTERED_LAUNCHES = build.counter("fused_ce_dh_filtered")
+DW_FILTERED_LAUNCHES = build.counter("fused_ce_dw_filtered")
 
 _configured = set()
 
@@ -52,11 +63,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_ce")
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_ce_fwd_launch.argtypes = [p] * 7 + [i] * 7 + [f, p]
+        lib.fused_ce_fwd_launch.argtypes = [p] * 7 + [i] * 7 + [f, i, p, p]
         lib.fused_ce_fwd_launch.restype = i
-        for name in ("fused_ce_dh_launch", "fused_ce_dw_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
+        for fn in (lib.fused_ce_dh_launch, lib.fused_ce_dw_launch):
+            fn.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
             fn.restype = i
         lib.fused_ce_error_string.argtypes = [i]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
@@ -116,17 +126,21 @@ def fwd_stats(
     total_valid: Optional[int] = None, return_tile_stats: bool = False,
     w_scale: Optional[torch.Tensor] = None,
 ):
-    """Per-row (lse, z_target, z_sum), f32, via the forward kernel."""
-    if return_tile_stats:
-        raise NotImplementedError("fused-CE tile statistics (the filtered "
-                                  "backward) come with ROADMAP A7")
+    """Per-row (lse, z_target, z_sum), f32, via the forward kernel.
+
+    With `return_tile_stats=True` a fourth (row tiles, vocab tiles) f32
+    tensor on the `ce_tile_grid`: each 64 x 64 tile's max post-softcap
+    logit over live rows and valid columns, -inf where it has none (the
+    gradient filter's statistic).  The first three are computed the same
+    way either way."""
     if w_scale is not None:
         raise NotImplementedError("quantized lm_head weights (w_scale) come "
                                   "with ROADMAP A6")
     valid = _valid(cfg, w.shape[0], total_valid)
     if h.device.type == "cpu":
         return ref_stats(h, w, y, cfg, col_offset=col_offset,
-                         total_valid=valid)
+                         total_valid=valid,
+                         return_tile_stats=return_tile_stats)
     y = y.to(torch.int32).contiguous()
     _check_cuda(h, w, y)
     n, d = h.shape
@@ -138,36 +152,54 @@ def fwd_stats(
                        device=dev)
     lse, ztgt, zsum = (torch.empty((n,), dtype=torch.float32, device=dev)
                        for _ in range(3))
+    # every entry is written by the one forward block that owns it
+    tmax = (torch.empty(ce_tile_grid(n, v), dtype=torch.float32, device=dev)
+            if return_tile_stats else None)
     has_cap, cap = _cap(cfg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_ce_fwd_launch(
             h.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
             lse.data_ptr(), ztgt.data_ptr(), zsum.data_ptr(), n, d, v,
-            int(valid), int(col_offset), plan.v_splits, has_cap, cap, stream)
+            int(valid), int(col_offset), plan.v_splits, has_cap, cap,
+            int(cfg.ignore_index), tmax.data_ptr() if return_tile_stats
+            else None, stream)
     _raise_on(err, "fused_ce forward", lib)
     FWD_LAUNCHES.inc()
+    if return_tile_stats:
+        return lse, ztgt, zsum, tmax
     return lse, ztgt, zsum
 
 
 def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
-          col_offset: int, total_valid: Optional[int]):
+          col_offset: int, total_valid: Optional[int],
+          skip_mask: Optional[torch.Tensor] = None):
     if w.element_size() == 1:
         raise NotImplementedError(
             "fused-CE backward does not support quantized lm_head weights "
             f"(w.dtype={w.dtype}); quantized heads are forward/eval only — "
             "keep a bf16 master weight for training")
     valid = _valid(cfg, w.shape[0], total_valid)
+    if skip_mask is not None:
+        _check_mask(skip_mask, h.shape[0], w.shape[0])
     if h.device.type == "cpu":
         ref = ref_dh if which == "dh" else ref_dw
         return ref(h, w, y, lse, gamma, p_coeff, cfg, col_offset=col_offset,
-                   total_valid=valid)
+                   total_valid=valid, skip_mask=skip_mask)
     y = y.to(torch.int32).contiguous()
     lse, gamma, p_coeff = (t.contiguous() for t in (lse, gamma, p_coeff))
     _check_cuda(h, w, y, lse, gamma, p_coeff)
     n, d = h.shape
     v = w.shape[0]
     lib = _lib()
+    filtered = skip_mask is not None
+    skip_ptr = None
+    if filtered:
+        if skip_mask.device != h.device:
+            raise ValueError(f"skip_mask lies on {skip_mask.device}, h on "
+                             f"{h.device}")
+        skip = skip_mask.to(torch.bool).contiguous()
+        skip_ptr = skip.data_ptr()
     out = torch.empty((n if which == "dh" else v, d), dtype=torch.float32,
                       device=h.device)
     has_cap, cap = _cap(cfg)
@@ -175,27 +207,47 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
               else lib.fused_ce_dw_launch)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = launch(h.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     lse.data_ptr(), gamma.data_ptr(), p_coeff.data_ptr(),
+        err = launch(h.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(),
+                     gamma.data_ptr(), p_coeff.data_ptr(), skip_ptr,
                      out.data_ptr(), n, d, v, int(valid), int(col_offset),
                      has_cap, cap, float(cfg.label_smoothing), stream)
-    _raise_on(err, f"fused_ce {which}", lib)
-    (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
+    _raise_on(err, f"fused_ce {which}{' filtered' if filtered else ''}",
+              lib)
+    if filtered:
+        (DH_FILTERED_LAUNCHES if which == "dh"
+         else DW_FILTERED_LAUNCHES).inc()
+    else:
+        (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
     return out
 
 
+def _check_mask(skip_mask: torch.Tensor, n: int, v: int) -> None:
+    """The mask must cover the backward's tile grid, as in JAX."""
+    grid = ce_tile_grid(n, v)
+    if tuple(skip_mask.shape) != grid:
+        raise ValueError(
+            f"skip mask shape {tuple(skip_mask.shape)} does not match the "
+            f"backward grid {grid} of {CE_TILE_ROWS} x {CE_TILE_COLS} tiles")
+
+
 def dh_grads(h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
-             col_offset: int = 0, total_valid: Optional[int] = None):
-    """dH (N, d) f32 via the dH kernel (`ref_dh` on the CPU)."""
+             col_offset: int = 0, total_valid: Optional[int] = None,
+             skip_mask: Optional[torch.Tensor] = None):
+    """dH (N, d) f32 via the dH kernel (`ref_dh` on the CPU); with
+    `skip_mask`, via the filtered dH kernel."""
     return _grad("dh", h, w, y, lse, gamma, p_coeff, cfg,
-                 col_offset=col_offset, total_valid=total_valid)
+                 col_offset=col_offset, total_valid=total_valid,
+                 skip_mask=skip_mask)
 
 
 def dw_grads(h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
-             col_offset: int = 0, total_valid: Optional[int] = None):
-    """dW (V, d) f32 via the dW kernel (`ref_dw` on the CPU)."""
+             col_offset: int = 0, total_valid: Optional[int] = None,
+             skip_mask: Optional[torch.Tensor] = None):
+    """dW (V, d) f32 via the dW kernel (`ref_dw` on the CPU); with
+    `skip_mask`, via the filtered dW kernel."""
     return _grad("dw", h, w, y, lse, gamma, p_coeff, cfg,
-                 col_offset=col_offset, total_valid=total_valid)
+                 col_offset=col_offset, total_valid=total_valid,
+                 skip_mask=skip_mask)
 
 
 def bwd_grads(
@@ -206,14 +258,24 @@ def bwd_grads(
     tile_stats: Optional[torch.Tensor] = None,
     skip_mask: Optional[torch.Tensor] = None,
 ):
-    """(dH, dW), f32, via the two backward kernels (exact path).
+    """(dH, dW), f32, via the two backward kernels.
 
-    `plan` is accepted for the JAX signature; the backward tiles are
-    fixed in the source (64 rows, 256-wide d ranges)."""
+    Gradient filtering: pass `tile_stats` — the fourth output of
+    `fwd_stats(..., return_tile_stats=True)` — and, with
+    ``cfg.grad_filter_eps > 0``, the 64 x 64 tiles whose softmax-mass
+    bound falls below the threshold and hold no target are skipped in
+    both kernels (`core.filtering.tile_skip_mask`).  `skip_mask`
+    overrides the derived (row tiles, vocab tiles) bool mask.  With
+    neither, this is the exact backward.  `plan` is accepted for the JAX
+    signature; the backward tiles are fixed in the source (64 rows,
+    256-wide d ranges)."""
     del plan
-    if tile_stats is not None or skip_mask is not None:
-        raise NotImplementedError("the filtered fused-CE backward comes "
-                                  "with ROADMAP A7")
-    kw = dict(col_offset=col_offset, total_valid=total_valid)
+    if skip_mask is None and tile_stats is not None and cfg.filter_grads:
+        skip_mask = filtering.tile_skip_mask(tile_stats, lse, y, cfg,
+                                             block_rows=CE_TILE_ROWS,
+                                             block_v=CE_TILE_COLS,
+                                             col_offset=col_offset)
+    kw = dict(col_offset=col_offset, total_valid=total_valid,
+              skip_mask=skip_mask)
     return (dh_grads(h, w, y, lse, gamma, p_coeff, cfg, **kw),
             dw_grads(h, w, y, lse, gamma, p_coeff, cfg, **kw))

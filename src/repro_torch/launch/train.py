@@ -11,11 +11,18 @@ decay, clip 1.0).  Runs on the GPU unless ``--device cpu`` is given;
 asking for CUDA without a card is an error.  ``--loss-impl kernel`` runs
 the fused-CE kernels on the card and their plain versions on the CPU.
 
+``--grad-filter-eps E`` runs the gradient-filtered backward (vocab
+tiles whose softmax mass is provably below E are skipped; on the card
+through the filtered dH / dW kernels), ``--grad-accum K`` splits each
+batch into K microbatches, and ``--mtp-heads N [--mtp-depth D]
+[--mtp-weights w1,..]`` trains N multi-token-prediction heads over the
+trunk with per-horizon ``ce_h*`` / ``acc_h*`` metrics.
+
 ``--stats-json [PATH]`` dumps the logged step history, ``--metrics-json
 [PATH]`` the `repro_torch.obs` train instruments, ``--trace-out PATH``
 one ``train.step`` span a step (also a `torch.profiler` range).  The
-reference's mesh, MTP, autotune and checkpoint flags wait for later
-slices and are not offered (nor --grad-accum); Adafactor raises.
+reference's mesh, autotune and checkpoint flags wait for later slices
+and are not offered; Adafactor raises.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import logging
 import torch
 
 from repro_torch import obs
+from repro_torch.configs import with_mtp
 from repro_torch.data import DataConfig, DeviceLoader, SyntheticLM
 from repro_torch.models.registry import get_arch
 from repro_torch.serve import resolve_device
@@ -39,7 +47,8 @@ def train_config(args, arch) -> TrainConfig:
         optimizer=args.optimizer, peak_lr=args.lr,
         warmup_steps=max(args.steps // 10, 1), total_steps=args.steps,
         loss_impl=args.loss_impl,
-        loss_block_v=min(2048, arch.padded_vocab))
+        loss_block_v=min(2048, arch.padded_vocab),
+        grad_accum=args.grad_accum, grad_filter_eps=args.grad_filter_eps)
 
 
 def main(argv=None, params=None):
@@ -59,6 +68,19 @@ def main(argv=None, params=None):
                     choices=("adamw", "adafactor"))
     ap.add_argument("--loss-impl", default="kernel",
                     choices=("kernel", "streaming", "canonical", "auto"))
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-filter-eps", type=float, default=0.0,
+                    help="gradient-filtered backward: skip vocab tiles "
+                         "whose total softmax mass is provably < eps "
+                         "(0 = exact; target tiles are never skipped)")
+    ap.add_argument("--mtp-heads", type=int, default=0,
+                    help="multi-token-prediction heads trained over the "
+                         "trunk (per-horizon fused CE)")
+    ap.add_argument("--mtp-depth", type=int, default=1,
+                    help="residual MLP blocks per MTP head")
+    ap.add_argument("--mtp-weights", default=None,
+                    help="comma-separated per-head loss weights "
+                         "(default: 1.0 each)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--stats-json", nargs="?", const="-", default=None,
                     metavar="PATH")
@@ -79,6 +101,11 @@ def main(argv=None, params=None):
                    profiler_annotate=args.trace_out is not None)
 
     arch = get_arch(args.arch, reduced=args.reduced)
+    if args.mtp_heads:
+        weights = tuple(float(w) for w in args.mtp_weights.split(",")) \
+            if args.mtp_weights else ()
+        arch = with_mtp(arch, args.mtp_heads, head_depth=args.mtp_depth,
+                        loss_weights=weights, track_accuracy=True)
     tc = train_config(args, arch)
     init_fn, step_fn = build_train_step(arch, tc)
     if params is None:
@@ -98,8 +125,10 @@ def main(argv=None, params=None):
         first = history[0][1]["loss"]
         last = history[-1][1]["loss"]
         print(f"[train] arch={arch.arch_id} loss_impl={args.loss_impl} "
-              f"loss {first:.4f} -> {last:.4f} over {len(history)} logged "
-              f"steps on {device}")
+              f"grad_filter_eps={args.grad_filter_eps} mtp_heads="
+              f"{args.mtp_heads} grad_accum={args.grad_accum} loss "
+              f"{first:.4f} -> {last:.4f} over {len(history)} logged steps "
+              f"on {device}")
     if args.stats_json is not None:
         obs.export.dump_json(
             {"arch": arch.arch_id, "steps": args.steps,

@@ -4,8 +4,9 @@
 Each head is a small stack of residual SwiGLU MLP blocks applied
 position-wise to the trunk's FINAL hidden state, then a per-head RMSNorm;
 head h's output goes through the SHARED lm_head, so drafting from it runs
-through the same streaming kernels (`sample_topk`, `score_tokens`) and
-the (B, S, n, V) logits of naive MTP never exist.
+through the same streaming kernels (`sample_topk`, `score_tokens`),
+training through the fused-CE kernels against `shift_targets`, and the
+(B, S, n, V) logits of naive MTP never exist.
 
 The params keep the JAX package's head x depth stacked layout, so
 `repro_torch.weights.params_from_jax` moves them as they are:
@@ -22,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import MTPConfig
+from repro_torch.core.types import IGNORE_INDEX
 from repro_torch.models import layers as L
 
 
@@ -61,3 +63,20 @@ def apply_heads(params: Dict[str, Any], x: torch.Tensor,
         outs.append(L.rmsnorm({"scale": params["ln_out"]["scale"][h]}, xi,
                               eps))
     return torch.stack(outs, dim=-2)
+
+
+def shift_targets(targets: torch.Tensor, horizon: int,
+                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Horizon-h targets: horizon-0 targets rolled left by `horizon` along
+    the last (time) axis, the vacated tail set to `ignore_index` (the
+    sequence holds no label that far ahead).  Position i's horizon-h
+    target is targets[..., i + h]; `horizon >= T` ignores everything."""
+    if horizon < 0:
+        raise ValueError(f"horizon must be >= 0, got {horizon}")
+    if horizon == 0:
+        return targets
+    t = targets.shape[-1]
+    rolled = torch.roll(targets, -horizon, dims=-1)
+    pos = torch.arange(t, device=targets.device)
+    return torch.where(pos < t - horizon, rolled,
+                       torch.full_like(rolled, ignore_index))

@@ -85,14 +85,20 @@ def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                    caches=None, decode: bool = False,
-                   prefill_ext: bool = False):
+                   prefill_ext: bool = False, return_heads: bool = False):
     """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'];
     ``prefill_ext`` (with ``decode``) is the paged engine's suffix-only
-    prefill after a prefix hit."""
+    prefill after a prefix hit.  ``return_heads=True`` (needs
+    ``arch.mtp.n_heads > 0``) returns the 4-tuple (hidden, head_hidden
+    (B, T, n, d), aux_loss, new_caches): the training path applies the
+    fused CE to every horizon from this one forward."""
     _require_transformer(arch)
-    return transformer.forward(params, batch["tokens"], arch.cfg,
-                               caches=caches, decode=decode,
-                               prefill_ext=prefill_ext)
+    h, aux, c = transformer.forward(params, batch["tokens"], arch.cfg,
+                                    caches=caches, decode=decode,
+                                    prefill_ext=prefill_ext)
+    if return_heads:
+        return h, apply_mtp_heads(arch, params, h), aux, c
+    return h, aux, c
 
 
 def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,

@@ -4,7 +4,9 @@ Runs the steps, times each one to the end of its device work, and feeds
 the `train.*` instruments of `repro_torch.obs` (the JAX package's names:
 ``train.step_time_s``, ``train.tokens_per_sec``, ``train.loss``,
 ``train.steps_total``, ``train.tokens_total``) and one ``train.step``
-span a step.  The checkpointer, the preemption handler and the
+span a step.  A logged step carries every metric the step returned, as
+the JAX loop logs them: the per-horizon ``ce_h*`` / ``acc_h*`` of MTP
+runs beside loss, ce, aux, grad_norm and lr.  The checkpointer, the preemption handler and the
 straggler monitor of the reference wait for a later slice.
 """
 

@@ -3,11 +3,14 @@
 
 The loss is the paper's fused projection + CE through
 `fused_cross_entropy`: 'kernel' (the Hopper kernels; their plain
-versions on the CPU), 'streaming', 'canonical' or 'auto'.  The backward
-is PyTorch autograd, with the fused loss's and the blockwise attention's
-own `autograd.Function`s.  Waiting, and raising when asked for: the
-sharded losses (ROADMAP A9), MTP heads (A4), the filtered backward (A7),
-gradient accumulation, Adafactor and block-plan tuning.
+versions on the CPU), 'streaming', 'canonical' or 'auto', optionally
+gradient-filtered (``grad_filter_eps``) and multi-horizon (MTP heads:
+one fused CE a horizon on the shared lm_head).  The backward is PyTorch
+autograd, with the fused loss's and the blockwise attention's own
+`autograd.Function`s.  Gradient accumulation splits the batch into
+``grad_accum`` microbatches along the batch axis and sums their grads in
+f32.  Waiting, and raising when asked for: the sharded losses (ROADMAP
+A9), Adafactor and block-plan tuning (A2).
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ class TrainConfig:
     loss_block_v: int = 2048
     label_smoothing: float = 0.0
     z_loss: float = 0.0
-    grad_filter_eps: float = 0.0        # ROADMAP A7
-    grad_accum: int = 1                 # > 1 waits
+    grad_filter_eps: float = 0.0   # skip low-mass vocab tiles in backward
+    grad_accum: int = 1
 
     def __post_init__(self):
         if self.loss_impl in ("sharded", "sharded_sp"):
@@ -50,9 +53,6 @@ class TrainConfig:
         if self.loss_impl not in IMPLS:
             raise ValueError(f"loss_impl must be one of {IMPLS}, got "
                              f"{self.loss_impl!r}")
-        if self.grad_accum != 1:
-            raise NotImplementedError("gradient accumulation (grad_accum > "
-                                      "1) waits for a later slice")
 
     def make_schedule(self):
         if self.schedule == "warmup_cosine":
@@ -72,19 +72,76 @@ def _loss_cfg(arch: Arch, tc: TrainConfig) -> LossConfig:
         z_loss=tc.z_loss, grad_filter_eps=tc.grad_filter_eps)
 
 
+def _streaming_accuracy(rows: torch.Tensor, w: torch.Tensor,
+                        targets: torch.Tensor, lcfg: LossConfig
+                        ) -> torch.Tensor:
+    """Top-1 accuracy over non-ignored rows without the logits: the
+    `sample_topk` kernel at k = 1 on the card, `streaming_topk` on the
+    CPU (a metric, not a loss term: no gradient)."""
+    with torch.no_grad():
+        if rows.is_cuda:
+            from repro_torch.kernels.sample_topk import cuda_topk
+            _, ids = cuda_topk(rows, w, 1, valid_vocab=lcfg.valid_vocab,
+                               logit_softcap=lcfg.logit_softcap)
+        else:
+            from repro_torch.serve.sampler import streaming_topk
+            _, ids = streaming_topk(rows, w, 1, block_v=lcfg.block_v,
+                                    valid_vocab=lcfg.valid_vocab,
+                                    logit_softcap=lcfg.logit_softcap)
+        keep = targets != lcfg.ignore_index
+        hit = torch.sum((ids[:, 0].long() == targets.long()) & keep)
+        return hit / torch.clamp_min(torch.sum(keep), 1)
+
+
 def build_loss_fn(arch: Arch, tc: TrainConfig) -> Callable:
-    """(params, batch) -> (loss, metrics)."""
-    if arch.mtp.n_heads:
-        raise NotImplementedError("MTP heads come with ROADMAP A4")
+    """(params, batch) -> (loss, metrics).
+
+    With ``arch.mtp.n_heads > 0`` the loss is multi-horizon: horizon 0 is
+    the trunk CE on batch['targets']; head h adds its weight times the
+    fused CE of the head-h hiddens against the targets shifted left by h
+    (`models.mtp.shift_targets`), reported as ``ce_h*`` (and ``acc_h*``
+    with ``arch.mtp.track_accuracy``).  Zero-weight horizons are measured
+    but left out of the total (their gradients are exactly zero)."""
     lcfg = _loss_cfg(arch, tc)
+    n_mtp = arch.mtp.n_heads
+    mtp_w = arch.mtp.resolved_weights()
+
+    def ce_of(rows, w, y):
+        return fused_cross_entropy(rows, w, y, impl=tc.loss_impl, cfg=lcfg)
 
     def loss_fn(params, batch):
-        h, aux, _ = forward_hidden(arch, params, batch)
-        rows = h.reshape(-1, h.shape[-1])
-        ce = fused_cross_entropy(rows, params["lm_head"],
-                                 batch["targets"].reshape(-1),
-                                 impl=tc.loss_impl, cfg=lcfg)
-        return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
+        if n_mtp:
+            h, head_h, aux, _ = forward_hidden(arch, params, batch,
+                                               return_heads=True)
+        else:
+            h, aux, _ = forward_hidden(arch, params, batch)
+        d = h.shape[-1]
+        rows = h.reshape(-1, d)
+        w = params["lm_head"]
+        targets0 = batch["targets"].reshape(-1)
+        ce0 = ce_of(rows, w, targets0)
+        ce = ce0
+        metrics: Dict[str, torch.Tensor] = {}
+        if n_mtp:
+            from repro_torch.models.mtp import shift_targets
+            metrics["ce_h0"] = ce0.detach()
+            if arch.mtp.track_accuracy:
+                metrics["acc_h0"] = _streaming_accuracy(rows, w, targets0,
+                                                        lcfg)
+            for hz in range(1, n_mtp + 1):
+                tgt = shift_targets(batch["targets"], hz,
+                                    lcfg.ignore_index).reshape(-1)
+                # a (B, T, d) slice of (B, T, n, d): copy it contiguous
+                rows_h = head_h[..., hz - 1, :].reshape(-1, d).contiguous()
+                ce_h = ce_of(rows_h, w, tgt)
+                if mtp_w[hz - 1]:
+                    ce = ce + mtp_w[hz - 1] * ce_h
+                metrics[f"ce_h{hz}"] = ce_h.detach()
+                if arch.mtp.track_accuracy:
+                    metrics[f"acc_h{hz}"] = _streaming_accuracy(
+                        rows_h, w, tgt, lcfg)
+        loss = ce + aux
+        return loss, dict(metrics, ce=ce.detach(), aux=aux.detach())
 
     return loss_fn
 
@@ -95,7 +152,12 @@ def build_train_step(arch: Arch, tc: TrainConfig):
 
     step_fn updates the state's params and optimizer slots IN PLACE and
     returns the same state with ``step`` advanced; metrics are 0-d
-    tensors on the device (loss, ce, aux, grad_norm) and the host lr."""
+    tensors on the device (loss, ce, aux, grad_norm, and the per-horizon
+    ``ce_h*`` / ``acc_h*`` of MTP runs) and the host lr.  With
+    ``grad_accum = K > 1`` the batch is split into K microbatches along
+    its batch axis, their grads summed in f32 and divided by K (kept in
+    f32 into the clip and the update, as the JAX package's default
+    ``accum_dtype`` does), and the loss and metrics averaged."""
     loss_fn = build_loss_fn(arch, tc)
     opt_init, opt_update = make_optimizer(tc.optimizer,
                                           **dict(tc.opt_kwargs))
@@ -106,20 +168,47 @@ def build_train_step(arch: Arch, tc: TrainConfig):
         return make_train_state(init_params(arch, generator, device),
                                 opt_init)
 
+    def grads_of(tree, params, batch):
+        loss, metrics = loss_fn(tree, batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), metrics, [
+            torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
+
+    def compute_grads(tree, params, batch):
+        ga = tc.grad_accum
+        if ga <= 1:
+            return grads_of(tree, params, batch)
+        b = batch["tokens"].shape[0]
+        if b % ga:
+            raise ValueError(f"batch {b} does not split into grad_accum="
+                             f"{ga} microbatches")
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in params]
+        loss_sum, msum = None, None
+        for i in range(ga):
+            mb = {k: v.reshape((ga, b // ga) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            loss, metrics, grads = grads_of(tree, params, mb)
+            for a, g in zip(acc, grads):
+                a.add_(g.float())
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            msum = metrics if msum is None else {
+                k: msum[k] + metrics[k] for k in msum}
+        # f32 kept (JAX's (g / ga).astype(g.dtype) of its f32 buffers)
+        return (loss_sum / ga, {k: m / ga for k, m in msum.items()},
+                [a / ga for a in acc])
+
     def step_fn(state: Dict[str, Any], batch) -> Tuple[Dict[str, Any],
                                                         Dict[str, Any]]:
         params = leaves(state["params"])
-        loss, metrics = loss_fn(state["params"], batch)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+        loss, metrics, grads = compute_grads(state["params"], params, batch)
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm)
             lr = sched(state["step"])
             opt_update(grads, state["opt"], params, lr)
         state["step"] += 1
-        return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
-                           lr=lr)
+        return state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
     return init_fn, step_fn
 

@@ -14,7 +14,11 @@ atol / rtol 1e-2 of the plain version in f32, cast (one bf16 rounding
 at |out| <= ~1).  score_tokens: lse and candidate logits rtol 1e-5 /
 atol 1e-4 of the plain version (f32 sums of bf16 products in another
 order, as sample_topk's values), -inf exactly where the plain version
-puts it, and two calls bit for bit."""
+puts it, and two calls bit for bit.  The fused-CE tile statistic: as
+lse, and the other forward outputs bit for bit those of the call
+without it; the filtered dH / dW against the plain version given the
+kernel's own mask at the exact kernels' tolerance, and bit for bit the
+exact kernels under an all-False mask."""
 
 import numpy as np
 import pytest
@@ -220,14 +224,154 @@ def test_fused_ce_refuses_what_it_does_not_support(cuda):
         fwd_stats(h, w.cpu(), y, cfg)
     with pytest.raises(ValueError):
         bwd_grads(h, w, y, lse.double(), lse, lse, cfg)
-    with pytest.raises(NotImplementedError):
-        fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    with pytest.raises(ValueError):
+        fwd_stats(h, w, y[:4], cfg, return_tile_stats=True)
     with pytest.raises(NotImplementedError):
         fwd_stats(h, w, y, cfg, w_scale=torch.ones((256,), device=cuda))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="skip mask shape"):
         bwd_grads(h, w, y, lse, lse, lse, cfg, skip_mask=lse)
     with pytest.raises(NotImplementedError):
         bwd_grads(h, w.to(torch.int8), y, lse, lse, lse, cfg)
+    assert {k: c.count for k, c in build.COUNTERS.items()} == before
+
+
+def _peaked_problem(cuda, n, v, d, seed, a=40.0, b=40.0):
+    """Each h row is a W[y] + b W[y2] + small noise with unit-norm W rows:
+    the mass splits between y and y2 (lse ~ a + log 2, within ~a / sqrt(d)
+    row to row; with b well below a the target's g = p - 1 would
+    cancel), the rest of the vocab ~N(0, (a^2 + b^2) / d), so a 64 x 64
+    tile holding neither (max ~4 sigma: 14 at d = 256) has a bound
+    64 exp(tmax - min lse) far below 1e-5: ~80% of the tiles go."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((v, d), generator=gen, device=cuda)
+    w = w / w.norm(dim=1, keepdim=True)
+    y = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    y2 = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    h = a * w[y] + b * w[y2] + 0.1 * torch.randn(
+        (n, d), generator=gen, device=cuda) / d ** 0.5
+    return h.bfloat16(), w.bfloat16(), y.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["plain", "softcap30"])
+def test_fused_ce_tile_statistic_matches_plain_version(cuda, feature):
+    """tmax within the forward's tolerance (rtol 1e-5 / atol 1e-4) of the
+    plain version, -inf in the same places (an ignored row tile, the pad
+    columns past valid); lse, z_target and z_sum bit for bit those of
+    the call without the statistic."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import (FWD_LAUNCHES, fwd_stats,
+                                              ref_stats)
+    n, v, d = 300, 1000, 256
+    h, w, y = _ce_problem(cuda, n, v, d, seed=5)
+    y[128:192] = -100
+    cfg = LossConfig(valid_vocab=v - 77, **_CE_FEATURES[feature])
+    kw = dict(col_offset=40, total_valid=v - 37)
+    before = FWD_LAUNCHES.count
+    got = fwd_stats(h, w, y, cfg, return_tile_stats=True, **kw)
+    exact = fwd_stats(h, w, y, cfg, **kw)
+    torch.cuda.synchronize()
+    assert FWD_LAUNCHES.count == before + 2
+    assert len(got) == 4 and got[3].shape == (5, 16)
+    for a, b in zip(got[:3], exact):
+        assert torch.equal(a, b)
+    want = ref_stats(h, w, y, cfg, return_tile_stats=True, **kw)[3]
+    assert torch.equal(torch.isneginf(got[3]), torch.isneginf(want))
+    assert bool(torch.isneginf(got[3][2]).all())
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[3][fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 1024])
+def test_fused_ce_filtered_kernels_match_plain_version(cuda, d):
+    """The filtered dH / dW against the plain version given the SAME mask
+    (the kernel's own): rtol 3e-4 / atol 1e-6, the exact kernels'
+    tolerance; most tiles skipped, one filtered launch each and no
+    exact one."""
+    from repro_torch.core import LossConfig
+    from repro_torch.core.filtering import skipped_fraction, tile_skip_mask
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import (bwd_grads, fwd_stats,
+                                              ref_grads)
+    n, v = 300, 32768          # 512 vocab tiles, <= 128 pinned a block
+    h, w, y = _peaked_problem(cuda, n, v, d, seed=d)
+    y[::7] = -100
+    cfg = LossConfig(grad_filter_eps=1e-5)
+    lse, _, _, tmax = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    mask = tile_skip_mask(tmax, lse, y, cfg, block_rows=64, block_v=64)
+    assert float(skipped_fraction(mask)) > 0.5
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    before = {k: c.count for k, c in build.COUNTERS.items()}
+    dh, dw = bwd_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=mask)
+    torch.cuda.synchronize()
+    after = {k: c.count for k, c in build.COUNTERS.items()}
+    assert after["fused_ce_dh_filtered"] == before[
+        "fused_ce_dh_filtered"] + 1
+    assert after["fused_ce_dw_filtered"] == before[
+        "fused_ce_dw_filtered"] + 1
+    assert after["fused_ce_dh"] == before["fused_ce_dh"]
+    assert after["fused_ce_dw"] == before["fused_ce_dw"]
+    rdh, rdw = ref_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=mask)
+    torch.testing.assert_close(dh, rdh, rtol=3e-4, atol=1e-6)
+    torch.testing.assert_close(dw, rdw, rtol=3e-4, atol=1e-6)
+    # the same through tile_stats: the wrapper derives the same mask
+    dh2, dw2 = bwd_grads(h, w, y, lse, gamma, gamma, cfg, tile_stats=tmax)
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_fused_ce_allfalse_mask_is_the_exact_kernel(cuda):
+    """An all-False mask walks every tile in the exact kernel's order:
+    dH and dW bit for bit the exact kernels'."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import bwd_grads, ref_stats
+    h, w, y = _ce_problem(cuda, 300, 1000, 1024, seed=9)
+    cfg = LossConfig(valid_vocab=990, logit_softcap=30.0)
+    lse = ref_stats(h, w, y, cfg)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / 300).to(cuda)
+    none = torch.zeros((5, 16), dtype=torch.bool, device=cuda)
+    got = bwd_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    want = bwd_grads(h, w, y, lse, gamma, gamma, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_ce_filtered_all_ignored_batch_is_zero(cuda):
+    from repro_torch.core import LossConfig
+    from repro_torch.core.filtering import tile_skip_mask
+    from repro_torch.kernels.fused_ce import bwd_grads, fwd_stats
+    h, w, y = _ce_problem(cuda, 200, 3000, 256, seed=4)
+    y[:] = -100
+    cfg = LossConfig(grad_filter_eps=1e-5)
+    lse, _, _, tmax = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    assert bool(torch.isneginf(tmax).all())
+    mask = tile_skip_mask(tmax, lse, y, cfg, block_rows=64, block_v=64)
+    assert bool(mask.all())
+    zero = torch.zeros((200,), device=cuda)
+    dh, dw = bwd_grads(h, w, y, lse, zero, zero, cfg, tile_stats=tmax)
+    torch.cuda.synchronize()
+    assert not bool(dh.any()) and not bool(dw.any())
+
+
+@pytest.mark.cuda
+def test_fused_ce_wrong_mask_shape_raises_before_any_launch(cuda):
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import bwd_grads, dh_grads, dw_grads
+    h, w, y = _ce_problem(cuda, 130, 1000, 128, seed=2)
+    lse = torch.zeros((130,), device=cuda)
+    cfg = LossConfig(grad_filter_eps=1e-5)
+    before = {k: c.count for k, c in build.COUNTERS.items()}
+    for shape in ((2, 16), (3, 15), (16, 3), (3, 16, 1)):
+        bad = torch.zeros(shape, dtype=torch.bool, device=cuda)
+        for fn in (bwd_grads, dh_grads, dw_grads):
+            with pytest.raises(ValueError, match="skip mask shape"):
+                fn(h, w, y, lse, lse, lse, cfg, skip_mask=bad)
+    with pytest.raises(ValueError, match="skip mask shape"):
+        bwd_grads(h, w, y, lse, lse, lse, cfg,
+                  tile_stats=torch.zeros((2, 16), device=cuda))
     assert {k: c.count for k, c in build.COUNTERS.items()} == before
 
 

@@ -191,14 +191,18 @@ def test_dispatcher_and_waiting_options():
         t_fce(h, w, y, impl="pallas")
     with pytest.raises(ValueError):
         t_fce(h[None, None], w, y)
-    with pytest.raises(NotImplementedError):
-        t_fce(h, w, y, impl="kernel", cfg=LossConfig(grad_filter_eps=1e-3))
-    with pytest.raises(NotImplementedError):
-        fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    # the filter path runs (the JAX parity is test_torch_filtering.py)
+    fcfg = LossConfig(block_v=32, grad_filter_eps=1e-3)
+    for impl in ("kernel", "streaming"):
+        torch.testing.assert_close(t_fce(h, w, y, impl=impl, cfg=fcfg),
+                                   t_fce(h, w, y, impl=impl, cfg=cfg))
+    stats = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+    assert len(stats) == 4 and stats[3].shape == (1, 1)
     with pytest.raises(NotImplementedError):
         fwd_stats(h, w, y, cfg, w_scale=torch.ones(64))
-    with pytest.raises(NotImplementedError):
-        bwd_grads(h, w, y, h[:, 0], h[:, 0], h[:, 0], cfg, tile_stats=h)
+    dh, dw = bwd_grads(h, w, y, stats[0], h[:, 0], h[:, 0], fcfg,
+                       tile_stats=stats[3])
+    assert dh.shape == h.shape and dw.shape == w.shape
     with pytest.raises(NotImplementedError):
         bwd_grads(h, w.to(torch.int8), y, h[:, 0], h[:, 0], h[:, 0], cfg)
 

@@ -186,8 +186,8 @@ def test_three_train_steps_match_jax(reduced_jax_params):
 
 
 def test_waiting_train_options_raise():
-    with pytest.raises(NotImplementedError):
-        TrainConfig(grad_accum=2)
+    # gradient accumulation runs now (JAX parity: test_torch_train_mtp.py)
+    assert TrainConfig(grad_accum=2).grad_accum == 2
     with pytest.raises(NotImplementedError):
         TrainConfig(loss_impl="sharded")
     with pytest.raises(ValueError):
