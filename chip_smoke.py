@@ -11,8 +11,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. kernels vs their plain versions at the main paths' shapes —
      `sample_topk` on qwen3-0.6b's padded lm_head (152064 x 1024 bf16,
      valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case
-     and a softcap case, each timed with CUDA events beside its bound,
-     its plain version and the `torch.topk(h @ w.T, k)` yardstick; then
+     and a softcap case (the decode kernel), and k = 1 at rows 128, 512
+     and 4096, a tie-heavy case (ids exact) and a softcap-30 +
+     `col_offset` shard at 4096 rows (the many-row kernel, each also
+     through an explicit 8-row plan on the decode kernel), each timed
+     with CUDA events beside its bound, its plain version and the
+     `torch.topk(h @ w.T, k)` yardstick; then
      the fused-CE forward, dH and dW kernels at the training shape
      (8192 rows against the same head) — plain, softcap 30, label
      smoothing 0.1 with z-loss 1e-4, 10% ignored rows — and at 1000
@@ -114,9 +118,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      1), ``grad_accum`` 2, eps 0, 3 steps: (1 + 2) x 2 launches of each
      exact fused-CE kernel and of `sample_topk` (the ``acc_h*`` metrics)
      a step, step 0's loss within 1e-4 of the canonical loss's,
-     ``ce_h*`` / ``acc_h*`` finite with acc in [0, 1]; step ms p50,
-     tokens/s, peak memory and `sample_topk`'s time at 4096 rows beside
-     ``torch.topk(h @ w.T, 1)``.
+     ``ce_h*`` / ``acc_h*`` finite with acc in [0, 1]; the ``acc_h*``
+     launches all on `sample_topk`'s many-row kernel and none on its
+     decode kernel; step ms p50, tokens/s, peak memory and the many-row
+     kernel's time at 4096 rows beside ``torch.topk(h @ w.T, 1)``.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -126,8 +131,10 @@ its plain version and `F.scaled_dot_product_attention` over the
 gathered K/V; and `score_tokens` on the padded head at the spec shape
 (rows 32, P 1, T 0.7), the self-spec prefill's 4 head rows at T 0.7,
 the eval shape (rows 8), rows 32 with P 4,
-softcap 30, duplicated, -1, past-valid and pad-row ids, and 1000 rows of
-a `col_offset` shard, each against its plain version, twice for bit
+softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
+`col_offset` shard, and paper-lm's width (d 4096, V 32768: 32 rows P 1
+and 100 rows P 64, which stage 3 groups of 8 rows a block), each
+against its plain version, twice for bit
 identity, with -inf exactly where the JAX kernel puts it, and timed
 beside its bound, its plain version and ``torch.log_softmax`` of the
 logits gathered at the ids.
@@ -262,8 +269,29 @@ def check_topk(np, vals, ids, rv, ri, exact_ids):
     return float(np.max(np.abs(vals[fin] - rv[fin]))), int(sep.sum())
 
 
+def check_top1(np, vals, ids, rv2, ri2, exact_ids):
+    """k = 1 against the plain version's top 2: values at VAL_RTOL /
+    VAL_ATOL, -inf in the same rows, ids equal wherever the best two
+    values are more than VAL_ATOL apart (or everywhere, for exact
+    arithmetic); returns (max |err|, ids checked)."""
+    vals, ids, rv2, ri2 = (t.cpu().numpy() for t in (vals, ids, rv2, ri2))
+    rv = rv2[:, 0]
+    fin = np.isfinite(rv)
+    if not np.array_equal(fin, np.isfinite(vals[:, 0])):
+        raise AssertionError("kernel and plain version disagree on -inf")
+    np.testing.assert_allclose(vals[fin, 0], rv[fin], rtol=VAL_RTOL,
+                               atol=VAL_ATOL)
+    sep = fin.copy()
+    if not exact_ids:
+        sep &= (rv2[:, 0] - rv2[:, 1]) > VAL_ATOL
+    np.testing.assert_array_equal(ids[sep, 0], ri2[sep, 0])
+    return float(np.max(np.abs(vals[fin, 0] - rv[fin]))), int(sep.sum())
+
+
 def phase_topk(torch, np, arch, dev):
-    from repro_torch.kernels.sample_topk import cuda_topk, topk_scores_ref
+    from repro_torch.core.windows import choose_blocks
+    from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
+                                                 cuda_topk, topk_scores_ref)
 
     d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -275,35 +303,73 @@ def phase_topk(torch, np, arch, dev):
     cases = []
     for rows in (1, 8):
         for k in (1, 40):
-            cases.append((f"rows{rows}_k{k}", rows, k, None, False))
-    cases.append(("rows8_k40_ties", 8, 40, None, True))
-    cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False))
+            cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0))
+    cases.append(("rows8_k40_ties", 8, 40, None, True, 0))
+    cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False, 0))
+    # the many-row top-1 path (the MTP accuracy's 4096 rows), each also
+    # through the decode kernel's 8-row plan
+    for rows in (128, 512, 4096):
+        cases.append((f"rows{rows}_k1", rows, 1, None, False, 0))
+    cases.append(("rows4096_k1_ties", 4096, 1, None, True, 0))
+    cases.append(("rows4096_k1_softcap30_offset", 4096, 1, 30.0, False,
+                  4096))
     results = {}
-    for name, rows, k, cap, ties in cases:
+    for name, rows, k, cap, ties, off in cases:
         h = torch.randn((rows, d), generator=gen, device=dev)
         if ties:
             h = torch.round(h * 2) / 2
         h = h.bfloat16()
         wt = w_ties if ties else w
-        kw = dict(valid_vocab=valid, logit_softcap=cap)
+        kw = dict(valid_vocab=valid + off, logit_softcap=cap,
+                  col_offset=off)
+        many = k == 1 and rows >= 128
+        before = (LAUNCHES.count, ROWS_LAUNCHES.count)
         vals, ids = cuda_topk(h, wt, k, **kw)
         torch.cuda.synchronize()
-        rv, ri = topk_scores_ref(h, wt, k, **kw)
-        err, n_ids = check_topk(np, vals, ids, rv, ri, exact_ids=ties)
-        if not bool(((ids >= 0) & (ids < valid)).all()):
-            raise AssertionError(f"{name}: id outside [0, {valid})")
+        after = (LAUNCHES.count, ROWS_LAUNCHES.count)
+        if after != (before[0] + (not many), before[1] + many):
+            raise AssertionError(f"{name}: launches {before} -> {after}, "
+                                 f"want the {'many-row' if many else 'decode'}"
+                                 " kernel")
+        slow = rows >= 512                       # the plain version sorts
+        plain_iters = dict(iters=2, warmup=1) if slow else dict(iters=5)
+        if many:
+            rv, ri = topk_scores_ref(h, wt, 2, **kw)
+            err, n_ids = check_top1(np, vals, ids, rv, ri, exact_ids=ties)
+        else:
+            rv, ri = topk_scores_ref(h, wt, k, **kw)
+            err, n_ids = check_topk(np, vals, ids, rv, ri, exact_ids=ties)
+        if not bool(((ids >= off) & (ids < valid + off)).all()):
+            raise AssertionError(f"{name}: id outside [{off}, "
+                                 f"{valid + off})")
         ms = cuda_ms(torch, lambda: cuda_topk(h, wt, k, **kw))
         plain_ms = cuda_ms(torch, lambda: topk_scores_ref(h, wt, k, **kw),
-                           iters=5)
-        library_ms = cuda_ms(torch, lambda: torch.topk(h @ wt.T, k))
+                           **plain_iters)
+        wv = wt[:valid]
+        library_ms = cuda_ms(torch, lambda: torch.topk(h @ wv.T, k))
         bound_ms, bound_by = topk_bound_ms(rows, d, v, k)
         results[name] = dict(rows=rows, k=k, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+        extra = ""
+        if many:
+            # the same call through the decode kernel (an explicit 8-row
+            # plan), held to the same plain version
+            dplan = choose_blocks(rows, v, d)
+            dv, di = cuda_topk(h, wt, k, plan=dplan, **kw)
+            torch.cuda.synchronize()
+            check_top1(np, dv, di, rv, ri, exact_ids=ties)
+            dec_ms = cuda_ms(torch, lambda: cuda_topk(h, wt, k, plan=dplan,
+                                                      **kw),
+                             **(dict(iters=2, warmup=1) if slow else {}))
+            results[name]["decode_ms"] = dec_ms
+            extra = (f", decode kernel (8-row plan) {dec_ms:.4f} ms; "
+                     "many-row kernel")
         print(f"[kernel] sample_topk {name}: max_abs_err {err:.3g} "
-              f"({n_ids} ids checked exactly), {ms:.4f} ms vs bound "
+              f"({n_ids} ids checked exactly){extra} {ms:.4f} ms vs bound "
               f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"torch.topk(h @ w.T) {library_ms:.4f} ms", flush=True)
+        del rv, ri
     return results
 
 
@@ -708,6 +774,7 @@ def phase_train(torch, np, arch, card, dev):
     from repro_torch.kernels.fused_ce import (DH_LAUNCHES, DW_LAUNCHES,
                                               FWD_LAUNCHES)
     from repro_torch.kernels.sample_topk import LAUNCHES as TOPK_LAUNCHES
+    from repro_torch.kernels.sample_topk import ROWS_LAUNCHES
     from repro_torch.train import (TrainConfig, build_loss_fn,
                                    build_train_step, train_loop)
 
@@ -763,7 +830,7 @@ def phase_train(torch, np, arch, card, dev):
         launches = {"fused_ce_fwd": FWD_LAUNCHES.count,
                     "fused_ce_dh": DH_LAUNCHES.count,
                     "fused_ce_dw": DW_LAUNCHES.count}
-        topk = TOPK_LAUNCHES.count
+        topk = TOPK_LAUNCHES.count + ROWS_LAUNCHES.count
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         obs.disable()
@@ -983,7 +1050,8 @@ def phase_train_filtered(torch, np, arch, card, dev, phase4_p50):
             want = {"fused_ce_fwd": TRAIN_STEPS,
                     "fused_ce_dh_filtered": TRAIN_STEPS,
                     "fused_ce_dw_filtered": TRAIN_STEPS,
-                    "fused_ce_dh": 0, "fused_ce_dw": 0, "sample_topk": 0}
+                    "fused_ce_dh": 0, "fused_ce_dw": 0, "sample_topk": 0,
+                    "sample_topk_rows": 0}
             got = {k: counts.get(k, 0) for k in want}
             if got != want or len(masks) != TRAIN_STEPS:
                 raise AssertionError(f"({tag}) launches {got}, {len(masks)} "
@@ -1036,7 +1104,8 @@ def phase_train_filtered(torch, np, arch, card, dev, phase4_p50):
                              f"{step0['canonical']}")
     per = (1 + 2) * 2
     want = {"fused_ce_fwd": per * MTP_STEPS, "fused_ce_dh": per * MTP_STEPS,
-            "fused_ce_dw": per * MTP_STEPS, "sample_topk": per * MTP_STEPS,
+            "fused_ce_dw": per * MTP_STEPS, "sample_topk": 0,
+            "sample_topk_rows": per * MTP_STEPS,
             "fused_ce_dh_filtered": 0, "fused_ce_dw_filtered": 0}
     got = {k: counts.get(k, 0) for k in want}
     if got != want:
@@ -1068,12 +1137,13 @@ def phase_train_filtered(torch, np, arch, card, dev, phase4_p50):
     print(f"[mtp-train] (c) step {p50:.1f} ms p50 over steps 1-"
           f"{MTP_STEPS - 1} (" + ", ".join(f"{x:.1f}" for x in ms)
           + f" ms), {tok / (p50 / 1e3):.0f} tokens/s, peak {peak:.2f} GiB; "
-          f"sample_topk k=1 at {tok // 2} rows {topk_ms:.3f} ms (bound "
+          f"sample_topk k=1 (many-row kernel) at {tok // 2} rows "
+          f"{topk_ms:.3f} ms (bound "
           f"{topk_bound_ms(tok // 2, arch.cfg.d_model, arch.padded_vocab, 1)[0]:.3f}"
           f" ms), torch.topk(h @ w.T, 1) {topk_lib_ms:.3f} ms on {card}",
           flush=True)
     out["c"] = dict(p50=p50, peak=peak, topk_ms=topk_ms,
-                    topk_lib_ms=topk_lib_ms)
+                    topk_lib_ms=topk_lib_ms, launches=got)
     del state
     torch.cuda.empty_cache()
     return out
@@ -1422,19 +1492,31 @@ def phase_score(torch, np, arch, dev):
 
     d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     gen = torch.Generator(device=dev).manual_seed(4321)
-    w = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
-    w[valid:] = 0.0                                # the padded head rows
-    w = w.bfloat16()
+    w_head = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
+    w_head[valid:] = 0.0                           # the padded head rows
+    w_head = w_head.bfloat16()
+    # paper-lm's width (d 4096): 32 rows of h no longer fit a block, so
+    # the kernel stages 3 groups of 8 (24 rows) and strides by 24
+    v_wide, d_wide = 32768, 4096
+    w_wide = (torch.randn((v_wide, d_wide), generator=gen, device=dev)
+              / d_wide ** 0.5).bfloat16()
     cases = [
-        # name, rows, P, softcap, temperature, col_offset
-        ("spec_rows32_t0.7", 32, 1, None, 0.7, 0),
-        ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0),
-        ("eval_rows8", 8, 1, None, None, 0),
-        ("rows32_p4_softcap30", 32, 4, 30.0, None, 0),
-        ("rows1000_offset", 1000, 1, None, None, 4096),
+        # name, rows, P, softcap, temperature, col_offset, wide
+        ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, False),
+        ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0, False),
+        ("eval_rows8", 8, 1, None, None, 0, False),
+        ("rows32_p4_softcap30", 32, 4, 30.0, None, 0, False),
+        ("rows1000_offset", 1000, 1, None, None, 4096, False),
+        ("d4096_rows32_p1", 32, 1, None, 0.7, 0, True),
+        ("d4096_rows100_p64", 100, 64, None, None, 0, True),
     ]
     results = {}
-    for name, rows, p, cap, temp, off in cases:
+    for name, rows, p, cap, temp, off, wide in cases:
+        if wide:
+            d, v, valid, w = d_wide, v_wide, v_wide, w_wide
+        else:
+            d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
+            w = w_head
         h = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
         tot_valid = valid + off                  # shard [off, off + v)
         ids = torch.randint(off, off + valid, (rows, p), generator=gen,
@@ -1884,11 +1966,23 @@ def main():
         "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
         "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in kernels.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
+                           if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"]}]}
+    many = kernels["rows4096_k1"]            # the MTP accuracy's rows
+    record["kernels"].append({
+        "name": "sample_topk_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
+        "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
+        "launches": ftrain["c"]["launches"]["sample_topk_rows"],
+        "max_abs_err": max(c["max_abs_err"] for n, c in kernels.items()
+                           if "decode_ms" in c),
+        "ms": many["ms"], "plain_ms": many["plain_ms"],
+        "bound_ms": many["bound_ms"], "bound_by": many["bound_by"],
+        "library_ms": many["library_ms"]})
     ce_source = "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu"
     for kind, line in (("fwd", 80), ("dh", 259), ("dw", 283)):
         name = f"fused_ce_{kind}"

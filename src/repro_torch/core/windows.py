@@ -19,6 +19,9 @@ The field ``vmem_bytes`` keeps its name for parity with the JAX
 `BlockPlan`; here it holds the block's shared-memory bytes.
 
 `choose_blocks` is the decode-shaped plan of `sample_topk` (8 rows).
+Its many-row top-1 path has one fixed plan, `topk_rows_plan` (128 rows
+by 256 columns a CTA, GEMM-shaped), which `sample_topk.ops.cuda_topk`
+picks for k = 1 from `TOPK_ROWS_MIN` rows on.
 The fused-CE kernels of a training step see thousands of rows and have
 their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles and
 64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
@@ -89,6 +92,26 @@ def choose_blocks(
     return BlockPlan(_ROWS, bv, nbytes)
 
 
+# the many-row top-1 path of sample_topk (sample_topk.cu kRows*): 128 rows
+# of h by 256 vocab columns a CTA, a 4-stage TMA ring of 64-wide k chunks
+TOPK_ROWS = 128
+TOPK_ROWS_COLS = 256
+TOPK_ROWS_STAGES = 4
+# rows from which cuda_topk takes the many-row path at k = 1: the decode
+# kernel streams W once per 8 rows (~0.1 ms each at qwen3-0.6b's head),
+# the many-row one once per 128; phase 2 of chip_smoke.py times both at
+# 128 rows, the smallest count routed here
+TOPK_ROWS_MIN = 128
+
+
+def topk_rows_plan() -> BlockPlan:
+    """The many-row top-1 plan; its shared memory is the TMA ring (h and
+    W chunks of 64 bf16 a row), its barriers and 1024 bytes of alignment."""
+    ring = TOPK_ROWS_STAGES * (TOPK_ROWS + TOPK_ROWS_COLS) * 64 * 2
+    return BlockPlan(TOPK_ROWS, TOPK_ROWS_COLS,
+                     1024 + ring + 2 * TOPK_ROWS_STAGES * 8)
+
+
 # ---------------------------------------------------------------------------
 # fused-CE kernels (training): their own plan rule
 # ---------------------------------------------------------------------------
@@ -116,8 +139,8 @@ class CEPlan:
     """Launch plan of the fused-CE kernels: the number of vocab slices the
     forward grid cuts W into (one block per (row block, slice)).  The
     tiles are fixed in the source: ``shape`` is the forward tile, and the
-    backward grids are (rows / 64, d / 256) for dH and (V / 64, d / 256)
-    for dW."""
+    backward grids are (d / 256, rows / 64) for dH, in clusters of d / 256
+    CTAs, and (V / 64, d / 256) for dW."""
     v_splits: int
     shape = (CE_FWD_ROWS, CE_FWD_COLS)
 

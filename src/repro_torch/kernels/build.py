@@ -33,8 +33,13 @@ SOURCES = {
     "score_tokens": "score_tokens/csrc/score_tokens.cu",
 }
 
+# headers every source may include (`#include "hopper.cuh"`); they are
+# part of each library's hash, so editing one rebuilds every kernel
+HEADERS = ["common/hopper.cuh"]
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-I{_PKG / 'common'}", "-ldl"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -79,8 +84,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = _PKG / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    sha = hashlib.sha256((_PKG / SOURCES[name]).read_bytes())
+    for header in HEADERS:
+        sha.update((_PKG / header).read_bytes())
+    digest = sha.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

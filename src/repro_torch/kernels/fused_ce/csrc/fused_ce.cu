@@ -27,8 +27,25 @@
 // product (the forward one; dH and dW two each, recompute and
 // contraction), while its bytes are ~0.33 GB: every kernel here is bound
 // by operations, so the design keeps all of them on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate) and keeps every logit tile
-// in registers and shared memory.  No wgmma, TMA or tuned tiles yet.
+// and keeps every logit tile in registers and shared memory.  The forward
+// and dW run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with cp.async;
+// dH runs on wgmma with TMA (below).
+//
+// dH (fce_dh).  A block per 256-wide d range, as dW has, would recompute
+// the whole logit tile in every range: at d 1024, 4 x 2.55 TFLOP of
+// recompute beside 2 x 2.55 of contraction (g as bf16 hi + lo).  Instead
+// the C CTAs of a thread-block cluster (C = 4 at d 1024) share one 64-row
+// block: each keeps h[rows, its 256-wide d range] in
+// shared memory, and per 64-column vocab tile TMA brings W[tile, d range],
+// which feeds both the CTA's partial logits over its range and its share
+// of the contraction.  The partials are reduce-scattered through the
+// bulk-copy engine: each CTA sums 64 / C rows of the tile in CTA order
+// (the same z, bit for bit, whichever CTA forms it), forms g of them once,
+// and sends that slice of g to the others, so the logits are recomputed
+// once (7.65 TFLOP at d 1024) and g is formed once.  d 4096 takes a
+// non-portable cluster of 16: the 8 x 512 alternative would need a 64 x
+// 256 running sum and as large an accumulator per warpgroup, more than the
+// 168 registers a thread at 384 threads.  See fce_dh for the pipeline.
 //
 // Design, and what it does about the TPU kernel's assumptions:
 //   * the TPU kernel carries (m, a, z*, sum z) across a SEQUENTIAL vocab
@@ -43,11 +60,11 @@
 //     the tensor cores: |g - hi - lo| <= 2^-17 |g|, well inside the
 //     reference's rtol 3e-4 (a single bf16 g would cost 2^-9 a term);
 //   * the Pallas kernels hold a full-d (bm, d) / (bv, d) f32 accumulator
-//     in VMEM.  Here a backward block owns 64 rows of its stationary
-//     operand (h for dH, W for dW) and a 256-wide range of d, with the
-//     sums in registers (16 warps x 16 columns); a second grid axis covers
-//     d in 256-wide ranges, each recomputing the logit tile, so any d that
-//     is a multiple of 64 works (d = 1024: four ranges, d = 4096: 16);
+//     in VMEM.  Here a dW block owns 64 rows of W and a 256-wide range of
+//     d, with the sums in registers (16 warps x 16 columns); a second grid
+//     axis covers d in 256-wide ranges, each recomputing the logit tile,
+//     so any d that is a multiple of 64 works (d = 1024: four ranges, d =
+//     4096: 16).  dH spreads the same ranges over a cluster instead;
 //   * each 64-row tile of the streamed operand is contracted into a fresh
 //     tensor-core accumulator and added to an f32 running sum on the CUDA
 //     cores: the tensor cores truncate addends far below the accumulator,
@@ -55,9 +72,9 @@
 //     cost dH a relative error of 2.9e-4 at V = 152k (H100 80GB HBM3,
 //     700 W, chip_smoke.py);
 //   * dW is the reference's deterministic two-pass layout: a dH pass over
-//     (row blocks x d ranges) streaming the vocab, and a dW pass over
-//     (vocab blocks x d ranges) streaming the rows.  No atomics: the sums
-//     run in a fixed order and repeat bit for bit.
+//     row blocks streaming the vocab, and a dW pass over (vocab blocks x d
+//     ranges) streaming the rows.  No atomics: the sums run in a fixed
+//     order and repeat bit for bit.
 //   * the gradient filter shares one 64 x 64 tile grid between the
 //     statistic, the mask and both backward grids: a dH block owns 64
 //     rows of h and streams W in 64-row tiles (mask row rt), a dW block
@@ -83,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -432,22 +451,21 @@ __global__ void fce_fwd_merge(const float* __restrict__ part,
 // backward
 // ---------------------------------------------------------------------------
 
-// kDW false (dH): S = h (n rows), T = W (v_orig rows), out = dH (n, d).
-// kDW true  (dW): S = W, T = h, out = dW (v_orig, d).
-// grid (ceil(S rows / 64), ceil(d / 256)), kBwdThreads threads.  For each
-// 64-row tile of T: z = S_blk T_tile^T (recompute over all of d), g from z
-// into shared memory as bf16 hi/lo, then acc += g T_tile[:, d range].
-// kFiltered: only the T tiles whose skip entry is 0 (skip is the
-// (ceil(n/64), ceil(v_orig/64)) mask; dH reads row blockIdx.x, dW column
+// dW (v_orig, d) f32: S = W (the stationary operand, v_orig rows), T = h
+// (streamed, n rows).  grid (ceil(v_orig / 64), ceil(d / 256)), kBwdThreads
+// threads.  For each 64-row tile of h: z = S_blk T_tile^T (recompute over all
+// of d), g from z into shared memory as bf16 hi/lo, then acc += g^T
+// T_tile[:, d range].  kFiltered: only the h tiles whose skip entry is 0
+// (skip is the (ceil(n/64), ceil(v_orig/64)) mask, read down column
 // blockIdx.x), in ascending order; the exact kernel walks them all.
-template <bool kDW, bool kFiltered>
+template <bool kFiltered>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    fce_grad(const bf16* __restrict__ h, const bf16* __restrict__ w,
-             const int* __restrict__ y, const float* __restrict__ lse,
-             const float* __restrict__ gamma, const float* __restrict__ pc,
-             const uint8_t* __restrict__ skip, float* __restrict__ out,
-             int n, int d, int v_orig, int valid, int col_offset,
-             int has_cap, float cap, float eps) {
+    fce_dw(const bf16* __restrict__ h, const bf16* __restrict__ w,
+           const int* __restrict__ y, const float* __restrict__ lse,
+           const float* __restrict__ gamma, const float* __restrict__ pc,
+           const uint8_t* __restrict__ skip, float* __restrict__ out, int n,
+           int d, int v_orig, int valid, int col_offset, int has_cap,
+           float cap, float eps) {
   constexpr int WM = 4, WN = 4;  // recompute layout: 16 x 16 a warp
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sS = reinterpret_cast<bf16*>(smem);
@@ -462,10 +480,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   int* sCnt = reinterpret_cast<int*>(sP + 64);  // filtered: warp counts
   int* sList = sCnt + kBwdWarps;                // filtered: live tiles
 
-  const bf16* S = kDW ? w : h;
-  const bf16* T = kDW ? h : w;
-  const int s_rows = kDW ? v_orig : n;
-  const int t_rows = kDW ? n : v_orig;
+  const bf16* S = w;
+  const bf16* T = h;
+  const int s_rows = v_orig;
+  const int t_rows = n;
   const int s0 = blockIdx.x * kBwdRows;
   const int c0 = blockIdx.y * kBwdD;
   const int tid = threadIdx.x;
@@ -480,7 +498,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const float one_m_eps = 1.f - eps;
   const float eps_valid = eps / (float)valid;
 
-  // row statistics of the 64 h rows a tile or the block covers
+  // row statistics of the 64 h rows a tile covers
   auto load_stats = [&](int r0) {
     if (tid < 64) {
       const int r = r0 + tid;
@@ -491,7 +509,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       sP[tid] = ok ? pc[r] : 0.f;
     }
   };
-  if (!kDW) load_stats(s0);
 
   // run: the f32 sum over the tiles so far (CUDA-core adds, rounded to
   // nearest); acc: one tile's sum on the tensor cores, started from zero
@@ -506,16 +523,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
   int n_live = n_tiles;
   if (kFiltered) {
-    // compact this block's mask row (dH) or column (dW) into sList, in
-    // ascending order: one ballot a warp, warp offsets from sCnt
+    // compact this block's mask column into sList, in ascending order: one
+    // ballot a warp, warp offsets from sCnt
     const int num_v = (v_orig + kBwdCols - 1) / kBwdCols;
     n_live = 0;
     for (int base = 0; base < n_tiles; base += kBwdThreads) {
       const int i = base + tid;
       const bool live =
-          i < n_tiles &&
-          !skip[kDW ? (size_t)i * num_v + blockIdx.x
-                    : (size_t)blockIdx.x * num_v + i];
+          i < n_tiles && !skip[(size_t)i * num_v + blockIdx.x];
       const unsigned bal = __ballot_sync(0xffffffffu, live);
       if (lane == 0) sCnt[warp] = __popc(bal);
       __syncthreads();
@@ -534,7 +549,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int tile = kFiltered ? sList[li] : li;
     const int t0 = tile * kBwdCols;
     __syncthreads();  // the last contraction is done with panel, g, stats
-    if (kDW) load_stats(t0);
+    load_stats(t0);
     // the panel T[t0 .. t0+64, c0 .. c0+256) for the contraction
     for (int i = tid; i < kBwdCols * (kBwdD / 8); i += kBwdThreads) {
       const int r = i / (kBwdD / 8);
@@ -560,9 +575,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         float gv[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int ri = kDW ? tl + j : sl;         // index into the stats
-          const int row = kDW ? t0 + tl + j : s0 + sl;
-          const int local = kDW ? s0 + sl : t0 + tl + j;
+          const int ri = tl + j;         // index into the stats
+          const int row = t0 + tl + j;
+          const int local = s0 + sl;
           const bool live = row < n && local < v_orig &&
                             local + col_offset < valid;
           float zc = z[0][nt][2 * hh + j];
@@ -654,39 +669,508 @@ constexpr size_t kBwdSmem =
 static_assert(kFwdSmem >= (size_t)4 * kFwdRows * 4 * sizeof(float),
               "the forward reduction reuses the ring");
 constexpr size_t kSmemMax = 232448;   // H100: dynamic smem a block can use
-// a filtered block adds the warp counts and its live-tile list; a longer
-// streamed operand (over 1.19M rows of W or h) is refused as an invalid
-// argument before any launch
+// a filtered dW block adds the warp counts and its live-tile list; more
+// than 1.19M rows of h are refused as an invalid argument before any launch
 constexpr int kMaxFilteredTiles =
     (int)((kSmemMax - kBwdSmem) / sizeof(int)) - kBwdWarps;
 
-template <bool kDW, bool kFiltered>
-int launch_grad(const void* h, const void* w, const void* y, const void* lse,
-                const void* gamma, const void* pc, const void* skip,
-                void* out, int n, int d, int v_orig, int valid,
-                int col_offset, int has_cap, float cap, float eps,
-                void* stream) {
-  const int s_rows = kDW ? v_orig : n;
-  const int t_rows = kDW ? n : v_orig;
-  const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
+template <bool kFiltered>
+int launch_dw(const void* h, const void* w, const void* y, const void* lse,
+              const void* gamma, const void* pc, const void* skip, void* out,
+              int n, int d, int v_orig, int valid, int col_offset,
+              int has_cap, float cap, float eps, void* stream) {
+  const int n_tiles = (n + kBwdCols - 1) / kBwdCols;
   if (kFiltered && n_tiles > kMaxFilteredTiles)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       kBwdSmem + (kFiltered ? (size_t)(kBwdWarps + n_tiles) * sizeof(int)
                             : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      fce_grad<kDW, kFiltered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fce_dw<kFiltered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((s_rows + kBwdRows - 1) / kBwdRows, (d + kBwdD - 1) / kBwdD);
-  fce_grad<kDW, kFiltered><<<grid, kBwdThreads, smem,
-                             reinterpret_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((v_orig + kBwdRows - 1) / kBwdRows, (d + kBwdD - 1) / kBwdD);
+  fce_dw<kFiltered><<<grid, kBwdThreads, smem,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(y), static_cast<const float*>(lse),
       static_cast<const float*>(gamma), static_cast<const float*>(pc),
       static_cast<const uint8_t*>(skip), static_cast<float*>(out), n, d,
       v_orig, valid, col_offset, has_cap, cap, eps);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dH: a thread-block cluster along d, on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kDhRows = 64;              // rows of h a cluster (filter grid)
+constexpr int kDhCols = 64;              // vocab columns a tile (filter grid)
+constexpr int kDhRange = 256;            // d columns a CTA
+constexpr int kDhBox = 64;               // d columns a TMA box (128 bytes)
+constexpr int kDhBoxes = kDhRange / kDhBox;
+constexpr int kDhStages = 3;             // W slices in flight
+constexpr int kDhContract = 256;         // warpgroups 0-1: the contraction
+constexpr int kDhThreads = kDhContract + 128;  // + warpgroup 2: the rest
+constexpr int kDhWarps = kDhThreads / 32;
+constexpr int kPartLd = kDhCols + 4;     // padded f32 row of a partial
+constexpr uint32_t kDhSliceBytes = kDhCols * kDhRange * 2;  // 32 KB
+constexpr uint32_t kDhHBytes = kDhRows * kDhRange * 2;      // 32 KB
+constexpr uint32_t kDhGBytes = kDhRows * kDhCols * 2;       // 8 KB
+// shared memory, from a 1024-byte aligned base
+constexpr size_t kOffH = 0;
+constexpr size_t kOffW = kOffH + kDhHBytes;
+constexpr size_t kOffG = kOffW + (size_t)kDhStages * kDhSliceBytes;
+// the CTA's partial logits (staging for its bulk copies), then two receive
+// buffers of C row slices; each is 64 padded rows of f32
+constexpr size_t kOffPart = kOffG + 4 * kDhGBytes;  // g hi, lo x 2 buffers
+constexpr size_t kPartBytes = kDhRows * kPartLd * 4;
+constexpr size_t kOffStats = kOffPart + 3 * kPartBytes;
+constexpr size_t kOffBar = kOffStats + 4 * kDhRows * 4;
+constexpr int kDhBars = kDhStages + 1 + 2 + 2 + 2;
+constexpr size_t kOffCnt = kOffBar + kDhBars * 8;
+constexpr size_t kOffList = kOffCnt + kDhWarps * 4;
+constexpr size_t kDhSmem = 1024 + kOffList;  // + the filtered tile list
+constexpr int kDhMaxFilteredTiles =
+    (int)((kSmemMax - kDhSmem) / sizeof(uint16_t));
+
+// dH (n, d) f32.  grid (C, ceil(n / 64)) in clusters of (C, 1, 1), C in
+// {1, 4, 16} covering ceil(d / 256) ranges of 256 columns (a range past d
+// reads zeros and writes nothing), kDhThreads threads, kDhSmem bytes (+ 2
+// a vocab tile when filtered).  CTA `rank` owns d columns [256 rank,
+// 256 rank + 256) of the cluster's 64 rows, and row slice [R rank, R rank
+// + R), R = 64 / C, of every tile's logits.  Per live vocab tile j:
+//   * warpgroup 2 (the logits warpgroup) issues the partial logits over
+//     the CTA's d range, 64 x 64 (wgmma m64n64k16, both operands K-major;
+//     h[rows, d range] stays in shared memory), stages them and
+//     bulk-copies each CTA's row slice into that CTA's receive buffer j % 2,
+//     completing its pfull[j % 2];
+//   * warpgroups 0-1 (the contraction warpgroups), once pfull[j % 2]
+//     completes, sum the CTA's own slice of the C partials in CTA order
+//     (the cluster's z, bit for bit, once), form g of the slice (bf16 hi
+//     and lo) in g[j % 2], 128-byte swizzled, and bulk-copy the slice into
+//     every other CTA's g[j % 2], completing their gfull[j % 2]; once
+//     gfull[j % 2] completes, each contracts a fresh 64 x 128 accumulator =
+//     g (hi, then lo) . W[tile, its 128 d columns] read MN-major (wgmma
+//     m64n128k16, B transposed), adds it to its f32 running sum on the CUDA
+//     cores and arrives on every CTA's gfree[j % 2] (2 C a phase); thread 0
+//     then loads W[tile j + 3, d range] by TMA into the slice just freed.
+//     They form tile j + 1's g right after contracting tile j.
+// Flow control: a CTA sends tile j + 2's partial slices only once its own
+// gfull[j % 2] has completed, because every CTA sends its g of tile j only
+// after it has summed its receive buffer of tile j; it writes g of tile j + 2
+// only once gfree[j % 2] says every CTA has contracted tile j.  All
+// exchanges go through the bulk-copy engine with transaction counts: on
+// the H100 a thread's remote mbarrier arrival with release semantics, and
+// a pull of the partials through distributed shared memory, each stalled
+// the pipeline for longer than the tile's own products.  The contraction
+// warpgroups hold their running sum and one accumulator (128 of the 168
+// registers a thread that ptxas allots at 384 threads) and the exchange's
+// few values; the logits warpgroup runs up to two tiles ahead of them.
+// Each CTA receives (C - 1) / C of a partial and sends as much of g a
+// tile, ~24 KB at any C, where an all-gather of the partials would move
+// 48 KB at C = 4 and 240 KB at C = 16.
+template <int kC, bool kFiltered>
+__global__ void __launch_bounds__(kDhThreads, 1)
+    fce_dh(const __grid_constant__ CUtensorMap hmap,
+           const __grid_constant__ CUtensorMap wmap,
+           const int* __restrict__ y, const float* __restrict__ lse,
+           const float* __restrict__ gamma, const float* __restrict__ pc,
+           const uint8_t* __restrict__ skip, float* __restrict__ out, int n,
+           int d, int v_orig, int valid, int col_offset, int has_cap,
+           float cap, float eps) {
+  using namespace hopper;
+  constexpr int R = kDhRows / kC;        // rows of a tile this CTA owns
+  constexpr uint32_t kGSlice = R * 128;  // bytes of a g slice (hi or lo)
+  extern __shared__ unsigned char dh_smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dh_smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* hs = reinterpret_cast<bf16*>(sm + kOffH);
+  bf16* ws = reinterpret_cast<bf16*>(sm + kOffW);
+  unsigned char* gt = sm + kOffG;  // g[b]: hi at 2 b, lo at 2 b + 1 tiles
+  float* stage = reinterpret_cast<float*>(sm + kOffPart);
+  float* recv = stage + kDhRows * kPartLd;  // [2][C][R][kPartLd]
+  int* sY = reinterpret_cast<int*>(sm + kOffStats);
+  float* sL = reinterpret_cast<float*>(sY + kDhRows);
+  float* sG = sL + kDhRows;
+  float* sP = sG + kDhRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
+  uint64_t* hbar = full + kDhStages;
+  uint64_t* pfull = hbar + 1;
+  uint64_t* gfull = pfull + 2;
+  uint64_t* gfree = gfull + 2;
+  int* sCnt = reinterpret_cast<int*>(sm + kOffCnt);
+  uint16_t* sList = reinterpret_cast<uint16_t*>(sm + kOffList);
+
+  const int rank = blockIdx.x;          // the cluster spans gridDim.x
+  const int c0 = rank * kDhRange;
+  const int row0 = blockIdx.y * kDhRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wt = tid & 127;             // thread in its warpgroup
+  const int wl = wt >> 5;               // warp in its warpgroup
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  if (tid < kDhRows) {
+    const int r = row0 + tid;
+    const bool ok = r < n;
+    sY[tid] = ok ? y[r] : -1;
+    sL[tid] = ok ? lse[r] : 0.f;
+    sG[tid] = ok ? gamma[r] : 0.f;
+    sP[tid] = ok ? pc[r] : 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kDhStages; ++s) mbar_init(&full[s], 1);
+    mbar_init(hbar, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&pfull[b], 1);          // + the C partial slices' bytes
+      mbar_init(&gfull[b], 1);          // + the peers' g bytes
+      mbar_init(&gfree[b], 2 * kC);
+    }
+    fence_mbar_init();
+  }
+  const int n_tiles = (v_orig + kDhCols - 1) / kDhCols;
+  int n_live = n_tiles;
+  if (kFiltered) {
+    // compact this row block's mask row into sList, in ascending order: one
+    // ballot a warp, warp offsets from sCnt.  Every CTA of the cluster
+    // reads the same row, so all walk the same list.
+    n_live = 0;
+    for (int base = 0; base < n_tiles; base += kDhThreads) {
+      const int i = base + tid;
+      const bool live =
+          i < n_tiles && !skip[(size_t)blockIdx.y * n_tiles + i];
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) sCnt[warp] = __popc(bal);
+      __syncthreads();
+      int off = n_live, tot = 0;
+      for (int k = 0; k < kDhWarps; ++k) {
+        const int c = sCnt[k];
+        off += k < warp ? c : 0;
+        tot += c;
+      }
+      if (live) sList[off + __popc(bal & ((1u << lane) - 1u))] = i;
+      n_live += tot;
+      __syncthreads();  // sCnt is rewritten next round; sList is complete
+    }
+  }
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any remote arrival
+
+  // W[tile of the li-th live tile, d range] into slice li % 3
+  auto load_w = [&](int li) {
+    const int s = li % kDhStages;
+    const int tile = kFiltered ? sList[li] : li;
+    mbar_arrive_tx(&full[s], kDhSliceBytes);
+    bf16* dst = ws + (size_t)s * kDhCols * kDhRange;
+    for (int j = 0; j < kDhBoxes; ++j)
+      tma_load_2d(dst + j * kDhCols * kDhBox, &wmap, &full[s],
+                  c0 + j * kDhBox, tile * kDhCols);
+  };
+
+  constexpr uint32_t kPSlice = R * kPartLd * 4;   // bytes of a partial slice
+
+  if (tid < kDhContract) {
+    // ---- the contraction warpgroups --------------------------------------
+    const int w = tid >> 7;             // 128 d columns each
+    // X and G: the first kXT threads take E entries each of the CTA's row
+    // slice (E >= 2: g is packed two bf16 to a word)
+    constexpr int kXT = R * kDhCols / 2 < kDhContract ? R * kDhCols / 2
+                                                      : kDhContract;
+    constexpr int E = R * kDhCols / kXT;
+    constexpr int VW = E < 4 ? E : 4;   // floats a read
+    const int xr = tid / (kDhCols / E);             // row in the slice
+    const int xc = (tid % (kDhCols / E)) * E;       // first column
+    const int grow = R * rank + xr;                 // row in the tile
+    const float one_m_eps = 1.f - eps;
+    const float eps_valid = eps / (float)valid;
+    if (tid == 0) {
+      for (int li = 0; li < kDhStages && li < n_live; ++li) load_w(li);
+      for (int b = 0; b < 2; ++b) mbar_arrive_tx(&pfull[b], kC * kPSlice);
+    }
+    // X then G: the li-th live tile's row slice summed over the C
+    // partials in CTA order, then g of it, bf16 hi and lo, into g[li % 2]
+    // and bulk-copied into every other CTA's (lane c to CTA rank + c)
+    auto exchange = [&](int li) {
+      const int b = li & 1;
+      const int tile = kFiltered ? sList[li] : li;
+      unsigned char* ghi = gt + (2 * b) * kDhGBytes;
+      unsigned char* glo = ghi + kDhGBytes;
+      mbar_wait(&pfull[b], (li >> 1) & 1);
+      float z[E];
+      if (tid < kXT) {
+        const float* src = recv + b * kC * R * kPartLd + xr * kPartLd + xc;
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int e = 0; e < E; e += VW) {
+            const float* p = src + c * R * kPartLd + e;
+            float q[VW];
+            if constexpr (VW == 4) {
+              const float4 v4 = *reinterpret_cast<const float4*>(p);
+              q[0] = v4.x, q[1] = v4.y, q[2] = v4.z, q[3] = v4.w;
+            } else {
+              const float2 v2 = *reinterpret_cast<const float2*>(p);
+              q[0] = v2.x, q[1] = v2.y;
+            }
+#pragma unroll
+            for (int k = 0; k < VW; ++k)
+              z[e + k] = c ? z[e + k] + q[k] : q[k];
+          }
+      }
+      // the buffer is consumed: arm it for tile li + 2 (whose slices the
+      // peers send only after this CTA's g of tile li reaches them)
+      bar_sync(2, kDhContract);
+      if (tid == 0 && li + 2 < n_live)
+        mbar_arrive_tx(&pfull[b], kC * kPSlice);
+      if (tid < kXT) {
+        const int row = row0 + grow;
+        const float lr = sL[grow], gr = sG[grow], pr = sP[grow];
+        const int yr = sY[grow];
+        uint32_t hi[E / 2], lo[E / 2];
+#pragma unroll
+        for (int e = 0; e < E; e += 2) {
+          float gv[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int local = tile * kDhCols + xc + e + j;
+            const bool live = row < n && local < v_orig &&
+                              local + col_offset < valid;
+            float zc = z[e + j];
+            if (has_cap) zc = cap * tanhf(zc / cap);
+            const float p =
+                live ? exp2f((zc - lr) * 1.4426950408889634f) : 0.f;
+            const float onehot = (local + col_offset == yr) ? 1.f : 0.f;
+            float gg = pr * p - gr * (one_m_eps * onehot + eps_valid);
+            if (has_cap) {
+              const float rr = zc / cap;
+              gg *= 1.f - rr * rr;
+            }
+            gv[j] = live ? gg : 0.f;
+          }
+          const bf16 h0 = __float2bfloat16_rn(gv[0]);
+          const bf16 h1 = __float2bfloat16_rn(gv[1]);
+          const bf16 l0 = __float2bfloat16_rn(gv[0] - __bfloat162float(h0));
+          const bf16 l1 = __float2bfloat16_rn(gv[1] - __bfloat162float(h1));
+          __nv_bfloat162 hp = __halves2bfloat162(h0, h1);
+          __nv_bfloat162 lp = __halves2bfloat162(l0, l1);
+          hi[e / 2] = *reinterpret_cast<uint32_t*>(&hp);
+          lo[e / 2] = *reinterpret_cast<uint32_t*>(&lp);
+        }
+        // the g tiles are free once every CTA has contracted tile li - 2
+        if (li >= 2) mbar_wait_cluster(&gfree[b], ((li >> 1) - 1) & 1);
+        // 128-byte swizzle: 16-byte chunk k of row r sits at chunk k ^ (r %
+        // 8)
+#pragma unroll
+        for (int e = 0; e < E; e += (E < 8 ? E : 8)) {
+          const int col = xc + e;
+          const int off = grow * 128 +
+                          ((((col * 2) >> 4) ^ (grow & 7)) << 4) +
+                          ((col * 2) & 15);
+          if constexpr (E >= 8) {
+            *reinterpret_cast<uint4*>(ghi + off) = make_uint4(
+                hi[e / 2], hi[e / 2 + 1], hi[e / 2 + 2], hi[e / 2 + 3]);
+            *reinterpret_cast<uint4*>(glo + off) = make_uint4(
+                lo[e / 2], lo[e / 2 + 1], lo[e / 2 + 2], lo[e / 2 + 3]);
+          } else if constexpr (E == 4) {
+            *reinterpret_cast<uint2*>(ghi + off) = make_uint2(hi[0], hi[1]);
+            *reinterpret_cast<uint2*>(glo + off) = make_uint2(lo[0], lo[1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(ghi + off) = hi[0];
+            *reinterpret_cast<uint32_t*>(glo + off) = lo[0];
+          }
+        }
+        fence_proxy_async();
+      }
+      bar_sync(2, kDhContract);
+      if (tid == 0) mbar_arrive_tx(&gfull[b], 2 * (kC - 1) * kGSlice);
+      if (tid > 0 && tid < kC) {
+        const uint32_t off = R * rank * 128;
+        const int peer = (rank + tid) % kC;
+        bulk_copy_to_cta(ghi + off, ghi + off, kGSlice, &gfull[b], peer);
+        bulk_copy_to_cta(glo + off, glo + off, kGSlice, &gfull[b], peer);
+      }
+    };
+
+    float run[64], acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) run[i] = 0.f;
+    if (n_live > 0) exchange(0);
+    for (int li = 0; li < n_live; ++li) {
+      const int b = li & 1;
+      const int s = li % kDhStages;
+      const unsigned char* ghi = gt + (2 * b) * kDhGBytes;
+      const unsigned char* glo = ghi + kDhGBytes;
+      const bf16* wsl = ws + (size_t)s * kDhCols * kDhRange +
+                        2 * w * kDhCols * kDhBox;
+      mbar_wait(&gfull[b], (li >> 1) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kv = 0; kv < kDhCols / 16; ++kv) {
+        const uint64_t db = desc_b128(wsl + kv * 16 * kDhBox,
+                                      kDhCols * kDhBox * 2, 1024);
+        wgmma_m64n128k16_tb(acc, desc_b128(ghi + kv * 32, 16, 1024), db,
+                            kv);
+        wgmma_m64n128k16_tb(acc, desc_b128(glo + kv * 32, 16, 1024), db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) run[i] += acc[i];
+      // g[b] is free here (the group has completed); on every CTA once all
+      // have arrived
+      if (wt < kC) mbar_arrive_cluster_relaxed(&gfree[b], wt);
+      bar_sync(2, kDhContract);         // both are done with slice s
+      if (tid == 0 && li + kDhStages < n_live) load_w(li + kDhStages);
+      if (li + 1 < n_live) exchange(li + 1);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 16 * wl + g + 8 * i;
+        const int col = c0 + w * 128 + 8 * j + 2 * t;
+        if (row < n && col < d)
+          *reinterpret_cast<float2*>(out + (size_t)row * d + col) =
+              make_float2(run[4 * j + 2 * i], run[4 * j + 2 * i + 1]);
+      }
+    __syncwarp();
+    cluster_sync();  // no CTA leaves while a peer may send to it
+    return;
+  }
+
+  // ---- the logits warpgroup -----------------------------------------------
+  float accZ[32];
+  if (wt == 0) {
+    mbar_arrive_tx(hbar, kDhHBytes);
+    for (int j = 0; j < kDhBoxes; ++j)
+      tma_load_2d(hs + j * kDhRows * kDhBox, &hmap, hbar, c0 + j * kDhBox,
+                  row0);
+  }
+  mbar_wait(hbar, 0);
+  // L then P: the partial logits of the li-th live tile, staged, then each
+  // CTA's row slice bulk-copied into its receive buffer li % 2 (completing
+  // its pfull), once every CTA has consumed that buffer's tile li - 2: each
+  // sent its g of tile li - 2 after, so this CTA's gfull of it says so.
+  // Lane c serves CTA rank + c.
+  for (int li = 0; li < n_live; ++li) {
+    const int s = li % kDhStages;
+    mbar_wait(&full[s], (li / kDhStages) & 1);
+    const bf16* wsl = ws + (size_t)s * kDhCols * kDhRange;
+    fence_regs(accZ);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kDhRange / 16; ++ks) {
+      const int box = ks >> 2, kin = (ks & 3) * 16;
+      wgmma_m64n64k16(accZ,
+                      desc_b128(hs + box * kDhRows * kDhBox + kin, 16, 1024),
+                      desc_b128(wsl + box * kDhCols * kDhBox + kin, 16, 1024),
+                      ks);
+    }
+    wgmma_commit();
+    if (wt < kC) bulk_wait_read();      // the last tile's copies are out
+    wgmma_wait<0>();
+    fence_regs(accZ);
+    bar_sync(1, 128);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 16 * wl + g + 8 * i;
+        *reinterpret_cast<float2*>(stage + row * kPartLd + 8 * j + 2 * t) =
+            make_float2(accZ[4 * j + 2 * i], accZ[4 * j + 2 * i + 1]);
+      }
+    fence_proxy_async();
+    bar_sync(1, 128);
+    if (wt < kC) {
+      const int b = li & 1;
+      const int peer = (rank + wt) % kC;
+      if (li >= 2) mbar_wait(&gfull[b], ((li >> 1) - 1) & 1);
+      bulk_copy_to_cta(recv + (b * kC + rank) * R * kPartLd,
+                       stage + peer * R * kPartLd, kPSlice, &pfull[b], peer);
+      bulk_commit();
+    }
+  }
+  __syncwarp();
+  cluster_sync();
+}
+
+template <int kC, bool kFiltered>
+int launch_dh(const CUtensorMap& hmap, const CUtensorMap& wmap,
+              const void* y, const void* lse, const void* gamma,
+              const void* pc, const void* skip, void* out, int n, int d,
+              int v_orig, int valid, int col_offset, int has_cap, float cap,
+              float eps, size_t smem, cudaStream_t stream) {
+  const auto kern = fce_dh<kC, kFiltered>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (kC > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kC, (n + kDhRows - 1) / kDhRows, 1);
+  cfg.blockDim = dim3(kDhThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, hmap, wmap, static_cast<const int*>(y),
+      static_cast<const float*>(lse), static_cast<const float*>(gamma),
+      static_cast<const float*>(pc), static_cast<const uint8_t*>(skip),
+      static_cast<float*>(out), n, d, v_orig, valid, col_offset, has_cap,
+      cap, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the cluster size of d: 1, 4 or 16 ranges of 256 columns
+int dh_cluster(int d) { return d <= 256 ? 1 : (d <= 1024 ? 4 : 16); }
+
+template <bool kFiltered>
+int launch_dh_any(const void* h, const void* w, const void* y,
+                  const void* lse, const void* gamma, const void* pc,
+                  const void* skip, void* out, int n, int d, int v_orig,
+                  int valid, int col_offset, int has_cap, float cap, float eps,
+                  void* stream) {
+  const int n_tiles = (v_orig + kDhCols - 1) / kDhCols;
+  if (d % kDhBox || d > 16 * kDhRange ||
+      (kFiltered && n_tiles > kDhMaxFilteredTiles))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap hmap, wmap;
+  int e = hopper::make_tmap_bf16(&hmap, h, n, d, kDhRows);
+  if (e) return e;
+  e = hopper::make_tmap_bf16(&wmap, w, v_orig, d, kDhCols);
+  if (e) return e;
+  const size_t smem =
+      kDhSmem + (kFiltered ? (size_t)n_tiles * sizeof(uint16_t) : 0);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (dh_cluster(d)) {
+    case 1:
+      return launch_dh<1, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
+                                     out, n, d, v_orig, valid, col_offset,
+                                     has_cap, cap, eps, smem, s);
+    case 4:
+      return launch_dh<4, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
+                                     out, n, d, v_orig, valid, col_offset,
+                                     has_cap, cap, eps, smem, s);
+    default:
+      return launch_dh<16, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
+                                      out, n, d, v_orig, valid, col_offset,
+                                      has_cap, cap, eps, smem, s);
+  }
 }
 
 }  // namespace
@@ -730,8 +1214,7 @@ int fused_ce_dh_launch(const void* h, const void* w, const void* y,
                        const void* skip, void* dh, int n, int d, int v_orig,
                        int valid, int col_offset, int has_cap, float cap,
                        float eps, void* stream) {
-  const auto launch = skip ? launch_grad<false, true>
-                           : launch_grad<false, false>;
+  const auto launch = skip ? launch_dh_any<true> : launch_dh_any<false>;
   return launch(h, w, y, lse, gamma, pc, skip, dh, n, d, v_orig, valid,
                 col_offset, has_cap, cap, eps, stream);
 }
@@ -743,8 +1226,7 @@ int fused_ce_dw_launch(const void* h, const void* w, const void* y,
                        const void* skip, void* dw, int n, int d, int v_orig,
                        int valid, int col_offset, int has_cap, float cap,
                        float eps, void* stream) {
-  const auto launch = skip ? launch_grad<true, true>
-                           : launch_grad<true, false>;
+  const auto launch = skip ? launch_dw<true> : launch_dw<false>;
   return launch(h, w, y, lse, gamma, pc, skip, dw, n, d, v_orig, valid,
                 col_offset, has_cap, cap, eps, stream);
 }

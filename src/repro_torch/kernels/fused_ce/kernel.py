@@ -15,7 +15,10 @@ backward does the live tiles' share of that work.  The source's header
 gives the design: vocab slices across blocks with a merge kernel for the
 forward (the TPU kernel's sequential vocab axis has no counterpart on
 the GPU), ``g`` kept to f32 precision as two bf16 halves on the tensor
-cores, 256-wide d ranges a backward block so any d works, the
+cores, 256-wide d ranges a dW block so any d works, dH on wgmma and TMA
+with one thread-block cluster of ``ceil(d / 256)`` CTAs a 64-row block
+(the CTAs sum their partial logits through distributed shared memory, so
+the logits are recomputed once, not once a d range; d <= 4096), the
 reference's deterministic two-pass dW (no atomics), and one 64 x 64 tile
 grid (`core.windows.ce_tile_grid`) for the tile statistic, the skip mask
 and both filtered kernels, which walk a compacted list of live tiles.
@@ -26,7 +29,7 @@ forward -> (lse, z_target, z_sum), three (N,) f32, plus the (row tiles,
 vocab tiles) f32 tile statistic with ``return_tile_stats``; backward ->
 (dH, dW) in f32, filtered by ``tile_stats`` (with ``cfg.grad_filter_eps
 > 0``) or by an explicit ``skip_mask``.  On the card the kernels take
-bf16 h and w with ``d % 64 == 0``.
+bf16 h and w with ``d % 64 == 0`` (dH also ``d <= 4096``).
 
 `ref_stats` / `ref_grads` (`ref.py`) are the plain versions.  The
 wrappers run them for tensors on the CPU; for CUDA tensors they launch
@@ -55,6 +58,10 @@ DH_LAUNCHES = build.counter("fused_ce_dh")
 DW_LAUNCHES = build.counter("fused_ce_dw")
 DH_FILTERED_LAUNCHES = build.counter("fused_ce_dh_filtered")
 DW_FILTERED_LAUNCHES = build.counter("fused_ce_dw_filtered")
+
+# the dH kernel spreads d over a thread-block cluster, 256 columns a CTA,
+# at most 16 CTAs (fused_ce.cu kDhMaxCluster)
+DH_MAX_D = 4096
 
 _configured = set()
 
@@ -191,6 +198,9 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     _check_cuda(h, w, y, lse, gamma, p_coeff)
     n, d = h.shape
     v = w.shape[0]
+    if which == "dh" and d > DH_MAX_D:
+        raise ValueError(f"the dH kernel's cluster covers d <= {DH_MAX_D} "
+                         f"(16 CTAs of 256 columns), got d={d}")
     lib = _lib()
     filtered = skip_mask is not None
     skip_ptr = None

@@ -21,6 +21,15 @@ descending, ties to the lowest id; a column is live iff its local index is
 card a NaN logit counts as -inf, and every id lies in
 ``[col_offset, col_offset + V)``.
 
+A second kernel in the same source takes k = 1 over many rows (the MTP
+accuracy's 4096): there the products, not W's bytes, bound the work
+(1.28 TFLOP at 4096 rows, ~1.29 ms), so it tiles like a GEMM — 128 rows
+by 256 vocab columns a CTA, h and W streamed through a TMA ring into
+wgmma, the running (value, id) best of each row kept in registers — and
+a top-1 merge kernel.  `topk_scores` dispatches on ``plan.block_rows``:
+8 goes to the decode kernel (counter ``sample_topk``), 128 to the
+many-row one (counter ``sample_topk_rows``).
+
 `topk_scores_ref` is the plain PyTorch version: dense f32 logits, masked,
 then a STABLE descending sort (``torch.topk`` promises no order among
 ties).  `topk_scores` runs it for tensors on the CPU; for CUDA tensors it
@@ -34,11 +43,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.windows import BlockPlan
+from repro_torch.core.windows import TOPK_ROWS, TOPK_ROWS_COLS, BlockPlan
 from repro_torch.kernels import build
 
 MAX_K = 64                 # the kernel's per-lane taken mask is 64 bits
 LAUNCHES = build.counter("sample_topk")
+ROWS_LAUNCHES = build.counter("sample_topk_rows")
 
 _configured = set()
 
@@ -51,6 +61,11 @@ def _lib() -> ctypes.CDLL:
                                            i, i, i, ctypes.c_float, p]
         lib.sample_topk_launch.restype = i
         lib.sample_topk_max_candidates.restype = i
+        lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                i, i, i, ctypes.c_float, p]
+        lib.sample_topk_rows_launch.restype = i
+        lib.sample_topk_rows_splits.argtypes = [i, i]
+        lib.sample_topk_rows_splits.restype = i
         lib.sample_topk_error_string.argtypes = [i]
         lib.sample_topk_error_string.restype = ctypes.c_char_p
         _configured.add(id(lib))
@@ -99,7 +114,7 @@ def topk_scores_ref(
     return vals, ids
 
 
-def _check_cuda_args(h, w, k, plan: BlockPlan):
+def _check_cuda_args(h, w, k):
     if not (h.is_cuda and w.is_cuda and h.device == w.device):
         raise ValueError(f"h ({h.device}) and w ({w.device}) must lie on "
                          "one CUDA device")
@@ -122,10 +137,25 @@ def _check_cuda_args(h, w, k, plan: BlockPlan):
     if not 1 <= k <= min(MAX_K, v):
         raise ValueError(f"the kernel supports 1 <= k <= min({MAX_K}, V={v})"
                          f", got k={k}")
+
+
+def check_plan(plan: BlockPlan, k: int) -> None:
+    """Raise ValueError unless a kernel takes `plan` at this k: an 8-row
+    decode plan, or the 128 x 256 many-row plan at k = 1.  Checked on
+    every device, so an explicit plan fails the same way on the CPU."""
     bv = plan.block_v
-    if plan.block_rows != 8 or bv % 128 or not 128 <= bv <= 2048:
-        raise ValueError(f"unsupported plan {plan}: the kernel takes 8 rows "
-                         "and 128..2048 columns (a multiple of 128) a block")
+    if plan.block_rows == TOPK_ROWS:
+        if bv != TOPK_ROWS_COLS:
+            raise ValueError(f"unsupported plan {plan}: the many-row kernel "
+                             f"takes {TOPK_ROWS_COLS} columns a CTA")
+        if k != 1:
+            raise ValueError(f"the many-row plan {plan} takes k = 1 only, "
+                             f"got k={k}; larger k needs the 8-row plan")
+    elif plan.block_rows != 8 or bv % 128 or not 128 <= bv <= 2048:
+        raise ValueError(f"unsupported plan {plan}: the decode kernel takes "
+                         "8 rows and 128..2048 columns (a multiple of 128) a "
+                         f"block, the many-row kernel {TOPK_ROWS} x "
+                         f"{TOPK_ROWS_COLS} at k = 1")
 
 
 def topk_scores(
@@ -140,11 +170,15 @@ def topk_scores(
 ):
     """Per-row top-k of ``h @ w.T``: (values (B, k) f32, ids (B, k) i32).
 
-    CPU tensors go to `topk_scores_ref`.  CUDA tensors go to the kernel,
+    CPU tensors go to `topk_scores_ref`.  CUDA tensors go to a kernel,
     which takes bf16 h (B, d) and w (V, d) with ``d % 64 == 0``,
     ``1 <= k <= 64`` and the tiling `plan` (`ops.cuda_topk` resolves
-    one); `w_scale`, `allowed_mask` and `return_lse` are not on the
-    serving path yet and raise NotImplementedError there."""
+    one): an 8-row plan launches the decode kernel, the 128-row plan the
+    many-row kernel, which takes k = 1 only.  `w_scale`, `allowed_mask`
+    and `return_lse` are not on the serving path yet and raise
+    NotImplementedError there."""
+    if plan is not None:
+        check_plan(plan, k)
     if h.device.type == "cpu":
         return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
                                logit_softcap=logit_softcap,
@@ -165,9 +199,11 @@ def topk_scores(
     valid = v if valid_vocab is None else valid_vocab
     if plan is None:
         raise ValueError("the kernel needs a BlockPlan (see ops.cuda_topk)")
-    _check_cuda_args(h, w, k, plan)
-    n_split = -(-v // plan.block_v)
+    _check_cuda_args(h, w, k)
     lib = _lib()
+    if plan.block_rows == TOPK_ROWS:
+        return _rows_top1(lib, h, w, valid, col_offset, logit_softcap)
+    n_split = -(-v // plan.block_v)
     if n_split * k > lib.sample_topk_max_candidates():
         raise ValueError(f"{n_split} vocab slices x k={k} exceed the merge "
                          f"kernel's {lib.sample_topk_max_candidates()} "
@@ -189,4 +225,28 @@ def topk_scores(
         raise RuntimeError("sample_topk launch failed: "
                            + lib.sample_topk_error_string(err).decode())
     LAUNCHES.inc()
+    return vals, ids
+
+
+def _rows_top1(lib, h, w, valid, col_offset, logit_softcap):
+    """The many-row top-1 kernel: (values (B, 1) f32, ids (B, 1) i32)."""
+    n, d = h.shape
+    v = w.shape[0]
+    n_split = lib.sample_topk_rows_splits(n, v)
+    dev = h.device
+    pvals = torch.empty((n, n_split), dtype=torch.float32, device=dev)
+    pids = torch.empty((n, n_split), dtype=torch.int32, device=dev)
+    vals = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sample_topk_rows_launch(
+            h.data_ptr(), w.data_ptr(), pvals.data_ptr(), pids.data_ptr(),
+            vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
+            int(col_offset), int(logit_softcap is not None),
+            float(logit_softcap or 0.0), stream)
+    if err:
+        raise RuntimeError("sample_topk (many rows) launch failed: "
+                           + lib.sample_topk_error_string(err).decode())
+    ROWS_LAUNCHES.inc()
     return vals, ids

@@ -27,7 +27,10 @@
 //     order; blockIdx.x walks the 32-row blocks of h, so the row blocks of
 //     one slice run side by side and share its W bytes in L2;
 //   * each warp computes 16-column tiles of logits against every row of the
-//     block (up to 4 groups of 8 rows of h, staged in shared memory) with
+//     block (up to 4 groups of 8 rows of h, staged in shared memory: as
+//     many groups as the rows need and shared memory holds, so 4 at d 1024
+//     and 3 at d 4096, where 32 rows of h alone would take 262,656 bytes)
+//     with
 //     mma.sync m16n8k16, bf16 in, f32 accumulate: one W fragment feeds all
 //     row groups.  The reduction axis is permuted so that every lane loads
 //     32 contiguous bytes of a W row per 64-wide k chunk, and h is read from
@@ -54,7 +57,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kGroupRows = 8;        // h rows of one mma n tile
 constexpr int kMaxGroups = 4;
-constexpr int kRows = kGroupRows * kMaxGroups;  // h rows a block
+constexpr int kRows = kGroupRows * kMaxGroups;  // most h rows a block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxCand = 64;         // candidates a row
@@ -87,7 +90,8 @@ __device__ __forceinline__ void merge_state(float& m, float& a, float om,
   m = mn;
 }
 
-// grid (ceil(rows / 32), n_split), kThreads threads, dynamic shared memory
+// grid (ceil(rows / (8 GROUPS)), n_split), kThreads threads, dynamic shared
+// memory
 // smem_bytes(GROUPS, d, n_cand).  Writes each row's (m, a) over its slice to
 // part[(row * n_split + split) * 2 ...] and the logits of the candidates
 // the slice owns to zc.
@@ -108,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
   float* red_a = red_m + kWarps * kRows;
   int* own = reinterpret_cast<int*>(red_a + kWarps * kRows);
 
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * kStaged;
   const int split = blockIdx.y;
   const int s0 = split * block_v;
   const int s_end = min(s0 + block_v, v_orig);
@@ -303,7 +307,8 @@ cudaError_t launch_partial(const bf16* h, const bf16* w, const int* ids,
       score_partial_kernel<GROUPS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((rows + kRows - 1) / kRows, n_split);
+  constexpr int kStaged = GROUPS * kGroupRows;
+  dim3 grid((rows + kStaged - 1) / kStaged, n_split);
   score_partial_kernel<GROUPS><<<grid, kThreads, smem, s>>>(
       h, w, ids, part, zc, rows, d, v_orig, valid, col_offset, n_cand,
       block_v, n_split, has_cap, cap, inv_temp);
@@ -318,14 +323,21 @@ int score_tokens_max_cand() { return kMaxCand; }
 
 int score_tokens_max_smem() { return kMaxSmem; }
 
-// Row groups of 8 that a launch over `rows` rows stages per block.
-int score_tokens_groups(int rows) {
-  const int groups = (rows + kGroupRows - 1) / kGroupRows;
-  return groups < kMaxGroups ? groups : kMaxGroups;
+// Row groups of 8 that a launch over `rows` rows stages per block: as many
+// as the rows need, at most 4, and no more than fit in shared memory beside
+// the candidate list; 0 when not even one group fits.
+int score_tokens_groups(int rows, int d, int n_cand) {
+  int groups = (rows + kGroupRows - 1) / kGroupRows;
+  groups = groups < kMaxGroups ? groups : kMaxGroups;
+  while (groups > 0 && smem_bytes(groups, d, n_cand) > (size_t)kMaxSmem)
+    --groups;
+  return groups;
 }
 
+// Shared memory a block of that launch takes (one group's when none fits).
 long long score_tokens_smem_bytes(int rows, int d, int n_cand) {
-  return (long long)smem_bytes(score_tokens_groups(rows), d, n_cand);
+  const int groups = score_tokens_groups(rows, d, n_cand);
+  return (long long)smem_bytes(groups > 0 ? groups : 1, d, n_cand);
 }
 
 // Launches both kernels on `stream`; returns the cudaError_t of the
@@ -348,7 +360,7 @@ int score_tokens_launch(const void* h, const void* w, const void* ids,
   float* pp = static_cast<float*>(part);
   float* zp = static_cast<float*>(zc);
   cudaError_t err;
-  switch (score_tokens_groups(rows)) {
+  switch (score_tokens_groups(rows, d, n_cand)) {
     case 1:
       err = launch_partial<1>(hp, wp, ip, pp, zp, rows, d, v_orig, valid,
                               col_offset, n_cand, block_v, n_split, has_cap,

@@ -38,6 +38,29 @@ from repro_torch.kernels.score_tokens.ref import (inv_temperature,
 
 LAUNCHES = build.counter("score_tokens")
 BLOCK_V = 256            # vocab columns a block: 594 blocks at V = 152064
+GROUP_ROWS = 8           # h rows of one mma n tile (score_tokens.cu)
+MAX_GROUPS = 4           # row groups a block stages, at most
+WARPS = 8                # warps a block
+MAX_SMEM = 232_448       # H100: dynamic shared memory a block can use
+
+
+def smem_bytes(groups: int, d: int, n_cand: int) -> int:
+    """Shared memory of a block staging `groups` row groups (a mirror of
+    the source's ``smem_bytes``): the rows of h (padded by 16 bytes), the
+    per-warp (m, a) of up to 32 rows, and the candidates the slice owns."""
+    rows = groups * GROUP_ROWS
+    return (rows * (d + 8) * 2 + 2 * WARPS * GROUP_ROWS * MAX_GROUPS * 4
+            + rows * n_cand * 2 * 4)
+
+
+def row_groups(n_rows: int, d: int, n_cand: int) -> int:
+    """Row groups a launch stages per block (a mirror of the source's
+    ``score_tokens_groups``): as many as the rows need, at most 4, and no
+    more than fit in shared memory; 0 when not even one group fits."""
+    groups = min(-(-n_rows // GROUP_ROWS), MAX_GROUPS)
+    while groups > 0 and smem_bytes(groups, d, n_cand) > MAX_SMEM:
+        groups -= 1
+    return groups
 
 _configured = set()
 
@@ -51,6 +74,8 @@ def _lib() -> ctypes.CDLL:
         lib.score_tokens_launch.restype = i
         lib.score_tokens_smem_bytes.argtypes = [i, i, i]
         lib.score_tokens_smem_bytes.restype = ctypes.c_longlong
+        lib.score_tokens_groups.argtypes = [i, i, i]
+        lib.score_tokens_groups.restype = i
         lib.score_tokens_max_smem.restype = i
         lib.score_tokens_max_cand.restype = i
         lib.score_tokens_error_string.argtypes = [i]
@@ -100,10 +125,11 @@ def score_stats(
     h: (N, d); w: (V, d); ids: (N,) or (N, P) global ids.  CPU tensors go
     to `score_stats_ref`.  CUDA tensors go to the kernel, which takes bf16
     h and w, int32 ids, all contiguous on one device, ``d % 64 == 0``,
-    ``1 <= P <= 64`` and a d small enough that 32 rows of h fit in shared
-    memory beside the candidate list (d <= 3328 at P = 64); it raises
-    ValueError on anything else.  `w_scale` (quantized heads) comes with
-    ROADMAP A6."""
+    ``1 <= P <= 64`` and a d small enough that one 8-row group of h fits
+    in shared memory beside the candidate list; a block stages as many
+    8-row groups (at most 4) as fit (`row_groups`: 4 at d 1024, 3 at d
+    4096).  It raises ValueError on anything else.  `w_scale` (quantized
+    heads) comes with ROADMAP A6."""
     if w_scale is not None and h.device.type != "cpu":
         raise NotImplementedError("score_tokens on CUDA has no w_scale "
                                   "(quantized lm_head) yet: ROADMAP A6")
@@ -126,7 +152,7 @@ def score_stats(
                          f"got P={n_cand}")
     smem = lib.score_tokens_smem_bytes(n, d, n_cand)
     if smem > lib.score_tokens_max_smem():
-        raise ValueError(f"{smem} bytes of shared memory a block (32 rows "
+        raise ValueError(f"{smem} bytes of shared memory a block (8 rows "
                          f"of d={d} and {n_cand} candidates a row) exceed "
                          f"the card's {lib.score_tokens_max_smem()}")
     n_split = -(-v // BLOCK_V)

@@ -87,6 +87,86 @@ def test_kernel_refuses_what_it_does_not_support(cuda):
     assert LAUNCHES.count == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,v,cap,ties,off", [
+    (128, 20_000, None, False, 0),       # one row tile
+    (129, 20_000, None, False, 0),       # ragged rows: a second, 1-row tile
+    (4095, 20_001, None, False, 0),      # ragged rows and vocab
+    (300, 19_999, None, True, 0),        # ties: halves sum exactly
+    (256, 20_000, 30.0, False, 4096),    # softcap 30 and a shard offset
+])
+def test_topk_rows_path_matches_plain_version(cuda, rows, v, cap, ties, off):
+    """The many-row top-1 kernel (the default plan for k = 1 from 128 rows
+    on) against the plain version: values rtol 1e-5 / atol 1e-4; ids
+    exact on ties (lowest id) and wherever the best two values are more
+    than 1e-4 apart; ids inside the shard."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
+                                                 cuda_topk, topk_scores_ref)
+    gen = torch.Generator(device=cuda).manual_seed(rows + v)
+    d = 256
+    valid = off + v - 100
+    h = torch.randn((rows, d), generator=gen, device=cuda)
+    w = torch.randn((v, d), generator=gen, device=cuda) * 0.3
+    if ties:
+        h, w = torch.round(h * 2) / 2, torch.round(w * 2) / 2
+    h, w = h.bfloat16(), w.bfloat16()
+    kw = dict(valid_vocab=valid, logit_softcap=cap, col_offset=off)
+    before = (LAUNCHES.count, ROWS_LAUNCHES.count)
+    vals, ids = cuda_topk(h, w, 1, **kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES.count, ROWS_LAUNCHES.count) == (before[0],
+                                                     before[1] + 1)
+    rv, ri = topk_scores_ref(h, w, 2, **kw)
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (vals, ids, rv, ri))
+    np.testing.assert_allclose(vals[:, 0], rv[:, 0], rtol=1e-5, atol=1e-4)
+    sep = np.ones(rows, bool) if ties else rv[:, 0] - rv[:, 1] > 1e-4
+    assert sep.mean() > 0.5
+    np.testing.assert_array_equal(ids[sep, 0], ri[sep, 0])
+    assert np.all((ids >= off) & (ids < min(valid, off + v)))
+
+
+@pytest.mark.cuda
+def test_topk_rows_path_masks_and_agrees_with_the_decode_kernel(cuda):
+    """A row whose every column is masked gets -inf at the lowest id, as
+    the plain version's stable sort gives; an explicit 8-row plan at the
+    same shape reaches the decode kernel and agrees on every id."""
+    from repro_torch.core.windows import BlockPlan, tile_bytes
+    from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
+                                                 cuda_topk, topk_scores_ref)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = torch.round(torch.randn((200, 128), generator=gen, device=cuda)
+                    * 2).bfloat16() / 2
+    w = torch.round(torch.randn((5000, 128), generator=gen, device=cuda)
+                    * 2).bfloat16() / 2
+    vals, ids = cuda_topk(h, w, 1, valid_vocab=7, col_offset=7)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(vals).all()) and bool((ids == 7).all())
+    before = (LAUNCHES.count, ROWS_LAUNCHES.count)
+    rows_out = cuda_topk(h, w, 1, valid_vocab=4000)
+    dec_out = cuda_topk(h, w, 1, valid_vocab=4000,
+                        plan=BlockPlan(8, 512, tile_bytes(8, 512, 128)))
+    torch.cuda.synchronize()
+    assert (LAUNCHES.count, ROWS_LAUNCHES.count) == (before[0] + 1,
+                                                     before[1] + 1)
+    rv, ri = topk_scores_ref(h, w, 1, valid_vocab=4000)
+    for got in (rows_out, dec_out):
+        assert torch.equal(got[1], ri)
+        torch.testing.assert_close(got[0], rv, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_topk_rows_plan_refuses_k_above_one(cuda):
+    from repro_torch.core.windows import topk_rows_plan
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sample_topk import cuda_topk
+    h = torch.zeros((256, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((1024, 128), dtype=torch.bfloat16, device=cuda)
+    before = {k: c.count for k, c in build.COUNTERS.items()}
+    with pytest.raises(ValueError, match="k = 1"):
+        cuda_topk(h, w, 2, plan=topk_rows_plan())
+    assert {k: c.count for k, c in build.COUNTERS.items()} == before
+
+
 # ---------------------------------------------------------------------------
 # fused_ce
 # ---------------------------------------------------------------------------
@@ -375,6 +455,69 @@ def test_fused_ce_wrong_mask_shape_raises_before_any_launch(cuda):
     assert {k: c.count for k, c in build.COUNTERS.items()} == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,v,d,valid,off,cfg_kw", [
+    ("main", 2048, 152064, 1024, 151936, 0, {}),
+    ("softcap30", 2048, 152064, 1024, 151936, 0, {"logit_softcap": 30.0}),
+    ("smooth_z", 2048, 152064, 1024, 151936, 0,
+     {"label_smoothing": 0.1, "z_loss": 1e-4}),
+    ("ragged1000_offset", 1000, 152064, 1024, 156032, 4096, {}),
+    ("d4096", 512, 32768, 4096, 32768, 0, {}),
+])
+def test_dh_cluster_kernel_matches_plain_version(cuda, name, n, v, d, valid,
+                                                 off, cfg_kw):
+    """The cluster dH kernel at the phase-2 configurations of
+    chip_smoke.py (fewer rows): rtol 3e-4 / atol 1e-6 and a relative
+    Frobenius error of 1e-4 against `ref_dh`; two calls bit for bit."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import dh_grads, ref_dh, ref_stats
+    h, w, y = _ce_problem(cuda, n, v, d, seed=n + d, ignore_frac=0.1)
+    y = torch.where(y >= 0, y % (valid - off), y).to(torch.int32)
+    cfg = LossConfig(**cfg_kw)
+    kw = dict(col_offset=off, total_valid=valid)
+    lse = ref_stats(h, w, y, cfg, **kw)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    pc = gamma * (1.0 + 2.0 * cfg.z_loss * lse)
+    got = dh_grads(h, w, y, lse, gamma, pc, cfg, **kw)
+    again = dh_grads(h, w, y, lse, gamma, pc, cfg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ref_dh(h, w, y, lse, gamma, pc, cfg, **kw)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 4096])
+def test_dh_filtered_allfalse_is_the_exact_kernel_and_repeats(cuda, d):
+    """Under an all-False mask the filtered dH walks every tile in the
+    exact order: bit for bit the exact kernel, and two calls agree."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import dh_grads, ref_stats
+    h, w, y = _ce_problem(cuda, 300, 3000, d, seed=d)
+    cfg = LossConfig(logit_softcap=30.0)
+    lse = ref_stats(h, w, y, cfg)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / 300).to(cuda)
+    none = torch.zeros((5, 47), dtype=torch.bool, device=cuda)
+    got = dh_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    again = dh_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    want = dh_grads(h, w, y, lse, gamma, gamma, cfg)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_dh_refuses_d_past_the_cluster(cuda):
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import dh_grads
+    h, w, y = _ce_problem(cuda, 8, 256, 4160, seed=0)
+    lse = torch.zeros((8,), device=cuda)
+    before = {k: c.count for k, c in build.COUNTERS.items()}
+    with pytest.raises(ValueError, match="cluster"):
+        dh_grads(h, w, y, lse, lse, lse, LossConfig())
+    assert {k: c.count for k, c in build.COUNTERS.items()} == before
+
+
 # ---------------------------------------------------------------------------
 # paged_attn
 # ---------------------------------------------------------------------------
@@ -551,9 +694,37 @@ def test_score_tokens_refuses_what_it_does_not_support(cuda):
     with pytest.raises(ValueError, match="int32"):
         score_stats(h, w, ids.long())
     with pytest.raises(ValueError, match="shared memory"):
-        score_stats(torch.zeros((32, 8192), dtype=torch.bfloat16,
+        # not even one 8-row group of d 16384 fits (d 8192 now stages one)
+        score_stats(torch.zeros((32, 16384), dtype=torch.bfloat16,
                                 device=cuda),
-                    torch.zeros((64, 8192), dtype=torch.bfloat16,
+                    torch.zeros((64, 16384), dtype=torch.bfloat16,
                                 device=cuda),
                     torch.zeros((32, 2), dtype=torch.int32, device=cuda))
     assert LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(32, 1), (100, 64)])
+def test_score_tokens_at_d4096(cuda, n, p):
+    """paper-lm's width: 32 rows of h no longer fit a block, so the kernel
+    stages 3 groups of 8 (the source's choice equals the Python mirror)
+    and strides its row blocks by 24; held to the plain version, twice
+    bit for bit."""
+    from repro_torch.kernels.score_tokens import (score_stats,
+                                                  score_stats_ref)
+    from repro_torch.kernels.score_tokens.kernel import _lib, row_groups
+    v, d = 32768, 4096
+    assert _lib().score_tokens_groups(n, d, p) == row_groups(n, d, p) == 3
+    gen = torch.Generator(device=cuda).manual_seed(n + p)
+    h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    ids = torch.randint(0, v, (n, p), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    lse, zc = score_stats(h, w, ids, temperature=0.7)
+    lse2, zc2 = score_stats(h, w, ids, temperature=0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, temperature=0.7)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)

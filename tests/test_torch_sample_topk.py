@@ -133,3 +133,69 @@ def test_choose_blocks_refuses_rows_too_wide_for_a_block():
     from repro_torch.core.windows import choose_blocks
     with pytest.raises(ValueError, match="shared memory"):
         choose_blocks(8, 152064, 16384)
+
+
+@pytest.mark.parametrize("rows,k,want_rows", [
+    (1, 1, 8), (8, 1, 8), (127, 1, 8),          # decode sizes
+    (128, 1, 128), (129, 1, 128), (4096, 1, 128),  # the many-row path
+    (4096, 2, 8), (4096, 40, 8), (128, 64, 8)])   # any k > 1: decode
+def test_cuda_topk_plan_choice(rows, k, want_rows):
+    """Without a plan, `cuda_topk` takes the many-row top-1 plan only for
+    k = 1 from TOPK_ROWS_MIN rows on; every other call keeps the decode
+    plan of `choose_blocks`."""
+    from repro_torch.core.windows import (TOPK_ROWS_MIN, choose_blocks,
+                                          topk_rows_plan)
+    from repro_torch.kernels.sample_topk import default_plan
+    assert TOPK_ROWS_MIN == 128
+    plan = default_plan(rows, 152064, 1024, k)
+    assert plan.block_rows == want_rows
+    if want_rows == 128:
+        assert plan == topk_rows_plan()
+    else:
+        assert plan == choose_blocks(rows, 152064, 1024)
+
+
+def test_topk_rows_plan_fits_hopper_shared_memory():
+    """128 rows x 256 columns, a 4-stage ring of 64-wide bf16 k chunks of
+    h and W, its barriers and 1024 bytes of alignment."""
+    from repro_torch.core.windows import SMEM_BYTES, topk_rows_plan
+    plan = topk_rows_plan()
+    assert plan.shape == (128, 256)
+    assert plan.vmem_bytes == 1024 + 4 * (128 + 256) * 64 * 2 + 8 * 8
+    assert plan.vmem_bytes <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("plan,k,ok", [
+    ((128, 256), 1, True), ((128, 256), 2, False), ((128, 256), 40, False),
+    ((128, 128), 1, False), ((8, 512), 40, True), ((8, 512), 1, True),
+    ((16, 512), 1, False), ((8, 96), 1, False), ((8, 4096), 1, False)])
+def test_wrapper_plan_checks(plan, k, ok):
+    """An explicit plan is checked on every device: the decode kernel
+    takes 8 rows and 128..2048 columns (a multiple of 128), the many-row
+    kernel 128 x 256 and k = 1 only."""
+    from repro_torch.core.windows import BlockPlan
+    from repro_torch.kernels.sample_topk import check_plan
+    bp = BlockPlan(*plan, 0)
+    if ok:
+        check_plan(bp, k)
+    else:
+        with pytest.raises(ValueError):
+            check_plan(bp, k)
+
+
+def test_many_row_plan_on_cpu_tensors():
+    """On CPU tensors the many-row plan takes the plain version (no
+    launch), and k > 1 under it raises ValueError naming the limit."""
+    from repro_torch.core.windows import topk_rows_plan
+    from repro_torch.kernels.sample_topk import ROWS_LAUNCHES
+    h, w = _problem(130, 16, 300, True, seed=9)
+    th, tw = torch.from_numpy(h), torch.from_numpy(w)
+    before = (LAUNCHES.count, ROWS_LAUNCHES.count)
+    got = cuda_topk(th, tw, 1, valid_vocab=290)
+    want = topk_scores_ref(th, tw, 1, valid_vocab=290)
+    _check(got[0], got[1], want[0], want[1])
+    got = cuda_topk(th, tw, 1, valid_vocab=290, plan=topk_rows_plan())
+    _check(got[0], got[1], want[0], want[1])
+    assert (LAUNCHES.count, ROWS_LAUNCHES.count) == before
+    with pytest.raises(ValueError, match="k = 1"):
+        cuda_topk(th, tw, 2, plan=topk_rows_plan())

@@ -166,3 +166,29 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     torch.testing.assert_close(a, b)
     with pytest.raises(ValueError):
         K.score_stats(_t(h), _t(w), _t(ids[:2]))
+
+
+@pytest.mark.parametrize("p", [1, 4, 16, 64])
+def test_row_groups_fit_shared_memory(p):
+    """The Python mirror of the kernel's row-group choice: 4 groups of 8
+    rows at d 1024 (unchanged), 3 at d 4096 for any P up to 64 (32 rows
+    of h alone would take 262,656 bytes), as many as the rows need below
+    that, and a block that fits the card's 232,448 bytes in every case;
+    0 only where not even one group fits."""
+    from repro_torch.kernels.score_tokens.kernel import (MAX_SMEM,
+                                                         row_groups,
+                                                         smem_bytes)
+    for rows in (25, 32, 100, 4096):
+        assert row_groups(rows, 1024, p) == 4
+        assert row_groups(rows, 4096, p) == 3
+    assert [row_groups(r, 4096, p) for r in (1, 8, 9, 16, 17, 24)] == [
+        1, 1, 2, 2, 3, 3]
+    for d in (64, 1024, 2048, 4096, 8192):
+        for rows in (1, 8, 24, 32, 100):
+            g = row_groups(rows, d, p)
+            assert 1 <= g <= 4
+            assert smem_bytes(g, d, p) <= MAX_SMEM
+            if g < min(4, -(-rows // 8)):
+                assert smem_bytes(g + 1, d, p) > MAX_SMEM
+    assert 32 * (4096 + 8) * 2 == 262_656 > MAX_SMEM
+    assert row_groups(32, 16384, p) == 0
