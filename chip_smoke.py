@@ -21,10 +21,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (8192 rows against the same head) — plain, softcap 30, label
      smoothing 0.1 with z-loss 1e-4, 10% ignored rows — and at 1000
      rows with a shard offset and at d = 4096 (512 rows, V 32768), each
-     held to its plain version (f32 logits, TF32 off) and timed beside
+     held to its plain version (f32 logits, TF32 off), dH and dW run
+     twice for bit identity, and timed beside
      its bound, the plain version and the canonical two-stage loss in
      PyTorch (``h @ w.T`` in cuBLAS, ``F.cross_entropy`` on f32 logits),
-     with the peak memory of both losses' forward + backward; then the
+     with the peak memory of both losses' forward + backward, and the
+     backward kernels' `cudaOccupancyMaxActiveClusters` at clusters of 4
+     (d 1024) and 16 (d 4096); then the
      gradient filter at the training shape: (i) the forward's tile
      statistic (10% ignored rows, and a 1000-row `col_offset` shard) with
      lse, z* and sum z bit for bit the call without it and tmax held to
@@ -226,6 +229,28 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log):
+    """(kernel, line) for every register and spill line of an nvcc
+    `-Xptxas -v` log, the kernel's name demangled where c++filt exists."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            out.append([name, line.strip()])
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(n for n, _ in out),
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [n for n, _ in out]
+    for pair, full in zip(out, names):
+        pair[0] = (full.split("(anonymous namespace)::")[-1].split("(")[0]
+                   if "(" in full else full)
+    return [tuple(p) for p in out]
+
+
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -421,9 +446,20 @@ def peak_mib(torch, fn):
 def phase_fused_ce(torch, np, arch, dev):
     from repro_torch.core import LossConfig
     from repro_torch.core.streaming import row_scale
-    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+    from repro_torch.kernels.fused_ce import (bwd_max_clusters, dh_grads,
+                                              dw_grads, fwd_stats,
                                               kernel_loss, ref_dh, ref_dw,
                                               ref_grads, ref_stats)
+
+    # how many clusters of each backward kernel the card runs at once, at
+    # d 1024 (C 4) and d 4096 (C 16): one CTA an SM
+    occ = {(k, c): bwd_max_clusters(k, c) for k in ("dh", "dw")
+           for c in (4, 16)}
+    print("[kernel] fused_ce backward: cudaOccupancyMaxActiveClusters "
+          + ", ".join(f"{k} C {c}: {m} ({m * c} CTAs)"
+                      for (k, c), m in occ.items())
+          + f" of {torch.cuda.get_device_properties(0).multi_processor_count}"
+          " SMs", flush=True)
 
     d0, v0, valid0 = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     n0 = 8 * 1024
@@ -465,6 +501,11 @@ def phase_fused_ce(torch, np, arch, dev):
         p_coeff = gamma * (1.0 + 2.0 * cfg.z_loss * lse)
         gargs = (h, w, y, lse, gamma, p_coeff, cfg)
         dh, dw = dh_grads(*gargs, **kw), dw_grads(*gargs, **kw)
+        # no atomics: a second call gives the same bits
+        if not (torch.equal(dh, dh_grads(*gargs, **kw))
+                and torch.equal(dw, dw_grads(*gargs, **kw))):
+            raise AssertionError(f"fused_ce {name}: two backward calls "
+                                 "differ")
         torch.cuda.synchronize()
         rdh, rdw = ref_grads(*gargs, **kw)
         fro, err = {}, {}
@@ -484,7 +525,8 @@ def phase_fused_ce(torch, np, arch, dev):
         print(f"[kernel] fused_ce {name} (n {n}, V {v}, d {d}, valid "
               f"{valid}, offset {off}): max_abs_err fwd {err_f:.3g}, dH "
               f"{err_dh:.3g} (rel fro {fro['dh']:.3g}), dW {err_dw:.3g} "
-              f"(rel fro {fro['dw']:.3g})", flush=True)
+              f"(rel fro {fro['dw']:.3g}); dH and dW two calls "
+              "bit-identical", flush=True)
         row = {}
         for kind, fn, plain in (
                 ("fwd", lambda: fwd_stats(h, w, y, cfg, **kw),
@@ -550,9 +592,10 @@ def phase_fused_ce(torch, np, arch, dev):
 def filtered_bound_ms(kind, n, v, d, live):
     """Least time on an H100 for a filtered dH or dW: `live` (the share of
     unskipped tiles) of the exact kernel's products, against the bytes of
-    the exact kernel plus the (n/64, v/64) mask."""
+    the exact kernel plus the (n/64, v/64) mask; with no live tile only
+    the mask and the (zero) output."""
     flops = live * 2 * 2 * n * v * d
-    nbytes = (n * d * 2 + v * d * 2 + 4 * n * 4
+    nbytes = ((n * d * 2 + v * d * 2 + 4 * n * 4 if live else 0)
               + (n if kind == "dh" else v) * d * 4
               + -(-n // 64) * -(-v // 64))
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
@@ -1939,9 +1982,8 @@ def main():
     print(f"[build] {len(build.SOURCES)} kernel(s) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for fn, line in ptxas_lines(log):
+            print(f"[build] {name}: {fn}: {line}")
 
     arch = get_arch("qwen3-0.6b")
     dev = torch.device("cuda")

@@ -25,27 +25,31 @@
 // Bound (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s): at qwen3-0.6b's training
 // shape (8192 rows, W 152064 x 1024 bf16) each pass is a 2.55 TFLOP
 // product (the forward one; dH and dW two each, recompute and
-// contraction), while its bytes are ~0.33 GB: every kernel here is bound
-// by operations, so the design keeps all of them on the tensor cores
-// and keeps every logit tile in registers and shared memory.  The forward
-// and dW run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with cp.async;
-// dH runs on wgmma with TMA (below).
+// contraction), while its bytes are ~0.33 GB (dW's f32 output 0.62 GB):
+// every kernel here is bound by operations, so the design keeps all of
+// them on the tensor cores and keeps every logit tile in registers and
+// shared memory.  The forward runs on mma.sync m16n8k16 (bf16 in, f32
+// accumulate) with cp.async; dH and dW on wgmma with TMA (below).
 //
-// dH (fce_dh).  A block per 256-wide d range, as dW has, would recompute
-// the whole logit tile in every range: at d 1024, 4 x 2.55 TFLOP of
-// recompute beside 2 x 2.55 of contraction (g as bf16 hi + lo).  Instead
-// the C CTAs of a thread-block cluster (C = 4 at d 1024) share one 64-row
-// block: each keeps h[rows, its 256-wide d range] in
-// shared memory, and per 64-column vocab tile TMA brings W[tile, d range],
-// which feeds both the CTA's partial logits over its range and its share
-// of the contraction.  The partials are reduce-scattered through the
-// bulk-copy engine: each CTA sums 64 / C rows of the tile in CTA order
-// (the same z, bit for bit, whichever CTA forms it), forms g of them once,
-// and sends that slice of g to the others, so the logits are recomputed
-// once (7.65 TFLOP at d 1024) and g is formed once.  d 4096 takes a
+// Backward (fce_grad<kDW, C, kFiltered>): dH and dW are one contraction
+// with the roles of h and W swapped.  A CTA per 256-wide d range that
+// recomputed the whole logit tile in its range would spend 4 x 2.55 TFLOP
+// on recompute beside 2 x 2.55 of contraction (g as bf16 hi + lo) at d
+// 1024, 16 x at d 4096.  Instead the C = ceil(d / 256) CTAs of a
+// thread-block cluster (C = 4 at d 1024) share one 64-row block of the
+// stationary operand (h for dH, W for dW): each keeps its rows' 256-wide
+// d range in shared memory, and per 64-row tile of the streamed operand
+// (W, h) TMA brings that tile's d range, which feeds both the CTA's
+// partial logits over its range and its share of the contraction.  The
+// partials are reduce-scattered through the bulk-copy engine: each CTA
+// sums 64 / C rows of the tile in CTA order (the same z, bit for bit,
+// whichever CTA forms it), forms g of them once, and sends that slice of
+// g to the others, so the logits are recomputed once (7.65 TFLOP at d
+// 1024 with the contraction) and g is formed once.  d 4096 takes a
 // non-portable cluster of 16: the 8 x 512 alternative would need a 64 x
 // 256 running sum and as large an accumulator per warpgroup, more than the
-// 168 registers a thread at 384 threads.  See fce_dh for the pipeline.
+// 168 registers a thread at 384 threads.  d > 4096 is refused.  See
+// fce_grad for the pipeline.
 //
 // Design, and what it does about the TPU kernel's assumptions:
 //   * the TPU kernel carries (m, a, z*, sum z) across a SEQUENTIAL vocab
@@ -60,11 +64,9 @@
 //     the tensor cores: |g - hi - lo| <= 2^-17 |g|, well inside the
 //     reference's rtol 3e-4 (a single bf16 g would cost 2^-9 a term);
 //   * the Pallas kernels hold a full-d (bm, d) / (bv, d) f32 accumulator
-//     in VMEM.  Here a dW block owns 64 rows of W and a 256-wide range of
-//     d, with the sums in registers (16 warps x 16 columns); a second grid
-//     axis covers d in 256-wide ranges, each recomputing the logit tile,
-//     so any d that is a multiple of 64 works (d = 1024: four ranges, d =
-//     4096: 16).  dH spreads the same ranges over a cluster instead;
+//     in VMEM.  Here the cluster spreads d over its CTAs, 256 columns
+//     each, and each contraction warpgroup keeps a 64 x 128 running sum in
+//     registers;
 //   * each 64-row tile of the streamed operand is contracted into a fresh
 //     tensor-core accumulator and added to an f32 running sum on the CUDA
 //     cores: the tensor cores truncate addends far below the accumulator,
@@ -72,30 +74,27 @@
 //     cost dH a relative error of 2.9e-4 at V = 152k (H100 80GB HBM3,
 //     700 W, chip_smoke.py);
 //   * dW is the reference's deterministic two-pass layout: a dH pass over
-//     row blocks streaming the vocab, and a dW pass over (vocab blocks x d
-//     ranges) streaming the rows.  No atomics: the sums run in a fixed
-//     order and repeat bit for bit.
+//     row blocks streaming the vocab, and a dW pass over vocab blocks
+//     streaming the rows.  No atomics: the sums run in a fixed order and
+//     repeat bit for bit.
 //   * the gradient filter shares one 64 x 64 tile grid between the
-//     statistic, the mask and both backward grids: a dH block owns 64
-//     rows of h and streams W in 64-row tiles (mask row rt), a dW block
+//     statistic, the mask and both backward grids: a dH cluster owns 64
+//     rows of h and streams W in 64-row tiles (mask row rt), a dW cluster
 //     owns 64 rows of W and streams h in 64-row tiles (mask column ct).
 //     A forward tile (128 x 128, warps 2 x 4 of 64 x 32) holds four grid
 //     tiles whole, each the max of two warps: reduced in registers and
 //     the warp, combined through shared memory, written once, with no
-//     cross-block merge.  A filtered backward block first compacts its
-//     mask row or column into an ascending list of live tiles in shared
+//     cross-block merge.  A filtered backward CTA first compacts its mask
+//     row or column into an ascending list of live tiles in shared
 //     memory (warp ballots), then walks only that list: a skipped tile
 //     costs neither its bytes nor its recompute, and an all-False mask
 //     walks 0..n-1 in the exact kernel's order, bit for bit.  Live
-//     tiles are uneven across blocks (target tiles pin some): no load
+//     tiles are uneven across clusters (target tiles pin some): no load
 //     balancing yet.
-// Operands stream through a 3-stage cp.async ring of k chunks (32 wide in
-// the forward; 128 wide in the backward, whose 64 x 64 recompute tile does
-// too little between two barriers at 32: dH took 155 ms at 32 and 107 ms
-// at 128 on an H100 80GB HBM3, 700 W, in chip_smoke.py)
-// and are read into fragments with ldmatrix (rows padded by 16 bytes
-// against bank conflicts).  Rows past the ends load as zeros.
-
+// The forward streams its operands through a 3-stage cp.async ring of
+// 32-wide k chunks and reads them into fragments with ldmatrix (rows
+// padded by 16 bytes against bank conflicts).  Rows past the ends load as
+// zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,9 +106,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kStages = 3;           // cp.async ring depth
+constexpr int kStages = 3;           // cp.async ring depth (forward)
 constexpr int kFwdBK = 32;           // k chunk (bf16) of a forward stage
-constexpr int kBwdBK = 128;          // k chunk (bf16) of a backward stage
 
 // padded smem row of a BK-wide k chunk: +16 bytes against bank conflicts
 __host__ __device__ constexpr int ld_of(int bk) { return bk + 8; }
@@ -118,14 +116,9 @@ constexpr int kFwdRows = 128;        // forward tile: rows of h
 constexpr int kFwdCols = 128;        //               vocab columns
 constexpr int kFwdThreads = 256;     // 8 warps, 2 (rows) x 4 (columns)
 
-constexpr int kBwdRows = 64;         // backward: stationary rows a block
-constexpr int kBwdCols = 64;         //           streamed rows a tile
-constexpr int kBwdWarps = 16;
-constexpr int kBwdThreads = kBwdWarps * 32;
-constexpr int kBwdWarpD = 16;          // d columns a warp accumulates
-constexpr int kBwdD = kBwdWarps * kBwdWarpD;  // d columns a block owns
-constexpr int kGLd = kBwdCols + 8;     // padded row of the g tile
-constexpr int kPLd = kBwdD + 8;        // padded row of the streamed panel
+// the backward's (and the filter's) tile grid
+constexpr int kBwdRows = 64;         // stationary rows a cluster
+constexpr int kBwdCols = 64;         // streamed rows a tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -151,13 +144,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
@@ -447,302 +433,74 @@ __global__ void fce_fwd_merge(const float* __restrict__ part,
   zsum[row] = zs;
 }
 
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-// dW (v_orig, d) f32: S = W (the stationary operand, v_orig rows), T = h
-// (streamed, n rows).  grid (ceil(v_orig / 64), ceil(d / 256)), kBwdThreads
-// threads.  For each 64-row tile of h: z = S_blk T_tile^T (recompute over all
-// of d), g from z into shared memory as bf16 hi/lo, then acc += g^T
-// T_tile[:, d range].  kFiltered: only the h tiles whose skip entry is 0
-// (skip is the (ceil(n/64), ceil(v_orig/64)) mask, read down column
-// blockIdx.x), in ascending order; the exact kernel walks them all.
-template <bool kFiltered>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    fce_dw(const bf16* __restrict__ h, const bf16* __restrict__ w,
-           const int* __restrict__ y, const float* __restrict__ lse,
-           const float* __restrict__ gamma, const float* __restrict__ pc,
-           const uint8_t* __restrict__ skip, float* __restrict__ out, int n,
-           int d, int v_orig, int valid, int col_offset, int has_cap,
-           float cap, float eps) {
-  constexpr int WM = 4, WN = 4;  // recompute layout: 16 x 16 a warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sS = reinterpret_cast<bf16*>(smem);
-  bf16* sT = sS + kStages * kBwdRows * ld_of(kBwdBK);
-  bf16* gHi = sT + kStages * kBwdCols * ld_of(kBwdBK);
-  bf16* gLo = gHi + kBwdRows * kGLd;
-  bf16* panel = gLo + kBwdRows * kGLd;
-  int* sY = reinterpret_cast<int*>(panel + kBwdCols * kPLd);
-  float* sL = reinterpret_cast<float*>(sY + 64);
-  float* sG = sL + 64;
-  float* sP = sG + 64;
-  int* sCnt = reinterpret_cast<int*>(sP + 64);  // filtered: warp counts
-  int* sList = sCnt + kBwdWarps;                // filtered: live tiles
-
-  const bf16* S = w;
-  const bf16* T = h;
-  const int s_rows = v_orig;
-  const int t_rows = n;
-  const int s0 = blockIdx.x * kBwdRows;
-  const int c0 = blockIdx.y * kBwdD;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int col_w = c0 + warp * kBwdWarpD;  // this warp's output columns
-  const bool warp_live = col_w < d;         // d % 16 == 0: warp-uniform
-  const float one_m_eps = 1.f - eps;
-  const float eps_valid = eps / (float)valid;
-
-  // row statistics of the 64 h rows a tile covers
-  auto load_stats = [&](int r0) {
-    if (tid < 64) {
-      const int r = r0 + tid;
-      const bool ok = r < n;
-      sY[tid] = ok ? y[r] : -1;
-      sL[tid] = ok ? lse[r] : 0.f;
-      sG[tid] = ok ? gamma[r] : 0.f;
-      sP[tid] = ok ? pc[r] : 0.f;
-    }
-  };
-
-  // run: the f32 sum over the tiles so far (CUDA-core adds, rounded to
-  // nearest); acc: one tile's sum on the tensor cores, started from zero
-  float run[4][2][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) run[mt][nt][i] = 0.f;
-
-  const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
-  int n_live = n_tiles;
-  if (kFiltered) {
-    // compact this block's mask column into sList, in ascending order: one
-    // ballot a warp, warp offsets from sCnt
-    const int num_v = (v_orig + kBwdCols - 1) / kBwdCols;
-    n_live = 0;
-    for (int base = 0; base < n_tiles; base += kBwdThreads) {
-      const int i = base + tid;
-      const bool live =
-          i < n_tiles && !skip[(size_t)i * num_v + blockIdx.x];
-      const unsigned bal = __ballot_sync(0xffffffffu, live);
-      if (lane == 0) sCnt[warp] = __popc(bal);
-      __syncthreads();
-      int off = n_live, tot = 0;
-      for (int k = 0; k < kBwdWarps; ++k) {
-        const int c = sCnt[k];
-        off += k < warp ? c : 0;
-        tot += c;
-      }
-      if (live) sList[off + __popc(bal & ((1u << lane) - 1u))] = i;
-      n_live += tot;
-      __syncthreads();  // sCnt is rewritten next round; sList is complete
-    }
-  }
-  for (int li = 0; li < n_live; ++li) {
-    const int tile = kFiltered ? sList[li] : li;
-    const int t0 = tile * kBwdCols;
-    __syncthreads();  // the last contraction is done with panel, g, stats
-    load_stats(t0);
-    // the panel T[t0 .. t0+64, c0 .. c0+256) for the contraction
-    for (int i = tid; i < kBwdCols * (kBwdD / 8); i += kBwdThreads) {
-      const int r = i / (kBwdD / 8);
-      const int seg = i % (kBwdD / 8);
-      const int col = c0 + seg * 8;
-      const bool ok = t0 + r < t_rows && col < d;
-      const bf16* src = T + (size_t)(ok ? t0 + r : 0) * d + (ok ? col : 0);
-      cp_async16(panel + r * kPLd + seg * 8, src, ok);
-    }
-    cp_async_commit();
-
-    float z[1][2][4];
-    tile_dot<kBwdRows, kBwdCols, kBwdBK, WM, WN, kBwdThreads>(
-        z, S, s0, s_rows, T, t0, t_rows, d, sS, sT);
-
-    // g into shared memory as [S row][T row], hi and lo halves
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int sl = wm * 16 + g + 8 * hh;
-        const int tl = wn * 16 + nt * 8 + 2 * t;
-        float gv[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ri = tl + j;         // index into the stats
-          const int row = t0 + tl + j;
-          const int local = s0 + sl;
-          const bool live = row < n && local < v_orig &&
-                            local + col_offset < valid;
-          float zc = z[0][nt][2 * hh + j];
-          if (has_cap) zc = cap * tanhf(zc / cap);
-          const float p = live ? expf(zc - sL[ri]) : 0.f;
-          const float onehot = (local + col_offset == sY[ri]) ? 1.f : 0.f;
-          float gg = sP[ri] * p - sG[ri] * (one_m_eps * onehot + eps_valid);
-          if (has_cap) {
-            const float r = zc / cap;
-            gg *= 1.f - r * r;
-          }
-          gv[j] = live ? gg : 0.f;
-        }
-        const bf16 h0 = __float2bfloat16_rn(gv[0]);
-        const bf16 h1 = __float2bfloat16_rn(gv[1]);
-        const bf16 l0 = __float2bfloat16_rn(gv[0] - __bfloat162float(h0));
-        const bf16 l1 = __float2bfloat16_rn(gv[1] - __bfloat162float(h1));
-        *reinterpret_cast<__nv_bfloat162*>(gHi + sl * kGLd + tl) =
-            __halves2bfloat162(h0, h1);
-        *reinterpret_cast<__nv_bfloat162*>(gLo + sl * kGLd + tl) =
-            __halves2bfloat162(l0, l1);
-      }
-    __syncthreads();
-
-    // acc (64 x this warp's 16 columns) = g (64 x 64) . panel (64 x 16),
-    // then run += acc.  The tensor cores align their addends to the
-    // largest and truncate, so summing the whole vocab in one accumulator
-    // that holds the target term (-gamma W[y], ~2^17 times a softmax term
-    // at V = 152k) would cut every later softmax term toward zero: a
-    // relative error of a few 1e-4 in dH.  A tile at a time keeps the
-    // accumulator near the size of its addends.
-    if (warp_live) {
-      float acc[4][2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBwdCols; kk += 16) {
-        uint32_t b[4];
-        const int kr = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldsm_x4_t(b, panel + kr * kPLd + warp * kBwdWarpD + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          uint32_t ah[4], al[4];
-          const int row = mt * 16 + (lane & 15);
-          const int col = kk + (lane >> 4) * 8;
-          ldsm_x4(ah, gHi + row * kGLd + col);
-          ldsm_x4(al, gLo + row * kGLd + col);
-          mma16816(acc[mt][0], ah, b[0], b[1]);
-          mma16816(acc[mt][0], al, b[0], b[1]);
-          mma16816(acc[mt][1], ah, b[2], b[3]);
-          mma16816(acc[mt][1], al, b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) run[mt][nt][i] += acc[mt][nt][i];
-    }
-  }
-
-  if (!warp_live) return;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = s0 + mt * 16 + g + 8 * hh;
-      if (row >= s_rows) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = col_w + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out + (size_t)row * d + col) =
-            make_float2(run[mt][nt][2 * hh], run[mt][nt][2 * hh + 1]);
-      }
-    }
-}
-
 constexpr size_t kFwdSmem =
     (size_t)kStages * (kFwdRows + kFwdCols) * ld_of(kFwdBK) * sizeof(bf16);
-constexpr size_t kBwdSmem =
-    (size_t)kStages * (kBwdRows + kBwdCols) * ld_of(kBwdBK) * sizeof(bf16) +
-    (size_t)2 * kBwdRows * kGLd * sizeof(bf16) +
-    (size_t)kBwdCols * kPLd * sizeof(bf16) + 4 * 64 * sizeof(float);
 static_assert(kFwdSmem >= (size_t)4 * kFwdRows * 4 * sizeof(float),
               "the forward reduction reuses the ring");
 constexpr size_t kSmemMax = 232448;   // H100: dynamic smem a block can use
-// a filtered dW block adds the warp counts and its live-tile list; more
-// than 1.19M rows of h are refused as an invalid argument before any launch
-constexpr int kMaxFilteredTiles =
-    (int)((kSmemMax - kBwdSmem) / sizeof(int)) - kBwdWarps;
-
-template <bool kFiltered>
-int launch_dw(const void* h, const void* w, const void* y, const void* lse,
-              const void* gamma, const void* pc, const void* skip, void* out,
-              int n, int d, int v_orig, int valid, int col_offset,
-              int has_cap, float cap, float eps, void* stream) {
-  const int n_tiles = (n + kBwdCols - 1) / kBwdCols;
-  if (kFiltered && n_tiles > kMaxFilteredTiles)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kBwdSmem + (kFiltered ? (size_t)(kBwdWarps + n_tiles) * sizeof(int)
-                            : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      fce_dw<kFiltered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((v_orig + kBwdRows - 1) / kBwdRows, (d + kBwdD - 1) / kBwdD);
-  fce_dw<kFiltered><<<grid, kBwdThreads, smem,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(y), static_cast<const float*>(lse),
-      static_cast<const float*>(gamma), static_cast<const float*>(pc),
-      static_cast<const uint8_t*>(skip), static_cast<float*>(out), n, d,
-      v_orig, valid, col_offset, has_cap, cap, eps);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
-// dH: a thread-block cluster along d, on wgmma
+// backward: dH and dW, a thread-block cluster along d, on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kDhRows = 64;              // rows of h a cluster (filter grid)
-constexpr int kDhCols = 64;              // vocab columns a tile (filter grid)
-constexpr int kDhRange = 256;            // d columns a CTA
-constexpr int kDhBox = 64;               // d columns a TMA box (128 bytes)
-constexpr int kDhBoxes = kDhRange / kDhBox;
-constexpr int kDhStages = 3;             // W slices in flight
-constexpr int kDhContract = 256;         // warpgroups 0-1: the contraction
-constexpr int kDhThreads = kDhContract + 128;  // + warpgroup 2: the rest
-constexpr int kDhWarps = kDhThreads / 32;
-constexpr int kPartLd = kDhCols + 4;     // padded f32 row of a partial
-constexpr uint32_t kDhSliceBytes = kDhCols * kDhRange * 2;  // 32 KB
-constexpr uint32_t kDhHBytes = kDhRows * kDhRange * 2;      // 32 KB
-constexpr uint32_t kDhGBytes = kDhRows * kDhCols * 2;       // 8 KB
+constexpr int kRange = 256;              // d columns a CTA
+constexpr int kBox = 64;                 // d columns a TMA box (128 bytes)
+constexpr int kBoxes = kRange / kBox;
+constexpr int kBwdStages = 3;            // streamed slices in flight
+constexpr int kContract = 256;           // warpgroups 0-1: the contraction
+constexpr int kBwdThreads = kContract + 128;  // + warpgroup 2: the logits
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kPartLd = kBwdCols + 4;    // padded f32 row of a partial
+constexpr uint32_t kSBytes = kBwdRows * kRange * 2;  // stationary, 32 KB
+constexpr uint32_t kTBytes = kBwdCols * kRange * 2;  // a streamed slice
+constexpr uint32_t kGBytes = kBwdRows * kBwdCols * 2;  // 8 KB
+// row statistics y, lse, gamma, pc of 64 rows: one slot a ring stage
+constexpr uint32_t kStatBytes = 4 * kBwdCols * 4;
 // shared memory, from a 1024-byte aligned base
-constexpr size_t kOffH = 0;
-constexpr size_t kOffW = kOffH + kDhHBytes;
-constexpr size_t kOffG = kOffW + (size_t)kDhStages * kDhSliceBytes;
+constexpr size_t kOffS = 0;
+constexpr size_t kOffT = kOffS + kSBytes;
+constexpr size_t kOffG = kOffT + (size_t)kBwdStages * kTBytes;
 // the CTA's partial logits (staging for its bulk copies), then two receive
 // buffers of C row slices; each is 64 padded rows of f32
-constexpr size_t kOffPart = kOffG + 4 * kDhGBytes;  // g hi, lo x 2 buffers
-constexpr size_t kPartBytes = kDhRows * kPartLd * 4;
+constexpr size_t kOffPart = kOffG + 4 * kGBytes;  // g hi, lo x 2 buffers
+constexpr size_t kPartBytes = kBwdRows * kPartLd * 4;
 constexpr size_t kOffStats = kOffPart + 3 * kPartBytes;
-constexpr size_t kOffBar = kOffStats + 4 * kDhRows * 4;
-constexpr int kDhBars = kDhStages + 1 + 2 + 2 + 2;
-constexpr size_t kOffCnt = kOffBar + kDhBars * 8;
-constexpr size_t kOffList = kOffCnt + kDhWarps * 4;
-constexpr size_t kDhSmem = 1024 + kOffList;  // + the filtered tile list
-constexpr int kDhMaxFilteredTiles =
-    (int)((kSmemMax - kDhSmem) / sizeof(uint16_t));
+constexpr size_t kOffBar = kOffStats + (size_t)kBwdStages * kStatBytes;
+constexpr int kBwdBars = kBwdStages + 1 + 2 + 2 + 2;
+constexpr size_t kOffCnt = kOffBar + kBwdBars * 8;
+constexpr size_t kOffList = kOffCnt + kBwdWarps * 4;
+constexpr size_t kBwdSmem = 1024 + kOffList;  // + the filtered tile list
+constexpr int kBwdMaxFilteredTiles =
+    (int)((kSmemMax - kBwdSmem) / sizeof(uint16_t));
 
-// dH (n, d) f32.  grid (C, ceil(n / 64)) in clusters of (C, 1, 1), C in
-// {1, 4, 16} covering ceil(d / 256) ranges of 256 columns (a range past d
-// reads zeros and writes nothing), kDhThreads threads, kDhSmem bytes (+ 2
-// a vocab tile when filtered).  CTA `rank` owns d columns [256 rank,
-// 256 rank + 256) of the cluster's 64 rows, and row slice [R rank, R rank
-// + R), R = 64 / C, of every tile's logits.  Per live vocab tile j:
+// 4-byte async copy; `pred` false fills zeros (src-size 0, no read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// dH (n, d) f32 when !kDW, dW (v_orig, d) f32 when kDW.  S is the
+// stationary operand (h for dH, W for dW), T the streamed one (W, h): the
+// logit tile is z[S row, T row] either way.  grid (C, ceil(S rows / 64))
+// in clusters of (C, 1, 1), C in {1, 4, 16} covering ceil(d / 256) ranges
+// of 256 columns (a range past d reads zeros and writes nothing),
+// kBwdThreads threads, kBwdSmem bytes (+ 2 a streamed tile when filtered).
+// CTA `rank` owns d columns [256 rank, 256 rank + 256) of the cluster's 64
+// S rows, and row slice [R rank, R rank + R), R = 64 / C, of every tile's
+// logits.  Per live T tile j:
 //   * warpgroup 2 (the logits warpgroup) issues the partial logits over
 //     the CTA's d range, 64 x 64 (wgmma m64n64k16, both operands K-major;
-//     h[rows, d range] stays in shared memory), stages them and
+//     S[rows, d range] stays in shared memory), stages them and
 //     bulk-copies each CTA's row slice into that CTA's receive buffer j % 2,
 //     completing its pfull[j % 2];
 //   * warpgroups 0-1 (the contraction warpgroups), once pfull[j % 2]
@@ -751,11 +509,16 @@ constexpr int kDhMaxFilteredTiles =
 //     and lo) in g[j % 2], 128-byte swizzled, and bulk-copy the slice into
 //     every other CTA's g[j % 2], completing their gfull[j % 2]; once
 //     gfull[j % 2] completes, each contracts a fresh 64 x 128 accumulator =
-//     g (hi, then lo) . W[tile, its 128 d columns] read MN-major (wgmma
+//     g (hi, then lo) . T[tile, its 128 d columns] read MN-major (wgmma
 //     m64n128k16, B transposed), adds it to its f32 running sum on the CUDA
-//     cores and arrives on every CTA's gfree[j % 2] (2 C a phase); thread 0
-//     then loads W[tile j + 3, d range] by TMA into the slice just freed.
+//     cores and arrives on every CTA's gfree[j % 2] (2 C a phase); then
+//     T[tile j + 3, d range] is loaded by TMA into the slice just freed.
 //     They form tile j + 1's g right after contracting tile j.
+// The row statistics belong to h's rows: dH loads its 64 stationary rows'
+// once; dW's come with each streamed slice, into the stage's slot, by 64
+// threads' 4-byte cp.async (zeros past n) whose arrivals the slice's
+// full[] barrier counts beside the TMA bytes, so they stay until the
+// slice is reloaded, after its contraction.
 // Flow control: a CTA sends tile j + 2's partial slices only once its own
 // gfull[j % 2] has completed, because every CTA sends its g of tile j only
 // after it has summed its receive buffer of tile j; it writes g of tile j + 2
@@ -770,41 +533,43 @@ constexpr int kDhMaxFilteredTiles =
 // Each CTA receives (C - 1) / C of a partial and sends as much of g a
 // tile, ~24 KB at any C, where an all-gather of the partials would move
 // 48 KB at C = 4 and 240 KB at C = 16.
-template <int kC, bool kFiltered>
-__global__ void __launch_bounds__(kDhThreads, 1)
-    fce_dh(const __grid_constant__ CUtensorMap hmap,
-           const __grid_constant__ CUtensorMap wmap,
-           const int* __restrict__ y, const float* __restrict__ lse,
-           const float* __restrict__ gamma, const float* __restrict__ pc,
-           const uint8_t* __restrict__ skip, float* __restrict__ out, int n,
-           int d, int v_orig, int valid, int col_offset, int has_cap,
-           float cap, float eps) {
+template <bool kDW, int kC, bool kFiltered>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    fce_grad(const __grid_constant__ CUtensorMap smap,
+             const __grid_constant__ CUtensorMap tmap,
+             const int* __restrict__ y, const float* __restrict__ lse,
+             const float* __restrict__ gamma, const float* __restrict__ pc,
+             const uint8_t* __restrict__ skip, float* __restrict__ out, int n,
+             int d, int v_orig, int valid, int col_offset, int has_cap,
+             float cap, float eps) {
   using namespace hopper;
-  constexpr int R = kDhRows / kC;        // rows of a tile this CTA owns
+  constexpr int R = kBwdRows / kC;       // rows of a tile this CTA owns
   constexpr uint32_t kGSlice = R * 128;  // bytes of a g slice (hi or lo)
-  extern __shared__ unsigned char dh_smem_raw[];
+  extern __shared__ unsigned char bwd_smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(dh_smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* hs = reinterpret_cast<bf16*>(sm + kOffH);
-  bf16* ws = reinterpret_cast<bf16*>(sm + kOffW);
+      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* ss = reinterpret_cast<bf16*>(sm + kOffS);
+  bf16* ts = reinterpret_cast<bf16*>(sm + kOffT);
   unsigned char* gt = sm + kOffG;  // g[b]: hi at 2 b, lo at 2 b + 1 tiles
   float* stage = reinterpret_cast<float*>(sm + kOffPart);
-  float* recv = stage + kDhRows * kPartLd;  // [2][C][R][kPartLd]
-  int* sY = reinterpret_cast<int*>(sm + kOffStats);
-  float* sL = reinterpret_cast<float*>(sY + kDhRows);
-  float* sG = sL + kDhRows;
-  float* sP = sG + kDhRows;
+  float* recv = stage + kBwdRows * kPartLd;  // [2][C][R][kPartLd]
+  // slot k: y[64], then lse, gamma, pc (f32); dH uses slot 0 only
+  auto stat_slot = [&](int k) {
+    return reinterpret_cast<int*>(sm + kOffStats + k * kStatBytes);
+  };
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
-  uint64_t* hbar = full + kDhStages;
-  uint64_t* pfull = hbar + 1;
+  uint64_t* sbar = full + kBwdStages;
+  uint64_t* pfull = sbar + 1;
   uint64_t* gfull = pfull + 2;
   uint64_t* gfree = gfull + 2;
   int* sCnt = reinterpret_cast<int*>(sm + kOffCnt);
   uint16_t* sList = reinterpret_cast<uint16_t*>(sm + kOffList);
 
+  const int s_rows = kDW ? v_orig : n;
+  const int t_rows = kDW ? n : v_orig;
   const int rank = blockIdx.x;          // the cluster spans gridDim.x
-  const int c0 = rank * kDhRange;
-  const int row0 = blockIdx.y * kDhRows;
+  const int c0 = rank * kRange;
+  const int s0 = blockIdx.y * kBwdRows;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -813,17 +578,21 @@ __global__ void __launch_bounds__(kDhThreads, 1)
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  if (tid < kDhRows) {
-    const int r = row0 + tid;
+  if (!kDW && tid < kBwdRows) {
+    int* sY = stat_slot(0);
+    float* sL = reinterpret_cast<float*>(sY + kBwdRows);
+    const int r = s0 + tid;
     const bool ok = r < n;
     sY[tid] = ok ? y[r] : -1;
     sL[tid] = ok ? lse[r] : 0.f;
-    sG[tid] = ok ? gamma[r] : 0.f;
-    sP[tid] = ok ? pc[r] : 0.f;
+    sL[kBwdRows + tid] = ok ? gamma[r] : 0.f;
+    sL[2 * kBwdRows + tid] = ok ? pc[r] : 0.f;
   }
   if (tid == 0) {
-    for (int s = 0; s < kDhStages; ++s) mbar_init(&full[s], 1);
-    mbar_init(hbar, 1);
+    // dW: + one cp.async arrival of each statistics thread
+    for (int s = 0; s < kBwdStages; ++s)
+      mbar_init(&full[s], kDW ? 1 + kBwdCols : 1);
+    mbar_init(sbar, 1);
     for (int b = 0; b < 2; ++b) {
       mbar_init(&pfull[b], 1);          // + the C partial slices' bytes
       mbar_init(&gfull[b], 1);          // + the peers' g bytes
@@ -831,22 +600,24 @@ __global__ void __launch_bounds__(kDhThreads, 1)
     }
     fence_mbar_init();
   }
-  const int n_tiles = (v_orig + kDhCols - 1) / kDhCols;
+  const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
   int n_live = n_tiles;
   if (kFiltered) {
-    // compact this row block's mask row into sList, in ascending order: one
-    // ballot a warp, warp offsets from sCnt.  Every CTA of the cluster
-    // reads the same row, so all walk the same list.
+    // compact this block's line of the (ceil(n/64), ceil(v/64)) mask into
+    // sList, in ascending order: dH reads row blockIdx.y, dW column
+    // blockIdx.y.  One ballot a warp, warp offsets from sCnt.  Every CTA
+    // of the cluster reads the same line, so all walk the same list.
     n_live = 0;
-    for (int base = 0; base < n_tiles; base += kDhThreads) {
+    for (int base = 0; base < n_tiles; base += kBwdThreads) {
       const int i = base + tid;
-      const bool live =
-          i < n_tiles && !skip[(size_t)blockIdx.y * n_tiles + i];
+      const size_t at = kDW ? (size_t)i * gridDim.y + blockIdx.y
+                            : (size_t)blockIdx.y * n_tiles + i;
+      const bool live = i < n_tiles && !skip[at];
       const unsigned bal = __ballot_sync(0xffffffffu, live);
       if (lane == 0) sCnt[warp] = __popc(bal);
       __syncthreads();
       int off = n_live, tot = 0;
-      for (int k = 0; k < kDhWarps; ++k) {
+      for (int k = 0; k < kBwdWarps; ++k) {
         const int c = sCnt[k];
         off += k < warp ? c : 0;
         tot += c;
@@ -859,45 +630,58 @@ __global__ void __launch_bounds__(kDhThreads, 1)
   __syncthreads();
   cluster_sync();  // every CTA's barriers exist before any remote arrival
 
-  // W[tile of the li-th live tile, d range] into slice li % 3
-  auto load_w = [&](int li) {
-    const int s = li % kDhStages;
+  // T[tile of the li-th live tile, d range] into slice li % 3 (thread 0);
+  // dW: the statistics of its 64 rows into slot li % 3 (threads 0-63)
+  auto load_t = [&](int li) {
+    const int s = li % kBwdStages;
     const int tile = kFiltered ? sList[li] : li;
-    mbar_arrive_tx(&full[s], kDhSliceBytes);
-    bf16* dst = ws + (size_t)s * kDhCols * kDhRange;
-    for (int j = 0; j < kDhBoxes; ++j)
-      tma_load_2d(dst + j * kDhCols * kDhBox, &wmap, &full[s],
-                  c0 + j * kDhBox, tile * kDhCols);
+    if (kDW && tid < kBwdCols) {
+      const int r = tile * kBwdCols + tid;
+      const bool ok = r < n;
+      const int rr = ok ? r : 0;
+      int* dst = stat_slot(s) + tid;
+      cp_async4(dst, y + rr, ok);
+      cp_async4(dst + kBwdCols, lse + rr, ok);
+      cp_async4(dst + 2 * kBwdCols, gamma + rr, ok);
+      cp_async4(dst + 3 * kBwdCols, pc + rr, ok);
+      cp_async_arrive(&full[s]);
+    }
+    if (tid == 0) {
+      mbar_arrive_tx(&full[s], kTBytes);
+      bf16* dst = ts + (size_t)s * kBwdCols * kRange;
+      for (int j = 0; j < kBoxes; ++j)
+        tma_load_2d(dst + j * kBwdCols * kBox, &tmap, &full[s],
+                    c0 + j * kBox, tile * kBwdCols);
+    }
   };
 
   constexpr uint32_t kPSlice = R * kPartLd * 4;   // bytes of a partial slice
 
-  if (tid < kDhContract) {
+  if (tid < kContract) {
     // ---- the contraction warpgroups --------------------------------------
     const int w = tid >> 7;             // 128 d columns each
     // X and G: the first kXT threads take E entries each of the CTA's row
     // slice (E >= 2: g is packed two bf16 to a word)
-    constexpr int kXT = R * kDhCols / 2 < kDhContract ? R * kDhCols / 2
-                                                      : kDhContract;
-    constexpr int E = R * kDhCols / kXT;
+    constexpr int kXT = R * kBwdCols / 2 < kContract ? R * kBwdCols / 2
+                                                     : kContract;
+    constexpr int E = R * kBwdCols / kXT;
     constexpr int VW = E < 4 ? E : 4;   // floats a read
-    const int xr = tid / (kDhCols / E);             // row in the slice
-    const int xc = (tid % (kDhCols / E)) * E;       // first column
+    const int xr = tid / (kBwdCols / E);            // row in the slice
+    const int xc = (tid % (kBwdCols / E)) * E;      // first column
     const int grow = R * rank + xr;                 // row in the tile
     const float one_m_eps = 1.f - eps;
     const float eps_valid = eps / (float)valid;
-    if (tid == 0) {
-      for (int li = 0; li < kDhStages && li < n_live; ++li) load_w(li);
+    for (int li = 0; li < kBwdStages && li < n_live; ++li) load_t(li);
+    if (tid == 0)
       for (int b = 0; b < 2; ++b) mbar_arrive_tx(&pfull[b], kC * kPSlice);
-    }
     // X then G: the li-th live tile's row slice summed over the C
     // partials in CTA order, then g of it, bf16 hi and lo, into g[li % 2]
     // and bulk-copied into every other CTA's (lane c to CTA rank + c)
     auto exchange = [&](int li) {
       const int b = li & 1;
       const int tile = kFiltered ? sList[li] : li;
-      unsigned char* ghi = gt + (2 * b) * kDhGBytes;
-      unsigned char* glo = ghi + kDhGBytes;
+      unsigned char* ghi = gt + (2 * b) * kGBytes;
+      unsigned char* glo = ghi + kGBytes;
       mbar_wait(&pfull[b], (li >> 1) & 1);
       float z[E];
       if (tid < kXT) {
@@ -922,20 +706,29 @@ __global__ void __launch_bounds__(kDhThreads, 1)
       }
       // the buffer is consumed: arm it for tile li + 2 (whose slices the
       // peers send only after this CTA's g of tile li reaches them)
-      bar_sync(2, kDhContract);
+      bar_sync(2, kContract);
       if (tid == 0 && li + 2 < n_live)
         mbar_arrive_tx(&pfull[b], kC * kPSlice);
       if (tid < kXT) {
-        const int row = row0 + grow;
-        const float lr = sL[grow], gr = sG[grow], pr = sP[grow];
-        const int yr = sY[grow];
+        // statistics of h's row: dH's stationary row, dW's streamed ones
+        // (their slot is complete once the slice's barrier is)
+        const int* sY = stat_slot(kDW ? li % kBwdStages : 0);
+        const float* sL = reinterpret_cast<const float*>(sY + kBwdRows);
+        if (kDW) mbar_wait(&full[li % kBwdStages], (li / kBwdStages) & 1);
+        const int srow = s0 + grow;
         uint32_t hi[E / 2], lo[E / 2];
 #pragma unroll
         for (int e = 0; e < E; e += 2) {
           float gv[2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int local = tile * kDhCols + xc + e + j;
+            const int trow = tile * kBwdCols + xc + e + j;
+            const int si = kDW ? xc + e + j : grow;   // h's row in the slot
+            const int row = kDW ? trow : srow;         // h's row
+            const int local = kDW ? srow : trow;       // W's row
+            const float lr = sL[si], gr = sL[kBwdRows + si];
+            const float pr = sL[2 * kBwdRows + si];
+            const int yr = sY[si];
             const bool live = row < n && local < v_orig &&
                               local + col_offset < valid;
             float zc = z[e + j];
@@ -984,7 +777,7 @@ __global__ void __launch_bounds__(kDhThreads, 1)
         }
         fence_proxy_async();
       }
-      bar_sync(2, kDhContract);
+      bar_sync(2, kContract);
       if (tid == 0) mbar_arrive_tx(&gfull[b], 2 * (kC - 1) * kGSlice);
       if (tid > 0 && tid < kC) {
         const uint32_t off = R * rank * 128;
@@ -1000,18 +793,18 @@ __global__ void __launch_bounds__(kDhThreads, 1)
     if (n_live > 0) exchange(0);
     for (int li = 0; li < n_live; ++li) {
       const int b = li & 1;
-      const int s = li % kDhStages;
-      const unsigned char* ghi = gt + (2 * b) * kDhGBytes;
-      const unsigned char* glo = ghi + kDhGBytes;
-      const bf16* wsl = ws + (size_t)s * kDhCols * kDhRange +
-                        2 * w * kDhCols * kDhBox;
+      const int s = li % kBwdStages;
+      const unsigned char* ghi = gt + (2 * b) * kGBytes;
+      const unsigned char* glo = ghi + kGBytes;
+      const bf16* tsl = ts + (size_t)s * kBwdCols * kRange +
+                        2 * w * kBwdCols * kBox;
       mbar_wait(&gfull[b], (li >> 1) & 1);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kv = 0; kv < kDhCols / 16; ++kv) {
-        const uint64_t db = desc_b128(wsl + kv * 16 * kDhBox,
-                                      kDhCols * kDhBox * 2, 1024);
+      for (int kv = 0; kv < kBwdCols / 16; ++kv) {
+        const uint64_t db = desc_b128(tsl + kv * 16 * kBox,
+                                      kBwdCols * kBox * 2, 1024);
         wgmma_m64n128k16_tb(acc, desc_b128(ghi + kv * 32, 16, 1024), db,
                             kv);
         wgmma_m64n128k16_tb(acc, desc_b128(glo + kv * 32, 16, 1024), db, 1);
@@ -1024,17 +817,17 @@ __global__ void __launch_bounds__(kDhThreads, 1)
       // g[b] is free here (the group has completed); on every CTA once all
       // have arrived
       if (wt < kC) mbar_arrive_cluster_relaxed(&gfree[b], wt);
-      bar_sync(2, kDhContract);         // both are done with slice s
-      if (tid == 0 && li + kDhStages < n_live) load_w(li + kDhStages);
+      bar_sync(2, kContract);           // both are done with slice s
+      if (li + kBwdStages < n_live) load_t(li + kBwdStages);
       if (li + 1 < n_live) exchange(li + 1);
     }
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int row = row0 + 16 * wl + g + 8 * i;
+        const int row = s0 + 16 * wl + g + 8 * i;
         const int col = c0 + w * 128 + 8 * j + 2 * t;
-        if (row < n && col < d)
+        if (row < s_rows && col < d)
           *reinterpret_cast<float2*>(out + (size_t)row * d + col) =
               make_float2(run[4 * j + 2 * i], run[4 * j + 2 * i + 1]);
       }
@@ -1045,30 +838,32 @@ __global__ void __launch_bounds__(kDhThreads, 1)
 
   // ---- the logits warpgroup -----------------------------------------------
   float accZ[32];
-  if (wt == 0) {
-    mbar_arrive_tx(hbar, kDhHBytes);
-    for (int j = 0; j < kDhBoxes; ++j)
-      tma_load_2d(hs + j * kDhRows * kDhBox, &hmap, hbar, c0 + j * kDhBox,
-                  row0);
+  if (n_live > 0) {  // a filtered CTA with no live tile reads no operand
+    if (wt == 0) {
+      mbar_arrive_tx(sbar, kSBytes);
+      for (int j = 0; j < kBoxes; ++j)
+        tma_load_2d(ss + j * kBwdRows * kBox, &smap, sbar, c0 + j * kBox,
+                    s0);
+    }
+    mbar_wait(sbar, 0);
   }
-  mbar_wait(hbar, 0);
   // L then P: the partial logits of the li-th live tile, staged, then each
   // CTA's row slice bulk-copied into its receive buffer li % 2 (completing
   // its pfull), once every CTA has consumed that buffer's tile li - 2: each
   // sent its g of tile li - 2 after, so this CTA's gfull of it says so.
   // Lane c serves CTA rank + c.
   for (int li = 0; li < n_live; ++li) {
-    const int s = li % kDhStages;
-    mbar_wait(&full[s], (li / kDhStages) & 1);
-    const bf16* wsl = ws + (size_t)s * kDhCols * kDhRange;
+    const int s = li % kBwdStages;
+    mbar_wait(&full[s], (li / kBwdStages) & 1);
+    const bf16* tsl = ts + (size_t)s * kBwdCols * kRange;
     fence_regs(accZ);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kDhRange / 16; ++ks) {
+    for (int ks = 0; ks < kRange / 16; ++ks) {
       const int box = ks >> 2, kin = (ks & 3) * 16;
       wgmma_m64n64k16(accZ,
-                      desc_b128(hs + box * kDhRows * kDhBox + kin, 16, 1024),
-                      desc_b128(wsl + box * kDhCols * kDhBox + kin, 16, 1024),
+                      desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
+                      desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
                       ks);
     }
     wgmma_commit();
@@ -1099,78 +894,104 @@ __global__ void __launch_bounds__(kDhThreads, 1)
   cluster_sync();
 }
 
-template <int kC, bool kFiltered>
-int launch_dh(const CUtensorMap& hmap, const CUtensorMap& wmap,
-              const void* y, const void* lse, const void* gamma,
-              const void* pc, const void* skip, void* out, int n, int d,
-              int v_orig, int valid, int col_offset, int has_cap, float cap,
-              float eps, size_t smem, cudaStream_t stream) {
-  const auto kern = fce_dh<kC, kFiltered>;
+// the launch configuration of fce_grad<kDW, kC, kFiltered>, with its
+// attributes set: grid (C, ceil(S rows / 64)) in clusters of C
+template <bool kDW, int kC, bool kFiltered>
+cudaError_t grad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                        int s_rows, size_t smem, cudaStream_t stream) {
+  const auto kern = fce_grad<kDW, kC, kFiltered>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   if (kC > 8) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kC, (n + kDhRows - 1) / kDhRows, 1);
-  cfg.blockDim = dim3(kDhThreads, 1, 1);
+  cfg = {};
+  cfg.gridDim = dim3(kC, (s_rows + kBwdRows - 1) / kBwdRows, 1);
+  cfg.blockDim = dim3(kBwdThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kC;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <bool kDW, int kC, bool kFiltered>
+int launch_grad(const CUtensorMap& smap, const CUtensorMap& tmap,
+                const void* y, const void* lse, const void* gamma,
+                const void* pc, const void* skip, void* out, int n, int d,
+                int v_orig, int valid, int col_offset, int has_cap,
+                float cap, float eps, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = grad_config<kDW, kC, kFiltered>(
+      cfg, attr, kDW ? v_orig : n, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  const auto kern = fce_grad<kDW, kC, kFiltered>;
   err = cudaLaunchKernelEx(
-      &cfg, kern, hmap, wmap, static_cast<const int*>(y),
-      static_cast<const float*>(lse), static_cast<const float*>(gamma),
-      static_cast<const float*>(pc), static_cast<const uint8_t*>(skip),
-      static_cast<float*>(out), n, d, v_orig, valid, col_offset, has_cap,
-      cap, eps);
+      &cfg, kern, smap, tmap,
+      static_cast<const int*>(y), static_cast<const float*>(lse),
+      static_cast<const float*>(gamma), static_cast<const float*>(pc),
+      static_cast<const uint8_t*>(skip), static_cast<float*>(out), n, d,
+      v_orig, valid, col_offset, has_cap, cap, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // the cluster size of d: 1, 4 or 16 ranges of 256 columns
-int dh_cluster(int d) { return d <= 256 ? 1 : (d <= 1024 ? 4 : 16); }
+int grad_cluster(int d) { return d <= 256 ? 1 : (d <= 1024 ? 4 : 16); }
 
-template <bool kFiltered>
-int launch_dh_any(const void* h, const void* w, const void* y,
-                  const void* lse, const void* gamma, const void* pc,
-                  const void* skip, void* out, int n, int d, int v_orig,
-                  int valid, int col_offset, int has_cap, float cap, float eps,
-                  void* stream) {
-  const int n_tiles = (v_orig + kDhCols - 1) / kDhCols;
-  if (d % kDhBox || d > 16 * kDhRange ||
-      (kFiltered && n_tiles > kDhMaxFilteredTiles))
+template <bool kDW, bool kFiltered>
+int launch_grad_any(const void* h, const void* w, const void* y,
+                    const void* lse, const void* gamma, const void* pc,
+                    const void* skip, void* out, int n, int d, int v_orig,
+                    int valid, int col_offset, int has_cap, float cap,
+                    float eps, void* stream) {
+  const int s_rows = kDW ? v_orig : n;
+  const int t_rows = kDW ? n : v_orig;
+  const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
+  if (d % kBox || d > 16 * kRange ||
+      (kFiltered && n_tiles > kBwdMaxFilteredTiles))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap hmap, wmap;
-  int e = hopper::make_tmap_bf16(&hmap, h, n, d, kDhRows);
+  CUtensorMap smap, tmap;
+  int e = hopper::make_tmap_bf16(&smap, kDW ? w : h, s_rows, d, kBwdRows);
   if (e) return e;
-  e = hopper::make_tmap_bf16(&wmap, w, v_orig, d, kDhCols);
+  e = hopper::make_tmap_bf16(&tmap, kDW ? h : w, t_rows, d, kBwdCols);
   if (e) return e;
   const size_t smem =
-      kDhSmem + (kFiltered ? (size_t)n_tiles * sizeof(uint16_t) : 0);
+      kBwdSmem + (kFiltered ? (size_t)n_tiles * sizeof(uint16_t) : 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (dh_cluster(d)) {
+  switch (grad_cluster(d)) {
     case 1:
-      return launch_dh<1, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
-                                     out, n, d, v_orig, valid, col_offset,
-                                     has_cap, cap, eps, smem, s);
+      return launch_grad<kDW, 1, kFiltered>(
+          smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
+          col_offset, has_cap, cap, eps, smem, s);
     case 4:
-      return launch_dh<4, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
-                                     out, n, d, v_orig, valid, col_offset,
-                                     has_cap, cap, eps, smem, s);
+      return launch_grad<kDW, 4, kFiltered>(
+          smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
+          col_offset, has_cap, cap, eps, smem, s);
     default:
-      return launch_dh<16, kFiltered>(hmap, wmap, y, lse, gamma, pc, skip,
-                                      out, n, d, v_orig, valid, col_offset,
-                                      has_cap, cap, eps, smem, s);
+      return launch_grad<kDW, 16, kFiltered>(
+          smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
+          col_offset, has_cap, cap, eps, smem, s);
   }
+}
+
+template <bool kDW, int kC>
+int max_clusters(int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = grad_config<kDW, kC, false>(cfg, attr, 1024 * kBwdRows,
+                                                kBwdSmem, 0);
+  if (err != cudaSuccess) return (int)err;
+  const auto kern = fce_grad<kDW, kC, false>;
+  return (int)cudaOccupancyMaxActiveClusters(count, kern, &cfg);
 }
 
 }  // namespace
@@ -1214,7 +1035,8 @@ int fused_ce_dh_launch(const void* h, const void* w, const void* y,
                        const void* skip, void* dh, int n, int d, int v_orig,
                        int valid, int col_offset, int has_cap, float cap,
                        float eps, void* stream) {
-  const auto launch = skip ? launch_dh_any<true> : launch_dh_any<false>;
+  const auto launch = skip ? launch_grad_any<false, true>
+                           : launch_grad_any<false, false>;
   return launch(h, w, y, lse, gamma, pc, skip, dh, n, d, v_orig, valid,
                 col_offset, has_cap, cap, eps, stream);
 }
@@ -1226,9 +1048,27 @@ int fused_ce_dw_launch(const void* h, const void* w, const void* y,
                        const void* skip, void* dw, int n, int d, int v_orig,
                        int valid, int col_offset, int has_cap, float cap,
                        float eps, void* stream) {
-  const auto launch = skip ? launch_dw<true> : launch_dw<false>;
+  const auto launch = skip ? launch_grad_any<true, true>
+                           : launch_grad_any<true, false>;
   return launch(h, w, y, lse, gamma, pc, skip, dw, n, d, v_orig, valid,
                 col_offset, has_cap, cap, eps, stream);
+}
+
+// *count = cudaOccupancyMaxActiveClusters of the exact backward kernel
+// (dW when dw, else dH) at cluster size c (1, 4 or 16).  Returns the
+// cudaError_t.
+int fused_ce_bwd_max_clusters(int dw, int c, int* count) {
+  switch (c) {
+    case 1:
+      return dw ? max_clusters<true, 1>(count) : max_clusters<false, 1>(count);
+    case 4:
+      return dw ? max_clusters<true, 4>(count) : max_clusters<false, 4>(count);
+    case 16:
+      return dw ? max_clusters<true, 16>(count)
+                : max_clusters<false, 16>(count);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* fused_ce_error_string(int err) {

@@ -15,13 +15,16 @@ backward does the live tiles' share of that work.  The source's header
 gives the design: vocab slices across blocks with a merge kernel for the
 forward (the TPU kernel's sequential vocab axis has no counterpart on
 the GPU), ``g`` kept to f32 precision as two bf16 halves on the tensor
-cores, 256-wide d ranges a dW block so any d works, dH on wgmma and TMA
-with one thread-block cluster of ``ceil(d / 256)`` CTAs a 64-row block
-(the CTAs sum their partial logits through distributed shared memory, so
-the logits are recomputed once, not once a d range; d <= 4096), the
-reference's deterministic two-pass dW (no atomics), and one 64 x 64 tile
-grid (`core.windows.ce_tile_grid`) for the tile statistic, the skip mask
-and both filtered kernels, which walk a compacted list of live tiles.
+cores, and dH and dW as one kernel template on wgmma and TMA: a
+thread-block cluster of ``ceil(d / 256)`` CTAs (1, 4 or 16; d <= 4096)
+shares 64 rows of the stationary operand (h for dH, W for dW) and
+streams the other in 64-row tiles; the CTAs reduce-scatter their partial
+logits by bulk copies between their shared memories, so the logits are
+recomputed once, not once a d range, and g is formed once.  The
+reference's deterministic two-pass layout (no atomics) is kept, and one
+64 x 64 tile grid (`core.windows.ce_tile_grid`) serves the tile
+statistic, the skip mask and both filtered kernels, which walk a
+compacted list of live tiles.
 
 Contract (the JAX kernels'): h (N, d), w (V, d), y (N,); a column is
 valid iff its local index is < V and ``local + col_offset < valid``;
@@ -29,7 +32,7 @@ forward -> (lse, z_target, z_sum), three (N,) f32, plus the (row tiles,
 vocab tiles) f32 tile statistic with ``return_tile_stats``; backward ->
 (dH, dW) in f32, filtered by ``tile_stats`` (with ``cfg.grad_filter_eps
 > 0``) or by an explicit ``skip_mask``.  On the card the kernels take
-bf16 h and w with ``d % 64 == 0`` (dH also ``d <= 4096``).
+bf16 h and w with ``d % 64 == 0`` (dH and dW also ``d <= 4096``).
 
 `ref_stats` / `ref_grads` (`ref.py`) are the plain versions.  The
 wrappers run them for tensors on the CPU; for CUDA tensors they launch
@@ -59,9 +62,9 @@ DW_LAUNCHES = build.counter("fused_ce_dw")
 DH_FILTERED_LAUNCHES = build.counter("fused_ce_dh_filtered")
 DW_FILTERED_LAUNCHES = build.counter("fused_ce_dw_filtered")
 
-# the dH kernel spreads d over a thread-block cluster, 256 columns a CTA,
-# at most 16 CTAs (fused_ce.cu kDhMaxCluster)
-DH_MAX_D = 4096
+# the backward kernels (dH and dW) spread d over a thread-block cluster,
+# 256 columns a CTA, at most 16 CTAs (fused_ce.cu grad_cluster)
+BWD_MAX_D = 4096
 
 _configured = set()
 
@@ -75,6 +78,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.fused_ce_dh_launch, lib.fused_ce_dw_launch):
             fn.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
             fn.restype = i
+        lib.fused_ce_bwd_max_clusters.argtypes = [i, i, p]
+        lib.fused_ce_bwd_max_clusters.restype = i
         lib.fused_ce_error_string.argtypes = [i]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
         _configured.add(id(lib))
@@ -198,9 +203,9 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     _check_cuda(h, w, y, lse, gamma, p_coeff)
     n, d = h.shape
     v = w.shape[0]
-    if which == "dh" and d > DH_MAX_D:
-        raise ValueError(f"the dH kernel's cluster covers d <= {DH_MAX_D} "
-                         f"(16 CTAs of 256 columns), got d={d}")
+    if d > BWD_MAX_D:
+        raise ValueError(f"the {which} kernel's cluster covers d <= "
+                         f"{BWD_MAX_D} (16 CTAs of 256 columns), got d={d}")
     lib = _lib()
     filtered = skip_mask is not None
     skip_ptr = None
@@ -229,6 +234,18 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     else:
         (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
     return out
+
+
+def bwd_max_clusters(which: str, cluster: int) -> int:
+    """`cudaOccupancyMaxActiveClusters` of the exact dH or dW kernel at
+    `cluster` CTAs a cluster (1, 4 or 16): how many clusters the card
+    runs at once."""
+    lib = _lib()
+    count = ctypes.c_int(0)
+    err = lib.fused_ce_bwd_max_clusters(int(which == "dw"), cluster,
+                                        ctypes.byref(count))
+    _raise_on(err, f"fused_ce {which} occupancy query", lib)
+    return count.value
 
 
 def _check_mask(skip_mask: torch.Tensor, n: int, v: int) -> None:
@@ -278,7 +295,7 @@ def bwd_grads(
     overrides the derived (row tiles, vocab tiles) bool mask.  With
     neither, this is the exact backward.  `plan` is accepted for the JAX
     signature; the backward tiles are fixed in the source (64 rows,
-    256-wide d ranges)."""
+    clusters of 256-wide d ranges)."""
     del plan
     if skip_mask is None and tile_stats is not None and cfg.filter_grads:
         skip_mask = filtering.tile_skip_mask(tile_stats, lse, y, cfg,

@@ -455,7 +455,11 @@ def test_fused_ce_wrong_mask_shape_raises_before_any_launch(cuda):
     assert {k: c.count for k, c in build.COUNTERS.items()} == before
 
 
+_GRADS = ("dh", "dw")
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", _GRADS)
 @pytest.mark.parametrize("name,n,v,d,valid,off,cfg_kw", [
     ("main", 2048, 152064, 1024, 151936, 0, {}),
     ("softcap30", 2048, 152064, 1024, 151936, 0, {"logit_softcap": 30.0}),
@@ -463,14 +467,19 @@ def test_fused_ce_wrong_mask_shape_raises_before_any_launch(cuda):
      {"label_smoothing": 0.1, "z_loss": 1e-4}),
     ("ragged1000_offset", 1000, 152064, 1024, 156032, 4096, {}),
     ("d4096", 512, 32768, 4096, 32768, 0, {}),
+    # internvl2-1b's width: a cluster of 4 whose last range is half past d
+    ("d896", 1000, 151936, 896, 151655, 0, {}),
 ])
-def test_dh_cluster_kernel_matches_plain_version(cuda, name, n, v, d, valid,
-                                                 off, cfg_kw):
-    """The cluster dH kernel at the phase-2 configurations of
-    chip_smoke.py (fewer rows): rtol 3e-4 / atol 1e-6 and a relative
-    Frobenius error of 1e-4 against `ref_dh`; two calls bit for bit."""
+def test_grad_cluster_kernel_matches_plain_version(cuda, which, name, n, v,
+                                                   d, valid, off, cfg_kw):
+    """The cluster dH / dW kernels at the phase-2 configurations of
+    chip_smoke.py (fewer rows) and at d 896: rtol 3e-4 / atol 1e-6 and a
+    relative Frobenius error of 1e-4 against `ref_dh` / `ref_dw`; two
+    calls bit for bit."""
     from repro_torch.core import LossConfig
-    from repro_torch.kernels.fused_ce import dh_grads, ref_dh, ref_stats
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, ref_dh,
+                                              ref_dw, ref_stats)
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
     h, w, y = _ce_problem(cuda, n, v, d, seed=n + d, ignore_frac=0.1)
     y = torch.where(y >= 0, y % (valid - off), y).to(torch.int32)
     cfg = LossConfig(**cfg_kw)
@@ -478,43 +487,48 @@ def test_dh_cluster_kernel_matches_plain_version(cuda, name, n, v, d, valid,
     lse = ref_stats(h, w, y, cfg, **kw)[0]
     gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
     pc = gamma * (1.0 + 2.0 * cfg.z_loss * lse)
-    got = dh_grads(h, w, y, lse, gamma, pc, cfg, **kw)
-    again = dh_grads(h, w, y, lse, gamma, pc, cfg, **kw)
+    got = grads(h, w, y, lse, gamma, pc, cfg, **kw)
+    again = grads(h, w, y, lse, gamma, pc, cfg, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    want = ref_dh(h, w, y, lse, gamma, pc, cfg, **kw)
+    want = ref(h, w, y, lse, gamma, pc, cfg, **kw)
     torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
     assert float((got - want).norm() / want.norm()) <= 1e-4
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", _GRADS)
 @pytest.mark.parametrize("d", [128, 4096])
-def test_dh_filtered_allfalse_is_the_exact_kernel_and_repeats(cuda, d):
-    """Under an all-False mask the filtered dH walks every tile in the
-    exact order: bit for bit the exact kernel, and two calls agree."""
+def test_grad_filtered_allfalse_is_the_exact_kernel_and_repeats(cuda, d,
+                                                                which):
+    """Under an all-False mask the filtered dH / dW walks every tile in
+    the exact order: bit for bit the exact kernel, and two calls agree."""
     from repro_torch.core import LossConfig
-    from repro_torch.kernels.fused_ce import dh_grads, ref_stats
+    from repro_torch.kernels.fused_ce import dh_grads, dw_grads, ref_stats
+    grads = dh_grads if which == "dh" else dw_grads
     h, w, y = _ce_problem(cuda, 300, 3000, d, seed=d)
     cfg = LossConfig(logit_softcap=30.0)
     lse = ref_stats(h, w, y, cfg)[0]
     gamma = torch.where(y == -100, 0.0, 1.0 / 300).to(cuda)
     none = torch.zeros((5, 47), dtype=torch.bool, device=cuda)
-    got = dh_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
-    again = dh_grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
-    want = dh_grads(h, w, y, lse, gamma, gamma, cfg)
+    got = grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    again = grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    want = grads(h, w, y, lse, gamma, gamma, cfg)
     assert torch.equal(got, want) and torch.equal(got, again)
 
 
 @pytest.mark.cuda
-def test_dh_refuses_d_past_the_cluster(cuda):
+@pytest.mark.parametrize("which", _GRADS)
+def test_grad_refuses_d_past_the_cluster(cuda, which):
     from repro_torch.core import LossConfig
     from repro_torch.kernels import build
-    from repro_torch.kernels.fused_ce import dh_grads
+    from repro_torch.kernels.fused_ce import dh_grads, dw_grads
+    grads = dh_grads if which == "dh" else dw_grads
     h, w, y = _ce_problem(cuda, 8, 256, 4160, seed=0)
     lse = torch.zeros((8,), device=cuda)
     before = {k: c.count for k, c in build.COUNTERS.items()}
     with pytest.raises(ValueError, match="cluster"):
-        dh_grads(h, w, y, lse, lse, lse, LossConfig())
+        grads(h, w, y, lse, lse, lse, LossConfig())
     assert {k: c.count for k, c in build.COUNTERS.items()} == before
 
 
