@@ -10,12 +10,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      sources (one nvcc per source, all at once, timed);
   2. kernels vs their plain versions at the main paths' shapes —
      `sample_topk` on qwen3-0.6b's padded lm_head (152064 x 1024 bf16,
-     valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case
-     and a softcap case (the decode kernel), and k = 1 at rows 128, 512
-     and 4096, a tie-heavy case (ids exact) and a softcap-30 +
-     `col_offset` shard at 4096 rows (the many-row kernel, each also
-     through an explicit 8-row plan on the decode kernel), each timed
-     with CUDA events beside its bound, its plain version and the
+     valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case,
+     a softcap case, the speculative verifier's 40 rows at k 40, and on
+     V 32768 at d 4096 (paper-lm's width, 8 rows k 40), d 12288 (8 rows
+     k 1) and d 16384 (40 rows k 40) (the decode kernel: two calls bit
+     for bit, the device time of its stream and merge kernels apart under
+     `torch.profiler`), and
+     k = 1 at rows 128, 512 and 4096, a tie-heavy case (ids exact) and a
+     softcap-30 + `col_offset` shard at 4096 rows (the many-row kernel,
+     each also through the decode kernel's plan given explicitly), each
+     timed with CUDA events beside its bound, its plain version and the
      `torch.topk(h @ w.T, k)` yardstick; then
      the fused-CE forward, dH and dW kernels at the training shape
      (8192 rows against the same head) — plain, softcap 30, label
@@ -135,12 +139,12 @@ gathered K/V; and `score_tokens` on the padded head at the spec shape
 (rows 32, P 1, T 0.7), the self-spec prefill's 4 head rows at T 0.7,
 the eval shape (rows 8), rows 32 with P 4,
 softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
-`col_offset` shard, and paper-lm's width (d 4096, V 32768: 32 rows P 1
-and 100 rows P 64, which stage 3 groups of 8 rows a block), each
-against its plain version, twice for bit
-identity, with -inf exactly where the JAX kernel puts it, and timed
-beside its bound, its plain version and ``torch.log_softmax`` of the
-logits gathered at the ids.
+`col_offset` shard, paper-lm's width (d 4096, V 32768: 32 rows P 1 and
+100 rows P 64), mistral-large's d 12288 (32 rows P 1) and d 16384 (40
+rows P 4), each against its plain version, twice for bit identity, with
+-inf exactly where the JAX kernel puts it, and timed beside its bound,
+its plain version and ``torch.log_softmax`` of the logits gathered at
+the ids, and the device time of its stream and merge kernels apart.
 
 The last lines are the `{"kernels": [...]}` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -313,39 +317,86 @@ def check_top1(np, vals, ids, rv2, ri2, exact_ids):
     return float(np.max(np.abs(vals[fin, 0] - rv[fin]))), int(sep.sum())
 
 
+def split_ms(torch, call, iters=20):
+    """(stream kernel ms, merge kernel ms) of a wrapper call that launches
+    a W-stream kernel and its merge: the device time of each launch under
+    `torch.profiler`, told apart by the kernels' names and averaged over
+    `iters` calls.  CUDA events around a merge alone would read the
+    host's launch rate: the merge runs a few microseconds.  Fails if the
+    profiler saw neither launch."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    part = merge = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "merge" in e.name:
+            merge += e.time_range.elapsed_us()
+        elif "stream_kernel" in e.name:
+            part += e.time_range.elapsed_us()
+        else:
+            raise AssertionError(f"the call launched {e.name}, neither its "
+                                 "stream kernel nor its merge")
+    if part == 0.0 or merge == 0.0:
+        raise AssertionError("the profiler saw no stream or merge launch")
+    return part / iters / 1e3, merge / iters / 1e3
+
+
 def phase_topk(torch, np, arch, dev):
-    from repro_torch.core.windows import choose_blocks
+    from repro_torch.core.windows import topk_decode_plan, topk_stream_plan
     from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
                                                  cuda_topk, topk_scores_ref)
 
-    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     gen = torch.Generator(device=dev).manual_seed(1234)
+    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     w = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
     w[valid:] = 0.0                                # the padded head rows
     w = w.bfloat16()
     w_ties = (torch.round(torch.randn((v, d), generator=gen, device=dev)
                           * 2) / 2).bfloat16()
+    # paper-lm's width (d 4096), and d 12288 and 16384: a CTA's shared
+    # memory does not grow with d
+    wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
+                 / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
     cases = []
     for rows in (1, 8):
         for k in (1, 40):
-            cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0))
-    cases.append(("rows8_k40_ties", 8, 40, None, True, 0))
-    cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False, 0))
+            cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0, None))
+    cases.append(("rows8_k40_ties", 8, 40, None, True, 0, None))
+    cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False, 0, None))
+    # the speculative verifier's 8 x (4 + 1) rows at the sampler's k 40
+    cases.append(("rows40_k40", 40, 40, None, False, 0, None))
+    cases.append(("d4096_rows8_k40", 8, 40, None, False, 0, 4096))
+    cases.append(("d12288_rows8_k1", 8, 1, None, False, 0, 12288))
+    cases.append(("d16384_rows40_k40", 40, 40, None, False, 0, 16384))
     # the many-row top-1 path (the MTP accuracy's 4096 rows), each also
-    # through the decode kernel's 8-row plan
+    # through the decode kernel's plan
     for rows in (128, 512, 4096):
-        cases.append((f"rows{rows}_k1", rows, 1, None, False, 0))
-    cases.append(("rows4096_k1_ties", 4096, 1, None, True, 0))
+        cases.append((f"rows{rows}_k1", rows, 1, None, False, 0, None))
+    cases.append(("rows4096_k1_ties", 4096, 1, None, True, 0, None))
     cases.append(("rows4096_k1_softcap30_offset", 4096, 1, 30.0, False,
-                  4096))
+                  4096, None))
     results = {}
-    for name, rows, k, cap, ties, off in cases:
-        h = torch.randn((rows, d), generator=gen, device=dev)
+    for name, rows, k, cap, ties, off, dw in cases:
+        if dw:
+            wt = wide[dw]
+            v_c, valid_c = wt.shape[0], wt.shape[0]
+        else:
+            wt = w_ties if ties else w
+            v_c, valid_c = v, valid
+        d_c = wt.shape[1]
+        h = torch.randn((rows, d_c), generator=gen, device=dev)
         if ties:
             h = torch.round(h * 2) / 2
         h = h.bfloat16()
-        wt = w_ties if ties else w
-        kw = dict(valid_vocab=valid + off, logit_softcap=cap,
+        kw = dict(valid_vocab=valid_c + off, logit_softcap=cap,
                   col_offset=off)
         many = k == 1 and rows >= 128
         before = (LAUNCHES.count, ROWS_LAUNCHES.count)
@@ -364,23 +415,27 @@ def phase_topk(torch, np, arch, dev):
         else:
             rv, ri = topk_scores_ref(h, wt, k, **kw)
             err, n_ids = check_topk(np, vals, ids, rv, ri, exact_ids=ties)
-        if not bool(((ids >= off) & (ids < valid + off)).all()):
+            vals2, ids2 = cuda_topk(h, wt, k, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(vals, vals2) and torch.equal(ids, ids2)):
+                raise AssertionError(f"sample_topk {name}: two calls differ")
+        if not bool(((ids >= off) & (ids < valid_c + off)).all()):
             raise AssertionError(f"{name}: id outside [{off}, "
-                                 f"{valid + off})")
+                                 f"{valid_c + off})")
         ms = cuda_ms(torch, lambda: cuda_topk(h, wt, k, **kw))
         plain_ms = cuda_ms(torch, lambda: topk_scores_ref(h, wt, k, **kw),
                            **plain_iters)
-        wv = wt[:valid]
+        wv = wt[:valid_c]
         library_ms = cuda_ms(torch, lambda: torch.topk(h @ wv.T, k))
-        bound_ms, bound_by = topk_bound_ms(rows, d, v, k)
-        results[name] = dict(rows=rows, k=k, max_abs_err=err, ms=ms,
+        bound_ms, bound_by = topk_bound_ms(rows, d_c, v_c, k)
+        results[name] = dict(rows=rows, k=k, d=d_c, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         extra = ""
         if many:
-            # the same call through the decode kernel (an explicit 8-row
-            # plan), held to the same plain version
-            dplan = choose_blocks(rows, v, d)
+            # the same call through the decode kernel (its own plan, given
+            # explicitly), held to the same plain version
+            dplan = topk_decode_plan(rows, v_c, k)
             dv, di = cuda_topk(h, wt, k, plan=dplan, **kw)
             torch.cuda.synchronize()
             check_top1(np, dv, di, rv, ri, exact_ids=ties)
@@ -388,12 +443,23 @@ def phase_topk(torch, np, arch, dev):
                                                       **kw),
                              **(dict(iters=2, warmup=1) if slow else {}))
             results[name]["decode_ms"] = dec_ms
-            extra = (f", decode kernel (8-row plan) {dec_ms:.4f} ms; "
+            extra = (f", decode kernel (its plan) {dec_ms:.4f} ms; "
                      "many-row kernel")
-        print(f"[kernel] sample_topk {name}: max_abs_err {err:.3g} "
-              f"({n_ids} ids checked exactly){extra} {ms:.4f} ms vs bound "
-              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-              f"torch.topk(h @ w.T) {library_ms:.4f} ms", flush=True)
+        else:
+            part_ms, merge_ms = split_ms(
+                torch, lambda: cuda_topk(h, wt, k, **kw))
+            sp = topk_stream_plan(rows, v_c, k)
+            results[name].update(partial_ms=part_ms, merge_ms=merge_ms)
+            extra = (f"; plan R {sp.rows} x {sp.row_tiles} row tiles, "
+                     f"{sp.slices} slices of {sp.per} tiles, {sp.stages} "
+                     f"stages, {sp.smem_bytes} B; device: stream kernel "
+                     f"{part_ms:.4f} ms + merge {merge_ms:.4f} ms; two "
+                     "calls bit-identical; call")
+        print(f"[kernel] sample_topk {name} (d {d_c}, V {v_c}): max_abs_err "
+              f"{err:.3g} ({n_ids} ids checked exactly){extra} {ms:.4f} ms "
+              f"vs bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, torch.topk(h @ w.T) {library_ms:.4f} ms",
+              flush=True)
         del rv, ri
     return results
 
@@ -1529,34 +1595,37 @@ def score_bound_ms(rows, d, v, p):
 
 
 def phase_score(torch, np, arch, dev):
+    from repro_torch.core.windows import score_plan
     from repro_torch.kernels.score_tokens import (score_stats,
                                                   score_stats_ref,
                                                   score_tokens)
 
-    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     gen = torch.Generator(device=dev).manual_seed(4321)
+    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
     w_head = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
     w_head[valid:] = 0.0                           # the padded head rows
     w_head = w_head.bfloat16()
-    # paper-lm's width (d 4096): 32 rows of h no longer fit a block, so
-    # the kernel stages 3 groups of 8 (24 rows) and strides by 24
-    v_wide, d_wide = 32768, 4096
-    w_wide = (torch.randn((v_wide, d_wide), generator=gen, device=dev)
-              / d_wide ** 0.5).bfloat16()
+    # paper-lm's width (d 4096, V 32768), mistral-large's d 12288 and d
+    # 16384: a CTA's shared memory does not grow with d
+    wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
+                 / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
     cases = [
-        # name, rows, P, softcap, temperature, col_offset, wide
-        ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, False),
-        ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0, False),
-        ("eval_rows8", 8, 1, None, None, 0, False),
-        ("rows32_p4_softcap30", 32, 4, 30.0, None, 0, False),
-        ("rows1000_offset", 1000, 1, None, None, 4096, False),
-        ("d4096_rows32_p1", 32, 1, None, 0.7, 0, True),
-        ("d4096_rows100_p64", 100, 64, None, None, 0, True),
+        # name, rows, P, softcap, temperature, col_offset, wide d
+        ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, None),
+        ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0, None),
+        ("eval_rows8", 8, 1, None, None, 0, None),
+        ("rows32_p4_softcap30", 32, 4, 30.0, None, 0, None),
+        ("rows1000_offset", 1000, 1, None, None, 4096, None),
+        ("d4096_rows32_p1", 32, 1, None, 0.7, 0, 4096),
+        ("d4096_rows100_p64", 100, 64, None, None, 0, 4096),
+        ("d12288_rows32_p1", 32, 1, None, 0.7, 0, 12288),
+        ("d16384_rows40_p4", 40, 4, None, None, 0, 16384),
     ]
     results = {}
-    for name, rows, p, cap, temp, off, wide in cases:
-        if wide:
-            d, v, valid, w = d_wide, v_wide, v_wide, w_wide
+    for name, rows, p, cap, temp, off, dw in cases:
+        if dw:
+            w = wide[dw]
+            d, v, valid = dw, w.shape[0], w.shape[0]
         else:
             d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
             w = w_head
@@ -1593,6 +1662,8 @@ def phase_score(torch, np, arch, dev):
         if off == 0 and bool((logp[~want_inf] > 1e-5).any()):
             raise AssertionError(f"score_tokens {name}: a logp above 0")
         ms = cuda_ms(torch, lambda: score_stats(h, w, ids, **kw), iters=50)
+        part_ms, merge_ms = split_ms(
+            torch, lambda: score_stats(h, w, ids, **kw), iters=50)
         plain_ms = cuda_ms(torch, lambda: score_stats_ref(h, w, ids, **kw),
                            iters=5)
         library_ms = None
@@ -1607,17 +1678,22 @@ def phase_score(torch, np, arch, dev):
                     1, ids.clamp(0, valid - 1).long())
             library_ms = cuda_ms(torch, library, iters=20)
         bound_ms, bound_by = score_bound_ms(rows, d, v, p)
+        sp = score_plan(rows, v, p)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, partial_ms=part_ms,
+                             merge_ms=merge_ms)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"[kernel] score_tokens {name} (rows {rows}, P {p}, V {v}, "
-              f"valid {tot_valid}, offset {off}, softcap {cap}, T {temp}): "
-              f"max_abs_err {err:.3g} (rtol {VAL_RTOL}, atol {VAL_ATOL}), "
-              f"two calls bit-identical, -inf where JAX puts it; {ms:.4f} "
-              f"ms vs bound {bound_ms:.4f} ms ({bound_by}), plain "
-              f"{plain_ms:.4f} ms, log_softmax(h @ w.T).gather {lib} ms",
-              flush=True)
+        print(f"[kernel] score_tokens {name} (rows {rows}, P {p}, d {d}, V "
+              f"{v}, valid {tot_valid}, offset {off}, softcap {cap}, T "
+              f"{temp}): max_abs_err {err:.3g} (rtol {VAL_RTOL}, atol "
+              f"{VAL_ATOL}), two calls bit-identical, -inf where JAX puts "
+              f"it; plan R {sp.rows} x {sp.row_tiles} row tiles, "
+              f"{sp.slices} slices of {sp.per} tiles, {sp.stages} stages, "
+              f"{sp.smem_bytes} B; device: stream kernel {part_ms:.4f} ms + "
+              f"merge {merge_ms:.4f} ms; call {ms:.4f} ms vs bound "
+              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+              f"log_softmax(h @ w.T).gather {lib} ms", flush=True)
     return results
 
 
@@ -1726,7 +1802,8 @@ def check_scores(torch, tag, calls, lm_heads, valid, cap, temp):
 
 
 def phase_spec(torch, np, arch, card, dev):
-    """Phase 6; returns (params with MTP heads, score_tokens launches)."""
+    """Phase 6; returns (params with MTP heads, score_tokens launches,
+    sample_topk decode-kernel launches)."""
     from repro_torch import obs
     from repro_torch.configs.base import with_mtp
     from repro_torch.kernels import build
@@ -1744,7 +1821,7 @@ def phase_spec(torch, np, arch, card, dev):
                          dev)
     spec = SpecConfig(k=SPEC_K)
     warm = [np.arange(1, 40), np.arange(1, 43)]
-    score_launches = 0
+    score_launches = topk_launches = 0
 
     # (a) paged self-speculation, rejection mode, phase 5's traffic
     sc = ServeConfig(batch_size=8, max_len=512, temperature=0.7, top_k=40,
@@ -1796,6 +1873,7 @@ def phase_spec(torch, np, arch, card, dev):
     if pre["hits"] != 15:
         raise AssertionError(f"{tag}: {pre['hits']} prefix hits, not 15")
     score_launches += got["score_tokens"]
+    topk_launches += got["sample_topk"]
     print(f"[spec] {tag}: launches {got} = score_tokens 2 a step x "
           f"{n_steps} + 1 a prefill x {prefills}, sample_topk 2 a step + 2 "
           f"a prefill, paged_attn {n_layers} a step, all at Tq "
@@ -1838,6 +1916,7 @@ def phase_spec(torch, np, arch, card, dev):
     if got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want}")
     score_launches += got["score_tokens"]
+    topk_launches += got["sample_topk"]
     print(f"[spec] {tag}: launches {got} = score_tokens 2 a step x "
           f"{n_steps}, sample_topk {SPEC_K + 1} a step + 2 a prefill x "
           f"{prefills}", flush=True)
@@ -1858,6 +1937,7 @@ def phase_spec(torch, np, arch, card, dev):
     if got != {"score_tokens": 0, "sample_topk": 2 * n_steps + 2 * prefills}:
         raise AssertionError(f"{tag}: launches {got} over {n_steps} steps "
                              f"and {prefills} prefills")
+    topk_launches += got["sample_topk"]
     worst, agree = best_logit_deficit(torch, np, arch6, params, prompts,
                                       [results[r] for r in rids], dev)
     if worst > GREEDY_TOL:
@@ -1869,7 +1949,7 @@ def phase_spec(torch, np, arch, card, dev):
           f"forward's argmax, served logit trails the best by at most "
           f"{max(worst, 0.0):.3g} (limit {GREEDY_TOL})", flush=True)
     spec_summary(np, tag, sched, results, rids, dt, tracer, card)
-    return params, score_launches
+    return params, score_launches, topk_launches
 
 
 def phase_eval(torch, np, arch, params, card, dev):
@@ -1996,7 +2076,8 @@ def main():
     launches, params = phase_serve(torch, np, arch, card, dev)
     paged_launches = phase_paged_serve(torch, np, arch, params, card, dev)
     del params
-    params, score_launches = phase_spec(torch, np, arch, card, dev)
+    params, score_launches, spec_topk = phase_spec(torch, np, arch,
+                                                   card, dev)
     score_launches += phase_eval(torch, np, arch, params, card, dev)
     del params
     train_launches, train_p50 = phase_train(torch, np, arch, card, dev)
@@ -2007,7 +2088,7 @@ def main():
         "name": "sample_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
-        "launches": launches,
+        "launches": launches + spec_topk,       # phases 3 and 6
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -1,30 +1,31 @@
 """Window / block-size selection for the Hopper kernels (paper §3.2.1).
 
 The paper's tunable "window size" splits the vocabulary loop into chunks
-so that small-(B*T) problems still fill the GPU.  The kernels here take
-the same two knobs as the JAX package's `BlockPlan`:
+so that small-(B*T) problems still fill the GPU.  The JAX package's
+`BlockPlan` names the two knobs:
 
   block_rows — rows of H per block                (bm)
   block_v    — vocab columns per block            (bv)
 
-On Hopper a block has at most 227 KB of shared memory (232,448 bytes),
-and the H tile, the logits slice and the per-row state of one block
-must fit it:
+On Hopper a block has at most 227 KB of shared memory (232,448 bytes).
+Unlike the TPU's grid, blocks run in parallel and in no order, so the
+vocab axis becomes slices across CTAs plus a merge.  The field
+``vmem_bytes`` keeps its name for parity with the JAX `BlockPlan`; here
+it holds the block's shared-memory bytes.
 
-  bm*d (H tile, bf16) + bm*bv (logits slice, f32)
-
-Unlike the TPU's grid, blocks run in parallel and in no order, so a
-smaller ``bv`` buys more blocks in flight rather than a longer pipeline.
-The field ``vmem_bytes`` keeps its name for parity with the JAX
-`BlockPlan`; here it holds the block's shared-memory bytes.
-
-`choose_blocks` is the decode-shaped plan of `sample_topk` (8 rows).
-Its many-row top-1 path has one fixed plan, `topk_rows_plan` (128 rows
-by 256 columns a CTA, GEMM-shaped), which `sample_topk.ops.cuda_topk`
-picks for k = 1 from `TOPK_ROWS_MIN` rows on.
-The fused-CE kernels of a training step see thousands of rows and have
-their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles and
-64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
+The few-row vocab scans — `score_tokens` and `sample_topk`'s decode
+kernel — share one main loop (`kernels/common/wstream.cuh`): a CTA owns
+R rows of h (a wgmma n width) and a slice of 128-column W tiles, and W
+and h stream through a TMA ring whose stages take (128 + R) x 128 bytes
+whatever d is.  `stream_plan` mirrors the source's plan (row tiles,
+slices, stages, shared memory), and each kernel's wrapper checks it
+against the C twin; `score_plan` and `topk_decode_plan` add each
+kernel's epilogue.  `sample_topk`'s many-row top-1 path has one fixed
+plan, `topk_rows_plan` (128 rows by 256 columns a CTA, GEMM-shaped),
+which `sample_topk.ops.cuda_topk` picks for k = 1 from `TOPK_ROWS_MIN`
+rows on.  The fused-CE kernels of a training step see thousands of rows
+and have their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles
+and 64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
 split of the forward grid sized so that even a few hundred rows fill the
 card.  The gradient filter works on one 64 x 64 tile grid
 (`ce_tile_grid`) for the statistic, the mask and both backward kernels.
@@ -33,12 +34,10 @@ card.  The gradient filter works on one 64 x 64 tile grid
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 SMEM_BYTES = 232_448          # H100: shared memory one block can use
-_DEFAULT_BUDGET = SMEM_BYTES
-
-_COLS = 128                    # vocab columns: 8 warps x one 16-column tile
-_ROWS = 8                      # rows: the mma n width
+N_SMS = 132                   # H100 SXM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,44 +51,97 @@ class BlockPlan:
         return (self.block_rows, self.block_v)
 
 
-def tile_bytes(bm: int, bv: int, d: int, in_bytes: int = 2) -> int:
-    """Shared-memory bytes of one block: the H tile (rows padded by 16 B
-    against bank conflicts) and the f32 logits slice."""
-    return bm * (d * in_bytes + 16) + bm * bv * 4
+# ---------------------------------------------------------------------------
+# the few-row W stream (kernels/common/wstream.cuh)
+# ---------------------------------------------------------------------------
+
+STREAM_COLS = 128             # W rows (vocab columns) a tile
+STREAM_CHUNK = 64             # k columns a ring stage
+STREAM_MAX_STAGES = 8
+STREAM_MAX_PER = 511          # tiles a slice: a column in it fits 16 bits
+STREAM_WARPS = 8              # two consumer warpgroups
+SCORE_ROWS_MAX = 256          # score_tokens: rows a row tile
+TOPK_DECODE_ROWS_MAX = 64     # sample_topk's decode kernel: rows a row tile
+TOPK_MAX_K = 64               # its running list of a row
+TOPK_SELECT_WARPS = 8         # its selection warps (k > 1)
 
 
-def choose_blocks(
-    n_rows: int,
-    vocab: int,
-    d: int,
-    *,
-    in_bytes: int = 2,
-    smem_budget: int = _DEFAULT_BUDGET,
-    max_block_v: int = 512,
-) -> BlockPlan:
-    """Pick (block_rows, block_v) fitting the shared-memory budget.
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """A W-stream launch: `rows` (R) rows of h a CTA in `row_tiles` row
+    tiles, `per` W tiles a vocab slice in `slices` slices (grid
+    (row_tiles, slices)), `stages` ring stages and `smem_bytes` of
+    dynamic shared memory a CTA."""
+    rows: int
+    row_tiles: int
+    per: int
+    slices: int
+    stages: int
+    smem_bytes: int
 
-      * rows: always 8, the mma's n width — decode batches are a handful
-        of rows, and more rows are more blocks along the grid's y axis
-        (`n_rows` is kept for the JAX package's signature);
-      * vocab: `max_block_v` columns, halved while over budget — at the
-        default 512 a 152k vocab is ~300 blocks, two or three per SM, so
-        W streams from every SM at once;
-      * never more columns than the vocab has, and a multiple of 128.
 
-    Raises ValueError when even 128 columns do not fit beside h's rows.
-    """
-    del n_rows
-    bv = max_block_v
-    while bv > _COLS and tile_bytes(_ROWS, bv, d, in_bytes) > smem_budget:
-        bv //= 2
-    bv = max((min(bv, vocab) // _COLS) * _COLS, _COLS)
-    nbytes = tile_bytes(_ROWS, bv, d, in_bytes)
-    if nbytes > smem_budget:
-        raise ValueError(f"rows of d={d} leave no room in {smem_budget} B "
-                         "of shared memory; the kernel keeps all of h's d "
-                         "in a block")
-    return BlockPlan(_ROWS, bv, nbytes)
+def stream_row_width(rows: int) -> int:
+    """The widths R takes: every multiple of 8 up to 64, then 128, 256."""
+    r = -(-rows // 8) * 8
+    return r if r <= 64 else (128 if r <= 128 else 256)
+
+
+def stream_stage_bytes(r: int) -> int:
+    """One ring stage: a 128 x 64 W box and an R x 64 h box, bf16."""
+    return (STREAM_COLS + r) * STREAM_CHUNK * 2
+
+
+def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue) -> StreamPlan:
+    """The source's plan (`wstream::plan_grid` + `plan_stages`): as few
+    row tiles as `rows_max` allows, R the narrowest width that holds a
+    tile's rows, vocab slices of equal tile counts so that the grid has
+    ~132 CTAs, and as many ring stages (at most 8) as fit beside the
+    epilogue's ``epilogue(R)`` bytes, the barriers and 1024 bytes of
+    alignment.  d does not enter: a stage holds 64 k columns."""
+    row_tiles = -(-n_rows // rows_max)
+    r = stream_row_width(-(-n_rows // row_tiles))
+    n_tiles = -(-vocab // STREAM_COLS)
+    want = max(1, N_SMS // row_tiles)
+    per = min(-(-n_tiles // want), STREAM_MAX_PER)
+    slices = -(-n_tiles // per)
+    fixed = epilogue(r)
+    per_stage = stream_stage_bytes(r) + 16
+    stages = min(STREAM_MAX_STAGES, (SMEM_BYTES - 1024 - fixed) // per_stage)
+    return StreamPlan(r, row_tiles, per, slices, stages,
+                      1024 + stages * per_stage + fixed)
+
+
+@functools.lru_cache(maxsize=1024)
+def score_plan(n_rows: int, vocab: int, n_cand: int) -> StreamPlan:
+    """`score_tokens`' plan: row tiles of up to 256 rows; its epilogue
+    keeps the 8 warps' (m, a) of R rows and a candidate list of up to
+    R x n_cand 4-byte entries (`score_tokens.cu` ``epilogue_bytes``)."""
+    return stream_plan(n_rows, vocab, SCORE_ROWS_MAX,
+                       lambda r: 2 * STREAM_WARPS * r * 4 + r * n_cand * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def topk_stream_plan(n_rows: int, vocab: int, k: int) -> StreamPlan:
+    """The decode kernel's plan: row tiles of up to 64 rows; at k = 1 its
+    epilogue keeps the 8 warps' best key of R rows, above that R sorted
+    lists of 64 keys, R thresholds, a 2 x 128-key scratch for each of the
+    8 selection warps, 4 mbarriers and two staged R x 132 f32 tiles
+    (`sample_topk.cu` ``epilogue_bytes``)."""
+    if k == 1:
+        return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
+                           lambda r: STREAM_WARPS * r * 8)
+    return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
+                       lambda r: (r * TOPK_MAX_K * 8 + r * 8
+                                  + TOPK_SELECT_WARPS * 2 * STREAM_COLS * 8
+                                  + 4 * 8 + 2 * r * (STREAM_COLS + 4) * 4))
+
+
+@functools.lru_cache(maxsize=1024)
+def topk_decode_plan(n_rows: int, vocab: int, k: int) -> BlockPlan:
+    """The decode kernel's plan as the JAX-shaped `BlockPlan` that
+    `cuda_topk` takes: R rows, a slice's columns, its shared memory."""
+    p = topk_stream_plan(n_rows, vocab, k)
+    return BlockPlan(p.rows, p.per * STREAM_COLS, p.smem_bytes)
 
 
 # the many-row top-1 path of sample_topk (sample_topk.cu kRows*): 128 rows
@@ -98,9 +150,9 @@ TOPK_ROWS = 128
 TOPK_ROWS_COLS = 256
 TOPK_ROWS_STAGES = 4
 # rows from which cuda_topk takes the many-row path at k = 1: the decode
-# kernel streams W once per 8 rows (~0.1 ms each at qwen3-0.6b's head),
-# the many-row one once per 128; phase 2 of chip_smoke.py times both at
-# 128 rows, the smallest count routed here
+# kernel's row tiles hold at most 64 rows and each streams the whole of W
+# (from L2 after the first), the many-row one tiles like a GEMM; phase 2
+# of chip_smoke.py times both at 128 rows, the smallest count routed here
 TOPK_ROWS_MIN = 128
 
 
@@ -116,7 +168,6 @@ def topk_rows_plan() -> BlockPlan:
 # fused-CE kernels (training): their own plan rule
 # ---------------------------------------------------------------------------
 
-N_SMS = 132                     # H100 SXM
 CE_FWD_ROWS = 128               # forward tile rows   (fused_ce.cu kFwdRows)
 CE_FWD_COLS = 128               # forward tile columns (kFwdCols)
 CE_FWD_SLOTS = 2 * N_SMS        # forward blocks resident at once

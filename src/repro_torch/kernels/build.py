@@ -14,6 +14,7 @@ the counters to show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -35,7 +36,7 @@ SOURCES = {
 
 # headers every source may include (`#include "hopper.cuh"`); they are
 # part of each library's hash, so editing one rebuilds every kernel
-HEADERS = ["common/hopper.cuh"]
+HEADERS = ["common/hopper.cuh", "common/wstream.cuh"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +71,29 @@ def counter(name: str) -> LaunchCounter:
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+_twins_checked = set()
+
+
+def check_plan_twin(lib: ctypes.CDLL, fn_name: str, args, plan) -> None:
+    """Raise RuntimeError unless the source's plan function `fn_name`
+    (``void fn(int..., int* out)``) writes `plan`'s fields, in order, for
+    `args`: a wrapper launches with its Python mirror's plan, which must
+    be the kernel's own.  Checked once per (function, args)."""
+    key = (fn_name, tuple(args))
+    if key in _twins_checked:
+        return
+    want = dataclasses.astuple(plan)
+    out = (ctypes.c_int * len(want))()
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = None
+    fn(*args, ctypes.cast(out, ctypes.c_void_p))
+    if tuple(out) != want:
+        raise RuntimeError(f"{fn_name}{tuple(args)}: the Python plan {plan} "
+                           f"disagrees with the kernel's {tuple(out)}")
+    _twins_checked.add(key)
 
 
 def _nvcc() -> str:

@@ -861,10 +861,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
     for (int ks = 0; ks < kRange / 16; ++ks) {
       const int box = ks >> 2, kin = (ks & 3) * 16;
-      wgmma_m64n64k16(accZ,
-                      desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
-                      desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
-                      ks);
+      wgmma_ss<64>(accZ,
+                   desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
+                   desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
+                   ks);
     }
     wgmma_commit();
     if (wt < kC) bulk_wait_read();      // the last tile's copies are out

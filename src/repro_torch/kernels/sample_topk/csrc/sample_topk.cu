@@ -5,38 +5,49 @@
 // the masked (optionally tanh-softcapped) logits as f32, with their global
 // vocab ids as i32, sorted descending, ties to the lowest id.  A column is
 // live iff local_col < v_orig and local_col + col_offset < valid.  The
-// (rows, V) logits never reach device memory: each block holds only its
-// own (8, block_v) slice in shared memory.
+// (rows, V) logits never reach device memory.  A NaN logit is treated as
+// -inf, and every written id lies in [col_offset, col_offset + v_orig).
 //
-// Bound (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at rows = 8, W is
-// 152064 x 1024 bf16 = 311 MB, read once -> ~93 us; the products are
-// 2 * 8 * 1024 * 152064 = 2.5 GFLOP -> ~2.5 us on the tensor cores.  The
-// kernel is memory-bound, so the design spends everything on streaming W
-// once at full width:
-//   * the TPU kernel's sequential vocab grid axis has no counterpart here;
-//     instead the vocab is split into n_split = ceil(V / block_v) slices,
-//     one block each, so a handful of rows still puts ~300 blocks on the
-//     132 SMs;
-//   * each warp computes 16-column x 8-row logits tiles with
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate).  The reduction axis is
-//     permuted so that every lane loads 32 contiguous bytes of a W row per
-//     64-wide k chunk (full 128-byte lines per row across the 4 lanes of a
-//     row group) and h is read from shared memory with the same
-//     permutation;
-//   * selection is k extraction passes over the slice (one warp per row,
-//     each lane caching its own best so that only the winning lane
-//     rescans), then a second small kernel merges the (n_split, k)
-//     candidates of each row with the same (value desc, id asc) order.
-// A NaN logit is treated as -inf, and every written id lies in
-// [col_offset, col_offset + v_orig).
+// The decode kernel (topk_stream_kernel, any k <= 64) takes the few rows
+// of a decode step or a speculative verifier (8 to 40).  Bound (H100 SXM,
+// 3.35 TB/s, 989 TFLOP/s bf16): W read once, 152064 x 1024 bf16 = 311 MB
+// -> ~93 us; the products at 40 rows are 12.5 GFLOP -> ~13 us on the
+// tensor cores.  Memory-bound, so its main loop is the shared W stream of
+// common/wstream.cuh (a TMA ring of W and h boxes feeding wgmma, shared
+// memory independent of d, ~132 CTAs each walking a vocab slice), and the
+// selection is built so that its cost does not grow k-fold:
+//   * every candidate is one 64-bit key: the logit's f32 bits mapped to an
+//     order-preserving u32 above (NaN -> -inf, -0 -> +0), ~local column
+//     below.  Larger key = larger value, then lower id, so one u64 compare
+//     is the contract's order and ties need no second pass;
+//   * k = 1: each thread keeps the best key of each of its rows in
+//     registers; the 8 lanes and 8 warps of a row merge by max at the end;
+//   * k > 1: the wgmma warps stage each tile's logits in shared memory
+//     (R x 128 f32, double-buffered through mbarriers) for 8 selection
+//     warps of their own, so the selection of one tile overlaps the
+//     products of the next.  The selection warp that owns a row keeps its
+//     running top-64 list sorted in shared memory with the list's k-th key
+//     as threshold.  A tile's keys above the threshold (all 128 on the
+//     first tile, a few after) are compacted by ballot, sorted 32 at a time
+//     by a bitonic network across the lanes, and merged into the list by
+//     one bitonic merge (the top 64 of two sorted lists of 64 is the
+//     bitonic sequence max(A[i], B[63 - i]), sorted in 6 steps); two rows
+//     go through the networks together.  Later ids of the slice are always
+//     larger, so a key equal to the threshold can never win.  The
+//     selection is bound by its instruction throughput, so it has as many
+//     warps as the wgmma side;
+//   * each (row, slice) writes its top k keys, and a merge kernel (one CTA
+//     of 32 warps a row) stages the row's slices x k keys in shared memory
+//     and merges them by the same bitonic merge: each warp folds every
+//     32nd list into its own, then the warps' lists fold pairwise; at k = 1
+//     one warp a row takes the largest key.
 //
 // The many-row top-1 path (topk_rows_kernel, k = 1 only) computes the same
 // function for the MTP accuracy's 4096 rows.  There the bound flips: the
 // products are 2 * 4096 * 1024 * 152064 = 1.28 TFLOP -> ~1.29 ms on the
-// tensor cores, against ~0.1 ms of bytes, and the decode kernel above,
-// which streams W once for every 8 rows (512 times) through mma.sync, took
-// 50.2 ms (H100 80GB HBM3, 700 W, chip_smoke.py).  So this path tiles like
-// a GEMM:
+// tensor cores, against ~0.1 ms of bytes, and a kernel that streams W once
+// for every few rows would read it hundreds of times.  So this path tiles
+// like a GEMM:
 //   * a CTA owns 128 rows of h and walks a slice of 256-column vocab
 //     tiles; one producer thread streams h and W in 64-wide k chunks
 //     through a 4-stage TMA ring (128-byte swizzle, mbarrier completion),
@@ -59,29 +70,27 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wstream.cuh"
 
 namespace {
 
-constexpr int kRows = 8;              // h rows per block: the mma n width
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxK = 64;
+using u64 = unsigned long long;
+using wstream::kConsumers;
+using wstream::kThreads;
+
+constexpr int kMaxK = 64;             // the running list of a row
+constexpr int kRowsMax = 64;          // rows a row tile of the decode kernel
+constexpr int kWarps = kConsumers / 32;
+constexpr int kSelWarps = 8;          // k > 1: the selection warps
+constexpr int kSelThreads = kConsumers + kSelWarps * 32 + 32;
+constexpr int kZld = wstream::kCols + 4;  // staged row stride: no conflicts
 constexpr int kMergeThreads = 1024;
-constexpr int kMaxPerThread = 64;     // candidates per thread (64-bit mask)
+constexpr int kMaxSlices = wstream::kNumSMs;  // plan_grid's bound
+constexpr int kMergeLoads =  // keys a merge thread loads
+    (kMaxSlices * kMaxK + kMergeThreads - 1) / kMergeThreads;
 
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], uint32_t a0,
-                                                 uint32_t a1, uint32_t a2,
-                                                 uint32_t a3, uint32_t b0,
-                                                 uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Warp-wide arg-best under (value desc, id asc); every lane gets the result.
@@ -99,187 +108,402 @@ __device__ __forceinline__ void warp_best(float& v, int& id, int& owner) {
   }
 }
 
-// grid (n_split, ceil(rows / 8)), kThreads threads, dynamic shared memory
-// 8 * (d + 8) * 2 bytes of h plus 8 * block_v * 4 bytes of logits.
-__global__ void __launch_bounds__(kThreads)
-    topk_partial_kernel(const __nv_bfloat16* __restrict__ h,
-                        const __nv_bfloat16* __restrict__ w,
-                        float* __restrict__ pvals, int* __restrict__ pids,
-                        int rows, int d, int v_orig, int valid,
-                        int col_offset, int k, int block_v, int n_split,
-                        int has_softcap, float softcap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hstride = d + 8;  // +16 bytes per row: conflict-free 16 B reads
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* zs = reinterpret_cast<float*>(smem + (size_t)kRows * hstride * 2);
+// ---------------------------------------------------------------------------
+// decode kernel: the shared W stream and a key-based selection
+// ---------------------------------------------------------------------------
 
-  const int split = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int s0 = split * block_v;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// Shared memory beside the ring.  k = 1: the 8 warps' best key of R rows;
+// k > 1: R sorted lists of 64 keys, R thresholds, a compaction scratch of
+// 2 x 128 keys a selection warp, 4 mbarriers and two staged R x 128 tiles
+// of logits.
+__host__ __device__ inline int epilogue_bytes(int r, int k) {
+  if (k == 1) return kWarps * r * 8;
+  return r * kMaxK * 8 + r * 8 + kSelWarps * 2 * wstream::kCols * 8 + 4 * 8 +
+         2 * r * kZld * 4;
+}
 
-  // stage this block's rows of h; rows past the end are zeros
-  const int dv = d / 8;
-  for (int i = tid; i < kRows * dv; i += kThreads) {
-    const int r = i / dv;
-    const int c = i - r * dv;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = reinterpret_cast<const uint4*>(h + (size_t)(row0 + r) * d)[c];
-    reinterpret_cast<uint4*>(hs + (size_t)r * hstride)[c] = val;
-  }
-  __syncthreads();
+__host__ __device__ inline wstream::Plan plan(int rows, int v, int k) {
+  wstream::Plan p = wstream::plan_grid(rows, v, kRowsMax);
+  wstream::plan_stages(p, epilogue_bytes(p.rows, k));
+  return p;
+}
 
-  // logits tiles: lane (g, t) feeds W rows (g, g + 8) of the tile and
-  // h row g; physical k = base + 16 t + 4 s + {0..3} is mma step s's
-  // logical k {2t, 2t+1, 2t+8, 2t+9} for both operands
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int tiles = block_v / 16;
-  for (int tile = warp; tile < tiles; tile += kWarps) {
-    const int c0 = s0 + tile * 16 + g;
-    const int c1 = c0 + 8;
-    const __nv_bfloat16* w0 = w + (size_t)min(c0, v_orig - 1) * d + 16 * t;
-    const __nv_bfloat16* w1 = w + (size_t)min(c1, v_orig - 1) * d + 16 * t;
-    const __nv_bfloat16* hr = hs + (size_t)g * hstride + 16 * t;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int base = 0; base < d; base += 64) {
-      const uint4 a0l = __ldg(reinterpret_cast<const uint4*>(w0 + base));
-      const uint4 a0h = __ldg(reinterpret_cast<const uint4*>(w0 + base + 8));
-      const uint4 a1l = __ldg(reinterpret_cast<const uint4*>(w1 + base));
-      const uint4 a1h = __ldg(reinterpret_cast<const uint4*>(w1 + base + 8));
-      const uint4 bl = *reinterpret_cast<const uint4*>(hr + base);
-      const uint4 bh = *reinterpret_cast<const uint4*>(hr + base + 8);
-      mma_bf16_16x8x16(acc, a0l.x, a1l.x, a0l.y, a1l.y, bl.x, bl.y);
-      mma_bf16_16x8x16(acc, a0l.z, a1l.z, a0l.w, a1l.w, bl.z, bl.w);
-      mma_bf16_16x8x16(acc, a0h.x, a1h.x, a0h.y, a1h.y, bh.x, bh.y);
-      mma_bf16_16x8x16(acc, a0h.z, a1h.z, a0h.w, a1h.w, bh.z, bh.w);
-    }
-    // acc[0..1]: column tile*16 + g, rows 2t, 2t+1; acc[2..3]: column + 8
+// The key of logit z at local column `local` (never 0: -inf maps to
+// 0x007fffff above); 0 is "no column".
+__device__ __forceinline__ u64 make_key(float z, int local) {
+  if (isnan(z)) z = -INFINITY;
+  const uint32_t u = __float_as_uint(z + 0.f);      // -0 -> +0
+  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((u64)ord << 32) | (uint32_t)(0xffffffffu - (uint32_t)local);
+}
+
+__device__ __forceinline__ float key_value(u64 key) {
+  const uint32_t ord = (uint32_t)(key >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord);
+}
+
+__device__ __forceinline__ int key_local(u64 key) {
+  return (int)(0xffffffffu - (uint32_t)key);
+}
+
+__device__ __forceinline__ u64 shfl_xor64(u64 x, int m) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)x, m);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(x >> 32), m);
+  return ((u64)hi << 32) | lo;
+}
+
+__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a > b ? a : b; }
+__device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
+
+// NR independent sets of one key a lane, nonzero in lanes < S only ->
+// each set's keys sorted descending in lanes 0..S-1 (zeros after them);
+// the sets' networks interleave
+template <int NR, int S>
+__device__ __forceinline__ void sort_desc(u64 (&x)[NR], int lane) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lc = tile * 16 + g + 8 * half;
-      const int local = s0 + lc;
-      const bool live = local < v_orig && local + col_offset < valid;
+  for (int size = 2; size <= S; size <<= 1)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float z = acc[2 * half + j];
-        if (has_softcap) z = softcap * tanhf(z / softcap);
-        if (!live || isnan(z)) z = -INFINITY;
-        zs[(2 * t + j) * block_v + lc] = z;
+    for (int st = size >> 1; st > 0; st >>= 1) {
+      const bool keep_max = ((lane & st) == 0) == ((lane & size) == 0);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const u64 o = shfl_xor64(x[r], st);
+        x[r] = keep_max ? umax(x[r], o) : umin(x[r], o);
       }
     }
-  }
-  __syncthreads();
+}
 
-  // selection: warp r extracts row r's top k of this slice
-  const int r = warp;
-  if (row0 + r >= rows) return;
-  const float* zr = zs + (size_t)r * block_v;
-  const int per = block_v / 32;
-  unsigned long long taken = 0ull;
-  float bv = -INFINITY;
-  int bj = INT_MAX;
-  auto rescan = [&]() {
-    bv = -INFINITY;
-    bj = INT_MAX;
-    for (int i = 0; i < per; ++i) {
-      if ((taken >> i) & 1ull) continue;
-      const float v = zr[lane + 32 * i];
-      if (bj == INT_MAX || v > bv) {  // ascending scan: ties keep low j
-        bv = v;
-        bj = lane + 32 * i;
-      }
-    }
-  };
-  rescan();
-  float* outv = pvals + ((size_t)(row0 + r) * n_split + split) * k;
-  int* outi = pids + ((size_t)(row0 + r) * n_split + split) * k;
-  for (int p = 0; p < k; ++p) {
-    float v = bv;
-    int j = bj;
-    int owner = lane;
-    warp_best(v, j, owner);
-    if (lane == 0) {
-      outv[p] = v;
-      outi[p] = min(s0 + j, v_orig - 1) + col_offset;
-    }
-    if (lane == owner) {
-      taken |= 1ull << (j / 32);
-      rescan();
+// NR bitonic sequences of 64 keys (a0 = element lane, a1 = element 32 +
+// lane) -> each sorted descending.
+template <int NR>
+__device__ __forceinline__ void merge64_desc(u64 (&a0)[NR], u64 (&a1)[NR],
+                                             int lane) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const u64 hi = umax(a0[r], a1[r]);
+    a1[r] = umin(a0[r], a1[r]);
+    a0[r] = hi;
+  }
+#pragma unroll
+  for (int st = 16; st > 0; st >>= 1) {
+    const bool lower = (lane & st) == 0;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const u64 o0 = shfl_xor64(a0[r], st);
+      const u64 o1 = shfl_xor64(a1[r], st);
+      a0[r] = lower ? umax(a0[r], o0) : umin(a0[r], o0);
+      a1[r] = lower ? umax(a1[r], o1) : umin(a1[r], o1);
     }
   }
 }
 
-// grid (rows), kMergeThreads threads: top k of each row's n_cand partials.
+// (a0, a1) := the top 64 of itself and the sorted list b[0..kb) (kb <= 64,
+// missing keys 0), both sorted descending.
+__device__ __forceinline__ void fold_list(u64& a0, u64& a1, const u64* b,
+                                          int kb, int lane) {
+  u64 x0[1] = {umax(a0, 63 - lane < kb ? b[63 - lane] : 0ull)};
+  u64 x1[1] = {umax(a1, 31 - lane < kb ? b[31 - lane] : 0ull)};
+  merge64_desc(x0, x1, lane);
+  a0 = x0[0];
+  a1 = x1[0];
+}
+
+// The k > 1 selection warps: for each staged tile, warp sw updates rows
+// sw, sw + 8, ... two at a time (rows n and n + 8, whose sorting networks
+// interleave): the keys above the row's threshold are compacted, sorted
+// 32 at a time and merged into the row's sorted list, whose k-th key
+// becomes the row's threshold.
+template <int N>
+__device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
+                            int row0, int rows, int cbase, int v_orig,
+                            int valid, int col_offset, int k, int has_softcap,
+                            float softcap, int sw, int lane) {
+  for (int n0 = sw; n0 < N && row0 + n0 < rows; n0 += 2 * kSelWarps) {
+    const int nr[2] = {n0, n0 + kSelWarps};
+    const bool has1 = nr[1] < N && row0 + nr[1] < rows;
+    u64 key[2][4];
+    uint32_t bal[2][4];
+    int m[2] = {0, 0};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool here = r == 0 || has1;
+      const u64 th = here ? thr[nr[r]] : ~0ull;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = 32 * q + lane;
+        const int local = cbase + col;
+        float z = here ? zs[nr[r] * kZld + col] : 0.f;
+        if (has_softcap) z = softcap * tanhf(z / softcap);
+        const bool live = local < v_orig && local + col_offset < valid;
+        key[r][q] =
+            local < v_orig ? make_key(live ? z : -INFINITY, local) : 0ull;
+        bal[r][q] = __ballot_sync(0xffffffffu, key[r][q] > th);
+        m[r] += __popc(bal[r][q]);
+      }
+    }
+    if (m[0] + m[1] == 0) continue;
+    const uint32_t below = (1u << lane) - 1u;
+    u64 a0[2], a1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int base = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if ((bal[r][q] >> lane) & 1u)
+          sc[r * wstream::kCols + base + __popc(bal[r][q] & below)] =
+              key[r][q];
+        base += __popc(bal[r][q]);
+      }
+      a0[r] = m[r] ? lst[nr[r] * kMaxK + lane] : 0ull;
+      a1[r] = m[r] ? lst[nr[r] * kMaxK + 32 + lane] : 0ull;
+    }
+    __syncwarp();
+    const int mm = max(m[0], m[1]);
+    for (int c = 0; c < mm; c += 32) {
+      u64 x[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        x[r] = c + lane < m[r] ? sc[r * wstream::kCols + c + lane] : 0ull;
+      sort_desc<2, 32>(x, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)   // B[31 - lane] of (x, 0, ...)
+        a1[r] = umax(a1[r], shfl_xor64(x[r], 31));
+      merge64_desc(a0, a1, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const u64 kth =
+          __shfl_sync(0xffffffffu, k <= 32 ? a0[r] : a1[r], (k - 1) & 31);
+      if (!m[r]) continue;
+      lst[nr[r] * kMaxK + lane] = a0[r];
+      lst[nr[r] * kMaxK + 32 + lane] = a1[r];
+      if (lane == 0) thr[nr[r]] = kth;
+    }
+    __syncwarp();
+  }
+}
+
+// grid (row_tiles, slices), kThreads threads (k = 1) or kSelThreads (k >
+// 1), plan(...).smem bytes.  Writes the top k keys of each row over its
+// slice, sorted descending, to pk[((row * n_split + split) * k ...].
+// Threads 0..255 issue the wgmma; at k > 1 threads 256..511 (the selection
+// warps) consume the tiles they stage, double-buffered through mbarriers,
+// so the selection of tile t overlaps the products of tile t + 1; the last
+// warp is the producer.
+template <int N, bool kOne>
+__global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
+    topk_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap hmap,
+                       u64* __restrict__ pk, int rows, int d, int v_orig,
+                       int valid, int col_offset, int k, int per,
+                       int n_split, int stages, int has_softcap,
+                       float softcap) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  wstream::Ring<N> ring;
+  u64* epi =
+      reinterpret_cast<u64*>(wstream::ring_init(ring, smem_raw, stages));
+  u64* lst = epi;                       // k > 1: N x 64
+  u64* thr = lst + N * kMaxK;           //        N
+  u64* scr = thr + N;                   //        8 x 2 x 128
+  uint64_t* zbar =                      // full[2], empty[2]
+      reinterpret_cast<uint64_t*>(scr + kSelWarps * 2 * wstream::kCols);
+  float* zs = reinterpret_cast<float*>(zbar + 4);  // 2 x N x kZld
+
+  const int row0 = blockIdx.x * N;
+  const int split = blockIdx.y;
+  const int n_tiles = (v_orig + wstream::kCols - 1) / wstream::kCols;
+  const int t_begin = split * per;
+  const int t_end = min(t_begin + per, n_tiles);
+  const int nk = d / wstream::kChunk;
+  const int tid = threadIdx.x;
+  constexpr int kAll = kOne ? kThreads : kSelThreads;
+  if (!kOne) {
+    for (int i = tid; i < N * (kMaxK + 1); i += kAll) lst[i] = 0ull;
+    if (tid == 0) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&zbar[b], kConsumers);       // a tile staged in zs[b]
+        mbar_init(&zbar[2 + b], kSelWarps * 32);  // zs[b] read
+      }
+      fence_mbar_init();
+    }
+  }
+  __syncthreads();
+  if (tid >= kAll - 32) {
+    wstream::produce(ring, &wmap, &hmap, t_begin, t_end, nk, row0);
+    return;
+  }
+  const int lane = tid & 31;
+  if (!kOne && tid >= kConsumers) {
+    const int sw = (tid - kConsumers) >> 5;
+    u64* sc = scr + sw * 2 * wstream::kCols;
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int tl = tile - t_begin;
+      mbar_wait(&zbar[tl & 1], (tl >> 1) & 1);
+      select_tile<N>(zs + (tl & 1) * N * kZld, lst, thr, sc, row0, rows,
+                     tile * wstream::kCols, v_orig, valid, col_offset, k,
+                     has_softcap, softcap, sw, lane);
+      mbar_arrive(&zbar[2 + (tl & 1)]);
+    }
+    for (int n = sw; n < N && row0 + n < rows; n += kSelWarps) {
+      u64* out = pk + ((size_t)(row0 + n) * n_split + split) * k;
+      for (int i = lane; i < k; i += 32) out[i] = lst[n * kMaxK + i];
+    }
+    return;
+  }
+
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col_lo = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // + 8 i
+  constexpr int NJ = N / 8;
+  u64 best[kOne ? NJ : 1][2];
+#pragma unroll
+  for (int j = 0; j < (kOne ? NJ : 1); ++j) best[j][0] = best[j][1] = 0ull;
+
+  float acc[N / 2];
+  int s = 0;
+  uint32_t phase = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    wstream::consume_tile(ring, acc, s, phase, nk);
+    if (kOne) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int local = tile * wstream::kCols + col_lo + 8 * i;
+        const bool exists = local < v_orig;
+        const bool live = exists && local + col_offset < valid;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float z = acc[4 * j + 2 * i + c];
+            if (has_softcap) z = softcap * tanhf(z / softcap);
+            const u64 key = exists ? make_key(live ? z : -INFINITY, local)
+                                   : 0ull;
+            best[j][c] = umax(best[j][c], key);
+          }
+      }
+      continue;
+    }
+    // stage the tile in zs[tl % 2] once the selection has read it
+    const int tl = tile - t_begin;
+    float* z = zs + (tl & 1) * N * kZld;
+    mbar_wait(&zbar[2 + (tl & 1)], ((tl >> 1) & 1) ^ 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          z[(8 * j + 2 * t + c) * kZld + col_lo + 8 * i] =
+              acc[4 * j + 2 * i + c];
+    mbar_arrive(&zbar[tl & 1]);
+  }
+  if (!kOne) return;
+
+  // k = 1: the 8 lanes of a row, then the 8 warps (max: any order)
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        best[j][c] = umax(best[j][c], shfl_xor64(best[j][c], off));
+      if (g == 0) epi[warp * N + 8 * j + 2 * t + c] = best[j][c];
+    }
+  bar_sync(1, kConsumers);
+  if (tid < N && row0 + tid < rows) {
+    u64 b = 0ull;
+    for (int wp = 0; wp < kWarps; ++wp) b = umax(b, epi[wp * N + tid]);
+    pk[(size_t)(row0 + tid) * n_split + split] = b;
+  }
+}
+
+// grid (rows), kMergeThreads threads, n_split * k * 8 bytes of dynamic
+// shared memory: the top k of each row's n_split sorted lists.  Each of
+// the 32 warps folds every 32nd list into its own, then the warps' lists
+// fold pairwise in 5 levels.
 __global__ void __launch_bounds__(kMergeThreads)
-    topk_merge_kernel(const float* __restrict__ pvals,
-                      const int* __restrict__ pids, float* __restrict__ vals,
-                      int* __restrict__ ids, int n_cand, int k) {
-  __shared__ float sv[kMergeThreads / 32];
-  __shared__ int si[kMergeThreads / 32];
-  __shared__ int so[kMergeThreads / 32];
-  __shared__ int win_owner;
+    topk_stream_merge_kernel(const u64* __restrict__ pk,
+                             float* __restrict__ vals, int* __restrict__ ids,
+                             int n_split, int k, int col_offset) {
+  extern __shared__ u64 sp[];
+  __shared__ u64 wl[kMergeThreads / 32][kMaxK];
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const float* cv = pvals + (size_t)row * n_cand;
-  const int* ci = pids + (size_t)row * n_cand;
-  const int per = (n_cand + kMergeThreads - 1) / kMergeThreads;
-
-  unsigned long long taken = 0ull;
-  float bv = -INFINITY;
-  int bid = INT_MAX;
-  int bslot = -1;
-  auto rescan = [&]() {
-    bv = -INFINITY;
-    bid = INT_MAX;
-    bslot = -1;
-    for (int i = 0; i < per; ++i) {
-      const int c = tid + kMergeThreads * i;
-      if (c >= n_cand || ((taken >> i) & 1ull)) continue;
-      const float v = cv[c];
-      const int id = ci[c];
-      if (bslot < 0 || better(v, id, bv, bid)) {
-        bv = v;
-        bid = id;
-        bslot = i;
-      }
-    }
-  };
-  rescan();
-  for (int p = 0; p < k; ++p) {
-    float v = bv;
-    int id = bid;
-    int owner = tid;
-    warp_best(v, id, owner);
-    if (lane == 0) {
-      sv[warp] = v;
-      si[warp] = id;
-      so[warp] = owner;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = sv[lane];
-      id = si[lane];
-      owner = so[lane];
-      warp_best(v, id, owner);
-      if (lane == 0) {
-        vals[(size_t)row * k + p] = v;
-        ids[(size_t)row * k + p] = id;
-        win_owner = owner;
-      }
-    }
-    __syncthreads();
-    if (tid == win_owner) {
-      taken |= 1ull << bslot;
-      rescan();
-    }
+  const u64* src = pk + (size_t)row * n_split * k;
+  const int total = n_split * k;
+  u64 buf[kMergeLoads];  // every load in flight at once
+#pragma unroll
+  for (int j = 0; j < kMergeLoads; ++j) {
+    const int i = tid + j * kMergeThreads;
+    buf[j] = i < total ? src[i] : 0ull;
   }
+#pragma unroll
+  for (int j = 0; j < kMergeLoads; ++j) {
+    const int i = tid + j * kMergeThreads;
+    if (i < total) sp[i] = buf[j];
+  }
+  __syncthreads();
+  u64 a0 = 0ull, a1 = 0ull;
+  for (int l = warp; l < n_split; l += kMergeThreads / 32)
+    fold_list(a0, a1, sp + l * k, k, lane);
+  for (int st = kMergeThreads / 64; st > 0; st >>= 1) {
+    if (warp >= st && warp < 2 * st) {
+      wl[warp][lane] = a0;
+      wl[warp][32 + lane] = a1;
+    }
+    __syncthreads();
+    if (warp < st) fold_list(a0, a1, wl[warp + st], kMaxK, lane);
+  }
+  if (warp != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = 32 * h + lane;
+    if (i >= k) continue;
+    const u64 key = h ? a1 : a0;       // never 0: k <= v_orig
+    vals[(size_t)row * k + i] = key_value(key);
+    ids[(size_t)row * k + i] = key_local(key) + col_offset;
+  }
+}
+
+// k = 1: grid ceil(rows / 8), one warp a row takes the largest of the
+// row's n_split keys.
+__global__ void __launch_bounds__(256)
+    key1_merge_kernel(const u64* __restrict__ pk, float* __restrict__ vals,
+                      int* __restrict__ ids, int rows, int n_split,
+                      int col_offset) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  u64 b = 0ull;
+  for (int s = lane; s < n_split; s += 32)
+    b = umax(b, pk[(size_t)row * n_split + s]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) b = umax(b, shfl_xor64(b, off));
+  if (lane == 0) {
+    vals[row] = key_value(b);
+    ids[row] = key_local(b) + col_offset;
+  }
+}
+
+template <int N>
+cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
+                          u64* pk, int rows, int d, int v_orig, int valid,
+                          int col_offset, int k, const wstream::Plan& p,
+                          int has_softcap, float softcap, cudaStream_t s) {
+  auto kern = k == 1 ? topk_stream_kernel<N, true>
+                     : topk_stream_kernel<N, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(p.row_tiles, p.slices), k == 1 ? kThreads : kSelThreads,
+         p.smem, s>>>(
+      wmap, hmap, pk, rows, d, v_orig, valid, col_offset, k, p.per,
+      p.slices, p.stages, has_softcap, softcap);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -292,7 +516,6 @@ constexpr int kRowsK = 64;            // k chunk: one 128-byte swizzle row
 constexpr int kRowsStages = 4;
 constexpr int kRowsThreads = 384;     // producer warpgroup + 2 consumers
 constexpr int kRowsWaves = 8;         // CTAs in flight per SM, times 132
-constexpr int kNumSMs = 132;
 constexpr int kRowsStageBytes = (kRowsM + kRowsN) * kRowsK * 2;
 constexpr size_t kRowsSmem =
     1024 + (size_t)kRowsStages * kRowsStageBytes + 2 * kRowsStages * 8;
@@ -369,8 +592,8 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kRowsK / 16; ++ks)
-        wgmma_m64n256k16(acc, desc_b128(a + ks * 16, 16, 1024),
-                         desc_b128(b + ks * 16, 16, 1024), kc | ks);
+        wgmma_ss<256>(acc, desc_b128(a + ks * 16, 16, 1024),
+                      desc_b128(b + ks * 16, 16, 1024), kc | ks);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -448,7 +671,7 @@ __global__ void __launch_bounds__(256)
 int rows_splits(int rows, int v_orig, int* per_out) {
   const int row_tiles = (rows + kRowsM - 1) / kRowsM;
   const int n_tiles = (v_orig + kRowsN - 1) / kRowsN;
-  int want = (kRowsWaves * kNumSMs + row_tiles - 1) / row_tiles;
+  int want = (kRowsWaves * wstream::kNumSMs + row_tiles - 1) / row_tiles;
   want = want < 1 ? 1 : (want > n_tiles ? n_tiles : want);
   const int per = (n_tiles + want - 1) / want;
   if (per_out) *per_out = per;
@@ -459,34 +682,61 @@ int rows_splits(int rows, int v_orig, int* per_out) {
 
 extern "C" {
 
-int sample_topk_max_k() { return kMaxK; }
+// The decode kernel's plan for (rows, V, k): {R, row_tiles, per, slices,
+// stages, smem} into out[0..5] (the wrapper's Python mirror must agree).
+void sample_topk_plan(int rows, int v_orig, int k, int* out) {
+  const wstream::Plan p = plan(rows, v_orig, k);
+  const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
+                       p.smem};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+}
 
-int sample_topk_max_candidates() { return kMergeThreads * kMaxPerThread; }
-
-// Launches both kernels on `stream`; returns the cudaError_t of the launches.
-// pvals/pids are (rows, n_split, k) scratch, vals/ids the (rows, k) result.
-int sample_topk_launch(const void* h, const void* w, void* pvals, void* pids,
-                       void* vals, void* ids, int rows, int d, int v_orig,
-                       int valid, int col_offset, int k, int block_v,
-                       int has_softcap, float softcap, void* stream) {
-  const int n_split = (v_orig + block_v - 1) / block_v;
-  const size_t smem = (size_t)kRows * (d + 8) * 2 + (size_t)kRows * block_v * 4;
+// Launches the decode kernel and its merge on `stream` with the plan
+// above; returns a cudaError_t.  pk is (rows, slices, k) u64 scratch,
+// vals/ids the (rows, k) result.
+int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
+                       void* ids, int rows, int d, int v_orig, int valid,
+                       int col_offset, int k, int has_softcap, float softcap,
+                       void* stream) {
+  if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
+      d % wstream::kChunk || k < 1 || k > kMaxK || k > v_orig)
+    return (int)cudaErrorInvalidValue;
+  const wstream::Plan p = plan(rows, v_orig, k);
+  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.slices > kMaxSlices)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  u64* kp = static_cast<u64*>(pk);
+  CUtensorMap wmap, hmap;
+  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows);
+  if (e) return e;
+  cudaError_t err;
+#define TOPK_CASE(n)                                                    \
+  case n:                                                               \
+    err = launch_stream<n>(wmap, hmap, kp, rows, d, v_orig, valid,      \
+                           col_offset, k, p, has_softcap, softcap, s);  \
+    break;
+  switch (p.rows) {
+    TOPK_CASE(8) TOPK_CASE(16) TOPK_CASE(24) TOPK_CASE(32)
+    TOPK_CASE(40) TOPK_CASE(48) TOPK_CASE(56) TOPK_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TOPK_CASE
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_split, (rows + kRows - 1) / kRows);
-  topk_partial_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(h),
-      static_cast<const __nv_bfloat16*>(w), static_cast<float*>(pvals),
-      static_cast<int*>(pids), rows, d, v_orig, valid, col_offset, k, block_v,
-      n_split, has_softcap, softcap);
-  err = cudaGetLastError();
+  if (k == 1) {
+    key1_merge_kernel<<<(rows + 7) / 8, 256, 0, s>>>(
+        kp, static_cast<float*>(vals), static_cast<int*>(ids), rows,
+        p.slices, col_offset);
+    return (int)cudaGetLastError();
+  }
+  const int smem = p.slices * k * 8;
+  err = cudaFuncSetAttribute(topk_stream_merge_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return (int)err;
-  topk_merge_kernel<<<rows, kMergeThreads, 0, s>>>(
-      static_cast<const float*>(pvals), static_cast<const int*>(pids),
-      static_cast<float*>(vals), static_cast<int*>(ids), n_split * k, k);
+  topk_stream_merge_kernel<<<rows, kMergeThreads, smem, s>>>(
+      kp, static_cast<float*>(vals), static_cast<int*>(ids), p.slices, k,
+      col_offset);
   return (int)cudaGetLastError();
 }
 

@@ -1,34 +1,38 @@
 """Streaming per-row top-k of ``h @ W^T`` without the (B, V) logits.
 
 Replaces ``repro/kernels/sample_topk/kernel.py:_topk_kernel``, the Pallas
-TPU kernel, with a hand-written CUDA kernel for Hopper
+TPU kernel, with hand-written CUDA kernels for Hopper
 (`csrc/sample_topk.cu`, built by `repro_torch.kernels.build`).
 
-Bound on an H100 SXM: the kernel must read W once.  For qwen3-0.6b's
-padded lm_head (152064 x 1024 bf16, 311 MB) that is ~93 us at 3.35 TB/s,
-against ~2.5 us of bf16 tensor-core time for the 2.5 GFLOP of products at
-8 rows: it is memory-bound.  The design therefore streams W at full width
-from every SM at once: the vocab is cut into ``block_v``-column slices,
-one block each (the TPU kernel's sequential vocab axis has no counterpart
-on the GPU), each block keeps its slice's logits in shared memory and
-extracts a per-row top-k, and a second small kernel merges the
-``(rows, n_split, k)`` partials with the same tie rule.  See the source's
-header for the tile layout.
-
-Contract (the JAX kernel's): values f32 and global ids i32, sorted
-descending, ties to the lowest id; a column is live iff its local index is
-``< V`` and its global id ``local + col_offset < valid_vocab``.  On the
-card a NaN logit counts as -inf, and every id lies in
-``[col_offset, col_offset + V)``.
+The decode kernel takes the few rows of a decode step or a speculative
+verifier (any k <= 64).  Bound on an H100 SXM: it must read W once — for
+qwen3-0.6b's padded lm_head (152064 x 1024 bf16, 311 MB) ~93 us at 3.35
+TB/s, against ~2.5 us of bf16 tensor-core time at 8 rows: memory-bound.
+Its main loop is the W stream it shares with `score_tokens`
+(`kernels/common/wstream.cuh`): ~132 CTAs, each owning up to 64 rows of h
+and a slice of 128-column W tiles, stream W and h through a TMA ring into
+wgmma, with shared memory independent of d.  Each (value, id) is one
+64-bit key, so one compare is the contract's order; at k = 1 each thread
+keeps a running best, above that each row's top 64 stays sorted in shared
+memory and a tile's keys above its k-th are merged in by bitonic
+networks; a merge kernel (one CTA a row) folds the slices' sorted lists.
+Its plan (`core.windows.topk_stream_plan`) is checked against the
+source's twin before the first launch of each shape.
 
 A second kernel in the same source takes k = 1 over many rows (the MTP
 accuracy's 4096): there the products, not W's bytes, bound the work
 (1.28 TFLOP at 4096 rows, ~1.29 ms), so it tiles like a GEMM — 128 rows
 by 256 vocab columns a CTA, h and W streamed through a TMA ring into
 wgmma, the running (value, id) best of each row kept in registers — and
-a top-1 merge kernel.  `topk_scores` dispatches on ``plan.block_rows``:
-8 goes to the decode kernel (counter ``sample_topk``), 128 to the
-many-row one (counter ``sample_topk_rows``).
+a top-1 merge kernel.  `topk_scores` dispatches on the plan: the decode
+plan goes to the decode kernel (counter ``sample_topk``), the 128-row
+plan to the many-row one (counter ``sample_topk_rows``).
+
+Contract (the JAX kernel's): values f32 and global ids i32, sorted
+descending, ties to the lowest id; a column is live iff its local index is
+``< V`` and its global id ``local + col_offset < valid_vocab``.  On the
+card a NaN logit counts as -inf, and every id lies in
+``[col_offset, col_offset + V)``.
 
 `topk_scores_ref` is the plain PyTorch version: dense f32 logits, masked,
 then a STABLE descending sort (``torch.topk`` promises no order among
@@ -43,10 +47,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.windows import TOPK_ROWS, TOPK_ROWS_COLS, BlockPlan
+from repro_torch.core.windows import (TOPK_MAX_K, TOPK_ROWS, TOPK_ROWS_COLS,
+                                      BlockPlan, topk_decode_plan,
+                                      topk_stream_plan)
 from repro_torch.kernels import build
 
-MAX_K = 64                 # the kernel's per-lane taken mask is 64 bits
+MAX_K = TOPK_MAX_K         # the decode kernel's running list of a row
 LAUNCHES = build.counter("sample_topk")
 ROWS_LAUNCHES = build.counter("sample_topk_rows")
 
@@ -56,13 +62,12 @@ _configured = set()
 def _lib() -> ctypes.CDLL:
     lib = build.load("sample_topk")
     if id(lib) not in _configured:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sample_topk_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           i, i, i, ctypes.c_float, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sample_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, f, p]
         lib.sample_topk_launch.restype = i
-        lib.sample_topk_max_candidates.restype = i
         lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                i, i, i, ctypes.c_float, p]
+                                                i, i, i, f, p]
         lib.sample_topk_rows_launch.restype = i
         lib.sample_topk_rows_splits.argtypes = [i, i]
         lib.sample_topk_rows_splits.restype = i
@@ -139,22 +144,25 @@ def _check_cuda_args(h, w, k):
                          f", got k={k}")
 
 
-def check_plan(plan: BlockPlan, k: int) -> None:
-    """Raise ValueError unless a kernel takes `plan` at this k: an 8-row
-    decode plan, or the 128 x 256 many-row plan at k = 1.  Checked on
-    every device, so an explicit plan fails the same way on the CPU."""
-    bv = plan.block_v
+def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int) -> None:
+    """Raise ValueError unless a kernel takes `plan` for this call: the
+    decode kernel's own plan for (rows, V, k) (`topk_decode_plan`), or
+    the 128 x 256 many-row plan at k = 1.  An explicit plan picks the
+    kernel; its tiles are the kernel's.  Checked on every device, so an
+    explicit plan fails the same way on the CPU."""
     if plan.block_rows == TOPK_ROWS:
-        if bv != TOPK_ROWS_COLS:
+        if plan.block_v != TOPK_ROWS_COLS:
             raise ValueError(f"unsupported plan {plan}: the many-row kernel "
                              f"takes {TOPK_ROWS_COLS} columns a CTA")
         if k != 1:
             raise ValueError(f"the many-row plan {plan} takes k = 1 only, "
-                             f"got k={k}; larger k needs the 8-row plan")
-    elif plan.block_rows != 8 or bv % 128 or not 128 <= bv <= 2048:
-        raise ValueError(f"unsupported plan {plan}: the decode kernel takes "
-                         "8 rows and 128..2048 columns (a multiple of 128) a "
-                         f"block, the many-row kernel {TOPK_ROWS} x "
+                             f"got k={k}; larger k needs the decode plan")
+        return
+    want = topk_decode_plan(n_rows, vocab, k)
+    if plan != want:
+        raise ValueError(f"unsupported plan {plan}: the decode kernel's "
+                         f"plan for {n_rows} rows, V={vocab}, k={k} is "
+                         f"{want}, the many-row kernel's {TOPK_ROWS} x "
                          f"{TOPK_ROWS_COLS} at k = 1")
 
 
@@ -171,14 +179,14 @@ def topk_scores(
     """Per-row top-k of ``h @ w.T``: (values (B, k) f32, ids (B, k) i32).
 
     CPU tensors go to `topk_scores_ref`.  CUDA tensors go to a kernel,
-    which takes bf16 h (B, d) and w (V, d) with ``d % 64 == 0``,
-    ``1 <= k <= 64`` and the tiling `plan` (`ops.cuda_topk` resolves
-    one): an 8-row plan launches the decode kernel, the 128-row plan the
-    many-row kernel, which takes k = 1 only.  `w_scale`, `allowed_mask`
-    and `return_lse` are not on the serving path yet and raise
+    which takes bf16 h (B, d) and w (V, d) with ``d % 64 == 0`` (any d),
+    ``1 <= k <= 64`` and the `plan` (`ops.cuda_topk` resolves one): the
+    decode plan launches the decode kernel, the 128-row plan the many-row
+    kernel, which takes k = 1 only.  `w_scale`, `allowed_mask` and
+    `return_lse` are not on the serving path yet and raise
     NotImplementedError there."""
     if plan is not None:
-        check_plan(plan, k)
+        check_plan(plan, k, h.shape[0], w.shape[0])
     if h.device.type == "cpu":
         return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
                                logit_softcap=logit_softcap,
@@ -194,33 +202,33 @@ def topk_scores(
     if return_lse:
         raise NotImplementedError(
             "sample_topk on CUDA has no return_lse yet (ROADMAP A5)")
-    n, d = h.shape
-    v = w.shape[0]
-    valid = v if valid_vocab is None else valid_vocab
     if plan is None:
         raise ValueError("the kernel needs a BlockPlan (see ops.cuda_topk)")
     _check_cuda_args(h, w, k)
+    valid = w.shape[0] if valid_vocab is None else valid_vocab
     lib = _lib()
     if plan.block_rows == TOPK_ROWS:
         return _rows_top1(lib, h, w, valid, col_offset, logit_softcap)
-    n_split = -(-v // plan.block_v)
-    if n_split * k > lib.sample_topk_max_candidates():
-        raise ValueError(f"{n_split} vocab slices x k={k} exceed the merge "
-                         f"kernel's {lib.sample_topk_max_candidates()} "
-                         "candidates a row; use a larger block_v")
+    return _decode(lib, h, w, k, valid, col_offset, logit_softcap)
+
+
+def _decode(lib, h, w, k, valid, col_offset, logit_softcap):
+    """The decode kernel and its merge on its own plan, through
+    (B, slices, k) int64 scratch: (values (B, k) f32, ids (B, k) i32)."""
+    n, d = h.shape
+    v = w.shape[0]
+    sp = topk_stream_plan(n, v, k)
+    build.check_plan_twin(lib, "sample_topk_plan", (n, v, k), sp)
     dev = h.device
-    pvals = torch.empty((n, n_split, k), dtype=torch.float32, device=dev)
-    pids = torch.empty((n, n_split, k), dtype=torch.int32, device=dev)
+    pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((n, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sample_topk_launch(
-            h.data_ptr(), w.data_ptr(), pvals.data_ptr(), pids.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
-            int(col_offset), k, plan.block_v,
-            int(logit_softcap is not None),
-            float(logit_softcap or 0.0), stream)
+            h.data_ptr(), w.data_ptr(), pk.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), n, d, v, int(valid), int(col_offset), k,
+            int(logit_softcap is not None), float(logit_softcap or 0.0),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("sample_topk launch failed: "
                            + lib.sample_topk_error_string(err).decode())

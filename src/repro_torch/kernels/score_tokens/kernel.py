@@ -7,13 +7,16 @@ for Hopper (`csrc/score_tokens.cu`, built by `repro_torch.kernels.build`).
 Bound on an H100 SXM: the kernel must read W once.  For qwen3-0.6b's
 padded lm_head (152064 x 1024 bf16, 311 MB) that is ~93 us at 3.35 TB/s,
 against ~10 us of bf16 tensor-core time for the 10 GFLOP of products at
-the speculative verifier's 32 rows: it is memory-bound.  The design is
-`sample_topk`'s: the vocab is cut into ``block_v``-column slices, one
-block each, every block streams its slice of W once through ``mma.sync``
-against up to 32 rows of h held in shared memory and keeps per-row
-online-softmax ``(m, a)`` in f32; a second small kernel merges the
-slices' states in a fixed order.  The one slice that owns a candidate id
-writes its logit.  See the source's header.
+the speculative verifier's 32 rows: it is memory-bound.  The kernel is
+the W stream it shares with `sample_topk`'s decode kernel
+(`kernels/common/wstream.cuh`): ~132 CTAs, each owning up to 256 rows of
+h and a slice of 128-column W tiles, stream W and h through a TMA ring
+into wgmma, with shared memory independent of d (so any ``d % 64 ==
+0``); the epilogue keeps per-row online-softmax ``(m, a)`` in f32 on the
+CUDA cores, and a second small kernel merges the slices' states in a
+fixed order.  The one slice that owns a candidate id writes its logit.
+See the source's header.  The plan (`core.windows.score_plan`) is
+checked against the source's twin before the first launch of each shape.
 
 Contract (the JAX kernel's): a column is valid iff its local index is
 ``< V`` and its global id ``local + col_offset < valid_vocab``; logits are
@@ -32,35 +35,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.windows import score_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.score_tokens.ref import (inv_temperature,
                                                   score_stats_ref)
 
 LAUNCHES = build.counter("score_tokens")
-BLOCK_V = 256            # vocab columns a block: 594 blocks at V = 152064
-GROUP_ROWS = 8           # h rows of one mma n tile (score_tokens.cu)
-MAX_GROUPS = 4           # row groups a block stages, at most
-WARPS = 8                # warps a block
-MAX_SMEM = 232_448       # H100: dynamic shared memory a block can use
-
-
-def smem_bytes(groups: int, d: int, n_cand: int) -> int:
-    """Shared memory of a block staging `groups` row groups (a mirror of
-    the source's ``smem_bytes``): the rows of h (padded by 16 bytes), the
-    per-warp (m, a) of up to 32 rows, and the candidates the slice owns."""
-    rows = groups * GROUP_ROWS
-    return (rows * (d + 8) * 2 + 2 * WARPS * GROUP_ROWS * MAX_GROUPS * 4
-            + rows * n_cand * 2 * 4)
-
-
-def row_groups(n_rows: int, d: int, n_cand: int) -> int:
-    """Row groups a launch stages per block (a mirror of the source's
-    ``score_tokens_groups``): as many as the rows need, at most 4, and no
-    more than fit in shared memory; 0 when not even one group fits."""
-    groups = min(-(-n_rows // GROUP_ROWS), MAX_GROUPS)
-    while groups > 0 and smem_bytes(groups, d, n_cand) > MAX_SMEM:
-        groups -= 1
-    return groups
+MAX_CAND = 64            # candidates a row (score_tokens.cu kMaxCand)
 
 _configured = set()
 
@@ -70,14 +51,8 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.score_tokens_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, i, i, f, f, p]
+                                            i, i, f, f, p]
         lib.score_tokens_launch.restype = i
-        lib.score_tokens_smem_bytes.argtypes = [i, i, i]
-        lib.score_tokens_smem_bytes.restype = ctypes.c_longlong
-        lib.score_tokens_groups.argtypes = [i, i, i]
-        lib.score_tokens_groups.restype = i
-        lib.score_tokens_max_smem.restype = i
-        lib.score_tokens_max_cand.restype = i
         lib.score_tokens_error_string.argtypes = [i]
         lib.score_tokens_error_string.restype = ctypes.c_char_p
         _configured.add(id(lib))
@@ -124,12 +99,9 @@ def score_stats(
 
     h: (N, d); w: (V, d); ids: (N,) or (N, P) global ids.  CPU tensors go
     to `score_stats_ref`.  CUDA tensors go to the kernel, which takes bf16
-    h and w, int32 ids, all contiguous on one device, ``d % 64 == 0``,
-    ``1 <= P <= 64`` and a d small enough that one 8-row group of h fits
-    in shared memory beside the candidate list; a block stages as many
-    8-row groups (at most 4) as fit (`row_groups`: 4 at d 1024, 3 at d
-    4096).  It raises ValueError on anything else.  `w_scale` (quantized
-    heads) comes with ROADMAP A6."""
+    h and w, int32 ids, all contiguous on one device, ``d % 64 == 0`` (any
+    d) and ``1 <= P <= 64``, and raises ValueError on anything else.
+    `w_scale` (quantized heads) comes with ROADMAP A6."""
     if w_scale is not None and h.device.type != "cpu":
         raise NotImplementedError("score_tokens on CUDA has no w_scale "
                                   "(quantized lm_head) yet: ROADMAP A6")
@@ -141,32 +113,26 @@ def score_stats(
                                temperature=temperature,
                                col_offset=col_offset, w_scale=w_scale)
     _check_cuda_args(h, w, ids)
+    if ids.shape[1] > MAX_CAND:
+        raise ValueError(f"the kernel scores at most {MAX_CAND} candidates "
+                         f"a row, got P={ids.shape[1]}")
+    lib = _lib()
     n, d = h.shape
     v = w.shape[0]
     n_cand = ids.shape[1]
     valid = v if valid_vocab is None else valid_vocab
-    lib = _lib()
-    if n_cand > lib.score_tokens_max_cand():
-        raise ValueError(f"the kernel scores at most "
-                         f"{lib.score_tokens_max_cand()} candidates a row, "
-                         f"got P={n_cand}")
-    smem = lib.score_tokens_smem_bytes(n, d, n_cand)
-    if smem > lib.score_tokens_max_smem():
-        raise ValueError(f"{smem} bytes of shared memory a block (8 rows "
-                         f"of d={d} and {n_cand} candidates a row) exceed "
-                         f"the card's {lib.score_tokens_max_smem()}")
-    n_split = -(-v // BLOCK_V)
+    sp = score_plan(n, v, n_cand)
+    build.check_plan_twin(lib, "score_tokens_plan", (n, v, n_cand), sp)
     dev = h.device
-    part = torch.empty((n, n_split, 2), dtype=torch.float32, device=dev)
+    part = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
     lse = torch.empty((n,), dtype=torch.float32, device=dev)
     zc = torch.empty((n, n_cand), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # a no-op on the current device
         err = lib.score_tokens_launch(
             h.data_ptr(), w.data_ptr(), ids.data_ptr(), part.data_ptr(),
             lse.data_ptr(), zc.data_ptr(), n, d, v, int(valid),
-            int(col_offset), n_cand, BLOCK_V,
-            int(logit_softcap is not None), float(logit_softcap or 0.0),
-            inv_temperature(temperature),
+            int(col_offset), n_cand, int(logit_softcap is not None),
+            float(logit_softcap or 0.0), inv_temperature(temperature),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("score_tokens launch failed: "

@@ -128,9 +128,10 @@ def test_topk_rows_path_matches_plain_version(cuda, rows, v, cap, ties, off):
 @pytest.mark.cuda
 def test_topk_rows_path_masks_and_agrees_with_the_decode_kernel(cuda):
     """A row whose every column is masked gets -inf at the lowest id, as
-    the plain version's stable sort gives; an explicit 8-row plan at the
-    same shape reaches the decode kernel and agrees on every id."""
-    from repro_torch.core.windows import BlockPlan, tile_bytes
+    the plain version's stable sort gives; the decode kernel's plan,
+    given explicitly at the same shape, reaches the decode kernel and
+    agrees on every id."""
+    from repro_torch.core.windows import topk_decode_plan
     from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
                                                  cuda_topk, topk_scores_ref)
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -144,7 +145,7 @@ def test_topk_rows_path_masks_and_agrees_with_the_decode_kernel(cuda):
     before = (LAUNCHES.count, ROWS_LAUNCHES.count)
     rows_out = cuda_topk(h, w, 1, valid_vocab=4000)
     dec_out = cuda_topk(h, w, 1, valid_vocab=4000,
-                        plan=BlockPlan(8, 512, tile_bytes(8, 512, 128)))
+                        plan=topk_decode_plan(200, 5000, 1))
     torch.cuda.synchronize()
     assert (LAUNCHES.count, ROWS_LAUNCHES.count) == (before[0] + 1,
                                                      before[1] + 1)
@@ -707,29 +708,38 @@ def test_score_tokens_refuses_what_it_does_not_support(cuda):
                                       device=cuda))
     with pytest.raises(ValueError, match="int32"):
         score_stats(h, w, ids.long())
-    with pytest.raises(ValueError, match="shared memory"):
-        # not even one 8-row group of d 16384 fits (d 8192 now stages one)
-        score_stats(torch.zeros((32, 16384), dtype=torch.bfloat16,
-                                device=cuda),
-                    torch.zeros((64, 16384), dtype=torch.bfloat16,
-                                device=cuda),
-                    torch.zeros((32, 2), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="empty"):
+        score_stats(h, w, ids[:, :0])
     assert LAUNCHES.count == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,p", [(32, 1), (100, 64)])
 def test_score_tokens_at_d4096(cuda, n, p):
-    """paper-lm's width: 32 rows of h no longer fit a block, so the kernel
-    stages 3 groups of 8 (the source's choice equals the Python mirror)
-    and strides its row blocks by 24; held to the plain version, twice
-    bit for bit."""
+    """paper-lm's width: one row tile of 32 or 128 rows whatever d (the
+    source's plan equals the Python mirror); held to the plain version,
+    twice bit for bit."""
+    _score_wide(cuda, n, p, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d", [(32, 1, 12288), (40, 4, 16384)])
+def test_score_tokens_at_wide_d(cuda, n, p, d):
+    """mistral-large's d 12288 and d 16384: a CTA's shared memory does
+    not grow with d."""
+    _score_wide(cuda, n, p, d)
+
+
+def _score_wide(cuda, n, p, d):
+    from repro_torch.core.windows import score_plan
+    from repro_torch.kernels import build
     from repro_torch.kernels.score_tokens import (score_stats,
                                                   score_stats_ref)
-    from repro_torch.kernels.score_tokens.kernel import _lib, row_groups
-    v, d = 32768, 4096
-    assert _lib().score_tokens_groups(n, d, p) == row_groups(n, d, p) == 3
-    gen = torch.Generator(device=cuda).manual_seed(n + p)
+    from repro_torch.kernels.score_tokens.kernel import _lib
+    v = 32768
+    build.check_plan_twin(_lib(), "score_tokens_plan", (n, v, p),
+                          score_plan(n, v, p))
+    gen = torch.Generator(device=cuda).manual_seed(n + p + d)
     h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
     w = (torch.randn((v, d), generator=gen, device=cuda)
          / d ** 0.5).bfloat16()
@@ -742,3 +752,70 @@ def test_score_tokens_at_d4096(cuda, n, p):
     rl, rz = score_stats_ref(h, w, ids, temperature=0.7)
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12288, 16384])
+def test_topk_decode_at_wide_d(cuda, d):
+    """The verifier's 40 rows at k 40 on d 12288 and 16384 (a CTA's
+    shared memory does not grow with d): held to the plain version (ids
+    exact wherever the values are apart), two calls bit for bit."""
+    from repro_torch.kernels.sample_topk import cuda_topk, topk_scores_ref
+    v, valid = 32768, 32700
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    h = torch.randn((40, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    vals, ids = cuda_topk(h, w, 40, valid_vocab=valid)
+    vals2, ids2 = cuda_topk(h, w, 40, valid_vocab=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, vals2) and torch.equal(ids, ids2)
+    rv, ri = topk_scores_ref(h, w, 40, valid_vocab=valid)
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (vals, ids, rv, ri))
+    np.testing.assert_allclose(vals, rv, rtol=1e-5, atol=1e-4)
+    gap = np.abs(np.diff(rv, axis=1)) > 1e-4
+    sep = np.ones_like(ids, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+    assert np.all((ids >= 0) & (ids < valid))
+
+
+@pytest.mark.cuda
+def test_stream_plans_equal_their_source_twins(cuda):
+    """The Python plans the wrappers launch with are the sources' own, for
+    rows 1..1000, V 100..262144 and every P / k bucket."""
+    from repro_torch.core.windows import score_plan, topk_stream_plan
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sample_topk.kernel import _lib as topk_lib
+    from repro_torch.kernels.score_tokens.kernel import _lib as score_lib
+    for rows in (1, 8, 9, 40, 64, 65, 100, 129, 256, 257, 1000):
+        for v in (100, 20_000, 32_768, 152_064, 262_144):
+            for x in (1, 4, 40, 64):
+                build.check_plan_twin(score_lib(), "score_tokens_plan",
+                                      (rows, v, x), score_plan(rows, v, x))
+                build.check_plan_twin(topk_lib(), "sample_topk_plan",
+                                      (rows, v, x),
+                                      topk_stream_plan(rows, v, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k", [(8, 1), (40, 40), (100, 64)])
+def test_topk_decode_ties_go_to_lowest_id(cuda, rows, k):
+    """On data full of ties (h and W in steps of 1/2, exact products) the
+    decode kernel equals the plain version's stable sort bit for bit, so
+    ties go to the lowest id; two calls are bit-identical."""
+    from repro_torch.kernels.sample_topk import cuda_topk, topk_scores_ref
+    gen = torch.Generator(device=cuda).manual_seed(rows + k)
+    v, d = 20_000, 512
+    h = (torch.round(torch.randn((rows, d), generator=gen, device=cuda)
+                     * 2) / 2).bfloat16()
+    w = (torch.round(torch.randn((v, d), generator=gen, device=cuda) * 2)
+         / 2).bfloat16()
+    vals, ids = cuda_topk(h, w, k, valid_vocab=v - 7)
+    vals2, ids2 = cuda_topk(h, w, k, valid_vocab=v - 7)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, vals2) and torch.equal(ids, ids2)
+    rv, ri = topk_scores_ref(h, w, k, valid_vocab=v - 7)
+    assert torch.equal(ids, ri)
+    torch.testing.assert_close(vals, rv, rtol=0, atol=0)

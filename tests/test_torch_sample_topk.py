@@ -117,42 +117,80 @@ def test_reference_options_match_jax_kernel(masked, lse, quant):
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("vocab,d,want_bv", [
-    (152064, 1024, 512),       # qwen3-0.6b's padded head: ~300 blocks
-    (512, 64, 512), (200, 64, 128), (50, 16, 128),
-    (152064, 13824, 256)])     # wide rows: halved to fit shared memory
-def test_choose_blocks_fits_hopper_shared_memory(vocab, d, want_bv):
-    from repro_torch.core.windows import SMEM_BYTES, choose_blocks
-    plan = choose_blocks(8, vocab, d)
-    assert plan.shape == (8, want_bv)
-    assert plan.vmem_bytes == 8 * (2 * d + 16) + 8 * want_bv * 4
-    assert plan.vmem_bytes <= SMEM_BYTES
+_PLAN_ROWS = [1, 2, 7, 8, 9, 16, 33, 40, 63, 64, 65, 100, 127, 128, 129,
+              255, 256, 257, 513, 1000]
+_PLAN_VOCABS = [50, 128, 129, 200, 512, 20_000, 32_768, 152_064, 262_144]
 
 
-def test_choose_blocks_refuses_rows_too_wide_for_a_block():
-    from repro_torch.core.windows import choose_blocks
-    with pytest.raises(ValueError, match="shared memory"):
-        choose_blocks(8, 152064, 16384)
+@pytest.mark.parametrize("k", [1, 2, 8, 40, 64])
+def test_decode_plan_fits_and_covers_the_vocab(k):
+    """The decode kernel's plan (a mirror of `sample_topk.cu`'s, checked
+    against it on the card) for rows 1..1000 at each k: R a wgmma width
+    of at most 64 rows, row tiles that cover the rows, vocab slices that
+    cover V's 128-column tiles exactly (no gap, no overlap), ~132 CTAs,
+    2..8 ring stages, and a CTA's shared memory within the card's
+    232,448 bytes.  d is not an input of the plan (a ring stage holds 64
+    k columns), so every width the reference's configs use (up to 16384)
+    takes the same plan; the `cuda` tests run d 12288 and 16384."""
+    from repro_torch.core.windows import (SMEM_BYTES, stream_stage_bytes,
+                                          topk_decode_plan, topk_stream_plan)
+    from repro_torch.kernels.sample_topk import default_plan
+    widths = {8, 16, 24, 32, 40, 48, 56, 64}
+    for rows in _PLAN_ROWS:
+        for v in _PLAN_VOCABS:
+            p = topk_stream_plan(rows, v, k)
+            assert p.rows in widths
+            assert p.row_tiles * p.rows >= rows
+            assert (p.row_tiles - 1) * p.rows < rows
+            n_tiles = -(-v // 128)
+            spans = [(s * p.per, min((s + 1) * p.per, n_tiles))
+                     for s in range(p.slices)]
+            assert spans[0][0] == 0 and spans[-1][1] == n_tiles
+            assert all(lo < hi for lo, hi in spans)
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            assert p.row_tiles * p.slices <= max(132, p.row_tiles)
+            assert 2 <= p.stages <= 8
+            assert p.smem_bytes <= SMEM_BYTES
+            assert p.smem_bytes >= p.stages * stream_stage_bytes(p.rows)
+            if k > 1 or rows < 128:
+                plan = topk_decode_plan(rows, v, k)
+                assert default_plan(rows, v, k) == plan
+                assert plan.shape == (p.rows, p.per * 128)
+                assert plan.vmem_bytes == p.smem_bytes
+
+
+@pytest.mark.parametrize("rows,k,want", [
+    (1, 1, (8, 1, 9, 132, 8)), (8, 40, (8, 1, 9, 132, 8)),
+    (40, 40, (40, 1, 9, 132, 7)), (64, 64, (64, 1, 9, 132, 4)),
+    (100, 40, (56, 2, 18, 66, 5)), (1000, 40, (64, 16, 149, 8, 4))])
+def test_decode_plan_at_the_serving_shapes(rows, k, want):
+    """qwen3-0.6b's padded head (152064 columns, 1188 tiles): a decode
+    step's rows and the verifier's 40 take one row tile and 132 slices of
+    9 tiles; more rows take tiles of at most 64, each slice walked by
+    every row tile side by side."""
+    from repro_torch.core.windows import topk_stream_plan
+    p = topk_stream_plan(rows, 152064, k)
+    assert (p.rows, p.row_tiles, p.per, p.slices, p.stages) == want
 
 
 @pytest.mark.parametrize("rows,k,want_rows", [
-    (1, 1, 8), (8, 1, 8), (127, 1, 8),          # decode sizes
+    (1, 1, 8), (8, 1, 8), (127, 1, 64),         # decode sizes
     (128, 1, 128), (129, 1, 128), (4096, 1, 128),  # the many-row path
-    (4096, 2, 8), (4096, 40, 8), (128, 64, 8)])   # any k > 1: decode
+    (4096, 2, 64), (4096, 40, 64), (128, 64, 64)])  # any k > 1: decode
 def test_cuda_topk_plan_choice(rows, k, want_rows):
     """Without a plan, `cuda_topk` takes the many-row top-1 plan only for
     k = 1 from TOPK_ROWS_MIN rows on; every other call keeps the decode
-    plan of `choose_blocks`."""
-    from repro_torch.core.windows import (TOPK_ROWS_MIN, choose_blocks,
+    kernel's plan, `topk_decode_plan`."""
+    from repro_torch.core.windows import (TOPK_ROWS_MIN, topk_decode_plan,
                                           topk_rows_plan)
     from repro_torch.kernels.sample_topk import default_plan
     assert TOPK_ROWS_MIN == 128
-    plan = default_plan(rows, 152064, 1024, k)
+    plan = default_plan(rows, 152064, k)
     assert plan.block_rows == want_rows
     if want_rows == 128:
         assert plan == topk_rows_plan()
     else:
-        assert plan == choose_blocks(rows, 152064, 1024)
+        assert plan == topk_decode_plan(rows, 152064, k)
 
 
 def test_topk_rows_plan_fits_hopper_shared_memory():
@@ -167,20 +205,22 @@ def test_topk_rows_plan_fits_hopper_shared_memory():
 
 @pytest.mark.parametrize("plan,k,ok", [
     ((128, 256), 1, True), ((128, 256), 2, False), ((128, 256), 40, False),
-    ((128, 128), 1, False), ((8, 512), 40, True), ((8, 512), 1, True),
-    ((16, 512), 1, False), ((8, 96), 1, False), ((8, 4096), 1, False)])
+    ((128, 128), 1, False), ("decode", 40, True), ("decode", 1, True),
+    ((16, 1152), 1, False), ((8, 96), 1, False), ((8, 512), 40, False)])
 def test_wrapper_plan_checks(plan, k, ok):
     """An explicit plan is checked on every device: the decode kernel
-    takes 8 rows and 128..2048 columns (a multiple of 128), the many-row
-    kernel 128 x 256 and k = 1 only."""
-    from repro_torch.core.windows import BlockPlan
+    takes its own plan for the call's shape (`topk_decode_plan`; at 8 rows
+    and V 152064, 8 rows and 9 tiles of 128 columns a slice), the
+    many-row kernel 128 x 256 and k = 1 only."""
+    from repro_torch.core.windows import BlockPlan, topk_decode_plan
     from repro_torch.kernels.sample_topk import check_plan
-    bp = BlockPlan(*plan, 0)
+    bp = (topk_decode_plan(8, 152064, k) if plan == "decode"
+          else BlockPlan(*plan, 0))
     if ok:
-        check_plan(bp, k)
+        check_plan(bp, k, 8, 152064)
     else:
         with pytest.raises(ValueError):
-            check_plan(bp, k)
+            check_plan(bp, k, 8, 152064)
 
 
 def test_many_row_plan_on_cpu_tensors():

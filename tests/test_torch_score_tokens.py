@@ -168,27 +168,56 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         K.score_stats(_t(h), _t(w), _t(ids[:2]))
 
 
-@pytest.mark.parametrize("p", [1, 4, 16, 64])
-def test_row_groups_fit_shared_memory(p):
-    """The Python mirror of the kernel's row-group choice: 4 groups of 8
-    rows at d 1024 (unchanged), 3 at d 4096 for any P up to 64 (32 rows
-    of h alone would take 262,656 bytes), as many as the rows need below
-    that, and a block that fits the card's 232,448 bytes in every case;
-    0 only where not even one group fits."""
-    from repro_torch.kernels.score_tokens.kernel import (MAX_SMEM,
-                                                         row_groups,
-                                                         smem_bytes)
-    for rows in (25, 32, 100, 4096):
-        assert row_groups(rows, 1024, p) == 4
-        assert row_groups(rows, 4096, p) == 3
-    assert [row_groups(r, 4096, p) for r in (1, 8, 9, 16, 17, 24)] == [
-        1, 1, 2, 2, 3, 3]
-    for d in (64, 1024, 2048, 4096, 8192):
-        for rows in (1, 8, 24, 32, 100):
-            g = row_groups(rows, d, p)
-            assert 1 <= g <= 4
-            assert smem_bytes(g, d, p) <= MAX_SMEM
-            if g < min(4, -(-rows // 8)):
-                assert smem_bytes(g + 1, d, p) > MAX_SMEM
-    assert 32 * (4096 + 8) * 2 == 262_656 > MAX_SMEM
-    assert row_groups(32, 16384, p) == 0
+_PLAN_ROWS = [1, 3, 4, 8, 9, 24, 25, 32, 40, 64, 65, 100, 128, 129, 200,
+              256, 257, 513, 1000]
+_PLAN_VOCABS = [64, 128, 1_000, 20_000, 32_768, 152_064, 262_144]
+
+
+@pytest.mark.parametrize("p_cand", [1, 4, 16, 64])
+def test_stream_plan_fits_and_covers_the_vocab(p_cand):
+    """`score_plan` (a mirror of `score_tokens.cu`'s plan, checked against
+    it on the card) for rows 1..1000 at each P: R a wgmma width of at
+    most 256 rows, row tiles that cover the rows, vocab slices that cover
+    V's 128-column tiles exactly (no gap, no overlap) with a column index
+    that fits the candidate list's 16 bits, ~132 CTAs, 2..8 ring stages,
+    and a CTA's shared memory (ring, barriers, the warps' (m, a), the
+    candidate list) within the card's 232,448 bytes.  d is not an input
+    of the plan (a ring stage holds 64 k columns), so every width the
+    reference's configs use (up to 16384) takes the same plan; the `cuda`
+    tests run d 12288 and 16384."""
+    from repro_torch.core.windows import (SMEM_BYTES, score_plan,
+                                          stream_stage_bytes)
+    widths = {8, 16, 24, 32, 40, 48, 56, 64, 128, 256}
+    for rows in _PLAN_ROWS:
+        for v in _PLAN_VOCABS:
+            p = score_plan(rows, v, p_cand)
+            assert p.rows in widths
+            assert p.row_tiles * p.rows >= rows
+            assert (p.row_tiles - 1) * p.rows < rows
+            n_tiles = -(-v // 128)
+            spans = [(s * p.per, min((s + 1) * p.per, n_tiles))
+                     for s in range(p.slices)]
+            assert spans[0][0] == 0 and spans[-1][1] == n_tiles
+            assert all(lo < hi for lo, hi in spans)
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            assert p.per * 128 <= 1 << 16
+            assert p.rows * p_cand <= 1 << 16
+            assert p.row_tiles * p.slices <= 132
+            assert 2 <= p.stages <= 8
+            assert p.smem_bytes <= SMEM_BYTES
+            assert p.smem_bytes >= (p.stages * stream_stage_bytes(p.rows)
+                                    + p.rows * p_cand * 4)
+
+
+@pytest.mark.parametrize("rows,v,p_cand,want", [
+    (32, 152064, 1, (32, 1, 9, 132, 8)),       # the verifier's rows
+    (4, 152064, 1, (8, 1, 9, 132, 8)),         # a self-spec prefill
+    (100, 32768, 64, (128, 1, 2, 128, 5)),     # paper-lm's width, P 64
+    (1000, 152064, 1, (256, 4, 36, 33, 4)),    # a 1000-row shard
+    (256, 32768, 64, (256, 1, 2, 128, 3))])    # the largest row tile
+def test_stream_plan_at_the_serving_shapes(rows, v, p_cand, want):
+    """Up to 256 rows take one row tile (W read once); the vocab splits
+    into ~132 slices; the ring keeps 3..8 stages."""
+    from repro_torch.core.windows import score_plan
+    p = score_plan(rows, v, p_cand)
+    assert (p.rows, p.row_tiles, p.per, p.slices, p.stages) == want
