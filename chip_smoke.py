@@ -23,12 +23,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      `torch.topk(h @ w.T, k)` yardstick; then
      the fused-CE forward, dH and dW kernels at the training shape
      (8192 rows against the same head) — plain, softcap 30, label
-     smoothing 0.1 with z-loss 1e-4, 10% ignored rows — and at 1000
+     smoothing 0.1 with z-loss 1e-4, 10% ignored rows — at phase 8 (c)'s
+     4096 rows, and at 1000
      rows with a shard offset and at d = 4096 (512 rows, V 32768), each
-     held to its plain version (f32 logits, TF32 off), dH and dW run
-     twice for bit identity, and timed beside
+     held to its plain version (f32 logits, TF32 off), the forward, dH
+     and dW run twice for bit identity, and timed beside
      its bound, the plain version and the canonical two-stage loss in
-     PyTorch (``h @ w.T`` in cuBLAS, ``F.cross_entropy`` on f32 logits),
+     PyTorch (``h @ w.T`` in cuBLAS, ``F.cross_entropy`` on f32 logits;
+     cuBLAS's ``h @ w.T`` alone is printed beside it as a reading of what
+     the card's own GEMM reaches),
      with the peak memory of both losses' forward + backward, and the
      backward kernels' `cudaOccupancyMaxActiveClusters` at clusters of 4
      (d 1024) and 16 (d 4096); then the
@@ -133,9 +136,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
-ghost rows and with a poisoned null block, each timed beside its bound,
-its plain version and `F.scaled_dot_product_attention` over the
-gathered K/V; and `score_tokens` on the padded head at the spec shape
+ghost rows, with a poisoned null block and at phase 6's Tq 5, two calls
+bit for bit, each with its split plan and timed by its device time under
+`torch.profiler` (`device_ms`; CUDA events over back-to-back calls of a
+few-microsecond kernel read the host's launch rate, printed beside it)
+against its bound, its plain version and
+`F.scaled_dot_product_attention` over the gathered K/V; and `score_tokens` on the padded head at the spec shape
 (rows 32, P 1, T 0.7), the self-spec prefill's 4 head rows at T 0.7,
 the eval shape (rows 8), rows 32 with P 4,
 softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
@@ -317,36 +323,45 @@ def check_top1(np, vals, ids, rv2, ri2, exact_ids):
     return float(np.max(np.abs(vals[fin, 0] - rv[fin]))), int(sep.sum())
 
 
-def split_ms(torch, call, iters=20):
-    """(stream kernel ms, merge kernel ms) of a wrapper call that launches
-    a W-stream kernel and its merge: the device time of each launch under
-    `torch.profiler`, told apart by the kernels' names and averaged over
-    `iters` calls.  CUDA events around a merge alone would read the
-    host's launch rate: the merge runs a few microseconds.  Fails if the
-    profiler saw neither launch."""
+def device_ms(torch, call, parts, iters=20, attempts=3):
+    """{label: device ms a call} of the launches of a wrapper call under
+    `torch.profiler`, averaged over `iters` calls: each CUDA event goes to
+    the first (label, name substring) of `parts` that its kernel's name
+    holds.  CUDA events around a kernel of a few microseconds would read
+    the host's launch rate.  Fails if a launch matches no part, or if a
+    part saw none in `attempts` profiled windows (the profiler has been
+    seen to return a window with no device events at all)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    part = merge = 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "merge" in e.name:
-            merge += e.time_range.elapsed_us()
-        elif "stream_kernel" in e.name:
-            part += e.time_range.elapsed_us()
-        else:
-            raise AssertionError(f"the call launched {e.name}, neither its "
-                                 "stream kernel nor its merge")
-    if part == 0.0 or merge == 0.0:
-        raise AssertionError("the profiler saw no stream or merge launch")
-    return part / iters / 1e3, merge / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        us = {label: 0.0 for label, _ in parts}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            label = next((lb for lb, sub in parts if sub in e.name), None)
+            if label is None:
+                raise AssertionError(f"the call launched {e.name}, none of "
+                                     f"{[sub for _, sub in parts]}")
+            us[label] += e.time_range.elapsed_us()
+        if all(us.values()):
+            return {label: t / iters / 1e3 for label, t in us.items()}
+    raise AssertionError(f"the profiler saw no launch of some of {parts} "
+                         f"in {attempts} windows: {us}")
+
+
+def split_ms(torch, call, iters=20):
+    """(stream kernel ms, merge kernel ms) of a wrapper call that launches
+    a W-stream kernel and its merge (`device_ms`)."""
+    ms = device_ms(torch, call, (("merge", "merge"),
+                                 ("stream", "stream_kernel")), iters)
+    return ms["stream"], ms["merge"]
 
 
 def phase_topk(torch, np, arch, dev):
@@ -532,6 +547,7 @@ def phase_fused_ce(torch, np, arch, dev):
     cases = [
         # name, n, v, d, valid, col_offset, cfg kwargs, ignored share
         ("main", n0, v0, d0, valid0, 0, {}, 0.0),
+        ("rows4096", n0 // 2, v0, d0, valid0, 0, {}, 0.0),  # phase 8 (c)
         ("softcap30", n0, v0, d0, valid0, 0, {"logit_softcap": 30.0}, 0.0),
         ("smooth0.1_z1e-4", n0, v0, d0, valid0, 0,
          {"label_smoothing": 0.1, "z_loss": 1e-4}, 0.0),
@@ -556,6 +572,11 @@ def phase_fused_ce(torch, np, arch, dev):
         kw = dict(col_offset=off, total_valid=valid)
 
         stats = fwd_stats(h, w, y, cfg, **kw)
+        # no atomics: a second call gives the same bits
+        if not all(torch.equal(a, b) for a, b in zip(
+                stats, fwd_stats(h, w, y, cfg, **kw))):
+            raise AssertionError(f"fused_ce {name}: two forward calls "
+                                 "differ")
         torch.cuda.synchronize()
         want = ref_stats(h, w, y, cfg, **kw)
         for got, ref, atol in zip(stats, want, (VAL_ATOL, VAL_ATOL,
@@ -591,7 +612,7 @@ def phase_fused_ce(torch, np, arch, dev):
         print(f"[kernel] fused_ce {name} (n {n}, V {v}, d {d}, valid "
               f"{valid}, offset {off}): max_abs_err fwd {err_f:.3g}, dH "
               f"{err_dh:.3g} (rel fro {fro['dh']:.3g}), dW {err_dw:.3g} "
-              f"(rel fro {fro['dw']:.3g}); dH and dW two calls "
+              f"(rel fro {fro['dw']:.3g}); forward, dH and dW two calls "
               "bit-identical", flush=True)
         row = {}
         for kind, fn, plain in (
@@ -620,6 +641,10 @@ def phase_fused_ce(torch, np, arch, dev):
                     library_loss(torch, hl, wl, y, cfg, valid), wrt)
 
             lib = dict(fwd=cuda_ms(torch, lib_fwd, iters=3, warmup=1),
+                       # the card's own GEMM on the forward's product: a
+                       # reading of what cuBLAS reaches, not a yardstick
+                       gemm=cuda_ms(torch, lambda: h @ w.T, iters=3,
+                                    warmup=1),
                        dh=cuda_ms(torch, lib_grad(hl), iters=3, warmup=1),
                        dw=cuda_ms(torch, lib_grad(wl), iters=3, warmup=1),
                        both=cuda_ms(torch, lib_grad(hl, wl), iters=3,
@@ -640,11 +665,13 @@ def phase_fused_ce(torch, np, arch, dev):
             r = row[kind]
             lib_txt = (f"{r['library_ms']:.3f}" if r["library_ms"]
                        is not None else "n/a")
+            gemm = (f", cuBLAS h @ w.T {lib['gemm']:.3f} ms"
+                    if kind == "fwd" and lib else "")
             print(f"[kernel] fused_ce_{kind} {name}: {r['ms']:.3f} ms vs "
                   f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
                   f"{r['plain_ms']:.3f} ms, canonical loss "
                   f"{'forward' if kind == 'fwd' else 'forward + d' + kind[1]}"
-                  f" {lib_txt} ms", flush=True)
+                  f" {lib_txt} ms{gemm}", flush=True)
         if lib:
             print(f"[kernel] fused_ce {name} forward + backward: kernels "
                   f"{lib['kernel_both']:.3f} ms, peak {lib['kernel_mem_mib']:.0f}"
@@ -1404,6 +1431,7 @@ def paged_bound_ms(q, kp, lens, capacity):
 
 def phase_paged_attn(torch, np, dev):
     import torch.nn.functional as F
+    from repro_torch.core.windows import paged_plan
     from repro_torch.kernels.paged_attn import (gather_paged_kv,
                                                 paged_attention,
                                                 paged_attention_ref)
@@ -1411,7 +1439,9 @@ def phase_paged_attn(torch, np, dev):
     b, nq, nkv, hd, bs, nb = 8, 16, 8, 128, 16, 32
     cases = [("decode", 1, None, "seeded"), ("full512", 1, None, "full"),
              ("tq4_softcap30", 4, 30.0, "seeded"), ("ghost", 1, None, "zero"),
-             ("null_poison", 1, None, "poison")]
+             ("null_poison", 1, None, "poison"),
+             # the speculative verifier's 8 x (4 + 1) rows (phase 6)
+             ("tq5", 5, None, "seeded")]
     results = {}
     for i, (name, tq, cap, kind) in enumerate(cases):
         gen = torch.Generator(device=dev).manual_seed(100 + i)
@@ -1444,8 +1474,15 @@ def phase_paged_attn(torch, np, dev):
         if kind == "zero" and bool(out.abs().max() != 0):
             raise AssertionError("paged_attn: ghost rows are not zero")
         err = float((out.float() - ref.float()).abs().max())
-        ms = cuda_ms(torch, lambda: paged_attention(q, kp, vp, table, lens,
-                                                    softcap=cap), iters=50)
+        def call():
+            return paged_attention(q, kp, vp, table, lens, softcap=cap)
+
+        if not torch.equal(out, call()):
+            raise AssertionError(f"paged_attn {name}: two calls differ")
+        # the kernel's own time, and the event time over back-to-back
+        # calls, which at a few microseconds a launch is the host's rate
+        ms = device_ms(torch, call, (("kernel", "paged_attn"),))["kernel"]
+        event_ms = cuda_ms(torch, call, iters=50)
         plain_ms = cuda_ms(torch, lambda: paged_attention_ref(
             q, kp, vp, table, lens, softcap=cap))
         # the yardstick: SDPA over the gathered chains, causal on absolute
@@ -1459,14 +1496,18 @@ def phase_paged_attn(torch, np, dev):
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask, enable_gqa=True), iters=50)
         bound_ms, bound_by = paged_bound_ms(q, kp, lens, nb * bs)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+        sp = paged_plan(b, nkv, nb, bs, hd, nq // nkv * tq)
+        results[name] = dict(max_abs_err=err, ms=ms, event_ms=event_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
         print(f"[kernel] paged_attn {name} (B {b}, Tq {tq}, nq {nq}, nkv "
               f"{nkv}, hd {hd}, bs {bs}, nb {nb}, lens "
-              f"{lens.min().item()}..{lens.max().item()}, softcap {cap}): "
-              f"max_abs_err {err:.3g} (atol {PAGED_ATOL}), {ms:.4f} ms vs "
-              f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} "
+              f"{lens.min().item()}..{lens.max().item()}, softcap {cap}; "
+              f"plan {sp.splits} splits of {sp.pages} pages, {sp.keys}-key "
+              f"tiles, {sp.smem_bytes} B): max_abs_err {err:.3g} (atol "
+              f"{PAGED_ATOL}), two calls bit-identical; device {ms:.4f} ms "
+              f"vs bound {bound_ms:.4f} ms ({bound_by}), events over "
+              f"back-to-back calls {event_ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, sdpa over the gathered K/V {library_ms:.4f} ms",
               flush=True)
     return results
@@ -2144,7 +2185,9 @@ def main():
         "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
         "launches": paged_launches["paged_attn"],
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        # device time under torch.profiler; event_ms reads the launch rate
+        "ms": row["ms"], "event_ms": row["event_ms"],
+        "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]})
     row = score["spec_rows32_t0.7"]         # the speculative verifier's rows

@@ -23,12 +23,13 @@ against the C twin; `score_plan` and `topk_decode_plan` add each
 kernel's epilogue.  `sample_topk`'s many-row top-1 path has one fixed
 plan, `topk_rows_plan` (128 rows by 256 columns a CTA, GEMM-shaped),
 which `sample_topk.ops.cuda_topk` picks for k = 1 from `TOPK_ROWS_MIN`
-rows on.  The fused-CE kernels of a training step see thousands of rows
-and have their own rule, `choose_ce_plan`: fixed 128 x 128 forward tiles
-and 64-row backward blocks (compile-time in `fused_ce.cu`), and a vocab
-split of the forward grid sized so that even a few hundred rows fill the
-card.  The gradient filter works on one 64 x 64 tile grid
-(`ce_tile_grid`) for the statistic, the mask and both backward kernels.
+rows on.  The fused-CE forward shares that kernel's main loop
+(`kernels/common/rowtile.cuh`), and `choose_ce_plan` mirrors its vocab
+split (~8 waves of 128 x 256 CTAs); the backward's 64-row blocks are
+compile-time in `fused_ce.cu`.  `paged_plan` mirrors `paged_attn`'s split
+of each block chain across CTAs.  The gradient filter works on one 64 x
+64 tile grid (`ce_tile_grid`) for the statistic, the mask and both
+backward kernels.
 """
 
 from __future__ import annotations
@@ -168,9 +169,11 @@ def topk_rows_plan() -> BlockPlan:
 # fused-CE kernels (training): their own plan rule
 # ---------------------------------------------------------------------------
 
-CE_FWD_ROWS = 128               # forward tile rows   (fused_ce.cu kFwdRows)
-CE_FWD_COLS = 128               # forward tile columns (kFwdCols)
-CE_FWD_SLOTS = 2 * N_SMS        # forward blocks resident at once
+# the fused-CE forward runs on the many-row GEMM of `sample_topk`'s top-1
+# path (kernels/common/rowtile.cuh): 128 x 256 tiles, ~8 waves of CTAs
+CE_FWD_ROWS = TOPK_ROWS         # forward tile rows    (rowtile::kRows)
+CE_FWD_COLS = TOPK_ROWS_COLS    # forward tile columns (rowtile::kCols)
+CE_FWD_WAVES = 8                # CTAs in flight an SM (rowtile::kWaves)
 # the tile grid shared by the forward's tile statistic (a quarter of a
 # forward tile), the skip mask and both backward kernels: a dH block owns
 # CE_TILE_ROWS rows of h and streams W in CE_TILE_COLS-row tiles, a dW
@@ -188,8 +191,8 @@ def ce_tile_grid(n_rows: int, vocab: int):
 @dataclasses.dataclass(frozen=True)
 class CEPlan:
     """Launch plan of the fused-CE kernels: the number of vocab slices the
-    forward grid cuts W into (one block per (row block, slice)).  The
-    tiles are fixed in the source: ``shape`` is the forward tile, and the
+    forward grid cuts W into (one CTA per (row tile, slice)).  The tiles
+    are fixed in the source: ``shape`` is the forward tile, and the
     backward grids are (d / 256, rows / 64) for dH, in clusters of d / 256
     CTAs, and (V / 64, d / 256) for dW."""
     v_splits: int
@@ -197,12 +200,72 @@ class CEPlan:
 
 
 def choose_ce_plan(n_rows: int, vocab: int, d: int) -> CEPlan:
-    """Forward vocab split: as many slices as keep ~`CE_FWD_SLOTS` blocks
-    in one wave (rounded down, so 8192 rows -> 64 row blocks x 4 slices
-    = 256 blocks), never more slices than vocab tiles.  Few rows get many
-    slices (1000 rows -> 8 x 33); the partials are merged in a second
-    kernel."""
+    """Forward vocab split, the source's `rowtile::splits`: as many slices
+    as give ~`CE_FWD_WAVES` waves of CTAs over the 132 SMs, never more
+    than the vocab's 256-column tiles, then as few as hold the same tiles
+    a slice (8192 rows -> 64 row tiles x 17 slices of 35 tiles; 1000 rows
+    -> 8 x 119).  The partials are merged in a second kernel; d does not
+    enter."""
     del d
-    row_blocks = -(-max(n_rows, 1) // CE_FWD_ROWS)
+    row_tiles = -(-max(n_rows, 1) // CE_FWD_ROWS)
     tiles = -(-max(vocab, 1) // CE_FWD_COLS)
-    return CEPlan(max(1, min(tiles, CE_FWD_SLOTS // row_blocks)))
+    want = max(1, min(tiles, -(-CE_FWD_WAVES * N_SMS // row_tiles)))
+    per = -(-tiles // want)
+    return CEPlan(-(-tiles // per))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (kernels/paged_attn): the split of each chain
+# ---------------------------------------------------------------------------
+
+PAGED_TILE_KEYS = 64            # keys a tile, at most (paged_attn.cu)
+PAGED_MIN_TILE_KEYS = 16        # one mma k step
+PAGED_STAGES = 2                # its cp.async ring
+PAGED_SLOTS = 2 * N_SMS         # CTAs the card holds at once
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """A `paged_attn` launch: tiles of `keys` keys, `pages` pages of the
+    block table a split, `splits` splits (grid (B, nkv, splits)) and
+    `smem_bytes` of dynamic shared memory a CTA."""
+    keys: int
+    pages: int
+    splits: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def paged_smem_bytes(keys: int, head_dim: int, rows: int) -> int:
+    """A CTA's shared memory (`paged_attn.cu` ``smem_bytes``): the K and V
+    rings of `keys`-key tiles (head dim padded to 16, rows 16 bytes
+    longer), q, the f32 scores (then p as bf16 hi / lo) and acc of the
+    query rows padded to 16, their m, a and alpha, and a flag."""
+    hdp, rp = _round16(head_dim), _round16(rows)
+    ldk = hdp + 8
+    return (2 * PAGED_STAGES * keys * ldk * 2 + rp * ldk * 2
+            + rp * (keys + 4) * 4 + rp * (hdp + 4) * 4 + 3 * rp * 4 + 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_plan(batch: int, n_kv: int, table_width: int, block_size: int,
+               head_dim: int, rows: int) -> PagedPlan:
+    """The source's plan (`paged_attn.cu` ``plan``): the widest tile (64,
+    32 or 16 keys) whose shared memory fits, then pages a split such that
+    ~`PAGED_SLOTS` CTAs of (row, KV head, split) cover the block table, a
+    split's keys a multiple of the tile (the decode shape B 8, nkv 8, 32
+    pages of 16: 4 splits of 8 pages).  `rows` is g * Tq."""
+    keys = PAGED_TILE_KEYS
+    while (keys > PAGED_MIN_TILE_KEYS
+           and paged_smem_bytes(keys, head_dim, rows) > SMEM_BYTES):
+        keys //= 2
+    pairs = batch * n_kv
+    want = 1 if pairs >= PAGED_SLOTS else -(-PAGED_SLOTS // pairs)
+    pages = -(-table_width // want)
+    split_keys = -(-pages * block_size // keys) * keys
+    pps = -(-split_keys // block_size)
+    return PagedPlan(keys, pps, -(-table_width // pps),
+                     paged_smem_bytes(keys, head_dim, rows))

@@ -36,7 +36,8 @@ SOURCES = {
 
 # headers every source may include (`#include "hopper.cuh"`); they are
 # part of each library's hash, so editing one rebuilds every kernel
-HEADERS = ["common/hopper.cuh", "common/wstream.cuh"]
+HEADERS = ["common/hopper.cuh", "common/rowtile.cuh",
+           "common/wstream.cuh"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

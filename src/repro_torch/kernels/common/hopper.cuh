@@ -163,6 +163,28 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---------------------------------------------------------------------------
+// launch attributes
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 16;
+
+// Raises `kern`'s dynamic shared-memory limit on the current device to
+// `bytes`, unless an earlier call already set at least that much: `given`
+// (zero-initialised static storage of the caller, one entry a device)
+// keeps the limits set, so a launch pays for the attribute once a size.
+inline cudaError_t raise_smem_limit(const void* kern, int bytes,
+                                    int (&given)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && given[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) given[dev] = bytes;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
 

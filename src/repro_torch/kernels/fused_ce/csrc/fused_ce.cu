@@ -28,8 +28,27 @@
 // contraction), while its bytes are ~0.33 GB (dW's f32 output 0.62 GB):
 // every kernel here is bound by operations, so the design keeps all of
 // them on the tensor cores and keeps every logit tile in registers and
-// shared memory.  The forward runs on mma.sync m16n8k16 (bf16 in, f32
-// accumulate) with cp.async; dH and dW on wgmma with TMA (below).
+// shared memory.  All three run on wgmma with TMA.
+//
+// Forward (fce_fwd_partial<kStats>): the many-row GEMM of
+// common/rowtile.cuh, the main loop it shares with sample_topk's many-row
+// top-1 kernel: a CTA owns 128 rows of h and walks a vocab slice in
+// 256-column W tiles; one producer thread streams 64-wide k chunks of both
+// through a 4-stage TMA ring (128-byte swizzle, zero fill at the ragged
+// edges) without pausing between tiles, so a tile's epilogue overlaps the
+// next tile's loads; two consumer warpgroups issue wgmma m64n256k16 (f32
+// accumulate), one chunk's products in flight.  The epilogue stays in
+// registers: each thread holds 2 rows x 64 columns of the tile and
+// updates each row's (m, a) by online softmax (exp2 of a fused multiply
+// -add), z_sum and z_target over the valid columns.  The tile statistic
+// (kStats) is the max of each of the 2 x 4 64 x 64 grid tiles the 128 x
+// 256 tile holds whole: reduced in registers and the warp, then across the
+// warpgroup's 4 warps through shared memory, written once by the one CTA
+// that owns it.  Slices are chosen so that ~8 waves of CTAs fill the card
+// (rowtile::splits; 8192 rows: 64 x 17), and a merge kernel combines each
+// row's partials in slice order: no atomics, so two calls give the same
+// bits, and with or without the statistic the row outputs are computed
+// the same way.
 //
 // Backward (fce_grad<kDW, C, kFiltered>): dH and dW are one contraction
 // with the roles of h and W swapped.  A CTA per 256-wide d range that
@@ -53,12 +72,12 @@
 //
 // Design, and what it does about the TPU kernel's assumptions:
 //   * the TPU kernel carries (m, a, z*, sum z) across a SEQUENTIAL vocab
-//     grid axis.  Here the vocab is cut into n_split slices across blocks
-//     (grid rows x slices); each block runs the online softmax over its
-//     slice's 128-column tiles, each thread keeping the state of its own
-//     8 rows over its own columns, merged across the quad and the warps
-//     at the end, and a second kernel merges the (rows, n_split, 4)
-//     partials in a fixed order.  So a few hundred rows still fill the SMs;
+//     grid axis.  Here the vocab is cut into n_split slices across CTAs
+//     (grid row tiles x slices); each CTA runs the online softmax over its
+//     slice's 256-column tiles, each thread keeping the state of its own 2
+//     rows over its own columns, merged across the quad at the end, and a
+//     second kernel merges the (rows, n_split, 4) partials in a fixed
+//     order.  So a few hundred rows still fill the SMs;
 //   * g is formed in f32, as the TPU kernel forms it, and contracted as two
 //     bf16 halves (g = hi + lo, both rounded to nearest), two products on
 //     the tensor cores: |g - hi - lo| <= 2^-17 |g|, well inside the
@@ -81,40 +100,26 @@
 //     statistic, the mask and both backward grids: a dH cluster owns 64
 //     rows of h and streams W in 64-row tiles (mask row rt), a dW cluster
 //     owns 64 rows of W and streams h in 64-row tiles (mask column ct).
-//     A forward tile (128 x 128, warps 2 x 4 of 64 x 32) holds four grid
-//     tiles whole, each the max of two warps: reduced in registers and
-//     the warp, combined through shared memory, written once, with no
-//     cross-block merge.  A filtered backward CTA first compacts its mask
+//     A forward tile (128 x 256, two warpgroups of 64 rows) holds eight
+//     grid tiles whole, written once, with no cross-CTA merge.  A filtered
+//     backward CTA first compacts its mask
 //     row or column into an ascending list of live tiles in shared
 //     memory (warp ballots), then walks only that list: a skipped tile
 //     costs neither its bytes nor its recompute, and an all-False mask
 //     walks 0..n-1 in the exact kernel's order, bit for bit.  Live
 //     tiles are uneven across clusters (target tiles pin some): no load
 //     balancing yet.
-// The forward streams its operands through a 3-stage cp.async ring of
-// 32-wide k chunks and reads them into fragments with ldmatrix (rows
-// padded by 16 bytes against bank conflicts).  Rows past the ends load as
-// zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "rowtile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kStages = 3;           // cp.async ring depth (forward)
-constexpr int kFwdBK = 32;           // k chunk (bf16) of a forward stage
-
-// padded smem row of a BK-wide k chunk: +16 bytes against bank conflicts
-__host__ __device__ constexpr int ld_of(int bk) { return bk + 8; }
-
-constexpr int kFwdRows = 128;        // forward tile: rows of h
-constexpr int kFwdCols = 128;        //               vocab columns
-constexpr int kFwdThreads = 256;     // 8 warps, 2 (rows) x 4 (columns)
 
 // the backward's (and the filter's) tile grid
 constexpr int kBwdRows = 64;         // stationary rows a cluster
@@ -122,40 +127,6 @@ constexpr int kBwdCols = 64;         // streamed rows a tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; `pred` false fills zeros (src-size 0, no read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8, f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Merge the online-softmax state (om, oa) into (m, a).
@@ -167,249 +138,174 @@ __device__ __forceinline__ void merge_state(float& m, float& a, float om,
   m = mn;
 }
 
-// acc (warp tile of the BS x BT block) = S[s0 .. s0+BS) . T[t0 .. t0+BT)^T
-// over all of d.  S and T are row-major (rows, d) bf16; rows past s_rows /
-// t_rows read as zeros.  The warps form a WM x WN grid; warp (wm, wn) owns
-// rows wm*(BS/WM) + [0, BS/WM) and columns wn*(BT/WN) + [0, BT/WN), in
-// m16n8 fragments acc[mt][nt].  Every committed cp.async group of the
-// caller completes before the first product; on return all groups are
-// complete and the ring may be reused.
-template <int BS, int BT, int BK, int WM, int WN, int NTHREADS>
-__device__ __forceinline__ void tile_dot(
-    float (&acc)[BS / WM / 16][BT / WN / 8][4], const bf16* __restrict__ S,
-    int s0, int s_rows, const bf16* __restrict__ T, int t0, int t_rows,
-    int d, bf16* sS, bf16* sT) {
-  constexpr int MT = BS / WM / 16;
-  constexpr int NT = BT / WN / 8;
-  static_assert(NT % 2 == 0, "B fragments load two n-tiles at a time");
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-  constexpr int LD = ld_of(BK);
-  constexpr int SEGS = BK / 8;          // 16-byte segments of a chunk row
-  const int nk = (d + BK - 1) / BK;      // a last partial chunk reads zeros
-  auto load = [&](int stage, int kc) {
-    const int k0 = kc * BK;
-    for (int i = tid; i < BS * SEGS; i += NTHREADS) {
-      const int r = i / SEGS, k = k0 + (i % SEGS) * 8;
-      const bool ok = s0 + r < s_rows && k < d;
-      const bf16* src = S + (ok ? (size_t)(s0 + r) * d + k : 0);
-      cp_async16(sS + (stage * BS + r) * LD + (i % SEGS) * 8, src, ok);
-    }
-    for (int i = tid; i < BT * SEGS; i += NTHREADS) {
-      const int r = i / SEGS, k = k0 + (i % SEGS) * 8;
-      const bool ok = t0 + r < t_rows && k < d;
-      const bf16* src = T + (ok ? (size_t)(t0 + r) * d + k : 0);
-      cp_async16(sT + (stage * BT + r) * LD + (i % SEGS) * 8, src, ok);
-    }
-  };
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load(st, st);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = kc + kStages - 1;
-    if (nxt < nk) load(nxt % kStages, nxt);
-    cp_async_commit();
-    const bf16* a_base = sS + (kc % kStages) * BS * LD;
-    const bf16* b_base = sT + (kc % kStages) * BT * LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row = wm * (BS / WM) + mt * 16 + (lane & 15);
-        ldsm_x4(a[mt], a_base + row * LD + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        const int n = wn * (BT / WN) + np * 16 + (lane & 7) + (lane >> 4) * 8;
-        ldsm_x4(b, b_base + n * LD + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// forward
+// forward: the many-row GEMM of common/rowtile.cuh, an online softmax in
+// registers
 // ---------------------------------------------------------------------------
 
-// grid (ceil(n / 128), n_split), kFwdThreads threads.  Writes the partial
-// state (m, a, z_target, z_sum) of every row over its vocab slice to
-// part[(row * n_split + split) * 4 ...].  kStats: also the tile statistic
-// tmax (num_r, num_v) of the 64 x 64 grid, every entry written by the one
-// block that owns it; the other outputs are computed the same way.
+constexpr float kLog2e = 1.4426950408889634f;
+// the 64 x 64 tiles of the filter's grid that a 128 x 256 forward tile
+// holds: each consumer warpgroup's 64 rows by four column quarters
+constexpr int kQuarters = rowtile::kCols / kBwdCols;
+static_assert(rowtile::kRows == 2 * kBwdRows,
+              "a consumer warpgroup covers one row of the filter's grid");
+
+// grid (ceil(n / 128), n_split), rowtile::kThreads threads,
+// rowtile::kSmem bytes.  Slice `split` covers vocab tiles [split * per,
+// (split + 1) * per) of 256 columns; the partial state (m, a, z_target,
+// z_sum) of every row over it goes to part[(row * n_split + split) * 4
+// ...].  kStats: also the tile statistic tmax (num_r, num_v) of the 64 x
+// 64 grid, every entry written by the one CTA that owns it; the other
+// outputs are computed the same way.
 template <bool kStats>
-__global__ void __launch_bounds__(kFwdThreads)
-    fce_fwd_partial(const bf16* __restrict__ h, const bf16* __restrict__ w,
+__global__ void __launch_bounds__(rowtile::kThreads, 1)
+    fce_fwd_partial(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wmap,
                     const int* __restrict__ y, float* __restrict__ part,
                     int n, int d, int v_orig, int valid, int col_offset,
-                    int n_split, int tiles_per_split, int has_cap,
-                    float cap, int ignore_index, float* __restrict__ tmax) {
-  constexpr int WM = 2, WN = 4;
-  constexpr int MT = kFwdRows / WM / 16;  // 4
-  constexpr int NT = kFwdCols / WN / 8;   // 4
-  static_assert(kFwdRows / WM == kBwdRows && 2 * kFwdCols / WN == kBwdCols,
-                "a warp pair covers one tile of the filter's grid");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float sTq[WM * WN];          // per-warp tile maxima
-  bf16* sS = reinterpret_cast<bf16*>(smem);
-  bf16* sT = sS + kStages * kFwdRows * ld_of(kFwdBK);
-
-  const int r0 = blockIdx.x * kFwdRows;
+                    int n_split, int per, int has_cap, float cap,
+                    int ignore_index, float* __restrict__ tmax) {
+  using rowtile::kCols;
+  extern __shared__ unsigned char smem_raw[];
+  // kStats: each consumer warp's max of each quarter, double-buffered by
+  // tile parity (a warp rewrites a buffer only after the warpgroup's
+  // barrier of the next tile, which the readers of this one have passed)
+  __shared__ float sTq[2][8][kQuarters];
+  const rowtile::Ring ring = rowtile::setup(smem_raw);
+  const int row0 = blockIdx.x * rowtile::kRows;
   const int split = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-  const int g = lane >> 2;
+  const int n_tiles = (v_orig + kCols - 1) / kCols;
+  const int t_begin = split * per;
+  const int t_end = min(t_begin + per, n_tiles);
+  const int nk = d / rowtile::kChunk;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      rowtile::produce(ring, &hmap, &wmap, row0, t_begin, t_end, nk);
+    return;
+  }
+
+  const int cw = wg - 1;                // consumer: rows cw * 64 ..
+  const int wt = threadIdx.x % 128;
+  const int warp = wt >> 5;
+  const int lane = wt & 31;
   const int t = lane & 3;
+  // this thread's rows: row0 + cw * 64 + 16 warp + lane / 4 + 8 i
+  float m[2], a[2], zt[2], zs[2];
+  int yv[2];
+  bool live_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + cw * 64 + 16 * warp + (lane >> 2) + 8 * i;
+    m[i] = -INFINITY;
+    a[i] = 0.f;
+    zt[i] = 0.f;
+    zs[i] = 0.f;
+    yv[i] = row < n ? y[row] : -1;
+    live_row[i] = row < n && yv[i] != ignore_index;
+  }
 
-  // this thread's rows: wm*64 + mt*16 + g + 8*hh
-  float m[MT][2], a[MT][2], zt[MT][2], zs[MT][2];
-  int yv[MT][2];
+  float acc[rowtile::kAcc];
+  int it = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    rowtile::tile_product(acc, ring, cw, nk, it);
+    const int c_base = tile * kCols;
+    // pass 1: softcap, mask, the sums and each row's max over each
+    // quarter (64 columns: a tile of the filter's grid), in place
+    float qmax[2][kQuarters];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int q = 0; q < kQuarters; ++q) qmax[0][q] = qmax[1][q] = -INFINITY;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + wm * 64 + mt * 16 + g + 8 * hh;
-      m[mt][hh] = -INFINITY;
-      a[mt][hh] = 0.f;
-      zt[mt][hh] = 0.f;
-      zs[mt][hh] = 0.f;
-      yv[mt][hh] = row < n ? y[row] : -1;
-    }
-
-  const int n_tiles = (v_orig + kFwdCols - 1) / kFwdCols;
-  const int tile_end = min((split + 1) * tiles_per_split, n_tiles);
-  for (int tile = split * tiles_per_split; tile < tile_end; ++tile) {
-    const int c0 = tile * kFwdCols;
-    float acc[MT][NT][4];
-    tile_dot<kFwdRows, kFwdCols, kFwdBK, WM, WN, kFwdThreads>(
-        acc, h, r0, n, w, c0, v_orig, d, sS, sT);
-    float tq = -INFINITY;   // this thread's max over its live rows
+    for (int q = 0; q < kQuarters; ++q)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int j = q * (kBwdCols / 8); j < (q + 1) * (kBwdCols / 8); ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float z[NT * 2];
-        float lmax = -INFINITY;
+        for (int c = 0; c < 2; ++c) {
+          const int local = c_base + 8 * j + 2 * t + c;
+          const bool live = local < v_orig && local + col_offset < valid;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int local = c0 + wn * 32 + nt * 8 + 2 * t + j;
-            float zv = acc[mt][nt][2 * hh + j];
-            if (has_cap) zv = cap * tanhf(zv / cap);
-            const bool live = local < v_orig && local + col_offset < valid;
+          for (int i = 0; i < 2; ++i) {
+            float z = acc[4 * j + 2 * i + c];
+            if (has_cap) z = cap * tanhf(z / cap);
             if (live) {
-              zs[mt][hh] += zv;
-              if (local + col_offset == yv[mt][hh]) zt[mt][hh] += zv;
+              zs[i] += z;
+              if (local + col_offset == yv[i]) zt[i] += z;
             } else {
-              zv = -INFINITY;
+              z = -INFINITY;
             }
-            z[nt * 2 + j] = zv;
-            lmax = fmaxf(lmax, zv);
+            acc[4 * j + 2 * i + c] = z;
+            qmax[i][q] = fmaxf(qmax[i][q], z);
           }
-        const float m_new = fmaxf(m[mt][hh], lmax);
-        const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < NT * 2; ++i) sum += expf(z[i] - safe);
-        a[mt][hh] = a[mt][hh] * expf(m[mt][hh] - safe) + sum;
-        m[mt][hh] = m_new;
-        if (kStats) {
-          const int row = r0 + wm * 64 + mt * 16 + g + 8 * hh;
-          if (row < n && yv[mt][hh] != ignore_index) tq = fmaxf(tq, lmax);
         }
-      }
-    if (kStats) {
-      // warp (wm, wn) covers grid tile (2 * blockIdx.x + wm, 2 * tile +
-      // wn / 2); its partner is wn ^ 1
+    float lmax[2];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tq = fmaxf(tq, __shfl_xor_sync(0xffffffffu, tq, off));
-      if (lane == 0) sTq[warp] = tq;
-      __syncthreads();
-      if (tid < WM * 2) {
-        const int qr = tid >> 1, qc = tid & 1;
-        const int rt = blockIdx.x * WM + qr, ct = tile * 2 + qc;
+    for (int i = 0; i < 2; ++i)
+      lmax[i] = fmaxf(fmaxf(qmax[i][0], qmax[i][1]),
+                      fmaxf(qmax[i][2], qmax[i][3]));
+    // pass 2: each row's online softmax update
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], lmax[i]);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float nsafe = -safe * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          sum += exp2f(fmaf(acc[4 * j + 2 * i + c], kLog2e, nsafe));
+      a[i] = a[i] * expf(m[i] - safe) + sum;
+      m[i] = m_new;
+    }
+    if (kStats) {
+      // a quarter's max over the warp's 16 live rows, then over the 4
+      // warps of the warpgroup: grid tile (2 blockIdx.x + cw, 4 tile + q)
+      const int buf = (tile - t_begin) & 1;
+#pragma unroll
+      for (int q = 0; q < kQuarters; ++q) {
+        float tq = fmaxf(live_row[0] ? qmax[0][q] : -INFINITY,
+                         live_row[1] ? qmax[1][q] : -INFINITY);
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1)
+          tq = fmaxf(tq, __shfl_xor_sync(0xffffffffu, tq, off));
+        if (lane == 0) sTq[buf][cw * 4 + warp][q] = tq;
+      }
+      if (cw == 0)
+        hopper::bar_sync(1, 128);
+      else
+        hopper::bar_sync(2, 128);
+      if (wt < kQuarters) {
+        const int rt = blockIdx.x * 2 + cw, ct = tile * kQuarters + wt;
         const int num_r = (n + kBwdRows - 1) / kBwdRows;
         const int num_v = (v_orig + kBwdCols - 1) / kBwdCols;
-        if (rt < num_r && ct < num_v)
-          tmax[(size_t)rt * num_v + ct] =
-              fmaxf(sTq[qr * WN + 2 * qc], sTq[qr * WN + 2 * qc + 1]);
+        float mx = sTq[buf][cw * 4][wt];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) mx = fmaxf(mx, sTq[buf][cw * 4 + w][wt]);
+        if (rt < num_r && ct < num_v) tmax[(size_t)rt * num_v + ct] = mx;
       }
-      // the next tile's tile_dot passes a barrier before sTq is rewritten
     }
   }
 
-  // merge the quad (the 4 lanes that share rows), then the 4 column warps
+  // merge the quad (the 4 lanes that share a row) and write the partial
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, m[mt][hh], off);
-        const float oa = __shfl_xor_sync(0xffffffffu, a[mt][hh], off);
-        zt[mt][hh] += __shfl_xor_sync(0xffffffffu, zt[mt][hh], off);
-        zs[mt][hh] += __shfl_xor_sync(0xffffffffu, zs[mt][hh], off);
-        merge_state(m[mt][hh], a[mt][hh], om, oa);
-      }
-  // the ring is idle (tile_dot ended with a barrier): reuse it
-  float* red = reinterpret_cast<float*>(smem);  // [WN][kFwdRows][4]
-  if (t == 0) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float* p = red + ((size_t)wn * kFwdRows + wm * 64 + mt * 16 + g +
-                          8 * hh) * 4;
-        p[0] = m[mt][hh];
-        p[1] = a[mt][hh];
-        p[2] = zt[mt][hh];
-        p[3] = zs[mt][hh];
-      }
-  }
-  __syncthreads();
-  if (tid < kFwdRows && r0 + tid < n) {
-    float mm = -INFINITY, aa = 0.f, tt = 0.f, ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < WN; ++c) {
-      const float* p = red + ((size_t)c * kFwdRows + tid) * 4;
-      merge_state(mm, aa, p[0], p[1]);
-      tt += p[2];
-      ss += p[3];
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float oa = __shfl_xor_sync(0xffffffffu, a[i], off);
+      zt[i] += __shfl_xor_sync(0xffffffffu, zt[i], off);
+      zs[i] += __shfl_xor_sync(0xffffffffu, zs[i], off);
+      merge_state(m[i], a[i], om, oa);
     }
-    float* out = part + ((size_t)(r0 + tid) * n_split + split) * 4;
-    out[0] = mm;
-    out[1] = aa;
-    out[2] = tt;
-    out[3] = ss;
+    const int row = row0 + cw * 64 + 16 * warp + (lane >> 2) + 8 * i;
+    if (t == 0 && row < n) {
+      float* out = part + ((size_t)row * n_split + split) * 4;
+      out[0] = m[i];
+      out[1] = a[i];
+      out[2] = zt[i];
+      out[3] = zs[i];
+    }
   }
 }
 
@@ -433,10 +329,6 @@ __global__ void fce_fwd_merge(const float* __restrict__ part,
   zsum[row] = zs;
 }
 
-constexpr size_t kFwdSmem =
-    (size_t)kStages * (kFwdRows + kFwdCols) * ld_of(kFwdBK) * sizeof(bf16);
-static_assert(kFwdSmem >= (size_t)4 * kFwdRows * 4 * sizeof(float),
-              "the forward reduction reuses the ring");
 constexpr size_t kSmemMax = 232448;   // H100: dynamic smem a block can use
 
 // ---------------------------------------------------------------------------
@@ -998,6 +890,12 @@ int max_clusters(int* count) {
 
 extern "C" {
 
+// The forward's vocab slices for n rows and v_orig columns, into out[0]
+// (the wrapper's Python mirror, core.windows.choose_ce_plan, must agree).
+void fused_ce_fwd_plan(int n, int v_orig, int* out) {
+  out[0] = rowtile::splits(n, v_orig, nullptr);
+}
+
 // Forward statistics: part is (n, n_split, 4) f32 scratch; lse, ztgt, zsum
 // are (n,) f32.  tmax, when not null, receives the (ceil(n/64),
 // ceil(v_orig/64)) f32 tile statistic over the rows whose y is not
@@ -1007,18 +905,25 @@ int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
                         int d, int v_orig, int valid, int col_offset,
                         int n_split, int has_cap, float cap, int ignore_index,
                         void* tmax, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n < 1 || v_orig < 1 || d < rowtile::kChunk || d % rowtile::kChunk ||
+      n_split < 1 || n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  static int given[2][hopper::kMaxDevices];
   const auto kern = tmax ? fce_fwd_partial<true> : fce_fwd_partial<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
+  cudaError_t err = hopper::raise_smem_limit(
+      reinterpret_cast<const void*>(kern), (int)rowtile::kSmem,
+      given[tmax ? 1 : 0]);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (v_orig + kFwdCols - 1) / kFwdCols;
+  CUtensorMap hmap, wmap;
+  const int e = rowtile::make_maps(&hmap, &wmap, h, w, n, v_orig, d);
+  if (e) return e;
+  const int n_tiles = (v_orig + rowtile::kCols - 1) / rowtile::kCols;
   const int per = (n_tiles + n_split - 1) / n_split;
-  dim3 grid((n + kFwdRows - 1) / kFwdRows, n_split);
-  kern<<<grid, kFwdThreads, kFwdSmem, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(y), static_cast<float*>(part), n, d, v_orig,
-      valid, col_offset, n_split, per, has_cap, cap, ignore_index,
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  dim3 grid((n + rowtile::kRows - 1) / rowtile::kRows, n_split);
+  kern<<<grid, rowtile::kThreads, rowtile::kSmem, s>>>(
+      hmap, wmap, static_cast<const int*>(y), static_cast<float*>(part), n,
+      d, v_orig, valid, col_offset, n_split, per, has_cap, cap, ignore_index,
       static_cast<float*>(tmax));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -12,19 +12,24 @@ Bound on an H100 SXM: at qwen3-0.6b's training shape (8192 rows, W
 989 TFLOP/s) and dH and dW two each (recompute and contraction, ~5.16 ms
 each); the bytes (~0.33 GB a pass, ~0.1 ms) do not bind.  A filtered
 backward does the live tiles' share of that work.  The source's header
-gives the design: vocab slices across blocks with a merge kernel for the
-forward (the TPU kernel's sequential vocab axis has no counterpart on
-the GPU), ``g`` kept to f32 precision as two bf16 halves on the tensor
-cores, and dH and dW as one kernel template on wgmma and TMA: a
-thread-block cluster of ``ceil(d / 256)`` CTAs (1, 4 or 16; d <= 4096)
-shares 64 rows of the stationary operand (h for dH, W for dW) and
-streams the other in 64-row tiles; the CTAs reduce-scatter their partial
-logits by bulk copies between their shared memories, so the logits are
-recomputed once, not once a d range, and g is formed once.  The
-reference's deterministic two-pass layout (no atomics) is kept, and one
-64 x 64 tile grid (`core.windows.ce_tile_grid`) serves the tile
-statistic, the skip mask and both filtered kernels, which walk a
-compacted list of live tiles.
+gives the design: the forward is the many-row GEMM it shares with
+`sample_topk`'s top-1 path (`kernels/common/rowtile.cuh`: 128 x 256
+tiles, a TMA ring fed by one producer, wgmma m64n256k16), with the online
+softmax, the target logit, the sum and the tile statistic kept in
+registers, vocab slices across CTAs and a merge kernel (the TPU kernel's
+sequential vocab axis has no counterpart on the GPU); ``g`` is kept to
+f32 precision as two bf16 halves on the tensor cores; dH and dW are one
+kernel template on wgmma and TMA: a thread-block cluster of
+``ceil(d / 256)`` CTAs (1, 4 or 16; d <= 4096) shares 64 rows of the
+stationary operand (h for dH, W for dW) and streams the other in 64-row
+tiles; the CTAs reduce-scatter their partial logits by bulk copies
+between their shared memories, so the logits are recomputed once, not
+once a d range, and g is formed once.  The reference's deterministic
+two-pass layout (no atomics) is kept, and one 64 x 64 tile grid
+(`core.windows.ce_tile_grid`) serves the tile statistic, the skip mask
+and both filtered kernels, which walk a compacted list of live tiles.
+The forward's Python plan (`choose_ce_plan`) is held to its C twin
+(`fused_ce_fwd_plan`) before a shape's first launch.
 
 Contract (the JAX kernels'): h (N, d), w (V, d), y (N,); a column is
 valid iff its local index is < V and ``local + col_offset < valid``;
@@ -157,8 +162,10 @@ def fwd_stats(
     _check_cuda(h, w, y)
     n, d = h.shape
     v = w.shape[0]
-    plan = plan or choose_ce_plan(n, v, d)
     lib = _lib()
+    own = choose_ce_plan(n, v, d)
+    build.check_plan_twin(lib, "fused_ce_fwd_plan", (n, v), own)
+    plan = plan or own
     dev = h.device
     part = torch.empty((n, plan.v_splits, 4), dtype=torch.float32,
                        device=dev)

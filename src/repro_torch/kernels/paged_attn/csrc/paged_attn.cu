@@ -16,49 +16,106 @@
 // decode shape (B 8, nkv 8, hd 128, bs 16) a full 512-token chain is
 // 8 * 512 * 8 * 128 * 2 B * 2 = 16.8 MB a layer, ~5.0 us; the products
 // (2 + 2 flops per key, query row and head dim) are far below the
-// tensor-core line, so it is memory-bound -- and at the cell's ~200-token
-// rows (~2 us) bound by launch latency.
+// tensor-core line, so it is memory-bound -- and at the cell's ~260-token
+// rows (~2.2 us) bound by the latency of a launch and of one dependent
+// chain of loads (lens, the table, the pages).
 //
-// Design (simple and correct first; splitting each chain across CTAs
-// with a merge pass, flash-decoding style, to fill the 132 SMs at small B
-// is later work):
-//   * the TPU kernel's scalar-prefetch index maps chase the chain along a
-//     sequential grid axis; here one CTA owns one (row, KV head) and walks
-//     its own row of `table` in a loop, only up to ceil(lens / bs) pages
-//     (pages past the chain -- null block 0 -- are never read);
-//   * the g * Tq query rows of the KV head are staged once in shared
-//     memory as f32; K and V stream through a kStages-deep ring of tiles
-//     of ppt pages (ppt * bs ~ 64 keys), one 16-byte cp.async per 8
-//     values, so the next tiles load while the current one is reduced; a
-//     tile's pages past the chain are zero-filled, never read;
-//   * per tile: one thread per (query row, key) dot product over 16-byte
-//     K chunks (the start chunk rotated by key, so that the threads of a
-//     warp hit different banks), one warp per query row for the online
-//     softmax update of (m, a), then every thread rescales and
-//     accumulates its own (row, 2 columns) of acc in shared memory.
+// Design: what bounds it is bytes in flight and latency, so the work of a
+// (row, KV head) is spread over as many SMs as it takes to fill the card,
+// and the arithmetic goes to the tensor cores so that it stays small
+// beside the loads whatever g * Tq is:
+//   * split chain (flash-decoding): the grid is (B, nkv, splits); split s
+//     of a (row, head) owns pages [s pps, (s + 1) pps) of its table row,
+//     pps chosen from B * nkv, the table width and the 132 SMs (`plan`:
+//     ~2 CTAs an SM at the decode shape, 4 splits of 8 pages).  A split
+//     past ceil(lens / bs) pages returns at once: it reads nothing.  The
+//     TPU kernel's scalar-prefetch index maps and sequential chain axis
+//     have no counterpart here: a CTA reads its own table entries, clamped
+//     into the pool as JAX's gathers do, and never touches a page past the
+//     chain (null block 0);
+//   * latency: before it reads the row's length, a CTA stages q by
+//     cp.async and prefetches its split's table entries into L1, so the
+//     chain of dependent loads is lens -> K/V.  K and V then stream
+//     through a 2-stage cp.async ring of kt-key tiles (kt 64, halved while
+//     shared memory runs out; a tile may straddle pages and ends at the
+//     split's last live key, the rest zero-filled and masked), both stages
+//     issued at once, one 16-byte copy per 8 values;
+//   * scores and p @ v on mma.sync m16n8k16 (bf16 in, f32 accumulate): the
+//     g * Tq query rows of the KV head are m16 tiles, zero-padded, and hd
+//     is zero-padded to a multiple of 16 in shared memory.  S = q k^T (A
+//     from q, B from the K tile by ldmatrix) lands in shared memory; 8
+//     lanes a row update (m, a) by online softmax and write p in place as
+//     two bf16 halves, p = hi + lo (|p - hi - lo| <= 2^-17 |p|, as the
+//     fused-CE backward contracts g); then acc = acc * alpha + hi @ v + lo
+//     @ v (B from the V tile by ldmatrix.trans), acc in shared memory, each
+//     entry owned by one thread.  So Tq 5 costs about what Tq 1 costs:
+//     both are one m16 tile;
+//   * merge: a (row, head) with one live split writes its output directly.
+//     Otherwise each split writes its partial (m, a, acc) in f32, and the
+//     last split to finish (a counter a (row, head) in global memory,
+//     reset by that CTA) merges the partials in split order: one launch,
+//     no order-dependent sums, so two calls give the same bits.  (The
+//     splits of a (row, head) as one thread-block cluster, merging
+//     through distributed shared memory, was tried and ran slower.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 3;             // cp.async ring depth (tiles)
-constexpr int kTileKeys = 64;          // keys a tile aims for
+constexpr int kStages = 2;             // cp.async ring depth (tiles)
+constexpr int kTileKeys = 64;          // keys a tile, at most
+constexpr int kMinTileKeys = 16;       // one mma k step
+constexpr int kSlots = 2 * 132;        // CTAs the card holds at once
 constexpr int kMaxSmem = 232448;       // 227 KB a block on the H100
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+
+// Shared memory of a CTA with tiles of kt keys, head dim hd and `rows`
+// query rows: the K and V rings, q, the scores (then p as bf16 hi / lo),
+// acc, and m, a, alpha, then a flag.
+__host__ __device__ inline int smem_bytes(int kt, int hd, int rows) {
+  const int hdp = round16(hd), rp = round16(rows);
+  const int ldk = hdp + 8;
+  return 2 * kStages * kt * ldk * 2 + rp * ldk * 2 + rp * (kt + 4) * 4 +
+         rp * (hdp + 4) * 4 + 3 * rp * 4 + 16;
+}
+
+struct Plan {
+  int kt, pps, splits, smem;
+};
+
+// The launch plan: the widest tile (64, 32 or 16 keys) whose shared memory
+// fits, and pages a split such that ~kSlots CTAs cover the table, a
+// split's keys a multiple of the tile.
+inline Plan plan(int b, int nkv, int nb, int bs, int hd, int rows) {
+  Plan p;
+  p.kt = kTileKeys;
+  while (p.kt > kMinTileKeys && smem_bytes(p.kt, hd, rows) > kMaxSmem)
+    p.kt /= 2;
+  p.smem = smem_bytes(p.kt, hd, rows);
+  const int pairs = b * nkv;
+  const int want = pairs >= kSlots ? 1 : (kSlots + pairs - 1) / pairs;
+  const int pages = (nb + want - 1) / want;
+  const int keys = (pages * bs + p.kt - 1) / p.kt * p.kt;
+  p.pps = (keys + bs - 1) / bs;
+  p.splits = (nb + p.pps - 1) / p.pps;
+  return p;
 }
 
 // 16-byte async copy; `pred` false fills zeros (src-size 0, no read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
+                   hopper::smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0));
 }
 
@@ -71,209 +128,361 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(hopper::smem_u32(p)));
 }
 
-size_t smem_bytes(int bs, int hd, int rows, int ppt) {
-  const size_t kt = (size_t)ppt * bs;                     // keys a tile
-  return 2 * kStages * kt * hd * sizeof(__nv_bfloat16)    // K, V ring
-         + (size_t)2 * rows * hd * sizeof(float)          // q, acc
-         + (size_t)rows * kt * sizeof(float)              // scores
-         + (size_t)3 * rows * sizeof(float);              // m, a, alpha
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(hopper::smem_u32(p)));
 }
 
-// Pages a tile: ~kTileKeys keys, fewer where shared memory runs out.
-int pages_per_tile(int bs, int hd, int rows) {
-  int ppt = bs < kTileKeys ? kTileKeys / bs : 1;
-  while (ppt > 1 && smem_bytes(bs, hd, rows, ppt) > (size_t)kMaxSmem)
-    ppt /= 2;
-  return ppt;
+// c (16x8, f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (B, nkv); query row r of a block is (gi, ti) = (r / tq, r % tq),
-// head n * g + gi, position lens[b] - tq + ti.
+// grid (B, nkv, splits), kThreads threads, smem_bytes(kt, hd, g * tq).
+// Query row r of a CTA is (gi, ti) = (r / tq, r % tq): head n * g + gi,
+// position lens[b] - tq + ti.  part holds (B, nkv, splits) partials of
+// rows * (hd + 2) f32 (m, a, then acc), counts (B, nkv) zeros.
 __global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ kp,
-                  const __nv_bfloat16* __restrict__ vp,
-                  const int* __restrict__ table,
-                  const int* __restrict__ lens,
-                  __nv_bfloat16* __restrict__ out, int n_pool, int bs,
-                  int nkv, int hd, int nb, int tq, int g, int ppt,
-                  float scale, int has_softcap, float softcap) {
+paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                  const bf16* __restrict__ vp, const int* __restrict__ table,
+                  const int* __restrict__ lens, bf16* __restrict__ out,
+                  float* __restrict__ part, int* __restrict__ counts,
+                  int n_pool, int bs, int nkv, int hd, int nb, int tq, int g,
+                  int kt, int pps, int splits, float scale, int has_softcap,
+                  float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int n = blockIdx.y;
+  const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int gq = lane >> 2, tq4 = lane & 3;   // mma fragment coordinates
   const int rows = g * tq;
+  const int rp = round16(rows);
+  const int hdp = round16(hd);
+  const int ldk = hdp + 8;                    // bf16, +16 B: no conflicts
+  const int lds = kt + 4;                     // f32 scores of a row
+  const int ldo = hdp + 4;
   const int nq = nkv * g;
-  const int kt = ppt * bs;                  // keys a tile
 
-  __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vbuf = kbuf + (size_t)kStages * kt * hd;
-  float* qs = reinterpret_cast<float*>(vbuf + (size_t)kStages * kt * hd);
-  float* acc = qs + rows * hd;
-  float* sc = acc + rows * hd;
-  float* m = sc + rows * kt;
-  float* a = m + rows;
-  float* alpha = a + rows;
+  bf16* kbuf = reinterpret_cast<bf16*>(smem);
+  bf16* vbuf = kbuf + kStages * kt * ldk;
+  bf16* qs = vbuf + kStages * kt * ldk;
+  float* sc = reinterpret_cast<float*>(qs + rp * ldk);
+  float* acc = sc + rp * lds;
+  float* m = acc + rp * ldo;
+  float* a = m + rp;
+  float* alpha = a + rp;
+  int* flag = reinterpret_cast<int*>(alpha + rp);
 
+  // Before the length is known: bring this split's table entries into L1
+  // and stage q (rows and columns past the ends as zeros), so that the
+  // chain of dependent loads is lens -> K/V and nothing longer.
+  const int* trow = table + (size_t)b * nb + (size_t)split * pps;
+  for (int p = tid * 32; p < min(pps, nb - split * pps); p += kThreads * 32)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(trow + p));
+  for (int e = tid; e < rp * (hdp / 8); e += kThreads) {
+    const int r = e / (hdp / 8), c = (e - r * (hdp / 8)) * 8;
+    const bool ok = r < rows && c < hd;
+    const int gi = r / tq, ti = r - (r / tq) * tq;
+    cp_async16(qs + r * ldk + c,
+               q + (ok ? (((size_t)b * tq + ti) * nq + n * g + gi) * hd + c
+                       : 0),
+               ok);
+  }
+  cp_async_commit();
   const int len = lens[b];
   const int npages = len <= 0 ? 0 : min((len + bs - 1) / bs, nb);
-  const int ntiles = (npages + ppt - 1) / ppt;
-  const int chunks = hd / 8;                // 16-byte pieces of a head row
+  const int live = max(1, (npages + pps - 1) / pps);
+  if (split >= live) {                        // past the chain: no K/V
+    cp_async_wait<0>();
+    return;
+  }
+
+  // this split's keys [k0, k1): absolute positions in the chain
+  const int k0 = split * pps * bs;
+  const int k1 = min(min((split + 1) * pps, npages) * bs, len);
+  const int ntiles = k1 > k0 ? (k1 - k0 + kt - 1) / kt : 0;
+  const int chunks = hd / 8;                  // 16-byte pieces of a row
 
   auto load_tile = [&](int tile, int stage) {
-    __nv_bfloat16* kd = kbuf + (size_t)stage * kt * hd;
-    __nv_bfloat16* vd = vbuf + (size_t)stage * kt * hd;
+    bf16* kd = kbuf + stage * kt * ldk;
+    bf16* vd = vbuf + stage * kt * ldk;
     for (int e = tid; e < kt * chunks; e += kThreads) {
-      const int t = e / chunks;             // key within the tile
+      const int t = e / chunks;
       const int c = (e - t * chunks) * 8;
-      const int j = t / bs;                 // page within the tile
-      const int page = tile * ppt + j;
-      const bool live = page < npages;
+      const int kpos = k0 + tile * kt + t;
+      const bool ok = kpos < k1;
       size_t src = 0;
-      if (live) {
+      if (ok) {
+        const int page = kpos / bs;
         int blk = table[(size_t)b * nb + page];
-        blk = min(max(blk, 0), n_pool - 1); // clamp as JAX's gathers do
-        src = (((size_t)blk * bs + (t - j * bs)) * nkv + n) * hd + c;
+        blk = min(max(blk, 0), n_pool - 1);   // clamp as JAX's gathers do
+        src = (((size_t)blk * bs + (kpos - page * bs)) * nkv + n) * hd + c;
       }
-      cp_async16(kd + (size_t)t * hd + c, kp + src, live);
-      cp_async16(vd + (size_t)t * hd + c, vp + src, live);
+      cp_async16(kd + t * ldk + c, kp + src, ok);
+      cp_async16(vd + t * ldk + c, vp + src, ok);
     }
   };
 
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (p < ntiles) load_tile(p, p);
+  // every stage in flight at once; one commit group a tile
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    if (s < ntiles) load_tile(s, s);
     cp_async_commit();
   }
-  for (int e = tid; e < rows * hd; e += kThreads) {
-    const int r = e / hd;
-    const int c = e - r * hd;
-    const int gi = r / tq;
-    const int ti = r - gi * tq;
-    qs[e] = __bfloat162float(
-        q[(((size_t)b * tq + ti) * nq + n * g + gi) * hd + c]);
-    acc[e] = 0.f;
-  }
-  for (int r = tid; r < rows; r += kThreads) {
+  // the head-dim padding of the ring is never copied: zero it; clear acc
+  // and the row state
+  if (hdp > hd)
+    for (int e = tid; e < 2 * kStages * kt * (hdp - hd); e += kThreads) {
+      const int r = e / (hdp - hd);
+      kbuf[r * ldk + hd + (e - r * (hdp - hd))] = __float2bfloat16_rn(0.f);
+    }
+  for (int e = tid; e < rp * hdp; e += kThreads)
+    acc[(e / hdp) * ldo + e % hdp] = 0.f;
+  for (int r = tid; r < rp; r += kThreads) {
     m[r] = -INFINITY;
     a[r] = 0.f;
+    alpha[r] = 0.f;
   }
 
+  const int mtiles = rp / 16;
+  const int nks = kt / 16;                    // mma k steps of a tile
   for (int it = 0; it < ntiles; ++it) {
-    const int pf = it + kStages - 1;
-    if (pf < ntiles) load_tile(pf, pf % kStages);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();           // tile `it` has landed
-    __syncthreads();
-    const __nv_bfloat16* ks = kbuf + (size_t)(it % kStages) * kt * hd;
-    const __nv_bfloat16* vs = vbuf + (size_t)(it % kStages) * kt * hd;
+    cp_async_wait<kStages - 1>();             // q and tile `it` have landed
+    __syncthreads();                          // ... for every thread
+    const int stage = it % kStages;
+    const bf16* ks = kbuf + stage * kt * ldk;
+    const bf16* vs = vbuf + stage * kt * ldk;
+    const int key0 = k0 + it * kt;
 
-    // scores: one thread per (row, key), 8 values a step
-    for (int e = tid; e < rows * kt; e += kThreads) {
-      const int r = e / kt;
-      const int t = e - r * kt;
-      const float* qr = qs + r * hd;
-      const __nv_bfloat16* kr = ks + (size_t)t * hd;
-      float dot = 0.f;
-      int ci = t % chunks;                  // rotated start chunk
-      for (int i = 0; i < chunks; ++i) {
-        const int c = ci * 8;
-        const uint4 kv = *reinterpret_cast<const uint4*>(kr + c);
-        const float4 q0 = *reinterpret_cast<const float4*>(qr + c);
-        const float4 q1 = *reinterpret_cast<const float4*>(qr + c + 4);
-        const __nv_bfloat162* k2 =
-            reinterpret_cast<const __nv_bfloat162*>(&kv);
-        const float2 f0 = __bfloat1622float2(k2[0]);
-        const float2 f1 = __bfloat1622float2(k2[1]);
-        const float2 f2 = __bfloat1622float2(k2[2]);
-        const float2 f3 = __bfloat1622float2(k2[3]);
-        dot = fmaf(q0.x, f0.x, dot);
-        dot = fmaf(q0.y, f0.y, dot);
-        dot = fmaf(q0.z, f1.x, dot);
-        dot = fmaf(q0.w, f1.y, dot);
-        dot = fmaf(q1.x, f2.x, dot);
-        dot = fmaf(q1.y, f2.y, dot);
-        dot = fmaf(q1.z, f3.x, dot);
-        dot = fmaf(q1.w, f3.y, dot);
-        if (++ci == chunks) ci = 0;
+    // S = q k^T: warp pairs (m tile, 8-key n tile)
+    const int nkt = kt / 8;
+    for (int p = warp; p < mtiles * nkt; p += kWarps) {
+      const int mt = p / nkt, nt = p - (p / nkt) * nkt;
+      // two accumulators (even and odd k steps) halve the mma chain
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+      const bf16* qa = qs + (mt * 16 + (lane & 15)) * ldk + (lane >> 4) * 8;
+      const bf16* kb = ks + (nt * 8 + (lane & 7)) * ldk + ((lane >> 3) & 1) * 8;
+      for (int kk = 0; kk < hdp; kk += 32) {
+        uint32_t fa[4], fb[2];
+        ldsm_x4(fa, qa + kk);
+        ldsm_x2(fb, kb + kk);
+        mma16816(c, fa, fb[0], fb[1]);
+        if (kk + 16 < hdp) {
+          ldsm_x4(fa, qa + kk + 16);
+          ldsm_x2(fb, kb + kk + 16);
+          mma16816(c2, fa, fb[0], fb[1]);
+        }
       }
-      float s = dot * scale;
-      if (has_softcap) s = softcap * tanhf(s / softcap);
-      const int kpos = it * kt + t;
-      const int qpos = len - tq + (r % tq);
-      sc[e] = kpos <= qpos ? s : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[i] += c2[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = mt * 16 + gq + 8 * (i >> 1);
+        const int col = nt * 8 + 2 * tq4 + (i & 1);
+        float s = 0.f;                        // padding rows: p = 0
+        if (r < rows) {
+          s = c[i] * scale;
+          if (has_softcap) s = softcap * tanhf(s / softcap);
+          const int kpos = key0 + col;
+          const int qpos = len - tq + (r - (r / tq) * tq);
+          if (kpos >= k1 || kpos > qpos) s = -INFINITY;
+        }
+        sc[r * lds + col] = s;
+      }
     }
     __syncthreads();
 
-    // online softmax: one warp per query row
-    for (int r = warp; r < rows; r += kWarps) {
-      float* sr = sc + r * kt;
+    // online softmax, 8 lanes a row (keys li, li + 8, ...), 4 rows a warp;
+    // p = hi + lo written over the row's scores
+    const int lg = lane >> 3, li = lane & 7;
+    for (int base = warp * 4; base < rows; base += kWarps * 4) {
+      const int r = base + lg;
+      const bool on = r < rows;
+      float* sr = sc + (on ? r : 0) * lds;
+      float v[kTileKeys / 8];
       float smax = -INFINITY;
-      for (int t = lane; t < kt; t += 32) smax = fmaxf(smax, sr[t]);
-      smax = warp_max(smax);
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, smax);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-      for (int t = lane; t < kt; t += 32) {
-        const float pv = expf(sr[t] - m_safe);
-        sr[t] = pv;
-        sum += pv;
+#pragma unroll
+      for (int j = 0; j < kTileKeys / 8; ++j) {
+        const int t = li + 8 * j;
+        v[j] = on && t < kt ? sr[t] : -INFINITY;
+        smax = fmaxf(smax, v[j]);
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m_prev - m_safe);
-        a[r] = a[r] * al + sum;
-        m[r] = m_new;
-        alpha[r] = al;
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, o));
+      const float m_prev = on ? m[r] : -INFINITY;
+      const float m_new = fmaxf(m_prev, smax);
+      const float safe = m_new == -INFINITY ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTileKeys / 8; ++j) {
+        v[j] = li + 8 * j < kt ? expf(v[j] - safe) : 0.f;
+        sum += v[j];
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      __syncwarp();                           // the rows' scores are read
+      if (on) {
+        bf16* hi = reinterpret_cast<bf16*>(sr);
+        bf16* lo = hi + kt;
+#pragma unroll
+        for (int j = 0; j < kTileKeys / 8; ++j) {
+          const int t = li + 8 * j;
+          if (t < kt) {
+            const bf16 h = __float2bfloat16_rn(v[j]);
+            hi[t] = h;
+            lo[t] = __float2bfloat16_rn(v[j] - __bfloat162float(h));
+          }
+        }
+        if (li == 0) {
+          const float al = expf(m_prev - safe);
+          a[r] = a[r] * al + sum;
+          m[r] = m_new;
+          alpha[r] = al;
+        }
       }
     }
     __syncthreads();
 
-    // acc = acc * alpha + p @ v, each thread its own (row, 2 columns)
-    const int half = hd / 2;
-    for (int e = tid; e < rows * half; e += kThreads) {
-      const int r = e / half;
-      const int c = (e - r * half) * 2;
-      const float* pr = sc + r * kt;
-      float2* ap = reinterpret_cast<float2*>(acc + r * hd + c);
-      float2 v = *ap;
-      v.x *= alpha[r];
-      v.y *= alpha[r];
-      const __nv_bfloat16* vc = vs + c;
-      for (int t = 0; t < kt; ++t) {
-        const float p = pr[t];
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vc + (size_t)t * hd));
-        v.x = fmaf(p, x.x, v.x);
-        v.y = fmaf(p, x.y, v.y);
+    // acc = acc * alpha + hi @ v + lo @ v: warp pairs (m tile, 8-column
+    // n tile of hd); a warp loads the p fragments of its m tile once
+    const int nht = hdp / 8;
+    int frag_mt = -1;
+    uint32_t fh[kTileKeys / 16][4], fl[kTileKeys / 16][4];
+    for (int p = warp; p < mtiles * nht; p += kWarps) {
+      const int mt = p / nht, nt = p - (p / nht) * nht;
+      if (mt != frag_mt) {
+        const bf16* prow = reinterpret_cast<const bf16*>(
+            sc + (mt * 16 + (lane & 15)) * lds) + (lane >> 4) * 8;
+#pragma unroll
+        for (int k = 0; k < kTileKeys / 16; ++k)
+          if (k < nks) {
+            ldsm_x4(fh[k], prow + 16 * k);
+            ldsm_x4(fl[k], prow + kt + 16 * k);
+          }
+        frag_mt = mt;
       }
-      *ap = v;
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < kTileKeys / 16; ++k)
+        if (k < nks) {
+          uint32_t fv[2];
+          ldsm_x2_t(fv, vs + (16 * k + (lane & 15)) * ldk + nt * 8);
+          mma16816(c, fh[k], fv[0], fv[1]);
+          mma16816(c2, fl[k], fv[0], fv[1]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[i] += c2[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = mt * 16 + gq + 8 * (i >> 1);
+        const int col = nt * 8 + 2 * tq4 + (i & 1);
+        acc[r * ldo + col] = acc[r * ldo + col] * alpha[r] + c[i];
+      }
     }
-    __syncthreads();                        // the stage is free for reloads
+    if (it + kStages < ntiles) {
+      __syncthreads();                        // the stage is free
+      load_tile(it + kStages, stage);
+    }
+    cp_async_commit();
   }
   cp_async_wait<0>();
-  __syncthreads();                          // (m, a) of rows with no pages
+  __syncthreads();                            // acc, m, a complete
 
-  for (int e = tid; e < rows * hd; e += kThreads) {
-    const int r = e / hd;
-    const int c = e - r * hd;
-    const int gi = r / tq;
-    const int ti = r - gi * tq;
+  auto store = [&](int r, int c, float v) {
+    const int gi = r / tq, ti = r - (r / tq) * tq;
     out[(((size_t)b * tq + ti) * nq + n * g + gi) * hd + c] =
-        __float2bfloat16_rn(acc[e] / fmaxf(a[r], 1e-30f));
+        __float2bfloat16_rn(v);
+  };
+  if (live == 1) {
+    for (int e = tid; e < rows * hd; e += kThreads) {
+      const int r = e / hd, c = e - (e / hd) * hd;
+      store(r, c, acc[r * ldo + c] / fmaxf(a[r], 1e-30f));
+    }
+    return;
+  }
+
+  // several live splits: write this one's partial; the last to finish
+  // merges them all in split order
+  const size_t pstride = (size_t)rows * (hd + 2);
+  const size_t pbase = ((size_t)b * nkv + n) * splits;
+  float* mine = part + (pbase + split) * pstride;
+  for (int r = tid; r < rows; r += kThreads) {
+    mine[r] = m[r];
+    mine[rows + r] = a[r];
+  }
+  for (int e = tid; e < rows * hd; e += kThreads) {
+    const int r = e / hd, c = e - (e / hd) * hd;
+    mine[2 * rows + e] = acc[r * ldo + c];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counts + (size_t)b * nkv + n;
+    const bool last = atomicAdd(cnt, 1) == live - 1;
+    if (last) *cnt = 0;                       // ready for the next launch
+    *flag = last;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // per row, one warp, lanes over the splits: the merged max (m) and sum
+  // (a), reduced in a fixed order whichever CTA is last
+  for (int r = warp; r < rows; r += kWarps) {
+    float mx = -INFINITY;
+    for (int s = lane; s < live; s += 32)
+      mx = fmaxf(mx, __ldcg(part + (pbase + s) * pstride + r));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float safe = mx == -INFINITY ? 0.f : mx;
+    float sum = 0.f;
+    for (int s = lane; s < live; s += 32) {
+      const float* ps = part + (pbase + s) * pstride;
+      sum += __ldcg(ps + rows + r) * expf(__ldcg(ps + r) - safe);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      m[r] = safe;
+      a[r] = sum;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * hd; e += kThreads) {
+    const int r = e / hd, c = e - (e / hd) * hd;
+    float v = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < live; ++s) {
+      const float* ps = part + (pbase + s) * pstride;
+      v += __ldcg(ps + 2 * rows + e) * expf(__ldcg(ps + r) - m[r]);
+    }
+    store(r, c, v / fmaxf(a[r], 1e-30f));
   }
 }
 
@@ -281,33 +490,42 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" {
 
-// Dynamic shared memory one block needs, and the most the card allows.
-long long paged_attn_smem_bytes(int bs, int hd, int rows) {
-  return (long long)smem_bytes(bs, hd, rows, pages_per_tile(bs, hd, rows));
+// The launch plan for (B, nkv, nb, bs, hd, rows = g * Tq): {tile keys,
+// pages a split, splits, dynamic shared memory} into out[0..3] (the
+// wrapper's Python mirror, core.windows.paged_plan, must agree).
+void paged_attn_plan(int b, int nkv, int nb, int bs, int hd, int rows,
+                     int* out) {
+  const Plan p = plan(b, nkv, nb, bs, hd, rows);
+  out[0] = p.kt;
+  out[1] = p.pps;
+  out[2] = p.splits;
+  out[3] = p.smem;
 }
 
-int paged_attn_max_smem() { return kMaxSmem; }
-
-// Launches on `stream`; returns the cudaError_t of the launch.
+// Launches on `stream`; returns the cudaError_t of the launch.  part is
+// (B, nkv, splits, g * tq, hd + 2) f32 scratch (unused with one split),
+// counts (B, nkv) int32 that are zero and left zero.
 int paged_attn_launch(const void* q, const void* kp, const void* vp,
-                      const void* table, const void* lens, void* out, int b,
-                      int tq, int nq, int nkv, int hd, int n_pool, int bs,
-                      int nb, float scale, int has_softcap, float softcap,
+                      const void* table, const void* lens, void* out,
+                      void* part, void* counts, int b, int tq, int nq,
+                      int nkv, int hd, int n_pool, int bs, int nb,
+                      float scale, int has_softcap, float softcap,
                       void* stream) {
   const int g = nq / nkv;
-  const int ppt = pages_per_tile(bs, hd, g * tq);
-  const size_t smem = smem_bytes(bs, hd, g * tq, ppt);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const Plan p = plan(b, nkv, nb, bs, hd, g * tq);
+  if (p.smem > kMaxSmem || hd % 8 || p.splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  static int given[hopper::kMaxDevices];
+  cudaError_t err = hopper::raise_smem_limit(
+      reinterpret_cast<const void*>(paged_attn_kernel), p.smem, given);
   if (err != cudaSuccess) return (int)err;
-  paged_attn_kernel<<<dim3(b, nkv), kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out),
-      n_pool, bs, nkv, hd, nb, tq, g, ppt, scale, has_softcap, softcap);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  paged_attn_kernel<<<dim3(b, nkv, p.splits), kThreads, p.smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), static_cast<const int*>(table),
+      static_cast<const int*>(lens), static_cast<bf16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counts), n_pool, bs, nkv,
+      hd, nb, tq, g, p.kt, p.pps, p.splits, scale, has_softcap, softcap);
   return (int)cudaGetLastError();
 }
 

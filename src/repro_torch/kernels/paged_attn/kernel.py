@@ -5,17 +5,21 @@ TPU kernel behind ``pallas_paged_attention``, with a hand-written CUDA
 kernel for Hopper (`csrc/paged_attn.cu`, built by
 `repro_torch.kernels.build`).
 
-Bound on an H100 SXM: the kernel must read each row's live K/V pages
+Bound on an H100 SXM: the kernel must read each row's live K/V entries
 once (plus q, and write the output); at the serving cell's decode shape
 (B 8, 8 KV heads, head_dim 128, block 16) a full 512-token chain is
 16.8 MB a layer, ~5 us at 3.35 TB/s, and the products are far below the
-tensor-core line: it is memory-bound, and at short chains bound by
-launch latency.  The design: one CTA per (row, KV head) walks its own
-row of the block table (the TPU kernel's scalar-prefetch index maps and
-sequential chain axis have no counterpart on the GPU), stopping at
-``ceil(lens / bs)`` pages; the g * Tq query rows of its KV head sit in
-shared memory as f32 and K/V pages stream through a cp.async ring.  See
-the source's header.
+tensor-core line: it is memory-bound, and at short chains bound by the
+latency of a launch and of one dependent chain of loads.  The design
+(the source's header): each (row, KV head) chain is split across CTAs,
+flash-decoding style (grid (B, nkv, splits), `core.windows.paged_plan`,
+held to its C twin before a shape's first launch), so the decode shape
+fills the card; K/V stream through a cp.async ring, and scores and
+``p @ v`` run on the tensor cores (``mma.sync`` m16n8k16) with the g * Tq
+query rows as zero-padded m16 tiles and p kept to f32 precision as two
+bf16 halves; the last split of a (row, head) to finish merges the
+partials in split order (a counter in global memory, reset by that CTA),
+so a call is one launch.
 
 Contract (the JAX kernel's, minus its tunable ``pages_per_step``, which
 waits for the autotuner, ROADMAP A2 item 4): q (B, Tq, nq, hd), kp/vp
@@ -37,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.windows import SMEM_BYTES, paged_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
@@ -44,22 +49,31 @@ MAX_HEAD_DIM = 256
 LAUNCHES = build.counter("paged_attn")
 
 _configured = set()
+# per device: the (B, nkv) split counters, which the kernel leaves zero
+_counts = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attn")
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attn_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, f, i, f, p]
+        lib.paged_attn_launch.argtypes = [p] * 8 + [i] * 8 + [f, i, f, p]
         lib.paged_attn_launch.restype = i
-        lib.paged_attn_smem_bytes.argtypes = [i, i, i]
-        lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
-        lib.paged_attn_max_smem.restype = i
         lib.paged_attn_error_string.argtypes = [i]
         lib.paged_attn_error_string.restype = ctypes.c_char_p
         _configured.add(id(lib))
     return lib
+
+
+def _split_counts(dev: torch.device, pairs: int) -> torch.Tensor:
+    """At least `pairs` int32 zeros on `dev`, kept across calls: the last
+    split of a (row, KV head) to finish resets its counter.  Calls on
+    one device share them, so they run on one stream at a time."""
+    counts = _counts.get(dev)
+    if counts is None or counts.numel() < pairs:
+        counts = _counts[dev] = torch.zeros((max(pairs, 64),),
+                                            dtype=torch.int32, device=dev)
+    return counts
 
 
 def _check_cuda_args(q, kp, vp, table, lens):
@@ -123,21 +137,30 @@ def paged_attention(
     _check_cuda_args(q, kp, vp, table, lens)
     b, tq, nq, hd = q.shape
     n_pool, bs, nkv, _ = kp.shape
+    nb = table.shape[1]
+    rows = (nq // nkv) * tq
+    plan = paged_plan(b, nkv, nb, bs, hd, rows)
+    if plan.smem_bytes > SMEM_BYTES:
+        raise ValueError(f"{plan.smem_bytes} bytes of shared memory a block "
+                         f"(head_dim {hd}, {rows} query rows a KV head) "
+                         f"exceed the card's {SMEM_BYTES}")
     lib = _lib()
-    smem = lib.paged_attn_smem_bytes(bs, hd, (nq // nkv) * tq)
-    if smem > lib.paged_attn_max_smem():
-        raise ValueError(f"{smem} bytes of shared memory a block (block "
-                         f"size {bs}, head_dim {hd}, {nq // nkv * tq} query "
-                         f"rows a KV head) exceed the card's "
-                         f"{lib.paged_attn_max_smem()}")
+    build.check_plan_twin(lib, "paged_attn_plan",
+                          (b, nkv, nb, bs, hd, rows), plan)
+    dev = q.device
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):     # a no-op on the current device
+    part = (torch.empty((b * nkv * plan.splits * rows * (hd + 2),),
+                        dtype=torch.float32, device=dev)
+            if plan.splits > 1 else None)
+    counts = _split_counts(dev, b * nkv)
+    with torch.cuda.device(dev):          # a no-op on the current device
         err = lib.paged_attn_launch(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs,
-            table.shape[1], 1.0 / math.sqrt(hd), int(softcap is not None),
-            float(softcap or 0.0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            lens.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            counts.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs, nb,
+            1.0 / math.sqrt(hd), int(softcap is not None),
+            float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("paged_attn launch failed: "
                            + lib.paged_attn_error_string(err).decode())

@@ -47,21 +47,16 @@
 // products are 2 * 4096 * 1024 * 152064 = 1.28 TFLOP -> ~1.29 ms on the
 // tensor cores, against ~0.1 ms of bytes, and a kernel that streams W once
 // for every few rows would read it hundreds of times.  So this path tiles
-// like a GEMM:
-//   * a CTA owns 128 rows of h and walks a slice of 256-column vocab
-//     tiles; one producer thread streams h and W in 64-wide k chunks
-//     through a 4-stage TMA ring (128-byte swizzle, mbarrier completion),
-//     two consumer warpgroups each issue wgmma m64n256k16 (bf16 in, f32
-//     accumulate, both operands from shared memory) for their 64 rows;
+// like a GEMM, on the main loop it shares with the fused-CE forward
+// (common/rowtile.cuh: 128 rows of h by 256-column W tiles a CTA, a
+// 4-stage TMA ring fed by one producer thread, two consumer warpgroups on
+// wgmma m64n256k16, ~8 waves of CTAs over (row tiles, vocab slices)):
 //   * the epilogue stays in registers: softcap, mask, NaN -> -inf, and a
 //     running (value, id) best per row; each thread scans its columns in
 //     ascending id order and replaces only on a strictly greater value,
 //     and the quad merges under (value desc, id asc) once at the end;
 //   * each (row, vocab slice) writes one partial, and a warp-per-row
-//     merge kernel takes the best partial in the same order.  The grid is
-//     (row tiles, slices), slices chosen so that ~8 waves of CTAs fill the
-//     132 SMs (4096 rows: 32 x 33); CTAs of one slice run side by side and
-//     share its W bytes in L2.
+//     merge kernel takes the best partial in the same order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +65,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "rowtile.cuh"
 #include "wstream.cuh"
 
 namespace {
@@ -510,67 +506,30 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
 // many-row top-1 path
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsM = 128;           // h rows a CTA: two consumer warpgroups
-constexpr int kRowsN = 256;           // vocab columns a tile (wgmma n)
-constexpr int kRowsK = 64;            // k chunk: one 128-byte swizzle row
-constexpr int kRowsStages = 4;
-constexpr int kRowsThreads = 384;     // producer warpgroup + 2 consumers
-constexpr int kRowsWaves = 8;         // CTAs in flight per SM, times 132
-constexpr int kRowsStageBytes = (kRowsM + kRowsN) * kRowsK * 2;
-constexpr size_t kRowsSmem =
-    1024 + (size_t)kRowsStages * kRowsStageBytes + 2 * kRowsStages * 8;
-
-// grid (ceil(rows / 128), n_split), kRowsThreads threads, kRowsSmem bytes.
-// Slice `split` covers vocab tiles [split * per, (split + 1) * per); each
-// row's best masked logit over it goes to pvals/pids[row * n_split + split].
-__global__ void __launch_bounds__(kRowsThreads, 1)
+// grid (ceil(rows / 128), n_split), rowtile::kThreads threads,
+// rowtile::kSmem bytes.  Slice `split` covers vocab tiles [split * per,
+// (split + 1) * per); each row's best masked logit over it goes to
+// pvals/pids[row * n_split + split].
+__global__ void __launch_bounds__(rowtile::kThreads, 1)
     topk_rows_kernel(const __grid_constant__ CUtensorMap hmap,
                      const __grid_constant__ CUtensorMap wmap,
                      float* __restrict__ pvals, int* __restrict__ pids,
                      int rows, int d, int v_orig, int valid, int col_offset,
                      int per, int n_split, int has_softcap, float softcap) {
-  using namespace hopper;
+  using rowtile::kCols;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kRowsStages * kRowsM * kRowsK;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sB + kRowsStages * kRowsN *
-                                                        kRowsK);
-  uint64_t* empty = full + kRowsStages;
-
-  const int row0 = blockIdx.x * kRowsM;
+  const rowtile::Ring ring = rowtile::setup(smem_raw);
+  const int row0 = blockIdx.x * rowtile::kRows;
   const int split = blockIdx.y;
-  const int n_tiles = (v_orig + kRowsN - 1) / kRowsN;
+  const int n_tiles = (v_orig + kCols - 1) / kCols;
   const int t_begin = split * per;
   const int t_end = min(t_begin + per, n_tiles);
-  const int nk = d / kRowsK;
+  const int nk = d / rowtile::kChunk;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kRowsStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);        // one arrival per consumer warp
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
   if (wg == 0) {
-    // producer: one thread keeps the ring full
-    if (threadIdx.x == 0) {
-      int it = 0;
-      for (int tile = t_begin; tile < t_end; ++tile)
-        for (int kc = 0; kc < nk; ++kc, ++it) {
-          const int s = it % kRowsStages;
-          mbar_wait(&empty[s], ((it / kRowsStages) & 1) ^ 1);
-          mbar_arrive_tx(&full[s], kRowsStageBytes);
-          tma_load_2d(sA + s * kRowsM * kRowsK, &hmap, &full[s],
-                      kc * kRowsK, row0);
-          tma_load_2d(sB + s * kRowsN * kRowsK, &wmap, &full[s],
-                      kc * kRowsK, tile * kRowsN);
-        }
-    }
+    if (threadIdx.x == 0)
+      rowtile::produce(ring, &hmap, &wmap, row0, t_begin, t_end, nk);
     return;
   }
 
@@ -578,31 +537,16 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
   const int wt = threadIdx.x % 128;
   const int lane = wt & 31;
   const int t = lane & 3;
-  float acc[128];
+  float acc[rowtile::kAcc];
   float bv[2] = {-INFINITY, -INFINITY};
   int bi[2] = {INT_MAX, INT_MAX};
   int it = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
-    for (int kc = 0; kc < nk; ++kc, ++it) {
-      const int s = it % kRowsStages;
-      mbar_wait(&full[s], (it / kRowsStages) & 1);
-      const __nv_bfloat16* a = sA + s * kRowsM * kRowsK + cw * 64 * kRowsK;
-      const __nv_bfloat16* b = sB + s * kRowsN * kRowsK;
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kRowsK / 16; ++ks)
-        wgmma_ss<256>(acc, desc_b128(a + ks * 16, 16, 1024),
-                      desc_b128(b + ks * 16, 16, 1024), kc | ks);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
+    rowtile::tile_product(acc, ring, cw, nk, it);
     // epilogue: columns in ascending order, strictly greater replaces
-    const int c_base = tile * kRowsN;
+    const int c_base = tile * kCols;
 #pragma unroll
-    for (int j = 0; j < kRowsN / 8; ++j)
+    for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = c_base + 8 * j + 2 * t + c;
@@ -665,17 +609,6 @@ __global__ void __launch_bounds__(256)
     vals[row] = v;
     ids[row] = id;
   }
-}
-
-// vocab slices of the many-row path for `rows` rows and `v_orig` columns
-int rows_splits(int rows, int v_orig, int* per_out) {
-  const int row_tiles = (rows + kRowsM - 1) / kRowsM;
-  const int n_tiles = (v_orig + kRowsN - 1) / kRowsN;
-  int want = (kRowsWaves * wstream::kNumSMs + row_tiles - 1) / row_tiles;
-  want = want < 1 ? 1 : (want > n_tiles ? n_tiles : want);
-  const int per = (n_tiles + want - 1) / want;
-  if (per_out) *per_out = per;
-  return (n_tiles + per - 1) / per;
 }
 
 }  // namespace
@@ -743,7 +676,7 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
 // Many-row top-1 path: the vocab slices a launch over `rows` rows uses;
 // the wrapper sizes the (rows, n_split) partials with it.
 int sample_topk_rows_splits(int rows, int v_orig) {
-  return rows_splits(rows, v_orig, nullptr);
+  return rowtile::splits(rows, v_orig, nullptr);
 }
 
 // Launches the many-row top-1 kernel and its merge on `stream`; returns a
@@ -752,22 +685,20 @@ int sample_topk_rows_launch(const void* h, const void* w, void* pvals,
                             void* pids, void* vals, void* ids, int rows,
                             int d, int v_orig, int valid, int col_offset,
                             int has_softcap, float softcap, void* stream) {
-  if (rows < 1 || v_orig < 1 || d < kRowsK || d % kRowsK)
+  if (rows < 1 || v_orig < 1 || d < rowtile::kChunk || d % rowtile::kChunk)
     return (int)cudaErrorInvalidValue;
   CUtensorMap hmap, wmap;
-  int err = hopper::make_tmap_bf16(&hmap, h, rows, d, kRowsM);
-  if (err) return err;
-  err = hopper::make_tmap_bf16(&wmap, w, v_orig, d, kRowsN);
+  int err = rowtile::make_maps(&hmap, &wmap, h, w, rows, v_orig, d);
   if (err) return err;
   int per = 0;
-  const int n_split = rows_splits(rows, v_orig, &per);
+  const int n_split = rowtile::splits(rows, v_orig, &per);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(
       topk_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kRowsSmem);
+      (int)rowtile::kSmem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((rows + kRowsM - 1) / kRowsM, n_split);
-  topk_rows_kernel<<<grid, kRowsThreads, kRowsSmem, s>>>(
+  dim3 grid((rows + rowtile::kRows - 1) / rowtile::kRows, n_split);
+  topk_rows_kernel<<<grid, rowtile::kThreads, rowtile::kSmem, s>>>(
       hmap, wmap, static_cast<float*>(pvals), static_cast<int*>(pids), rows,
       d, v_orig, valid, col_offset, per, n_split, has_softcap, softcap);
   e = cudaGetLastError();

@@ -819,3 +819,141 @@ def test_topk_decode_ties_go_to_lowest_id(cuda, rows, k):
     rv, ri = topk_scores_ref(h, w, k, valid_vocab=v - 7)
     assert torch.equal(ids, ri)
     torch.testing.assert_close(vals, rv, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fused-CE forward on the many-row wgmma / TMA tile
+# ---------------------------------------------------------------------------
+
+
+def _check_forward(cuda, h, w, y, cfg, kw):
+    """Two calls bit-identical, the tile-stat call's first three outputs
+    those of the exact call, each output within the forward's tolerance
+    of the plain version (tmax -inf in the same places)."""
+    from repro_torch.kernels.fused_ce import FWD_LAUNCHES, fwd_stats, ref_stats
+    before = FWD_LAUNCHES.count
+    stats = fwd_stats(h, w, y, cfg, **kw)
+    again = fwd_stats(h, w, y, cfg, **kw)
+    tiled = fwd_stats(h, w, y, cfg, return_tile_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert FWD_LAUNCHES.count == before + 3
+    for a, b, c in zip(stats, again, tiled[:3]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    want = ref_stats(h, w, y, cfg, return_tile_stats=True, **kw)
+    for got, ref, atol in zip(stats, want, (1e-4, 1e-4, 1e-3)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=atol)
+    assert tiled[3].shape == want[3].shape
+    assert torch.equal(torch.isneginf(tiled[3]), torch.isneginf(want[3]))
+    fin = torch.isfinite(want[3])
+    torch.testing.assert_close(tiled[3][fin], want[3][fin], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(_CE_FEATURES))
+@pytest.mark.parametrize("n", [1, 7, 300, 1000])
+def test_fused_ce_forward_ragged_rows_and_vocab(cuda, n, feature):
+    """Rows ragged against the 128-row tile, a vocab ragged against the
+    256-column tile (1000 = 3 x 256 + 232; the last 64 x 64 grid tile is
+    partial), a shard offset and valid columns short of V."""
+    from repro_torch.core import LossConfig
+    v, d = 1000, 128
+    h, w, y = _ce_problem(cuda, n, v, d, seed=n + len(feature))
+    cfg = LossConfig(valid_vocab=v - 77, **_CE_FEATURES[feature])
+    _check_forward(cuda, h, w, y, cfg,
+                   dict(col_offset=40, total_valid=v - 37))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 8192])
+def test_fused_ce_forward_any_d(cuda, d):
+    """One k chunk (d 64) and 128 of them (d 8192, past the backward's
+    limit): the forward takes any d % 64 == 0.  V 700 leaves the last
+    256-column tile with grid tiles past the statistic's edge."""
+    from repro_torch.core import LossConfig
+    h, w, y = _ce_problem(cuda, 200, 700, d, seed=d)
+    _check_forward(cuda, h, w, y, LossConfig(logit_softcap=30.0),
+                   dict(col_offset=0, total_valid=None))
+
+
+@pytest.mark.cuda
+def test_ce_and_paged_plans_equal_their_source_twins(cuda):
+    """The fused-CE forward's vocab split and paged_attn's chain split,
+    as the wrappers launch them, are the sources' own."""
+    from repro_torch.core.windows import choose_ce_plan, paged_plan
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce.kernel import _lib as ce_lib
+    from repro_torch.kernels.paged_attn.kernel import _lib as paged_lib
+    for n in (1, 7, 128, 300, 1000, 4096, 8192, 100_000):
+        for v in (100, 1000, 32_768, 152_064):
+            build.check_plan_twin(ce_lib(), "fused_ce_fwd_plan", (n, v),
+                                  choose_ce_plan(n, v, 1024))
+    for b, nkv in ((1, 1), (3, 2), (8, 8), (64, 8)):
+        for nb, bs in ((7, 3), (24, 8), (32, 16), (40, 32)):
+            for hd in (40, 64, 128, 256):
+                for rows in (1, 2, 10, 20, 64):
+                    build.check_plan_twin(
+                        paged_lib(), "paged_attn_plan",
+                        (b, nkv, nb, bs, hd, rows),
+                        paged_plan(b, nkv, nb, bs, hd, rows))
+
+
+# ---------------------------------------------------------------------------
+# paged_attn as a split chain on tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("hd,bs", [(64, 8), (128, 16), (256, 32)])
+def test_paged_attn_split_chains(cuda, tq, hd, bs):
+    """Chains split across CTAs (the plan has several splits): a chain
+    that ends on a split boundary, one page, lens = Tq and a full table;
+    g * Tq = 4 and 20 (two m16 tiles).  Against the plain version at atol
+    / rtol 1e-2; one launch a call, and two calls bit-identical."""
+    from repro_torch.core.windows import paged_plan
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    b, nq, nkv, nb = 4, 8, 2, 24
+    plan = paged_plan(b, nkv, nb, bs, hd, nq // nkv * tq)
+    assert plan.splits > 1
+    lens = torch.tensor([2 * plan.pages * bs, bs, tq, nb * bs],
+                        dtype=torch.int32, device=cuda)
+    q, kp, vp, table, lens = _paged_problem(cuda, b, tq, nq, nkv, hd, bs, nb,
+                                            seed=hd + tq, lens=lens)
+    before = LAUNCHES.count
+    out = paged_attention(q, kp, vp, table, lens)
+    again = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+def test_paged_attn_poisoned_null_block_across_splits(cuda, tq):
+    """Chains of 12 pages followed by null block 0 (poisoned with 1e9)
+    over a table whose splits hold 8 pages: the second split stops at
+    the chain's end, the third reads nothing; ghost rows are zero."""
+    from repro_torch.core.windows import paged_plan
+    from repro_torch.kernels.paged_attn import (paged_attention,
+                                                paged_attention_ref)
+    b, nq, nkv, hd, bs, nb = 4, 8, 2, 128, 8, 24
+    assert paged_plan(b, nkv, nb, bs, hd, nq // nkv * tq).pages == 8
+    lens = torch.tensor([0, 12 * bs, 9 * bs + 3, 8 * bs],
+                        dtype=torch.int32, device=cuda)
+    q, kp, vp, table, lens = _paged_problem(cuda, b, tq, nq, nkv, hd, bs, nb,
+                                            seed=41 + tq, lens=lens)
+    kp[0] = 1e9
+    vp[0] = 1e9
+    table[:, 12:] = 0
+    out = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert float(out.float().abs().max()) < 10

@@ -221,9 +221,9 @@ def test_loss_config_validation_matches_jax(kw):
 
 
 @pytest.mark.parametrize("n,vocab,splits", [
-    (8192, 152064, 4), (1000, 152064, 33), (512, 32768, 66), (1, 256, 2),
-    (100_000, 152064, 1)])
+    (8192, 152064, 17), (1000, 152064, 119), (512, 32768, 128),
+    (1, 256, 1), (100_000, 152064, 2)])
 def test_ce_plan_fills_the_card(n, vocab, splits):
     plan = choose_ce_plan(n, vocab, 1024)
-    assert plan.shape == (128, 128)
+    assert plan.shape == (128, 256)
     assert plan.v_splits == splits

@@ -177,3 +177,44 @@ def test_attention_layer_paged_decode_matches_jax():
                              head_dim=hd, window=4)
     with pytest.raises(NotImplementedError, match="local-window"):
         TA.attention_layer(tp, torch.from_numpy(x), windowed, cache=tcache)
+
+
+@pytest.mark.parametrize("b,nkv,nb,bs,hd,rows,want", [
+    (8, 8, 32, 16, 128, 2, (64, 8, 4)),     # the serving decode shape
+    (8, 8, 32, 16, 128, 10, (64, 8, 4)),    # spec verify, Tq 5
+    (1, 8, 32, 16, 128, 2, (64, 4, 8)),     # one row: more splits
+    (64, 8, 32, 16, 128, 2, (64, 32, 1)),   # the card full without one
+    (3, 2, 24, 8, 64, 20, (64, 8, 3)),      # g * Tq above 16
+    (4, 1, 7, 3, 40, 16, (64, 22, 1)),      # odd block size
+    (1, 1, 8, 16, 256, 64, (32, 2, 4)),     # wide rows: a narrower tile
+    (1, 1, 64, 16, 128, 2, (64, 4, 16)),    # one row, one KV head
+])
+def test_paged_plan_follows_its_rule(b, nkv, nb, bs, hd, rows, want):
+    """`paged_plan` (the mirror of `paged_attn.cu`'s plan): the widest
+    tile of 64, 32 or 16 keys whose shared memory fits, and pages a split
+    such that ~2 x 132 CTAs cover the table, each split's keys a
+    multiple of the tile; the splits cover the table exactly once."""
+    from repro_torch.core.windows import (PAGED_SLOTS, SMEM_BYTES,
+                                          paged_plan, paged_smem_bytes)
+    p = paged_plan(b, nkv, nb, bs, hd, rows)
+    assert (p.keys, p.pages, p.splits) == want
+    assert p.smem_bytes == paged_smem_bytes(p.keys, hd, rows) <= SMEM_BYTES
+    assert p.keys == 64 or paged_smem_bytes(2 * p.keys, hd, rows) > \
+        SMEM_BYTES
+    split_want = (1 if b * nkv >= PAGED_SLOTS
+                  else -(-PAGED_SLOTS // (b * nkv)))
+    per = -(-nb // split_want)
+    assert p.pages == -(-(-(-per * bs // p.keys) * p.keys) // bs)
+    assert (p.splits - 1) * p.pages < nb <= p.splits * p.pages
+    assert p.pages * bs >= p.keys
+
+
+def test_paged_plan_shared_memory_at_the_decode_shape():
+    """The decode shape's CTA: K/V rings of 2 x 64 keys x (128 + 8) bf16,
+    q (16 padded rows), the 16 x (64 + 4) f32 scores, the 16 x (128 + 4)
+    f32 acc, m / a / alpha and a flag: 86,992 bytes, two CTAs an SM."""
+    from repro_torch.core.windows import SMEM_BYTES, paged_plan
+    p = paged_plan(8, 8, 32, 16, 128, 2)
+    assert p.smem_bytes == (2 * 2 * 64 * 136 * 2 + 16 * 136 * 2
+                            + 16 * 68 * 4 + 16 * 132 * 4 + 3 * 16 * 4 + 16)
+    assert 2 * p.smem_bytes <= SMEM_BYTES
