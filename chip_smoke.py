@@ -132,6 +132,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launches all on `sample_topk`'s many-row kernel and none on its
      decode kernel; step ms p50, tokens/s, peak memory and the many-row
      kernel's time at 4096 rows beside ``torch.topk(h @ w.T, 1)``.
+  9. checkpoints, resume and preemption at full width — phase 4's model
+     and data, the checkpoints under a temporary directory in the
+     checkout's ``build/``: (e), run right after phase 4, its final AdamW
+     state (~7.5 GB) saved synchronously, `save_async`'s blocking
+     snapshot timed apart, and the restore onto the card bit for bit;
+     (a) `repro_torch.launch.train` with ``--optimizer adafactor --steps
+     4 --ckpt-dir D --ckpt-every 2``: checkpoints at steps 2 and 4, the
+     counters (zeroed just before) showing one launch of each exact
+     fused-CE kernel a step and nothing else, every loss finite; step ms
+     p50 beside phase 4's, peak memory, and the optimizer state's bytes
+     against AdamW's; (b) `resume_or_init` on D: step 4, every leaf bit
+     for bit (a)'s final state; (c) the CLI resumed to ``--steps 6``:
+     steps 4 and 5 on batches 0 and 1 (the reference restarts its data),
+     its params no further from (a)'s state continued on the same
+     batches by the resumed config's step than two such continuations
+     from copies are from each other (the card's run-to-run difference);
+     (d) `train_loop` with a stop requested after its first step: it
+     saves step 1 and stops there.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -162,6 +180,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1022,7 +1041,7 @@ def phase_train(torch, np, arch, card, dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print("[train] profiled step, top device kernels (ms): "
           + "; ".join(f"{k} {v / 1e3:.2f}" for k, v in top), flush=True)
-    return launches, p50
+    return launches, p50, state
 
 
 def train_run(torch, np, build, tc, arch, dev, data, steps):
@@ -1283,6 +1302,241 @@ def phase_train_filtered(torch, np, arch, card, dev, phase4_p50):
     del state
     torch.cuda.empty_cache()
     return out
+
+
+def state_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def opt_tensors(opt):
+    """The optimizer state's tensors: AdamW's moments or Adafactor's
+    slots."""
+    if "slots" in opt:
+        return [t for slot in opt["slots"] for t in slot.values()]
+    return list(opt["mu"]) + list(opt["nu"])
+
+
+def clone_state(state):
+    """A deep copy of a train state, its params fresh autograd leaves."""
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [tree(v) for v in x]
+        return x.detach().clone().requires_grad_(x.requires_grad)
+
+    opt = {k: tree(v) if k in ("slots", "mu", "nu") else v
+           for k, v in state["opt"].items()}
+    return {"params": tree(state["params"]), "opt": opt,
+            "step": state["step"]}
+
+
+def state_diff(a, b):
+    """Largest |a - b| over the params of two train states (0.0: equal)."""
+    from repro_torch.optim.tree import leaves
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(leaves(a["params"]), leaves(b["params"])))
+
+
+def check_same_state(torch, tag, got, want):
+    """Every leaf bit for bit (dtype, device and values), counters equal."""
+    from repro_torch.optim.tree import leaves
+    pairs = list(zip(leaves(got["params"]), leaves(want["params"])))
+    pairs += list(zip(opt_tensors(got["opt"]), opt_tensors(want["opt"])))
+    if len(pairs) != len(leaves(want["params"])) + len(
+            opt_tensors(want["opt"])):
+        raise AssertionError(f"{tag}: the states differ in structure")
+    for x, y in pairs:
+        if (x.dtype, x.shape, x.device) != (y.dtype, y.shape, y.device) \
+                or not torch.equal(x.detach(), y.detach()):
+            raise AssertionError(f"{tag}: a leaf differs ({x.dtype} "
+                                 f"{tuple(x.shape)} on {x.device})")
+    if (got["step"], got["opt"]["count"]) != (want["step"],
+                                              want["opt"]["count"]):
+        raise AssertionError(f"{tag}: step / count {got['step']} / "
+                             f"{got['opt']['count']} against "
+                             f"{want['step']} / {want['opt']['count']}")
+    return len(pairs)
+
+
+def phase_ckpt_adamw(torch, np, arch, state, card, dev, workdir):
+    """Phase 9 (e): phase 4's final AdamW state at full width saved
+    synchronously, `save_async`'s blocking snapshot timed apart, and the
+    restore onto the card bit for bit; returns the moments' bytes."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import TrainConfig, build_train_step
+
+    opt_bytes = state_bytes(opt_tensors(state["opt"]))
+    gb = (state_bytes(leaves(state["params"])) + opt_bytes) / 1e9
+    ck = Checkpointer(os.path.join(workdir, "adamw"), keep_n=1)
+    step = state["step"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(step, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.save_async(step + 1, state)
+    snap_s = time.perf_counter() - t0
+    ck.wait()
+    async_s = time.perf_counter() - t0
+    if ck.all_steps() != [step + 1]:
+        raise AssertionError(f"(e) steps on disk {ck.all_steps()}")
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                     total_steps=TRAIN_STEPS, loss_impl="kernel",
+                     loss_block_v=min(2048, arch.padded_vocab))
+    example = build_train_step(arch, tc)[0](torch.Generator(), "meta")
+    t0 = time.perf_counter()
+    back, got_step = ck.restore(example, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n = check_same_state(torch, "(e)", back, state)
+    del back
+    torch.cuda.empty_cache()
+    print(f"[ckpt] (e) AdamW at full width, step {step}: {gb:.3f} GB "
+          f"({opt_bytes / 1e9:.3f} GB of f32 moments); save {save_s:.2f} s "
+          f"({gb / save_s:.2f} GB/s), save_async's blocking snapshot "
+          f"{snap_s:.2f} s ({gb / snap_s:.2f} GB/s) and its write "
+          f"{async_s - snap_s:.2f} s after it, restore onto the card "
+          f"{restore_s:.2f} s ({gb / restore_s:.2f} GB/s); {n} leaves bit "
+          f"for bit, step {got_step} on {card}", flush=True)
+    return opt_bytes
+
+
+def phase_checkpoint(torch, np, arch, card, dev, phase4_p50, adamw_opt_bytes,
+                     workdir):
+    """Phase 9 (a)-(d): Adafactor through the training CLI with
+    checkpoints, the restore, the resume through the CLI and a
+    preemption, at full width."""
+    import types
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, DeviceLoader, SyntheticLM
+    from repro_torch.data import to_device
+    from repro_torch.distributed import PreemptionHandler
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import build_train_step, resume_or_init, train_loop
+
+    d_a = os.path.join(workdir, "adafactor")
+    flags = ["--arch", arch.arch_id, "--loss-impl", "kernel",
+             "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+             "--lr", "3e-3", "--optimizer", "adafactor", "--ckpt-dir", d_a,
+             "--ckpt-every", "2", "--log-every", "1"]
+
+    def tc_for(steps):
+        return train_cli.train_config(types.SimpleNamespace(
+            optimizer="adafactor", lr=3e-3, steps=steps, loss_impl="kernel",
+            grad_accum=1, grad_filter_eps=0.0), arch)
+
+    def launches():           # every kernel launched since the reset
+        return {k: c.count for k, c in build.COUNTERS.items() if c.count}
+
+    def check_launches(tag, got, steps):
+        want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+                "fused_ce_dw": steps}
+        if got != want:
+            raise AssertionError(f"{tag} launches {got}, want {want}")
+
+    # (a) Adafactor through the CLI, checkpoints at steps 2 and 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    state_a, hist = train_cli.main(flags + ["--steps", "4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches("(a)", counts, 4)
+    losses = [m["loss"] for _, m in hist]
+    if [i for i, _ in hist] != [0, 1, 2, 3] or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f"(a) history {hist}")
+    steps_on_disk = Checkpointer(d_a).all_steps()
+    if steps_on_disk != [2, 4]:
+        raise AssertionError(f"(a) checkpoints at {steps_on_disk}")
+    ms = [m["step_time_s"] * 1e3 for _, m in hist]
+    p50 = float(np.median(ms[1:]))
+    slot_bytes = state_bytes(opt_tensors(state_a["opt"]))
+    print(f"[ckpt] (a) Adafactor through the CLI, 4 steps at batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, checkpoints every 2: loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {counts} = one of each exact fused-CE kernel a step; "
+          f"checkpoints {steps_on_disk}; {wall:.1f} s for the CLI; step "
+          f"{p50:.1f} ms p50 over steps 1-3 (" + ", ".join(
+              f"{x:.1f}" for x in ms) + f" ms) against phase 4's AdamW "
+          f"{phase4_p50:.1f} ms; peak memory {peak:.2f} GiB; optimizer state "
+          f"{slot_bytes / 1e6:.3f} MB of factored slots against AdamW's "
+          f"{adamw_opt_bytes / 1e9:.3f} GB of f32 moments on {card}",
+          flush=True)
+
+    # (b) the restore: step 4, every leaf bit for bit
+    init_fn = build_train_step(arch, tc_for(4))[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_b = resume_or_init(Checkpointer(d_a), init_fn, gen, dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n = check_same_state(torch, "(b)", state_b, state_a)
+    del state_b
+    print(f"[ckpt] (b) resume_or_init: step 4, {n} leaves (bf16 params, "
+          f"f32 slots) bit for bit the CLI's final state, in {restore_s:.2f} "
+          f"s on {card}", flush=True)
+
+    # (c) resume through the CLI to step 6: steps 4 and 5 on batches 0, 1
+    build.reset_counters()
+    state_c, hist = train_cli.main(flags + ["--steps", "6"])
+    torch.cuda.synchronize()
+    counts = launches()
+    check_launches("(c)", counts, 2)
+    if [i for i, _ in hist] != [4, 5]:
+        raise AssertionError(f"(c) history steps {[i for i, _ in hist]}")
+    step6 = build_train_step(arch, tc_for(6))[1]
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    copies = []
+    for _ in range(2):        # (a)'s in-memory state, continued twice
+        copy = clone_state(state_a)
+        for b in range(2):
+            copy, _ = step6(copy, to_device(data.batch(b), dev))
+        copies.append(copy)
+    torch.cuda.synchronize()
+    run_diff = state_diff(copies[0], copies[1])
+    resume_diff = state_diff(state_c, copies[0])
+    if state_c["step"] != 6 or not resume_diff <= run_diff:
+        raise AssertionError(f"(c) resumed params differ from the "
+                             f"continuation by {resume_diff}, the card's "
+                             f"run-to-run difference is {run_diff}")
+    print(f"[ckpt] (c) CLI resume to 6: history steps 4, 5 on batches 0, 1 "
+          f"(the reference's data restart), launches {counts}; resumed "
+          f"params vs (a)'s state continued on the same batches: max |diff| "
+          f"{resume_diff:.3g}; two continuations from copies: {run_diff:.3g} "
+          f"on {card}", flush=True)
+    del state_a, state_c, copies
+    torch.cuda.empty_cache()
+
+    # (d) a stop request after the first step: saved at 1, stopped there
+    d_d = os.path.join(workdir, "preempt")
+    ck = Checkpointer(d_d)
+    ph = PreemptionHandler()
+    init_fn, step4 = build_train_step(arch, tc_for(4))
+    state_d = init_fn(gen, dev)
+    state_d, hist = train_loop(
+        state=state_d, step_fn=step4, data=DeviceLoader(data, dev),
+        num_steps=4, checkpointer=ck, checkpoint_every=100, log_every=1,
+        preemption=ph, metrics_hook=lambda i, m: ph.request_stop())
+    if (state_d["step"], len(hist), ck.latest_step(), ck.all_steps()) != (
+            1, 1, 1, [1]):
+        raise AssertionError(f"(d) step {state_d['step']}, {len(hist)} "
+                             f"logged, checkpoints {ck.all_steps()}")
+    print(f"[ckpt] (d) stop requested after step 0: the loop saved step 1 "
+          f"and stopped; latest_step() {ck.latest_step()} on {card}",
+          flush=True)
+    del state_d
+    torch.cuda.empty_cache()
 
 
 def serve_prompts(np, vocab):
@@ -2121,8 +2375,18 @@ def main():
                                                    card, dev)
     score_launches += phase_eval(torch, np, arch, params, card, dev)
     del params
-    train_launches, train_p50 = phase_train(torch, np, arch, card, dev)
-    ftrain = phase_train_filtered(torch, np, arch, card, dev, train_p50)
+    train_launches, train_p50, state = phase_train(torch, np, arch, card,
+                                                   dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="ckpt_smoke_") as workdir:
+        adamw_opt_bytes = phase_ckpt_adamw(torch, np, arch, state, card,
+                                           dev, workdir)
+        del state
+        torch.cuda.empty_cache()
+        ftrain = phase_train_filtered(torch, np, arch, card, dev, train_p50)
+        phase_checkpoint(torch, np, arch, card, dev, train_p50,
+                         adamw_opt_bytes, workdir)
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{

@@ -5,10 +5,11 @@
         --global-batch 8 --seq-len 128
 
 Builds the model from a seeded random init (nothing is downloaded),
-streams `SyntheticLM` batches and runs `train_loop` with AdamW under the
-JAX launcher's defaults (lr 3e-3, warmup a tenth of the steps, cosine
-decay, clip 1.0).  Runs on the GPU unless ``--device cpu`` is given;
-asking for CUDA without a card is an error.  ``--loss-impl kernel`` runs
+streams `SyntheticLM` batches and runs `train_loop` with AdamW (or
+``--optimizer adafactor``) under the JAX launcher's defaults (lr 3e-3,
+warmup a tenth of the steps, cosine decay, clip 1.0).  Runs on the GPU
+unless ``--device cpu`` is given; asking for CUDA without a card is an
+error.  ``--loss-impl kernel`` runs
 the fused-CE kernels on the card and their plain versions on the CPU.
 
 ``--grad-filter-eps E`` runs the gradient-filtered backward (vocab
@@ -20,9 +21,14 @@ trunk with per-horizon ``ce_h*`` / ``acc_h*`` metrics.
 
 ``--stats-json [PATH]`` dumps the logged step history, ``--metrics-json
 [PATH]`` the `repro_torch.obs` train instruments, ``--trace-out PATH``
-one ``train.step`` span a step (also a `torch.profiler` range).  The
-reference's mesh, autotune and checkpoint flags wait for later slices
-and are not offered; Adafactor raises.
+one ``train.step`` span a step (also a `torch.profiler` range).
+
+``--ckpt-dir DIR [--ckpt-every N]`` checkpoints asynchronously every N
+steps (50 by default) in the JAX package's file format, flushes a
+checkpoint and stops on SIGTERM / SIGINT, and resumes from the newest
+complete step in DIR; as in the reference, the resumed run's data starts
+over at the first batch.  Straggling steps are logged.  The reference's
+mesh and autotune flags wait for later slices and are not offered.
 """
 
 from __future__ import annotations
@@ -33,12 +39,14 @@ import logging
 import torch
 
 from repro_torch import obs
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import with_mtp
 from repro_torch.data import DataConfig, DeviceLoader, SyntheticLM
+from repro_torch.distributed.fault import PreemptionHandler, StragglerMonitor
 from repro_torch.models.registry import get_arch
 from repro_torch.serve import resolve_device
 from repro_torch.train import (TrainConfig, build_train_step, init_state,
-                               train_loop)
+                               resume_or_init, train_loop)
 
 
 def train_config(args, arch) -> TrainConfig:
@@ -53,7 +61,7 @@ def train_config(args, arch) -> TrainConfig:
 
 def main(argv=None, params=None):
     """Returns (state, history).  `params` (for tests) replaces the seeded
-    init, e.g. weights moved from the JAX package."""
+    init and the resume, e.g. weights moved from the JAX package."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true",
@@ -81,6 +89,8 @@ def main(argv=None, params=None):
     ap.add_argument("--mtp-weights", default=None,
                     help="comma-separated per-head loss weights "
                          "(default: 1.0 each)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--stats-json", nargs="?", const="-", default=None,
                     metavar="PATH")
@@ -108,10 +118,11 @@ def main(argv=None, params=None):
                         loss_weights=weights, track_accuracy=True)
     tc = train_config(args, arch)
     init_fn, step_fn = build_train_step(arch, tc)
+    ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        state = init_fn(gen, device)
+        state = resume_or_init(ck, init_fn, gen, device)
     else:
         state = init_state(arch, tc, params)
 
@@ -120,7 +131,9 @@ def main(argv=None, params=None):
     state, history = train_loop(
         state=state, step_fn=step_fn,
         data=DeviceLoader(SyntheticLM(dc), device), num_steps=args.steps,
-        log_every=args.log_every)
+        checkpointer=ck, checkpoint_every=args.ckpt_every,
+        log_every=args.log_every,
+        preemption=PreemptionHandler(), straggler=StragglerMonitor())
     if history:
         first = history[0][1]["loss"]
         last = history[-1][1]["loss"]

@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
-from repro_torch.optim import adamw, schedules
+from repro_torch.optim import adafactor, adamw, schedules
+from repro_torch.optim.adafactor import AdafactorConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.clipping import clip_by_global_norm, global_norm
 
-__all__ = ["adamw", "schedules", "AdamWConfig", "clip_by_global_norm",
-           "global_norm", "make_optimizer"]
+__all__ = ["adafactor", "adamw", "schedules", "AdafactorConfig",
+           "AdamWConfig", "clip_by_global_norm", "global_norm",
+           "make_optimizer"]
 
 
 def make_optimizer(kind: str, **kw):
@@ -18,6 +20,7 @@ def make_optimizer(kind: str, **kw):
         return (lambda p: adamw.init(p, cfg),
                 lambda g, s, p, lr: adamw.update(g, s, p, lr, cfg))
     if kind == "adafactor":
-        raise NotImplementedError("Adafactor waits for a later slice of the "
-                                  "port (ROADMAP A2, after the train path)")
+        cfg = AdafactorConfig(**kw)
+        return (lambda p: adafactor.init(p, cfg),
+                lambda g, s, p, lr: adafactor.update(g, s, p, lr, cfg))
     raise ValueError(f"unknown optimizer {kind!r}")

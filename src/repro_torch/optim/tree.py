@@ -32,3 +32,16 @@ def stacked_rank(path: Tuple, leaf: torch.Tensor) -> int:
     """The rank this leaf has in the JAX package's stacked tree: one more
     for a per-layer leaf (its path runs through a list index)."""
     return leaf.dim() + int(any(isinstance(p, int) for p in path))
+
+
+def stacked_groups(tree: Any) -> List[Tuple[Tuple, List[int], bool]]:
+    """The leaves of the JAX package's stacked tree, in the order of their
+    first leaf in `leaves`: ``(path, indices into leaves(tree),
+    per_layer)``.  A per-layer leaf's path drops the layer index and its
+    indices run over the layers; any other leaf has one index."""
+    groups: dict = {}
+    for i, (path, _) in enumerate(leaves_with_paths(tree)):
+        key = tuple(p for p in path if not isinstance(p, int))
+        per_layer = len(key) != len(path)
+        groups.setdefault(key, (key, [], per_layer))[1].append(i)
+    return list(groups.values())

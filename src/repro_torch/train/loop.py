@@ -6,8 +6,16 @@ the `train.*` instruments of `repro_torch.obs` (the JAX package's names:
 ``train.steps_total``, ``train.tokens_total``) and one ``train.step``
 span a step.  A logged step carries every metric the step returned, as
 the JAX loop logs them: the per-horizon ``ce_h*`` / ``acc_h*`` of MTP
-runs beside loss, ce, aux, grad_norm and lr.  The checkpointer, the preemption handler and the
-straggler monitor of the reference wait for a later slice.
+runs beside loss, ce, aux, grad_norm and lr.
+
+As in the reference, every step's time goes to the straggler monitor,
+the state is saved asynchronously after every `checkpoint_every`-th step
+and when the preemption handler (SIGTERM / SIGINT, installed on entry)
+asks to stop, the loop then breaks, and the last save is waited for
+before returning.  `resume_or_init` restores the newest complete
+checkpoint.  A resumed run starts its data over, as the reference's
+does: `train_loop` calls ``iter(data)`` afresh, so the run resumed at
+step s trains step s on the data's first batch, not its s-th.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.distributed.fault import PreemptionHandler, StragglerMonitor
 
 log = logging.getLogger("repro_torch.train")
 
@@ -35,13 +45,19 @@ def train_loop(
     step_fn: Callable,
     data: Iterable,
     num_steps: int,
+    checkpointer: Optional[Checkpointer] = None,
+    checkpoint_every: int = 100,
     log_every: int = 10,
+    preemption: Optional[PreemptionHandler] = None,
+    straggler: Optional[StragglerMonitor] = None,
     metrics_hook: Optional[Callable[[int, Dict[str, float]], None]] = None,
     on_start: Optional[Callable[[], Any]] = None,
 ):
     """Runs steps ``state['step']`` .. ``num_steps - 1``; returns
     (state, history), history holding ``(step, metrics)`` of the logged
     steps (every `log_every`-th and the first) as floats."""
+    preemption = (preemption or PreemptionHandler()).install()
+    straggler = straggler or StragglerMonitor()
     history = []
     start_step = int(state["step"])
 
@@ -69,6 +85,7 @@ def train_loop(
             state, metrics = step_fn(state, batch)
             _sync(metrics)       # the step ends when its device work does
         dt = time.perf_counter() - t0
+        straggler.record(i, dt)
         m_step_t.observe(dt)
         m_steps.inc()
         tokens = batch.get("tokens") if isinstance(batch, dict) else None
@@ -87,4 +104,30 @@ def train_loop(
                      {k: round(v, 5) for k, v in m.items()})
             if metrics_hook:
                 metrics_hook(i, m)
+
+        if checkpointer and ((i + 1) % checkpoint_every == 0
+                             or preemption.should_stop):
+            checkpointer.save_async(i + 1, state)
+
+        if preemption.should_stop:
+            log.warning("preempted at step %d — checkpoint flushed", i)
+            break
+
+    if checkpointer:
+        checkpointer.wait()
     return state, history
+
+
+def resume_or_init(checkpointer: Optional[Checkpointer], init_fn,
+                   generator: torch.Generator, device="cpu"):
+    """Restore the latest checkpoint if there is one, else
+    ``init_fn(generator, device)``.  The example state of the restore is
+    ``init_fn`` on the ``meta`` device (shapes, dtypes and the
+    optimizer's structure, no allocation, no random draws), and the
+    restore builds the tensors on `device`."""
+    if checkpointer is not None and checkpointer.latest_step() is not None:
+        example = init_fn(torch.Generator(), "meta")
+        state, step = checkpointer.restore(example, device=device)
+        log.info("resumed from step %d", step)
+        return state
+    return init_fn(generator, device)

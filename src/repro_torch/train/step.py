@@ -9,8 +9,9 @@ one fused CE a horizon on the shared lm_head).  The backward is PyTorch
 autograd, with the fused loss's and the blockwise attention's own
 `autograd.Function`s.  Gradient accumulation splits the batch into
 ``grad_accum`` microbatches along the batch axis and sums their grads in
-f32.  Waiting, and raising when asked for: the sharded losses (ROADMAP
-A9), Adafactor and block-plan tuning (A2).
+``accum_dtype`` (f32 by default).  The optimizer is AdamW or Adafactor.
+Waiting, and raising when asked for: the sharded losses (ROADMAP A9);
+block-plan tuning (A2 item 4) is not offered.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ class TrainConfig:
     z_loss: float = 0.0
     grad_filter_eps: float = 0.0   # skip low-mass vocab tiles in backward
     grad_accum: int = 1
+    accum_dtype: str = "float32"   # grad-accumulation buffer dtype
 
     def __post_init__(self):
         if self.loss_impl in ("sharded", "sharded_sp"):
@@ -155,9 +157,10 @@ def build_train_step(arch: Arch, tc: TrainConfig):
     tensors on the device (loss, ce, aux, grad_norm, and the per-horizon
     ``ce_h*`` / ``acc_h*`` of MTP runs) and the host lr.  With
     ``grad_accum = K > 1`` the batch is split into K microbatches along
-    its batch axis, their grads summed in f32 and divided by K (kept in
-    f32 into the clip and the update, as the JAX package's default
-    ``accum_dtype`` does), and the loss and metrics averaged."""
+    its batch axis, their grads cast to ``tc.accum_dtype`` and summed in
+    it, then divided by K in f32 and cast back (the dtype kept into the
+    clip and the update, as the JAX package does), and the loss and
+    metrics averaged."""
     loss_fn = build_loss_fn(arch, tc)
     opt_init, opt_update = make_optimizer(tc.optimizer,
                                           **dict(tc.opt_kwargs))
@@ -183,7 +186,8 @@ def build_train_step(arch: Arch, tc: TrainConfig):
         if b % ga:
             raise ValueError(f"batch {b} does not split into grad_accum="
                              f"{ga} microbatches")
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc_dt = getattr(torch, tc.accum_dtype)
+        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for p in params]
         loss_sum, msum = None, None
         for i in range(ga):
@@ -191,13 +195,13 @@ def build_train_step(arch: Arch, tc: TrainConfig):
                   for k, v in batch.items()}
             loss, metrics, grads = grads_of(tree, params, mb)
             for a, g in zip(acc, grads):
-                a.add_(g.float())
+                a.add_(g.to(acc_dt))
             loss_sum = loss if loss_sum is None else loss_sum + loss
             msum = metrics if msum is None else {
                 k: msum[k] + metrics[k] for k in msum}
-        # f32 kept (JAX's (g / ga).astype(g.dtype) of its f32 buffers)
+        # JAX's (g / f32(ga)).astype(g.dtype): the buffers' dtype kept
         return (loss_sum / ga, {k: m / ga for k, m in msum.items()},
-                [a / ga for a in acc])
+                [(a.float() / ga).to(acc_dt) for a in acc])
 
     def step_fn(state: Dict[str, Any], batch) -> Tuple[Dict[str, Any],
                                                         Dict[str, Any]]:

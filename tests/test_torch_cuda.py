@@ -957,3 +957,53 @@ def test_paged_attn_poisoned_null_block_across_splits(cuda, tq):
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
     assert float(out.float().abs().max()) < 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_checkpoint_snapshot_and_restore_on_cuda(cuda, opt, tmp_path):
+    """save_async of CUDA state, then an in-place step: the file holds the
+    state from before the step, and the restore onto the card (through
+    `resume_or_init`) is bit for bit (reduced qwen3-0.6b in bf16, the
+    fused-CE kernels)."""
+    import dataclasses
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, DeviceLoader, SyntheticLM
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import TrainConfig, build_train_step, resume_or_init
+    from repro_torch.weights import state_to_jax
+    arch = get_arch("qwen3-0.6b", reduced=True)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, param_dtype="bfloat16", compute_dtype="bfloat16"))
+    tc = TrainConfig(optimizer=opt, loss_impl="kernel", peak_lr=3e-3,
+                     warmup_steps=1, total_steps=4,
+                     loss_block_v=min(2048, arch.padded_vocab))
+    init_fn, step_fn = build_train_step(arch, tc)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = init_fn(gen, cuda)
+    data = iter(DeviceLoader(SyntheticLM(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=64, global_batch=2, seed=0)),
+        cuda))
+    for _ in range(2):
+        state, _ = step_fn(state, next(data))
+    before = state_to_jax(state)
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(2, state)
+    state, _ = step_fn(state, next(data))      # in place, right away
+    ck.wait()
+    after = state_to_jax(state)
+    assert after["params/lm_head"].tobytes() != \
+        before["params/lm_head"].tobytes()
+    restored = resume_or_init(ck, init_fn, gen, cuda)
+    assert restored["step"] == 2
+    assert all(t.device.type == "cuda"
+               for t in restored["params"]["blocks"][0]["attn"].values())
+    assert restored["params"]["lm_head"].dtype == torch.bfloat16
+    got = state_to_jax(restored)
+    assert list(got) == list(before)
+    for key, arr in before.items():
+        assert got[key].dtype == arr.dtype, key
+        assert got[key].tobytes() == arr.tobytes(), key
+    # the restored state trains on
+    restored, m = step_fn(restored, next(data))
+    assert torch.isfinite(m["loss"]).item()

@@ -16,11 +16,23 @@ Seeded numpy inputs and JAX-initialized weights (moved with
     atol 1e-5 (Adam's normalized step turns f32 differences of the
     gradients into at most a few 1e-6 of the params at lr 3e-3);
   * the training CLI itself in a subprocess (``--device cpu``, and the
-    default device, which asks for CUDA).
+    default device, which asks for CUDA);
+  * resume: the JAX CLI trains 2 steps and checkpoints, then resumes to
+    4 (steps 2 and 3 on batches 0 and 1: the reference restarts its
+    data); the port's CLI resumes from the JAX file (`resume_or_init`)
+    to 4 on the same batches — AdamW and Adafactor, losses rtol 1e-5,
+    final params rtol 1e-4 / atol 1e-5;
+  * ``accum_dtype="bfloat16"`` with ``grad_accum=2``: three steps against
+    JAX `build_train_step`, losses rtol 1e-5; params at rtol 1e-4 / atol
+    1e-5 but for at most 0.1% of entries, each within lr x 2^-6 (a bf16
+    accumulator now and then rounds an f32 gradient entry that differs
+    in its last bits to the neighbouring bf16 value);
+  * the CLI's checkpoints: 6 steps saving every 3, then a resume to 8.
 """
 
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -33,6 +45,7 @@ jnp = jax.numpy
 
 from repro.data import DataConfig as JDataConfig  # noqa: E402
 from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.launch import train as j_train_cli  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models.registry import get_arch as j_get_arch  # noqa: E402
 from repro.optim import adamw as JAdamW  # noqa: E402
@@ -47,7 +60,11 @@ from repro_torch.optim import adamw as TAdamW  # noqa: E402
 from repro_torch.optim import clip_by_global_norm  # noqa: E402
 from repro_torch.optim import schedules as TS  # noqa: E402
 from repro_torch.optim.tree import leaves, leaves_with_paths  # noqa: E402
-from repro_torch.train import TrainConfig  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.data import DeviceLoader  # noqa: E402
+from repro_torch.models.registry import get_arch  # noqa: E402
+from repro_torch.train import (TrainConfig, build_train_step,  # noqa: E402
+                               init_state, train_loop)
 from repro_torch.weights import params_from_jax  # noqa: E402
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -192,9 +209,11 @@ def test_waiting_train_options_raise():
         TrainConfig(loss_impl="sharded")
     with pytest.raises(ValueError):
         TrainConfig(loss_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["--reduced", "--device", "cpu", "--steps", "1",
-                        "--optimizer", "adafactor"])
+    # Adafactor runs now (JAX parity: test_torch_adafactor.py and the
+    # resume test below)
+    state, hist = train_cli.main(["--reduced", "--device", "cpu", "--steps",
+                                  "1", "--optimizer", "adafactor"])
+    assert state["step"] == 1 and np.isfinite(hist[0][1]["loss"])
 
 
 def _env():
@@ -229,3 +248,98 @@ def test_train_cli_defaults_to_the_card():
         cwd=str(_ROOT))
     assert out.returncode != 0
     assert "CUDA was requested" in out.stderr
+
+
+def _by_path(params):
+    return {"/".join(map(str, p)): t for p, t in leaves_with_paths(params)}
+
+
+_SMALL = ["--arch", "qwen3-0.6b", "--reduced", "--global-batch", "2",
+          "--seq-len", "32", "--log-every", "1"]
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_resume_from_a_jax_checkpoint_matches_jax(opt, tmp_path):
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    flags = _SMALL + ["--optimizer", opt, "--ckpt-every", "2"]
+    j_train_cli.main(flags + ["--loss-impl", "pallas", "--steps", "2",
+                              "--ckpt-dir", jdir])
+    shutil.copytree(jdir, tdir)           # the JAX file, step 2
+    jstate, jhist = j_train_cli.main(flags + ["--loss-impl", "pallas",
+                                              "--steps", "4", "--ckpt-dir",
+                                              jdir])
+    tstate, thist = train_cli.main(flags + ["--device", "cpu", "--steps",
+                                            "4", "--ckpt-dir", tdir])
+    assert [i for i, _ in thist] == [i for i, _ in jhist] == [2, 3]
+    for (_, tm), (_, jm) in zip(thist, jhist):
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5,
+                                       err_msg=key)
+    assert tstate["step"] == int(jstate["step"]) == 4
+    assert tstate["opt"]["count"] == int(jstate["opt"]["count"]) == 4
+    assert Checkpointer(tdir).all_steps() == [2, 4]
+    want = _by_path(params_from_jax(jax.tree.map(np.asarray,
+                                                 jstate["params"])))
+    got = _by_path(tstate["params"])
+    assert sorted(got) == sorted(want)
+    for key, t in got.items():
+        _close(t, want[key].numpy(), 1e-4, 1e-5)
+
+
+def test_bf16_grad_accumulation_matches_jax(reduced_jax_params):
+    arch = j_get_arch("qwen3-0.6b", reduced=True)
+    kw = dict(peak_lr=3e-3, warmup_steps=1, total_steps=3, grad_accum=2,
+              accum_dtype="bfloat16",
+              loss_block_v=min(2048, arch.padded_vocab))
+    init_fn, step_fn = j_build(arch, JTrainConfig(loss_impl="pallas", **kw))
+    state = dict(init_fn(jax.random.PRNGKey(0)),
+                 params=jax.tree.map(jnp.asarray, reduced_jax_params))
+    jstep = jax.jit(step_fn)
+    dc = dict(vocab_size=arch.vocab_size, seq_len=32, global_batch=4,
+              seed=0)
+    data = JSyntheticLM(JDataConfig(**dc))
+    jhist = []
+    for i in range(3):
+        state, m = jstep(state, {k: jnp.asarray(v)
+                                 for k, v in data.batch(i).items()})
+        jhist.append({k: float(v) for k, v in m.items()})
+    tarch = get_arch("qwen3-0.6b", reduced=True)
+    tc = TrainConfig(loss_impl="kernel", **kw)
+    _, tstep = build_train_step(tarch, tc)
+    tstate, thist = train_loop(
+        state=init_state(tarch, tc, params_from_jax(reduced_jax_params)),
+        step_fn=tstep, data=DeviceLoader(SyntheticLM(DataConfig(**dc))),
+        num_steps=3, log_every=1)
+    for (_, tm), jm in zip(thist, jhist):
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5,
+                                       err_msg=key)
+    # a bf16 accumulator rounds f32 grads that differ in their last bits:
+    # now and then one entry rounds to the neighbouring bf16 value (2^-8
+    # relative), which moves that entry's normalized Adam steps by a few
+    # 2^-8 of lr: such entries stay within lr x 2^-6 over the 3 steps
+    want = leaves(params_from_jax(jax.tree.map(np.asarray,
+                                               state["params"])))
+    flips, total = 0, 0
+    for got, ref in zip(leaves(tstate["params"]), want):
+        got, ref = got.detach().numpy(), ref.numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                   atol=3e-3 * 2.0 ** -6)
+        flips += int(np.sum(np.abs(got - ref) > 1e-5 + 1e-4 * np.abs(ref)))
+        total += got.size
+    assert flips <= total // 1000, (flips, total)
+
+
+def test_train_cli_checkpoints_and_resumes(tmp_path):
+    """`tests/test_launch.py::test_train_cli_end_to_end`, on the port."""
+    flags = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+             "--global-batch", "4", "--seq-len", "32", "--ckpt-dir",
+             str(tmp_path)]
+    state, history = train_cli.main(flags + ["--steps", "6", "--ckpt-every",
+                                             "3", "--log-every", "2"])
+    assert state["step"] == 6
+    assert history and np.isfinite(history[-1][1]["loss"])
+    assert Checkpointer(str(tmp_path)).all_steps() == [3, 6]
+    # resume picks up the checkpoint
+    state2, history2 = train_cli.main(flags + ["--steps", "8"])
+    assert state2["step"] == 8 and history2[0][0] == 6
