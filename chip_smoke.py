@@ -20,7 +20,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      softcap-30 + `col_offset` shard at 4096 rows (the many-row kernel,
      each also through the decode kernel's plan given explicitly), each
      timed with CUDA events beside its bound, its plain version and the
-     `torch.topk(h @ w.T, k)` yardstick; then
+     `torch.topk(h @ w.T, k)` yardstick, and the request modes' steps
+     on the decode kernel: a beam step (8 rows, k 8, ``return_lse``)
+     and a constrained step (8 rows, k 1, a half-zero ``allowed_mask``),
+     each held to its plain version (values and lse, every id allowed),
+     twice for bit identity, the lse and an all-ones mask shown to leave
+     the top-k's bits alone, and timed beside its bound, its plain
+     version and the library's ``h @ w.T`` with ``masked_fill`` /
+     ``logsumexp`` and ``torch.topk``; then
      the fused-CE forward, dH and dW kernels at the training shape
      (8192 rows against the same head) — plain, softcap 30, label
      smoothing 0.1 with z-loss 1e-4, 10% ignored rows — at phase 8 (c)'s
@@ -150,6 +157,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      from copies are from each other (the card's run-to-run difference);
      (d) `train_loop` with a stop requested after its first step: it
      saves step 1 and stops there.
+ 10. request modes at full width — phase 7's params, batch 8, 16 new
+     tokens, seeded 64-token prompts: (a) two beam-4 groups on
+     `PagedEngine` (block 16), (b) two best-of-4 groups at T 0.7, top_k
+     40, on `Engine`, (c) 8 requests under the ``even`` grammar mask and
+     one under a per-step `mask_fn` (alternating parity) on `Engine`,
+     each run right after the launch counters are zeroed.  Gates: one
+     `sample_topk` launch a prefill and a step (28 `paged_attn` a step on
+     the paged engine); every top-k call recorded and held to the plain
+     version (values, ids, lse), with its model's vocab and softcap, the
+     lse for groups and the mask for constrained steps; every token of
+     every hypothesis (its cumulative logp's step) within
+     MODES_TOKEN_ATOL of a cache-free forward's log_softmax, its first
+     token (the prefill's scan) within EVAL_ATOL of one over the prompt
+     alone; paged forks that copy no block and take none; every
+     constrained token allowed and within GREEDY_TOL of the best allowed
+     logit of a cache-free forward; on the paged engine every decode
+     write of a live slot read back from the pool bit for bit.  Then (a)
+     once more with copy-on-write off, a planted fault that the read-back
+     must catch.  Prints tokens/s, step ms p50, forks, prunes,
+     copy-on-write copies, the two cache-free forwards' rounding floor
+     and the fault's logp reading.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -247,6 +275,24 @@ PAGED_ATOL, PAGED_RTOL = 1e-2, 1e-2
 # ~0.08); phase 7 measures that reading too and fails if the limit would
 # not catch it.  A wrong position or a stale cache moves a logp by ~0.1.
 EVAL_ATOL = 1e-4
+# a beam or best-of hypothesis's logp against a cache-free forward's
+# log_softmax, token by token.  Its first token comes from the prefill's
+# scan, the arithmetic phase 7 holds to EVAL_ATOL, and is held there
+# against a forward over the prompt alone.  Its later tokens come from
+# cached decode steps, whose GEMMs (one row a slot) and attention round
+# bf16 activations in other places than the cache-free forward's:
+# two cache-free forwards that differ only in their row count already
+# disagree by up to 1.67e-3 on a token on the H100 (PERF.md; phase 10
+# prints this floor).  So every served token's logp is held to
+# MODES_TOKEN_ATOL of the forward's, above that floor.  Under the seeded
+# head's near-flat logits no logp comparison tells the paged fault the
+# modes could bring (siblings appending into a shared block) from
+# rounding: planted, it read 2.9e-3 on the H100 (PERF.md).  Phase 10
+# holds the paged engine to a check without rounding instead: every
+# decode write of a live slot reads back from the pool bit for bit; it
+# plants that fault (copy-on-write off) and fails unless the check
+# catches it.
+MODES_TOKEN_ATOL = 5e-3
 SPEC_K = 4
 
 
@@ -294,10 +340,11 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def topk_bound_ms(rows, d, v, k):
-    """Least time on an H100: read h and W once, write vals and ids once;
-    2*rows*d*v bf16 operations."""
-    nbytes = rows * d * 2 + v * d * 2 + rows * k * 8
+def topk_bound_ms(rows, d, v, k, extra_bytes=0):
+    """Least time on an H100: read h and W once, write vals and ids once
+    (plus `extra_bytes`: a mask read, an lse written); 2*rows*d*v bf16
+    operations."""
+    nbytes = rows * d * 2 + v * d * 2 + rows * k * 8 + extra_bytes
     flops = 2 * rows * d * v
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -495,6 +542,98 @@ def phase_topk(torch, np, arch, dev):
               f"{plain_ms:.4f} ms, torch.topk(h @ w.T) {library_ms:.4f} ms",
               flush=True)
         del rv, ri
+    results.update(topk_mode_cases(torch, np, w, valid, gen, dev))
+    return results
+
+
+def topk_mode_cases(torch, np, w, valid, gen, dev):
+    """The request modes' decode steps on the padded head: a beam step (8
+    rows, k 8, ``return_lse``) and a constrained step (8 rows, k 1, a
+    half-zero mask), each against its plain version (values and lse at
+    VAL_RTOL / VAL_ATOL, ids where the values are apart, -inf where the
+    plain version has it, every id allowed), twice for bit identity, an
+    all-ones mask for the bits of no mask, and timed beside its bound
+    (the mask's bytes and the lse's included), its plain version and the
+    library's ``h @ w.T``, ``masked_fill``, ``logsumexp`` and
+    ``torch.topk`` timed together."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    v, d = w.shape
+    wv = w[:valid]
+    results = {}
+    for name, k, masked, lse in (("beam_rows8_k8_lse", 8, False, True),
+                                 ("constrained_rows8_k1_mask", 1, True,
+                                  False)):
+        rows = 8
+        h = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        mask = None
+        if masked:
+            mask = (torch.rand((rows, v), generator=gen, device=dev)
+                    < 0.5).to(torch.int8)
+        kw = dict(valid_vocab=valid, allowed_mask=mask, return_lse=lse)
+        before = LAUNCHES.count
+        out = cuda_topk(h, w, k, **kw)
+        torch.cuda.synchronize()
+        if LAUNCHES.count != before + 1:
+            raise AssertionError(f"{name}: {LAUNCHES.count - before} "
+                                 "decode launches, want 1")
+        ref = topk_scores_ref(h, w, k, **kw)
+        err, n_ids = check_topk(np, out[0], out[1], ref[0], ref[1],
+                                exact_ids=False)
+        again = cuda_topk(h, w, k, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"sample_topk {name}: two calls differ")
+        if lse:
+            got_l, want_l = out[2].cpu().numpy(), ref[2].cpu().numpy()
+            np.testing.assert_allclose(got_l, want_l, rtol=VAL_RTOL,
+                                       atol=VAL_ATOL)
+            err = max(err, float(np.abs(got_l - want_l).max()))
+            plain_out = cuda_topk(h, w, k, valid_vocab=valid)
+            if not (torch.equal(plain_out[0], out[0])
+                    and torch.equal(plain_out[1], out[1])):
+                raise AssertionError(f"{name}: return_lse changed the top-k")
+        if masked:
+            allowed = mask.bool()
+            if not bool(allowed.gather(1, out[1].long()).all()):
+                raise AssertionError(f"{name}: a disallowed id")
+            ones = torch.ones_like(mask)
+            a = cuda_topk(h, w, k, valid_vocab=valid, allowed_mask=ones)
+            b = cuda_topk(h, w, k, valid_vocab=valid)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{name}: an all-ones mask changed "
+                                     "the bits")
+        ms = cuda_ms(torch, lambda: cuda_topk(h, w, k, **kw))
+        plain_ms = cuda_ms(torch, lambda: topk_scores_ref(h, w, k, **kw),
+                           iters=5)
+        mv = None if mask is None else mask[:, :valid] == 0
+
+        def library():
+            z = h @ wv.T
+            if mv is not None:
+                z = z.masked_fill(mv, float("-inf"))
+            if lse:
+                torch.logsumexp(z.float(), dim=-1)
+            return torch.topk(z, k)
+
+        library_ms = cuda_ms(torch, library)
+        bound_ms, bound_by = topk_bound_ms(
+            rows, d, v, k, extra_bytes=(rows * v if masked else 0)
+            + (rows * 4 if lse else 0))
+        part_ms, merge_ms = split_ms(torch, lambda: cuda_topk(h, w, k, **kw))
+        results[name] = dict(rows=rows, k=k, d=d, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             partial_ms=part_ms, merge_ms=merge_ms)
+        print(f"[kernel] sample_topk {name} (d {d}, V {v}"
+              f"{', half-zero mask' if masked else ''}"
+              f"{', return_lse' if lse else ''}): max_abs_err {err:.3g} "
+              f"({n_ids} ids checked exactly); device: stream kernel "
+              f"{part_ms:.4f} ms + merge {merge_ms:.4f} ms; two calls "
+              f"bit-identical; call {ms:.4f} ms vs bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, library (h @ w.T"
+              f"{', masked_fill' if masked else ''}"
+              f"{', logsumexp' if lse else ''}, torch.topk) "
+              f"{library_ms:.4f} ms", flush=True)
     return results
 
 
@@ -2098,7 +2237,7 @@ def check_scores(torch, tag, calls, lm_heads, valid, cap, temp):
 
 def phase_spec(torch, np, arch, card, dev):
     """Phase 6; returns (params with MTP heads, score_tokens launches,
-    sample_topk decode-kernel launches)."""
+    sample_topk decode-kernel launches, paged_attn launches)."""
     from repro_torch import obs
     from repro_torch.configs.base import with_mtp
     from repro_torch.kernels import build
@@ -2169,6 +2308,7 @@ def phase_spec(torch, np, arch, card, dev):
         raise AssertionError(f"{tag}: {pre['hits']} prefix hits, not 15")
     score_launches += got["score_tokens"]
     topk_launches += got["sample_topk"]
+    spec_paged = got["paged_attn"]
     print(f"[spec] {tag}: launches {got} = score_tokens 2 a step x "
           f"{n_steps} + 1 a prefill x {prefills}, sample_topk 2 a step + 2 "
           f"a prefill, paged_attn {n_layers} a step, all at Tq "
@@ -2244,7 +2384,7 @@ def phase_spec(torch, np, arch, card, dev):
           f"forward's argmax, served logit trails the best by at most "
           f"{max(worst, 0.0):.3g} (limit {GREEDY_TOL})", flush=True)
     spec_summary(np, tag, sched, results, rids, dt, tracer, card)
-    return params, score_launches, topk_launches
+    return params, score_launches, topk_launches, spec_paged
 
 
 def phase_eval(torch, np, arch, params, card, dev):
@@ -2332,6 +2472,460 @@ def phase_eval(torch, np, arch, params, card, dev):
     return got["score_tokens"]
 
 
+def spy_topk(calls):
+    """Record every call of the package's `cuda_topk` (the engines import
+    it at call time): (h, w, k, options, outputs).  Returns the undo."""
+    import repro_torch.kernels.sample_topk as pkg
+    real = pkg.cuda_topk
+
+    def spy(h, w, k, **kw):
+        out = real(h, w, k, **kw)
+        calls.append((h, w, k, kw, out))
+        return out
+
+    pkg.cuda_topk = spy
+    return lambda: setattr(pkg, "cuda_topk", real)
+
+
+def check_topk_calls(torch, np, tag, calls, arch, masked, lse):
+    """Every recorded call against the plain version on the same inputs
+    (values and lse at VAL_RTOL / VAL_ATOL, ids where the values are
+    apart, every id allowed), each with its model's vocab and softcap
+    and the options its mode asks for; returns the largest error."""
+    from repro_torch.kernels.sample_topk import topk_scores_ref
+    worst = 0.0
+    for h, w, k, kw, out in calls:
+        if (kw.get("allowed_mask") is not None) != masked or \
+                bool(kw.get("return_lse")) != lse:
+            raise AssertionError(f"{tag}: a top-k call with mask "
+                                 f"{kw.get('allowed_mask') is not None} and "
+                                 f"lse {bool(kw.get('return_lse'))}")
+        if (kw.get("valid_vocab"), kw.get("logit_softcap")) != (
+                arch.vocab_size, arch.cfg.logit_softcap):
+            raise AssertionError(f"{tag}: a top-k call with vocab "
+                                 f"{kw.get('valid_vocab')} and softcap "
+                                 f"{kw.get('logit_softcap')}")
+        ref = topk_scores_ref(h, w, k, **kw)
+        err, _ = check_topk(np, out[0], out[1], ref[0], ref[1],
+                            exact_ids=False)
+        if lse:
+            got_l, want_l = out[2].cpu().numpy(), ref[2].cpu().numpy()
+            np.testing.assert_allclose(got_l, want_l, rtol=VAL_RTOL,
+                                       atol=VAL_ATOL)
+            err = max(err, float(np.abs(got_l - want_l).max()))
+        if masked:
+            m = kw["allowed_mask"].bool()
+            fin = torch.isfinite(out[0])
+            ok = m.gather(1, out[1].long().clamp(0, m.shape[1] - 1))
+            if not bool(ok[fin].all()):
+                raise AssertionError(f"{tag}: the kernel returned a "
+                                     "disallowed id")
+        worst = max(worst, err)
+    return worst
+
+
+def spy_groups(cums):
+    """Record, after every group admit and step, each live beam's and
+    finished hypothesis's cumulative logp under its token prefix:
+    ``cums[rid][tuple(tokens)] = logp``.  Returns the undo."""
+    from repro_torch.serve import modes
+    undo = []
+    for cls in (modes.BeamGroup, modes.BestOfGroup):
+        for name in ("admit", "step"):
+            real = getattr(cls, name)
+
+            def wrapped(self, *a, _real=real, **kw):
+                out = _real(self, *a, **kw)
+                rec = cums.setdefault(self.rid, {(): 0.0})
+                for toks, cum in zip(self.toks, self.cum):
+                    rec[tuple(toks)] = cum
+                for hy in self.finished:
+                    rec[tuple(hy.tokens)] = hy.logp
+                return out
+
+            setattr(cls, name, wrapped)
+            undo.append((cls, name, real))
+    return lambda: [setattr(c, n, r) for c, n, r in undo]
+
+
+def spy_paged_writes(engines, bad):
+    """Read every decode-step write of a live slot back from the paged
+    pool right after its scatter (`attention._paged_update`), bit for
+    bit: live slots own disjoint blocks, so a write that two slots made
+    to one address (a shared block appended to) reads back the other's.
+    ``engines[-1]`` is the engine running; ``bad[0]`` counts the
+    scatters that did not read back.  Returns the undo."""
+    import torch
+    from repro_torch.models import attention
+    real = attention._paged_update
+
+    def spy(pool, table, new_vals, cur_len):
+        out = real(pool, table, new_vals, cur_len)
+        live = [s for s, c in enumerate(engines[-1]._chains) if c]
+        if new_vals.shape[1] == 1 and live:
+            rows = torch.tensor(live, dtype=torch.long,
+                                device=table.device)
+            pos = cur_len.long()[rows]
+            bs = out.shape[1]
+            blk = table.long()[rows, pos // bs]
+            got = out[blk, pos % bs]
+            if not bool((got == new_vals[rows, 0].to(out.dtype)).all()):
+                bad[0] += 1
+        return out
+
+    attention._paged_update = spy
+    return lambda: setattr(attention, "_paged_update", real)
+
+
+def hyp_logp_err(torch, np, arch, params, prompt, hyps, cums, first, dev):
+    """A group's hypotheses against cache-free forwards, each token's
+    served logp (the step of its cumulative logp, `cums` from
+    `spy_groups`) against the forward's f32 logits' log_softmax over the
+    valid columns.  Returns (the largest such error, the largest error
+    of a first token's logp as the prefill's scan `first` = (vals, ids,
+    lse) of its one row gives it against a forward over the prompt alone
+    (the prefill's own shapes, whose GEMMs round as its do), the rounding
+    floor: the largest difference of a token's logp between the forward
+    and one over 64 more rows (causal, so the same positions, only the
+    GEMMs' rounding differs))."""
+    from repro_torch.models.registry import forward_hidden
+    head = params["lm_head"].float()
+    vals, ids, lse = (t[0].cpu().numpy() for t in first)
+
+    def logps(seq, lo, toks):
+        h, _, _ = forward_hidden(arch, params, {"tokens": torch.from_numpy(
+            seq[None].astype(np.int64)).to(dev)})
+        z = h[0, lo:lo + len(toks)].float() @ head.T
+        return torch.log_softmax(z[:, :arch.vocab_size], -1).gather(
+            1, torch.from_numpy(toks[:, None]).to(dev))[:, 0].cpu().numpy()
+
+    worst = worst_first = floor = 0.0
+    n0 = len(prompt) - 1
+    with torch.no_grad():
+        h, _, _ = forward_hidden(arch, params, {"tokens": torch.from_numpy(
+            prompt[None].astype(np.int64)).to(dev)})
+        lp0 = torch.log_softmax((h[0, -1].float() @ head.T)[
+            :arch.vocab_size], -1).cpu().numpy()
+        for hy in hyps:
+            toks = np.asarray(hy.tokens, np.int64)
+            seq = np.concatenate([prompt, toks[:-1]]).astype(np.int64)
+            lp = logps(seq, n0, toks)
+            more = logps(np.concatenate([seq, prompt]), n0, toks)
+            if not np.isfinite(hy.logp):
+                raise AssertionError("a hypothesis logp is not finite")
+            cum = [cums[tuple(toks[:t].tolist())]
+                   for t in range(len(toks) + 1)]
+            served = np.diff(np.asarray(cum, np.float64))
+            worst = max(worst, float(np.abs(served - lp).max()))
+            floor = max(floor, float(np.abs(more - lp).max()))
+            j = np.flatnonzero(ids == toks[0])
+            if j.size != 1:
+                raise AssertionError(f"first token {toks[0]} is not one of "
+                                     "its prefill's candidates")
+            worst_first = max(worst_first, abs(
+                float(vals[j[0]] - lse) - float(lp0[toks[0]])))
+    return worst, worst_first, floor
+
+
+def allowed_deficit(torch, np, arch, params, prompt, out, allowed, dev):
+    """How far each served token's logit trails the best ALLOWED one of a
+    cache-free forward over its request; `allowed(t)` is the (V,) bool
+    set of position t."""
+    from repro_torch.models.registry import forward_hidden
+    head = params["lm_head"].float()
+    seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+    with torch.no_grad():
+        h, _, _ = forward_hidden(arch, params, {
+            "tokens": torch.from_numpy(seq[None]).to(dev)})
+        z = (h[0, len(prompt) - 1:].float() @ head.T)[:, :arch.vocab_size]
+    worst = 0.0
+    for t, tok in enumerate(out):
+        a = torch.from_numpy(allowed(t)).to(dev)
+        if not bool(a[int(tok)]):
+            raise AssertionError(f"constrained: token {tok} at {t} is not "
+                                 "allowed")
+        best = float(z[t].masked_fill(~a, float("-inf")).max())
+        worst = max(worst, best - float(z[t, int(tok)]))
+    return worst
+
+
+def mode_prompts(np, vocab, n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, 64).astype(np.int32) for _ in range(n)]
+
+
+def phase_modes(torch, np, arch, params, card, dev):
+    """Phase 10; returns the sample_topk and paged_attn launches of its
+    three main-path runs (not the planted fault's)."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attn import LAUNCHES as PAGED_LAUNCHES
+    from repro_torch.kernels.sample_topk import LAUNCHES as TOPK_LAUNCHES
+    from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
+                                   ServeConfig, kvpool, parse_mask_spec)
+
+    n_layers, vocab = arch.cfg.n_layers, arch.vocab_size
+    slab_sc = ServeConfig(batch_size=8, max_len=512)
+    paged_sc = ServeConfig(batch_size=8, max_len=512, paged=True,
+                           block_size=16)
+    even = parse_mask_spec("even", vocab).astype(bool)
+    odd = ~even
+    t0 = time.perf_counter()
+    for cls, sc in ((PagedEngine, paged_sc), (Engine, slab_sc)):
+        warm = ContinuousScheduler(cls(arch, params, sc, device=dev),
+                                   max_new_tokens=3)
+        warm.submit_beam(np.arange(1, 40), n_beams=4)
+        warm.submit_best_of(np.arange(5, 50), n=4, temperature=0.7)
+        warm.run()
+        warm = ContinuousScheduler(cls(arch, params, sc, device=dev),
+                                   max_new_tokens=3)
+        warm.submit(np.arange(1, 40), token_mask=even)
+        warm.run()
+    torch.cuda.synchronize()
+    print(f"[modes] set-up {time.perf_counter() - t0:.1f}s: qwen3-0.6b "
+          f"{n_layers} layers bf16, Engine and PagedEngine batch 8, "
+          f"max_len 512 (block 16)", flush=True)
+
+    def run(tag, make_engine, submit):
+        calls, cums = [], {}
+        undo = spy_topk(calls)
+        undo_groups = spy_groups(cums)
+        reg, tracer = obs.enable(trace=True)
+        try:
+            eng = make_engine()           # binds the tracer just enabled
+            sched = ContinuousScheduler(eng, max_new_tokens=16)
+            build.reset_counters()
+            t0 = time.perf_counter()
+            rids = submit(sched)
+            results = sched.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {"sample_topk": TOPK_LAUNCHES.count,
+                        "paged_attn": PAGED_LAUNCHES.count}
+        finally:
+            obs.disable()
+            undo()
+            undo_groups()
+        steps = [x.duration * 1e3 for x in tracer.spans
+                 if x.name == "engine.decode_step"]
+        prefills = len(sched.admit_order)
+        if launches["sample_topk"] != prefills + sched.decode_steps:
+            raise AssertionError(
+                f"{tag}: sample_topk launched {launches['sample_topk']} "
+                f"times, expected {prefills} prefills + "
+                f"{sched.decode_steps} steps (one launch a step)")
+        want_paged = sched.decode_steps * n_layers if eng.sc.paged else 0
+        if launches["paged_attn"] != want_paged:
+            raise AssertionError(f"{tag}: paged_attn launched "
+                                 f"{launches['paged_attn']} times, expected "
+                                 f"{want_paged}")
+        if len(calls) != launches["sample_topk"]:
+            raise AssertionError(f"{tag}: {len(calls)} top-k calls for "
+                                 f"{launches['sample_topk']} launches")
+        return sched, rids, results, calls, launches, dt, steps, cums
+
+    def hyp_errs(tag, prompts, rids, sched, calls, cums):
+        """(worst token, worst first token, rounding floor) of every
+        group's hypotheses (`hyp_logp_err`); the prefill scans are the
+        one-row calls, in admission order."""
+        firsts = [c[4] for c in calls if c[0].shape[0] == 1]
+        if len(firsts) != len(rids):
+            raise AssertionError(f"{tag}: {len(firsts)} prefill scans for "
+                                 f"{len(rids)} groups")
+        errs = [hyp_logp_err(torch, np, arch, params, p, sched.hypotheses[r],
+                             cums[r], first, dev)
+                for p, r, first in zip(prompts, rids, firsts)]
+        return tuple(max(e[i] for e in errs) for i in range(3))
+
+    def check_hyps(tag, prompts, rids, sched, calls, cums):
+        """Every token of every hypothesis within MODES_TOKEN_ATOL of the
+        cache-free forward's logp, each first token within EVAL_ATOL."""
+        tok_err, first_err, floor = hyp_errs(tag, prompts, rids, sched,
+                                             calls, cums)
+        if tok_err > MODES_TOKEN_ATOL or first_err > EVAL_ATOL:
+            raise AssertionError(
+                f"{tag}: a token's logp is {tok_err:.3g} from the "
+                f"cache-free forward's (limit {MODES_TOKEN_ATOL}), a first "
+                f"token's {first_err:.3g} (limit {EVAL_ATOL})")
+        return tok_err, first_err, floor
+
+    # (a) two beam-4 groups on the paged engine: every fork a refcount
+    # bump that moves no cache bytes
+    copies, fork_copies, fork_blocks = [0], [0], [0]
+    real_copy = kvpool.copy_block
+
+    def count_copy(tree, dst, src):
+        copies[0] += 1
+        return real_copy(tree, dst, src)
+
+    engines, unread = [], [0]
+
+    def paged_engine():
+        eng = PagedEngine(arch, params, paged_sc, device=dev)
+        engines.append(eng)
+        real_fork = eng.fork_slot
+
+        def fork(dst, src):
+            c, b = copies[0], eng.pool.used_blocks
+            real_fork(dst, src)
+            fork_copies[0] += copies[0] - c
+            fork_blocks[0] += eng.pool.used_blocks - b
+
+        eng.fork_slot = fork
+        return eng
+
+    kvpool.copy_block = count_copy
+    prompts = mode_prompts(np, vocab, 2, seed=10)
+    try:
+        sched, rids, res, calls, launches, dt, steps, cums = run(
+            "beam", paged_engine, lambda s: [s.submit_beam(p, n_beams=4)
+                                             for p in prompts])
+    finally:
+        kvpool.copy_block = real_copy
+    topk_err = check_topk_calls(torch, np, "beam", calls, arch, False, True)
+    if sched.group_forks < 1 or fork_copies[0] or fork_blocks[0]:
+        raise AssertionError(f"beam: {sched.group_forks} forks moved "
+                             f"{fork_copies[0]} blocks and took "
+                             f"{fork_blocks[0]} new ones; want forks that "
+                             "move and take none")
+    for r in rids:
+        hyps = sched.hypotheses[r]
+        if len(hyps) != 4 or [h.logp for h in hyps] != sorted(
+                (h.logp for h in hyps), reverse=True):
+            raise AssertionError(f"beam: request {r} has {len(hyps)} "
+                                 "hypotheses, or out of order")
+    tok_err, first_err, floor = check_hyps("beam", prompts, rids, sched,
+                                           calls, cums)
+    total = dict(launches)
+    print(f"[modes] (a) beam 4 x 2 groups, PagedEngine: launches {launches}"
+          f" = one sample_topk (k 8, return_lse) a step + 2 prefills, "
+          f"paged_attn {n_layers} a step; {len(calls)} calls within "
+          f"{topk_err:.3g} "
+          f"of the plain version; every token's logp within {tok_err:.3g} "
+          f"of the cache-free forward's (limit {MODES_TOKEN_ATOL}; two "
+          f"cache-free forwards differ by up to {floor:.3g}), "
+          f"first tokens within {first_err:.3g} (limit {EVAL_ATOL}); forks "
+          f"{sched.group_forks} (0 blocks moved, 0 taken), pruned "
+          f"{sched.group_pruned}, copy-on-write copies at append "
+          f"{copies[0]}; {sched.tokens_emitted} beam tokens in {dt:.3f}s: "
+          f"{sched.tokens_emitted / dt:.1f} tok/s, step "
+          f"{np.median(steps):.2f} ms p50 ({len(steps)} steps) on {card}",
+          flush=True)
+
+    # (a) again, untimed, with every decode write of a live slot read back
+    # from the pool (the same hypotheses, bit for bit); then once more with
+    # the fault the paged forks could bring planted: copy-on-write off, so
+    # siblings forked inside a block append into it together, which the
+    # read-back must catch
+    def cow_off_engine():
+        eng = paged_engine()
+        eng._make_writable = lambda slot, n_tokens: None
+        return eng
+
+    def read_back(tag, make_engine):
+        unread[0] = 0
+        undo_writes = spy_paged_writes(engines, unread)
+        try:
+            out = run(tag, make_engine, lambda s: [
+                s.submit_beam(p, n_beams=4) for p in prompts])
+        finally:
+            undo_writes()
+        return unread[0], out
+
+    bad, again = read_back("beam, read back", paged_engine)
+    if bad or [again[0].hypotheses[r] for r in again[1]] != [
+            sched.hypotheses[r] for r in rids]:
+        raise AssertionError(f"beam: {bad} decode scatters of live slots "
+                             "did not read back from the pool, or the "
+                             "hypotheses changed")
+    caught, (fsched, frids, _, fcalls, _, _, _, fcums) = read_back(
+        "beam, copy-on-write off", cow_off_engine)
+    if not caught:
+        raise AssertionError("modes: with copy-on-write off every decode "
+                             "write read back; the check would not catch "
+                             "that fault")
+    fault, _, _ = hyp_errs("beam, copy-on-write off", prompts, frids,
+                           fsched, fcalls, fcums)
+    print(f"[modes] (a) read back: every decode write of a live slot "
+          f"({again[0].decode_steps} steps x {2 * n_layers} scatters), and "
+          f"the same hypotheses; with copy-on-write off (a planted fault) "
+          f"{caught} scatters did not read back, and the worst token's "
+          f"logp read {fault:.3g} from the cache-free forward's "
+          f"(MODES_TOKEN_ATOL {MODES_TOKEN_ATOL})", flush=True)
+
+    # (b) two best-of-4 groups at T 0.7 on the slab engine
+    def slab_engine():
+        return Engine(arch, params, slab_sc, device=dev)
+
+    prompts = mode_prompts(np, vocab, 2, seed=11)
+    sched, rids, res, calls, launches, dt, steps, cums = run(
+        "best-of", slab_engine, lambda s: [
+            s.submit_best_of(p, n=4, temperature=0.7, seed=i)
+            for i, p in enumerate(prompts)])
+    topk_err = check_topk_calls(torch, np, "best-of", calls, arch, False,
+                                True)
+    if any(c[2] != 40 for c in calls):
+        raise AssertionError("best-of: a step scored other than top_k 40")
+    for r in rids:
+        hyps = sched.hypotheses[r]
+        if len(hyps) != 4 or any(len(h.tokens) != 16 for h in hyps):
+            raise AssertionError(f"best-of: request {r}: {len(hyps)} "
+                                 "hypotheses, or one cut short")
+    tok_err, first_err, floor = check_hyps("best-of", prompts, rids, sched,
+                                           calls, cums)
+    total["sample_topk"] += launches["sample_topk"]
+    print(f"[modes] (b) best-of 4 x 2 groups at T 0.7, top_k 40, Engine: "
+          f"launches {launches} = one sample_topk (k 40, return_lse) a step "
+          f"+ 2 prefills; {len(calls)} calls within {topk_err:.3g} of the "
+          f"plain version; every token's logp within {tok_err:.3g} of the "
+          f"cache-free forward's (limit {MODES_TOKEN_ATOL}; two cache-free "
+          f"forwards differ by up to {floor:.3g}), first tokens "
+          f"within {first_err:.3g} (limit {EVAL_ATOL}); forks "
+          f"{sched.group_forks}; {sched.tokens_emitted} tokens in "
+          f"{dt:.3f}s: {sched.tokens_emitted / dt:.1f} tok/s, step "
+          f"{np.median(steps):.2f} ms p50 ({len(steps)} steps) on {card}",
+          flush=True)
+
+    # (c) 8 requests under the even mask and one under a per-step mask_fn
+    # (alternating parity) on the slab engine
+    prompts = mode_prompts(np, vocab, 9, seed=12)
+
+    def parity(toks):
+        return even if len(toks) % 2 == 0 else odd
+
+    sched, rids, res, calls, launches, dt, steps, _ = run(
+        "constrained", slab_engine, lambda s: [
+            s.submit(p, token_mask=even) for p in prompts[:8]] + [
+            s.submit(prompts[8], mask_fn=parity)])
+    topk_err = check_topk_calls(torch, np, "constrained", calls, arch, True,
+                                False)
+    deficit = 0.0
+    for i, (p, r) in enumerate(zip(prompts, rids)):
+        out = res[r]
+        if len(out) != 16:
+            raise AssertionError(f"constrained: request {r} got {len(out)} "
+                                 "tokens")
+        allowed = ((lambda t: even) if i < 8
+                   else (lambda t: parity(range(t))))
+        deficit = max(deficit, allowed_deficit(torch, np, arch, params, p,
+                                               out, allowed, dev))
+    if deficit > GREEDY_TOL:
+        raise AssertionError(f"constrained: a token trails the best allowed "
+                             f"logit by {deficit:.3g} (limit {GREEDY_TOL})")
+    total["sample_topk"] += launches["sample_topk"]
+    n_tok = sum(len(res[r]) for r in rids)
+    print(f"[modes] (c) constrained, Engine: 8 requests under the even "
+          f"mask + 1 under a per-step mask_fn: launches {launches} = one "
+          f"sample_topk (k 1, allowed_mask) a step + 9 prefills; "
+          f"{len(calls)} calls within {topk_err:.3g} of the plain version; "
+          f"every token allowed and within {max(deficit, 0.0):.3g} of the "
+          f"best allowed logit of a cache-free forward (limit {GREEDY_TOL})"
+          f"; {n_tok} tokens in {dt:.3f}s: {n_tok / dt:.1f} tok/s, step "
+          f"{np.median(steps):.2f} ms p50 ({len(steps)} steps) on {card}",
+          flush=True)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2371,9 +2965,10 @@ def main():
     launches, params = phase_serve(torch, np, arch, card, dev)
     paged_launches = phase_paged_serve(torch, np, arch, params, card, dev)
     del params
-    params, score_launches, spec_topk = phase_spec(torch, np, arch,
-                                                   card, dev)
+    params, score_launches, spec_topk, spec_paged = phase_spec(
+        torch, np, arch, card, dev)
     score_launches += phase_eval(torch, np, arch, params, card, dev)
+    modes = phase_modes(torch, np, arch, params, card, dev)
     del params
     train_launches, train_p50, state = phase_train(torch, np, arch, card,
                                                    dev)
@@ -2393,7 +2988,7 @@ def main():
         "name": "sample_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
-        "launches": launches + spec_topk,       # phases 3 and 6
+        "launches": launches + spec_topk + modes["sample_topk"],  # 3, 6, 10
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -2447,7 +3042,8 @@ def main():
         "name": "paged_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
-        "launches": paged_launches["paged_attn"],
+        "launches": (paged_launches["paged_attn"] + spec_paged  # 5, 6,
+                     + modes["paged_attn"]),                    # and 10
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
         # device time under torch.profiler; event_ms reads the launch rate
         "ms": row["ms"], "event_ms": row["event_ms"],

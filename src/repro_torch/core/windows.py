@@ -124,17 +124,19 @@ def score_plan(n_rows: int, vocab: int, n_cand: int) -> StreamPlan:
 @functools.lru_cache(maxsize=1024)
 def topk_stream_plan(n_rows: int, vocab: int, k: int) -> StreamPlan:
     """The decode kernel's plan: row tiles of up to 64 rows; at k = 1 its
-    epilogue keeps the 8 warps' best key of R rows, above that R sorted
+    epilogue keeps the 8 warps' best key of R rows (the same bytes then
+    hold their (m, a) states for ``return_lse``), above that R sorted
     lists of 64 keys, R thresholds, a 2 x 128-key scratch for each of the
-    8 selection warps, 4 mbarriers and two staged R x 132 f32 tiles
-    (`sample_topk.cu` ``epilogue_bytes``)."""
+    8 selection warps, 4 mbarriers, two staged R x 132 f32 tiles and R
+    (m, a) states (`sample_topk.cu` ``epilogue_bytes``)."""
     if k == 1:
         return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
                            lambda r: STREAM_WARPS * r * 8)
     return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
                        lambda r: (r * TOPK_MAX_K * 8 + r * 8
                                   + TOPK_SELECT_WARPS * 2 * STREAM_COLS * 8
-                                  + 4 * 8 + 2 * r * (STREAM_COLS + 4) * 4))
+                                  + 4 * 8 + 2 * r * (STREAM_COLS + 4) * 4
+                                  + 2 * r * 4))
 
 
 @functools.lru_cache(maxsize=1024)

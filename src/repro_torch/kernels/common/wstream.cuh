@@ -29,10 +29,21 @@
 // of warpgroup wg holds vocab columns wg*64 + 16 (T/32 % 4) + T%32/4 + 8i
 // of the tile and rows 8j + 2 (T%4) + c of the row tile in
 // acc[4j + 2i + c], i, c in {0, 1}.
+//
+// Both kernels can keep a per-row online softmax over the same columns
+// (score_tokens' lse, sample_topk's return_lse), and share its fold here:
+// a row's state (m, a) is its largest logit and the sum of exp(z - m)
+// over the columns folded so far, in f32 on the CUDA cores (the tensor
+// cores only form the dot products: they truncate small addends).  Each
+// CTA folds its fragment tile by tile (RowStates), its 8 consumer warps'
+// states merge in warp order into one (m, a) a (row, slice), and one warp
+// a row folds the slices' pairs in a fixed order (slices_lse).  No float
+// atomics: two calls on the same inputs agree bit for bit.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 
 #include "hopper.cuh"
 
@@ -182,6 +193,109 @@ __device__ void consume_tile(const Ring<N>& ring, float (&acc)[N / 2],
   wgmma_wait<0>();
   fence_regs(acc);
   if (leader) mbar_arrive(&ring.empty[prev]);
+}
+
+// Merge the online-softmax state (om, oa) into (m, a); -inf and 0 is the
+// state of no column.
+__device__ __forceinline__ void merge_state(float& m, float& a, float om,
+                                            float oa) {
+  const float mn = fmaxf(m, om);
+  const float safe = (mn == -INFINITY) ? 0.f : mn;
+  a = a * expf(m - safe) + oa * expf(om - safe);
+  m = mn;
+}
+
+// The online-softmax states of the rows a consumer thread folds.  A
+// warp's 16 columns of a row reduce by a max butterfly, then a sum
+// butterfly of exp(z - max), and one lane of the 8 that share the row
+// keeps the row's running state (the lane whose index g is the row's j mod
+// 8), so the states take N / 16 registers a thread, not N / 2.
+template <int N>
+struct RowStates {
+  static constexpr int kNJ = N / 8;
+  static constexpr int kJS = (kNJ + 7) / 8;  // states a lane keeps, per c
+  float m[kJS][2], a[kJS][2];
+
+  __device__ void init() {
+#pragma unroll
+    for (int q = 0; q < kJS; ++q)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        m[q][c] = -INFINITY;
+        a[q][c] = 0.f;
+      }
+  }
+
+  // Folds one tile's fragment: z[4j + 2i + c] (the layout above), -inf
+  // at every column that does not count for its row.
+  __device__ void fold(const float (&z)[N / 2], int g) {
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float z0 = z[4 * j + c];
+        const float z1 = z[4 * j + 2 + c];
+        float mx = fmaxf(z0, z1);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float safe = mx == -INFINITY ? 0.f : mx;
+        float sum = expf(z0 - safe) + expf(z1 - safe);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if ((j & 7) == g) merge_state(m[j >> 3][c], a[j >> 3][c], mx, sum);
+      }
+  }
+
+  // The 8 consumer warps' states of each row, merged in warp order, to
+  // part[(row * n_split + split) * 2 + {0, 1}].  `red` holds 2 * 8 * N
+  // floats; consumer threads only (they meet at named barrier 1).
+  __device__ void store(float* red, float* part, int row0, int rows,
+                        int n_split, int split) const {
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    float* red_m = red;
+    float* red_a = red + (kConsumers / 32) * N;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if ((j & 7) == g) {
+          const int n = 8 * j + 2 * t + c;
+          red_m[warp * N + n] = m[j >> 3][c];
+          red_a[warp * N + n] = a[j >> 3][c];
+        }
+    hopper::bar_sync(1, kConsumers);
+    if (tid < N && row0 + tid < rows) {
+      float mm = -INFINITY, aa = 0.f;
+      for (int wp = 0; wp < kConsumers / 32; ++wp)
+        merge_state(mm, aa, red_m[wp * N + tid], red_a[wp * N + tid]);
+      float* out = part + ((size_t)(row0 + tid) * n_split + split) * 2;
+      out[0] = mm;
+      out[1] = aa;
+    }
+  }
+};
+
+// One whole warp: m + log a of a row from its n_split (m, a) partials
+// pr[2 s], pr[2 s + 1] (lane l merges slices l, l + 32, ... in order, then
+// a fixed butterfly); -inf for a row with no column that counts.
+__device__ __forceinline__ float slices_lse(const float* pr, int n_split,
+                                            int lane) {
+  float m = -INFINITY, a = 0.f;
+  for (int s = lane; s < n_split; s += 32)
+    merge_state(m, a, pr[2 * s], pr[2 * s + 1]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, off);
+    const float oa = __shfl_xor_sync(0xffffffffu, a, off);
+    merge_state(m, a, om, oa);
+  }
+  return m + logf(a);
 }
 
 // Encodes both TMA maps of a launch: W (v x d) in 128-row boxes, h

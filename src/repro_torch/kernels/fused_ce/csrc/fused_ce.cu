@@ -976,6 +976,11 @@ int fused_ce_bwd_max_clusters(int dw, int c, int* count) {
   }
 }
 
+// The most streamed 64-row tiles one filtered dH or dW launch takes (its
+// live-tile list lives in shared memory beside the exact kernel's); the
+// wrapper splits a longer streamed axis into launches of at most this many.
+int fused_ce_max_filtered_tiles() { return kBwdMaxFilteredTiles; }
+
 const char* fused_ce_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

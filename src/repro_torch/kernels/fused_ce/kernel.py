@@ -38,6 +38,11 @@ vocab tiles) f32 tile statistic with ``return_tile_stats``; backward ->
 (dH, dW) in f32, filtered by ``tile_stats`` (with ``cfg.grad_filter_eps
 > 0``) or by an explicit ``skip_mask``.  On the card the kernels take
 bf16 h and w with ``d % 64 == 0`` (dH and dW also ``d <= 4096``).
+The filtered kernels keep their live-tile list in shared memory, at most
+`fused_ce_max_filtered_tiles()` streamed 64-row tiles (6080) a launch, so
+a filtered call past that (dH over V > 389,120 columns, dW over more
+than 389,120 rows) runs as several launches over slices of the streamed
+axis whose f32 partials are summed (`filtered_parts`).
 
 `ref_stats` / `ref_grads` (`ref.py`) are the plain versions.  The
 wrappers run them for tensors on the CPU; for CUDA tensors they launch
@@ -48,7 +53,7 @@ NotImplementedError on every device.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -70,6 +75,9 @@ DW_FILTERED_LAUNCHES = build.counter("fused_ce_dw_filtered")
 # the backward kernels (dH and dW) spread d over a thread-block cluster,
 # 256 columns a CTA, at most 16 CTAs (fused_ce.cu grad_cluster)
 BWD_MAX_D = 4096
+# their grid's y dimension walks the stationary operand (h's rows for dH,
+# W's for dW) in 64-row tiles, at most CUDA's 65535
+BWD_MAX_STATIONARY_TILES = 65535
 
 _configured = set()
 
@@ -85,6 +93,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = i
         lib.fused_ce_bwd_max_clusters.argtypes = [i, i, p]
         lib.fused_ce_bwd_max_clusters.restype = i
+        lib.fused_ce_max_filtered_tiles.argtypes = []
+        lib.fused_ce_max_filtered_tiles.restype = i
         lib.fused_ce_error_string.argtypes = [i]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
         _configured.add(id(lib))
@@ -210,18 +220,34 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     _check_cuda(h, w, y, lse, gamma, p_coeff)
     n, d = h.shape
     v = w.shape[0]
-    if d > BWD_MAX_D:
-        raise ValueError(f"the {which} kernel's cluster covers d <= "
-                         f"{BWD_MAX_D} (16 CTAs of 256 columns), got d={d}")
+    check_grad_shape(which, n, v, d)
     lib = _lib()
     filtered = skip_mask is not None
-    skip_ptr = None
-    if filtered:
-        if skip_mask.device != h.device:
-            raise ValueError(f"skip_mask lies on {skip_mask.device}, h on "
-                             f"{h.device}")
-        skip = skip_mask.to(torch.bool).contiguous()
-        skip_ptr = skip.data_ptr()
+    if not filtered:
+        out = _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff, None,
+                           cfg, valid, col_offset)
+        (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
+        return out
+    if skip_mask.device != h.device:
+        raise ValueError(f"skip_mask lies on {skip_mask.device}, h on "
+                         f"{h.device}")
+    skip = skip_mask.to(torch.bool).contiguous()
+    out = None
+    for part in filtered_parts(which, h, w, y, lse, gamma, p_coeff, skip,
+                               col_offset, lib.fused_ce_max_filtered_tiles()):
+        got = _launch_grad(lib, which, *part[:7], cfg, valid, part[7])
+        (DH_FILTERED_LAUNCHES if which == "dh"
+         else DW_FILTERED_LAUNCHES).inc()
+        out = got if out is None else out.add_(got)
+    return out
+
+
+def _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff, skip, cfg, valid,
+                 col_offset):
+    """One launch of the dH or dW kernel (filtered when `skip` is given):
+    dH (N, d) or dW (V, d) in f32."""
+    n, d = h.shape
+    v = w.shape[0]
     out = torch.empty((n if which == "dh" else v, d), dtype=torch.float32,
                       device=h.device)
     has_cap, cap = _cap(cfg)
@@ -230,17 +256,62 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = launch(h.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(),
-                     gamma.data_ptr(), p_coeff.data_ptr(), skip_ptr,
+                     gamma.data_ptr(), p_coeff.data_ptr(),
+                     None if skip is None else skip.data_ptr(),
                      out.data_ptr(), n, d, v, int(valid), int(col_offset),
                      has_cap, cap, float(cfg.label_smoothing), stream)
-    _raise_on(err, f"fused_ce {which}{' filtered' if filtered else ''}",
+    _raise_on(err, f"fused_ce {which}{'' if skip is None else ' filtered'}",
               lib)
-    if filtered:
-        (DH_FILTERED_LAUNCHES if which == "dh"
-         else DW_FILTERED_LAUNCHES).inc()
-    else:
-        (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
     return out
+
+
+def check_grad_shape(which: str, n: int, v: int, d: int) -> None:
+    """Raise ValueError, before any launch, for a dH or dW call the
+    kernels cannot take at any split: d past the cluster's 16 CTAs of 256
+    columns, or a stationary operand (h's rows for dH, W's for dW) past
+    the grid's 65535 tiles of 64 rows."""
+    if d > BWD_MAX_D:
+        raise ValueError(f"the {which} kernel's cluster covers d <= "
+                         f"{BWD_MAX_D} (16 CTAs of 256 columns), got d={d}")
+    rows, tile, what = ((n, CE_TILE_ROWS, "rows of h") if which == "dh"
+                        else (v, CE_TILE_COLS, "rows of W"))
+    tiles = -(-rows // tile)
+    if tiles > BWD_MAX_STATIONARY_TILES:
+        raise ValueError(
+            f"the {which} kernel's grid walks its stationary operand in "
+            f"{tile}-row tiles, at most {BWD_MAX_STATIONARY_TILES} "
+            f"(CUDA's grid y): {rows} {what} make {tiles}")
+
+
+def filtered_chunks(n_tiles: int, max_tiles: int) -> List[Tuple[int, int]]:
+    """The streamed tiles [t0, t1) of each launch of a filtered call over
+    `n_tiles` streamed 64-row tiles, at most `max_tiles` a launch: one
+    launch under the limit."""
+    if max_tiles < 1:
+        raise ValueError(f"max_tiles must be >= 1, got {max_tiles}")
+    return [(t0, min(t0 + max_tiles, n_tiles))
+            for t0 in range(0, n_tiles, max_tiles)]
+
+
+def filtered_parts(which: str, h, w, y, lse, gamma, p_coeff, skip,
+                   col_offset: int, max_tiles: int
+                   ) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """The launches of a filtered dH or dW call, as (h, w, y, lse, gamma,
+    p_coeff, skip, col_offset): each streams at most `max_tiles` 64-row
+    tiles, and their outputs sum to the call's.  dH streams the vocab: W's
+    rows and the mask's columns are sliced, and a slice's first column
+    moves `col_offset` so that every global id stays put.  dW streams the
+    rows: h, y, the row statistics and the mask's rows are sliced."""
+    streamed, tile = ((w.shape[0], CE_TILE_COLS) if which == "dh"
+                      else (h.shape[0], CE_TILE_ROWS))
+    for t0, t1 in filtered_chunks(-(-streamed // tile), max_tiles):
+        a, b = t0 * tile, min(t1 * tile, streamed)
+        if which == "dh":
+            yield (h, w[a:b], y, lse, gamma, p_coeff,
+                   skip[:, t0:t1].contiguous(), col_offset + a)
+        else:
+            yield (h[a:b], w, y[a:b], lse[a:b], gamma[a:b], p_coeff[a:b],
+                   skip[t0:t1], col_offset)
 
 
 def bwd_max_clusters(which: str, cluster: int) -> int:

@@ -41,6 +41,20 @@
 //     and merges them by the same bitonic merge: each warp folds every
 //     32nd list into its own, then the warps' lists fold pairwise; at k = 1
 //     one warp a row takes the largest key.
+// Two options of the JAX kernel serve the request modes (beam search,
+// best-of-n, constrained decoding), and cost nothing when not asked for:
+//   * allowed_mask, an s8 (rows, v_orig) mask: a 0 entry makes its column
+//     -inf before the running list and before the lse, beside the validity
+//     clamp.  At k = 1 the wgmma warps load their fragment's mask bytes
+//     before a tile's products and read them after; at k > 1 the selection
+//     warps read a row's 128 bytes of a tile coalesced.  It adds rows x V
+//     bytes (1.2 MB at 8 rows) to W's 311 MB;
+//   * return_lse: each (row, slice) also folds an online softmax (m, a)
+//     over the same clamped and masked columns (at k = 1 by the wgmma
+//     warps, with the fold score_tokens uses, wstream::RowStates; at k > 1
+//     by the selection warp that owns the row, over the staged tile), and
+//     the merge kernel folds the slices' pairs (wstream::slices_lse) into
+//     lse = m + log a: -inf for a row with no live column.
 //
 // The many-row top-1 path (topk_rows_kernel, k = 1 only) computes the same
 // function for the MTP accuracy's 4096 rows.  There the bound flips: the
@@ -108,14 +122,15 @@ __device__ __forceinline__ void warp_best(float& v, int& id, int& owner) {
 // decode kernel: the shared W stream and a key-based selection
 // ---------------------------------------------------------------------------
 
-// Shared memory beside the ring.  k = 1: the 8 warps' best key of R rows;
+// Shared memory beside the ring.  k = 1: the 8 warps' best key of R rows
+// (then, with return_lse, their (m, a) of R rows: as many bytes);
 // k > 1: R sorted lists of 64 keys, R thresholds, a compaction scratch of
-// 2 x 128 keys a selection warp, 4 mbarriers and two staged R x 128 tiles
-// of logits.
+// 2 x 128 keys a selection warp, 4 mbarriers, two staged R x 128 tiles
+// of logits and R (m, a) states.
 __host__ __device__ inline int epilogue_bytes(int r, int k) {
   if (k == 1) return kWarps * r * 8;
   return r * kMaxK * 8 + r * 8 + kSelWarps * 2 * wstream::kCols * 8 + 4 * 8 +
-         2 * r * kZld * 4;
+         2 * r * kZld * 4 + 2 * r * 4;
 }
 
 __host__ __device__ inline wstream::Plan plan(int rows, int v, int k) {
@@ -209,8 +224,12 @@ __device__ __forceinline__ void fold_list(u64& a0, u64& a1, const u64* b,
 // interleave): the keys above the row's threshold are compacted, sorted
 // 32 at a time and merged into the row's sorted list, whose k-th key
 // becomes the row's threshold.
+// With `mask` (rows x v_orig s8) a 0 entry makes its column -inf; with
+// `lse_st` (N m's, then N a's) each row's online softmax over the tile's
+// counted columns folds into its state, which only its warp touches.
 template <int N>
 __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
+                            float* lse_st, const int8_t* __restrict__ mask,
                             int row0, int rows, int cbase, int v_orig,
                             int valid, int col_offset, int k, int has_softcap,
                             float softcap, int sw, int lane) {
@@ -224,17 +243,35 @@ __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
     for (int r = 0; r < 2; ++r) {
       const bool here = r == 0 || has1;
       const u64 th = here ? thr[nr[r]] : ~0ull;
+      float zc[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = 32 * q + lane;
         const int local = cbase + col;
         float z = here ? zs[nr[r] * kZld + col] : 0.f;
         if (has_softcap) z = softcap * tanhf(z / softcap);
-        const bool live = local < v_orig && local + col_offset < valid;
-        key[r][q] =
-            local < v_orig ? make_key(live ? z : -INFINITY, local) : 0ull;
+        bool live = local < v_orig && local + col_offset < valid;
+        if (mask && here && live)
+          live = mask[(size_t)(row0 + nr[r]) * v_orig + local] != 0;
+        zc[q] = live && !isnan(z) ? z : -INFINITY;
+        key[r][q] = local < v_orig ? make_key(zc[q], local) : 0ull;
         bal[r][q] = __ballot_sync(0xffffffffu, key[r][q] > th);
         m[r] += __popc(bal[r][q]);
+      }
+      if (lse_st && here) {
+        float mx = fmaxf(fmaxf(zc[0], zc[1]), fmaxf(zc[2], zc[3]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float safe = mx == -INFINITY ? 0.f : mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum += expf(zc[q] - safe);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0)
+          wstream::merge_state(lse_st[nr[r]], lse_st[N + nr[r]], mx, sum);
       }
     }
     if (m[0] + m[1] == 0) continue;
@@ -286,11 +323,15 @@ __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
 // warps) consume the tiles they stage, double-buffered through mbarriers,
 // so the selection of tile t overlaps the products of tile t + 1; the last
 // warp is the producer.
+// With `mask` (rows x v_orig s8, or null) a 0 entry makes its column -inf;
+// with `pl` (or null) each (row, slice)'s online softmax (m, a) over its
+// counted columns goes to pl[(row * n_split + split) * 2 + {0, 1}].
 template <int N, bool kOne>
 __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
     topk_stream_kernel(const __grid_constant__ CUtensorMap wmap,
                        const __grid_constant__ CUtensorMap hmap,
-                       u64* __restrict__ pk, int rows, int d, int v_orig,
+                       u64* __restrict__ pk, const int8_t* __restrict__ mask,
+                       float* __restrict__ pl, int rows, int d, int v_orig,
                        int valid, int col_offset, int k, int per,
                        int n_split, int stages, int has_softcap,
                        float softcap) {
@@ -305,6 +346,7 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
   uint64_t* zbar =                      // full[2], empty[2]
       reinterpret_cast<uint64_t*>(scr + kSelWarps * 2 * wstream::kCols);
   float* zs = reinterpret_cast<float*>(zbar + 4);  // 2 x N x kZld
+  float* lse_st = zs + 2 * N * kZld;               // N m's, N a's
 
   const int row0 = blockIdx.x * N;
   const int split = blockIdx.y;
@@ -316,6 +358,10 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
   constexpr int kAll = kOne ? kThreads : kSelThreads;
   if (!kOne) {
     for (int i = tid; i < N * (kMaxK + 1); i += kAll) lst[i] = 0ull;
+    for (int i = tid; i < N; i += kAll) {
+      lse_st[i] = -INFINITY;
+      lse_st[N + i] = 0.f;
+    }
     if (tid == 0) {
       for (int b = 0; b < 2; ++b) {
         mbar_init(&zbar[b], kConsumers);       // a tile staged in zs[b]
@@ -336,7 +382,8 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int tl = tile - t_begin;
       mbar_wait(&zbar[tl & 1], (tl >> 1) & 1);
-      select_tile<N>(zs + (tl & 1) * N * kZld, lst, thr, sc, row0, rows,
+      select_tile<N>(zs + (tl & 1) * N * kZld, lst, thr, sc,
+                     pl ? lse_st : nullptr, mask, row0, rows,
                      tile * wstream::kCols, v_orig, valid, col_offset, k,
                      has_softcap, softcap, sw, lane);
       mbar_arrive(&zbar[2 + (tl & 1)]);
@@ -344,6 +391,11 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
     for (int n = sw; n < N && row0 + n < rows; n += kSelWarps) {
       u64* out = pk + ((size_t)(row0 + n) * n_split + split) * k;
       for (int i = lane; i < k; i += 32) out[i] = lst[n * kMaxK + i];
+      if (pl && lane == 0) {
+        float* o = pl + ((size_t)(row0 + n) * n_split + split) * 2;
+        o[0] = lse_st[n];
+        o[1] = lse_st[N + n];
+      }
     }
     return;
   }
@@ -357,10 +409,30 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
 #pragma unroll
   for (int j = 0; j < (kOne ? NJ : 1); ++j) best[j][0] = best[j][1] = 0ull;
 
+  wstream::RowStates<N> st;
+  st.init();
   float acc[N / 2];
   int s = 0;
   uint32_t phase = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
+    // k = 1 with a mask: the fragment's mask bytes are loaded before the
+    // tile's products and read after them
+    int8_t allow[NJ][2][2];
+    if (kOne && mask) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int local = tile * wstream::kCols + col_lo + 8 * i;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int row = row0 + 8 * j + 2 * t + c;
+            allow[j][i][c] = row < rows && local < v_orig
+                                 ? mask[(size_t)row * v_orig + local]
+                                 : (int8_t)1;
+          }
+      }
+    }
     wstream::consume_tile(ring, acc, s, phase, nk);
     if (kOne) {
 #pragma unroll
@@ -374,11 +446,13 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
           for (int c = 0; c < 2; ++c) {
             float z = acc[4 * j + 2 * i + c];
             if (has_softcap) z = softcap * tanhf(z / softcap);
-            const u64 key = exists ? make_key(live ? z : -INFINITY, local)
-                                   : 0ull;
-            best[j][c] = umax(best[j][c], key);
+            const bool ok = live && (!mask || allow[j][i][c] != 0);
+            z = ok && !isnan(z) ? z : -INFINITY;
+            acc[4 * j + 2 * i + c] = z;
+            best[j][c] = umax(best[j][c], exists ? make_key(z, local) : 0ull);
           }
       }
+      if (pl) st.fold(acc, g);
       continue;
     }
     // stage the tile in zs[tl % 2] once the selection has read it
@@ -413,6 +487,9 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
     for (int wp = 0; wp < kWarps; ++wp) b = umax(b, epi[wp * N + tid]);
     pk[(size_t)(row0 + tid) * n_split + split] = b;
   }
+  if (!pl) return;
+  bar_sync(1, kConsumers);   // epi is read; it now takes the (m, a) states
+  st.store(reinterpret_cast<float*>(epi), pl, row0, rows, n_split, split);
 }
 
 // grid (rows), kMergeThreads threads, n_split * k * 8 bytes of dynamic
@@ -421,8 +498,10 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
 // fold pairwise in 5 levels.
 __global__ void __launch_bounds__(kMergeThreads)
     topk_stream_merge_kernel(const u64* __restrict__ pk,
+                             const float* __restrict__ pl,
                              float* __restrict__ vals, int* __restrict__ ids,
-                             int n_split, int k, int col_offset) {
+                             float* __restrict__ lse, int n_split, int k,
+                             int col_offset) {
   extern __shared__ u64 sp[];
   __shared__ u64 wl[kMergeThreads / 32][kMaxK];
   const int row = blockIdx.x;
@@ -463,14 +542,19 @@ __global__ void __launch_bounds__(kMergeThreads)
     vals[(size_t)row * k + i] = key_value(key);
     ids[(size_t)row * k + i] = key_local(key) + col_offset;
   }
+  if (!lse) return;
+  const float l =
+      wstream::slices_lse(pl + (size_t)row * n_split * 2, n_split, lane);
+  if (lane == 0) lse[row] = l;
 }
 
 // k = 1: grid ceil(rows / 8), one warp a row takes the largest of the
 // row's n_split keys.
 __global__ void __launch_bounds__(256)
-    key1_merge_kernel(const u64* __restrict__ pk, float* __restrict__ vals,
-                      int* __restrict__ ids, int rows, int n_split,
-                      int col_offset) {
+    key1_merge_kernel(const u64* __restrict__ pk,
+                      const float* __restrict__ pl, float* __restrict__ vals,
+                      int* __restrict__ ids, float* __restrict__ lse,
+                      int rows, int n_split, int col_offset) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -483,13 +567,18 @@ __global__ void __launch_bounds__(256)
     vals[row] = key_value(b);
     ids[row] = key_local(b) + col_offset;
   }
+  if (!lse) return;
+  const float l =
+      wstream::slices_lse(pl + (size_t)row * n_split * 2, n_split, lane);
+  if (lane == 0) lse[row] = l;
 }
 
 template <int N>
 cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
-                          u64* pk, int rows, int d, int v_orig, int valid,
-                          int col_offset, int k, const wstream::Plan& p,
-                          int has_softcap, float softcap, cudaStream_t s) {
+                          u64* pk, const int8_t* mask, float* pl, int rows,
+                          int d, int v_orig, int valid, int col_offset, int k,
+                          const wstream::Plan& p, int has_softcap,
+                          float softcap, cudaStream_t s) {
   auto kern = k == 1 ? topk_stream_kernel<N, true>
                      : topk_stream_kernel<N, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -497,7 +586,7 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
   if (err != cudaSuccess) return err;
   kern<<<dim3(p.row_tiles, p.slices), k == 1 ? kThreads : kSelThreads,
          p.smem, s>>>(
-      wmap, hmap, pk, rows, d, v_orig, valid, col_offset, k, p.per,
+      wmap, hmap, pk, mask, pl, rows, d, v_orig, valid, col_offset, k, p.per,
       p.slices, p.stages, has_softcap, softcap);
   return cudaGetLastError();
 }
@@ -626,27 +715,33 @@ void sample_topk_plan(int rows, int v_orig, int k, int* out) {
 
 // Launches the decode kernel and its merge on `stream` with the plan
 // above; returns a cudaError_t.  pk is (rows, slices, k) u64 scratch,
-// vals/ids the (rows, k) result.
+// vals/ids the (rows, k) result.  mask, when not null, is the (rows,
+// v_orig) s8 allowed mask; lse, when not null, receives the (rows,) f32
+// logsumexp through pl, (rows, slices, 2) f32 scratch.
 int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
                        void* ids, int rows, int d, int v_orig, int valid,
                        int col_offset, int k, int has_softcap, float softcap,
-                       void* stream) {
+                       const void* mask, void* pl, void* lse, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
       d % wstream::kChunk || k < 1 || k > kMaxK || k > v_orig)
     return (int)cudaErrorInvalidValue;
   const wstream::Plan p = plan(rows, v_orig, k);
-  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.slices > kMaxSlices)
+  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.slices > kMaxSlices ||
+      (lse != nullptr) != (pl != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   u64* kp = static_cast<u64*>(pk);
+  const int8_t* mk = static_cast<const int8_t*>(mask);
+  float* lp = static_cast<float*>(pl);
   CUtensorMap wmap, hmap;
   int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows);
   if (e) return e;
   cudaError_t err;
 #define TOPK_CASE(n)                                                    \
   case n:                                                               \
-    err = launch_stream<n>(wmap, hmap, kp, rows, d, v_orig, valid,      \
-                           col_offset, k, p, has_softcap, softcap, s);  \
+    err = launch_stream<n>(wmap, hmap, kp, mk, lp, rows, d, v_orig,     \
+                           valid, col_offset, k, p, has_softcap,        \
+                           softcap, s);                                 \
     break;
   switch (p.rows) {
     TOPK_CASE(8) TOPK_CASE(16) TOPK_CASE(24) TOPK_CASE(32)
@@ -658,8 +753,8 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
   if (err != cudaSuccess) return (int)err;
   if (k == 1) {
     key1_merge_kernel<<<(rows + 7) / 8, 256, 0, s>>>(
-        kp, static_cast<float*>(vals), static_cast<int*>(ids), rows,
-        p.slices, col_offset);
+        kp, lp, static_cast<float*>(vals), static_cast<int*>(ids),
+        static_cast<float*>(lse), rows, p.slices, col_offset);
     return (int)cudaGetLastError();
   }
   const int smem = p.slices * k * 8;
@@ -668,8 +763,8 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
                              smem);
   if (err != cudaSuccess) return (int)err;
   topk_stream_merge_kernel<<<rows, kMergeThreads, smem, s>>>(
-      kp, static_cast<float*>(vals), static_cast<int*>(ids), p.slices, k,
-      col_offset);
+      kp, lp, static_cast<float*>(vals), static_cast<int*>(ids),
+      static_cast<float*>(lse), p.slices, k, col_offset);
   return (int)cudaGetLastError();
 }
 

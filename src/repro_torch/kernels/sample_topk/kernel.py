@@ -32,7 +32,12 @@ Contract (the JAX kernel's): values f32 and global ids i32, sorted
 descending, ties to the lowest id; a column is live iff its local index is
 ``< V`` and its global id ``local + col_offset < valid_vocab``.  On the
 card a NaN logit counts as -inf, and every id lies in
-``[col_offset, col_offset + V)``.
+``[col_offset, col_offset + V)``.  The decode kernel also takes the JAX
+kernel's request-mode options: ``allowed_mask`` (B, V), whose 0 entries
+make their columns -inf before the top-k and the lse, and ``return_lse``,
+a third (B,) f32 output, the logsumexp over the same columns (-inf for a
+row with none), folded as an online softmax beside the selection; the
+many-row kernel takes neither.
 
 `topk_scores_ref` is the plain PyTorch version: dense f32 logits, masked,
 then a STABLE descending sort (``torch.topk`` promises no order among
@@ -64,7 +69,7 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sample_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, p]
+                                           i, f, p, p, p, p]
         lib.sample_topk_launch.restype = i
         lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
                                                 i, i, i, f, p]
@@ -144,10 +149,12 @@ def _check_cuda_args(h, w, k):
                          f", got k={k}")
 
 
-def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int) -> None:
+def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
+               masked: bool = False, lse: bool = False) -> None:
     """Raise ValueError unless a kernel takes `plan` for this call: the
     decode kernel's own plan for (rows, V, k) (`topk_decode_plan`), or
-    the 128 x 256 many-row plan at k = 1.  An explicit plan picks the
+    the 128 x 256 many-row plan at k = 1 with neither an allowed mask
+    (`masked`) nor ``return_lse`` (`lse`).  An explicit plan picks the
     kernel; its tiles are the kernel's.  Checked on every device, so an
     explicit plan fails the same way on the CPU."""
     if plan.block_rows == TOPK_ROWS:
@@ -157,6 +164,10 @@ def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int) -> None:
         if k != 1:
             raise ValueError(f"the many-row plan {plan} takes k = 1 only, "
                              f"got k={k}; larger k needs the decode plan")
+        if masked or lse:
+            raise ValueError(f"the many-row plan {plan} takes neither "
+                             "allowed_mask nor return_lse; they need the "
+                             "decode plan")
         return
     want = topk_decode_plan(n_rows, vocab, k)
     if plan != want:
@@ -176,17 +187,23 @@ def topk_scores(
     allowed_mask: Optional[torch.Tensor] = None,
     return_lse: bool = False,
 ):
-    """Per-row top-k of ``h @ w.T``: (values (B, k) f32, ids (B, k) i32).
+    """Per-row top-k of ``h @ w.T``: (values (B, k) f32, ids (B, k) i32),
+    and with ``return_lse`` a third output, the (B,) f32 logsumexp over
+    the same live (and allowed) columns.
 
     CPU tensors go to `topk_scores_ref`.  CUDA tensors go to a kernel,
     which takes bf16 h (B, d) and w (V, d) with ``d % 64 == 0`` (any d),
     ``1 <= k <= 64`` and the `plan` (`ops.cuda_topk` resolves one): the
-    decode plan launches the decode kernel, the 128-row plan the many-row
-    kernel, which takes k = 1 only.  `w_scale`, `allowed_mask` and
-    `return_lse` are not on the serving path yet and raise
-    NotImplementedError there."""
+    decode plan launches the decode kernel, which also takes
+    `allowed_mask` ((B, V) contiguous bool, int8 or uint8, nonzero =
+    allowed)
+    and `return_lse`; the 128-row plan the many-row kernel, which takes
+    k = 1 only and neither option.  `w_scale` (quantized heads) raises
+    NotImplementedError on the card (ROADMAP A6)."""
+    masked = allowed_mask is not None
     if plan is not None:
-        check_plan(plan, k, h.shape[0], w.shape[0])
+        check_plan(plan, k, h.shape[0], w.shape[0], masked=masked,
+                   lse=return_lse)
     if h.device.type == "cpu":
         return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
                                logit_softcap=logit_softcap,
@@ -195,26 +212,40 @@ def topk_scores(
                                return_lse=return_lse)
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")
-    for name, val in (("w_scale", w_scale), ("allowed_mask", allowed_mask)):
-        if val is not None:
-            raise NotImplementedError(
-                f"sample_topk on CUDA has no {name} yet (ROADMAP A5, A6)")
-    if return_lse:
-        raise NotImplementedError(
-            "sample_topk on CUDA has no return_lse yet (ROADMAP A5)")
+    if w_scale is not None:
+        raise NotImplementedError("sample_topk on CUDA has no w_scale "
+                                  "(quantized lm_head) yet: ROADMAP A6")
     if plan is None:
         raise ValueError("the kernel needs a BlockPlan (see ops.cuda_topk)")
     _check_cuda_args(h, w, k)
+    if masked:
+        if allowed_mask.device != h.device:
+            raise ValueError(f"allowed_mask lies on {allowed_mask.device}, "
+                             f"h on {h.device}")
+        if tuple(allowed_mask.shape) != (h.shape[0], w.shape[0]):
+            raise ValueError(f"allowed_mask must be (B, V) = "
+                             f"{(h.shape[0], w.shape[0])}, got "
+                             f"{tuple(allowed_mask.shape)}")
+        # the kernel reads the mask's bytes in place, nonzero = allowed
+        if allowed_mask.dtype not in (torch.bool, torch.int8, torch.uint8):
+            raise ValueError(f"allowed_mask must be bool, int8 or uint8, "
+                             f"got {allowed_mask.dtype}")
+        if not allowed_mask.is_contiguous():
+            raise ValueError("allowed_mask must be contiguous")
+        allowed_mask = allowed_mask.view(torch.int8)
     valid = w.shape[0] if valid_vocab is None else valid_vocab
     lib = _lib()
     if plan.block_rows == TOPK_ROWS:
         return _rows_top1(lib, h, w, valid, col_offset, logit_softcap)
-    return _decode(lib, h, w, k, valid, col_offset, logit_softcap)
+    return _decode(lib, h, w, k, valid, col_offset, logit_softcap,
+                   allowed_mask, return_lse)
 
 
-def _decode(lib, h, w, k, valid, col_offset, logit_softcap):
+def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
+            return_lse=False):
     """The decode kernel and its merge on its own plan, through
-    (B, slices, k) int64 scratch: (values (B, k) f32, ids (B, k) i32)."""
+    (B, slices, k) int64 scratch (and (B, slices, 2) f32 for the lse):
+    (values (B, k) f32, ids (B, k) i32[, lse (B,) f32])."""
     n, d = h.shape
     v = w.shape[0]
     sp = topk_stream_plan(n, v, k)
@@ -223,16 +254,25 @@ def _decode(lib, h, w, k, valid, col_offset, logit_softcap):
     pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+    pl = lse = None
+    if return_lse:
+        pl = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
+        lse = torch.empty((n,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.sample_topk_launch(
             h.data_ptr(), w.data_ptr(), pk.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), n, d, v, int(valid), int(col_offset), k,
             int(logit_softcap is not None), float(logit_softcap or 0.0),
+            None if mask is None else mask.data_ptr(),
+            None if pl is None else pl.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("sample_topk launch failed: "
                            + lib.sample_topk_error_string(err).decode())
     LAUNCHES.inc()
+    if return_lse:
+        return vals, ids, lse
     return vals, ids
 
 

@@ -5,7 +5,8 @@ callers may pick the kernel with an explicit `BlockPlan`; when they
 don't, k = 1 over at least `TOPK_ROWS_MIN` rows takes the many-row plan
 (`topk_rows_plan`, the GEMM-shaped kernel) and every other call the
 decode kernel's own plan (`topk_decode_plan`: row tiles, vocab slices
-and ring stages of the shared W stream).  Sampling is not
+and ring stages of the shared W stream), as does any call with an
+`allowed_mask` or ``return_lse``, which only the decode kernel takes.  Sampling is not
 differentiated through, so there is no autograd wrapper.
 """
 
@@ -36,17 +37,20 @@ def cuda_topk(
     """Top-k (values, global ids) of ``h @ w.T`` per row, logits-free on
     the card; CPU tensors take the plain version (`K.topk_scores_ref`)."""
     if plan is None:
-        plan = default_plan(h.shape[0], w.shape[0], k)
+        plan = default_plan(h.shape[0], w.shape[0], k,
+                            masked=allowed_mask is not None, lse=return_lse)
     return K.topk_scores(h, w, k, valid_vocab=valid_vocab,
                          logit_softcap=logit_softcap, plan=plan,
                          col_offset=col_offset, w_scale=w_scale,
                          allowed_mask=allowed_mask, return_lse=return_lse)
 
 
-def default_plan(n_rows: int, vocab: int, k: int) -> BlockPlan:
+def default_plan(n_rows: int, vocab: int, k: int, *, masked: bool = False,
+                 lse: bool = False) -> BlockPlan:
     """The plan `cuda_topk` takes when none is given: the many-row plan
-    for k = 1 from `TOPK_ROWS_MIN` rows on, else the decode plan.  d is
-    not an input of either: both stream 64 k columns a ring stage."""
-    if k == 1 and n_rows >= TOPK_ROWS_MIN:
+    for k = 1 from `TOPK_ROWS_MIN` rows on without a mask or the lse,
+    else the decode plan.  d is not an input of either: both stream 64 k
+    columns a ring stage."""
+    if k == 1 and n_rows >= TOPK_ROWS_MIN and not (masked or lse):
         return topk_rows_plan()
     return topk_decode_plan(n_rows, vocab, k)

@@ -24,13 +24,10 @@
 // memory independent of d, ~132 CTAs each walking a vocab slice), with
 // this epilogue on each 128-column tile:
 //   * the softcap, 1/T and validity are applied in f32 on the CUDA cores,
-//     and each row's online (m, a) is kept there too: the tensor cores
-//     only form the dot products (no softmax sum is ever accumulated on
-//     them: they truncate small addends).  A warp's 16 columns of a row
-//     reduce by a max butterfly, then a sum butterfly of exp(z - max),
-//     and one lane of the 8 that share the row folds the result into the
-//     row's running state (the lane whose index g is the row's j mod 8, so
-//     the state takes R / 16 registers a thread, not R / 2);
+//     and each row's online (m, a) is kept there too, by the fold this
+//     kernel shares with sample_topk's return_lse (wstream::RowStates:
+//     butterflies over a warp's 16 columns of a row, one lane of the 8
+//     that share the row keeping its state);
 //   * candidates: the ids of the CTA's rows that fall in its slice are
 //     listed in shared memory first (16-bit index, 16-bit column), and the
 //     one thread that holds such a logit in its fragment writes it to zc.
@@ -38,8 +35,8 @@
 //     of every id no slice owns, so each output is written once;
 //   * at the end of the slice the 8 consumer warps' states of a row merge
 //     in warp order; a second small kernel merges the slices in a fixed
-//     order.  No float atomics: two calls on the same inputs agree bit for
-//     bit.
+//     order (wstream::slices_lse).  No float atomics: two calls on the
+//     same inputs agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,15 +67,6 @@ __host__ __device__ inline wstream::Plan plan(int rows, int v, int n_cand) {
   return p;
 }
 
-// Merge the online-softmax state (om, oa) into (m, a).
-__device__ __forceinline__ void merge_state(float& m, float& a, float om,
-                                            float oa) {
-  const float mn = fmaxf(m, om);
-  const float safe = (mn == -INFINITY) ? 0.f : mn;
-  a = a * expf(m - safe) + oa * expf(om - safe);
-  m = mn;
-}
-
 // grid (row_tiles, slices), kThreads threads, plan(...).smem bytes.  Writes
 // each row's (m, a) over its slice to part[(row * n_split + split) * 2 ...]
 // and the logits of the candidates the slice owns to zc.
@@ -94,10 +82,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   __shared__ int n_own;
   wstream::Ring<N> ring;
-  float* red_m = reinterpret_cast<float*>(
-      wstream::ring_init(ring, smem_raw, stages));
-  float* red_a = red_m + kWarps * N;
-  int* own = reinterpret_cast<int*>(red_a + kWarps * N);
+  float* red = reinterpret_cast<float*>(
+      wstream::ring_init(ring, smem_raw, stages));   // 2 x kWarps x N
+  int* own = reinterpret_cast<int*>(red + 2 * kWarps * N);
 
   const int row0 = blockIdx.x * N;
   const int split = blockIdx.y;
@@ -134,15 +121,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t = lane & 3;
   const int col_lo = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // + 8 i
   constexpr int NJ = N / 8;
-  constexpr int JS = (NJ + 7) / 8;    // row states a lane keeps, per c
-  float sm[JS][2], sa[JS][2];
-#pragma unroll
-  for (int q = 0; q < JS; ++q)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      sm[q][c] = -INFINITY;
-      sa[q][c] = 0.f;
-    }
+  wstream::RowStates<N> st;
+  st.init();
 
   float acc[N / 2];
   int s = 0;
@@ -156,26 +136,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < N / 2; ++i) {
       float z = acc[i];
       if (has_cap) z = cap * tanhf(z / cap);
-      acc[i] = z * inv_temp;
+      acc[i] = ((i >> 1) & 1 ? live1 : live0) ? z * inv_temp : -INFINITY;
     }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float z0 = acc[4 * j + c];
-        const float z1 = acc[4 * j + 2 + c];
-        float mx = fmaxf(live0 ? z0 : -INFINITY, live1 ? z1 : -INFINITY);
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float safe = mx == -INFINITY ? 0.f : mx;
-        float sum = (live0 ? expf(z0 - safe) : 0.f) +
-                    (live1 ? expf(z1 - safe) : 0.f);
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if ((j & 7) == g) merge_state(sm[j >> 3][c], sa[j >> 3][c], mx, sum);
-      }
+    st.fold(acc, g);
     // candidate logits held by this tile's fragment
     const int tl = tile - t_begin;
     for (int e = 0; e < nown; ++e) {
@@ -201,24 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // the 8 warps' states of each row, then a fixed warp order
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      if ((j & 7) == g) {
-        const int n = 8 * j + 2 * t + c;
-        red_m[warp * N + n] = sm[j >> 3][c];
-        red_a[warp * N + n] = sa[j >> 3][c];
-      }
-  hopper::bar_sync(1, kConsumers);
-  if (tid < N && row0 + tid < rows) {
-    float mm = -INFINITY, aa = 0.f;
-    for (int wp = 0; wp < kWarps; ++wp)
-      merge_state(mm, aa, red_m[wp * N + tid], red_a[wp * N + tid]);
-    float* out = part + ((size_t)(row0 + tid) * n_split + split) * 2;
-    out[0] = mm;
-    out[1] = aa;
-  }
+  st.store(red, part, row0, rows, n_split, split);
 }
 
 // grid (ceil(rows / kMergeWarps)), one warp a row: lse from the row's
@@ -233,17 +179,9 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kMergeWarps + warp;
   if (row >= rows) return;
-  const float* pr = part + (size_t)row * n_split * 2;
-  float m = -INFINITY, a = 0.f;
-  for (int s = lane; s < n_split; s += 32)
-    merge_state(m, a, pr[2 * s], pr[2 * s + 1]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, m, off);
-    const float oa = __shfl_xor_sync(0xffffffffu, a, off);
-    merge_state(m, a, om, oa);
-  }
-  if (lane == 0) lse[row] = m + logf(a);
+  const float l =
+      wstream::slices_lse(part + (size_t)row * n_split * 2, n_split, lane);
+  if (lane == 0) lse[row] = l;
   for (int p = lane; p < n_cand; p += 32) {
     const int id = ids[(size_t)row * n_cand + p];
     const long long local = (long long)id - col_offset;

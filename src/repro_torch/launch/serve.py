@@ -6,6 +6,7 @@
          [--no-prefix-cache]] [--temperature 0.7] \
         [--spec-self [--mtp-heads N] | --spec-draft self|<arch-id>] \
         [--spec-k 4] [--mode eval [--eval-conts 4] [--cont-len 8]] \
+        [--beams N | --best-of N [--best-of-temp T] | --grammar-mask SPEC] \
         [--stats-json [PATH]]
 
 ``--paged`` serves from the block-pool KV cache with shared-prefix reuse
@@ -21,7 +22,13 @@ config).  Each step emits up to ``--spec-k`` + 1 tokens; at a temperature
 above 0 every step scores the drafts through the `score_tokens` kernel.
 ``--mode eval`` scores ``--eval-conts`` seeded continuations of
 ``--cont-len`` tokens per prompt (`submit_eval`, loglikelihood eval
-through `score_tokens`) instead of generating.  ``--stats-json`` dumps
+through `score_tokens`) instead of generating.  ``--beams N`` serves
+each prompt as a beam search of width N and ``--best-of N`` as N samples
+at ``--best-of-temp`` ranked by logprob (`submit_beam`,
+`submit_best_of`: every step one `sample_topk` launch with its lse; beams
+fork copy-on-write with ``--paged``); ``--grammar-mask SPEC`` constrains
+every token to an allowed set (``3,7,42``, ``range:lo-hi``, ``even``,
+``odd``) that streams through `sample_topk` as its mask.  ``--stats-json`` dumps
 the scheduler's report (TTFT, tokens per step, acceptance rate) as JSON
 to PATH, or to stdout without one.
 
@@ -46,7 +53,7 @@ from repro_torch.models.registry import get_arch, init_params
 from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
                                PagedSelfSpecEngine, SelfSpecEngine,
                                ServeConfig, SpecConfig, SpecEngine,
-                               resolve_device)
+                               parse_mask_spec, resolve_device)
 
 
 def main(argv=None):
@@ -99,6 +106,17 @@ def main(argv=None):
                     help="eval mode: continuations per prompt")
     ap.add_argument("--cont-len", type=int, default=8,
                     help="eval mode: tokens per continuation")
+    ap.add_argument("--beams", type=int, default=0,
+                    help="beam search width per request (COW slot forks "
+                         "on --paged; 0: plain greedy/sampled decode)")
+    ap.add_argument("--best-of", type=int, default=0,
+                    help="best-of-n sampling width per request")
+    ap.add_argument("--best-of-temp", type=float, default=1.0,
+                    help="best-of-n sampling temperature")
+    ap.add_argument("--grammar-mask", default=None, metavar="SPEC",
+                    help="constrained decoding: allowed-token spec "
+                         "('3,7,42' | 'range:lo-hi' | 'even' | 'odd'); "
+                         "disallowed tokens can never be sampled")
     ap.add_argument("--stats-json", nargs="?", const="-", default=None,
                     metavar="PATH",
                     help="dump the scheduler stats report as JSON (to "
@@ -110,9 +128,18 @@ def main(argv=None):
     if args.paged and args.spec_draft:
         ap.error("--paged supports plain and --spec-self decoding; the "
                  "sidecar draft engine keeps its dense slabs")
-    if args.mode == "eval" and (args.spec_draft or args.spec_self):
-        ap.error("--mode eval needs the plain one-token engines (no "
-                 "--spec-*)")
+    modes_used = (args.mode == "eval" or args.beams or args.best_of
+                  or args.grammar_mask)
+    if modes_used and (args.spec_draft or args.spec_self):
+        ap.error("--mode eval / --beams / --best-of / --grammar-mask "
+                 "need the plain one-token engines (no --spec-*)")
+    if args.beams and args.best_of:
+        ap.error("--beams and --best-of are mutually exclusive")
+    if (args.beams or args.best_of) and args.temperature != 0.0:
+        ap.error("--beams/--best-of require --temperature 0 (best-of "
+                 "sampling temperature is --best-of-temp)")
+    if args.grammar_mask and (args.beams or args.best_of):
+        ap.error("--grammar-mask cannot combine with --beams/--best-of")
     device = resolve_device(args.device)
     arch = get_arch(args.arch, reduced=args.reduced)
     if args.mtp_heads or args.spec_self:
@@ -166,8 +193,22 @@ def main(argv=None):
                               ).astype(np.int32) for _ in prompts]
         rids = [sched.submit_eval(p, list(c))
                 for p, c in zip(prompts, conts)]
+    elif args.beams:
+        mode = f"beam{args.beams}+" + mode
+        rids = [sched.submit_beam(p, n_beams=args.beams) for p in prompts]
+    elif args.best_of:
+        mode = f"best_of{args.best_of}+" + mode
+        rids = [sched.submit_best_of(p, n=args.best_of,
+                                     temperature=args.best_of_temp,
+                                     top_p=args.top_p, seed=args.seed + i)
+                for i, p in enumerate(prompts)]
     else:
-        rids = [sched.submit(p) for p in prompts]
+        mask = None
+        if args.grammar_mask:
+            mask = parse_mask_spec(args.grammar_mask,
+                                   arch.vocab_size).astype(bool)
+            mode = "constrained+" + mode
+        rids = [sched.submit(p, token_mask=mask) for p in prompts]
     results = sched.run()
     dt = time.perf_counter() - t0
     if args.mode == "eval":
@@ -195,6 +236,11 @@ def main(argv=None):
         out = np.stack([np.pad(np.asarray(results[r], np.int32),
                                (0, args.max_new - len(results[r])))
                         for r in rids])
+    if args.beams or args.best_of:
+        hyp = sched.hypotheses[rids[0]]
+        print(f"[serve] group[0]: {len(hyp)} hypotheses, best logp "
+              f"{hyp[0].logp:.3f}, forks {sched.group_forks}, "
+              f"pruned {sched.group_pruned}")
     if args.paged:
         ps = eng.paged_stats()
         pre = ps.get("prefix", {})

@@ -20,18 +20,25 @@ updates are in place.  Free slots still run the batched decode (their
 outputs are discarded and their caches overwritten at the next prefill);
 their lengths grow past ``max_len`` and every cache write clamps.
 
-`score_in_slot` is the loglikelihood-eval primitive (the JAX package's
-`Engine.score_in_slot` with the forward-and-gather of its
-`ModeFns.eval_score`, which lives here in `_eval_logp`: the port has no
-`serve/modes.py` until the other request modes, ROADMAP A5): one
-batch=1 prefill over prompt + continuation whose hidden states at the
-continuation's positions go through the `score_tokens` kernel.
+The request modes (`serve/modes.py`) run on four more primitives, the
+bodies of the JAX package's jitted `ModeFns` closures as plain methods:
+
+  * `score_in_slot`, the loglikelihood-eval primitive: one batch=1
+    prefill over prompt + continuation whose hidden states at the
+    continuation's positions go through the `score_tokens` kernel;
+  * `decode_topk_step` / `prefill_topk_into_slot`, a step or a prefill
+    that returns each row's top-k candidates and its lse from ONE
+    `sample_topk` launch (``return_lse``) instead of a token, for beam
+    and best-of groups; `fork_slot` copies a slot's cache row;
+  * `set_slot_mask`, a per-slot allowed-token set that every prefill and
+    decode of that slot streams through `sample_topk` as its
+    ``allowed_mask`` (constrained decoding).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -79,16 +86,17 @@ def resolve_device(device) -> torch.device:
 
 def make_sampler(arch: Arch, sc: ServeConfig):
     """Streaming-sampler closure over the arch's softcap and the serve
-    knobs: ``sample(h2, w, temperature, generator) -> (N,) int32``.  The
-    temperature stays a call-site argument: the speculative engines draw
-    drafts at the draft temperature and verify picks at the target's
-    through the same closure."""
-    def sample(h2, w, temperature, generator):
+    knobs: ``sample(h2, w, temperature, generator[, allowed_mask]) ->
+    (N,) int32``.  The temperature stays a call-site argument: the
+    speculative engines draw drafts at the draft temperature and verify
+    picks at the target's through the same closure."""
+    def sample(h2, w, temperature, generator, allowed_mask=None):
         return sample_tokens(h2.contiguous(), w, generator=generator,
                              temperature=temperature, top_k=sc.top_k,
                              top_p=sc.top_p, valid_vocab=arch.vocab_size,
                              logit_softcap=arch.cfg.logit_softcap,
-                             impl=sc.sampler_impl)
+                             impl=sc.sampler_impl,
+                             allowed_mask=allowed_mask)
 
     return sample
 
@@ -105,7 +113,9 @@ class Engine:
     """Slot-level serving engine over the model registry (one batched
     cache tree; rows are independently prefilled/recycled slots)."""
 
-    supports_modes = True      # eval scoring (the speculative engines: no)
+    # the request modes (eval scoring, beam / best-of groups, constrained
+    # masks) need the one-token decode; the speculative engines say no
+    supports_modes = True
 
     def __init__(self, arch: Arch, params, sc: ServeConfig,
                  device="cuda"):
@@ -129,6 +139,9 @@ class Engine:
             "engine.prefill_tokens_total",
             "prompt tokens prefilled (bucket pad included)")
         self._m_decode_steps = _reg.counter("engine.decode_steps_total")
+        # constrained decoding: each masked slot's (vocab_size,) int8
+        # allowed set
+        self._slot_masks: Dict[int, np.ndarray] = {}
         self.reset()
 
     # -- lifecycle ----------------------------------------------------------
@@ -149,10 +162,12 @@ class Engine:
         self.cur = np.zeros((self.sc.batch_size,), np.int32)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        self._slot_masks.clear()
 
-    def _sample(self, h2: torch.Tensor) -> torch.Tensor:
+    def _sample(self, h2: torch.Tensor,
+                allowed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self._sampler(h2, self.params["lm_head"],
-                             self.sc.temperature, self._gen)
+                             self.sc.temperature, self._gen, allowed_mask)
 
     # -- slot operations ----------------------------------------------------
 
@@ -222,11 +237,15 @@ class Engine:
             slot, prompt)
         t_b = tokens.shape[1]
         ext = bool(ctx.get("ext"))
+        mask = None
+        if slot in self._slot_masks:
+            mask = torch.from_numpy(self._mask_row(slot)[None, :]).to(
+                self.device)
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext):
             h, slot_caches = self._prefill_forward(tokens, slot_caches,
                                                    true_len, ext)
-            tok = self._sample(h[:, true_len - 1, :])
+            tok = self._sample(h[:, true_len - 1, :], mask)
             self._commit_slot(slot, slot_caches, ctx)
             tok = int(tok[0].item())
         self._m_prefills.inc()
@@ -234,18 +253,28 @@ class Engine:
         self.cur[slot] = tok
         return tok
 
+    def _decode_forward(self) -> torch.Tensor:
+        """The batched one-token forward of a decode step over `cur`:
+        h (B, d) of the new positions."""
+        tokens = torch.from_numpy(self.cur[:, None].copy()).to(self.device)
+        h, _, self.caches = forward_hidden(self.arch, self.params,
+                                           {"tokens": tokens},
+                                           caches=self.caches)
+        return h[:, -1, :]
+
     @torch.no_grad()
     def decode_step(self) -> np.ndarray:
         """Advance every slot one token; returns (B,) sampled ids.
-        Rows of free slots are dead compute — callers ignore them."""
+        Rows of free slots are dead compute — callers ignore them.  When
+        any slot carries a constrained-decoding mask the whole batch
+        samples under the (B, V) mask matrix (unconstrained rows stream
+        all ones: the same tokens as no mask)."""
+        masked = bool(self._slot_masks)
         with self._tracer.span("engine.decode_step", cat="engine",
-                               masked=False):
-            tokens = torch.from_numpy(self.cur[:, None].copy()).to(
-                self.device)
-            h, _, self.caches = forward_hidden(self.arch, self.params,
-                                               {"tokens": tokens},
-                                               caches=self.caches)
-            toks = self._sample(h[:, -1, :]).cpu().numpy().astype(np.int32)
+                               masked=masked):
+            h2 = self._decode_forward()
+            mask = self._mask_matrix() if masked else None
+            toks = self._sample(h2, mask).cpu().numpy().astype(np.int32)
         self._m_decode_steps.inc()
         self.cur = toks.copy()
         return toks
@@ -261,20 +290,105 @@ class Engine:
         """Recycle a finished slot back to its pristine empty state."""
         reset_slot_caches(self.caches, self._template, slot)
         self.cur[slot] = 0
+        self._slot_masks.pop(slot, None)
 
-    # -- request modes: eval here, the others with ROADMAP A5 ----------------
+    # -- request modes (serve/modes.py) --------------------------------------
 
     def set_slot_mask(self, slot: int, allowed) -> None:
-        raise NotImplementedError("constrained decoding masks come with "
-                                  "ROADMAP A5")
+        """Constrain slot `slot` to an allowed-token set (None clears).
 
+        `allowed` is a (vocab_size,) BOOL mask or an integer id list;
+        disallowed tokens score -inf inside the sampling kernel's vocab
+        scan (`sample_topk` ``allowed_mask``), so they are never drawn at
+        any temperature or top-p.  The set must not be empty."""
+        if not self.supports_modes:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support per-slot token "
+                "masks (speculative drafting would need masked "
+                "verification): serve constrained requests on a "
+                "non-speculative engine")
+        if allowed is None:
+            self._slot_masks.pop(slot, None)
+            return
+        v = self.arch.vocab_size
+        a = np.asarray(allowed)
+        if a.dtype == np.bool_:
+            if a.shape != (v,):
+                raise ValueError(f"bool mask shape {a.shape} != ({v},)")
+            mask = a.astype(np.int8)
+        else:
+            from repro_torch.serve.modes import allowed_ids_mask
+            mask = allowed_ids_mask(a, v).astype(np.int8)
+        if not mask.any():
+            raise ValueError("empty allowed-token set")
+        self._slot_masks[slot] = mask
+
+    def _mask_row(self, slot: int) -> np.ndarray:
+        """The slot's mask padded to the lm_head's (possibly padded) vocab
+        width: pad columns stay 1, the kernel's validity clamp already
+        removes them."""
+        row = np.ones((self.params["lm_head"].shape[0],), np.int8)
+        row[:self.arch.vocab_size] = self._slot_masks[slot]
+        return row
+
+    def _mask_matrix(self) -> torch.Tensor:
+        """(B, V_head) int8 batch mask on the device: all-ones rows (the
+        same tokens as no mask) except the slots with a constraint."""
+        m = np.ones((self.sc.batch_size, self.params["lm_head"].shape[0]),
+                    np.int8)
+        for s in self._slot_masks:
+            m[s] = self._mask_row(s)
+        return torch.from_numpy(m).to(self.device)
+
+    def _topk_lse(self, h2: torch.Tensor, k: int):
+        """(vals (N, k), ids (N, k), lse (N,)) of one logits-free vocab
+        scan: `sample_topk` with ``return_lse`` (its plain version on CPU
+        tensors)."""
+        from repro_torch.kernels.sample_topk import cuda_topk
+        return cuda_topk(h2.contiguous(), self.params["lm_head"], k,
+                         valid_vocab=self.arch.vocab_size,
+                         logit_softcap=self.arch.cfg.logit_softcap,
+                         return_lse=True)
+
+    @torch.no_grad()
     def decode_topk_step(self, n_cand: int):
-        raise NotImplementedError("top-k decode steps (beam / best-of) "
-                                  "come with ROADMAP A5")
+        """Advance every slot one step, returning the top-`n_cand`
+        candidate scores instead of sampling: (vals (B, k) f32, idxs
+        (B, k) i32, lse (B,) f32), numpy; ``vals - lse[:, None]`` are the
+        candidates' log-probabilities, from ONE vocab scan.  Does NOT
+        update `self.cur`: the caller (a beam or best-of group) picks each
+        slot's next token."""
+        with self._tracer.span("engine.decode_step", cat="engine",
+                               topk=n_cand):
+            vals, idxs, lse = self._topk_lse(self._decode_forward(), n_cand)
+            vals = vals.cpu().numpy().astype(np.float32)
+            idxs = idxs.cpu().numpy().astype(np.int32)
+            lse = lse.cpu().numpy().astype(np.float32)
+        self._m_decode_steps.inc()
+        return vals, idxs, lse
 
+    @torch.no_grad()
     def prefill_topk_into_slot(self, slot: int, prompt, n_cand: int):
-        raise NotImplementedError("top-k prefills (beam / best-of) come "
-                                  "with ROADMAP A5")
+        """Prefill one prompt into `slot`, returning the first step's
+        top-`n_cand` candidates (vals (k,), idxs (k,), lse float) instead
+        of a sampled token: the admit half of a beam or best-of group.
+        Does NOT set ``self.cur[slot]``; the group does."""
+        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, prompt)
+        t_b = tokens.shape[1]
+        ext = bool(ctx.get("ext"))
+        with self._tracer.span("engine.prefill", cat="engine", slot=slot,
+                               tokens=t_b, ext=ext, topk=n_cand):
+            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+                                                   true_len, ext)
+            vals, idxs, lse = self._topk_lse(h[:, true_len - 1, :], n_cand)
+            self._commit_slot(slot, slot_caches, ctx)
+            vals = vals.cpu().numpy().astype(np.float32)[0]
+            idxs = idxs.cpu().numpy().astype(np.int32)[0]
+            lse = float(lse.cpu().numpy()[0])
+        self._m_prefills.inc()
+        self._m_prefill_tokens.inc(t_b)
+        return vals, idxs, lse
 
     def _eval_logp(self, hs: torch.Tensor, ids: torch.Tensor):
         """(N,) ``log p(ids | hs)`` under the full-vocab softmax through
@@ -326,8 +440,13 @@ class Engine:
         return logp[:len(cont)]
 
     def fork_slot(self, dst: int, src: int) -> None:
-        raise NotImplementedError("slot forks (beam / best-of) come with "
-                                  "ROADMAP A5")
+        """Duplicate slot `src`'s decode state into free slot `dst` (beam
+        and best-of forks): the slab engine copies the cache row;
+        `PagedEngine` overrides this with a `BlockPool.fork` refcount bump
+        of the chain (serve/paged.py)."""
+        insert_slot_caches(self.caches, take_slot_caches(self.caches, src),
+                           dst)
+        self.cur[dst] = self.cur[src]
 
     # -- fixed-batch convenience -------------------------------------------
 

@@ -19,11 +19,16 @@ per-slot KV slabs replaced by the `serve/kvpool` block pool:
     prefilled — a cache-extension forward over the shared prefix,
     padded so that shared + suffix is the cold prefill's bucket.
 
+Beam and best-of groups fork a slot with `fork_slot`: a `BlockPool.fork`
+refcount bump of the source's whole chain, so sibling beams share every
+block, prompt and generated, and no cache bytes move at fork time; the
+first append of a fork copies only the block it writes
+(`_make_writable`).
+
 `PagedSelfSpecEngine` self-speculates on the pool: before a step every
 live chain reserves room for the K+1 verify appends, after it the host
-lengths advance by each slot's emitted count.  Chain forks through beams
-(`fork_slot`) come with ROADMAP A5, int8 pools with A6 and the paged
-autotuner with A2 item 4.
+lengths advance by each slot's emitted count.  int8 pools come with
+ROADMAP A6 and the paged autotuner with A2 item 4.
 """
 
 from __future__ import annotations
@@ -146,8 +151,9 @@ class _PagedMixin:
                                "(reset_slot it first)")
         shared: List[int] = []
         if self.prefix is not None:
-            # `match_len` caps the trie match (eval scoring keeps the
-            # continuation in the suffix forward, ROADMAP A4)
+            # `match_len` caps the trie match: eval scoring keeps every
+            # scored position (the continuation and the token before it)
+            # in the suffix forward
             target = (prompt_np if match_len is None
                       else prompt_np[:match_len])
             with self._tracer.span("paged.prefix_match", cat="paged",
@@ -226,6 +232,33 @@ class _PagedMixin:
         toks, counts = super().decode_step_multi()
         self._advance(counts)
         return toks, counts
+
+    def decode_topk_step(self, n_cand: int):
+        self._reserve(1)
+        self._sync_tables()
+        out = super().decode_topk_step(n_cand)
+        self._advance(np.ones((self.sc.batch_size,), np.int64))
+        return out
+
+    # -- beam forking (copy-on-write chain shares) ---------------------------
+
+    def fork_slot(self, dst: int, src: int) -> None:
+        """Fork slot `src` into `dst` as a refcount bump on its whole
+        block chain (`BlockPool.fork`): the beams share every block,
+        prompt AND generated, until one writes, when `_make_writable`
+        copies only the block being appended to.  No cache bytes move at
+        fork time."""
+        if self._chains[dst]:
+            raise RuntimeError(f"fork into occupied slot {dst} "
+                               "(reset_slot it first)")
+        self._chains[dst] = self.pool.fork(self._chains[src])
+        self._host_len[dst] = self._host_len[src]
+        self._tables[dst, :] = self._tables[src, :]
+        self._tables_dirty = True
+        # the per-slot device leaves (the table row and the length) copy
+        # row src -> dst; the pools are shared, not copied
+        super().fork_slot(dst, src)
+        self._sync_tables()
 
     # -- recycling -----------------------------------------------------------
 

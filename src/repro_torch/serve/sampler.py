@@ -36,13 +36,18 @@ def streaming_topk(
     h: torch.Tensor, w: torch.Tensor, k: int, *,
     block_v: int = 8192, valid_vocab: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    allowed_mask: Optional[torch.Tensor] = None,
+    return_lse: bool = False,
 ):
     """Top-k of h @ w.T per row, streamed over vocab chunks.
 
     h: (B, d); w: (V, d).  Returns (values (B, k) f32, ids (B, k) i32).
-    The request-mode options of the JAX version (``w_scale``,
-    ``allowed_mask``, ``return_lse``) live in the plain reference
-    `topk_scores_ref` until their slices (ROADMAP A5, A6)."""
+    `allowed_mask` (B, V) restricts the candidates to its nonzero columns
+    (constrained decoding: the others score -inf before the merge);
+    ``return_lse=True`` appends the per-row logsumexp (B,) over the same
+    filtered logits, folded chunk by chunk as an online softmax.  The
+    quantized-head option of the JAX version (``w_scale``) comes with
+    ROADMAP A6."""
     b = h.shape[0]
     v = w.shape[0]
     valid = v if valid_vocab is None else valid_vocab
@@ -51,6 +56,8 @@ def streaming_topk(
     best_v = torch.full((b, k), _NEG_INF, dtype=torch.float32,
                         device=h.device)
     best_i = torch.zeros((b, k), dtype=torch.int64, device=h.device)
+    m = torch.full((b,), _NEG_INF, dtype=torch.float32, device=h.device)
+    a = torch.zeros((b,), dtype=torch.float32, device=h.device)
     for lo in range(0, v, bv):
         hi = min(lo + bv, v)
         z = h32 @ w[lo:hi].float().T                        # (B, chunk)
@@ -58,12 +65,22 @@ def streaming_topk(
             z = logit_softcap * torch.tanh(z / logit_softcap)
         col = torch.arange(lo, hi, device=h.device)
         z = torch.where((col < valid)[None, :], z, _NEG_INF)
+        if allowed_mask is not None:
+            z = torch.where(allowed_mask[:, lo:hi] != 0, z, _NEG_INF)
+        if return_lse:
+            m_new = torch.maximum(m, z.max(dim=1).values)
+            safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            a = (a * torch.exp(m - safe)
+                 + torch.exp(z - safe[:, None]).sum(dim=1))
+            m = m_new
         cv, ci = _stable_topk(z, min(k, hi - lo))
         # carried state holds lower ids than this chunk and comes first,
         # so the stable merge keeps lowest-id-first among equal values
         mv, sel = _stable_topk(torch.cat([best_v, cv], dim=1), k)
         best_i = torch.gather(torch.cat([best_i, col[ci]], dim=1), 1, sel)
         best_v = mv
+    if return_lse:
+        return best_v, best_i.to(torch.int32), m + torch.log(a)
     return best_v, best_i.to(torch.int32)
 
 
@@ -87,17 +104,23 @@ def sample_tokens(
     block_v: int = 8192, valid_vocab: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     impl: str = "kernel",
+    allowed_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Next-token ids (B,) int32 — greedy when temperature == 0.
 
     impl: 'kernel' (`cuda_topk`: the Hopper kernel on CUDA tensors, its
     plain version on CPU ones) or 'plain' (`streaming_topk`, CPU tensors
-    only).  `generator` drives the categorical draw at temperature > 0."""
+    only).  `generator` drives the categorical draw at temperature > 0.
+    `allowed_mask` (B, V) restricts each row to its nonzero columns
+    (constrained decoding): the others score -inf inside the vocab scan
+    and are never drawn at any temperature or top_p; an all-ones mask
+    gives the same tokens as none."""
     k = 1 if temperature == 0.0 else top_k
     if impl == "kernel":
         from repro_torch.kernels.sample_topk import cuda_topk
         vals, idxs = cuda_topk(h, w, k, valid_vocab=valid_vocab,
-                               logit_softcap=logit_softcap)
+                               logit_softcap=logit_softcap,
+                               allowed_mask=allowed_mask)
     elif impl == "plain":
         if h.device.type != "cpu":
             raise ValueError("the plain sampler serves CPU tensors only; "
@@ -105,7 +128,8 @@ def sample_tokens(
                              "(impl='kernel')")
         vals, idxs = streaming_topk(h, w, k, block_v=block_v,
                                     valid_vocab=valid_vocab,
-                                    logit_softcap=logit_softcap)
+                                    logit_softcap=logit_softcap,
+                                    allowed_mask=allowed_mask)
     else:
         raise ValueError(f"unknown sampler impl {impl!r}")
     if temperature == 0.0:

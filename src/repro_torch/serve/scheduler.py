@@ -18,12 +18,20 @@ raises.
 
 A speculative engine's step emits 1..K+1 tokens a slot
 (`decode_step_multi`); the scheduler counts drafted and accepted tokens
-(`acceptance_rate`, the ``spec.*`` counters).  Loglikelihood-eval
-requests (`submit_eval`) score their continuations synchronously at
-admission through `Engine.score_in_slot`, on the plain one-token engines
-only.  The metric and span names are the JAX package's.  Beam and
-best-of requests (`submit_beam`, `submit_best_of`) come with ROADMAP A5
-and raise until then.
+(`acceptance_rate`, the ``spec.*`` counters).  On the plain one-token
+engines it also serves the request modes of `serve/modes.py`:
+
+  * loglikelihood eval (`submit_eval`): the continuations are scored
+    synchronously at admission through `Engine.score_in_slot`;
+  * constrained requests (`submit` with ``token_mask`` or ``mask_fn``):
+    the slot's allowed set streams through the sampling kernel, and a
+    ``mask_fn`` recomputes it after every token;
+  * beam and best-of groups (`submit_beam`, `submit_best_of`): a group
+    waits at the queue head for n free slots, and while any group is live
+    one `Engine.decode_topk_step` (one `sample_topk` launch with its lse)
+    advances every busy slot; plain slots take the best candidate.
+
+The metric and span names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.kernels.sample_topk import MAX_K
+from repro_torch.serve import modes
 from repro_torch.serve.kvpool import PoolExhausted
 
 log = logging.getLogger("repro_torch.serve")
@@ -50,7 +60,9 @@ class Request:
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: Optional[int]
-    kind: str = "generate"          # | "eval"
+    kind: str = "generate"          # | "eval" | "beam" | "best_of"
+    token_mask: Optional[np.ndarray] = None   # constrained decoding
+    mask_fn: Optional[Callable[[List[int]], Any]] = None
     payload: Optional[Dict[str, Any]] = None  # kind-specific state
 
 
@@ -95,6 +107,13 @@ class ContinuousScheduler:
         self.spec_accepted = 0
         self.eval_requests = 0
         self.eval_tokens_scored = 0
+        # beam / best-of groups: the live groups by rid, their slots, and
+        # the finished hypothesis sets
+        self._groups: Dict[int, Any] = {}
+        self._group_slots: Dict[int, Any] = {}
+        self.hypotheses: Dict[int, List[Any]] = {}
+        self.group_forks = 0
+        self.group_pruned = 0
         self.tracer = obs.get_tracer()
         reg = obs.get_registry()
         self._m_qdepth = reg.gauge("serve.queue_depth",
@@ -124,14 +143,32 @@ class ContinuousScheduler:
         self._m_eval_tokens = reg.counter(
             "serve.eval_tokens_scored_total",
             "continuation tokens loglikelihood-scored")
+        self._m_groups = reg.counter("serve.beam_groups_total",
+                                     "beam/best-of groups admitted")
+        self._m_group_forks = reg.counter(
+            "serve.beam_forks_total", "slot forks for beam/best-of")
+        self._m_group_pruned = reg.counter(
+            "serve.beam_pruned_total", "beams pruned or retired early")
+        self._m_constrained = reg.counter(
+            "serve.constrained_tokens_total",
+            "tokens decoded under an allowed-token mask")
         self._exhausted_streak = 0
 
     # -- submission ---------------------------------------------------------
 
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
-               eos_id=_UNSET) -> int:
+               eos_id=_UNSET, token_mask=None,
+               mask_fn: Optional[Callable[[List[int]], Any]] = None
+               ) -> int:
         """Queue one request; returns its request id.  The submit time is
-        stamped here: `ttft` and `latency` include the queue wait."""
+        stamped here: `ttft` and `latency` include the queue wait.
+
+        `token_mask` constrains every sampled token to an allowed set (a
+        (vocab_size,) bool mask or an id list, `Engine.set_slot_mask`);
+        ``mask_fn(tokens_so_far) -> allowed`` recomputes the set after each
+        emission (grammar decoding: the grammar state advances with the
+        generated prefix).  The mask streams through the sampling kernel's
+        vocab scan, so a disallowed token is never drawn."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = (self.default_max_new if max_new_tokens is None
                    else max_new_tokens)
@@ -147,12 +184,20 @@ class ContinuousScheduler:
                 + (f" + spec margin ({margin})" if margin else "")
                 + f" exceeds the engine cache capacity "
                 f"max_len={self.engine.sc.max_len}")
+        if token_mask is not None or mask_fn is not None:
+            self._require_modes("constrained decoding")
+            if self._groups or any(r.kind in ("beam", "best_of")
+                                   for r in self.queue):
+                # group steps advance through the UNMASKED top-k decode
+                raise ValueError("constrained requests cannot run "
+                                 "alongside beam/best-of groups")
         rid = self._next_rid
         self._next_rid += 1
         self._submit_t[rid] = time.perf_counter()
         self.queue.append(Request(
             rid, prompt, max_new,
-            self.default_eos if eos_id is _UNSET else eos_id))
+            self.default_eos if eos_id is _UNSET else eos_id,
+            token_mask=token_mask, mask_fn=mask_fn))
         self._m_qdepth.set(len(self.queue))
         return rid
 
@@ -190,12 +235,76 @@ class ContinuousScheduler:
         self._m_qdepth.set(len(self.queue))
         return rid
 
-    def submit_beam(self, prompt, *, n_beams: int, **kw) -> int:
-        raise NotImplementedError("beam-search requests come with "
-                                  "ROADMAP A5")
+    def _submit_group(self, kind: str, prompt, n: int, payload,
+                      max_new_tokens, eos_id, k_cand: int) -> int:
+        self._require_modes(f"{kind} decoding")
+        if self.engine.sc.temperature != 0.0:
+            # plain requests sharing a tick with a group advance through
+            # the group's top-k step, which takes the best candidate
+            raise ValueError(
+                "beam/best-of groups require sc.temperature == 0.0 "
+                "(concurrent plain requests stay greedy); best-of "
+                "sampling temperature is per-request")
+        if self.engine._slot_masks or any(
+                r.token_mask is not None or r.mask_fn is not None
+                for r in self.queue):
+            raise ValueError("beam/best-of groups cannot run alongside "
+                             "constrained requests")
+        if not 1 <= n <= self.engine.batch_size:
+            raise ValueError(f"group width {n} outside "
+                             f"[1, {self.engine.batch_size}]")
+        if k_cand > MAX_K:
+            # refused on every device, before a slot is taken: the decode
+            # kernel keeps each row's running list as 64 keys
+            raise ValueError(
+                f"a {kind} group of width {n} scores {k_cand} candidates a "
+                f"row; the top-k kernel keeps at most {MAX_K} (k > 64 is "
+                "ROADMAP B3)")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        max_new = (self.default_max_new if max_new_tokens is None
+                   else max_new_tokens)
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new}")
+        if len(prompt) + max_new - 1 > self.engine.sc.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
+                f"max_len={self.engine.sc.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._submit_t[rid] = time.perf_counter()
+        self.queue.append(Request(
+            rid, prompt, max_new,
+            self.default_eos if eos_id is _UNSET else eos_id, kind=kind,
+            payload=dict(payload, n=n)))
+        self._m_qdepth.set(len(self.queue))
+        return rid
 
-    def submit_best_of(self, prompt, *, n: int, **kw) -> int:
-        raise NotImplementedError("best-of-n requests come with ROADMAP A5")
+    def submit_beam(self, prompt, *, n_beams: int,
+                    max_new_tokens: Optional[int] = None,
+                    eos_id=_UNSET) -> int:
+        """Queue one beam-search request (`modes.BeamGroup`): `n_beams`
+        sibling slots decode in the shared batch, forked copy-on-write on
+        paged engines.  ``results[rid]`` is the best hypothesis' tokens,
+        ``hypotheses[rid]`` the ranked top-n list.  A width above 32 would
+        score more than 64 candidates a row and raises (ROADMAP B3)."""
+        return self._submit_group("beam", prompt, n_beams, {},
+                                  max_new_tokens, eos_id,
+                                  1 if n_beams == 1 else 2 * n_beams)
+
+    def submit_best_of(self, prompt, *, n: int, temperature: float = 1.0,
+                       top_p: Optional[float] = None, seed: int = 0,
+                       max_new_tokens: Optional[int] = None,
+                       eos_id=_UNSET) -> int:
+        """Queue one best-of-n request (`modes.BestOfGroup`): n independent
+        samples at `temperature` from the engine's ``top_k`` survivors,
+        ranked by cumulative logprob.  ``results[rid]`` is the best
+        sample.  A ``top_k`` above 64 raises (ROADMAP B3)."""
+        k = max(1, int(self.engine.sc.top_k)) if temperature > 0.0 else 1
+        return self._submit_group(
+            "best_of", prompt, n,
+            {"temperature": temperature, "top_p": top_p, "seed": seed},
+            max_new_tokens, eos_id, k)
 
     # -- state machine ------------------------------------------------------
 
@@ -243,6 +352,13 @@ class ContinuousScheduler:
         done = (len(slot.tokens) >= slot.req.max_new_tokens
                 or (slot.req.eos_id is not None
                     and tok == slot.req.eos_id))
+        if slot.req.token_mask is not None or slot.req.mask_fn is not None:
+            self._m_constrained.inc()
+            if not done and slot.req.mask_fn is not None:
+                # advance the grammar: the allowed set of the NEXT token
+                # depends on everything generated so far
+                self.engine.set_slot_mask(
+                    idx, slot.req.mask_fn(list(slot.tokens)))
         if self.on_token is not None:
             self.on_token(slot.req.rid, tok, done)
         if done:
@@ -294,20 +410,27 @@ class ContinuousScheduler:
                              rid=req.rid, prompt_len=len(req.prompt))
 
     def _admit(self):
-        """Admit queued requests (strict FIFO) while a slot is free."""
+        """Admit queued requests (strict FIFO).  A generate or eval request
+        needs one free slot, a beam / best-of group its full width n: the
+        queue head waits until enough slots free up (no skip-ahead, so
+        wide groups cannot starve)."""
         while self.queue:
+            req = self.queue[0]
             free = [i for i, s in enumerate(self.slots) if s is None]
-            if not free:
+            need = (req.payload["n"] if req.kind in ("beam", "best_of")
+                    else 1)
+            if len(free) < need:
                 return
-            req = self.queue.popleft()
-            idx = free[0]
+            self.queue.popleft()
             t_admit = time.perf_counter()
             self.queue_wait[req.rid] = t_admit - self._submit_t[req.rid]
             try:
                 if req.kind == "eval":
-                    self._run_eval(req, idx)
+                    self._run_eval(req, free[0])
+                elif req.kind == "generate":
+                    first = self._prefill_generate(req, free[0])
                 else:
-                    first = self.engine.prefill_into_slot(idx, req.prompt)
+                    group, used = self._prefill_group(req, free[:need])
             except PoolExhausted:
                 self._requeue_exhausted(req)
                 return
@@ -315,9 +438,68 @@ class ContinuousScheduler:
             if req.kind == "eval":
                 self._finish_request(req.rid, conts=len(
                     req.payload["conts"]))
+            elif req.kind == "generate":
+                self.slots[free[0]] = _Slot(req, [])
+                self._token_arrived(free[0], first)
             else:
-                self.slots[idx] = _Slot(req, [])
-                self._token_arrived(idx, first)
+                self._admit_group(group, used)
+
+    def _prefill_generate(self, req: Request, idx: int) -> int:
+        """A generate request's prefill (under its mask, if it has one);
+        returns the first token.  A failed prefill clears the mask."""
+        masked = req.token_mask is not None or req.mask_fn is not None
+        if masked:
+            self.engine.set_slot_mask(
+                idx, req.token_mask if req.token_mask is not None
+                else req.mask_fn([]))
+        try:
+            return self.engine.prefill_into_slot(idx, req.prompt)
+        except BaseException:
+            if masked:
+                self.engine.set_slot_mask(idx, None)
+            raise
+
+    def _prefill_group(self, req: Request, slots: List[int]):
+        """A group's admission: prefill into ``slots[0]`` and fork its first
+        candidates (`modes.BeamGroup` / `BestOfGroup` ``admit``); returns
+        the group and the slots it took."""
+        p = req.payload
+        if req.kind == "beam":
+            g = modes.BeamGroup(req.rid, req.prompt, p["n"],
+                                req.max_new_tokens, req.eos_id)
+        else:
+            g = modes.BestOfGroup(req.rid, req.prompt, p["n"],
+                                  req.max_new_tokens, req.eos_id,
+                                  temperature=p["temperature"],
+                                  top_k=self.engine.sc.top_k,
+                                  top_p=p["top_p"], seed=p["seed"])
+        g.req = req
+        return g, g.admit(self.engine, slots)
+
+    def _admit_group(self, g, used: List[int]):
+        for s in used:
+            self.slots[s] = _Slot(g.req, [])
+            self._group_slots[s] = g
+        self._m_groups.inc()
+        if g.done:
+            self._finalize_group(g)
+        else:
+            self._groups[g.rid] = g
+
+    def _finalize_group(self, g):
+        """Record a finished group: the best hypothesis under `results`,
+        the ranked top n under `hypotheses`."""
+        hyps = g.result()
+        self.hypotheses[g.rid] = hyps
+        best = hyps[0].tokens if hyps else []
+        self.results[g.rid] = np.asarray(best, np.int32)
+        self.group_forks += g.forks
+        self.group_pruned += g.pruned
+        self._m_group_forks.inc(g.forks)
+        self._m_group_pruned.inc(g.pruned)
+        self._groups.pop(g.rid, None)
+        self._finish_request(g.rid, kind=g.kind, beams=g.n,
+                             tokens=len(best))
 
     def _run_eval(self, req: Request, idx: int):
         """Score every continuation of an eval request through slot `idx`,
@@ -353,6 +535,8 @@ class ContinuousScheduler:
         self._m_active.set(len(busy))
         if not busy:
             return 0
+        if self._groups:
+            return self._step_with_groups(busy)
         with self.tracer.span("sched.decode_step", cat="sched",
                               step=self.decode_steps, busy=len(busy)):
             toks, counts = self.engine.decode_step_multi()
@@ -371,6 +555,52 @@ class ContinuousScheduler:
                 self.spec_accepted += n - 1   # the bonus token is no draft
                 self._m_drafted.inc(spec_k)
                 self._m_accepted.inc(n - 1)
+        step_toks = self.tokens_emitted - emitted0
+        self._m_tokens.inc(step_toks)
+        self._m_tps.observe(step_toks / len(busy))
+        return len(busy)
+
+    def _step_with_groups(self, busy: List[int]) -> int:
+        """One tick while beam / best-of groups are live: a single
+        `decode_topk_step` advances EVERY busy slot (one vocab scan a row,
+        its lse giving the candidates' logprobs).  Plain slots take the
+        best candidate, the token their greedy decode gives; group slots
+        hand their rows to the group's host-side selection (fork and
+        prune through claim / release)."""
+        k = max(g.k_cand for g in self._groups.values())
+        with self.tracer.span("sched.decode_step", cat="sched",
+                              step=self.decode_steps, busy=len(busy),
+                              groups=len(self._groups)):
+            vals, idxs, lse = self.engine.decode_topk_step(k)
+        self.decode_steps += 1
+        self.slot_busy_steps += len(busy)
+        emitted0 = self.tokens_emitted
+        for idx in busy:
+            if idx in self._group_slots or self.slots[idx] is None:
+                continue
+            tok = int(idxs[idx, 0])
+            self.engine.cur[idx] = tok
+            self.tokens_emitted += 1
+            self._token_arrived(idx, tok)
+
+        for g in list(self._groups.values()):
+            def claim(g=g):
+                for i, s in enumerate(self.slots):
+                    if s is None:
+                        self.slots[i] = _Slot(g.req, [])
+                        self._group_slots[i] = g
+                        return i
+                return None
+
+            def release(s):
+                self.slots[s] = None
+                self._group_slots.pop(s, None)
+                self.engine.reset_slot(s)
+
+            self.tokens_emitted += g.step(self.engine, vals, idxs, lse,
+                                          claim, release)
+            if g.done:
+                self._finalize_group(g)
         step_toks = self.tokens_emitted - emitted0
         self._m_tokens.inc(step_toks)
         self._m_tps.observe(step_toks / len(busy))
@@ -425,9 +655,14 @@ class ContinuousScheduler:
             "queue_wait_s": _summ(self.queue_wait),
             "tpot_s": _summ(self.tpot),
         }
-        if self.eval_requests:
-            out["modes"] = {"eval_requests": self.eval_requests,
-                            "eval_tokens_scored": self.eval_tokens_scored}
+        if self.eval_requests or self.hypotheses:
+            out["modes"] = {
+                "eval_requests": self.eval_requests,
+                "eval_tokens_scored": self.eval_tokens_scored,
+                "group_requests": len(self.hypotheses),
+                "group_forks": self.group_forks,
+                "group_pruned": self.group_pruned,
+            }
         paged = getattr(self.engine, "paged_stats", None)
         if paged is not None:
             out["paged"] = paged()

@@ -68,23 +68,111 @@ def test_kernel_matches_plain_version(cuda, rows, k, cap, ties):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_support(cuda):
-    """Options off the serving path raise on the card (never a quiet
-    trip through the plain version), and so does k above the limit."""
+    """The quantized head's `w_scale` raises on the card naming ROADMAP
+    A6 (never a quiet trip through the plain version), and so do k above
+    the limit, another dtype, a mask of the wrong shape and one of a
+    dtype the kernel does not read in place."""
     from repro_torch.kernels.sample_topk import MAX_K, LAUNCHES, cuda_topk
     h = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((1024, 128), dtype=torch.bfloat16, device=cuda)
     before = LAUNCHES.count
-    for kw in (dict(return_lse=True),
-               dict(allowed_mask=torch.ones((2, 1024), dtype=torch.int8,
-                                            device=cuda)),
-               dict(w_scale=torch.ones((1024,), device=cuda))):
-        with pytest.raises(NotImplementedError):
-            cuda_topk(h, w, 4, **kw)
+    with pytest.raises(NotImplementedError, match="A6"):
+        cuda_topk(h, w, 4, w_scale=torch.ones((1024,), device=cuda))
     with pytest.raises(ValueError):
         cuda_topk(h, w, MAX_K + 1)
     with pytest.raises(ValueError):
         cuda_topk(h.float(), w.float(), 4)
+    with pytest.raises(ValueError, match="allowed_mask"):
+        cuda_topk(h, w, 4, allowed_mask=torch.ones((2, 1000),
+                                                   device=cuda))
+    with pytest.raises(ValueError, match="allowed_mask"):
+        cuda_topk(h, w, 4, allowed_mask=torch.ones((2, 1024),
+                                                   device=cuda))
     assert LAUNCHES.count == before
+
+
+def _topk_mask(cuda, rows, v, seed):
+    """A half-zero mask with a singleton row (column 7) and an all-zero
+    row (the last)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mask = (torch.rand((rows, v), generator=gen, device=cuda) < 0.5).to(
+        torch.int8)
+    if rows > 1:
+        mask[0] = 0
+        mask[0, 7] = 1
+        mask[-1] = 0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,cap", [
+    (8, 1, None), (8, 8, None), (1, 40, 30.0), (40, 40, None),
+    (130, 1, None), (200, 64, None)])
+def test_topk_mask_and_lse_match_plain_version(cuda, rows, k, cap):
+    """`allowed_mask` and `return_lse` on the decode kernel against the
+    plain version: values rtol 1e-5 / atol 1e-4, ids exact wherever the
+    values are apart, lse at the values' tolerance, -inf exactly where
+    the plain version has it (the all-zero row's lse and values), every
+    id allowed; one decode launch, also at >= 128 rows and k = 1."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
+                                                 cuda_topk, topk_scores_ref)
+    gen = torch.Generator(device=cuda).manual_seed(rows + k)
+    v, d, valid = 20_000, 256, 19_900
+    h = torch.randn((rows, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda) * 0.3).bfloat16()
+    mask = _topk_mask(cuda, rows, v, seed=rows)
+    kw = dict(valid_vocab=valid, logit_softcap=cap)
+    before = (LAUNCHES.count, ROWS_LAUNCHES.count)
+    vals, ids, lse = cuda_topk(h, w, k, allowed_mask=mask, return_lse=True,
+                               **kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES.count, ROWS_LAUNCHES.count) == (before[0] + 1,
+                                                     before[1])
+    rv, ri, rl = topk_scores_ref(h, w, k, allowed_mask=mask,
+                                 return_lse=True, **kw)
+    vals, ids, lse, rv, ri, rl, m = (t.cpu().numpy() for t in (
+        vals, ids, lse, rv, ri, rl, mask))
+    fin = np.isfinite(rv)
+    assert np.array_equal(fin, np.isfinite(vals))
+    np.testing.assert_allclose(vals[fin], rv[fin], rtol=1e-5, atol=1e-4)
+    sep = fin.copy()
+    gap = np.abs(np.diff(rv, axis=1)) > 1e-4
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+    assert m[np.nonzero(fin)[0], ids[fin]].all()
+    assert np.array_equal(np.isfinite(lse), np.isfinite(rl))
+    np.testing.assert_allclose(lse[np.isfinite(rl)], rl[np.isfinite(rl)],
+                               rtol=1e-5, atol=1e-4)
+    if rows > 1:
+        assert np.isneginf(lse[-1]) and np.isneginf(vals[-1]).all()
+        assert ids[0, 0] == 7 and (k == 1 or np.isneginf(vals[0, 1:]).all())
+        assert np.isclose(lse[0], vals[0, 0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k", [(8, 1), (8, 8), (40, 40)])
+def test_topk_all_ones_mask_and_lse_keep_the_bits(cuda, rows, k):
+    """An all-ones mask gives the bits of no mask, and asking for the lse
+    changes neither values nor ids; the lse alone matches the plain
+    version's, and a second call repeats it bit for bit."""
+    from repro_torch.kernels.sample_topk import cuda_topk, topk_scores_ref
+    gen = torch.Generator(device=cuda).manual_seed(7 * rows + k)
+    v, d = 152_064, 1024
+    h = torch.randn((rows, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda) / 32).bfloat16()
+    kw = dict(valid_vocab=151_936)
+    plain = cuda_topk(h, w, k, **kw)
+    ones = torch.ones((rows, v), dtype=torch.int8, device=cuda)
+    masked = cuda_topk(h, w, k, allowed_mask=ones, **kw)
+    with_lse = cuda_topk(h, w, k, allowed_mask=ones, return_lse=True, **kw)
+    again = cuda_topk(h, w, k, return_lse=True, **kw)
+    for got in (masked, with_lse, again):
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                             plain[1])
+    assert torch.equal(with_lse[2], again[2])
+    rl = topk_scores_ref(h, w, k, return_lse=True, **kw)[2]
+    torch.testing.assert_close(with_lse[2], rl, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -516,6 +604,47 @@ def test_grad_filtered_allfalse_is_the_exact_kernel_and_repeats(cuda, d,
     again = grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
     want = grads(h, w, y, lse, gamma, gamma, cfg)
     assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", _GRADS)
+def test_filtered_grads_split_past_the_tile_list(cuda, which):
+    """Filtered dH over V > 389,120 columns and filtered dW over more than
+    389,120 rows (d 64): past the kernels' 6080-tile list the wrapper
+    launches over two slices of the streamed axis.  Under an all-False
+    mask the sum is held to the exact kernel's one launch, and under a
+    random mask to the plain version: rtol 3e-4 / atol 1e-6."""
+    from repro_torch.core import LossConfig
+    from repro_torch.core.windows import ce_tile_grid
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import dh_grads, dw_grads, ref_stats
+    from repro_torch.kernels.fused_ce.kernel import _lib
+    from repro_torch.kernels.fused_ce.ref import ref_dh, ref_dw
+    limit = _lib().fused_ce_max_filtered_tiles()
+    assert limit == 6080
+    n, v = ((200, limit * 64 + 1000) if which == "dh"
+            else (limit * 64 + 1000, 520))
+    h, w, y = _ce_problem(cuda, n, v, 64, seed=3)
+    cfg = LossConfig(valid_vocab=v - 10)
+    lse = ref_stats(h, w, y, cfg)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    grads = dh_grads if which == "dh" else dw_grads
+    name = f"fused_ce_{which}"
+    none = torch.zeros(ce_tile_grid(n, v), dtype=torch.bool, device=cuda)
+    before = {k: c.count for k, c in build.COUNTERS.items()}
+    got = grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=none)
+    exact = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    after = {k: c.count for k, c in build.COUNTERS.items()}
+    assert after[name + "_filtered"] == before[name + "_filtered"] + 2
+    assert after[name] == before[name] + 1
+    torch.testing.assert_close(got, exact, rtol=3e-4, atol=1e-6)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    skip = torch.rand(ce_tile_grid(n, v), generator=gen, device=cuda) < 0.5
+    got = grads(h, w, y, lse, gamma, gamma, cfg, skip_mask=skip)
+    ref = ref_dh if which == "dh" else ref_dw
+    want = ref(h, w, y, lse, gamma, gamma, cfg, skip_mask=skip)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -111,7 +111,9 @@ def test_submit_eval_matches_jax_and_replays_the_trie(model, paged):
             np.testing.assert_allclose(g, np.asarray(w), rtol=RTOL,
                                        atol=ATOL)
     st = sched.stats()
-    assert st["modes"] == {"eval_requests": 2, "eval_tokens_scored": 36}
+    assert st["modes"] == {"eval_requests": 2, "eval_tokens_scored": 36,
+                           "group_requests": 0, "group_forks": 0,
+                           "group_pruned": 0}
     assert st["requests"] == 2 and sched.active == 0
     if paged:
         # prompt 0 (19 tokens, 2 full blocks) replays for continuations

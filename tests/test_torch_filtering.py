@@ -312,6 +312,75 @@ def test_wrong_mask_shape_raises():
                       skip_mask=torch.zeros(shape, dtype=torch.bool))
 
 
+@pytest.mark.parametrize("which", ["dh", "dw"])
+@pytest.mark.parametrize("max_tiles", [1, 2, 3, 100])
+def test_filtered_split_sums_to_the_one_launch(which, max_tiles):
+    """A filtered call past the kernels' live-tile list (6080 streamed
+    tiles a launch on the card) runs as launches over slices of the
+    streamed axis (`filtered_parts`): the vocab for dH, moving col_offset
+    with each slice, the rows for dW.  Here the parts go through the
+    plain version at a small `max_tiles` and their sum is held to the one
+    call on the whole problem (rtol 1e-5 / atol 1e-7, f32 sums split in
+    another place); at 100 there is one part and it is the whole call."""
+    from repro_torch.kernels.fused_ce import kernel as TK
+    from repro_torch.kernels.fused_ce.ref import ref_dh, ref_dw
+    h, w, y = _competitive(n=200, v=300, seed=5)
+    y[7] = 250                                  # a target past the cut
+    cfg = LossConfig(logit_softcap=30.0, label_smoothing=0.1)
+    off, valid = 64, 64 + 290
+    lse = _np(ref_stats(_t(h), _t(w), _t(y), cfg, col_offset=off,
+                        total_valid=valid)[0])
+    lse, gamma, pc = _row_inputs(lse, y)
+    args = [_t(a) for a in (h, w, y, lse, gamma, pc)]
+    rng = np.random.default_rng(max_tiles)
+    skip = torch.from_numpy(rng.random(ce_tile_grid(200, 300)) < 0.4)
+    ref = ref_dh if which == "dh" else ref_dw
+    kw = dict(total_valid=valid)
+    want = ref(*args, cfg, col_offset=off, skip_mask=skip, **kw)
+    parts = list(TK.filtered_parts(which, *args, skip, off, max_tiles))
+    streamed = -(-(300 if which == "dh" else 200) // 64)
+    assert len(parts) == -(-streamed // max_tiles)
+    got = None
+    for part in parts:
+        # each part is a well-formed call of its own: its mask covers its
+        # slice's tile grid
+        ph, pw = part[0], part[1]
+        assert tuple(part[6].shape) == ce_tile_grid(ph.shape[0],
+                                                    pw.shape[0])
+        out = ref(*part[:6], cfg, col_offset=part[7], skip_mask=part[6],
+                  **kw)
+        got = out if got is None else got + out
+    if len(parts) == 1:
+        one = parts[0]
+        assert one[7] == off and all(
+            a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            for a, b in zip(one[:6], args))
+        assert torch.equal(got, want)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-7)
+
+
+def test_filtered_split_chunks_and_the_refusals():
+    """The split of the streamed axis, and the cases no split can take,
+    refused with their reason before any launch."""
+    from repro_torch.kernels.fused_ce import kernel as TK
+    assert TK.filtered_chunks(5, 6080) == [(0, 5)]
+    assert TK.filtered_chunks(6080, 6080) == [(0, 6080)]
+    # 64 x 8192 rows, dW's streamed axis: 8192 tiles in two launches
+    assert TK.filtered_chunks(8192, 6080) == [(0, 6080), (6080, 8192)]
+    assert TK.filtered_chunks(12161, 6080) == [(0, 6080), (6080, 12160),
+                                               (12160, 12161)]
+    with pytest.raises(ValueError, match="max_tiles"):
+        TK.filtered_chunks(3, 0)
+    TK.check_grad_shape("dw", 64 * 8192, 152064, 1024)
+    TK.check_grad_shape("dh", 4096, 65535 * 64, 4096)
+    with pytest.raises(ValueError, match="d <= 4096"):
+        TK.check_grad_shape("dh", 64, 512, 4160)
+    with pytest.raises(ValueError, match="65535.*4194241 rows of h"):
+        TK.check_grad_shape("dh", 65535 * 64 + 1, 512, 64)
+    with pytest.raises(ValueError, match="65535.*4194241 rows of W"):
+        TK.check_grad_shape("dw", 64, 65535 * 64 + 1, 64)
+
+
 # ---------------------------------------------------------------------------
 # the filtered losses end to end
 # ---------------------------------------------------------------------------

@@ -203,8 +203,18 @@ def test_generate_and_waiting_options(model):
     with pytest.raises(ValueError, match="MTP heads"):    # no heads here
         PagedSelfSpecEngine(tarch, tparams, ServeConfig(paged=True),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.fork_slot(1, 0)
+    # a fork shares slot 0's whole chain: a refcount bump, no new block
+    eng.prefill_into_slot(0, np.arange(1, 20, dtype=np.int32))
+    used = eng.pool.used_blocks
+    eng.fork_slot(1, 0)
+    # (19 tokens prefill in their 32-token bucket: 4 blocks of 8)
+    assert eng._chains[1] == eng._chains[0] and len(eng._chains[0]) == 4
+    assert eng.pool.used_blocks == used
+    assert all(eng.pool.refcount(b) >= 2 for b in eng._chains[1])
+    assert eng.cur[1] == eng.cur[0]
+    for slot in (0, 1):
+        eng.reset_slot(slot)
+    assert not any(eng._chains)
     with pytest.raises(NotImplementedError, match="A2"):
         _paged(tarch, tparams, autotune=True)
     # the gather oracle is a CPU path: another device's tensors raise

@@ -91,8 +91,9 @@ def test_streaming_topk_block_invariant(block_v):
     (False, False, True), (True, True, True)])
 def test_reference_options_match_jax_kernel(masked, lse, quant):
     """The plain version's request-mode and quantized-head options
-    (`allowed_mask`, `return_lse`, `w_scale`), which the CUDA kernel does
-    not take yet, agree with the JAX kernel's."""
+    (`allowed_mask`, `return_lse`, `w_scale`) agree with the JAX
+    kernel's; on the card the decode kernel takes the first two and is
+    held to this plain version (`test_torch_cuda.py`)."""
     from repro.kernels.quant import quantize_weight
     h, w = _problem(4, 32, 300, False, seed=17)
     rng = np.random.default_rng(3)
@@ -115,6 +116,80 @@ def test_reference_options_match_jax_kernel(masked, lse, quant):
     if lse:
         np.testing.assert_allclose(np.asarray(got[2]), np.asarray(want[2]),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,block_v,cap,masked", [
+    (8, 37, 20.0, True), (1, 64, None, True), (40, 1000, None, False),
+    (12, 7, 5.0, True)])
+def test_streaming_options_match_jax(k, block_v, cap, masked):
+    """`streaming_topk`'s `allowed_mask` and `return_lse` against the JAX
+    `streaming_topk` and `pallas_topk` (interpret mode): the same values,
+    ids and lse (rtol / atol 1e-5), a row whose mask allows nothing
+    included (lse -inf, every value -inf); and `cuda_topk` on CPU tensors
+    takes the plain version with both options, launching nothing."""
+    h, w = _problem(5, 16, 300, cap == 5.0, seed=k + block_v)
+    rng = np.random.default_rng(k)
+    kw = dict(valid_vocab=290, logit_softcap=cap)
+    mask = None
+    if masked:
+        mask = (rng.random((5, 300)) < 0.4).astype(np.int8)
+        mask[1] = 0
+        mask[2] = 0
+        mask[2, 7] = 1                               # a singleton
+    jkw = dict(kw, allowed_mask=None if mask is None else jnp.asarray(mask))
+    sv, si, sl = jax_streaming(jnp.asarray(h), jnp.asarray(w), k,
+                               block_v=block_v, return_lse=True, **jkw)
+    pv, pi, pl = pallas_topk(jnp.asarray(h), jnp.asarray(w), k,
+                             return_lse=True, **jkw)
+    th, tw = torch.from_numpy(h), torch.from_numpy(w)
+    tkw = dict(kw, allowed_mask=None if mask is None
+               else torch.from_numpy(mask))
+    before = LAUNCHES.count
+    got = streaming_topk(th, tw, k, block_v=block_v, return_lse=True, **tkw)
+    via_op = cuda_topk(th, tw, k, return_lse=True, **tkw)
+    assert LAUNCHES.count == before
+    for vals, ids, lse in (got, via_op):
+        for ref_v, ref_i, ref_l in ((sv, si, sl), (pv, pi, pl)):
+            _check(vals, ids, ref_v, ref_i)
+            np.testing.assert_allclose(np.asarray(lse), np.asarray(ref_l),
+                                       rtol=1e-5, atol=1e-5)
+    if masked:
+        assert np.isneginf(np.asarray(got[2])[1])
+        assert np.isneginf(np.asarray(got[0])[1]).all()
+        assert int(got[1][2, 0]) == 7
+        allowed = mask.astype(bool)
+        vals, ids = np.asarray(got[0]), np.asarray(got[1])
+        fin = np.isfinite(vals)
+        assert allowed[np.nonzero(fin)[0], ids[fin]].all()
+    # without options the call is the two-output one it always was
+    two = streaming_topk(th, tw, k, block_v=block_v, **kw)
+    assert len(two) == 2
+    np.testing.assert_array_equal(np.asarray(two[1]), np.asarray(
+        streaming_topk(th, tw, k, block_v=block_v, allowed_mask=torch.ones(
+            (5, 300), dtype=torch.int8), **kw)[1]))
+
+
+@pytest.mark.parametrize("masked,lse", [(True, False), (False, True),
+                                        (True, True)])
+def test_mask_and_lse_take_the_decode_plan(masked, lse):
+    """`default_plan` sends any call with a mask or the lse to the decode
+    kernel, even k = 1 at >= TOPK_ROWS_MIN rows; an explicit many-row
+    plan with either raises ValueError on every device."""
+    from repro_torch.core.windows import topk_decode_plan, topk_rows_plan
+    from repro_torch.kernels.sample_topk import check_plan, default_plan
+    for rows in (8, 128, 4096):
+        assert default_plan(rows, 152064, 1, masked=masked, lse=lse) == \
+            topk_decode_plan(rows, 152064, 1)
+    assert default_plan(4096, 152064, 1) == topk_rows_plan()
+    with pytest.raises(ValueError, match="allowed_mask nor return_lse"):
+        check_plan(topk_rows_plan(), 1, 4096, 152064, masked=masked,
+                   lse=lse)
+    h, w = _problem(130, 16, 300, False, seed=4)
+    kw = dict(allowed_mask=torch.ones((130, 300), dtype=torch.int8)
+              if masked else None, return_lse=lse)
+    with pytest.raises(ValueError, match="allowed_mask nor return_lse"):
+        cuda_topk(torch.from_numpy(h), torch.from_numpy(w), 1,
+                  plan=topk_rows_plan(), **kw)
 
 
 _PLAN_ROWS = [1, 2, 7, 8, 9, 16, 33, 40, 63, 64, 65, 100, 127, 128, 129,
