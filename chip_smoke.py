@@ -178,6 +178,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      must catch.  Prints tokens/s, step ms p50, forks, prunes,
      copy-on-write copies, the two cache-free forwards' rounding floor
      and the fault's logp reading.
+ 11. quantized serving at full width — phase 6's params (phase 3's trunk
+     and 4 MTP heads), an int8 KV cache or int8 pools with f32 scale
+     pools, and a 1-byte lm_head with per-row scales made at engine
+     init: (a) slab `Engine` (int8 head) on phase 3's traffic, (b)
+     `PagedEngine` (int8 head) on phase 5's shared-prompt traffic, its
+     prefix hits prefilling their suffix over a dequantized chain view,
+     (c) `PagedSelfSpecEngine` on (b)'s configuration at Tq 5, greedy,
+     (d) a short slab run at each fp8 head (e4m3fn, e5m2), (e) eval on
+     (b)'s engine (4 prompts x 2 continuations) and (f) the eval loss
+     `fused_cross_entropy(w_scale=)` over 4 x 512 tokens, each with its
+     launch counters zeroed just before.  Gates: one `sample_topk`
+     launch a prefill and a decode step (two a spec step), 28
+     `paged_attn` a paged decode step, one `score_tokens` a continuation
+     (every call held to its plain version), one fused-CE forward (its
+     loss against the dequantized head's f32 logits); the int8 slab
+     cache; head bytes within 0.49-0.51 of the bf16 head's; every
+     decode write of a live slot read back bit for bit from the int8
+     pools and the scale pools; live pool bytes a request at most
+     QUANT_POOL_RATIO of phase 5's bf16 engine on the same traffic;
+     every served token's logit within QUANT_TOKEN_TOL of the best one
+     of a cache-free forward through the dequantized head
+     (`dequantize_weight`), and every eval logp as near, while two
+     planted faults (the engine served without ``w_scale``, and
+     `paged_attn` given unit K scales) read above that limit.  Prints
+     tokens/s, step ms p50, head bytes, block bytes and pool bytes a
+     request.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -197,6 +223,15 @@ rows P 4), each against its plain version, twice for bit identity, with
 -inf exactly where the JAX kernel puts it, and timed beside its bound,
 its plain version and ``torch.log_softmax`` of the logits gathered at
 the ids, and the device time of its stream and merge kernels apart.
+Its quantized cases (``[quant]`` lines) hold each kernel's A6 option to
+its plain version on the same 1-byte head or int8 pools: the decode
+top-k on an int8 head (8 rows, k 1; k 40 with the lse) and under a
+half-zero mask on an e4m3fn head (k 1), `score_tokens` on the int8 head
+(32 rows, T 0.7), `paged_attn` on int8 pools at phase 5's decode shape
+and at Tq 5, and the fused-CE forward at 8192 rows on the int8 head,
+twice for bit identity, each timed beside its bound (from the 1-byte
+bytes), its plain version and the library's calls on the dequantized
+head.
 
 The last lines are the `{"kernels": [...]}` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -294,6 +329,18 @@ EVAL_ATOL = 1e-4
 # catches it.
 MODES_TOKEN_ATOL = 5e-3
 SPEC_K = 4
+# phase 11: a served token of a quantized engine (int8 KV, a 1-byte head)
+# against a cache-free forward with the bf16 weights and the dequantized
+# head; and the live pool bytes a request against the bf16 paged engine's
+# on the same traffic, scales counted ((hd + 4) / (2 hd) = 0.516 at hd 128)
+# On the H100 (PERF.md), served tokens trail by up to 1.9e-3
+# (int8 K/V rounded in every layer; bf16 caches read up to ~1e-3 here),
+# eval logps by up to 1.4e-3.  A K read with unit scales reads 0.12; a
+# head served without its scales reads ~1e-4 on greedy tokens (the seeded
+# head's row scales are nearly equal, so the argmax barely moves) but
+# scales every logit by ~1/s in an eval logp, which the limit catches.
+QUANT_TOKEN_TOL = 5e-3
+QUANT_POOL_RATIO = 0.55
 
 
 def card_line():
@@ -1930,9 +1977,11 @@ def phase_paged_serve(torch, np, arch, params, card, dev):
     try:
         eng = PagedEngine(arch, params, sc, device=dev)
         peak_blocks = [0]
+        per_req = []                        # live pool bytes a request
 
         def on_token(rid, tok, done):       # pool blocks in use, at peak
             peak_blocks[0] = max(peak_blocks[0], eng.pool.used_blocks)
+            per_req.append(eng.live_cache_bytes() / max(sched.active, 1))
 
         sched = ContinuousScheduler(eng, max_new_tokens=32,
                                     on_token=on_token)
@@ -2015,7 +2064,7 @@ def phase_paged_serve(torch, np, arch, params, card, dev):
           f"best by at most {max(worst, 0.0):.3g} (limit {GREEDY_TOL}); "
           f"{same:.3f} of tokens equal to the slab Engine's on the same "
           f"requests (not gated)", flush=True)
-    return launches
+    return launches, float(np.mean(per_req))
 
 
 def score_bound_ms(rows, d, v, p):
@@ -2219,10 +2268,12 @@ def check_scores(torch, tag, calls, lm_heads, valid, cap, temp):
                              "an equal share")
     err = 0.0
     for h2, w, ids, kw, got in calls:
-        if kw != dict(valid=valid, cap=cap, temp=temp):
+        ws = kw.get("w_scale")
+        if {k: v for k, v in kw.items() if k != "w_scale"} != dict(
+                valid=valid, cap=cap, temp=temp) or ws is not None:
             raise AssertionError(f"{tag}: a scoring call passed {kw}, "
                                  f"expected valid {valid}, cap {cap}, T "
-                                 f"{temp}")
+                                 f"{temp} and a bf16 head")
         lse, z = score_stats_ref(h2, w, ids, valid_vocab=valid,
                                  logit_softcap=cap, temperature=temp)
         ok = (ids >= 0) & (ids < valid)
@@ -2548,13 +2599,15 @@ def spy_groups(cums):
     return lambda: [setattr(c, n, r) for c, n, r in undo]
 
 
-def spy_paged_writes(engines, bad):
+def spy_paged_writes(engines, bad, seen=None):
     """Read every decode-step write of a live slot back from the paged
     pool right after its scatter (`attention._paged_update`), bit for
     bit: live slots own disjoint blocks, so a write that two slots made
     to one address (a shared block appended to) reads back the other's.
     ``engines[-1]`` is the engine running; ``bad[0]`` counts the
-    scatters that did not read back.  Returns the undo."""
+    scatters that did not read back, and `seen` (a dict, if given) the
+    scatters checked by pool dtype (an int8 cache's value pools and its
+    f32 scale pools).  Returns the undo."""
     import torch
     from repro_torch.models import attention
     real = attention._paged_update
@@ -2571,6 +2624,9 @@ def spy_paged_writes(engines, bad):
             got = out[blk, pos % bs]
             if not bool((got == new_vals[rows, 0].to(out.dtype)).all()):
                 bad[0] += 1
+            if seen is not None:
+                key = str(out.dtype).replace("torch.", "")
+                seen[key] = seen.get(key, 0) + 1
         return out
 
     attention._paged_update = spy
@@ -2926,6 +2982,629 @@ def phase_modes(torch, np, arch, params, card, dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# quantized serving (A6): phase 2's quantized cases and phase 11
+# ---------------------------------------------------------------------------
+
+
+def bound_of(nbytes, flops):
+    """(ms, 'bytes' | 'operations'): the larger of the bytes over the
+    H100's memory rate and the bf16 operations over its peak."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dequantized(wq, ws):
+    """The library's bf16 head from a 1-byte one and its scales."""
+    return (wq.float() * ws[:, None]).bfloat16()
+
+
+def quant_topk_cases(torch, np, heads, valid, gen, dev):
+    """The decode top-k on 1-byte heads with `w_scale`: 8 rows of the
+    int8 head at k 1 (the greedy step) and at k 40 with the lse (the
+    sampler's k), and k 1 under a half-zero mask on the e4m3fn head."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    results = {}
+    for name, qd, k, masked, lse in (
+            ("int8_rows8_k1", "int8", 1, False, False),
+            ("int8_rows8_k40_lse", "int8", 40, False, True),
+            ("e4m3_rows8_k1_mask", "float8_e4m3fn", 1, True, False)):
+        wq, ws = heads[qd]
+        v, d = wq.shape
+        rows = 8
+        h = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        mask = None
+        if masked:
+            mask = (torch.rand((rows, v), generator=gen, device=dev)
+                    < 0.5).to(torch.int8)
+        kw = dict(valid_vocab=valid, w_scale=ws, allowed_mask=mask,
+                  return_lse=lse)
+        before = LAUNCHES.count
+        out = cuda_topk(h, wq, k, **kw)
+        torch.cuda.synchronize()
+        if LAUNCHES.count != before + 1:
+            raise AssertionError(f"{name}: {LAUNCHES.count - before} "
+                                 "decode launches, want 1")
+        ref = topk_scores_ref(h, wq, k, **kw)
+        err, n_ids = check_topk(np, out[0], out[1], ref[0], ref[1],
+                                exact_ids=False)
+        again = cuda_topk(h, wq, k, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"sample_topk {name}: two calls differ")
+        if lse:
+            got_l, want_l = out[2].cpu().numpy(), ref[2].cpu().numpy()
+            np.testing.assert_allclose(got_l, want_l, rtol=VAL_RTOL,
+                                       atol=VAL_ATOL)
+            err = max(err, float(np.abs(got_l - want_l).max()))
+        if masked and not bool(mask.bool().gather(
+                1, out[1].long()).all()):
+            raise AssertionError(f"{name}: a disallowed id")
+        ms = cuda_ms(torch, lambda: cuda_topk(h, wq, k, **kw))
+        plain_ms = cuda_ms(torch, lambda: topk_scores_ref(h, wq, k, **kw),
+                           iters=5)
+        mv = None if mask is None else mask[:, :valid] == 0
+
+        def library():
+            z = h @ dequantized(wq, ws)[:valid].T
+            if mv is not None:
+                z = z.masked_fill(mv, float("-inf"))
+            if lse:
+                torch.logsumexp(z.float(), dim=-1)
+            return torch.topk(z, k)
+
+        library_ms = cuda_ms(torch, library)
+        # h, the 1-byte W and its scales read once, vals and ids (and the
+        # mask, the lse) once
+        bound_ms, bound_by = bound_of(
+            rows * d * 2 + v * d + v * 4 + rows * k * 8
+            + (rows * v if masked else 0) + (rows * 4 if lse else 0),
+            2 * rows * d * v)
+        part_ms, merge_ms = split_ms(torch, lambda: cuda_topk(h, wq, k, **kw))
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, partial_ms=part_ms,
+                             merge_ms=merge_ms)
+        print(f"[quant] sample_topk {name} ({qd} head + w_scale, d {d}, V "
+              f"{v}{', half-zero mask' if masked else ''}"
+              f"{', return_lse' if lse else ''}): max_abs_err {err:.3g} "
+              f"({n_ids} ids checked exactly); device: stream kernel "
+              f"{part_ms:.4f} ms + merge {merge_ms:.4f} ms; two calls "
+              f"bit-identical; call {ms:.4f} ms vs bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, library (dequantized "
+              f"head, h @ w.T{', masked_fill' if masked else ''}"
+              f"{', logsumexp' if lse else ''}, torch.topk) "
+              f"{library_ms:.4f} ms", flush=True)
+    return results
+
+
+def phase_quant_kernels(torch, np, arch, dev):
+    """Phase 2's quantized cases, each against its plain version on the
+    same 1-byte head or int8 pools: the decode top-k (`quant_topk_cases`),
+    `score_tokens` at the verifier's 32 rows on the int8 head (T 0.7),
+    `paged_attn` on int8 pools at phase 5's decode shape and at Tq 5, and
+    the fused-CE forward at 8192 rows on the int8 head."""
+    import torch.nn.functional as F
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import fwd_stats, ref_stats
+    from repro_torch.kernels.paged_attn import (gather_paged_kv,
+                                                paged_attention,
+                                                paged_attention_ref)
+    from repro_torch.kernels.quant import quantize_weight
+    from repro_torch.kernels.score_tokens import score_stats, score_stats_ref
+    from repro_torch.models.attention import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
+    w = torch.randn((v, d), generator=gen, device=dev) / d ** 0.5
+    w[valid:] = 0.0                                # the padded head rows
+    w = w.bfloat16()
+    heads = {q: quantize_weight(w, q) for q in ("int8", "float8_e4m3fn")}
+    del w
+    results = quant_topk_cases(torch, np, heads, valid, gen, dev)
+    wq, ws = heads["int8"]
+
+    # score_tokens: the speculative verifier's rows on the int8 head
+    rows, p, temp = 32, 1, 0.7
+    h = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+    ids = torch.randint(0, valid, (rows, p), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kw = dict(valid_vocab=valid, temperature=temp, w_scale=ws)
+    lse, zc = score_stats(h, wq, ids, **kw)
+    lse2, zc2 = score_stats(h, wq, ids, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(lse, lse2) and torch.equal(zc, zc2)):
+        raise AssertionError("score_tokens int8: two calls differ")
+    rl, rz = score_stats_ref(h, wq, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=VAL_RTOL, atol=VAL_ATOL)
+    torch.testing.assert_close(zc, rz, rtol=VAL_RTOL, atol=VAL_ATOL)
+    err = max(float((lse - rl).abs().max()), float((zc - rz).abs().max()))
+    ms = cuda_ms(torch, lambda: score_stats(h, wq, ids, **kw), iters=50)
+    part_ms, merge_ms = split_ms(
+        torch, lambda: score_stats(h, wq, ids, **kw), iters=50)
+    plain_ms = cuda_ms(torch, lambda: score_stats_ref(h, wq, ids, **kw),
+                       iters=5)
+
+    def library():
+        z = (h @ dequantized(wq, ws)[:valid].T).float() / temp
+        return torch.log_softmax(z, -1).gather(1, ids.long())
+
+    library_ms = cuda_ms(torch, library)
+    bound_ms, bound_by = bound_of(
+        rows * d * 2 + v * d + v * 4 + rows * p * 8 + rows * 4,
+        2 * rows * d * v)
+    results["score_int8_rows32_t0.7"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, partial_ms=part_ms,
+        merge_ms=merge_ms)
+    print(f"[quant] score_tokens int8_rows32_t0.7 (int8 head + w_scale, "
+          f"rows {rows}, P {p}, T {temp}): max_abs_err {err:.3g}, two calls "
+          f"bit-identical; device: stream kernel {part_ms:.4f} ms + merge "
+          f"{merge_ms:.4f} ms; call {ms:.4f} ms vs bound {bound_ms:.4f} ms "
+          f"({bound_by}), plain {plain_ms:.4f} ms, library (dequantized "
+          f"head, log_softmax(h @ w.T).gather) {library_ms:.4f} ms",
+          flush=True)
+
+    # paged_attn on int8 pools: phase 5's decode shape and Tq 5
+    b, nq, nkv, hd, bs, nb = 8, 16, 8, 128, 16, 32
+    for name, tq in (("int8_decode", 1), ("int8_tq5", 5)):
+        n_pool = b * nb + 1
+        kq, ks = quantize_kv(torch.randn((n_pool, bs, nkv, hd),
+                                         generator=gen, device=dev))
+        vq, vs = quantize_kv(torch.randn((n_pool, bs, nkv, hd),
+                                         generator=gen, device=dev))
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev) + 1
+        table = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+        lens = torch.randint(16, nb * bs + 1, (b,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        q = torch.randn((b, tq, nq, hd), generator=gen,
+                        device=dev).bfloat16()
+        pk = dict(kp_scale=ks, vp_scale=vs)
+
+        def call():
+            return paged_attention(q, kq, vq, table, lens, **pk)
+
+        out = call()
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(q, kq, vq, table, lens, **pk)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=PAGED_ATOL, rtol=PAGED_RTOL)
+        if not torch.equal(out, call()):
+            raise AssertionError(f"paged_attn {name}: two calls differ")
+        err = float((out.float() - ref.float()).abs().max())
+        ms = device_ms(torch, call, (("kernel", "paged_attn"),))["kernel"]
+        event_ms = cuda_ms(torch, call, iters=50)
+        plain_ms = cuda_ms(torch, lambda: paged_attention_ref(
+            q, kq, vq, table, lens, **pk))
+        qpos = lens.long()[:, None] - tq + torch.arange(tq, device=dev)
+        mask = (torch.arange(nb * bs, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+
+        def library():
+            kg = (gather_paged_kv(kq, table).float()
+                  * gather_paged_kv(ks, table)).bfloat16().transpose(1, 2)
+            vg = (gather_paged_kv(vq, table).float()
+                  * gather_paged_kv(vs, table)).bfloat16().transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        library_ms = cuda_ms(torch, library, iters=50)
+        tokens = int(lens.clamp(max=nb * bs).sum())
+        bound_ms, bound_by = bound_of(
+            tokens * nkv * (hd + 4) * 2 + 2 * q.numel() * 2,
+            4 * tokens * nq * tq * hd)
+        results[f"paged_{name}"] = dict(
+            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[quant] paged_attn {name} (int8 pools + f32 scale pools, B "
+              f"{b}, Tq {tq}, nq {nq}, nkv {nkv}, hd {hd}, bs {bs}, nb {nb}, "
+              f"lens {lens.min().item()}..{lens.max().item()}): max_abs_err "
+              f"{err:.3g} (atol {PAGED_ATOL}), two calls bit-identical; "
+              f"device {ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), "
+              f"events over back-to-back calls {event_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (dequantized gather, sdpa) "
+              f"{library_ms:.4f} ms", flush=True)
+
+    # the fused-CE forward (the quantized eval loss) at 8192 rows
+    n = 8192
+    h = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    y = torch.randint(0, valid, (n,), generator=gen, device=dev)
+    y[::10] = -100
+    cfg = LossConfig()
+
+    def call():
+        return fwd_stats(h, wq, y, cfg, w_scale=ws)
+
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError("fused_ce forward int8: two calls differ")
+    want = ref_stats(h, wq, y, cfg, w_scale=ws)
+    torch.testing.assert_close(got[0], want[0], rtol=VAL_RTOL, atol=VAL_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=VAL_RTOL, atol=VAL_ATOL)
+    torch.testing.assert_close(got[2], want[2], rtol=VAL_RTOL,
+                               atol=CE_ZSUM_ATOL)
+    err = max(float((got[i] - want[i]).abs().max()) for i in range(2))
+    del want
+    ms = cuda_ms(torch, call, iters=5, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: ref_stats(h, wq, y, cfg, w_scale=ws),
+                       iters=2, warmup=1)
+    library_ms = cuda_ms(torch, lambda: library_loss(
+        torch, h, dequantized(wq, ws), y, cfg, valid), iters=5, warmup=1)
+    bound_ms, bound_by = bound_of(n * d * 2 + v * d + v * 4 + 4 * n * 4,
+                                  2 * n * d * v)
+    results["fwd_int8_rows8192"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[quant] fused_ce forward int8_rows8192 (int8 head + w_scale, "
+          f"V {v}, d {d}): lse / z_target max_abs_err {err:.3g}, two calls "
+          f"bit-identical; {ms:.4f} ms vs bound {bound_ms:.4f} ms "
+          f"({bound_by}), plain {plain_ms:.3f} ms, library (dequantized "
+          f"head, canonical loss) {library_ms:.4f} ms", flush=True)
+    return results
+
+
+def quant_deficit(torch, np, arch, params, head, prompts, outs, dev):
+    """`best_logit_deficit` under the served quantized head, dequantized
+    (`dequantize_weight`, f32): the cache-free forward's hidden states
+    against the head the engine streamed."""
+    return best_logit_deficit(torch, np, arch, dict(params, lm_head=head),
+                              prompts, outs, dev)
+
+
+def quant_served(torch, np, make_engine, prompts, build, obs, max_new=32,
+                 on_token=None):
+    """Drive a scheduler over a fresh engine under live tracing, every
+    launch counter zeroed just before and read just after.  Returns
+    (engine, sched, outs, seconds, launches, step ms)."""
+    from repro_torch.serve import ContinuousScheduler
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = make_engine()
+        sched = ContinuousScheduler(
+            eng, max_new_tokens=max_new,
+            on_token=None if on_token is None else
+            (lambda rid, tok, done: on_token(eng, sched)))
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = [sched.submit(p) for p in prompts]
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    finally:
+        obs.disable()
+    step_ms = [x.duration * 1e3 for x in tracer.spans
+               if x.name in ("engine.decode_step", "spec.step")]
+    outs = [results[r] for r in rids]
+    if any(len(o) != max_new for o in outs):
+        raise AssertionError(f"a request did not get its {max_new} tokens")
+    return eng, sched, outs, dt, launches, step_ms
+
+
+def phase_quant_serve(torch, np, arch, params, card, dev, bf16_bytes_per_req):
+    """Phase 11: quantized serving at full width (int8 KV caches and
+    pools, 1-byte heads made at engine init from the seeded bf16 params,
+    which carry phase 6's MTP heads).  Returns {kernel: launches} of its
+    runs."""
+    from repro_torch import obs
+    from repro_torch.configs.base import with_mtp
+    from repro_torch.core import fused_cross_entropy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant import dequantize_weight
+    from repro_torch.models import attention
+    from repro_torch.models.registry import forward_hidden
+    from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
+                                   PagedSelfSpecEngine, ServeConfig,
+                                   SpecConfig)
+    import repro_torch.kernels.score_tokens as score_pkg
+
+    n_layers, vocab = arch.cfg.n_layers, arch.vocab_size
+    qsc = dict(quantize_cache=True, head_dtype="int8")
+    total = {}
+
+    def add(launches):
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+
+    def deq_of(eng):
+        return dequantize_weight(eng.params["lm_head"],
+                                 eng.params["lm_head_scale"])
+
+    warm = [np.arange(1, 40), np.arange(1, 43)]
+    t0 = time.perf_counter()
+    sc_a = ServeConfig(batch_size=8, max_len=512, **qsc)
+    Engine(arch, params, sc_a, device=dev).generate(warm, 4)
+    torch.cuda.synchronize()
+    print(f"[quant] set-up {time.perf_counter() - t0:.1f}s: qwen3-0.6b "
+          f"{n_layers} layers, int8 KV cache and int8 lm_head made at "
+          "engine init", flush=True)
+
+    # (a) slab Engine, phase 3's traffic
+    prompts = serve_prompts(np, vocab)
+    eng, sched, outs, dt, launches, step_ms = quant_served(
+        torch, np, lambda: Engine(arch, params, sc_a, device=dev), prompts,
+        build, obs)
+    prefills, steps = len(sched.admit_order), sched.decode_steps
+    if launches != {"sample_topk": prefills + steps}:
+        raise AssertionError(f"quant (a): launches {launches}, expected "
+                             f"sample_topk {prefills} prefills + {steps} "
+                             "steps and nothing else")
+    add(launches)
+    if eng.caches["k"].dtype != torch.int8 or "k_scale" not in eng.caches:
+        raise AssertionError("quant (a): the slab cache is not int8")
+    head_q, head_bf16 = eng.head_bytes(), params["lm_head"].numel() * 2
+    if not 0.49 <= head_q / head_bf16 <= 0.51:
+        raise AssertionError(f"quant (a): head bytes {head_q} against the "
+                             f"bf16 head's {head_bf16}")
+    deq = deq_of(eng)
+    worst_a, agree_a = quant_deficit(torch, np, arch, params, deq, prompts,
+                                     outs, dev)
+    # the engine serving the 1-byte head without w_scale, on greedy
+    # tokens (printed; the eval run (e) is where this fault is gated)
+    fault = Engine(arch, params, sc_a, device=dev)
+    fault.params = {k: t for k, t in fault.params.items()
+                    if k != "lm_head_scale"}
+    f_outs = fault.generate(prompts[:4], 8)
+    fault_ws_tokens, _ = quant_deficit(torch, np, arch, params, deq,
+                                       prompts[:4], list(f_outs), dev)
+    del fault
+    ntok = sum(len(o) for o in outs)
+    print(f"[quant] (a) slab Engine, int8 KV + int8 head: launches "
+          f"{launches} = {prefills} prefills + {steps} decode steps; head "
+          f"{head_q} B streamed a scan against {head_bf16} B bf16 (ratio "
+          f"{head_q / head_bf16:.4f}); {len(prompts)} requests, {ntok} "
+          f"tokens in {dt:.3f}s: {ntok / dt:.1f} tok/s, decode step "
+          f"{np.median(step_ms):.2f} ms p50; served logit trails the "
+          f"cache-free forward's best (dequantized head) by at most "
+          f"{max(worst_a, 0.0):.3g} ({agree_a.mean():.3f} of tokens equal "
+          f"its argmax); w_scale dropped, on greedy tokens: "
+          f"{fault_ws_tokens:.3g} (not gated) on {card}", flush=True)
+
+    # (b) PagedEngine, int8 pools, phase 5's shared-prompt traffic, every
+    # decode write read back from the value and scale pools
+    sc_b = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16,
+                       **qsc)
+    PagedEngine(arch, params, sc_b, device=dev).generate(
+        [warm[0], np.concatenate([warm[0], [7, 8, 9]])], 4)
+    prompts_b = shared_prompts(np, vocab)
+    per_req, bad, seen, engines = [], [0], {}, []
+
+    def on_token(e, s):
+        per_req.append(e.live_cache_bytes() / max(s.active, 1))
+
+    def make_b():
+        engines.append(PagedEngine(arch, params, sc_b, device=dev))
+        return engines[-1]
+
+    undo = spy_paged_writes(engines, bad, seen)
+    try:
+        eng, sched, outs_b, dt, launches, step_ms = quant_served(
+            torch, np, make_b, prompts_b, build, obs, on_token=on_token)
+    finally:
+        undo()
+    prefills, steps = len(sched.admit_order), sched.decode_steps
+    want = {"sample_topk": prefills + steps, "paged_attn": steps * n_layers}
+    if launches != want:
+        raise AssertionError(f"quant (b): launches {launches}, expected "
+                             f"{want}")
+    add(launches)
+    ps = eng.paged_stats()
+    if ps["prefix"]["hits"] != 15:
+        raise AssertionError(f"quant (b): {ps['prefix']['hits']} prefix "
+                             "hits, not 15")
+    n_scatter = steps * n_layers * 2
+    if bad[0] or seen != {"int8": n_scatter, "float32": n_scatter}:
+        raise AssertionError(f"quant (b): {bad[0]} decode writes did not "
+                             f"read back; scatters checked {seen}, "
+                             f"expected {n_scatter} int8 and as many f32")
+    ratio = float(np.mean(per_req)) / bf16_bytes_per_req
+    if ratio > QUANT_POOL_RATIO:
+        raise AssertionError(f"quant (b): live pool bytes a request "
+                             f"{np.mean(per_req):.0f} are {ratio:.4f} of the "
+                             f"bf16 engine's (limit {QUANT_POOL_RATIO})")
+    worst_b, agree_b = quant_deficit(torch, np, arch, params, deq_of(eng),
+                                     prompts_b, outs_b, dev)
+    # planted fault 2: the paged kernel reads K with unit scales
+    real_paged = attention.paged_attention
+
+    def unit_k_scales(q, kp, vp, table, lens, *, kp_scale=None,
+                      vp_scale=None, softcap=None):
+        return real_paged(q, kp, vp, table, lens,
+                          kp_scale=torch.ones_like(kp_scale),
+                          vp_scale=vp_scale, softcap=softcap)
+
+    attention.paged_attention = unit_k_scales
+    try:
+        f_outs = PagedEngine(arch, params, sc_b, device=dev).generate(
+            prompts_b[:4], 8)
+    finally:
+        attention.paged_attention = real_paged
+    fault_ks, _ = quant_deficit(torch, np, arch, params, deq_of(eng),
+                                prompts_b[:4], list(f_outs), dev)
+    ntok = sum(len(o) for o in outs_b)
+    print(f"[quant] (b) PagedEngine, int8 pools + int8 head: launches "
+          f"{launches} = {n_layers} paged_attn a decode step x {steps}; "
+          f"prefix hits {ps['prefix']['hits']}; every decode write of a "
+          f"live slot read back bit for bit ({seen['int8']} int8 and "
+          f"{seen['float32']} scale-pool scatters); block {ps['block_bytes']}"
+          f" B; live pool bytes a request {np.mean(per_req):.0f} against the"
+          f" bf16 engine's {bf16_bytes_per_req:.0f} (ratio {ratio:.4f}, "
+          f"limit {QUANT_POOL_RATIO}); {ntok} tokens in {dt:.3f}s: "
+          f"{ntok / dt:.1f} tok/s, decode step {np.median(step_ms):.2f} ms "
+          f"p50; served logit trails the best by at most "
+          f"{max(worst_b, 0.0):.3g} ({agree_b.mean():.3f} equal); planted "
+          f"fault, kp_scale ignored: {fault_ks:.3g}", flush=True)
+
+    # (c) PagedSelfSpecEngine on (b)'s configuration, greedy, Tq 5
+    arch6 = with_mtp(arch, SPEC_K)
+    spec = SpecConfig(k=SPEC_K)
+    PagedSelfSpecEngine(arch6, params, sc_b, spec, device=dev).generate(
+        warm, 8)
+    eng, sched, outs_c, dt, launches, step_ms = quant_served(
+        torch, np, lambda: PagedSelfSpecEngine(arch6, params, sc_b, spec,
+                                               device=dev),
+        prompts_b, build, obs)
+    prefills, steps = len(sched.admit_order), sched.decode_steps
+    want = {"sample_topk": 2 * prefills + 2 * steps,
+            "paged_attn": steps * n_layers}
+    if launches != want:
+        raise AssertionError(f"quant (c): launches {launches}, expected "
+                             f"{want}")
+    add(launches)
+    worst_c, agree_c = quant_deficit(torch, np, arch6, params, deq_of(eng),
+                                     prompts_b, outs_c, dev)
+    ntok = sum(len(o) for o in outs_c)
+    print(f"[quant] (c) PagedSelfSpecEngine, int8 pools + int8 head, k "
+          f"{SPEC_K}: launches {launches} (paged_attn at Tq {SPEC_K + 1}); "
+          f"{ntok} tokens in {dt:.3f}s: {ntok / dt:.1f} tok/s, spec step "
+          f"{np.median(step_ms):.2f} ms p50, {sched.tokens_per_step:.3f} "
+          f"tokens a slot-step; served logit trails the best by at most "
+          f"{max(worst_c, 0.0):.3g} ({agree_c.mean():.3f} equal)",
+          flush=True)
+
+    # (d) the fp8 heads, a short slab run each
+    worst_d = {}
+    for qd in ("float8_e4m3fn", "float8_e5m2"):
+        sc_d = ServeConfig(batch_size=8, max_len=512, head_dtype=qd)
+        eng, sched, outs_d, dt, launches, step_ms = quant_served(
+            torch, np, lambda: Engine(arch, params, sc_d, device=dev),
+            prompts[:8], build, obs, max_new=8)
+        if launches != {"sample_topk": len(sched.admit_order)
+                        + sched.decode_steps}:
+            raise AssertionError(f"quant (d) {qd}: launches {launches}")
+        add(launches)
+        worst_d[qd], _ = quant_deficit(torch, np, arch, params, deq_of(eng),
+                                       prompts[:8], outs_d, dev)
+    print(f"[quant] (d) fp8 heads, 8 requests x 8 tokens each: served "
+          f"logit trails the best (its dequantized head) by at most "
+          + ", ".join(f"{max(x, 0.0):.3g} ({qd})"
+                      for qd, x in worst_d.items()), flush=True)
+
+    # (e) loglikelihood eval on (b)'s engine: every score_tokens call held
+    # to its plain version, every logp to a cache-free forward's
+    from repro_torch.kernels.score_tokens import score_stats_ref
+    rng = np.random.default_rng(11)
+    e_prompts = [rng.integers(1, vocab, 128).astype(np.int32)
+                 for _ in range(4)]
+    conts = [[rng.integers(1, vocab, 8).astype(np.int32) for _ in range(2)]
+             for _ in e_prompts]
+    calls, real_score = [], score_pkg.score_tokens
+
+    def spy(hs, w, ids, **kw):
+        out = real_score(hs, w, ids, **kw)
+        calls.append((hs, w, ids, kw, out[0]))
+        return out
+
+    reg, tracer = obs.enable(trace=True)
+    score_pkg.score_tokens = spy
+    try:
+        eng = PagedEngine(arch, params, sc_b, device=dev)
+        sched = ContinuousScheduler(eng)
+        build.reset_counters()
+        rids = [sched.submit_eval(p, c) for p, c in zip(e_prompts, conts)]
+        results = sched.run()
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    finally:
+        score_pkg.score_tokens = real_score
+        obs.disable()
+    n_cont = sum(len(c) for c in conts)
+    if launches != {"score_tokens": n_cont} or len(calls) != n_cont:
+        raise AssertionError(f"quant (e): launches {launches}, expected "
+                             f"one score_tokens a continuation ({n_cont})")
+    add(launches)
+    err_e = 0.0
+    for hs, w, ids, kw, got in calls:
+        if kw.get("w_scale") is not eng.params["lm_head_scale"]:
+            raise AssertionError("quant (e): a scoring call without the "
+                                 "head's w_scale")
+        lse, z = score_stats_ref(hs, w, ids, **kw)
+        ok = (ids >= 0) & (ids < vocab)
+        want_lp = torch.where(ok, z[:, 0] - lse, float("-inf"))
+        torch.testing.assert_close(got[ok], want_lp[ok], rtol=VAL_RTOL,
+                                   atol=VAL_ATOL)
+        err_e = max(err_e, float((got[ok] - want_lp[ok]).abs().max()))
+    deq = deq_of(eng)
+
+    def eval_err(results_of):
+        worst_lp = 0.0
+        with torch.no_grad():
+            for prompt, cs, lps in zip(e_prompts, conts, results_of):
+                for cont, got_lp in zip(cs, lps):
+                    seq = np.concatenate([prompt, cont]).astype(np.int64)
+                    h, _, _ = forward_hidden(arch, params, {
+                        "tokens": torch.from_numpy(seq[None]).to(dev)})
+                    z = h[0, len(prompt) - 1:-1].float() @ deq.T
+                    cid = torch.from_numpy(cont.astype(np.int64)).to(dev)
+                    want_lp = torch.log_softmax(z[:, :vocab], -1).gather(
+                        1, cid[:, None])[:, 0]
+                    worst_lp = max(worst_lp, float(np.abs(
+                        got_lp - want_lp.cpu().numpy()).max()))
+        return worst_lp
+
+    worst_e = eval_err([results[r] for r in rids])
+    # planted fault 1: the engine serves the 1-byte head without w_scale
+    fault = PagedEngine(arch, params, sc_b, device=dev)
+    fault.params = {k: t for k, t in fault.params.items()
+                    if k != "lm_head_scale"}
+    f_sched = ContinuousScheduler(fault)
+    f_rids = [f_sched.submit_eval(p, c) for p, c in zip(e_prompts, conts)]
+    f_res = f_sched.run()
+    fault_ws = eval_err([f_res[r] for r in f_rids])
+    del fault
+    print(f"[quant] (e) eval on (b)'s engine: launches {launches}; every "
+          f"score_tokens call (w_scale) within {err_e:.3g} of its plain "
+          f"version; logps within {worst_e:.3g} of a cache-free forward's "
+          f"under the dequantized head; planted fault, w_scale dropped: "
+          f"{fault_ws:.3g}", flush=True)
+
+    # (f) the quantized eval loss: fused_cross_entropy(w_scale=) over 4 x
+    # 512 teacher-forced tokens, against the loss of the dequantized head
+    import torch.nn.functional as F
+    from repro_torch.core import LossConfig
+    toks = torch.from_numpy(np.stack([rng.integers(1, vocab, 513)
+                                      for _ in range(4)])).to(dev)
+    with torch.no_grad():
+        h, _, _ = forward_hidden(arch, params, {"tokens": toks[:, :-1]})
+        h = h.reshape(-1, arch.cfg.d_model)
+        y = toks[:, 1:].reshape(-1)
+        wq, ws = eng.params["lm_head"], eng.params["lm_head_scale"]
+        build.reset_counters()
+        loss = fused_cross_entropy(h, wq, y, impl="kernel", w_scale=ws,
+                                   cfg=LossConfig(valid_vocab=vocab))
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+        want_loss = F.cross_entropy((h.float() @ deq.T)[:, :vocab], y)
+    if launches != {"fused_ce_fwd": 1}:
+        raise AssertionError(f"quant (f): launches {launches}")
+    add(launches)
+    torch.testing.assert_close(loss, want_loss, rtol=VAL_RTOL, atol=VAL_ATOL)
+    print(f"[quant] (f) eval loss on the int8 head (2048 tokens): "
+          f"{float(loss):.6f} against {float(want_loss):.6f} from the "
+          f"dequantized head's f32 logits; launches {launches}", flush=True)
+
+    worst = max(worst_a, worst_b, worst_c, *worst_d.values(), worst_e)
+    print(f"[quant] served tokens and logps against cache-free forwards of "
+          f"the dequantized head: worst {worst:.3g} (limit "
+          f"{QUANT_TOKEN_TOL}); planted faults read w_scale dropped "
+          f"{fault_ws:.3g}, kp_scale ignored {fault_ks:.3g}", flush=True)
+    if worst > QUANT_TOKEN_TOL:
+        raise AssertionError(f"quant: a served token or logp is {worst:.3g} "
+                             f"from the cache-free forward's (limit "
+                             f"{QUANT_TOKEN_TOL})")
+    for name, reading in (("w_scale dropped", fault_ws),
+                          ("kp_scale ignored", fault_ks)):
+        if reading <= QUANT_TOKEN_TOL:
+            raise AssertionError(f"quant: the planted fault '{name}' reads "
+                                 f"{reading:.3g}; the limit "
+                                 f"{QUANT_TOKEN_TOL} would not catch it")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2962,13 +3641,17 @@ def main():
         k: ce["main"][k]["library_ms"] for k in ("fwd", "dh", "dw")})
     paged = phase_paged_attn(torch, np, dev)
     score = phase_score(torch, np, arch, dev)
+    quant = phase_quant_kernels(torch, np, arch, dev)
     launches, params = phase_serve(torch, np, arch, card, dev)
-    paged_launches = phase_paged_serve(torch, np, arch, params, card, dev)
+    paged_launches, bf16_bytes_per_req = phase_paged_serve(
+        torch, np, arch, params, card, dev)
     del params
     params, score_launches, spec_topk, spec_paged = phase_spec(
         torch, np, arch, card, dev)
     score_launches += phase_eval(torch, np, arch, params, card, dev)
     modes = phase_modes(torch, np, arch, params, card, dev)
+    quant_launches = phase_quant_serve(torch, np, arch, params, card, dev,
+                                       bf16_bytes_per_req)
     del params
     train_launches, train_p50, state = phase_train(torch, np, arch, card,
                                                    dev)
@@ -3060,6 +3743,40 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]})
+    # the quantized-serving options (phase 11's launches, phase 2's cases)
+    topk_q = {n: c for n, c in quant.items() if n.startswith(
+        ("int8_rows", "e4m3_rows"))}
+    for name, kernel, source, line, row, errs in (
+            ("sample_topk_w_scale", "sample_topk",
+             "sample_topk/csrc/sample_topk.cu", "sample_topk/kernel.py:53",
+             quant["int8_rows8_k1"], topk_q.values()),
+            ("score_tokens_w_scale", "score_tokens",
+             "score_tokens/csrc/score_tokens.cu",
+             "score_tokens/kernel.py:54", quant["score_int8_rows32_t0.7"],
+             [quant["score_int8_rows32_t0.7"]]),
+            ("paged_attn_int8", "paged_attn",
+             "paged_attn/csrc/paged_attn.cu", "paged_attn/kernel.py:59",
+             quant["paged_int8_decode"],
+             [quant["paged_int8_decode"], quant["paged_int8_tq5"]]),
+            ("fused_ce_fwd_w_scale", "fused_ce_fwd",
+             "fused_ce/csrc/fused_ce.cu", "fused_ce/kernel.py:80",
+             quant["fwd_int8_rows8192"], [quant["fwd_int8_rows8192"]])):
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": quant_launches.get(kernel, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in errs),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+        if "event_ms" in row:
+            entry["event_ms"] = row["event_ms"]
+        record["kernels"].append(entry)
+    missing = [k["name"] for k in record["kernels"] if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels the main paths never launched: "
+                             f"{missing}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,9 @@ Inputs may be (B, T, d)/(B, T) or already flattened (N, d)/(N,).
 'streaming' (one row block, `block_v` chunks) and 'kernel' (the 64 x 64
 tile grid), so their filtered gradients differ from each other as the
 JAX package's 'streaming' and 'pallas' do; 'canonical' ignores it.
+``w_scale`` marks w as a quantized head (`kernels.quant.quantize_weight`):
+'kernel' and 'auto' then run the forward alone (an eval loss, as the JAX
+package's ``pallas_loss(w_scale=)``); the other impls refuse it.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def fused_cross_entropy(
     impl: str = "auto",
     cfg: Optional[LossConfig] = None,
     plan=None,
+    w_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cross-entropy of ``softmax(h @ w.T)`` against `targets`, fused.
 
@@ -68,7 +72,11 @@ def fused_cross_entropy(
     positions.  `plan` fixes the tiling ('streaming' reads its
     ``block_v``, 'kernel' takes a `CEPlan`; 'canonical' ignores it).
     Returns the scalar loss ('mean'/'sum') or per-row losses ('none')."""
-    impl = resolve_impl(impl, h)
+    impl = "kernel" if impl == "auto" and w_scale is not None else \
+        resolve_impl(impl, h)
+    if w_scale is not None and impl != "kernel":
+        raise ValueError(f"a quantized head (w_scale) is served by "
+                         f"impl='kernel', not {impl!r}")
     cfg = cfg or LossConfig()
     hf, yf = _flatten(h, targets)
     if impl == "canonical":
@@ -77,7 +85,7 @@ def fused_cross_entropy(
         out = streaming_loss(hf, w, yf, cfg, plan=plan)
     else:
         from repro_torch.kernels.fused_ce.ops import kernel_loss
-        out = kernel_loss(hf, w, yf, cfg, plan=plan)
+        out = kernel_loss(hf, w, yf, cfg, plan=plan, w_scale=w_scale)
     if cfg.reduction == "none" and targets.dim() > 1:
         out = out.reshape(targets.shape)
     return out

@@ -59,9 +59,14 @@ class BlockPlan:
 STREAM_COLS = 128             # W rows (vocab columns) a tile
 STREAM_CHUNK = 64             # k columns a ring stage
 STREAM_MAX_STAGES = 8
+STREAM_MAX_STAGES_Q = 8       # a 1-byte W: 128 k columns a stage
+# a 1-byte W's two pairs of widened 128 x 64 bf16 tiles and their 2 x 2
+# mbarriers
+STREAM_CVT_BYTES = 2 * 2 * 128 * 64 * 2 + 2 * 2 * 8
 STREAM_MAX_PER = 511          # tiles a slice: a column in it fits 16 bits
 STREAM_WARPS = 8              # two consumer warpgroups
 SCORE_ROWS_MAX = 256          # score_tokens: rows a row tile
+SCORE_ROWS_MAX_Q = 128        # ... on a 1-byte W (its converter warpgroup)
 TOPK_DECODE_ROWS_MAX = 64     # sample_topk's decode kernel: rows a row tile
 TOPK_MAX_K = 64               # its running list of a row
 TOPK_SELECT_WARPS = 8         # its selection warps (k > 1)
@@ -87,18 +92,24 @@ def stream_row_width(rows: int) -> int:
     return r if r <= 64 else (128 if r <= 128 else 256)
 
 
-def stream_stage_bytes(r: int) -> int:
-    """One ring stage: a 128 x 64 W box and an R x 64 h box, bf16."""
+def stream_stage_bytes(r: int, w_bytes: int = 2) -> int:
+    """One ring stage: a 128 x 64 bf16 W box and an R x 64 h box (64 k
+    columns), or for a 1-byte W (a quantized head) a 128 x 128-byte W box
+    and two R x 64 h boxes (128 k columns)."""
+    if w_bytes == 1:
+        return (STREAM_COLS + 2 * r) * STREAM_CHUNK * 2
     return (STREAM_COLS + r) * STREAM_CHUNK * 2
 
 
-def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue) -> StreamPlan:
+def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue,
+                w_bytes: int = 2) -> StreamPlan:
     """The source's plan (`wstream::plan_grid` + `plan_stages`): as few
     row tiles as `rows_max` allows, R the narrowest width that holds a
     tile's rows, vocab slices of equal tile counts so that the grid has
     ~132 CTAs, and as many ring stages (at most 8) as fit beside the
-    epilogue's ``epilogue(R)`` bytes, the barriers and 1024 bytes of
-    alignment.  d does not enter: a stage holds 64 k columns."""
+    epilogue's ``epilogue(R)`` bytes, a 1-byte W's widened tiles, the
+    barriers and 1024 bytes of alignment.  d does not enter: a stage
+    holds 64 k columns (128 for a 1-byte W)."""
     row_tiles = -(-n_rows // rows_max)
     r = stream_row_width(-(-n_rows // row_tiles))
     n_tiles = -(-vocab // STREAM_COLS)
@@ -106,23 +117,30 @@ def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue) -> StreamPlan:
     per = min(-(-n_tiles // want), STREAM_MAX_PER)
     slices = -(-n_tiles // per)
     fixed = epilogue(r)
-    per_stage = stream_stage_bytes(r) + 16
-    stages = min(STREAM_MAX_STAGES, (SMEM_BYTES - 1024 - fixed) // per_stage)
+    per_stage = stream_stage_bytes(r, w_bytes) + 16
+    cvt = STREAM_CVT_BYTES if w_bytes == 1 else 0
+    most = STREAM_MAX_STAGES_Q if w_bytes == 1 else STREAM_MAX_STAGES
+    stages = min(most, (SMEM_BYTES - 1024 - cvt - fixed) // per_stage)
     return StreamPlan(r, row_tiles, per, slices, stages,
-                      1024 + stages * per_stage + fixed)
+                      1024 + cvt + stages * per_stage + fixed)
 
 
 @functools.lru_cache(maxsize=1024)
-def score_plan(n_rows: int, vocab: int, n_cand: int) -> StreamPlan:
-    """`score_tokens`' plan: row tiles of up to 256 rows; its epilogue
-    keeps the 8 warps' (m, a) of R rows and a candidate list of up to
-    R x n_cand 4-byte entries (`score_tokens.cu` ``epilogue_bytes``)."""
-    return stream_plan(n_rows, vocab, SCORE_ROWS_MAX,
-                       lambda r: 2 * STREAM_WARPS * r * 4 + r * n_cand * 4)
+def score_plan(n_rows: int, vocab: int, n_cand: int,
+               w_bytes: int = 2) -> StreamPlan:
+    """`score_tokens`' plan: row tiles of up to 256 rows (128 on a 1-byte
+    W); its epilogue keeps the 8 warps' (m, a) of R rows and a candidate
+    list of up to R x n_cand 4-byte entries (`score_tokens.cu`
+    ``epilogue_bytes``)."""
+    return stream_plan(n_rows, vocab,
+                       SCORE_ROWS_MAX_Q if w_bytes == 1 else SCORE_ROWS_MAX,
+                       lambda r: 2 * STREAM_WARPS * r * 4 + r * n_cand * 4,
+                       w_bytes)
 
 
 @functools.lru_cache(maxsize=1024)
-def topk_stream_plan(n_rows: int, vocab: int, k: int) -> StreamPlan:
+def topk_stream_plan(n_rows: int, vocab: int, k: int,
+                     w_bytes: int = 2) -> StreamPlan:
     """The decode kernel's plan: row tiles of up to 64 rows; at k = 1 its
     epilogue keeps the 8 warps' best key of R rows (the same bytes then
     hold their (m, a) states for ``return_lse``), above that R sorted
@@ -131,19 +149,21 @@ def topk_stream_plan(n_rows: int, vocab: int, k: int) -> StreamPlan:
     (m, a) states (`sample_topk.cu` ``epilogue_bytes``)."""
     if k == 1:
         return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
-                           lambda r: STREAM_WARPS * r * 8)
+                           lambda r: STREAM_WARPS * r * 8, w_bytes)
     return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
                        lambda r: (r * TOPK_MAX_K * 8 + r * 8
                                   + TOPK_SELECT_WARPS * 2 * STREAM_COLS * 8
                                   + 4 * 8 + 2 * r * (STREAM_COLS + 4) * 4
-                                  + 2 * r * 4))
+                                  + 2 * r * 4), w_bytes)
 
 
 @functools.lru_cache(maxsize=1024)
-def topk_decode_plan(n_rows: int, vocab: int, k: int) -> BlockPlan:
+def topk_decode_plan(n_rows: int, vocab: int, k: int,
+                     w_bytes: int = 2) -> BlockPlan:
     """The decode kernel's plan as the JAX-shaped `BlockPlan` that
-    `cuda_topk` takes: R rows, a slice's columns, its shared memory."""
-    p = topk_stream_plan(n_rows, vocab, k)
+    `cuda_topk` takes: R rows, a slice's columns, its shared memory
+    (`w_bytes` 1 for a quantized head)."""
+    p = topk_stream_plan(n_rows, vocab, k, w_bytes)
     return BlockPlan(p.rows, p.per * STREAM_COLS, p.smem_bytes)
 
 
@@ -241,28 +261,36 @@ def _round16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def paged_smem_bytes(keys: int, head_dim: int, rows: int) -> int:
+def paged_smem_bytes(keys: int, head_dim: int, rows: int,
+                     quant: bool = False) -> int:
     """A CTA's shared memory (`paged_attn.cu` ``smem_bytes``): the K and V
     rings of `keys`-key tiles (head dim padded to 16, rows 16 bytes
     longer), q, the f32 scores (then p as bf16 hi / lo) and acc of the
-    query rows padded to 16, their m, a and alpha, and a flag."""
+    query rows padded to 16, their m, a and alpha, and a flag.  With int8
+    pools (`quant`) the bf16 K and V tiles take one stage, beside the int8
+    rings (rows of head dim + 16 bytes) and the rings of each key's K and
+    V scale."""
     hdp, rp = _round16(head_dim), _round16(rows)
     ldk = hdp + 8
-    return (2 * PAGED_STAGES * keys * ldk * 2 + rp * ldk * 2
+    bf16_stages = 1 if quant else PAGED_STAGES
+    q8 = (2 * PAGED_STAGES * keys * (hdp + 16) + 2 * PAGED_STAGES * keys * 4
+          if quant else 0)
+    return (2 * bf16_stages * keys * ldk * 2 + q8 + rp * ldk * 2
             + rp * (keys + 4) * 4 + rp * (hdp + 4) * 4 + 3 * rp * 4 + 16)
 
 
 @functools.lru_cache(maxsize=1024)
 def paged_plan(batch: int, n_kv: int, table_width: int, block_size: int,
-               head_dim: int, rows: int) -> PagedPlan:
+               head_dim: int, rows: int, quant: bool = False) -> PagedPlan:
     """The source's plan (`paged_attn.cu` ``plan``): the widest tile (64,
     32 or 16 keys) whose shared memory fits, then pages a split such that
     ~`PAGED_SLOTS` CTAs of (row, KV head, split) cover the block table, a
     split's keys a multiple of the tile (the decode shape B 8, nkv 8, 32
-    pages of 16: 4 splits of 8 pages).  `rows` is g * Tq."""
+    pages of 16: 4 splits of 8 pages).  `rows` is g * Tq; `quant` marks
+    int8 pools."""
     keys = PAGED_TILE_KEYS
     while (keys > PAGED_MIN_TILE_KEYS
-           and paged_smem_bytes(keys, head_dim, rows) > SMEM_BYTES):
+           and paged_smem_bytes(keys, head_dim, rows, quant) > SMEM_BYTES):
         keys //= 2
     pairs = batch * n_kv
     want = 1 if pairs >= PAGED_SLOTS else -(-PAGED_SLOTS // pairs)
@@ -270,4 +298,4 @@ def paged_plan(batch: int, n_kv: int, table_width: int, block_size: int,
     split_keys = -(-pages * block_size // keys) * keys
     pps = -(-split_keys // block_size)
     return PagedPlan(keys, pps, -(-table_width // pps),
-                     paged_smem_bytes(keys, head_dim, rows))
+                     paged_smem_bytes(keys, head_dim, rows, quant))

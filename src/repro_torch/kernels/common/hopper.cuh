@@ -13,6 +13,9 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver link
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
@@ -163,6 +166,48 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---------------------------------------------------------------------------
+// 1-byte weights (quantized heads)
+// ---------------------------------------------------------------------------
+
+// A weight tensor's element kind: bf16, or 1 byte (int8, float8 e4m3 or
+// e5m2) with a per-row f32 scale applied to the products.
+enum WKind { kBf16 = 0, kInt8 = 1, kE4M3 = 2, kE5M2 = 3 };
+
+// One int8 value (byte j of word w) as an f32, exactly, on full-rate ALU
+// operations (I2F runs at a quarter of that): the f32 2^23 + 128 + x,
+// built from its bits, minus 2^23 + 128.
+__device__ __forceinline__ float int8_value(uint32_t w, int j) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 + j)) - 8388736.f;
+}
+
+// 8 one-byte values (int8, e4m3 or e5m2; byte i of x is element i) -> 8
+// bf16, exactly: every such value is a bf16 value.  int8 through
+// `int8_value` and the f32s' upper halves; fp8 through the hardware's
+// paired conversion to f16 (exact: both fp8 types lie inside f16's
+// normal and subnormal range), then f32 and bf16.
+__device__ __forceinline__ uint4 widen8(uint2 x, int kind) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t w = i < 2 ? x.x : x.y;
+    const int j = (i & 1) * 2;
+    if (kind == kInt8) {
+      o[i] = __byte_perm(__float_as_uint(int8_value(w, j)),
+                         __float_as_uint(int8_value(w, j + 1)), 0x7632);
+    } else {
+      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+          (__nv_fp8x2_storage_t)((w >> (8 * j)) & 0xffffu),
+          kind == kE4M3 ? __NV_E4M3 : __NV_E5M2);
+      const __nv_bfloat162 b = __float22bfloat162_rn(
+          __half22float2(__half2(hr)));
+      o[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// ---------------------------------------------------------------------------
 // launch attributes
 // ---------------------------------------------------------------------------
 
@@ -233,6 +278,26 @@ inline int make_tmap_bf16(CUtensorMap* map, const void* base, uint64_t rows,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                   const_cast<void*>(base), dims, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A row-major (rows, cols) tensor of 1-byte elements read in (box_rows,
+// box_cols) boxes, box_cols bytes a box row, unswizzled in shared memory;
+// elements past either end load as zeros.  Returns a cudaError_t.
+inline int make_tmap_u8(CUtensorMap* map, const void* base, uint64_t rows,
+                        uint64_t cols, uint32_t box_rows,
+                        uint32_t box_cols = 64) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSharedObjectInitFailed;
+  cuuint64_t dims[2] = {cols, rows};
+  cuuint64_t strides[1] = {cols};
+  cuuint32_t box[2] = {box_cols, box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -30,7 +30,7 @@
 // them on the tensor cores and keeps every logit tile in registers and
 // shared memory.  All three run on wgmma with TMA.
 //
-// Forward (fce_fwd_partial<kStats>): the many-row GEMM of
+// Forward (fce_fwd_partial<kStats, kQ>): the many-row GEMM of
 // common/rowtile.cuh, the main loop it shares with sample_topk's many-row
 // top-1 kernel: a CTA owns 128 rows of h and walks a vocab slice in
 // 256-column W tiles; one producer thread streams 64-wide k chunks of both
@@ -157,21 +157,22 @@ static_assert(rowtile::kRows == 2 * kBwdRows,
 // ...].  kStats: also the tile statistic tmax (num_r, num_v) of the 64 x
 // 64 grid, every entry written by the one CTA that owns it; the other
 // outputs are computed the same way.
-template <bool kStats>
+template <bool kStats, bool kQ>
 __global__ void __launch_bounds__(rowtile::kThreads, 1)
     fce_fwd_partial(const __grid_constant__ CUtensorMap hmap,
                     const __grid_constant__ CUtensorMap wmap,
                     const int* __restrict__ y, float* __restrict__ part,
                     int n, int d, int v_orig, int valid, int col_offset,
                     int n_split, int per, int has_cap, float cap,
-                    int ignore_index, float* __restrict__ tmax) {
+                    int ignore_index, float* __restrict__ tmax,
+                    const float* __restrict__ ws, int kind) {
   using rowtile::kCols;
   extern __shared__ unsigned char smem_raw[];
   // kStats: each consumer warp's max of each quarter, double-buffered by
   // tile parity (a warp rewrites a buffer only after the warpgroup's
   // barrier of the next tile, which the readers of this one have passed)
   __shared__ float sTq[2][8][kQuarters];
-  const rowtile::Ring ring = rowtile::setup(smem_raw);
+  const rowtile::Ring ring = rowtile::setup(smem_raw, kind);
   const int row0 = blockIdx.x * rowtile::kRows;
   const int split = blockIdx.y;
   const int n_tiles = (v_orig + kCols - 1) / kCols;
@@ -183,6 +184,8 @@ __global__ void __launch_bounds__(rowtile::kThreads, 1)
   if (wg == 0) {
     if (threadIdx.x == 0)
       rowtile::produce(ring, &hmap, &wmap, row0, t_begin, t_end, nk);
+    else if (kQ && threadIdx.x >= 32)   // warps 1-3 widen the 1-byte W
+      rowtile::convert(ring, t_begin, t_end, nk, threadIdx.x - 32);
     return;
   }
 
@@ -209,7 +212,7 @@ __global__ void __launch_bounds__(rowtile::kThreads, 1)
   float acc[rowtile::kAcc];
   int it = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
-    rowtile::tile_product(acc, ring, cw, nk, it);
+    rowtile::tile_product<kQ>(acc, ring, cw, nk, it);
     const int c_base = tile * kCols;
     // pass 1: softcap, mask, the sums and each row's max over each
     // quarter (64 columns: a tile of the filter's grid), in place
@@ -224,9 +227,12 @@ __global__ void __launch_bounds__(rowtile::kThreads, 1)
         for (int c = 0; c < 2; ++c) {
           const int local = c_base + 8 * j + 2 * t + c;
           const bool live = local < v_orig && local + col_offset < valid;
+          float sc = 1.f;
+          if constexpr (kQ) sc = local < v_orig ? __ldg(ws + local) : 1.f;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             float z = acc[4 * j + 2 * i + c];
+            if constexpr (kQ) z *= sc;
             if (has_cap) z = cap * tanhf(z / cap);
             if (live) {
               zs[i] += z;
@@ -899,32 +905,39 @@ void fused_ce_fwd_plan(int n, int v_orig, int* out) {
 // Forward statistics: part is (n, n_split, 4) f32 scratch; lse, ztgt, zsum
 // are (n,) f32.  tmax, when not null, receives the (ceil(n/64),
 // ceil(v_orig/64)) f32 tile statistic over the rows whose y is not
-// ignore_index.  Returns the cudaError_t of the launches.
+// ignore_index.  W's elements are of hopper::WKind `kind` (bf16, or 1
+// byte: int8, e4m3, e5m2); ws is the (v_orig,) f32 scale of each column,
+// given exactly with a 1-byte W, and not with tmax.  Returns the
+// cudaError_t of the launches.
 int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
                         void* part, void* lse, void* ztgt, void* zsum, int n,
                         int d, int v_orig, int valid, int col_offset,
                         int n_split, int has_cap, float cap, int ignore_index,
-                        void* tmax, void* stream) {
+                        void* tmax, const void* ws, int kind, void* stream) {
   if (n < 1 || v_orig < 1 || d < rowtile::kChunk || d % rowtile::kChunk ||
-      n_split < 1 || n_split > 65535)
+      n_split < 1 || n_split > 65535 || kind < 0 || kind > hopper::kE5M2 ||
+      (tmax && ws) || (ws != nullptr) != (kind != hopper::kBf16))
     return (int)cudaErrorInvalidValue;
-  static int given[2][hopper::kMaxDevices];
-  const auto kern = tmax ? fce_fwd_partial<true> : fce_fwd_partial<false>;
+  static int given[3][hopper::kMaxDevices];
+  const int variant = tmax ? 1 : (ws ? 2 : 0);
+  const auto kern = variant == 1   ? fce_fwd_partial<true, false>
+                    : variant == 2 ? fce_fwd_partial<false, true>
+                                   : fce_fwd_partial<false, false>;
+  const int smem = (int)(kind ? rowtile::kSmemQ : rowtile::kSmem);
   cudaError_t err = hopper::raise_smem_limit(
-      reinterpret_cast<const void*>(kern), (int)rowtile::kSmem,
-      given[tmax ? 1 : 0]);
+      reinterpret_cast<const void*>(kern), smem, given[variant]);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap hmap, wmap;
-  const int e = rowtile::make_maps(&hmap, &wmap, h, w, n, v_orig, d);
+  const int e = rowtile::make_maps(&hmap, &wmap, h, w, n, v_orig, d, kind);
   if (e) return e;
   const int n_tiles = (v_orig + rowtile::kCols - 1) / rowtile::kCols;
   const int per = (n_tiles + n_split - 1) / n_split;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid((n + rowtile::kRows - 1) / rowtile::kRows, n_split);
-  kern<<<grid, rowtile::kThreads, rowtile::kSmem, s>>>(
+  kern<<<grid, rowtile::kThreads, smem, s>>>(
       hmap, wmap, static_cast<const int*>(y), static_cast<float*>(part), n,
       d, v_orig, valid, col_offset, n_split, per, has_cap, cap, ignore_index,
-      static_cast<float*>(tmax));
+      static_cast<float*>(tmax), static_cast<const float*>(ws), kind);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fce_fwd_merge<<<(n + 255) / 256, 256, 0, s>>>(

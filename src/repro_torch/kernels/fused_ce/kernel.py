@@ -44,10 +44,16 @@ a filtered call past that (dH over V > 389,120 columns, dW over more
 than 389,120 rows) runs as several launches over slices of the streamed
 axis whose f32 partials are summed (`filtered_parts`).
 
+The forward also takes a quantized head, as the JAX kernel's
+``w_scale``: w int8, float8_e4m3fn or float8_e5m2 and a (V,) f32 scale a
+column.  W then streams at 1 byte a weight, widened to bf16 in shared
+memory, and each logit is multiplied by its scale before the softcap.
+It is an eval-only path: the tile statistic is refused with it, and the
+backward refuses 1-byte weights, as the reference's does.
+
 `ref_stats` / `ref_grads` (`ref.py`) are the plain versions.  The
 wrappers run them for tensors on the CPU; for CUDA tensors they launch
-the kernels or raise.  ``w_scale`` (quantized heads, ROADMAP A6) raises
-NotImplementedError on every device.
+the kernels or raise.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from repro_torch.core.windows import (CE_TILE_COLS, CE_TILE_ROWS, CEPlan,
                                       ce_tile_grid, choose_ce_plan)
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_ce.ref import ref_dh, ref_dw, ref_stats
+from repro_torch.kernels.quant import w_kind
 
 # the forward counts its launches with and without the tile statistic
 # together; dH and dW count the exact and the filtered kernels apart
@@ -86,7 +93,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_ce")
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_ce_fwd_launch.argtypes = [p] * 7 + [i] * 7 + [f, i, p, p]
+        lib.fused_ce_fwd_launch.argtypes = ([p] * 7 + [i] * 7
+                                            + [f, i, p, p, i, p])
         lib.fused_ce_fwd_launch.restype = i
         for fn in (lib.fused_ce_dh_launch, lib.fused_ce_dw_launch):
             fn.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
@@ -107,14 +115,15 @@ def _raise_on(err: int, what: str, lib) -> None:
                            + lib.fused_ce_error_string(err).decode())
 
 
-def _check_cuda(h, w, y, *row_stats):
+def _check_cuda(h, w, y, *row_stats, quantized: bool = False):
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")
     for name, t in (("w", w), ("y", y)) + tuple(
             (f"row stat {i}", s) for i, s in enumerate(row_stats)):
         if t.device != h.device:
             raise ValueError(f"{name} lies on {t.device}, h on {h.device}")
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    if h.dtype != torch.bfloat16 or (w.dtype != torch.bfloat16
+                                     and not quantized):
         raise ValueError(f"the kernels take bf16 h and w, got {h.dtype} "
                          f"and {w.dtype}")
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
@@ -159,17 +168,35 @@ def fwd_stats(
     tensor on the `ce_tile_grid`: each 64 x 64 tile's max post-softcap
     logit over live rows and valid columns, -inf where it has none (the
     gradient filter's statistic).  The first three are computed the same
-    way either way."""
-    if w_scale is not None:
-        raise NotImplementedError("quantized lm_head weights (w_scale) come "
-                                  "with ROADMAP A6")
+    way either way.
+
+    `w_scale` (V,) f32 marks w as a quantized head (int8, float8_e4m3fn
+    or float8_e5m2, which on the card come with it and only with it):
+    each logit is multiplied by its column's scale before the softcap.
+    It does not go with `return_tile_stats` (ValueError on every
+    device)."""
+    if w_scale is not None and return_tile_stats:
+        raise ValueError("the tile statistic is not taken on a quantized "
+                         "head (w_scale): the gradient filter never runs "
+                         "on one")
     valid = _valid(cfg, w.shape[0], total_valid)
     if h.device.type == "cpu":
         return ref_stats(h, w, y, cfg, col_offset=col_offset,
                          total_valid=valid,
-                         return_tile_stats=return_tile_stats)
+                         return_tile_stats=return_tile_stats,
+                         w_scale=w_scale)
     y = y.to(torch.int32).contiguous()
-    _check_cuda(h, w, y)
+    quantized = w_scale is not None
+    _check_cuda(h, w, y, quantized=quantized)
+    kind = w_kind(w.dtype)
+    if quantized != (w.element_size() == 1):
+        raise ValueError("the forward kernel takes w_scale with a 1-byte w "
+                         f"(int8, float8_e4m3fn, float8_e5m2) and only "
+                         f"then, got {w.dtype} and w_scale "
+                         f"{'set' if quantized else 'None'}")
+    if quantized:
+        from repro_torch.kernels.sample_topk.kernel import check_w_scale
+        check_w_scale(w_scale, w, h)
     n, d = h.shape
     v = w.shape[0]
     lib = _lib()
@@ -192,7 +219,8 @@ def fwd_stats(
             lse.data_ptr(), ztgt.data_ptr(), zsum.data_ptr(), n, d, v,
             int(valid), int(col_offset), plan.v_splits, has_cap, cap,
             int(cfg.ignore_index), tmax.data_ptr() if return_tile_stats
-            else None, stream)
+            else None, w_scale.data_ptr() if quantized else None, kind,
+            stream)
     _raise_on(err, "fused_ce forward", lib)
     FWD_LAUNCHES.inc()
     if return_tile_stats:

@@ -9,7 +9,9 @@ by the kernels of `kernel.py`: the same residuals as the JAX custom VJP,
 from it — the per-row ``gamma`` and ``p_coeff = gamma (1 + 2 z_loss
 lse)`` in the backward, and dH / dW cast to the input dtypes.  No tuning
 cache yet: the plan comes from `choose_ce_plan` unless the caller fixes
-one.
+one.  With ``w_scale`` (a quantized head) it is the JAX package's
+``pallas_loss(w_scale=)``: the forward alone, for eval; differentiating
+through it raises, since training keeps a full-precision head.
 """
 
 from __future__ import annotations
@@ -53,14 +55,38 @@ class _KernelLoss(torch.autograd.Function):
         return dh.to(h.dtype), dw.to(w.dtype), None, None, None
 
 
+class _QuantizedLoss(torch.autograd.Function):
+    """The loss on a quantized head: forward only."""
+
+    @staticmethod
+    def forward(ctx, h, w, w_scale, y, cfg: LossConfig,
+                plan: Optional[CEPlan]):
+        lse, z_tgt, z_sum = K.fwd_stats(h, w, y, cfg, plan=plan,
+                                        w_scale=w_scale)
+        valid = cfg.resolve_vocab(w.shape[0])
+        rows = rows_from_stats(lse, z_tgt, z_sum, y, valid, cfg)
+        return reduce_loss(rows, y, cfg)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        raise NotImplementedError(
+            "the fused-CE loss on a quantized head (w_scale) is forward / "
+            "eval only: train against a full-precision lm_head")
+
+
 def kernel_loss(
     h: torch.Tensor,
     w: torch.Tensor,
     y: torch.Tensor,
     cfg: Optional[LossConfig] = None,
     plan: Optional[CEPlan] = None,
+    *,
+    w_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused projection + CE through the kernels (CUDA tensors) or their
-    plain versions (CPU tensors)."""
+    plain versions (CPU tensors).  `w_scale` (V,) f32 marks w as a
+    quantized head (`kernels.quant.quantize_weight`): forward only."""
     cfg = cfg or LossConfig()
+    if w_scale is not None:
+        return _QuantizedLoss.apply(h, w, w_scale, y, cfg, plan)
     return _KernelLoss.apply(h, w, y, cfg, plan)

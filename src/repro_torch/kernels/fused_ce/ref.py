@@ -26,8 +26,11 @@ from repro_torch.core.windows import CE_TILE_COLS, CE_TILE_ROWS, ce_tile_grid
 _NEG_INF = float("-inf")
 
 
-def _logits(h, w, cfg: LossConfig, col_offset: int, valid: int):
+def _logits(h, w, cfg: LossConfig, col_offset: int, valid: int,
+            w_scale=None):
     z = h.float() @ w.float().T
+    if w_scale is not None:
+        z = z * w_scale.float()[None, :]
     if cfg.logit_softcap is not None:
         cap = cfg.logit_softcap
         z = cap * torch.tanh(z / cap)
@@ -52,14 +55,18 @@ def _tiles(t: torch.Tensor, fill: float) -> torch.Tensor:
 
 def ref_stats(h, w, y, cfg: LossConfig, *, col_offset: int = 0,
               total_valid: Optional[int] = None,
-              return_tile_stats: bool = False) -> Tuple[torch.Tensor, ...]:
+              return_tile_stats: bool = False,
+              w_scale: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, ...]:
     """(lse, z_target, z_sum) per row — plain version of the forward.
 
     With `return_tile_stats`, a fourth (row tiles, vocab tiles) f32
     tensor: each 64 x 64 tile's max logit over live rows (y not ignored)
-    and valid columns, -inf where it has none."""
+    and valid columns, -inf where it has none.  `w_scale` (V,) marks w
+    as a quantized head: each logit column is multiplied by its scale
+    after the dot, before the softcap."""
     valid = _valid(cfg, w.shape[0], total_valid)
-    z, col, col_valid = _logits(h, w, cfg, col_offset, valid)
+    z, col, col_valid = _logits(h, w, cfg, col_offset, valid, w_scale)
     lse = torch.logsumexp(z, dim=-1)
     # a target on a masked column contributes 0 (the TP merge convention)
     is_tgt = (col[None, :] == y.long()[:, None]) & col_valid[None, :]

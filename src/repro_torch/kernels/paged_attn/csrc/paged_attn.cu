@@ -57,6 +57,18 @@
 //     no order-dependent sums, so two calls give the same bits.  (The
 //     splits of a (row, head) as one thread-block cluster, merging
 //     through distributed shared memory, was tried and ran slower.)
+//
+// int8 pools (the JAX kernel's kp_scale / vp_scale): kp/vp hold int8 values
+// and kps/vps (N, bs, nkv, 1) f32 scales a (token, KV head), reached
+// through the same table entries as the pages.  The cp.async ring stages
+// the int8 rows (half the bytes) and each key's two scales; once a tile
+// has landed, K becomes bf16(float(k) * ks[token]) -- the reference's
+// (k.astype(f32) * ks).astype(q.dtype), bit for bit -- and V becomes
+// bf16(v), which is exact, in a one-stage bf16 tile that feeds the same
+// mma path.  The reference forms p @ (v * vs) in f32; here vs[token]
+// folds into p before the hi + lo split (p' = p * vs, f32), so that the
+// product with the exact bf16(v) keeps p's 2^-17 split error.  The row
+// sum a takes the unscaled p.  Nothing dequantized reaches global memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,13 +92,19 @@ constexpr int kMaxSmem = 232448;       // 227 KB a block on the H100
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
 // Shared memory of a CTA with tiles of kt keys, head dim hd and `rows`
-// query rows: the K and V rings, q, the scores (then p as bf16 hi / lo),
-// acc, and m, a, alpha, then a flag.
-__host__ __device__ inline int smem_bytes(int kt, int hd, int rows) {
+// query rows: the K and V rings (bf16), q, the scores (then p as bf16 hi /
+// lo), acc, and m, a, alpha, then a flag.  With int8 pools (`quant`) the
+// bf16 K and V tiles take one stage (the converted tile), beside the int8
+// rings (rows hdp + 16 bytes) and the rings of each key's K and V scale.
+__host__ __device__ inline int smem_bytes(int kt, int hd, int rows,
+                                          int quant) {
   const int hdp = round16(hd), rp = round16(rows);
   const int ldk = hdp + 8;
-  return 2 * kStages * kt * ldk * 2 + rp * ldk * 2 + rp * (kt + 4) * 4 +
-         rp * (hdp + 4) * 4 + 3 * rp * 4 + 16;
+  const int bf16_stages = quant ? 1 : kStages;
+  const int q8 = quant ? 2 * kStages * kt * (hdp + 16) + 2 * kStages * kt * 4
+                       : 0;
+  return 2 * bf16_stages * kt * ldk * 2 + q8 + rp * ldk * 2 +
+         rp * (kt + 4) * 4 + rp * (hdp + 4) * 4 + 3 * rp * 4 + 16;
 }
 
 struct Plan {
@@ -96,12 +114,13 @@ struct Plan {
 // The launch plan: the widest tile (64, 32 or 16 keys) whose shared memory
 // fits, and pages a split such that ~kSlots CTAs cover the table, a
 // split's keys a multiple of the tile.
-inline Plan plan(int b, int nkv, int nb, int bs, int hd, int rows) {
+inline Plan plan(int b, int nkv, int nb, int bs, int hd, int rows,
+                 int quant) {
   Plan p;
   p.kt = kTileKeys;
-  while (p.kt > kMinTileKeys && smem_bytes(p.kt, hd, rows) > kMaxSmem)
+  while (p.kt > kMinTileKeys && smem_bytes(p.kt, hd, rows, quant) > kMaxSmem)
     p.kt /= 2;
-  p.smem = smem_bytes(p.kt, hd, rows);
+  p.smem = smem_bytes(p.kt, hd, rows, quant);
   const int pairs = b * nkv;
   const int want = pairs >= kSlots ? 1 : (kSlots + pairs - 1) / pairs;
   const int pages = (nb + want - 1) / want;
@@ -117,6 +136,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    hopper::smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4-byte async copy (a scale); `pred` false fills zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -158,13 +185,16 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (B, nkv, splits), kThreads threads, smem_bytes(kt, hd, g * tq).
-// Query row r of a CTA is (gi, ti) = (r / tq, r % tq): head n * g + gi,
-// position lens[b] - tq + ti.  part holds (B, nkv, splits) partials of
-// rows * (hd + 2) f32 (m, a, then acc), counts (B, nkv) zeros.
+// grid (B, nkv, splits), kThreads threads, smem_bytes(kt, hd, g * tq,
+// kQ).  Query row r of a CTA is (gi, ti) = (r / tq, r % tq): head n * g +
+// gi, position lens[b] - tq + ti.  part holds (B, nkv, splits) partials of
+// rows * (hd + 2) f32 (m, a, then acc), counts (B, nkv) zeros.  kQ: kp/vp
+// are int8 pools and kps/vps their f32 scale pools.
+template <bool kQ>
 __global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                  const bf16* __restrict__ vp, const int* __restrict__ table,
+paged_attn_kernel(const bf16* __restrict__ q, const void* __restrict__ kpv,
+                  const void* __restrict__ vpv, const float* __restrict__ kps,
+                  const float* __restrict__ vps, const int* __restrict__ table,
                   const int* __restrict__ lens, bf16* __restrict__ out,
                   float* __restrict__ part, int* __restrict__ counts,
                   int n_pool, int bs, int nkv, int hd, int nb, int tq, int g,
@@ -185,10 +215,20 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int lds = kt + 4;                     // f32 scores of a row
   const int ldo = hdp + 4;
   const int nq = nkv * g;
+  constexpr int kBufStages = kQ ? 1 : kStages;  // bf16 K / V tiles
+  const int ldq = hdp + 16;                   // int8 ring row, bytes
 
   bf16* kbuf = reinterpret_cast<bf16*>(smem);
-  bf16* vbuf = kbuf + kStages * kt * ldk;
-  bf16* qs = vbuf + kStages * kt * ldk;
+  bf16* vbuf = kbuf + kBufStages * kt * ldk;
+  int8_t* kq8 = reinterpret_cast<int8_t*>(vbuf + kBufStages * kt * ldk);
+  int8_t* vq8 = kq8 + (kQ ? kStages * kt * ldq : 0);
+  float* ksc = reinterpret_cast<float*>(vq8 + (kQ ? kStages * kt * ldq : 0));
+  float* vsc = ksc + (kQ ? kStages * kt : 0);
+  bf16* qs = reinterpret_cast<bf16*>(vsc + (kQ ? kStages * kt : 0));
+  const bf16* kp = static_cast<const bf16*>(kpv);
+  const bf16* vp = static_cast<const bf16*>(vpv);
+  const int8_t* kp8 = static_cast<const int8_t*>(kpv);
+  const int8_t* vp8 = static_cast<const int8_t*>(vpv);
   float* sc = reinterpret_cast<float*>(qs + rp * ldk);
   float* acc = sc + rp * lds;
   float* m = acc + rp * ldo;
@@ -227,6 +267,32 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int chunks = hd / 8;                  // 16-byte pieces of a row
 
   auto load_tile = [&](int tile, int stage) {
+    if (kQ) {                                 // int8 rows, 16 a copy
+      int8_t* kd = kq8 + stage * kt * ldq;
+      int8_t* vd = vq8 + stage * kt * ldq;
+      const int c16 = hd / 16;
+      for (int e = tid; e < kt * (c16 + 1); e += kThreads) {
+        const int t = e / (c16 + 1);
+        const int c = e - t * (c16 + 1);      // c16: the two scales
+        const int kpos = k0 + tile * kt + t;
+        const bool ok = kpos < k1;
+        size_t tok = 0;
+        if (ok) {
+          const int page = kpos / bs;
+          int blk = table[(size_t)b * nb + page];
+          blk = min(max(blk, 0), n_pool - 1);
+          tok = ((size_t)blk * bs + (kpos - page * bs)) * nkv + n;
+        }
+        if (c < c16) {
+          cp_async16(kd + t * ldq + 16 * c, kp8 + tok * hd + 16 * c, ok);
+          cp_async16(vd + t * ldq + 16 * c, vp8 + tok * hd + 16 * c, ok);
+        } else {
+          cp_async4(ksc + stage * kt + t, kps + tok, ok);
+          cp_async4(vsc + stage * kt + t, vps + tok, ok);
+        }
+      }
+      return;
+    }
     bf16* kd = kbuf + stage * kt * ldk;
     bf16* vd = vbuf + stage * kt * ldk;
     for (int e = tid; e < kt * chunks; e += kThreads) {
@@ -255,7 +321,7 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   // the head-dim padding of the ring is never copied: zero it; clear acc
   // and the row state
   if (hdp > hd)
-    for (int e = tid; e < 2 * kStages * kt * (hdp - hd); e += kThreads) {
+    for (int e = tid; e < 2 * kBufStages * kt * (hdp - hd); e += kThreads) {
       const int r = e / (hdp - hd);
       kbuf[r * ldk + hd + (e - r * (hdp - hd))] = __float2bfloat16_rn(0.f);
     }
@@ -273,9 +339,47 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     cp_async_wait<kStages - 1>();             // q and tile `it` have landed
     __syncthreads();                          // ... for every thread
     const int stage = it % kStages;
-    const bf16* ks = kbuf + stage * kt * ldk;
-    const bf16* vs = vbuf + stage * kt * ldk;
+    const bf16* ks = kbuf + (kQ ? 0 : stage) * kt * ldk;
+    const bf16* vs = vbuf + (kQ ? 0 : stage) * kt * ldk;
     const int key0 = k0 + it * kt;
+    if (kQ) {
+      // widen the landed int8 tile: K to bf16(k * ks), V to bf16(v)
+      const int8_t* kr = kq8 + stage * kt * ldq;
+      const int8_t* vr = vq8 + stage * kt * ldq;
+      const float* kss = ksc + stage * kt;
+      const int c8 = hd / 8;
+      for (int e = tid; e < kt * c8; e += kThreads) {
+        const int t = e / c8;
+        const int c = (e - t * c8) * 8;
+        const uint2 kw = *reinterpret_cast<const uint2*>(kr + t * ldq + c);
+        const uint2 vw = *reinterpret_cast<const uint2*>(vr + t * ldq + c);
+        const float sk = kss[t];
+        uint32_t ko[4], vo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t kx = i < 2 ? kw.x : kw.y;
+          const uint32_t vx = i < 2 ? vw.x : vw.y;
+          const int j = (i & 1) * 2;
+          const float k0f = hopper::int8_value(kx, j);
+          const float k1f = hopper::int8_value(kx, j + 1);
+          const float v0f = hopper::int8_value(vx, j);
+          const float v1f = hopper::int8_value(vx, j + 1);
+          const bf16 a0 = __float2bfloat16_rn(__fmul_rn(k0f, sk));
+          const bf16 a1 = __float2bfloat16_rn(__fmul_rn(k1f, sk));
+          const bf16 b0 = __float2bfloat16_rn(v0f);
+          const bf16 b1 = __float2bfloat16_rn(v1f);
+          ko[i] = (uint32_t)__bfloat16_as_ushort(a0) |
+                  ((uint32_t)__bfloat16_as_ushort(a1) << 16);
+          vo[i] = (uint32_t)__bfloat16_as_ushort(b0) |
+                  ((uint32_t)__bfloat16_as_ushort(b1) << 16);
+        }
+        *reinterpret_cast<uint4*>(kbuf + t * ldk + c) =
+            make_uint4(ko[0], ko[1], ko[2], ko[3]);
+        *reinterpret_cast<uint4*>(vbuf + t * ldk + c) =
+            make_uint4(vo[0], vo[1], vo[2], vo[3]);
+      }
+      __syncthreads();
+    }
 
     // S = q k^T: warp pairs (m tile, 8-key n tile)
     const int nkt = kt / 8;
@@ -353,9 +457,11 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
         for (int j = 0; j < kTileKeys / 8; ++j) {
           const int t = li + 8 * j;
           if (t < kt) {
-            const bf16 h = __float2bfloat16_rn(v[j]);
+            // int8 V: the key's scale folds into p before the split
+            const float pv = kQ ? v[j] * vsc[stage * kt + t] : v[j];
+            const bf16 h = __float2bfloat16_rn(pv);
             hi[t] = h;
-            lo[t] = __float2bfloat16_rn(v[j] - __bfloat162float(h));
+            lo[t] = __float2bfloat16_rn(pv - __bfloat162float(h));
           }
         }
         if (li == 0) {
@@ -490,12 +596,13 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
 extern "C" {
 
-// The launch plan for (B, nkv, nb, bs, hd, rows = g * Tq): {tile keys,
+// The launch plan for (B, nkv, nb, bs, hd, rows = g * Tq, int8 pools or
+// not): {tile keys,
 // pages a split, splits, dynamic shared memory} into out[0..3] (the
 // wrapper's Python mirror, core.windows.paged_plan, must agree).
 void paged_attn_plan(int b, int nkv, int nb, int bs, int hd, int rows,
-                     int* out) {
-  const Plan p = plan(b, nkv, nb, bs, hd, rows);
+                     int quant, int* out) {
+  const Plan p = plan(b, nkv, nb, bs, hd, rows, quant);
   out[0] = p.kt;
   out[1] = p.pps;
   out[2] = p.splits;
@@ -504,25 +611,30 @@ void paged_attn_plan(int b, int nkv, int nb, int bs, int hd, int rows,
 
 // Launches on `stream`; returns the cudaError_t of the launch.  part is
 // (B, nkv, splits, g * tq, hd + 2) f32 scratch (unused with one split),
-// counts (B, nkv) int32 that are zero and left zero.
+// counts (B, nkv) int32 that are zero and left zero.  kps / vps, when not
+// null, are the (N, bs, nkv, 1) f32 scale pools of int8 kp / vp (both or
+// neither; hd % 16 == 0).
 int paged_attn_launch(const void* q, const void* kp, const void* vp,
-                      const void* table, const void* lens, void* out,
-                      void* part, void* counts, int b, int tq, int nq,
-                      int nkv, int hd, int n_pool, int bs, int nb,
-                      float scale, int has_softcap, float softcap,
-                      void* stream) {
+                      const void* kps, const void* vps, const void* table,
+                      const void* lens, void* out, void* part, void* counts,
+                      int b, int tq, int nq, int nkv, int hd, int n_pool,
+                      int bs, int nb, float scale, int has_softcap,
+                      float softcap, void* stream) {
   const int g = nq / nkv;
-  const Plan p = plan(b, nkv, nb, bs, hd, g * tq);
-  if (p.smem > kMaxSmem || hd % 8 || p.splits > 65535)
+  const int quant = kps != nullptr;
+  const Plan p = plan(b, nkv, nb, bs, hd, g * tq, quant);
+  if (p.smem > kMaxSmem || hd % 8 || p.splits > 65535 ||
+      (vps != nullptr) != quant || (quant && hd % 16))
     return (int)cudaErrorInvalidValue;
-  static int given[hopper::kMaxDevices];
+  static int given[2][hopper::kMaxDevices];
+  const auto kern = quant ? paged_attn_kernel<true> : paged_attn_kernel<false>;
   cudaError_t err = hopper::raise_smem_limit(
-      reinterpret_cast<const void*>(paged_attn_kernel), p.smem, given);
+      reinterpret_cast<const void*>(kern), p.smem, given[quant]);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  paged_attn_kernel<<<dim3(b, nkv, p.splits), kThreads, p.smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), static_cast<const int*>(table),
+  kern<<<dim3(b, nkv, p.splits), kThreads, p.smem, s>>>(
+      static_cast<const bf16*>(q), kp, vp, static_cast<const float*>(kps),
+      static_cast<const float*>(vps), static_cast<const int*>(table),
       static_cast<const int*>(lens), static_cast<bf16*>(out),
       static_cast<float*>(part), static_cast<int*>(counts), n_pool, bs, nkv,
       hd, nb, tq, g, p.kt, p.pps, p.splits, scale, has_softcap, softcap);

@@ -19,14 +19,20 @@ fills the card; K/V stream through a cp.async ring, and scores and
 query rows as zero-padded m16 tiles and p kept to f32 precision as two
 bf16 halves; the last split of a (row, head) to finish merges the
 partials in split order (a counter in global memory, reset by that CTA),
-so a call is one launch.
+so a call is one launch.  int8 pools (the JAX kernel's ``kp_scale`` /
+``vp_scale``) stage int8 rows and each key's two f32 scales through the
+same ring; a landed tile widens to bf16 in shared memory (K as
+``bf16(k * ks)``, the reference's rounding, and V exactly, its scale
+folded into p), so the rest of the kernel is the bf16 one.
 
 Contract (the JAX kernel's, minus its tunable ``pages_per_step``, which
 waits for the autotuner, ROADMAP A2 item 4): q (B, Tq, nq, hd), kp/vp
 (N, bs, nkv, hd), table (B, nb) int32 chains (null block 0 past each
 chain), lens (B,) int32 lengths after the Tq appends.  Query ``i`` sits
 at ``lens - Tq + i``; rows with ``lens == 0`` give zeros.  Output
-(B, Tq, nq, hd) in q's dtype.
+(B, Tq, nq, hd) in q's dtype.  With ``kp_scale`` / ``vp_scale`` (both or
+neither, (N, bs, nkv, 1) f32) kp/vp hold int8 values: K is dequantized to
+q's dtype before the score dot, V in f32 (`_decode_quantized`'s rule).
 
 `paged_attention_ref` is the plain PyTorch version.  `paged_attention`
 runs it for tensors on the CPU; for CUDA tensors it launches the kernel
@@ -57,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attn")
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attn_launch.argtypes = [p] * 8 + [i] * 8 + [f, i, f, p]
+        lib.paged_attn_launch.argtypes = [p] * 10 + [i] * 8 + [f, i, f, p]
         lib.paged_attn_launch.restype = i
         lib.paged_attn_error_string.argtypes = [i]
         lib.paged_attn_error_string.restype = ctypes.c_char_p
@@ -76,16 +82,33 @@ def _split_counts(dev: torch.device, pairs: int) -> torch.Tensor:
     return counts
 
 
-def _check_cuda_args(q, kp, vp, table, lens):
+def _check_cuda_args(q, kp, vp, table, lens, kp_scale=None, vp_scale=None):
     tensors = {"q": q, "kp": kp, "vp": vp, "table": table, "lens": lens}
+    quant = kp_scale is not None
+    if quant:
+        tensors.update(kp_scale=kp_scale, vp_scale=vp_scale)
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1 or not q.is_cuda:
         raise ValueError("q, kp, vp, table and lens must lie on one CUDA "
                          "device, got " + ", ".join(
                              f"{k} {t.device}" for k, t in tensors.items()))
-    for name, t in (("q", q), ("kp", kp), ("vp", vp)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"the kernel takes bf16 {name}, got {t.dtype}")
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes bf16 q, got {q.dtype}")
+    for name, t in (("kp", kp), ("vp", vp)):
+        if t.dtype != pool_dtype:
+            raise ValueError(f"the kernel takes {'int8' if quant else 'bf16'}"
+                             f" {name}{' with scale pools' if quant else ''}"
+                             f", got {t.dtype}")
+    if quant:
+        want = tuple(kp.shape[:-1]) + (1,)
+        for name, t in (("kp_scale", kp_scale), ("vp_scale", vp_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name} must be {want} f32, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        if q.shape[-1] % 16:
+            raise ValueError(f"int8 pools need head_dim % 16 == 0, got "
+                             f"{q.shape[-1]}")
     for name, t in (("table", table), ("lens", lens)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
@@ -126,27 +149,30 @@ def paged_attention(
 
     CPU tensors go to `paged_attention_ref`.  CUDA tensors go to the
     kernel, which takes bf16 q and pools, int32 table and lens, all
-    contiguous on one device, ``hd % 8 == 0`` and ``hd <= 256``; it
-    raises ValueError on anything else.  int8 pools with scale pools
-    (`kp_scale` / `vp_scale`) come with ROADMAP A6."""
-    if kp_scale is not None or vp_scale is not None:
-        raise NotImplementedError("int8 paged KV pools (kp_scale / "
-                                  "vp_scale) come with ROADMAP A6")
+    contiguous on one device, ``hd % 8 == 0`` and ``hd <= 256``, or int8
+    pools with their (N, bs, nkv, 1) f32 scale pools `kp_scale` /
+    `vp_scale` and ``hd % 16 == 0``; it raises ValueError on anything
+    else.  A scale pool without the other raises on every device."""
+    if (kp_scale is None) != (vp_scale is None):
+        raise ValueError("kp_scale and vp_scale come together: one was "
+                         "given without the other")
+    quant = kp_scale is not None
     if q.device.type == "cpu":
-        return paged_attention_ref(q, kp, vp, table, lens, softcap=softcap)
-    _check_cuda_args(q, kp, vp, table, lens)
+        return paged_attention_ref(q, kp, vp, table, lens, softcap=softcap,
+                                   kp_scale=kp_scale, vp_scale=vp_scale)
+    _check_cuda_args(q, kp, vp, table, lens, kp_scale, vp_scale)
     b, tq, nq, hd = q.shape
     n_pool, bs, nkv, _ = kp.shape
     nb = table.shape[1]
     rows = (nq // nkv) * tq
-    plan = paged_plan(b, nkv, nb, bs, hd, rows)
+    plan = paged_plan(b, nkv, nb, bs, hd, rows, quant)
     if plan.smem_bytes > SMEM_BYTES:
         raise ValueError(f"{plan.smem_bytes} bytes of shared memory a block "
                          f"(head_dim {hd}, {rows} query rows a KV head) "
                          f"exceed the card's {SMEM_BYTES}")
     lib = _lib()
     build.check_plan_twin(lib, "paged_attn_plan",
-                          (b, nkv, nb, bs, hd, rows), plan)
+                          (b, nkv, nb, bs, hd, rows, int(quant)), plan)
     dev = q.device
     out = torch.empty_like(q)
     part = (torch.empty((b * nkv * plan.splits * rows * (hd + 2),),
@@ -155,7 +181,9 @@ def paged_attention(
     counts = _split_counts(dev, b * nkv)
     with torch.cuda.device(dev):          # a no-op on the current device
         err = lib.paged_attn_launch(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            kp_scale.data_ptr() if quant else None,
+            vp_scale.data_ptr() if quant else None, table.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
             part.data_ptr() if part is not None else None,
             counts.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs, nb,

@@ -7,7 +7,9 @@ the optional tanh softcap, causal on absolute positions (query ``i``
 sits at ``lens - Tq + i``), ``p = exp(s - m)`` kept in f32 for the
 ``p @ v`` sum, ``out = acc / max(a, 1e-30)`` cast to q's dtype.  The
 kernel wrapper runs it for tensors on the CPU; on the card it is the
-kernel's yardstick (`chip_smoke.py`, the `cuda` tests).
+kernel's yardstick (`chip_smoke.py`, the `cuda` tests).  With int8
+pools and their scale pools it dequantizes as
+`models.attention._decode_quantized` does: K to q's dtype, V in f32.
 """
 
 from __future__ import annotations
@@ -31,13 +33,21 @@ def gather_paged_kv(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                         table: torch.Tensor, lens: torch.Tensor, *,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        kp_scale: Optional[torch.Tensor] = None,
+                        vp_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """q (B, Tq, nq, hd) over the chains of kp/vp (N, bs, nkv, hd) ->
-    (B, Tq, nq, hd) in q's dtype; rows with ``lens == 0`` give zeros."""
+    (B, Tq, nq, hd) in q's dtype; rows with ``lens == 0`` give zeros.
+    `kp_scale` / `vp_scale` ((N, bs, nkv, 1) f32) mark int8 pools."""
     b, tq, nq, hd = q.shape
     nkv = kp.shape[2]
     k = gather_paged_kv(kp, table).float()
     v = gather_paged_kv(vp, table).float()
+    if kp_scale is not None:
+        k = (k * gather_paged_kv(kp_scale, table).float()).to(
+            q.dtype).float()
+        v = v * gather_paged_kv(vp_scale, table).float()
     q5 = q.float().reshape(b, tq, nkv, nq // nkv, hd)
     s = torch.einsum("bqngh,bknh->bngqk", q5, k) * (1.0 / math.sqrt(hd))
     if softcap is not None:

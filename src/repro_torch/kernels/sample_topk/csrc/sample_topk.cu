@@ -55,6 +55,12 @@
 //     by the selection warp that owns the row, over the staged tile), and
 //     the merge kernel folds the slices' pairs (wstream::slices_lse) into
 //     lse = m + log a: -inf for a row with no live column.
+// A quantized head (the JAX kernel's w_scale) is an int8, e4m3 or e5m2 W
+// with a (v_orig,) f32 scale a column: the stream carries 1 byte a weight
+// (wstream.cuh widens each stage to bf16 in shared memory), and each
+// logit is multiplied by its column's scale before the softcap, the mask,
+// the selection and the lse, so it combines with both options above.  The
+// bound then halves: 155.7 MB of W and 0.61 MB of scales, ~46.7 us.
 //
 // The many-row top-1 path (topk_rows_kernel, k = 1 only) computes the same
 // function for the MTP accuracy's 4096 rows.  There the bound flips: the
@@ -133,9 +139,10 @@ __host__ __device__ inline int epilogue_bytes(int r, int k) {
          2 * r * kZld * 4 + 2 * r * 4;
 }
 
-__host__ __device__ inline wstream::Plan plan(int rows, int v, int k) {
+__host__ __device__ inline wstream::Plan plan(int rows, int v, int k,
+                                              int wb) {
   wstream::Plan p = wstream::plan_grid(rows, v, kRowsMax);
-  wstream::plan_stages(p, epilogue_bytes(p.rows, k));
+  wstream::plan_stages(p, epilogue_bytes(p.rows, k), wb);
   return p;
 }
 
@@ -325,21 +332,28 @@ __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
 // warp is the producer.
 // With `mask` (rows x v_orig s8, or null) a 0 entry makes its column -inf;
 // with `pl` (or null) each (row, slice)'s online softmax (m, a) over its
-// counted columns goes to pl[(row * n_split + split) * 2 + {0, 1}].
-template <int N, bool kOne>
-__global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
+// counted columns goes to pl[(row * n_split + split) * 2 + {0, 1}].  W's
+// elements are of hopper::WKind `kind` (kQ: a 1-byte kind, and a
+// converter warpgroup before the producer warp widens each stage); with
+// `ws` (v_orig f32, or null) each column's logit is multiplied by its
+// scale before the softcap.
+template <int N, bool kOne, bool kQ>
+__global__ void __launch_bounds__(
+    (kOne ? kThreads : kSelThreads) +
+        (kQ ? wstream::converters(N) : 0), 1)
     topk_stream_kernel(const __grid_constant__ CUtensorMap wmap,
                        const __grid_constant__ CUtensorMap hmap,
                        u64* __restrict__ pk, const int8_t* __restrict__ mask,
-                       float* __restrict__ pl, int rows, int d, int v_orig,
-                       int valid, int col_offset, int k, int per,
-                       int n_split, int stages, int has_softcap,
-                       float softcap) {
+                       float* __restrict__ pl, const float* __restrict__ ws,
+                       int kind, int rows, int d, int v_orig, int valid,
+                       int col_offset, int k, int per, int n_split,
+                       int stages, int has_softcap, float softcap) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
+  constexpr int kConv = kQ ? wstream::converters(N) : 0;
   wstream::Ring<N> ring;
-  u64* epi =
-      reinterpret_cast<u64*>(wstream::ring_init(ring, smem_raw, stages));
+  u64* epi = reinterpret_cast<u64*>(
+      wstream::ring_init(ring, smem_raw, stages, kind, kConv));
   u64* lst = epi;                       // k > 1: N x 64
   u64* thr = lst + N * kMaxK;           //        N
   u64* scr = thr + N;                   //        8 x 2 x 128
@@ -353,9 +367,12 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
   const int n_tiles = (v_orig + wstream::kCols - 1) / wstream::kCols;
   const int t_begin = split * per;
   const int t_end = min(t_begin + per, n_tiles);
-  const int nk = d / wstream::kChunk;
+  // stages a tile: 64 k columns each, 128 for a 1-byte W (the TMA zero
+  // fills the k columns past d of a last, half-full stage)
+  const int nk = kQ ? (d + 2 * wstream::kChunk - 1) / (2 * wstream::kChunk)
+                    : d / wstream::kChunk;
   const int tid = threadIdx.x;
-  constexpr int kAll = kOne ? kThreads : kSelThreads;
+  constexpr int kAll = (kOne ? kThreads : kSelThreads) + kConv;
   if (!kOne) {
     for (int i = tid; i < N * (kMaxK + 1); i += kAll) lst[i] = 0ull;
     for (int i = tid; i < N; i += kAll) {
@@ -373,6 +390,11 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
   __syncthreads();
   if (tid >= kAll - 32) {
     wstream::produce(ring, &wmap, &hmap, t_begin, t_end, nk, row0);
+    return;
+  }
+  if (kQ && tid >= kAll - 32 - kConv) {
+    wstream::convert<N, kConv>(ring, t_begin, t_end, nk,
+                               tid - (kAll - 32 - kConv));
     return;
   }
   const int lane = tid & 31;
@@ -412,8 +434,8 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
   wstream::RowStates<N> st;
   st.init();
   float acc[N / 2];
-  int s = 0;
-  uint32_t phase = 0;
+  int s = 0, cb = 0;
+  uint32_t phase = 0, cphase = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
     // k = 1 with a mask: the fragment's mask bytes are loaded before the
     // tile's products and read after them
@@ -433,7 +455,9 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
           }
       }
     }
-    wstream::consume_tile(ring, acc, s, phase, nk);
+    float sc[2];
+    wstream::load_scales(sc, ws, tile, col_lo, v_orig);
+    wstream::consume_tile<N, kQ>(ring, acc, s, phase, nk, cb, cphase);
     if (kOne) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -445,6 +469,7 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             float z = acc[4 * j + 2 * i + c];
+            if (ws) z *= sc[i];
             if (has_softcap) z = softcap * tanhf(z / softcap);
             const bool ok = live && (!mask || allow[j][i][c] != 0);
             z = ok && !isnan(z) ? z : -INFINITY;
@@ -466,7 +491,7 @@ __global__ void __launch_bounds__(kOne ? kThreads : kSelThreads, 1)
 #pragma unroll
         for (int c = 0; c < 2; ++c)
           z[(8 * j + 2 * t + c) * kZld + col_lo + 8 * i] =
-              acc[4 * j + 2 * i + c];
+              ws ? acc[4 * j + 2 * i + c] * sc[i] : acc[4 * j + 2 * i + c];
     mbar_arrive(&zbar[tl & 1]);
   }
   if (!kOne) return;
@@ -575,19 +600,24 @@ __global__ void __launch_bounds__(256)
 
 template <int N>
 cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
-                          u64* pk, const int8_t* mask, float* pl, int rows,
-                          int d, int v_orig, int valid, int col_offset, int k,
+                          u64* pk, const int8_t* mask, float* pl,
+                          const float* ws, int kind, int rows, int d,
+                          int v_orig, int valid, int col_offset, int k,
                           const wstream::Plan& p, int has_softcap,
                           float softcap, cudaStream_t s) {
-  auto kern = k == 1 ? topk_stream_kernel<N, true>
-                     : topk_stream_kernel<N, false>;
+  const bool q = kind != hopper::kBf16;
+  auto kern = k == 1 ? (q ? topk_stream_kernel<N, true, true>
+                          : topk_stream_kernel<N, true, false>)
+                     : (q ? topk_stream_kernel<N, false, true>
+                          : topk_stream_kernel<N, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(p.row_tiles, p.slices), k == 1 ? kThreads : kSelThreads,
-         p.smem, s>>>(
-      wmap, hmap, pk, mask, pl, rows, d, v_orig, valid, col_offset, k, p.per,
-      p.slices, p.stages, has_softcap, softcap);
+  const int threads = (k == 1 ? kThreads : kSelThreads) +
+                      (q ? wstream::converters(N) : 0);
+  kern<<<dim3(p.row_tiles, p.slices), threads, p.smem, s>>>(
+      wmap, hmap, pk, mask, pl, ws, kind, rows, d, v_orig, valid, col_offset,
+      k, p.per, p.slices, p.stages, has_softcap, softcap);
   return cudaGetLastError();
 }
 
@@ -704,10 +734,11 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// The decode kernel's plan for (rows, V, k): {R, row_tiles, per, slices,
-// stages, smem} into out[0..5] (the wrapper's Python mirror must agree).
-void sample_topk_plan(int rows, int v_orig, int k, int* out) {
-  const wstream::Plan p = plan(rows, v_orig, k);
+// The decode kernel's plan for (rows, V, k, bytes a W element): {R,
+// row_tiles, per, slices, stages, smem} into out[0..5] (the wrapper's
+// Python mirror must agree).
+void sample_topk_plan(int rows, int v_orig, int k, int wb, int* out) {
+  const wstream::Plan p = plan(rows, v_orig, k, wb);
   const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
                        p.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
@@ -717,15 +748,19 @@ void sample_topk_plan(int rows, int v_orig, int k, int* out) {
 // above; returns a cudaError_t.  pk is (rows, slices, k) u64 scratch,
 // vals/ids the (rows, k) result.  mask, when not null, is the (rows,
 // v_orig) s8 allowed mask; lse, when not null, receives the (rows,) f32
-// logsumexp through pl, (rows, slices, 2) f32 scratch.
+// logsumexp through pl, (rows, slices, 2) f32 scratch.  W's elements are
+// of hopper::WKind `kind` (bf16, or 1 byte: int8, e4m3, e5m2); ws, when
+// not null, is the (v_orig,) f32 scale of each column.
 int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
                        void* ids, int rows, int d, int v_orig, int valid,
                        int col_offset, int k, int has_softcap, float softcap,
-                       const void* mask, void* pl, void* lse, void* stream) {
+                       const void* mask, void* pl, void* lse, const void* ws,
+                       int kind, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
-      d % wstream::kChunk || k < 1 || k > kMaxK || k > v_orig)
+      d % wstream::kChunk || k < 1 || k > kMaxK || k > v_orig || kind < 0 ||
+      kind > hopper::kE5M2)
     return (int)cudaErrorInvalidValue;
-  const wstream::Plan p = plan(rows, v_orig, k);
+  const wstream::Plan p = plan(rows, v_orig, k, kind ? 1 : 2);
   if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.slices > kMaxSlices ||
       (lse != nullptr) != (pl != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -733,15 +768,17 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
   u64* kp = static_cast<u64*>(pk);
   const int8_t* mk = static_cast<const int8_t*>(mask);
   float* lp = static_cast<float*>(pl);
+  const float* wsp = static_cast<const float*>(ws);
   CUtensorMap wmap, hmap;
-  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows);
+  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows,
+                             kind);
   if (e) return e;
   cudaError_t err;
 #define TOPK_CASE(n)                                                    \
   case n:                                                               \
-    err = launch_stream<n>(wmap, hmap, kp, mk, lp, rows, d, v_orig,     \
-                           valid, col_offset, k, p, has_softcap,        \
-                           softcap, s);                                 \
+    err = launch_stream<n>(wmap, hmap, kp, mk, lp, wsp, kind, rows, d,  \
+                           v_orig, valid, col_offset, k, p,             \
+                           has_softcap, softcap, s);                    \
     break;
   switch (p.rows) {
     TOPK_CASE(8) TOPK_CASE(16) TOPK_CASE(24) TOPK_CASE(32)

@@ -36,8 +36,12 @@ card a NaN logit counts as -inf, and every id lies in
 kernel's request-mode options: ``allowed_mask`` (B, V), whose 0 entries
 make their columns -inf before the top-k and the lse, and ``return_lse``,
 a third (B,) f32 output, the logsumexp over the same columns (-inf for a
-row with none), folded as an online softmax beside the selection; the
-many-row kernel takes neither.
+row with none), folded as an online softmax beside the selection; and
+``w_scale`` (V,) f32, the quantized head's per-column scale: w is then
+int8, float8_e4m3fn or float8_e5m2, streamed at 1 byte a weight (half
+the bf16 bound) and widened to bf16 in shared memory, and each logit is
+multiplied by its scale before the softcap, the mask and the lse.  The
+many-row kernel takes none of the three.
 
 `topk_scores_ref` is the plain PyTorch version: dense f32 logits, masked,
 then a STABLE descending sort (``torch.topk`` promises no order among
@@ -56,6 +60,7 @@ from repro_torch.core.windows import (TOPK_MAX_K, TOPK_ROWS, TOPK_ROWS_COLS,
                                       BlockPlan, topk_decode_plan,
                                       topk_stream_plan)
 from repro_torch.kernels import build
+from repro_torch.kernels.quant import w_kind
 
 MAX_K = TOPK_MAX_K         # the decode kernel's running list of a row
 LAUNCHES = build.counter("sample_topk")
@@ -69,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sample_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, p, p, p, p]
+                                           i, f, p, p, p, p, i, p]
         lib.sample_topk_launch.restype = i
         lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
                                                 i, i, i, f, p]
@@ -124,13 +129,26 @@ def topk_scores_ref(
     return vals, ids
 
 
+def check_w_scale(w_scale, w, h):
+    """Raise ValueError unless `w_scale` is the (V,) contiguous f32 scale
+    of w on h's device (the W-stream kernels read it in place)."""
+    if w_scale.device != h.device:
+        raise ValueError(f"w_scale lies on {w_scale.device}, h on "
+                         f"{h.device}")
+    if (w_scale.dtype != torch.float32 or w_scale.dim() != 1
+            or w_scale.shape[0] != w.shape[0]
+            or not w_scale.is_contiguous()):
+        raise ValueError(f"w_scale must be ({w.shape[0]},) contiguous f32, "
+                         f"got {tuple(w_scale.shape)} {w_scale.dtype}")
+
+
 def _check_cuda_args(h, w, k):
     if not (h.is_cuda and w.is_cuda and h.device == w.device):
         raise ValueError(f"h ({h.device}) and w ({w.device}) must lie on "
                          "one CUDA device")
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes bf16 h and w, got {h.dtype} "
-                         f"and {w.dtype}")
+    if h.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes bf16 h, got {h.dtype}")
+    w_kind(w.dtype)
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"need h (B, d) and w (V, d), got {tuple(h.shape)}"
                          f" and {tuple(w.shape)}")
@@ -150,13 +168,15 @@ def _check_cuda_args(h, w, k):
 
 
 def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
-               masked: bool = False, lse: bool = False) -> None:
+               masked: bool = False, lse: bool = False,
+               scaled: bool = False, w_bytes: int = 2) -> None:
     """Raise ValueError unless a kernel takes `plan` for this call: the
-    decode kernel's own plan for (rows, V, k) (`topk_decode_plan`), or
-    the 128 x 256 many-row plan at k = 1 with neither an allowed mask
-    (`masked`) nor ``return_lse`` (`lse`).  An explicit plan picks the
-    kernel; its tiles are the kernel's.  Checked on every device, so an
-    explicit plan fails the same way on the CPU."""
+    decode kernel's own plan for (rows, V, k, bytes a W element)
+    (`topk_decode_plan`), or the 128 x 256 many-row plan at k = 1 on a
+    full-precision W (`w_bytes` > 1) with no allowed mask (`masked`), no
+    ``return_lse`` (`lse`) and no ``w_scale`` (`scaled`).  An explicit
+    plan picks the kernel; its tiles are the kernel's.  Checked on every
+    device, so an explicit plan fails the same way on the CPU."""
     if plan.block_rows == TOPK_ROWS:
         if plan.block_v != TOPK_ROWS_COLS:
             raise ValueError(f"unsupported plan {plan}: the many-row kernel "
@@ -168,8 +188,12 @@ def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
             raise ValueError(f"the many-row plan {plan} takes neither "
                              "allowed_mask nor return_lse; they need the "
                              "decode plan")
+        if scaled or w_bytes == 1:
+            raise ValueError(f"the many-row plan {plan} takes a bf16 w "
+                             "without w_scale; a quantized head needs the "
+                             "decode plan")
         return
-    want = topk_decode_plan(n_rows, vocab, k)
+    want = topk_decode_plan(n_rows, vocab, k, w_bytes)
     if plan != want:
         raise ValueError(f"unsupported plan {plan}: the decode kernel's "
                          f"plan for {n_rows} rows, V={vocab}, k={k} is "
@@ -196,14 +220,15 @@ def topk_scores(
     ``1 <= k <= 64`` and the `plan` (`ops.cuda_topk` resolves one): the
     decode plan launches the decode kernel, which also takes
     `allowed_mask` ((B, V) contiguous bool, int8 or uint8, nonzero =
-    allowed)
-    and `return_lse`; the 128-row plan the many-row kernel, which takes
-    k = 1 only and neither option.  `w_scale` (quantized heads) raises
-    NotImplementedError on the card (ROADMAP A6)."""
+    allowed), `return_lse`, and a quantized head: w int8, float8_e4m3fn
+    or float8_e5m2 with `w_scale` ((V,) contiguous f32); the 128-row plan
+    the many-row kernel, which takes k = 1 on a bf16 w only and none of
+    the options."""
     masked = allowed_mask is not None
     if plan is not None:
         check_plan(plan, k, h.shape[0], w.shape[0], masked=masked,
-                   lse=return_lse)
+                   lse=return_lse, scaled=w_scale is not None,
+                   w_bytes=min(w.element_size(), 2))
     if h.device.type == "cpu":
         return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
                                logit_softcap=logit_softcap,
@@ -212,12 +237,11 @@ def topk_scores(
                                return_lse=return_lse)
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")
-    if w_scale is not None:
-        raise NotImplementedError("sample_topk on CUDA has no w_scale "
-                                  "(quantized lm_head) yet: ROADMAP A6")
     if plan is None:
         raise ValueError("the kernel needs a BlockPlan (see ops.cuda_topk)")
     _check_cuda_args(h, w, k)
+    if w_scale is not None:
+        check_w_scale(w_scale, w, h)
     if masked:
         if allowed_mask.device != h.device:
             raise ValueError(f"allowed_mask lies on {allowed_mask.device}, "
@@ -238,18 +262,19 @@ def topk_scores(
     if plan.block_rows == TOPK_ROWS:
         return _rows_top1(lib, h, w, valid, col_offset, logit_softcap)
     return _decode(lib, h, w, k, valid, col_offset, logit_softcap,
-                   allowed_mask, return_lse)
+                   allowed_mask, return_lse, w_scale)
 
 
 def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
-            return_lse=False):
+            return_lse=False, w_scale=None):
     """The decode kernel and its merge on its own plan, through
     (B, slices, k) int64 scratch (and (B, slices, 2) f32 for the lse):
     (values (B, k) f32, ids (B, k) i32[, lse (B,) f32])."""
     n, d = h.shape
     v = w.shape[0]
-    sp = topk_stream_plan(n, v, k)
-    build.check_plan_twin(lib, "sample_topk_plan", (n, v, k), sp)
+    wb = w.element_size()
+    sp = topk_stream_plan(n, v, k, wb)
+    build.check_plan_twin(lib, "sample_topk_plan", (n, v, k, wb), sp)
     dev = h.device
     pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
@@ -266,7 +291,8 @@ def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
             None if mask is None else mask.data_ptr(),
             None if pl is None else pl.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if w_scale is None else w_scale.data_ptr(),
+            w_kind(w.dtype), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("sample_topk launch failed: "
                            + lib.sample_topk_error_string(err).decode())

@@ -6,7 +6,8 @@ don't, k = 1 over at least `TOPK_ROWS_MIN` rows takes the many-row plan
 (`topk_rows_plan`, the GEMM-shaped kernel) and every other call the
 decode kernel's own plan (`topk_decode_plan`: row tiles, vocab slices
 and ring stages of the shared W stream), as does any call with an
-`allowed_mask` or ``return_lse``, which only the decode kernel takes.  Sampling is not
+`allowed_mask`, ``return_lse`` or a quantized head (``w_scale``), which
+only the decode kernel takes.  Sampling is not
 differentiated through, so there is no autograd wrapper.
 """
 
@@ -38,7 +39,9 @@ def cuda_topk(
     the card; CPU tensors take the plain version (`K.topk_scores_ref`)."""
     if plan is None:
         plan = default_plan(h.shape[0], w.shape[0], k,
-                            masked=allowed_mask is not None, lse=return_lse)
+                            masked=allowed_mask is not None, lse=return_lse,
+                            scaled=w_scale is not None,
+                            w_bytes=min(w.element_size(), 2))
     return K.topk_scores(h, w, k, valid_vocab=valid_vocab,
                          logit_softcap=logit_softcap, plan=plan,
                          col_offset=col_offset, w_scale=w_scale,
@@ -46,11 +49,13 @@ def cuda_topk(
 
 
 def default_plan(n_rows: int, vocab: int, k: int, *, masked: bool = False,
-                 lse: bool = False) -> BlockPlan:
+                 lse: bool = False, scaled: bool = False,
+                 w_bytes: int = 2) -> BlockPlan:
     """The plan `cuda_topk` takes when none is given: the many-row plan
-    for k = 1 from `TOPK_ROWS_MIN` rows on without a mask or the lse,
-    else the decode plan.  d is not an input of either: both stream 64 k
-    columns a ring stage."""
-    if k == 1 and n_rows >= TOPK_ROWS_MIN and not (masked or lse):
+    for k = 1 from `TOPK_ROWS_MIN` rows on a bf16 head without a mask,
+    the lse or a scale, else the decode plan (`w_bytes` a W element).  d
+    is not an input of either: both stream 64 k columns a ring stage."""
+    if (k == 1 and n_rows >= TOPK_ROWS_MIN and w_bytes == 2
+            and not (masked or lse or scaled)):
         return topk_rows_plan()
-    return topk_decode_plan(n_rows, vocab, k)
+    return topk_decode_plan(n_rows, vocab, k, w_bytes)

@@ -4,7 +4,9 @@
 // Replaces repro/kernels/score_tokens/kernel.py:_score_kernel (the Pallas
 // TPU kernel).  Same contract: for each row r of h and its n_cand candidate
 // ids ids[r, :],
-//   * z = h . w per column (f32 sums of exact bf16 products), then
+//   * z = h . w per column (f32 sums of exact bf16 products), times the
+//     column's scale for a quantized head (w_scale: an int8, e4m3 or e5m2
+//     W, widened to bf16 in shared memory by wstream.cuh), then
 //     cap * tanh(z / cap) when a softcap is given, then z * inv_temp (the
 //     sampler's order: the scored distribution is the one drawn from);
 //   * a column is valid iff local < v_orig and local + col_offset < valid;
@@ -52,6 +54,7 @@ using wstream::kThreads;
 
 constexpr int kMaxCand = 64;         // candidates a row
 constexpr int kRowsMax = 256;        // rows a row tile
+constexpr int kRowsMaxQ = 128;       // ... with a 1-byte W (more threads)
 constexpr int kMergeWarps = 8;       // merge kernel: one warp a row
 constexpr int kWarps = kConsumers / 32;
 
@@ -61,29 +64,36 @@ __host__ __device__ inline int epilogue_bytes(int r, int n_cand) {
   return 2 * kWarps * r * 4 + r * n_cand * 4;
 }
 
-__host__ __device__ inline wstream::Plan plan(int rows, int v, int n_cand) {
-  wstream::Plan p = wstream::plan_grid(rows, v, kRowsMax);
-  wstream::plan_stages(p, epilogue_bytes(p.rows, n_cand));
+__host__ __device__ inline wstream::Plan plan(int rows, int v, int n_cand,
+                                              int wb) {
+  wstream::Plan p =
+      wstream::plan_grid(rows, v, wb == 1 ? kRowsMaxQ : kRowsMax);
+  wstream::plan_stages(p, epilogue_bytes(p.rows, n_cand), wb);
   return p;
 }
 
 // grid (row_tiles, slices), kThreads threads, plan(...).smem bytes.  Writes
 // each row's (m, a) over its slice to part[(row * n_split + split) * 2 ...]
-// and the logits of the candidates the slice owns to zc.
-template <int N>
-__global__ void __launch_bounds__(kThreads, 1)
+// and the logits of the candidates the slice owns to zc.  W's elements are
+// of hopper::WKind `kind` (kQ: a 1-byte kind, and a converter warpgroup
+// before the producer warp widens each stage); with `ws` (v_orig f32, or
+// null) each column's logit is multiplied by its scale before the softcap.
+template <int N, bool kQ>
+__global__ void __launch_bounds__(
+    kThreads + (kQ ? wstream::converters(N) : 0), 1)
     score_stream_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap hmap,
                         const int* __restrict__ ids, float* __restrict__ part,
-                        float* __restrict__ zc, int rows, int d, int v_orig,
-                        int valid, int col_offset, int n_cand, int per,
-                        int n_split, int stages, int has_cap, float cap,
-                        float inv_temp) {
+                        float* __restrict__ zc, const float* __restrict__ ws,
+                        int kind, int rows, int d, int v_orig, int valid,
+                        int col_offset, int n_cand, int per, int n_split,
+                        int stages, int has_cap, float cap, float inv_temp) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int n_own;
+  constexpr int kConv = kQ ? wstream::converters(N) : 0;
   wstream::Ring<N> ring;
-  float* red = reinterpret_cast<float*>(
-      wstream::ring_init(ring, smem_raw, stages));   // 2 x kWarps x N
+  float* red = reinterpret_cast<float*>(wstream::ring_init(
+      ring, smem_raw, stages, kind, kConv));             // 2 x kWarps x N
   int* own = reinterpret_cast<int*>(red + 2 * kWarps * N);
 
   const int row0 = blockIdx.x * N;
@@ -93,12 +103,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t_end = min(t_begin + per, n_tiles);
   const int s0 = t_begin * wstream::kCols;
   const int s_end = min(t_end * wstream::kCols, v_orig);
-  const int nk = d / wstream::kChunk;
+  // stages a tile: 64 k columns each, 128 for a 1-byte W (the TMA zero
+  // fills the k columns past d of a last, half-full stage)
+  const int nk = kQ ? (d + 2 * wstream::kChunk - 1) / (2 * wstream::kChunk)
+                    : d / wstream::kChunk;
   const int tid = threadIdx.x;
   if (tid == 0) n_own = 0;
   __syncthreads();
-  if (tid >= kConsumers) {
+  if (tid >= kConsumers + kConv) {
     wstream::produce(ring, &wmap, &hmap, t_begin, t_end, nk, row0);
+    return;
+  }
+  if (kQ && tid >= kConsumers) {
+    wstream::convert<N, kConv>(ring, t_begin, t_end, nk, tid - kConsumers);
     return;
   }
 
@@ -125,16 +142,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   st.init();
 
   float acc[N / 2];
-  int s = 0;
-  uint32_t phase = 0;
+  int s = 0, cb = 0;
+  uint32_t phase = 0, cphase = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
-    wstream::consume_tile(ring, acc, s, phase, nk);
+    float sc[2];
+    wstream::load_scales(sc, ws, tile, col_lo, v_orig);
+    wstream::consume_tile<N, kQ>(ring, acc, s, phase, nk, cb, cphase);
     const int c0 = tile * wstream::kCols + col_lo;
     const bool live0 = c0 < v_orig && c0 + col_offset < valid;
     const bool live1 = c0 + 8 < v_orig && c0 + 8 + col_offset < valid;
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
       float z = acc[i];
+      if (ws) z *= sc[(i >> 1) & 1];
       if (has_cap) z = cap * tanhf(z / cap);
       acc[i] = ((i >> 1) & 1 ? live1 : live0) ? z * inv_temp : -INFINITY;
     }
@@ -190,20 +210,23 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 }
 
-template <int N>
+template <int N, bool kQ>
 cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
-                          const int* ids, float* part, float* zc, int rows,
-                          int d, int v_orig, int valid, int col_offset,
-                          int n_cand, const wstream::Plan& p, int has_cap,
-                          float cap, float inv_temp, cudaStream_t s) {
+                          const int* ids, float* part, float* zc,
+                          const float* ws, int kind, int rows, int d,
+                          int v_orig, int valid, int col_offset, int n_cand,
+                          const wstream::Plan& p, int has_cap, float cap,
+                          float inv_temp, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      score_stream_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      score_stream_kernel<N, kQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  score_stream_kernel<N><<<dim3(p.row_tiles, p.slices), kThreads, p.smem,
-                           s>>>(wmap, hmap, ids, part, zc, rows, d, v_orig,
-                                valid, col_offset, n_cand, p.per, p.slices,
-                                p.stages, has_cap, cap, inv_temp);
+  const int threads = kThreads + (kQ ? wstream::converters(N) : 0);
+  score_stream_kernel<N, kQ><<<dim3(p.row_tiles, p.slices), threads, p.smem,
+                               s>>>(wmap, hmap, ids, part, zc, ws, kind,
+                                    rows, d, v_orig, valid, col_offset,
+                                    n_cand, p.per, p.slices, p.stages,
+                                    has_cap, cap, inv_temp);
   return cudaGetLastError();
 }
 
@@ -211,10 +234,11 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
 
 extern "C" {
 
-// The launch plan for (rows, V, n_cand): {R, row_tiles, per, slices,
-// stages, smem} into out[0..5] (the wrapper's Python mirror must agree).
-void score_tokens_plan(int rows, int v_orig, int n_cand, int* out) {
-  const wstream::Plan p = plan(rows, v_orig, n_cand);
+// The launch plan for (rows, V, n_cand, bytes a W element): {R,
+// row_tiles, per, slices, stages, smem} into out[0..5] (the wrapper's
+// Python mirror must agree).
+void score_tokens_plan(int rows, int v_orig, int n_cand, int wb, int* out) {
+  const wstream::Plan p = plan(rows, v_orig, n_cand, wb);
   const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
                        p.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
@@ -223,40 +247,51 @@ void score_tokens_plan(int rows, int v_orig, int n_cand, int* out) {
 // Launches the stream kernel and the merge kernel on `stream` with the
 // plan above; returns a cudaError_t.  part is (rows, slices, 2) f32
 // scratch, lse (rows,) and zc (rows, n_cand) the results; ids is
-// (rows, n_cand) int32.
+// (rows, n_cand) int32.  W's elements are of hopper::WKind `kind`; ws,
+// when not null, is the (v_orig,) f32 scale of each column.
 int score_tokens_launch(const void* h, const void* w, const void* ids,
                         void* part, void* lse, void* zc, int rows, int d,
                         int v_orig, int valid, int col_offset, int n_cand,
                         int has_cap, float cap, float inv_temp,
-                        void* stream) {
+                        const void* ws, int kind, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
-      d % wstream::kChunk || n_cand < 1 || n_cand > kMaxCand)
+      d % wstream::kChunk || n_cand < 1 || n_cand > kMaxCand || kind < 0 ||
+      kind > hopper::kE5M2)
     return (int)cudaErrorInvalidValue;
-  const wstream::Plan p = plan(rows, v_orig, n_cand);
+  const wstream::Plan p = plan(rows, v_orig, n_cand, kind ? 1 : 2);
   if (p.stages < 2 || p.smem > wstream::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(ids);
   float* pp = static_cast<float*>(part);
   float* zp = static_cast<float*>(zc);
+  const float* wsp = static_cast<const float*>(ws);
   CUtensorMap wmap, hmap;
-  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows);
+  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows,
+                             kind);
   if (e) return e;
   cudaError_t err;
+#define SCORE_CALL(n, q)                                                  \
+  launch_stream<n, q>(wmap, hmap, ip, pp, zp, wsp, kind, rows, d, v_orig, \
+                      valid, col_offset, n_cand, p, has_cap, cap,         \
+                      inv_temp, s)
 #define SCORE_CASE(n)                                                     \
   case n:                                                                 \
-    err = launch_stream<n>(wmap, hmap, ip, pp, zp, rows, d, v_orig, valid, \
-                           col_offset, n_cand, p, has_cap, cap, inv_temp, \
-                           s);                                            \
+    err = kind ? SCORE_CALL(n, true) : SCORE_CALL(n, false);              \
     break;
   switch (p.rows) {
     SCORE_CASE(8) SCORE_CASE(16) SCORE_CASE(24) SCORE_CASE(32)
     SCORE_CASE(40) SCORE_CASE(48) SCORE_CASE(56) SCORE_CASE(64)
-    SCORE_CASE(128) SCORE_CASE(256)
+    SCORE_CASE(128)
+    case 256:       // bf16 W only: a 1-byte W's row tiles stop at 128
+      if (kind) return (int)cudaErrorInvalidValue;
+      err = SCORE_CALL(256, false);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef SCORE_CASE
+#undef SCORE_CALL
   if (err != cudaSuccess) return (int)err;
   score_merge_kernel<<<(rows + kMergeWarps - 1) / kMergeWarps,
                        kMergeWarps * 32, 0, s>>>(

@@ -22,7 +22,10 @@ Contract (the JAX kernel's): a column is valid iff its local index is
 ``< V`` and its global id ``local + col_offset < valid_vocab``; logits are
 softcapped, then scaled by 1/T (f32); ``z_cand`` is 0 for an id that is no
 valid column of this shard.  Two calls on the same inputs are
-bit-identical.
+bit-identical.  A quantized head (``w_scale`` (V,) f32 beside an int8,
+float8_e4m3fn or float8_e5m2 w) streams 1 byte a weight, widened to bf16
+in shared memory, and each logit is multiplied by its column's scale
+before the softcap and 1/T.
 
 `score_stats` runs the plain version (`ref.score_stats_ref`) for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -37,6 +40,8 @@ import torch
 
 from repro_torch.core.windows import score_plan
 from repro_torch.kernels import build
+from repro_torch.kernels.quant import w_kind
+from repro_torch.kernels.sample_topk.kernel import check_w_scale
 from repro_torch.kernels.score_tokens.ref import (inv_temperature,
                                                   score_stats_ref)
 
@@ -51,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.score_tokens_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, i, f, f, p]
+                                            i, i, f, f, p, i, p]
         lib.score_tokens_launch.restype = i
         lib.score_tokens_error_string.argtypes = [i]
         lib.score_tokens_error_string.restype = ctypes.c_char_p
@@ -63,9 +68,9 @@ def _check_cuda_args(h, w, ids):
     if not (h.is_cuda and w.device == h.device and ids.device == h.device):
         raise ValueError(f"h ({h.device}), w ({w.device}) and ids "
                          f"({ids.device}) must lie on one CUDA device")
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes bf16 h and w, got {h.dtype} "
-                         f"and {w.dtype}")
+    if h.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes bf16 h, got {h.dtype}")
+    w_kind(w.dtype)
     if ids.dtype != torch.int32:
         raise ValueError(f"ids must be int32, got {ids.dtype}")
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
@@ -99,12 +104,10 @@ def score_stats(
 
     h: (N, d); w: (V, d); ids: (N,) or (N, P) global ids.  CPU tensors go
     to `score_stats_ref`.  CUDA tensors go to the kernel, which takes bf16
-    h and w, int32 ids, all contiguous on one device, ``d % 64 == 0`` (any
-    d) and ``1 <= P <= 64``, and raises ValueError on anything else.
-    `w_scale` (quantized heads) comes with ROADMAP A6."""
-    if w_scale is not None and h.device.type != "cpu":
-        raise NotImplementedError("score_tokens on CUDA has no w_scale "
-                                  "(quantized lm_head) yet: ROADMAP A6")
+    h, a bf16 w or a quantized one (int8, float8_e4m3fn, float8_e5m2)
+    with its (V,) f32 `w_scale`, int32 ids, all contiguous on one device,
+    ``d % 64 == 0`` (any d) and ``1 <= P <= 64``, and raises ValueError on
+    anything else."""
     if ids.dim() == 1:
         ids = ids[:, None]
     if h.device.type == "cpu":
@@ -113,6 +116,8 @@ def score_stats(
                                temperature=temperature,
                                col_offset=col_offset, w_scale=w_scale)
     _check_cuda_args(h, w, ids)
+    if w_scale is not None:
+        check_w_scale(w_scale, w, h)
     if ids.shape[1] > MAX_CAND:
         raise ValueError(f"the kernel scores at most {MAX_CAND} candidates "
                          f"a row, got P={ids.shape[1]}")
@@ -121,8 +126,9 @@ def score_stats(
     v = w.shape[0]
     n_cand = ids.shape[1]
     valid = v if valid_vocab is None else valid_vocab
-    sp = score_plan(n, v, n_cand)
-    build.check_plan_twin(lib, "score_tokens_plan", (n, v, n_cand), sp)
+    wb = w.element_size()
+    sp = score_plan(n, v, n_cand, wb)
+    build.check_plan_twin(lib, "score_tokens_plan", (n, v, n_cand, wb), sp)
     dev = h.device
     part = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
     lse = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -133,7 +139,8 @@ def score_stats(
             lse.data_ptr(), zc.data_ptr(), n, d, v, int(valid),
             int(col_offset), n_cand, int(logit_softcap is not None),
             float(logit_softcap or 0.0), inv_temperature(temperature),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if w_scale is None else w_scale.data_ptr(),
+            w_kind(w.dtype), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("score_tokens launch failed: "
                            + lib.score_tokens_error_string(err).decode())

@@ -7,6 +7,7 @@
         [--spec-self [--mtp-heads N] | --spec-draft self|<arch-id>] \
         [--spec-k 4] [--mode eval [--eval-conts 4] [--cont-len 8]] \
         [--beams N | --best-of N [--best-of-temp T] | --grammar-mask SPEC] \
+        [--quantize-cache] [--head-dtype int8|float8_e4m3fn|float8_e5m2] \
         [--stats-json [PATH]]
 
 ``--paged`` serves from the block-pool KV cache with shared-prefix reuse
@@ -28,7 +29,11 @@ at ``--best-of-temp`` ranked by logprob (`submit_beam`,
 `submit_best_of`: every step one `sample_topk` launch with its lse; beams
 fork copy-on-write with ``--paged``); ``--grammar-mask SPEC`` constrains
 every token to an allowed set (``3,7,42``, ``range:lo-hi``, ``even``,
-``odd``) that streams through `sample_topk` as its mask.  ``--stats-json`` dumps
+``odd``) that streams through `sample_topk` as its mask.
+``--quantize-cache`` keeps the KV cache (slab or pools) in int8 with
+per-(token, head) scales, and ``--head-dtype`` serves a 1-byte copy of
+the lm_head with per-row scales; the launcher prints the head's dtype
+and bytes and, with ``--paged``, a block's bytes.  ``--stats-json`` dumps
 the scheduler's report (TTFT, tokens per step, acceptance rate) as JSON
 to PATH, or to stdout without one.
 
@@ -117,6 +122,14 @@ def main(argv=None):
                     help="constrained decoding: allowed-token spec "
                          "('3,7,42' | 'range:lo-hi' | 'even' | 'odd'); "
                          "disallowed tokens can never be sampled")
+    ap.add_argument("--quantize-cache", action="store_true",
+                    help="int8 KV cache with per-(token, head) scales "
+                         "(slab or paged; transformer family only)")
+    ap.add_argument("--head-dtype", default=None,
+                    metavar="DTYPE",
+                    help="quantized lm_head serving dtype (int8, "
+                         "float8_e4m3fn, float8_e5m2; default: full "
+                         "precision)")
     ap.add_argument("--stats-json", nargs="?", const="-", default=None,
                     metavar="PATH",
                     help="dump the scheduler stats report as JSON (to "
@@ -153,7 +166,9 @@ def main(argv=None):
                      block_size=args.block_size,
                      pool_blocks=args.pool_blocks,
                      paged_impl=args.paged_impl,
-                     prefix_cache=not args.no_prefix_cache)
+                     prefix_cache=not args.no_prefix_cache,
+                     quantize_cache=args.quantize_cache,
+                     head_dtype=args.head_dtype)
     if args.spec_self:
         cls = PagedSelfSpecEngine if args.paged else SelfSpecEngine
         eng = cls(arch, params, sc,
@@ -179,6 +194,11 @@ def main(argv=None):
         eng = Engine(arch, params, sc, device=device)
         mode = "continuous"
     eng.reset(args.seed)
+    head = eng.params["lm_head"]
+    print(f"[serve] lm_head {str(head.dtype).replace('torch.', '')} "
+          f"{tuple(head.shape)}: {eng.head_bytes()} B streamed a vocab "
+          f"scan; KV cache "
+          f"{'int8 + f32 scales' if args.quantize_cache else sc.cache_dtype}")
     rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.batch
     prompts = rng.integers(1, arch.vocab_size,
@@ -245,7 +265,8 @@ def main(argv=None):
         ps = eng.paged_stats()
         pre = ps.get("prefix", {})
         print(f"[serve] paged: {ps['used_blocks']}/{ps['pool_blocks']} "
-              f"blocks live ({ps['live_cache_bytes']} B), "
+              f"blocks live ({ps['live_cache_bytes']} B, "
+              f"{ps['block_bytes']} B a block), "
               f"{ps['prefill_tokens']} prefill tokens, prefix hits "
               f"{pre.get('hits', 0)} ({pre.get('hit_tokens', 0)} tokens "
               "reused)")

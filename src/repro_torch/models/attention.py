@@ -21,6 +21,13 @@ in f32.
     cached prefix) replays `prefill_attention`'s arithmetic, so a hit's
     rows match a cold prefill's.
 
+int8 caches (``quantize=True``): `quantize_kv` gives each (token, KV
+head) an f32 scale and int8 values; the slab decodes through
+`_decode_quantized` (one chunk of the cache dequantized at a time, K
+back to q's dtype, V in f32), a paged pool through the kernel's int8
+option, and a paged prefix hit's suffix prefill over a dequantized view
+of the chain.  A prefill attends within its own fresh, unquantized K/V.
+
 Paged decode (a cache dict with a ``'table'``) goes through the
 hand-written Hopper kernel `repro_torch.kernels.paged_attn` when
 ``paged_impl='kernel'`` (its plain version for CPU tensors), or through
@@ -400,15 +407,76 @@ def _update_cache(cache_arr, new_vals, cur_len):
 
 def init_cache(batch, max_len, cfg: AttnConfig, dtype=torch.bfloat16,
                device="cpu", quantize: bool = False):
-    """Dense slab KV cache {'k', 'v' (B, S, nkv, hd), 'len' (B,)}."""
-    if quantize:
-        raise NotImplementedError("int8 KV caches come with ROADMAP A6")
+    """Dense slab KV cache {'k', 'v' (B, S, nkv, hd), 'len' (B,)};
+    ``quantize=True`` stores int8 k/v with per-(token, head) f32 scales
+    'k_scale' / 'v_scale' (B, S, nkv, 1): about half the bytes a cached
+    token."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    if quantize:
+        sshape = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def quantize_kv(x):
+    """(..., hd) -> (int8 values, f32 scale (..., 1)): symmetric per-row
+    scaling on the [-127, 127] grid, half to even."""
+    x32 = x.float()
+    s = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x32 / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _decode_quantized(q, cache, cfg: AttnConfig, chunk: int = 4096):
+    """Decode against an int8 cache {'k', 'v', 'k_scale', 'v_scale',
+    'len'}, dequantizing one chunk of keys at a time under an online
+    softmax: K back to q's dtype before the score dot, V in f32.  Query i
+    of Tq sits at ``len - Tq + i`` and attends causally."""
+    b, tq, nq, hd = q.shape
+    s_len, nkv = cache["k"].shape[1], cache["k"].shape[2]
+    g = nq // nkv
+    ck = min(chunk, s_len)
+    nkb = -(-s_len // ck)
+    q5 = q.reshape(b, tq, nkv, g, hd)
+    dev = q.device
+    qpos = cache["len"].long()[:, None] - tq + torch.arange(tq, device=dev)
+    m = torch.full((b, nkv, g, tq), _NEG_INF, device=dev)
+    a = torch.zeros((b, nkv, g, tq), device=dev)
+    acc = torch.zeros((b, nkv, g, tq, hd), device=dev)
+    for kj in range(nkb):
+        # the ragged tail's start is clamped; the overlap is masked out
+        start = min(kj * ck, s_len - ck)
+        sl = slice(start, start + ck)
+        kb = cache["k"][:, sl].float() * cache["k_scale"][:, sl]
+        vb = cache["v"][:, sl].float() * cache["v_scale"][:, sl]
+        s = _tile_scores(q5, kb.to(q.dtype), cfg)        # (B,nkv,g,Tq,ck)
+        kpos = start + torch.arange(ck, device=dev)
+        own = (kpos >= kj * ck) & (kpos < (kj + 1) * ck)
+        mask = own[None, None, :] & (kpos[None, None, :]
+                                     <= qpos[:, :, None])  # (B, Tq, ck)
+        s = s.masked_fill(~mask[:, None, None], _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        scale_prev = torch.exp(m - m_safe)
+        a = a * scale_prev + p.sum(dim=-1)
+        acc = acc * scale_prev[..., None] + torch.einsum(
+            "bngqk,bknh->bngqh", p, vb)
+        m = m_new
+    out = acc / a.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, nq, hd).to(q.dtype)
 
 
 def attention_layer(
@@ -422,7 +490,9 @@ def attention_layer(
 
     cache: None (a cache-free forward, as in training, through
     `blockwise_attention`), a dense slab {'k', 'v', 'len'} or a paged
-    block pool {'kp', 'vp', 'table', 'len'}.  With a cache, T > 1 is a
+    block pool {'kp', 'vp', 'table', 'len'}, each with int8 values and
+    their scales ('k_scale' / 'v_scale', 'kp_scale' / 'vp_scale') when
+    quantized.  With a cache, T > 1 is a
     prefill — the segment is written at ``len`` and attends within
     itself (the cache is empty before a prefill) — and T == 1 (or
     ``decode=True``) appends and attends over the whole cache.
@@ -453,36 +523,78 @@ def attention_layer(
     if cache is None:
         out = blockwise_attention(q, k, v, cfg)
     elif "table" in cache:                               # paged block pool
-        if "kp_scale" in cache:
-            raise NotImplementedError("int8 paged KV pools come with "
-                                      "ROADMAP A6")
+        quant = "kp_scale" in cache          # int8 pools + scale pools
         table = cache["table"]
-        kp = _paged_update(cache["kp"], table, k, cache["len"])
-        vp = _paged_update(cache["vp"], table, v, cache["len"])
+        kps = vps = None
+        if quant:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            kp = _paged_update(cache["kp"], table, kq, cache["len"])
+            vp = _paged_update(cache["vp"], table, vq, cache["len"])
+            kps = _paged_update(cache["kp_scale"], table, ks, cache["len"])
+            vps = _paged_update(cache["vp_scale"], table, vs, cache["len"])
+        else:
+            kp = _paged_update(cache["kp"], table, k, cache["len"])
+            vp = _paged_update(cache["vp"], table, v, cache["len"])
         new_len = cache["len"] + t
         new_cache = {"kp": kp, "vp": vp, "table": table, "len": new_len}
+        if quant:
+            new_cache["kp_scale"] = kps
+            new_cache["vp_scale"] = vps
         if not is_decode:
             # cold prefill: the chain is empty, attend within the segment
             out = prefill_attention(q, k, v, cfg)
         elif prefill_ext:
-            out = extend_attention(q, gather_paged_kv(kp, table),
-                                   gather_paged_kv(vp, table), new_len, cfg)
+            if quant:
+                # over a dequantized view of the chain, with
+                # `_decode_quantized`'s factors (K to q's dtype, V in f32)
+                kd = (gather_paged_kv(kp, table).float()
+                      * gather_paged_kv(kps, table)).to(q.dtype)
+                vd = (gather_paged_kv(vp, table).float()
+                      * gather_paged_kv(vps, table))
+                out = extend_attention(q, kd, vd, new_len, cfg)
+            else:
+                out = extend_attention(q, gather_paged_kv(kp, table),
+                                       gather_paged_kv(vp, table), new_len,
+                                       cfg)
         elif cfg.paged_impl == "kernel":
-            out = paged_attention(q, kp, vp, table, new_len,
-                                  softcap=cfg.attn_softcap)
+            out = paged_attention(q, kp, vp, table, new_len, kp_scale=kps,
+                                  vp_scale=vps, softcap=cfg.attn_softcap)
         elif cfg.paged_impl == "plain":
             if q.device.type != "cpu":
                 raise ValueError("paged_impl='plain' (the gather oracle) "
                                  "runs on CPU tensors only")
-            out = decode_attention(q, gather_paged_kv(kp, table),
-                                   gather_paged_kv(vp, table), new_len, cfg)
+            if quant:
+                dense = {"k": gather_paged_kv(kp, table),
+                         "v": gather_paged_kv(vp, table),
+                         "k_scale": gather_paged_kv(kps, table),
+                         "v_scale": gather_paged_kv(vps, table),
+                         "len": new_len}
+                out = _decode_quantized(q, dense, cfg)
+            else:
+                out = decode_attention(q, gather_paged_kv(kp, table),
+                                       gather_paged_kv(vp, table), new_len,
+                                       cfg)
         else:
             raise ValueError(f"unknown paged_impl {cfg.paged_impl!r}")
     elif "pos" in cache:
         raise NotImplementedError("ring-buffer local attention comes with "
                                   "ROADMAP A8")
-    elif "k_scale" in cache:
-        raise NotImplementedError("int8 KV caches come with ROADMAP A6")
+    elif "k_scale" in cache:                             # int8 slab
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        lens = cache["len"]
+        new_cache = {
+            "k": _update_cache(cache["k"], kq, lens),
+            "v": _update_cache(cache["v"], vq, lens),
+            "k_scale": _update_cache(cache["k_scale"], ks, lens),
+            "v_scale": _update_cache(cache["v_scale"], vs, lens),
+            "len": lens + t,
+        }
+        if is_decode:
+            out = _decode_quantized(q, new_cache, cfg)
+        else:
+            out = prefill_attention(q, k, v, cfg)
     else:
         k_cache = _update_cache(cache["k"], k, cache["len"])
         v_cache = _update_cache(cache["v"], v, cache["len"])

@@ -6,8 +6,11 @@ are masked by ``valid_vocab`` in every sampler.  The serve cache of the
 transformer family is the stacked slab tree
 ``{'k', 'v': (L, B, S, nkv, hd), 'len': (L, B)}`` or its paged form
 ``{'kp', 'vp': (L, N, bs, nkv, hd), 'table': (L, B, nb), 'len': (L, B)}``.
-The batch axis is known (1 for every leaf but the pools, which have
-none: every slot shares them), so the per-slot surgery below needs no
+An int8 cache adds the per-(token, head) f32 scale leaves
+``k_scale`` / ``v_scale`` beside k / v, or the scale pools ``kp_scale`` /
+``vp_scale`` beside the pools, wherever those go.  The batch axis is
+known (1 for every leaf but the pools, which have none: every slot
+shares them), so the per-slot surgery below needs no
 shape discovery.  It updates the batched tree IN PLACE and returns it;
 the pools are never copied or cloned — a slot view shares them.
 """
@@ -30,7 +33,8 @@ _CONFIG_MODULES = {
 MTP_FAMILIES = ("transformer",)   # the recurrent families come with A8
 
 _BATCH_AXIS = 1                  # (L, B, ...) for every batched leaf
-_POOL_KEYS = ("kp", "vp")        # paged pools: no batch axis, shared
+# paged pools, values and scales: no batch axis, shared
+_POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
 def get_arch(arch_id: str, *, reduced: bool = False, **overrides) -> Arch:

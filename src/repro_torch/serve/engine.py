@@ -14,6 +14,13 @@ row of one live batched cache tree is an independent *slot*:
     `sample_topk` kernel, so the step never forms the (B, V) logits;
   * `reset_slot(i)` restores a finished slot to its pristine state.
 
+Quantized serving (``ServeConfig.quantize_cache``, ``head_dtype``): an
+int8 KV cache with per-(token, head) scales, and a 1-byte lm_head, made
+once at init by `kernels.quant.quantize_weight` (``params['lm_head']``
+becomes the int8 / fp8 copy and ``params['lm_head_scale']`` its (V,) f32
+scales); every vocab scan then streams the 1-byte head with its scales
+(`sample_topk`, `score_tokens`: ``w_scale``).
+
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu");
 it raises if CUDA is asked for and missing, and never falls back.  Cache
 updates are in place.  Free slots still run the batched decode (their
@@ -45,6 +52,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import Arch
+from repro_torch.kernels.quant import head_quant_dtype, quantize_weight
 from repro_torch.models.registry import (empty_serve_caches, forward_hidden,
                                          init_serve_caches,
                                          insert_slot_caches,
@@ -63,8 +71,10 @@ class ServeConfig:
     top_k: int = 40
     top_p: Optional[float] = None  # nucleus filter over the top-k logits
     cache_dtype: str = "bfloat16"
-    quantize_cache: bool = False   # int8 KV: ROADMAP A6
-    head_dtype: Optional[str] = None  # quantized lm_head: ROADMAP A6
+    quantize_cache: bool = False   # int8 KV (transformer family only)
+    head_dtype: Optional[str] = None  # quantized lm_head serving dtype
+    #   ("int8" | "float8_e4m3fn" | "float8_e5m2"; None/"bfloat16"/
+    #   "float32" serve the full-precision head) - kernels/quant.py
     sampler_impl: str = "kernel"   # 'kernel' | 'plain' (CPU tensors only)
     autotune: bool = False         # tuned block plans: ROADMAP A2 item 4
     # paged KV cache (serve/paged.PagedEngine)
@@ -86,17 +96,19 @@ def resolve_device(device) -> torch.device:
 
 def make_sampler(arch: Arch, sc: ServeConfig):
     """Streaming-sampler closure over the arch's softcap and the serve
-    knobs: ``sample(h2, w, temperature, generator[, allowed_mask]) ->
-    (N,) int32``.  The temperature stays a call-site argument: the
-    speculative engines draw drafts at the draft temperature and verify
-    picks at the target's through the same closure."""
-    def sample(h2, w, temperature, generator, allowed_mask=None):
+    knobs: ``sample(h2, w, temperature, generator[, allowed_mask,
+    w_scale]) -> (N,) int32``.  The temperature stays a call-site
+    argument: the speculative engines draw drafts at the draft
+    temperature and verify picks at the target's through the same
+    closure.  `w_scale` marks w as a quantized head."""
+    def sample(h2, w, temperature, generator, allowed_mask=None,
+               w_scale=None):
         return sample_tokens(h2.contiguous(), w, generator=generator,
                              temperature=temperature, top_k=sc.top_k,
                              top_p=sc.top_p, valid_vocab=arch.vocab_size,
                              logit_softcap=arch.cfg.logit_softcap,
                              impl=sc.sampler_impl,
-                             allowed_mask=allowed_mask)
+                             allowed_mask=allowed_mask, w_scale=w_scale)
 
     return sample
 
@@ -119,16 +131,28 @@ class Engine:
 
     def __init__(self, arch: Arch, params, sc: ServeConfig,
                  device="cuda"):
-        if sc.quantize_cache or sc.head_dtype not in (None, "bfloat16",
-                                                      "float32"):
-            raise NotImplementedError("quantized KV caches and lm_heads "
-                                      "come with ROADMAP A6")
+        if sc.quantize_cache and arch.family != "transformer":
+            # never fall back to bf16 quietly: the caller asked for the
+            # halved-footprint cache and would get full-size slabs
+            raise NotImplementedError(
+                "quantize_cache is only implemented for the transformer "
+                f"KV cache; arch family '{arch.family}' would silently "
+                "serve full-precision state — set quantize_cache=False")
         if sc.autotune:
             raise NotImplementedError("autotuned block plans (top-k and "
                                       "paged) come with ROADMAP A2 item 4")
         self.arch = arch
         self.params = params
         self.sc = sc
+        self._quant = sc.quantize_cache
+        # quantized lm_head: the serving params' head becomes the 1-byte
+        # copy and its per-row scales, once; every vocab scan reads
+        # params["lm_head"] / params["lm_head_scale"]
+        self._head_dtype = head_quant_dtype(sc.head_dtype)
+        if self._head_dtype is not None:
+            wq, ws = quantize_weight(params["lm_head"], self._head_dtype)
+            self.params = dict(params, lm_head=wq.contiguous(),
+                               lm_head_scale=ws.contiguous())
         self.device = resolve_device(device)
         self._cdt = getattr(torch, sc.cache_dtype)
         self._sampler = make_sampler(arch, sc)
@@ -153,7 +177,13 @@ class Engine:
     def _empty_caches(self):
         return empty_serve_caches(
             self.arch, self.sc.batch_size, self.sc.max_len, dtype=self._cdt,
-            device=self.device)
+            device=self.device, quantize=self._quant)
+
+    def head_bytes(self) -> int:
+        """Bytes of the served lm_head (and its scales, when quantized):
+        what every vocab scan streams."""
+        return sum(self.params[k].numel() * self.params[k].element_size()
+                   for k in ("lm_head", "lm_head_scale") if k in self.params)
 
     def reset(self, seed: int = 0):
         """Fresh batched cache container + per-slot pristine template."""
@@ -167,7 +197,8 @@ class Engine:
     def _sample(self, h2: torch.Tensor,
                 allowed_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self._sampler(h2, self.params["lm_head"],
-                             self.sc.temperature, self._gen, allowed_mask)
+                             self.sc.temperature, self._gen, allowed_mask,
+                             w_scale=self.params.get("lm_head_scale"))
 
     # -- slot operations ----------------------------------------------------
 
@@ -210,7 +241,8 @@ class Engine:
         del slot, match_len
         tokens, true_len = self._prefill_inputs(prompt)
         slot_caches = init_serve_caches(self.arch, 1, self.sc.max_len,
-                                        dtype=self._cdt, device=self.device)
+                                        dtype=self._cdt, device=self.device,
+                                        quantize=self._quant)
         return tokens, slot_caches, true_len, {"ext": False}
 
     def _commit_slot(self, slot: int, slot_caches, ctx):
@@ -348,6 +380,7 @@ class Engine:
         return cuda_topk(h2.contiguous(), self.params["lm_head"], k,
                          valid_vocab=self.arch.vocab_size,
                          logit_softcap=self.arch.cfg.logit_softcap,
+                         w_scale=self.params.get("lm_head_scale"),
                          return_lse=True)
 
     @torch.no_grad()
@@ -397,7 +430,8 @@ class Engine:
         from repro_torch.kernels.score_tokens import score_tokens
         logp, _ = score_tokens(hs, self.params["lm_head"], ids,
                                valid_vocab=self.arch.vocab_size,
-                               logit_softcap=self.arch.cfg.logit_softcap)
+                               logit_softcap=self.arch.cfg.logit_softcap,
+                               w_scale=self.params.get("lm_head_scale"))
         return logp
 
     @torch.no_grad()

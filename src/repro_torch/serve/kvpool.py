@@ -19,9 +19,14 @@ Device side, the port's serve cache is ONE stacked dict per model, so
     len:   (L, B)
 
 where the pools are shared by every slot and every layer indexes its
-own pools with the same per-slot chains.  Pool writes are in place
-(`models/attention._paged_update`); `copy_block` moves a block's bytes
-in place too.  int8 pools with scale pools come with ROADMAP A6.
+own pools with the same per-slot chains.  An int8 slab (``k_scale`` /
+``v_scale`` beside int8 k / v) pages into int8 pools and the scale pools
+
+    kp_scale/vp_scale: (L, n_blocks, block_size, nkv, 1) f32
+
+reached through the same table, so one chain covers values and scales.
+Pool writes are in place (`models/attention._paged_update`);
+`copy_block` moves a block's bytes in place too, in every pool leaf.
 """
 
 from __future__ import annotations
@@ -344,11 +349,13 @@ class PrefixCache:
 # paged cache trees (device side)
 # ---------------------------------------------------------------------------
 
-POOL_KEYS = ("kp", "vp")
+# every pool leaf, values and scales: a copy-on-write moves them together
+POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
 def is_pageable(sub: Any) -> bool:
-    """True for a slab KV-cache dict ``{'k', 'v', 'len'}``."""
+    """True for a slab KV-cache dict ``{'k', 'v', 'len'}``, plain or
+    int8 (with ``'k_scale'`` / ``'v_scale'``)."""
     return (isinstance(sub, dict) and "k" in sub and "v" in sub
             and "len" in sub and "pos" not in sub)
 
@@ -361,19 +368,18 @@ def paged_tree(tree: Any, pc: PagedConfig, device=None):
     """The paged form of a slab serve cache: zeroed pools, null-filled
     tables, zero lens, on `device` (default: the slab's own; the slab
     may live on the ``meta`` device, so that only its shapes are
-    used).  A tree with nothing pageable passes through."""
+    used).  An int8 slab adds its scale pools ``kp_scale`` / ``vp_scale``
+    (L?, n_blocks, block_size, nkv, 1).  A tree with nothing pageable
+    passes through."""
     if not is_pageable(tree):
         return tree
-    if "k_scale" in tree:
-        raise NotImplementedError("int8 paged KV pools (kp_scale / "
-                                  "vp_scale) come with ROADMAP A6")
     k = tree["k"]
     dev = k.device if device is None else device
     lead = k.shape[:-4]                     # () or (n_layers,)
     nkv, hd = k.shape[-2:]
     b = k.shape[-4]
     pool_shape = lead + (pc.n_blocks, pc.block_size, nkv, hd)
-    return {
+    out = {
         "kp": torch.zeros(pool_shape, dtype=k.dtype, device=dev),
         "vp": torch.zeros(pool_shape, dtype=tree["v"].dtype, device=dev),
         "table": torch.full(lead + (b, pc.max_blocks_per_slot), NULL_BLOCK,
@@ -381,6 +387,13 @@ def paged_tree(tree: Any, pc: PagedConfig, device=None):
         "len": torch.zeros(tree["len"].shape, dtype=torch.int32,
                            device=dev),
     }
+    if "k_scale" in tree:
+        sshape = pool_shape[:-1] + (1,)
+        out["kp_scale"] = torch.zeros(sshape, dtype=tree["k_scale"].dtype,
+                                      device=dev)
+        out["vp_scale"] = torch.zeros(sshape, dtype=tree["v_scale"].dtype,
+                                      device=dev)
+    return out
 
 
 def count_paged(tree: Any) -> int:
@@ -415,9 +428,11 @@ def slice_tables(tree: Dict[str, torch.Tensor], n_cols: int):
 
 def copy_block(tree: Dict[str, torch.Tensor], dst: int, src: int):
     """Copy-on-write payload move, IN PLACE: pool block `src` -> `dst` in
-    every pool leaf, all layers.  The host refcounts move separately
-    (`BlockPool.writable_block`)."""
+    every pool leaf (the scale pools of an int8 cache too), all layers.
+    The host refcounts move separately (`BlockPool.writable_block`)."""
     for key in POOL_KEYS:
+        if key not in tree:
+            continue
         pool = tree[key]
         pool.select(-4, dst).copy_(pool.select(-4, src))
     return tree

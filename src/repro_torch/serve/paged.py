@@ -27,8 +27,10 @@ first append of a fork copies only the block it writes
 
 `PagedSelfSpecEngine` self-speculates on the pool: before a step every
 live chain reserves room for the K+1 verify appends, after it the host
-lengths advance by each slot's emitted count.  int8 pools come with
-ROADMAP A6 and the paged autotuner with A2 item 4.
+lengths advance by each slot's emitted count.  A quantized cache
+(``quantize_cache``) pages into int8 pools with their scale pools,
+reached through the same chains and copied with them; the paged
+autotuner comes with ROADMAP A2 item 4.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ class _PagedMixin:
                 arch, cfg=dataclasses.replace(arch.cfg,
                                               paged_impl=sc.paged_impl))
         super().__init__(arch, params, sc, *args, **kwargs)
-        pools = {k: self.caches[k] for k in kvpool.POOL_KEYS}
+        pools = {k: self.caches[k] for k in kvpool.POOL_KEYS
+                 if k in self.caches}
         self._block_bytes = kvpool.cache_tree_bytes(pools) // \
             self._pc.n_blocks
 
@@ -68,7 +71,7 @@ class _PagedMixin:
     def _empty_caches(self):
         return empty_serve_caches(
             self.arch, self.sc.batch_size, self.sc.max_len, dtype=self._cdt,
-            device=self.device, paged=self._pc)
+            device=self.device, quantize=self._quant, paged=self._pc)
 
     def reset(self, seed: int = 0):
         bs, nb = self.sc.batch_size, self._pc.max_blocks_per_slot

@@ -36,18 +36,20 @@ def streaming_topk(
     h: torch.Tensor, w: torch.Tensor, k: int, *,
     block_v: int = 8192, valid_vocab: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    w_scale: Optional[torch.Tensor] = None,
     allowed_mask: Optional[torch.Tensor] = None,
     return_lse: bool = False,
 ):
     """Top-k of h @ w.T per row, streamed over vocab chunks.
 
     h: (B, d); w: (V, d).  Returns (values (B, k) f32, ids (B, k) i32).
-    `allowed_mask` (B, V) restricts the candidates to its nonzero columns
-    (constrained decoding: the others score -inf before the merge);
-    ``return_lse=True`` appends the per-row logsumexp (B,) over the same
-    filtered logits, folded chunk by chunk as an online softmax.  The
-    quantized-head option of the JAX version (``w_scale``) comes with
-    ROADMAP A6."""
+    `w_scale` (V,) marks w as a quantized head: each chunk's logits are
+    multiplied by their columns' scales after the dot, before the
+    softcap.  `allowed_mask` (B, V) restricts the candidates to its
+    nonzero columns (constrained decoding: the others score -inf before
+    the merge); ``return_lse=True`` appends the per-row logsumexp (B,)
+    over the same filtered logits, folded chunk by chunk as an online
+    softmax."""
     b = h.shape[0]
     v = w.shape[0]
     valid = v if valid_vocab is None else valid_vocab
@@ -61,6 +63,8 @@ def streaming_topk(
     for lo in range(0, v, bv):
         hi = min(lo + bv, v)
         z = h32 @ w[lo:hi].float().T                        # (B, chunk)
+        if w_scale is not None:
+            z = z * w_scale[lo:hi].float()[None, :]
         if logit_softcap is not None:
             z = logit_softcap * torch.tanh(z / logit_softcap)
         col = torch.arange(lo, hi, device=h.device)
@@ -105,6 +109,7 @@ def sample_tokens(
     logit_softcap: Optional[float] = None,
     impl: str = "kernel",
     allowed_mask: Optional[torch.Tensor] = None,
+    w_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Next-token ids (B,) int32 — greedy when temperature == 0.
 
@@ -114,12 +119,13 @@ def sample_tokens(
     `allowed_mask` (B, V) restricts each row to its nonzero columns
     (constrained decoding): the others score -inf inside the vocab scan
     and are never drawn at any temperature or top_p; an all-ones mask
-    gives the same tokens as none."""
+    gives the same tokens as none.  `w_scale` (V,) marks w as a
+    quantized lm_head (``ServeConfig.head_dtype``)."""
     k = 1 if temperature == 0.0 else top_k
     if impl == "kernel":
         from repro_torch.kernels.sample_topk import cuda_topk
         vals, idxs = cuda_topk(h, w, k, valid_vocab=valid_vocab,
-                               logit_softcap=logit_softcap,
+                               logit_softcap=logit_softcap, w_scale=w_scale,
                                allowed_mask=allowed_mask)
     elif impl == "plain":
         if h.device.type != "cpu":
@@ -129,6 +135,7 @@ def sample_tokens(
         vals, idxs = streaming_topk(h, w, k, block_v=block_v,
                                     valid_vocab=valid_vocab,
                                     logit_softcap=logit_softcap,
+                                    w_scale=w_scale,
                                     allowed_mask=allowed_mask)
     else:
         raise ValueError(f"unknown sampler impl {impl!r}")

@@ -98,11 +98,12 @@ def verify_forward(arch: Arch, params, caches, seq: torch.Tensor,
     return h, caches
 
 
-def _score_lp(h2, w, ids, *, valid, cap, temp):
+def _score_lp(h2, w, ids, *, valid, cap, temp, w_scale=None):
     """log p(ids | h2) (N, P) under the shared lm_head at temperature
-    `temp` (<= 0 or None: unscaled)."""
+    `temp` (<= 0 or None: unscaled); `w_scale` marks a quantized head."""
     logp, _ = score_tokens(h2.contiguous(), w, ids, valid_vocab=valid,
-                           logit_softcap=cap, temperature=temp)
+                           logit_softcap=cap, temperature=temp,
+                           w_scale=w_scale)
     return logp
 
 
@@ -159,6 +160,10 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
 
     def spec_step(params, dparams, caches, dcaches, cur, gen):
         b = cur.shape[0]
+        # quantized-head serving: both engines carry the per-row scales
+        # beside their 1-byte lm_head (Engine.__init__)
+        t_ws = params.get("lm_head_scale")
+        d_ws = dparams.get("lm_head_scale")
         # ---- 1. draft proposal: K sampled tokens + one catch-up step so
         # the draft cache consumes d_K too (kept only if all K accepted)
         d_tokens, d_hidden = [], []
@@ -169,7 +174,8 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
             if i == k:
                 break
             h_last = h[:, -1, :]
-            nxt = sampler_d(h_last, dparams["lm_head"], draft_temp, gen)
+            nxt = sampler_d(h_last, dparams["lm_head"], draft_temp, gen,
+                            w_scale=d_ws)
             d_hidden.append(h_last)
             d_tokens.append(nxt)
             tok = nxt[:, None]
@@ -178,8 +184,8 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
             # one batched (B*K)-row vocab scan instead of K scans of B
             dh = torch.stack(d_hidden, dim=1).reshape(b * k, -1)
             d_lp = _score_lp(dh, dparams["lm_head"], draft.reshape(b * k, 1),
-                             valid=valid, cap=draft_cap,
-                             temp=draft_temp).reshape(b, k)
+                             valid=valid, cap=draft_cap, temp=draft_temp,
+                             w_scale=d_ws).reshape(b, k)
 
         # ---- 2. target verification over [cur, d_1..d_K]
         seq = torch.cat([cur, draft], dim=1)                 # (B, K+1)
@@ -187,7 +193,7 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
         d_model = h.shape[-1]
         choice = sampler_t(h.reshape(b * (k + 1), d_model),
                            params["lm_head"], sc.temperature,
-                           gen).reshape(b, k + 1)
+                           gen, w_scale=t_ws).reshape(b, k + 1)
 
         # ---- 3. acceptance
         if greedy:
@@ -197,7 +203,8 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
             t_lp = _score_lp(h[:, :k, :].reshape(b * k, d_model),
                              params["lm_head"], draft.reshape(b * k, 1),
                              valid=valid, cap=target_cap,
-                             temp=sc.temperature).reshape(b, k)
+                             temp=sc.temperature,
+                             w_scale=t_ws).reshape(b, k)
             u = _uniform((b, k), gen, cur.device)
             acc = torch.log(u) <= (t_lp - d_lp)             # min(1, pt/pd)
         out, counts, n_acc = _accept(acc, draft, choice)
@@ -309,14 +316,15 @@ def build_self_prefill(arch: Arch, sc: ServeConfig, spec: SpecConfig):
 
     def prefill(params, h_last, gen):
         w = params["lm_head"]
-        tok = sampler(h_last, w, sc.temperature, gen)            # (1,)
+        ws = params.get("lm_head_scale")
+        tok = sampler(h_last, w, sc.temperature, gen, w_scale=ws)  # (1,)
         hh = apply_mtp_heads(arch, params, h_last)[0, :k]        # (K, d)
-        draft = sampler(hh, w, draft_temp, gen)                  # (K,)
+        draft = sampler(hh, w, draft_temp, gen, w_scale=ws)      # (K,)
         if greedy:
             d_lp = torch.zeros((k,), dtype=torch.float32, device=hh.device)
         else:
             d_lp = _score_lp(hh, w, draft[:, None], valid=valid, cap=cap,
-                             temp=draft_temp)[:, 0]
+                             temp=draft_temp, w_scale=ws)[:, 0]
         return tok, draft, d_lp
 
     return prefill
@@ -351,12 +359,13 @@ def build_self_spec_step(arch: Arch, sc: ServeConfig, spec: SpecConfig):
     def self_spec_step(params, caches, cur, draft, draft_lp, gen):
         b = cur.shape[0]
         w = params["lm_head"]
+        ws = params.get("lm_head_scale")
         # ---- 1. ONE target forward verifies the pending drafts
         seq = torch.cat([cur, draft], dim=1)                 # (B, K+1)
         h, caches = verify_forward(arch, params, caches, seq, strat)
         d_model = h.shape[-1]
         choice = sampler(h.reshape(b * (k + 1), d_model), w, sc.temperature,
-                         gen).reshape(b, k + 1)
+                         gen, w_scale=ws).reshape(b, k + 1)
 
         # ---- 2. acceptance
         if greedy:
@@ -364,7 +373,7 @@ def build_self_spec_step(arch: Arch, sc: ServeConfig, spec: SpecConfig):
         else:
             t_lp = _score_lp(h[:, :k, :].reshape(b * k, d_model), w,
                              draft.reshape(b * k, 1), valid=valid, cap=cap,
-                             temp=sc.temperature).reshape(b, k)
+                             temp=sc.temperature, w_scale=ws).reshape(b, k)
             u = _uniform((b, k), gen, cur.device)
             acc = torch.log(u) <= (t_lp - draft_lp)         # min(1, pt/ph)
         out, counts, n_acc = _accept(acc, draft, choice)
@@ -374,13 +383,14 @@ def build_self_spec_step(arch: Arch, sc: ServeConfig, spec: SpecConfig):
         h_a = torch.gather(h, 1, idx)[:, 0]                  # (B, d)
         hh = apply_mtp_heads(arch, params, h_a)[:, :k].reshape(b * k,
                                                                d_model)
-        new_draft = sampler(hh, w, draft_temp, gen).reshape(b, k)
+        new_draft = sampler(hh, w, draft_temp, gen,
+                            w_scale=ws).reshape(b, k)
         if greedy:
             new_lp = torch.zeros((b, k), dtype=torch.float32, device=h.device)
         else:
             new_lp = _score_lp(hh, w, new_draft.reshape(b * k, 1),
-                               valid=valid, cap=cap,
-                               temp=draft_temp).reshape(b, k)
+                               valid=valid, cap=cap, temp=draft_temp,
+                               w_scale=ws).reshape(b, k)
 
         # ---- 4. roll back the K - n_acc rejected positions
         caches = rollback_slot_caches(caches, k - n_acc)

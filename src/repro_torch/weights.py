@@ -32,10 +32,14 @@ from repro_torch.optim.tree import leaves, stacked_groups
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """One numpy array (bf16 included) as a tensor on `device`."""
+    """One numpy array (bf16 and the two fp8 types included) as a tensor
+    on `device`; the 1- and 2-byte float types move as their bits."""
     a = np.array(a, copy=True, order="C")   # writable, contiguous
     if a.dtype.name == "bfloat16":
         t = _bf16_from_bits(a)
+    elif a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):
+        t = torch.from_numpy(a.view(np.uint8)).view(
+            getattr(torch, a.dtype.name))
     else:
         t = torch.from_numpy(a)
     return t.to(device)

@@ -9,7 +9,9 @@ in f32 (TF32 off) on the same bf16 inputs: lse and z_target rtol 1e-5 /
 atol 1e-4, z_sum atol 1e-3 (a sum over the vocab of values in another
 order); dH and dW rtol 3e-4 / atol 1e-6, the JAX kernels' own tolerance
 (`tests/test_kernel_fused_ce.py`) — the kernels contract g as two bf16
-halves, |g - hi - lo| <= 2^-17 |g|.  paged_attn: bf16 outputs within
+halves, |g - hi - lo| <= 2^-17 |g|.  Quantized heads (int8 and both
+fp8 types with ``w_scale``): the same tolerances against the plain
+versions on the same 1-byte W and scales.  paged_attn: bf16 outputs within
 atol / rtol 1e-2 of the plain version in f32, cast (one bf16 rounding
 at |out| <= ~1).  score_tokens: lse and candidate logits rtol 1e-5 /
 atol 1e-4 of the plain version (f32 sums of bf16 products in another
@@ -68,16 +70,20 @@ def test_kernel_matches_plain_version(cuda, rows, k, cap, ties):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_support(cuda):
-    """The quantized head's `w_scale` raises on the card naming ROADMAP
-    A6 (never a quiet trip through the plain version), and so do k above
-    the limit, another dtype, a mask of the wrong shape and one of a
-    dtype the kernel does not read in place."""
+    """A quantized head's `w_scale` of the wrong shape or dtype raises
+    ValueError on the card (never a quiet trip through the plain
+    version), and so do k above the limit, another dtype, a mask of the
+    wrong shape and one of a dtype the kernel does not read in place."""
     from repro_torch.kernels.sample_topk import MAX_K, LAUNCHES, cuda_topk
     h = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((1024, 128), dtype=torch.bfloat16, device=cuda)
     before = LAUNCHES.count
-    with pytest.raises(NotImplementedError, match="A6"):
-        cuda_topk(h, w, 4, w_scale=torch.ones((1024,), device=cuda))
+    with pytest.raises(ValueError, match="w_scale"):
+        cuda_topk(h, w.to(torch.int8), 4,
+                  w_scale=torch.ones((1000,), device=cuda))
+    with pytest.raises(ValueError, match="w_scale"):
+        cuda_topk(h, w.to(torch.int8), 4,
+                  w_scale=torch.ones((1024,), device=cuda).double())
     with pytest.raises(ValueError):
         cuda_topk(h, w, MAX_K + 1)
     with pytest.raises(ValueError):
@@ -395,8 +401,13 @@ def test_fused_ce_refuses_what_it_does_not_support(cuda):
         bwd_grads(h, w, y, lse.double(), lse, lse, cfg)
     with pytest.raises(ValueError):
         fwd_stats(h, w, y[:4], cfg, return_tile_stats=True)
-    with pytest.raises(NotImplementedError):
-        fwd_stats(h, w, y, cfg, w_scale=torch.ones((256,), device=cuda))
+    with pytest.raises(ValueError, match="quantized head"):
+        fwd_stats(h, w.to(torch.int8), y, cfg,
+                  w_scale=torch.ones((256,), device=cuda),
+                  return_tile_stats=True)
+    with pytest.raises(ValueError, match="w_scale"):
+        fwd_stats(h, w.to(torch.int8), y, cfg,
+                  w_scale=torch.ones((255,), device=cuda))
     with pytest.raises(ValueError, match="skip mask shape"):
         bwd_grads(h, w, y, lse, lse, lse, cfg, skip_mask=lse)
     with pytest.raises(NotImplementedError):
@@ -734,7 +745,10 @@ def test_paged_attn_refuses_what_it_does_not_support(cuda):
     before = LAUNCHES.count
     with pytest.raises(ValueError, match="bf16"):
         paged_attention(q, kp.float(), vp.float(), table, lens)
-    with pytest.raises(NotImplementedError, match="A6"):
+    kq, vq = kp.to(torch.int8), vp.to(torch.int8)
+    with pytest.raises(ValueError, match="kp_scale and vp_scale"):
+        paged_attention(q, kq, vq, table, lens, kp_scale=kp[..., :1].float())
+    with pytest.raises(ValueError, match="int8"):
         paged_attention(q, kp, vp, table, lens, kp_scale=kp[..., :1].float(),
                         vp_scale=vp[..., :1].float())
     q12, kp12, vp12, t12, l12 = _paged_problem(cuda, 2, 1, 4, 2, 12, 4, 3, 1)
@@ -828,8 +842,11 @@ def test_score_tokens_refuses_what_it_does_not_support(cuda):
     w = torch.zeros((512, 128), dtype=torch.bfloat16, device=cuda)
     ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
     before = LAUNCHES.count
-    with pytest.raises(NotImplementedError, match="A6"):
-        score_stats(h, w, ids, w_scale=torch.ones((512,), device=cuda))
+    with pytest.raises(ValueError, match="w_scale"):
+        score_stats(h, w.to(torch.int8), ids,
+                    w_scale=torch.ones((500,), device=cuda))
+    with pytest.raises(ValueError, match="float8"):
+        score_stats(h, w.to(torch.int16), ids)
     with pytest.raises(ValueError, match="d % 64"):
         score_stats(h[:, :96].contiguous(), w[:, :96].contiguous(), ids)
     with pytest.raises(ValueError, match="candidates"):
@@ -866,7 +883,7 @@ def _score_wide(cuda, n, p, d):
                                                   score_stats_ref)
     from repro_torch.kernels.score_tokens.kernel import _lib
     v = 32768
-    build.check_plan_twin(_lib(), "score_tokens_plan", (n, v, p),
+    build.check_plan_twin(_lib(), "score_tokens_plan", (n, v, p, 2),
                           score_plan(n, v, p))
     gen = torch.Generator(device=cuda).manual_seed(n + p + d)
     h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
@@ -921,11 +938,13 @@ def test_stream_plans_equal_their_source_twins(cuda):
     for rows in (1, 8, 9, 40, 64, 65, 100, 129, 256, 257, 1000):
         for v in (100, 20_000, 32_768, 152_064, 262_144):
             for x in (1, 4, 40, 64):
-                build.check_plan_twin(score_lib(), "score_tokens_plan",
-                                      (rows, v, x), score_plan(rows, v, x))
-                build.check_plan_twin(topk_lib(), "sample_topk_plan",
-                                      (rows, v, x),
-                                      topk_stream_plan(rows, v, x))
+                for wb in (2, 1):        # bf16 and 1-byte (quantized) W
+                    build.check_plan_twin(
+                        score_lib(), "score_tokens_plan", (rows, v, x, wb),
+                        score_plan(rows, v, x, wb))
+                    build.check_plan_twin(
+                        topk_lib(), "sample_topk_plan", (rows, v, x, wb),
+                        topk_stream_plan(rows, v, x, wb))
 
 
 @pytest.mark.cuda
@@ -1021,10 +1040,12 @@ def test_ce_and_paged_plans_equal_their_source_twins(cuda):
         for nb, bs in ((7, 3), (24, 8), (32, 16), (40, 32)):
             for hd in (40, 64, 128, 256):
                 for rows in (1, 2, 10, 20, 64):
-                    build.check_plan_twin(
-                        paged_lib(), "paged_attn_plan",
-                        (b, nkv, nb, bs, hd, rows),
-                        paged_plan(b, nkv, nb, bs, hd, rows))
+                    for quant in (0, 1):
+                        build.check_plan_twin(
+                            paged_lib(), "paged_attn_plan",
+                            (b, nkv, nb, bs, hd, rows, quant),
+                            paged_plan(b, nkv, nb, bs, hd, rows,
+                                       bool(quant)))
 
 
 # ---------------------------------------------------------------------------
@@ -1136,3 +1157,237 @@ def test_checkpoint_snapshot_and_restore_on_cuda(cuda, opt, tmp_path):
     # the restored state trains on
     restored, m = step_fn(restored, next(data))
     assert torch.isfinite(m["loss"]).item()
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: 1-byte heads with w_scale, int8 paged pools
+# ---------------------------------------------------------------------------
+
+_QDTYPES = ["int8", "float8_e4m3fn", "float8_e5m2"]
+
+
+def _quant_head(cuda, v, d, qdtype, seed, rows):
+    """Seeded bf16 h (rows, d) and a 1-byte head (quantize_weight of a
+    (v, d) bf16 W) with its scales."""
+    from repro_torch.kernels.quant import quantize_weight
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn((rows, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    wq, ws = quantize_weight(w, qdtype)
+    return h, wq.contiguous(), ws.contiguous()
+
+
+def _ids_apart(vals, ids, rv, ri):
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (vals, ids, rv, ri))
+    np.testing.assert_allclose(vals, rv, rtol=1e-5, atol=1e-4)
+    gap = np.abs(np.diff(rv, axis=1)) > 1e-4
+    sep = np.ones_like(ids, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", _QDTYPES)
+@pytest.mark.parametrize("d", [1024, 4096])
+@pytest.mark.parametrize("rows,k,masked,lse,cap", [
+    (8, 1, False, False, None), (8, 1, True, True, None),
+    (8, 40, False, True, 30.0), (40, 8, True, False, None)])
+def test_topk_quantized_head_matches_plain_version(cuda, qdtype, d, rows, k,
+                                                   masked, lse, cap):
+    """The decode kernel on a 1-byte head with `w_scale`, alone and with
+    `allowed_mask` and `return_lse`: values and the lse within the bf16
+    head's tolerance of the plain version on the same 1-byte W and
+    scales, ids exact wherever the values are apart, one launch a call
+    and two calls bit for bit."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    v, valid = 20_000, 19_900
+    h, wq, ws = _quant_head(cuda, v, d, qdtype, seed=d + rows + k, rows=rows)
+    kw = dict(valid_vocab=valid, logit_softcap=cap, w_scale=ws,
+              return_lse=lse,
+              allowed_mask=_topk_mask(cuda, rows, v, 5) if masked else None)
+    before = LAUNCHES.count
+    got = cuda_topk(h, wq, k, **kw)
+    again = cuda_topk(h, wq, k, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = topk_scores_ref(h, wq, k, **kw)
+    if masked:                     # the all-zero row: -inf values only
+        live = slice(0, rows - 1)
+        assert bool(torch.isneginf(got[0][-1]).all())
+    else:
+        live = slice(0, rows)
+    _ids_apart(got[0][live], got[1][live], ref[0][live], ref[1][live])
+    if lse:
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", _QDTYPES)
+def test_topk_scale_of_ones_is_the_dequantized_bf16_head(cuda, qdtype):
+    """A 1-byte head whose values are bf16 values: with scales of one it
+    is the bf16 kernel's call on the widened head, bit for bit (the
+    widening is exact and the products are the same)."""
+    from repro_torch.kernels.sample_topk import cuda_topk
+    h, wq, _ = _quant_head(cuda, 5000, 1024, qdtype, seed=3, rows=8)
+    ones = torch.ones((5000,), device=cuda)
+    for k in (1, 40):
+        got = cuda_topk(h, wq, k, w_scale=ones, return_lse=True)
+        want = cuda_topk(h, wq.to(torch.bfloat16), k, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", _QDTYPES)
+@pytest.mark.parametrize("n,p,d,cap,temp", [
+    (32, 1, 1024, None, 0.7), (8, 4, 4096, 30.0, None)])
+def test_score_tokens_quantized_head_matches_plain_version(cuda, qdtype, n,
+                                                           p, d, cap, temp):
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref)
+    v, valid = 20_000, 19_900
+    h, wq, ws = _quant_head(cuda, v, d, qdtype, seed=n + p + d, rows=n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ids = torch.randint(0, valid, (n, p), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(valid_vocab=valid, logit_softcap=cap, temperature=temp,
+              w_scale=ws)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, wq, ids, **kw)
+    lse2, zc2 = score_stats(h, wq, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, wq, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", _QDTYPES)
+@pytest.mark.parametrize("d,cap", [(1024, None), (4096, 30.0)])
+def test_fused_ce_quantized_forward_matches_plain_version(cuda, qdtype, d,
+                                                          cap):
+    """The forward on a 1-byte head with `w_scale` over ragged rows and
+    vocab (1000 x 20,000): lse and z_target rtol 1e-5 / atol 1e-4, z_sum
+    atol 1e-3, two calls bit for bit; the loss through `kernel_loss`
+    refuses a backward."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import FWD_LAUNCHES, fwd_stats
+    from repro_torch.kernels.fused_ce.ops import kernel_loss
+    from repro_torch.kernels.fused_ce.ref import ref_stats
+    n, v = 1000, 20_000
+    h, wq, ws = _quant_head(cuda, v, d, qdtype, seed=d, rows=n)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.randint(0, 19_900, (n,), generator=gen, device=cuda)
+    y[::7] = -100
+    cfg = LossConfig(logit_softcap=cap, valid_vocab=19_900)
+    before = FWD_LAUNCHES.count
+    got = fwd_stats(h, wq, y, cfg, w_scale=ws)
+    again = fwd_stats(h, wq, y, cfg, w_scale=ws)
+    torch.cuda.synchronize()
+    assert FWD_LAUNCHES.count == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ref_stats(h, wq, y, cfg, w_scale=ws)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-3)
+    hh = h.clone().requires_grad_(True)
+    loss = kernel_loss(hh, wq, y, cfg, w_scale=ws)
+    assert torch.isfinite(loss)
+    with pytest.raises(NotImplementedError, match="forward"):
+        loss.backward()
+
+
+def _quant_pools(kp, vp):
+    from repro_torch.models.attention import quantize_kv
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    return kq, vq, ks.contiguous(), vs.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,nq,nkv,hd,bs,nb,cap", [
+    (8, 1, 16, 8, 128, 16, 32, None),   # the serving decode shape
+    (8, 5, 16, 8, 128, 16, 32, None),   # self-spec verify, Tq 5
+    (8, 4, 16, 8, 128, 16, 32, 30.0),   # softcap
+    (3, 8, 4, 2, 16, 4, 6, None),       # Tq 8, small blocks
+    (2, 3, 6, 3, 256, 8, 5, 20.0),      # head_dim 256, g = 2
+    (4, 2, 8, 2, 64, 8, 24, None),      # split chains
+])
+def test_paged_attn_int8_pools_match_plain_version(cuda, b, tq, nq, nkv, hd,
+                                                   bs, nb, cap):
+    """int8 pools with their scale pools against the plain version
+    (K dequantized to bf16, V in f32) at the bf16 pools' atol / rtol
+    1e-2; one launch a call, two calls bit for bit."""
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, lens = _paged_problem(cuda, b, tq, nq, nkv, hd, bs, nb,
+                                            seed=b * 10 + tq + hd)
+    kq, vq, ks, vs = _quant_pools(kp, vp)
+    before = LAUNCHES.count
+    out = paged_attention(q, kq, vq, table, lens, kp_scale=ks, vp_scale=vs,
+                          softcap=cap)
+    again = paged_attention(q, kq, vq, table, lens, kp_scale=ks,
+                            vp_scale=vs, softcap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, kq, vq, table, lens, kp_scale=ks,
+                              vp_scale=vs, softcap=cap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+def test_paged_attn_int8_ghost_rows_and_poisoned_null_block(cuda, tq):
+    from repro_torch.kernels.paged_attn import (paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, _ = _paged_problem(cuda, 4, tq, 16, 8, 128, 16, 8, 3)
+    kq, vq, ks, vs = _quant_pools(kp, vp)
+    kq[0], vq[0], ks[0], vs[0] = 127, 127, 1e9, 1e9
+    table[:, 3:] = 0
+    lens = torch.tensor([0, tq, 40, 48], dtype=torch.int32, device=cuda)
+    out = paged_attention(q, kq, vq, table, lens, kp_scale=ks, vp_scale=vs)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0
+    ref = paged_attention_ref(q, kq, vq, table, lens, kp_scale=ks,
+                              vp_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert float(out.float().abs().max()) < 10
+
+
+@pytest.mark.cuda
+def test_quantized_paged_decode_step_launches_the_kernels(cuda):
+    """A quantized paged engine's decode step (int8 pools, int8 head) runs
+    `paged_attn` once a layer with its scale pools and `sample_topk` once
+    with `w_scale`; its tokens are finite ids."""
+    import dataclasses
+    from repro_torch.kernels.paged_attn import LAUNCHES as PA
+    from repro_torch.kernels.sample_topk import LAUNCHES as TK
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import PagedEngine, ServeConfig
+    arch = get_arch("qwen3-0.6b", reduced=True)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, param_dtype="bfloat16", compute_dtype="bfloat16"))
+    params = init_params(arch, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    eng = PagedEngine(arch, params, ServeConfig(
+        batch_size=2, max_len=64, quantize_cache=True, head_dtype="int8"),
+        device=cuda)
+    assert eng.params["lm_head"].dtype == torch.int8
+    assert eng.caches["kp"].dtype == torch.int8 and "kp_scale" in eng.caches
+    eng.prefill_into_slot(0, np.arange(1, 12))
+    eng.prefill_into_slot(1, np.arange(3, 9))
+    pa, tk = PA.count, TK.count
+    toks = eng.decode_step()
+    torch.cuda.synchronize()
+    assert PA.count - pa == arch.cfg.n_layers
+    assert TK.count - tk == 1
+    assert np.all((toks >= 0) & (toks < arch.vocab_size))

@@ -198,8 +198,13 @@ def test_dispatcher_and_waiting_options():
                                    t_fce(h, w, y, impl=impl, cfg=cfg))
     stats = fwd_stats(h, w, y, cfg, return_tile_stats=True)
     assert len(stats) == 4 and stats[3].shape == (1, 1)
-    with pytest.raises(NotImplementedError):
-        fwd_stats(h, w, y, cfg, w_scale=torch.ones(64))
+    # a quantized head's scale: the forward alone, never the statistic
+    ws = torch.linspace(0.5, 1.5, 64)
+    torch.testing.assert_close(
+        fwd_stats(h, w, y, cfg, w_scale=ws)[0],
+        fwd_stats(h, w * ws[:, None], y, cfg)[0], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="quantized head"):
+        fwd_stats(h, w, y, cfg, w_scale=ws, return_tile_stats=True)
     dh, dw = bwd_grads(h, w, y, stats[0], h[:, 0], h[:, 0], fcfg,
                        tile_stats=stats[3])
     assert dh.shape == h.shape and dw.shape == w.shape

@@ -243,9 +243,23 @@ def test_paged_tree_matches_jax(slab_device):
                                       np.asarray(want[key], np.float32))
     assert TK.count_paged(got) == 1 and TK.count_paged(tslab) == 0
     assert TK.is_pageable(tslab) and not TK.is_pageable(got)
-    quant = dict(tslab, k_scale=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TK.paged_tree(quant, pc)
+    # an int8 slab pages into int8 pools and f32 scale pools, as JAX's
+    qshape = tuple(tslab["k"].shape)
+    tq = {"k": torch.zeros(qshape, dtype=torch.int8),
+          "v": torch.zeros(qshape, dtype=torch.int8),
+          "k_scale": torch.zeros(qshape[:-1] + (1,)),
+          "v_scale": torch.zeros(qshape[:-1] + (1,)),
+          "len": tslab["len"]}
+    jq = {k: jnp.asarray(v.numpy()) for k, v in tq.items()}
+    want = JK.paged_tree(jq, JK.PagedConfig(4, 9, 4))
+    got = TK.paged_tree({k: v.to(slab_device) for k, v in tq.items()}, pc,
+                        device="cpu")
+    assert sorted(got) == sorted(want) == ["kp", "kp_scale", "len", "table",
+                                           "vp", "vp_scale"]
+    for key in want:
+        assert tuple(got[key].shape) == want[key].shape
+        assert str(got[key].dtype).split(".")[-1] == str(want[key].dtype)
+    assert TK.is_pageable(tq) and TK.count_paged(got) == 1
 
 
 def test_tables_copy_block_and_bytes_match_jax():
@@ -275,3 +289,36 @@ def test_tables_copy_block_and_bytes_match_jax():
                                   np.asarray(jout["a"]["kp"], np.float32))
     assert TK.cache_tree_bytes(ttree) == JK.cache_tree_bytes(jtree)
     assert TK.cache_tree_bytes(tslab) == JK.cache_tree_bytes(jslab)
+
+
+def test_copy_block_moves_the_scale_pools_with_the_values():
+    """A copy-on-write of an int8 paged tree moves every pool leaf, the
+    scale pools included, in place and as JAX's `copy_block` does."""
+    pc = TK.PagedConfig(block_size=2, n_blocks=4, max_blocks_per_slot=3)
+    shape = (2, 2, 6, 1, 4)
+    tq = {"k": torch.zeros(shape, dtype=torch.int8),
+          "v": torch.zeros(shape, dtype=torch.int8),
+          "k_scale": torch.zeros(shape[:-1] + (1,)),
+          "v_scale": torch.zeros(shape[:-1] + (1,)),
+          "len": torch.zeros((2, 2), dtype=torch.int32)}
+    ttree = TK.paged_tree(tq, pc)
+    jtree = JK.paged_tree({"a": {k: jnp.asarray(v.numpy())
+                                 for k, v in tq.items()}},
+                          JK.PagedConfig(2, 4, 3))
+    rng = np.random.default_rng(3)
+    for key in TK.POOL_KEYS:
+        shp = tuple(ttree[key].shape)
+        vals = (rng.integers(-127, 128, shp).astype(np.int8)
+                if ttree[key].dtype == torch.int8
+                else rng.standard_normal(shp).astype(np.float32))
+        ttree[key].copy_(torch.from_numpy(vals))
+        jtree["a"][key] = jnp.asarray(vals)
+    before = {k: ttree[k] for k in TK.POOL_KEYS}
+    jout = JK.copy_block(jtree, dst=1, src=3)
+    tout = TK.copy_block(ttree, dst=1, src=3)
+    for key in TK.POOL_KEYS:
+        assert tout[key] is before[key]                  # in place
+        np.testing.assert_array_equal(tout[key].numpy(),
+                                      np.asarray(jout["a"][key]))
+        np.testing.assert_array_equal(tout[key][:, 1].numpy(),
+                                      tout[key][:, 3].numpy())

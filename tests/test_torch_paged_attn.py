@@ -86,13 +86,32 @@ def test_null_tail_blocks_are_masked():
     assert np.abs(got).max() < 10
 
 
-def test_scale_pools_raise():
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_scale_pools_raise(dtype):
+    """int8 pools with their scale pools (`quantize_kv`'s layout) match
+    JAX's `pallas_paged_attention(kp_scale=, vp_scale=)` in interpret mode
+    (f32 at 2e-5, bf16 at 3e-2, as the pools above), and a scale pool
+    without the other raises ValueError, as JAX's does."""
     rng = np.random.default_rng(0)
-    q, kp, vp, table, lens = (torch.from_numpy(a) for a in
-                              _case(rng, 1, 1, 2, 1, 8, 4, 2))
-    with pytest.raises(NotImplementedError, match="A6"):
-        paged_attention(q, kp, vp, table, lens, kp_scale=kp[..., :1],
-                        vp_scale=vp[..., :1])
+    q, kp, vp, table, lens = _case(rng, 3, 2, 4, 2, 16, 4, 3)
+    kq, ks = (np.asarray(a) for a in JA.quantize_kv(jnp.asarray(kp)))
+    vq, vs = (np.asarray(a) for a in JA.quantize_kv(jnp.asarray(vp)))
+    jd = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    want = pallas_paged_attention(
+        jnp.asarray(q, jd), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(table), jnp.asarray(lens), kp_scale=jnp.asarray(ks),
+        vp_scale=jnp.asarray(vs), interpret=True)
+    tq = tensor_from_numpy(np.asarray(jnp.asarray(q, jd)))
+    t = [torch.from_numpy(a) for a in (kq, vq, table, lens, ks, vs)]
+    got = paged_attention(tq, t[0], t[1], t[2], t[3], kp_scale=t[4],
+                          vp_scale=t[5])
+    tol = 2e-5 if dtype == np.float32 else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    for kw in (dict(kp_scale=t[4]), dict(vp_scale=t[5])):
+        with pytest.raises(ValueError, match="kp_scale and vp_scale"):
+            paged_attention(tq, t[0], t[1], t[2], t[3], **kw)
 
 
 @pytest.mark.parametrize("lens,table", [
