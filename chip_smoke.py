@@ -205,6 +205,41 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      tokens/s, step ms p50, head bytes, block bytes and pool bytes a
      request.
 
+ 12. the rest of the transformer family at full width, seeded random
+     weights, each model freed before the next: (a) qwen3-moe-235b-a22b
+     (4 layers, 22.4 GB bf16) on `Engine(batch_size=8)`, 8 seeded
+     64-token prompts, 16 new tokens, greedy, at capacity factor E / k
+     (16: no assignment can drop); (b) the same at the published 1.25
+     on the same traffic; (c) `PagedEngine` (block 16) on (a)'s model
+     and phase 5's shared-prompt traffic; (d) qwen3-moe training, 1
+     layer, AdamW, ``loss_impl='kernel'``, batch 4 x 512, 3 steps at
+     1.25; (e) arctic-480b (1 layer: the dense FFN beside 128 experts)
+     at capacity factor 64 = E / k; (f) internvl2-1b (24 layers) with
+     seeded 256-position frontend embeddings on `Engine`.  Each run
+     with its launch counters zeroed just before.  Gates: one
+     `sample_topk` launch a prefill and a decode step (and 4
+     `paged_attn` a step in (c), at 64 query over 4 KV heads, a group of
+     16), every call held to its plain version at the call; no dropped
+     assignment in (a), (c), (e), counted from the routes (and none in
+     their cache-free forwards); every served token within FAMILY_TOL of
+     the best logit of a cache-free forward over its request whose
+     experts are pinned to the served run's (`RoutePin`: each router row
+     within PIN_MATCH_RTOL of its served twin), the unpinned forward's
+     reading and the rounding floor printed; (b) every top-k value
+     finite, the dropped prefill assignments printed, and one
+     full-width MoE layer routed on the card and on the CPU from the
+     same bf16 input and f32 router logits: slot tables equal, gates
+     within MOE_GATE_RTOL, outputs within MOE_LAYER_ATOL of the CPU's
+     largest entry; (c) every decode write read back from the pool bit
+     for bit, 15 prefix hits; (d) step 0's loss within 1e-4 of the
+     canonical loss's, its lm_head gradient within phase 4's relative
+     Frobenius limit, the aux loss > 0 and within 1e-5 of an f64
+     recomputation from the router's probs, one launch of each fused-CE
+     kernel a step, every loss finite; (f) the cache lengths 256 + the
+     prompt's.  Prints tokens/s, decode-step ms p50, peak memory, the
+     training step ms p50 and the optimizer state's bytes, and arctic's
+     head top-k device time beside its byte bound.
+
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
@@ -239,6 +274,7 @@ Without a CUDA device, or outside a checkout of the repo, it exits 1 and
 prints no result.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -436,18 +472,27 @@ def check_top1(np, vals, ids, rv2, ri2, exact_ids):
     return float(np.max(np.abs(vals[fin, 0] - rv[fin]))), int(sep.sum())
 
 
-def device_ms(torch, call, parts, iters=20, attempts=3):
+def device_ms(torch, call, parts, iters=20, attempts=5):
     """{label: device ms a call} of the launches of a wrapper call under
-    `torch.profiler`, averaged over `iters` calls: each CUDA event goes to
-    the first (label, name substring) of `parts` that its kernel's name
-    holds.  CUDA events around a kernel of a few microseconds would read
-    the host's launch rate.  Fails if a launch matches no part, or if a
-    part saw none in `attempts` profiled windows (the profiler has been
-    seen to return a window with no device events at all)."""
+    `torch.profiler`, over `iters` calls: each CUDA kernel record goes
+    to the first (label, name substring) of `parts` that its name holds.
+    The window's runtime API records must show exactly one launch a part
+    a call (`cudaLaunchKernel`), so a part launched twice fails.  The
+    profiler drops kernel records while it keeps every launch record (on
+    the H100: 19 of 20 `paged_attn` records and 49 of 50 W-stream
+    records in every window of some calls, once about half, PERF.md),
+    so a window short of records is retried, and if none of `attempts`
+    is complete, each part is averaged over the most records a window
+    kept, each the whole time of one launch, and the shortfall printed.
+    CUDA events around a kernel of a few microseconds would read the
+    host's launch rate.  Fails if a launch matches no part, or if a part
+    has no record."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(3):
         call()
     torch.cuda.synchronize()
+    best = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -455,18 +500,36 @@ def device_ms(torch, call, parts, iters=20, attempts=3):
                 call()
             torch.cuda.synchronize()
         us = {label: 0.0 for label, _ in parts}
+        seen = {label: 0 for label, _ in parts}
+        launches = 0
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.device_type != cuda:
+                launches += "LaunchKernel" in e.name
                 continue
             label = next((lb for lb, sub in parts if sub in e.name), None)
             if label is None:
                 raise AssertionError(f"the call launched {e.name}, none of "
                                      f"{[sub for _, sub in parts]}")
             us[label] += e.time_range.elapsed_us()
-        if all(us.values()):
+            seen[label] += 1
+        if launches > iters * len(parts):
+            raise AssertionError(f"{iters} calls made {launches} kernel "
+                                 f"launches, {len(parts)} a call expected "
+                                 f"({parts})")
+        if launches < iters * len(parts):
+            continue
+        if all(n == iters for n in seen.values()):
             return {label: t / iters / 1e3 for label, t in us.items()}
-    raise AssertionError(f"the profiler saw no launch of some of {parts} "
-                         f"in {attempts} windows: {us}")
+        if best is None or sum(seen.values()) > sum(best[1].values()):
+            best = (us, seen)
+    if best is None or not all(best[1].values()):
+        raise AssertionError(f"no profiled window of {attempts} recorded "
+                             f"every launch and a kernel of each of {parts}")
+    us, seen = best
+    print(f"[profiler] {iters} calls, every launch in the API records; "
+          f"kernel records kept {seen} of {iters} a part in the best of "
+          f"{attempts} windows: each part averaged over those", flush=True)
+    return {label: us[label] / seen[label] / 1e3 for label in us}
 
 
 def split_ms(torch, call, iters=20):
@@ -2180,14 +2243,16 @@ def phase_score(torch, np, arch, dev):
     return results
 
 
-def counted_run(torch, np, make_engine, submit, build, obs):
-    """Build an engine under live tracing and drive a scheduler over it,
-    every launch counter zeroed just before and read just after; records
-    each step's (tokens, counts).  Returns (engine, sched, results, rids,
-    seconds, launches, steps, tracer)."""
+def counted_run(torch, np, make_engine, submit, build, obs, max_new=32):
+    """Build an engine under live tracing and drive a scheduler over it
+    (`max_new` tokens a request), every launch counter zeroed just
+    before and read just after; records each step's (tokens, counts).
+    Returns (engine, sched, results, rids, seconds, launches, steps,
+    tracer)."""
     from repro_torch.serve import ContinuousScheduler
 
     steps = []
+    eng = None
     reg, tracer = obs.enable(trace=True)
     try:
         eng = make_engine()
@@ -2199,7 +2264,7 @@ def counted_run(torch, np, make_engine, submit, build, obs):
             return toks, counts
 
         eng.decode_step_multi = recording
-        sched = ContinuousScheduler(eng, max_new_tokens=32)
+        sched = ContinuousScheduler(eng, max_new_tokens=max_new)
         build.reset_counters()
         t0 = time.perf_counter()
         rids = submit(sched)
@@ -2209,6 +2274,10 @@ def counted_run(torch, np, make_engine, submit, build, obs):
         launches = {k: c.count for k, c in build.COUNTERS.items()}
     finally:
         obs.disable()
+        # the wrapper holds the engine: drop it, or the engine (and the
+        # params it holds) outlives its last reference until a gc pass
+        if eng is not None:
+            eng.__dict__.pop("decode_step_multi", None)
     return eng, sched, results, rids, dt, launches, steps, tracer
 
 
@@ -3605,6 +3674,836 @@ def phase_quant_serve(torch, np, arch, params, card, dev, bf16_bytes_per_req):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the rest of the transformer family (A8 part 1): phase 12
+# ---------------------------------------------------------------------------
+
+MOE_ID = "qwen3-moe-235b-a22b"
+MOE_SERVE_LAYERS = 4              # 22.4 GB of bf16 params at full width
+FAMILY_NEW = 16                   # new tokens a request
+# (a), (c), (e), (f): a served greedy token's logit against the best one
+# of a cache-free forward over its request.  The reference's expert init
+# (fan-in E: std 1/sqrt(E) = 0.088 against 0.016 for a fan-in of d,
+# ROADMAP §C) makes an MoE layer's output dominate the residual it adds
+# to, so the trunk follows its router: a near-tie between the k-th and
+# the next expert flips under a 2^-8 rounding of the hidden state, and
+# the token then reads as if drawn at random.  On the H100 a cache-free forward on its own experts trails
+# the served tokens by up to 0.47, and two cache-free forwards 64 rows
+# apart disagree by as much (PERF.md).  So the MoE forwards route
+# as the served run did (`RoutePin`) and the limit sits above the
+# rounding left: two pinned forwards 64 rows apart moved a best or served
+# logit by up to 7.5e-3 (qwen3-moe) and 7.2e-3 (arctic) on the H100;
+# 2e-2 lies above both and far below a wrong cache or position, which
+# serves a random token (~0.4-0.7 below the best under these heads'
+# logits, std ~0.16).  internvl2 is dense: phase 3's GREEDY_TOL and its
+# reasons (its two forwards moved a logit by 1.3e-4).
+FAMILY_TOL = {"moe": 2e-2, "arctic": 2e-2, "vlm": GREEDY_TOL}
+# (b): one full-width MoE layer on the card against the CPU on the same
+# bf16 input and f32 router logits.  The slot tables are integers from
+# the same sort and cumsum, so they must be equal; the gates are a
+# softmax whose exp may differ by an ulp between the CPU's and the
+# card's libm, then renormalized: within 4 f32 ulps (rtol 5e-7).  The
+# output: the expert products round bf16 intermediates (up, gate, act)
+# after f32 sums in another order, each 2^-8 relative at worst, so
+# within 2^-6 of the output's largest entry (4 bf16 ulps there).
+MOE_GATE_RTOL = 5e-7
+MOE_LAYER_ATOL = 2.0 ** -6
+# `RoutePin`: a cache-free router row and its served twin are one row
+# rounded in two places (bf16 hidden states, 2^-8 relative); rows of
+# other tokens lie O(1) of the norm apart
+PIN_MATCH_RTOL = 5e-2
+
+
+def with_cfg(arch, **kw):
+    """`arch` with its config's fields replaced."""
+    import dataclasses
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, **kw))
+
+
+def spy_routes(records):
+    """Record every `moe.route` call as (router logits, (slot, gate, aux),
+    cap, cfg).  Returns the undo."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def spy(logits, cfg, cap):
+        out = real(logits, cfg, cap)
+        records.append((logits.detach(), out, cap, cfg))
+        return out
+
+    moe.route = spy
+    return lambda: setattr(moe, "route", real)
+
+
+def route_drops(records):
+    """(dropped assignments of groups of more than one token, of
+    one-token groups) over the recorded routes."""
+    many = one = 0
+    for logits, (slot, _, _), cap, cfg in records:
+        n = int((slot == cfg.num_experts * cap).sum())
+        if logits.shape[1] > 1:
+            many += n
+        else:
+            one += n
+    return many, one
+
+
+def spy_paged_calls(errs, keep=None):
+    """Hold every `paged_attention` call of the model to its plain version
+    on the same inputs, at the call (the pools change after it): appends
+    (max |err|, query rows a KV head) to `errs`; `keep` (a dict, if
+    given) takes the arguments of the call over the most cached tokens.
+    Returns the undo."""
+    import torch
+    from repro_torch.kernels.paged_attn import paged_attention_ref
+    from repro_torch.models import attention
+    real = attention.paged_attention
+
+    def spy(q, kp, vp, table, lens, **kw):
+        out = real(q, kp, vp, table, lens, **kw)
+        ref = paged_attention_ref(q, kp, vp, table, lens, **kw)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=PAGED_ATOL, rtol=PAGED_RTOL)
+        errs.append((float((out.float() - ref.float()).abs().max()),
+                     q.shape[1] * q.shape[2] // kp.shape[2]))
+        tokens = int(lens.sum())
+        if keep is not None and tokens > keep.get("tokens", -1):
+            keep.update(tokens=tokens, kw=kw, args=(
+                q.clone(), kp, vp, table.clone(), lens.clone()))
+        return out
+
+    attention.paged_attention = spy
+    return lambda: setattr(attention, "paged_attention", real)
+
+
+def family_prompts(np, vocab, n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, length).astype(np.int32)
+            for _ in range(n)]
+
+
+class RoutePin:
+    """Pins the experts of cache-free forwards to the served run's: each
+    `moe.route` call's router-logit rows are replaced by the nearest row
+    the served run routed at the same layer (`records` from `spy_routes`:
+    the same token in the same context, rounded in other places), so a
+    router near-tie cannot pick another expert in the two roundings.
+    The first `n` rows of a call are pinned (the floor forward's extra
+    rows keep their own logits).  Reads: `worst`, the largest distance of
+    a pinned row to its match relative to the row's norm; `flips`, the
+    pinned rows whose own top-k set differed from the match's."""
+
+    def __init__(self, torch, records, n_layers):
+        self.torch = torch
+        self.ref = [torch.cat([r[0].reshape(-1, r[0].shape[-1])
+                               for r in records[layer::n_layers]])
+                    for layer in range(n_layers)]
+        self.n_layers = n_layers
+        self.calls = self.flips = self.rows = 0
+        self.worst = 0.0
+        self.n = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        torch = self.torch
+        real = self.real = moe.route
+
+        def route(logits, cfg, cap):
+            ref = self.ref[self.calls % self.n_layers]
+            self.calls += 1
+            flat = logits.reshape(-1, logits.shape[-1]).clone()
+            rows = flat[:self.n]
+            dist, j = torch.cdist(
+                rows, ref,
+                compute_mode="donot_use_mm_for_euclid_dist").min(1)
+            self.worst = max(self.worst, float(
+                (dist / rows.norm(dim=1)).max()))
+            own = torch.topk(rows, cfg.top_k).indices.sort(-1).values
+            pin = torch.topk(ref[j], cfg.top_k).indices.sort(-1).values
+            self.flips += int((own != pin).any(-1).sum())
+            self.rows += rows.shape[0]
+            flat[:self.n] = ref[j]
+            return real(flat.reshape(logits.shape), cfg, cap)
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+def family_deficits(torch, np, arch, params, prompts, outs, dev, fe=None,
+                    pin=None):
+    """(worst, agree, floor): how far each served token's logit trails the
+    best one of a cache-free forward over its request (teacher-forced,
+    after the frontend embeddings `fe`; with `pin`, a `RoutePin`, on the
+    served run's experts), whether it is that best token, and the
+    rounding floor: the largest change of the best or the served token's
+    logit when the forward runs over 64 more rows (causal: the same
+    positions, only the GEMMs round otherwise)."""
+    import contextlib
+    from repro_torch.models.registry import forward_hidden
+    head = params["lm_head"][:arch.vocab_size].float()
+    worst = floor = 0.0
+    agree = []
+    with torch.no_grad(), pin or contextlib.nullcontext():
+        for prompt, out in zip(prompts, outs):
+            seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+            served = torch.from_numpy(out.astype(np.int64)).to(dev)
+            got = []
+            for s in (seq, np.concatenate([seq, prompt[:64]])):
+                if pin is not None:
+                    pin.n = len(seq)
+                batch = {"tokens": torch.from_numpy(s[None]).to(dev)}
+                if fe is not None:
+                    batch["frontend_embeds"] = fe
+                h, _, _ = forward_hidden(arch, params, batch)
+                lo = h.shape[1] - len(s) + len(prompt) - 1
+                z = h[0, lo:lo + len(out)].float() @ head.T
+                best, ids = z.max(-1)
+                got.append((best, z.gather(1, served[:, None])[:, 0], ids))
+            (best, zs, ids), (best2, zs2, _) = got
+            worst = max(worst, float((best - zs).max()))
+            floor = max(floor, float((best - best2).abs().max()),
+                        float((zs - zs2).abs().max()))
+            agree.append(ids.cpu().numpy() == out)
+    return worst, np.concatenate(agree), floor
+
+
+def family_run(torch, np, arch, make_engine, prompts, fe=None,
+               engines=None):
+    """Serve `prompts` (FAMILY_NEW tokens each, after the frontend
+    embeddings `fe`) through `counted_run` on a `make_engine()`
+    (appended to `engines`); returns (outs, sched, launches by kernel,
+    seconds, decode step ms, peak GiB).  Every request must get its
+    tokens, inside the valid vocab."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    engines = [] if engines is None else engines
+
+    def make():
+        engines.append(make_engine())
+        return engines[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, sched, results, rids, dt, launches, _, tracer = counted_run(
+        torch, np, make, lambda sched: [
+            sched.submit(p, frontend_embeds=fe) for p in prompts],
+        build, obs, max_new=FAMILY_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    outs = [np.asarray(results[r]) for r in rids]
+    if any(len(o) != FAMILY_NEW for o in outs):
+        raise AssertionError(f"{arch.arch_id}: a request did not get its "
+                             f"{FAMILY_NEW} tokens")
+    if not all(((o >= 0) & (o < arch.vocab_size)).all() for o in outs):
+        raise AssertionError(f"{arch.arch_id}: a served id lies outside "
+                             "the valid vocab")
+    steps = [sp.duration * 1e3 for sp in tracer.spans
+             if sp.name == "engine.decode_step"]
+    counts = {k: c for k, c in launches.items() if c}
+    return outs, sched, counts, dt, steps, peak
+
+
+def check_serve_launches(tag, sched, counts, n_layers=0):
+    """One `sample_topk` launch a prefill and a decode step, and nothing
+    else but `n_layers` `paged_attn` launches a step on a paged engine."""
+    prefills, steps = len(sched.admit_order), sched.decode_steps
+    want = {"sample_topk": prefills + steps}
+    if n_layers:
+        want["paged_attn"] = steps * n_layers
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} "
+                             f"({prefills} prefills, {steps} steps)")
+    return prefills, steps
+
+
+def family_serve_line(np, tag, outs, dt, steps, peak, card):
+    total = sum(len(o) for o in outs)
+    return (f"[family] {tag}: {len(outs)} requests, {total} tokens in "
+            f"{dt:.3f}s: {total / dt:.1f} tok/s, decode step "
+            f"{np.median(steps):.2f} ms p50 ({len(steps)} steps), peak "
+            f"memory {peak:.2f} GiB on {card}")
+
+
+def moe_layer_card_vs_cpu(torch, np, arch, moe_params, dev):
+    """One full-width MoE layer routed on the card and on the CPU from the
+    same bf16 input and f32 router logits (a 64-token group, the
+    published capacity factor): the slot tables equal, the gates within
+    MOE_GATE_RTOL (bits printed), the outputs within MOE_LAYER_ATOL of
+    the CPU's largest entry.  Returns a dict of the readings."""
+    from repro_torch.models import moe
+    mcfg = arch.cfg.moe_config()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((1, 64, mcfg.d_model), generator=gen,
+                    device=dev).to(moe_params["wi"].dtype)
+    cap = moe.capacity(mcfg, 64)
+    logits = torch.einsum("gsd,de->gse", x.float(), moe_params["router"])
+    slot, gate, aux = moe.route(logits, mcfg, cap)
+    cslot, cgate, caux = moe.route(logits.cpu(), mcfg, cap)
+    if not torch.equal(slot.cpu(), cslot):
+        raise AssertionError("MoE layer: the card's slot table differs from "
+                             "the CPU's on the same logits")
+    gate_same = int((gate.cpu() == cgate).sum())
+    torch.testing.assert_close(gate.cpu(), cgate, rtol=MOE_GATE_RTOL,
+                               atol=0)
+    e = mcfg.num_experts
+    out = moe._dispatch_ffn_combine(moe_params, x, slot, gate, mcfg, cap, e,
+                                    0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu_p = {k: v.cpu() for k, v in moe_params.items()}
+    cout = moe._dispatch_ffn_combine(cpu_p, x.cpu(), cslot, cgate, mcfg, cap,
+                                     e, 0)
+    cpu_s = time.perf_counter() - t0
+    err = float((out.cpu().float() - cout.float()).abs().max())
+    limit = MOE_LAYER_ATOL * float(cout.float().abs().max())
+    fro = float((out.cpu().float() - cout.float()).norm()
+                / cout.float().norm())
+    if not err <= limit:
+        raise AssertionError(f"MoE layer: card vs CPU max |err| {err:.3g} > "
+                             f"{limit:.3g}")
+    return {"cap": cap, "dropped": int((cslot == e * cap).sum()),
+            "gate_bits_equal": gate_same, "gates": gate.numel(),
+            "max_err": err, "limit": limit, "rel_fro": fro,
+            "aux": float(aux), "cpu_aux": float(caux), "cpu_s": cpu_s}
+
+
+def pinned_check(torch, np, arch, params, prompts, outs, routes, dev):
+    """The served tokens of an MoE run against cache-free forwards pinned
+    to the served run's experts (`RoutePin` over `routes`): the gated
+    readings."""
+    pin = RoutePin(torch, routes, arch.cfg.n_layers)
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev, pin=pin)
+    return dict(worst=worst, agree=float(agree.mean()), n=int(agree.size),
+                floor=floor, match=pin.worst, flips=pin.flips,
+                rows=pin.rows)
+
+
+def moe_token_check(torch, np, arch, params, prompts, outs, routes, dev):
+    """`pinned_check`, and the same forwards on their own experts
+    (readings: near-ties flip experts between the two roundings), which
+    must drop no assignment."""
+    fwd_routes = []
+    undo = spy_routes(fwd_routes)
+    try:
+        free = family_deficits(torch, np, arch, params, prompts, outs, dev)
+    finally:
+        undo()
+    if route_drops(fwd_routes) != (0, 0):
+        raise AssertionError(f"{arch.arch_id}: the cache-free forwards "
+                             f"dropped assignments {route_drops(fwd_routes)}")
+    return dict(pinned_check(torch, np, arch, params, prompts, outs, routes,
+                             dev),
+                free_worst=free[0], free_agree=float(free[1].mean()),
+                free_floor=free[2])
+
+
+def planted_len_fault(torch, np, tag, arch, params, make_engine, prompts,
+                      limit, dev):
+    """Serve `prompts` again, untimed, with every prefill's cache length
+    committed one short: each decode step then overwrites the prompt's
+    last entry and runs one position early.  The token check (the pinned
+    forwards' row match and deficit) must fail; returns its readings,
+    with the decode writes that did not read back from a paged pool (the
+    write itself is where the table says, so that check cannot see it)."""
+    from repro_torch.models.registry import shift_cache_lens
+    routes, engines, bad = [], [], [0]
+
+    def make():
+        eng = make_engine()
+        commit = eng._commit_slot
+        eng._commit_slot = lambda slot, caches, ctx: commit(
+            slot, shift_cache_lens(caches, 1), ctx)
+        return eng
+
+    undo = [spy_routes(routes), spy_paged_writes(engines, bad)]
+    try:
+        outs = family_run(torch, np, arch, make, prompts,
+                          engines=engines)[0]
+    finally:
+        for u in undo:
+            u()
+        for eng in engines:
+            eng.__dict__.pop("_commit_slot", None)
+    r = pinned_check(torch, np, arch, params, prompts, outs, routes, dev)
+    if r["match"] <= PIN_MATCH_RTOL and r["worst"] <= limit:
+        raise AssertionError(
+            f"{tag}: a planted cache fault (lengths one short) passes the "
+            f"token check: rows matched within {r['match']:.3g}, tokens "
+            f"trail by at most {r['worst']:.3g}")
+    print(f"[family] {tag} planted fault, every prefill's cache length "
+          f"committed one short (untimed): router rows matched within "
+          f"{r['match']:.3g} of their norm (limit {PIN_MATCH_RTOL}), "
+          f"served tokens trail by up to {r['worst']:.3g} (limit {limit}), "
+          f"{r['agree']:.3f} of {r['n']} equal: caught; {bad[0]} decode "
+          f"writes did not read back", flush=True)
+    return dict(r, unread=bad[0])
+
+
+def token_line(r, limit):
+    return (f"served tokens vs a cache-free forward on the served run's "
+            f"experts: {r['agree']:.3f} of {r['n']} equal, trailing its best "
+            f"logit by at most {r['worst']:.3g} (limit {limit}; rounding "
+            f"floor, two forwards 64 rows apart: {r['floor']:.3g}); every "
+            f"router row matched within {r['match']:.3g} of its norm (limit "
+            f"{PIN_MATCH_RTOL}), {r['flips']} of {r['rows']} rows' own top-k "
+            f"differed; on its own experts: {r['free_agree']:.3f} equal, "
+            f"at most {r['free_worst']:.3g} (floor {r['free_floor']:.3g})")
+
+
+def check_tokens(tag, r, limit):
+    if not r.get("match", 0.0) <= PIN_MATCH_RTOL:
+        raise AssertionError(f"{tag}: a cache-free router row lies "
+                             f"{r['match']:.3g} of its norm from every "
+                             "served one")
+    if not r["worst"] <= limit:
+        raise AssertionError(f"{tag}: a served token trails the cache-free "
+                             f"forward's best logit by {r['worst']:.3g} > "
+                             f"{limit}")
+
+
+def phase_family_moe_serve(torch, np, card, dev):
+    """Phase 12 (a)-(c): qwen3-moe-235b-a22b at full width, 4 layers."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves
+    from repro_torch.serve import Engine, PagedEngine, ServeConfig
+    base = get_arch(MOE_ID)
+    cfg = base.cfg
+    # (a): capacity factor E / k, so cap >= S in every group: no drops
+    arch = with_cfg(base, n_layers=MOE_SERVE_LAYERS,
+                    capacity_factor=cfg.num_experts / cfg.top_k)
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(12),
+                         dev)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    sc = ServeConfig(batch_size=8, max_len=128)
+    prompts = family_prompts(np, arch.vocab_size, 8, 64, seed=12)
+    Engine(arch, params, sc, device=dev).generate([prompts[0][:20]], 2)
+    print(f"[family] (a) set-up {time.perf_counter() - t0:.1f}s: {MOE_ID} "
+          f"{arch.cfg.n_layers} layers d={cfg.d_model} {cfg.num_experts} "
+          f"experts top-{cfg.top_k} (d_ff {cfg.d_ff_expert}), vocab "
+          f"{arch.vocab_size} (head {arch.padded_vocab}), {gb:.2f} GB of "
+          f"bf16 params, capacity factor {arch.cfg.capacity_factor}, "
+          f"Engine batch 8, max_len 128", flush=True)
+    launches = {"sample_topk": 0, "paged_attn": 0}
+    readings = {}
+
+    def served(tag, arch_x, make_engine, traffic, n_layers=0, bad=None):
+        routes, calls, paged, engines, keep = [], [], [], [], {}
+        undo = [spy_routes(routes), spy_topk(calls)]
+        if n_layers:
+            undo.append(spy_paged_calls(paged, keep))
+            undo.append(spy_paged_writes(engines, bad))
+        try:
+            outs, sched, counts, dt, steps, peak = family_run(
+                torch, np, arch_x, make_engine, traffic, engines=engines)
+        finally:
+            for u in undo:
+                u()
+        check_serve_launches(tag, sched, counts, n_layers)
+        for key in launches:
+            launches[key] += counts.get(key, 0)
+        topk_err = check_topk_calls(torch, np, tag, calls, arch_x, False,
+                                    False)
+        if not all(bool(torch.isfinite(out[0]).all())
+                   for *_, out in calls):
+            raise AssertionError(f"{tag}: a top-k value is not finite")
+        return dict(outs=outs, sched=sched, dt=dt, steps=steps, peak=peak,
+                    routes=routes, drops=route_drops(routes),
+                    topk_err=topk_err, paged=paged, eng=engines[0],
+                    keep=keep)
+
+    # (a) the slab Engine: no drops; tokens against cache-free forwards
+    a = served("(a)", arch, lambda: Engine(arch, params, sc, device=dev),
+               prompts)
+    if a["drops"] != (0, 0):
+        raise AssertionError(f"(a): {a['drops']} dropped assignments at "
+                             f"capacity factor {arch.cfg.capacity_factor}")
+    readings["a"] = moe_token_check(torch, np, arch, params, prompts,
+                                    a["outs"], a["routes"], dev)
+    print(f"[family] (a) sample_topk launches {len(a['sched'].admit_order)} "
+          f"prefills + {a['sched'].decode_steps} steps, each held to the "
+          f"plain version (max |err| {a['topk_err']:.3g}); dropped "
+          f"assignments 0; " + token_line(readings["a"], FAMILY_TOL["moe"]),
+          flush=True)
+    print(family_serve_line(np, "(a)", a["outs"], a["dt"], a["steps"],
+                            a["peak"], card), flush=True)
+    readings["a_fault"] = planted_len_fault(
+        torch, np, "(a)", arch, params,
+        lambda: Engine(arch, params, sc, device=dev), prompts,
+        FAMILY_TOL["moe"], dev)
+
+    # (b) the published capacity factor on the same traffic
+    arch_b = with_cfg(arch, capacity_factor=cfg.capacity_factor)
+    b = served("(b)", arch_b, lambda: Engine(arch_b, params, sc, device=dev),
+               prompts)
+    same = np.mean([np.mean(x == y) for x, y in zip(a["outs"], b["outs"])])
+    layer = moe_layer_card_vs_cpu(torch, np, arch_b,
+                                  params["blocks"][0]["moe"], dev)
+    readings["b"] = dict(drops=b["drops"], layer=layer)
+    print(f"[family] (b) capacity factor {arch_b.cfg.capacity_factor}: "
+          f"launches as (a), every top-k value finite and held to the plain "
+          f"version (max |err| {b['topk_err']:.3g}); dropped assignments "
+          f"{b['drops'][0]} of {len(b['sched'].admit_order)} prefills x "
+          f"{MOE_SERVE_LAYERS} layers x 64 tokens x {cfg.top_k} = "
+          f"{len(b['sched'].admit_order) * MOE_SERVE_LAYERS * 64 * cfg.top_k}"
+          f", {b['drops'][1]} in decode steps; {same:.3f} of tokens equal "
+          f"to (a)'s (not gated)", flush=True)
+    print(f"[family] (b) one MoE layer, card vs CPU on the same logits "
+          f"(64 tokens, cap {layer['cap']}, {layer['dropped']} dropped): "
+          f"slot tables equal, gates {layer['gate_bits_equal']} of "
+          f"{layer['gates']} bit for bit, all within rtol {MOE_GATE_RTOL}; "
+          f"output max |err| {layer['max_err']:.3g} (limit "
+          f"{layer['limit']:.3g}), rel fro {layer['rel_fro']:.3g}, aux "
+          f"{layer['aux']:.6g} vs {layer['cpu_aux']:.6g}; CPU layer "
+          f"{layer['cpu_s']:.1f}s", flush=True)
+    print(family_serve_line(np, "(b)", b["outs"], b["dt"], b["steps"],
+                            b["peak"], card), flush=True)
+
+    # (c) the paged engine on phase 5's shared-prompt traffic
+    psc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16)
+    traffic = shared_prompts(np, arch.vocab_size)
+    PagedEngine(arch, params, psc, device=dev).generate(
+        [traffic[0][:20]], 2)
+    bad = [0]
+    c = served("(c)", arch, lambda: PagedEngine(arch, params, psc,
+                                                device=dev),
+               traffic, n_layers=MOE_SERVE_LAYERS, bad=bad)
+    if bad[0]:
+        raise AssertionError(f"(c): {bad[0]} paged decode writes did not "
+                             "read back")
+    groups = {g for _, g in c["paged"]}
+    if groups != {cfg.num_heads // cfg.num_kv_heads}:
+        raise AssertionError(f"(c): paged_attn query rows a KV head "
+                             f"{groups}")
+    pre = c["eng"].paged_stats()["prefix"]
+    if pre["hits"] != len(traffic) - 1:
+        raise AssertionError(f"(c): {pre['hits']} prefix hits, expected "
+                             f"{len(traffic) - 1}")
+    readings["c"] = moe_token_check(torch, np, arch, params, traffic,
+                                    c["outs"], c["routes"], dev)
+    print(f"[family] (c) PagedEngine block 16: paged_attn launches "
+          f"{c['sched'].decode_steps} steps x {MOE_SERVE_LAYERS} layers, "
+          f"each at {cfg.num_heads}/{cfg.num_kv_heads} heads (group "
+          f"{cfg.num_heads // cfg.num_kv_heads}) held to the plain version "
+          f"(max |err| {max(e for e, _ in c['paged']):.3g}); sample_topk "
+          f"{len(c['sched'].admit_order)} prefills + "
+          f"{c['sched'].decode_steps} steps (max |err| "
+          f"{c['topk_err']:.3g}); every decode write read back; prefix hits "
+          f"{pre['hits']} ({pre['hit_tokens']} tokens); "
+          + token_line(readings["c"], FAMILY_TOL["moe"]), flush=True)
+    print(family_serve_line(np, "(c)", c["outs"], c["dt"], c["steps"],
+                            c["peak"], card), flush=True)
+    # one group-16 call, the one over the most cached tokens, timed alone
+    q, kp, vp, table, lens = c["keep"]["args"]
+    ms = device_ms(torch, lambda: paged_attention(
+        q, kp, vp, table, lens, **c["keep"]["kw"]),
+        (("kernel", "paged_attn"),))["kernel"]
+    bound, by = paged_bound_ms(q, kp, lens, table.shape[1] * kp.shape[1])
+    readings["c_ms"] = dict(ms=ms, bound=bound, by=by)
+    print(f"[family] (c) paged_attn at group "
+          f"{q.shape[2] // kp.shape[2]} (B {q.shape[0]}, Tq "
+          f"{q.shape[1]}, {q.shape[2]}/{kp.shape[2]} heads, hd "
+          f"{q.shape[3]}, {int(lens.sum())} cached tokens): device "
+          f"{ms:.4f} ms vs bound {bound:.4f} ms ({by}) on {card}",
+          flush=True)
+    readings["c_fault"] = planted_len_fault(
+        torch, np, "(c)", arch, params,
+        lambda: PagedEngine(arch, params, psc, device=dev), traffic,
+        FAMILY_TOL["moe"], dev)
+    for key in ("a", "c"):
+        check_tokens(f"({key})", readings[key], FAMILY_TOL["moe"])
+    return launches, readings
+
+
+def spy_ce_grads(records):
+    """Record every dH and dW launch of the fused-CE backward as (name,
+    args, kwargs, f32 output).  Returns the undo."""
+    from repro_torch.kernels.fused_ce import kernel
+    real = {"dh": kernel.dh_grads, "dw": kernel.dw_grads}
+
+    def wrap(which):
+        def spy(*args, **kw):
+            out = real[which](*args, **kw)
+            records.append((f"fused_ce_{which}", args, kw, out))
+            return out
+        return spy
+
+    kernel.dh_grads, kernel.dw_grads = wrap("dh"), wrap("dw")
+
+    def undo():
+        kernel.dh_grads, kernel.dw_grads = real["dh"], real["dw"]
+    return undo
+
+
+def check_ce_grads(torch, tag, records):
+    """Hold each recorded dH / dW launch to its plain version on its own
+    inputs with phase 2's limits; one of each is required.  Returns
+    [(name, n, V, d, max |err|, rel fro)]."""
+    from repro_torch.kernels.fused_ce import ref_dh, ref_dw
+    names = sorted(r[0] for r in records)
+    if names != ["fused_ce_dh", "fused_ce_dw"]:
+        raise AssertionError(f"{tag}: backward launches {names}, expected "
+                             "one dH and one dW")
+    out = []
+    for name, args, kw, got in records:
+        plain = ref_dh if name == "fused_ce_dh" else ref_dw
+        with torch.no_grad():
+            want = plain(*args, **kw)
+        torch.testing.assert_close(got, want, rtol=CE_GRAD_RTOL,
+                                   atol=CE_GRAD_ATOL)
+        fro = float((got - want).norm() / want.norm())
+        if not fro <= CE_GRAD_FRO:
+            raise AssertionError(f"{tag} {name}: relative Frobenius error "
+                                 f"{fro:.3g} > {CE_GRAD_FRO}")
+        h, w = args[0], args[1]
+        out.append((name, h.shape[0], w.shape[0], h.shape[1],
+                    float((got - want).abs().max()), fro))
+        del want
+    return out
+
+
+def phase_family_moe_train(torch, np, card, dev):
+    """Phase 12 (d): qwen3-moe-235b-a22b at full width, 1 layer, AdamW,
+    the kernel loss, batch 4 x 512, 3 steps, the published capacity
+    factor."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.train import TrainConfig, build_loss_fn
+    arch = with_cfg(get_arch(MOE_ID), n_layers=1)
+    cfg = arch.cfg
+    steps = 3
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
+                     loss_impl="kernel", loss_block_v=2048)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=512,
+                                  global_batch=4, seed=0))
+    # the params `train_run` starts from (the same seed), without the
+    # optimizer state: step 0 needs only the lm_head's gradient
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    head = params["lm_head"].requires_grad_(True)
+    torch.cuda.synchronize()
+    print(f"[family] (d) set-up {time.perf_counter() - t0:.1f}s: {MOE_ID} "
+          f"1 layer, capacity factor {cfg.capacity_factor}, AdamW, "
+          f"loss_impl kernel, batch 4 x 512", flush=True)
+
+    # step 0: kernels against the canonical loss; aux from the router;
+    # the step's dH and dW launches against their plain versions
+    batch0 = to_device(data.batch(0), dev)
+    step0 = {}
+    routes, grads = [], []
+    undo = [spy_routes(routes), spy_ce_grads(grads)]
+    try:
+        for impl in ("kernel", "canonical"):
+            loss_fn = build_loss_fn(arch, TrainConfig(
+                loss_impl=impl, loss_block_v=tc.loss_block_v))
+            loss, metrics = loss_fn(params, batch0)
+            (g_head,) = torch.autograd.grad(loss, [head])
+            step0[impl] = (float(loss.detach()), g_head,
+                           float(metrics["aux"]))
+    finally:
+        for u in undo:
+            u()
+    grad_errs = check_ce_grads(torch, "(d) step 0", grads)
+    del grads
+    (lk, gk, aux), (lc, gc, _) = step0["kernel"], step0["canonical"]
+    loss_err = abs(lk - lc) / abs(lc)
+    head_fro = float((gk.float() - gc.float()).norm() / gc.float().norm())
+    del step0, gk, gc, params, head
+    torch.cuda.empty_cache()
+    # the load-balance loss again, from the first route's router logits
+    logits, _, _, mcfg = routes[0]
+    probs = torch.softmax(logits.double(), -1)
+    e, k = mcfg.num_experts, mcfg.top_k
+    picks = torch.topk(probs, k, dim=-1).indices.reshape(-1)
+    frac_tokens = torch.bincount(picks, minlength=e).double() / picks.numel()
+    frac_probs = probs.reshape(-1, e).mean(0)
+    # Switch's f_e * P_e summed, f_e over all k assignments, times E / k
+    aux_ref = float(mcfg.aux_weight * e / k
+                    * (frac_tokens * frac_probs).sum())
+    aux_err = abs(aux - aux_ref) / aux_ref
+    drops = route_drops(routes[:1])[0]
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_fro <= TRAIN_HEAD_FRO):
+        raise AssertionError(f"(d) step 0: kernel loss {lk} vs canonical "
+                             f"{lc} (rel {loss_err:.3g}), lm_head grad rel "
+                             f"fro {head_fro:.3g}")
+    if not (aux > 0 and aux_err <= 1e-5):
+        raise AssertionError(f"(d) aux {aux} vs {aux_ref} from the router's "
+                             f"probs (rel {aux_err:.3g})")
+    print(f"[family] (d) step 0, kernels vs canonical loss: {lk:.6f} vs "
+          f"{lc:.6f} (rel {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}), bf16 "
+          f"lm_head grad rel fro {head_fro:.3g} (limit {TRAIN_HEAD_FRO}); "
+          f"aux {aux:.6g} vs {aux_ref:.6g} recomputed in f64 from the "
+          f"router's probs (rel {aux_err:.3g}, limit 1e-5); "
+          f"{drops} of {picks.numel()} assignments dropped", flush=True)
+    print("[family] (d) step 0's backward at its own shape, each launch "
+          "against its plain version on the same inputs: " + "; ".join(
+              f"{name} (n {n}, V {v}, d {d}) max |err| {err:.3g} (rtol "
+              f"{CE_GRAD_RTOL}, atol {CE_GRAD_ATOL}), rel fro {fro:.3g} "
+              f"(limit {CE_GRAD_FRO})"
+              for name, n, v, d, err, fro in grad_errs), flush=True)
+
+    state, history, counts, spans, peak = train_run(
+        torch, np, build, tc, arch, dev, data, steps)
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+            "fused_ce_dw": steps}
+    counts = {k_: c for k_, c in counts.items() if c}
+    if counts != want:
+        raise AssertionError(f"(d) launches {counts}, expected {want}")
+    auxes = [m["aux"] for _, m in history]
+    if not all(a > 0 for a in auxes):
+        raise AssertionError(f"(d) aux {auxes}")
+    opt_gb = state_bytes(opt_tensors(state["opt"])) / 1e9
+    p50 = float(np.median(spans))
+    print(f"[family] (d) {steps} steps, loss "
+          + " ".join(f"{m['loss']:.4f}" for _, m in history)
+          + " (aux " + " ".join(f"{a:.5f}" for a in auxes) + "); launches "
+          f"{counts} = one of each a step; step {p50:.1f} ms p50 over steps "
+          f"1-{steps - 1}, {4 * 512 / (p50 / 1e3):.0f} tokens/s, peak "
+          f"memory {peak:.2f} GiB, optimizer state {opt_gb:.2f} GB on "
+          f"{card}", flush=True)
+    return counts
+
+
+def phase_family_arctic(torch, np, card, dev):
+    """Phase 12 (e): arctic-480b at full width, 1 layer, capacity factor
+    E / k: the dense-FFN residual beside the experts."""
+    from repro_torch.kernels.sample_topk import cuda_topk
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import Engine, ServeConfig
+    base = get_arch("arctic-480b")
+    cfg = base.cfg
+    arch = with_cfg(base, n_layers=1,
+                    capacity_factor=cfg.num_experts / cfg.top_k)
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(14),
+                         dev)
+    sc = ServeConfig(batch_size=8, max_len=128)
+    prompts = family_prompts(np, arch.vocab_size, 8, 64, seed=14)
+    Engine(arch, params, sc, device=dev).generate([prompts[0][:20]], 2)
+    torch.cuda.synchronize()
+    print(f"[family] (e) set-up {time.perf_counter() - t0:.1f}s: arctic-480b "
+          f"1 layer d={cfg.d_model} dense d_ff {cfg.d_ff} beside "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{arch.cfg.capacity_factor}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    routes, calls = [], []
+    undo = [spy_routes(routes), spy_topk(calls)]
+    try:
+        outs, sched, counts, dt, steps, peak = family_run(
+            torch, np, arch, lambda: Engine(arch, params, sc, device=dev),
+            prompts)
+    finally:
+        for u in undo:
+            u()
+    check_serve_launches("(e)", sched, counts)
+    topk_err = check_topk_calls(torch, np, "(e)", calls, arch, False, False)
+    if route_drops(routes) != (0, 0):
+        raise AssertionError(f"(e): dropped assignments {route_drops(routes)}")
+    r = moe_token_check(torch, np, arch, params, prompts, outs, routes, dev)
+    head = params["lm_head"]
+    h = torch.randn((8, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev).bfloat16()
+    stream, merge = split_ms(torch, lambda: cuda_topk(
+        h, head, 1, valid_vocab=arch.vocab_size))
+    event = cuda_ms(torch, lambda: cuda_topk(h, head, 1,
+                                             valid_vocab=arch.vocab_size))
+    bound, by = topk_bound_ms(8, cfg.d_model, head.shape[0], 1)
+    print(f"[family] (e) sample_topk launches {len(sched.admit_order)} "
+          f"prefills + {sched.decode_steps} steps (max |err| {topk_err:.3g});"
+          f" dropped assignments 0; " + token_line(r, FAMILY_TOL["arctic"]),
+          flush=True)
+    print(f"[family] (e) the head's top-k (8 rows, k 1, {head.shape[0]} x "
+          f"{cfg.d_model} bf16): {stream:.4f} ms stream + {merge:.4f} ms "
+          f"merge device time ({event:.4f} ms a call by CUDA events), bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    print(family_serve_line(np, "(e)", outs, dt, steps, peak, card),
+          flush=True)
+    check_tokens("(e)", r, FAMILY_TOL["arctic"])
+    return counts, dict(r, stream=stream, merge=merge, event=event,
+                        bound=bound)
+
+
+def phase_family_vlm(torch, np, card, dev):
+    """Phase 12 (f): internvl2-1b at full width (24 layers) with seeded
+    256-position frontend embeddings on the slab Engine."""
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import Engine, ServeConfig
+    arch = get_arch("internvl2-1b")
+    cfg = arch.cfg
+    f = cfg.frontend_len
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(16),
+                         dev)
+    fe = (torch.randn((1, f, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(17), device=dev) * 0.02).bfloat16()
+    sc = ServeConfig(batch_size=8, max_len=512)
+    prompts = family_prompts(np, arch.vocab_size, 8, 64, seed=16)
+    eng = Engine(arch, params, sc, device=dev)
+    for slot, p in enumerate(prompts[:3]):     # the frontend span cached
+        eng.prefill_into_slot(slot, p, frontend_embeds=fe)
+    lens = eng.caches["len"][:, :3].cpu().numpy()
+    if not (lens == f + 64).all():
+        raise AssertionError(f"(f): cache lengths {lens[0]}, expected "
+                             f"{f} + 64")
+    torch.cuda.synchronize()
+    print(f"[family] (f) set-up {time.perf_counter() - t0:.1f}s: "
+          f"internvl2-1b {cfg.n_layers} layers d={cfg.d_model} vocab "
+          f"{arch.vocab_size} (head {arch.padded_vocab}), {f} frontend "
+          f"positions; cache lengths after three prefills {lens[0].tolist()}"
+          f" = {f} + 64 in every layer", flush=True)
+    calls = []
+    undo = spy_topk(calls)
+    try:
+        outs, sched, counts, dt, steps, peak = family_run(
+            torch, np, arch, lambda: Engine(arch, params, sc, device=dev),
+            prompts, fe=fe)
+    finally:
+        undo()
+    check_serve_launches("(f)", sched, counts)
+    topk_err = check_topk_calls(torch, np, "(f)", calls, arch, False, False)
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev, fe=fe)
+    r = dict(worst=worst, agree=float(agree.mean()), floor=floor)
+    print(f"[family] (f) sample_topk launches {len(sched.admit_order)} "
+          f"prefills + {sched.decode_steps} steps (max |err| {topk_err:.3g});"
+          f" served tokens {agree.mean():.3f} of {agree.size} equal to a "
+          f"cache-free forward's over the same embeddings, trailing its "
+          f"best logit by at most {worst:.3g} (limit {FAMILY_TOL['vlm']}; "
+          f"rounding floor, two forwards 64 rows apart: {floor:.3g})",
+          flush=True)
+    print(family_serve_line(np, "(f)", outs, dt, steps, peak, card),
+          flush=True)
+    check_tokens("(f)", r, FAMILY_TOL["vlm"])
+    return counts, r
+
+
+def phase_family(torch, np, card, dev):
+    """Phase 12: each model freed before the next.  Returns the launches
+    of the phase by kernel."""
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    counts, _ = phase_family_moe_serve(torch, np, card, dev)
+    add(counts)
+    add(phase_family_moe_train(torch, np, card, dev))
+    add(phase_family_arctic(torch, np, card, dev)[0])
+    add(phase_family_vlm(torch, np, card, dev)[0])
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3665,13 +4564,16 @@ def main():
         ftrain = phase_train_filtered(torch, np, arch, card, dev, train_p50)
         phase_checkpoint(torch, np, arch, card, dev, train_p50,
                          adamw_opt_bytes, workdir)
+    torch.cuda.empty_cache()
+    family = phase_family(torch, np, card, dev)
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
         "name": "sample_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
-        "launches": launches + spec_topk + modes["sample_topk"],  # 3, 6, 10
+        "launches": (launches + spec_topk + modes["sample_topk"]  # 3, 6, 10
+                     + family["sample_topk"]),                    # and 12
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -3696,7 +4598,7 @@ def main():
         record["kernels"].append({
             "name": name, "route": "cuda", "source": ce_source,
             "replaces": f"src/repro/kernels/fused_ce/kernel.py:{line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name] + family[name],    # 4, 12
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -3726,7 +4628,7 @@ def main():
         "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
         "launches": (paged_launches["paged_attn"] + spec_paged  # 5, 6,
-                     + modes["paged_attn"]),                    # and 10
+                     + modes["paged_attn"] + family["paged_attn"]),  # 10, 12
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
         # device time under torch.profiler; event_ms reads the launch rate
         "ms": row["ms"], "event_ms": row["event_ms"],

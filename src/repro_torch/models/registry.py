@@ -24,10 +24,25 @@ import torch
 
 from repro_torch.configs.base import Arch
 from repro_torch.models import transformer
+from repro_torch.optim.tree import leaves
 
 _CONFIG_MODULES = {
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "paper-lm": "repro_torch.configs.paper_lm",
+}
+
+# the JAX package's other config ids, by family, and the part of ROADMAP
+# A8 that ports each family
+_LATER = {
+    "recurrentgemma-9b": ("griffin", 2),
+    "xlstm-125m": ("xlstm", 3),
+    "seamless-m4t-medium": ("encdec", 4),
 }
 
 MTP_FAMILIES = ("transformer",)   # the recurrent families come with A8
@@ -38,10 +53,14 @@ _POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
 def get_arch(arch_id: str, *, reduced: bool = False, **overrides) -> Arch:
+    if arch_id in _LATER:
+        family, part = _LATER[arch_id]
+        raise NotImplementedError(
+            f"arch {arch_id!r} is of the {family!r} family, which comes "
+            f"with ROADMAP A8 part {part}")
     if arch_id not in _CONFIG_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: "
-                       f"{sorted(_CONFIG_MODULES)} (the other families "
-                       "come with ROADMAP A8)")
+                       f"{sorted(_CONFIG_MODULES)}")
     mod = importlib.import_module(_CONFIG_MODULES[arch_id])
     return mod.reduced() if reduced else mod.get_config(**overrides)
 
@@ -90,19 +109,39 @@ def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                    caches=None, decode: bool = False,
                    prefill_ext: bool = False, return_heads: bool = False):
-    """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'];
-    ``prefill_ext`` (with ``decode``) is the paged engine's suffix-only
+    """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'],
+    after batch['frontend_embeds'] (B, F, d) where the batch has them
+    (then T counts those F positions too); ``prefill_ext`` (with ``decode``) is the paged engine's suffix-only
     prefill after a prefix hit.  ``return_heads=True`` (needs
     ``arch.mtp.n_heads > 0``) returns the 4-tuple (hidden, head_hidden
     (B, T, n, d), aux_loss, new_caches): the training path applies the
     fused CE to every horizon from this one forward."""
     _require_transformer(arch)
-    h, aux, c = transformer.forward(params, batch["tokens"], arch.cfg,
-                                    caches=caches, decode=decode,
-                                    prefill_ext=prefill_ext)
+    h, aux, c = transformer.forward(
+        params, batch["tokens"], arch.cfg,
+        frontend_embeds=batch.get("frontend_embeds"), caches=caches,
+        decode=decode, prefill_ext=prefill_ext)
     if return_heads:
         return h, apply_mtp_heads(arch, params, h), aux, c
     return h, aux, c
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in leaves(params))
+
+
+def active_param_count(arch: Arch, params) -> int:
+    """Active params a token (MoE: top_k of num_experts experts)."""
+    total = param_count(params)
+    cfg = arch.cfg
+    if getattr(cfg, "num_experts", 0):
+        moe_total = sum(blk["moe"][name].numel()
+                        for blk in params["blocks"]
+                        for name in ("wi", "wg", "wo")
+                        if name in blk.get("moe", {}))
+        active_frac = cfg.top_k / cfg.num_experts
+        return int(total - moe_total * (1.0 - active_frac))
+    return total
 
 
 def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,

@@ -1,5 +1,12 @@
-"""Decoder-only transformer LM family, dense (port of
-`repro.models.transformer`).
+"""Decoder-only transformer LM family, dense and MoE, with the frontend
+stub's prepended embeddings (port of `repro.models.transformer`).
+
+An MoE block (``num_experts > 0``) runs `models.moe.moe_layer` in place of
+the MLP, or beside it with ``dense_ff_residual`` (arctic); each block's
+load-balance aux loss is summed over the layers.  ``frontend_embeds``
+(B, F, d), precomputed (internvl2's stubbed ViT patches), go ahead of the
+token embeddings: the hidden states and the caches cover those F
+positions too.
 
 Layers run as a Python loop over a list of per-layer param dicts (the
 JAX package scans stacked params; `repro_torch.weights` unstacks them).
@@ -22,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +47,15 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     logit_softcap: Optional[float] = None
-    num_experts: int = 0                    # MoE: ROADMAP A8
+    # MoE (num_experts == 0 -> dense)
+    num_experts: int = 0
+    top_k: int = 2
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01
+    dense_ff_residual: bool = False         # arctic: dense FFN || MoE
+    # frontend stub: number of precomputed embedding positions prepended
+    frontend_len: int = 0
     remat: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -60,6 +76,13 @@ class TransformerConfig:
             chunk_k=self.chunk_k, n_layers_scale=self.n_layers,
             paged_impl=self.paged_impl)
 
+    def moe_config(self) -> M.MoEConfig:
+        return M.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff_expert or self.d_ff,
+            num_experts=self.num_experts, top_k=self.top_k,
+            capacity_factor=self.capacity_factor,
+            aux_weight=self.aux_weight, n_layers_scale=self.n_layers)
+
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
@@ -69,12 +92,6 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _require_dense(cfg: TransformerConfig):
-    if cfg.is_moe:
-        raise NotImplementedError("MoE transformer blocks come with "
-                                  "ROADMAP A8")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -82,16 +99,19 @@ def _require_dense(cfg: TransformerConfig):
 
 def init_block(cfg: TransformerConfig, generator: torch.Generator,
                device="cpu"):
-    _require_dense(cfg)
     dt = dtype_of(cfg.param_dtype)
-    return {
+    p = {
         "ln_attn": L.init_rmsnorm(cfg.d_model, dt, device),
         "attn": A.init_attention(cfg.attn_config(), generator, dt, device),
         "ln_mlp": L.init_rmsnorm(cfg.d_model, dt, device),
-        "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, generator,
-                          n_layers_scale=cfg.n_layers, dtype=dt,
-                          device=device),
     }
+    if cfg.is_moe:
+        p["moe"] = M.init_moe(cfg.moe_config(), generator, dt, device)
+    if not cfg.is_moe or cfg.dense_ff_residual:
+        p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, generator,
+                              n_layers_scale=cfg.n_layers, dtype=dt,
+                              device=device)
+    return p
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -119,24 +139,31 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 def apply_block(p, x, cfg: TransformerConfig, *, cache=None,
                 decode: bool = False, prefill_ext: bool = False):
-    """Pre-norm block; returns (x, new_cache)."""
-    _require_dense(cfg)
+    """Pre-norm block; returns (x, aux, new_cache)."""
     h, new_cache = A.attention_layer(
         p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
         cfg.attn_config(), cache=cache, decode=decode,
         prefill_ext=prefill_ext)
     x = x + h
-    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
-    return x, new_cache
+    xn = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        mo, aux = M.moe_layer(p["moe"], xn, cfg.moe_config())
+        if cfg.dense_ff_residual:
+            mo = mo + L.mlp(p["mlp"], xn)
+        return x + mo, aux, new_cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + L.mlp(p["mlp"], xn), aux, new_cache
 
 
 def forward(
     params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+    frontend_embeds: Optional[torch.Tensor] = None,
     caches: Optional[Dict[str, torch.Tensor]] = None,
     decode: bool = False,
     prefill_ext: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """tokens (B, T) -> (hidden (B, T, d), aux_loss, new_caches).
+    """tokens (B, T) [+ frontend_embeds (B, F, d)] -> (hidden
+    (B, F + T, d), aux_loss summed over the layers, new_caches).
 
     With `caches`, each layer gets its own views of every stacked leaf and
     writes its K/V into them IN PLACE (slab k/v or paged pools); the
@@ -144,22 +171,26 @@ def forward(
     ``prefill_ext`` marks a paged suffix prefill (`attention_layer`)."""
     x = L.embed_lookup(params["embed"]["table"], tokens).to(
         dtype_of(cfg.compute_dtype))
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     lens = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
         if remat:
-            x = checkpoint(lambda x_, p_=p: apply_block(p_, x_, cfg)[0], x,
-                           use_reentrant=False)
+            x, a = checkpoint(lambda x_, p_=p: apply_block(p_, x_, cfg)[:2],
+                              x, use_reentrant=False)
+            aux = aux + a
             continue
         cache = None
         if caches is not None:
             cache = {key: val[i] for key, val in caches.items()}
-        x, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode,
-                                   prefill_ext=prefill_ext)
+        x, a, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode,
+                                      prefill_ext=prefill_ext)
+        aux = aux + a
         if new_cache is not None:
             lens.append(new_cache["len"])
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None
     if caches is not None:
         new_caches = dict(caches, len=torch.stack(lens))

@@ -14,6 +14,13 @@ row of one live batched cache tree is an independent *slot*:
     `sample_topk` kernel, so the step never forms the (B, V) logits;
   * `reset_slot(i)` restores a finished slot to its pristine state.
 
+An arch with a frontend stub (``cfg.frontend_len``, internvl2) takes each
+request's precomputed ``frontend_embeds`` (1, F, d) ahead of its prompt
+in the prefill: the slot's cache then holds F + prompt entries, and the
+first token is read at the prompt's last position.  Every prefill path
+(`prefill_into_slot`, `prefill_topk_into_slot`, `score_in_slot`,
+`generate`) takes them; an arch without a frontend ignores them.
+
 Quantized serving (``ServeConfig.quantize_cache``, ``head_dtype``): an
 int8 KV cache with per-(token, head) scales, and a 1-byte lm_head, made
 once at init by `kernels.quant.quantize_weight` (``params['lm_head']``
@@ -210,10 +217,13 @@ class Engine:
         t_b = _bucket_len(true_len, self.sc.max_len)
         return t_b if t_b <= cap else true_len
 
-    def _prefill_inputs(self, prompt, pad_cap: Optional[int] = None,
+    def _prefill_inputs(self, prompt, frontend_embeds=None,
+                        pad_cap: Optional[int] = None,
                         pad_to: Optional[int] = None):
-        """(tokens (1, T_pad) on the device, true_len) of one batch=1
-        prefill: validation and bucketing.  `pad_cap` bounds the padded
+        """(batch, true_len) of one batch=1 prefill: validation and
+        bucketing.  ``batch['tokens']`` (1, T_pad) is on the device, and
+        so is ``batch['frontend_embeds']`` when the arch has a frontend
+        and the request brings them.  `pad_cap` bounds the padded
         length; `pad_to` forces it (the paged engine pads a prefix hit's
         suffix so that shared + padded is the cold prefill's bucket)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -229,45 +239,53 @@ class Engine:
             t_b = self._bucket_for(true_len, pad_cap)
         tokens = np.zeros((1, t_b), np.int32)
         tokens[0, :true_len] = prompt
-        return torch.from_numpy(tokens).to(self.device), true_len
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        if self.arch.cfg.frontend_len and frontend_embeds is not None:
+            batch["frontend_embeds"] = torch.as_tensor(
+                frontend_embeds).to(self.device)
+        return batch, true_len
 
-    def _slot_prefill_view(self, slot: int, prompt,
+    def _slot_prefill_view(self, slot: int, prompt, frontend_embeds=None,
                            match_len: Optional[int] = None):
-        """(tokens, slot_caches, true_len, ctx) of one slot prefill: a
+        """(batch, slot_caches, true_len, ctx) of one slot prefill: a
         fresh batch=1 slab here.  `ctx` is threaded to `_commit_slot`;
         its ``'ext'`` key selects the cache-extension prefill (the paged
         engine's prefix hits).  `match_len` caps the paged prefix match;
         the slab engine has no prefix reuse and ignores it."""
         del slot, match_len
-        tokens, true_len = self._prefill_inputs(prompt)
+        batch, true_len = self._prefill_inputs(prompt, frontend_embeds)
         slot_caches = init_serve_caches(self.arch, 1, self.sc.max_len,
                                         dtype=self._cdt, device=self.device,
                                         quantize=self._quant)
-        return tokens, slot_caches, true_len, {"ext": False}
+        return batch, slot_caches, true_len, {"ext": False}
 
     def _commit_slot(self, slot: int, slot_caches, ctx):
         """Publish a finished prefill's slot tree into the live batch."""
         del ctx
         insert_slot_caches(self.caches, slot_caches, slot)
 
-    def _prefill_forward(self, tokens, slot_caches, true_len: int,
+    def _prefill_forward(self, batch, slot_caches, true_len: int,
                          ext: bool):
         """The forward of one batch=1 prefill and the shift of the caches'
-        length back by the bucket pad: (h (1, T_pad, d), caches).
-        ``ext`` makes it a cache extension (a paged prefix hit's
-        suffix-only prefill)."""
+        length back by the bucket pad: (h (1, T_pad, d) at the token
+        positions, the frontend's left out, caches).  ``ext`` makes it a
+        cache extension (a paged prefix hit's suffix-only prefill)."""
         h, _, slot_caches = forward_hidden(
-            self.arch, self.params, {"tokens": tokens}, caches=slot_caches,
-            decode=ext, prefill_ext=ext)
-        return h, shift_cache_lens(slot_caches, tokens.shape[1] - true_len)
+            self.arch, self.params, batch, caches=slot_caches, decode=ext,
+            prefill_ext=ext)
+        t_b = batch["tokens"].shape[1]
+        return (h[:, h.shape[1] - t_b:],
+                shift_cache_lens(slot_caches, t_b - true_len))
 
     @torch.no_grad()
-    def prefill_into_slot(self, slot: int, prompt) -> int:
-        """Prefill one prompt at batch=1 into slot `slot`; returns the
+    def prefill_into_slot(self, slot: int, prompt, frontend_embeds=None
+                          ) -> int:
+        """Prefill one prompt at batch=1 into slot `slot` (after its
+        `frontend_embeds`, for an arch with a frontend); returns the
         FIRST sampled token (the time-to-first-token token)."""
-        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
-            slot, prompt)
-        t_b = tokens.shape[1]
+        batch, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, prompt, frontend_embeds)
+        t_b = batch["tokens"].shape[1]
         ext = bool(ctx.get("ext"))
         mask = None
         if slot in self._slot_masks:
@@ -275,7 +293,7 @@ class Engine:
                 self.device)
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext):
-            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+            h, slot_caches = self._prefill_forward(batch, slot_caches,
                                                    true_len, ext)
             tok = self._sample(h[:, true_len - 1, :], mask)
             self._commit_slot(slot, slot_caches, ctx)
@@ -401,18 +419,19 @@ class Engine:
         return vals, idxs, lse
 
     @torch.no_grad()
-    def prefill_topk_into_slot(self, slot: int, prompt, n_cand: int):
+    def prefill_topk_into_slot(self, slot: int, prompt, n_cand: int,
+                               frontend_embeds=None):
         """Prefill one prompt into `slot`, returning the first step's
         top-`n_cand` candidates (vals (k,), idxs (k,), lse float) instead
         of a sampled token: the admit half of a beam or best-of group.
         Does NOT set ``self.cur[slot]``; the group does."""
-        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
-            slot, prompt)
-        t_b = tokens.shape[1]
+        batch, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, prompt, frontend_embeds)
+        t_b = batch["tokens"].shape[1]
         ext = bool(ctx.get("ext"))
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext, topk=n_cand):
-            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+            h, slot_caches = self._prefill_forward(batch, slot_caches,
                                                    true_len, ext)
             vals, idxs, lse = self._topk_lse(h[:, true_len - 1, :], n_cand)
             self._commit_slot(slot, slot_caches, ctx)
@@ -435,7 +454,8 @@ class Engine:
         return logp
 
     @torch.no_grad()
-    def score_in_slot(self, slot: int, prompt, continuation) -> np.ndarray:
+    def score_in_slot(self, slot: int, prompt, continuation,
+                      frontend_embeds=None) -> np.ndarray:
         """Per-token ``log p(continuation | prompt)`` (len(cont),) f32 in
         ONE batch=1 forward over prompt + continuation through slot
         `slot`.  The hidden state before each continuation token goes
@@ -449,9 +469,9 @@ class Engine:
         if cont.size == 0:
             return np.zeros((0,), np.float32)
         seq = np.concatenate([prompt, cont])
-        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
-            slot, seq, match_len=len(prompt))
-        t_b = tokens.shape[1]
+        batch, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, seq, frontend_embeds, match_len=len(prompt))
+        t_b = batch["tokens"].shape[1]
         p_pad = max(8, _bucket_len(len(cont), 1 << 30))
         ids = np.full((p_pad,), _NO_ID, np.int32)
         ids[:len(cont)] = cont
@@ -462,7 +482,7 @@ class Engine:
         ext = bool(ctx.get("ext"))
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext, mode="eval"):
-            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+            h, slot_caches = self._prefill_forward(batch, slot_caches,
                                                    true_len, ext)
             hs = h[0, torch.from_numpy(pos).to(self.device)]   # (p_pad, d)
             logp = self._eval_logp(hs, torch.from_numpy(ids).to(
@@ -485,16 +505,19 @@ class Engine:
     # -- fixed-batch convenience -------------------------------------------
 
     def generate(self, prompts, max_new_tokens: int,
-                 eos_id: Optional[int] = None, seed: int = 0) -> np.ndarray:
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 frontend_embeds=None) -> np.ndarray:
         """prompts: a sequence of (T_i,) int prompts (or an (R, T) array).
         Returns (R, max_new_tokens) generated ids (post-eos positions
-        repeat eos).  Drives a private `ContinuousScheduler`."""
+        repeat eos).  `frontend_embeds` (batch=1) go ahead of every
+        prompt.  Drives a private `ContinuousScheduler`."""
         from repro_torch.serve.scheduler import ContinuousScheduler
 
         self.reset(seed)
         sched = ContinuousScheduler(self, max_new_tokens=max_new_tokens,
                                     eos_id=eos_id)
-        rids = [sched.submit(p) for p in prompts]
+        rids = [sched.submit(p, frontend_embeds=frontend_embeds)
+                for p in prompts]
         results = sched.run()
         fill = eos_id if eos_id is not None else 0
         out = np.full((len(rids), max_new_tokens), fill, np.int32)

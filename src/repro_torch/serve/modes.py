@@ -52,7 +52,7 @@ class _DecodeGroup:
     kind = "group"
 
     def __init__(self, rid: int, prompt, n: int, max_new: int,
-                 eos_id: Optional[int]):
+                 eos_id: Optional[int], frontend_embeds=None):
         if n < 1:
             raise ValueError(f"group width {n} < 1")
         self.rid = rid
@@ -60,6 +60,7 @@ class _DecodeGroup:
         self.n = n
         self.max_new = max_new
         self.eos_id = eos_id
+        self.frontend_embeds = frontend_embeds
         self.slots: List[int] = []
         self.cum: List[float] = []
         self.toks: List[List[int]] = []
@@ -185,7 +186,8 @@ class BeamGroup(_DecodeGroup):
 
     def admit(self, engine, slots: List[int]) -> List[int]:
         vals, idxs, lse = engine.prefill_topk_into_slot(
-            slots[0], self.prompt, self.k_cand)
+            slots[0], self.prompt, self.k_cand,
+            frontend_embeds=self.frontend_embeds)
         logp = vals - lse
         cand = [(float(logp[j]), -1, int(idxs[j]))
                 for j in range(len(logp))]
@@ -227,10 +229,10 @@ class BestOfGroup(_DecodeGroup):
     kind = "best_of"
 
     def __init__(self, rid: int, prompt, n: int, max_new: int,
-                 eos_id: Optional[int], *, temperature: float = 1.0,
-                 top_k: int = 40, top_p: Optional[float] = None,
-                 seed: int = 0):
-        super().__init__(rid, prompt, n, max_new, eos_id)
+                 eos_id: Optional[int], frontend_embeds=None, *,
+                 temperature: float = 1.0, top_k: int = 40,
+                 top_p: Optional[float] = None, seed: int = 0):
+        super().__init__(rid, prompt, n, max_new, eos_id, frontend_embeds)
         if temperature < 0.0:
             raise ValueError("best-of-n temperature must be >= 0")
         self.temperature = temperature
@@ -265,7 +267,8 @@ class BestOfGroup(_DecodeGroup):
 
     def admit(self, engine, slots: List[int]) -> List[int]:
         vals, idxs, lse = engine.prefill_topk_into_slot(
-            slots[0], self.prompt, self.k_cand)
+            slots[0], self.prompt, self.k_cand,
+            frontend_embeds=self.frontend_embeds)
         live = []
         for _ in range(self.n):
             lp, tok = self._child(vals, idxs, lse)

@@ -54,6 +54,11 @@ class _PagedMixin:
     `_slot_prefill_view` / `_commit_slot` hooks."""
 
     def __init__(self, arch, params, sc: ServeConfig, *args, **kwargs):
+        if arch.cfg.frontend_len:
+            raise NotImplementedError(
+                "paged serving does not support frontend-embedding "
+                "prompts (cache positions include the frontend span, "
+                "which the host block accounting does not model)")
         self._pc = kvpool.paged_config(sc.block_size, sc.max_len,
                                        sc.batch_size, sc.pool_blocks)
         if arch.cfg.paged_impl != sc.paged_impl:
@@ -146,7 +151,7 @@ class _PagedMixin:
 
     # -- prefill (prefix match + suffix-only forward) ------------------------
 
-    def _slot_prefill_view(self, slot: int, prompt,
+    def _slot_prefill_view(self, slot: int, prompt, frontend_embeds=None,
                            match_len: Optional[int] = None):
         prompt_np = np.asarray(prompt, np.int32).reshape(-1)
         if self._chains[slot]:
@@ -170,10 +175,10 @@ class _PagedMixin:
             pad_to = None
             if shared_len:
                 pad_to = self._bucket_for(len(prompt_np)) - shared_len
-            tokens, true_len = self._prefill_inputs(
-                prompt_np[shared_len:], pad_cap=self.sc.max_len - shared_len,
-                pad_to=pad_to)
-            t_b = tokens.shape[1]
+            batch, true_len = self._prefill_inputs(
+                prompt_np[shared_len:], frontend_embeds,
+                pad_cap=self.sc.max_len - shared_len, pad_to=pad_to)
+            t_b = batch["tokens"].shape[1]
             chain = self._chains[slot] = list(shared)
             self._tables[slot, :] = kvpool.NULL_BLOCK
             self._tables[slot, :len(chain)] = chain
@@ -202,7 +207,7 @@ class _PagedMixin:
         self.prefill_token_log.append(t_b)
         self.prefix_hit_tokens += shared_len
         ctx = {"ext": shared_len > 0, "prompt": prompt_np}
-        return tokens, view, true_len, ctx
+        return batch, view, true_len, ctx
 
     def _commit_slot(self, slot: int, slot_caches, ctx):
         # tables are host-authoritative (and a hit's view was sliced to

@@ -61,6 +61,7 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int]
     kind: str = "generate"          # | "eval" | "beam" | "best_of"
+    frontend_embeds: Optional[Any] = None     # (1, F, d), frontend archs
     token_mask: Optional[np.ndarray] = None   # constrained decoding
     mask_fn: Optional[Callable[[List[int]], Any]] = None
     payload: Optional[Dict[str, Any]] = None  # kind-specific state
@@ -157,7 +158,7 @@ class ContinuousScheduler:
     # -- submission ---------------------------------------------------------
 
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
-               eos_id=_UNSET, token_mask=None,
+               eos_id=_UNSET, frontend_embeds=None, token_mask=None,
                mask_fn: Optional[Callable[[List[int]], Any]] = None
                ) -> int:
         """Queue one request; returns its request id.  The submit time is
@@ -168,7 +169,9 @@ class ContinuousScheduler:
         ``mask_fn(tokens_so_far) -> allowed`` recomputes the set after each
         emission (grammar decoding: the grammar state advances with the
         generated prefix).  The mask streams through the sampling kernel's
-        vocab scan, so a disallowed token is never drawn."""
+        vocab scan, so a disallowed token is never drawn.
+        `frontend_embeds` (1, F, d) go ahead of the prompt on an arch
+        with a frontend (`Engine.prefill_into_slot`)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = (self.default_max_new if max_new_tokens is None
                    else max_new_tokens)
@@ -197,7 +200,8 @@ class ContinuousScheduler:
         self.queue.append(Request(
             rid, prompt, max_new,
             self.default_eos if eos_id is _UNSET else eos_id,
-            token_mask=token_mask, mask_fn=mask_fn))
+            frontend_embeds=frontend_embeds, token_mask=token_mask,
+            mask_fn=mask_fn))
         self._m_qdepth.set(len(self.queue))
         return rid
 
@@ -208,7 +212,8 @@ class ContinuousScheduler:
                 f"({type(self.engine).__name__} does not support "
                 "request modes)")
 
-    def submit_eval(self, prompt, continuations) -> int:
+    def submit_eval(self, prompt, continuations,
+                    frontend_embeds=None) -> int:
         """Queue one loglikelihood-eval request: score every continuation
         under `prompt` (lm-eval-style multiple choice).  ``results[rid]``
         becomes a list of per-token logprob arrays, one per continuation,
@@ -231,12 +236,14 @@ class ContinuousScheduler:
         self._next_rid += 1
         self._submit_t[rid] = time.perf_counter()
         self.queue.append(Request(rid, prompt, 1, None, kind="eval",
+                                  frontend_embeds=frontend_embeds,
                                   payload={"conts": conts, "scores": []}))
         self._m_qdepth.set(len(self.queue))
         return rid
 
     def _submit_group(self, kind: str, prompt, n: int, payload,
-                      max_new_tokens, eos_id, k_cand: int) -> int:
+                      max_new_tokens, eos_id, k_cand: int,
+                      frontend_embeds) -> int:
         self._require_modes(f"{kind} decoding")
         if self.engine.sc.temperature != 0.0:
             # plain requests sharing a tick with a group advance through
@@ -276,13 +283,13 @@ class ContinuousScheduler:
         self.queue.append(Request(
             rid, prompt, max_new,
             self.default_eos if eos_id is _UNSET else eos_id, kind=kind,
-            payload=dict(payload, n=n)))
+            frontend_embeds=frontend_embeds, payload=dict(payload, n=n)))
         self._m_qdepth.set(len(self.queue))
         return rid
 
     def submit_beam(self, prompt, *, n_beams: int,
                     max_new_tokens: Optional[int] = None,
-                    eos_id=_UNSET) -> int:
+                    eos_id=_UNSET, frontend_embeds=None) -> int:
         """Queue one beam-search request (`modes.BeamGroup`): `n_beams`
         sibling slots decode in the shared batch, forked copy-on-write on
         paged engines.  ``results[rid]`` is the best hypothesis' tokens,
@@ -290,12 +297,13 @@ class ContinuousScheduler:
         score more than 64 candidates a row and raises (ROADMAP B3)."""
         return self._submit_group("beam", prompt, n_beams, {},
                                   max_new_tokens, eos_id,
-                                  1 if n_beams == 1 else 2 * n_beams)
+                                  1 if n_beams == 1 else 2 * n_beams,
+                                  frontend_embeds)
 
     def submit_best_of(self, prompt, *, n: int, temperature: float = 1.0,
                        top_p: Optional[float] = None, seed: int = 0,
                        max_new_tokens: Optional[int] = None,
-                       eos_id=_UNSET) -> int:
+                       eos_id=_UNSET, frontend_embeds=None) -> int:
         """Queue one best-of-n request (`modes.BestOfGroup`): n independent
         samples at `temperature` from the engine's ``top_k`` survivors,
         ranked by cumulative logprob.  ``results[rid]`` is the best
@@ -304,7 +312,7 @@ class ContinuousScheduler:
         return self._submit_group(
             "best_of", prompt, n,
             {"temperature": temperature, "top_p": top_p, "seed": seed},
-            max_new_tokens, eos_id, k)
+            max_new_tokens, eos_id, k, frontend_embeds)
 
     # -- state machine ------------------------------------------------------
 
@@ -453,7 +461,8 @@ class ContinuousScheduler:
                 idx, req.token_mask if req.token_mask is not None
                 else req.mask_fn([]))
         try:
-            return self.engine.prefill_into_slot(idx, req.prompt)
+            return self.engine.prefill_into_slot(
+                idx, req.prompt, frontend_embeds=req.frontend_embeds)
         except BaseException:
             if masked:
                 self.engine.set_slot_mask(idx, None)
@@ -466,10 +475,12 @@ class ContinuousScheduler:
         p = req.payload
         if req.kind == "beam":
             g = modes.BeamGroup(req.rid, req.prompt, p["n"],
-                                req.max_new_tokens, req.eos_id)
+                                req.max_new_tokens, req.eos_id,
+                                req.frontend_embeds)
         else:
             g = modes.BestOfGroup(req.rid, req.prompt, p["n"],
                                   req.max_new_tokens, req.eos_id,
+                                  req.frontend_embeds,
                                   temperature=p["temperature"],
                                   top_k=self.engine.sc.top_k,
                                   top_p=p["top_p"], seed=p["seed"])
@@ -514,7 +525,8 @@ class ContinuousScheduler:
                               conts=len(conts)):
             while len(scores) < len(conts):
                 cont = conts[len(scores)]
-                logp = self.engine.score_in_slot(idx, req.prompt, cont)
+                logp = self.engine.score_in_slot(idx, req.prompt, cont,
+                                                 req.frontend_embeds)
                 self.engine.reset_slot(idx)
                 scores.append(logp)
                 self.eval_tokens_scored += len(cont)

@@ -250,11 +250,12 @@ class SpecEngine(Engine):
         if hasattr(self, "draft"):                 # absent during __init__
             self.draft.reset(seed)
 
-    def prefill_into_slot(self, slot: int, prompt) -> int:
-        tok = super().prefill_into_slot(slot, prompt)
+    def prefill_into_slot(self, slot: int, prompt, frontend_embeds=None
+                          ) -> int:
+        tok = super().prefill_into_slot(slot, prompt, frontend_embeds)
         # the draft's own first token is discarded: this fills the slot's
         # draft cache with the prompt
-        self.draft.prefill_into_slot(slot, prompt)
+        self.draft.prefill_into_slot(slot, prompt, frontend_embeds)
         return tok
 
     def reset_slot(self, slot: int):
@@ -440,14 +441,15 @@ class SelfSpecEngine(Engine):
         self._draft_lp[slot] = 0.0
 
     @torch.no_grad()
-    def prefill_into_slot(self, slot: int, prompt) -> int:
-        tokens, slot_caches, true_len, ctx = self._slot_prefill_view(
-            slot, prompt)
-        t_b = tokens.shape[1]
+    def prefill_into_slot(self, slot: int, prompt, frontend_embeds=None
+                          ) -> int:
+        batch, slot_caches, true_len, ctx = self._slot_prefill_view(
+            slot, prompt, frontend_embeds)
+        t_b = batch["tokens"].shape[1]
         ext = bool(ctx.get("ext"))
         with self._tracer.span("engine.prefill", cat="engine", slot=slot,
                                tokens=t_b, ext=ext):
-            h, slot_caches = self._prefill_forward(tokens, slot_caches,
+            h, slot_caches = self._prefill_forward(batch, slot_caches,
                                                    true_len, ext)
             tok, draft, d_lp = self._prefill_mtp(
                 self.params, h[:, true_len - 1, :], self._gen)

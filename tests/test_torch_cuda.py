@@ -1391,3 +1391,131 @@ def test_quantized_paged_decode_step_launches_the_kernels(cuda):
     assert PA.count - pa == arch.cfg.n_layers
     assert TK.count - tk == 1
     assert np.all((toks >= 0) & (toks < arch.vocab_size))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the transformer family's shapes (qwen3-moe, arctic, internvl2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 40])
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("v,d,valid", [
+    (152064, 4096, 151936),        # qwen3-moe-235b-a22b's padded head
+    (32000, 7168, 32000),          # arctic-480b's
+    (151808, 896, 151655),         # internvl2-1b's
+], ids=["qwen3-moe", "arctic", "internvl2"])
+def test_topk_decode_on_family_heads(cuda, v, d, valid, rows, k):
+    """The decode top-k on the heads of the new configs at the decode
+    rows: values rtol 1e-5 / atol 1e-4 of the plain version, ids exact
+    wherever the values are apart, two calls bit for bit, one launch a
+    call."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    gen = torch.Generator(device=cuda).manual_seed(v + d + rows + k)
+    h = torch.randn((rows, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    before = LAUNCHES.count
+    vals, ids = cuda_topk(h, w, k, valid_vocab=valid)
+    vals2, ids2 = cuda_topk(h, w, k, valid_vocab=valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(vals, vals2) and torch.equal(ids, ids2)
+    rv, ri = topk_scores_ref(h, w, k, valid_vocab=valid)
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (vals, ids, rv, ri))
+    np.testing.assert_allclose(vals, rv, rtol=1e-5, atol=1e-4)
+    gap = np.abs(np.diff(rv, axis=1)) > 1e-4
+    sep = np.ones_like(ids, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+    assert np.all((ids >= 0) & (ids < valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+def test_paged_attn_at_group_16(cuda, tq):
+    """qwen3-moe's attention: 64 query heads over 4 KV heads (a GQA group
+    of 16), head_dim 128, block 16, at decode (Tq 1) and a spec verify's
+    Tq 5 (80 query rows a KV head): atol / rtol 1e-2 of the plain
+    version, two calls bit for bit."""
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, lens = _paged_problem(cuda, 8, tq, 64, 4, 128, 16, 16,
+                                            seed=16 + tq)
+    before = LAUNCHES.count
+    out = paged_attention(q, kp, vp, table, lens)
+    again = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "dh", "dw"])
+def test_fused_ce_at_qwen3_moe_width(cuda, which):
+    """The fused-CE forward, dH and dW at qwen3-moe's d 4096 (dH and dW
+    at the cluster's limit, 16 CTAs of 256 columns) over its padded head
+    (V 152064, valid 151936) and 2048 rows, the training step's shape:
+    the forward's lse and z_target at rtol 1e-5 / atol 1e-4 of the plain
+    version, z_sum at atol 2e-2 (it adds 151936 logits of std ~2 in
+    another order, its partial sums reaching ~1e3: the H100 read 7.3e-3);
+    dH / dW at rtol 3e-4 / atol 1e-6 and a relative Frobenius error of
+    1e-4; two calls bit for bit."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+    n, v, d, valid = 2048, 152064, 4096, 151936
+    h, w, y = _ce_problem(cuda, n, v, d, seed=23)
+    y = torch.where(y >= 0, y % valid, y).to(torch.int32)
+    cfg = LossConfig(valid_vocab=valid)
+    want = ref_stats(h, w, y, cfg)
+    if which == "fwd":
+        got = fwd_stats(h, w, y, cfg)
+        again = fwd_stats(h, w, y, cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for a, b, atol in zip(got, want, (1e-4, 1e-4, 2e-2)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+        return
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
+    lse = want[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    got = grads(h, w, y, lse, gamma, gamma, cfg)
+    again = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    exp = ref(h, w, y, lse, gamma, gamma, cfg)
+    torch.testing.assert_close(got, exp, rtol=3e-4, atol=1e-6)
+    assert float((got - exp).norm() / exp.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_full_width_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """One qwen3-moe MoE layer (128 experts, top-8, d 4096, d_ff 1536,
+    bf16, the published capacity factor) routed on the card and on the
+    CPU from the same bf16 input and f32 router logits, a 64-token group,
+    through `chip_smoke.moe_layer_card_vs_cpu`, which holds phase 12 (b)
+    to the same limits: the slot tables equal; the gates a softmax whose
+    exp may differ by an ulp between the two devices' libm, so within
+    rtol 5e-7 (4 f32 ulps); the outputs within 2^-6 of the CPU's largest
+    entry (the expert products round bf16 intermediates after f32 sums
+    in another order)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_arch
+    arch = get_arch(chip_smoke.MOE_ID)
+    p = moe.init_moe(arch.cfg.moe_config(),
+                     torch.Generator(device=cuda).manual_seed(0),
+                     torch.bfloat16, cuda)
+    r = chip_smoke.moe_layer_card_vs_cpu(torch, np, arch, p, cuda)
+    assert r["max_err"] <= r["limit"]

@@ -141,9 +141,9 @@ def test_partial_scores_survive_pool_exhaustion(model):
     calls = []
     real = eng.score_in_slot
 
-    def spy(slot, prompt, cont):
+    def spy(slot, prompt, cont, frontend_embeds=None):
         calls.append(len(cont))
-        return real(slot, prompt, cont)
+        return real(slot, prompt, cont, frontend_embeds)
 
     eng.score_in_slot = spy
     sched = ContinuousScheduler(eng, max_new_tokens=6)
