@@ -11,8 +11,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. kernels vs their plain versions at the main paths' shapes —
      `sample_topk` on qwen3-0.6b's padded lm_head (152064 x 1024 bf16,
      valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case,
-     a softcap case, the speculative verifier's 40 rows at k 40, and on
-     V 32768 at d 4096 (paper-lm's width, 8 rows k 40), d 12288 (8 rows
+     a softcap case, the speculative verifier's 40 rows at k 40, on
+     recurrentgemma-9b's 256000 x 4096 head for rows in {1, 8} and k in
+     {1, 40}, and on V 32768 at d 4096 (paper-lm's width, 8 rows k 40), d 12288 (8 rows
      k 1) and d 16384 (40 rows k 40) (the decode kernel: two calls bit
      for bit, the device time of its stream and merge kernels apart under
      `torch.profiler`), and
@@ -31,8 +32,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the fused-CE forward, dH and dW kernels at the training shape
      (8192 rows against the same head) — plain, softcap 30, label
      smoothing 0.1 with z-loss 1e-4, 10% ignored rows — at phase 8 (c)'s
-     4096 rows, and at 1000
-     rows with a shard offset and at d = 4096 (512 rows, V 32768), each
+     4096 rows, at 1000
+     rows with a shard offset, at d = 4096 (512 rows, V 32768) and at
+     recurrentgemma-9b's training shape (4096 rows, d 4096, V 256000),
+     each
      held to its plain version (f32 logits, TF32 off), the forward, dH
      and dW run twice for bit identity, and timed beside
      its bound, the plain version and the canonical two-stage loss in
@@ -239,6 +242,38 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      prompt's.  Prints tokens/s, decode-step ms p50, peak memory, the
      training step ms p50 and the optimizer state's bytes, and arctic's
      head top-k device time beside its byte bound.
+ 13. griffin (recurrentgemma-9b: RG-LRU and local attention, d 4096,
+     vocab 256000) at full width, seeded random weights, last: (a) 38
+     layers (19.25 GB bf16) on `Engine(batch_size=8)`, one 37-token
+     prompt, five of 38-64 (bucket 64, pads masked), one of 2040 (bucket
+     2048 = the window: the ring wraps in decode) and one of 2100 (an
+     exact-length prefill that wraps the ring), 16 new tokens, greedy;
+     (d) `PagedEngine` on the same model and traffic; (c) eval, 4
+     prompts x 2 continuations; (b) its first 8 layers at full width:
+     `SpecEngine` with draft = target (k 4) and `SelfSpecEngine` with 2
+     random MTP heads (k 2) on prompts the ring wraps on during the
+     spec steps, and a rollback check; (f) one recurrent block and one
+     local-attention layer over 4096 tokens and a 2100-token ring
+     prefill + 4 decode steps on the card and the CPU; (e) training, one
+     super (3 layers), AdamW, ``loss_impl='kernel'``, 1 x 4096 tokens, 3
+     steps.  Gates: one `sample_topk` launch a prefill and a step (two a
+     prefill and K + 1 or 2 a spec step in (b)), every call held to its
+     plain version; every served token within GRIFFIN_TOL of a
+     cache-free forward's best logit (the floor printed); the 37-token
+     prompt's first token equal bucketed and at its exact length, the
+     first block's scan's carried h within GRIFFIN_H_ULPS ulps; (d)
+     tokens bit for bit (a)'s, ``paged_stats() == {'enabled': False}``,
+     no `paged_attn` launch; (c) one `score_tokens` launch a
+     continuation, every logp within EVAL_ATOL of a cache-free forward
+     over the same padded tokens; (b) draft = target: acceptance >= 0.9,
+     tokens bit for bit the plain engine's; the rollback check: 8
+     rejecting self-spec steps over a 2046-token prompt leave every
+     state leaf bit for bit the plain engine's after the same tokens;
+     (f) within GRIFFIN_BLOCK_ATOL / GRIFFIN_H_FRO, the ring's positions
+     bit for bit; (e) step 0 against the canonical loss and its dH / dW
+     launches against their plain versions, one launch of each fused-CE
+     kernel a step.  Prints tokens/s, step ms p50, peak memory, spec-step
+     ms and acceptance, the training step and the optimizer's bytes.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -253,8 +288,8 @@ against its bound, its plain version and
 the eval shape (rows 8), rows 32 with P 4,
 softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
 `col_offset` shard, paper-lm's width (d 4096, V 32768: 32 rows P 1 and
-100 rows P 64), mistral-large's d 12288 (32 rows P 1) and d 16384 (40
-rows P 4), each against its plain version, twice for bit identity, with
+100 rows P 64), mistral-large's d 12288 (32 rows P 1), d 16384 (40
+rows P 4) and recurrentgemma-9b's head (V 256000, 32 rows P 1), each against its plain version, twice for bit identity, with
 -inf exactly where the JAX kernel puts it, and timed beside its bound,
 its plain version and ``torch.log_softmax`` of the logits gathered at
 the ids, and the device time of its stream and merge kernels apart.
@@ -556,10 +591,15 @@ def phase_topk(torch, np, arch, dev):
     # memory does not grow with d
     wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
                  / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
+    # recurrentgemma-9b's head, 256000 x 4096 (phase 13), the widest
+    wide["v256000"] = (torch.randn((256000, 4096), generator=gen,
+                                   device=dev) / 64).bfloat16()
     cases = []
     for rows in (1, 8):
         for k in (1, 40):
             cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0, None))
+            cases.append((f"v256000_rows{rows}_k{k}", rows, k, None, False,
+                          0, "v256000"))
     cases.append(("rows8_k40_ties", 8, 40, None, True, 0, None))
     cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False, 0, None))
     # the speculative verifier's 8 x (4 + 1) rows at the sampler's k 40
@@ -822,6 +862,9 @@ def phase_fused_ce(torch, np, arch, dev):
         ("ignore10pct", n0, v0, d0, valid0, 0, {}, 0.1),
         ("ragged1000_offset", 1000, v0, d0, valid0 + 4096, 4096, {}, 0.0),
         ("d4096", 512, 32768, 4096, 32768, 0, {}, 0.0),
+        # recurrentgemma-9b's training shape (phase 13 (e)): 4096 rows,
+        # d 4096 (the backward's cluster limit), V 256000
+        ("v256000_d4096", 4096, 256000, 4096, 256000, 0, {}, 0.0),
     ]
     results = {}
     errs = {"fused_ce_fwd": 0.0, "fused_ce_dh": 0.0, "fused_ce_dw": 0.0}
@@ -2155,8 +2198,11 @@ def phase_score(torch, np, arch, dev):
     # 16384: a CTA's shared memory does not grow with d
     wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
                  / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
+    # recurrentgemma-9b's head, 256000 x 4096 (phase 13 (c))
+    wide["v256000"] = (torch.randn((256000, 4096), generator=gen,
+                                   device=dev) / 64).bfloat16()
     cases = [
-        # name, rows, P, softcap, temperature, col_offset, wide d
+        # name, rows, P, softcap, temperature, col_offset, wide head
         ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, None),
         ("self_prefill_rows4_t0.7", 4, 1, None, 0.7, 0, None),
         ("eval_rows8", 8, 1, None, None, 0, None),
@@ -2166,12 +2212,14 @@ def phase_score(torch, np, arch, dev):
         ("d4096_rows100_p64", 100, 64, None, None, 0, 4096),
         ("d12288_rows32_p1", 32, 1, None, 0.7, 0, 12288),
         ("d16384_rows40_p4", 40, 4, None, None, 0, 16384),
+        ("v256000_rows32_p1", 32, 1, None, None, 0, "v256000"),
     ]
     results = {}
     for name, rows, p, cap, temp, off, dw in cases:
         if dw:
             w = wide[dw]
-            d, v, valid = dw, w.shape[0], w.shape[0]
+            v, d = w.shape
+            valid = v
         else:
             d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
             w = w_head
@@ -2600,7 +2648,9 @@ def spy_topk(calls):
 
     def spy(h, w, k, **kw):
         out = real(h, w, k, **kw)
-        calls.append((h, w, k, kw, out))
+        # a copy: an engine may write into what it got (the self-spec
+        # engine's pending drafts are the sampler's output, reset in place)
+        calls.append((h, w, k, kw, tuple(t.clone() for t in out)))
         return out
 
     pkg.cuda_topk = spy
@@ -4504,6 +4554,598 @@ def phase_family(torch, np, card, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: griffin (recurrentgemma-9b) at full width
+# ---------------------------------------------------------------------------
+
+GRIFFIN_ID = "recurrentgemma-9b"
+GRIFFIN_SPEC_LAYERS = 8           # 2 supers + rem0, rem1 at full width
+GRIFFIN_TRAIN_LAYERS = 3          # one super: rec, rec, attn
+GRIFFIN_SPEC_STEPS = 8            # (b)'s rollback check, rejecting steps
+# (a)-(c): a served greedy token's logit against the best one of a
+# cache-free forward over its request.  Cached decode steps the RG-LRU
+# one combine at a time and reads the ring, where the cache-free forward
+# scans the sequence in a tree and attends blockwise: their f32 state
+# rounds to bf16 activations in other places through 38 layers.  Two
+# cache-free forwards that differ only in their row count give the floor
+# of that (printed).  The seeded head's logits have std ~0.13 (fan-in
+# V: std 1/sqrt(256000) times sqrt(4096)); a stale ring entry or a wrong
+# position gives another context, whose served token trails the best
+# one by ~0.3-0.5 (a random token against the best of 256000).
+GRIFFIN_TOL = 2e-2
+# (a): a bucketed prefill's carried RG-LRU state against an exact-length
+# prefill's, the scan alone on the same conv output: the pad steps are
+# exact identities, but they change where the last real step sits in the
+# scan's combine tree, so the two differ by 1-2 f32 ulps on the CPU
+# (finding of the port's CPU tests); 4 ulps of the row's largest |h|
+GRIFFIN_H_ULPS = 4
+# (f): one full-width block on the card against the CPU from the same
+# bf16 input and weights.  The block's GEMMs round bf16 outputs after f32
+# sums in another order (2^-8 relative each), so the outputs within 2^-6
+# of the CPU's largest entry, as phase 12's MoE layer; the RG-LRU state
+# (f32, from bf16 gate inputs) within a relative Frobenius error of
+# 1e-2; the ring's positions bit for bit (integers).
+GRIFFIN_BLOCK_ATOL = 2.0 ** -6
+GRIFFIN_H_FRO = 1e-2
+
+
+def griffin_prompts(np, vocab):
+    """(a)'s traffic: one 37-token prompt and five of 38-64 (bucket 64,
+    pads masked), one of 2040 (bucket 2048 = the window: the ring wraps
+    during decode) and one of 2100 (past the bucket cap: an exact-length
+    prefill that wraps the ring in the prefill itself)."""
+    rng = np.random.default_rng(13)
+    lens = [37] + list(rng.integers(38, 65, 5)) + [2040, 2100]
+    return [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def griffin_sub_params(params, n_layers):
+    """The first `n_layers` temporal blocks of a griffin tree as the tree
+    of an `n_layers`-deep config (shared tensors): whole supers of three,
+    then the blocks left over as ``rem<i>``."""
+    blocks = [sup[f"b{i}"] for sup in params.get("supers", [])
+              for i in range(3)]
+    blocks += [params[k] for k in sorted(params) if k.startswith("rem")]
+    n_super, n_rem = divmod(n_layers, 3)
+    out = {k: params[k] for k in ("embed", "ln_f", "lm_head")}
+    out["supers"] = [{f"b{i}": blocks[3 * j + i] for i in range(3)}
+                     for j in range(n_super)]
+    for i in range(n_rem):
+        out[f"rem{i}"] = blocks[3 * n_super + i]
+    return out
+
+
+def griffin_scan_ulps(torch, arch, params, prompt, dev):
+    """(a): the first recurrent block's scan over a 37-token prompt
+    padded to its bucket (pad steps masked) against the same scan over
+    the 37 steps alone, on the card: the carried h in ulps of the row's
+    largest |h|, and whether the outputs at the real steps are equal."""
+    from repro_torch.models import griffin, layers as L
+    cfg = arch.cfg
+    p = params["supers"][0]["b0"]["temporal"]
+    t = len(prompt)
+    tb = 64
+    tok = torch.zeros((1, tb), dtype=torch.long, device=dev)
+    tok[0, :t] = torch.as_tensor(prompt, device=dev).long()
+    with torch.no_grad():
+        x = L.embed_lookup(params["embed"]["table"], tok).to(
+            getattr(torch, cfg.compute_dtype))
+        xin = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+        uc, _ = L.causal_conv(p["conv"], xin @ p["w_rnn"])
+        valid = (torch.arange(tb, device=dev) < t)[None]
+        h0 = torch.zeros((1, cfg.resolved_d_rnn), device=dev)
+        yp, hp = griffin.rglru(p["rglru"], uc, h0=h0, valid=valid)
+        ye, he = griffin.rglru(p["rglru"], uc[:, :t], h0=h0)
+    ulp = torch.finfo(torch.float32).eps * he.abs().amax(-1, keepdim=True)
+    return (float(((hp - he).abs() / ulp).max()),
+            bool(torch.equal(yp[:, :t], ye)))
+
+
+def phase_griffin_serve(torch, np, card, dev):
+    """Phase 13 (a), (c), (d): recurrentgemma-9b at full depth (38
+    layers); returns (launches, params) for (b)."""
+    from repro_torch.kernels.sample_topk import cuda_topk
+    from repro_torch.models.registry import (forward_hidden, get_arch,
+                                             init_params, init_serve_caches)
+    from repro_torch.models.griffin import _layout as griffin_layout
+    from repro_torch.optim.tree import leaves
+    from repro_torch.serve import Engine, PagedEngine, ServeConfig
+    arch = get_arch(GRIFFIN_ID)
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(13),
+                         dev)
+    gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    sc = ServeConfig(batch_size=8, max_len=4096)
+    prompts = griffin_prompts(np, arch.vocab_size)
+    Engine(arch, params, sc, device=dev).generate([prompts[0][:20]], 2)
+    torch.cuda.synchronize()
+    n_super, rem = griffin_layout(cfg)
+    print(f"[griffin] (a) set-up {time.perf_counter() - t0:.1f}s: "
+          f"{GRIFFIN_ID} {cfg.n_layers} layers ({n_super} supers of rec, "
+          f"rec, attn + {len(rem)} rec) d={cfg.d_model} d_ff {cfg.d_ff}, {cfg.num_heads} heads "
+          f"over {cfg.num_kv_heads} KV head (hd {cfg.head_dim}), window "
+          f"{cfg.window}, vocab {arch.vocab_size}, {gb:.2f} GB of bf16 "
+          f"params; Engine batch 8; prompts of "
+          f"{[len(p) for p in prompts]} tokens", flush=True)
+    launches = {"sample_topk": 0, "score_tokens": 0, "paged_attn": 0}
+
+    def served(tag, make_engine):
+        calls = []
+        undo = spy_topk(calls)
+        try:
+            outs, sched, counts, dt, steps, peak = family_run(
+                torch, np, arch, make_engine, prompts)
+        finally:
+            undo()
+        check_serve_launches(tag, sched, counts)
+        for key in launches:
+            launches[key] += counts.get(key, 0)
+        err = check_topk_calls(torch, np, tag, calls, arch, False, False)
+        return outs, sched, dt, steps, peak, err
+
+    # (a) the slab Engine
+    outs, sched, dt, steps, peak, err = served(
+        "(a)", lambda: Engine(arch, params, sc, device=dev))
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev)
+    print(f"[griffin] (a) sample_topk launches {len(sched.admit_order)} "
+          f"prefills + {sched.decode_steps} steps = one a prefill and a "
+          f"step, each held to the plain version (max |err| {err:.3g}); "
+          f"served tokens {agree.mean():.3f} of {agree.size} equal to a "
+          f"cache-free forward's (windowed blockwise attention, the scan "
+          f"over the whole sequence), trailing its best logit by at most "
+          f"{worst:.3g} (limit {GRIFFIN_TOL}; rounding floor, two "
+          f"cache-free forwards 64 rows apart: {floor:.3g})", flush=True)
+    print(family_serve_line(np, "(a)", outs, dt, steps, peak,
+                            card).replace("[family]", "[griffin]"),
+          flush=True)
+    if not worst <= GRIFFIN_TOL:
+        raise AssertionError(f"(a): a served token trails the cache-free "
+                             f"forward's best logit by {worst:.3g} > "
+                             f"{GRIFFIN_TOL}")
+    # the 37-token prompt bucketed (64) and at its exact length
+    p37 = prompts[0]
+    eng = Engine(arch, params, ServeConfig(batch_size=1, max_len=4096),
+                 device=dev)
+    tok_b = eng.prefill_into_slot(0, p37)
+    with torch.no_grad():
+        st = init_serve_caches(arch, 1, 4096, device=dev)
+        h, _, st = forward_hidden(
+            arch, params, {"tokens": torch.as_tensor(
+                p37[None], device=dev).long()}, caches=st, true_len=len(p37))
+        _, tok_e = cuda_topk(h[:, -1].contiguous(), params["lm_head"], 1,
+                             valid_vocab=arch.vocab_size)
+    tok_e = int(tok_e[0, 0])
+    h_b = [s["b0"]["h"] for s in eng.caches["supers"]]
+    h_e = [s["b0"]["h"] for s in st["supers"]]
+    stack_rel = max(float(((a - b).abs().max() / b.abs().max()))
+                    for a, b in zip(h_b, h_e))
+    ulps, same_y = griffin_scan_ulps(torch, arch, params, p37, dev)
+    print(f"[griffin] (a) 37-token prompt, bucketed (64) vs exact-length "
+          f"prefill: first token {tok_b} vs {tok_e}; the first block's scan "
+          f"on the same conv output: carried h {ulps:.2f} f32 ulps of the "
+          f"row's largest apart (limit {GRIFFIN_H_ULPS}), outputs at the 37 "
+          f"real steps {'bit for bit equal' if same_y else 'DIFFERENT'}; "
+          f"through the whole stack (other GEMM shapes, not gated) the "
+          f"supers' first-block h differ by up to {stack_rel:.3g} of their "
+          f"largest entry", flush=True)
+    if tok_b != tok_e or not same_y or not ulps <= GRIFFIN_H_ULPS:
+        raise AssertionError(f"(a): bucketed vs exact prefill: tokens "
+                             f"{tok_b} / {tok_e}, scan outputs equal "
+                             f"{same_y}, h {ulps:.3g} ulps")
+    del eng, st, h
+
+    # (d) PagedEngine: nothing pageable, the slab engine bit for bit
+    psc = ServeConfig(batch_size=8, max_len=4096, paged=True, block_size=16)
+    peng = []
+
+    def make_paged():
+        peng.append(PagedEngine(arch, params, psc, device=dev))
+        return peng[-1]
+
+    d_outs, d_sched, d_dt, d_steps, d_peak, d_err = served("(d)",
+                                                           make_paged)
+    same = all(np.array_equal(x, y) for x, y in zip(outs, d_outs))
+    stats = peng[0].paged_stats()
+    print(f"[griffin] (d) PagedEngine block 16: paged_stats {stats}; "
+          f"launches: sample_topk {len(d_sched.admit_order)} prefills + "
+          f"{d_sched.decode_steps} steps (max |err| {d_err:.3g}), paged_attn "
+          f"0; tokens {'bit for bit' if same else 'NOT'} equal to (a)'s",
+          flush=True)
+    if not same or stats != {"enabled": False}:
+        raise AssertionError(f"(d): tokens equal {same}, stats {stats}")
+    del peng
+
+    # (c) eval: score_tokens at V 256000
+    c = griffin_eval(torch, np, arch, params, card, dev)
+    launches["score_tokens"] += c
+    return launches, arch, params
+
+
+def griffin_eval(torch, np, arch, params, card, dev):
+    """Phase 13 (c): 4 prompts of 64 tokens x 2 continuations of 8
+    through `submit_eval` on the slab Engine (72 tokens: bucket 128).
+    Every logp against log_softmax of the f32 logits of a cache-free
+    forward over the same bucket-padded tokens (causal: its rows at the
+    real positions are the prefill's arithmetic without the caches)
+    within EVAL_ATOL; the reading against a forward over the 72 tokens
+    alone, whose GEMMs and softmax reduce over other lengths, printed."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import forward_hidden
+    from repro_torch.serve import ContinuousScheduler, Engine, ServeConfig
+    vocab = arch.vocab_size
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, vocab, 64).astype(np.int32) for _ in range(4)]
+    conts = [[rng.integers(1, vocab, 8).astype(np.int32) for _ in range(2)]
+             for _ in prompts]
+    sc = ServeConfig(batch_size=8, max_len=4096)
+    Engine(arch, params, sc, device=dev).score_in_slot(
+        0, prompts[0][:20], conts[0][0])
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = Engine(arch, params, sc, device=dev)
+        sched = ContinuousScheduler(eng)
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = [sched.submit_eval(p, c) for p, c in zip(prompts, conts)]
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    finally:
+        obs.disable()
+    n_cont = sum(len(c) for c in conts)
+    if launches != {"score_tokens": n_cont}:
+        raise AssertionError(f"(c): launches {launches}, expected one "
+                             f"score_tokens a continuation ({n_cont})")
+    head = params["lm_head"][:vocab].float()
+    worst = exact = 0.0
+    with torch.no_grad():
+        for prompt, cs, rid in zip(prompts, conts, rids):
+            for cont, got_lp in zip(cs, results[rid]):
+                seq = np.concatenate([prompt, cont]).astype(np.int64)
+                padded = np.zeros((128,), np.int64)
+                padded[:len(seq)] = seq
+                cid = torch.from_numpy(cont.astype(np.int64)).to(dev)
+                reads = []
+                for s in (padded, seq):
+                    h, _, _ = forward_hidden(arch, params, {
+                        "tokens": torch.from_numpy(s[None]).to(dev)})
+                    z = h[0, len(prompt) - 1:len(seq) - 1].float() @ head.T
+                    reads.append(torch.log_softmax(z, -1).gather(
+                        1, cid[:, None])[:, 0].cpu().numpy())
+                if not np.all(np.isfinite(got_lp)):
+                    raise AssertionError("(c): a logp is not finite")
+                worst = max(worst, float(np.abs(got_lp - reads[0]).max()))
+                exact = max(exact, float(np.abs(got_lp - reads[1]).max()))
+    print(f"[griffin] (c) eval: launches {launches} = one score_tokens a "
+          f"continuation (V {params['lm_head'].shape[0]}, d "
+          f"{arch.cfg.d_model}), no sample_topk; every logp within "
+          f"{worst:.3g} of log_softmax of a cache-free forward over the "
+          f"same padded tokens (limit {EVAL_ATOL}); {exact:.3g} from one "
+          f"over the 72 tokens alone (not gated); {sched.eval_tokens_scored}"
+          f" tokens scored in {dt:.3f}s on {card}", flush=True)
+    if not worst <= EVAL_ATOL:
+        raise AssertionError(f"(c): a logp is {worst:.3g} from the "
+                             f"cache-free forward's (limit {EVAL_ATOL})")
+    return launches["score_tokens"]
+
+
+def griffin_rollback_check(torch, np, arch, params, prompt, dev):
+    """(b): one 2046-token prompt (the ring wraps in the first spec step)
+    through `SelfSpecEngine` (random MTP heads: rejections every step),
+    GRIFFIN_SPEC_STEPS steps, against a plain `Engine` decoding the same
+    tokens at batch 1: the emitted tokens equal, and the whole state
+    (rings, RG-LRU h, conv tails, lens) bit for bit equal after the same
+    consumed tokens.  Returns (emitted, rejected drafts)."""
+    from repro_torch.optim.tree import leaves_with_paths
+    from repro_torch.serve import Engine, SelfSpecEngine, ServeConfig, \
+        SpecConfig
+    sc = ServeConfig(batch_size=1, max_len=4096)
+    spec = SelfSpecEngine(arch, params, sc, SpecConfig(k=2), device=dev)
+    toks = [spec.prefill_into_slot(0, prompt)]
+    rejected = 0
+    for _ in range(GRIFFIN_SPEC_STEPS):
+        out, counts = spec.decode_step_multi()
+        toks += out[0, :counts[0]].tolist()
+        rejected += 2 - (int(counts[0]) - 1)
+    plain = Engine(arch, params, sc, device=dev)
+    ref = [plain.prefill_into_slot(0, prompt)]
+    for _ in range(len(toks) - 1):
+        ref.append(int(plain.decode_step()[0]))
+    if toks != ref:
+        raise AssertionError(f"(b) rollback: spec tokens {toks} vs plain "
+                             f"{ref}")
+    # the spec engine consumed prompt + toks[:-1]; so has the plain one
+    # after len(toks) - 1 decode steps
+    bad = [p for (p, a), (_, b) in zip(leaves_with_paths(spec.caches),
+                                       leaves_with_paths(plain.caches))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"(b) rollback: state differs from the plain "
+                             f"engine's at {bad[:4]}")
+    return len(toks), rejected
+
+
+def phase_griffin_spec(torch, np, arch_full, params_full, card, dev):
+    """Phase 13 (b): 8 layers at full width, the 'scan' rollback."""
+    from repro_torch.configs.base import with_mtp
+    from repro_torch.models.mtp import init_heads
+    from repro_torch.serve import (Engine, SelfSpecEngine, ServeConfig,
+                                   SpecConfig, SpecEngine)
+    arch = with_cfg(arch_full, n_layers=GRIFFIN_SPEC_LAYERS)
+    params = griffin_sub_params(params_full, GRIFFIN_SPEC_LAYERS)
+    sc = ServeConfig(batch_size=8, max_len=4096)
+    rng = np.random.default_rng(19)
+    # four prompts the ring wraps on during the spec steps (2040 + 16 new
+    # tokens pass the window of 2048), four short ones
+    lens = [2040, 2036, 2044, 2030, 40, 51, 63, 29]
+    prompts = [rng.integers(1, arch.vocab_size, n).astype(np.int32)
+               for n in lens]
+    launches = {"sample_topk": 0}
+    # the plain engine's tokens, the reference of the sidecar run
+    plain, p_sched, *_ = family_run(torch, np, arch,
+                                    lambda: Engine(arch, params, sc,
+                                                   device=dev), prompts)
+    k = SPEC_K
+    from repro_torch import obs
+    from repro_torch.kernels import build
+
+    def spec_run(tag, make, per_prefill, per_step):
+        calls = []
+        undo = spy_topk(calls)
+        try:
+            _, sched, results, rids, dt, counts, _, tracer = counted_run(
+                torch, np, make, lambda s: [s.submit(p) for p in prompts],
+                build, obs, max_new=FAMILY_NEW)
+        finally:
+            undo()
+        outs = [np.asarray(results[r]) for r in rids]
+        counts = {key: c for key, c in counts.items() if c}
+        want = {"sample_topk": per_prefill * len(sched.admit_order)
+                + per_step * sched.decode_steps}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected "
+                                 f"{want}")
+        launches["sample_topk"] += counts["sample_topk"]
+        err = check_topk_calls(torch, np, tag, calls, arch, False, False)
+        step_ms = [x.duration * 1e3 for x in tracer.spans
+                   if x.name == "spec.step"]
+        total = sum(len(o) for o in outs)
+        line = (f"{len(prompts)} requests of {lens} tokens, {total} tokens "
+                f"in {dt:.3f}s: {total / dt:.1f} tok/s, spec step "
+                f"{np.median(step_ms):.2f} ms p50 ({len(step_ms)} steps), "
+                f"acceptance {sched.acceptance_rate:.4f} "
+                f"({sched.spec_accepted} of {sched.spec_drafted}), "
+                f"{sched.tokens_per_step:.3f} tokens a slot-step; "
+                f"sample_topk {counts['sample_topk']} launches = "
+                f"{per_prefill} a prefill + {per_step} a step, each held to "
+                f"the plain version (max |err| {err:.3g})")
+        return outs, sched, line
+
+    # the sidecar engine, draft = target
+    outs, sched, line = spec_run(
+        "(b) SpecEngine", lambda: SpecEngine(arch, params, sc, arch, params,
+                                             SpecConfig(k=k), device=dev),
+        2, k + 1)
+    same = all(np.array_equal(x, y) for x, y in zip(outs, plain))
+    print(f"[griffin] (b) SpecEngine k {k}, draft = target ({arch.cfg.n_layers}"
+          f" layers): {line}; tokens {'bit for bit' if same else 'NOT'} "
+          f"the plain engine's on {card}", flush=True)
+    if not same or sched.acceptance_rate < 0.9:
+        raise AssertionError(f"(b) SpecEngine: tokens equal {same}, "
+                             f"acceptance {sched.acceptance_rate}")
+    # self-speculation with 2 random MTP heads: rejections every step
+    arch_m = with_mtp(arch, 2)
+    params_m = dict(params, mtp=init_heads(
+        torch.Generator(device=dev).manual_seed(20), arch.cfg.d_model,
+        arch_m.mtp, dtype=getattr(torch, arch.cfg.param_dtype),
+        device=dev))
+    outs, sched, line = spec_run(
+        "(b) SelfSpecEngine", lambda: SelfSpecEngine(
+            arch_m, params_m, sc, SpecConfig(k=2), device=dev), 2, 2)
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev)
+    print(f"[griffin] (b) SelfSpecEngine 2 MTP heads, k 2: {line}; served "
+          f"tokens {agree.mean():.3f} of {agree.size} equal to a cache-free "
+          f"forward's, trailing its best logit by at most {worst:.3g} "
+          f"(limit {GRIFFIN_TOL}; floor {floor:.3g}) on {card}", flush=True)
+    if not worst <= GRIFFIN_TOL:
+        raise AssertionError(f"(b) SelfSpecEngine: a served token trails "
+                             f"by {worst:.3g} > {GRIFFIN_TOL}")
+    n_tok, rejected = griffin_rollback_check(
+        torch, np, arch_m, params_m,
+        rng.integers(1, arch.vocab_size, 2046).astype(np.int32), dev)
+    print(f"[griffin] (b) rollback: one 2046-token prompt, "
+          f"{GRIFFIN_SPEC_STEPS} self-spec steps ({rejected} drafts "
+          f"rejected, the ring wrapped in the first): {n_tok} tokens equal "
+          f"to the plain engine's, and every state leaf (rings, h, conv, "
+          f"lens) bit for bit the plain engine's after the same tokens",
+          flush=True)
+    return launches
+
+
+def griffin_blocks_card_vs_cpu(torch, np, arch, dev, t=4096, t_ring=2100,
+                               steps=4):
+    """Phase 13 (f): at full width, from the same seeded bf16 input and
+    weights, on the card and on the CPU: one recurrent block over `t`
+    tokens (through the scan, its carried state returned), one
+    local-attention layer over `t` tokens (windowed blockwise attention),
+    and a `t_ring`-token ring prefill followed by `steps` decode steps.
+    Returns the readings; raises past the limits."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import griffin
+    cfg = arch.cfg
+    acfg = cfg.attn_config()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rec = griffin.init_recurrent_block(cfg, gen, torch.bfloat16, dev)
+    att = A.init_attention(acfg, gen, torch.bfloat16, dev)
+    x = (torch.randn((1, t, cfg.d_model), generator=gen, device=dev)
+         ).bfloat16()
+    cpu = torch.device("cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        return tree.to(d)
+
+    def run(d):
+        p_rec, p_att, xd = to(rec, d), to(att, d), x.to(d)
+        out = {}
+        with torch.no_grad():
+            st = griffin.init_states(cfg, 1, torch.bfloat16, d)["supers"][0]
+            y, s = griffin.apply_recurrent_block(p_rec, xd, cfg,
+                                                 state=st["b0"])
+            out["rec"], out["h"] = y, s["h"]
+            out["attn"], _ = A.attention_layer(p_att, xd, acfg)
+            ring = st["b2"]
+            ys = []
+            y, ring = A.attention_layer(p_att, xd[:, :t_ring], acfg,
+                                        cache=ring)
+            ys.append(y)
+            for i in range(steps):
+                y, ring = A.attention_layer(
+                    p_att, xd[:, t_ring + i:t_ring + i + 1], acfg,
+                    cache=ring)
+                ys.append(y)
+            out["ring_out"] = torch.cat(ys, dim=1)
+            out["ring_k"], out["ring_pos"] = ring["k"], ring["pos"]
+        return {k: v.to(cpu) for k, v in out.items()}
+
+    t0 = time.perf_counter()
+    card_out = run(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_out = run(cpu)
+    t_cpu = time.perf_counter() - t1
+    r = {"card_s": t1 - t0, "cpu_s": t_cpu}
+    for key in ("rec", "attn", "ring_out", "ring_k"):
+        got, want = card_out[key].float(), cpu_out[key].float()
+        r[key] = float((got - want).abs().max() / want.abs().max())
+        if not r[key] <= GRIFFIN_BLOCK_ATOL:
+            raise AssertionError(f"(f) {key}: card vs CPU max |err| "
+                                 f"{r[key]:.3g} of the largest entry > "
+                                 f"{GRIFFIN_BLOCK_ATOL:.3g}")
+    got, want = card_out["h"], cpu_out["h"]
+    r["h_fro"] = float((got - want).norm() / want.norm())
+    if not r["h_fro"] <= GRIFFIN_H_FRO:
+        raise AssertionError(f"(f) h: card vs CPU rel fro {r['h_fro']:.3g}")
+    r["pos_equal"] = bool(torch.equal(card_out["ring_pos"],
+                                      cpu_out["ring_pos"]))
+    want_pos = sorted(range(t_ring + steps - cfg.window, t_ring + steps))
+    if not r["pos_equal"] or sorted(
+            card_out["ring_pos"][0].tolist()) != want_pos:
+        raise AssertionError("(f) the ring's positions differ")
+    return r
+
+
+def phase_griffin_train(torch, np, card, dev):
+    """Phase 13 (e): recurrentgemma-9b at full width, one super (rec,
+    rec, attn), AdamW, the kernel loss, batch 1 x 4096 (the window of
+    2048 bites), 3 steps."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.train import TrainConfig, build_loss_fn
+    arch = with_cfg(get_arch(GRIFFIN_ID), n_layers=GRIFFIN_TRAIN_LAYERS)
+    steps = 3
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
+                     loss_impl="kernel", loss_block_v=2048)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=4096,
+                                  global_batch=1, seed=0))
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    head = params["lm_head"].requires_grad_(True)
+    torch.cuda.synchronize()
+    print(f"[griffin] (e) set-up {time.perf_counter() - t0:.1f}s: "
+          f"{GRIFFIN_ID} {GRIFFIN_TRAIN_LAYERS} layers (rec, rec, attn) at "
+          f"full width, AdamW, loss_impl kernel, batch 1 x 4096", flush=True)
+    batch0 = to_device(data.batch(0), dev)
+    step0, grads = {}, []
+    undo = spy_ce_grads(grads)
+    try:
+        for impl in ("kernel", "canonical"):
+            loss_fn = build_loss_fn(arch, TrainConfig(
+                loss_impl=impl, loss_block_v=tc.loss_block_v))
+            loss, _ = loss_fn(params, batch0)
+            (g_head,) = torch.autograd.grad(loss, [head])
+            step0[impl] = (float(loss.detach()), g_head)
+    finally:
+        undo()
+    grad_errs = check_ce_grads(torch, "(e) step 0", grads)
+    del grads
+    (lk, gk), (lc, gc) = step0["kernel"], step0["canonical"]
+    loss_err = abs(lk - lc) / abs(lc)
+    head_fro = float((gk.float() - gc.float()).norm() / gc.float().norm())
+    del step0, gk, gc, params, head
+    torch.cuda.empty_cache()
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_fro <= TRAIN_HEAD_FRO):
+        raise AssertionError(f"(e) step 0: kernel loss {lk} vs canonical "
+                             f"{lc} (rel {loss_err:.3g}), lm_head grad rel "
+                             f"fro {head_fro:.3g}")
+    print(f"[griffin] (e) step 0, kernels vs canonical loss: {lk:.6f} vs "
+          f"{lc:.6f} (rel {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}), bf16 "
+          f"lm_head grad rel fro {head_fro:.3g} (limit {TRAIN_HEAD_FRO}); "
+          "the backward at its own shape, each launch against its plain "
+          "version on the same inputs: " + "; ".join(
+              f"{name} (n {n}, V {v}, d {d}) max |err| {err:.3g}, rel fro "
+              f"{fro:.3g} (limit {CE_GRAD_FRO})"
+              for name, n, v, d, err, fro in grad_errs), flush=True)
+    state, history, counts, spans, peak = train_run(
+        torch, np, build, tc, arch, dev, data, steps)
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+            "fused_ce_dw": steps}
+    counts = {k_: c for k_, c in counts.items() if c}
+    if counts != want:
+        raise AssertionError(f"(e) launches {counts}, expected {want}")
+    opt_gb = state_bytes(opt_tensors(state["opt"])) / 1e9
+    p50 = float(np.median(spans))
+    print(f"[griffin] (e) {steps} steps, loss "
+          + " ".join(f"{m['loss']:.4f}" for _, m in history)
+          + f"; launches {counts} = one of each a step; step {p50:.1f} ms "
+          f"p50 over steps 1-{steps - 1}, {4096 / (p50 / 1e3):.0f} tokens/s, "
+          f"peak memory {peak:.2f} GiB, optimizer state {opt_gb:.2f} GB on "
+          f"{card}", flush=True)
+    del state
+    return counts
+
+
+def phase_griffin(torch, np, card, dev):
+    """Phase 13, last: (a), (d), (c) on the full-depth model, (b) on its
+    first 8 layers, then (f) and (e).  Returns the launches by kernel."""
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    counts, arch, params = phase_griffin_serve(torch, np, card, dev)
+    add(counts)
+    add(phase_griffin_spec(torch, np, arch, params, card, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = griffin_blocks_card_vs_cpu(torch, np, arch, dev)
+    print(f"[griffin] (f) one full-width block, card vs CPU from the same "
+          f"bf16 input and weights: recurrent block over 4096 tokens max "
+          f"|err| {r['rec']:.3g} of the largest entry, its h rel fro "
+          f"{r['h_fro']:.3g} (limit {GRIFFIN_H_FRO}); local attention over "
+          f"4096 tokens {r['attn']:.3g}; 2100-token ring prefill + 4 decode "
+          f"steps {r['ring_out']:.3g}, ring K {r['ring_k']:.3g} (limit "
+          f"{GRIFFIN_BLOCK_ATOL:.3g} each), ring positions bit for bit "
+          f"(the last 2048); card {r['card_s']:.1f}s, CPU {r['cpu_s']:.1f}s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(phase_griffin_train(torch, np, card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4566,6 +5208,9 @@ def main():
                          adamw_opt_bytes, workdir)
     torch.cuda.empty_cache()
     family = phase_family(torch, np, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    griffin = phase_griffin(torch, np, card, dev)
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -4573,7 +5218,8 @@ def main():
         "source": "src/repro_torch/kernels/sample_topk/csrc/sample_topk.cu",
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
         "launches": (launches + spec_topk + modes["sample_topk"]  # 3, 6, 10
-                     + family["sample_topk"]),                    # and 12
+                     + family["sample_topk"]                      # 12
+                     + griffin.get("sample_topk", 0)),            # and 13
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -4598,7 +5244,8 @@ def main():
         record["kernels"].append({
             "name": name, "route": "cuda", "source": ce_source,
             "replaces": f"src/repro/kernels/fused_ce/kernel.py:{line}",
-            "launches": train_launches[name] + family[name],    # 4, 12
+            "launches": (train_launches[name] + family[name]    # 4, 12
+                         + griffin.get(name, 0)),                # and 13
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -4640,7 +5287,7 @@ def main():
         "name": "score_tokens", "route": "cuda",
         "source": "src/repro_torch/kernels/score_tokens/csrc/score_tokens.cu",
         "replaces": "src/repro/kernels/score_tokens/kernel.py:54",
-        "launches": score_launches,
+        "launches": score_launches + griffin.get("score_tokens", 0),
         "max_abs_err": max(c["max_abs_err"] for c in score.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

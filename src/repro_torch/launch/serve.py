@@ -264,12 +264,16 @@ def main(argv=None):
     if args.paged:
         ps = eng.paged_stats()
         pre = ps.get("prefix", {})
-        print(f"[serve] paged: {ps['used_blocks']}/{ps['pool_blocks']} "
-              f"blocks live ({ps['live_cache_bytes']} B, "
-              f"{ps['block_bytes']} B a block), "
-              f"{ps['prefill_tokens']} prefill tokens, prefix hits "
-              f"{pre.get('hits', 0)} ({pre.get('hit_tokens', 0)} tokens "
-              "reused)")
+        if ps["enabled"]:
+            print(f"[serve] paged: {ps['used_blocks']}/"
+                  f"{ps['pool_blocks']} blocks live "
+                  f"({ps['live_cache_bytes']} B, {ps['block_bytes']} B a "
+                  f"block), {ps['prefill_tokens']} prefill tokens, prefix "
+                  f"hits {pre.get('hits', 0)} ({pre.get('hit_tokens', 0)} "
+                  "tokens reused)")
+        else:
+            print(f"[serve] paged: family {arch.family!r} has no "
+                  "pageable caches (dense-slab behavior)")
     if args.stats_json is not None:
         obs.export.dump_json(sched.stats(), args.stats_json,
                              label="stats", tag="serve")

@@ -20,6 +20,11 @@ in f32.
   * `extend_attention` (a paged prefix hit's suffix prefill over the
     cached prefix) replays `prefill_attention`'s arithmetic, so a hit's
     rows match a cold prefill's.
+  * a local window (``AttnConfig.window``, griffin) masks keys `window`
+    or more positions back in every mask above, and the blockwise tile
+    bounds skip the blocks wholly outside it; its cache is a ring buffer
+    of `window` entries addressed by absolute position (`_ring_update`,
+    `_ring_decode`).
 
 int8 caches (``quantize=True``): `quantize_kv` gives each (token, KV
 head) an f32 scale and int8 values; the slab decodes through
@@ -66,7 +71,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
     causal: bool = True
-    window: Optional[int] = None          # local windows: ROADMAP A8
+    window: Optional[int] = None          # local attention (griffin)
     chunk_q: int = 512
     chunk_k: int = 1024
     n_layers_scale: int = 1
@@ -130,13 +135,14 @@ def _pv(p, v):
 
 def prefill_attention(q, k, v, cfg: AttnConfig):
     """Causal attention within a fresh segment: q (B, T, nq, hd),
-    k/v (B, T, nkv, hd) -> (B, T, nq, hd)."""
+    k/v (B, T, nkv, hd) -> (B, T, nq, hd); a local window masks keys
+    `window` or more positions back."""
     b, t, nq, hd = q.shape
     nkv = k.shape[2]
     q5 = q.reshape(b, t, nkv, nq // nkv, hd)
     s = _tile_scores(q5, k, cfg)                         # (B,nkv,g,T,T)
     pos = torch.arange(t, device=q.device)
-    s = s.masked_fill(pos[None, :] > pos[:, None], _NEG_INF)
+    s = s.masked_fill(~_block_mask(pos, pos, t, cfg), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
@@ -154,19 +160,27 @@ def _block_mask(qpos, kpos, kv_len, cfg: AttnConfig):
     mask = kpos[None, :] < kv_len
     if cfg.causal:
         mask = mask & (kpos[None, :] <= qpos[:, None])
+    if cfg.window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - cfg.window)
     return mask
 
 
 def _kv_bounds(qi, cq, ck, nkb, cfg: AttnConfig):
-    """KV-block range [lo, hi) visible from query block qi."""
+    """KV-block range [lo, hi) visible from query block qi: a local
+    window starts it at the block of ``qi * cq - window``."""
     hi = min(((qi + 1) * cq + ck - 1) // ck, nkb) if cfg.causal else nkb
-    return 0, hi
+    lo = max((qi * cq - cfg.window) // ck, 0) if cfg.window is not None \
+        else 0
+    return lo, hi
 
 
 def _q_bounds(kj, cq, ck, nqb, cfg: AttnConfig):
-    """Query-block range [lo, hi) that can see kv block kj."""
+    """Query-block range [lo, hi) that can see kv block kj: a local
+    window ends it at the block of ``(kj + 1) * ck + window``."""
     lo = (kj * ck) // cq if cfg.causal else 0
-    return lo, nqb
+    hi = (min((kj * ck + ck + cfg.window + cq - 1) // cq, nqb)
+          if cfg.window is not None else nqb)
+    return lo, hi
 
 
 def _flash_fwd_impl(q, k, v, cfg: AttnConfig, kv_len: int):
@@ -333,6 +347,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, cfg: AttnConfig):
     kpos = torch.arange(s_len, device=q.device)
     qpos = cache_len[:, None] - tq + torch.arange(tq, device=q.device)
     mask = kpos[None, None, :] <= qpos[:, :, None]       # (B, Tq, S)
+    if cfg.window is not None:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - cfg.window)
     s = s.masked_fill(~mask[:, None, None], _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return _pv(p, v_cache).reshape(b, tq, nq, hd).to(q.dtype)
@@ -354,6 +370,8 @@ def extend_attention(q, k_cache, v_cache, cache_len, cfg: AttnConfig):
     kpos = torch.arange(s_len, device=q.device)
     qpos = cache_len[:, None] - tq + torch.arange(tq, device=q.device)
     mask = kpos[None, None, :] <= qpos[:, :, None]       # (B, Tq, S)
+    if cfg.window is not None:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - cfg.window)
     s = s.masked_fill(~mask[:, None, None], _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -466,6 +484,9 @@ def _decode_quantized(q, cache, cfg: AttnConfig, chunk: int = 4096):
         own = (kpos >= kj * ck) & (kpos < (kj + 1) * ck)
         mask = own[None, None, :] & (kpos[None, None, :]
                                      <= qpos[:, :, None])  # (B, Tq, ck)
+        if cfg.window is not None:
+            mask = mask & (kpos[None, None, :] > qpos[:, :, None]
+                           - cfg.window)
         s = s.masked_fill(~mask[:, None, None], _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -479,12 +500,80 @@ def _decode_quantized(q, cache, cfg: AttnConfig, chunk: int = 4096):
     return out.permute(0, 3, 1, 2, 4).reshape(b, tq, nq, hd).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# ring-buffer cache of local-window attention (O(window) memory at any length)
+# ---------------------------------------------------------------------------
+
+
+def init_local_cache(batch, window, cfg: AttnConfig, dtype=torch.bfloat16,
+                     device="cpu"):
+    """Ring buffer {'k', 'v' (B, W, nkv, hd), 'pos' (B, W), 'len' (B,)}:
+    ``pos`` holds each slot's absolute position, -1 while empty."""
+    shape = (batch, window, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, window), -1, dtype=torch.int32,
+                          device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _ring_update(cache, k, v, valid=None):
+    """Append T new entries at slots ``(len + i) % W``, IN PLACE on the
+    cache's k / v / pos, and return the cache with ``len + T``.
+
+    ``valid`` (B, T) marks the real positions of a bucket-padded prefill:
+    a pad entry still takes its slot but stores ``pos = -1``, which
+    `_ring_decode` masks.  A segment longer than the window (an
+    exact-length prefill past it) writes only its last W entries: the
+    others would land on slots those overwrite, and a scatter with
+    repeated indices leaves an unspecified one of them on the card —
+    here the later position wins by construction, as it does in the JAX
+    package's in-order scatter."""
+    t = k.shape[1]
+    window = cache["k"].shape[1]
+    lens = cache["len"]
+    start = max(t - window, 0)
+    pos_new = lens[:, None].long() + torch.arange(
+        start, t, device=k.device)[None, :]                # (B, T')
+    slots = pos_new % window
+    rows = torch.arange(k.shape[0], device=k.device)[:, None].expand_as(
+        slots)
+    store = pos_new.to(torch.int32)
+    if valid is not None:
+        store = torch.where(valid[:, start:], store, -1)
+    cache["k"].index_put_((rows, slots), k[:, start:].to(cache["k"].dtype))
+    cache["v"].index_put_((rows, slots), v[:, start:].to(cache["v"].dtype))
+    cache["pos"].index_put_((rows, slots), store)
+    return dict(cache, len=lens + t)
+
+
+def _ring_decode(q, cache, cfg: AttnConfig):
+    """Tq >= 1 queries against the ring buffer by its stored absolute
+    positions: query i sits at ``len - Tq + i`` and attends to every
+    in-window entry at or before it."""
+    b, tq, nq, hd = q.shape
+    nkv = cache["k"].shape[2]
+    q5 = q.reshape(b, tq, nkv, nq // nkv, hd)
+    s = _tile_scores(q5, cache["k"], cfg)                # (B,nkv,g,Tq,W)
+    qpos = cache["len"][:, None] - tq + torch.arange(tq, device=q.device)
+    kpos = cache["pos"][:, None, :]                      # (B, 1, W)
+    mask = (kpos >= 0) & (kpos <= qpos[:, :, None])
+    if cfg.window is not None:
+        mask = mask & (kpos > qpos[:, :, None] - cfg.window)
+    s = s.masked_fill(~mask[:, None, None], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _pv(p, cache["v"]).reshape(b, tq, nq, hd).to(q.dtype)
+
+
 def attention_layer(
     params, x, cfg: AttnConfig, *,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     decode: bool = False,
     prefill_ext: bool = False,
+    valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention layer: returns (out, new_cache).
 
@@ -492,7 +581,11 @@ def attention_layer(
     `blockwise_attention`), a dense slab {'k', 'v', 'len'} or a paged
     block pool {'kp', 'vp', 'table', 'len'}, each with int8 values and
     their scales ('k_scale' / 'v_scale', 'kp_scale' / 'vp_scale') when
-    quantized.  With a cache, T > 1 is a
+    quantized, or a local window's ring buffer {'k', 'v', 'pos', 'len'}
+    (`init_local_cache`), whose prefill attends within its segment
+    through `blockwise_attention`, as the JAX package's does, and whose
+    ``valid`` (B, T) marks the real positions of a bucket-padded
+    prefill (`_ring_update`).  With a cache, T > 1 is a
     prefill — the segment is written at ``len`` and attends within
     itself (the cache is empty before a prefill) — and T == 1 (or
     ``decode=True``) appends and attends over the whole cache.
@@ -504,13 +597,11 @@ def attention_layer(
     """
     b, t, _ = x.shape
     is_decode = decode or t == 1
-    if cfg.window is not None:
-        if cache is not None and "table" in cache and is_decode:
-            raise NotImplementedError(
-                "paged decode has no local-window path (windowed caches "
-                "are ring buffers, already O(window))")
-        raise NotImplementedError("local-window attention comes with "
-                                  "ROADMAP A8")
+    if cfg.window is not None and cache is not None and "table" in cache \
+            and is_decode:
+        raise NotImplementedError(
+            "paged decode has no local-window path (windowed caches "
+            "are ring buffers, already O(window))")
     if positions is None:
         if cache is not None:
             positions = cache["len"][:, None] + torch.arange(
@@ -577,9 +668,12 @@ def attention_layer(
                                        cfg)
         else:
             raise ValueError(f"unknown paged_impl {cfg.paged_impl!r}")
-    elif "pos" in cache:
-        raise NotImplementedError("ring-buffer local attention comes with "
-                                  "ROADMAP A8")
+    elif "pos" in cache:                                 # local ring
+        new_cache = _ring_update(cache, k, v, valid=valid)
+        if is_decode:
+            out = _ring_decode(q, new_cache, cfg)
+        else:
+            out = blockwise_attention(q, k, v, cfg)
     elif "k_scale" in cache:                             # int8 slab
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)

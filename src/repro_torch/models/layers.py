@@ -123,3 +123,53 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
     gate = x @ params["wg"]
     act = F.silu(gate.float()).to(x.dtype) * up
     return act @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (Griffin's temporal conv)
+# ---------------------------------------------------------------------------
+
+
+def init_causal_conv(dim, generator: torch.Generator, width: int = 4, *,
+                     dtype=torch.float32, device="cpu"):
+    """``w (width, dim)`` with the reference's fan-in of ``shape[0]``
+    (std 1/sqrt(width)), ``b (dim,)`` zeros."""
+    return {
+        "w": dense_init((width, dim), generator, dtype=dtype, device=device),
+        "b": torch.zeros((dim,), dtype=dtype, device=device),
+    }
+
+
+def causal_conv(params, x: torch.Tensor, state=None):
+    """Depthwise causal 1D conv over x (B, T, D): returns (y, new_state),
+    `state` being the last (width - 1) inputs of the previous segment
+    (zeros when None).
+
+    Each product and each partial sum rounds to the input dtype in turn,
+    as the reference's Python ``sum`` over the taps does: in bf16 this
+    is what the JAX package computes bit for bit, where an f32 sum
+    rounded once is not."""
+    w = params["w"]
+    width = w.shape[0]
+    t = x.shape[1]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1) + tuple(x.shape[2:]))
+    xx = torch.cat([state, x], dim=1)                  # (B, T+w-1, D)
+    y = xx[:, 0:t] * w[0]
+    for i in range(1, width):
+        y = y + xx[:, i:i + t] * w[i]
+    y = y + params["b"]
+    new_state = xx[:, t:] if width > 1 else state
+    return y.to(x.dtype), new_state
+
+
+def conv_state_at(prev_state: torch.Tensor, x: torch.Tensor,
+                  true_len: int) -> torch.Tensor:
+    """The conv carry as if only the first `true_len` steps of x had been
+    consumed (a bucket-padded prefill): the (width - 1) inputs ending at
+    position ``true_len - 1`` of ``[prev_state; x]``, which reach back
+    into `prev_state` when ``true_len < width - 1``.  `true_len` is a
+    host int."""
+    xx = torch.cat([prev_state, x.to(prev_state.dtype)], dim=1)
+    w1 = prev_state.shape[1]
+    return xx[:, true_len:true_len + w1]

@@ -1,5 +1,5 @@
-"""Model API + the --arch registry, transformer family (port of
-`repro.models.registry`).
+"""Model API + the --arch registry (port of `repro.models.registry`): the
+transformer family (dense, MoE, frontend stub) and griffin.
 
 The registry pads the lm_head to `arch.padded_vocab` rows; the pad rows
 are masked by ``valid_vocab`` in every sampler.  The serve cache of the
@@ -8,11 +8,17 @@ transformer family is the stacked slab tree
 ``{'kp', 'vp': (L, N, bs, nkv, hd), 'table': (L, B, nb), 'len': (L, B)}``.
 An int8 cache adds the per-(token, head) f32 scale leaves
 ``k_scale`` / ``v_scale`` beside k / v, or the scale pools ``kp_scale`` /
-``vp_scale`` beside the pools, wherever those go.  The batch axis is
-known (1 for every leaf but the pools, which have none: every slot
-shares them), so the per-slot surgery below needs no
-shape discovery.  It updates the batched tree IN PLACE and returns it;
-the pools are never copied or cloned — a slot view shares them.
+``vp_scale`` beside the pools, wherever those go.  Griffin's is a nested
+tree of per-block states (`models.griffin`: recurrent ``conv`` / ``h``
+leaves and local-attention ring buffers) whose leaves all have their
+batch axis first.
+
+The per-slot surgery below walks dicts and lists and finds each leaf's
+batch axis from the tree's layout: 1 under a layer-stacked dict (one
+whose ``len`` is (L, B)), none for the paged pools (every slot shares
+them), 0 anywhere else.  It updates the batched tree IN PLACE and
+returns it; the pools are never copied or cloned — a slot view shares
+them.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import Arch
-from repro_torch.models import transformer
+from repro_torch.models import griffin, transformer
 from repro_torch.optim.tree import leaves
 
 _CONFIG_MODULES = {
@@ -34,20 +40,24 @@ _CONFIG_MODULES = {
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "paper-lm": "repro_torch.configs.paper_lm",
 }
 
 # the JAX package's other config ids, by family, and the part of ROADMAP
 # A8 that ports each family
 _LATER = {
-    "recurrentgemma-9b": ("griffin", 2),
     "xlstm-125m": ("xlstm", 3),
     "seamless-m4t-medium": ("encdec", 4),
 }
 
-MTP_FAMILIES = ("transformer",)   # the recurrent families come with A8
+# families whose trunks take the MTP heads (the reference adds xlstm,
+# which comes with ROADMAP A8 part 3)
+MTP_FAMILIES = ("transformer", "griffin")
 
-_BATCH_AXIS = 1                  # (L, B, ...) for every batched leaf
+_FAMILY_MODS = {"transformer": transformer, "griffin": griffin}
+
+_STACKED_BATCH_AXIS = 1          # (L, B, ...) under a layer-stacked dict
 # paged pools, values and scales: no batch axis, shared
 _POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
@@ -65,10 +75,12 @@ def get_arch(arch_id: str, *, reduced: bool = False, **overrides) -> Arch:
     return mod.reduced() if reduced else mod.get_config(**overrides)
 
 
-def _require_transformer(arch: Arch):
-    if arch.family != "transformer":
+def _family_mod(arch: Arch):
+    mod = _FAMILY_MODS.get(arch.family)
+    if mod is None:
         raise NotImplementedError(f"family {arch.family!r} comes with "
                                   "ROADMAP A8")
+    return mod
 
 
 def supports_mtp(arch: Arch) -> bool:
@@ -81,8 +93,7 @@ def init_params(arch: Arch, generator: torch.Generator, device="cpu"):
     """Random params (seeded by `generator`, which lives on `device`) with
     the lm_head padded to `arch.padded_vocab` rows of zeros, and the
     ``'mtp'`` head subtree when ``arch.mtp.n_heads > 0``."""
-    _require_transformer(arch)
-    params = transformer.init_params(arch.cfg, generator, device)
+    params = _family_mod(arch).init_params(arch.cfg, generator, device)
     pad = arch.padded_vocab - arch.vocab_size
     if pad:
         head = params["lm_head"]
@@ -108,19 +119,30 @@ def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                    caches=None, decode: bool = False,
-                   prefill_ext: bool = False, return_heads: bool = False):
+                   prefill_ext: bool = False, return_heads: bool = False,
+                   true_len=None):
     """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'],
     after batch['frontend_embeds'] (B, F, d) where the batch has them
-    (then T counts those F positions too); ``prefill_ext`` (with ``decode``) is the paged engine's suffix-only
-    prefill after a prefix hit.  ``return_heads=True`` (needs
-    ``arch.mtp.n_heads > 0``) returns the 4-tuple (hidden, head_hidden
-    (B, T, n, d), aux_loss, new_caches): the training path applies the
-    fused CE to every horizon from this one forward."""
-    _require_transformer(arch)
-    h, aux, c = transformer.forward(
-        params, batch["tokens"], arch.cfg,
-        frontend_embeds=batch.get("frontend_embeds"), caches=caches,
-        decode=decode, prefill_ext=prefill_ext)
+    (then T counts those F positions too); ``prefill_ext`` (with
+    ``decode``) is the paged engine's suffix-only prefill after a prefix
+    hit.  ``true_len`` (a serving prefill's host int): positions at or
+    past it are bucket pads — the attention caches need no masking (pad
+    entries are dead past the shifted length), griffin's recurrent state
+    and ring buffers gate the pad steps into no-ops.
+    ``return_heads=True`` (needs ``arch.mtp.n_heads > 0``) returns the
+    4-tuple (hidden, head_hidden (B, T, n, d), aux_loss, new_caches): the
+    training path applies the fused CE to every horizon from this one
+    forward."""
+    mod = _family_mod(arch)
+    if arch.family == "transformer":
+        h, aux, c = mod.forward(
+            params, batch["tokens"], arch.cfg,
+            frontend_embeds=batch.get("frontend_embeds"), caches=caches,
+            decode=decode, prefill_ext=prefill_ext)
+    else:
+        h, aux, c = mod.forward(params, batch["tokens"], arch.cfg,
+                                states=caches, decode=decode,
+                                true_len=true_len)
     if return_heads:
         return h, apply_mtp_heads(arch, params, h), aux, c
     return h, aux, c
@@ -147,36 +169,58 @@ def active_param_count(arch: Arch, params) -> int:
 def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cpu",
                       quantize: bool = False, paged=None):
-    """Zeroed caches for `batch_size` slots: slab, or paged with `paged`
-    (a `serve.kvpool.PagedConfig`)."""
-    _require_transformer(arch)
-    return transformer.init_caches(arch.cfg, batch_size, max_len, dtype,
-                                   device, quantize=quantize, paged=paged)
+    """Fresh caches for `batch_size` slots: the transformer's slab, or its
+    paged form with `paged` (a `serve.kvpool.PagedConfig`); griffin's
+    state tree, which has nothing pageable or quantizable (the engines
+    refuse ``quantize_cache`` for it), so `paged` leaves it as it is."""
+    mod = _family_mod(arch)
+    if arch.family == "transformer":
+        return mod.init_caches(arch.cfg, batch_size, max_len, dtype,
+                               device, quantize=quantize, paged=paged)
+    return mod.init_states(arch.cfg, batch_size, dtype, device)
 
 
 def empty_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                        dtype=torch.bfloat16, device="cpu",
                        quantize: bool = False, paged=None):
     """The batched container whose slots await per-slot prefill inserts.
-    For the transformer family it IS `init_serve_caches` (the JAX
-    package differs only for enc-dec, whose init runs the encoder)."""
+    For the ported families it IS `init_serve_caches`, whose non-zero
+    init (the ring buffers' ``pos = -1``) the slot template keeps (the
+    JAX package differs only for enc-dec, whose init runs the
+    encoder)."""
     return init_serve_caches(arch, batch_size, max_len, dtype=dtype,
                              device=device, quantize=quantize, paged=paged)
+
+
+def _walk(tree, others, fn, axis=0):
+    """`fn(leaf, *other_leaves, axis)` over every leaf of `tree` and the
+    same leaves of the `others` trees, rebuilt in `tree`'s structure.
+    The pools are left out (returned as they are); a layer-stacked dict
+    sets the batch axis of its leaves."""
+    if isinstance(tree, dict):
+        if "len" in tree and tree["len"].dim() == 2:
+            axis = _STACKED_BATCH_AXIS
+        return {k: v if k in _POOL_KEYS else
+                _walk(v, [o[k] for o in others], fn, axis)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk(v, [o[i] for o in others], fn, axis)
+                for i, v in enumerate(tree)]
+    return fn(tree, *others, axis)
 
 
 def take_slot_caches(caches, slot: int):
     """One slot (size-1 batch axis kept) of a batched cache: a copy of
     every batched leaf; the paged pools are shared, not copied."""
-    return {k: v if k in _POOL_KEYS else v.narrow(_BATCH_AXIS, slot, 1)
-            .clone() for k, v in caches.items()}
+    return _walk(caches, [],
+                 lambda v, ax: v.narrow(ax, slot, 1).clone())
 
 
 def insert_slot_caches(caches, slot_caches, slot: int):
     """Write a batch=1 cache tree into slot `slot` of `caches`, in place.
     The pools (no batch axis) are left untouched."""
-    for k, v in caches.items():
-        if k not in _POOL_KEYS:
-            v.narrow(_BATCH_AXIS, slot, 1).copy_(slot_caches[k])
+    _walk(caches, [slot_caches],
+          lambda big, small, ax: big.narrow(ax, slot, 1).copy_(small))
     return caches
 
 
@@ -192,23 +236,41 @@ def merge_slot_caches(caches, slot_caches, slot: int):
 
 def reset_slot_caches(caches, template, slot: int):
     """Restore slot `slot` to its pristine state (`template` is a batch=1
-    slice of a freshly initialized cache), in place."""
+    slice of a freshly initialized cache — not zeros: the ring buffers'
+    ``pos`` starts at -1), in place."""
     return insert_slot_caches(caches, template, slot)
 
 
 def shift_cache_lens(caches, delta):
-    """Subtract `delta` (an int, or a per-slot (B,) tensor) from the
-    ``len`` leaf: bucketed prefill shifts back by its pad, so decode
-    resumes at the true prompt length (pad entries past it are dead and
-    overwritten by the next appends)."""
-    return dict(caches, len=caches["len"] - delta)
+    """Subtract `delta` (an int, or a per-slot (B,) tensor) from every
+    ``len`` leaf of the tree: bucketed prefill shifts back by its pad, so
+    decode resumes at the true prompt length (pad entries past it are
+    dead and overwritten by the next appends; a ring's pad entries
+    carry ``pos = -1``).  Recurrent state, which has no ``len``, passes
+    through."""
+    if isinstance(caches, dict):
+        return {k: (v - delta if k == "len" else shift_cache_lens(v, delta))
+                for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return [shift_cache_lens(v, delta) for v in caches]
+    return caches
+
+
+def _has_len_leaf(caches) -> bool:
+    if isinstance(caches, dict):
+        return "len" in caches or any(_has_len_leaf(v)
+                                      for v in caches.values())
+    if isinstance(caches, (list, tuple)):
+        return any(_has_len_leaf(v) for v in caches)
+    return False
 
 
 def spec_cache_strategy(arch: Arch) -> str:
     """How this family's serve caches roll back rejected drafted tokens:
     ``'len'`` (attention KV caches: per-slot length arithmetic, one cached
-    multi-token verify forward) or ``'scan'`` (recurrent state: per-step
-    snapshots, ROADMAP A8)."""
+    multi-token verify forward) or ``'scan'`` (griffin's recurrent state
+    and ring buffers: token-by-token verification with a snapshot after
+    each token, and a per-slot choice among the snapshots)."""
     return "len" if arch.family in ("transformer", "encdec") else "scan"
 
 
@@ -218,12 +280,76 @@ def rollback_slot_caches(caches, n_reject):
     ``'len'`` strategy.  The rejected entries stay in place as dead tail
     entries, masked now and overwritten by the next append.  Raises for a
     tree with no ``len`` leaf (recurrent state rolls back by snapshot
-    selection, ROADMAP A8)."""
-    if not isinstance(caches, dict) or "len" not in caches:
+    selection, `rollback_snapshot_caches`)."""
+    if not _has_len_leaf(caches):
         raise ValueError(
-            "rollback_slot_caches needs position-addressed caches with a "
-            "'len' leaf; recurrent state rolls back by snapshot selection "
-            "(spec_cache_strategy == 'scan', ROADMAP A8)")
+            "rollback_slot_caches needs position-addressed caches with "
+            "'len' leaves; recurrent state rolls back by snapshot "
+            "selection (spec_cache_strategy == 'scan')")
     if torch.is_tensor(n_reject):      # keep the int32 lengths int32
-        n_reject = n_reject.to(caches["len"].dtype)
+        n_reject = n_reject.to(torch.int32)
     return shift_cache_lens(caches, n_reject)
+
+
+def snapshot_caches(caches):
+    """A snapshot of a serve-cache tree that the next forward cannot
+    change: the ring buffers (dicts with ``pos``), which a forward writes
+    in place, are copied; every other leaf is shared — griffin's forward
+    replaces its recurrent ``conv`` / ``h`` leaves and every ``len``
+    with new tensors, and a linear append-only cache rolls back by
+    length arithmetic (`rollback_snapshot_caches`)."""
+    if isinstance(caches, dict):
+        if "pos" in caches:
+            return {k: v.clone() for k, v in caches.items()}
+        return {k: snapshot_caches(v) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return [snapshot_caches(v) for v in caches]
+    return caches
+
+
+def select_step_caches(snaps, step):
+    """Each slot's cache tree out of per-step snapshots: ``snaps[s]`` is
+    the tree after consuming ``s`` tokens of a speculative step
+    (`snapshot_caches`, the last one live), `step` (B,) the snapshot each
+    slot keeps.  Every leaf has its batch axis first (griffin's tree);
+    ``leaf[b] = snaps[step[b]][b]`` is written into the last snapshot's
+    tensor, the live one."""
+    first = snaps[0]
+    if isinstance(first, dict):
+        return {k: select_step_caches([s[k] for s in snaps], step)
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return [select_step_caches([s[i] for s in snaps], step)
+                for i in range(len(first))]
+    out = sel = snaps[-1]
+    for s, snap in enumerate(snaps[:-1]):
+        m = (step == s).view((-1,) + (1,) * (out.dim() - 1))
+        sel = torch.where(m, snap, sel)
+    return out.copy_(sel)
+
+
+def rollback_snapshot_caches(snaps, step, n_reject):
+    """Per-slot rollback from per-step snapshots (the ``'scan'``
+    strategy): `snaps` the S+1 trees of `select_step_caches`, `step`
+    (B,) the consumed count each slot keeps, `n_reject` (B,) the count it
+    drops.
+
+    A linear append-only subtree — a dict with ``len`` and no ``pos`` —
+    rolls back by length arithmetic on the last snapshot alone;
+    everything else, the recurrent leaves AND the ring buffers, takes
+    each slot's surviving snapshot.  Ring buffers must, although they
+    carry ``len``: a ring append at slot ``(len + i) % W`` overwrites the
+    entry ``W`` positions back, still inside the window, so once the
+    sequence wraps a rejected append destroys history that no length
+    shift restores."""
+    first = snaps[0]
+    if isinstance(first, dict) and "len" in first and "pos" not in first:
+        return rollback_slot_caches(snaps[-1], n_reject)
+    if isinstance(first, dict):
+        return {k: rollback_snapshot_caches([s[k] for s in snaps], step,
+                                            n_reject) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [rollback_snapshot_caches([s[i] for s in snaps], step,
+                                         n_reject)
+                for i in range(len(first))]
+    return select_step_caches(snaps, step)

@@ -162,6 +162,12 @@ class Engine:
                                lm_head_scale=ws.contiguous())
         self.device = resolve_device(device)
         self._cdt = getattr(torch, sc.cache_dtype)
+        # bucket pads must never WRAP a griffin ring buffer (a wrapped pad
+        # write destroys an in-window real entry): longer prompts prefill
+        # at their exact length
+        self._bucket_cap = sc.max_len
+        if arch.family == "griffin":
+            self._bucket_cap = min(sc.max_len, arch.cfg.window)
         self._sampler = make_sampler(arch, sc)
         self._tracer = obs.get_tracer()
         _reg = obs.get_registry()
@@ -211,9 +217,11 @@ class Engine:
 
     def _bucket_for(self, true_len: int, cap: Optional[int] = None) -> int:
         """Padded prefill length of a `true_len`-token segment: its
-        power-of-two bucket when that fits under `cap` (default
-        `max_len`), else the exact length."""
-        cap = self.sc.max_len if cap is None else min(cap, self.sc.max_len)
+        power-of-two bucket when that fits under `cap` (default: the
+        family's bucket cap, `max_len` or griffin's window), else the
+        exact length."""
+        cap = self._bucket_cap if cap is None else min(cap,
+                                                       self._bucket_cap)
         t_b = _bucket_len(true_len, self.sc.max_len)
         return t_b if t_b <= cap else true_len
 
@@ -269,10 +277,12 @@ class Engine:
         """The forward of one batch=1 prefill and the shift of the caches'
         length back by the bucket pad: (h (1, T_pad, d) at the token
         positions, the frontend's left out, caches).  ``ext`` makes it a
-        cache extension (a paged prefix hit's suffix-only prefill)."""
+        cache extension (a paged prefix hit's suffix-only prefill).
+        `true_len` also gates griffin's pad steps into no-ops (its state
+        consumes every position)."""
         h, _, slot_caches = forward_hidden(
             self.arch, self.params, batch, caches=slot_caches, decode=ext,
-            prefill_ext=ext)
+            prefill_ext=ext, true_len=true_len)
         t_b = batch["tokens"].shape[1]
         return (h[:, h.shape[1] - t_b:],
                 shift_cache_lens(slot_caches, t_b - true_len))

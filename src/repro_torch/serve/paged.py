@@ -31,6 +31,11 @@ lengths advance by each slot's emitted count.  A quantized cache
 (``quantize_cache``) pages into int8 pools with their scale pools,
 reached through the same chains and copied with them; the paged
 autotuner comes with ROADMAP A2 item 4.
+
+A family with nothing pageable (griffin: recurrent state and ring
+buffers, already O(window)) serves exactly as the slab engine: every
+hook below defers to `Engine`, and ``paged_stats()["enabled"]`` is
+False.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ class _PagedMixin:
                 arch, cfg=dataclasses.replace(arch.cfg,
                                               paged_impl=sc.paged_impl))
         super().__init__(arch, params, sc, *args, **kwargs)
+        self._n_paged = kvpool.count_paged(self.caches)
         pools = {k: self.caches[k] for k in kvpool.POOL_KEYS
                  if k in self.caches}
         self._block_bytes = kvpool.cache_tree_bytes(pools) // \
@@ -153,6 +159,9 @@ class _PagedMixin:
 
     def _slot_prefill_view(self, slot: int, prompt, frontend_embeds=None,
                            match_len: Optional[int] = None):
+        if not self._n_paged:
+            return super()._slot_prefill_view(slot, prompt, frontend_embeds,
+                                              match_len=match_len)
         prompt_np = np.asarray(prompt, np.int32).reshape(-1)
         if self._chains[slot]:
             raise RuntimeError(f"slot {slot} prefilled while occupied "
@@ -210,6 +219,8 @@ class _PagedMixin:
         return batch, view, true_len, ctx
 
     def _commit_slot(self, slot: int, slot_caches, ctx):
+        if not self._n_paged:
+            return super()._commit_slot(slot, slot_caches, ctx)
         # tables are host-authoritative (and a hit's view was sliced to
         # the cold-bucket width): restore the full-width row pre-merge
         slot_caches = kvpool.fill_tables(slot_caches,
@@ -223,6 +234,8 @@ class _PagedMixin:
     # -- decode (pre-step reservation, post-step advance) --------------------
 
     def decode_step(self):
+        if not self._n_paged:
+            return super().decode_step()
         self._reserve(1)
         self._sync_tables()
         toks = super().decode_step()
@@ -231,7 +244,7 @@ class _PagedMixin:
 
     def decode_step_multi(self):
         k = int(getattr(self, "spec_k", 0))
-        if not k:
+        if not k or not self._n_paged:
             # the plain multi-step delegates to decode_step, which already
             # reserves and advances
             return super().decode_step_multi()
@@ -242,6 +255,8 @@ class _PagedMixin:
         return toks, counts
 
     def decode_topk_step(self, n_cand: int):
+        if not self._n_paged:
+            return super().decode_topk_step(n_cand)
         self._reserve(1)
         self._sync_tables()
         out = super().decode_topk_step(n_cand)
@@ -256,6 +271,8 @@ class _PagedMixin:
         prompt AND generated, until one writes, when `_make_writable`
         copies only the block being appended to.  No cache bytes move at
         fork time."""
+        if not self._n_paged:
+            return super().fork_slot(dst, src)
         if self._chains[dst]:
             raise RuntimeError(f"fork into occupied slot {dst} "
                                "(reset_slot it first)")
@@ -282,6 +299,8 @@ class _PagedMixin:
     # -- reporting -----------------------------------------------------------
 
     def paged_stats(self) -> Dict[str, Any]:
+        if not self._n_paged:
+            return {"enabled": False}
         out: Dict[str, Any] = {
             "enabled": True,
             "block_size": self._pc.block_size,

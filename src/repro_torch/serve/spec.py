@@ -20,8 +20,17 @@ One engine step serves every slot up to K+1 tokens:
      of the per-position acceptances.  A step emits the accepted prefix
      plus one token the target chose: 1..K+1 tokens;
   4. **roll back** — the K - n_acc rejected entries leave every cache by
-     length arithmetic (`registry.rollback_slot_caches`); the recurrent
-     families' snapshot rollback (``'scan'``) comes with ROADMAP A8.
+     length arithmetic (`registry.rollback_slot_caches`), or, for
+     griffin's recurrent state and ring buffers (the ``'scan'``
+     strategy), each slot takes the snapshot after its n_acc + 1 kept
+     tokens (`registry.rollback_snapshot_caches`): the verification of
+     such a model is K+1 single-token forwards with a snapshot after
+     each, and so are the draft's steps.
+
+The port's caches are updated IN PLACE, so a snapshot is a copy of what
+the next forward writes in place (`registry.snapshot_caches`: the ring
+buffers); without it every snapshot would alias the last state and the
+rollback would silently do nothing.
 
 The step functions are plain functions on tensors; random draws take an
 explicit `torch.Generator` (they do not reproduce ``jax.random``, so
@@ -44,6 +53,8 @@ from repro_torch.configs.base import Arch
 from repro_torch.kernels.score_tokens import score_tokens
 from repro_torch.models.registry import (apply_mtp_heads, forward_hidden,
                                          init_params, rollback_slot_caches,
+                                         rollback_snapshot_caches,
+                                         snapshot_caches,
                                          spec_cache_strategy, supports_mtp)
 from repro_torch.serve.engine import Engine, ServeConfig, make_sampler
 
@@ -86,16 +97,34 @@ def small_draft(arch: Arch, seed: int = 7, device="cpu", **overrides):
 
 def verify_forward(arch: Arch, params, caches, seq: torch.Tensor,
                    strat: str):
-    """The target's multi-token verification forward over `seq` (B, S):
-    ONE cached ``decode=True`` forward (per-row append, causal over the
-    whole cache).  Returns (hiddens (B, S, d), new_caches)."""
-    if strat != "len":
-        raise NotImplementedError("speculative verification of recurrent "
-                                  "state ('scan' rollback) comes with "
-                                  "ROADMAP A8")
-    h, _, caches = forward_hidden(arch, params, {"tokens": seq},
-                                  caches=caches, decode=True)
-    return h, caches
+    """The target's multi-token verification forward over `seq` (B, S).
+
+    ``'len'``: ONE cached ``decode=True`` forward (per-row append, causal
+    over the whole cache); ``'scan'``: S single-token forwards with a
+    snapshot before the first and after each (`snapshot_caches`; the
+    last is the live tree).  Returns (hiddens (B, S, d), new_caches,
+    snapshots or None)."""
+    if strat == "len":
+        h, _, caches = forward_hidden(arch, params, {"tokens": seq},
+                                      caches=caches, decode=True)
+        return h, caches, None
+    hs, snaps = [], []
+    for j in range(seq.shape[1]):
+        snaps.append(snapshot_caches(caches))
+        hj, _, caches = forward_hidden(arch, params,
+                                       {"tokens": seq[:, j:j + 1]},
+                                       caches=caches)
+        hs.append(hj[:, -1, :])
+    snaps.append(caches)
+    return torch.stack(hs, dim=1), caches, snaps
+
+
+def _rollback(caches, snaps, n_acc, k):
+    """Keep each slot's n_acc + 1 consumed tokens of the step: length
+    arithmetic (``snaps`` None) or the per-slot snapshot."""
+    if snaps is None:
+        return rollback_slot_caches(caches, k - n_acc)
+    return rollback_snapshot_caches(snaps, n_acc + 1, k - n_acc)
 
 
 def _score_lp(h2, w, ids, *, valid, cap, temp, w_scale=None):
@@ -152,9 +181,7 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
     draft_temp = (sc.temperature if spec.draft_temperature is None
                   else spec.draft_temperature)
     t_strat = spec_cache_strategy(arch)
-    if spec_cache_strategy(draft_arch) != "len":
-        raise NotImplementedError("recurrent drafts ('scan' rollback) come "
-                                  "with ROADMAP A8")
+    d_scan = spec_cache_strategy(draft_arch) == "scan"
     sampler_t = make_sampler(arch, sc)
     sampler_d = make_sampler(draft_arch, sc)
 
@@ -167,8 +194,11 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
         # ---- 1. draft proposal: K sampled tokens + one catch-up step so
         # the draft cache consumes d_K too (kept only if all K accepted)
         d_tokens, d_hidden = [], []
+        d_snaps = [] if d_scan else None
         tok = cur
         for i in range(k + 1):
+            if d_scan:
+                d_snaps.append(snapshot_caches(dcaches))
             h, _, dcaches = forward_hidden(draft_arch, dparams,
                                            {"tokens": tok}, caches=dcaches)
             if i == k:
@@ -189,7 +219,8 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
 
         # ---- 2. target verification over [cur, d_1..d_K]
         seq = torch.cat([cur, draft], dim=1)                 # (B, K+1)
-        h, caches = verify_forward(arch, params, caches, seq, t_strat)
+        h, caches, t_snaps = verify_forward(arch, params, caches, seq,
+                                            t_strat)
         d_model = h.shape[-1]
         choice = sampler_t(h.reshape(b * (k + 1), d_model),
                            params["lm_head"], sc.temperature,
@@ -211,8 +242,10 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
 
         # ---- 4. roll back the K - n_acc rejected positions (both models
         # consumed K+1 tokens and keep n_acc + 1 of them)
-        caches = rollback_slot_caches(caches, k - n_acc)
-        dcaches = rollback_slot_caches(dcaches, k - n_acc)
+        caches = _rollback(caches, t_snaps, n_acc, k)
+        if d_scan:
+            d_snaps.append(dcaches)
+        dcaches = _rollback(dcaches, d_snaps, n_acc, k)
         return out, counts, caches, dcaches, n_acc
 
     return spec_step
@@ -363,7 +396,7 @@ def build_self_spec_step(arch: Arch, sc: ServeConfig, spec: SpecConfig):
         ws = params.get("lm_head_scale")
         # ---- 1. ONE target forward verifies the pending drafts
         seq = torch.cat([cur, draft], dim=1)                 # (B, K+1)
-        h, caches = verify_forward(arch, params, caches, seq, strat)
+        h, caches, snaps = verify_forward(arch, params, caches, seq, strat)
         d_model = h.shape[-1]
         choice = sampler(h.reshape(b * (k + 1), d_model), w, sc.temperature,
                          gen, w_scale=ws).reshape(b, k + 1)
@@ -394,7 +427,7 @@ def build_self_spec_step(arch: Arch, sc: ServeConfig, spec: SpecConfig):
                                w_scale=ws).reshape(b, k)
 
         # ---- 4. roll back the K - n_acc rejected positions
-        caches = rollback_slot_caches(caches, k - n_acc)
+        caches = _rollback(caches, snaps, n_acc, k)
         return out, counts, caches, new_draft, new_lp, n_acc
 
     return self_spec_step

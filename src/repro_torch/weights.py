@@ -3,7 +3,8 @@
 `params_from_jax` takes the JAX param tree after
 ``jax.tree.map(np.asarray, params)`` — nested dicts of numpy arrays — and
 returns the port's params: the same nesting, with the scanned ``blocks``
-leaves ``(L, ...)`` unstacked into a list of per-layer dicts.  Every other
+leaves ``(L, ...)`` (griffin's ``supers``, ``(n_super, ...)``) unstacked
+into a list of per-layer (per-super) dicts.  Every other
 subtree crosses as it is, the MTP heads' head x depth stacked ``mtp``
 subtree included (`models/mtp.py` indexes it as JAX does).  Every
 layout stays the JAX package's (``wq (d, nq, hd)``, ``wo (nq, hd, d)``,
@@ -14,7 +15,8 @@ bf16 arrays (numpy's ``bfloat16`` extension dtype) cross as their raw
 The way back: `state_to_host` / `state_to_jax` turn a port train state
 (params, AdamW moments or Adafactor slots, the counters) into the flat
 dict the JAX package's checkpointer writes, keyed by its path strings
-(``params/blocks/attn/wq``, ``opt/mu/...``, ``opt/slots/<path>/vr``,
+(``params/blocks/attn/wq``, ``params/supers/b0/temporal/rglru/wa``,
+``params/rem0/...``, ``opt/mu/...``, ``opt/slots/<path>/vr``,
 ``opt/count``, ``step``) with the per-layer leaves stacked again;
 `state_from_jax` builds a port state from such a dict.  numpy keeps no
 bfloat16 of its own, so a bf16 leaf crosses as raw ``|V2`` words: what
@@ -71,12 +73,17 @@ def _layer_count(blocks) -> int:
     return blocks.shape[0]
 
 
+# the JAX package's layer-stacked subtrees: the transformer's scanned
+# blocks, griffin's scanned (rec, rec, attn) supers
+_STACKED = ("blocks", "supers")
+
+
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """The port's params from a numpy copy of the (scanned) JAX param
     tree, on `device`."""
     out = {}
     for key, val in tree.items():
-        if key == "blocks":
+        if key in _STACKED:
             out[key] = [_map(val, lambda a, i=i: tensor_from_numpy(a[i],
                                                                    device))
                         for i in range(_layer_count(val))]

@@ -1405,7 +1405,8 @@ def test_quantized_paged_decode_step_launches_the_kernels(cuda):
     (152064, 4096, 151936),        # qwen3-moe-235b-a22b's padded head
     (32000, 7168, 32000),          # arctic-480b's
     (151808, 896, 151655),         # internvl2-1b's
-], ids=["qwen3-moe", "arctic", "internvl2"])
+    (256000, 4096, 256000),        # recurrentgemma-9b's, the widest
+], ids=["qwen3-moe", "arctic", "internvl2", "recurrentgemma"])
 def test_topk_decode_on_family_heads(cuda, v, d, valid, rows, k):
     """The decode top-k on the heads of the new configs at the decode
     rows: values rtol 1e-5 / atol 1e-4 of the plain version, ids exact
@@ -1519,3 +1520,96 @@ def test_full_width_moe_layer_on_the_card_matches_the_cpu(cuda):
                      torch.bfloat16, cuda)
     r = chip_smoke.moe_layer_card_vs_cpu(torch, np, arch, p, cuda)
     assert r["max_err"] <= r["limit"]
+
+
+# ---------------------------------------------------------------------------
+# griffin (recurrentgemma-9b): its 256000 x 4096 head, its blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp", [None, 0.7])
+def test_score_tokens_on_recurrentgemma_head(cuda, temp):
+    """`score_tokens` over recurrentgemma-9b's head (V 256000, d 4096, 4000
+    vocab tiles of 64: the widest stream) at 32 rows, P 1: lse and the
+    candidate logits rtol 1e-5 / atol 1e-4 of the plain version, two
+    calls bit for bit, one launch a call."""
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref)
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    v, d = 256000, 4096
+    h = torch.randn((32, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    ids = torch.randint(0, v, (32, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(valid_vocab=v, temperature=temp)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, w, ids, **kw)
+    lse2, zc2 = score_stats(h, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "dh", "dw"])
+def test_fused_ce_at_recurrentgemma_width(cuda, which):
+    """The fused-CE forward, dH and dW at recurrentgemma-9b's training
+    shape: d 4096 (dH and dW at the cluster's limit), V 256000 (4000
+    vocab tiles), 4096 rows: the forward's lse and z_target at rtol 1e-5
+    / atol 1e-4 of the plain version, z_sum at atol 2e-2 (it adds 256000
+    logits of std ~2 in another order; qwen3-moe's 151936 read 7.3e-3 on
+    the H100); dH / dW at rtol 3e-4 / atol 1e-6 and a relative Frobenius
+    error of 1e-4; two calls bit for bit."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+    n, v, d = 4096, 256000, 4096
+    h, w, y = _ce_problem(cuda, n, v, d, seed=24)
+    cfg = LossConfig(valid_vocab=v)
+    want = ref_stats(h, w, y, cfg)
+    if which == "fwd":
+        got = fwd_stats(h, w, y, cfg)
+        again = fwd_stats(h, w, y, cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for a, b, atol in zip(got, want, (1e-4, 1e-4, 2e-2)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+        return
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
+    lse = want[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    got = grads(h, w, y, lse, gamma, gamma, cfg)
+    again = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    exp = ref(h, w, y, lse, gamma, gamma, cfg)
+    torch.testing.assert_close(got, exp, rtol=3e-4, atol=1e-6)
+    assert float((got - exp).norm() / exp.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_griffin_blocks_on_the_card_match_the_cpu(cuda):
+    """One full-width recurrentgemma-9b recurrent block over 4096 tokens
+    (the RG-LRU scan), one local-attention layer over 4096 tokens
+    (windowed blockwise attention) and a 2100-token ring prefill followed
+    by 4 decode steps, on the card and on the CPU from the same bf16
+    input and weights, through `chip_smoke.griffin_blocks_card_vs_cpu`,
+    which holds phase 13 (f) to the same limits: outputs and the ring's K
+    within 2^-6 of the CPU's largest entry (GEMMs round bf16 outputs
+    after f32 sums in another order), the carried h within a relative
+    Frobenius error of 1e-2, the ring's positions bit for bit (the last
+    2048)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.models.registry import get_arch
+    r = chip_smoke.griffin_blocks_card_vs_cpu(
+        torch, np, get_arch(chip_smoke.GRIFFIN_ID), cuda)
+    assert r["pos_equal"]
