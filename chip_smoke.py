@@ -13,7 +13,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case,
      a softcap case, the speculative verifier's 40 rows at k 40, on
      recurrentgemma-9b's 256000 x 4096 head for rows in {1, 8} and k in
-     {1, 40}, and on V 32768 at d 4096 (paper-lm's width, 8 rows k 40), d 12288 (8 rows
+     {1, 40}, on xlstm-125m's 50432 x 768 head (valid 50304) for rows in
+     {1, 8} and k in {1, 40}, and on V 32768 at d 4096 (paper-lm's
+     width, 8 rows k 40), d 12288 (8 rows
      k 1) and d 16384 (40 rows k 40) (the decode kernel: two calls bit
      for bit, the device time of its stream and merge kernels apart under
      `torch.profiler`), and
@@ -34,8 +36,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      smoothing 0.1 with z-loss 1e-4, 10% ignored rows — at phase 8 (c)'s
      4096 rows, at 1000
      rows with a shard offset, at d = 4096 (512 rows, V 32768) and at
-     recurrentgemma-9b's training shape (4096 rows, d 4096, V 256000),
-     each
+     recurrentgemma-9b's training shape (4096 rows, d 4096, V 256000)
+     and xlstm-125m's (8192 rows, d 768, V 50432: the backward's last
+     CTA of four wholly past d), each
      held to its plain version (f32 logits, TF32 off), the forward, dH
      and dW run twice for bit identity, and timed beside
      its bound, the plain version and the canonical two-stage loss in
@@ -274,6 +277,44 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launches against their plain versions, one launch of each fused-CE
      kernel a step.  Prints tokens/s, step ms p50, peak memory, spec-step
      ms and acceptance, the training step and the optimizer's bytes.
+ 14. xlstm (xlstm-125m: 6 sLSTM + mLSTM pairs, d 768, vocab 50304 on a
+     50432-row head) at full width and full depth, seeded random
+     weights, last: (a) `Engine(batch_size=8)`, six prompts of 5-60
+     tokens (bucketed), one of 300 (bucket 512: two mLSTM chunks, the
+     second partly pads) and one of 3000 (bucket 4096: four chunks only
+     pads), 32 new tokens, greedy; the 3000-token prefill timed alone,
+     and the slot state's bytes after it and after the 5-token prompt;
+     (b) a 37-token prompt bucketed (64) and at its exact length, and
+     the padded state on the card against the CPU port's padded run;
+     (e) `PagedEngine` on (a)'s traffic; (d) eval, 4 prompts x 2
+     continuations; (c) on (a)'s prompts but the 3000-token one:
+     `SpecEngine` with draft = target (k 4), `SelfSpecEngine` with 2
+     random MTP heads (k 2), and the rollback check over the 300-token
+     prompt; (g) one sLSTM and one mLSTM block over 2048 tokens and one
+     pair over a bucketed 300-token prefill + 4 decode steps on the
+     card and the CPU; (f) training, 12 blocks, AdamW,
+     ``loss_impl='kernel'``, 4 x 2048 tokens, 3 steps, and one sLSTM
+     block against one mLSTM block over that batch.  Gates: one
+     `sample_topk` launch a prefill and a step (two a prefill and K + 1
+     or 2 a spec step in (c)), every call held to its plain version;
+     every served token within XLSTM_TOL of a cache-free forward's best
+     logit (the floor printed); 14,432,352 f32 bytes a slot; (b) first
+     tokens equal, states within XLSTM_PAD_FRO and XLSTM_CARD_CPU_FRO;
+     (e) tokens bit for bit (a)'s, ``paged_stats() == {'enabled':
+     False}``, no `paged_attn` launch (its counter read); (d) one
+     `score_tokens` launch a continuation, every logp within EVAL_ATOL
+     of a forward from a fresh serve state over the same padded tokens
+     (the prefill's arithmetic; the cache-free reading printed); (c)
+     draft = target: acceptance >= 0.9, tokens bit for bit the plain
+     engine's; every state leaf bit for bit the plain engine's after 8
+     rejecting self-spec steps; (g) within XLSTM_BLOCK_ATOL /
+     XLSTM_STATE_FRO; (f) step 0 against the canonical loss, its dH /
+     dW launches against their plain versions (the cluster of 4 whose
+     last CTA lies wholly past d 768), every gradient finite, one
+     launch of each fused-CE kernel a step.  Prints tokens/s, step ms
+     p50, the 3000-token prefill's ms, peak memory, spec-step ms and
+     acceptance, the training step, the AdamW state's bytes and the
+     sLSTM block's share of a pair.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
@@ -289,7 +330,9 @@ the eval shape (rows 8), rows 32 with P 4,
 softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
 `col_offset` shard, paper-lm's width (d 4096, V 32768: 32 rows P 1 and
 100 rows P 64), mistral-large's d 12288 (32 rows P 1), d 16384 (40
-rows P 4) and recurrentgemma-9b's head (V 256000, 32 rows P 1), each against its plain version, twice for bit identity, with
+rows P 4), recurrentgemma-9b's head (V 256000, 32 rows P 1) and
+xlstm-125m's (V 50432, valid 50304, d 768, 32 rows P 1), each against
+its plain version, twice for bit identity, with
 -inf exactly where the JAX kernel puts it, and timed beside its bound,
 its plain version and ``torch.log_softmax`` of the logits gathered at
 the ids, and the device time of its stream and merge kernels apart.
@@ -412,6 +455,7 @@ SPEC_K = 4
 # scales every logit by ~1/s in an eval logp, which the limit catches.
 QUANT_TOKEN_TOL = 5e-3
 QUANT_POOL_RATIO = 0.55
+XLSTM_VALID = 50304               # xlstm-125m's vocab; its head pads to 50432
 
 
 def card_line():
@@ -591,15 +635,23 @@ def phase_topk(torch, np, arch, dev):
     # memory does not grow with d
     wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
                  / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
-    # recurrentgemma-9b's head, 256000 x 4096 (phase 13), the widest
+    # recurrentgemma-9b's head, 256000 x 4096 (phase 13), the widest;
+    # xlstm-125m's, 50432 x 768 with 50304 valid rows (phase 14), the
+    # smallest (788 tiles of 64 rows)
     wide["v256000"] = (torch.randn((256000, 4096), generator=gen,
                                    device=dev) / 64).bfloat16()
+    wide["v50432"] = torch.randn((50432, 768), generator=gen,
+                                 device=dev) / 768 ** 0.5
+    wide["v50432"][XLSTM_VALID:] = 0.0
+    wide["v50432"] = wide["v50432"].bfloat16()
+    wide_valid = {"v50432": XLSTM_VALID}
     cases = []
     for rows in (1, 8):
         for k in (1, 40):
             cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0, None))
-            cases.append((f"v256000_rows{rows}_k{k}", rows, k, None, False,
-                          0, "v256000"))
+            for head in ("v256000", "v50432"):
+                cases.append((f"{head}_rows{rows}_k{k}", rows, k, None,
+                              False, 0, head))
     cases.append(("rows8_k40_ties", 8, 40, None, True, 0, None))
     cases.append(("rows8_k40_softcap30", 8, 40, 30.0, False, 0, None))
     # the speculative verifier's 8 x (4 + 1) rows at the sampler's k 40
@@ -618,7 +670,7 @@ def phase_topk(torch, np, arch, dev):
     for name, rows, k, cap, ties, off, dw in cases:
         if dw:
             wt = wide[dw]
-            v_c, valid_c = wt.shape[0], wt.shape[0]
+            v_c, valid_c = wt.shape[0], wide_valid.get(dw, wt.shape[0])
         else:
             wt = w_ties if ties else w
             v_c, valid_c = v, valid
@@ -865,6 +917,9 @@ def phase_fused_ce(torch, np, arch, dev):
         # recurrentgemma-9b's training shape (phase 13 (e)): 4096 rows,
         # d 4096 (the backward's cluster limit), V 256000
         ("v256000_d4096", 4096, 256000, 4096, 256000, 0, {}, 0.0),
+        # xlstm-125m's training rows (phase 14 (f)): d 768, whose dH / dW
+        # cluster of 4 has a last CTA wholly past d, V 50432
+        ("v50432_d768", n0, 50432, 768, XLSTM_VALID, 0, {}, 0.0),
     ]
     results = {}
     errs = {"fused_ce_fwd": 0.0, "fused_ce_dh": 0.0, "fused_ce_dw": 0.0}
@@ -1336,8 +1391,9 @@ def phase_train(torch, np, arch, card, dev):
     return launches, p50, state
 
 
-def train_run(torch, np, build, tc, arch, dev, data, steps):
-    """`steps` steps of `train_loop` from a seeded init, the launch counters
+def train_run(torch, np, build, tc, arch, dev, data, steps, prepare=None):
+    """`steps` steps of `train_loop` from a seeded init (then
+    ``prepare(params)``, in place, where given), the launch counters
     zeroed just before the loop; returns (state, history, counts, step ms
     of steps 1.., peak GiB)."""
     from repro_torch import obs
@@ -1345,6 +1401,8 @@ def train_run(torch, np, build, tc, arch, dev, data, steps):
     from repro_torch.train import build_train_step, train_loop
     init_fn, step_fn = build_train_step(arch, tc)
     state = init_fn(torch.Generator(device=dev).manual_seed(0), dev)
+    if prepare is not None:
+        prepare(state["params"])
     reg, tracer = obs.enable(trace=True)
     try:
         torch.cuda.synchronize()
@@ -2198,9 +2256,15 @@ def phase_score(torch, np, arch, dev):
     # 16384: a CTA's shared memory does not grow with d
     wide = {dw: (torch.randn((32768, dw), generator=gen, device=dev)
                  / dw ** 0.5).bfloat16() for dw in (4096, 12288, 16384)}
-    # recurrentgemma-9b's head, 256000 x 4096 (phase 13 (c))
+    # recurrentgemma-9b's head, 256000 x 4096 (phase 13 (c)), and
+    # xlstm-125m's, 50432 x 768 with 50304 valid rows (phase 14 (d))
     wide["v256000"] = (torch.randn((256000, 4096), generator=gen,
                                    device=dev) / 64).bfloat16()
+    wide["v50432"] = torch.randn((50432, 768), generator=gen,
+                                 device=dev) / 768 ** 0.5
+    wide["v50432"][XLSTM_VALID:] = 0.0
+    wide["v50432"] = wide["v50432"].bfloat16()
+    wide_valid = {"v50432": XLSTM_VALID}
     cases = [
         # name, rows, P, softcap, temperature, col_offset, wide head
         ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, None),
@@ -2213,13 +2277,14 @@ def phase_score(torch, np, arch, dev):
         ("d12288_rows32_p1", 32, 1, None, 0.7, 0, 12288),
         ("d16384_rows40_p4", 40, 4, None, None, 0, 16384),
         ("v256000_rows32_p1", 32, 1, None, None, 0, "v256000"),
+        ("v50432_rows32_p1", 32, 1, None, None, 0, "v50432"),
     ]
     results = {}
     for name, rows, p, cap, temp, off, dw in cases:
         if dw:
             w = wide[dw]
             v, d = w.shape
-            valid = v
+            valid = wide_valid.get(dw, v)
         else:
             d, v, valid = arch.cfg.d_model, arch.padded_vocab, arch.vocab_size
             w = w_head
@@ -3922,8 +3987,8 @@ def family_deficits(torch, np, arch, params, prompts, outs, dev, fe=None,
 
 
 def family_run(torch, np, arch, make_engine, prompts, fe=None,
-               engines=None):
-    """Serve `prompts` (FAMILY_NEW tokens each, after the frontend
+               engines=None, max_new=FAMILY_NEW):
+    """Serve `prompts` (`max_new` tokens each, after the frontend
     embeddings `fe`) through `counted_run` on a `make_engine()`
     (appended to `engines`); returns (outs, sched, launches by kernel,
     seconds, decode step ms, peak GiB).  Every request must get its
@@ -3941,12 +4006,12 @@ def family_run(torch, np, arch, make_engine, prompts, fe=None,
     _, sched, results, rids, dt, launches, _, tracer = counted_run(
         torch, np, make, lambda sched: [
             sched.submit(p, frontend_embeds=fe) for p in prompts],
-        build, obs, max_new=FAMILY_NEW)
+        build, obs, max_new=max_new)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     outs = [np.asarray(results[r]) for r in rids]
-    if any(len(o) != FAMILY_NEW for o in outs):
+    if any(len(o) != max_new for o in outs):
         raise AssertionError(f"{arch.arch_id}: a request did not get its "
-                             f"{FAMILY_NEW} tokens")
+                             f"{max_new} tokens")
     if not all(((o >= 0) & (o < arch.vocab_size)).all() for o in outs):
         raise AssertionError(f"{arch.arch_id}: a served id lies outside "
                              "the valid vocab")
@@ -4758,22 +4823,28 @@ def phase_griffin_serve(torch, np, card, dev):
     del peng
 
     # (c) eval: score_tokens at V 256000
-    c = griffin_eval(torch, np, arch, params, card, dev)
+    c = recurrent_eval(torch, np, arch, params, card, dev, "(c)")
     launches["score_tokens"] += c
     return launches, arch, params
 
 
-def griffin_eval(torch, np, arch, params, card, dev):
-    """Phase 13 (c): 4 prompts of 64 tokens x 2 continuations of 8
-    through `submit_eval` on the slab Engine (72 tokens: bucket 128).
-    Every logp against log_softmax of the f32 logits of a cache-free
-    forward over the same bucket-padded tokens (causal: its rows at the
-    real positions are the prefill's arithmetic without the caches)
-    within EVAL_ATOL; the reading against a forward over the 72 tokens
-    alone, whose GEMMs and softmax reduce over other lengths, printed."""
+def recurrent_eval(torch, np, arch, params, card, dev, tag,
+                   fresh_state=False):
+    """Phase 13 (c) and 14 (d): 4 prompts of 64 tokens x 2 continuations
+    of 8 through `submit_eval` on the slab Engine (72 tokens: bucket
+    128).  Every logp against log_softmax of the f32 logits of a forward
+    over the same bucket-padded tokens (causal: its rows at the real
+    positions are the prefill's arithmetic) within EVAL_ATOL: a
+    cache-free forward, or with `fresh_state` one from a fresh serve
+    state (xlstm: its f32 state makes the served conv sum its taps in
+    f32, where the cache-free forward rounds them in bf16, so only a
+    forward from that state is the prefill's arithmetic; the cache-free
+    reading is printed).  The reading against a cache-free forward over
+    the 72 tokens alone, whose GEMMs and softmax reduce over other
+    lengths, printed too."""
     from repro_torch import obs
     from repro_torch.kernels import build
-    from repro_torch.models.registry import forward_hidden
+    from repro_torch.models.registry import forward_hidden, init_serve_caches
     from repro_torch.serve import ContinuousScheduler, Engine, ServeConfig
     vocab = arch.vocab_size
     rng = np.random.default_rng(17)
@@ -4798,10 +4869,11 @@ def griffin_eval(torch, np, arch, params, card, dev):
         obs.disable()
     n_cont = sum(len(c) for c in conts)
     if launches != {"score_tokens": n_cont}:
-        raise AssertionError(f"(c): launches {launches}, expected one "
+        raise AssertionError(f"{tag}: launches {launches}, expected one "
                              f"score_tokens a continuation ({n_cont})")
     head = params["lm_head"][:vocab].float()
-    worst = exact = 0.0
+    worst = 0.0
+    other = {"cache-free, padded": 0.0, "the 72 tokens alone": 0.0}
     with torch.no_grad():
         for prompt, cs, rid in zip(prompts, conts, rids):
             for cont, got_lp in zip(cs, results[rid]):
@@ -4809,37 +4881,60 @@ def griffin_eval(torch, np, arch, params, card, dev):
                 padded = np.zeros((128,), np.int64)
                 padded[:len(seq)] = seq
                 cid = torch.from_numpy(cont.astype(np.int64)).to(dev)
+                refs = [(padded, fresh_state), (seq, False)]
+                if fresh_state:
+                    refs.insert(1, (padded, False))
                 reads = []
-                for s in (padded, seq):
-                    h, _, _ = forward_hidden(arch, params, {
-                        "tokens": torch.from_numpy(s[None]).to(dev)})
+                for s, fresh in refs:
+                    caches = (init_serve_caches(arch, 1, 4096, device=dev)
+                              if fresh else None)
+                    h, _, _ = forward_hidden(
+                        arch, params,
+                        {"tokens": torch.from_numpy(s[None]).to(dev)},
+                        caches=caches,
+                        true_len=len(seq) if fresh else None)
                     z = h[0, len(prompt) - 1:len(seq) - 1].float() @ head.T
                     reads.append(torch.log_softmax(z, -1).gather(
                         1, cid[:, None])[:, 0].cpu().numpy())
                 if not np.all(np.isfinite(got_lp)):
-                    raise AssertionError("(c): a logp is not finite")
+                    raise AssertionError(f"{tag}: a logp is not finite")
                 worst = max(worst, float(np.abs(got_lp - reads[0]).max()))
-                exact = max(exact, float(np.abs(got_lp - reads[1]).max()))
-    print(f"[griffin] (c) eval: launches {launches} = one score_tokens a "
-          f"continuation (V {params['lm_head'].shape[0]}, d "
+                other["the 72 tokens alone"] = max(
+                    other["the 72 tokens alone"],
+                    float(np.abs(got_lp - reads[-1]).max()))
+                if fresh_state:
+                    other["cache-free, padded"] = max(
+                        other["cache-free, padded"],
+                        float(np.abs(got_lp - reads[1]).max()))
+    ref = ("a forward from a fresh serve state" if fresh_state
+           else "a cache-free forward")
+    others = "; ".join(f"{v:.3g} from a cache-free forward over "
+                       + ("the same padded tokens (bf16 conv taps)"
+                          if k.startswith("cache") else k)
+                       for k, v in other.items()
+                       if fresh_state or not k.startswith("cache"))
+    print(f"[{arch.family}] {tag} eval: launches {launches} = one "
+          f"score_tokens a continuation (V {params['lm_head'].shape[0]}, d "
           f"{arch.cfg.d_model}), no sample_topk; every logp within "
-          f"{worst:.3g} of log_softmax of a cache-free forward over the "
-          f"same padded tokens (limit {EVAL_ATOL}); {exact:.3g} from one "
-          f"over the 72 tokens alone (not gated); {sched.eval_tokens_scored}"
-          f" tokens scored in {dt:.3f}s on {card}", flush=True)
+          f"{worst:.3g} of log_softmax of {ref} over the same padded tokens "
+          f"(limit {EVAL_ATOL}); {others} (not gated); "
+          f"{sched.eval_tokens_scored} tokens scored in {dt:.3f}s on {card}",
+          flush=True)
     if not worst <= EVAL_ATOL:
-        raise AssertionError(f"(c): a logp is {worst:.3g} from the "
-                             f"cache-free forward's (limit {EVAL_ATOL})")
+        raise AssertionError(f"{tag}: a logp is {worst:.3g} from {ref}'s "
+                             f"(limit {EVAL_ATOL})")
     return launches["score_tokens"]
 
 
-def griffin_rollback_check(torch, np, arch, params, prompt, dev):
-    """(b): one 2046-token prompt (the ring wraps in the first spec step)
-    through `SelfSpecEngine` (random MTP heads: rejections every step),
-    GRIFFIN_SPEC_STEPS steps, against a plain `Engine` decoding the same
-    tokens at batch 1: the emitted tokens equal, and the whole state
-    (rings, RG-LRU h, conv tails, lens) bit for bit equal after the same
-    consumed tokens.  Returns (emitted, rejected drafts)."""
+def scan_rollback_check(torch, np, arch, params, prompt, dev,
+                        steps=GRIFFIN_SPEC_STEPS):
+    """A recurrent family's 'scan' rollback (phase 13 (b), phase 14 (c)):
+    one prompt through `SelfSpecEngine` (random MTP heads: rejections
+    every step), `steps` steps, against a plain `Engine` decoding the
+    same tokens at batch 1: the emitted tokens equal, and the whole state
+    (griffin's rings, RG-LRU h, conv tails, lens; xlstm's conv tails and
+    cells) bit for bit equal after the same consumed tokens, which an
+    aliased snapshot would break.  Returns (emitted, rejected drafts)."""
     from repro_torch.optim.tree import leaves_with_paths
     from repro_torch.serve import Engine, SelfSpecEngine, ServeConfig, \
         SpecConfig
@@ -4847,7 +4942,7 @@ def griffin_rollback_check(torch, np, arch, params, prompt, dev):
     spec = SelfSpecEngine(arch, params, sc, SpecConfig(k=2), device=dev)
     toks = [spec.prefill_into_slot(0, prompt)]
     rejected = 0
-    for _ in range(GRIFFIN_SPEC_STEPS):
+    for _ in range(steps):
         out, counts = spec.decode_step_multi()
         toks += out[0, :counts[0]].tolist()
         rejected += 2 - (int(counts[0]) - 1)
@@ -4856,7 +4951,7 @@ def griffin_rollback_check(torch, np, arch, params, prompt, dev):
     for _ in range(len(toks) - 1):
         ref.append(int(plain.decode_step()[0]))
     if toks != ref:
-        raise AssertionError(f"(b) rollback: spec tokens {toks} vs plain "
+        raise AssertionError(f"rollback: spec tokens {toks} vs plain "
                              f"{ref}")
     # the spec engine consumed prompt + toks[:-1]; so has the plain one
     # after len(toks) - 1 decode steps
@@ -4864,9 +4959,47 @@ def griffin_rollback_check(torch, np, arch, params, prompt, dev):
                                        leaves_with_paths(plain.caches))
            if not torch.equal(a, b)]
     if bad:
-        raise AssertionError(f"(b) rollback: state differs from the plain "
+        raise AssertionError(f"rollback: state differs from the plain "
                              f"engine's at {bad[:4]}")
     return len(toks), rejected
+
+
+def family_spec_run(torch, np, arch, tag, make, prompts, per_prefill,
+                    per_step, max_new=FAMILY_NEW):
+    """Serve `prompts` through the speculative engine `make()` under
+    `counted_run`: `per_prefill` `sample_topk` launches a prefill and
+    `per_step` a spec step and nothing else, every call held to its plain
+    version.  Returns (outs, sched, sample_topk launches, summary)."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    calls = []
+    undo = spy_topk(calls)
+    try:
+        _, sched, results, rids, dt, counts, _, tracer = counted_run(
+            torch, np, make, lambda s: [s.submit(p) for p in prompts],
+            build, obs, max_new=max_new)
+    finally:
+        undo()
+    outs = [np.asarray(results[r]) for r in rids]
+    counts = {key: c for key, c in counts.items() if c}
+    want = {"sample_topk": per_prefill * len(sched.admit_order)
+            + per_step * sched.decode_steps}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    err = check_topk_calls(torch, np, tag, calls, arch, False, False)
+    step_ms = [x.duration * 1e3 for x in tracer.spans
+               if x.name == "spec.step"]
+    total = sum(len(o) for o in outs)
+    line = (f"{len(prompts)} requests of {[len(p) for p in prompts]} "
+            f"tokens, {total} tokens in {dt:.3f}s: {total / dt:.1f} tok/s, "
+            f"spec step {np.median(step_ms):.2f} ms p50 ({len(step_ms)} "
+            f"steps), acceptance {sched.acceptance_rate:.4f} "
+            f"({sched.spec_accepted} of {sched.spec_drafted}), "
+            f"{sched.tokens_per_step:.3f} tokens a slot-step; sample_topk "
+            f"{counts['sample_topk']} launches = {per_prefill} a prefill + "
+            f"{per_step} a step, each held to the plain version (max |err| "
+            f"{err:.3g})")
+    return outs, sched, counts["sample_topk"], line
 
 
 def phase_griffin_spec(torch, np, arch_full, params_full, card, dev):
@@ -4890,39 +5023,11 @@ def phase_griffin_spec(torch, np, arch_full, params_full, card, dev):
                                     lambda: Engine(arch, params, sc,
                                                    device=dev), prompts)
     k = SPEC_K
-    from repro_torch import obs
-    from repro_torch.kernels import build
 
     def spec_run(tag, make, per_prefill, per_step):
-        calls = []
-        undo = spy_topk(calls)
-        try:
-            _, sched, results, rids, dt, counts, _, tracer = counted_run(
-                torch, np, make, lambda s: [s.submit(p) for p in prompts],
-                build, obs, max_new=FAMILY_NEW)
-        finally:
-            undo()
-        outs = [np.asarray(results[r]) for r in rids]
-        counts = {key: c for key, c in counts.items() if c}
-        want = {"sample_topk": per_prefill * len(sched.admit_order)
-                + per_step * sched.decode_steps}
-        if counts != want:
-            raise AssertionError(f"{tag}: launches {counts}, expected "
-                                 f"{want}")
-        launches["sample_topk"] += counts["sample_topk"]
-        err = check_topk_calls(torch, np, tag, calls, arch, False, False)
-        step_ms = [x.duration * 1e3 for x in tracer.spans
-                   if x.name == "spec.step"]
-        total = sum(len(o) for o in outs)
-        line = (f"{len(prompts)} requests of {lens} tokens, {total} tokens "
-                f"in {dt:.3f}s: {total / dt:.1f} tok/s, spec step "
-                f"{np.median(step_ms):.2f} ms p50 ({len(step_ms)} steps), "
-                f"acceptance {sched.acceptance_rate:.4f} "
-                f"({sched.spec_accepted} of {sched.spec_drafted}), "
-                f"{sched.tokens_per_step:.3f} tokens a slot-step; "
-                f"sample_topk {counts['sample_topk']} launches = "
-                f"{per_prefill} a prefill + {per_step} a step, each held to "
-                f"the plain version (max |err| {err:.3g})")
+        outs, sched, n, line = family_spec_run(
+            torch, np, arch, tag, make, prompts, per_prefill, per_step)
+        launches["sample_topk"] += n
         return outs, sched, line
 
     # the sidecar engine, draft = target
@@ -4955,7 +5060,7 @@ def phase_griffin_spec(torch, np, arch_full, params_full, card, dev):
     if not worst <= GRIFFIN_TOL:
         raise AssertionError(f"(b) SelfSpecEngine: a served token trails "
                              f"by {worst:.3g} > {GRIFFIN_TOL}")
-    n_tok, rejected = griffin_rollback_check(
+    n_tok, rejected = scan_rollback_check(
         torch, np, arch_m, params_m,
         rng.integers(1, arch.vocab_size, 2046).astype(np.int32), dev)
     print(f"[griffin] (b) rollback: one 2046-token prompt, "
@@ -5146,6 +5251,568 @@ def phase_griffin(torch, np, card, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: xlstm (xlstm-125m) at full width and full depth
+# ---------------------------------------------------------------------------
+
+XLSTM_ID = "xlstm-125m"
+XLSTM_NEW = 32                    # (a)'s new tokens a request
+XLSTM_SLOT_BYTES = 14432352       # 6 pairs of f32 state, whatever the context
+# The reference's fan-in quirk (`dense_init` takes shape[0]) draws the
+# sLSTM recurrent matrices ri / rf / rz / ro (nh, hd, hd) = (4, 192, 192)
+# at std 1/sqrt(nh) = 1/2 where their contraction runs over hd: the
+# recurrent gate inputs then reach ~7x |h|, and the cell is chaotic.  Two
+# roundings of one sequence part for good over a long one ((g) prints it
+# on the card against the CPU at 16 and at 2048 tokens), so no comparison
+# of two arithmetic paths over a long sequence means anything at that
+# init; and its backward grows without bound: the gradient of a block's
+# last output by its first input gains orders of magnitude over 1024
+# tokens ((f) prints it), and over 2048 it overflows f32, so every
+# gradient before the last sLSTM is inf or NaN.  So (a)-(g) draw those
+# four matrices at std 1/sqrt(hd) (the reference's draw rescaled by
+# sqrt(nh / hd), `contract_slstm`): the same code on random weights whose
+# recurrence forgets a rounding and a gradient.
+# (a)-(c): a served greedy token's logit against the best one of a
+# cache-free forward over its request.  By design the two round apart:
+# the served state is f32 (the reference's), so a served conv sums its
+# taps in f32 and rounds once where the cache-free forward rounds tap by
+# tap in bf16, decode steps the mLSTM where the cache-free forward runs
+# it chunkwise, and both round bf16 activations through 12 blocks; two
+# cache-free forwards that differ only in their row count give the floor
+# of the GEMMs' share (printed).  The seeded head's logits have std
+# ~0.12 (fan-in V: std 1/sqrt(50304) times sqrt(768)); a stale state or
+# a wrong slot gives another context, whose served token trails the best
+# one by ~0.3-0.5 (a random token against the best of 50304).
+XLSTM_TOL = 2e-2
+# (b): a 37-token prompt bucketed (64, pads masked) against its exact
+# length: the carried states need not be equal (the chunks cut
+# elsewhere, and every GEMM of the two prefills runs at another row
+# count), but on the H100 they read 6.7e-8 apart (relative Frobenius, a
+# leaf), while a pad step let into the state adds a whole token's input
+# to C: each leaf within 1e-3.  The card's padded state against the CPU
+# port's padded state from the same weights: the same arithmetic, its
+# bf16 GEMMs summed in another order through 12 blocks (1.4e-2 read on
+# the H100), within 2e-2 a leaf
+XLSTM_PAD_FRO = 1e-3
+XLSTM_CARD_CPU_FRO = 2e-2
+# (g): one full-width block on the card against the CPU from the same
+# bf16 input and weights: the outputs within 2^-6 of the CPU's largest
+# entry (bf16 GEMM outputs after f32 sums in another order, as phase 13
+# (f)); the f32 state within a relative Frobenius error of 2e-2 a leaf
+XLSTM_BLOCK_ATOL = 2.0 ** -6
+XLSTM_STATE_FRO = 2e-2
+
+
+def contract_slstm(torch, arch, tree):
+    """Rescale the sLSTM recurrent matrices of `tree` (a params tree with
+    ``pairs``, or one sLSTM block's params) in place from the reference's
+    std 1/sqrt(nh) to 1/sqrt(hd) (the comment above XLSTM_TOL)."""
+    import math
+    cfg = arch.cfg
+    f = math.sqrt(cfg.num_heads / (cfg.d_model // cfg.num_heads))
+    blocks = ([pair["slstm"] for pair in tree["pairs"]] if "pairs" in tree
+              else [tree])
+    with torch.no_grad():
+        for blk in blocks:
+            for name in ("ri", "rf", "rz", "ro"):
+                blk[name].mul_(f)
+    return tree
+
+
+def xlstm_prompts(np, vocab):
+    """(a)'s traffic: six prompts of 5-60 tokens (buckets 8-64, pads
+    masked), one of 300 (bucket 512: two mLSTM chunks of 256, the second
+    partly pads) and one of 3000 (bucket 4096: 16 chunks, four of them
+    only pads)."""
+    rng = np.random.default_rng(14)
+    lens = [5] + list(rng.integers(6, 61, 5)) + [300, 3000]
+    return [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def tree_to(tree, dev):
+    """A nested dict / list tree of tensors moved to `dev`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def state_fro(torch, got, want):
+    """Largest relative Frobenius error over the leaves of two state trees,
+    their -inf entries required in the same places (and left out)."""
+    from repro_torch.optim.tree import leaves_with_paths
+    worst = 0.0
+    want = dict(leaves_with_paths(want))
+    for path, g in leaves_with_paths(got):
+        g, w = g.float().cpu(), want[path].float().cpu()
+        fin = torch.isfinite(w)
+        if not torch.equal(fin, torch.isfinite(g)):
+            raise AssertionError(f"state leaf {path}: -inf in other places")
+        den = float(w[fin].norm())
+        num = float((g[fin] - w[fin]).norm())
+        worst = max(worst, num / den if den else num)
+    return worst
+
+
+def slot_bytes(torch, caches, slot):
+    from repro_torch.models.registry import take_slot_caches
+    from repro_torch.optim.tree import leaves
+    st = leaves(take_slot_caches(caches, slot))
+    if {t.dtype for t in st} != {torch.float32}:
+        raise AssertionError(f"slot {slot}: state dtypes "
+                             f"{ {t.dtype for t in st} }, want f32 only")
+    return state_bytes(st)
+
+
+def phase_xlstm_serve(torch, np, card, dev):
+    """Phase 14 (a), (b), (e), (d): xlstm-125m at full depth (12 blocks);
+    returns (launches, arch, params, prompts) for (c)."""
+    from repro_torch.kernels.sample_topk import cuda_topk
+    from repro_torch.models.registry import (forward_hidden, get_arch,
+                                             init_params, init_serve_caches)
+    from repro_torch.optim.tree import leaves
+    from repro_torch.serve import Engine, PagedEngine, ServeConfig
+    arch = get_arch(XLSTM_ID)
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = contract_slstm(torch, arch, init_params(
+        arch, torch.Generator(device=dev).manual_seed(14), dev))
+    gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    sc = ServeConfig(batch_size=8, max_len=4096)
+    prompts = xlstm_prompts(np, arch.vocab_size)
+    Engine(arch, params, sc, device=dev).generate([prompts[0]], 2)
+    torch.cuda.synchronize()
+    print(f"[xlstm] (a) set-up {time.perf_counter() - t0:.1f}s: {XLSTM_ID} "
+          f"{cfg.n_layers} blocks ({cfg.n_layers // 2} sLSTM + mLSTM pairs) "
+          f"d={cfg.d_model}, {cfg.num_heads} heads (mLSTM head dim "
+          f"{cfg.head_dim_m}), chunk {cfg.chunk}, vocab {arch.vocab_size} "
+          f"(head {params['lm_head'].shape[0]} rows), {gb:.3f} GB of bf16 "
+          f"params, the sLSTM recurrent matrices at std 1/sqrt(hd) "
+          f"(contract_slstm); Engine batch 8; prompts of "
+          f"{[len(p) for p in prompts]} tokens, {XLSTM_NEW} new", flush=True)
+    launches = {"sample_topk": 0, "score_tokens": 0}
+
+    def served(tag, make_engine):
+        calls = []
+        undo = spy_topk(calls)
+        try:
+            outs, sched, counts, dt, steps, peak = family_run(
+                torch, np, arch, make_engine, prompts, max_new=XLSTM_NEW)
+        finally:
+            undo()
+        check_serve_launches(tag, sched, counts)
+        launches["sample_topk"] += counts["sample_topk"]
+        err = check_topk_calls(torch, np, tag, calls, arch, False, False)
+        del calls
+        return outs, sched, dt, steps, peak, err
+
+    # (a) the slab Engine
+    outs, sched, dt, steps, peak, err = served(
+        "(a)", lambda: Engine(arch, params, sc, device=dev))
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev)
+    print(f"[xlstm] (a) sample_topk launches {len(sched.admit_order)} "
+          f"prefills + {sched.decode_steps} steps = one a prefill and a "
+          f"step, each held to the plain version (max |err| {err:.3g}); "
+          f"served tokens {agree.mean():.3f} of {agree.size} equal to a "
+          f"cache-free forward's (chunkwise mLSTM over the whole sequence, "
+          f"bf16 conv taps), trailing its best logit by at most "
+          f"{worst:.3g} (limit {XLSTM_TOL}; rounding floor, two cache-free "
+          f"forwards 64 rows apart: {floor:.3g})", flush=True)
+    print(family_serve_line(np, "(a)", outs, dt, steps, peak,
+                            card).replace("[family]", "[xlstm]"), flush=True)
+    if not worst <= XLSTM_TOL:
+        raise AssertionError(f"(a): a served token trails the cache-free "
+                             f"forward's best logit by {worst:.3g} > "
+                             f"{XLSTM_TOL}")
+    # the state's bytes a slot after the 3000-token prompt and the 5-token
+    # one, and the 3000-token prefill's time
+    eng = Engine(arch, params, ServeConfig(batch_size=2, max_len=4096),
+                 device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill_into_slot(0, prompts[-1])
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) * 1e3
+    eng.prefill_into_slot(1, prompts[0])
+    sizes = [slot_bytes(torch, eng.caches, s) for s in (0, 1)]
+    print(f"[xlstm] (a) {len(prompts[-1])}-token prefill (bucket 4096, 16 "
+          f"mLSTM chunks, 3000 sLSTM steps a block) {long_ms:.1f} ms; slot "
+          f"state {sizes[0]} B after it and {sizes[1]} B after the "
+          f"{len(prompts[0])}-token prompt, f32 (limit {XLSTM_SLOT_BYTES})",
+          flush=True)
+    if sizes != [XLSTM_SLOT_BYTES] * 2:
+        raise AssertionError(f"(a) slot bytes {sizes}")
+    del eng
+
+    # (b) the 37-token prompt bucketed (64) and at its exact length, and
+    # the padded state on the card against the CPU port's
+    p37 = np.random.default_rng(37).integers(
+        1, arch.vocab_size, 37).astype(np.int32)
+    eng = Engine(arch, params, ServeConfig(batch_size=1, max_len=4096),
+                 device=dev)
+    tok_b = eng.prefill_into_slot(0, p37)
+    with torch.no_grad():
+        st = init_serve_caches(arch, 1, 4096, device=dev)
+        h, _, st_e = forward_hidden(
+            arch, params, {"tokens": torch.as_tensor(
+                p37[None], device=dev).long()}, caches=st, true_len=37)
+        _, tok_e = cuda_topk(h[:, -1].contiguous(), params["lm_head"], 1,
+                             valid_vocab=arch.vocab_size)
+        tok_e = int(tok_e[0, 0])
+        pad_fro = state_fro(torch, eng.caches, st_e)
+        cpu = torch.device("cpu")
+        padded = np.zeros((1, 64), np.int64)
+        padded[0, :37] = p37
+        t1 = time.perf_counter()
+        _, _, st_cpu = forward_hidden(
+            arch, tree_to(params, cpu), {"tokens": torch.from_numpy(
+                padded)}, caches=init_serve_caches(arch, 1, 4096),
+            true_len=37)
+        t_cpu = time.perf_counter() - t1
+        cc_fro = state_fro(torch, eng.caches, st_cpu)
+    print(f"[xlstm] (b) 37-token prompt, bucketed (64) vs exact-length "
+          f"prefill: first token {tok_b} vs {tok_e}; carried states differ "
+          f"by a relative Frobenius error of up to {pad_fro:.3g} a leaf "
+          f"(limit {XLSTM_PAD_FRO}; equal arithmetic is not promised: the "
+          f"chunks cut elsewhere and the GEMMs run at other row counts); "
+          f"the card's "
+          f"padded state against the CPU port's padded run ({t_cpu:.1f}s): "
+          f"{cc_fro:.3g} (limit {XLSTM_CARD_CPU_FRO})", flush=True)
+    if tok_b != tok_e or not pad_fro <= XLSTM_PAD_FRO \
+            or not cc_fro <= XLSTM_CARD_CPU_FRO:
+        raise AssertionError(f"(b): tokens {tok_b} / {tok_e}, bucketed vs "
+                             f"exact {pad_fro:.3g}, card vs CPU "
+                             f"{cc_fro:.3g}")
+    del eng, st, st_e, st_cpu, h
+
+    # (e) PagedEngine: nothing pageable, the slab engine bit for bit
+    from repro_torch.kernels.paged_attn import LAUNCHES as PAGED_LAUNCHES
+    psc = ServeConfig(batch_size=8, max_len=4096, paged=True, block_size=16)
+    peng = []
+
+    def make_paged():
+        peng.append(PagedEngine(arch, params, psc, device=dev))
+        return peng[-1]
+
+    paged_before = PAGED_LAUNCHES.count
+    e_outs, e_sched, _, _, _, e_err = served("(e)", make_paged)
+    paged_n = PAGED_LAUNCHES.count - paged_before
+    same = all(np.array_equal(x, y) for x, y in zip(outs, e_outs))
+    stats = peng[0].paged_stats()
+    print(f"[xlstm] (e) PagedEngine block 16: paged_stats {stats}; "
+          f"launches: sample_topk {len(e_sched.admit_order)} prefills + "
+          f"{e_sched.decode_steps} steps (max |err| {e_err:.3g}), paged_attn "
+          f"{paged_n}; tokens {'bit for bit' if same else 'NOT'} equal to "
+          f"(a)'s", flush=True)
+    if not same or stats != {"enabled": False} or paged_n:
+        raise AssertionError(f"(e): tokens equal {same}, stats {stats}, "
+                             f"paged_attn launches {paged_n}")
+    del peng
+
+    # (d) eval: score_tokens at V 50432
+    launches["score_tokens"] += recurrent_eval(torch, np, arch, params, card,
+                                               dev, "(d)", fresh_state=True)
+    return launches, arch, params, prompts, outs
+
+
+def phase_xlstm_spec(torch, np, arch, params, prompts, card, dev):
+    """Phase 14 (c): the 'scan' rollback at full depth, on (a)'s prompts
+    but its 3000-token one."""
+    from repro_torch.configs.base import with_mtp
+    from repro_torch.models.mtp import init_heads
+    from repro_torch.serve import (Engine, SelfSpecEngine, ServeConfig,
+                                   SpecConfig, SpecEngine)
+    sc = ServeConfig(batch_size=8, max_len=4096)
+    prompts = prompts[:-1]
+    plain, *_ = family_run(torch, np, arch,
+                           lambda: Engine(arch, params, sc, device=dev),
+                           prompts)
+    k = SPEC_K
+    outs, sched, n_spec, line = family_spec_run(
+        torch, np, arch, "(c) SpecEngine",
+        lambda: SpecEngine(arch, params, sc, arch, params, SpecConfig(k=k),
+                           device=dev), prompts, 2, k + 1)
+    same = all(np.array_equal(x, y) for x, y in zip(outs, plain))
+    print(f"[xlstm] (c) SpecEngine k {k}, draft = target: {line}; tokens "
+          f"{'bit for bit' if same else 'NOT'} the plain engine's on {card}",
+          flush=True)
+    if not same or sched.acceptance_rate < 0.9:
+        raise AssertionError(f"(c) SpecEngine: tokens equal {same}, "
+                             f"acceptance {sched.acceptance_rate}")
+    arch_m = with_mtp(arch, 2)
+    params_m = dict(params, mtp=init_heads(
+        torch.Generator(device=dev).manual_seed(20), arch.cfg.d_model,
+        arch_m.mtp, dtype=getattr(torch, arch.cfg.param_dtype), device=dev))
+    outs, sched, n_self, line = family_spec_run(
+        torch, np, arch_m, "(c) SelfSpecEngine",
+        lambda: SelfSpecEngine(arch_m, params_m, sc, SpecConfig(k=2),
+                               device=dev), prompts, 2, 2)
+    worst, agree, floor = family_deficits(torch, np, arch, params, prompts,
+                                          outs, dev)
+    print(f"[xlstm] (c) SelfSpecEngine 2 MTP heads, k 2: {line}; served "
+          f"tokens {agree.mean():.3f} of {agree.size} equal to a cache-free "
+          f"forward's, trailing its best logit by at most {worst:.3g} "
+          f"(limit {XLSTM_TOL}; floor {floor:.3g}) on {card}", flush=True)
+    if not worst <= XLSTM_TOL:
+        raise AssertionError(f"(c) SelfSpecEngine: a served token trails "
+                             f"by {worst:.3g} > {XLSTM_TOL}")
+    n_tok, rejected = scan_rollback_check(torch, np, arch_m, params_m,
+                                          prompts[-1], dev, steps=8)
+    print(f"[xlstm] (c) rollback: the {len(prompts[-1])}-token prompt, 8 "
+          f"self-spec steps ({rejected} drafts rejected): {n_tok} tokens "
+          f"equal to the plain engine's, and every state leaf (conv tails, "
+          f"sLSTM h / c / n / m, mLSTM C / n / m) bit for bit the plain "
+          f"engine's after the same tokens", flush=True)
+    if not rejected:
+        raise AssertionError("(c) rollback: no draft was rejected")
+    return {"sample_topk": n_spec + n_self}
+
+
+def xlstm_blocks_card_vs_cpu(torch, np, arch, dev, t=2048, t_pre=300,
+                             bucket=512, steps=4):
+    """Phase 14 (g): at full width, from the same seeded bf16 input and
+    weights (the sLSTM's recurrent matrices at std 1/sqrt(hd),
+    `contract_slstm`), on the card and on the CPU: one sLSTM block and
+    one mLSTM block over `t` tokens, cache-free, and one pair (sLSTM,
+    mLSTM) over a bucketed `t_pre`-token prefill (`bucket` steps, the
+    pads masked: the mLSTM's second chunk is mostly pads) from the f32
+    serve state, followed by `steps` decode steps (the step-by-step
+    mLSTM).  Also read, not gated: the sLSTM block at the reference's
+    init (std 1/2), card against CPU, at its first 16 tokens and over
+    all `t` (the chaos of the comment above XLSTM_TOL).  Returns the
+    readings; raises past the limits."""
+    from repro_torch.models import xlstm
+    cfg = arch.cfg
+    gen = torch.Generator(device=dev).manual_seed(22)
+    s_ref = xlstm.init_slstm_block(cfg, gen, torch.bfloat16, dev)
+    s_p = contract_slstm(torch, arch, dict(s_ref, **{
+        n: s_ref[n].clone() for n in ("ri", "rf", "rz", "ro")}))
+    m_p = xlstm.init_mlstm_block(cfg, gen, torch.bfloat16, dev)
+    x = torch.randn((1, t, cfg.d_model), generator=gen, device=dev
+                    ).bfloat16()
+    cpu = torch.device("cpu")
+
+    def run(d):
+        sp, mp, xd = tree_to(s_p, d), tree_to(m_p, d), x.to(d)
+        out = {}
+        with torch.no_grad():
+            out["slstm_ref_init"], _ = xlstm.apply_slstm_block(
+                tree_to(s_ref, d), xd, cfg)
+            out["slstm"], _ = xlstm.apply_slstm_block(sp, xd, cfg)
+            out["mlstm"], _ = xlstm.apply_mlstm_block(mp, xd, cfg)
+            st = xlstm.init_states(cfg, 1, device=d)[0]
+            y, s_st = xlstm.apply_slstm_block(sp, xd[:, :bucket], cfg,
+                                              st["slstm"], true_len=t_pre)
+            y, m_st = xlstm.apply_mlstm_block(mp, y, cfg, st["mlstm"],
+                                              true_len=t_pre)
+            ys = [y[:, :t_pre]]
+            for i in range(steps):
+                xi = xd[:, t_pre + i:t_pre + i + 1]
+                y, s_st = xlstm.apply_slstm_block(sp, xi, cfg, s_st)
+                y, m_st = xlstm.apply_mlstm_block(mp, y, cfg, m_st)
+                ys.append(y)
+            out["pair_out"] = torch.cat(ys, dim=1)
+            out["state"] = {"slstm": s_st, "mlstm": m_st}
+        return tree_to(out, cpu)
+
+    t0 = time.perf_counter()
+    card_out = run(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_out = run(cpu)
+    r = {"card_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
+    for key in ("slstm", "mlstm", "pair_out"):
+        got, want = card_out[key].float(), cpu_out[key].float()
+        r[key] = float((got - want).abs().max() / want.abs().max())
+        if not r[key] <= XLSTM_BLOCK_ATOL:
+            raise AssertionError(f"(g) {key}: card vs CPU max |err| "
+                                 f"{r[key]:.3g} of the largest entry > "
+                                 f"{XLSTM_BLOCK_ATOL:.3g}")
+    got, want = card_out["slstm_ref_init"].float(), \
+        cpu_out["slstm_ref_init"].float()
+    r["ref_init_16"] = float((got - want)[:, :16].abs().max()
+                             / want[:, :16].abs().max())
+    r["ref_init_all"] = float((got - want).abs().max() / want.abs().max())
+    r["state_fro"] = state_fro(torch, card_out["state"], cpu_out["state"])
+    if not r["state_fro"] <= XLSTM_STATE_FRO:
+        raise AssertionError(f"(g) state: card vs CPU rel fro "
+                             f"{r['state_fro']:.3g} > {XLSTM_STATE_FRO}")
+    return r
+
+
+def slstm_grad_growth(torch, arch, dev, t=1024):
+    """|d y_t / d x_0|, the largest entry, of one full-width sLSTM block
+    (bf16 weights, f32 input) over `t` tokens at the reference's init and
+    under `contract_slstm`, at t 32 and at `t`; not gated."""
+    from repro_torch.models import xlstm
+    cfg = arch.cfg
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ref = xlstm.init_slstm_block(cfg, gen, torch.float32, dev)
+    x = torch.randn((1, t, cfg.d_model), generator=gen, device=dev)
+    out = {}
+    for name, p in (("reference", ref), ("contracted", contract_slstm(
+            torch, arch, dict(ref, **{n: ref[n].clone() for n in (
+                "ri", "rf", "rz", "ro")})))):
+        for n in (32, t):
+            xi = x[:, :n].clone().requires_grad_(True)
+            y, _ = xlstm.apply_slstm_block(p, xi, cfg)
+            (g,) = torch.autograd.grad(y[:, -1].sum(), [xi])
+            out[(name, n)] = float(g[0, 0].abs().max())
+    return out
+
+
+def phase_xlstm_train(torch, np, card, dev):
+    """Phase 14 (f): xlstm-125m at full width and depth, AdamW, the kernel
+    loss, batch 4 x 2048 (8 mLSTM chunks), 3 steps, the sLSTM recurrent
+    matrices at std 1/sqrt(hd) (`contract_slstm`; the reference's init
+    explodes, `slstm_grad_growth`, printed first); and one sLSTM block
+    against one mLSTM block over that batch, CUDA events."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import TrainConfig, build_loss_fn
+    arch = get_arch(XLSTM_ID)
+    steps, b, t = 3, 4, 2048
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
+                     loss_impl="kernel", loss_block_v=2048)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=t,
+                                  global_batch=b, seed=0))
+    grow = slstm_grad_growth(torch, arch, dev)
+    print(f"[xlstm] (f) one sLSTM block's |d y_t / d x_0| (largest entry) "
+          f"at t 32 / 1024: the reference's init {grow[('reference', 32)]:.3g}"
+          f" / {grow[('reference', 1024)]:.3g}, contracted "
+          f"{grow[('contracted', 32)]:.3g} / {grow[('contracted', 1024)]:.3g}"
+          f" (not gated; f32 overflows at 3.4e38)", flush=True)
+    t0 = time.perf_counter()
+    params = contract_slstm(torch, arch, init_params(
+        arch, torch.Generator(device=dev).manual_seed(0), dev))
+    ps = [p.requires_grad_(True) for p in leaves(params)]
+    head = params["lm_head"]
+    torch.cuda.synchronize()
+    print(f"[xlstm] (f) set-up {time.perf_counter() - t0:.1f}s: {XLSTM_ID} "
+          f"{arch.cfg.n_layers} blocks at full width (contract_slstm), "
+          f"AdamW, loss_impl kernel, batch {b} x {t}", flush=True)
+    batch0 = to_device(data.batch(0), dev)
+    hi = next(i for i, p in enumerate(ps) if p is head)
+    grads = []
+    undo = spy_ce_grads(grads)
+    try:
+        loss_fn = build_loss_fn(arch, TrainConfig(
+            loss_impl="kernel", loss_block_v=tc.loss_block_v))
+        loss, _ = loss_fn(params, batch0)
+        all_g = torch.autograd.grad(loss, ps)
+        lk, gk = float(loss.detach()), all_g[hi]
+        nan = [i for i, g in enumerate(all_g)
+               if not bool(torch.isfinite(g).all())]
+        del all_g
+        loss_fn = build_loss_fn(arch, TrainConfig(
+            loss_impl="canonical", loss_block_v=tc.loss_block_v))
+        loss, _ = loss_fn(params, batch0)
+        (gc_,) = torch.autograd.grad(loss, [head])
+        lc = float(loss.detach())
+    finally:
+        undo()
+    if nan:
+        raise AssertionError(f"(f) step 0: gradients of leaves {nan} not "
+                             "finite")
+    grad_errs = check_ce_grads(torch, "(f) step 0", grads)
+    del grads
+    loss_err = abs(lk - lc) / abs(lc)
+    head_fro = float((gk.float() - gc_.float()).norm() / gc_.float().norm())
+    del gk, gc_, loss
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_fro <= TRAIN_HEAD_FRO):
+        raise AssertionError(f"(f) step 0: kernel loss {lk} vs canonical "
+                             f"{lc} (rel {loss_err:.3g}), lm_head grad rel "
+                             f"fro {head_fro:.3g}")
+    print(f"[xlstm] (f) step 0, kernels vs canonical loss: {lk:.6f} vs "
+          f"{lc:.6f} (rel {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}), bf16 "
+          f"lm_head grad rel fro {head_fro:.3g} (limit {TRAIN_HEAD_FRO}); "
+          f"every gradient finite; the backward at its own shape, each "
+          "launch against its plain version on the same inputs: "
+          + "; ".join(f"{name} (n {n}, V {v}, d {d}) max |err| {err:.3g}, "
+                      f"rel fro {fro:.3g} (limit {CE_GRAD_FRO})"
+                      for name, n, v, d, err, fro in grad_errs), flush=True)
+    # one block of each kind over the training batch, forward only
+    cfg = arch.cfg
+    p0 = params["pairs"][0]
+    with torch.no_grad():
+        x = torch.randn((b, t, cfg.d_model), device=dev).to(
+            getattr(torch, cfg.compute_dtype))
+        s_ms = cuda_ms(torch, lambda: xlstm.apply_slstm_block(
+            p0["slstm"], x, cfg), iters=3, warmup=1)
+        m_ms = cuda_ms(torch, lambda: xlstm.apply_mlstm_block(
+            p0["mlstm"], x, cfg), iters=3, warmup=1)
+    del params, ps, head, x, p0
+    torch.cuda.empty_cache()
+    print(f"[xlstm] (f) one block over {b} x {t} tokens, forward, CUDA "
+          f"events: sLSTM {s_ms:.1f} ms ({t} sequential steps), mLSTM "
+          f"{m_ms:.1f} ms ({t // cfg.chunk} chunks): the sLSTM's share of a "
+          f"pair {s_ms / (s_ms + m_ms):.3f} on {card}", flush=True)
+    state, history, counts, spans, peak = train_run(
+        torch, np, build, tc, arch, dev, data, steps,
+        prepare=lambda p: contract_slstm(torch, arch, p))
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+            "fused_ce_dw": steps}
+    counts = {k_: c for k_, c in counts.items() if c}
+    if counts != want:
+        raise AssertionError(f"(f) launches {counts}, expected {want}")
+    if not all(np.isfinite(m["grad_norm"]) for _, m in history):
+        raise AssertionError(f"(f) grad norms "
+                             f"{[m['grad_norm'] for _, m in history]}")
+    opt_gb = state_bytes(opt_tensors(state["opt"])) / 1e9
+    p50 = float(np.median(spans))
+    print(f"[xlstm] (f) {steps} steps, loss "
+          + " ".join(f"{m['loss']:.4f}" for _, m in history)
+          + ", grad norm " + " ".join(f"{m['grad_norm']:.4f}"
+                                      for _, m in history)
+          + f"; launches {counts} = one of each a step; step {p50:.1f} ms "
+          f"p50 over steps 1-{steps - 1}, {b * t / (p50 / 1e3):.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB, AdamW state {opt_gb:.3f} "
+          f"GB on {card}", flush=True)
+    del state
+    return counts
+
+
+def phase_xlstm(torch, np, card, dev):
+    """Phase 14, last: (a), (b), (e), (d) and (c) on the full-depth model,
+    then (g) and (f).  Returns the launches by kernel."""
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    counts, arch, params, prompts, _ = phase_xlstm_serve(torch, np, card,
+                                                         dev)
+    add(counts)
+    add(phase_xlstm_spec(torch, np, arch, params, prompts, card, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = xlstm_blocks_card_vs_cpu(torch, np, arch, dev)
+    print(f"[xlstm] (g) one full-width block, card vs CPU from the same "
+          f"bf16 input and weights: sLSTM over 2048 tokens max |err| "
+          f"{r['slstm']:.3g} of the largest entry, mLSTM {r['mlstm']:.3g}; "
+          f"a pair over a bucketed 300-token prefill (512) + 4 decode steps "
+          f"{r['pair_out']:.3g} (limit {XLSTM_BLOCK_ATOL:.3g} each), its "
+          f"state rel fro {r['state_fro']:.3g} a leaf (limit "
+          f"{XLSTM_STATE_FRO}); card {r['card_s']:.1f}s, CPU "
+          f"{r['cpu_s']:.1f}s; not gated, the sLSTM block at the "
+          f"reference's init (recurrent std 1/2): {r['ref_init_16']:.3g} "
+          f"over its first 16 tokens, {r['ref_init_all']:.3g} over 2048 "
+          f"(chaotic: two roundings part for good)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(phase_xlstm_train(torch, np, card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5210,7 +5877,11 @@ def main():
     family = phase_family(torch, np, card, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    griffin = phase_griffin(torch, np, card, dev)
+    recurrent = phase_griffin(torch, np, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_xlstm(torch, np, card, dev).items():
+        recurrent[key] = recurrent.get(key, 0) + n      # phases 13 and 14
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -5219,7 +5890,7 @@ def main():
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
         "launches": (launches + spec_topk + modes["sample_topk"]  # 3, 6, 10
                      + family["sample_topk"]                      # 12
-                     + griffin.get("sample_topk", 0)),            # and 13
+                     + recurrent.get("sample_topk", 0)),            # 13, 14
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -5245,7 +5916,7 @@ def main():
             "name": name, "route": "cuda", "source": ce_source,
             "replaces": f"src/repro/kernels/fused_ce/kernel.py:{line}",
             "launches": (train_launches[name] + family[name]    # 4, 12
-                         + griffin.get(name, 0)),                # and 13
+                         + recurrent.get(name, 0)),                # 13, 14
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -5287,7 +5958,7 @@ def main():
         "name": "score_tokens", "route": "cuda",
         "source": "src/repro_torch/kernels/score_tokens/csrc/score_tokens.cu",
         "replaces": "src/repro/kernels/score_tokens/kernel.py:54",
-        "launches": score_launches + griffin.get("score_tokens", 0),
+        "launches": score_launches + recurrent.get("score_tokens", 0),
         "max_abs_err": max(c["max_abs_err"] for c in score.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -1,3 +1,4 @@
-"""Architecture configs of the port (transformer family)."""
+"""Architecture configs of the port (the transformer, griffin and xlstm
+families)."""
 
 from repro_torch.configs.base import Arch, MTPConfig, with_mtp

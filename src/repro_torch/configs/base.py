@@ -53,7 +53,7 @@ class Arch:
     """One selectable architecture (--arch <id>)."""
 
     arch_id: str
-    family: str                   # transformer | griffin (the ported)
+    family: str                   # transformer | griffin | xlstm
     cfg: Any                      # family config dataclass
     tags: tuple = ()
     vocab_pad_multiple: int = 256  # lm_head rows padded to this multiple

@@ -1,5 +1,5 @@
 """Model API + the --arch registry (port of `repro.models.registry`): the
-transformer family (dense, MoE, frontend stub) and griffin.
+transformer family (dense, MoE, frontend stub), griffin and xlstm.
 
 The registry pads the lm_head to `arch.padded_vocab` rows; the pad rows
 are masked by ``valid_vocab`` in every sampler.  The serve cache of the
@@ -8,10 +8,11 @@ transformer family is the stacked slab tree
 ``{'kp', 'vp': (L, N, bs, nkv, hd), 'table': (L, B, nb), 'len': (L, B)}``.
 An int8 cache adds the per-(token, head) f32 scale leaves
 ``k_scale`` / ``v_scale`` beside k / v, or the scale pools ``kp_scale`` /
-``vp_scale`` beside the pools, wherever those go.  Griffin's is a nested
-tree of per-block states (`models.griffin`: recurrent ``conv`` / ``h``
-leaves and local-attention ring buffers) whose leaves all have their
-batch axis first.
+``vp_scale`` beside the pools, wherever those go.  The recurrent
+families' is a nested tree of per-block states whose leaves all have
+their batch axis first: griffin's recurrent ``conv`` / ``h`` leaves and
+local-attention ring buffers (`models.griffin`), xlstm's per-pair conv
+tails and cell states, f32 whatever the engine's dtype (`models.xlstm`).
 
 The per-slot surgery below walks dicts and lists and finds each leaf's
 batch axis from the tree's layout: 1 under a layer-stacked dict (one
@@ -29,7 +30,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import Arch
-from repro_torch.models import griffin, transformer
+from repro_torch.models import griffin, transformer, xlstm
 from repro_torch.optim.tree import leaves
 
 _CONFIG_MODULES = {
@@ -41,21 +42,21 @@ _CONFIG_MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "paper-lm": "repro_torch.configs.paper_lm",
 }
 
 # the JAX package's other config ids, by family, and the part of ROADMAP
 # A8 that ports each family
 _LATER = {
-    "xlstm-125m": ("xlstm", 3),
     "seamless-m4t-medium": ("encdec", 4),
 }
 
-# families whose trunks take the MTP heads (the reference adds xlstm,
-# which comes with ROADMAP A8 part 3)
-MTP_FAMILIES = ("transformer", "griffin")
+# families whose trunks take the MTP heads
+MTP_FAMILIES = ("transformer", "griffin", "xlstm")
 
-_FAMILY_MODS = {"transformer": transformer, "griffin": griffin}
+_FAMILY_MODS = {"transformer": transformer, "griffin": griffin,
+                "xlstm": xlstm}
 
 _STACKED_BATCH_AXIS = 1          # (L, B, ...) under a layer-stacked dict
 # paged pools, values and scales: no batch axis, shared
@@ -127,8 +128,8 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
     ``decode``) is the paged engine's suffix-only prefill after a prefix
     hit.  ``true_len`` (a serving prefill's host int): positions at or
     past it are bucket pads — the attention caches need no masking (pad
-    entries are dead past the shifted length), griffin's recurrent state
-    and ring buffers gate the pad steps into no-ops.
+    entries are dead past the shifted length), the recurrent families'
+    state (and griffin's ring buffers) gate the pad steps into no-ops.
     ``return_heads=True`` (needs ``arch.mtp.n_heads > 0``) returns the
     4-tuple (hidden, head_hidden (B, T, n, d), aux_loss, new_caches): the
     training path applies the fused CE to every horizon from this one
@@ -170,13 +171,17 @@ def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cpu",
                       quantize: bool = False, paged=None):
     """Fresh caches for `batch_size` slots: the transformer's slab, or its
-    paged form with `paged` (a `serve.kvpool.PagedConfig`); griffin's
-    state tree, which has nothing pageable or quantizable (the engines
-    refuse ``quantize_cache`` for it), so `paged` leaves it as it is."""
+    paged form with `paged` (a `serve.kvpool.PagedConfig`); a recurrent
+    family's state tree, which has nothing pageable or quantizable (the
+    engines refuse ``quantize_cache`` for it), so `paged` leaves it as it
+    is.  xlstm's state is f32 whatever `dtype` asks for, as the
+    reference's (its ``init_states`` takes no dtype there)."""
     mod = _family_mod(arch)
     if arch.family == "transformer":
         return mod.init_caches(arch.cfg, batch_size, max_len, dtype,
                                device, quantize=quantize, paged=paged)
+    if arch.family == "xlstm":
+        return mod.init_states(arch.cfg, batch_size, device=device)
     return mod.init_states(arch.cfg, batch_size, dtype, device)
 
 
@@ -268,9 +273,10 @@ def _has_len_leaf(caches) -> bool:
 def spec_cache_strategy(arch: Arch) -> str:
     """How this family's serve caches roll back rejected drafted tokens:
     ``'len'`` (attention KV caches: per-slot length arithmetic, one cached
-    multi-token verify forward) or ``'scan'`` (griffin's recurrent state
-    and ring buffers: token-by-token verification with a snapshot after
-    each token, and a per-slot choice among the snapshots)."""
+    multi-token verify forward) or ``'scan'`` (griffin's and xlstm's
+    recurrent state, griffin's ring buffers: token-by-token verification
+    with a snapshot after each token, and a per-slot choice among the
+    snapshots)."""
     return "len" if arch.family in ("transformer", "encdec") else "scan"
 
 
@@ -294,10 +300,11 @@ def rollback_slot_caches(caches, n_reject):
 def snapshot_caches(caches):
     """A snapshot of a serve-cache tree that the next forward cannot
     change: the ring buffers (dicts with ``pos``), which a forward writes
-    in place, are copied; every other leaf is shared — griffin's forward
-    replaces its recurrent ``conv`` / ``h`` leaves and every ``len``
-    with new tensors, and a linear append-only cache rolls back by
-    length arithmetic (`rollback_snapshot_caches`)."""
+    in place, are copied; every other leaf is shared — the recurrent
+    forwards replace their state leaves (griffin's ``conv`` / ``h``,
+    xlstm's ``conv`` / ``cell``) and every ``len`` with new tensors, and
+    a linear append-only cache rolls back by length arithmetic
+    (`rollback_snapshot_caches`)."""
     if isinstance(caches, dict):
         if "pos" in caches:
             return {k: v.clone() for k, v in caches.items()}
@@ -311,7 +318,8 @@ def select_step_caches(snaps, step):
     """Each slot's cache tree out of per-step snapshots: ``snaps[s]`` is
     the tree after consuming ``s`` tokens of a speculative step
     (`snapshot_caches`, the last one live), `step` (B,) the snapshot each
-    slot keeps.  Every leaf has its batch axis first (griffin's tree);
+    slot keeps.  Every leaf has its batch axis first (the recurrent
+    trees);
     ``leaf[b] = snaps[step[b]][b]`` is written into the last snapshot's
     tensor, the live one."""
     first = snaps[0]

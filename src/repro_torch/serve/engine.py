@@ -278,8 +278,8 @@ class Engine:
         length back by the bucket pad: (h (1, T_pad, d) at the token
         positions, the frontend's left out, caches).  ``ext`` makes it a
         cache extension (a paged prefix hit's suffix-only prefill).
-        `true_len` also gates griffin's pad steps into no-ops (its state
-        consumes every position)."""
+        `true_len` also gates a recurrent family's pad steps into no-ops
+        (griffin's and xlstm's state consumes every position)."""
         h, _, slot_caches = forward_hidden(
             self.arch, self.params, batch, caches=slot_caches, decode=ext,
             prefill_ext=ext, true_len=true_len)

@@ -33,7 +33,8 @@ reached through the same chains and copied with them; the paged
 autotuner comes with ROADMAP A2 item 4.
 
 A family with nothing pageable (griffin: recurrent state and ring
-buffers, already O(window)) serves exactly as the slab engine: every
+buffers, already O(window); xlstm: recurrent state of a constant size)
+serves exactly as the slab engine: every
 hook below defers to `Engine`, and ``paged_stats()["enabled"]`` is
 False.
 """

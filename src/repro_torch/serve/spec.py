@@ -20,9 +20,9 @@ One engine step serves every slot up to K+1 tokens:
      of the per-position acceptances.  A step emits the accepted prefix
      plus one token the target chose: 1..K+1 tokens;
   4. **roll back** — the K - n_acc rejected entries leave every cache by
-     length arithmetic (`registry.rollback_slot_caches`), or, for
-     griffin's recurrent state and ring buffers (the ``'scan'``
-     strategy), each slot takes the snapshot after its n_acc + 1 kept
+     length arithmetic (`registry.rollback_slot_caches`), or, for the
+     recurrent families' state and griffin's ring buffers (the
+     ``'scan'`` strategy), each slot takes the snapshot after its n_acc + 1 kept
      tokens (`registry.rollback_snapshot_caches`): the verification of
      such a model is K+1 single-token forwards with a snapshot after
      each, and so are the draft's steps.

@@ -3,8 +3,9 @@
 `params_from_jax` takes the JAX param tree after
 ``jax.tree.map(np.asarray, params)`` — nested dicts of numpy arrays — and
 returns the port's params: the same nesting, with the scanned ``blocks``
-leaves ``(L, ...)`` (griffin's ``supers``, ``(n_super, ...)``) unstacked
-into a list of per-layer (per-super) dicts.  Every other
+leaves ``(L, ...)`` (griffin's ``supers``, ``(n_super, ...)``, xlstm's
+``pairs``, ``(n_pairs, ...)``) unstacked into a list of per-layer
+(per-super, per-pair) dicts.  Every other
 subtree crosses as it is, the MTP heads' head x depth stacked ``mtp``
 subtree included (`models/mtp.py` indexes it as JAX does).  Every
 layout stays the JAX package's (``wq (d, nq, hd)``, ``wo (nq, hd, d)``,
@@ -25,7 +26,7 @@ bfloat16 of its own, so a bf16 leaf crosses as raw ``|V2`` words: what
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -68,14 +69,16 @@ def _map(tree, fn):
 
 
 def _layer_count(blocks) -> int:
-    while isinstance(blocks, dict):
-        blocks = next(iter(blocks.values()))
+    while isinstance(blocks, (dict, list, tuple)):
+        blocks = (next(iter(blocks.values())) if isinstance(blocks, dict)
+                  else blocks[0])
     return blocks.shape[0]
 
 
 # the JAX package's layer-stacked subtrees: the transformer's scanned
-# blocks, griffin's scanned (rec, rec, attn) supers
-_STACKED = ("blocks", "supers")
+# blocks, griffin's scanned (rec, rec, attn) supers, xlstm's scanned
+# (sLSTM, mLSTM) pairs
+_STACKED = ("blocks", "supers", "pairs")
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
@@ -90,6 +93,21 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         else:
             out[key] = _map(val, lambda a: tensor_from_numpy(a, device))
     return out
+
+
+def states_from_jax(tree: Dict[str, Any], device="cpu") -> List[Any]:
+    """xlstm's serve state from a numpy copy of the JAX package's
+    layer-stacked one (``{'slstm', 'mlstm'}`` at the top, every leaf
+    ``(n_pairs, B, ...)``, the cells tuples): the port's per-pair list,
+    cells as lists."""
+    def unstack(t, i):
+        if isinstance(t, dict):
+            return {k: unstack(v, i) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [unstack(v, i) for v in t]
+        return tensor_from_numpy(t[i], device)
+
+    return [unstack(tree, i) for i in range(_layer_count(tree))]
 
 
 def _key(prefix: str, path) -> str:

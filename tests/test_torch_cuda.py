@@ -569,6 +569,8 @@ _GRADS = ("dh", "dw")
     ("d4096", 512, 32768, 4096, 32768, 0, {}),
     # internvl2-1b's width: a cluster of 4 whose last range is half past d
     ("d896", 1000, 151936, 896, 151655, 0, {}),
+    # xlstm-125m's: a cluster of 4 whose last range lies wholly past d
+    ("d768", 1000, 50432, 768, 50304, 0, {}),
 ])
 def test_grad_cluster_kernel_matches_plain_version(cuda, which, name, n, v,
                                                    d, valid, off, cfg_kw):
@@ -1406,7 +1408,8 @@ def test_quantized_paged_decode_step_launches_the_kernels(cuda):
     (32000, 7168, 32000),          # arctic-480b's
     (151808, 896, 151655),         # internvl2-1b's
     (256000, 4096, 256000),        # recurrentgemma-9b's, the widest
-], ids=["qwen3-moe", "arctic", "internvl2", "recurrentgemma"])
+    (50432, 768, 50304),           # xlstm-125m's, the smallest
+], ids=["qwen3-moe", "arctic", "internvl2", "recurrentgemma", "xlstm"])
 def test_topk_decode_on_family_heads(cuda, v, d, valid, rows, k):
     """The decode top-k on the heads of the new configs at the decode
     rows: values rtol 1e-5 / atol 1e-4 of the plain version, ids exact
@@ -1613,3 +1616,105 @@ def test_griffin_blocks_on_the_card_match_the_cpu(cuda):
     r = chip_smoke.griffin_blocks_card_vs_cpu(
         torch, np, get_arch(chip_smoke.GRIFFIN_ID), cuda)
     assert r["pos_equal"]
+
+
+# ---------------------------------------------------------------------------
+# xlstm (xlstm-125m): its 50432 x 768 head, d 768, its blocks
+# ---------------------------------------------------------------------------
+
+
+def _xlstm_head(cuda, seed):
+    """xlstm-125m's padded head: 50432 x 768 bf16, the rows past its vocab
+    of 50304 zero."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((50432, 768), generator=gen, device=cuda) / 768 ** 0.5
+    w[50304:] = 0.0
+    return w.bfloat16(), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp", [None, 0.7])
+def test_score_tokens_on_xlstm_head(cuda, temp):
+    """`score_tokens` over xlstm-125m's head (788 vocab tiles of 64, the
+    smallest stream) at 32 rows, P 1, valid 50304: lse and the candidate
+    logits rtol 1e-5 / atol 1e-4 of the plain version, two calls bit for
+    bit, one launch a call."""
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref)
+    w, gen = _xlstm_head(cuda, 768)
+    h = torch.randn((32, 768), generator=gen, device=cuda).bfloat16()
+    ids = torch.randint(0, 50304, (32, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(valid_vocab=50304, temperature=temp)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, w, ids, **kw)
+    lse2, zc2 = score_stats(h, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "dh", "dw"])
+def test_fused_ce_at_xlstm_width(cuda, which):
+    """The fused-CE forward, dH and dW at xlstm-125m's training shape: d
+    768 (dH and dW on a cluster of 4 CTAs of 256 columns, the last wholly
+    past d: its TMA boxes all out of bounds), V 50432 (valid 50304), 8192
+    rows: the forward's lse and z_target at rtol 1e-5 / atol 1e-4 of the
+    plain version, z_sum at atol 5e-3 (phase 2's limit for the sum of
+    151936 logits in another order; here 50304); dH / dW at rtol 3e-4 /
+    atol 1e-6 and a relative Frobenius error of 1e-4; two calls bit for
+    bit."""
+    from repro_torch.core import LossConfig
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+    n, v, d, valid = 8192, 50432, 768, 50304
+    h, w, y = _ce_problem(cuda, n, v, d, seed=25)
+    w[valid:] = 0
+    y = torch.where(y >= 0, y % valid, y).to(torch.int32)
+    cfg = LossConfig(valid_vocab=valid)
+    want = ref_stats(h, w, y, cfg)
+    if which == "fwd":
+        got = fwd_stats(h, w, y, cfg)
+        again = fwd_stats(h, w, y, cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for a, b, atol in zip(got, want, (1e-4, 1e-4, 5e-3)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+        return
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
+    lse = want[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    got = grads(h, w, y, lse, gamma, gamma, cfg)
+    again = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    exp = ref(h, w, y, lse, gamma, gamma, cfg)
+    torch.testing.assert_close(got, exp, rtol=3e-4, atol=1e-6)
+    assert float((got - exp).norm() / exp.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_xlstm_blocks_on_the_card_match_the_cpu(cuda):
+    """One full-width xlstm-125m sLSTM block and one mLSTM block over 2048
+    tokens, and one pair over a bucketed 300-token prefill (512: the
+    mLSTM's second chunk mostly pads, the -inf / +inf gates and the
+    sLSTM's carry select) followed by 4 decode steps (the step-by-step
+    mLSTM), on the card and on the CPU from the same bf16 input and
+    weights, through `chip_smoke.xlstm_blocks_card_vs_cpu`, which holds
+    phase 14 (g) to the same limits: outputs within 2^-6 of the CPU's
+    largest entry (GEMMs round bf16 outputs after f32 sums in another
+    order), the f32 state within a relative Frobenius error of 2e-2 a
+    leaf, its -inf entries in the same places."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.models.registry import get_arch
+    r = chip_smoke.xlstm_blocks_card_vs_cpu(
+        torch, np, get_arch(chip_smoke.XLSTM_ID), cuda)
+    assert r["state_fro"] <= chip_smoke.XLSTM_STATE_FRO

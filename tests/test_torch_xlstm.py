@@ -1,0 +1,430 @@
+"""xlstm's model pieces in the port against the JAX package's, on the CPU,
+on the same numpy inputs and the JAX package's weights
+(`params_from_jax`):
+
+  * `mlstm_sequential` and `mlstm_chunkwise` against JAX's (rtol / atol
+    1e-5 on h and on the carried (C, n, m): f32, with jnp.cumsum's order
+    on the CPU neither torch's nor any scan's, so not bit for bit) and
+    against each other (the reference's 3e-4, as tests/test_recurrent.py),
+    with T not a multiple of the chunk, a carried state, and the serving
+    pads (igate -inf / fgate +inf) down to chunks made only of pads,
+    which carry the state through bit for bit; nothing NaN;
+  * `slstm_sequential` with and without ``valid`` (its pad steps carry
+    the state bit for bit), f32 and bf16 inputs (1e-5 of JAX's);
+  * both blocks and reduced ``forward_hidden`` in f32 (1e-5) and in bf16
+    — the sLSTM forget bias added in bf16, the f32 serve state's f32 conv
+    sums, the gate casts — cache-free and served: bf16 outputs within
+    2^-9 of the largest entry, the f32 state within 1e-5 of its largest
+    entry, limits that each of those faults breaks (`BF16_ATOL`); the
+    whole bf16 stack within 2^-6 of the largest entry;
+  * gradients of a loss on the reduced forward against ``jax.grad``,
+    remat on and off (relative Frobenius error 1e-4 a leaf, every entry
+    within 1e-4 of the leaf's largest), none NaN;
+  * a bucket-padded prefill's carried state held to the JAX package's
+    padded run (1e-5), and its distance to an exact-length prefill's
+    (the reference calls them equal; they are not, by up to ~1.5e-5 in
+    f32, because the chunks cut at other positions);
+  * the registry: the arch, the MTP family, the f32 serve state under a
+    bf16 engine dtype and its bytes at full depth (14,432,352 a slot),
+    tuples or lists as cells, and new tensors for every state leaf (the
+    snapshots of the 'scan' rollback share the old ones).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import registry as JR  # noqa: E402
+from repro.models import xlstm as JX  # noqa: E402
+from repro_torch.models import registry as TR  # noqa: E402
+from repro_torch.models import xlstm as TX  # noqa: E402
+from repro_torch.optim.tree import leaves, leaves_with_paths  # noqa: E402
+from repro_torch.weights import params_from_jax, states_from_jax  # noqa
+
+ARCH = "xlstm-125m"
+F32_TOL = 1e-5
+SEQ_VS_CHUNK = 3e-4
+# bf16 blocks: outputs within 2^-9 of the largest entry, the f32 state
+# within 1e-5 of its largest entry (the readings: <= 2.9e-4 and <= 3e-7).
+# Each bf16 fault this is to catch reads far above: the sLSTM forget bias
+# added in f32, 3.5e-3 on the block's output and 3.7e-4 on the state; the
+# mLSTM gates' +3 in bf16, 4.7e-3 and 4.9e-4; a bf16 serve state, 6.9e-3
+# and 5.4e-3
+BF16_ATOL = 2.0 ** -9
+BF16_STATE = 1e-5
+# the whole reduced stack in bf16: one block's rounding differences
+# compound through 4 blocks and ln_f into 1-2 bf16 ulps (2^-7 of the
+# largest entry, |h| ~ 3); so 2^-6 of the largest entry
+BF16_STACK_ATOL = 2.0 ** -6
+GRAD_FRO, GRAD_ATOL = 1e-4, 1e-4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jarch = JR.get_arch(ARCH, reduced=True)
+    jparams = JR.init_params(jarch, jax.random.PRNGKey(0))
+    return jarch, jparams, TR.get_arch(ARCH, reduced=True), \
+        params_from_jax(_np(jparams))
+
+
+def _cell_inputs(t, seed, b=2, h=2, d=8):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    k = (rng.standard_normal((b, t, h, d)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    ig = (rng.standard_normal((b, t, h)) * 2).astype(np.float32)
+    fg = (rng.standard_normal((b, t, h)) * 2 + 2).astype(np.float32)
+    return q, k, v, ig, fg
+
+
+def _mlstm_state(seed, b=2, h=2, d=8):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, d, d)).astype(np.float32),
+            rng.standard_normal((b, h, d)).astype(np.float32),
+            rng.standard_normal((b, h)).astype(np.float32))
+
+
+def _close(got, want, tol, msg=""):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol, err_msg=msg)
+
+
+def _same_state(got, want, tol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g.numpy(), w, tol, f"state[{i}]")
+
+
+@pytest.mark.parametrize("t,chunk,with_state,true_len", [
+    (37, 8, False, None), (37, 16, True, None), (5, 8, False, None),
+    (64, 16, True, None), (3, 8, True, None),
+    # serving pads: chunk 16 over 40 steps, 13 real: the last two chunks
+    # hold only pads
+    (40, 16, True, 13), (40, 8, False, 7), (16, 16, True, 16)],
+    ids=lambda v: str(v))
+def test_mlstm_cells_match_jax(t, chunk, with_state, true_len):
+    q, k, v, ig, fg = _cell_inputs(t, seed=t + chunk)
+    if true_len is not None:
+        pad = np.arange(t)[None, :, None] >= true_len
+        ig = np.where(pad, -np.inf, ig).astype(np.float32)
+        fg = np.where(pad, np.inf, fg).astype(np.float32)
+    st = _mlstm_state(t) if with_state else None
+    jargs = [jnp.asarray(a) for a in (q, k, v, ig, fg)]
+    targs = [_t(a) for a in (q, k, v, ig, fg)]
+    jst = None if st is None else tuple(jnp.asarray(a) for a in st)
+    tst = None if st is None else tuple(_t(a) for a in st)
+    jh_s, js_s = JX.mlstm_sequential(*jargs, state=jst)
+    jh_c, js_c = JX.mlstm_chunkwise(*jargs, chunk=chunk, state=jst)
+    th_s, ts_s = TX.mlstm_sequential(*targs, state=tst)
+    th_c, ts_c = TX.mlstm_chunkwise(*targs, chunk=chunk, state=tst)
+    for tree in (th_s, th_c, *ts_s, *ts_c):
+        assert not torch.isnan(tree).any()
+    _close(th_s.numpy(), jh_s, F32_TOL, "sequential h")
+    _same_state(ts_s, js_s, F32_TOL)
+    _close(th_c.numpy(), jh_c, F32_TOL, "chunkwise h")
+    _same_state(ts_c, js_c, F32_TOL)
+    # the two forms against each other, as the reference's own test
+    _close(th_c.numpy(), th_s.numpy(), SEQ_VS_CHUNK, "chunk vs seq")
+    _close(ts_c[2].numpy(), ts_s[2].numpy(), 1e-4, "m: chunk vs seq")
+    if true_len is not None:
+        # the pads carry the state through: the same cells over the real
+        # steps alone reach the same state (bit for bit sequentially;
+        # chunkwise where whole chunks are pads)
+        _, ts_r = TX.mlstm_sequential(*(a[:, :true_len] for a in targs),
+                                      state=tst)
+        for a, b in zip(ts_s, ts_r):
+            assert torch.equal(a, b)
+        if true_len % chunk == 0:
+            _, tc_r = TX.mlstm_chunkwise(
+                *(a[:, :true_len] for a in targs), chunk=chunk, state=tst)
+            for a, b in zip(ts_c, tc_r):
+                assert torch.equal(a, b)
+
+
+def test_mlstm_chunkwise_state_carry():
+    """Two chunkwise calls with the state carried equal one call (the
+    reference's `test_mlstm_chunkwise_state_carry`)."""
+    q, k, v, ig, fg = (_t(a) for a in _cell_inputs(40, seed=1, b=1))
+    h_all, _ = TX.mlstm_chunkwise(q, k, v, ig, fg, chunk=8)
+    h1, s1 = TX.mlstm_chunkwise(q[:, :24], k[:, :24], v[:, :24], ig[:, :24],
+                                fg[:, :24], chunk=8)
+    h2, _ = TX.mlstm_chunkwise(q[:, 24:], k[:, 24:], v[:, 24:], ig[:, 24:],
+                               fg[:, 24:], chunk=8, state=s1)
+    _close(torch.cat([h1, h2], 1).numpy(), h_all.numpy(), SEQ_VS_CHUNK)
+
+
+def _slstm_inputs(t, seed, b=2, h=3, d=16):
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((b, t, h, d)).astype(np.float32)
+          for _ in range(4)]
+    r = {n: (rng.standard_normal((h, d, d)) * 0.5).astype(np.float32)
+         for n in ("ri", "rf", "rz", "ro")}
+    st = tuple(rng.standard_normal((b, h, d)).astype(np.float32)
+               for _ in range(4))
+    return xs, r, st
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,true_len,with_state", [
+    (9, None, False), (9, None, True), (16, 11, True), (8, 1, False)])
+def test_slstm_matches_jax(dtype, t, true_len, with_state):
+    xs, r, st = _slstm_inputs(t, seed=t)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    valid = None if true_len is None else (np.arange(t) < true_len)[None]
+    jh, js = JX.slstm_sequential(
+        *(jnp.asarray(x, jdt) for x in xs),
+        {n: jnp.asarray(a, jdt) for n, a in r.items()},
+        None if not with_state else tuple(jnp.asarray(a) for a in st),
+        valid=None if valid is None else jnp.asarray(valid))
+    th, ts = TX.slstm_sequential(
+        *(_t(x).to(tdt) for x in xs), {n: _t(a).to(tdt) for n, a in
+                                       r.items()},
+        None if not with_state else tuple(_t(a) for a in st),
+        valid=None if valid is None else _t(valid))
+    assert th.dtype == torch.float32
+    _close(th.numpy(), jh, F32_TOL, "h")
+    _same_state(ts, js, F32_TOL)
+    if true_len is not None:
+        _, ts_r = TX.slstm_sequential(
+            *(_t(x).to(tdt)[:, :true_len] for x in xs),
+            {n: _t(a).to(tdt) for n, a in r.items()},
+            None if not with_state else tuple(_t(a) for a in st))
+        for a, b in zip(ts, ts_r):
+            assert torch.equal(a, b)
+
+
+def _block_params(jarch, jparams, dtype):
+    """Pair 0's blocks of the reduced model, cast to `dtype`."""
+    jp = jax.tree.map(lambda a: a[0].astype(dtype), jparams["pairs"])
+    return jp, params_from_jax(_np({"x": jp}))["x"]
+
+
+def _leaf_close(got, want, atol_rel, msg):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=atol_rel * max(np.abs(want).max(), 1e-30),
+                               err_msg=msg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
+@pytest.mark.parametrize("served", [False, True])
+def test_blocks_match_jax(model, dtype, kind, served):
+    """One block, cache-free (the training forward: a zero conv state in
+    the model's dtype) and served (bucket-padded 21 of 24 steps, from
+    the f32 serve state of the reference's ``init_states``)."""
+    jarch, jparams, tarch, _ = model
+    jdt = jnp.dtype(dtype)
+    jcfg = dataclasses.replace(jarch.cfg, param_dtype=dtype,
+                               compute_dtype=dtype)
+    tcfg = dataclasses.replace(tarch.cfg, param_dtype=dtype,
+                               compute_dtype=dtype)
+    jp, tp = _block_params(jarch, jparams, jdt)
+    x = np.random.default_rng(5).standard_normal((2, 24, 48)).astype(
+        np.float32)
+    japply = JX.apply_slstm_block if kind == "slstm" else \
+        JX.apply_mlstm_block
+    tapply = TX.apply_slstm_block if kind == "slstm" else \
+        TX.apply_mlstm_block
+    jst = tst = None
+    kw = {}
+    if served:
+        jst = jax.tree.map(lambda a: a[0], JX.init_states(jcfg, 2))[kind]
+        tst = TX.init_states(tcfg, 2)[0][kind]
+        kw = {"true_len": 21}
+    jy, js = japply(jp[kind], jnp.asarray(x, jdt), jcfg, jst, **kw)
+    ty, ts = tapply(tp[kind], _t(x).to(getattr(torch, dtype)), tcfg, tst,
+                    **kw)
+    assert ty.dtype == getattr(torch, dtype)
+    atol = F32_TOL if dtype == "float32" else BF16_ATOL
+    if dtype == "float32":
+        _close(ty.float().numpy(), np.asarray(jy, np.float32), F32_TOL)
+    else:
+        _leaf_close(ty.float().numpy(), jy, atol, "out")
+    if served:
+        assert ts["conv"].dtype == torch.float32
+        _leaf_close(ts["conv"].numpy(), js["conv"],
+                    F32_TOL if dtype == "float32" else BF16_ATOL, "conv")
+        for i, (g, w) in enumerate(zip(ts["cell"], js["cell"])):
+            assert g.dtype == torch.float32
+            w = np.asarray(w)
+            fin = np.isfinite(w)
+            np.testing.assert_array_equal(np.isfinite(g.numpy()), fin)
+            _leaf_close(g.numpy()[fin], w[fin],
+                        F32_TOL if dtype == "float32" else BF16_STATE,
+                        f"cell[{i}]")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_forward_hidden_matches_jax(model, dtype, remat):
+    jarch, jparams, tarch, tparams = model
+    if dtype == "bfloat16":
+        jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+        tparams = params_from_jax(_np(jparams))
+    jarch = dataclasses.replace(jarch, cfg=dataclasses.replace(
+        jarch.cfg, compute_dtype=dtype, param_dtype=dtype))
+    tarch = dataclasses.replace(tarch, cfg=dataclasses.replace(
+        tarch.cfg, remat=remat, compute_dtype=dtype, param_dtype=dtype))
+    tok = np.random.default_rng(1).integers(1, 211, (2, 40)).astype(
+        np.int32)
+    jh = jax.jit(lambda p, t: JR.forward_hidden(
+        jarch, p, {"tokens": t})[0])(jparams, jnp.asarray(tok))
+    th, aux, _ = TR.forward_hidden(tarch, tparams,
+                                   {"tokens": torch.from_numpy(tok)})
+    assert float(aux) == 0.0 and th.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        _close(th.detach().numpy(), jh, F32_TOL)
+    else:
+        _leaf_close(th.detach().float().numpy(), jh, BF16_STACK_ATOL,
+                    "hidden")
+
+
+def _stacked(tree):
+    """The port's per-pair tree stacked as JAX's (n_pairs, ...)."""
+    out = {}
+    for path, t in leaves_with_paths(tree):
+        key = tuple(p for p in path if not isinstance(p, int))
+        out.setdefault(key, []).append(t)
+    return {k: (torch.stack(v) if k[0] == "pairs" else v[0])
+            for k, v in out.items()}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_gradients_match_jax_grad(model, remat):
+    """T 40 over chunks of 16: the last chunk carries 8 pad steps."""
+    jarch, jparams, tarch, tparams = model
+    tarch = dataclasses.replace(tarch, cfg=dataclasses.replace(
+        tarch.cfg, remat=remat))
+    rng = np.random.default_rng(2)
+    tok = rng.integers(1, 211, (2, 40)).astype(np.int32)
+    g = rng.standard_normal((2, 40, 48)).astype(np.float32)
+
+    def jloss(p):
+        h, _, _ = JR.forward_hidden(jarch, p, {"tokens": jnp.asarray(tok)})
+        return jnp.sum(h * g)
+
+    jgrad = jax.jit(jax.grad(jloss))(jparams)
+    tp = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    h, _, _ = TR.forward_hidden(tarch, tp, {"tokens": torch.from_numpy(tok)})
+    (h * _t(g)).sum().backward()
+    tgrads = _stacked(jax.tree.map(lambda t: t.grad if t.grad is not None
+                                   else torch.zeros_like(t), tp))
+    jflat = {tuple(getattr(k, "key", k) for k in path): np.asarray(a)
+             for path, a in jax.tree_util.tree_flatten_with_path(jgrad)[0]}
+    assert set(jflat) == set(tgrads)
+    for key, want in jflat.items():
+        got = tgrads[key].numpy()
+        assert not np.isnan(got).any(), key
+        if not want.any():                   # the lm_head: no gradient
+            np.testing.assert_array_equal(got, want)
+            continue
+        err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err <= GRAD_FRO, (key, err)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=GRAD_ATOL * np.abs(want).max(),
+                                   err_msg=str(key))
+
+
+def _prefill(arch, params, tok, true_len, jax_side):
+    if jax_side:
+        st = JR.init_serve_caches(arch, params, 1, 64)
+        _, _, st = JR.forward_hidden(arch, params, {"tokens": jnp.asarray(
+            tok)}, caches=st, true_len=true_len)
+        return states_from_jax(_np(st))
+    st = TR.init_serve_caches(arch, 1, 64)
+    with torch.no_grad():
+        _, _, st = TR.forward_hidden(arch, params, {
+            "tokens": torch.from_numpy(tok)}, caches=st, true_len=true_len)
+    return st
+
+
+@pytest.mark.parametrize("n", [5, 13, 37, 50])
+def test_padded_prefill_state_matches_jax_padded_run(model, n):
+    """A prompt of n tokens bucketed to 64 (pads masked): the port's
+    carried state within 1e-5 of the JAX package's padded run; the
+    exact-length prefill's differs from it by more than rounding allows
+    for equal arithmetic (the chunks cut elsewhere; below 5 tokens the
+    exact prefill steps) but by little."""
+    jarch, jparams, tarch, tparams = model
+    rng = np.random.default_rng(n)
+    tok = np.zeros((1, 64), np.int32)
+    tok[0, :n] = rng.integers(1, 211, n)
+    got = _prefill(tarch, tparams, tok, n, False)
+    want = _prefill(jarch, jparams, tok, n, True)
+    exact = _prefill(tarch, tparams, tok[:, :n], n, False)
+    want_d = dict(leaves_with_paths(want))
+    worst = 0.0
+    for path, g in leaves_with_paths(got):
+        w = want_d[path]
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g), fin), path
+        _close(g[fin].numpy(), w[fin].numpy(), F32_TOL, str(path))
+    for (path, g), (_, e) in zip(leaves_with_paths(got),
+                                 leaves_with_paths(exact)):
+        fin = torch.isfinite(e)
+        worst = max(worst, float((g[fin] - e[fin]).abs().max()))
+    assert worst <= 1e-4
+
+
+def test_registry_and_serve_state():
+    arch = TR.get_arch(ARCH)
+    assert arch.family == "xlstm" and "xlstm" in TR.MTP_FAMILIES
+    assert TR.spec_cache_strategy(arch) == "scan"
+    assert (arch.cfg.d_model, arch.cfg.n_layers, arch.cfg.num_heads,
+            arch.cfg.chunk, arch.padded_vocab) == (768, 12, 4, 256, 50432)
+    # f32 whatever the engine's dtype, 14,432,352 bytes a slot
+    st = TR.init_serve_caches(arch, 1, 4096, dtype=torch.bfloat16,
+                              device="meta")
+    assert len(st) == 6
+    assert {t.dtype for t in leaves(st)} == {torch.float32}
+    assert sum(t.numel() * t.element_size() for t in leaves(st)) == 14432352
+    assert TR.empty_serve_caches(arch, 3, 64, device="meta")[0]["mlstm"][
+        "cell"][0].shape == (3, 4, 384, 384)
+    with pytest.raises(NotImplementedError, match="A8 part 4"):
+        TR.get_arch("seamless-m4t-medium")
+
+
+def test_cells_as_tuples_and_fresh_state_tensors(model):
+    """A state whose cells are tuples (the JAX package's layout) serves as
+    one whose cells are lists (what the slot surgery rebuilds), and a
+    forward leaves every input leaf as it was and returns new tensors."""
+    _, _, tarch, tparams = model
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 211, (2, 9)).astype(np.int32))
+    with torch.no_grad():
+        _, _, st = TR.forward_hidden(tarch, tparams, {"tokens": tok},
+                                     caches=TR.init_serve_caches(tarch, 2,
+                                                                 64))
+        as_tuples = [{k: dict(v, cell=tuple(v["cell"])) for k, v in
+                      pair.items()} for pair in st]
+        before = [t.clone() for t in leaves(st)]
+        for step_tok in (tok[:, :1], tok[:, :5]):     # step path, chunkwise
+            h1, _, s1 = TR.forward_hidden(tarch, tparams,
+                                          {"tokens": step_tok}, caches=st)
+            h2, _, s2 = TR.forward_hidden(tarch, tparams,
+                                          {"tokens": step_tok},
+                                          caches=as_tuples)
+            assert torch.equal(h1, h2)
+            for a, b in zip(leaves(s1), leaves(s2)):
+                assert torch.equal(a, b)
+            olds = {t.untyped_storage().data_ptr() for t in leaves(st)}
+            assert not olds & {t.untyped_storage().data_ptr()
+                               for t in leaves(s1)}
+    for a, b in zip(before, leaves(st)):
+        assert torch.equal(a, b)
