@@ -13,8 +13,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      valid 151936) for rows in {1, 8}, k in {1, 40}, a tie-heavy case,
      a softcap case, the speculative verifier's 40 rows at k 40, on
      recurrentgemma-9b's 256000 x 4096 head for rows in {1, 8} and k in
-     {1, 40}, on xlstm-125m's 50432 x 768 head (valid 50304) for rows in
-     {1, 8} and k in {1, 40}, and on V 32768 at d 4096 (paper-lm's
+     {1, 40}, on xlstm-125m's 50432 x 768 head (valid 50304) and
+     seamless-m4t-medium's 256256 x 1024 head (valid 256206: its last
+     64-row tile 14 valid rows and 50 pads) for rows in {1, 8} and k in
+     {1, 40}, and on V 32768 at d 4096 (paper-lm's
      width, 8 rows k 40), d 12288 (8 rows
      k 1) and d 16384 (40 rows k 40) (the decode kernel: two calls bit
      for bit, the device time of its stream and merge kernels apart under
@@ -38,7 +40,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      rows with a shard offset, at d = 4096 (512 rows, V 32768) and at
      recurrentgemma-9b's training shape (4096 rows, d 4096, V 256000)
      and xlstm-125m's (8192 rows, d 768, V 50432: the backward's last
-     CTA of four wholly past d), each
+     CTA of four wholly past d) and seamless-m4t-medium's (4096 rows, d
+     1024, V 256256 with 256206 valid: dW's 50 pad rows must be zero,
+     as every case's pad rows), each
      held to its plain version (f32 logits, TF32 off), the forward, dH
      and dW run twice for bit identity, and timed beside
      its bound, the plain version and the canonical two-stage loss in
@@ -293,8 +297,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      prompt; (g) one sLSTM and one mLSTM block over 2048 tokens and one
      pair over a bucketed 300-token prefill + 4 decode steps on the
      card and the CPU; (f) training, 12 blocks, AdamW,
-     ``loss_impl='kernel'``, 4 x 2048 tokens, 3 steps, and one sLSTM
-     block against one mLSTM block over that batch.  Gates: one
+     ``loss_impl='kernel'``, 4 x 1024 tokens (4 x 2048 until phase 15
+     came: the run's time budget), 3 steps, and one sLSTM block against
+     one mLSTM block over that batch.  Gates: one
      `sample_topk` launch a prefill and a step (two a prefill and K + 1
      or 2 a spec step in (c)), every call held to its plain version;
      every served token within XLSTM_TOL of a cache-free forward's best
@@ -315,11 +320,47 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      p50, the 3000-token prefill's ms, peak memory, spec-step ms and
      acceptance, the training step, the AdamW state's bytes and the
      sLSTM block's share of a pair.
+ 15. enc-dec (seamless-m4t-medium: 12 encoder + 12 decoder layers, d
+     1024, 16 heads of 64, vocab 256206 on a 256256-row head) at full
+     width and full depth, seeded random weights, every request after
+     its own seeded (1, 4096, 1024) bf16 encoder frames, last: (a)
+     `Engine(batch_size=8, max_len=512)`, eight prompts of 5-60 tokens
+     and one of 300, 16 new tokens, greedy; (b) `PagedEngine` (block
+     16, prefix cache on) on (a)'s traffic plus eight requests of one
+     128-token prompt under frames A, B, A, B, ...; (c) eval, 4 prompts
+     x 2 continuations; (d) `SpecEngine` with draft = target (k 4) on
+     (a)'s prompts but the 300-token one; (e) one encoder block over
+     4096 frames and one decoder block with cross-attention over its
+     output on a bucketed 300-token prefill + 4 decode steps, on the
+     card and the CPU; (f) training, 24 layers, AdamW,
+     ``loss_impl='kernel'``, 4 x 1024 decoder tokens over 4 x 1024
+     frames, 3 steps.  Gates: one `sample_topk` launch a prefill and a
+     step (two a prefill and K + 1 a spec step in (d)) and 12
+     `paged_attn` launches a paged step, every call held to its plain
+     version; every served token within ENCDEC_TOL of the best logit of
+     a cache-free forward over its frames (the floor printed); 201,326,592
+     B of bf16 cross K/V a slot; a request served alone as in the batch;
+     (b) exactly 6 prefix hits, each on the first chain built under the
+     same frames and none across them, ``paged_stats()['enabled']``;
+     (c) one `score_tokens` launch a continuation, every logp within
+     EVAL_ATOL of a cache-free forward over the same padded tokens and
+     frames; (d) acceptance >= ENCDEC_ACCEPT, tokens (a)'s or within
+     ENCDEC_TOL, every cross leaf bit for bit the prefills' after three
+     rolled-back steps; (e) within ENCDEC_BLOCK_ATOL; (f) step 0 within
+     TRAIN_LOSS_RTOL of the canonical loss, the lm_head gradient within
+     TRAIN_HEAD_FRO, its dH / dW launches against their plain versions
+     and dW's 50 pad rows zero, every gradient finite and each encoder
+     layer's nonzero, one launch of each fused-CE kernel a step, the
+     AdamW state 7,018,151,936 B.  Prints tokens/s, decode-step ms p50,
+     one 4096-frame encode alone, the cross-attention's share of a
+     decode step, peak memory, spec-step ms and acceptance, the
+     training step and tokens/s.
 
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
-ghost rows, with a poisoned null block and at phase 6's Tq 5, two calls
+ghost rows, with a poisoned null block, at phase 6's Tq 5 and at phase
+15 (b)'s decode shape (16 query / 16 KV heads, head_dim 64), two calls
 bit for bit, each with its split plan and timed by its device time under
 `torch.profiler` (`device_ms`; CUDA events over back-to-back calls of a
 few-microsecond kernel read the host's launch rate, printed beside it)
@@ -330,8 +371,9 @@ the eval shape (rows 8), rows 32 with P 4,
 softcap 30, duplicated, -1, past-valid and pad-row ids, 1000 rows of a
 `col_offset` shard, paper-lm's width (d 4096, V 32768: 32 rows P 1 and
 100 rows P 64), mistral-large's d 12288 (32 rows P 1), d 16384 (40
-rows P 4), recurrentgemma-9b's head (V 256000, 32 rows P 1) and
-xlstm-125m's (V 50432, valid 50304, d 768, 32 rows P 1), each against
+rows P 4), recurrentgemma-9b's head (V 256000, 32 rows P 1),
+xlstm-125m's (V 50432, valid 50304, d 768, 32 rows P 1) and
+seamless-m4t-medium's (V 256256, valid 256206, 32 rows P 1), each against
 its plain version, twice for bit identity, with
 -inf exactly where the JAX kernel puts it, and timed beside its bound,
 its plain version and ``torch.log_softmax`` of the logits gathered at
@@ -456,6 +498,7 @@ SPEC_K = 4
 QUANT_TOKEN_TOL = 5e-3
 QUANT_POOL_RATIO = 0.55
 XLSTM_VALID = 50304               # xlstm-125m's vocab; its head pads to 50432
+ENCDEC_VALID = 256206             # seamless-m4t-medium's; its head: 256256
 
 
 def card_line():
@@ -644,12 +687,15 @@ def phase_topk(torch, np, arch, dev):
                                  device=dev) / 768 ** 0.5
     wide["v50432"][XLSTM_VALID:] = 0.0
     wide["v50432"] = wide["v50432"].bfloat16()
-    wide_valid = {"v50432": XLSTM_VALID}
+    # seamless-m4t-medium's, 256256 x 1024 with 256206 valid rows (phase
+    # 15): its last 64-row tile holds 14 valid rows and 50 pads
+    wide["v256256"] = encdec_head(torch, gen, dev)
+    wide_valid = {"v50432": XLSTM_VALID, "v256256": ENCDEC_VALID}
     cases = []
     for rows in (1, 8):
         for k in (1, 40):
             cases.append((f"rows{rows}_k{k}", rows, k, None, False, 0, None))
-            for head in ("v256000", "v50432"):
+            for head in ("v256000", "v50432", "v256256"):
                 cases.append((f"{head}_rows{rows}_k{k}", rows, k, None,
                               False, 0, head))
     cases.append(("rows8_k40_ties", 8, 40, None, True, 0, None))
@@ -920,6 +966,9 @@ def phase_fused_ce(torch, np, arch, dev):
         # xlstm-125m's training rows (phase 14 (f)): d 768, whose dH / dW
         # cluster of 4 has a last CTA wholly past d, V 50432
         ("v50432_d768", n0, 50432, 768, XLSTM_VALID, 0, {}, 0.0),
+        # seamless-m4t-medium's training rows (phase 15 (f)): V 256256
+        # with 256206 valid, the last W tile 14 valid rows and 50 pads
+        ("v256256_d1024", 4096, 256256, 1024, ENCDEC_VALID, 0, {}, 0.0),
     ]
     results = {}
     errs = {"fused_ce_fwd": 0.0, "fused_ce_dh": 0.0, "fused_ce_dw": 0.0}
@@ -971,6 +1020,9 @@ def phase_fused_ce(torch, np, arch, dev):
                 raise AssertionError(f"fused_ce {name} {label}: relative "
                                      f"Frobenius error {fro[label]:.3g}")
         del rdh, rdw
+        if valid - off < v and bool(dw[valid - off:].any()):
+            raise AssertionError(f"fused_ce {name}: dW's {v - valid + off} "
+                                 "pad rows are not zero")
         err_dh, err_dw = err["dh"], err["dw"]
         errs["fused_ce_fwd"] = max(errs["fused_ce_fwd"], err_f)
         errs["fused_ce_dh"] = max(errs["fused_ce_dh"], err_dh)
@@ -2040,14 +2092,19 @@ def phase_paged_attn(torch, np, dev):
                                                 paged_attention,
                                                 paged_attention_ref)
 
-    b, nq, nkv, hd, bs, nb = 8, 16, 8, 128, 16, 32
+    b, bs, nb = 8, 16, 32
     cases = [("decode", 1, None, "seeded"), ("full512", 1, None, "full"),
              ("tq4_softcap30", 4, 30.0, "seeded"), ("ghost", 1, None, "zero"),
              ("null_poison", 1, None, "poison"),
              # the speculative verifier's 8 x (4 + 1) rows (phase 6)
-             ("tq5", 5, None, "seeded")]
+             ("tq5", 5, None, "seeded"),
+             # seamless-m4t-medium's decode (phase 15 (b)): 16 query over
+             # 16 KV heads (group 1), head_dim 64
+             ("encdec_hd64", 1, None, "seeded", (16, 16, 64))]
     results = {}
-    for i, (name, tq, cap, kind) in enumerate(cases):
+    for i, (name, tq, cap, kind, *shape) in enumerate(cases):
+        # qwen3-0.6b's heads: 16 query over 8 KV heads of 128
+        nq, nkv, hd = shape[0] if shape else (16, 8, 128)
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         n_pool = b * nb + 1
         kp = torch.randn((n_pool, bs, nkv, hd), generator=gen,
@@ -2264,7 +2321,9 @@ def phase_score(torch, np, arch, dev):
                                  device=dev) / 768 ** 0.5
     wide["v50432"][XLSTM_VALID:] = 0.0
     wide["v50432"] = wide["v50432"].bfloat16()
-    wide_valid = {"v50432": XLSTM_VALID}
+    # seamless-m4t-medium's, 256256 x 1024, 256206 valid (phase 15 (c))
+    wide["v256256"] = encdec_head(torch, gen, dev)
+    wide_valid = {"v50432": XLSTM_VALID, "v256256": ENCDEC_VALID}
     cases = [
         # name, rows, P, softcap, temperature, col_offset, wide head
         ("spec_rows32_t0.7", 32, 1, None, 0.7, 0, None),
@@ -2278,6 +2337,7 @@ def phase_score(torch, np, arch, dev):
         ("d16384_rows40_p4", 40, 4, None, None, 0, 16384),
         ("v256000_rows32_p1", 32, 1, None, None, 0, "v256000"),
         ("v50432_rows32_p1", 32, 1, None, None, 0, "v50432"),
+        ("v256256_rows32_p1", 32, 1, None, None, 0, "v256256"),
     ]
     results = {}
     for name, rows, p, cap, temp, off, dw in cases:
@@ -4965,18 +5025,22 @@ def scan_rollback_check(torch, np, arch, params, prompt, dev,
 
 
 def family_spec_run(torch, np, arch, tag, make, prompts, per_prefill,
-                    per_step, max_new=FAMILY_NEW):
-    """Serve `prompts` through the speculative engine `make()` under
-    `counted_run`: `per_prefill` `sample_topk` launches a prefill and
-    `per_step` a spec step and nothing else, every call held to its plain
-    version.  Returns (outs, sched, sample_topk launches, summary)."""
+                    per_step, max_new=FAMILY_NEW, fes=None):
+    """Serve `prompts` (each after its encoder frames `fes[i]`, where
+    given) through the speculative engine `make()` under `counted_run`:
+    `per_prefill` `sample_topk` launches a prefill and `per_step` a spec
+    step and nothing else, every call held to its plain version.
+    Returns (outs, sched, sample_topk launches, summary)."""
     from repro_torch import obs
     from repro_torch.kernels import build
     calls = []
     undo = spy_topk(calls)
+    fes = fes or [None] * len(prompts)
     try:
         _, sched, results, rids, dt, counts, _, tracer = counted_run(
-            torch, np, make, lambda s: [s.submit(p) for p in prompts],
+            torch, np, make, lambda s: [
+                s.submit(p, frontend_embeds=f) for p, f in zip(prompts,
+                                                                fes)],
             build, obs, max_new=max_new)
     finally:
         undo()
@@ -5665,7 +5729,7 @@ def slstm_grad_growth(torch, arch, dev, t=1024):
 
 def phase_xlstm_train(torch, np, card, dev):
     """Phase 14 (f): xlstm-125m at full width and depth, AdamW, the kernel
-    loss, batch 4 x 2048 (8 mLSTM chunks), 3 steps, the sLSTM recurrent
+    loss, batch 4 x 1024 (4 mLSTM chunks), 3 steps, the sLSTM recurrent
     matrices at std 1/sqrt(hd) (`contract_slstm`; the reference's init
     explodes, `slstm_grad_growth`, printed first); and one sLSTM block
     against one mLSTM block over that batch, CUDA events."""
@@ -5676,7 +5740,7 @@ def phase_xlstm_train(torch, np, card, dev):
     from repro_torch.optim.tree import leaves
     from repro_torch.train import TrainConfig, build_loss_fn
     arch = get_arch(XLSTM_ID)
-    steps, b, t = 3, 4, 2048
+    steps, b, t = 3, 4, 1024
     tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
                      loss_impl="kernel", loss_block_v=2048)
     data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=t,
@@ -5813,6 +5877,659 @@ def phase_xlstm(torch, np, card, dev):
     return launches
 
 
+ENCDEC_ID = "seamless-m4t-medium"
+ENCDEC_NEW = 16                   # new tokens a request
+ENCDEC_SLOT_CROSS = 201326592     # 12 layers x K, V x 4096 x 16 x 64 x 2 B
+ENCDEC_ADAMW_BYTES = 7018151936   # 877,268,992 params x 8 B
+# (a), (b), (d): a served greedy token's logit against the best one of a
+# cache-free forward over its frames and its whole sequence.  The two
+# round apart: the served decoder attends over a bf16 cache (prefill
+# attention within the bucket, then one-token decode), the cache-free
+# one runs the blockwise recurrence over the whole sequence, and both
+# round bf16 activations through 24 blocks; two cache-free forwards
+# that differ only in their row count give the floor of the GEMMs'
+# share (printed).  The seeded head's logits have std ~0.06 (fan-in V:
+# std 1/sqrt(256206) times sqrt(1024)) and top-2 gaps of ~1e-3: a wrong
+# slot, other frames or a stale cross K/V give another context, whose
+# served token trails the best one by ~0.15-0.25 (a random token
+# against the best of 256206), ten times the limit
+ENCDEC_TOL = 2e-2
+# (e): one full-width block on the card against the CPU from the same
+# bf16 input and weights: outputs and the self cache's K within 2^-6 of
+# the CPU's largest entry (bf16 GEMM outputs after f32 sums in another
+# order, as phases 13 (f) and 14 (g))
+ENCDEC_BLOCK_ATOL = 2.0 ** -6
+# (d): draft = target drafts with one-token decode steps and verifies
+# with one K + 1-token forward: the two round apart, so a near-tie may
+# flip a draft (the target's choice is then emitted): acceptance at
+# least 0.9
+ENCDEC_ACCEPT = 0.9
+
+
+def encdec_head(torch, gen, dev):
+    """seamless-m4t-medium's padded head: 256256 x 1024 bf16 at std
+    1/sqrt(d), the 50 rows past its vocab of 256206 zero."""
+    w = torch.randn((256256, 1024), generator=gen, device=dev) / 32
+    w[ENCDEC_VALID:] = 0.0
+    return w.bfloat16()
+
+
+def encdec_frames(torch, seed, dev, t, d):
+    """One request's encoder frames (1, t, d) bf16 at std 1, seeded."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((1, t, d), generator=gen, device=dev).bfloat16()
+
+
+def encdec_prompts(np, vocab):
+    """(a)'s traffic: eight prompts of 5-60 tokens (buckets 8-64) and one
+    of 300 (bucket 512)."""
+    rng = np.random.default_rng(15)
+    lens = [5] + list(rng.integers(6, 61, 7)) + [300]
+    return [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def encdec_served(torch, np, tag, arch, make_engine, prompts, fes,
+                  n_layers=0, engines=None, max_new=ENCDEC_NEW):
+    """Serve `prompts`, each after its own frames `fes[i]`, through
+    `counted_run` on a `make_engine()` (appended to `engines`): one
+    `sample_topk` launch a prefill and a step (and `n_layers`
+    `paged_attn` a step on a paged engine), each call held to its plain
+    version.  Returns (outs, sched, launches, seconds, decode step ms,
+    peak GiB, max |err|)."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    engines = [] if engines is None else engines
+
+    def make():
+        engines.append(make_engine())
+        return engines[-1]
+
+    calls = []
+    undo = spy_topk(calls)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, sched, results, rids, dt, launches, _, tracer = counted_run(
+            torch, np, make, lambda s: [
+                s.submit(p, frontend_embeds=f) for p, f in zip(prompts,
+                                                                fes)],
+            build, obs, max_new=max_new)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        undo()
+    counts = {k: c for k, c in launches.items() if c}
+    check_serve_launches(tag, sched, counts, n_layers)
+    err = check_topk_calls(torch, np, tag, calls, arch, False, False)
+    del calls
+    outs = [np.asarray(results[r]) for r in rids]
+    if any(len(o) != max_new for o in outs):
+        raise AssertionError(f"{tag}: a request did not get its {max_new} "
+                             "tokens")
+    if not all(((o >= 0) & (o < arch.vocab_size)).all() for o in outs):
+        raise AssertionError(f"{tag}: a served id lies outside the vocab")
+    steps = [sp.duration * 1e3 for sp in tracer.spans
+             if sp.name == "engine.decode_step"]
+    return outs, sched, counts, dt, steps, peak, err
+
+
+def encdec_deficits(torch, np, arch, params, prompts, outs, fes, dev):
+    """(worst, agree, floor) of `family_deficits` for enc-dec: each
+    request's cache-free forward runs the encoder over its own frames."""
+    from repro_torch.models.registry import forward_hidden
+    head = params["lm_head"][:arch.vocab_size].float()
+    worst = floor = 0.0
+    agree = []
+    with torch.no_grad():
+        for prompt, out, fe in zip(prompts, outs, fes):
+            seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+            served = torch.from_numpy(out.astype(np.int64)).to(dev)
+            got = []
+            for s in (seq, np.concatenate([seq, prompt[:64]])):
+                h, _, _ = forward_hidden(arch, params, {
+                    "tokens": torch.from_numpy(s[None]).to(dev),
+                    "frontend_embeds": fe})
+                z = h[0, len(prompt) - 1:len(seq)].float() @ head.T
+                best, ids = z.max(-1)
+                got.append((best, z.gather(1, served[:, None])[:, 0], ids))
+            (best, zs, ids), (best2, zs2, _) = got
+            worst = max(worst, float((best - zs).max()))
+            floor = max(floor, float((best - best2).abs().max()),
+                        float((zs - zs2).abs().max()))
+            agree.append(ids.cpu().numpy() == out)
+    del head
+    return worst, np.concatenate(agree), floor
+
+
+def encdec_line(np, tag, outs, dt, steps, peak, card):
+    return family_serve_line(np, tag, outs, dt, steps, peak, card).replace(
+        "[family]", "[encdec]")
+
+
+def check_deficit(tag, worst, limit=ENCDEC_TOL):
+    if not worst <= limit:
+        raise AssertionError(f"{tag}: a served token trails the cache-free "
+                             f"forward's best logit by {worst:.3g} > {limit}")
+
+
+def phase_encdec_serve(torch, np, card, dev):
+    """Phase 15 (a), (b), (c): seamless-m4t-medium at full width and depth
+    (12 + 12 layers); returns (launches, arch, params, prompts, fes, outs)
+    for (d)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves
+    from repro_torch.serve import Engine, PagedEngine, ServeConfig
+    arch = get_arch(ENCDEC_ID)
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(15),
+                         dev)
+    gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    prompts = encdec_prompts(np, arch.vocab_size)
+    sc = ServeConfig(batch_size=8, max_len=512)
+    fes = [encdec_frames(torch, 150 + i, dev, sc.enc_len, cfg.d_model)
+           for i in range(len(prompts))]
+    Engine(arch, params, sc, device=dev).generate(
+        [prompts[0]], 2, frontend_embeds=fes[0])
+    torch.cuda.synchronize()
+    print(f"[encdec] (a) set-up {time.perf_counter() - t0:.1f}s: "
+          f"{ENCDEC_ID} {cfg.n_enc_layers} encoder + {cfg.n_dec_layers} "
+          f"decoder layers, d={cfg.d_model}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {arch.vocab_size} (head "
+          f"{params['lm_head'].shape[0]} rows), {gb:.3f} GB of bf16 "
+          f"params; Engine batch 8, max_len 512, enc_len {sc.enc_len}; "
+          f"prompts of {[len(p) for p in prompts]} tokens, each after its "
+          f"own seeded (1, {sc.enc_len}, {cfg.d_model}) bf16 frames, "
+          f"{ENCDEC_NEW} new", flush=True)
+    launches = {"sample_topk": 0, "paged_attn": 0, "score_tokens": 0}
+
+    # (a) the slab Engine
+    engines = []
+    outs, sched, counts, dt, steps, peak, err = encdec_served(
+        torch, np, "(a)", arch, lambda: Engine(arch, params, sc, device=dev),
+        prompts, fes, engines=engines)
+    launches["sample_topk"] += counts["sample_topk"]
+    cross = [t for layer in engines[0].caches["cross"]
+             for t in layer.values()]
+    slot_cross = sum(t[0].numel() * t.element_size() for t in cross)
+    cross_dt = {str(t.dtype) for t in cross}
+    worst, agree, floor = encdec_deficits(torch, np, arch, params, prompts,
+                                          outs, fes, dev)
+    solo = Engine(arch, params, sc, device=dev).generate(
+        [prompts[3]], ENCDEC_NEW, frontend_embeds=fes[3])[0]
+    p50 = float(np.median(steps))
+    with torch.no_grad():
+        enc_ms = cuda_ms(torch, lambda: encdec.encode(params, fes[0], cfg),
+                         iters=3, warmup=1)
+        x = torch.randn((8, 1, cfg.d_model), device=dev).bfloat16()
+        kvs = engines[0].caches["cross"]
+        cross_ms = cuda_ms(torch, lambda: [
+            encdec.cross_attention(p["cross_attn"], x, kv, cfg)
+            for p, kv in zip(params["dec"], kvs)], iters=10, warmup=2)
+    del engines, cross, kvs
+    print(f"[encdec] (a) sample_topk launches {len(sched.admit_order)} "
+          f"prefills + {sched.decode_steps} steps = one a prefill and a "
+          f"step, each held to the plain version (max |err| {err:.3g}); "
+          f"served tokens {agree.mean():.3f} of {agree.size} equal to a "
+          f"cache-free forward's over the same frames, trailing its best "
+          f"logit by at most {worst:.3g} (limit {ENCDEC_TOL}; rounding "
+          f"floor, two cache-free forwards 64 rows apart: {floor:.3g}); "
+          f"cross K/V {slot_cross} B a slot in {sorted(cross_dt)} (limit "
+          f"{ENCDEC_SLOT_CROSS}); request 3 alone "
+          f"{'equal to' if np.array_equal(solo, outs[3]) else 'NOT'} its "
+          f"tokens in the batch", flush=True)
+    print(encdec_line(np, "(a)", outs, dt, steps, peak, card), flush=True)
+    print(f"[encdec] (a) one {sc.enc_len}-frame encode alone "
+          f"({cfg.n_enc_layers} layers, non-causal blockwise attention in "
+          f"plain PyTorch) {enc_ms:.2f} ms; the {cfg.n_dec_layers} layers' "
+          f"cross-attention at batch 8, Tq 1 over "
+          f"{sc.enc_len} keys (blockwise, {sc.enc_len // cfg.chunk_k} KV "
+          f"chunks) {cross_ms:.2f} ms: {cross_ms / p50:.3f} of a "
+          f"{p50:.2f} ms decode step p50 on {card}", flush=True)
+    check_deficit("(a)", worst)
+    if slot_cross != ENCDEC_SLOT_CROSS or cross_dt != {"torch.bfloat16"} \
+            or not np.array_equal(solo, outs[3]):
+        raise AssertionError(f"(a): cross {slot_cross} B in {cross_dt}, "
+                             f"alone {solo} vs batched {outs[3]}")
+
+    # (b) the paged engine with the prefix cache, on (a)'s traffic and
+    # eight requests of one 128-token prompt under frames A, B, A, B, ...
+    shared = np.random.default_rng(151).integers(
+        1, arch.vocab_size, 128).astype(np.int32)
+    fe_ab = [encdec_frames(torch, 160 + i, dev, sc.enc_len, cfg.d_model)
+             for i in range(2)]
+    b_prompts = prompts + [shared] * 8
+    b_fes = fes + fe_ab * 4
+    psc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16)
+    matches, peng, paged = [], [], []
+
+    def make_paged():
+        eng = PagedEngine(arch, params, psc, device=dev)
+        real = eng.prefix.match
+
+        def match(target, scope=None):
+            chain = real(target, scope=scope)
+            matches.append((scope, tuple(chain)))
+            return chain
+
+        eng.prefix.match = match
+        return eng
+
+    undo = spy_paged_calls(paged)
+    try:
+        b_outs, b_sched, counts, dt, steps, peak, err = encdec_served(
+            torch, np, "(b)", arch, make_paged, b_prompts, b_fes,
+            n_layers=cfg.n_dec_layers, engines=peng)
+    finally:
+        undo()
+    launches["sample_topk"] += counts["sample_topk"]
+    launches["paged_attn"] += counts["paged_attn"]
+    stats = peng[0].paged_stats()
+    hits = stats["prefix"]["hits"]
+    by_scope = {}
+    for scope, chain in matches:
+        by_scope.setdefault(scope, []).append(chain)
+    shared_chains = [c for c in by_scope.values() if len(c) == 4]
+    # the first request of a scope misses, the later three adopt its 7
+    # full blocks (a match leaves the last prompt token to the suffix);
+    # (a)'s requests, each under frames of its own, miss
+    full = (len(shared) - 1) // psc.block_size
+    ok_scopes = (len(matches) == len(b_prompts) and len(shared_chains) == 2
+                 and all(c[0] == () and len(c[1]) == full
+                         and len(set(c[1:])) == 1 for c in shared_chains)
+                 and not set(shared_chains[0][1]) & set(shared_chains[1][1])
+                 and all(m == () for c in by_scope.values() if len(c) != 4
+                         for m in c))
+    slab_ab = Engine(arch, params, sc, device=dev)
+    ref_ab = [slab_ab.generate([shared], ENCDEC_NEW, frontend_embeds=f)[0]
+              for f in fe_ab]
+    del slab_ab
+    same_ab = [np.array_equal(o, ref_ab[i % 2])
+               for i, o in enumerate(b_outs[len(prompts):])]
+    b_worst, b_agree, b_floor = encdec_deficits(
+        torch, np, arch, params, b_prompts, b_outs, b_fes, dev)
+    same_a = np.mean([np.mean(x == y) for x, y in zip(b_outs, outs)])
+    print(f"[encdec] (b) PagedEngine block 16, prefix cache on: launches "
+          f"sample_topk {len(b_sched.admit_order)} prefills + "
+          f"{b_sched.decode_steps} steps (max |err| {err:.3g}), paged_attn "
+          f"{counts['paged_attn']} = {cfg.n_dec_layers} a step (head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.num_heads} / {cfg.num_kv_heads} "
+          f"heads), each held to the plain version (max |err| "
+          f"{max(e for e, _ in paged):.3g}); prefix hits {hits} (want 6), "
+          f"each later A / B request on its scope's first chain of "
+          f"{len(shared_chains[0][1]) if shared_chains else 0} blocks and "
+          f"none across the frames: {ok_scopes}; shared-prompt tokens equal "
+          f"to the slab engine's under the same frames: {sum(same_ab)} of "
+          f"{len(same_ab)}; every token within {b_worst:.3g} of the "
+          f"cache-free best (limit {ENCDEC_TOL}, floor {b_floor:.3g}); "
+          f"(a)'s requests {same_a:.3f} of their tokens equal to (a)'s; "
+          f"paged_stats enabled {stats['enabled']}, {stats['block_bytes']} "
+          f"B a block", flush=True)
+    print(encdec_line(np, "(b)", b_outs, dt, steps, peak, card), flush=True)
+    check_deficit("(b)", b_worst)
+    if hits != 6 or not ok_scopes or not stats["enabled"]:
+        raise AssertionError(f"(b): hits {hits}, scopes {ok_scopes}, "
+                             f"stats {stats}")
+    del peng, b_outs
+
+    # (c) eval: score_tokens at V 256256
+    launches["score_tokens"] += encdec_eval(torch, np, arch, params, card,
+                                            dev)
+    return launches, arch, params, prompts, fes, outs
+
+
+def encdec_eval(torch, np, arch, params, card, dev):
+    """Phase 15 (c): 4 prompts of 64 tokens, each after its own frames, x
+    2 continuations of 8 through `submit_eval` on the slab Engine (72
+    tokens: bucket 128); one `score_tokens` launch a continuation; every
+    logp within EVAL_ATOL of log_softmax of the f32 logits of a
+    cache-free forward over the same bucket-padded tokens and frames
+    (causal: its rows at the real positions are the prefill's)."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import forward_hidden
+    from repro_torch.serve import ContinuousScheduler, Engine, ServeConfig
+    vocab = arch.vocab_size
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, vocab, 64).astype(np.int32) for _ in range(4)]
+    conts = [[rng.integers(1, vocab, 8).astype(np.int32) for _ in range(2)]
+             for _ in prompts]
+    sc = ServeConfig(batch_size=8, max_len=512)
+    fes = [encdec_frames(torch, 170 + i, dev, sc.enc_len, arch.cfg.d_model)
+           for i in range(len(prompts))]
+    reg, tracer = obs.enable(trace=True)
+    try:
+        eng = Engine(arch, params, sc, device=dev)
+        sched = ContinuousScheduler(eng)
+        build.reset_counters()
+        t0 = time.perf_counter()
+        rids = [sched.submit_eval(p, c, frontend_embeds=f)
+                for p, c, f in zip(prompts, conts, fes)]
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    finally:
+        obs.disable()
+    n_cont = sum(len(c) for c in conts)
+    if launches != {"score_tokens": n_cont}:
+        raise AssertionError(f"(c): launches {launches}, expected one "
+                             f"score_tokens a continuation ({n_cont})")
+    head = params["lm_head"][:vocab].float()
+    worst = 0.0
+    with torch.no_grad():
+        for prompt, cs, rid, fe in zip(prompts, conts, rids, fes):
+            for cont, got_lp in zip(cs, results[rid]):
+                seq = np.concatenate([prompt, cont]).astype(np.int64)
+                padded = np.zeros((128,), np.int64)
+                padded[:len(seq)] = seq
+                cid = torch.from_numpy(cont.astype(np.int64)).to(dev)
+                h, _, _ = forward_hidden(arch, params, {
+                    "tokens": torch.from_numpy(padded[None]).to(dev),
+                    "frontend_embeds": fe})
+                z = h[0, len(prompt) - 1:len(seq) - 1].float() @ head.T
+                want = torch.log_softmax(z, -1).gather(
+                    1, cid[:, None])[:, 0].cpu().numpy()
+                if not np.all(np.isfinite(got_lp)):
+                    raise AssertionError("(c): a logp is not finite")
+                worst = max(worst, float(np.abs(got_lp - want).max()))
+    del head
+    print(f"[encdec] (c) eval: launches {launches} = one score_tokens a "
+          f"continuation (V {params['lm_head'].shape[0]}, valid {vocab}, d "
+          f"{arch.cfg.d_model}), no sample_topk; every logp within "
+          f"{worst:.3g} of log_softmax of a cache-free forward over the same "
+          f"padded tokens and frames (limit {EVAL_ATOL}); "
+          f"{sched.eval_tokens_scored} tokens scored in {dt:.3f}s on {card}",
+          flush=True)
+    if not worst <= EVAL_ATOL:
+        raise AssertionError(f"(c): a logp is {worst:.3g} from the "
+                             f"cache-free forward's (limit {EVAL_ATOL})")
+    return launches["score_tokens"]
+
+
+def phase_encdec_spec(torch, np, arch, params, prompts, fes, outs, card,
+                      dev):
+    """Phase 15 (d): `SpecEngine` with draft = target, k 4, on (a)'s
+    prompts but the 300-token one: two `sample_topk` launches a prefill
+    (target and draft) and k + 1 a step, each held to its plain version;
+    acceptance at least ENCDEC_ACCEPT; each request's tokens equal to
+    (a)'s, or every token within ENCDEC_TOL of the cache-free best; and
+    the `'len'` rollback leaves every cross leaf bit for bit as the
+    prefills wrote it."""
+    from repro_torch.optim.tree import leaves
+    from repro_torch.serve import ServeConfig, SpecConfig, SpecEngine
+    sc = ServeConfig(batch_size=8, max_len=512)
+    k = SPEC_K
+
+    def make():
+        return SpecEngine(arch, params, sc, arch, params, SpecConfig(k=k),
+                          device=dev)
+
+    n = len(prompts) - 1
+    d_outs, sched, topk_n, line = family_spec_run(
+        torch, np, arch, "(d)", make, prompts[:n], 2, k + 1,
+        max_new=ENCDEC_NEW, fes=fes[:n])
+    same = [np.array_equal(x, y) for x, y in zip(d_outs, outs[:n])]
+    diff = [i for i, s in enumerate(same) if not s]
+    worst = 0.0
+    if diff:
+        worst, _, _ = encdec_deficits(
+            torch, np, arch, params, [prompts[i] for i in diff],
+            [d_outs[i] for i in diff], [fes[i] for i in diff], dev)
+    # the rollback: two slots prefilled, three spec steps, the cross K/V
+    # of both models bit for bit the prefills'
+    eng = make()
+    for slot in range(2):
+        eng.prefill_into_slot(slot, prompts[slot], fes[slot])
+    trees = (eng.caches["cross"], eng.draft.caches["cross"])
+    before = [t[:2].clone() for tree in trees for t in leaves(tree)]
+    for _ in range(3):
+        eng.decode_step_multi()
+    kept = all(torch.equal(a, t[:2]) for a, t in zip(
+        before, [t for tree in (eng.caches["cross"],
+                                eng.draft.caches["cross"])
+                 for t in leaves(tree)]))
+    del eng, before, trees
+    print(f"[encdec] (d) SpecEngine draft = target, k {k}: {line}; tokens "
+          f"equal to (a)'s for {sum(same)} of {n} requests (the others "
+          f"within {worst:.3g} of the cache-free best, limit "
+          f"{ENCDEC_TOL}); after 3 rolled-back steps every cross leaf of "
+          f"target and draft {'bit for bit' if kept else 'NOT'} the "
+          f"prefills' on {card}", flush=True)
+    if sched.acceptance_rate < ENCDEC_ACCEPT or not kept:
+        raise AssertionError(f"(d): acceptance {sched.acceptance_rate}, "
+                             f"cross kept {kept}")
+    check_deficit("(d)", worst)
+    return {"sample_topk": topk_n}
+
+
+def encdec_blocks_card_vs_cpu(torch, np, arch, dev, t=4096, t_pre=300,
+                              bucket=512, steps=4):
+    """Phase 15 (e): at full width, from the same seeded bf16 frames,
+    inputs and weights (the MLP biases drawn at std 0.5, so their place
+    and dtype show), on the card and on the CPU: one encoder block over
+    `t` frames (non-causal blockwise attention with RoPE), then one
+    decoder block with cross-attention over that block's output (Tq !=
+    Tk, no mask) on a bucketed `t_pre`-token prefill (`bucket` rows) into
+    a bf16 slab cache, followed by `steps` one-token decode steps.
+    Returns the readings; raises past ENCDEC_BLOCK_ATOL."""
+    from repro_torch.models import encdec, transformer
+    cfg = arch.cfg
+    gen = torch.Generator(device=dev).manual_seed(25)
+    ep = encdec.init_enc_block(cfg, gen, torch.bfloat16, dev)
+    dp = encdec.init_dec_block(cfg, gen, torch.bfloat16, dev)
+    for p in (ep, dp):
+        for name in ("bi", "bo"):
+            b = p["mlp"][name]
+            p["mlp"][name] = (torch.randn(b.shape, generator=gen, device=dev)
+                              * 0.5).bfloat16()
+    frames = torch.randn((1, t, cfg.d_model), generator=gen,
+                         device=dev).bfloat16()
+    x = torch.randn((1, bucket + steps, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    cpu = torch.device("cpu")
+
+    def run(d):
+        e, dd = tree_to(ep, d), tree_to(dp, d)
+        out = {}
+        with torch.no_grad():
+            out["enc"] = encdec.apply_enc_block(e, frames.to(d), cfg)
+            kv = encdec.cross_kv(dd["cross_attn"], out["enc"])
+            cache = {k_: v[0] for k_, v in transformer.stacked_caches(
+                cfg.attn_config(), 1, 1, bucket, torch.bfloat16, d).items()}
+            xd = x.to(d)
+            y, cache = encdec.apply_dec_block(dd, xd[:, :bucket], kv, cfg,
+                                              cache=cache)
+            cache = dict(cache, len=cache["len"] - (bucket - t_pre))
+            ys = [y[:, :t_pre]]
+            for i in range(steps):
+                y, cache = encdec.apply_dec_block(
+                    dd, xd[:, bucket + i:bucket + i + 1], kv, cfg,
+                    cache=cache)
+                ys.append(y)
+            out["dec"] = torch.cat(ys, dim=1)
+            out["k"] = cache["k"][:, :t_pre + steps]
+        return tree_to(out, cpu)
+
+    t0 = time.perf_counter()
+    card_out = run(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_out = run(cpu)
+    r = {"card_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
+    for key in ("enc", "dec", "k"):
+        got, want = card_out[key].float(), cpu_out[key].float()
+        r[key] = float((got - want).abs().max() / want.abs().max())
+        if not r[key] <= ENCDEC_BLOCK_ATOL:
+            raise AssertionError(f"(e) {key}: card vs CPU max |err| "
+                                 f"{r[key]:.3g} of the largest entry > "
+                                 f"{ENCDEC_BLOCK_ATOL:.3g}")
+    return r
+
+
+class EncDecBatches:
+    """Seeded enc-dec training batches: tokens and targets (b, t) int32
+    over the vocab, and encoder frames (b, t_enc, d) f32 at std 1 (cast
+    to bf16 by the encoder); ``batch(i)`` is the i-th, iteration runs
+    through them in order."""
+
+    def __init__(self, np, vocab, b, t, t_enc, d):
+        self.np, self.shape = np, (vocab, b, t, t_enc, d)
+
+    def batch(self, i):
+        vocab, b, t, t_enc, d = self.shape
+        rng = self.np.random.default_rng(1000 + i)
+        return {"tokens": rng.integers(0, vocab, (b, t)).astype("int32"),
+                "targets": rng.integers(0, vocab, (b, t)).astype("int32"),
+                "frontend_embeds": rng.standard_normal(
+                    (b, t_enc, d), dtype="float32")}
+
+    def __iter__(self):
+        i = 0
+        while True:
+            yield self.batch(i)
+            i += 1
+
+
+def phase_encdec_train(torch, np, card, dev):
+    """Phase 15 (f): seamless-m4t-medium at full width and depth, AdamW,
+    the kernel loss, batch 4 x 1024 decoder tokens over 4 x 1024 frames
+    (4096 rows of the 256256-row head: the canonical logits would be 4.2
+    GB in f32), 3 steps."""
+    from repro_torch.data import to_device
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves_with_paths
+    from repro_torch.train import TrainConfig, build_loss_fn
+    arch = get_arch(ENCDEC_ID)
+    cfg = arch.cfg
+    steps, b, t = 3, 4, 1024
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
+                     loss_impl="kernel", loss_block_v=2048)
+    data = EncDecBatches(np, arch.vocab_size, b, t, t, cfg.d_model)
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    named = list(leaves_with_paths(params))
+    ps = [p.requires_grad_(True) for _, p in named]
+    head = params["lm_head"]
+    torch.cuda.synchronize()
+    print(f"[encdec] (f) set-up {time.perf_counter() - t0:.1f}s: "
+          f"{ENCDEC_ID} {cfg.n_enc_layers} + {cfg.n_dec_layers} layers at "
+          f"full width, AdamW, loss_impl kernel, batch {b} x {t} decoder "
+          f"tokens over {b} x {t} frames", flush=True)
+    batch0 = to_device(data.batch(0), dev)
+    hi = next(i for i, p in enumerate(ps) if p is head)
+    grads = []
+    undo = spy_ce_grads(grads)
+    try:
+        loss_fn = build_loss_fn(arch, TrainConfig(
+            loss_impl="kernel", loss_block_v=tc.loss_block_v))
+        loss, _ = loss_fn(params, batch0)
+        all_g = torch.autograd.grad(loss, ps)
+        lk, gk = float(loss.detach()), all_g[hi]
+        bad = [path for (path, _), g in zip(named, all_g)
+               if not bool(torch.isfinite(g).all())]
+        enc_zero = [i for i in range(cfg.n_enc_layers) if not any(
+            bool(g.ne(0).any()) for (path, _), g in zip(named, all_g)
+            if path[:2] == ("enc", i))]
+        del all_g
+        loss_fn = build_loss_fn(arch, TrainConfig(
+            loss_impl="canonical", loss_block_v=tc.loss_block_v))
+        loss, _ = loss_fn(params, batch0)
+        (gc_,) = torch.autograd.grad(loss, [head])
+        lc = float(loss.detach())
+    finally:
+        undo()
+    if bad or enc_zero:
+        raise AssertionError(f"(f) step 0: gradients not finite at "
+                             f"{bad[:4]}, encoder layers {enc_zero} all zero")
+    dw = [r[3] for r in grads if r[0] == "fused_ce_dw"]
+    pads_zero = len(dw) == 1 and not bool(dw[0][arch.vocab_size:].any())
+    grad_errs = check_ce_grads(torch, "(f) step 0", grads)
+    del grads, dw
+    loss_err = abs(lk - lc) / abs(lc)
+    head_fro = float((gk.float() - gc_.float()).norm() / gc_.float().norm())
+    del gk, gc_, loss, params, ps, head, named, batch0
+    torch.cuda.empty_cache()
+    print(f"[encdec] (f) step 0, kernels vs canonical loss: {lk:.6f} vs "
+          f"{lc:.6f} (rel {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}), bf16 "
+          f"lm_head grad rel fro {head_fro:.3g} (limit {TRAIN_HEAD_FRO}); "
+          f"every gradient finite, each encoder layer's nonzero; dW's "
+          f"{arch.padded_vocab - arch.vocab_size} pad rows zero: "
+          f"{pads_zero}; the backward "
+          "at its own shape, each launch against its plain version on the "
+          "same inputs: "
+          + "; ".join(f"{name} (n {n}, V {v}, d {d}) max |err| {err:.3g}, "
+                      f"rel fro {fro:.3g} (limit {CE_GRAD_FRO})"
+                      for name, n, v, d, err, fro in grad_errs), flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_fro <= TRAIN_HEAD_FRO
+            and pads_zero):
+        raise AssertionError(f"(f) step 0: kernel loss {lk} vs canonical "
+                             f"{lc} (rel {loss_err:.3g}), lm_head grad rel "
+                             f"fro {head_fro:.3g}, pad rows zero "
+                             f"{pads_zero}")
+    state, history, counts, spans, peak = train_run(
+        torch, np, build, tc, arch, dev, data, steps)
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+            "fused_ce_dw": steps}
+    counts = {k_: c for k_, c in counts.items() if c}
+    if counts != want:
+        raise AssertionError(f"(f) launches {counts}, expected {want}")
+    if not all(np.isfinite(m["grad_norm"]) for _, m in history):
+        raise AssertionError(f"(f) grad norms "
+                             f"{[m['grad_norm'] for _, m in history]}")
+    opt_bytes = state_bytes(opt_tensors(state["opt"]))
+    p50 = float(np.median(spans))
+    print(f"[encdec] (f) {steps} steps, loss "
+          + " ".join(f"{m['loss']:.4f}" for _, m in history)
+          + ", grad norm " + " ".join(f"{m['grad_norm']:.4f}"
+                                      for _, m in history)
+          + f"; launches {counts} = one of each a step; step {p50:.1f} ms "
+          f"p50 over steps 1-{steps - 1}, {b * t / (p50 / 1e3):.0f} decoder "
+          f"tokens/s, peak memory {peak:.2f} GiB, AdamW state {opt_bytes} B "
+          f"(limit {ENCDEC_ADAMW_BYTES}) on {card}", flush=True)
+    if opt_bytes != ENCDEC_ADAMW_BYTES:
+        raise AssertionError(f"(f) AdamW state {opt_bytes} B")
+    del state
+    return counts
+
+
+def phase_encdec(torch, np, card, dev):
+    """Phase 15, last: (a), (b), (c) and (d) on the full-depth model, then
+    (e) and (f).  Returns the launches by kernel."""
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    counts, arch, params, prompts, fes, outs = phase_encdec_serve(
+        torch, np, card, dev)
+    add(counts)
+    add(phase_encdec_spec(torch, np, arch, params, prompts, fes, outs, card,
+                          dev))
+    del params, fes
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = encdec_blocks_card_vs_cpu(torch, np, arch, dev)
+    print(f"[encdec] (e) one full-width block, card vs CPU from the same "
+          f"bf16 frames, input and weights: the encoder block over 4096 "
+          f"frames max |err| {r['enc']:.3g} of the largest entry; the "
+          f"decoder block with cross-attention over its output, a bucketed "
+          f"300-token prefill (512) + 4 decode steps {r['dec']:.3g}, its "
+          f"self cache's K {r['k']:.3g} (limit {ENCDEC_BLOCK_ATOL:.3g} "
+          f"each); card {r['card_s']:.1f}s, CPU {r['cpu_s']:.1f}s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(phase_encdec_train(torch, np, card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5882,6 +6599,10 @@ def main():
     torch.cuda.empty_cache()
     for key, n in phase_xlstm(torch, np, card, dev).items():
         recurrent[key] = recurrent.get(key, 0) + n      # phases 13 and 14
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_encdec(torch, np, card, dev).items():
+        recurrent[key] = recurrent.get(key, 0) + n      # and phase 15
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -5890,7 +6611,7 @@ def main():
         "replaces": "src/repro/kernels/sample_topk/kernel.py:53",
         "launches": (launches + spec_topk + modes["sample_topk"]  # 3, 6, 10
                      + family["sample_topk"]                      # 12
-                     + recurrent.get("sample_topk", 0)),            # 13, 14
+                     + recurrent.get("sample_topk", 0)),        # 13, 14, 15
         "max_abs_err": max(c["max_abs_err"] for c in kernels.values()
                            if "decode_ms" not in c),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -5916,7 +6637,7 @@ def main():
             "name": name, "route": "cuda", "source": ce_source,
             "replaces": f"src/repro/kernels/fused_ce/kernel.py:{line}",
             "launches": (train_launches[name] + family[name]    # 4, 12
-                         + recurrent.get(name, 0)),                # 13, 14
+                         + recurrent.get(name, 0)),            # 13, 14, 15
             "max_abs_err": ce_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -5946,7 +6667,8 @@ def main():
         "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:59",
         "launches": (paged_launches["paged_attn"] + spec_paged  # 5, 6,
-                     + modes["paged_attn"] + family["paged_attn"]),  # 10, 12
+                     + modes["paged_attn"] + family["paged_attn"]   # 10, 12
+                     + recurrent.get("paged_attn", 0)),                 # 15
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
         # device time under torch.profiler; event_ms reads the launch rate
         "ms": row["ms"], "event_ms": row["event_ms"],

@@ -12,6 +12,10 @@ from typing import Any
 
 from repro_torch.core.types import LossConfig
 
+# encoder frames a request of an enc-dec serving engine holds (the
+# decoder gets the prompt), unless `ServeConfig.enc_len` says otherwise
+ENCDEC_SERVE_ENC_LEN = 4096
+
 
 @dataclasses.dataclass(frozen=True)
 class MTPConfig:
@@ -53,7 +57,7 @@ class Arch:
     """One selectable architecture (--arch <id>)."""
 
     arch_id: str
-    family: str                   # transformer | griffin | xlstm
+    family: str                   # transformer | griffin | xlstm | encdec
     cfg: Any                      # family config dataclass
     tags: tuple = ()
     vocab_pad_multiple: int = 256  # lm_head rows padded to this multiple

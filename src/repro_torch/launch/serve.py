@@ -37,6 +37,11 @@ and bytes and, with ``--paged``, a block's bytes.  ``--stats-json`` dumps
 the scheduler's report (TTFT, tokens per step, acceptance rate) as JSON
 to PATH, or to stdout without one.
 
+An enc-dec arch (seamless-m4t-medium) serves every request after the
+same seeded normal encoder frames, 32 of them (``enc_len`` 32), in the
+compute dtype, as the JAX package's launcher does; ``--spec-self``
+(no MTP heads on enc-dec) and ``--quantize-cache`` raise for it.
+
 Builds the model from a seeded random init (nothing is downloaded),
 submits `--requests` prompts (default: one per slot) to the continuous
 scheduler and prints the same ``[serve] ...`` summary line as
@@ -160,6 +165,12 @@ def main(argv=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(arch, gen, device)
+    fe, enc_kw = None, {}
+    if arch.family == "encdec":
+        enc_kw = {"enc_len": 32}
+        fe = torch.randn((1, 32, arch.cfg.d_model), generator=torch.Generator(
+            device=device).manual_seed(1), device=device).to(
+                getattr(torch, arch.cfg.compute_dtype))
     sc = ServeConfig(batch_size=args.batch, max_len=args.max_len,
                      temperature=args.temperature, top_k=args.top_k,
                      top_p=args.top_p, paged=args.paged,
@@ -168,7 +179,7 @@ def main(argv=None):
                      paged_impl=args.paged_impl,
                      prefix_cache=not args.no_prefix_cache,
                      quantize_cache=args.quantize_cache,
-                     head_dtype=args.head_dtype)
+                     head_dtype=args.head_dtype, **enc_kw)
     if args.spec_self:
         cls = PagedSelfSpecEngine if args.paged else SelfSpecEngine
         eng = cls(arch, params, sc,
@@ -211,16 +222,18 @@ def main(argv=None):
         conts = [rng.integers(1, arch.vocab_size,
                               (args.eval_conts, args.cont_len)
                               ).astype(np.int32) for _ in prompts]
-        rids = [sched.submit_eval(p, list(c))
+        rids = [sched.submit_eval(p, list(c), frontend_embeds=fe)
                 for p, c in zip(prompts, conts)]
     elif args.beams:
         mode = f"beam{args.beams}+" + mode
-        rids = [sched.submit_beam(p, n_beams=args.beams) for p in prompts]
+        rids = [sched.submit_beam(p, n_beams=args.beams,
+                                  frontend_embeds=fe) for p in prompts]
     elif args.best_of:
         mode = f"best_of{args.best_of}+" + mode
         rids = [sched.submit_best_of(p, n=args.best_of,
                                      temperature=args.best_of_temp,
-                                     top_p=args.top_p, seed=args.seed + i)
+                                     top_p=args.top_p, seed=args.seed + i,
+                                     frontend_embeds=fe)
                 for i, p in enumerate(prompts)]
     else:
         mask = None
@@ -228,7 +241,8 @@ def main(argv=None):
             mask = parse_mask_spec(args.grammar_mask,
                                    arch.vocab_size).astype(bool)
             mode = "constrained+" + mode
-        rids = [sched.submit(p, token_mask=mask) for p in prompts]
+        rids = [sched.submit(p, frontend_embeds=fe, token_mask=mask)
+                for p in prompts]
     results = sched.run()
     dt = time.perf_counter() - t0
     if args.mode == "eval":

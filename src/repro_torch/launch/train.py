@@ -29,6 +29,12 @@ checkpoint and stops on SIGTERM / SIGINT, and resumes from the newest
 complete step in DIR; as in the reference, the resumed run's data starts
 over at the first batch.  Straggling steps are logged.  The reference's
 mesh and autotune flags wait for later slices and are not offered.
+
+An enc-dec arch (seamless-m4t-medium) raises `ValueError`: its encoder
+needs frames, and the launcher's only data is `SyntheticLM` tokens (the
+JAX package's launcher would fail in its encoder).  Train it through
+`build_train_step` / `train_loop` on batches that carry
+``frontend_embeds``.
 """
 
 from __future__ import annotations
@@ -111,6 +117,12 @@ def main(argv=None, params=None):
                    profiler_annotate=args.trace_out is not None)
 
     arch = get_arch(args.arch, reduced=args.reduced)
+    if arch.family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: an enc-dec model trains on batches with "
+            "encoder frames ('frontend_embeds'), and this launcher feeds "
+            "SyntheticLM tokens only; call build_train_step / train_loop "
+            "with such batches")
     if args.mtp_heads:
         weights = tuple(float(w) for w in args.mtp_weights.split(",")) \
             if args.mtp_weights else ()

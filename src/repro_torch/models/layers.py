@@ -105,24 +105,41 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def init_mlp(d_model, d_ff, generator: torch.Generator, *,
-             n_layers_scale=1, dtype=torch.float32, device="cpu"):
-    """SwiGLU (gated) MLP params, the only MLP of the ported families."""
+             gated: bool = True, bias: bool = False, n_layers_scale=1,
+             dtype=torch.float32, device="cpu"):
+    """SwiGLU (gated) or GeLU MLP params; ``bias`` adds ``bi`` (d_ff,)
+    and ``bo`` (d_model,), zeros."""
     out_scale = 1.0 / math.sqrt(2.0 * max(n_layers_scale, 1))
     kw = dict(dtype=dtype, device=device)
-    return {
+    p = {
         "wi": dense_init((d_model, d_ff), generator, **kw),
         "wo": dense_init((d_ff, d_model), generator, scale=out_scale, **kw),
-        "wg": dense_init((d_model, d_ff), generator, **kw),
     }
+    if gated:
+        p["wg"] = dense_init((d_model, d_ff), generator, **kw)
+    if bias:
+        p["bi"] = torch.zeros((d_ff,), **kw)
+        p["bo"] = torch.zeros((d_model,), **kw)
+    return p
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: ``(silu(x @ wg) * (x @ wi)) @ wo``, the gate's
-    SiLU in f32."""
+    """Gated SiLU MLP ``(silu(x @ wg) * (x @ wi)) @ wo`` or, without
+    ``wg``, ``gelu(x @ wi + bi) @ wo + bo``; the activation in f32, the
+    GeLU in its tanh form (JAX's ``jax.nn.gelu`` default), the biases
+    added in the input dtype."""
     up = x @ params["wi"]
-    gate = x @ params["wg"]
-    act = F.silu(gate.float()).to(x.dtype) * up
-    return act @ params["wo"]
+    if "bi" in params:
+        up = up + params["bi"]
+    if "wg" in params:
+        gate = x @ params["wg"]
+        act = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        act = F.gelu(up.float(), approximate="tanh").to(x.dtype)
+    out = act @ params["wo"]
+    if "bo" in params:
+        out = out + params["bo"]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Model API + the --arch registry (port of `repro.models.registry`): the
-transformer family (dense, MoE, frontend stub), griffin and xlstm.
+transformer family (dense, MoE, frontend stub), griffin, xlstm and
+enc-dec.
 
 The registry pads the lm_head to `arch.padded_vocab` rows; the pad rows
 are masked by ``valid_vocab`` in every sampler.  The serve cache of the
@@ -13,6 +14,11 @@ families' is a nested tree of per-block states whose leaves all have
 their batch axis first: griffin's recurrent ``conv`` / ``h`` leaves and
 local-attention ring buffers (`models.griffin`), xlstm's per-pair conv
 tails and cell states, f32 whatever the engine's dtype (`models.xlstm`).
+Enc-dec's is ``{'self': <the transformer's stacked slab or paged dict>,
+'cross': [{'k', 'v': (B, T_enc, nkv, hd)} a decoder layer]}``: the
+decoder's self-attention cache and each layer's cross K/V of the
+encoder output, batch axis first, which only a prefill's encoder run
+writes (`models.encdec`).
 
 The per-slot surgery below walks dicts and lists and finds each leaf's
 batch axis from the tree's layout: 1 under a layer-stacked dict (one
@@ -29,8 +35,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import Arch
-from repro_torch.models import griffin, transformer, xlstm
+from repro_torch.configs.base import ENCDEC_SERVE_ENC_LEN, Arch
+from repro_torch.models import encdec, griffin, transformer, xlstm
 from repro_torch.optim.tree import leaves
 
 _CONFIG_MODULES = {
@@ -43,20 +49,16 @@ _CONFIG_MODULES = {
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "paper-lm": "repro_torch.configs.paper_lm",
 }
 
-# the JAX package's other config ids, by family, and the part of ROADMAP
-# A8 that ports each family
-_LATER = {
-    "seamless-m4t-medium": ("encdec", 4),
-}
-
-# families whose trunks take the MTP heads
+# families whose trunks take the MTP heads (enc-dec's serve path is
+# conditioned on the encoder: no heads)
 MTP_FAMILIES = ("transformer", "griffin", "xlstm")
 
 _FAMILY_MODS = {"transformer": transformer, "griffin": griffin,
-                "xlstm": xlstm}
+                "xlstm": xlstm, "encdec": encdec}
 
 _STACKED_BATCH_AXIS = 1          # (L, B, ...) under a layer-stacked dict
 # paged pools, values and scales: no batch axis, shared
@@ -64,24 +66,15 @@ _POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
 def get_arch(arch_id: str, *, reduced: bool = False, **overrides) -> Arch:
-    if arch_id in _LATER:
-        family, part = _LATER[arch_id]
-        raise NotImplementedError(
-            f"arch {arch_id!r} is of the {family!r} family, which comes "
-            f"with ROADMAP A8 part {part}")
     if arch_id not in _CONFIG_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; ported: "
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_CONFIG_MODULES)}")
     mod = importlib.import_module(_CONFIG_MODULES[arch_id])
     return mod.reduced() if reduced else mod.get_config(**overrides)
 
 
 def _family_mod(arch: Arch):
-    mod = _FAMILY_MODS.get(arch.family)
-    if mod is None:
-        raise NotImplementedError(f"family {arch.family!r} comes with "
-                                  "ROADMAP A8")
-    return mod
+    return _FAMILY_MODS[arch.family]
 
 
 def supports_mtp(arch: Arch) -> bool:
@@ -93,7 +86,11 @@ def supports_mtp(arch: Arch) -> bool:
 def init_params(arch: Arch, generator: torch.Generator, device="cpu"):
     """Random params (seeded by `generator`, which lives on `device`) with
     the lm_head padded to `arch.padded_vocab` rows of zeros, and the
-    ``'mtp'`` head subtree when ``arch.mtp.n_heads > 0``."""
+    ``'mtp'`` head subtree when ``arch.mtp.n_heads > 0`` (a family
+    outside `MTP_FAMILIES` raises `ValueError`)."""
+    if arch.mtp.n_heads and arch.family not in MTP_FAMILIES:
+        raise ValueError(f"family {arch.family!r} does not support MTP "
+                         f"heads (supported: {MTP_FAMILIES})")
     params = _family_mod(arch).init_params(arch.cfg, generator, device)
     pad = arch.padded_vocab - arch.vocab_size
     if pad:
@@ -124,7 +121,8 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                    true_len=None):
     """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'],
     after batch['frontend_embeds'] (B, F, d) where the batch has them
-    (then T counts those F positions too); ``prefill_ext`` (with
+    (then T counts those F positions too; enc-dec's encoder reads them
+    instead, in a forward without caches); ``prefill_ext`` (with
     ``decode``) is the paged engine's suffix-only prefill after a prefix
     hit.  ``true_len`` (a serving prefill's host int): positions at or
     past it are bucket pads — the attention caches need no masking (pad
@@ -135,7 +133,7 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
     training path applies the fused CE to every horizon from this one
     forward."""
     mod = _family_mod(arch)
-    if arch.family == "transformer":
+    if arch.family in ("transformer", "encdec"):
         h, aux, c = mod.forward(
             params, batch["tokens"], arch.cfg,
             frontend_embeds=batch.get("frontend_embeds"), caches=caches,
@@ -169,17 +167,27 @@ def active_param_count(arch: Arch, params) -> int:
 
 def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cpu",
-                      quantize: bool = False, paged=None):
+                      quantize: bool = False, paged=None, params=None,
+                      frontend_embeds=None):
     """Fresh caches for `batch_size` slots: the transformer's slab, or its
-    paged form with `paged` (a `serve.kvpool.PagedConfig`); a recurrent
-    family's state tree, which has nothing pageable or quantizable (the
-    engines refuse ``quantize_cache`` for it), so `paged` leaves it as it
-    is.  xlstm's state is f32 whatever `dtype` asks for, as the
-    reference's (its ``init_states`` takes no dtype there)."""
+    paged form with `paged` (a `serve.kvpool.PagedConfig`); enc-dec's
+    runs the encoder over `frontend_embeds` (batch_size, T_enc, d) with
+    `params` and precomputes the cross K/V beside the decoder's slab (or
+    paged) self caches; a recurrent family's state tree, which has
+    nothing pageable or quantizable (the engines refuse
+    ``quantize_cache`` for it), so `paged` leaves it as it is.  xlstm's
+    state is f32 whatever `dtype` asks for, as the reference's (its
+    ``init_states`` takes no dtype there)."""
     mod = _family_mod(arch)
     if arch.family == "transformer":
         return mod.init_caches(arch.cfg, batch_size, max_len, dtype,
                                device, quantize=quantize, paged=paged)
+    if arch.family == "encdec":
+        if params is None or frontend_embeds is None:
+            raise ValueError("enc-dec serve caches run the encoder: pass "
+                             "params and frontend_embeds")
+        return mod.init_caches(params, arch.cfg, frontend_embeds, max_len,
+                               dtype, device, paged=paged)
     if arch.family == "xlstm":
         return mod.init_states(arch.cfg, batch_size, device=device)
     return mod.init_states(arch.cfg, batch_size, dtype, device)
@@ -187,12 +195,16 @@ def init_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
 
 def empty_serve_caches(arch: Arch, batch_size: int, max_len: int, *,
                        dtype=torch.bfloat16, device="cpu",
-                       quantize: bool = False, paged=None):
+                       quantize: bool = False, paged=None,
+                       enc_len: int = ENCDEC_SERVE_ENC_LEN):
     """The batched container whose slots await per-slot prefill inserts.
-    For the ported families it IS `init_serve_caches`, whose non-zero
-    init (the ring buffers' ``pos = -1``) the slot template keeps (the
-    JAX package differs only for enc-dec, whose init runs the
-    encoder)."""
+    For enc-dec it is zeros, cross at `enc_len` frames (its init would
+    run the encoder, pointless for empty slots); for the other families
+    it IS `init_serve_caches`, whose non-zero init (the ring buffers'
+    ``pos = -1``) the slot template keeps."""
+    if arch.family == "encdec":
+        return encdec.empty_caches(arch.cfg, batch_size, max_len, enc_len,
+                                   dtype, device, paged=paged)
     return init_serve_caches(arch, batch_size, max_len, dtype=dtype,
                              device=device, quantize=quantize, paged=paged)
 
@@ -229,14 +241,21 @@ def insert_slot_caches(caches, slot_caches, slot: int):
     return caches
 
 
+def _adopt_pools(tree, slot_tree):
+    if not isinstance(tree, dict):
+        return tree
+    return {k: slot_tree[k] if k in _POOL_KEYS else
+            _adopt_pools(v, slot_tree[k]) for k, v in tree.items()}
+
+
 def merge_slot_caches(caches, slot_caches, slot: int):
-    """`insert_slot_caches` that also ADOPTS the slot tree's pools: a
-    batch=1 paged prefill writes straight into the shared pools, so the
-    slot tree's pool leaves are the authoritative ones.  (The port's
-    pools are updated in place, so they are the same tensors.)"""
+    """`insert_slot_caches` that also ADOPTS the slot tree's pools,
+    wherever they sit: a batch=1 paged prefill writes straight into the
+    shared pools, so the slot tree's pool leaves are the authoritative
+    ones.  (The port's pools are updated in place, so they are the same
+    tensors.)"""
     insert_slot_caches(caches, slot_caches, slot)
-    return dict(caches, **{k: slot_caches[k] for k in _POOL_KEYS
-                           if k in caches})
+    return _adopt_pools(caches, slot_caches)
 
 
 def reset_slot_caches(caches, template, slot: int):

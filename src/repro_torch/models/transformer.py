@@ -197,18 +197,26 @@ def forward(
     return x, aux, new_caches
 
 
-def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cpu", quantize: bool = False,
-                paged=None):
-    """Stacked per-layer slab caches: k/v (L, B, S, nkv, hd), len (L, B);
+def stacked_caches(acfg: A.AttnConfig, n_layers: int, batch: int,
+                   max_len: int, dtype=torch.bfloat16, device="cpu",
+                   quantize: bool = False, paged=None):
+    """`n_layers` slab caches stacked: k/v (L, B, S, nkv, hd), len (L, B);
     with `paged` (a `serve.kvpool.PagedConfig`), the paged form of them
     (`serve.kvpool.paged_tree`; the slab is never allocated)."""
-    one = A.init_cache(batch, max_len, cfg.attn_config(), dtype,
+    one = A.init_cache(batch, max_len, acfg, dtype,
                        "meta" if paged is not None else device,
                        quantize=quantize)
-    slab = {key: val[None].repeat((cfg.n_layers,) + (1,) * val.dim())
+    slab = {key: val[None].repeat((n_layers,) + (1,) * val.dim())
             for key, val in one.items()}
     if paged is None:
         return slab
     from repro_torch.serve.kvpool import paged_tree
     return paged_tree(slab, paged, device=device)
+
+
+def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cpu", quantize: bool = False,
+                paged=None):
+    """The serve caches: `stacked_caches` of every layer."""
+    return stacked_caches(cfg.attn_config(), cfg.n_layers, batch, max_len,
+                          dtype, device, quantize=quantize, paged=paged)

@@ -21,6 +21,14 @@ first token is read at the prompt's last position.  Every prefill path
 (`prefill_into_slot`, `prefill_topk_into_slot`, `score_in_slot`,
 `generate`) takes them; an arch without a frontend ignores them.
 
+Enc-dec (seamless-m4t-medium): ``frontend_embeds`` (1, enc_len, d) are a
+request's encoder frames, ``ServeConfig.enc_len`` of them (a request
+with another count raises `ValueError`: the batched container holds
+``enc_len`` frames a slot, and a shorter request would attend over its
+zero rows in decode).  Every prefill runs the encoder over the request's
+frames, or over zeros when it brings none, and the slot's tree takes
+that run's cross K/V beside the decoder's self-attention cache.
+
 Quantized serving (``ServeConfig.quantize_cache``, ``head_dtype``): an
 int8 KV cache with per-(token, head) scales, and a 1-byte lm_head, made
 once at init by `kernels.quant.quantize_weight` (``params['lm_head']``
@@ -58,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs.base import Arch
+from repro_torch.configs.base import ENCDEC_SERVE_ENC_LEN, Arch
 from repro_torch.kernels.quant import head_quant_dtype, quantize_weight
 from repro_torch.models.registry import (empty_serve_caches, forward_hidden,
                                          init_serve_caches,
@@ -90,6 +98,7 @@ class ServeConfig:
     pool_blocks: int = 0           # total pool blocks (0: slab parity)
     paged_impl: str = "kernel"     # 'kernel' | 'plain' (CPU tensors only)
     prefix_cache: bool = True      # shared-prefix block reuse (trie)
+    enc_len: int = ENCDEC_SERVE_ENC_LEN  # enc-dec encoder frames a request
 
 
 def resolve_device(device) -> torch.device:
@@ -190,7 +199,8 @@ class Engine:
     def _empty_caches(self):
         return empty_serve_caches(
             self.arch, self.sc.batch_size, self.sc.max_len, dtype=self._cdt,
-            device=self.device, quantize=self._quant)
+            device=self.device, quantize=self._quant,
+            enc_len=self.sc.enc_len)
 
     def head_bytes(self) -> int:
         """Bytes of the served lm_head (and its scales, when quantized):
@@ -248,10 +258,38 @@ class Engine:
         tokens = np.zeros((1, t_b), np.int32)
         tokens[0, :true_len] = prompt
         batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
-        if self.arch.cfg.frontend_len and frontend_embeds is not None:
+        if getattr(self.arch.cfg, "frontend_len", 0) and \
+                frontend_embeds is not None:
             batch["frontend_embeds"] = torch.as_tensor(
                 frontend_embeds).to(self.device)
         return batch, true_len
+
+    def _encoder_frames(self, frontend_embeds) -> torch.Tensor:
+        """An enc-dec request's encoder input (1, enc_len, d) on the
+        device: its frames, or zeros in the compute dtype when it brings
+        none (the reference's unconditioned fallback)."""
+        cfg, n = self.arch.cfg, self.sc.enc_len
+        if frontend_embeds is None:
+            return torch.zeros((1, n, cfg.d_model), device=self.device,
+                               dtype=getattr(torch, cfg.compute_dtype))
+        fe = torch.as_tensor(frontend_embeds).to(self.device)
+        if tuple(fe.shape) != (1, n, cfg.d_model):
+            raise ValueError(
+                f"enc-dec request frames of shape {tuple(fe.shape)}: the "
+                f"engine serves (1, enc_len={n}, {cfg.d_model}); set "
+                "ServeConfig.enc_len to the frame count")
+        return fe
+
+    def _fresh_slot_caches(self, frontend_embeds):
+        """A batch=1 cache tree for one prefill: empty, with enc-dec's
+        cross K/V from the encoder over the request's frames."""
+        kw = {}
+        if self.arch.family == "encdec":
+            kw = dict(params=self.params,
+                      frontend_embeds=self._encoder_frames(frontend_embeds))
+        return init_serve_caches(self.arch, 1, self.sc.max_len,
+                                 dtype=self._cdt, device=self.device,
+                                 quantize=self._quant, **kw)
 
     def _slot_prefill_view(self, slot: int, prompt, frontend_embeds=None,
                            match_len: Optional[int] = None):
@@ -262,9 +300,7 @@ class Engine:
         the slab engine has no prefix reuse and ignores it."""
         del slot, match_len
         batch, true_len = self._prefill_inputs(prompt, frontend_embeds)
-        slot_caches = init_serve_caches(self.arch, 1, self.sc.max_len,
-                                        dtype=self._cdt, device=self.device,
-                                        quantize=self._quant)
+        slot_caches = self._fresh_slot_caches(frontend_embeds)
         return batch, slot_caches, true_len, {"ext": False}
 
     def _commit_slot(self, slot: int, slot_caches, ctx):

@@ -364,41 +364,68 @@ def is_paged(sub: Any) -> bool:
     return isinstance(sub, dict) and "table" in sub
 
 
-def paged_tree(tree: Any, pc: PagedConfig, device=None):
-    """The paged form of a slab serve cache: zeroed pools, null-filled
-    tables, zero lens, on `device` (default: the slab's own; the slab
-    may live on the ``meta`` device, so that only its shapes are
-    used).  An int8 slab adds its scale pools ``kp_scale`` / ``vp_scale``
-    (L?, n_blocks, block_size, nkv, 1).  A tree with nothing pageable
-    passes through."""
-    if not is_pageable(tree):
+def _rebuild(tree: Any, fn):
+    """`tree` with every dict that `fn` maps (to a non-None value)
+    replaced by what it returns, nested dicts walked."""
+    if not isinstance(tree, dict):
         return tree
-    k = tree["k"]
-    dev = k.device if device is None else device
-    lead = k.shape[:-4]                     # () or (n_layers,)
-    nkv, hd = k.shape[-2:]
-    b = k.shape[-4]
-    pool_shape = lead + (pc.n_blocks, pc.block_size, nkv, hd)
-    out = {
-        "kp": torch.zeros(pool_shape, dtype=k.dtype, device=dev),
-        "vp": torch.zeros(pool_shape, dtype=tree["v"].dtype, device=dev),
-        "table": torch.full(lead + (b, pc.max_blocks_per_slot), NULL_BLOCK,
-                            dtype=torch.int32, device=dev),
-        "len": torch.zeros(tree["len"].shape, dtype=torch.int32,
-                           device=dev),
-    }
-    if "k_scale" in tree:
-        sshape = pool_shape[:-1] + (1,)
-        out["kp_scale"] = torch.zeros(sshape, dtype=tree["k_scale"].dtype,
-                                      device=dev)
-        out["vp_scale"] = torch.zeros(sshape, dtype=tree["v_scale"].dtype,
-                                      device=dev)
-    return out
+    out = fn(tree)
+    if out is not None:
+        return out
+    return {k: _rebuild(v, fn) for k, v in tree.items()}
+
+
+def paged_tree(tree: Any, pc: PagedConfig, device=None):
+    """The paged form of every slab KV dict of a serve cache (the
+    transformer's whole tree, enc-dec's ``self``): zeroed pools,
+    null-filled tables, zero lens, on `device` (default: the slab's own;
+    the slab may live on the ``meta`` device, so that only its shapes
+    are used).  An int8 slab adds its scale pools ``kp_scale`` /
+    ``vp_scale`` (L?, n_blocks, block_size, nkv, 1).  Everything else
+    (enc-dec's cross K/V, recurrent state) passes through."""
+    def convert(sub):
+        if not is_pageable(sub):
+            return None
+        k = sub["k"]
+        dev = k.device if device is None else device
+        lead = k.shape[:-4]                 # () or (n_layers,)
+        nkv, hd = k.shape[-2:]
+        b = k.shape[-4]
+        pool_shape = lead + (pc.n_blocks, pc.block_size, nkv, hd)
+        out = {
+            "kp": torch.zeros(pool_shape, dtype=k.dtype, device=dev),
+            "vp": torch.zeros(pool_shape, dtype=sub["v"].dtype, device=dev),
+            "table": torch.full(lead + (b, pc.max_blocks_per_slot),
+                                NULL_BLOCK, dtype=torch.int32, device=dev),
+            "len": torch.zeros(sub["len"].shape, dtype=torch.int32,
+                               device=dev),
+        }
+        if "k_scale" in sub:
+            sshape = pool_shape[:-1] + (1,)
+            out["kp_scale"] = torch.zeros(
+                sshape, dtype=sub["k_scale"].dtype, device=dev)
+            out["vp_scale"] = torch.zeros(
+                sshape, dtype=sub["v_scale"].dtype, device=dev)
+        return out
+
+    return _rebuild(tree, convert)
+
+
+def paged_sub(tree: Any) -> Optional[Dict[str, torch.Tensor]]:
+    """The paged cache dict of a serve-cache tree, wherever it sits (the
+    transformer's tree itself, enc-dec's ``self``), or None."""
+    if is_paged(tree):
+        return tree
+    for sub in (tree.values() if isinstance(tree, dict) else ()):
+        found = paged_sub(sub)
+        if found is not None:
+            return found
+    return None
 
 
 def count_paged(tree: Any) -> int:
-    """Number of paged cache dicts in a serve-cache tree (0 or 1 for the
-    transformer family's one stacked dict)."""
+    """Number of paged cache dicts in a serve-cache tree (0 or 1: the
+    transformer's and enc-dec's one stacked dict)."""
     if is_paged(tree):
         return 1
     if isinstance(tree, dict):
@@ -406,34 +433,41 @@ def count_paged(tree: Any) -> int:
     return 0
 
 
-def fill_tables(tree: Dict[str, torch.Tensor], tables: np.ndarray):
-    """The tree with its ``'table'`` leaf rebuilt from the host master
-    table (B, nb): every layer gets the same chains.  The width comes
-    from `tables`, so a `slice_tables`-trimmed slot view is restored to
-    full width."""
-    old = tree["table"]
-    tab = torch.as_tensor(np.ascontiguousarray(tables, np.int32)).to(
-        old.device)
-    return dict(tree, table=tab.expand(old.shape[:-2] + tab.shape)
-                .contiguous())
+def fill_tables(tree: Any, tables: np.ndarray):
+    """The tree with its paged dict's ``'table'`` leaf rebuilt from the
+    host master table (B, nb): every layer gets the same chains.  The
+    width comes from `tables`, so a `slice_tables`-trimmed slot view is
+    restored to full width."""
+    def fill(sub):
+        if not is_paged(sub):
+            return None
+        old = sub["table"]
+        tab = torch.as_tensor(np.ascontiguousarray(tables, np.int32)).to(
+            old.device)
+        return dict(sub, table=tab.expand(old.shape[:-2] + tab.shape)
+                    .contiguous())
+
+    return _rebuild(tree, fill)
 
 
-def slice_tables(tree: Dict[str, torch.Tensor], n_cols: int):
-    """The tree with its ``'table'`` leaf trimmed to the first `n_cols`
-    chain columns: the prefix-hit suffix prefill gathers the chain at
-    EXACTLY the cold prefill's padded length, so its attention reduces
-    over the same number of keys as the cold one."""
-    return dict(tree, table=tree["table"][..., :n_cols])
+def slice_tables(tree: Any, n_cols: int):
+    """The tree with its paged dict's ``'table'`` leaf trimmed to the
+    first `n_cols` chain columns: the prefix-hit suffix prefill gathers
+    the chain at EXACTLY the cold prefill's padded length, so its
+    attention reduces over the same number of keys as the cold one."""
+    return _rebuild(tree, lambda sub: dict(sub, table=sub["table"][
+        ..., :n_cols]) if is_paged(sub) else None)
 
 
-def copy_block(tree: Dict[str, torch.Tensor], dst: int, src: int):
+def copy_block(tree: Any, dst: int, src: int):
     """Copy-on-write payload move, IN PLACE: pool block `src` -> `dst` in
     every pool leaf (the scale pools of an int8 cache too), all layers.
     The host refcounts move separately (`BlockPool.writable_block`)."""
+    sub = paged_sub(tree)
     for key in POOL_KEYS:
-        if key not in tree:
+        if key not in sub:
             continue
-        pool = tree[key]
+        pool = sub[key]
         pool.select(-4, dst).copy_(pool.select(-4, src))
     return tree
 

@@ -32,6 +32,14 @@ lengths advance by each slot's emitted count.  A quantized cache
 reached through the same chains and copied with them; the paged
 autotuner comes with ROADMAP A2 item 4.
 
+Enc-dec pages its decoder's self-attention cache (the tree's ``self``)
+and keeps each slot's cross K/V as the slab engine does: every prefill's
+view takes the cross K/V of that prefill's own encoder run, on a prefix
+hit too, and a fork copies the slot's cross rows.  Its decoder K/V
+depend on the encoder input as well as on the tokens, so the prefix
+trie is scoped by a digest of the request's frames (`_prefix_scope`): a
+chain built under other frames never matches.
+
 A family with nothing pageable (griffin: recurrent state and ring
 buffers, already O(window); xlstm: recurrent state of a constant size)
 serves exactly as the slab engine: every
@@ -42,6 +50,7 @@ False.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -60,7 +69,7 @@ class _PagedMixin:
     `_slot_prefill_view` / `_commit_slot` hooks."""
 
     def __init__(self, arch, params, sc: ServeConfig, *args, **kwargs):
-        if arch.cfg.frontend_len:
+        if getattr(arch.cfg, "frontend_len", 0):
             raise NotImplementedError(
                 "paged serving does not support frontend-embedding "
                 "prompts (cache positions include the frontend span, "
@@ -73,8 +82,8 @@ class _PagedMixin:
                                               paged_impl=sc.paged_impl))
         super().__init__(arch, params, sc, *args, **kwargs)
         self._n_paged = kvpool.count_paged(self.caches)
-        pools = {k: self.caches[k] for k in kvpool.POOL_KEYS
-                 if k in self.caches}
+        sub = kvpool.paged_sub(self.caches) or {}
+        pools = {k: sub[k] for k in kvpool.POOL_KEYS if k in sub}
         self._block_bytes = kvpool.cache_tree_bytes(pools) // \
             self._pc.n_blocks
 
@@ -83,7 +92,8 @@ class _PagedMixin:
     def _empty_caches(self):
         return empty_serve_caches(
             self.arch, self.sc.batch_size, self.sc.max_len, dtype=self._cdt,
-            device=self.device, quantize=self._quant, paged=self._pc)
+            device=self.device, quantize=self._quant, paged=self._pc,
+            enc_len=self.sc.enc_len)
 
     def reset(self, seed: int = 0):
         bs, nb = self.sc.batch_size, self._pc.max_blocks_per_slot
@@ -167,6 +177,7 @@ class _PagedMixin:
         if self._chains[slot]:
             raise RuntimeError(f"slot {slot} prefilled while occupied "
                                "(reset_slot it first)")
+        scope = self._prefix_scope(frontend_embeds)
         shared: List[int] = []
         if self.prefix is not None:
             # `match_len` caps the trie match: eval scoring keeps every
@@ -176,7 +187,8 @@ class _PagedMixin:
                       else prompt_np[:match_len])
             with self._tracer.span("paged.prefix_match", cat="paged",
                                    slot=slot):
-                shared = self.pool.fork(self.prefix.match(target))
+                shared = self.pool.fork(self.prefix.match(target,
+                                                          scope=scope))
         shared_len = len(shared) * self._pc.block_size
         try:
             # a hit pads the SUFFIX so that shared + padded is the length
@@ -209,15 +221,37 @@ class _PagedMixin:
         view = take_slot_caches(self.caches, slot)      # pools shared
         # the host length is authoritative: a free slot's device length
         # has grown with every batched decode step it sat through
-        view["len"] = torch.full_like(view["len"], shared_len)
+        sub = kvpool.paged_sub(view)
+        sub["len"] = torch.full_like(sub["len"], shared_len)
         if shared_len:
             view = kvpool.slice_tables(
                 view, self._pc.blocks_for(shared_len + t_b))
+        if self.arch.family == "encdec":
+            # this request's own encoder run, on a prefix hit too
+            view["cross"] = self._fresh_slot_caches(frontend_embeds)[
+                "cross"]
         self.prefill_tokens += t_b
         self.prefill_token_log.append(t_b)
         self.prefix_hit_tokens += shared_len
-        ctx = {"ext": shared_len > 0, "prompt": prompt_np}
+        ctx = {"ext": shared_len > 0, "prompt": prompt_np, "scope": scope}
         return batch, view, true_len, ctx
+
+    def _prefix_scope(self, frontend_embeds) -> Optional[str]:
+        """The prefix trie's namespace: enc-dec's decoder K/V depend on
+        the encoder input, so its chains are keyed by a blake2b digest of
+        the request's frames too (their dtype, shape and bytes; a bf16
+        tensor through its 16-bit words), ``'enc:zeros'`` for a request
+        without frames; None (one namespace) for every other family."""
+        if self.arch.family != "encdec":
+            return None
+        if frontend_embeds is None:
+            return "enc:zeros"
+        t = torch.as_tensor(frontend_embeds).detach().cpu().contiguous()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+        h = hashlib.blake2b(digest_size=16)
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(raw.numpy().tobytes())
+        return "enc:" + h.hexdigest()
 
     def _commit_slot(self, slot: int, slot_caches, ctx):
         if not self._n_paged:
@@ -230,7 +264,8 @@ class _PagedMixin:
         prompt = ctx["prompt"]
         self._host_len[slot] = len(prompt)
         if self.prefix is not None:
-            self.prefix.insert(prompt, self._chains[slot])
+            self.prefix.insert(prompt, self._chains[slot],
+                               scope=ctx["scope"])
 
     # -- decode (pre-step reservation, post-step advance) --------------------
 

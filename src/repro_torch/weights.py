@@ -4,8 +4,8 @@
 ``jax.tree.map(np.asarray, params)`` — nested dicts of numpy arrays — and
 returns the port's params: the same nesting, with the scanned ``blocks``
 leaves ``(L, ...)`` (griffin's ``supers``, ``(n_super, ...)``, xlstm's
-``pairs``, ``(n_pairs, ...)``) unstacked into a list of per-layer
-(per-super, per-pair) dicts.  Every other
+``pairs``, ``(n_pairs, ...)``, enc-dec's ``enc`` and ``dec``) unstacked
+into a list of per-layer (per-super, per-pair) dicts.  Every other
 subtree crosses as it is, the MTP heads' head x depth stacked ``mtp``
 subtree included (`models/mtp.py` indexes it as JAX does).  Every
 layout stays the JAX package's (``wq (d, nq, hd)``, ``wo (nq, hd, d)``,
@@ -17,8 +17,9 @@ The way back: `state_to_host` / `state_to_jax` turn a port train state
 (params, AdamW moments or Adafactor slots, the counters) into the flat
 dict the JAX package's checkpointer writes, keyed by its path strings
 (``params/blocks/attn/wq``, ``params/supers/b0/temporal/rglru/wa``,
-``params/rem0/...``, ``opt/mu/...``, ``opt/slots/<path>/vr``,
-``opt/count``, ``step``) with the per-layer leaves stacked again;
+``params/rem0/...``, ``params/dec/cross_attn/wk``, ``opt/mu/...``,
+``opt/slots/<path>/vr``, ``opt/count``, ``step``) with the per-layer
+leaves stacked again;
 `state_from_jax` builds a port state from such a dict.  numpy keeps no
 bfloat16 of its own, so a bf16 leaf crosses as raw ``|V2`` words: what
 ``np.savez`` writes for the JAX package's bfloat16.
@@ -77,8 +78,8 @@ def _layer_count(blocks) -> int:
 
 # the JAX package's layer-stacked subtrees: the transformer's scanned
 # blocks, griffin's scanned (rec, rec, attn) supers, xlstm's scanned
-# (sLSTM, mLSTM) pairs
-_STACKED = ("blocks", "supers", "pairs")
+# (sLSTM, mLSTM) pairs, enc-dec's scanned encoder and decoder blocks
+_STACKED = ("blocks", "supers", "pairs", "enc", "dec")
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
@@ -108,6 +109,20 @@ def states_from_jax(tree: Dict[str, Any], device="cpu") -> List[Any]:
         return tensor_from_numpy(t[i], device)
 
     return [unstack(tree, i) for i in range(_layer_count(tree))]
+
+
+def encdec_caches_from_jax(tree: Dict[str, Any], device="cpu"
+                           ) -> Dict[str, Any]:
+    """Enc-dec's serve caches from a numpy copy of the JAX package's
+    (``{'self': {'k', 'v', 'len'}, 'cross': (k, v)}``, the cross pair
+    layer-stacked (L, B, T_enc, nkv, hd)): the self dict as it is, the
+    cross pair as the port's per-layer list of ``{'k', 'v'}``."""
+    k, v = tree["cross"]
+    return {"self": _map(tree["self"],
+                         lambda a: tensor_from_numpy(a, device)),
+            "cross": [{"k": tensor_from_numpy(k[i], device),
+                       "v": tensor_from_numpy(v[i], device)}
+                      for i in range(k.shape[0])]}
 
 
 def _key(prefix: str, path) -> str:

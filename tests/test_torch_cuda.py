@@ -571,13 +571,16 @@ _GRADS = ("dh", "dw")
     ("d896", 1000, 151936, 896, 151655, 0, {}),
     # xlstm-125m's: a cluster of 4 whose last range lies wholly past d
     ("d768", 1000, 50432, 768, 50304, 0, {}),
+    # seamless-m4t-medium's: V 256256, the last 64-row W tile 14 valid
+    # rows and 50 pads
+    ("v256256_d1024", 1000, 256256, 1024, 256206, 0, {}),
 ])
 def test_grad_cluster_kernel_matches_plain_version(cuda, which, name, n, v,
                                                    d, valid, off, cfg_kw):
     """The cluster dH / dW kernels at the phase-2 configurations of
     chip_smoke.py (fewer rows) and at d 896: rtol 3e-4 / atol 1e-6 and a
     relative Frobenius error of 1e-4 against `ref_dh` / `ref_dw`; two
-    calls bit for bit."""
+    calls bit for bit; dW's rows past the valid vocab exactly zero."""
     from repro_torch.core import LossConfig
     from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, ref_dh,
                                               ref_dw, ref_stats)
@@ -596,6 +599,8 @@ def test_grad_cluster_kernel_matches_plain_version(cuda, which, name, n, v,
     want = ref(h, w, y, lse, gamma, pc, cfg, **kw)
     torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
     assert float((got - want).norm() / want.norm()) <= 1e-4
+    if which == "dw":
+        assert not bool(got[valid - off:].any())
 
 
 @pytest.mark.cuda
@@ -1409,7 +1414,9 @@ def test_quantized_paged_decode_step_launches_the_kernels(cuda):
     (151808, 896, 151655),         # internvl2-1b's
     (256000, 4096, 256000),        # recurrentgemma-9b's, the widest
     (50432, 768, 50304),           # xlstm-125m's, the smallest
-], ids=["qwen3-moe", "arctic", "internvl2", "recurrentgemma", "xlstm"])
+    (256256, 1024, 256206),        # seamless-m4t-medium's, 50 pad rows
+], ids=["qwen3-moe", "arctic", "internvl2", "recurrentgemma", "xlstm",
+        "seamless"])
 def test_topk_decode_on_family_heads(cuda, v, d, valid, rows, k):
     """The decode top-k on the heads of the new configs at the decode
     rows: values rtol 1e-5 / atol 1e-4 of the plain version, ids exact
@@ -1718,3 +1725,81 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(cuda):
     r = chip_smoke.xlstm_blocks_card_vs_cpu(
         torch, np, get_arch(chip_smoke.XLSTM_ID), cuda)
     assert r["state_fro"] <= chip_smoke.XLSTM_STATE_FRO
+
+
+# ---------------------------------------------------------------------------
+# enc-dec (seamless-m4t-medium): its 256256 x 1024 head, head_dim 64, its
+# blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp", [None, 0.7])
+def test_score_tokens_on_seamless_head(cuda, temp):
+    """`score_tokens` over seamless-m4t-medium's padded head (V 256256, d
+    1024, valid 256206: the last vocab tile of 64 holds 14 valid rows) at
+    32 rows, P 1: lse and the candidate logits rtol 1e-5 / atol 1e-4 of
+    the plain version, two calls bit for bit, one launch a call."""
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref)
+    gen = torch.Generator(device=cuda).manual_seed(1024)
+    v, d, valid = 256256, 1024, 256206
+    h = torch.randn((32, d), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((v, d), generator=gen, device=cuda) / d ** 0.5
+    w[valid:] = 0.0
+    w = w.bfloat16()
+    ids = torch.randint(0, valid, (32, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(valid_vocab=valid, temperature=temp)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, w, ids, **kw)
+    lse2, zc2 = score_stats(h, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+def test_paged_attn_at_head_dim_64(cuda, tq):
+    """seamless-m4t-medium's decoder attention: 16 query over 16 KV heads
+    (group 1), head_dim 64, block 16, at decode (Tq 1) and a spec
+    verify's Tq 5: atol / rtol 1e-2 of the plain version, two calls bit
+    for bit, one launch a call."""
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    q, kp, vp, table, lens = _paged_problem(cuda, 8, tq, 16, 16, 64, 16, 32,
+                                            seed=64 + tq)
+    before = LAUNCHES.count
+    out = paged_attention(q, kp, vp, table, lens)
+    again = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(out, again)
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_encdec_blocks_on_the_card_match_the_cpu(cuda):
+    """One full-width seamless-m4t-medium encoder block over 4096 frames
+    (non-causal blockwise attention with RoPE) and one decoder block with
+    cross-attention over its output (Tq != Tk, no mask) on a bucketed
+    300-token prefill followed by 4 decode steps, on the card and on the
+    CPU from the same bf16 frames, input and weights (random MLP
+    biases), through `chip_smoke.encdec_blocks_card_vs_cpu`, which holds
+    phase 15 (e) to the same limit: outputs and the self cache's K within
+    2^-6 of the CPU's largest entry (bf16 GEMM outputs after f32 sums in
+    another order)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.models.registry import get_arch
+    r = chip_smoke.encdec_blocks_card_vs_cpu(
+        torch, np, get_arch(chip_smoke.ENCDEC_ID), cuda)
+    assert max(r["enc"], r["dec"], r["k"]) <= chip_smoke.ENCDEC_BLOCK_ATOL

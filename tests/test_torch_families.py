@@ -15,9 +15,9 @@ Seeded numpy inputs and the JAX package's weights (moved with
   * `param_count` / `active_param_count` equal to JAX's, integer for
     integer, for every registered id at full size (the port's params on
     the meta device, JAX's from `jax.eval_shape`) and reduced;
-  * the family the port does not take yet (enc-dec) still refused; xlstm,
-    once refused here, is held to the JAX package in
-    `test_torch_xlstm*.py`.
+  * every config id of the JAX package registered in the port (enc-dec,
+    the last family, is held to the JAX package in
+    `test_torch_encdec*.py`), and an unknown id raising `KeyError`.
 
 Training and checkpoints: `test_torch_families_train.py`; the serving
 engines: `test_torch_families_serve.py`.
@@ -115,9 +115,10 @@ def test_param_counts_match_jax(arch_id):
 
 
 def test_later_families_still_refused():
-    for arch_id, family in (("seamless-m4t-medium", "encdec"),):
-        with pytest.raises(NotImplementedError, match="A8 part 4") as e:
-            TR.get_arch(arch_id)
-        assert family in str(e.value)
+    """No family is left to refuse: the port registers every config id
+    of the JAX package, each of its family, and an unknown id raises."""
+    assert set(TR._CONFIG_MODULES) == set(JR._CONFIG_MODULES)
+    for arch_id in JR._CONFIG_MODULES:
+        assert TR.get_arch(arch_id).family == JR.get_arch(arch_id).family
     with pytest.raises(KeyError):
         TR.get_arch("no-such-arch")
