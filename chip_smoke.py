@@ -355,7 +355,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      one 4096-frame encode alone, the cross-attention's share of a
      decode step, peak memory, spec-step ms and acceptance, the
      training step and tokens/s.
+ 16. the shapes past d 4096, k 64 and 64 candidates, last: (a)
+     mistral-large-123b (d 12288, V 32768) and (b) qwen1.5-32b (d 5120,
+     V 152064) at their published widths cut to 1 layer, AdamW at lr
+     3e-5, ``loss_impl='kernel'``,
+     batch 4 x 1024, 3 steps: step 0 within TRAIN_LOSS_RTOL of the
+     canonical loss and TRAIN_HEAD_FRO on the lm_head gradient, its dH
+     and dW launches (the backward's column passes) against their plain
+     versions, one launch of each fused-CE kernel a step; prints step ms
+     p50, tokens/s and peak memory; (c) qwen3-0.6b on phase 3's traffic
+     at temperature 0.8 and top_k 100, a beam-40 group (80 candidates a
+     row) on `PagedEngine` and a best-of-4 group at top_k 100 on
+     `Engine`, one `sample_topk` launch a prefill and a step, every call
+     (the list kernel) held to its plain version on its hidden states;
+     (d) ``python -m repro_torch.launch.serve --arch qwen3-0.6b
+     --temperature 0.8 --top-k 100 --metrics-json P --trace-out Q`` in a
+     subprocess: exit 0, the report's keys the reference's, the chrome
+     trace's ``engine.decode_step`` spans.
 
+Phase 2 also takes the new cases past the kernels' old limits: the
+top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
+256 and 1024, at k 100 with a half-zero mask and the lse, on an int8
+head and on the 256000 x 4096 head, and k = V + 3 on a 1000-row head;
+the fused-CE forward, dH and dW at d 5120 (V 152064), 7168 (V 32000)
+and 12288 (V 32768), 4096 rows, 101 pad rows, with the exact cases'
+checks and yardsticks, then filtered under an all-False mask (bit for
+bit the exact kernels) and on the peaked problem (against the plain
+version given the mask, dW's pad rows zero); `score_tokens` at 8 rows
+and P 65, 128 and 256 on the padded head and seamless-m4t-medium's.
 Phase 2 also holds `paged_attn` to its plain version at the decode
 shape of phase 5 (B 8, Tq 1, 16 query / 8 KV heads, head_dim 128, block
 16, 32 blocks a row), with full chains, with Tq 4 and softcap 30, with
@@ -499,6 +526,8 @@ QUANT_TOKEN_TOL = 5e-3
 QUANT_POOL_RATIO = 0.55
 XLSTM_VALID = 50304               # xlstm-125m's vocab; its head pads to 50432
 ENCDEC_VALID = 256206             # seamless-m4t-medium's; its head: 256256
+# the models past d 4096, whose fused-CE backward runs in column passes
+WIDE_IDS = ("qwen1.5-32b", "arctic-480b", "mistral-large-123b")
 
 
 def card_line():
@@ -573,6 +602,32 @@ def check_topk(np, vals, ids, rv, ri, exact_ids):
         sep[:, 1:] &= gap
     np.testing.assert_array_equal(ids[sep], ri[sep])
     return float(np.max(np.abs(vals[fin] - rv[fin]))), int(sep.sum())
+
+
+def check_topk_wide(np, vals, ids, rv, ri):
+    """`check_topk` for long lists (k > 64), given the plain version's
+    top k + 1 (`rv`, `ri`): -inf in the same places,
+    values at VAL_RTOL / VAL_ATOL, ids equal wherever a value lies
+    further from both neighbours, the (k + 1)-th included, than twice
+    what the tolerance lets either move (at k 1024 of 152064 columns,
+    gaps of ~1e-4 between values are common, and the k-th and (k + 1)-th
+    may swap); returns (max |err|, ids checked)."""
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (vals, ids, rv, ri))
+    k = vals.shape[1]
+    fin_ext = np.isfinite(rv)
+    tol = VAL_ATOL + VAL_RTOL * np.abs(np.where(fin_ext, rv, 0.0))
+    gap = np.abs(np.diff(rv, axis=1)) > 2 * np.maximum(tol[:, 1:],
+                                                       tol[:, :-1])
+    rv, ri, fin = rv[:, :k], ri[:, :k], fin_ext[:, :k]
+    if not np.array_equal(fin, np.isfinite(vals)):
+        raise AssertionError("kernel and plain version disagree on -inf")
+    np.testing.assert_allclose(vals[fin], rv[fin], rtol=VAL_RTOL,
+                               atol=VAL_ATOL)
+    sep = fin & gap
+    sep[:, 1:] &= gap[:, :-1]
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+    err = float(np.max(np.abs(vals[fin] - rv[fin]))) if fin.any() else 0.0
+    return err, int(sep.sum())
 
 
 def check_top1(np, vals, ids, rv2, ri2, exact_ids):
@@ -791,6 +846,93 @@ def phase_topk(torch, np, arch, dev):
               flush=True)
         del rv, ri
     results.update(topk_mode_cases(torch, np, w, valid, gen, dev))
+    results.update(topk_list_cases(torch, np, w, valid, wide["v256000"],
+                                   gen, dev))
+    return results
+
+
+def topk_list_cases(torch, np, w, valid, w256k, gen, dev):
+    """k past the decode kernel's 64 (the list kernel): 8 rows on the
+    padded head at k 65, 100, 256 and 1024, and at k 100 with a half-zero
+    mask and the lse, on an int8 head with `w_scale`, and on the 256000
+    x 4096 head; k = V + 3 on a 1000-row head (a -inf tail, id 0).  Each
+    against its plain version (`check_topk_wide`), twice bit for bit,
+    timed beside its bound, the plain version and ``torch.topk(h @ w.T,
+    k)`` (through the dequantized head for the int8 case)."""
+    from repro_torch.core.windows import topk_big_lists
+    from repro_torch.kernels.quant import quantize_weight
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    wq, ws = quantize_weight(w, "int8")
+    wq, ws = wq.contiguous(), ws.contiguous()
+    small = (torch.randn((1000, 1024), generator=gen, device=dev)
+             / 32).bfloat16()
+    mask = (torch.rand((8, w.shape[0]), generator=gen, device=dev)
+            < 0.5).to(torch.int8)
+    cases = [(f"list_rows8_k{k}", k, w, valid, {}) for k in (65, 100, 256,
+                                                             1024)]
+    cases += [
+        ("list_rows8_k100_mask_lse", 100, w, valid,
+         dict(allowed_mask=mask, return_lse=True)),
+        ("list_int8_rows8_k100", 100, wq, valid, dict(w_scale=ws)),
+        ("list_v256000_rows8_k100", 100, w256k, w256k.shape[0], {}),
+        ("list_v1000_rows8_k1003", 1003, small, 1000, {}),
+    ]
+    results = {}
+    for name, k, wt, valid_c, opt in cases:
+        v_c, d_c = wt.shape
+        h = torch.randn((8, d_c), generator=gen, device=dev).bfloat16()
+        kw = dict(valid_vocab=valid_c, **opt)
+        before = LAUNCHES.count
+        got = cuda_topk(h, wt, k, **kw)
+        again = cuda_topk(h, wt, k, **kw)
+        torch.cuda.synchronize()
+        if LAUNCHES.count != before + 2:
+            raise AssertionError(f"{name}: {LAUNCHES.count - before} "
+                                 "launches for two calls")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"sample_topk {name}: two calls differ")
+        ref = topk_scores_ref(h, wt, k, **kw)
+        ext = topk_scores_ref(h, wt, k + 1, **kw)
+        err, n_ids = check_topk_wide(np, got[0], got[1], ext[0], ext[1])
+        if "return_lse" in opt:
+            torch.testing.assert_close(got[2], ref[2], rtol=VAL_RTOL,
+                                       atol=VAL_ATOL)
+            fin = torch.isfinite(got[0])
+            ok = mask.bool().gather(1, got[1].long().clamp(0, v_c - 1))
+            if not bool(ok[fin].all()):
+                raise AssertionError(f"{name}: a disallowed id")
+        if k > v_c and not (bool(torch.isneginf(got[0][:, v_c:]).all())
+                            and not bool(got[1][:, v_c:].any())):
+            raise AssertionError(f"{name}: the tail past V is not -inf, 0")
+        ms = cuda_ms(torch, lambda: cuda_topk(h, wt, k, **kw))
+        plain_ms = cuda_ms(torch, lambda: topk_scores_ref(h, wt, k, **kw),
+                           iters=3, warmup=1)
+        wl = (wt.float() * ws[:, None]).bfloat16() if "w_scale" in opt \
+            else wt
+        wl = wl[:valid_c]
+        library_ms = cuda_ms(torch, lambda: torch.topk(h @ wl.T,
+                                                       min(k, valid_c)))
+        # a mask read (8 x V bytes) and the lse written; a 1-byte W of
+        # V x d bytes and its V f32 scales in place of the bf16 W
+        extra = (8 * v_c + 8 * 4 if "allowed_mask" in opt else 0) + (
+            4 * v_c - v_c * d_c if "w_scale" in opt else 0)
+        bound_ms, bound_by = topk_bound_ms(8, d_c, v_c, k,
+                                           extra_bytes=extra)
+        plan, kk, in_smem = topk_big_lists(8, v_c, k,
+                                           1 if "w_scale" in opt else 2)
+        results[name] = dict(rows=8, k=k, d=d_c, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[kernel] sample_topk {name} (list kernel, d {d_c}, V {v_c}"
+              f", k {k}): max_abs_err {err:.3g} ({n_ids} ids checked "
+              f"exactly); plan 8 x {plan.row_tiles} row tiles, "
+              f"{plan.slices} slices of {plan.per} tiles, lists of {kk} "
+              f"keys in {'shared' if in_smem else 'global'} memory, "
+              f"{plan.stages} stages; two calls bit-identical; call "
+              f"{ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, torch.topk(h @ w.T) {library_ms:.4f} ms",
+              flush=True)
     return results
 
 
@@ -933,6 +1075,7 @@ def peak_mib(torch, fn):
 def phase_fused_ce(torch, np, arch, dev):
     from repro_torch.core import LossConfig
     from repro_torch.core.streaming import row_scale
+    from repro_torch.models.registry import get_arch
     from repro_torch.kernels.fused_ce import (bwd_max_clusters, dh_grads,
                                               dw_grads, fwd_stats,
                                               kernel_loss, ref_dh, ref_dw,
@@ -970,6 +1113,12 @@ def phase_fused_ce(torch, np, arch, dev):
         # with 256206 valid, the last W tile 14 valid rows and 50 pads
         ("v256256_d1024", 4096, 256256, 1024, ENCDEC_VALID, 0, {}, 0.0),
     ]
+    # past d 4096, the backward's column passes (phase 16's shapes, and
+    # arctic-480b's head): 4096 rows, 101 pad rows past the valid vocab
+    for arch_id in WIDE_IDS:
+        wa = get_arch(arch_id)
+        wv, wd = wa.padded_vocab, wa.cfg.d_model
+        cases.append((f"v{wv}_d{wd}", 4096, wv, wd, wv - 101, 0, {}, 0.0))
     results = {}
     errs = {"fused_ce_fwd": 0.0, "fused_ce_dh": 0.0, "fused_ce_dw": 0.0}
     for name, n, v, d, valid, off, cfg_kw, ign in cases:
@@ -1098,6 +1247,84 @@ def phase_fused_ce(torch, np, arch, dev):
                   flush=True)
         results[name] = row
     return results, errs
+
+
+def phase_ce_wide_filter(torch, np, dev, exact, n=4096):
+    """Phase 2's filtered cases past d 4096, at the shapes of
+    `WIDE_IDS` (4096 rows): under an all-False mask the filtered dH and
+    dW bit for bit the exact kernels, and on the peaked problem (most
+    tiles skipped) held to the plain version given the same mask, dW's
+    pad rows zero; timed beside the exact kernels (`exact`: phase 2's
+    rows) and the bound of the live share."""
+    from repro_torch.core import LossConfig
+    from repro_torch.core.filtering import skipped_fraction, tile_skip_mask
+    from repro_torch.core.windows import ce_tile_grid
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+    from repro_torch.models.registry import get_arch
+    out, worst = {}, {"dh": 0.0, "dw": 0.0}
+    for arch_id in WIDE_IDS:
+        wa = get_arch(arch_id)
+        v, d = wa.padded_vocab, wa.cfg.d_model
+        valid = v - 101
+        name = f"v{v}_d{d}"
+        gen = torch.Generator(device=dev).manual_seed(d)
+        w = torch.randn((v, d), generator=gen, device=dev)
+        w = w / w.norm(dim=1, keepdim=True)
+        w[valid:] = 0.0
+        y = torch.randint(0, valid, (n,), generator=gen, device=dev)
+        y2 = torch.randint(0, valid, (n,), generator=gen, device=dev)
+        h = (PEAK_A * w[y] + PEAK_B * w[y2] + 0.1 * torch.randn(
+            (n, d), generator=gen, device=dev) / d ** 0.5).bfloat16()
+        w, y = w.bfloat16(), y.to(torch.int32)
+        cfg = LossConfig(grad_filter_eps=FILTER_EPS, valid_vocab=valid)
+        lse, _, _, tmax = fwd_stats(h, w, y, cfg, return_tile_stats=True)
+        gamma = torch.full((n,), 1.0 / n, device=dev)
+        gargs = (h, w, y, lse, gamma, gamma, cfg)
+        none = torch.zeros(ce_tile_grid(n, v), dtype=torch.bool, device=dev)
+        mask = tile_skip_mask(tmax, lse, y, cfg, block_rows=64, block_v=64)
+        frac = float(skipped_fraction(mask))
+        if not frac > 0.5:
+            raise AssertionError(f"{name}: {frac:.3f} of the tiles skipped")
+        row = {}
+        for kind, grads, plain in (("dh", dh_grads, ref_dh),
+                                   ("dw", dw_grads, ref_dw)):
+            ex = grads(*gargs)
+            if not torch.equal(grads(*gargs, skip_mask=none), ex):
+                raise AssertionError(f"{name} {kind}: the filtered kernel "
+                                     "under an all-False mask is not the "
+                                     "exact one bit for bit")
+            got = grads(*gargs, skip_mask=mask)
+            if not torch.equal(got, grads(*gargs, skip_mask=mask)):
+                raise AssertionError(f"{name} {kind}: two filtered calls "
+                                     "differ")
+            torch.cuda.synchronize()
+            want = plain(*gargs, skip_mask=mask)
+            torch.testing.assert_close(got, want, rtol=CE_GRAD_RTOL,
+                                       atol=CE_GRAD_ATOL)
+            if kind == "dw" and bool(got[valid:].any()):
+                raise AssertionError(f"{name}: dW's pad rows are not zero")
+            worst[kind] = max(worst[kind], float((got - want).abs().max()))
+            del ex, want
+            bound, by = filtered_bound_ms(kind, n, v, d, 1.0 - frac)
+            row[kind] = dict(
+                ms=cuda_ms(torch, lambda: grads(*gargs, skip_mask=mask),
+                           iters=3, warmup=1),
+                allfalse_ms=cuda_ms(torch, lambda: grads(
+                    *gargs, skip_mask=none), iters=3, warmup=1),
+                exact_ms=exact[name][kind]["ms"], bound_ms=bound,
+                bound_by=by)
+            r = row[kind]
+            print(f"[filter] {kind} {name} (n {n}, peaked, {frac:.3f} of "
+                  f"the tiles skipped): filtered {r['ms']:.3f} ms vs bound "
+                  f"{bound:.3f} ms ({by}), all-False mask {r['allfalse_ms']:.3f}"
+                  f" ms (bit for bit the exact kernel, {r['exact_ms']:.3f} "
+                  f"ms); held to the plain version given the same mask "
+                  f"(max |err| {worst[kind]:.3g})", flush=True)
+        out[name] = row
+        del h, w, y, y2, lse, tmax, mask, none
+        torch.cuda.empty_cache()
+    return out, worst
 
 
 def filtered_bound_ms(kind, n, v, d, live):
@@ -2339,6 +2566,12 @@ def phase_score(torch, np, arch, dev):
         ("v50432_rows32_p1", 32, 1, None, None, 0, "v50432"),
         ("v256256_rows32_p1", 32, 1, None, None, 0, "v256256"),
     ]
+    # past 64 candidates a row: groups of 64 a CTA, W streamed again a
+    # group (through L2 where the slice's neighbours brought it in)
+    for p_big in (65, 128, 256):
+        cases.append((f"rows8_p{p_big}", 8, p_big, None, 0.7, 0, None))
+        cases.append((f"v256256_rows8_p{p_big}", 8, p_big, None, None, 0,
+                      "v256256"))
     results = {}
     for name, rows, p, cap, temp, off, dw in cases:
         if dw:
@@ -6530,6 +6763,264 @@ def phase_encdec(torch, np, card, dev):
     return launches
 
 
+def phase_wide_train(torch, np, arch_id, tag, card, dev):
+    """Phase 16 (a) / (b): `arch_id` at its published widths cut to 1
+    layer, AdamW, the kernel loss, batch 4 x 1024, 3 steps: step 0 held
+    to the canonical loss, its dH and dW launches (the column passes past
+    d 4096) to their plain versions.  Returns the launches."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import TrainConfig, build_loss_fn
+    arch = with_cfg(get_arch(arch_id), n_layers=1)
+    steps, b, t = 3, 4, 1024
+    # lr 3e-5: at 3e-4 AdamW overshoots the one-layer 12288-wide model at
+    # random init by its third step (loss 10.54 -> 20.10 on the H100, the
+    # canonical loss alike: 20.10), at 3e-3 too (21.48)
+    tc = TrainConfig(peak_lr=3e-5, warmup_steps=1, total_steps=steps,
+                     loss_impl="kernel", loss_block_v=2048)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=t,
+                                  global_batch=b, seed=0))
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    head = params["lm_head"].requires_grad_(True)
+    torch.cuda.synchronize()
+    print(f"[wide] ({tag}) set-up {time.perf_counter() - t0:.1f}s: {arch_id}"
+          f" d {arch.cfg.d_model}, 1 layer of {get_arch(arch_id).cfg.n_layers}"
+          f", vocab {arch.vocab_size} (head {arch.padded_vocab}), AdamW, "
+          f"loss_impl kernel, batch {b} x {t}", flush=True)
+    batch0 = to_device(data.batch(0), dev)
+    step0, grads = {}, []
+    undo = spy_ce_grads(grads)
+    try:
+        for impl in ("kernel", "canonical"):
+            loss_fn = build_loss_fn(arch, TrainConfig(
+                loss_impl=impl, loss_block_v=tc.loss_block_v))
+            loss, _ = loss_fn(params, batch0)
+            (g_head,) = torch.autograd.grad(loss, [head])
+            step0[impl] = (float(loss.detach()), g_head)
+    finally:
+        undo()
+    grad_errs = check_ce_grads(torch, f"({tag}) step 0", grads)
+    del grads
+    (lk, gk), (lc, gc) = step0["kernel"], step0["canonical"]
+    loss_err = abs(lk - lc) / abs(lc)
+    head_fro = float((gk.float() - gc.float()).norm() / gc.float().norm())
+    del step0, gk, gc, params, head
+    torch.cuda.empty_cache()
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_fro <= TRAIN_HEAD_FRO):
+        raise AssertionError(f"({tag}) step 0: kernel loss {lk} vs "
+                             f"canonical {lc} (rel {loss_err:.3g}), lm_head "
+                             f"grad rel fro {head_fro:.3g}")
+    print(f"[wide] ({tag}) step 0, kernels vs canonical loss: {lk:.6f} vs "
+          f"{lc:.6f} (rel {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}), bf16 "
+          f"lm_head grad rel fro {head_fro:.3g} (limit {TRAIN_HEAD_FRO}); "
+          "its backward at its own shape against the plain versions: "
+          + "; ".join(f"{name} (n {n}, V {v}, d {d}) max |err| {err:.3g}, "
+                      f"rel fro {fro:.3g} (limit {CE_GRAD_FRO})"
+                      for name, n, v, d, err, fro in grad_errs), flush=True)
+    state, history, counts, spans, peak = train_run(
+        torch, np, build, tc, arch, dev, data, steps)
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps,
+            "fused_ce_dw": steps}
+    counts = {k: c for k, c in counts.items() if c}
+    if counts != want:
+        raise AssertionError(f"({tag}) launches {counts}, expected {want}")
+    n_params = sum(x.numel() for x in leaves(state["params"]))
+    opt_gb = state_bytes(opt_tensors(state["opt"])) / 1e9
+    p50 = float(np.median(spans))
+    print(f"[wide] ({tag}) {steps} steps, loss "
+          + " ".join(f"{m['loss']:.4f}" for _, m in history)
+          + f"; launches {counts} = one of each a step; {n_params / 1e9:.3f}"
+          f" G params, optimizer state {opt_gb:.2f} GB; step {p50:.1f} ms "
+          f"p50 over steps 1-{steps - 1}, {b * t / (p50 / 1e3):.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB on {card}", flush=True)
+    del state
+    return counts
+
+
+def wide_topk_calls(torch, np, tag, calls, arch, k, lse):
+    """Each recorded top-k call at `k` on `arch`'s head held to the plain
+    version on the same hidden states (`check_topk_wide`, the lse at
+    VAL_RTOL / VAL_ATOL); returns the largest error."""
+    from repro_torch.kernels.sample_topk import topk_scores_ref
+    worst = 0.0
+    for h, w, kc, kw, out in calls:
+        if kc != k or bool(kw.get("return_lse")) != lse or \
+                kw.get("valid_vocab") != arch.vocab_size:
+            raise AssertionError(f"{tag}: a top-k call at k {kc}, lse "
+                                 f"{kw.get('return_lse')}, vocab "
+                                 f"{kw.get('valid_vocab')}")
+        ref = topk_scores_ref(h, w, kc, **kw)
+        ext = topk_scores_ref(h, w, kc + 1, **kw)
+        err, _ = check_topk_wide(np, out[0], out[1], ext[0], ext[1])
+        if lse:
+            torch.testing.assert_close(out[2], ref[2], rtol=VAL_RTOL,
+                                       atol=VAL_ATOL)
+            err = max(err, float((out[2] - ref[2]).abs().max()))
+        worst = max(worst, err)
+    return worst
+
+
+def phase_wide_serve(torch, np, card, dev):
+    """Phase 16 (c): qwen3-0.6b at top_k 100 (temperature 0.8) on phase
+    3's traffic, a beam-40 group (80 candidates a row) on `PagedEngine`
+    and a best-of-4 group at top_k 100 on `Engine`: every step's top-k
+    (the list kernel) held to the plain version on its hidden states.
+    Returns the sample_topk launches."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sample_topk import LAUNCHES
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import (ContinuousScheduler, Engine, PagedEngine,
+                                   ServeConfig)
+    arch = get_arch("qwen3-0.6b")
+    t0 = time.perf_counter()
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    print(f"[wide] (c) set-up {time.perf_counter() - t0:.1f}s: qwen3-0.6b "
+          f"{arch.cfg.n_layers} layers bf16", flush=True)
+    prompts = serve_prompts(np, arch.vocab_size)
+    runs = (
+        ("sampled top_k 100", 100, False, lambda: Engine(
+            arch, params, ServeConfig(batch_size=8, max_len=512,
+                                      temperature=0.8, top_k=100),
+            device=dev), lambda s: [s.submit(p) for p in prompts], 32),
+        ("beam 40 paged", 80, True, lambda: PagedEngine(
+            arch, params, ServeConfig(batch_size=40, max_len=512,
+                                      paged=True, block_size=16),
+            device=dev), lambda s: [s.submit_beam(prompts[0], n_beams=40)],
+         8),
+        ("best-of 4 top_k 100", 100, True, lambda: Engine(
+            arch, params, ServeConfig(batch_size=8, max_len=512, top_k=100),
+            device=dev), lambda s: [s.submit_best_of(
+                prompts[1], n=4, temperature=0.8, seed=3)], 16),
+    )
+    total = 0
+    for tag, k, lse, make, submit, max_new in runs:
+        calls = []
+        undo = spy_topk(calls)
+        reg, tracer = obs.enable(trace=True)
+        try:
+            eng = make()
+            sched = ContinuousScheduler(eng, max_new_tokens=max_new)
+            build.reset_counters()
+            t0 = time.perf_counter()
+            rids = submit(sched)
+            results = sched.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = LAUNCHES.count
+        finally:
+            obs.disable()
+            undo()
+        steps = [x.duration * 1e3 for x in tracer.spans
+                 if x.name == "engine.decode_step"]
+        prefills = len(sched.admit_order)
+        if launches != prefills + sched.decode_steps or \
+                len(calls) != launches:
+            raise AssertionError(f"(c) {tag}: {launches} sample_topk "
+                                 f"launches, {len(calls)} calls, for "
+                                 f"{prefills} prefills + "
+                                 f"{sched.decode_steps} steps")
+        if k == 100 and not lse:
+            # the sampler takes k = 100 at prefill and decode alike
+            ks = {c[2] for c in calls}
+            if ks != {100}:
+                raise AssertionError(f"(c) {tag}: top-k calls at k {ks}")
+        worst = wide_topk_calls(torch, np, f"(c) {tag}", calls, arch, k, lse)
+        toks = [np.asarray(results[r]) for r in rids]
+        if not all(((o >= 0) & (o < arch.vocab_size)).all() for o in toks):
+            raise AssertionError(f"(c) {tag}: an id outside the vocab")
+        extra = ""
+        if sched.hypotheses:
+            hyp = sched.hypotheses[rids[0]]
+            lps = [x.logp for x in hyp]
+            want_n = 40 if "beam" in tag else 4
+            if len(hyp) != want_n or lps != sorted(lps, reverse=True) or \
+                    not np.all(np.isfinite(lps)):
+                raise AssertionError(f"(c) {tag}: hypotheses {len(hyp)}, "
+                                     f"logps {lps[:5]}...")
+            extra = (f", {len(hyp)} hypotheses (best logp {lps[0]:.3f}), "
+                     f"forks {sched.group_forks}")
+        total += launches
+        print(f"[wide] (c) {tag}: {len(rids)} request(s), "
+              f"{sum(len(o) for o in toks)} tokens in {dt:.2f}s; "
+              f"sample_topk launches {launches} = {prefills} prefills + "
+              f"{sched.decode_steps} steps, every one at k {k} held to the "
+              f"plain version on its hidden states (max |err| {worst:.3g})"
+              f"{extra}; decode step {np.median(steps):.2f} ms p50 on {card}",
+              flush=True)
+        del eng, sched, calls
+    del params
+    return total
+
+
+def phase_wide_cli(torch, np, card):
+    """Phase 16 (d): the serve CLI at top_k 100 with the metrics report
+    and a chrome trace, in a subprocess on the card."""
+    workdir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"),
+                               prefix="wide_cli_")
+    metrics = os.path.join(workdir, "metrics.json")
+    trace = os.path.join(workdir, "trace.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen3-0.6b", "--temperature", "0.8", "--top-k", "100",
+           "--metrics-json", metrics, "--trace-out", trace]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"(d) the serve CLI exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(metrics, encoding="utf-8") as f:
+            report = json.load(f)
+        with open(trace, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        subprocess.run(["rm", "-rf", workdir], check=False)
+    keys = {"schema", "enabled", "metrics", "mode", "arch"}
+    if set(report) != keys or not report["enabled"] or \
+            report["arch"] != "qwen3-0.6b":
+        raise AssertionError(f"(d) metrics report keys {sorted(report)}")
+    decodes = report["metrics"]["engine.decode_steps_total"]["value"]
+    spans = [e for e in events if e["name"] == "engine.decode_step"]
+    if not spans or decodes < 1:
+        raise AssertionError(f"(d) {len(spans)} engine.decode_step spans, "
+                             f"{decodes} decode steps counted")
+    last = proc.stdout.strip().splitlines()
+    print(f"[wide] (d) `{' '.join(cmd[2:])}` exited 0 in {dt:.1f}s: the "
+          f"metrics report has the reference's keys {sorted(keys)} "
+          f"({len(report['metrics'])} instruments, {decodes} decode steps), "
+          f"the chrome trace {len(events)} spans, {len(spans)} of them "
+          f"engine.decode_step; its summary: "
+          f"{[ln for ln in last if 'served' in ln][:1]} on {card}",
+          flush=True)
+
+
+def phase_wide(torch, np, card, dev):
+    """Phase 16: training past d 4096 (mistral-large-123b, qwen1.5-32b),
+    serving past k 64, and the serve CLI's obs flags.  Returns the
+    launches by kernel."""
+    launches = {}
+    for tag, arch_id in (("a", "mistral-large-123b"), ("b", "qwen1.5-32b")):
+        for key, n in phase_wide_train(torch, np, arch_id, tag, card,
+                                       dev).items():
+            launches[key] = launches.get(key, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches["sample_topk"] = phase_wide_serve(torch, np, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_wide_cli(torch, np, card)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6564,6 +7055,10 @@ def main():
     ce, ce_errs = phase_fused_ce(torch, np, arch, dev)
     filt = phase_ce_filter(torch, np, arch, dev, {
         k: ce["main"][k]["library_ms"] for k in ("fwd", "dh", "dw")})
+    _, wide_errs = phase_ce_wide_filter(torch, np, dev, ce)
+    filt["errs"].update({f"fused_ce_{k}_filtered": max(
+        filt["errs"].get(f"fused_ce_{k}_filtered", 0.0), e)
+        for k, e in wide_errs.items()})
     paged = phase_paged_attn(torch, np, dev)
     score = phase_score(torch, np, arch, dev)
     quant = phase_quant_kernels(torch, np, arch, dev)
@@ -6603,6 +7098,10 @@ def main():
     torch.cuda.empty_cache()
     for key, n in phase_encdec(torch, np, card, dev).items():
         recurrent[key] = recurrent.get(key, 0) + n      # and phase 15
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_wide(torch, np, card, dev).items():
+        recurrent[key] = recurrent.get(key, 0) + n      # and phase 16
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{

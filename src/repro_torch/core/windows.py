@@ -67,9 +67,12 @@ STREAM_MAX_PER = 511          # tiles a slice: a column in it fits 16 bits
 STREAM_WARPS = 8              # two consumer warpgroups
 SCORE_ROWS_MAX = 256          # score_tokens: rows a row tile
 SCORE_ROWS_MAX_Q = 128        # ... on a 1-byte W (its converter warpgroup)
+SCORE_GROUP = 64              # score_tokens: candidates a row a CTA takes
 TOPK_DECODE_ROWS_MAX = 64     # sample_topk's decode kernel: rows a row tile
-TOPK_MAX_K = 64               # its running list of a row
+TOPK_MAX_K = 64               # its running list of a row; larger k (or k >
+                              # V) take the list kernel, any k >= 1
 TOPK_SELECT_WARPS = 8         # its selection warps (k > 1)
+TOPK_BIG_ROWS = 8             # the list kernel: rows a row tile, one a warp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,12 +133,49 @@ def score_plan(n_rows: int, vocab: int, n_cand: int,
                w_bytes: int = 2) -> StreamPlan:
     """`score_tokens`' plan: row tiles of up to 256 rows (128 on a 1-byte
     W); its epilogue keeps the 8 warps' (m, a) of R rows and a candidate
-    list of up to R x n_cand 4-byte entries (`score_tokens.cu`
-    ``epilogue_bytes``)."""
+    list of up to R x min(n_cand, 64) 4-byte entries (`score_tokens.cu`
+    ``epilogue_bytes``): past 64 candidates a CTA takes a group of 64,
+    and the launch has ceil(n_cand / 64) x `row_tiles` x `slices`
+    CTAs."""
+    group = min(n_cand, SCORE_GROUP)
     return stream_plan(n_rows, vocab,
                        SCORE_ROWS_MAX_Q if w_bytes == 1 else SCORE_ROWS_MAX,
-                       lambda r: 2 * STREAM_WARPS * r * 4 + r * n_cand * 4,
+                       lambda r: 2 * STREAM_WARPS * r * 4 + r * group * 4,
                        w_bytes)
+
+
+
+def topk_big(vocab: int, k: int) -> bool:
+    """Whether `sample_topk` takes k on its list kernel (k > 64 or k > V)
+    rather than the decode kernel (`sample_topk.cu` ``big_k``)."""
+    return k > TOPK_MAX_K or k > vocab
+
+
+def _topk_big_bytes(kk: int, lists: bool) -> int:
+    """The list kernel's epilogue (`sample_topk.cu` ``big_epilogue_bytes``):
+    the 8 rows' lists of kk keys when they live in shared memory, a 2 x
+    128-key scratch for each selection warp, 4 mbarriers and two staged 8
+    x 132 f32 tiles."""
+    return ((TOPK_BIG_ROWS * kk * 8 if lists else 0)
+            + TOPK_SELECT_WARPS * 2 * STREAM_COLS * 8 + 4 * 8
+            + 2 * TOPK_BIG_ROWS * (STREAM_COLS + 4) * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def topk_big_lists(n_rows: int, vocab: int, k: int, w_bytes: int = 2):
+    """(plan, kk, in_smem) of the list kernel (`sample_topk.cu`
+    ``plan_big``): the W stream at 8 rows a tile, each (row, slice) list
+    ``kk = min(k, the slice's columns)`` keys long, in shared memory when
+    the ring keeps 2 stages beside the 8 lists, else in global scratch."""
+    probe = stream_plan(n_rows, vocab, TOPK_BIG_ROWS, lambda r: 0, w_bytes)
+    kk = min(k, probe.per * STREAM_COLS)
+    plan = stream_plan(n_rows, vocab, TOPK_BIG_ROWS,
+                       lambda r: _topk_big_bytes(kk, True), w_bytes)
+    if plan.stages >= 2:
+        return plan, kk, True
+    return (stream_plan(n_rows, vocab, TOPK_BIG_ROWS,
+                        lambda r: _topk_big_bytes(kk, False), w_bytes),
+            kk, False)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -146,7 +186,10 @@ def topk_stream_plan(n_rows: int, vocab: int, k: int,
     hold their (m, a) states for ``return_lse``), above that R sorted
     lists of 64 keys, R thresholds, a 2 x 128-key scratch for each of the
     8 selection warps, 4 mbarriers, two staged R x 132 f32 tiles and R
-    (m, a) states (`sample_topk.cu` ``epilogue_bytes``)."""
+    (m, a) states (`sample_topk.cu` ``epilogue_bytes``).  k > 64 or k > V
+    take the list kernel's plan (`topk_big_lists`)."""
+    if topk_big(vocab, k):
+        return topk_big_lists(n_rows, vocab, k, w_bytes)[0]
     if k == 1:
         return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
                            lambda r: STREAM_WARPS * r * 8, w_bytes)

@@ -1,8 +1,7 @@
 """Fused projection + cross-entropy kernels (Hopper CUDA) and their plain
 versions."""
 
-from repro_torch.kernels.fused_ce.kernel import (BWD_MAX_D,
-                                                 DH_FILTERED_LAUNCHES,
+from repro_torch.kernels.fused_ce.kernel import (DH_FILTERED_LAUNCHES,
                                                  DH_LAUNCHES,
                                                  DW_FILTERED_LAUNCHES,
                                                  DW_LAUNCHES, FWD_LAUNCHES,

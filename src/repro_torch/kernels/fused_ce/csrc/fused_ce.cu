@@ -67,8 +67,21 @@
 // 1024 with the contraction) and g is formed once.  d 4096 takes a
 // non-portable cluster of 16: the 8 x 512 alternative would need a 64 x
 // 256 running sum and as large an accumulator per warpgroup, more than the
-// 168 registers a thread at 384 threads.  d > 4096 is refused.  See
-// fce_grad for the pipeline.
+// 168 registers a thread at 384 threads.  See fce_grad for the pipeline.
+//
+// Past d 4096 (kWide, any d % 64 == 0): the same cluster of 16 in P =
+// ceil(d / 4096) column passes, one a grid z index, so the register budget
+// stays: pass p's CTA `rank` contracts g against columns [4096 p + 256
+// rank, + 256) only, and for the logits streams its other ranges [4096 q +
+// 256 rank, + 256) of each tile (q != p, boxes past d left out) box by box
+// through a 2-stage ring of 64 x 64 S and T boxes, beside the stationary
+// range of its own pass; the sum runs in ascending q whatever p is, so
+// every pass forms the same z bit for bit and g is the full-d one.  The
+// streamed slices drop from 3 to 2 stages to make room.  The cost: the
+// logits are recomputed P times (3 x at d 12288, 2 x at 5120 and 7168),
+// and the S boxes of the other ranges are re-read from L2 every tile;
+// running sums in shared memory instead would take 64 KB a pass that the
+// pipeline does not have.
 //
 // Design, and what it does about the TPU kernel's assumptions:
 //   * the TPU kernel carries (m, a, z*, sum z) across a SEQUENTIAL vocab
@@ -84,8 +97,8 @@
 //     reference's rtol 3e-4 (a single bf16 g would cost 2^-9 a term);
 //   * the Pallas kernels hold a full-d (bm, d) / (bv, d) f32 accumulator
 //     in VMEM.  Here the cluster spreads d over its CTAs, 256 columns
-//     each, and each contraction warpgroup keeps a 64 x 128 running sum in
-//     registers;
+//     each (in passes of 4096 columns past d 4096), and each contraction
+//     warpgroup keeps a 64 x 128 running sum in registers;
 //   * each 64-row tile of the streamed operand is contracted into a fresh
 //     tensor-core accumulator and added to an f32 running sum on the CUDA
 //     cores: the tensor cores truncate addends far below the accumulator,
@@ -344,7 +357,6 @@ constexpr size_t kSmemMax = 232448;   // H100: dynamic smem a block can use
 constexpr int kRange = 256;              // d columns a CTA
 constexpr int kBox = 64;                 // d columns a TMA box (128 bytes)
 constexpr int kBoxes = kRange / kBox;
-constexpr int kBwdStages = 3;            // streamed slices in flight
 constexpr int kContract = 256;           // warpgroups 0-1: the contraction
 constexpr int kBwdThreads = kContract + 128;  // + warpgroup 2: the logits
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -354,20 +366,41 @@ constexpr uint32_t kTBytes = kBwdCols * kRange * 2;  // a streamed slice
 constexpr uint32_t kGBytes = kBwdRows * kBwdCols * 2;  // 8 KB
 // row statistics y, lse, gamma, pc of 64 rows: one slot a ring stage
 constexpr uint32_t kStatBytes = 4 * kBwdCols * 4;
-// shared memory, from a 1024-byte aligned base
-constexpr size_t kOffS = 0;
-constexpr size_t kOffT = kOffS + kSBytes;
-constexpr size_t kOffG = kOffT + (size_t)kBwdStages * kTBytes;
-// the CTA's partial logits (staging for its bulk copies), then two receive
-// buffers of C row slices; each is 64 padded rows of f32
-constexpr size_t kOffPart = kOffG + 4 * kGBytes;  // g hi, lo x 2 buffers
 constexpr size_t kPartBytes = kBwdRows * kPartLd * 4;
-constexpr size_t kOffStats = kOffPart + 3 * kPartBytes;
-constexpr size_t kOffBar = kOffStats + (size_t)kBwdStages * kStatBytes;
-constexpr int kBwdBars = kBwdStages + 1 + 2 + 2 + 2;
-constexpr size_t kOffCnt = kOffBar + kBwdBars * 8;
-constexpr size_t kOffList = kOffCnt + kBwdWarps * 4;
-constexpr size_t kBwdSmem = 1024 + kOffList;  // + the filtered tile list
+// past d 4096 (kWide): the cluster's 16 CTAs cover d in passes of 4096
+// columns, and the logits warpgroup streams the CTA's other ranges of each
+// tile box by box, an S box and a T box a stage
+constexpr int kPassCols = 16 * kRange;
+constexpr uint32_t kXBox = kBwdRows * kBox * 2;      // 8 KB
+constexpr int kXStages = 2;
+
+// shared memory, from a 1024-byte aligned base: the stationary range, the
+// streamed slices, g (hi, lo x 2 buffers), the CTA's partial logits
+// (staging for its bulk copies) and two receive buffers of C row slices
+// (each 64 padded rows of f32), a statistics slot a slice, (kWide) the
+// box ring, the barriers, the warps' counts and the filtered tile list
+template <bool kWide>
+struct BwdLayout {
+  static constexpr int kStages = kWide ? 2 : 3;   // streamed slices
+  static constexpr size_t kOffS = 0;
+  static constexpr size_t kOffT = kOffS + kSBytes;
+  static constexpr size_t kOffG = kOffT + (size_t)kStages * kTBytes;
+  static constexpr size_t kOffPart = kOffG + 4 * kGBytes;
+  static constexpr size_t kOffStats = kOffPart + 3 * kPartBytes;
+  static constexpr size_t kEndStats =
+      kOffStats + (size_t)kStages * kStatBytes;
+  static constexpr size_t kOffX = kWide ? (kEndStats + 1023) & ~size_t(1023)
+                                        : kEndStats;
+  static constexpr size_t kOffBar =
+      kOffX + (kWide ? (size_t)kXStages * 2 * kXBox : 0);
+  static constexpr int kBars = kStages + 1 + 2 + 2 + 2 + (kWide ? kXStages : 0);
+  static constexpr size_t kOffCnt = kOffBar + kBars * 8;
+  static constexpr size_t kOffList = kOffCnt + kBwdWarps * 4;
+  static constexpr size_t kSmem = 1024 + kOffList;  // + the tile list
+};
+constexpr size_t kBwdSmem = BwdLayout<false>::kSmem;
+static_assert(BwdLayout<true>::kSmem <= kBwdSmem,
+              "the wide layout fits wherever the narrow one does");
 constexpr int kBwdMaxFilteredTiles =
     (int)((kSmemMax - kBwdSmem) / sizeof(uint16_t));
 
@@ -389,11 +422,13 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 // dH (n, d) f32 when !kDW, dW (v_orig, d) f32 when kDW.  S is the
 // stationary operand (h for dH, W for dW), T the streamed one (W, h): the
-// logit tile is z[S row, T row] either way.  grid (C, ceil(S rows / 64))
-// in clusters of (C, 1, 1), C in {1, 4, 16} covering ceil(d / 256) ranges
-// of 256 columns (a range past d reads zeros and writes nothing),
-// kBwdThreads threads, kBwdSmem bytes (+ 2 a streamed tile when filtered).
-// CTA `rank` owns d columns [256 rank, 256 rank + 256) of the cluster's 64
+// logit tile is z[S row, T row] either way.  grid (C, ceil(S rows / 64),
+// P) in clusters of (C, 1, 1), C in {1, 4, 16} covering ceil(d / 256)
+// ranges of 256 columns (a range past d reads zeros and writes nothing),
+// P = 1, or C = 16 and P = ceil(d / 4096) passes when kWide (the header),
+// kBwdThreads threads, BwdLayout<kWide>::kSmem bytes (+ 2 a streamed tile
+// when filtered).  CTA `rank` of pass p owns d columns c0 = [4096 p + 256
+// rank, + 256) (p = 0 unless kWide) of the cluster's 64
 // S rows, and row slice [R rank, R rank + R), R = 64 / C, of every tile's
 // logits.  Per live T tile j:
 //   * warpgroup 2 (the logits warpgroup) issues the partial logits over
@@ -431,7 +466,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // Each CTA receives (C - 1) / C of a partial and sends as much of g a
 // tile, ~24 KB at any C, where an all-gather of the partials would move
 // 48 KB at C = 4 and 240 KB at C = 16.
-template <bool kDW, int kC, bool kFiltered>
+template <bool kDW, int kC, bool kFiltered, bool kWide>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     fce_grad(const __grid_constant__ CUtensorMap smap,
              const __grid_constant__ CUtensorMap tmap,
@@ -441,32 +476,37 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
              int d, int v_orig, int valid, int col_offset, int has_cap,
              float cap, float eps) {
   using namespace hopper;
+  using L = BwdLayout<kWide>;
+  constexpr int kStages = L::kStages;
   constexpr int R = kBwdRows / kC;       // rows of a tile this CTA owns
   constexpr uint32_t kGSlice = R * 128;  // bytes of a g slice (hi or lo)
   extern __shared__ unsigned char bwd_smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* ss = reinterpret_cast<bf16*>(sm + kOffS);
-  bf16* ts = reinterpret_cast<bf16*>(sm + kOffT);
-  unsigned char* gt = sm + kOffG;  // g[b]: hi at 2 b, lo at 2 b + 1 tiles
-  float* stage = reinterpret_cast<float*>(sm + kOffPart);
+  bf16* ss = reinterpret_cast<bf16*>(sm + L::kOffS);
+  bf16* ts = reinterpret_cast<bf16*>(sm + L::kOffT);
+  unsigned char* gt = sm + L::kOffG;  // g[b]: hi at 2 b, lo at 2 b + 1 tiles
+  float* stage = reinterpret_cast<float*>(sm + L::kOffPart);
   float* recv = stage + kBwdRows * kPartLd;  // [2][C][R][kPartLd]
   // slot k: y[64], then lse, gamma, pc (f32); dH uses slot 0 only
   auto stat_slot = [&](int k) {
-    return reinterpret_cast<int*>(sm + kOffStats + k * kStatBytes);
+    return reinterpret_cast<int*>(sm + L::kOffStats + k * kStatBytes);
   };
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
-  uint64_t* sbar = full + kBwdStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kOffBar);
+  uint64_t* sbar = full + kStages;
   uint64_t* pfull = sbar + 1;
   uint64_t* gfull = pfull + 2;
   uint64_t* gfree = gfull + 2;
-  int* sCnt = reinterpret_cast<int*>(sm + kOffCnt);
-  uint16_t* sList = reinterpret_cast<uint16_t*>(sm + kOffList);
+  uint64_t* xfull = gfree + 2;          // kWide: the box ring
+  int* sCnt = reinterpret_cast<int*>(sm + L::kOffCnt);
+  uint16_t* sList = reinterpret_cast<uint16_t*>(sm + L::kOffList);
 
   const int s_rows = kDW ? v_orig : n;
   const int t_rows = kDW ? n : v_orig;
   const int rank = blockIdx.x;          // the cluster spans gridDim.x
-  const int c0 = rank * kRange;
+  // kWide: pass blockIdx.z contracts columns [4096 z, 4096 z + 4096)
+  const int pass = kWide ? (int)blockIdx.z : 0;
+  const int c0 = pass * kPassCols + rank * kRange;
   const int s0 = blockIdx.y * kBwdRows;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -488,8 +528,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
   if (tid == 0) {
     // dW: + one cp.async arrival of each statistics thread
-    for (int s = 0; s < kBwdStages; ++s)
+    for (int s = 0; s < kStages; ++s)
       mbar_init(&full[s], kDW ? 1 + kBwdCols : 1);
+    if (kWide)
+      for (int s = 0; s < kXStages; ++s) mbar_init(&xfull[s], 1);
     mbar_init(sbar, 1);
     for (int b = 0; b < 2; ++b) {
       mbar_init(&pfull[b], 1);          // + the C partial slices' bytes
@@ -528,10 +570,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   __syncthreads();
   cluster_sync();  // every CTA's barriers exist before any remote arrival
 
-  // T[tile of the li-th live tile, d range] into slice li % 3 (thread 0);
-  // dW: the statistics of its 64 rows into slot li % 3 (threads 0-63)
+  // T[tile of the li-th live tile, d range] into slice li % kStages
+  // (thread 0); dW: the statistics of its 64 rows into slot li % kStages
+  // (threads 0-63)
   auto load_t = [&](int li) {
-    const int s = li % kBwdStages;
+    const int s = li % kStages;
     const int tile = kFiltered ? sList[li] : li;
     if (kDW && tid < kBwdCols) {
       const int r = tile * kBwdCols + tid;
@@ -569,7 +612,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int grow = R * rank + xr;                 // row in the tile
     const float one_m_eps = 1.f - eps;
     const float eps_valid = eps / (float)valid;
-    for (int li = 0; li < kBwdStages && li < n_live; ++li) load_t(li);
+    for (int li = 0; li < kStages && li < n_live; ++li) load_t(li);
     if (tid == 0)
       for (int b = 0; b < 2; ++b) mbar_arrive_tx(&pfull[b], kC * kPSlice);
     // X then G: the li-th live tile's row slice summed over the C
@@ -610,9 +653,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       if (tid < kXT) {
         // statistics of h's row: dH's stationary row, dW's streamed ones
         // (their slot is complete once the slice's barrier is)
-        const int* sY = stat_slot(kDW ? li % kBwdStages : 0);
+        const int* sY = stat_slot(kDW ? li % kStages : 0);
         const float* sL = reinterpret_cast<const float*>(sY + kBwdRows);
-        if (kDW) mbar_wait(&full[li % kBwdStages], (li / kBwdStages) & 1);
+        if (kDW) mbar_wait(&full[li % kStages], (li / kStages) & 1);
         const int srow = s0 + grow;
         uint32_t hi[E / 2], lo[E / 2];
 #pragma unroll
@@ -691,7 +734,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (n_live > 0) exchange(0);
     for (int li = 0; li < n_live; ++li) {
       const int b = li & 1;
-      const int s = li % kBwdStages;
+      const int s = li % kStages;
       const unsigned char* ghi = gt + (2 * b) * kGBytes;
       const unsigned char* glo = ghi + kGBytes;
       const bf16* tsl = ts + (size_t)s * kBwdCols * kRange +
@@ -716,7 +759,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       // have arrived
       if (wt < kC) mbar_arrive_cluster_relaxed(&gfree[b], wt);
       bar_sync(2, kContract);           // both are done with slice s
-      if (li + kBwdStages < n_live) load_t(li + kBwdStages);
+      if (li + kStages < n_live) load_t(li + kStages);
       if (li + 1 < n_live) exchange(li + 1);
     }
 #pragma unroll
@@ -745,26 +788,104 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     }
     mbar_wait(sbar, 0);
   }
+  // kWide: the CTA's ranges are columns [4096 q + 256 rank, + 256) for q
+  // < ceil(d / 4096); a tile's partial logits sum them in ascending q, the
+  // boxes of each in ascending order, boxes past d left out, so every pass
+  // forms the same z bit for bit.  Range `pass` comes from the stationary
+  // S and the streamed slice; the others' boxes, nx a tile, come through
+  // the box ring: step x of the flattened (live tile, box) sequence into
+  // stage x % 2, issued two steps ahead by thread 0 of this warpgroup.
+  const int n_pass = kWide ? (d + kPassCols - 1) / kPassCols : 1;
+  auto boxes_of = [&](int q) {          // range q's boxes below d
+    const int base = q * kPassCols + rank * kRange;
+    return base >= d ? 0 : min(kBoxes, (d - base) / kBox);
+  };
+  int nx = 0;
+  if (kWide)
+    for (int q = 0; q < n_pass; ++q) nx += q == pass ? 0 : boxes_of(q);
+  const int x_total = n_live * nx;
+  auto load_x = [&](int x) {
+    const int st = x % kXStages;
+    const int li = x / nx;
+    int r = x % nx, q = 0;
+    for (;; ++q) {
+      const int nb = q == pass ? 0 : boxes_of(q);
+      if (r < nb) break;
+      r -= nb;
+    }
+    const int col = q * kPassCols + rank * kRange + r * kBox;
+    const int tile = kFiltered ? sList[li] : li;
+    unsigned char* xs = sm + L::kOffX + (size_t)st * 2 * kXBox;
+    mbar_arrive_tx(&xfull[st], 2 * kXBox);
+    tma_load_2d(xs, &smap, &xfull[st], col, s0);
+    tma_load_2d(xs + kXBox, &tmap, &xfull[st], col, tile * kBwdCols);
+  };
+  if (kWide && wt == 0)
+    for (int x = 0; x < kXStages && x < x_total; ++x) load_x(x);
+  int xstep = 0;
   // L then P: the partial logits of the li-th live tile, staged, then each
   // CTA's row slice bulk-copied into its receive buffer li % 2 (completing
   // its pfull), once every CTA has consumed that buffer's tile li - 2: each
   // sent its g of tile li - 2 after, so this CTA's gfull of it says so.
   // Lane c serves CTA rank + c.
   for (int li = 0; li < n_live; ++li) {
-    const int s = li % kBwdStages;
-    mbar_wait(&full[s], (li / kBwdStages) & 1);
+    const int s = li % kStages;
     const bf16* tsl = ts + (size_t)s * kBwdCols * kRange;
-    fence_regs(accZ);
-    wgmma_fence();
+    if constexpr (kWide) {
+      int first = 0;                    // scale_d: 0 starts the sum
+      for (int q = 0; q < n_pass; ++q) {
+        const int nb = boxes_of(q);
+        if (q == pass) {
+          mbar_wait(&full[s], (li / kStages) & 1);
+          fence_regs(accZ);
+          wgmma_fence();
+          for (int ks = 0; ks < 4 * nb; ++ks) {
+            const int box = ks >> 2, kin = (ks & 3) * 16;
+            wgmma_ss<64>(
+                accZ, desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
+                desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
+                first);
+            first = 1;
+          }
+          wgmma_commit();
+          continue;
+        }
+        for (int j = 0; j < nb; ++j, ++xstep) {
+          const int st = xstep % kXStages;
+          const bf16* xs = reinterpret_cast<const bf16*>(
+              sm + L::kOffX + (size_t)st * 2 * kXBox);
+          mbar_wait(&xfull[st], (xstep / kXStages) & 1);
+          fence_regs(accZ);
+          wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kRange / 16; ++ks) {
-      const int box = ks >> 2, kin = (ks & 3) * 16;
-      wgmma_ss<64>(accZ,
-                   desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
-                   desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
-                   ks);
+          for (int kk = 0; kk < kBox / 16; ++kk) {
+            wgmma_ss<64>(accZ, desc_b128(xs + kk * 16, 16, 1024),
+                         desc_b128(xs + kBwdRows * kBox + kk * 16, 16, 1024),
+                         first);
+            first = 1;
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(accZ);
+          bar_sync(1, 128);             // every warp is done with stage st
+          if (wt == 0 && xstep + kXStages < x_total)
+            load_x(xstep + kXStages);
+        }
+      }
+    } else {
+      mbar_wait(&full[s], (li / kStages) & 1);
+      fence_regs(accZ);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRange / 16; ++ks) {
+        const int box = ks >> 2, kin = (ks & 3) * 16;
+        wgmma_ss<64>(accZ,
+                     desc_b128(ss + box * kBwdRows * kBox + kin, 16, 1024),
+                     desc_b128(tsl + box * kBwdCols * kBox + kin, 16, 1024),
+                     ks);
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
     if (wt < kC) bulk_wait_read();      // the last tile's copies are out
     wgmma_wait<0>();
     fence_regs(accZ);
@@ -792,12 +913,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   cluster_sync();
 }
 
-// the launch configuration of fce_grad<kDW, kC, kFiltered>, with its
-// attributes set: grid (C, ceil(S rows / 64)) in clusters of C
-template <bool kDW, int kC, bool kFiltered>
+// the launch configuration of fce_grad<kDW, kC, kFiltered, kWide>, with
+// its attributes set: grid (C, ceil(S rows / 64), passes) in clusters of C
+template <bool kDW, int kC, bool kFiltered, bool kWide>
 cudaError_t grad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
-                        int s_rows, size_t smem, cudaStream_t stream) {
-  const auto kern = fce_grad<kDW, kC, kFiltered>;
+                        int s_rows, int passes, size_t smem,
+                        cudaStream_t stream) {
+  const auto kern = fce_grad<kDW, kC, kFiltered, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -807,7 +929,7 @@ cudaError_t grad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
     if (err != cudaSuccess) return err;
   }
   cfg = {};
-  cfg.gridDim = dim3(kC, (s_rows + kBwdRows - 1) / kBwdRows, 1);
+  cfg.gridDim = dim3(kC, (s_rows + kBwdRows - 1) / kBwdRows, passes);
   cfg.blockDim = dim3(kBwdThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -820,18 +942,21 @@ cudaError_t grad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   return cudaSuccess;
 }
 
-template <bool kDW, int kC, bool kFiltered>
+template <bool kDW, int kC, bool kFiltered, bool kWide = false>
 int launch_grad(const CUtensorMap& smap, const CUtensorMap& tmap,
                 const void* y, const void* lse, const void* gamma,
                 const void* pc, const void* skip, void* out, int n, int d,
                 int v_orig, int valid, int col_offset, int has_cap,
-                float cap, float eps, size_t smem, cudaStream_t stream) {
+                float cap, float eps, size_t list_bytes,
+                cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = grad_config<kDW, kC, kFiltered>(
-      cfg, attr, kDW ? v_orig : n, smem, stream);
+  const int passes = kWide ? (d + kPassCols - 1) / kPassCols : 1;
+  cudaError_t err = grad_config<kDW, kC, kFiltered, kWide>(
+      cfg, attr, kDW ? v_orig : n, passes,
+      BwdLayout<kWide>::kSmem + list_bytes, stream);
   if (err != cudaSuccess) return (int)err;
-  const auto kern = fce_grad<kDW, kC, kFiltered>;
+  const auto kern = fce_grad<kDW, kC, kFiltered, kWide>;
   err = cudaLaunchKernelEx(
       &cfg, kern, smap, tmap,
       static_cast<const int*>(y), static_cast<const float*>(lse),
@@ -842,7 +967,8 @@ int launch_grad(const CUtensorMap& smap, const CUtensorMap& tmap,
   return (int)cudaGetLastError();
 }
 
-// the cluster size of d: 1, 4 or 16 ranges of 256 columns
+// the cluster size of d: 1, 4 or 16 ranges of 256 columns (16 past 4096,
+// in passes)
 int grad_cluster(int d) { return d <= 256 ? 1 : (d <= 1024 ? 4 : 16); }
 
 template <bool kDW, bool kFiltered>
@@ -854,30 +980,32 @@ int launch_grad_any(const void* h, const void* w, const void* y,
   const int s_rows = kDW ? v_orig : n;
   const int t_rows = kDW ? n : v_orig;
   const int n_tiles = (t_rows + kBwdCols - 1) / kBwdCols;
-  if (d % kBox || d > 16 * kRange ||
-      (kFiltered && n_tiles > kBwdMaxFilteredTiles))
+  if (d < kBox || d % kBox || (kFiltered && n_tiles > kBwdMaxFilteredTiles))
     return (int)cudaErrorInvalidValue;
   CUtensorMap smap, tmap;
   int e = hopper::make_tmap_bf16(&smap, kDW ? w : h, s_rows, d, kBwdRows);
   if (e) return e;
   e = hopper::make_tmap_bf16(&tmap, kDW ? h : w, t_rows, d, kBwdCols);
   if (e) return e;
-  const size_t smem =
-      kBwdSmem + (kFiltered ? (size_t)n_tiles * sizeof(uint16_t) : 0);
+  const size_t list = kFiltered ? (size_t)n_tiles * sizeof(uint16_t) : 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (d > kPassCols)
+    return launch_grad<kDW, 16, kFiltered, true>(
+        smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
+        col_offset, has_cap, cap, eps, list, s);
   switch (grad_cluster(d)) {
     case 1:
       return launch_grad<kDW, 1, kFiltered>(
           smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
-          col_offset, has_cap, cap, eps, smem, s);
+          col_offset, has_cap, cap, eps, list, s);
     case 4:
       return launch_grad<kDW, 4, kFiltered>(
           smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
-          col_offset, has_cap, cap, eps, smem, s);
+          col_offset, has_cap, cap, eps, list, s);
     default:
       return launch_grad<kDW, 16, kFiltered>(
           smap, tmap, y, lse, gamma, pc, skip, out, n, d, v_orig, valid,
-          col_offset, has_cap, cap, eps, smem, s);
+          col_offset, has_cap, cap, eps, list, s);
   }
 }
 
@@ -885,10 +1013,10 @@ template <bool kDW, int kC>
 int max_clusters(int* count) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = grad_config<kDW, kC, false>(cfg, attr, 1024 * kBwdRows,
-                                                kBwdSmem, 0);
+  cudaError_t err = grad_config<kDW, kC, false, false>(
+      cfg, attr, 1024 * kBwdRows, 1, kBwdSmem, 0);
   if (err != cudaSuccess) return (int)err;
-  const auto kern = fce_grad<kDW, kC, false>;
+  const auto kern = fce_grad<kDW, kC, false, false>;
   return (int)cudaOccupancyMaxActiveClusters(count, kern, &cfg);
 }
 

@@ -20,11 +20,13 @@ registers, vocab slices across CTAs and a merge kernel (the TPU kernel's
 sequential vocab axis has no counterpart on the GPU); ``g`` is kept to
 f32 precision as two bf16 halves on the tensor cores; dH and dW are one
 kernel template on wgmma and TMA: a thread-block cluster of
-``ceil(d / 256)`` CTAs (1, 4 or 16; d <= 4096) shares 64 rows of the
-stationary operand (h for dH, W for dW) and streams the other in 64-row
-tiles; the CTAs reduce-scatter their partial logits by bulk copies
-between their shared memories, so the logits are recomputed once, not
-once a d range, and g is formed once.  The reference's deterministic
+``ceil(d / 256)`` CTAs (1, 4 or 16) shares 64 rows of the stationary
+operand (h for dH, W for dW) and streams the other in 64-row tiles; the
+CTAs reduce-scatter their partial logits by bulk copies between their
+shared memories, so the logits are recomputed once, not once a d range,
+and g is formed once.  Past d 4096 the cluster of 16 runs in
+``ceil(d / 4096)`` column passes (a grid dimension), each recomputing the
+full-d logits and contracting its 4096 columns.  The reference's deterministic
 two-pass layout (no atomics) is kept, and one 64 x 64 tile grid
 (`core.windows.ce_tile_grid`) serves the tile statistic, the skip mask
 and both filtered kernels, which walk a compacted list of live tiles.
@@ -37,7 +39,7 @@ forward -> (lse, z_target, z_sum), three (N,) f32, plus the (row tiles,
 vocab tiles) f32 tile statistic with ``return_tile_stats``; backward ->
 (dH, dW) in f32, filtered by ``tile_stats`` (with ``cfg.grad_filter_eps
 > 0``) or by an explicit ``skip_mask``.  On the card the kernels take
-bf16 h and w with ``d % 64 == 0`` (dH and dW also ``d <= 4096``).
+bf16 h and w with ``d % 64 == 0``, any d.
 The filtered kernels keep their live-tile list in shared memory, at most
 `fused_ce_max_filtered_tiles()` streamed 64-row tiles (6080) a launch, so
 a filtered call past that (dH over V > 389,120 columns, dW over more
@@ -79,10 +81,7 @@ DW_LAUNCHES = build.counter("fused_ce_dw")
 DH_FILTERED_LAUNCHES = build.counter("fused_ce_dh_filtered")
 DW_FILTERED_LAUNCHES = build.counter("fused_ce_dw_filtered")
 
-# the backward kernels (dH and dW) spread d over a thread-block cluster,
-# 256 columns a CTA, at most 16 CTAs (fused_ce.cu grad_cluster)
-BWD_MAX_D = 4096
-# their grid's y dimension walks the stationary operand (h's rows for dH,
+# the backward kernels' (dH and dW) grid y dimension walks the stationary operand (h's rows for dH,
 # W's for dW) in 64-row tiles, at most CUDA's 65535
 BWD_MAX_STATIONARY_TILES = 65535
 
@@ -295,12 +294,9 @@ def _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff, skip, cfg, valid,
 
 def check_grad_shape(which: str, n: int, v: int, d: int) -> None:
     """Raise ValueError, before any launch, for a dH or dW call the
-    kernels cannot take at any split: d past the cluster's 16 CTAs of 256
-    columns, or a stationary operand (h's rows for dH, W's for dW) past
-    the grid's 65535 tiles of 64 rows."""
-    if d > BWD_MAX_D:
-        raise ValueError(f"the {which} kernel's cluster covers d <= "
-                         f"{BWD_MAX_D} (16 CTAs of 256 columns), got d={d}")
+    kernels cannot take at any split: a stationary operand (h's rows for
+    dH, W's for dW) past the grid's 65535 tiles of 64 rows.  Any d takes
+    them (past 4096 in column passes)."""
     rows, tile, what = ((n, CE_TILE_ROWS, "rows of h") if which == "dh"
                         else (v, CE_TILE_COLS, "rows of W"))
     tiles = -(-rows // tile)

@@ -8,7 +8,7 @@
 // (rows, V) logits never reach device memory.  A NaN logit is treated as
 // -inf, and every written id lies in [col_offset, col_offset + v_orig).
 //
-// The decode kernel (topk_stream_kernel, any k <= 64) takes the few rows
+// The decode kernel (topk_stream_kernel, k <= 64 and k <= V) takes the few rows
 // of a decode step or a speculative verifier (8 to 40).  Bound (H100 SXM,
 // 3.35 TB/s, 989 TFLOP/s bf16): W read once, 152064 x 1024 bf16 = 311 MB
 // -> ~93 us; the products at 40 rows are 12.5 GFLOP -> ~13 us on the
@@ -61,6 +61,34 @@
 // logit is multiplied by its column's scale before the softcap, the mask,
 // the selection and the lse, so it combines with both options above.  The
 // bound then halves: 155.7 MB of W and 0.61 MB of scales, ~46.7 us.
+//
+// The list kernel (topk_stream_kernel<8, false, kQ, true>, any k >= 1,
+// routed there for k > 64 or k > V) is the decode kernel's W stream and
+// staging with another selection, so it takes every option above:
+//   * row tiles of 8 rows, one a selection warp, so a row's selection runs
+//     on a warp of its own (a 40-row step is 5 row tiles; the row tiles of
+//     a slice run side by side and share its W bytes in L2);
+//   * each (row, slice) keeps a sorted list of kk = min(k, the slice's
+//     columns) keys behind a running threshold, its kk-th key: in shared
+//     memory while the 8 lists leave the ring 2 stages (kk <= 2683 on a
+//     bf16 head, 1626 on a 1-byte one), else in the global scratch that
+//     receives them anyway, so global scratch stays rows x slices x kk
+//     keys and no logit is written.  A tile's keys above the threshold (all at first, few once
+//     the list is full) are compacted, sorted by a bitonic network in
+//     shared memory, and merged into the list in place by rank: a new key
+//     goes to its index plus the list keys above it (a binary search), a
+//     list key moves down by the new keys above it (a binary search of
+//     the sorted new keys), walked from the list's end;
+//   * the merge is a tree of launches, each halving the row's lists: a
+//     key of a pair of sorted lists lands on its index plus its rank in
+//     the other list (ties impossible: a key holds its column), so each
+//     output is written once, with no sort and no atomics; a last kernel
+//     turns the top k keys into (value, id), -inf and id col_offset past
+//     the columns that exist (k > V, as the plain version pads), and
+//     folds the lse.
+//   Bound: the decode kernel's W read (the selection's work depends on the
+//   data: every key of a slice's first tiles, then the few above the
+//   threshold).
 //
 // The many-row top-1 path (topk_rows_kernel, k = 1 only) computes the same
 // function for the MTP accuracy's 4096 rows.  There the bound flips: the
@@ -143,6 +171,37 @@ __host__ __device__ inline wstream::Plan plan(int rows, int v, int k,
                                               int wb) {
   wstream::Plan p = wstream::plan_grid(rows, v, kRowsMax);
   wstream::plan_stages(p, epilogue_bytes(p.rows, k), wb);
+  return p;
+}
+
+// k > 64 (or k > V): the list kernel's row tiles of 8 rows, one a
+// selection warp.  Shared memory beside the ring: the 8 rows' lists of kk
+// keys when they fit (else they live in global scratch), the warps' 2 x
+// 128-key scratch, 4 mbarriers and two staged 8 x 128 tiles of logits.
+constexpr int kBigRows = kSelWarps;
+
+__host__ __device__ inline bool big_k(int v, int k) {
+  return k > kMaxK || k > v;
+}
+
+__host__ __device__ inline int big_epilogue_bytes(int kk, bool lists) {
+  return (lists ? kBigRows * kk * 8 : 0) + kSelWarps * 2 * wstream::kCols * 8 +
+         4 * 8 + 2 * kBigRows * kZld * 4;
+}
+
+// The list kernel's plan: the W stream's grid at 8 rows a tile, each
+// (row, slice) list kk = min(k, the slice's columns) keys long, in shared
+// memory when the ring still gets 2 stages beside the lists, else in
+// global scratch (*in_smem 0).
+__host__ __device__ inline wstream::Plan plan_big(int rows, int v, int k,
+                                                  int wb, int* kk,
+                                                  int* in_smem) {
+  wstream::Plan p = wstream::plan_grid(rows, v, kBigRows);
+  const int cols = p.per * wstream::kCols;
+  *kk = k < cols ? k : cols;
+  wstream::plan_stages(p, big_epilogue_bytes(*kk, true), wb);
+  *in_smem = p.stages >= 2;
+  if (!*in_smem) wstream::plan_stages(p, big_epilogue_bytes(*kk, false), wb);
   return p;
 }
 
@@ -323,6 +382,132 @@ __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
   }
 }
 
+// ---------------------------------------------------------------------------
+// k > 64: lists of kk keys a (row, slice), merged by rank
+// ---------------------------------------------------------------------------
+
+// # keys of a[0..n) (sorted descending) above x, and at or above x
+__device__ __forceinline__ int count_gt(const u64* a, int n, u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int count_ge(const u64* a, int n, u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] >= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// One warp: sc[0..n) (n a power of two <= 128) sorted descending by a
+// bitonic network in shared memory.
+__device__ __forceinline__ void sort_smem_desc(u64* sc, int n, int lane) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int st = size >> 1; st > 0; st >>= 1) {
+      for (int p = lane; p < n / 2; p += 32) {
+        const int i = 2 * p - (p & (st - 1)), j = i + st;
+        const u64 a = sc[i], b = sc[j];
+        if ((i & size) == 0 ? a < b : a > b) {
+          sc[i] = b;
+          sc[j] = a;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// The list kernel's selection of one staged tile for one row, by the warp
+// that owns the row: its keys above the threshold `th` (the list's kk-th
+// key, 0 while the list is not full) are compacted into sc, sorted, and
+// merged into the row's sorted list lst[0..kk) (shared or global memory,
+// zero-padded) in place: every new key goes to its index plus the count of
+// list keys above it, and every list key at or after the first new key's
+// place moves down by the count of new keys above it, the list walked from
+// its end in chunks of 32 so that no key is overwritten before it is read;
+// keys pushed past kk drop out.  With `lse` the row's online softmax (m, a)
+// folds the tile's counted columns; `mrow` is the row's mask (or null).
+__device__ void select_big(const float* z, u64* lst, int kk, u64& th,
+                           float& m, float& a, bool lse,
+                           const int8_t* __restrict__ mrow, int cbase,
+                           int v_orig, int valid, int col_offset,
+                           int has_softcap, float softcap, u64* sc,
+                           int lane) {
+  u64 key[4];
+  uint32_t bal[4];
+  float zc[4];
+  int n = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = 32 * q + lane;
+    const int local = cbase + col;
+    float v = z[col];
+    if (has_softcap) v = softcap * tanhf(v / softcap);
+    bool live = local < v_orig && local + col_offset < valid;
+    if (mrow && live) live = mrow[local] != 0;
+    zc[q] = live && !isnan(v) ? v : -INFINITY;
+    key[q] = local < v_orig ? make_key(zc[q], local) : 0ull;
+    bal[q] = __ballot_sync(0xffffffffu, key[q] > th);
+    n += __popc(bal[q]);
+  }
+  if (lse) {
+    float mx = fmaxf(fmaxf(zc[0], zc[1]), fmaxf(zc[2], zc[3]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float safe = mx == -INFINITY ? 0.f : mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sum += expf(zc[q] - safe);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    wstream::merge_state(m, a, mx, sum);
+  }
+  if (n == 0) return;
+  const uint32_t below = (1u << lane) - 1u;
+  int base = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if ((bal[q] >> lane) & 1u) sc[base + __popc(bal[q] & below)] = key[q];
+    base += __popc(bal[q]);
+  }
+  int np2 = 1;
+  while (np2 < n) np2 <<= 1;
+  for (int i = n + lane; i < np2; i += 32) sc[i] = 0ull;
+  __syncwarp();
+  sort_smem_desc(sc, np2, lane);
+  // the new keys' places in the merged list, before the list moves
+  u64 b[4];
+  int pos[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 32 * q + lane;
+    b[q] = j < n ? sc[j] : 0ull;
+    pos[q] = j < n ? j + count_gt(lst, kk, b[q]) : kk;
+  }
+  const int r0 = __shfl_sync(0xffffffffu, pos[0], 0);
+  for (int c = ((kk - 1) >> 5) << 5; c >= 0 && c + 31 >= r0; c -= 32) {
+    const int i = c + lane;
+    const bool act = i >= r0 && i < kk;
+    const u64 x = act ? lst[i] : 0ull;
+    const int to = act ? i + count_gt(sc, n, x) : i;
+    __syncwarp();
+    if (act && to != i && to < kk) lst[to] = x;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (pos[q] < kk) lst[pos[q]] = b[q];
+  __syncwarp();
+  th = lst[kk - 1];
+}
+
 // grid (row_tiles, slices), kThreads threads (k = 1) or kSelThreads (k >
 // 1), plan(...).smem bytes.  Writes the top k keys of each row over its
 // slice, sorted descending, to pk[((row * n_split + split) * k ...].
@@ -337,7 +522,11 @@ __device__ void select_tile(const float* zs, u64* lst, u64* thr, u64* sc,
 // converter warpgroup before the producer warp widens each stage); with
 // `ws` (v_orig f32, or null) each column's logit is multiplied by its
 // scale before the softcap.
-template <int N, bool kOne, bool kQ>
+// kBig (the list kernel, N = 8): selection warp w owns row w; k is the
+// list length kk, and each (row, slice)'s top kk keys, sorted and
+// zero-padded, go to pk[((row * n_split + split) * kk ...], the list kept
+// there (big_smem 0) or in shared memory and copied out at the end.
+template <int N, bool kOne, bool kQ, bool kBig>
 __global__ void __launch_bounds__(
     (kOne ? kThreads : kSelThreads) +
         (kQ ? wstream::converters(N) : 0), 1)
@@ -347,16 +536,19 @@ __global__ void __launch_bounds__(
                        float* __restrict__ pl, const float* __restrict__ ws,
                        int kind, int rows, int d, int v_orig, int valid,
                        int col_offset, int k, int per, int n_split,
-                       int stages, int has_softcap, float softcap) {
+                       int stages, int has_softcap, float softcap,
+                       int big_smem) {
   using namespace hopper;
+  static_assert(!kBig || (N == kBigRows && !kOne), "the list kernel");
   extern __shared__ unsigned char smem_raw[];
   constexpr int kConv = kQ ? wstream::converters(N) : 0;
   wstream::Ring<N> ring;
   u64* epi = reinterpret_cast<u64*>(
       wstream::ring_init(ring, smem_raw, stages, kind, kConv));
-  u64* lst = epi;                       // k > 1: N x 64
+  u64* lst = epi;                       // k > 1: N x 64 (kBig: N x kk)
   u64* thr = lst + N * kMaxK;           //        N
-  u64* scr = thr + N;                   //        8 x 2 x 128
+  u64* scr = kBig ? lst + (big_smem ? (size_t)N * k : 0)
+                  : thr + N;            //        8 x 2 x 128
   uint64_t* zbar =                      // full[2], empty[2]
       reinterpret_cast<uint64_t*>(scr + kSelWarps * 2 * wstream::kCols);
   float* zs = reinterpret_cast<float*>(zbar + 4);  // 2 x N x kZld
@@ -374,10 +566,15 @@ __global__ void __launch_bounds__(
   const int tid = threadIdx.x;
   constexpr int kAll = (kOne ? kThreads : kSelThreads) + kConv;
   if (!kOne) {
-    for (int i = tid; i < N * (kMaxK + 1); i += kAll) lst[i] = 0ull;
-    for (int i = tid; i < N; i += kAll) {
-      lse_st[i] = -INFINITY;
-      lse_st[N + i] = 0.f;
+    if constexpr (kBig) {
+      if (big_smem)
+        for (int i = tid; i < N * k; i += kAll) lst[i] = 0ull;
+    } else {
+      for (int i = tid; i < N * (kMaxK + 1); i += kAll) lst[i] = 0ull;
+      for (int i = tid; i < N; i += kAll) {
+        lse_st[i] = -INFINITY;
+        lse_st[N + i] = 0.f;
+      }
     }
     if (tid == 0) {
       for (int b = 0; b < 2; ++b) {
@@ -401,6 +598,36 @@ __global__ void __launch_bounds__(
   if (!kOne && tid >= kConsumers) {
     const int sw = (tid - kConsumers) >> 5;
     u64* sc = scr + sw * 2 * wstream::kCols;
+    if constexpr (kBig) {
+      const int row = row0 + sw;
+      const bool has = row < rows;
+      u64* out = pk + ((size_t)row * n_split + split) * k;
+      u64* L = big_smem ? lst + sw * k : out;
+      if (has && !big_smem)
+        for (int i = lane; i < k; i += 32) L[i] = 0ull;
+      __syncwarp();
+      u64 th = 0ull;
+      float lm = -INFINITY, la = 0.f;
+      const int8_t* mrow = mask && has ? mask + (size_t)row * v_orig : nullptr;
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int tl = tile - t_begin;
+        mbar_wait(&zbar[tl & 1], (tl >> 1) & 1);
+        if (has)
+          select_big(zs + (tl & 1) * N * kZld + sw * kZld, L, k, th, lm, la,
+                     pl != nullptr, mrow, tile * wstream::kCols, v_orig,
+                     valid, col_offset, has_softcap, softcap, sc, lane);
+        mbar_arrive(&zbar[2 + (tl & 1)]);
+      }
+      if (!has) return;
+      if (big_smem)
+        for (int i = lane; i < k; i += 32) out[i] = L[i];
+      if (pl && lane == 0) {
+        float* o = pl + ((size_t)row * n_split + split) * 2;
+        o[0] = lm;
+        o[1] = la;
+      }
+      return;
+    }
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int tl = tile - t_begin;
       mbar_wait(&zbar[tl & 1], (tl >> 1) & 1);
@@ -606,10 +833,10 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
                           const wstream::Plan& p, int has_softcap,
                           float softcap, cudaStream_t s) {
   const bool q = kind != hopper::kBf16;
-  auto kern = k == 1 ? (q ? topk_stream_kernel<N, true, true>
-                          : topk_stream_kernel<N, true, false>)
-                     : (q ? topk_stream_kernel<N, false, true>
-                          : topk_stream_kernel<N, false, false>);
+  auto kern = k == 1 ? (q ? topk_stream_kernel<N, true, true, false>
+                          : topk_stream_kernel<N, true, false, false>)
+                     : (q ? topk_stream_kernel<N, false, true, false>
+                          : topk_stream_kernel<N, false, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -617,8 +844,66 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
                       (q ? wstream::converters(N) : 0);
   kern<<<dim3(p.row_tiles, p.slices), threads, p.smem, s>>>(
       wmap, hmap, pk, mask, pl, ws, kind, rows, d, v_orig, valid, col_offset,
-      k, p.per, p.slices, p.stages, has_softcap, softcap);
+      k, p.per, p.slices, p.stages, has_softcap, softcap, 0);
   return cudaGetLastError();
+}
+
+// grid (rows, lists out, ceil(2 len / 256)), 256 threads: one level of the
+// list kernel's merge tree.  src holds each row's n_lists sorted,
+// zero-padded lists at `stride` keys a row: list i at i * len, all len
+// keys long but the last (`last`); out list o = the top len_out (the last
+// one: last_out) of lists 2o and 2o + 1, packed the same way in dst.  Each
+// key of the pair goes to its index plus the count of the other list's
+// keys above it (the first list's at or above it, so its zeros come
+// first): the pair's keys land on a permutation of their places, each
+// written once, and the places past the list's length drop out.
+__global__ void __launch_bounds__(256)
+    topk_big_merge_kernel(const u64* __restrict__ src, u64* __restrict__ dst,
+                          int n_lists, int len, int last, int len_out,
+                          int last_out, int stride) {
+  const int row = blockIdx.x;
+  const int o = blockIdx.y;
+  const int p = blockIdx.z * 256 + threadIdx.x;
+  const int ia = 2 * o, ib = 2 * o + 1;
+  const int la = ia == n_lists - 1 ? last : len;
+  const int lb = ib < n_lists ? (ib == n_lists - 1 ? last : len) : 0;
+  const int lo = o == (int)gridDim.y - 1 ? last_out : len_out;
+  if (p >= la + lb) return;
+  const u64* a = src + (size_t)row * stride + (size_t)ia * len;
+  const u64* b = a + len;
+  u64 x;
+  int at;
+  if (p < la) {
+    x = a[p];
+    at = p + count_gt(b, lb, x);
+  } else {
+    x = b[p - la];
+    at = p - la + count_ge(a, la, x);
+  }
+  if (at < lo) dst[(size_t)row * stride + (size_t)o * len_out + at] = x;
+}
+
+// grid (rows, ceil(k / 256)), 256 threads: the row's top k from its final
+// list (flen keys, zero-padded past them): a key's value and global id, and
+// -inf with id col_offset where no column is left (k > V, as the plain
+// version pads); block (row, 0) also folds the lse.
+__global__ void __launch_bounds__(256)
+    topk_big_finish_kernel(const u64* __restrict__ fin,
+                           const float* __restrict__ pl,
+                           float* __restrict__ vals, int* __restrict__ ids,
+                           float* __restrict__ lse, int flen, int stride,
+                           int n_split, int k, int col_offset) {
+  const int row = blockIdx.x;
+  const int p = blockIdx.y * 256 + threadIdx.x;
+  if (p < k) {
+    const u64 key = p < flen ? fin[(size_t)row * stride + p] : 0ull;
+    vals[(size_t)row * k + p] = key ? key_value(key) : -INFINITY;
+    ids[(size_t)row * k + p] = (key ? key_local(key) : 0) + col_offset;
+  }
+  if (!lse || blockIdx.y != 0 || threadIdx.x >= 32) return;
+  const float l = wstream::slices_lse(pl + (size_t)row * n_split * 2,
+                                      n_split, threadIdx.x);
+  if (threadIdx.x == 0) lse[row] = l;
 }
 
 // ---------------------------------------------------------------------------
@@ -734,11 +1019,14 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// The decode kernel's plan for (rows, V, k, bytes a W element): {R,
-// row_tiles, per, slices, stages, smem} into out[0..5] (the wrapper's
-// Python mirror must agree).
+// The decode kernel's plan for (rows, V, k, bytes a W element), the list
+// kernel's where k > 64 or k > V: {R, row_tiles, per, slices, stages,
+// smem} into out[0..5] (the wrapper's Python mirror must agree).
 void sample_topk_plan(int rows, int v_orig, int k, int wb, int* out) {
-  const wstream::Plan p = plan(rows, v_orig, k, wb);
+  int kk = 0, in_smem = 0;
+  const wstream::Plan p = big_k(v_orig, k)
+                              ? plan_big(rows, v_orig, k, wb, &kk, &in_smem)
+                              : plan(rows, v_orig, k, wb);
   const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
                        p.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
@@ -805,6 +1093,73 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
   return (int)cudaGetLastError();
 }
 
+// The list kernel (k > 64, or k > V): the same arguments as
+// sample_topk_launch for any k >= 1, with pk and pk2 each (rows, slices, kk)
+// u64 scratch (kk from sample_topk_big_len): the stream kernel writes each
+// (row, slice)'s sorted top kk into pk, the merge tree halves the lists a
+// level between pk and pk2, and the finish kernel writes vals/ids (rows,
+// k) and the lse.  Returns a cudaError_t.
+int sample_topk_big_launch(const void* h, const void* w, void* pk, void* pk2,
+                           void* vals, void* ids, int rows, int d, int v_orig,
+                           int valid, int col_offset, int k, int has_softcap,
+                           float softcap, const void* mask, void* pl,
+                           void* lse, const void* ws, int kind,
+                           void* stream) {
+  if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
+      d % wstream::kChunk || k < 1 || kind < 0 || kind > hopper::kE5M2 ||
+      (lse != nullptr) != (pl != nullptr))
+    return (int)cudaErrorInvalidValue;
+  int kk = 0, in_smem = 0;
+  const wstream::Plan p = plan_big(rows, v_orig, k, kind ? 1 : 2, &kk,
+                                   &in_smem);
+  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.rows != kBigRows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  CUtensorMap wmap, hmap;
+  int e = wstream::make_maps(&wmap, &hmap, w, h, v_orig, rows, d, p.rows,
+                             kind);
+  if (e) return e;
+  const bool q = kind != hopper::kBf16;
+  auto kern = q ? topk_stream_kernel<kBigRows, false, true, true>
+                : topk_stream_kernel<kBigRows, false, false, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = kSelThreads + (q ? wstream::converters(kBigRows) : 0);
+  u64* a = static_cast<u64*>(pk);
+  u64* b = static_cast<u64*>(pk2);
+  kern<<<dim3(p.row_tiles, p.slices), threads, p.smem, s>>>(
+      wmap, hmap, a, static_cast<const int8_t*>(mask),
+      static_cast<float*>(pl), static_cast<const float*>(ws), kind, rows, d,
+      v_orig, valid, col_offset, kk, p.per, p.slices, p.stages, has_softcap,
+      softcap, in_smem);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int stride = p.slices * kk;
+  int n = p.slices, len = kk, last = kk;
+  while (n > 1) {
+    const int n_out = (n + 1) / 2;
+    const int len_out = 2 * len < k ? 2 * len : k;
+    const int last_out = n % 2 ? last : (len + last < k ? len + last : k);
+    topk_big_merge_kernel<<<dim3(rows, n_out, (2 * len + 255) / 256), 256,
+                            0, s>>>(a, b, n, len, last, len_out, last_out,
+                                    stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    u64* t = a;
+    a = b;
+    b = t;
+    n = n_out;
+    len = len_out;
+    last = last_out;
+  }
+  topk_big_finish_kernel<<<dim3(rows, (k + 255) / 256), 256, 0, s>>>(
+      a, static_cast<const float*>(pl), static_cast<float*>(vals),
+      static_cast<int*>(ids), static_cast<float*>(lse), last, stride,
+      p.slices, k, col_offset);
+  return (int)cudaGetLastError();
+}
+
 // Many-row top-1 path: the vocab slices a launch over `rows` rows uses;
 // the wrapper sizes the (rows, n_split) partials with it.
 int sample_topk_rows_splits(int rows, int v_orig) {
@@ -839,6 +1194,12 @@ int sample_topk_rows_launch(const void* h, const void* w, void* pvals,
       static_cast<const float*>(pvals), static_cast<const int*>(pids),
       static_cast<float*>(vals), static_cast<int*>(ids), rows, n_split);
   return (int)cudaGetLastError();
+}
+
+// The list kernel's list length kk and whether its lists live in shared
+// memory, into out[0..1] (the Python mirror must agree).
+void sample_topk_big_lists(int rows, int v_orig, int k, int wb, int* out) {
+  plan_big(rows, v_orig, k, wb, &out[0], &out[1]);
 }
 
 const char* sample_topk_error_string(int err) {

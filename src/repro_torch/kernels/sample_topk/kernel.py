@@ -5,7 +5,7 @@ TPU kernel, with hand-written CUDA kernels for Hopper
 (`csrc/sample_topk.cu`, built by `repro_torch.kernels.build`).
 
 The decode kernel takes the few rows of a decode step or a speculative
-verifier (any k <= 64).  Bound on an H100 SXM: it must read W once — for
+verifier (k <= 64).  Bound on an H100 SXM: it must read W once — for
 qwen3-0.6b's padded lm_head (152064 x 1024 bf16, 311 MB) ~93 us at 3.35
 TB/s, against ~2.5 us of bf16 tensor-core time at 8 rows: memory-bound.
 Its main loop is the W stream it shares with `score_tokens`
@@ -16,8 +16,15 @@ wgmma, with shared memory independent of d.  Each (value, id) is one
 keeps a running best, above that each row's top 64 stays sorted in shared
 memory and a tile's keys above its k-th are merged in by bitonic
 networks; a merge kernel (one CTA a row) folds the slices' sorted lists.
-Its plan (`core.windows.topk_stream_plan`) is checked against the
-source's twin before the first launch of each shape.
+Any larger k (and k > V) goes to the list kernel: the same W stream at 8
+rows a tile, one selection warp a row keeping a sorted list of the
+slice's top ``kk = min(k, slice columns)`` keys behind its kk-th key (in
+shared memory while it fits, else in the global scratch that receives
+it), then a tree of merge launches that places each key of two sorted
+lists by its rank in the other, and a finish kernel (counter
+``sample_topk`` as well).  The plans (`core.windows.topk_stream_plan`,
+`topk_big_lists`) are checked against the source's twins before the
+first launch of each shape.
 
 A second kernel in the same source takes k = 1 over many rows (the MTP
 accuracy's 4096): there the products, not W's bytes, bound the work
@@ -52,17 +59,20 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.core.windows import (TOPK_MAX_K, TOPK_ROWS, TOPK_ROWS_COLS,
-                                      BlockPlan, topk_decode_plan,
-                                      topk_stream_plan)
+                                      BlockPlan, topk_big, topk_big_lists,
+                                      topk_decode_plan, topk_stream_plan)
 from repro_torch.kernels import build
 from repro_torch.kernels.quant import w_kind
 
-MAX_K = TOPK_MAX_K         # the decode kernel's running list of a row
+# the decode kernel's running list of a row: larger k take the list
+# kernel, so no k >= 1 is refused
+MAX_K = TOPK_MAX_K
 LAUNCHES = build.counter("sample_topk")
 ROWS_LAUNCHES = build.counter("sample_topk_rows")
 
@@ -76,6 +86,9 @@ def _lib() -> ctypes.CDLL:
         lib.sample_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            i, f, p, p, p, p, i, p]
         lib.sample_topk_launch.restype = i
+        lib.sample_topk_big_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                               i, i, i, f, p, p, p, p, i, p]
+        lib.sample_topk_big_launch.restype = i
         lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
                                                 i, i, i, f, p]
         lib.sample_topk_rows_launch.restype = i
@@ -162,9 +175,8 @@ def _check_cuda_args(h, w, k):
         raise ValueError(f"empty input: h {tuple(h.shape)}, w {tuple(w.shape)}")
     if d % 64:
         raise ValueError(f"the kernel needs d % 64 == 0, got d={d}")
-    if not 1 <= k <= min(MAX_K, v):
-        raise ValueError(f"the kernel supports 1 <= k <= min({MAX_K}, V={v})"
-                         f", got k={k}")
+    if k < 1:
+        raise ValueError(f"top-k needs k >= 1, got {k}")
 
 
 def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
@@ -217,8 +229,10 @@ def topk_scores(
 
     CPU tensors go to `topk_scores_ref`.  CUDA tensors go to a kernel,
     which takes bf16 h (B, d) and w (V, d) with ``d % 64 == 0`` (any d),
-    ``1 <= k <= 64`` and the `plan` (`ops.cuda_topk` resolves one): the
-    decode plan launches the decode kernel, which also takes
+    any ``k >= 1`` and the `plan` (`ops.cuda_topk` resolves one): the
+    decode plan launches the decode kernel (the list kernel for k > 64 or
+    k > V, past V padded with -inf and id `col_offset` as the plain
+    version pads), which also takes
     `allowed_mask` ((B, V) contiguous bool, int8 or uint8, nonzero =
     allowed), `return_lse`, and a quantized head: w int8, float8_e4m3fn
     or float8_e5m2 with `w_scale` ((V,) contiguous f32); the 128-row plan
@@ -268,31 +282,48 @@ def topk_scores(
 def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
             return_lse=False, w_scale=None):
     """The decode kernel and its merge on its own plan, through
-    (B, slices, k) int64 scratch (and (B, slices, 2) f32 for the lse):
-    (values (B, k) f32, ids (B, k) i32[, lse (B,) f32])."""
+    (B, slices, k) int64 scratch (and (B, slices, 2) f32 for the lse), or
+    for k > 64 or k > V the list kernel, its merge tree and its finish
+    through two (B, slices, kk) scratches: (values (B, k) f32, ids (B, k)
+    i32[, lse (B,) f32])."""
     n, d = h.shape
     v = w.shape[0]
     wb = w.element_size()
     sp = topk_stream_plan(n, v, k, wb)
     build.check_plan_twin(lib, "sample_topk_plan", (n, v, k, wb), sp)
+    big = topk_big(v, k)
     dev = h.device
-    pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
+    if big:
+        _, kk, in_smem = topk_big_lists(n, v, k, wb)
+        build.check_plan_twin(lib, "sample_topk_big_lists", (n, v, k, wb),
+                              BigLists(kk, int(in_smem)))
+        pk, pk2 = (torch.empty((n, sp.slices, kk), dtype=torch.int64,
+                               device=dev) for _ in range(2))
+    else:
+        pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((n, k), dtype=torch.int32, device=dev)
     pl = lse = None
     if return_lse:
         pl = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
         lse = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sample_topk_launch(
-            h.data_ptr(), w.data_ptr(), pk.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), n, d, v, int(valid), int(col_offset), k,
-            int(logit_softcap is not None), float(logit_softcap or 0.0),
+    args = (vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
+            int(col_offset), k, int(logit_softcap is not None),
+            float(logit_softcap or 0.0),
             None if mask is None else mask.data_ptr(),
             None if pl is None else pl.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if w_scale is None else w_scale.data_ptr(),
-            w_kind(w.dtype), torch.cuda.current_stream(dev).cuda_stream)
+            w_kind(w.dtype))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if big:
+            err = lib.sample_topk_big_launch(
+                h.data_ptr(), w.data_ptr(), pk.data_ptr(), pk2.data_ptr(),
+                *args, stream)
+        else:
+            err = lib.sample_topk_launch(h.data_ptr(), w.data_ptr(),
+                                         pk.data_ptr(), *args, stream)
     if err:
         raise RuntimeError("sample_topk launch failed: "
                            + lib.sample_topk_error_string(err).decode())
@@ -300,6 +331,14 @@ def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
     if return_lse:
         return vals, ids, lse
     return vals, ids
+
+
+@dataclasses.dataclass(frozen=True)
+class BigLists:
+    """The list kernel's (kk, lists in shared memory), as its source's
+    ``sample_topk_big_lists`` writes them."""
+    kk: int
+    in_smem: int
 
 
 def _rows_top1(lib, h, w, valid, col_offset, logit_softcap):

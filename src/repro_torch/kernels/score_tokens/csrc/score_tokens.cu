@@ -38,7 +38,14 @@
 //   * at the end of the slice the 8 consumer warps' states of a row merge
 //     in warp order; a second small kernel merges the slices in a fixed
 //     order (wstream::slices_lse).  No float atomics: two calls on the
-//     same inputs agree bit for bit.
+//     same inputs agree bit for bit;
+//   * any number of candidates a row: past 64 a CTA takes a group of 64
+//     (its list in shared memory stays R x 64 entries, and the 16-bit
+//     index of an entry stays below 2^14), the groups of a slice as
+//     neighbouring CTAs of one launch, group 0 alone folding the lse.  So
+//     every group streams W again, through L2 where its neighbours have
+//     brought it in (the grid has ceil(P / 64) x the CTAs): time that
+//     grows with P / 64, written down beside the bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +59,7 @@ namespace {
 using wstream::kConsumers;
 using wstream::kThreads;
 
-constexpr int kMaxCand = 64;         // candidates a row
+constexpr int kGroup = 64;           // candidates a row a CTA scores
 constexpr int kRowsMax = 256;        // rows a row tile
 constexpr int kRowsMaxQ = 128;       // ... with a 1-byte W (more threads)
 constexpr int kMergeWarps = 8;       // merge kernel: one warp a row
@@ -64,17 +71,26 @@ __host__ __device__ inline int epilogue_bytes(int r, int n_cand) {
   return 2 * kWarps * r * 4 + r * n_cand * 4;
 }
 
+// candidates a row a CTA takes: all of them up to 64, else groups of 64
+__host__ __device__ inline int group_size(int n_cand) {
+  return n_cand < kGroup ? n_cand : kGroup;
+}
+
 __host__ __device__ inline wstream::Plan plan(int rows, int v, int n_cand,
                                               int wb) {
   wstream::Plan p =
       wstream::plan_grid(rows, v, wb == 1 ? kRowsMaxQ : kRowsMax);
-  wstream::plan_stages(p, epilogue_bytes(p.rows, n_cand), wb);
+  wstream::plan_stages(p, epilogue_bytes(p.rows, group_size(n_cand)), wb);
   return p;
 }
 
-// grid (row_tiles, slices), kThreads threads, plan(...).smem bytes.  Writes
-// each row's (m, a) over its slice to part[(row * n_split + split) * 2 ...]
-// and the logits of the candidates the slice owns to zc.  W's elements are
+// grid (row_tiles x groups, slices), kThreads threads, plan(...).smem
+// bytes.  blockIdx.x = group * row_tiles + row tile: group g scores the
+// candidates [64 g, 64 g + 64) of its rows (all n_cand when n_cand <= 64,
+// one group), so the CTAs of one slice stay neighbours in launch order and
+// share its W bytes in L2.  Writes each row's (m, a) over its slice to
+// part[(row * n_split + split) * 2 ...] (group 0 only) and the logits of
+// the group's candidates the slice owns to zc.  W's elements are
 // of hopper::WKind `kind` (kQ: a 1-byte kind, and a converter warpgroup
 // before the producer warp widens each stage); with `ws` (v_orig f32, or
 // null) each column's logit is multiplied by its scale before the softcap.
@@ -96,7 +112,12 @@ __global__ void __launch_bounds__(
       ring, smem_raw, stages, kind, kConv));             // 2 x kWarps x N
   int* own = reinterpret_cast<int*>(red + 2 * kWarps * N);
 
-  const int row0 = blockIdx.x * N;
+  const int gsz = group_size(n_cand);
+  const int row_tiles = gridDim.x / ((n_cand + gsz - 1) / gsz);
+  const int group = blockIdx.x / row_tiles;
+  const int g0 = group * gsz;                  // the group's first candidate
+  const int pg = min(gsz, n_cand - g0);        // and its candidates a row
+  const int row0 = (blockIdx.x % row_tiles) * N;
   const int split = blockIdx.y;
   const int n_tiles = (v_orig + wstream::kCols - 1) / wstream::kCols;
   const int t_begin = split * per;
@@ -120,11 +141,12 @@ __global__ void __launch_bounds__(
   }
 
   // list the candidates this slice owns while the ring fills: (index in
-  // the row tile's ids) << 16 | column within the slice; the list's order
-  // is irrelevant, each entry is written by exactly one thread
+  // the row tile's share of the group, row * pg + candidate - g0) << 16 |
+  // column within the slice; the list's order is irrelevant, each entry is
+  // written by exactly one thread
   const int nrows = min(N, rows - row0);
-  for (int i = tid; i < nrows * n_cand; i += kConsumers) {
-    const int id = ids[(size_t)row0 * n_cand + i];
+  for (int i = tid; i < nrows * pg; i += kConsumers) {
+    const int id = ids[(size_t)(row0 + i / pg) * n_cand + g0 + i % pg];
     const long long local = (long long)id - col_offset;
     if (local >= s0 && local < s_end && id < valid)
       own[atomicAdd(&n_own, 1)] = (i << 16) | (int)(local - s0);
@@ -158,7 +180,7 @@ __global__ void __launch_bounds__(
       if (has_cap) z = cap * tanhf(z / cap);
       acc[i] = ((i >> 1) & 1 ? live1 : live0) ? z * inv_temp : -INFINITY;
     }
-    st.fold(acc, g);
+    if (group == 0) st.fold(acc, g);    // the lse is group 0's
     // candidate logits held by this tile's fragment
     const int tl = tile - t_begin;
     for (int e = 0; e < nown; ++e) {
@@ -166,7 +188,7 @@ __global__ void __launch_bounds__(
       const int col = ent & 0xffff;
       if ((col >> 7) != tl) continue;
       const int i = ent >> 16;
-      const int r = i / n_cand;
+      const int r = i / pg;
       const int cc = col & 127;
       // the owner: warp cc / 16 (warpgroup cc / 64), lane (cc % 8, r % 8 / 2)
       if ((cc >> 4) != warp || (cc & 7) != g || ((r & 7) >> 1) != t)
@@ -179,12 +201,12 @@ __global__ void __launch_bounds__(
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           if (j == jr && q == sel) val = acc[4 * j + q];
-      zc[(size_t)row0 * n_cand + i] = val;
+      zc[(size_t)(row0 + r) * n_cand + g0 + i % pg] = val;
     }
   }
 
   // the 8 warps' states of each row, then a fixed warp order
-  st.store(red, part, row0, rows, n_split, split);
+  if (group == 0) st.store(red, part, row0, rows, n_split, split);
 }
 
 // grid (ceil(rows / kMergeWarps)), one warp a row: lse from the row's
@@ -222,8 +244,9 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
   const int threads = kThreads + (kQ ? wstream::converters(N) : 0);
-  score_stream_kernel<N, kQ><<<dim3(p.row_tiles, p.slices), threads, p.smem,
-                               s>>>(wmap, hmap, ids, part, zc, ws, kind,
+  const int groups = (n_cand + kGroup - 1) / kGroup;
+  score_stream_kernel<N, kQ><<<dim3(p.row_tiles * groups, p.slices), threads,
+                               p.smem, s>>>(wmap, hmap, ids, part, zc, ws, kind,
                                     rows, d, v_orig, valid, col_offset,
                                     n_cand, p.per, p.slices, p.stages,
                                     has_cap, cap, inv_temp);
@@ -234,7 +257,8 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
 
 extern "C" {
 
-// The launch plan for (rows, V, n_cand, bytes a W element): {R,
+// The launch plan for (rows, V, n_cand, bytes a W element; past 64
+// candidates a CTA takes a group of 64): {R,
 // row_tiles, per, slices, stages, smem} into out[0..5] (the wrapper's
 // Python mirror must agree).
 void score_tokens_plan(int rows, int v_orig, int n_cand, int wb, int* out) {
@@ -255,7 +279,7 @@ int score_tokens_launch(const void* h, const void* w, const void* ids,
                         int has_cap, float cap, float inv_temp,
                         const void* ws, int kind, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
-      d % wstream::kChunk || n_cand < 1 || n_cand > kMaxCand || kind < 0 ||
+      d % wstream::kChunk || n_cand < 1 || kind < 0 ||
       kind > hopper::kE5M2)
     return (int)cudaErrorInvalidValue;
   const wstream::Plan p = plan(rows, v_orig, n_cand, kind ? 1 : 2);

@@ -14,7 +14,9 @@ h and a slice of 128-column W tiles, stream W and h through a TMA ring
 into wgmma, with shared memory independent of d (so any ``d % 64 ==
 0``); the epilogue keeps per-row online-softmax ``(m, a)`` in f32 on the
 CUDA cores, and a second small kernel merges the slices' states in a
-fixed order.  The one slice that owns a candidate id writes its logit.
+fixed order.  The one slice that owns a candidate id writes its logit;
+past 64 candidates a row each CTA takes a group of 64, the groups of a
+slice neighbours in one launch (W streamed once a group, through L2).
 See the source's header.  The plan (`core.windows.score_plan`) is
 checked against the source's twin before the first launch of each shape.
 
@@ -46,7 +48,6 @@ from repro_torch.kernels.score_tokens.ref import (inv_temperature,
                                                   score_stats_ref)
 
 LAUNCHES = build.counter("score_tokens")
-MAX_CAND = 64            # candidates a row (score_tokens.cu kMaxCand)
 
 _configured = set()
 
@@ -106,8 +107,8 @@ def score_stats(
     to `score_stats_ref`.  CUDA tensors go to the kernel, which takes bf16
     h, a bf16 w or a quantized one (int8, float8_e4m3fn, float8_e5m2)
     with its (V,) f32 `w_scale`, int32 ids, all contiguous on one device,
-    ``d % 64 == 0`` (any d) and ``1 <= P <= 64``, and raises ValueError on
-    anything else."""
+    ``d % 64 == 0`` (any d) and any ``P >= 1`` (past 64, in groups of 64
+    candidates a CTA), and raises ValueError on anything else."""
     if ids.dim() == 1:
         ids = ids[:, None]
     if h.device.type == "cpu":
@@ -118,9 +119,6 @@ def score_stats(
     _check_cuda_args(h, w, ids)
     if w_scale is not None:
         check_w_scale(w_scale, w, h)
-    if ids.shape[1] > MAX_CAND:
-        raise ValueError(f"the kernel scores at most {MAX_CAND} candidates "
-                         f"a row, got P={ids.shape[1]}")
     lib = _lib()
     n, d = h.shape
     v = w.shape[0]

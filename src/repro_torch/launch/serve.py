@@ -8,7 +8,8 @@
         [--spec-k 4] [--mode eval [--eval-conts 4] [--cont-len 8]] \
         [--beams N | --best-of N [--best-of-temp T] | --grammar-mask SPEC] \
         [--quantize-cache] [--head-dtype int8|float8_e4m3fn|float8_e5m2] \
-        [--stats-json [PATH]]
+        [--sampler-impl kernel|plain] [--stats-json [PATH]] \
+        [--metrics-json [PATH]] [--trace-out PATH [--trace-format chrome|jsonl]]
 
 ``--paged`` serves from the block-pool KV cache with shared-prefix reuse
 (`PagedEngine`), every decode step through the hand-written paged
@@ -35,7 +36,15 @@ per-(token, head) scales, and ``--head-dtype`` serves a 1-byte copy of
 the lm_head with per-row scales; the launcher prints the head's dtype
 and bytes and, with ``--paged``, a block's bytes.  ``--stats-json`` dumps
 the scheduler's report (TTFT, tokens per step, acceptance rate) as JSON
-to PATH, or to stdout without one.
+to PATH, or to stdout without one.  ``--metrics-json`` turns the
+`repro_torch.obs` registry on before any engine is built and dumps every
+instrument's snapshot (`obs.export.metrics_report`, with the mode and
+arch) as JSON to PATH or stdout; ``--trace-out PATH`` turns span tracing
+on as well and writes the ``engine.*``, ``spec.*`` and ``serve.*`` spans
+to PATH as a chrome trace or JSON lines (``--trace-format``).
+``--sampler-impl`` picks the sampler: ``kernel`` (default; the Hopper
+top-k kernel, its plain version for CPU tensors) or ``plain`` (the
+chunked plain scan, CPU tensors only: refused without ``--device cpu``).
 
 An enc-dec arch (seamless-m4t-medium) serves every request after the
 same seeded normal encoder frames, 32 of them (``enc_len`` 32), in the
@@ -82,6 +91,11 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--sampler-impl", default="kernel",
+                    choices=("kernel", "plain"),
+                    help="top-k sampler: the CUDA kernel (its plain "
+                         "version for CPU tensors) or the chunked plain "
+                         "scan (CPU only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true",
                     help="paged block-pool KV cache with shared-prefix "
@@ -139,7 +153,22 @@ def main(argv=None):
                     metavar="PATH",
                     help="dump the scheduler stats report as JSON (to "
                          "stdout when PATH is omitted)")
+    ap.add_argument("--metrics-json", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="enable the repro_torch.obs registry and dump "
+                         "every instrument's snapshot as JSON (stdout when "
+                         "PATH is omitted)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable per-request span tracing and write the "
+                         "trace to PATH")
+    ap.add_argument("--trace-format", default="chrome",
+                    choices=("chrome", "jsonl"),
+                    help="trace export format for --trace-out")
     args = ap.parse_args(argv)
+
+    # obs must be live BEFORE engines and schedulers bind their instruments
+    if args.metrics_json is not None or args.trace_out is not None:
+        obs.enable(trace=args.trace_out is not None)
 
     if args.spec_self and args.spec_draft:
         ap.error("--spec-self and --spec-draft are mutually exclusive")
@@ -158,6 +187,10 @@ def main(argv=None):
                  "sampling temperature is --best-of-temp)")
     if args.grammar_mask and (args.beams or args.best_of):
         ap.error("--grammar-mask cannot combine with --beams/--best-of")
+    if args.sampler_impl == "plain" and args.device != "cpu":
+        ap.error("--sampler-impl plain is the plain version and serves CPU "
+                 "tensors only: give --device cpu, or take the kernel "
+                 "sampler (--sampler-impl kernel) on the card")
     device = resolve_device(args.device)
     arch = get_arch(args.arch, reduced=args.reduced)
     if args.mtp_heads or args.spec_self:
@@ -179,7 +212,8 @@ def main(argv=None):
                      paged_impl=args.paged_impl,
                      prefix_cache=not args.no_prefix_cache,
                      quantize_cache=args.quantize_cache,
-                     head_dtype=args.head_dtype, **enc_kw)
+                     head_dtype=args.head_dtype,
+                     sampler_impl=args.sampler_impl, **enc_kw)
     if args.spec_self:
         cls = PagedSelfSpecEngine if args.paged else SelfSpecEngine
         eng = cls(arch, params, sc,
@@ -291,6 +325,15 @@ def main(argv=None):
     if args.stats_json is not None:
         obs.export.dump_json(sched.stats(), args.stats_json,
                              label="stats", tag="serve")
+    if args.metrics_json is not None:
+        obs.export.dump_json(
+            obs.export.metrics_report(obs.get_registry(),
+                                      extra={"mode": mode,
+                                             "arch": arch.arch_id}),
+            args.metrics_json, label="metrics", tag="serve")
+    if args.trace_out is not None:
+        obs.export.write_trace(obs.get_tracer(), args.trace_out,
+                               fmt=args.trace_format, tag="serve")
     if args.mode == "eval":
         print("[serve] sample scores:", np.round(out[0][:8], 3))
     else:

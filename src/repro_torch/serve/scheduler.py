@@ -45,7 +45,6 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.kernels.sample_topk import MAX_K
 from repro_torch.serve import modes
 from repro_torch.serve.kvpool import PoolExhausted
 
@@ -242,8 +241,7 @@ class ContinuousScheduler:
         return rid
 
     def _submit_group(self, kind: str, prompt, n: int, payload,
-                      max_new_tokens, eos_id, k_cand: int,
-                      frontend_embeds) -> int:
+                      max_new_tokens, eos_id, frontend_embeds) -> int:
         self._require_modes(f"{kind} decoding")
         if self.engine.sc.temperature != 0.0:
             # plain requests sharing a tick with a group advance through
@@ -260,13 +258,6 @@ class ContinuousScheduler:
         if not 1 <= n <= self.engine.batch_size:
             raise ValueError(f"group width {n} outside "
                              f"[1, {self.engine.batch_size}]")
-        if k_cand > MAX_K:
-            # refused on every device, before a slot is taken: the decode
-            # kernel keeps each row's running list as 64 keys
-            raise ValueError(
-                f"a {kind} group of width {n} scores {k_cand} candidates a "
-                f"row; the top-k kernel keeps at most {MAX_K} (k > 64 is "
-                "ROADMAP B3)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = (self.default_max_new if max_new_tokens is None
                    else max_new_tokens)
@@ -293,12 +284,9 @@ class ContinuousScheduler:
         """Queue one beam-search request (`modes.BeamGroup`): `n_beams`
         sibling slots decode in the shared batch, forked copy-on-write on
         paged engines.  ``results[rid]`` is the best hypothesis' tokens,
-        ``hypotheses[rid]`` the ranked top-n list.  A width above 32 would
-        score more than 64 candidates a row and raises (ROADMAP B3)."""
+        ``hypotheses[rid]`` the ranked top-n list."""
         return self._submit_group("beam", prompt, n_beams, {},
-                                  max_new_tokens, eos_id,
-                                  1 if n_beams == 1 else 2 * n_beams,
-                                  frontend_embeds)
+                                  max_new_tokens, eos_id, frontend_embeds)
 
     def submit_best_of(self, prompt, *, n: int, temperature: float = 1.0,
                        top_p: Optional[float] = None, seed: int = 0,
@@ -307,12 +295,11 @@ class ContinuousScheduler:
         """Queue one best-of-n request (`modes.BestOfGroup`): n independent
         samples at `temperature` from the engine's ``top_k`` survivors,
         ranked by cumulative logprob.  ``results[rid]`` is the best
-        sample.  A ``top_k`` above 64 raises (ROADMAP B3)."""
-        k = max(1, int(self.engine.sc.top_k)) if temperature > 0.0 else 1
+        sample."""
         return self._submit_group(
             "best_of", prompt, n,
             {"temperature": temperature, "top_p": top_p, "seed": seed},
-            max_new_tokens, eos_id, k, frontend_embeds)
+            max_new_tokens, eos_id, frontend_embeds)
 
     # -- state machine ------------------------------------------------------
 

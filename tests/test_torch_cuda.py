@@ -72,8 +72,9 @@ def test_kernel_matches_plain_version(cuda, rows, k, cap, ties):
 def test_kernel_refuses_what_it_does_not_support(cuda):
     """A quantized head's `w_scale` of the wrong shape or dtype raises
     ValueError on the card (never a quiet trip through the plain
-    version), and so do k above the limit, another dtype, a mask of the
-    wrong shape and one of a dtype the kernel does not read in place."""
+    version), and so do k below 1 (any k >= 1 runs, past `MAX_K` on the
+    list kernel), another dtype, a mask of the wrong shape and one of a
+    dtype the kernel does not read in place."""
     from repro_torch.kernels.sample_topk import MAX_K, LAUNCHES, cuda_topk
     h = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((1024, 128), dtype=torch.bfloat16, device=cuda)
@@ -84,8 +85,9 @@ def test_kernel_refuses_what_it_does_not_support(cuda):
     with pytest.raises(ValueError, match="w_scale"):
         cuda_topk(h, w.to(torch.int8), 4,
                   w_scale=torch.ones((1024,), device=cuda).double())
-    with pytest.raises(ValueError):
-        cuda_topk(h, w, MAX_K + 1)
+    with pytest.raises(ValueError, match="k >= 1"):
+        cuda_topk(h, w, 0)
+    assert MAX_K == 64
     with pytest.raises(ValueError):
         cuda_topk(h.float(), w.float(), 4)
     with pytest.raises(ValueError, match="allowed_mask"):
@@ -668,16 +670,79 @@ def test_filtered_grads_split_past_the_tile_list(cuda, which):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", _GRADS)
 def test_grad_refuses_d_past_the_cluster(cuda, which):
+    """d past the cluster's 16 x 256 columns runs: d 4160 takes two
+    column passes (the second a single 64-column box on one CTA), one
+    launch, held to the plain version at the exact kernels'
+    tolerance."""
     from repro_torch.core import LossConfig
     from repro_torch.kernels import build
-    from repro_torch.kernels.fused_ce import dh_grads, dw_grads
-    grads = dh_grads if which == "dh" else dw_grads
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, ref_dh,
+                                              ref_dw, ref_stats)
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
     h, w, y = _ce_problem(cuda, 8, 256, 4160, seed=0)
-    lse = torch.zeros((8,), device=cuda)
-    before = {k: c.count for k, c in build.COUNTERS.items()}
-    with pytest.raises(ValueError, match="cluster"):
-        grads(h, w, y, lse, lse, lse, LossConfig())
-    assert {k: c.count for k, c in build.COUNTERS.items()} == before
+    cfg = LossConfig()
+    lse = ref_stats(h, w, y, cfg)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / 8).to(cuda)
+    name = f"fused_ce_{which}"
+    before = build.COUNTERS[name].count
+    got = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    assert build.COUNTERS[name].count == before + 1
+    want = ref(h, w, y, lse, gamma, gamma, cfg)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", _GRADS)
+@pytest.mark.parametrize("n,v,d,valid", [
+    (512, 3000, 5120, 2990),      # qwen1.5-32b's d: passes of 16 and 4
+    (512, 3000, 7168, 3000),      # arctic-480b's
+    (300, 4000, 12288, 3950),     # mistral-large-123b's: 3 whole passes
+    (200, 1000, 8256, 1000),      # a last pass of one box
+])
+def test_grad_past_d4096_matches_plain_version(cuda, which, n, v, d, valid):
+    """The column-pass dH / dW past d 4096: rtol 3e-4 / atol 1e-6 and a
+    relative Frobenius error of 1e-4 against the plain version, two calls
+    bit for bit, dW's pad rows exactly zero, one launch a call; under an
+    all-False mask the filtered kernel is the exact one bit for bit, and
+    on the peaked problem the filtered kernel matches the plain version
+    given its mask with most tiles skipped."""
+    from repro_torch.core import LossConfig
+    from repro_torch.core.filtering import skipped_fraction, tile_skip_mask
+    from repro_torch.core.windows import ce_tile_grid
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import (dh_grads, dw_grads, fwd_stats,
+                                              ref_dh, ref_dw, ref_stats)
+    grads, ref = (dh_grads, ref_dh) if which == "dh" else (dw_grads, ref_dw)
+    h, w, y = _ce_problem(cuda, n, v, d, seed=d + n)
+    y = torch.where(y >= 0, y % valid, y).to(torch.int32)
+    cfg = LossConfig(valid_vocab=valid, logit_softcap=30.0)
+    lse = ref_stats(h, w, y, cfg)[0]
+    gamma = torch.where(y == -100, 0.0, 1.0 / n).to(cuda)
+    name = f"fused_ce_{which}"
+    before = build.COUNTERS[name].count
+    got = grads(h, w, y, lse, gamma, gamma, cfg)
+    again = grads(h, w, y, lse, gamma, gamma, cfg)
+    torch.cuda.synchronize()
+    assert build.COUNTERS[name].count == before + 2
+    assert torch.equal(got, again)
+    want = ref(h, w, y, lse, gamma, gamma, cfg)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=1e-6)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+    if which == "dw":
+        assert not bool(got[valid:].any())
+    none = torch.zeros(ce_tile_grid(n, v), dtype=torch.bool, device=cuda)
+    assert torch.equal(grads(h, w, y, lse, gamma, gamma, cfg,
+                             skip_mask=none), got)
+    ph, pw, py = _peaked_problem(cuda, n, 32768, d, seed=d)
+    fcfg = LossConfig(grad_filter_eps=1e-5)
+    plse, _, _, tmax = fwd_stats(ph, pw, py, fcfg, return_tile_stats=True)
+    mask = tile_skip_mask(tmax, plse, py, fcfg, block_rows=64, block_v=64)
+    assert float(skipped_fraction(mask)) > 0.5
+    pg = torch.full((n,), 1.0 / n, device=cuda)
+    fgot = grads(ph, pw, py, plse, pg, pg, fcfg, skip_mask=mask)
+    fwant = ref(ph, pw, py, plse, pg, pg, fcfg, skip_mask=mask)
+    torch.testing.assert_close(fgot, fwant, rtol=3e-4, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -856,14 +921,54 @@ def test_score_tokens_refuses_what_it_does_not_support(cuda):
         score_stats(h, w.to(torch.int16), ids)
     with pytest.raises(ValueError, match="d % 64"):
         score_stats(h[:, :96].contiguous(), w[:, :96].contiguous(), ids)
-    with pytest.raises(ValueError, match="candidates"):
-        score_stats(h, w, torch.zeros((4, 65), dtype=torch.int32,
-                                      device=cuda))
     with pytest.raises(ValueError, match="int32"):
         score_stats(h, w, ids.long())
     with pytest.raises(ValueError, match="empty"):
         score_stats(h, w, ids[:, :0])
     assert LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,v,d,cap,temp", [
+    (1, 65, 20_000, 1024, None, 0.7), (8, 130, 20_000, 256, 30.0, None),
+    (40, 256, 5_000, 128, None, 2.0), (300, 100, 3_000, 64, None, None),
+])
+def test_score_tokens_past_64_candidates(cuda, n, p, v, d, cap, temp):
+    """Past 64 candidates a row (groups of 64 a CTA): lse and every
+    candidate's logit rtol 1e-5 / atol 1e-4 of the plain version, the
+    duplicated id equal to its original, -1, past-valid and past-shard
+    ids 0 in z_cand and -inf in logp, one launch a call and two calls bit
+    for bit; the lse bit for bit that of the first 64 candidates alone."""
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref,
+                                                  score_tokens)
+    gen = torch.Generator(device=cuda).manual_seed(n + p)
+    valid = v - 5
+    h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    ids = torch.randint(0, valid, (n, p), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ids[:, p - 3:] = torch.tensor([-1, valid, v + 9], device=cuda,
+                                  dtype=torch.int32)
+    ids[:, 70 % p] = ids[:, 1]
+    kw = dict(valid_vocab=valid, logit_softcap=cap, temperature=temp)
+    before = LAUNCHES.count
+    lse, zc = score_stats(h, w, ids, **kw)
+    lse2, zc2 = score_stats(h, w, ids, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(zc, zc2)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4)
+    assert torch.equal(zc[:, 70 % p], zc[:, 1])
+    assert not bool(zc[:, p - 3:].any())
+    lse64, _ = score_stats(h, w, ids[:, :64].contiguous(), **kw)
+    assert torch.equal(lse, lse64)
+    logp, _ = score_tokens(h, w, ids, **kw)
+    assert bool(torch.isneginf(logp[:, p - 3:]).all())
+    assert bool(torch.isfinite(logp[:, :p - 3]).all())
 
 
 @pytest.mark.cuda
@@ -935,16 +1040,99 @@ def test_topk_decode_at_wide_d(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,v,d,opts", [
+    (1, 65, 20_000, 256, ""), (8, 100, 20_000, 256, ""),
+    (40, 256, 20_000, 256, "cap"), (8, 1024, 152_064, 256, ""),
+    (64, 3000, 152_064, 256, ""),         # lists in global scratch
+    (3, 1003, 1000, 128, ""),             # k = V + 3: a -inf tail
+    (5, 300, 300, 64, "off"),             # k = V, with a shard offset
+    (8, 40, 20, 64, ""),                  # k <= 64 but > V
+    (8, 100, 20_000, 256, "mask_lse"), (8, 100, 20_000, 1024, "int8"),
+    (8, 100, 20_000, 256, "ties"),
+])
+def test_topk_list_kernel_matches_plain_version(cuda, rows, k, v, d, opts):
+    """k > 64 (and k > V) on the list kernel: values rtol 1e-5 / atol
+    1e-4 of the plain version, ids exact wherever the values are apart
+    (everywhere on tie data), -inf and id `col_offset` past the columns
+    that exist, the mask, the lse (values' tolerance) and an int8
+    `w_scale` as on the decode kernel, one launch a call and two calls
+    bit for bit; the plan and the list length equal their source twins."""
+    from repro_torch.core.windows import topk_big_lists, topk_stream_plan
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sample_topk import (LAUNCHES, cuda_topk,
+                                                 topk_scores_ref)
+    from repro_torch.kernels.sample_topk.kernel import BigLists, _lib
+    gen = torch.Generator(device=cuda).manual_seed(rows + k + v)
+    wb = 1 if opts == "int8" else 2
+    plan, kk, in_smem = topk_big_lists(rows, v, k, wb)
+    assert plan == topk_stream_plan(rows, v, k, wb)
+    build.check_plan_twin(_lib(), "sample_topk_big_lists", (rows, v, k, wb),
+                          BigLists(kk, int(in_smem)))
+    assert in_smem == (kk <= 2683)
+    kw = dict(valid_vocab=v - 7)
+    if opts == "int8":
+        h, w, kw["w_scale"] = _quant_head(cuda, v, d, "int8", 4, rows)
+    else:
+        h = torch.randn((rows, d), generator=gen, device=cuda)
+        w = torch.randn((v, d), generator=gen, device=cuda) * 0.3
+        if opts == "ties":
+            h, w = torch.round(h * 2) / 2, torch.round(w * 2) / 2
+        h, w = h.bfloat16(), w.bfloat16()
+    if opts == "cap":
+        kw["logit_softcap"] = 30.0
+    if opts == "off":
+        kw = dict(col_offset=1000, valid_vocab=1250)
+    if opts == "mask_lse":
+        kw.update(allowed_mask=_topk_mask(cuda, rows, v, 3), return_lse=True)
+    before = LAUNCHES.count
+    got = cuda_topk(h, w, k, **kw)
+    again = cuda_topk(h, w, k, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = topk_scores_ref(h, w, k, **kw)
+    # the plain version's top k + 1: its last value bounds the k-th's gap
+    ext = topk_scores_ref(h, w, k + 1, **kw)[0].cpu().numpy()
+    vals, ids, rv, ri = (t.cpu().numpy() for t in (*got[:2], *ref[:2]))
+    fin = np.isfinite(rv)
+    assert np.array_equal(fin, np.isfinite(vals))
+    np.testing.assert_allclose(vals[fin], rv[fin], rtol=1e-5, atol=1e-4)
+    if opts == "ties":
+        np.testing.assert_array_equal(ids, ri)
+    # ids exact wherever a value lies further from both neighbours (the
+    # (k + 1)-th included) than twice what the values' tolerance lets
+    # either move (k 3000 of 152064 columns: gaps of ~1e-4 between values
+    # near 25 are common)
+    tol = 1e-4 + 1e-5 * np.abs(np.where(np.isfinite(ext), ext, 0.0))
+    gap = np.abs(np.diff(ext, axis=1)) > 2 * np.maximum(tol[:, 1:],
+                                                        tol[:, :-1])
+    sep = fin & gap
+    sep[:, 1:] &= gap[:, :-1]
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+    off = kw.get("col_offset", 0)
+    if k > v:                      # the tail past the columns that exist
+        assert np.isneginf(vals[:, v:]).all() and (ids[:, v:] == off).all()
+        assert np.array_equal(np.sort(ids[:, :v], axis=1),
+                              np.tile(np.arange(off, off + v), (rows, 1)))
+    if opts == "mask_lse":
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-4)
+        m = kw["allowed_mask"].cpu().numpy()
+        r, c = np.nonzero(fin)
+        assert m[r, ids[r, c]].all()
+
+
+@pytest.mark.cuda
 def test_stream_plans_equal_their_source_twins(cuda):
     """The Python plans the wrappers launch with are the sources' own, for
-    rows 1..1000, V 100..262144 and every P / k bucket."""
+    rows 1..1000, V 100..262144 and every P / k bucket, past 64 candidates
+    and past k 64 (the list kernel, also where k > V) included."""
     from repro_torch.core.windows import score_plan, topk_stream_plan
     from repro_torch.kernels import build
     from repro_torch.kernels.sample_topk.kernel import _lib as topk_lib
     from repro_torch.kernels.score_tokens.kernel import _lib as score_lib
     for rows in (1, 8, 9, 40, 64, 65, 100, 129, 256, 257, 1000):
         for v in (100, 20_000, 32_768, 152_064, 262_144):
-            for x in (1, 4, 40, 64):
+            for x in (1, 4, 40, 64, 65, 200, 1024, 5000):
                 for wb in (2, 1):        # bf16 and 1-byte (quantized) W
                     build.check_plan_twin(
                         score_lib(), "score_tokens_plan", (rows, v, x, wb),

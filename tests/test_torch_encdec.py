@@ -216,7 +216,7 @@ def _jax_grads(jarch, jparams, batch, w):
     def loss(p):
         h, _, _ = JR.forward_hidden(jarch, p, batch)
         return jnp.sum(h.astype(jnp.float32) * w)
-    return jax.grad(loss)(jparams)
+    return jax.jit(jax.grad(loss))(jparams)
 
 
 def _stacked(jtree, path):

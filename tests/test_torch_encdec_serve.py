@@ -51,6 +51,7 @@ from repro_torch.serve import (ContinuousScheduler, Engine,  # noqa: E402
                                PagedEngine, ServeConfig, SpecConfig,
                                SpecEngine)
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_jax_engines import engine  # noqa: E402
 
 ARCH = "seamless-m4t-medium"
 VOCAB = 517
@@ -84,8 +85,8 @@ def _kw(**kw):
 
 
 def _jeng(model, cls=JEngine, **kw):
-    return cls(model[0], model[1], JServeConfig(sampler_impl="jax",
-                                                **_kw(**kw)))
+    return engine(cls, model[0], model[1],
+                  JServeConfig(sampler_impl="jax", **_kw(**kw)))
 
 
 def _teng(model, cls=Engine, **kw):

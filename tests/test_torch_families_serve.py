@@ -35,6 +35,7 @@ from repro_torch.serve import (ContinuousScheduler, Engine,  # noqa: E402
                                PagedEngine, SelfSpecEngine, ServeConfig,
                                SpecConfig)
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_jax_engines import engine  # noqa: E402
 
 MOE = "qwen3-moe-235b-a22b"
 K = 2
@@ -81,7 +82,8 @@ def test_moe_slab_engine_token_identical_to_jax():
     jarch, jparams, tarch, tparams = _models(MOE)
     assert tarch.cfg.capacity_factor == 1.25
     prompts = _prompts(jarch.vocab_size, (3, 11, 7, 5, 9, 20))
-    want, _ = _serve(JScheduler, JEngine(jarch, jparams, _jsc()), prompts)
+    want, _ = _serve(JScheduler, engine(JEngine, jarch, jparams, _jsc()),
+                     prompts)
     got, _ = _serve(ContinuousScheduler,
                     Engine(tarch, tparams, _tsc(), device="cpu"), prompts)
     _same(got, want)
@@ -94,7 +96,8 @@ def test_moe_paged_engine_with_prefix_hits_token_identical_to_jax():
     prompts = [np.concatenate([system, s]) for s in
                _prompts(jarch.vocab_size, (3, 7, 5, 9), seed=6)]
     paged = dict(paged=True, block_size=4)
-    jeng = JPagedEngine(jarch, jparams, _jsc(paged_impl="jax", **paged))
+    jeng = engine(JPagedEngine, jarch, jparams,
+                  _jsc(paged_impl="jax", **paged))
     want, _ = _serve(JScheduler, jeng, prompts)
     teng = PagedEngine(tarch, tparams, _tsc(**paged), device="cpu")
     got, sched = _serve(ContinuousScheduler, teng, prompts)
@@ -106,7 +109,7 @@ def test_moe_paged_engine_with_prefix_hits_token_identical_to_jax():
 def test_moe_self_spec_engine_token_identical_to_jax():
     jarch, jparams, tarch, tparams = _models(MOE, mtp=K)
     prompts = _prompts(jarch.vocab_size, (3, 11, 6, 9, 5))
-    jeng = JSelfSpec(jarch, jparams, _jsc(), JSpecConfig(k=K))
+    jeng = engine(JSelfSpec, jarch, jparams, _jsc(), JSpecConfig(k=K))
     want, jsched = _serve(JScheduler, jeng, prompts, max_new=6)
     teng = SelfSpecEngine(tarch, tparams, _tsc(), SpecConfig(k=K),
                           device="cpu")
@@ -128,8 +131,8 @@ def test_frontend_engine_token_identical_to_jax(vlm):
     jarch, jparams, tarch, tparams, fe = vlm
     f = tarch.cfg.frontend_len
     prompts = _prompts(jarch.vocab_size, (3, 11, 7, 5))
-    want, _ = _serve(JScheduler, JEngine(jarch, jparams, _jsc()), prompts,
-                     fe=jax.numpy.asarray(fe))
+    want, _ = _serve(JScheduler, engine(JEngine, jarch, jparams, _jsc()),
+                     prompts, fe=jax.numpy.asarray(fe))
     teng = Engine(tarch, tparams, _tsc(), device="cpu")
     got, _ = _serve(ContinuousScheduler, teng, prompts, fe=fe)
     _same(got, want)
@@ -138,7 +141,7 @@ def test_frontend_engine_token_identical_to_jax(vlm):
                      Engine(tarch, tparams, _tsc(), device="cpu"), prompts)
     assert any((a != b).any() for a, b in zip(bare, got))
     # the cache lengths count the frontend span
-    jeng = JEngine(jarch, jparams, _jsc())
+    jeng = engine(JEngine, jarch, jparams, _jsc())
     teng.reset()
     for slot, p in enumerate(prompts[:3]):
         jtok = jeng.prefill_into_slot(slot, p, jax.numpy.asarray(fe))
@@ -154,7 +157,7 @@ def test_frontend_engine_token_identical_to_jax(vlm):
 def test_frontend_eval_scores_match_jax(vlm):
     jarch, jparams, tarch, tparams, fe = vlm
     prompt, cont = _prompts(jarch.vocab_size, (6, 5), seed=3)
-    want = JEngine(jarch, jparams, _jsc()).score_in_slot(
+    want = engine(JEngine, jarch, jparams, _jsc()).score_in_slot(
         0, prompt, cont, jax.numpy.asarray(fe))
     got = Engine(tarch, tparams, _tsc(), device="cpu").score_in_slot(
         0, prompt, cont, fe)
@@ -164,7 +167,8 @@ def test_frontend_eval_scores_match_jax(vlm):
 def test_paged_engine_refuses_a_frontend_arch(vlm):
     jarch, jparams, tarch, tparams, _ = vlm
     with pytest.raises(NotImplementedError, match="frontend"):
-        JPagedEngine(jarch, jparams, _jsc(paged=True, block_size=8))
+        engine(JPagedEngine, jarch, jparams,
+               _jsc(paged=True, block_size=8))
     with pytest.raises(NotImplementedError, match="frontend"):
         PagedEngine(tarch, tparams, _tsc(paged=True, block_size=8),
                     device="cpu")

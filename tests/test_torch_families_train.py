@@ -81,7 +81,7 @@ def test_one_moe_train_step_loss_and_grads_match_jax():
     batch = jdata.batch(0)
     jloss = j_loss_fn(jarch, JTrainConfig(loss_impl="pallas",
                                           loss_block_v=_BLOCK_V))
-    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     tparams = params_from_jax(_np(jparams))
     ps = [p.requires_grad_(True) for p in leaves(tparams)]

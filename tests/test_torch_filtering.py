@@ -21,6 +21,8 @@ Seeded numpy inputs go through both packages:
     guarantee, 2^-8 of the largest exact entry;
   * an all-False mask gives the exact plain version bit for bit, and an
     all-ignored batch exact zeros with every tile skipped;
+  * dH and dW past d 4096 (d 4160 and 8256, exact and under a random
+    mask) against JAX's `bwd_grads`, at the same tolerance;
   * `fused_cross_entropy` with eps > 0, 'kernel' and 'streaming', loss and
     autograd grads against ``jax.grad`` of JAX 'pallas' (plan 64 x 64)
     and 'streaming' at the same eps: loss rtol 1e-5, grads rtol 3e-4 /
@@ -273,6 +275,38 @@ def test_filtered_backward_matches_jax(forced):
     assert 0.0 < dev <= BF16_EPS * scale
 
 
+@pytest.mark.parametrize("d", [4160, 8256])
+def test_backward_past_d4096_matches_jax(d):
+    """d past the card's 16 x 256-column cluster (4160: a second column
+    pass of one box; 8256: three passes), n 128 against V 640 with 40
+    pad rows past the valid vocab, exact and under a random skip mask:
+    the plain dH / dW (which the card's column-pass kernels are held to)
+    against JAX `bwd_grads` under ``BlockPlan(64, 64, 0)`` in interpret
+    mode, rtol 3e-4 / atol 1e-6, and dW's pad rows exact zeros."""
+    rng = np.random.default_rng(d)
+    n, v, valid = 128, 640, 600
+    h = rng.standard_normal((n, d)).astype(np.float32)
+    w = (rng.standard_normal((v, d)) / np.sqrt(d)).astype(np.float32)
+    y = rng.integers(0, valid, n).astype(np.int32)
+    y[::9] = IGN
+    jcfg, cfg = (JLossConfig(valid_vocab=valid, logit_softcap=30.0),
+                 LossConfig(valid_vocab=valid, logit_softcap=30.0))
+    lse = np.asarray(JK.fwd_stats(h, w, y, jcfg, plan=PLAN64)[0])
+    lse, gamma, pc = _row_inputs(lse, y)
+    skip = rng.random(ce_tile_grid(n, v)) < 0.4
+    args = (_t(h), _t(w), _t(y), _t(lse), _t(gamma), _t(pc), cfg)
+    for kw in ({}, {"skip_mask": skip}):
+        jdh, jdw = JK.bwd_grads(
+            h, w, y, lse, gamma, pc, jcfg, plan=PLAN64,
+            **{k: jnp.asarray(m) for k, m in kw.items()})
+        dh, dw = bwd_grads(*args, **{k: _t(m) for k, m in kw.items()})
+        np.testing.assert_allclose(_np(dh), np.asarray(jdh), rtol=3e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(_np(dw), np.asarray(jdw), rtol=3e-4,
+                                   atol=1e-6)
+        assert not _np(dw)[valid:].any()
+
+
 def test_allfalse_mask_is_the_exact_plain_version(one_thread):
     h, w, y = _competitive(seed=1)
     cfg = LossConfig()
@@ -373,8 +407,10 @@ def test_filtered_split_chunks_and_the_refusals():
         TK.filtered_chunks(3, 0)
     TK.check_grad_shape("dw", 64 * 8192, 152064, 1024)
     TK.check_grad_shape("dh", 4096, 65535 * 64, 4096)
-    with pytest.raises(ValueError, match="d <= 4096"):
-        TK.check_grad_shape("dh", 64, 512, 4160)
+    # any d: past 4096 the cluster runs in column passes
+    for which in ("dh", "dw"):
+        TK.check_grad_shape(which, 64, 512, 4160)
+        TK.check_grad_shape(which, 4096, 32768, 12288)
     with pytest.raises(ValueError, match="65535.*4194241 rows of h"):
         TK.check_grad_shape("dh", 65535 * 64 + 1, 512, 64)
     with pytest.raises(ValueError, match="65535.*4194241 rows of W"):

@@ -36,6 +36,7 @@ from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve import (ContinuousScheduler, Engine,  # noqa: E402
                                PagedEngine, ServeConfig)
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_jax_engines import engine  # noqa: E402
 
 ARCH = "recurrentgemma-9b"
 LOGP_ATOL = 1e-4
@@ -93,7 +94,8 @@ LENS = (3, 11, 7, 20, 13, 5)
 def test_slab_engine_token_identical_to_jax(model):
     jarch, jparams, tarch, tparams = model
     prompts = _prompts(jarch.vocab_size, LENS)
-    want, _ = _serve(JScheduler, JEngine(jarch, jparams, _jsc()), prompts)
+    want, _ = _serve(JScheduler, engine(JEngine, jarch, jparams, _jsc()),
+                     prompts)
     got, _ = _serve(ContinuousScheduler,
                     Engine(tarch, tparams, _tsc(), device="cpu"), prompts)
     _same(got, want)
@@ -128,7 +130,7 @@ def test_prefill_state_matches_jax(model, n):
     prefill leaves the slot's state as JAX's does."""
     jarch, jparams, tarch, tparams = model
     prompt = _prompts(jarch.vocab_size, (n,), seed=3)[0]
-    jeng = JEngine(jarch, jparams, _jsc())
+    jeng = engine(JEngine, jarch, jparams, _jsc())
     teng = Engine(tarch, tparams, _tsc(), device="cpu")
     assert jeng.prefill_into_slot(1, prompt) == \
         teng.prefill_into_slot(1, prompt)
@@ -173,7 +175,7 @@ def test_paged_engine_degrades_to_slab(model):
                        device="cpu")
     got, sched = _serve(ContinuousScheduler, teng, prompts)
     _same(got, slab)
-    jeng = JPagedEngine(jarch, jparams,
+    jeng = engine(JPagedEngine, jarch, jparams,
                         _jsc(batch_size=2, paged_impl="jax", **paged))
     want, _ = _serve(JScheduler, jeng, prompts)
     _same(got, want)
@@ -193,7 +195,7 @@ def test_eval_logps_match_jax(model):
         res = sched.run()
         return [s for r in rids for s in res[r]]
 
-    want = run(JScheduler(JEngine(jarch, jparams, _jsc()),
+    want = run(JScheduler(engine(JEngine, jarch, jparams, _jsc()),
                           max_new_tokens=1))
     got = run(ContinuousScheduler(Engine(tarch, tparams, _tsc(),
                                          device="cpu"), max_new_tokens=1))
@@ -203,7 +205,7 @@ def test_eval_logps_match_jax(model):
 
 def _hyps_both(model, submit, max_new=6):
     jarch, jparams, tarch, tparams = model
-    js = JScheduler(JEngine(jarch, jparams, _jsc(batch_size=4)),
+    js = JScheduler(engine(JEngine, jarch, jparams, _jsc(batch_size=4)),
                     max_new_tokens=max_new)
     jr = submit(js)
     js.run()

@@ -16,9 +16,9 @@ engines on their plain `streaming_topk` sampler:
   * a static mask (with an unmasked neighbour in the batch), a per-step
     `mask_fn` and a singleton mask at T 1.3 give the JAX tokens, every one
     in its allowed set;
-  * the reference's mask-validation and mutual-exclusion errors hold, and
-    a group whose candidate width passes the top-k kernel's 64 is refused
-    at submission, naming ROADMAP B3;
+  * the reference's mask-validation and mutual-exclusion errors hold;
+    groups past 64 candidates a row (a beam of 33, best-of at top_k 65)
+    are taken and give the JAX hypotheses;
   * a paged fork is a refcount bump that copies no block until a write,
     and the pool ends a beam run in the JAX `PagedEngine`'s state;
   * ``--beams --paged``, ``--best-of`` and ``--grammar-mask`` run through
@@ -48,6 +48,7 @@ from repro_torch.serve import (ContinuousScheduler, Engine,  # noqa: E402
                                SpecConfig, allowed_ids_mask, kvpool,
                                parse_mask_spec)
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_jax_engines import engine  # noqa: E402
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOGP_ATOL = 1e-4
@@ -76,8 +77,8 @@ def _kw(paged=False, **kw):
 
 def _engines(model, paged=False, **kw):
     jarch, jparams, tarch, tparams = model
-    jeng = (JPagedEngine if paged else JEngine)(
-        jarch, jparams, JServeConfig(sampler_impl="jax", **_kw(paged, **kw)))
+    jeng = engine(JPagedEngine if paged else JEngine, jarch, jparams,
+                  JServeConfig(sampler_impl="jax", **_kw(paged, **kw)))
     teng = (PagedEngine if paged else Engine)(
         tarch, tparams, ServeConfig(**_kw(paged, **kw)), device="cpu")
     return jeng, teng
@@ -297,18 +298,41 @@ def test_mutual_exclusion_and_refusals(model):
         batch_size=2, max_len=32, temperature=0.8)), device="cpu")
     with pytest.raises(ValueError, match="temperature"):
         ContinuousScheduler(hot).submit_beam(np.arange(1, 6), n_beams=2)
-    # candidate widths past the top-k kernel's 64 are refused before any
-    # slot is taken, on every device
+    # candidate widths past the decode kernel's 64 keys are taken (the
+    # list kernel on the card): queued, no slot taken before the run
     wide = Engine(tarch, tparams, ServeConfig(**_kw(
         batch_size=40, max_len=32, top_k=65)), device="cpu")
     ws = ContinuousScheduler(wide, max_new_tokens=2)
-    with pytest.raises(ValueError, match="ROADMAP B3"):
-        ws.submit_beam(np.arange(1, 6), n_beams=33)
-    with pytest.raises(ValueError, match="ROADMAP B3"):
-        ws.submit_best_of(np.arange(1, 6), n=2, temperature=1.0)
+    ws.submit_beam(np.arange(1, 6), n_beams=33)       # 66 candidates
+    ws.submit_best_of(np.arange(1, 6), n=2, temperature=1.0)   # k = 65
     ws.submit_beam(np.arange(1, 6), n_beams=32)       # 64 candidates
     ws.submit_best_of(np.arange(1, 6), n=2, temperature=0.0)   # k = 1
-    assert len(ws.queue) == 2 and ws.active == 0
+    assert len(ws.queue) == 4 and ws.active == 0
+
+
+def test_groups_past_64_candidates_match_jax(model):
+    """A beam of 33 (66 candidates a row) and a best-of-2 group at top_k
+    65, past the decode kernel's 64-key list (on the card the list
+    kernel serves them): the JAX scheduler's hypotheses, tokens exact and
+    logps within `LOGP_ATOL`, and the best-of logps within it of a dense
+    `log_softmax`."""
+    jeng, teng = _engines(model, batch_size=40, max_len=32, top_k=65)
+    prompt = _ints(teng.arch.vocab_size, 7, seed=33)
+    js, want, ts, got, (rb,) = _run_both(
+        jeng, teng, lambda s: [s.submit_beam(prompt, n_beams=33)], 2)
+    assert len(ts.hypotheses[rb]) == 33
+    _same_hyps(ts.hypotheses[rb], js.hypotheses[rb])
+    np.testing.assert_array_equal(got[rb], want[rb])
+    js, want, ts, got, (ro,) = _run_both(
+        jeng, teng, lambda s: [s.submit_best_of(
+            prompt, n=2, temperature=1.0, seed=5)], 3)
+    _same_hyps(ts.hypotheses[ro], js.hypotheses[ro])
+    np.testing.assert_array_equal(got[ro], want[ro])
+    _, _, tarch, tparams = model
+    for h in ts.hypotheses[ro]:
+        np.testing.assert_allclose(
+            h.logp, _dense_logp(tarch, tparams, prompt, h.tokens).sum(),
+            atol=LOGP_ATOL, rtol=0)
 
 
 def test_modes_refused_on_spec_engines(model):

@@ -99,3 +99,49 @@ def test_serving_binds_the_same_metric_and_span_names():
     assert {n: jcounts[n] for n in tcounts} == tcounts
     assert tcounts["serve.tokens_total"] == 4     # 2 requests x 2 decodes
     assert tspans == jspans
+
+
+def test_serve_cli_metrics_trace_and_sampler_flags(tmp_path, capsys):
+    """The serve CLI's `--metrics-json`, `--trace-out`, `--trace-format`
+    and `--sampler-impl`: on the CPU with the plain sampler, the metrics
+    report has the JAX CLI's top-level keys and metric names on the same
+    arguments (its sampler 'jax'), and the JSON-lines trace holds the
+    port's `engine.decode_step` and `serve.*` spans; `--sampler-impl
+    plain` without ``--device cpu`` is refused at parsing, before any
+    engine is built.  Both packages' obs defaults are restored after."""
+    import json
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    common = ["--arch", "qwen3-0.6b", "--reduced", "--batch", "2",
+              "--max-new", "3", "--trace-format", "jsonl"]
+    saved = [(m, m.get_registry(), m.get_tracer()) for m in (jobs, tobs)]
+    try:
+        tserve.main(common + [
+            "--device", "cpu", "--sampler-impl", "plain",
+            "--metrics-json", str(tmp_path / "t.json"),
+            "--trace-out", str(tmp_path / "t.jsonl")])
+        jserve.main(common + [
+            "--sampler-impl", "jax",
+            "--metrics-json", str(tmp_path / "j.json"),
+            "--trace-out", str(tmp_path / "j.jsonl")])
+    finally:
+        for m, reg, tr in saved:
+            m.set_registry(reg)
+            m.set_tracer(tr)
+    got, want = (json.loads((tmp_path / f"{n}.json").read_text())
+                 for n in ("t", "j"))
+    assert sorted(got) == sorted(want)
+    assert sorted(got["metrics"]) == sorted(want["metrics"])
+    assert got["enabled"] and got["arch"] == "qwen3-0.6b"
+    assert got["mode"] == "continuous"
+    assert got["metrics"]["engine.decode_steps_total"]["value"] > 0
+    names = {json.loads(line)["name"]
+             for line in (tmp_path / "t.jsonl").read_text().splitlines()}
+    assert {"engine.decode_step", "engine.prefill"} <= names
+    assert any(n.startswith("serve.") or n.startswith("req.")
+               for n in names)
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "qwen3-0.6b", "--reduced",
+                     "--sampler-impl", "plain"])
+    assert "serves CPU tensors only" in capsys.readouterr().err
+

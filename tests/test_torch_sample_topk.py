@@ -118,6 +118,43 @@ def test_reference_options_match_jax_kernel(masked, lse, quant):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [65, 200, 300, 305])
+def test_list_kernel_ks_match_jax_kernel(k):
+    """k past the decode kernel's 64 (the list kernel on the card), up to
+    V (300) and past it: the plain version with `allowed_mask`,
+    `return_lse` and an int8 `w_scale` against the JAX kernel, values at
+    rtol/atol 1e-5, ids exact at every finite position; past V the plain
+    version pads -inf with id `col_offset`, as the card's list kernel."""
+    from repro.kernels.quant import quantize_weight
+    h, w = _problem(4, 32, 300, False, seed=k)
+    rng = np.random.default_rng(k)
+    mask = (rng.random((4, 300)) < 0.6).astype(np.int8)
+    mask[0] = 0                                      # a row with nothing
+    wq, ws = quantize_weight(jnp.asarray(w))
+    for kw in (dict(valid_vocab=290, logit_softcap=20.0),
+               dict(valid_vocab=290, allowed_mask=mask, return_lse=True,
+                    w_scale=np.array(ws))):
+        wk = np.array(wq) if "w_scale" in kw else w
+        want = pallas_topk(jnp.asarray(h), jnp.asarray(wk), k,
+                           **{n: (jnp.asarray(v) if isinstance(v, np.ndarray)
+                                  else v) for n, v in kw.items()})
+        tkw = {n: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+               for n, v in kw.items()}
+        for got in (topk_scores_ref(torch.from_numpy(h),
+                                    torch.from_numpy(wk), k, **tkw),
+                    cuda_topk(torch.from_numpy(h), torch.from_numpy(wk), k,
+                              **tkw)):
+            assert got[0].shape == (4, k)
+            _check(got[0], got[1], want[0], want[1])
+            if k > 300:
+                assert bool(torch.isneginf(got[0][:, 300:]).all())
+                assert not bool(got[1][:, 300:].any())
+            if "return_lse" in kw:
+                np.testing.assert_allclose(np.asarray(got[2]),
+                                           np.asarray(want[2]), rtol=1e-5,
+                                           atol=1e-5)
+
+
 @pytest.mark.parametrize("k,block_v,cap,masked", [
     (8, 37, 20.0, True), (1, 64, None, True), (40, 1000, None, False),
     (12, 7, 5.0, True)])
@@ -197,7 +234,7 @@ _PLAN_ROWS = [1, 2, 7, 8, 9, 16, 33, 40, 63, 64, 65, 100, 127, 128, 129,
 _PLAN_VOCABS = [50, 128, 129, 200, 512, 20_000, 32_768, 152_064, 262_144]
 
 
-@pytest.mark.parametrize("k", [1, 2, 8, 40, 64])
+@pytest.mark.parametrize("k", [1, 2, 8, 40, 64, 65, 1024, 5000])
 def test_decode_plan_fits_and_covers_the_vocab(k):
     """The decode kernel's plan (a mirror of `sample_topk.cu`'s, checked
     against it on the card) for rows 1..1000 at each k: R a wgmma width
@@ -206,8 +243,12 @@ def test_decode_plan_fits_and_covers_the_vocab(k):
     2..8 ring stages, and a CTA's shared memory within the card's
     232,448 bytes.  d is not an input of the plan (a ring stage holds 64
     k columns), so every width the reference's configs use (up to 16384)
-    takes the same plan; the `cuda` tests run d 12288 and 16384."""
+    takes the same plan; the `cuda` tests run d 12288 and 16384.  Past
+    k 64 (and where k > V) the plan is the list kernel's: 8 rows a row
+    tile, each (row, slice) list min(k, a slice's columns) keys, in
+    shared memory where the ring keeps 2 stages beside it."""
     from repro_torch.core.windows import (SMEM_BYTES, stream_stage_bytes,
+                                          topk_big, topk_big_lists,
                                           topk_decode_plan, topk_stream_plan)
     from repro_torch.kernels.sample_topk import default_plan
     widths = {8, 16, 24, 32, 40, 48, 56, 64}
@@ -223,10 +264,17 @@ def test_decode_plan_fits_and_covers_the_vocab(k):
             assert spans[0][0] == 0 and spans[-1][1] == n_tiles
             assert all(lo < hi for lo, hi in spans)
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-            assert p.row_tiles * p.slices <= max(132, p.row_tiles)
+            # (the list kernel's 8-row tiles can meet a slice's 511 tiles)
+            assert (p.row_tiles * p.slices <= max(132, p.row_tiles)
+                    or topk_big(v, k) and p.per == 511)
             assert 2 <= p.stages <= 8
             assert p.smem_bytes <= SMEM_BYTES
             assert p.smem_bytes >= p.stages * stream_stage_bytes(p.rows)
+            if topk_big(v, k):
+                _, kk, in_smem = topk_big_lists(rows, v, k)
+                assert p.rows == 8
+                assert kk == min(k, p.per * 128)
+                assert in_smem == (p.smem_bytes >= 8 * kk * 8)
             if k > 1 or rows < 128:
                 plan = topk_decode_plan(rows, v, k)
                 assert default_plan(rows, v, k) == plan

@@ -3,7 +3,7 @@ package's, on the CPU.
 
 The same numpy inputs go through JAX's `score_stats` (the Pallas kernel
 in interpret mode), JAX's `streaming_score` and `pallas_score_tokens`,
-and the port's `score_stats_ref` / `score_tokens`: P 1 and P 4,
+and the port's `score_stats_ref` / `score_tokens`: P 1, 4, 65 and 130,
 softcap, temperature after the softcap, ``valid_vocab < V``, ids -1,
 >= valid and duplicated, a ``col_offset`` shard, and the 1-D ids squeeze.
 Tolerance: f32 rtol 1e-5 / atol 1e-5 (sums of the same f32 products in
@@ -61,6 +61,8 @@ _CASES = [
     (5, 64, 520, 4, 517, 5.0, None),
     (3, 32, 257, 4, 250, 30.0, 0.7),
     (2, 8, 50, 1, 50, None, -1.0),          # T <= 0: unscaled
+    (4, 16, 300, 65, 290, None, 0.7),       # past 64 candidates a row
+    (4, 16, 400, 130, 390, 5.0, None),      # two whole groups and one
 ]
 
 
@@ -173,7 +175,7 @@ _PLAN_ROWS = [1, 3, 4, 8, 9, 24, 25, 32, 40, 64, 65, 100, 128, 129, 200,
 _PLAN_VOCABS = [64, 128, 1_000, 20_000, 32_768, 152_064, 262_144]
 
 
-@pytest.mark.parametrize("p_cand", [1, 4, 16, 64])
+@pytest.mark.parametrize("p_cand", [1, 4, 16, 64, 65, 256])
 def test_stream_plan_fits_and_covers_the_vocab(p_cand):
     """`score_plan` (a mirror of `score_tokens.cu`'s plan, checked against
     it on the card) for rows 1..1000 at each P: R a wgmma width of at
@@ -184,9 +186,11 @@ def test_stream_plan_fits_and_covers_the_vocab(p_cand):
     candidate list) within the card's 232,448 bytes.  d is not an input
     of the plan (a ring stage holds 64 k columns), so every width the
     reference's configs use (up to 16384) takes the same plan; the `cuda`
-    tests run d 12288 and 16384."""
+    tests run d 12288 and 16384.  Past 64 candidates a CTA takes a group
+    of 64: the plan is that of P 64."""
     from repro_torch.core.windows import (SMEM_BYTES, score_plan,
                                           stream_stage_bytes)
+    group = min(p_cand, 64)
     widths = {8, 16, 24, 32, 40, 48, 56, 64, 128, 256}
     for rows in _PLAN_ROWS:
         for v in _PLAN_VOCABS:
@@ -201,12 +205,13 @@ def test_stream_plan_fits_and_covers_the_vocab(p_cand):
             assert all(lo < hi for lo, hi in spans)
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
             assert p.per * 128 <= 1 << 16
-            assert p.rows * p_cand <= 1 << 16
+            assert p.rows * group <= 1 << 16
             assert p.row_tiles * p.slices <= 132
             assert 2 <= p.stages <= 8
             assert p.smem_bytes <= SMEM_BYTES
             assert p.smem_bytes >= (p.stages * stream_stage_bytes(p.rows)
-                                    + p.rows * p_cand * 4)
+                                    + p.rows * group * 4)
+            assert p == score_plan(rows, v, group)
 
 
 @pytest.mark.parametrize("rows,v,p_cand,want", [

@@ -38,6 +38,7 @@ from repro_torch.optim.tree import leaves, leaves_with_paths  # noqa: E402
 from repro_torch.serve import (ContinuousScheduler, Engine,  # noqa: E402
                                PagedEngine, ServeConfig)
 from repro_torch.weights import params_from_jax, states_from_jax  # noqa
+from torch_jax_engines import engine  # noqa: E402
 
 ARCH = "xlstm-125m"
 VOCAB = 211
@@ -95,7 +96,7 @@ def _tsc(**kw):
 def test_slab_engine_token_identical_to_jax(model, bucket):
     jarch, jparams, tarch, tparams = model
     prompts = _prompts(LENS)
-    want, _ = _serve(JScheduler, JEngine(jarch, jparams,
+    want, _ = _serve(JScheduler, engine(JEngine, jarch, jparams,
                                          _jsc(bucket_prefill=bucket)),
                      prompts)
     eng = Engine(tarch, tparams, _tsc(), device="cpu")
@@ -132,7 +133,7 @@ def test_prefill_state_matches_jax(model, n, cache_dtype):
     engine as under an f32 one, in both packages."""
     jarch, jparams, tarch, tparams = model
     prompt = _prompts((n,), seed=3)[0]
-    jeng = JEngine(jarch, jparams, _jsc(cache_dtype=cache_dtype))
+    jeng = engine(JEngine, jarch, jparams, _jsc(cache_dtype=cache_dtype))
     teng = Engine(tarch, tparams, _tsc(cache_dtype=cache_dtype),
                   device="cpu")
     assert jeng.prefill_into_slot(1, prompt) == \
@@ -158,7 +159,8 @@ def test_paged_engine_degrades_to_slab(model):
     teng = PagedEngine(tarch, tparams, _tsc(**paged), device="cpu")
     got, sched = _serve(ContinuousScheduler, teng, prompts)
     _same(got, slab)
-    jeng = JPagedEngine(jarch, jparams, _jsc(paged_impl="jax", **paged))
+    jeng = engine(JPagedEngine, jarch, jparams,
+                  _jsc(paged_impl="jax", **paged))
     want, _ = _serve(JScheduler, jeng, prompts)
     _same(got, want)
     assert teng.paged_stats() == jeng.paged_stats() == {"enabled": False}
@@ -177,7 +179,7 @@ def test_eval_logps_match_jax(model):
         res = sched.run()
         return [s for r in rids for s in res[r]]
 
-    want = run(JScheduler(JEngine(jarch, jparams, _jsc()),
+    want = run(JScheduler(engine(JEngine, jarch, jparams, _jsc()),
                           max_new_tokens=1))
     got = run(ContinuousScheduler(Engine(tarch, tparams, _tsc(),
                                          device="cpu"), max_new_tokens=1))
@@ -187,7 +189,7 @@ def test_eval_logps_match_jax(model):
 
 def _hyps_both(model, submit, max_new=6):
     jarch, jparams, tarch, tparams = model
-    js = JScheduler(JEngine(jarch, jparams, _jsc(batch_size=4)),
+    js = JScheduler(engine(JEngine, jarch, jparams, _jsc(batch_size=4)),
                     max_new_tokens=max_new)
     jr = submit(js)
     js.run()
