@@ -372,6 +372,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      --temperature 0.8 --top-k 100 --metrics-json P --trace-out Q`` in a
      subprocess: exit 0, the report's keys the reference's, the chrome
      trace's ``engine.decode_step`` spans.
+ 17. the autotuner and its cache (``[tune]`` lines), on a fresh cache
+     file under ``build/`` (every earlier phase runs on an empty
+     in-memory cache, the kernels' own plans): (a) cold sweeps that time
+     every candidate of each ladder (`plan_tuner.measure_us`: CUDA events
+     around back-to-back calls that fill ~1 ms, queued behind a device
+     sleep) and hold each to its plain version -- the top-k on
+     qwen3-0.6b's head at 8 rows, k 1, 40 and 100, k 1 at 16, 32, 64, 128
+     and 256 rows (where the decode and many-row kernels cross),
+     `score_tokens` at 32 rows and P 1, `paged_attn` at phase 5's decode
+     shape on bf16 and int8 pools, the fused-CE forward at 8192 rows --
+     each printing every candidate's time, the own plan's and the
+     winner; (b) the serve CLI with ``--autotune`` twice (in-process, 16
+     requests of 128 tokens, 32 new, batch 8): the first sweeps, the
+     second finds every key and sweeps nothing, both serve the untuned
+     run's tokens; (c) `PagedEngine` on phase 5's traffic and a greedy
+     `SelfSpecEngine` with 4 MTP heads on phase 3's, ``autotune=True``
+     against the same engines untuned: the same tokens, or each within
+     `GREEDY_TOL` of a cache-free forward's best logit; (d) the train CLI
+     with ``--autotune --tuning-cache`` (3 steps, batch 8 x 1024): step
+     0's loss the untuned run's within f32 reduction order
+     (`TUNE_LOSS_RTOL`).  The launches of (b) to (d), sweeps included,
+     count toward the record.
 
 Phase 2 also takes the new cases past the kernels' old limits: the
 top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
@@ -7021,6 +7043,422 @@ def phase_wide(torch, np, card, dev):
     return launches
 
 
+# phase 17: the tuned fused-CE forward's step-0 loss against the own
+# plan's: a vocab split changes only the order of the slices' f32 merge
+# (an lse of ~12 moves by a few f32 ulps); a wrong split (a slice skipped
+# or read twice) moves it by ~1e-2 or more
+TUNE_LOSS_RTOL = 1e-5
+TUNE_K1_ROWS = (16, 32, 64, 128, 256)     # (a): where the top-1 kernels cross
+TUNE_NEW = 16                             # (c): new tokens a request
+
+
+def tune_sweep(tag, op, shape, dtype, own, cands, measure, check, cache,
+               card, wdtype=None):
+    """Phase 17 (a): one cold sweep through the tuner's own loop
+    (`autotune_cached` over `run_plan_trials`, every candidate timed, the
+    winner memoized in `cache`); each candidate is then held to the
+    plain version by ``check(plan) -> max |err|``.  Prints every
+    candidate's time, the own plan's and the winner's; returns {"own_ms",
+    "best", "best_ms", "trials": [(plan, ms, err)]}."""
+    from repro_torch.kernels import plan_tuner as PT
+    got = {}
+
+    def run():
+        got["res"] = PT.run_plan_trials(measure, cands, own, trial_budget=0,
+                                        tag=tag + " ")
+        return got["res"]
+
+    n, v, d = shape
+    best = PT.autotune_cached(op, run, n, v, d, dtype, own, device="cuda",
+                              cache=cache, trial_budget=len(cands) + 1,
+                              wdtype=wdtype)
+    res = got.get("res")
+    if res is None:
+        raise AssertionError(f"(a) {tag}: the cold cache already held it")
+    if best != res.best or not res.best_us <= res.heuristic_us < 1e30:
+        raise AssertionError(f"(a) {tag}: winner {best} at {res.best_us} us"
+                             f", own {res.heuristic_us} us")
+    trials = [(plan, us / 1e3, check(plan)) for plan, us in res.trials]
+    print(f"[tune] (a) {tag}: own {own.shape} {res.heuristic_us / 1e3:.4f} "
+          f"ms, winner {best.shape} {res.best_us / 1e3:.4f} ms (own / "
+          f"winner {res.heuristic_us / res.best_us:.3f}) of {len(trials)} "
+          f"plans on {card}; " + ", ".join(
+              f"{p.shape} {ms:.4f} ms err {e:.2g}" for p, ms, e in trials),
+          flush=True)
+    return {"own_ms": res.heuristic_us / 1e3, "best": best,
+            "best_ms": res.best_us / 1e3, "trials": trials}
+
+
+def phase_tune_kernels(torch, np, arch, card, dev, cache):
+    """Phase 17 (a): the tuner's cold sweeps at the slice's shapes, each
+    candidate held to its plain version.  Returns the sweeps by tag."""
+    from repro_torch.core.windows import choose_ce_plan
+    from repro_torch.kernels import plan_tuner as PT
+    from repro_torch.kernels.fused_ce import autotune as CEA
+    from repro_torch.kernels.fused_ce import fwd_stats, ref_stats
+    from repro_torch.kernels.paged_attn import autotune as PAA
+    from repro_torch.kernels.paged_attn import (paged_attention,
+                                                paged_attention_ref)
+    from repro_torch.kernels.sample_topk import autotune as TKA
+    from repro_torch.kernels.sample_topk import (default_plan, topk_scores,
+                                                 topk_scores_ref)
+    from repro_torch.kernels.score_tokens import autotune as SCA
+    from repro_torch.kernels.score_tokens import kernel as SK
+    from repro_torch.kernels.score_tokens import (score_stats,
+                                                  score_stats_ref)
+    from repro_torch.models.attention import quantize_kv
+
+    v, d, valid = arch.padded_vocab, arch.cfg.d_model, arch.vocab_size
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    h_all = torch.randn((max(TUNE_K1_ROWS), d), generator=gen,
+                        device=dev).to(bf16)
+    w = (torch.randn((v, d), generator=gen, device=dev) / d ** 0.5).to(bf16)
+    out = {}
+
+    def topk_sweep(rows, k):
+        h = h_all[:rows].contiguous()
+        ext = topk_scores_ref(h, w, k + 1, valid_vocab=valid)
+
+        def check(plan):
+            vals, ids = topk_scores(h, w, k, plan=plan, valid_vocab=valid)
+            return check_topk_wide(np, vals, ids, *ext)[0]
+
+        return tune_sweep(
+            f"topk{k} {rows} rows", f"topk{k}", (rows, v, d), bf16,
+            default_plan(rows, v, k), TKA.candidate_plans(rows, v, k),
+            lambda plan: TKA.measure_topk_plan(h, w, k, plan), check, cache,
+            card)
+
+    for k in (1, 40, 100):
+        out[f"topk{k}_rows8"] = topk_sweep(8, k)
+    cross = []
+    for rows in TUNE_K1_ROWS:
+        r = out[f"topk1_rows{rows}"] = topk_sweep(rows, 1)
+        many = [ms for p, ms, _ in r["trials"] if p.block_rows == 128]
+        dec = min((ms, p.shape) for p, ms, _ in r["trials"]
+                  if p.block_rows != 128)
+        cross.append((rows, dec, many[0]))
+    for rows, dec, many in [(8, min((ms, p.shape) for p, ms, _ in
+                                    out["topk1_rows8"]["trials"]
+                                    if p.block_rows != 128),
+                             [ms for p, ms, _ in out["topk1_rows8"]["trials"]
+                              if p.block_rows == 128][0])] + cross:
+        print(f"[tune] (a) k 1 at {rows} rows: the decode kernel's best "
+              f"{dec[1]} {dec[0]:.4f} ms, the many-row kernel "
+              f"{many:.4f} ms: {'many-row' if many < dec[0] else 'decode'}"
+              f" wins ({dec[0] / many:.3f})", flush=True)
+    out["k1_cross"] = cross
+
+    h = h_all[:32].contiguous()
+    ids = torch.randint(0, valid, (32, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rl, rz = score_stats_ref(h, w, ids, valid_vocab=valid, temperature=0.7)
+
+    def check_score(plan):
+        lse, zc = score_stats(h, w, ids, plan=plan, valid_vocab=valid,
+                              temperature=0.7)
+        torch.testing.assert_close(lse, rl, rtol=VAL_RTOL, atol=VAL_ATOL)
+        torch.testing.assert_close(zc, rz, rtol=VAL_RTOL, atol=VAL_ATOL)
+        return float(max((lse - rl).abs().max(), (zc - rz).abs().max()))
+
+    out["score1_rows32"] = tune_sweep(
+        "score1 32 rows", "score1", (32, v, d), bf16, SK.own_plan(32, v, 1),
+        SCA.candidate_plans(32, v, 1),
+        lambda plan: SCA.measure_score_plan(h, w, ids, plan), check_score,
+        cache, card)
+
+    b, nq, nkv, hd, bs, nb = 8, 16, 8, 128, 16, 32     # phase 5's decode
+    q = torch.randn((b, 1, nq, hd), generator=gen, device=dev).to(bf16)
+    table = (1 + torch.randperm(b * nb, generator=gen, device=dev)).reshape(
+        b, nb).to(torch.int32)
+    lens = torch.randint(nb * bs // 2, nb * bs + 1, (b,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    for quant in (False, True):
+        kp = torch.randn((b * nb + 1, bs, nkv, hd), generator=gen,
+                         device=dev)
+        vp = torch.randn((b * nb + 1, bs, nkv, hd), generator=gen,
+                         device=dev)
+        kw = {}
+        if quant:
+            kp, kw["kp_scale"] = quantize_kv(kp)
+            vp, kw["vp_scale"] = quantize_kv(vp)
+        else:
+            kp, vp = kp.to(bf16), vp.to(bf16)
+        ref = paged_attention_ref(q, kp, vp, table, lens, **kw).float()
+
+        def call(plan, kp=kp, vp=vp, kw=kw):
+            return paged_attention(
+                q, kp, vp, table, lens, tile_keys=plan.block_rows,
+                pages_per_step=PAA.plan_pages_per_step(plan, bs, nb), **kw)
+
+        def check_paged(plan, ref=ref, call=call):
+            got = call(plan).float()
+            torch.testing.assert_close(got, ref, atol=PAGED_ATOL,
+                                       rtol=PAGED_RTOL)
+            return float((got - ref).abs().max())
+
+        tag = "pattn16" + (" int8" if quant else "")
+        out[tag] = tune_sweep(
+            f"{tag} B {b} 32 pages", "pattn16", (b, nb * bs, nkv * hd), bf16,
+            PAA.own_plan(b, 1, nq, nkv, hd, nb, bs, quant),
+            PAA.candidate_plans(b, 1, nq, nkv, hd, nb, bs, quant),
+            lambda plan, call=call: PT.measure_us(lambda: call(plan), 2, dev),
+            check_paged, cache, card, wdtype="int8" if quant else None)
+        del kp, vp
+
+    n = TRAIN_BATCH * TRAIN_SEQ
+    hc = torch.randn((n, d), generator=gen, device=dev).to(bf16)
+    y = torch.randint(0, valid, (n,), generator=gen, device=dev)
+    cfg = arch.loss_config()
+    want = ref_stats(hc, w, y, cfg)
+
+    def check_ce(plan):
+        lse, zt, zs = fwd_stats(hc, w, y, cfg, plan=CEA.as_ce_plan(plan, v))
+        torch.testing.assert_close(lse, want[0], rtol=VAL_RTOL,
+                                   atol=VAL_ATOL)
+        torch.testing.assert_close(zt, want[1], rtol=VAL_RTOL,
+                                   atol=VAL_ATOL)
+        torch.testing.assert_close(zs, want[2], rtol=0, atol=CE_ZSUM_ATOL)
+        return float((lse - want[0]).abs().max())
+
+    out["ce_rows8192"] = tune_sweep(
+        f"ce {n} rows", "ce", (n, v, d), bf16,
+        CEA.as_block_plan(choose_ce_plan(n, v, d), v),
+        CEA.candidate_plans(n, v),
+        lambda plan: CEA.measure_plan(hc, w, y, cfg, CEA.as_ce_plan(plan, v)),
+        check_ce, cache, card)
+    del want, hc, w, h_all
+    return out
+
+
+def tune_serve_cli(torch, np, build, obs, argv):
+    """Phase 17 (b): one in-process run of the serve CLI under a fresh
+    registry, the launch counters zeroed just before: (tokens, sweeps,
+    launches, seconds)."""
+    from repro_torch.launch import serve as serve_cli
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with obs.capture(trace=False) as (reg, _):
+        out = serve_cli.main(argv)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = reg.metrics().get("tune.sweeps_total")
+    launches = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    return np.asarray(out), (0 if m is None else int(m.value)), launches, dt
+
+
+def tune_tokens(torch, np, tag, arch, params, prompts, got, want, dev):
+    """The tuned run's tokens against the untuned run's: equal, or every
+    request that differs within GREEDY_TOL of a cache-free forward's best
+    logit (bf16 near-ties under another reduction order)."""
+    diff = [i for i, (g, w) in enumerate(zip(got, want))
+            if not np.array_equal(g, w)]
+    if not diff:
+        return f"all {len(got)} requests token for token the untuned run's"
+    worst, _ = best_logit_deficit(torch, np, arch, params,
+                                  [prompts[i] for i in diff],
+                                  [got[i] for i in diff], dev)
+    if worst > GREEDY_TOL:
+        raise AssertionError(f"{tag}: requests {diff} differ from the "
+                             f"untuned run and trail a cache-free forward's "
+                             f"best logit by {worst:.3g} > {GREEDY_TOL}")
+    return (f"{len(got) - len(diff)} of {len(got)} requests token for token "
+            f"the untuned run's, the other {len(diff)} within {worst:.3g} "
+            f"of a cache-free forward's best logit (limit {GREEDY_TOL})")
+
+
+def phase_tune(torch, np, card, dev):
+    """Phase 17: the autotuner and its cache at full width.  Returns the
+    launches of (b) to (d) by kernel, sweeps included."""
+    from repro_torch import obs
+    from repro_torch.configs import with_mtp
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.serve import (PagedEngine, SelfSpecEngine, ServeConfig,
+                                   SpecConfig)
+    from repro_torch.tuning import TuningCache, get_cache
+    from repro_torch.tuning.cache import RESOLVED
+
+    arch = get_arch("qwen3-0.6b")
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    workdir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"),
+                               prefix="tune_smoke_")
+    path = os.path.join(workdir, "blockplans.json")
+    saved = os.environ.get("REPRO_TUNING_CACHE")
+
+    def use(cache_path):
+        """The default cache from here on: `path`, or an empty in-memory
+        one ("") for the untuned runs, whose launches then take the
+        kernels' own plans; no earlier resolution survives."""
+        os.environ["REPRO_TUNING_CACHE"] = cache_path
+        RESOLVED.clear()
+
+    use(path)
+    try:
+        t0 = time.perf_counter()
+        sweeps = phase_tune_kernels(torch, np, arch, card, dev,
+                                    get_cache(path))
+        keys = sorted(json.load(open(path, encoding="utf-8"))["entries"])
+        print(f"[tune] (a) {len(keys)} keys in the cache after the sweeps "
+              f"({time.perf_counter() - t0:.1f}s): {keys}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the serve CLI, untuned, then tuned twice on the same cache
+        argv = ["--arch", "qwen3-0.6b", "--batch", "8", "--requests", "16",
+                "--prompt-len", "128", "--max-new", "32", "--max-len", "512"]
+        use("")
+        plain, _, _, dt0 = tune_serve_cli(torch, np, build, obs, argv)
+        use(path)
+        cold, cold_sweeps, counts, dt1 = tune_serve_cli(
+            torch, np, build, obs, argv + ["--autotune"])
+        add(counts)
+        use(path)
+        warm, warm_sweeps, counts, dt2 = tune_serve_cli(
+            torch, np, build, obs, argv + ["--autotune"])
+        add(counts)
+        if cold_sweeps < 1 or warm_sweeps != 0:
+            raise AssertionError(f"(b) sweeps cold {cold_sweeps}, warm "
+                                 f"{warm_sweeps}: want >= 1 and 0")
+        if not (np.array_equal(cold, plain) and np.array_equal(warm, plain)):
+            raise AssertionError("(b) the autotuned CLI served other greedy "
+                                 "tokens than the untuned one")
+        print(f"[tune] (b) the serve CLI `{' '.join(argv)} --autotune`: "
+              f"cold {cold_sweeps} sweeps in {dt1:.1f}s, warm {warm_sweeps} "
+              f"in {dt2:.1f}s (untuned {dt0:.1f}s); all {cold.size} greedy "
+              f"tokens of both equal to the untuned run's on {card}",
+              flush=True)
+
+        # (c) paged and greedy self-speculative engines, tuned vs not
+        params = init_params(arch, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        prompts = shared_prompts(np, arch.vocab_size)
+        rows = {}
+        for tune in (False, True):
+            use(path if tune else "")
+            sc = ServeConfig(batch_size=8, max_len=512, paged=True,
+                             block_size=16, autotune=tune)
+            eng, sched, results, rids, dt, counts, _, tracer = counted_run(
+                torch, np, lambda sc=sc: PagedEngine(arch, params, sc,
+                                                     device=dev),
+                lambda s: [s.submit(p) for p in prompts], build, obs,
+                max_new=TUNE_NEW)
+            steps = sched.decode_steps
+            topk = counts.get("sample_topk", 0) + counts.get(
+                "sample_topk_rows", 0)
+            if (topk != len(sched.admit_order) + steps
+                    or counts.get("paged_attn") != steps
+                    * arch.cfg.n_layers):
+                raise AssertionError(f"(c) paged launches {counts}, "
+                                     f"{steps} steps")
+            rows[tune] = ([np.asarray(results[r]) for r in rids], dt,
+                          sum(s.name == "tune.sweep" for s in tracer.spans))
+            if tune:
+                add(counts)
+            del eng, sched
+        verdict = tune_tokens(torch, np, "(c) paged", arch, params, prompts,
+                              rows[True][0], rows[False][0], dev)
+        print(f"[tune] (c) PagedEngine autotune=True on phase 5's traffic "
+              f"({TUNE_NEW} new tokens): {rows[True][2]} sweeps at "
+              f"construction (the sweeps of (a) and (b) in the cache), "
+              f"{rows[True][1]:.2f}s against {rows[False][1]:.2f}s untuned;"
+              f" {verdict} on {card}", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        march = with_mtp(arch, SPEC_K)
+        mparams = init_params(march, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        prompts = serve_prompts(np, arch.vocab_size)
+        for tune in (False, True):
+            use(path if tune else "")
+            sc = ServeConfig(batch_size=8, max_len=512, autotune=tune)
+            eng, sched, results, rids, dt, counts, _, tracer = counted_run(
+                torch, np, lambda sc=sc: SelfSpecEngine(
+                    march, mparams, sc, SpecConfig(k=SPEC_K), device=dev),
+                lambda s: [s.submit(p) for p in prompts], build, obs,
+                max_new=TUNE_NEW)
+            if counts.get("score_tokens"):
+                raise AssertionError(f"(c) greedy self-spec scored: {counts}")
+            rows[tune] = ([np.asarray(results[r]) for r in rids], dt,
+                          sum(s.name == "tune.sweep" for s in tracer.spans))
+            if tune:
+                add(counts)
+            del eng, sched
+        verdict = tune_tokens(torch, np, "(c) self-spec", march, mparams,
+                              prompts, rows[True][0], rows[False][0], dev)
+        print(f"[tune] (c) SelfSpecEngine (4 MTP heads, k {SPEC_K}, greedy)"
+              f" autotune=True on phase 3's traffic: {rows[True][2]} sweeps "
+              f"(the verify rows {8 * (SPEC_K + 1)} and the redraft rows "
+              f"{8 * SPEC_K}), {rows[True][1]:.2f}s against "
+              f"{rows[False][1]:.2f}s untuned; {verdict} on {card}",
+              flush=True)
+        del mparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the train CLI: step 0 untuned, then 3 steps tuned
+        flags = ["--arch", "qwen3-0.6b", "--loss-impl", "kernel",
+                 "--global-batch", str(TRAIN_BATCH), "--seq-len",
+                 str(TRAIN_SEQ), "--log-every", "1"]
+        use("")
+        state, plain_hist = train_cli.main(flags + ["--steps", "1"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        use(path)
+        train_cache = os.path.join(workdir, "train_plans.json")
+        build.reset_counters()
+        with obs.capture(trace=False) as (reg, _):
+            state, hist = train_cli.main(flags + [
+                "--steps", "3", "--autotune", "--tuning-cache",
+                train_cache])
+            torch.cuda.synchronize()
+        counts = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+        add(counts)
+        del state
+        m = reg.metrics().get("tune.sweeps_total")
+        entries = TuningCache(train_cache)
+        key = f"{TRAIN_BATCH * TRAIN_SEQ}x{arch.padded_vocab}x" \
+            f"{arch.cfg.d_model}:bfloat16:cuda"
+        l0, t0_loss = plain_hist[0][1]["loss"], hist[0][1]["loss"]
+        if (m is None or m.value != 1 or entries.get(key) is None
+                or len(entries) != 1):
+            raise AssertionError(f"(d) sweeps {m and m.value}, cache "
+                                 f"{train_cache} without {key}")
+        if not abs(t0_loss - l0) <= TUNE_LOSS_RTOL * abs(l0):
+            raise AssertionError(f"(d) step 0 loss {t0_loss} tuned, {l0} "
+                                 f"untuned (rtol {TUNE_LOSS_RTOL})")
+        if counts.get("fused_ce_dh") != 3 or counts.get("fused_ce_dw") != 3:
+            raise AssertionError(f"(d) launches {counts}")
+        plan = entries.get(key)
+        print(f"[tune] (d) the train CLI `--autotune --tuning-cache` (3 "
+              f"steps, {TRAIN_BATCH} x {TRAIN_SEQ}): 1 sweep, key {key} -> "
+              f"{plan.shape} ({-(-arch.padded_vocab // plan.block_v)} "
+              f"vocab slices); step 0 loss {t0_loss:.6f} against "
+              f"{l0:.6f} untuned (|diff| {abs(t0_loss - l0):.3g}, limit "
+              f"rtol {TUNE_LOSS_RTOL}); losses "
+              f"{[round(mm['loss'], 4) for _, mm in hist]}; launches "
+              f"{counts} on {card}", flush=True)
+    finally:
+        RESOLVED.clear()
+        if saved is None:
+            os.environ.pop("REPRO_TUNING_CACHE", None)
+        else:
+            os.environ["REPRO_TUNING_CACHE"] = saved
+        subprocess.run(["rm", "-rf", workdir], check=False)
+    print(f"[tune] {len(sweeps) - 1} cold sweeps in (a); the cache under "
+          f"build/ removed", flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7037,6 +7475,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 1-16 run on the kernels' own plans: an empty in-memory tuning
+    # cache, whatever the user's holds (phase 17 tunes into its own file)
+    os.environ["REPRO_TUNING_CACHE"] = ""
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -7102,6 +7543,9 @@ def main():
     torch.cuda.empty_cache()
     for key, n in phase_wide(torch, np, card, dev).items():
         recurrent[key] = recurrent.get(key, 0) + n      # and phase 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = phase_tune(torch, np, card, dev)            # phase 17
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -7214,6 +7658,8 @@ def main():
         if "event_ms" in row:
             entry["event_ms"] = row["event_ms"]
         record["kernels"].append(entry)
+    for entry in record["kernels"]:    # phase 17's main paths, by counter
+        entry["launches"] += tuned.get(entry["name"], 0)
     missing = [k["name"] for k in record["kernels"] if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: "

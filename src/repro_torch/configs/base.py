@@ -8,13 +8,35 @@ dry-run shape grid stays in the JAX package (ROADMAP A10).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 from repro_torch.core.types import LossConfig
 
 # encoder frames a request of an enc-dec serving engine holds (the
 # decoder gets the prompt), unless `ServeConfig.enc_len` says otherwise
 ENCDEC_SERVE_ENC_LEN = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class TuningConfig:
+    """Block-plan autotuning knobs of training (the JAX package's).
+
+    Attributes:
+      enabled: tune the fused-CE forward's launch plan at startup
+        (`kernels.fused_ce.autotune`); when False the step takes the
+        tuning cache's winner where one exists, else the kernel's own.
+      cache_path: persistent JSON cache location.  None -> the default
+        (``$REPRO_TUNING_CACHE`` or ``~/.cache/repro/blockplans.json``);
+        ``""`` -> a process-local in-memory cache.
+      trial_budget: candidate plans timed a key at most; <= 0 measures
+        nothing (the kernel's own plan).
+      trial_iters: timings a candidate (the minimum is kept).
+    """
+
+    enabled: bool = False
+    cache_path: Optional[str] = None
+    trial_budget: int = 8
+    trial_iters: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

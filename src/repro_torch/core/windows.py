@@ -30,12 +30,21 @@ compile-time in `fused_ce.cu`.  `paged_plan` mirrors `paged_attn`'s split
 of each block chain across CTAs.  The gradient filter works on one 64 x
 64 tile grid (`ce_tile_grid`) for the statistic, the mask and both
 backward kernels.
+
+Each mirrored plan also takes a launch plan's overrides, as its source
+does (0 keeps the kernel's own choice): R's row tile bound and the W
+tiles a slice on the W stream (`stream_override_error`,
+`block_plan_error`), keys a tile and pages a split on `paged_attn`
+(`paged_plan_error`), and the fused-CE forward's vocab slices
+(`check_ce_plan`).  The autotuner (`kernels/plan_tuner.py`) times them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+from typing import Optional
 
 SMEM_BYTES = 232_448          # H100: shared memory one block can use
 N_SMS = 132                   # H100 SXM
@@ -64,6 +73,7 @@ STREAM_MAX_STAGES_Q = 8       # a 1-byte W: 128 k columns a stage
 # mbarriers
 STREAM_CVT_BYTES = 2 * 2 * 128 * 64 * 2 + 2 * 2 * 8
 STREAM_MAX_PER = 511          # tiles a slice: a column in it fits 16 bits
+STREAM_MAX_SLICES = N_SMS     # slices a merge folds (wstream::kMaxSlices)
 STREAM_WARPS = 8              # two consumer warpgroups
 SCORE_ROWS_MAX = 256          # score_tokens: rows a row tile
 SCORE_ROWS_MAX_Q = 128        # ... on a 1-byte W (its converter warpgroup)
@@ -105,19 +115,21 @@ def stream_stage_bytes(r: int, w_bytes: int = 2) -> int:
 
 
 def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue,
-                w_bytes: int = 2) -> StreamPlan:
+                w_bytes: int = 2, per: int = 0) -> StreamPlan:
     """The source's plan (`wstream::plan_grid` + `plan_stages`): as few
     row tiles as `rows_max` allows, R the narrowest width that holds a
     tile's rows, vocab slices of equal tile counts so that the grid has
-    ~132 CTAs, and as many ring stages (at most 8) as fit beside the
+    ~132 CTAs (`per` > 0 W tiles a slice instead: a launch plan's
+    override), and as many ring stages (at most 8) as fit beside the
     epilogue's ``epilogue(R)`` bytes, a 1-byte W's widened tiles, the
     barriers and 1024 bytes of alignment.  d does not enter: a stage
     holds 64 k columns (128 for a 1-byte W)."""
     row_tiles = -(-n_rows // rows_max)
     r = stream_row_width(-(-n_rows // row_tiles))
     n_tiles = -(-vocab // STREAM_COLS)
-    want = max(1, N_SMS // row_tiles)
-    per = min(-(-n_tiles // want), STREAM_MAX_PER)
+    if per <= 0:
+        want = max(1, N_SMS // row_tiles)
+        per = min(-(-n_tiles // want), STREAM_MAX_PER)
     slices = -(-n_tiles // per)
     fixed = epilogue(r)
     per_stage = stream_stage_bytes(r, w_bytes) + 16
@@ -128,20 +140,100 @@ def stream_plan(n_rows: int, vocab: int, rows_max: int, epilogue,
                       1024 + cvt + stages * per_stage + fixed)
 
 
+def stream_override_error(plan: StreamPlan, rows_max: int, per: int,
+                          rows_bound: int) -> Optional[str]:
+    """Why the W stream does not take a launch plan's overrides
+    (`rows_max` a row tile bound, `per` W tiles a slice; 0 keeps the
+    kernel's own), giving `plan`, or None (`wstream::override_ok` and the
+    launches' checks): the bound a width `stream_row_width` gives, at
+    most `rows_bound`; at most 511 tiles a slice and, under an override,
+    at most 132 slices; 2 ring stages and the card's shared memory."""
+    if rows_max < 0 or per < 0:
+        return f"negative override (rows_max {rows_max}, per {per})"
+    if rows_max and (rows_max > rows_bound
+                     or stream_row_width(rows_max) != rows_max):
+        return (f"rows_max {rows_max} is no row tile width of at most "
+                f"{rows_bound}")
+    if per > STREAM_MAX_PER:
+        return f"per {per} exceeds {STREAM_MAX_PER} tiles a slice"
+    if (rows_max or per) and plan.slices > STREAM_MAX_SLICES:
+        return (f"{plan.slices} slices exceed the merge's "
+                f"{STREAM_MAX_SLICES}")
+    if plan.stages < 2:
+        return f"{plan.stages} ring stages fit, the stream needs 2"
+    if plan.smem_bytes > SMEM_BYTES:
+        return f"{plan.smem_bytes} bytes of shared memory exceed {SMEM_BYTES}"
+    return None
+
+
+def stream_overrides(plan: BlockPlan):
+    """(rows_max, per) of a W-stream `BlockPlan`: its R rows a row tile
+    as the bound, its slice's 128-column tiles."""
+    return plan.block_rows, plan.block_v // STREAM_COLS
+
+
+def block_plan_error(plan: BlockPlan, plan_of,
+                     rows_bound: int) -> Optional[str]:
+    """Why a W-stream launch does not take `plan` (R rows a row tile, a
+    slice of ``block_v`` columns) as its overrides, or None:
+    ``plan_of(rows_max, per)`` is the launch's `StreamPlan` under them;
+    the slice holds whole 128-column tiles, `stream_override_error`
+    finds nothing, and R is the width the launch takes.  The plan's
+    ``vmem_bytes`` follows from the rest and is not read."""
+    if plan.block_rows < 1 or plan.block_v < 1 or plan.block_v % STREAM_COLS:
+        return f"a slice holds whole {STREAM_COLS}-column tiles"
+    rows_max, per = stream_overrides(plan)
+    sp = plan_of(rows_max, per)
+    why = stream_override_error(sp, rows_max, per, rows_bound)
+    if why is None and sp.rows != plan.block_rows:
+        why = (f"its rows under a bound of {rows_max} take row tiles of "
+               f"{sp.rows}")
+    return why
+
+
+def stream_ladder(vocab: int, plan_of, rows_bound: int,
+                  bounds=(256, 128, 64, 32, 16, 8),
+                  steps=(0.5, 1, 2, 4)):
+    """The autotuner's W-stream candidates, largest tiles first: the R
+    that each row tile bound of `bounds` (up to `rows_bound`) gives, by
+    W tiles a slice at each multiple of `steps` of the own rule's for
+    that R (capped at the vocab's tiles), each one the launch takes
+    (`block_plan_error`); ``plan_of(rows_max, per)`` as there."""
+    n_tiles = -(-vocab // STREAM_COLS)
+    plans = {}
+    for bound in bounds:
+        if bound > rows_bound:
+            continue
+        base = plan_of(bound, 0)
+        for step in steps:
+            per = min(max(1, math.ceil(base.per * step)), n_tiles)
+            plan = BlockPlan(base.rows, per * STREAM_COLS,
+                             plan_of(base.rows, per).smem_bytes)
+            if block_plan_error(plan, plan_of, rows_bound) is None:
+                plans[plan.shape] = plan
+    return sorted(plans.values(),
+                  key=lambda p: (p.block_rows * p.block_v, p.block_v),
+                  reverse=True)
+
+
+def score_rows_bound(w_bytes: int = 2) -> int:
+    return SCORE_ROWS_MAX_Q if w_bytes == 1 else SCORE_ROWS_MAX
+
+
 @functools.lru_cache(maxsize=1024)
-def score_plan(n_rows: int, vocab: int, n_cand: int,
-               w_bytes: int = 2) -> StreamPlan:
+def score_plan(n_rows: int, vocab: int, n_cand: int, w_bytes: int = 2,
+               rows_max: int = 0, per: int = 0) -> StreamPlan:
     """`score_tokens`' plan: row tiles of up to 256 rows (128 on a 1-byte
     W); its epilogue keeps the 8 warps' (m, a) of R rows and a candidate
     list of up to R x min(n_cand, 64) 4-byte entries (`score_tokens.cu`
     ``epilogue_bytes``): past 64 candidates a CTA takes a group of 64,
     and the launch has ceil(n_cand / 64) x `row_tiles` x `slices`
-    CTAs."""
+    CTAs.  `rows_max` and `per` are a launch plan's overrides (0 keeps
+    the kernel's own; `stream_override_error` says which it takes)."""
     group = min(n_cand, SCORE_GROUP)
-    return stream_plan(n_rows, vocab,
-                       SCORE_ROWS_MAX_Q if w_bytes == 1 else SCORE_ROWS_MAX,
+    return stream_plan(n_rows, vocab, rows_max or score_rows_bound(w_bytes),
                        lambda r: 2 * STREAM_WARPS * r * 4 + r * group * 4,
-                       w_bytes)
+                       w_bytes, per)
 
 
 
@@ -162,42 +254,54 @@ def _topk_big_bytes(kk: int, lists: bool) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def topk_big_lists(n_rows: int, vocab: int, k: int, w_bytes: int = 2):
+def topk_big_lists(n_rows: int, vocab: int, k: int, w_bytes: int = 2,
+                   per: int = 0):
     """(plan, kk, in_smem) of the list kernel (`sample_topk.cu`
     ``plan_big``): the W stream at 8 rows a tile, each (row, slice) list
     ``kk = min(k, the slice's columns)`` keys long, in shared memory when
-    the ring keeps 2 stages beside the 8 lists, else in global scratch."""
-    probe = stream_plan(n_rows, vocab, TOPK_BIG_ROWS, lambda r: 0, w_bytes)
+    the ring keeps 2 stages beside the 8 lists, else in global scratch.
+    `per` > 0 overrides the W tiles a slice."""
+    probe = stream_plan(n_rows, vocab, TOPK_BIG_ROWS, lambda r: 0, w_bytes,
+                        per)
     kk = min(k, probe.per * STREAM_COLS)
     plan = stream_plan(n_rows, vocab, TOPK_BIG_ROWS,
-                       lambda r: _topk_big_bytes(kk, True), w_bytes)
+                       lambda r: _topk_big_bytes(kk, True), w_bytes, per)
     if plan.stages >= 2:
         return plan, kk, True
     return (stream_plan(n_rows, vocab, TOPK_BIG_ROWS,
-                        lambda r: _topk_big_bytes(kk, False), w_bytes),
+                        lambda r: _topk_big_bytes(kk, False), w_bytes, per),
             kk, False)
 
 
+def topk_rows_bound(vocab: int, k: int) -> int:
+    """The row tile bound of `sample_topk`'s W-stream launch: 64 rows on
+    the decode kernel, 8 on the list kernel."""
+    return TOPK_BIG_ROWS if topk_big(vocab, k) else TOPK_DECODE_ROWS_MAX
+
+
 @functools.lru_cache(maxsize=1024)
-def topk_stream_plan(n_rows: int, vocab: int, k: int,
-                     w_bytes: int = 2) -> StreamPlan:
+def topk_stream_plan(n_rows: int, vocab: int, k: int, w_bytes: int = 2,
+                     rows_max: int = 0, per: int = 0) -> StreamPlan:
     """The decode kernel's plan: row tiles of up to 64 rows; at k = 1 its
     epilogue keeps the 8 warps' best key of R rows (the same bytes then
     hold their (m, a) states for ``return_lse``), above that R sorted
     lists of 64 keys, R thresholds, a 2 x 128-key scratch for each of the
     8 selection warps, 4 mbarriers, two staged R x 132 f32 tiles and R
     (m, a) states (`sample_topk.cu` ``epilogue_bytes``).  k > 64 or k > V
-    take the list kernel's plan (`topk_big_lists`)."""
+    take the list kernel's plan (`topk_big_lists`).  `rows_max` and
+    `per` are a launch plan's overrides (0 keeps the kernel's own; the
+    list kernel's rows stay 8)."""
     if topk_big(vocab, k):
-        return topk_big_lists(n_rows, vocab, k, w_bytes)[0]
+        return topk_big_lists(n_rows, vocab, k, w_bytes, per)[0]
+    bound = rows_max or TOPK_DECODE_ROWS_MAX
     if k == 1:
-        return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
-                           lambda r: STREAM_WARPS * r * 8, w_bytes)
-    return stream_plan(n_rows, vocab, TOPK_DECODE_ROWS_MAX,
+        return stream_plan(n_rows, vocab, bound,
+                           lambda r: STREAM_WARPS * r * 8, w_bytes, per)
+    return stream_plan(n_rows, vocab, bound,
                        lambda r: (r * TOPK_MAX_K * 8 + r * 8
                                   + TOPK_SELECT_WARPS * 2 * STREAM_COLS * 8
                                   + 4 * 8 + 2 * r * (STREAM_COLS + 4) * 4
-                                  + 2 * r * 4), w_bytes)
+                                  + 2 * r * 4), w_bytes, per)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -272,11 +376,31 @@ def choose_ce_plan(n_rows: int, vocab: int, d: int) -> CEPlan:
     -> 8 x 119).  The partials are merged in a second kernel; d does not
     enter."""
     del d
+    return CEPlan(ce_splits_for_waves(n_rows, vocab, CE_FWD_WAVES))
+
+
+def ce_splits_for_waves(n_rows: int, vocab: int, waves: float) -> int:
+    """The vocab slices that give ~`waves` waves of forward CTAs over the
+    132 SMs, never more than the vocab's tiles, then as few as hold the
+    same tiles a slice: `choose_ce_plan`'s rule at 8 waves, and the
+    autotuner's ladder at others."""
     row_tiles = -(-max(n_rows, 1) // CE_FWD_ROWS)
     tiles = -(-max(vocab, 1) // CE_FWD_COLS)
-    want = max(1, min(tiles, -(-CE_FWD_WAVES * N_SMS // row_tiles)))
+    want = max(1, min(tiles, -(-int(waves * N_SMS) // row_tiles)))
     per = -(-tiles // want)
-    return CEPlan(-(-tiles // per))
+    return -(-tiles // per)
+
+
+def check_ce_plan(plan: CEPlan, vocab: int) -> None:
+    """Raise ValueError unless the forward takes `plan`: 1 to the vocab's
+    256-column tiles slices, none of them empty (`fused_ce.cu`
+    ``fused_ce_fwd_launch``)."""
+    tiles = -(-max(vocab, 1) // CE_FWD_COLS)
+    v = plan.v_splits
+    if not 1 <= v <= tiles or -(-tiles // -(-tiles // v)) != v:
+        raise ValueError(f"unsupported plan {plan}: the forward takes 1 to "
+                         f"{tiles} vocab slices (V={vocab}) that leave no "
+                         f"slice empty")
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +422,17 @@ class PagedPlan:
     pages: int
     splits: int
     smem_bytes: int
+
+
+def _own_pps(batch: int, n_kv: int, table_width: int, block_size: int,
+             keys: int) -> int:
+    """Pages a split by the source's own rule (`paged_attn.cu`
+    ``own_pps``) for tiles of `keys` keys."""
+    pairs = batch * n_kv
+    want = 1 if pairs >= PAGED_SLOTS else -(-PAGED_SLOTS // pairs)
+    pages = -(-table_width // want)
+    split_keys = -(-pages * block_size // keys) * keys
+    return -(-split_keys // block_size)
 
 
 def _round16(x: int) -> int:
@@ -324,21 +459,49 @@ def paged_smem_bytes(keys: int, head_dim: int, rows: int,
 
 @functools.lru_cache(maxsize=1024)
 def paged_plan(batch: int, n_kv: int, table_width: int, block_size: int,
-               head_dim: int, rows: int, quant: bool = False) -> PagedPlan:
+               head_dim: int, rows: int, quant: bool = False, pps: int = 0,
+               kt: int = 0) -> PagedPlan:
     """The source's plan (`paged_attn.cu` ``plan``): the widest tile (64,
     32 or 16 keys) whose shared memory fits, then pages a split such that
     ~`PAGED_SLOTS` CTAs of (row, KV head, split) cover the block table, a
     split's keys a multiple of the tile (the decode shape B 8, nkv 8, 32
     pages of 16: 4 splits of 8 pages).  `rows` is g * Tq; `quant` marks
-    int8 pools."""
-    keys = PAGED_TILE_KEYS
-    while (keys > PAGED_MIN_TILE_KEYS
-           and paged_smem_bytes(keys, head_dim, rows, quant) > SMEM_BYTES):
-        keys //= 2
-    pairs = batch * n_kv
-    want = 1 if pairs >= PAGED_SLOTS else -(-PAGED_SLOTS // pairs)
-    pages = -(-table_width // want)
-    split_keys = -(-pages * block_size // keys) * keys
-    pps = -(-split_keys // block_size)
+    int8 pools.  `kt` (keys a tile) and `pps` (pages a split, the JAX
+    kernel's ``pages_per_step``) are a launch plan's overrides, 0 keeping
+    the source's own (`paged_plan_error` says which it takes)."""
+    keys = kt
+    if keys <= 0:
+        keys = PAGED_TILE_KEYS
+        while (keys > PAGED_MIN_TILE_KEYS and paged_smem_bytes(
+                keys, head_dim, rows, quant) > SMEM_BYTES):
+            keys //= 2
+    if pps <= 0:
+        pps = _own_pps(batch, n_kv, table_width, block_size, keys)
     return PagedPlan(keys, pps, -(-table_width // pps),
                      paged_smem_bytes(keys, head_dim, rows, quant))
+
+
+def paged_plan_error(batch: int, n_kv: int, table_width: int,
+                     block_size: int, head_dim: int, rows: int,
+                     quant: bool = False, pps: int = 0,
+                     kt: int = 0) -> Optional[str]:
+    """Why `paged_attn` does not take the overrides (`paged_attn.cu`
+    ``plan_ok``), or None: `kt` one of 64, 32, 16 whose shared memory
+    fits, and a split's keys a multiple of the tile, unless one split
+    covers the table or `pps` is the own rule's for that tile."""
+    if pps < 0 or kt < 0:
+        return f"negative override (pps {pps}, kt {kt})"
+    if kt and kt not in (64, 32, 16):
+        return f"kt {kt}: a tile holds 64, 32 or 16 keys"
+    plan = paged_plan(batch, n_kv, table_width, block_size, head_dim, rows,
+                      quant, pps, kt)
+    if plan.smem_bytes > SMEM_BYTES:
+        return (f"tiles of {plan.keys} keys take {plan.smem_bytes} bytes of "
+                f"shared memory (head_dim {head_dim}, {rows} query rows), "
+                f"more than {SMEM_BYTES}")
+    if (pps and pps < table_width and pps * block_size % plan.keys
+            and pps != _own_pps(batch, n_kv, table_width, block_size,
+                                plan.keys)):
+        return (f"a split of {pps} pages of {block_size} is no multiple of "
+                f"the {plan.keys}-key tile")
+    return None

@@ -80,8 +80,10 @@ _twins_checked = set()
 def check_plan_twin(lib: ctypes.CDLL, fn_name: str, args, plan) -> None:
     """Raise RuntimeError unless the source's plan function `fn_name`
     (``void fn(int..., int* out)``) writes `plan`'s fields, in order, for
-    `args`: a wrapper launches with its Python mirror's plan, which must
-    be the kernel's own.  Checked once per (function, args)."""
+    `args` (the shape and the launch plan's overrides, 0 for the kernel's
+    own choice): a wrapper sizes its scratch from its Python mirror's
+    plan, which must be the one the kernel launches.  Checked once per
+    (function, args)."""
     key = (fn_name, tuple(args))
     if key in _twins_checked:
         return

@@ -122,16 +122,23 @@ __host__ __device__ inline int row_width(int rows) {
 
 // The row tiling of `rows` rows at most `rmax` (64 or 256) a tile, and
 // the vocab slicing of `v` columns: ~132 CTAs in all, a slice at least one
-// tile and at most kMaxPer.
-__host__ __device__ inline Plan plan_grid(int rows, int v, int rmax) {
+// tile and at most kMaxPer.  A launch plan's overrides replace the two
+// choices: `per` > 0 tiles a slice, and `rmax` is then the caller's row
+// tile bound (a width, see override_ok).
+__host__ __device__ inline Plan plan_grid(int rows, int v, int rmax,
+                                          int per = 0) {
   Plan p;
   p.row_tiles = (rows + rmax - 1) / rmax;
   p.rows = row_width((rows + p.row_tiles - 1) / p.row_tiles);
   const int n_tiles = (v + kCols - 1) / kCols;
-  int want = kNumSMs / p.row_tiles;
-  want = want < 1 ? 1 : want;
-  p.per = (n_tiles + want - 1) / want;
-  p.per = p.per > kMaxPer ? kMaxPer : p.per;
+  if (per > 0) {
+    p.per = per;
+  } else {
+    int want = kNumSMs / p.row_tiles;
+    want = want < 1 ? 1 : want;
+    p.per = (n_tiles + want - 1) / want;
+    p.per = p.per > kMaxPer ? kMaxPer : p.per;
+  }
   p.slices = (n_tiles + p.per - 1) / p.per;
   p.stages = 0;
   p.smem = 0;
@@ -149,6 +156,21 @@ __host__ __device__ inline void plan_stages(Plan& p, int fixed, int wb = 2) {
   p.stages = s > most ? most : s;
   p.smem = 1024 + cvt + p.stages * per_stage + fixed;
 }
+
+// Whether a launch plan's overrides are ones the stream takes: 0 keeps
+// the launch's own choice; a row tile bound `rows_max` is a width that
+// row_width produces and at most `rmax`; `per` is at most kMaxPer tiles.
+// (The launch then checks its slices, stages and shared memory.)
+__host__ __device__ inline bool override_ok(int rows_max, int per,
+                                            int rmax) {
+  if (rows_max < 0 || per < 0 || per > kMaxPer) return false;
+  return rows_max == 0 ||
+         (rows_max <= rmax && row_width(rows_max) == rows_max);
+}
+
+// CTAs a slice's merge may have to fold: ~kNumSMs by plan_grid's rule,
+// and at most this many under an override.
+constexpr int kMaxSlices = kNumSMs;
 
 template <int N>
 struct Ring {

@@ -1035,16 +1035,24 @@ void fused_ce_fwd_plan(int n, int v_orig, int* out) {
 // ceil(v_orig/64)) f32 tile statistic over the rows whose y is not
 // ignore_index.  W's elements are of hopper::WKind `kind` (bf16, or 1
 // byte: int8, e4m3, e5m2); ws is the (v_orig,) f32 scale of each column,
-// given exactly with a 1-byte W, and not with tmax.  Returns the
+// given exactly with a 1-byte W, and not with tmax.  n_split, the launch
+// plan's vocab slices, is any count from 1 to the vocab's 256-column tiles
+// that leaves no slice empty (ceil(tiles / ceil(tiles / n_split)) ==
+// n_split); another returns cudaErrorInvalidValue.  Returns the
 // cudaError_t of the launches.
 int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
                         void* part, void* lse, void* ztgt, void* zsum, int n,
                         int d, int v_orig, int valid, int col_offset,
                         int n_split, int has_cap, float cap, int ignore_index,
                         void* tmax, const void* ws, int kind, void* stream) {
+  const int n_tiles = (v_orig + rowtile::kCols - 1) / rowtile::kCols;
   if (n < 1 || v_orig < 1 || d < rowtile::kChunk || d % rowtile::kChunk ||
-      n_split < 1 || n_split > 65535 || kind < 0 || kind > hopper::kE5M2 ||
-      (tmax && ws) || (ws != nullptr) != (kind != hopper::kBf16))
+      n_split < 1 || n_split > 65535 || n_split > n_tiles || kind < 0 ||
+      kind > hopper::kE5M2 || (tmax && ws) ||
+      (ws != nullptr) != (kind != hopper::kBf16))
+    return (int)cudaErrorInvalidValue;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  if ((n_tiles + per - 1) / per != n_split)     // no slice left empty
     return (int)cudaErrorInvalidValue;
   static int given[3][hopper::kMaxDevices];
   const int variant = tmax ? 1 : (ws ? 2 : 0);
@@ -1058,8 +1066,6 @@ int fused_ce_fwd_launch(const void* h, const void* w, const void* y,
   CUtensorMap hmap, wmap;
   const int e = rowtile::make_maps(&hmap, &wmap, h, w, n, v_orig, d, kind);
   if (e) return e;
-  const int n_tiles = (v_orig + rowtile::kCols - 1) / rowtile::kCols;
-  const int per = (n_tiles + n_split - 1) / n_split;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid((n + rowtile::kRows - 1) / rowtile::kRows, n_split);
   kern<<<grid, rowtile::kThreads, smem, s>>>(

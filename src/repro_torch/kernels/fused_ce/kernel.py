@@ -30,8 +30,11 @@ full-d logits and contracting its 4096 columns.  The reference's deterministic
 two-pass layout (no atomics) is kept, and one 64 x 64 tile grid
 (`core.windows.ce_tile_grid`) serves the tile statistic, the skip mask
 and both filtered kernels, which walk a compacted list of live tiles.
-The forward's Python plan (`choose_ce_plan`) is held to its C twin
-(`fused_ce_fwd_plan`) before a shape's first launch.
+The forward's own Python plan (`choose_ce_plan`) is held to its C twin
+(`fused_ce_fwd_plan`) before a shape's first launch; it takes another
+vocab split (`CEPlan.v_splits`, the autotuner's knob) that leaves no
+slice empty.  The backward takes no plan: its tiles and its cluster are
+fixed in the source by d.
 
 Contract (the JAX kernels'): h (N, d), w (V, d), y (N,); a column is
 valid iff its local index is < V and ``local + col_offset < valid``;
@@ -68,7 +71,8 @@ import torch
 from repro_torch.core import filtering
 from repro_torch.core.types import LossConfig
 from repro_torch.core.windows import (CE_TILE_COLS, CE_TILE_ROWS, CEPlan,
-                                      ce_tile_grid, choose_ce_plan)
+                                      ce_tile_grid, check_ce_plan,
+                                      choose_ce_plan)
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_ce.ref import ref_dh, ref_dw, ref_stats
 from repro_torch.kernels.quant import w_kind
@@ -173,7 +177,13 @@ def fwd_stats(
     or float8_e5m2, which on the card come with it and only with it):
     each logit is multiplied by its column's scale before the softcap.
     It does not go with `return_tile_stats` (ValueError on every
-    device)."""
+    device).
+
+    `plan` (None: the kernel's own, `choose_ce_plan`) sets the vocab
+    slices; one the forward does not take raises ValueError on every
+    device (`core.windows.check_ce_plan`)."""
+    if plan is not None:
+        check_ce_plan(plan, w.shape[0])
     if w_scale is not None and return_tile_stats:
         raise ValueError("the tile statistic is not taken on a quantized "
                          "head (w_scale): the gradient filter never runs "

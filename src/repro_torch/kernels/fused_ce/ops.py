@@ -7,9 +7,10 @@ by the kernels of `kernel.py`: the same residuals as the JAX custom VJP,
 ``(h, w, y, lse, tmax)`` — the tile statistic only with
 ``cfg.grad_filter_eps > 0``, when the backward derives its skip mask
 from it — the per-row ``gamma`` and ``p_coeff = gamma (1 + 2 z_loss
-lse)`` in the backward, and dH / dW cast to the input dtypes.  No tuning
-cache yet: the plan comes from `choose_ce_plan` unless the caller fixes
-one.  With ``w_scale`` (a quantized head) it is the JAX package's
+lse)`` in the backward, and dH / dW cast to the input dtypes.  The
+forward's plan is the caller's, else the tuning cache's winner for the
+call's key (`autotune.lookup_plan`, resolved once a process), else
+`choose_ce_plan`.  With ``w_scale`` (a quantized head) it is the JAX package's
 ``pallas_loss(w_scale=)``: the forward alone, for eval; differentiating
 through it raises, since training keeps a full-precision head.
 """
@@ -25,6 +26,7 @@ from repro_torch.core.streaming import row_scale, rows_from_stats
 from repro_torch.core.types import LossConfig
 from repro_torch.core.windows import CEPlan
 from repro_torch.kernels.fused_ce import kernel as K
+from repro_torch.kernels.fused_ce.autotune import lookup_plan
 
 
 class _KernelLoss(torch.autograd.Function):
@@ -87,6 +89,10 @@ def kernel_loss(
     plain versions (CPU tensors).  `w_scale` (V,) f32 marks w as a
     quantized head (`kernels.quant.quantize_weight`): forward only."""
     cfg = cfg or LossConfig()
+    if plan is None:
+        plan = lookup_plan(h.shape[0], w.shape[0], h.shape[1], h.dtype,
+                           h.device, cfg=cfg,
+                           wdtype=w.dtype if w_scale is not None else None)
     if w_scale is not None:
         return _QuantizedLoss.apply(h, w, w_scale, y, cfg, plan)
     return _KernelLoss.apply(h, w, y, cfg, plan)

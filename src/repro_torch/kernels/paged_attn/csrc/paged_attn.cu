@@ -111,23 +111,49 @@ struct Plan {
   int kt, pps, splits, smem;
 };
 
-// The launch plan: the widest tile (64, 32 or 16 keys) whose shared memory
-// fits, and pages a split such that ~kSlots CTAs cover the table, a
-// split's keys a multiple of the tile.
-inline Plan plan(int b, int nkv, int nb, int bs, int hd, int rows,
-                 int quant) {
-  Plan p;
-  p.kt = kTileKeys;
-  while (p.kt > kMinTileKeys && smem_bytes(p.kt, hd, rows, quant) > kMaxSmem)
-    p.kt /= 2;
-  p.smem = smem_bytes(p.kt, hd, rows, quant);
+// Pages a split by the kernel's own rule for tiles of kt keys: such that
+// ~kSlots CTAs cover the table, a split's keys a multiple of the tile.
+inline int own_pps(int b, int nkv, int nb, int bs, int kt) {
   const int pairs = b * nkv;
   const int want = pairs >= kSlots ? 1 : (kSlots + pairs - 1) / pairs;
   const int pages = (nb + want - 1) / want;
-  const int keys = (pages * bs + p.kt - 1) / p.kt * p.kt;
-  p.pps = (keys + bs - 1) / bs;
+  const int keys = (pages * bs + kt - 1) / kt * kt;
+  return (keys + bs - 1) / bs;
+}
+
+// The launch plan: the widest tile (64, 32 or 16 keys) whose shared memory
+// fits, and own_pps pages a split.  A launch plan's overrides replace
+// them where > 0: `kt` keys a tile (64, 32 or 16) and `pps` pages a split
+// (the JAX kernel's pages_per_step); plan_ok says which the kernel takes.
+inline Plan plan(int b, int nkv, int nb, int bs, int hd, int rows, int quant,
+                 int pps = 0, int kt = 0) {
+  Plan p;
+  if (kt > 0) {
+    p.kt = kt;
+  } else {
+    p.kt = kTileKeys;
+    while (p.kt > kMinTileKeys &&
+           smem_bytes(p.kt, hd, rows, quant) > kMaxSmem)
+      p.kt /= 2;
+  }
+  p.smem = smem_bytes(p.kt, hd, rows, quant);
+  p.pps = pps > 0 ? pps : own_pps(b, nkv, nb, bs, p.kt);
   p.splits = (nb + p.pps - 1) / p.pps;
   return p;
+}
+
+// Whether the kernel takes the overrides (pps, kt; 0 keeps its own): kt
+// one of 64, 32, 16 whose shared memory fits, and a split's keys a
+// multiple of the tile -- unless one split covers the table or pps is the
+// own rule's for that tile.
+inline bool plan_ok(int b, int nkv, int nb, int bs, int hd, int rows,
+                    int quant, int pps, int kt) {
+  if (pps < 0 || kt < 0) return false;
+  if (kt && kt != 64 && kt != 32 && kt != 16) return false;
+  const Plan p = plan(b, nkv, nb, bs, hd, rows, quant, pps, kt);
+  if (p.smem > kMaxSmem) return false;
+  return pps == 0 || pps >= nb || pps * bs % p.kt == 0 ||
+         pps == own_pps(b, nkv, nb, bs, p.kt);
 }
 
 // 16-byte async copy; `pred` false fills zeros (src-size 0, no read).
@@ -597,19 +623,21 @@ paged_attn_kernel(const bf16* __restrict__ q, const void* __restrict__ kpv,
 extern "C" {
 
 // The launch plan for (B, nkv, nb, bs, hd, rows = g * Tq, int8 pools or
-// not): {tile keys,
-// pages a split, splits, dynamic shared memory} into out[0..3] (the
+// not) under the overrides (pps, kt; 0 keeps the kernel's own): {tile
+// keys, pages a split, splits, dynamic shared memory} into out[0..3] (the
 // wrapper's Python mirror, core.windows.paged_plan, must agree).
 void paged_attn_plan(int b, int nkv, int nb, int bs, int hd, int rows,
-                     int quant, int* out) {
-  const Plan p = plan(b, nkv, nb, bs, hd, rows, quant);
+                     int quant, int pps, int kt, int* out) {
+  const Plan p = plan(b, nkv, nb, bs, hd, rows, quant, pps, kt);
   out[0] = p.kt;
   out[1] = p.pps;
   out[2] = p.splits;
   out[3] = p.smem;
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch.  part is
+// Launches on `stream` under the overrides (pps, kt; 0 keeps the kernel's
+// own, and a plan the kernel does not take, plan_ok, returns
+// cudaErrorInvalidValue); returns the cudaError_t of the launch.  part is
 // (B, nkv, splits, g * tq, hd + 2) f32 scratch (unused with one split),
 // counts (B, nkv) int32 that are zero and left zero.  kps / vps, when not
 // null, are the (N, bs, nkv, 1) f32 scale pools of int8 kp / vp (both or
@@ -619,10 +647,12 @@ int paged_attn_launch(const void* q, const void* kp, const void* vp,
                       const void* lens, void* out, void* part, void* counts,
                       int b, int tq, int nq, int nkv, int hd, int n_pool,
                       int bs, int nb, float scale, int has_softcap,
-                      float softcap, void* stream) {
+                      float softcap, int pps, int kt, void* stream) {
   const int g = nq / nkv;
   const int quant = kps != nullptr;
-  const Plan p = plan(b, nkv, nb, bs, hd, g * tq, quant);
+  if (!plan_ok(b, nkv, nb, bs, hd, g * tq, quant, pps, kt))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(b, nkv, nb, bs, hd, g * tq, quant, pps, kt);
   if (p.smem > kMaxSmem || hd % 8 || p.splits > 65535 ||
       (vps != nullptr) != quant || (quant && hd % 16))
     return (int)cudaErrorInvalidValue;

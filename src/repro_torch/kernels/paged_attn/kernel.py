@@ -25,14 +25,20 @@ same ring; a landed tile widens to bf16 in shared memory (K as
 ``bf16(k * ks)``, the reference's rounding, and V exactly, its scale
 folded into p), so the rest of the kernel is the bf16 one.
 
-Contract (the JAX kernel's, minus its tunable ``pages_per_step``, which
-waits for the autotuner, ROADMAP A2 item 4): q (B, Tq, nq, hd), kp/vp
+Contract (the JAX kernel's): q (B, Tq, nq, hd), kp/vp
 (N, bs, nkv, hd), table (B, nb) int32 chains (null block 0 past each
 chain), lens (B,) int32 lengths after the Tq appends.  Query ``i`` sits
 at ``lens - Tq + i``; rows with ``lens == 0`` give zeros.  Output
 (B, Tq, nq, hd) in q's dtype.  With ``kp_scale`` / ``vp_scale`` (both or
 neither, (N, bs, nkv, 1) f32) kp/vp hold int8 values: K is dequantized to
 q's dtype before the score dot, V in f32 (`_decode_quantized`'s rule).
+``pages_per_step`` is the pages of a split (the JAX kernel's pages a
+sequential grid step: both set how much of a chain one step of the
+kernel owns) and ``tile_keys`` the keys of a K/V tile (64, 32 or 16);
+each left None keeps the kernel's own choice, or, with both None, the
+tuning cache's winner for the shape (`autotune.lookup_paged_plan`).  A
+plan the kernel does not take raises ValueError on every device
+(`core.windows.paged_plan_error`); it never runs the own plan instead.
 
 `paged_attention_ref` is the plain PyTorch version.  `paged_attention`
 runs it for tensors on the CPU; for CUDA tensors it launches the kernel
@@ -47,7 +53,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.windows import SMEM_BYTES, paged_plan
+from repro_torch.core.windows import SMEM_BYTES, paged_plan, paged_plan_error
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
@@ -63,7 +69,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attn")
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attn_launch.argtypes = [p] * 10 + [i] * 8 + [f, i, f, p]
+        lib.paged_attn_launch.argtypes = [p] * 10 + [i] * 8 + [f, i, f, i,
+                                                               i, p]
         lib.paged_attn_launch.restype = i
         lib.paged_attn_error_string.argtypes = [i]
         lib.paged_attn_error_string.restype = ctypes.c_char_p
@@ -143,6 +150,8 @@ def paged_attention(
     kp_scale: Optional[torch.Tensor] = None,
     vp_scale: Optional[torch.Tensor] = None,
     softcap: Optional[float] = None,
+    pages_per_step: Optional[int] = None,
+    tile_keys: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention of q (B, Tq, nq, hd) over the block chains of
     kp/vp (N, bs, nkv, hd) -> (B, Tq, nq, hd) in q's dtype.
@@ -152,27 +161,42 @@ def paged_attention(
     contiguous on one device, ``hd % 8 == 0`` and ``hd <= 256``, or int8
     pools with their (N, bs, nkv, 1) f32 scale pools `kp_scale` /
     `vp_scale` and ``hd % 16 == 0``; it raises ValueError on anything
-    else.  A scale pool without the other raises on every device."""
+    else.  A scale pool without the other raises on every device, and so
+    does a `pages_per_step` / `tile_keys` plan the kernel does not
+    take."""
     if (kp_scale is None) != (vp_scale is None):
         raise ValueError("kp_scale and vp_scale come together: one was "
                          "given without the other")
     quant = kp_scale is not None
+    b, tq, nq, hd = q.shape
+    bs, nkv = kp.shape[1], kp.shape[2]
+    nb = table.shape[1]
+    rows = (nq // max(nkv, 1)) * tq
+    pps, kt = pages_per_step or 0, tile_keys or 0
+    if not (pps or kt):
+        from repro_torch.kernels.paged_attn.autotune import lookup_paged_plan
+        kt, pps = lookup_paged_plan(b, tq, nq, nkv, hd, nb, bs, q.dtype,
+                                    q.device, "int8" if quant else None)
+    else:
+        why = paged_plan_error(b, nkv, nb, bs, hd, rows, quant, pps, kt)
+        if why is not None:
+            raise ValueError(f"unsupported paged_attn plan (pages_per_step "
+                             f"{pages_per_step}, tile_keys {tile_keys}): "
+                             f"{why}")
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, lens, softcap=softcap,
                                    kp_scale=kp_scale, vp_scale=vp_scale)
     _check_cuda_args(q, kp, vp, table, lens, kp_scale, vp_scale)
-    b, tq, nq, hd = q.shape
-    n_pool, bs, nkv, _ = kp.shape
-    nb = table.shape[1]
-    rows = (nq // nkv) * tq
-    plan = paged_plan(b, nkv, nb, bs, hd, rows, quant)
+    n_pool = kp.shape[0]
+    plan = paged_plan(b, nkv, nb, bs, hd, rows, quant, pps, kt)
     if plan.smem_bytes > SMEM_BYTES:
         raise ValueError(f"{plan.smem_bytes} bytes of shared memory a block "
                          f"(head_dim {hd}, {rows} query rows a KV head) "
                          f"exceed the card's {SMEM_BYTES}")
     lib = _lib()
     build.check_plan_twin(lib, "paged_attn_plan",
-                          (b, nkv, nb, bs, hd, rows, int(quant)), plan)
+                          (b, nkv, nb, bs, hd, rows, int(quant), pps, kt),
+                          plan)
     dev = q.device
     out = torch.empty_like(q)
     part = (torch.empty((b * nkv * plan.splits * rows * (hd + 2),),
@@ -188,7 +212,8 @@ def paged_attention(
             part.data_ptr() if part is not None else None,
             counts.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs, nb,
             1.0 / math.sqrt(hd), int(softcap is not None),
-            float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+            float(softcap or 0.0), pps, kt,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("paged_attn launch failed: "
                            + lib.paged_attn_error_string(err).decode())

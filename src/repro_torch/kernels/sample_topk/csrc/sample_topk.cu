@@ -129,7 +129,7 @@ constexpr int kSelWarps = 8;          // k > 1: the selection warps
 constexpr int kSelThreads = kConsumers + kSelWarps * 32 + 32;
 constexpr int kZld = wstream::kCols + 4;  // staged row stride: no conflicts
 constexpr int kMergeThreads = 1024;
-constexpr int kMaxSlices = wstream::kNumSMs;  // plan_grid's bound
+constexpr int kMaxSlices = wstream::kMaxSlices;  // plan_grid's bound
 constexpr int kMergeLoads =  // keys a merge thread loads
     (kMaxSlices * kMaxK + kMergeThreads - 1) / kMergeThreads;
 
@@ -167,9 +167,13 @@ __host__ __device__ inline int epilogue_bytes(int r, int k) {
          2 * r * kZld * 4 + 2 * r * 4;
 }
 
-__host__ __device__ inline wstream::Plan plan(int rows, int v, int k,
-                                              int wb) {
-  wstream::Plan p = wstream::plan_grid(rows, v, kRowsMax);
+// The decode kernel's plan; `rows_max` (a row tile bound) and `per` (W
+// tiles a slice) override its own choices where > 0 (wstream::override_ok).
+__host__ __device__ inline wstream::Plan plan(int rows, int v, int k, int wb,
+                                              int rows_max = 0,
+                                              int per = 0) {
+  wstream::Plan p =
+      wstream::plan_grid(rows, v, rows_max ? rows_max : kRowsMax, per);
   wstream::plan_stages(p, epilogue_bytes(p.rows, k), wb);
   return p;
 }
@@ -192,11 +196,13 @@ __host__ __device__ inline int big_epilogue_bytes(int kk, bool lists) {
 // The list kernel's plan: the W stream's grid at 8 rows a tile, each
 // (row, slice) list kk = min(k, the slice's columns) keys long, in shared
 // memory when the ring still gets 2 stages beside the lists, else in
-// global scratch (*in_smem 0).
+// global scratch (*in_smem 0).  `per` > 0 overrides the W tiles a slice
+// (its row tiles stay 8 rows: the one override bound it takes is 8).
 __host__ __device__ inline wstream::Plan plan_big(int rows, int v, int k,
                                                   int wb, int* kk,
-                                                  int* in_smem) {
-  wstream::Plan p = wstream::plan_grid(rows, v, kBigRows);
+                                                  int* in_smem,
+                                                  int per = 0) {
+  wstream::Plan p = wstream::plan_grid(rows, v, kBigRows, per);
   const int cols = p.per * wstream::kCols;
   *kk = k < cols ? k : cols;
   wstream::plan_stages(p, big_epilogue_bytes(*kk, true), wb);
@@ -1019,21 +1025,26 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// The decode kernel's plan for (rows, V, k, bytes a W element), the list
-// kernel's where k > 64 or k > V: {R, row_tiles, per, slices, stages,
-// smem} into out[0..5] (the wrapper's Python mirror must agree).
-void sample_topk_plan(int rows, int v_orig, int k, int wb, int* out) {
+// The decode kernel's plan for (rows, V, k, bytes a W element) under the
+// launch plan's overrides (rows_max, per; 0 keeps the kernel's own), the
+// list kernel's where k > 64 or k > V: {R, row_tiles, per, slices,
+// stages, smem} into out[0..5] (the wrapper's Python mirror must agree).
+void sample_topk_plan(int rows, int v_orig, int k, int wb, int rows_max,
+                      int per, int* out) {
   int kk = 0, in_smem = 0;
-  const wstream::Plan p = big_k(v_orig, k)
-                              ? plan_big(rows, v_orig, k, wb, &kk, &in_smem)
-                              : plan(rows, v_orig, k, wb);
+  const wstream::Plan p =
+      big_k(v_orig, k) ? plan_big(rows, v_orig, k, wb, &kk, &in_smem, per)
+                       : plan(rows, v_orig, k, wb, rows_max, per);
   const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
                        p.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
 }
 
 // Launches the decode kernel and its merge on `stream` with the plan
-// above; returns a cudaError_t.  pk is (rows, slices, k) u64 scratch,
+// above: rows_max and per are the launch plan's overrides, 0 keeping the
+// kernel's own choice, and any other value the kernel cannot take returns
+// cudaErrorInvalidValue (never the own plan in its place); returns a
+// cudaError_t.  pk is (rows, slices, k) u64 scratch,
 // vals/ids the (rows, k) result.  mask, when not null, is the (rows,
 // v_orig) s8 allowed mask; lse, when not null, receives the (rows,) f32
 // logsumexp through pl, (rows, slices, 2) f32 scratch.  W's elements are
@@ -1043,12 +1054,12 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
                        void* ids, int rows, int d, int v_orig, int valid,
                        int col_offset, int k, int has_softcap, float softcap,
                        const void* mask, void* pl, void* lse, const void* ws,
-                       int kind, void* stream) {
+                       int kind, int rows_max, int per, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
       d % wstream::kChunk || k < 1 || k > kMaxK || k > v_orig || kind < 0 ||
-      kind > hopper::kE5M2)
+      kind > hopper::kE5M2 || !wstream::override_ok(rows_max, per, kRowsMax))
     return (int)cudaErrorInvalidValue;
-  const wstream::Plan p = plan(rows, v_orig, k, kind ? 1 : 2);
+  const wstream::Plan p = plan(rows, v_orig, k, kind ? 1 : 2, rows_max, per);
   if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.slices > kMaxSlices ||
       (lse != nullptr) != (pl != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1094,8 +1105,8 @@ int sample_topk_launch(const void* h, const void* w, void* pk, void* vals,
 }
 
 // The list kernel (k > 64, or k > V): the same arguments as
-// sample_topk_launch for any k >= 1, with pk and pk2 each (rows, slices, kk)
-// u64 scratch (kk from sample_topk_big_len): the stream kernel writes each
+// sample_topk_launch for any k >= 1 (rows_max 0 or 8), with pk and pk2 each
+// (rows, slices, kk) u64 scratch (kk from sample_topk_big_lists): the stream kernel writes each
 // (row, slice)'s sorted top kk into pk, the merge tree halves the lists a
 // level between pk and pk2, and the finish kernel writes vals/ids (rows,
 // k) and the lse.  Returns a cudaError_t.
@@ -1103,16 +1114,18 @@ int sample_topk_big_launch(const void* h, const void* w, void* pk, void* pk2,
                            void* vals, void* ids, int rows, int d, int v_orig,
                            int valid, int col_offset, int k, int has_softcap,
                            float softcap, const void* mask, void* pl,
-                           void* lse, const void* ws, int kind,
-                           void* stream) {
+                           void* lse, const void* ws, int kind, int rows_max,
+                           int per, void* stream) {
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
       d % wstream::kChunk || k < 1 || kind < 0 || kind > hopper::kE5M2 ||
-      (lse != nullptr) != (pl != nullptr))
+      (lse != nullptr) != (pl != nullptr) ||
+      !wstream::override_ok(rows_max, per, kBigRows))
     return (int)cudaErrorInvalidValue;
   int kk = 0, in_smem = 0;
   const wstream::Plan p = plan_big(rows, v_orig, k, kind ? 1 : 2, &kk,
-                                   &in_smem);
-  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.rows != kBigRows)
+                                   &in_smem, per);
+  if (p.stages < 2 || p.smem > wstream::kMaxSmem || p.rows != kBigRows ||
+      (per && p.slices > kMaxSlices))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   CUtensorMap wmap, hmap;
@@ -1197,9 +1210,12 @@ int sample_topk_rows_launch(const void* h, const void* w, void* pvals,
 }
 
 // The list kernel's list length kk and whether its lists live in shared
-// memory, into out[0..1] (the Python mirror must agree).
-void sample_topk_big_lists(int rows, int v_orig, int k, int wb, int* out) {
-  plan_big(rows, v_orig, k, wb, &out[0], &out[1]);
+// memory under the overrides (rows_max, per), into out[0..1] (the Python
+// mirror must agree).
+void sample_topk_big_lists(int rows, int v_orig, int k, int wb, int rows_max,
+                           int per, int* out) {
+  (void)rows_max;                       // the list kernel's rows are 8
+  plan_big(rows, v_orig, k, wb, &out[0], &out[1], per);
 }
 
 const char* sample_topk_error_string(int err) {

@@ -65,8 +65,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.windows import (TOPK_MAX_K, TOPK_ROWS, TOPK_ROWS_COLS,
-                                      BlockPlan, topk_big, topk_big_lists,
-                                      topk_decode_plan, topk_stream_plan)
+                                      BlockPlan, block_plan_error,
+                                      stream_overrides, topk_big,
+                                      topk_big_lists, topk_rows_bound,
+                                      topk_stream_plan)
 from repro_torch.kernels import build
 from repro_torch.kernels.quant import w_kind
 
@@ -84,10 +86,11 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sample_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, p, p, p, p, i, p]
+                                           i, f, p, p, p, p, i, i, i, p]
         lib.sample_topk_launch.restype = i
         lib.sample_topk_big_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                               i, i, i, f, p, p, p, p, i, p]
+                                               i, i, i, f, p, p, p, p, i, i,
+                                               i, p]
         lib.sample_topk_big_launch.restype = i
         lib.sample_topk_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i,
                                                 i, i, i, f, p]
@@ -182,13 +185,17 @@ def _check_cuda_args(h, w, k):
 def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
                masked: bool = False, lse: bool = False,
                scaled: bool = False, w_bytes: int = 2) -> None:
-    """Raise ValueError unless a kernel takes `plan` for this call: the
-    decode kernel's own plan for (rows, V, k, bytes a W element)
-    (`topk_decode_plan`), or the 128 x 256 many-row plan at k = 1 on a
+    """Raise ValueError unless a kernel takes `plan` for this call: a
+    W-stream plan (R rows a row tile, a slice of ``block_v`` columns, a
+    multiple of 128) that the decode kernel (or the list kernel, k > 64
+    or k > V: R 8) launches for (rows, V, k, bytes a W element) with R
+    and the slice as its overrides (`topk_stream_plan`;
+    `stream_override_error` gives the limits, and R must be the width
+    the launch takes), or the 128 x 256 many-row plan at k = 1 on a
     full-precision W (`w_bytes` > 1) with no allowed mask (`masked`), no
     ``return_lse`` (`lse`) and no ``w_scale`` (`scaled`).  An explicit
-    plan picks the kernel; its tiles are the kernel's.  Checked on every
-    device, so an explicit plan fails the same way on the CPU."""
+    plan picks the kernel.  Checked on every device, so an explicit plan
+    fails the same way on the CPU."""
     if plan.block_rows == TOPK_ROWS:
         if plan.block_v != TOPK_ROWS_COLS:
             raise ValueError(f"unsupported plan {plan}: the many-row kernel "
@@ -205,12 +212,14 @@ def check_plan(plan: BlockPlan, k: int, n_rows: int, vocab: int, *,
                              "without w_scale; a quantized head needs the "
                              "decode plan")
         return
-    want = topk_decode_plan(n_rows, vocab, k, w_bytes)
-    if plan != want:
-        raise ValueError(f"unsupported plan {plan}: the decode kernel's "
-                         f"plan for {n_rows} rows, V={vocab}, k={k} is "
-                         f"{want}, the many-row kernel's {TOPK_ROWS} x "
-                         f"{TOPK_ROWS_COLS} at k = 1")
+    why = block_plan_error(
+        plan, lambda r, per: topk_stream_plan(n_rows, vocab, k, w_bytes, r,
+                                              per),
+        topk_rows_bound(vocab, k))
+    if why is not None:
+        raise ValueError(f"unsupported plan {plan} for {n_rows} rows, "
+                         f"V={vocab}, k={k}: {why} (the many-row kernel "
+                         f"takes {TOPK_ROWS} x {TOPK_ROWS_COLS} at k = 1)")
 
 
 def topk_scores(
@@ -275,27 +284,31 @@ def topk_scores(
     lib = _lib()
     if plan.block_rows == TOPK_ROWS:
         return _rows_top1(lib, h, w, valid, col_offset, logit_softcap)
-    return _decode(lib, h, w, k, valid, col_offset, logit_softcap,
+    return _decode(lib, h, w, k, plan, valid, col_offset, logit_softcap,
                    allowed_mask, return_lse, w_scale)
 
 
-def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
+def _decode(lib, h, w, k, plan, valid, col_offset, logit_softcap, mask=None,
             return_lse=False, w_scale=None):
-    """The decode kernel and its merge on its own plan, through
-    (B, slices, k) int64 scratch (and (B, slices, 2) f32 for the lse), or
-    for k > 64 or k > V the list kernel, its merge tree and its finish
-    through two (B, slices, kk) scratches: (values (B, k) f32, ids (B, k)
-    i32[, lse (B,) f32])."""
+    """The decode kernel and its merge on `plan` (its R and slice the
+    launch's overrides), through (B, slices, k) int64 scratch (and
+    (B, slices, 2) f32 for the lse), or for k > 64 or k > V the list
+    kernel, its merge tree and its finish through two (B, slices, kk)
+    scratches, each sized from the plan launched: (values (B, k) f32,
+    ids (B, k) i32[, lse (B,) f32])."""
     n, d = h.shape
     v = w.shape[0]
     wb = w.element_size()
-    sp = topk_stream_plan(n, v, k, wb)
-    build.check_plan_twin(lib, "sample_topk_plan", (n, v, k, wb), sp)
+    rows_max, per = stream_overrides(plan)
+    sp = topk_stream_plan(n, v, k, wb, rows_max, per)
+    build.check_plan_twin(lib, "sample_topk_plan",
+                          (n, v, k, wb, rows_max, per), sp)
     big = topk_big(v, k)
     dev = h.device
     if big:
-        _, kk, in_smem = topk_big_lists(n, v, k, wb)
-        build.check_plan_twin(lib, "sample_topk_big_lists", (n, v, k, wb),
+        _, kk, in_smem = topk_big_lists(n, v, k, wb, per)
+        build.check_plan_twin(lib, "sample_topk_big_lists",
+                              (n, v, k, wb, rows_max, per),
                               BigLists(kk, int(in_smem)))
         pk, pk2 = (torch.empty((n, sp.slices, kk), dtype=torch.int64,
                                device=dev) for _ in range(2))
@@ -314,7 +327,7 @@ def _decode(lib, h, w, k, valid, col_offset, logit_softcap, mask=None,
             None if pl is None else pl.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if w_scale is None else w_scale.data_ptr(),
-            w_kind(w.dtype))
+            w_kind(w.dtype), rows_max, per)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if big:

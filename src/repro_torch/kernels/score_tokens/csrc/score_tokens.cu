@@ -76,10 +76,17 @@ __host__ __device__ inline int group_size(int n_cand) {
   return n_cand < kGroup ? n_cand : kGroup;
 }
 
+// `rows_max` (a row tile bound) and `per` (W tiles a slice) override the
+// kernel's own choices where > 0 (wstream::override_ok).
+__host__ __device__ inline int rows_bound(int wb) {
+  return wb == 1 ? kRowsMaxQ : kRowsMax;
+}
+
 __host__ __device__ inline wstream::Plan plan(int rows, int v, int n_cand,
-                                              int wb) {
-  wstream::Plan p =
-      wstream::plan_grid(rows, v, wb == 1 ? kRowsMaxQ : kRowsMax);
+                                              int wb, int rows_max = 0,
+                                              int per = 0) {
+  wstream::Plan p = wstream::plan_grid(
+      rows, v, rows_max ? rows_max : rows_bound(wb), per);
   wstream::plan_stages(p, epilogue_bytes(p.rows, group_size(n_cand)), wb);
   return p;
 }
@@ -258,18 +265,22 @@ cudaError_t launch_stream(const CUtensorMap& wmap, const CUtensorMap& hmap,
 extern "C" {
 
 // The launch plan for (rows, V, n_cand, bytes a W element; past 64
-// candidates a CTA takes a group of 64): {R,
-// row_tiles, per, slices, stages, smem} into out[0..5] (the wrapper's
-// Python mirror must agree).
-void score_tokens_plan(int rows, int v_orig, int n_cand, int wb, int* out) {
-  const wstream::Plan p = plan(rows, v_orig, n_cand, wb);
+// candidates a CTA takes a group of 64) under the overrides (rows_max,
+// per; 0 keeps the kernel's own): {R, row_tiles, per, slices, stages,
+// smem} into out[0..5] (the wrapper's Python mirror must agree).
+void score_tokens_plan(int rows, int v_orig, int n_cand, int wb,
+                       int rows_max, int per, int* out) {
+  const wstream::Plan p = plan(rows, v_orig, n_cand, wb, rows_max, per);
   const int vals[6] = {p.rows, p.row_tiles, p.per, p.slices, p.stages,
                        p.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
 }
 
 // Launches the stream kernel and the merge kernel on `stream` with the
-// plan above; returns a cudaError_t.  part is (rows, slices, 2) f32
+// plan above: rows_max and per are the launch plan's overrides, 0 keeping
+// the kernel's own choice, and any other value the kernel cannot take
+// returns cudaErrorInvalidValue (never the own plan in its place); returns
+// a cudaError_t.  part is (rows, slices, 2) f32
 // scratch, lse (rows,) and zc (rows, n_cand) the results; ids is
 // (rows, n_cand) int32.  W's elements are of hopper::WKind `kind`; ws,
 // when not null, is the (v_orig,) f32 scale of each column.
@@ -277,13 +288,17 @@ int score_tokens_launch(const void* h, const void* w, const void* ids,
                         void* part, void* lse, void* zc, int rows, int d,
                         int v_orig, int valid, int col_offset, int n_cand,
                         int has_cap, float cap, float inv_temp,
-                        const void* ws, int kind, void* stream) {
+                        const void* ws, int kind, int rows_max, int per,
+                        void* stream) {
+  const int wb = kind ? 1 : 2;
   if (rows < 1 || v_orig < 1 || d < wstream::kChunk ||
       d % wstream::kChunk || n_cand < 1 || kind < 0 ||
-      kind > hopper::kE5M2)
+      kind > hopper::kE5M2 ||
+      !wstream::override_ok(rows_max, per, rows_bound(wb)))
     return (int)cudaErrorInvalidValue;
-  const wstream::Plan p = plan(rows, v_orig, n_cand, kind ? 1 : 2);
-  if (p.stages < 2 || p.smem > wstream::kMaxSmem)
+  const wstream::Plan p = plan(rows, v_orig, n_cand, wb, rows_max, per);
+  if (p.stages < 2 || p.smem > wstream::kMaxSmem ||
+      ((rows_max || per) && p.slices > wstream::kMaxSlices))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(ids);

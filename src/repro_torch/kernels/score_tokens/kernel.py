@@ -17,8 +17,11 @@ CUDA cores, and a second small kernel merges the slices' states in a
 fixed order.  The one slice that owns a candidate id writes its logit;
 past 64 candidates a row each CTA takes a group of 64, the groups of a
 slice neighbours in one launch (W streamed once a group, through L2).
-See the source's header.  The plan (`core.windows.score_plan`) is
-checked against the source's twin before the first launch of each shape.
+See the source's header.  A launch takes a plan (`BlockPlan`: R rows a
+row tile, a slice of ``block_v`` columns), the kernel's own
+(`core.windows.score_plan`) unless the caller gives one, which the
+kernel takes or refuses (`check_plan`); the plan is checked against the
+source's twin before the first launch of each shape and plan.
 
 Contract (the JAX kernel's): a column is valid iff its local index is
 ``< V`` and its global id ``local + col_offset < valid_vocab``; logits are
@@ -40,7 +43,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.windows import score_plan
+from repro_torch.core.windows import (STREAM_COLS, BlockPlan,
+                                      block_plan_error, score_plan,
+                                      score_rows_bound, stream_overrides)
 from repro_torch.kernels import build
 from repro_torch.kernels.quant import w_kind
 from repro_torch.kernels.sample_topk.kernel import check_w_scale
@@ -57,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.score_tokens_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, i, f, f, p, i, p]
+                                            i, i, f, f, p, i, i, i, p]
         lib.score_tokens_launch.restype = i
         lib.score_tokens_error_string.argtypes = [i]
         lib.score_tokens_error_string.restype = ctypes.c_char_p
@@ -93,6 +98,31 @@ def _check_cuda_args(h, w, ids):
                          f"{h.shape[1]}")
 
 
+def own_plan(n_rows: int, vocab: int, n_cand: int,
+             w_bytes: int = 2) -> BlockPlan:
+    """The kernel's own plan as a `BlockPlan`: R rows, a slice's columns,
+    its shared memory."""
+    p = score_plan(n_rows, vocab, n_cand, w_bytes)
+    return BlockPlan(p.rows, p.per * STREAM_COLS, p.smem_bytes)
+
+
+def check_plan(plan: BlockPlan, n_rows: int, vocab: int, n_cand: int,
+               w_bytes: int = 2) -> None:
+    """Raise ValueError unless the kernel takes `plan` for this call: R
+    (``block_rows``) and a slice of ``block_v`` columns as the launch's
+    overrides (`core.windows.score_plan`, `block_plan_error`: R a row
+    tile width of at most 256, 128 on a 1-byte W).  Checked on every
+    device."""
+    why = block_plan_error(
+        plan, lambda r, per: score_plan(n_rows, vocab, n_cand, w_bytes, r,
+                                        per),
+        score_rows_bound(w_bytes))
+    if why is not None:
+        raise ValueError(f"unsupported score_tokens plan {plan} for "
+                         f"{n_rows} rows, V={vocab}, {n_cand} candidates: "
+                         f"{why}")
+
+
 def score_stats(
     h: torch.Tensor, w: torch.Tensor, ids: torch.Tensor, *,
     valid_vocab: Optional[int] = None,
@@ -100,6 +130,7 @@ def score_stats(
     temperature: Optional[float] = None,
     col_offset: int = 0,
     w_scale: Optional[torch.Tensor] = None,
+    plan: Optional[BlockPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse (N,) f32, z_cand (N, P) f32) of candidate ids under ``h @ w.T``.
 
@@ -108,9 +139,13 @@ def score_stats(
     h, a bf16 w or a quantized one (int8, float8_e4m3fn, float8_e5m2)
     with its (V,) f32 `w_scale`, int32 ids, all contiguous on one device,
     ``d % 64 == 0`` (any d) and any ``P >= 1`` (past 64, in groups of 64
-    candidates a CTA), and raises ValueError on anything else."""
+    candidates a CTA), and raises ValueError on anything else.  `plan`
+    (None: the kernel's own) is checked on every device (`check_plan`)."""
     if ids.dim() == 1:
         ids = ids[:, None]
+    if plan is not None:
+        check_plan(plan, h.shape[0], w.shape[0], ids.shape[1],
+                   min(w.element_size(), 2))
     if h.device.type == "cpu":
         return score_stats_ref(h, w, ids, valid_vocab=valid_vocab,
                                logit_softcap=logit_softcap,
@@ -125,8 +160,10 @@ def score_stats(
     n_cand = ids.shape[1]
     valid = v if valid_vocab is None else valid_vocab
     wb = w.element_size()
-    sp = score_plan(n, v, n_cand, wb)
-    build.check_plan_twin(lib, "score_tokens_plan", (n, v, n_cand, wb), sp)
+    rows_max, per = stream_overrides(plan) if plan is not None else (0, 0)
+    sp = score_plan(n, v, n_cand, wb, rows_max, per)
+    build.check_plan_twin(lib, "score_tokens_plan",
+                          (n, v, n_cand, wb, rows_max, per), sp)
     dev = h.device
     part = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
     lse = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -138,7 +175,8 @@ def score_stats(
             int(col_offset), n_cand, int(logit_softcap is not None),
             float(logit_softcap or 0.0), inv_temperature(temperature),
             None if w_scale is None else w_scale.data_ptr(),
-            w_kind(w.dtype), torch.cuda.current_stream(dev).cuda_stream)
+            w_kind(w.dtype), rows_max, per,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("score_tokens launch failed: "
                            + lib.score_tokens_error_string(err).decode())

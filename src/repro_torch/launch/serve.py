@@ -8,7 +8,7 @@
         [--spec-k 4] [--mode eval [--eval-conts 4] [--cont-len 8]] \
         [--beams N | --best-of N [--best-of-temp T] | --grammar-mask SPEC] \
         [--quantize-cache] [--head-dtype int8|float8_e4m3fn|float8_e5m2] \
-        [--sampler-impl kernel|plain] [--stats-json [PATH]] \
+        [--sampler-impl kernel|plain] [--autotune] [--stats-json [PATH]] \
         [--metrics-json [PATH]] [--trace-out PATH [--trace-format chrome|jsonl]]
 
 ``--paged`` serves from the block-pool KV cache with shared-prefix reuse
@@ -45,6 +45,13 @@ to PATH as a chrome trace or JSON lines (``--trace-format``).
 ``--sampler-impl`` picks the sampler: ``kernel`` (default; the Hopper
 top-k kernel, its plain version for CPU tensors) or ``plain`` (the
 chunked plain scan, CPU tensors only: refused without ``--device cpu``).
+``--autotune`` tunes the engines' kernel launch plans at construction
+(the sampling top-k at rows 1 and the batch; with ``--paged`` the paged
+attention's pages a split; the speculative engines' verify shapes) into
+the tuning cache, ``$REPRO_TUNING_CACHE`` or
+``~/.cache/repro/blockplans.json``: the first run of a shape sweeps, a
+later one finds the winners there (``tune.sweeps_total`` in
+``--metrics-json`` counts the sweeps).
 
 An enc-dec arch (seamless-m4t-medium) serves every request after the
 same seeded normal encoder frames, 32 of them (``enc_len`` 32), in the
@@ -97,6 +104,8 @@ def main(argv=None):
                          "version for CPU tensors) or the chunked plain "
                          "scan (CPU only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune decode top-k block plans at engine init")
     ap.add_argument("--paged", action="store_true",
                     help="paged block-pool KV cache with shared-prefix "
                          "reuse (serve/paged.PagedEngine)")
@@ -213,7 +222,8 @@ def main(argv=None):
                      prefix_cache=not args.no_prefix_cache,
                      quantize_cache=args.quantize_cache,
                      head_dtype=args.head_dtype,
-                     sampler_impl=args.sampler_impl, **enc_kw)
+                     sampler_impl=args.sampler_impl,
+                     autotune=args.autotune, **enc_kw)
     if args.spec_self:
         cls = PagedSelfSpecEngine if args.paged else SelfSpecEngine
         eng = cls(arch, params, sc,

@@ -27,8 +27,15 @@ one ``train.step`` span a step (also a `torch.profiler` range).
 steps (50 by default) in the JAX package's file format, flushes a
 checkpoint and stops on SIGTERM / SIGINT, and resumes from the newest
 complete step in DIR; as in the reference, the resumed run's data starts
-over at the first batch.  Straggling steps are logged.  The reference's
-mesh and autotune flags wait for later slices and are not offered.
+over at the first batch.  Straggling steps are logged.
+
+``--autotune [--tuning-cache PATH]`` tunes the fused-CE forward's launch
+plan for the step's shape (one microbatch's rows) before step 0 and
+memoizes it in the tuning cache (``PATH``; ``''`` keeps it in memory;
+default ``$REPRO_TUNING_CACHE`` or ``~/.cache/repro/blockplans.json``),
+whose keys carry ``cuda`` or ``torch_cpu`` and never resolve a JAX
+package's winner.  The reference's mesh flags wait for a later slice and
+are not offered.
 
 An enc-dec arch (seamless-m4t-medium) raises `ValueError`: its encoder
 needs frames, and the launcher's only data is `SyntheticLM` tokens (the
@@ -46,13 +53,14 @@ import torch
 
 from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import with_mtp
+from repro_torch.configs import TuningConfig, with_mtp
 from repro_torch.data import DataConfig, DeviceLoader, SyntheticLM
 from repro_torch.distributed.fault import PreemptionHandler, StragglerMonitor
 from repro_torch.models.registry import get_arch
 from repro_torch.serve import resolve_device
 from repro_torch.train import (TrainConfig, build_train_step, init_state,
-                               resume_or_init, train_loop)
+                               make_tuning_prewarm, resume_or_init,
+                               train_loop)
 
 
 def train_config(args, arch) -> TrainConfig:
@@ -62,7 +70,9 @@ def train_config(args, arch) -> TrainConfig:
         warmup_steps=max(args.steps // 10, 1), total_steps=args.steps,
         loss_impl=args.loss_impl,
         loss_block_v=min(2048, arch.padded_vocab),
-        grad_accum=args.grad_accum, grad_filter_eps=args.grad_filter_eps)
+        grad_accum=args.grad_accum, grad_filter_eps=args.grad_filter_eps,
+        tuning=TuningConfig(enabled=getattr(args, "autotune", False),
+                            cache_path=getattr(args, "tuning_cache", None)))
 
 
 def main(argv=None, params=None):
@@ -95,6 +105,12 @@ def main(argv=None, params=None):
     ap.add_argument("--mtp-weights", default=None,
                     help="comma-separated per-head loss weights "
                          "(default: 1.0 each)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="empirically tune the fused-CE block plan at "
+                         "startup (memoized in the tuning cache)")
+    ap.add_argument("--tuning-cache", default=None,
+                    help="tuning-cache JSON path ('' = in-memory only; "
+                         "default: $REPRO_TUNING_CACHE or ~/.cache/repro)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -140,12 +156,17 @@ def main(argv=None, params=None):
 
     dc = DataConfig(vocab_size=arch.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch, seed=args.seed)
+    on_start = None
+    if args.autotune:
+        on_start = make_tuning_prewarm(
+            arch, tc, args.global_batch * args.seq_len, device)
     state, history = train_loop(
         state=state, step_fn=step_fn,
         data=DeviceLoader(SyntheticLM(dc), device), num_steps=args.steps,
         checkpointer=ck, checkpoint_every=args.ckpt_every,
         log_every=args.log_every,
-        preemption=PreemptionHandler(), straggler=StragglerMonitor())
+        preemption=PreemptionHandler(), straggler=StragglerMonitor(),
+        on_start=on_start)
     if history:
         first = history[0][1]["loss"]
         last = history[-1][1]["loss"]

@@ -36,6 +36,16 @@ becomes the int8 / fp8 copy and ``params['lm_head_scale']`` its (V,) f32
 scales); every vocab scan then streams the 1-byte head with its scales
 (`sample_topk`, `score_tokens`: ``w_scale``).
 
+``ServeConfig.autotune`` tunes the launch plans of the engine's vocab
+scans at construction (`_tune_plans`: the sampling top-k at rows 1 and
+the batch, k 1 at temperature 0 and ``top_k`` above it, keyed by the
+head's dtype; the paged and speculative engines add their kernels'
+shapes) into the tuning cache, ``$REPRO_TUNING_CACHE`` or
+``~/.cache/repro/blockplans.json``, at most ``tune_trial_budget`` plans
+a key.  Every launch resolves its plan from that cache once a process,
+with or without ``autotune``; a key no run has tuned keeps the
+kernel's own plan.
+
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu");
 it raises if CUDA is asked for and missing, and never falls back.  Cache
 updates are in place.  Free slots still run the batched decode (their
@@ -91,7 +101,8 @@ class ServeConfig:
     #   ("int8" | "float8_e4m3fn" | "float8_e5m2"; None/"bfloat16"/
     #   "float32" serve the full-precision head) - kernels/quant.py
     sampler_impl: str = "kernel"   # 'kernel' | 'plain' (CPU tensors only)
-    autotune: bool = False         # tuned block plans: ROADMAP A2 item 4
+    autotune: bool = False         # tune the decode top-k plans at init
+    tune_trial_budget: int = 6
     # paged KV cache (serve/paged.PagedEngine)
     paged: bool = False            # block-pool KV instead of dense slabs
     block_size: int = 16           # tokens per pool block
@@ -154,9 +165,6 @@ class Engine:
                 "quantize_cache is only implemented for the transformer "
                 f"KV cache; arch family '{arch.family}' would silently "
                 "serve full-precision state — set quantize_cache=False")
-        if sc.autotune:
-            raise NotImplementedError("autotuned block plans (top-k and "
-                                      "paged) come with ROADMAP A2 item 4")
         self.arch = arch
         self.params = params
         self.sc = sc
@@ -188,7 +196,37 @@ class Engine:
         # constrained decoding: each masked slot's (vocab_size,) int8
         # allowed set
         self._slot_masks: Dict[int, np.ndarray] = {}
+        if sc.autotune:
+            self._tune_plans()
         self.reset()
+
+    # -- autotune -----------------------------------------------------------
+
+    def _tune_args(self):
+        """(V, d, the hidden states' dtype, the quantized head's dtype)
+        that key this engine's vocab-scan plans."""
+        v, d = self.params["lm_head"].shape
+        dtype = getattr(torch, getattr(self.arch.cfg, "compute_dtype",
+                                       "float32"))
+        return v, d, dtype, self._head_dtype
+
+    def _sample_k(self) -> int:
+        return 1 if self.sc.temperature == 0.0 else self.sc.top_k
+
+    def _tune_plans(self):
+        """Tune the sampling top-k's plans for the decode and prefill
+        shapes (rows 1 and the batch) at construction, before the first
+        step: each key's first engine sweeps, later ones hit the cache.
+        The trials are real launches (they count on `sample_topk`)."""
+        from repro_torch.kernels.sample_topk.autotune import \
+            autotune_topk_plan
+        v, d, dtype, wdtype = self._tune_args()
+        for n in sorted({1, self.sc.batch_size}):
+            autotune_topk_plan(n, v, d, self._sample_k(), dtype,
+                               device=self.device,
+                               trial_budget=self.sc.tune_trial_budget,
+                               logit_softcap=self.arch.cfg.logit_softcap,
+                               wdtype=wdtype)
 
     # -- lifecycle ----------------------------------------------------------
 

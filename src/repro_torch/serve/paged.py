@@ -29,8 +29,11 @@ first append of a fork copies only the block it writes
 live chain reserves room for the K+1 verify appends, after it the host
 lengths advance by each slot's emitted count.  A quantized cache
 (``quantize_cache``) pages into int8 pools with their scale pools,
-reached through the same chains and copied with them; the paged
-autotuner comes with ROADMAP A2 item 4.
+reached through the same chains and copied with them.  With
+``ServeConfig.autotune`` the engine also tunes `paged_attn`'s plan (keys
+a tile and pages a split, the JAX kernel's ``pages_per_step``) for its
+decode shape, Tq 1, at construction (`_tune_paged_plans`; int8 pools
+under their own key).
 
 Enc-dec pages its decoder's self-attention cache (the tree's ``self``)
 and keeps each slot's cross K/V as the slab engine does: every prefill's
@@ -86,6 +89,24 @@ class _PagedMixin:
         pools = {k: sub[k] for k in kvpool.POOL_KEYS if k in sub}
         self._block_bytes = kvpool.cache_tree_bytes(pools) // \
             self._pc.n_blocks
+        if sc.autotune and self._n_paged:
+            self._tune_paged_plans()
+
+    def _tune_paged_plans(self, tqs=(1,)):
+        """Tune `paged_attn`'s plan for the batch's decode shape (each
+        query length of `tqs`) at construction, before the first step."""
+        cfg = self.arch.cfg
+        if not hasattr(cfg, "num_kv_heads"):
+            return
+        from repro_torch.kernels.paged_attn import autotune_paged_plan
+        dtype = getattr(torch, getattr(cfg, "compute_dtype", "float32"))
+        for tq in sorted(set(tqs)):
+            autotune_paged_plan(
+                self.sc.batch_size, tq, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, self._pc.max_blocks_per_slot,
+                self._pc.block_size, dtype, device=self.device,
+                trial_budget=self.sc.tune_trial_budget,
+                wdtype="int8" if self._quant else None)
 
     # -- hooks into Engine ---------------------------------------------------
 

@@ -251,6 +251,23 @@ def build_spec_step(arch: Arch, draft_arch: Arch, sc: ServeConfig,
     return spec_step
 
 
+def _tune_verify(eng: Engine, topk_rows):
+    """Tune a speculative engine's top-k at each row count of
+    `topk_rows` and, at temperature > 0, `score_tokens` at B * K rows of
+    one candidate (the drafts' scoring)."""
+    from repro_torch.kernels.sample_topk.autotune import autotune_topk_plan
+    from repro_torch.kernels.score_tokens.autotune import \
+        autotune_score_plan
+    v, d, dtype, wdtype = eng._tune_args()
+    kw = dict(device=eng.device, trial_budget=eng.sc.tune_trial_budget,
+              logit_softcap=eng.arch.cfg.logit_softcap, wdtype=wdtype)
+    for n in sorted(set(topk_rows)):
+        autotune_topk_plan(n, v, d, eng._sample_k(), dtype, **kw)
+    if eng.sc.temperature != 0.0:
+        autotune_score_plan(eng.sc.batch_size * eng.spec.k, v, d, 1, dtype,
+                            **kw)
+
+
 class SpecEngine(Engine):
     """Slot engine with a draft-model sidecar and speculative steps.
 
@@ -270,13 +287,25 @@ class SpecEngine(Engine):
                  spec: Optional[SpecConfig] = None, device="cuda"):
         self.spec = spec or SpecConfig()
         super().__init__(arch, params, sc, device=device)
-        self.draft = Engine(draft_arch, draft_params, sc, device=device)
+        # the draft's own vocab scans stay untuned, as in the JAX package
+        self.draft = Engine(draft_arch, draft_params,
+                            dataclasses.replace(sc, autotune=False),
+                            device=device)
         self.draft_arch = draft_arch
         self._spec_step = build_spec_step(arch, draft_arch, sc, self.spec)
+        if sc.autotune:
+            self._tune_spec_plans()
 
     @property
     def spec_k(self) -> int:
         return self.spec.k
+
+    def _tune_spec_plans(self):
+        """Tune the verify path's kernels for their exact shapes at
+        construction: the top-k over B * (K + 1) rows and, in rejection
+        mode only (greedy acceptance never scores), `score_tokens` over
+        B * K rows of one candidate."""
+        _tune_verify(self, (self.sc.batch_size * (self.spec.k + 1),))
 
     def reset(self, seed: int = 0):
         super().reset(seed)
@@ -454,10 +483,20 @@ class SelfSpecEngine(Engine):
         super().__init__(arch, params, sc, device=device)
         self._spec_step = build_self_spec_step(arch, sc, self.spec)
         self._prefill_mtp = build_self_prefill(arch, sc, self.spec)
+        if sc.autotune:
+            self._tune_self_spec_plans()
 
     @property
     def spec_k(self) -> int:
         return self.spec.k
+
+    def _tune_self_spec_plans(self):
+        """Tune the verify and redraft kernels for their exact shapes at
+        construction: the top-k over B * (K + 1) choice rows and B * K
+        head-draft rows; `score_tokens` over B * K rows in rejection mode
+        only."""
+        b, kk = self.sc.batch_size, self.spec.k
+        _tune_verify(self, (b * (kk + 1), b * kk))
 
     def reset(self, seed: int = 0):
         # self.spec is set BEFORE Engine.__init__ calls reset

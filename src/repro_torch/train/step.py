@@ -10,8 +10,12 @@ autograd, with the fused loss's and the blockwise attention's own
 `autograd.Function`s.  Gradient accumulation splits the batch into
 ``grad_accum`` microbatches along the batch axis and sums their grads in
 ``accum_dtype`` (f32 by default).  The optimizer is AdamW or Adafactor.
-Waiting, and raising when asked for: the sharded losses (ROADMAP A9);
-block-plan tuning (A2 item 4) is not offered.
+Block-plan tuning (``TrainConfig.tuning``): with ``enabled`` the fused-CE
+forward's launch plan is tuned once a shape, before step 0 through
+`make_tuning_prewarm` (the launcher's ``on_start`` hook) or at the first
+step, and memoized in the tuning cache; without it the kernel loss takes
+the cache's winner where one exists, else the kernel's own plan.
+Waiting, and raising when asked for: the sharded losses (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import Arch
+from repro_torch.configs.base import Arch, TuningConfig
 from repro_torch.core import LossConfig, fused_cross_entropy
 from repro_torch.core.fused_ce import IMPLS
 from repro_torch.models.registry import forward_hidden
@@ -47,6 +51,7 @@ class TrainConfig:
     grad_filter_eps: float = 0.0   # skip low-mass vocab tiles in backward
     grad_accum: int = 1
     accum_dtype: str = "float32"   # grad-accumulation buffer dtype
+    tuning: TuningConfig = TuningConfig()   # block-plan autotuning
 
     def __post_init__(self):
         if self.loss_impl in ("sharded", "sharded_sp"):
@@ -72,6 +77,48 @@ def _loss_cfg(arch: Arch, tc: TrainConfig) -> LossConfig:
     return arch.loss_config(
         block_v=tc.loss_block_v, label_smoothing=tc.label_smoothing,
         z_loss=tc.z_loss, grad_filter_eps=tc.grad_filter_eps)
+
+
+def _tunes(tc: TrainConfig, device) -> bool:
+    """Whether the loss runs the fused-CE kernel (or, on the CPU, its
+    plain version), whose forward plan tuning sets."""
+    return tc.loss_impl == "kernel" or (
+        tc.loss_impl == "auto" and torch.device(device).type == "cuda")
+
+
+def resolve_block_plan(tc: TrainConfig, lcfg: LossConfig, n_rows: int,
+                       vocab: int, d: int, dtype, device):
+    """Tune-once forward plan of the train step (a `CEPlan`), None when
+    tuning is off or the loss runs no kernel.  The first resolution of a
+    (shape, dtype, backend) key runs the trials; every later one, in
+    this process or another on the same cache file, is a cache hit."""
+    if not tc.tuning.enabled or not _tunes(tc, device):
+        return None
+    from repro_torch.kernels.fused_ce.autotune import autotune_plan
+    from repro_torch.tuning import get_cache
+    t = tc.tuning
+    return autotune_plan(n_rows, vocab, d, dtype, cfg=lcfg, device=device,
+                         cache=get_cache(t.cache_path),
+                         trial_budget=t.trial_budget,
+                         trial_iters=t.trial_iters)
+
+
+def make_tuning_prewarm(arch: Arch, tc: TrainConfig, n_rows: int,
+                        device) -> Callable[[], None]:
+    """`on_start` hook of `train_loop`: tune the training shape's forward
+    plan before step 0, so that trials never land in a step's time.
+    `n_rows` is the global batch's rows (global_batch * seq_len); the
+    loss sees one microbatch, ``n_rows // grad_accum`` rows, at a time,
+    and every MTP horizon has that shape, so all share one plan."""
+    def hook():
+        if not tc.tuning.enabled:
+            return
+        dtype = getattr(torch, getattr(arch.cfg, "compute_dtype", "float32"))
+        resolve_block_plan(tc, _loss_cfg(arch, tc),
+                           n_rows // max(tc.grad_accum, 1),
+                           arch.padded_vocab, arch.cfg.d_model, dtype,
+                           device)
+    return hook
 
 
 def _streaming_accuracy(rows: torch.Tensor, w: torch.Tensor,
@@ -107,9 +154,18 @@ def build_loss_fn(arch: Arch, tc: TrainConfig) -> Callable:
     lcfg = _loss_cfg(arch, tc)
     n_mtp = arch.mtp.n_heads
     mtp_w = arch.mtp.resolved_weights()
+    plans: Dict[tuple, Any] = {}    # tuned forward plans, once a shape
 
     def ce_of(rows, w, y):
-        return fused_cross_entropy(rows, w, y, impl=tc.loss_impl, cfg=lcfg)
+        plan = None
+        if tc.tuning.enabled:
+            key = (rows.shape[0], w.shape[0], rows.shape[1], rows.dtype,
+                   rows.device)
+            if key not in plans:
+                plans[key] = resolve_block_plan(tc, lcfg, *key)
+            plan = plans[key]
+        return fused_cross_entropy(rows, w, y, impl=tc.loss_impl, cfg=lcfg,
+                                   plan=plan)
 
     def loss_fn(params, batch):
         if n_mtp:

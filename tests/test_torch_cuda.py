@@ -995,7 +995,7 @@ def _score_wide(cuda, n, p, d):
                                                   score_stats_ref)
     from repro_torch.kernels.score_tokens.kernel import _lib
     v = 32768
-    build.check_plan_twin(_lib(), "score_tokens_plan", (n, v, p, 2),
+    build.check_plan_twin(_lib(), "score_tokens_plan", (n, v, p, 2, 0, 0),
                           score_plan(n, v, p))
     gen = torch.Generator(device=cuda).manual_seed(n + p + d)
     h = torch.randn((n, d), generator=gen, device=cuda).bfloat16()
@@ -1066,8 +1066,8 @@ def test_topk_list_kernel_matches_plain_version(cuda, rows, k, v, d, opts):
     wb = 1 if opts == "int8" else 2
     plan, kk, in_smem = topk_big_lists(rows, v, k, wb)
     assert plan == topk_stream_plan(rows, v, k, wb)
-    build.check_plan_twin(_lib(), "sample_topk_big_lists", (rows, v, k, wb),
-                          BigLists(kk, int(in_smem)))
+    build.check_plan_twin(_lib(), "sample_topk_big_lists",
+                          (rows, v, k, wb, 0, 0), BigLists(kk, int(in_smem)))
     assert in_smem == (kk <= 2683)
     kw = dict(valid_vocab=v - 7)
     if opts == "int8":
@@ -1135,10 +1135,11 @@ def test_stream_plans_equal_their_source_twins(cuda):
             for x in (1, 4, 40, 64, 65, 200, 1024, 5000):
                 for wb in (2, 1):        # bf16 and 1-byte (quantized) W
                     build.check_plan_twin(
-                        score_lib(), "score_tokens_plan", (rows, v, x, wb),
-                        score_plan(rows, v, x, wb))
+                        score_lib(), "score_tokens_plan",
+                        (rows, v, x, wb, 0, 0), score_plan(rows, v, x, wb))
                     build.check_plan_twin(
-                        topk_lib(), "sample_topk_plan", (rows, v, x, wb),
+                        topk_lib(), "sample_topk_plan",
+                        (rows, v, x, wb, 0, 0),
                         topk_stream_plan(rows, v, x, wb))
 
 
@@ -1238,7 +1239,7 @@ def test_ce_and_paged_plans_equal_their_source_twins(cuda):
                     for quant in (0, 1):
                         build.check_plan_twin(
                             paged_lib(), "paged_attn_plan",
-                            (b, nkv, nb, bs, hd, rows, quant),
+                            (b, nkv, nb, bs, hd, rows, quant, 0, 0),
                             paged_plan(b, nkv, nb, bs, hd, rows,
                                        bool(quant)))
 
@@ -1991,3 +1992,292 @@ def test_encdec_blocks_on_the_card_match_the_cpu(cuda):
     r = chip_smoke.encdec_blocks_card_vs_cpu(
         torch, np, get_arch(chip_smoke.ENCDEC_ID), cuda)
     assert max(r["enc"], r["dec"], r["k"]) <= chip_smoke.ENCDEC_BLOCK_ATOL
+
+
+# ---------------------------------------------------------------------------
+# launch plans: every candidate of the autotuner's ladders at the slice's
+# shapes, and the plans the kernels refuse
+# ---------------------------------------------------------------------------
+
+
+def _head(cuda, rows, v, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn((rows, d), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=gen, device=cuda)
+         / d ** 0.5).bfloat16()
+    return h, w
+
+
+def _ids_where_apart(ids, ri, ext):
+    """Ids exact wherever a value lies further from both neighbours (the
+    plain version's (k + 1)-th included) than twice the values'
+    tolerance."""
+    tol = 1e-4 + 1e-5 * np.abs(np.where(np.isfinite(ext), ext, 0.0))
+    gap = np.abs(np.diff(ext, axis=1)) > 2 * np.maximum(tol[:, 1:],
+                                                        tol[:, :-1])
+    sep = gap.copy()
+    sep[:, 1:] &= gap[:, :-1]
+    np.testing.assert_array_equal(ids[sep], ri[sep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k", [
+    (1, 1), (8, 1), (8, 40), (8, 100), (32, 1), (40, 40), (40, 100),
+    (128, 1), (128, 40)])
+def test_topk_ladder_matches_plain_version(cuda, rows, k):
+    """Every candidate of the top-k ladder on qwen3-0.6b's head (152064 x
+    1024, valid 151936): values rtol 1e-5 / atol 1e-4 of the plain
+    version, ids exact wherever the values are apart (read against the
+    plain version's top k + 1), one launch a call on the counter of the
+    kernel the plan picks; the plan is held to its source twin under
+    its overrides by the wrapper."""
+    from repro_torch.kernels.sample_topk import (LAUNCHES, ROWS_LAUNCHES,
+                                                 topk_scores,
+                                                 topk_scores_ref)
+    from repro_torch.kernels.sample_topk.autotune import candidate_plans
+    v, valid = 152_064, 151_936
+    h, w = _head(cuda, rows, v, 1024, rows * 7 + k)
+    rv, ri = (t.cpu().numpy() for t in topk_scores_ref(h, w, k,
+                                                       valid_vocab=valid))
+    ext = topk_scores_ref(h, w, k + 1, valid_vocab=valid)[0].cpu().numpy()
+    cands = candidate_plans(rows, v, k)
+    assert cands
+    for plan in cands:
+        before = (LAUNCHES.count, ROWS_LAUNCHES.count)
+        vals, ids = topk_scores(h, w, k, plan=plan, valid_vocab=valid)
+        torch.cuda.synchronize()
+        many = plan.block_rows == 128
+        assert (LAUNCHES.count - before[0], ROWS_LAUNCHES.count
+                - before[1]) == ((0, 1) if many else (1, 0))
+        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        np.testing.assert_allclose(vals, rv, rtol=1e-5, atol=1e-4,
+                                   err_msg=str(plan))
+        _ids_where_apart(ids, ri, ext)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,wb", [(8, 2), (32, 2), (40, 2), (32, 1)])
+def test_score_ladder_matches_plain_version(cuda, rows, wb):
+    """Every candidate of the score_tokens ladder at P 1 on qwen3-0.6b's
+    head (bf16, and int8 with its scales): lse and the candidate logit
+    rtol 1e-5 / atol 1e-4 of the plain version, one launch a call."""
+    from repro_torch.kernels.score_tokens import (LAUNCHES, score_stats,
+                                                  score_stats_ref)
+    from repro_torch.kernels.score_tokens.autotune import candidate_plans
+    v, valid = 152_064, 151_936
+    kw = dict(valid_vocab=valid)
+    if wb == 1:
+        h, w, kw["w_scale"] = _quant_head(cuda, v, 1024, "int8", 5, rows)
+    else:
+        h, w = _head(cuda, rows, v, 1024, rows + 3)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    ids = torch.randint(0, valid, (rows, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    rl, rz = score_stats_ref(h, w, ids, **kw)
+    for plan in candidate_plans(rows, v, 1, w_bytes=wb):
+        before = LAUNCHES.count
+        lse, zc = score_stats(h, w, ids, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES.count == before + 1
+        torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4,
+                                   msg=str(plan))
+        torch.testing.assert_close(zc, rz, rtol=1e-5, atol=1e-4,
+                                   msg=str(plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,quant", [(128, False), (128, True),
+                                      (64, False), (64, True)])
+def test_paged_ladder_matches_plain_version(cuda, hd, quant):
+    """Every candidate of the paged_attn ladder at the serving decode
+    shape (B 8, 16 query and 8 KV heads, 32 pages of 16, Tq 1; ragged
+    lengths, bf16 or int8 pools): within atol / rtol 1e-2 of the plain
+    version, one launch a call, the twin held under the overrides."""
+    from repro_torch.kernels.paged_attn import (LAUNCHES, paged_attention,
+                                                paged_attention_ref)
+    from repro_torch.kernels.paged_attn.autotune import (
+        candidate_plans, plan_pages_per_step)
+    from repro_torch.models.attention import quantize_kv
+    b, nq, nkv, bs, nb = 8, 16, 8, 16, 32
+    gen = torch.Generator(device=cuda).manual_seed(hd + quant)
+    n_pool = b * nb + 1
+    q = torch.randn((b, 1, nq, hd), generator=gen, device=cuda).bfloat16()
+    kp = torch.randn((n_pool, bs, nkv, hd), generator=gen, device=cuda)
+    vp = torch.randn((n_pool, bs, nkv, hd), generator=gen, device=cuda)
+    kw = {}
+    if quant:
+        kp, kw["kp_scale"] = quantize_kv(kp)
+        vp, kw["vp_scale"] = quantize_kv(vp)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    table = (1 + torch.randperm(b * nb, generator=gen, device=cuda)).reshape(
+        b, nb).to(torch.int32)
+    lens = torch.randint(1, nb * bs + 1, (b,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    ref = paged_attention_ref(q, kp, vp, table, lens, **kw).float()
+    for plan in candidate_plans(b, 1, nq, nkv, hd, nb, bs, quant):
+        before = LAUNCHES.count
+        out = paged_attention(q, kp, vp, table, lens, tile_keys=plan.block_rows,
+                              pages_per_step=plan_pages_per_step(plan, bs,
+                                                                 nb), **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES.count == before + 1
+        torch.testing.assert_close(out.float(), ref, atol=1e-2, rtol=1e-2,
+                                   msg=str(plan))
+
+
+@pytest.mark.cuda
+def test_fused_ce_ladder_matches_plain_version(cuda):
+    """Every vocab split of the fused-CE forward's ladder at qwen3-0.6b's
+    training shape (8192 rows, 152064 x 1024): lse and z_target rtol
+    1e-5 / atol 1e-4 of the plain version, z_sum atol 5e-3 (a sum of
+    ~152k logits in another order, |z_sum| ~ 400: `chip_smoke.py`'s
+    ``CE_ZSUM_ATOL`` at this shape); the tile
+    statistic bit for bit the own plan's (each 64 x 64 tile's max comes
+    from the one CTA that owns it, whatever the split)."""
+    from repro_torch.core.types import LossConfig
+    from repro_torch.core.windows import choose_ce_plan
+    from repro_torch.kernels.fused_ce import fwd_stats, ref_stats
+    from repro_torch.kernels.fused_ce.autotune import (as_ce_plan,
+                                                       candidate_plans)
+    n, v, d = 8192, 152_064, 1024
+    h, w = _head(cuda, n, v, d, 11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    y = torch.randint(0, 151_936, (n,), generator=gen, device=cuda)
+    cfg = LossConfig(valid_vocab=151_936)
+    want = ref_stats(h, w, y, cfg)
+    own = fwd_stats(h, w, y, cfg, plan=choose_ce_plan(n, v, d),
+                    return_tile_stats=True)[3]
+    for plan in candidate_plans(n, v):
+        ce = as_ce_plan(plan, v)
+        lse, zt, zs, tmax = fwd_stats(h, w, y, cfg, plan=ce,
+                                      return_tile_stats=True)
+        torch.testing.assert_close(lse, want[0], rtol=1e-5, atol=1e-4,
+                                   msg=str(ce))
+        torch.testing.assert_close(zt, want[1], rtol=1e-5, atol=1e-4,
+                                   msg=str(ce))
+        torch.testing.assert_close(zs, want[2], rtol=0, atol=5e-3,
+                                   msg=str(ce))
+        assert torch.equal(tmax, own), ce
+
+
+@pytest.mark.cuda
+def test_override_plans_equal_their_source_twins(cuda):
+    """Under every ladder's overrides at the slice's shapes the Python
+    mirrors are the sources' own plans (the wrappers size their scratch
+    from them)."""
+    from repro_torch.core.windows import (STREAM_COLS, paged_plan,
+                                          score_plan, topk_big_lists,
+                                          topk_stream_plan)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attn.autotune import (
+        candidate_plans as paged_cands, plan_pages_per_step)
+    from repro_torch.kernels.paged_attn.kernel import _lib as paged_lib
+    from repro_torch.kernels.sample_topk.autotune import (
+        candidate_plans as topk_cands)
+    from repro_torch.kernels.sample_topk.kernel import BigLists
+    from repro_torch.kernels.sample_topk.kernel import _lib as topk_lib
+    from repro_torch.kernels.score_tokens.autotune import (
+        candidate_plans as score_cands)
+    from repro_torch.kernels.score_tokens.kernel import _lib as score_lib
+    v = 152_064
+    for rows in (1, 8, 32, 40, 128, 256):
+        for wb in (2, 1):
+            for k in (1, 40, 100):
+                for p in topk_cands(rows, v, k, w_bytes=wb):
+                    if p.block_rows == 128:
+                        continue
+                    r, per = p.block_rows, p.block_v // STREAM_COLS
+                    build.check_plan_twin(
+                        topk_lib(), "sample_topk_plan",
+                        (rows, v, k, wb, r, per),
+                        topk_stream_plan(rows, v, k, wb, r, per))
+                    if k > 64:
+                        _, kk, sm = topk_big_lists(rows, v, k, wb, per)
+                        build.check_plan_twin(
+                            topk_lib(), "sample_topk_big_lists",
+                            (rows, v, k, wb, r, per), BigLists(kk, int(sm)))
+            for p in score_cands(rows, v, 1, w_bytes=wb):
+                r, per = p.block_rows, p.block_v // STREAM_COLS
+                build.check_plan_twin(
+                    score_lib(), "score_tokens_plan",
+                    (rows, v, 1, wb, r, per),
+                    score_plan(rows, v, 1, wb, r, per))
+    for hd in (64, 128):
+        for quant in (0, 1):
+            for p in paged_cands(8, 1, 16, 8, hd, 32, 16, bool(quant)):
+                pps = plan_pages_per_step(p, 16, 32)
+                build.check_plan_twin(
+                    paged_lib(), "paged_attn_plan",
+                    (8, 8, 32, 16, hd, 2, quant, pps, p.block_rows),
+                    paged_plan(8, 8, 32, 16, hd, 2, bool(quant), pps,
+                               p.block_rows))
+
+
+@pytest.mark.cuda
+def test_refused_plans_raise_and_never_launch(cuda):
+    """A plan no kernel takes raises ValueError in the wrapper before any
+    launch, and the C entries, given the same overrides directly, return
+    cudaErrorInvalidValue before touching a pointer: the own plan never
+    runs in its place."""
+    from repro_torch.core.types import LossConfig
+    from repro_torch.core.windows import BlockPlan, CEPlan
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce import fwd_stats
+    from repro_torch.kernels.fused_ce.kernel import _lib as ce_lib
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.kernels.paged_attn.kernel import _lib as paged_lib
+    from repro_torch.kernels.sample_topk import topk_scores
+    from repro_torch.kernels.sample_topk.kernel import _lib as topk_lib
+    from repro_torch.kernels.score_tokens import score_stats
+    from repro_torch.kernels.score_tokens.kernel import _lib as score_lib
+    h, w = _head(cuda, 8, 20_000, 256, 1)
+    before = dict((n, c.count) for n, c in build.COUNTERS.items())
+    for plan, k in ((BlockPlan(12, 256, 0), 1), (BlockPlan(8, 96, 0), 1),
+                    (BlockPlan(8, 128, 0), 40),     # 157 slices > 132
+                    (BlockPlan(16, 256, 0), 100)):
+        with pytest.raises(ValueError, match="unsupported plan"):
+            topk_scores(h, w, k, plan=plan)
+    ids = torch.zeros((8, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported score_tokens plan"):
+        score_stats(h, w, ids, plan=BlockPlan(512, 256, 0))
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros((9, 16, 2, 64), dtype=torch.bfloat16, device=cuda)
+    table = torch.ones((2, 4), dtype=torch.int32, device=cuda)
+    lens = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported paged_attn plan"):
+        paged_attention(q, kp, kp, table, lens, pages_per_step=3,
+                        tile_keys=64)
+    y = torch.zeros((8,), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="unsupported plan"):
+        fwd_stats(h, w, y, LossConfig(), plan=CEPlan(78))   # 79 tiles
+    assert dict((n, c.count) for n, c in build.COUNTERS.items()) == before
+    bad = 1                                   # cudaErrorInvalidValue
+    lib = topk_lib()
+    # sample_topk_launch(h, w, pk, vals, ids, rows, d, V, valid, off, k,
+    #   has_cap, cap, mask, pl, lse, ws, kind, rows_max, per, stream)
+    for rows_max, per in ((12, 0), (128, 0), (0, 512), (0, 1), (-8, 0)):
+        assert lib.sample_topk_launch(None, None, None, None, None, 8, 256,
+                                      20_000, 20_000, 0, 8, 0, 0.0, None,
+                                      None, None, None, 0, rows_max, per,
+                                      None) == bad
+    for rows_max, per in ((16, 0), (0, 512), (0, 1)):
+        assert lib.sample_topk_big_launch(
+            None, None, None, None, None, None, 8, 256, 20_000, 20_000, 0,
+            100, 0, 0.0, None, None, None, None, 0, rows_max, per,
+            None) == bad
+    for rows_max, per in ((512, 0), (200, 0), (0, 512), (0, 1)):
+        assert score_lib().score_tokens_launch(
+            None, None, None, None, None, None, 8, 256, 20_000, 20_000, 0,
+            1, 0, 0.0, 1.0, None, 0, rows_max, per, None) == bad
+    assert score_lib().score_tokens_launch(
+        None, None, None, None, None, None, 8, 256, 20_000, 20_000, 0, 1,
+        0, 0.0, 1.0, None, 1, 256, 0, None) == bad    # 1-byte W: R <= 128
+    for pps, kt in ((3, 64), (1, 48), (-1, 0), (0, 128)):
+        assert paged_lib().paged_attn_launch(
+            None, None, None, None, None, None, None, None, None, None, 2,
+            1, 4, 2, 64, 9, 16, 4, 0.125, 0, 0.0, pps, kt, None) == bad
+    for splits in (0, 78, 80):          # 78 slices of 2 leave one empty
+        assert ce_lib().fused_ce_fwd_launch(
+            None, None, None, None, None, None, None, 8, 256, 20_000,
+            20_000, 0, splits, 0, 0.0, -100, None, None, 0, None) == bad

@@ -66,10 +66,20 @@ def test_profiler_bridge_records_spans():
     assert [s.name for s in tr.spans] == ["engine.decode_step"]
 
 
-def test_serving_binds_the_same_metric_and_span_names():
+def test_serving_binds_the_same_metric_and_span_names(monkeypatch,
+                                                       tmp_path):
     """Every metric the port binds is one of the JAX package's, with the
-    same count; the spans are the same (the JAX package also binds the
-    spec, beam, eval and tuning metrics of paths not ported yet)."""
+    same count; the spans are the same.  The hot path's plan lookups
+    bind the tuning cache's counters in both, but count resolutions: the
+    port's once a key and process (here one: the top-1 at one row, on an
+    empty cache), the JAX package's once a trace (a prefill bucket
+    each).  The tuning instruments of a sweep too: one sweep on a cold
+    key (a fixed clock, no kernel runs) and one hot-path resolution of
+    that key bind the same counters with the same counts, the same trial
+    histogram and the same ``tune.sweep`` span in both packages."""
+    from repro_torch.tuning.cache import RESOLVED
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "plans.json"))
+    RESOLVED.clear()
     arch = JR.get_arch("qwen3-0.6b", reduced=True)
     jparams = JR.init_params(arch, jax.random.PRNGKey(2))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
@@ -96,9 +106,51 @@ def test_serving_binds_the_same_metric_and_span_names():
         names.append((counts, {s.name for s in tracer.spans}))
     (jcounts, jspans), (tcounts, tspans) = names
     assert set(tcounts) <= set(jcounts)
+    resolved = {n: tcounts.pop(n) for n in list(tcounts)
+                if n.startswith("tuning_cache.")}
+    assert resolved == {"tuning_cache.misses_total": 1}
     assert {n: jcounts[n] for n in tcounts} == tcounts
     assert tcounts["serve.tokens_total"] == 4     # 2 requests x 2 decodes
     assert tspans == jspans
+
+    from repro.kernels import plan_tuner as JPT
+    from repro.tuning import TuningCache as JCache
+    from repro_torch.core.windows import BlockPlan
+    from repro_torch.kernels import plan_tuner as TPT
+    from repro_torch.tuning import get_cache
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "plans.json"))
+    tuned = []
+    with jobs.capture(trace=True) as (reg, tracer):
+        jc = JCache(None)
+        JPT.autotune_cached(
+            "topk1", lambda: JPT.run_plan_trials(
+                lambda plan: 5.0, 8, 256, 64, "float32", trial_budget=2),
+            8, 256, 64, "float32", cache=jc, trial_budget=2)
+        JPT.lookup_cached("topk1", 8, 256, 64, "float32", cache=jc)
+        tuned.append((reg, tracer))
+    with tobs.capture(trace=True) as (reg, tracer):
+        own = BlockPlan(8, 128, 0)
+        TPT.autotune_cached(
+            "topk1", lambda: TPT.run_plan_trials(
+                lambda plan: 5.0, [BlockPlan(8, 256, 0), own], own,
+                trial_budget=2),
+            8, 256, 64, torch.float32, own, device="cpu",
+            cache=get_cache(), trial_budget=2)
+        TPT.lookup_cached(("obs-test",), "topk1", 8, 256, 64, torch.float32,
+                          "cpu", lambda: own)
+        tuned.append((reg, tracer))
+    (jreg, jtr), (treg, ttr) = tuned
+    kinds = [{n: m.kind for n, m in r.metrics().items()}
+             for r in (jreg, treg)]
+    assert kinds[0] == kinds[1] == {
+        "tune.sweeps_total": "counter", "tune.trial_us": "histogram",
+        "tuning_cache.misses_total": "counter",
+        "tuning_cache.hits_total": "counter"}
+    for name in ("tune.sweeps_total", "tuning_cache.misses_total",
+                 "tuning_cache.hits_total"):
+        assert treg.get(name).value == jreg.get(name).value == 1
+    assert ({s.name for s in ttr.spans} == {s.name for s in jtr.spans}
+            == {"tune.sweep"})
 
 
 def test_serve_cli_metrics_trace_and_sampler_flags(tmp_path, capsys):

@@ -191,7 +191,7 @@ def test_copy_on_write_on_externally_forked_chain(model):
     np.testing.assert_array_equal(res, ref[0])
 
 
-def test_generate_and_waiting_options(model):
+def test_generate_and_waiting_options(model, monkeypatch, tmp_path):
     _, _, tarch, tparams = model
     eng = _paged(tarch, tparams, batch_size=2, max_len=48, block_size=8)
     prompts = np.stack([np.arange(1, 9, dtype=np.int32)] * 2)
@@ -215,8 +215,13 @@ def test_generate_and_waiting_options(model):
     for slot in (0, 1):
         eng.reset_slot(slot)
     assert not any(eng._chains)
-    with pytest.raises(NotImplementedError, match="A2"):
-        _paged(tarch, tparams, autotune=True)
+    # autotuned: the top-k and paged_attn plans tuned at construction
+    # into this test's own cache, the same tokens as the slab engine
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "plans.json"))
+    tuned = _paged(tarch, tparams, autotune=True, batch_size=2, max_len=48,
+                   block_size=8)
+    np.testing.assert_array_equal(tuned.generate(prompts, 4),
+                                  slab.generate(prompts, 4))
     # the gather oracle is a CPU path: another device's tensors raise
     from repro_torch.models import attention as TA
     cfg = TA.AttnConfig(d_model=64, num_heads=4, num_kv_heads=2,
