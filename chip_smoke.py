@@ -394,6 +394,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      0's loss the untuned run's within f32 reduction order
      (`TUNE_LOSS_RTOL`).  The launches of (b) to (d), sweeps included,
      count toward the record.
+ 18. the static analysis (``[analyze]`` lines): (a) ``launch/analyze``'s
+     36-entry matrix on the card (the reduced configs in bf16, at width
+     64 where theirs is 48): rc 0, no suppression, each kernel's launch
+     count equal to the kernel scopes the recorder entered, a launch on
+     every transformer hot path, and the train steps' backward ops
+     recorded inside their scopes (autograd runs them on its device
+     thread); (b) qwen3-0.6b at full width: the slab decode step and an
+     eval score on phase 3's engine, phase 5's paged decode step, phase
+     6's verify (40 rows, 5 a slot), phase 11's quantized paged decode,
+     phase 4's training step at 8 x 1024, each recorded and held to every
+     rule (no finding but those of `ANALYZE_OPEN_FULL`, ROADMAP §C), and
+     both fixtures flagged (the dense sampler at 8 rows, the canonical
+     loss over 8192 rows); (c) the CUDA allocator's history over the
+     two training steps (`analysis.trace.memory_dict`): the fused
+     step's largest block below the bf16 logits' 2.49 GB, the canonical
+     step's at or above it.  Its launches count toward the record.
 
 Phase 2 also takes the new cases past the kernels' old limits: the
 top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
@@ -454,8 +470,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12          # dense bf16 tensor cores
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    # the card's peak rates have one source, the port's roofline
+    sys.path.insert(0, SRC)
+    from repro_torch.analysis.roofline import (  # noqa: E402
+        HBM_BW as H100_BYTES_PER_S, PEAK_FLOPS as H100_BF16_FLOPS)
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-4   # f32 sums of 1024 bf16 products, any order
 # fused CE against its plain version (same bf16 inputs, f32 logits):
 # lse and z_target as the sample_topk values; z_sum sums ~152k logits in
@@ -2349,7 +2368,10 @@ def phase_paged_attn(torch, np, dev):
              ("tq5", 5, None, "seeded"),
              # seamless-m4t-medium's decode (phase 15 (b)): 16 query over
              # 16 KV heads (group 1), head_dim 64
-             ("encdec_hd64", 1, None, "seeded", (16, 16, 64))]
+             ("encdec_hd64", 1, None, "seeded", (16, 16, 64)),
+             # qwen3-moe-235b-a22b's decode (phase 12 (c)): 64 query over
+             # 4 KV heads (group 16), head_dim 128
+             ("group16", 1, None, "seeded", (64, 4, 128))]
     results = {}
     for i, (name, tq, cap, kind, *shape) in enumerate(cases):
         # qwen3-0.6b's heads: 16 query over 8 KV heads of 128
@@ -7459,6 +7481,223 @@ def phase_tune(torch, np, card, dev):
     return launches
 
 
+# phase 18: the full-width entries' findings left open (ROADMAP.md §C
+# "Open", with their text): an entry listed here must report exactly
+# these rules, every other entry none
+ANALYZE_OPEN_FULL = {}
+# the bf16 (rows, V) logits of the training step, 8192 x 152064 x 2 bytes:
+# the fused step's largest block must stay below it, the canonical one's
+# reach it
+TRAIN_LOGITS_BYTES = TRAIN_BATCH * TRAIN_SEQ * 152064 * 2
+
+
+def analyze_rows_check(report):
+    """Phase 18 (a)'s checks over the reduced matrix's report: each
+    kernel's launches equal the scopes it entered; the transformer's hot
+    paths launch; the train steps' backward ops are recorded in their
+    scopes (autograd runs them on its device thread)."""
+    bad = []
+    for r in report["entries"]:
+        for k in set(r["scopes"]) | set(r["launches"]):
+            if r["scopes"].get(k, 0) != r["launches"].get(k, 0):
+                bad.append(f"{r['entry']}: {k} scopes "
+                           f"{r['scopes'].get(k, 0)} != launches "
+                           f"{r['launches'].get(k, 0)}")
+        hot = r["expect"] == "clean" and r["entry"] != "kernels/ast"
+        if hot and r["entry"].startswith("transformer/") and not sum(
+                r["launches"].values()):
+            bad.append(f"{r['entry']}: no kernel launched")
+        if r["entry"].endswith(("/train_exact", "/train_filtered")):
+            for k in r["launches"]:
+                if "_dh" in k or "_dw" in k:
+                    if not r["kernel_ops"].get(k):
+                        bad.append(f"{r['entry']}: no op recorded in the "
+                                   f"{k} scope (backward not recorded)")
+    return bad
+
+
+def phase_analyze(torch, np, card, dev):
+    """Phase 18: the static analysis on the card.  (a) the reduced
+    matrix (`launch/analyze.py`, 36 entries) with every launch scoped;
+    (b) qwen3-0.6b at full width on phases 3, 5, 6, 7 and 11's serving
+    shapes and phase 4's training step, every rule, no finding but the
+    listed open ones, and both fixtures flagged; (c) the allocator's
+    largest block in the fused and the canonical training steps."""
+    from repro_torch import obs
+    from repro_torch.analysis.lint import RuleContext, run_rules
+    from repro_torch.analysis.trace import memory_dict
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import build
+    from repro_torch.kernels.score_tokens import score_tokens
+    from repro_torch.launch import analyze as A
+    from repro_torch.models.registry import (get_arch, init_params,
+                                             init_serve_caches)
+    from repro_torch.serve import Engine, PagedEngine, ServeConfig
+    from repro_torch.train import TrainConfig, build_train_step
+
+    t0 = time.perf_counter()
+    build.reset_counters()
+    with obs.capture(trace=False):
+        report = A.analyze(device=dev, progress=lambda *a: None)
+    total = {k: c.count for k, c in build.COUNTERS.items() if c.count}
+    t = report["totals"]
+    bad = analyze_rows_check(report)
+    for r in report["entries"]:
+        if not r["ok"]:
+            bad.append(f"{r['entry']} ({r['expect']}): "
+                       + "; ".join(f"{f['rule']}: {f['message']} at "
+                                   f"{f['where']}" for f in r["findings"]))
+    if t["violations"] or t["suppressed"] or t["entries"] != 36 or bad:
+        raise AssertionError("phase 18 (a): " + "\n".join(bad))
+    n_open = sum(len(r["open"]) for r in report["entries"])
+    print(f"[analyze] (a) {t['entries']} entries x {t['rules']} rules on "
+          f"the card in {time.perf_counter() - t0:.1f}s: {t['findings']} "
+          f"finding(s) ({n_open} open, ROADMAP §C; the rest the two "
+          f"fixtures'), 0 suppressed; every launch scoped: "
+          f"{sum(total.values())} launches {dict(sorted(total.items()))}",
+          flush=True)
+
+    # (b) full width
+    t1 = time.perf_counter()
+    arch = get_arch("qwen3-0.6b")
+    vocabs = (arch.vocab_size, arch.padded_vocab)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rows = []
+    mark = [time.perf_counter()]
+
+    def check(entry, rec, batch, seq=None, donate=None, expect="clean"):
+        graph, fn_graph, launches = rec
+        ctx = RuleContext(entry=entry, graph=graph, fn_graph=fn_graph,
+                          batch=batch, vocabs=vocabs, seq=seq,
+                          expect_donation=donate)
+        findings, _ = run_rules(ctx)
+        for k in set(graph.scopes) | set(launches):
+            if graph.scopes.get(k, 0) != launches.get(k, 0):
+                raise AssertionError(f"phase 18 (b) {entry}: {k} scopes "
+                                     f"{graph.scopes.get(k, 0)} != "
+                                     f"launches {launches.get(k, 0)}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        rules = sorted({f.rule for f in findings})
+        for f in findings[:12]:
+            print(f"[analyze] (b) {entry} {f.rule}: {f.message} at "
+                  f"{f.where}")
+        ok = (bool(findings) if expect == "flagged" else
+              rules == sorted(ANALYZE_OPEN_FULL.get(entry, ())))
+        rows.append((entry, expect, len(findings), rules, len(graph),
+                     launches, ok))
+        now = time.perf_counter()
+        print(f"[analyze] (b) {entry}: {expect}, {len(findings)} "
+              f"finding(s) {rules}, {len(graph)} ops, launches "
+              f"{dict(sorted(launches.items()))}, {now - mark[0]:.1f}s "
+              f"(set-up, recorded run, rules){'' if ok else '  VIOLATION'}",
+              flush=True)
+        mark[0] = now
+
+    def prefilled(eng, prompts):
+        for slot, p in enumerate(prompts):
+            eng.prefill_into_slot(slot, p)
+        return eng
+
+    sc = ServeConfig(batch_size=8, max_len=512)
+    eng = prefilled(Engine(arch, params, sc, device=dev),
+                    serve_prompts(np, arch.vocab_size)[:8])
+    check("transformer/decode_slab", A.run_entry(eng.decode_step), 8,
+          donate=1)
+    eng.reset_slot(0)
+    prompt = serve_prompts(np, arch.vocab_size)[8][:128]
+    cont = np.arange(1, 9, dtype=np.int32)
+    check("transformer/eval_score",
+          A.run_entry(eng.score_in_slot, 0, prompt, cont), 1, seq=8)
+    del eng
+    psc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16)
+    peng = prefilled(PagedEngine(arch, params, psc, device=dev),
+                     shared_prompts(np, arch.vocab_size)[:8])
+    check("transformer/decode_paged", A.run_entry(peng.decode_step), 8,
+          donate=1)
+    del peng
+    rows_v = 8 * (SPEC_K + 1)
+    g = torch.Generator(device=dev).manual_seed(6)
+    hs = torch.randn((rows_v, arch.cfg.d_model), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    ids = torch.randint(0, arch.vocab_size, (rows_v,), generator=g,
+                        device=dev, dtype=torch.int32)
+    check("transformer/spec_verify", A.run_entry(
+        lambda: score_tokens(hs, params["lm_head"], ids,
+                             valid_vocab=arch.vocab_size)), 8,
+          seq=SPEC_K + 1)
+    qsc = ServeConfig(batch_size=8, max_len=512, paged=True, block_size=16,
+                      quantize_cache=True, head_dtype="int8")
+    qeng = prefilled(PagedEngine(arch, params, qsc, device=dev),
+                     shared_prompts(np, arch.vocab_size)[:8])
+    check("transformer/decode_quant", A.run_entry(qeng.decode_step), 8,
+          donate=1)
+    del qeng
+    caches = init_serve_caches(arch, 8, 512, device=dev)
+    cur = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        check("transformer/fixture_dense_sampler", A.run_entry(
+            A.dense_decode(arch), params, caches, cur), 8,
+            expect="flagged")
+    del caches, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 4's training step, fused and canonical (c: the allocator)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    batch = to_device(data.batch(0), dev)
+    mem = {}
+    state = None
+    for entry, impl, expect in (
+            ("transformer/train_exact", "kernel", "clean"),
+            ("transformer/fixture_canonical_loss", "canonical",
+             "flagged")):
+        tc = TrainConfig(peak_lr=3e-3, warmup_steps=1,
+                         total_steps=TRAIN_STEPS, loss_impl=impl,
+                         loss_block_v=min(2048, arch.padded_vocab))
+        init_fn, step_fn = build_train_step(arch, tc)
+        if state is None:
+            state = init_fn(torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        rec, mem[impl] = memory_dict(A.run_entry, step_fn, state, batch,
+                                     device=dev)
+        check(entry, rec, TRAIN_BATCH, seq=TRAIN_SEQ, donate=1,
+              expect=expect)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    viol = [r[0] for r in rows if not r[6]]
+    if viol:
+        raise AssertionError(f"phase 18 (b): violations {viol} (open "
+                             f"findings allowed: {ANALYZE_OPEN_FULL})")
+    print(f"[analyze] (b) qwen3-0.6b full width: {len(rows)} entries in "
+          f"{time.perf_counter() - t1:.1f}s, hot paths clean but for "
+          f"{sum(len(v) for v in ANALYZE_OPEN_FULL.values())} open "
+          f"rule(s), fixtures flagged", flush=True)
+
+    fused, canon = mem["kernel"], mem["canonical"]
+    print(f"[analyze] (c) training step 8 x 1024 on {card}: largest block "
+          f"fused {fused['largest_alloc_bytes'] / 2**20:.1f} MiB "
+          f"(peak +{fused['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{fused['allocs']} allocations), canonical "
+          f"{canon['largest_alloc_bytes'] / 2**20:.1f} MiB (peak "
+          f"+{canon['peak_bytes'] / 2**30:.3f} GiB); bf16 logits "
+          f"{TRAIN_LOGITS_BYTES / 2**20:.1f} MiB", flush=True)
+    if not fused["largest_alloc_bytes"] < TRAIN_LOGITS_BYTES:
+        raise AssertionError("phase 18 (c): the fused step allocated a "
+                             "block of the logits' size")
+    if not canon["largest_alloc_bytes"] >= TRAIN_LOGITS_BYTES:
+        raise AssertionError("phase 18 (c): the canonical step's largest "
+                             "block is below the logits' bytes: the "
+                             "allocator reading misses them")
+    print(f"[analyze] phase 18 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7546,6 +7785,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     tuned = phase_tune(torch, np, card, dev)            # phase 17
+    gc.collect()
+    torch.cuda.empty_cache()
+    analyzed = phase_analyze(torch, np, card, dev)      # phase 18
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -7658,8 +7900,9 @@ def main():
         if "event_ms" in row:
             entry["event_ms"] = row["event_ms"]
         record["kernels"].append(entry)
-    for entry in record["kernels"]:    # phase 17's main paths, by counter
-        entry["launches"] += tuned.get(entry["name"], 0)
+    for entry in record["kernels"]:    # phases 17 and 18, by counter
+        entry["launches"] += (tuned.get(entry["name"], 0)
+                              + analyzed.get(entry["name"], 0))
     missing = [k["name"] for k in record["kernels"] if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: "

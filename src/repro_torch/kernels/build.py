@@ -8,7 +8,11 @@ is built when a module is imported: the first launch (or `build_all`)
 compiles.
 
 Every wrapper that launches a kernel owns a `LaunchCounter`; a run reads
-the counters to show that its main path went through the kernels.
+the counters to show that its main path went through the kernels.  Each
+kernel entry point also runs its launch (and, on CPU tensors, its plain
+version) inside a `kernel_scope`, which the op-graph recorder of
+`repro_torch.analysis` reads to tell a kernel's own buffers and plain
+arithmetic from the ops around it.
 """
 
 from __future__ import annotations
@@ -72,6 +76,35 @@ def counter(name: str) -> LaunchCounter:
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+# the active op-graph recorder (`repro_torch.analysis.lint.ir.record`),
+# if any: one a process, not a thread, because autograd runs a CUDA
+# backward (the fused-CE gradients) on its own device thread
+_recorder = None
+
+
+class kernel_scope:
+    """``with kernel_scope(name):`` around one kernel's launch, or its
+    plain version: the ops inside belong to kernel `name` (its counter's
+    name).  Without an active recorder it costs an attribute test."""
+
+    __slots__ = ("name", "_rec")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rec = None
+
+    def __enter__(self):
+        rec = self._rec = _recorder
+        if rec is not None:
+            rec.enter_kernel(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._rec is not None:
+            self._rec.exit_kernel(self.name)
+        return False
 
 
 _twins_checked = set()

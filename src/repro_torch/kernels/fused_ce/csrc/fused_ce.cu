@@ -1089,8 +1089,10 @@ int fused_ce_dh_launch(const void* h, const void* w, const void* y,
                        float eps, void* stream) {
   const auto launch = skip ? launch_grad_any<false, true>
                            : launch_grad_any<false, false>;
-  return launch(h, w, y, lse, gamma, pc, skip, dh, n, d, v_orig, valid,
-                col_offset, has_cap, cap, eps, stream);
+  const int err = launch(h, w, y, lse, gamma, pc, skip, dh, n, d, v_orig,
+                         valid, col_offset, has_cap, cap, eps, stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
 }
 
 // dW (v_orig, d) f32 from h, W and the row statistics; skip as for dH
@@ -1102,8 +1104,10 @@ int fused_ce_dw_launch(const void* h, const void* w, const void* y,
                        float eps, void* stream) {
   const auto launch = skip ? launch_grad_any<true, true>
                            : launch_grad_any<true, false>;
-  return launch(h, w, y, lse, gamma, pc, skip, dw, n, d, v_orig, valid,
-                col_offset, has_cap, cap, eps, stream);
+  const int err = launch(h, w, y, lse, gamma, pc, skip, dw, n, d, v_orig,
+                         valid, col_offset, has_cap, cap, eps, stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
 }
 
 // *count = cudaOccupancyMaxActiveClusters of the exact backward kernel

@@ -190,10 +190,11 @@ def fwd_stats(
                          "on one")
     valid = _valid(cfg, w.shape[0], total_valid)
     if h.device.type == "cpu":
-        return ref_stats(h, w, y, cfg, col_offset=col_offset,
-                         total_valid=valid,
-                         return_tile_stats=return_tile_stats,
-                         w_scale=w_scale)
+        with build.kernel_scope("fused_ce_fwd"):
+            return ref_stats(h, w, y, cfg, col_offset=col_offset,
+                             total_valid=valid,
+                             return_tile_stats=return_tile_stats,
+                             w_scale=w_scale)
     y = y.to(torch.int32).contiguous()
     quantized = w_scale is not None
     _check_cuda(h, w, y, quantized=quantized)
@@ -212,26 +213,27 @@ def fwd_stats(
     own = choose_ce_plan(n, v, d)
     build.check_plan_twin(lib, "fused_ce_fwd_plan", (n, v), own)
     plan = plan or own
-    dev = h.device
-    part = torch.empty((n, plan.v_splits, 4), dtype=torch.float32,
-                       device=dev)
-    lse, ztgt, zsum = (torch.empty((n,), dtype=torch.float32, device=dev)
-                       for _ in range(3))
-    # every entry is written by the one forward block that owns it
-    tmax = (torch.empty(ce_tile_grid(n, v), dtype=torch.float32, device=dev)
-            if return_tile_stats else None)
-    has_cap, cap = _cap(cfg)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_ce_fwd_launch(
-            h.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-            lse.data_ptr(), ztgt.data_ptr(), zsum.data_ptr(), n, d, v,
-            int(valid), int(col_offset), plan.v_splits, has_cap, cap,
-            int(cfg.ignore_index), tmax.data_ptr() if return_tile_stats
-            else None, w_scale.data_ptr() if quantized else None, kind,
-            stream)
-    _raise_on(err, "fused_ce forward", lib)
-    FWD_LAUNCHES.inc()
+    with build.kernel_scope("fused_ce_fwd"):
+        dev = h.device
+        part = torch.empty((n, plan.v_splits, 4), dtype=torch.float32,
+                           device=dev)
+        lse, ztgt, zsum = (torch.empty((n,), dtype=torch.float32, device=dev)
+                           for _ in range(3))
+        # every entry is written by the one forward block that owns it
+        tmax = (torch.empty(ce_tile_grid(n, v), dtype=torch.float32,
+                            device=dev) if return_tile_stats else None)
+        has_cap, cap = _cap(cfg)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fused_ce_fwd_launch(
+                h.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), ztgt.data_ptr(), zsum.data_ptr(), n, d, v,
+                int(valid), int(col_offset), plan.v_splits, has_cap, cap,
+                int(cfg.ignore_index), tmax.data_ptr() if return_tile_stats
+                else None, w_scale.data_ptr() if quantized else None, kind,
+                stream)
+        _raise_on(err, "fused_ce forward", lib)
+        FWD_LAUNCHES.inc()
     if return_tile_stats:
         return lse, ztgt, zsum, tmax
     return lse, ztgt, zsum
@@ -248,10 +250,13 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     valid = _valid(cfg, w.shape[0], total_valid)
     if skip_mask is not None:
         _check_mask(skip_mask, h.shape[0], w.shape[0])
+    name = f"fused_ce_{which}" + ("" if skip_mask is None else "_filtered")
     if h.device.type == "cpu":
         ref = ref_dh if which == "dh" else ref_dw
-        return ref(h, w, y, lse, gamma, p_coeff, cfg, col_offset=col_offset,
-                   total_valid=valid, skip_mask=skip_mask)
+        with build.kernel_scope(name):
+            return ref(h, w, y, lse, gamma, p_coeff, cfg,
+                       col_offset=col_offset, total_valid=valid,
+                       skip_mask=skip_mask)
     y = y.to(torch.int32).contiguous()
     lse, gamma, p_coeff = (t.contiguous() for t in (lse, gamma, p_coeff))
     _check_cuda(h, w, y, lse, gamma, p_coeff)
@@ -261,9 +266,10 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     lib = _lib()
     filtered = skip_mask is not None
     if not filtered:
-        out = _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff, None,
-                           cfg, valid, col_offset)
-        (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
+        with build.kernel_scope(name):
+            out = _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff,
+                               None, cfg, valid, col_offset)
+            (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
         return out
     if skip_mask.device != h.device:
         raise ValueError(f"skip_mask lies on {skip_mask.device}, h on "
@@ -272,9 +278,10 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
     out = None
     for part in filtered_parts(which, h, w, y, lse, gamma, p_coeff, skip,
                                col_offset, lib.fused_ce_max_filtered_tiles()):
-        got = _launch_grad(lib, which, *part[:7], cfg, valid, part[7])
-        (DH_FILTERED_LAUNCHES if which == "dh"
-         else DW_FILTERED_LAUNCHES).inc()
+        with build.kernel_scope(name):
+            got = _launch_grad(lib, which, *part[:7], cfg, valid, part[7])
+            (DH_FILTERED_LAUNCHES if which == "dh"
+             else DW_FILTERED_LAUNCHES).inc()
         out = got if out is None else out.add_(got)
     return out
 

@@ -184,8 +184,10 @@ def paged_attention(
                              f"{pages_per_step}, tile_keys {tile_keys}): "
                              f"{why}")
     if q.device.type == "cpu":
-        return paged_attention_ref(q, kp, vp, table, lens, softcap=softcap,
-                                   kp_scale=kp_scale, vp_scale=vp_scale)
+        with build.kernel_scope("paged_attn"):
+            return paged_attention_ref(q, kp, vp, table, lens,
+                                       softcap=softcap, kp_scale=kp_scale,
+                                       vp_scale=vp_scale)
     _check_cuda_args(q, kp, vp, table, lens, kp_scale, vp_scale)
     n_pool = kp.shape[0]
     plan = paged_plan(b, nkv, nb, bs, hd, rows, quant, pps, kt)
@@ -197,25 +199,26 @@ def paged_attention(
     build.check_plan_twin(lib, "paged_attn_plan",
                           (b, nkv, nb, bs, hd, rows, int(quant), pps, kt),
                           plan)
-    dev = q.device
-    out = torch.empty_like(q)
-    part = (torch.empty((b * nkv * plan.splits * rows * (hd + 2),),
-                        dtype=torch.float32, device=dev)
-            if plan.splits > 1 else None)
-    counts = _split_counts(dev, b * nkv)
-    with torch.cuda.device(dev):          # a no-op on the current device
-        err = lib.paged_attn_launch(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-            kp_scale.data_ptr() if quant else None,
-            vp_scale.data_ptr() if quant else None, table.data_ptr(),
-            lens.data_ptr(), out.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            counts.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs, nb,
-            1.0 / math.sqrt(hd), int(softcap is not None),
-            float(softcap or 0.0), pps, kt,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("paged_attn launch failed: "
-                           + lib.paged_attn_error_string(err).decode())
-    LAUNCHES.inc()
+    with build.kernel_scope("paged_attn"):
+        dev = q.device
+        out = torch.empty_like(q)
+        part = (torch.empty((b * nkv * plan.splits * rows * (hd + 2),),
+                            dtype=torch.float32, device=dev)
+                if plan.splits > 1 else None)
+        counts = _split_counts(dev, b * nkv)
+        with torch.cuda.device(dev):          # a no-op on the current device
+            err = lib.paged_attn_launch(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                kp_scale.data_ptr() if quant else None,
+                vp_scale.data_ptr() if quant else None, table.data_ptr(),
+                lens.data_ptr(), out.data_ptr(),
+                part.data_ptr() if part is not None else None,
+                counts.data_ptr(), b, tq, nq, nkv, hd, n_pool, bs, nb,
+                1.0 / math.sqrt(hd), int(softcap is not None),
+                float(softcap or 0.0), pps, kt,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError("paged_attn launch failed: "
+                               + lib.paged_attn_error_string(err).decode())
+        LAUNCHES.inc()
     return out

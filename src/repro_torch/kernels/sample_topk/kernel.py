@@ -253,11 +253,14 @@ def topk_scores(
                    lse=return_lse, scaled=w_scale is not None,
                    w_bytes=min(w.element_size(), 2))
     if h.device.type == "cpu":
-        return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
-                               logit_softcap=logit_softcap,
-                               col_offset=col_offset, w_scale=w_scale,
-                               allowed_mask=allowed_mask,
-                               return_lse=return_lse)
+        rows = plan is not None and plan.block_rows == TOPK_ROWS
+        with build.kernel_scope("sample_topk_rows" if rows
+                                else "sample_topk"):
+            return topk_scores_ref(h, w, k, valid_vocab=valid_vocab,
+                                   logit_softcap=logit_softcap,
+                                   col_offset=col_offset, w_scale=w_scale,
+                                   allowed_mask=allowed_mask,
+                                   return_lse=return_lse)
     if not h.is_cuda:
         raise ValueError(f"unsupported device {h.device}")
     if plan is None:
@@ -303,44 +306,47 @@ def _decode(lib, h, w, k, plan, valid, col_offset, logit_softcap, mask=None,
     sp = topk_stream_plan(n, v, k, wb, rows_max, per)
     build.check_plan_twin(lib, "sample_topk_plan",
                           (n, v, k, wb, rows_max, per), sp)
-    big = topk_big(v, k)
-    dev = h.device
-    if big:
-        _, kk, in_smem = topk_big_lists(n, v, k, wb, per)
-        build.check_plan_twin(lib, "sample_topk_big_lists",
-                              (n, v, k, wb, rows_max, per),
-                              BigLists(kk, int(in_smem)))
-        pk, pk2 = (torch.empty((n, sp.slices, kk), dtype=torch.int64,
-                               device=dev) for _ in range(2))
-    else:
-        pk = torch.empty((n, sp.slices, k), dtype=torch.int64, device=dev)
-    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((n, k), dtype=torch.int32, device=dev)
-    pl = lse = None
-    if return_lse:
-        pl = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
-        lse = torch.empty((n,), dtype=torch.float32, device=dev)
-    args = (vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
-            int(col_offset), k, int(logit_softcap is not None),
-            float(logit_softcap or 0.0),
-            None if mask is None else mask.data_ptr(),
-            None if pl is None else pl.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            None if w_scale is None else w_scale.data_ptr(),
-            w_kind(w.dtype), rows_max, per)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.kernel_scope("sample_topk"):
+        big = topk_big(v, k)
+        dev = h.device
         if big:
-            err = lib.sample_topk_big_launch(
-                h.data_ptr(), w.data_ptr(), pk.data_ptr(), pk2.data_ptr(),
-                *args, stream)
+            _, kk, in_smem = topk_big_lists(n, v, k, wb, per)
+            build.check_plan_twin(lib, "sample_topk_big_lists",
+                                  (n, v, k, wb, rows_max, per),
+                                  BigLists(kk, int(in_smem)))
+            pk, pk2 = (torch.empty((n, sp.slices, kk), dtype=torch.int64,
+                                   device=dev) for _ in range(2))
         else:
-            err = lib.sample_topk_launch(h.data_ptr(), w.data_ptr(),
-                                         pk.data_ptr(), *args, stream)
-    if err:
-        raise RuntimeError("sample_topk launch failed: "
-                           + lib.sample_topk_error_string(err).decode())
-    LAUNCHES.inc()
+            pk = torch.empty((n, sp.slices, k), dtype=torch.int64,
+                             device=dev)
+        vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+        pl = lse = None
+        if return_lse:
+            pl = torch.empty((n, sp.slices, 2), dtype=torch.float32,
+                             device=dev)
+            lse = torch.empty((n,), dtype=torch.float32, device=dev)
+        args = (vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
+                int(col_offset), k, int(logit_softcap is not None),
+                float(logit_softcap or 0.0),
+                None if mask is None else mask.data_ptr(),
+                None if pl is None else pl.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                None if w_scale is None else w_scale.data_ptr(),
+                w_kind(w.dtype), rows_max, per)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if big:
+                err = lib.sample_topk_big_launch(
+                    h.data_ptr(), w.data_ptr(), pk.data_ptr(),
+                    pk2.data_ptr(), *args, stream)
+            else:
+                err = lib.sample_topk_launch(h.data_ptr(), w.data_ptr(),
+                                             pk.data_ptr(), *args, stream)
+        if err:
+            raise RuntimeError("sample_topk launch failed: "
+                               + lib.sample_topk_error_string(err).decode())
+        LAUNCHES.inc()
     if return_lse:
         return vals, ids, lse
     return vals, ids
@@ -358,21 +364,22 @@ def _rows_top1(lib, h, w, valid, col_offset, logit_softcap):
     """The many-row top-1 kernel: (values (B, 1) f32, ids (B, 1) i32)."""
     n, d = h.shape
     v = w.shape[0]
-    n_split = lib.sample_topk_rows_splits(n, v)
-    dev = h.device
-    pvals = torch.empty((n, n_split), dtype=torch.float32, device=dev)
-    pids = torch.empty((n, n_split), dtype=torch.int32, device=dev)
-    vals = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    ids = torch.empty((n, 1), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sample_topk_rows_launch(
-            h.data_ptr(), w.data_ptr(), pvals.data_ptr(), pids.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(), n, d, v, int(valid),
-            int(col_offset), int(logit_softcap is not None),
-            float(logit_softcap or 0.0), stream)
-    if err:
-        raise RuntimeError("sample_topk (many rows) launch failed: "
-                           + lib.sample_topk_error_string(err).decode())
-    ROWS_LAUNCHES.inc()
+    with build.kernel_scope("sample_topk_rows"):
+        n_split = lib.sample_topk_rows_splits(n, v)
+        dev = h.device
+        pvals = torch.empty((n, n_split), dtype=torch.float32, device=dev)
+        pids = torch.empty((n, n_split), dtype=torch.int32, device=dev)
+        vals = torch.empty((n, 1), dtype=torch.float32, device=dev)
+        ids = torch.empty((n, 1), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sample_topk_rows_launch(
+                h.data_ptr(), w.data_ptr(), pvals.data_ptr(),
+                pids.data_ptr(), vals.data_ptr(), ids.data_ptr(), n, d, v,
+                int(valid), int(col_offset), int(logit_softcap is not None),
+                float(logit_softcap or 0.0), stream)
+        if err:
+            raise RuntimeError("sample_topk (many rows) launch failed: "
+                               + lib.sample_topk_error_string(err).decode())
+        ROWS_LAUNCHES.inc()
     return vals, ids

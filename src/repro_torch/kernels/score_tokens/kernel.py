@@ -147,10 +147,11 @@ def score_stats(
         check_plan(plan, h.shape[0], w.shape[0], ids.shape[1],
                    min(w.element_size(), 2))
     if h.device.type == "cpu":
-        return score_stats_ref(h, w, ids, valid_vocab=valid_vocab,
-                               logit_softcap=logit_softcap,
-                               temperature=temperature,
-                               col_offset=col_offset, w_scale=w_scale)
+        with build.kernel_scope("score_tokens"):
+            return score_stats_ref(h, w, ids, valid_vocab=valid_vocab,
+                                   logit_softcap=logit_softcap,
+                                   temperature=temperature,
+                                   col_offset=col_offset, w_scale=w_scale)
     _check_cuda_args(h, w, ids)
     if w_scale is not None:
         check_w_scale(w_scale, w, h)
@@ -164,21 +165,22 @@ def score_stats(
     sp = score_plan(n, v, n_cand, wb, rows_max, per)
     build.check_plan_twin(lib, "score_tokens_plan",
                           (n, v, n_cand, wb, rows_max, per), sp)
-    dev = h.device
-    part = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
-    lse = torch.empty((n,), dtype=torch.float32, device=dev)
-    zc = torch.empty((n, n_cand), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):          # a no-op on the current device
-        err = lib.score_tokens_launch(
-            h.data_ptr(), w.data_ptr(), ids.data_ptr(), part.data_ptr(),
-            lse.data_ptr(), zc.data_ptr(), n, d, v, int(valid),
-            int(col_offset), n_cand, int(logit_softcap is not None),
-            float(logit_softcap or 0.0), inv_temperature(temperature),
-            None if w_scale is None else w_scale.data_ptr(),
-            w_kind(w.dtype), rows_max, per,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("score_tokens launch failed: "
-                           + lib.score_tokens_error_string(err).decode())
-    LAUNCHES.inc()
+    with build.kernel_scope("score_tokens"):
+        dev = h.device
+        part = torch.empty((n, sp.slices, 2), dtype=torch.float32, device=dev)
+        lse = torch.empty((n,), dtype=torch.float32, device=dev)
+        zc = torch.empty((n, n_cand), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):          # a no-op on the current device
+            err = lib.score_tokens_launch(
+                h.data_ptr(), w.data_ptr(), ids.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), zc.data_ptr(), n, d, v, int(valid),
+                int(col_offset), n_cand, int(logit_softcap is not None),
+                float(logit_softcap or 0.0), inv_temperature(temperature),
+                None if w_scale is None else w_scale.data_ptr(),
+                w_kind(w.dtype), rows_max, per,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError("score_tokens launch failed: "
+                               + lib.score_tokens_error_string(err).decode())
+        LAUNCHES.inc()
     return lse, zc

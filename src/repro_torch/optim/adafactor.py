@@ -126,10 +126,12 @@ def _upd(g, slot, p, lr, beta2, cfg: AdafactorConfig):
         m = cfg.momentum * slot["m"].float() + (1 - cfg.momentum) * u
         slot["m"].copy_(m)
         u = m
-    p32 = p.float()
     if cfg.weight_decay:
-        u = u + cfg.weight_decay * p32
-    p.copy_(p32 - lr * u)
+        # p widens inside the product (an f32 operand), as in the sub
+        # below: no full-size f32 copy of a bf16 leaf
+        u = u + p * torch.full((1,), cfg.weight_decay, dtype=torch.float32,
+                               device=p.device)
+    p.copy_(torch.sub(p, lr * u))
 
 
 def _scans(shape, slot, cfg: AdafactorConfig) -> bool:

@@ -2,8 +2,12 @@
 moments, bf16-param friendly.
 
 Params are updated IN PLACE (the JAX package returns new arrays): each
-leaf is widened to f32, stepped and cast back to its own dtype, so bf16
-params keep no master copy, as in the reference.  The moments are flat
+leaf is stepped in f32 and cast back to its own dtype, so bf16 params
+keep no master copy, as in the reference.  A bf16 leaf is widened inside
+the products that read it (type promotion against an f32 operand), never
+copied whole to f32: the same values as the reference's
+``p.astype(f32)``, without a full-size f32 copy of the leaf (the
+``dtype-policy`` rule of `repro_torch.analysis`).  The moments are flat
 lists in `repro_torch.optim.tree.leaves` order.
 
 Weight decay mask: the JAX default decays every leaf of rank >= 2 of its
@@ -68,16 +72,19 @@ def update(grads: Sequence[torch.Tensor], state, params: Sequence[
     bc2 = float(_f(1.0) - b2 ** c)
     om_b1, om_b2 = float(_f(1.0) - b1), float(_f(1.0) - b2)
     eps2 = cfg.eps * cfg.eps
+    wd = None
     for g, mu, nu, p, decay in zip(grads, state["mu"], state["nu"], params,
                                    state["mask"]):
         g32 = g.float()
         mu32 = float(b1) * mu.float() + om_b1 * g32
         nu.mul_(float(b2)).add_(om_b2 * g32 * g32)
         step = (mu32 / bc1) * torch.rsqrt(nu / bc2 + eps2)
-        p32 = p.float()
         if cfg.weight_decay and decay:
-            step = step + cfg.weight_decay * p32
-        p.copy_(p32 - lr * step)
+            if wd is None or wd.device != p.device:
+                wd = torch.full((1,), cfg.weight_decay, dtype=torch.float32,
+                                device=p.device)
+            step = step + p * wd
+        p.copy_(torch.sub(p, lr * step))
         mu.copy_(mu32)
     state["count"] = count
     return state

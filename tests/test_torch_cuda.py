@@ -2281,3 +2281,35 @@ def test_refused_plans_raise_and_never_launch(cuda):
         assert ce_lib().fused_ce_fwd_launch(
             None, None, None, None, None, None, None, 8, 256, 20_000,
             20_000, 0, splits, 0, 0.0, -100, None, None, 0, None) == bad
+
+
+@pytest.mark.cuda
+def test_recorded_launches_are_scoped(cuda):
+    """The op-graph recorder on CUDA tensors: each kernel launch lies in
+    its kernel's scope (the scope count equals the launch count), the
+    kernel's buffers are recorded inside it, and the step stays
+    logits-free."""
+    from repro_torch.analysis.lint import record
+    from repro_torch.analysis.trace import assert_logits_free
+    from repro_torch.kernels.sample_topk import LAUNCHES, cuda_topk
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn((8, 1024), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((4096, 1024), generator=gen, device=cuda).bfloat16()
+    before = LAUNCHES.count
+    (vals, ids), g, _ = record(cuda_topk, h, w, 4)
+    assert LAUNCHES.count - before == g.scopes["sample_topk"] == 1
+    assert [i for i in g if i.in_kernel and i.kernel == "sample_topk"]
+    assert_logits_free(g, 8, (4096,))
+    assert vals.shape == (8, 4) and ids.shape == (8, 4)
+
+
+@pytest.mark.cuda
+def test_memory_dict_reads_the_largest_block(cuda):
+    from repro_torch.analysis.trace import memory_dict
+
+    def make():
+        return torch.empty((64, 1 << 20), dtype=torch.float32, device=cuda)
+
+    out, mem = memory_dict(make, device=cuda)
+    assert mem["largest_alloc_bytes"] >= out.numel() * 4
+    assert mem["peak_bytes"] >= out.numel() * 4 and mem["allocs"] >= 1

@@ -74,3 +74,23 @@ def test_serve_cli_on_cpu():
             if ln.startswith("[serve] arch=")]
     assert line and "served 2 requests (8 tokens)" in line[0], out.stdout
     assert "on cpu" in line[0]
+
+
+def test_analysis_is_covered():
+    """The static analysis (`analysis/`, `launch/analyze.py`) is among
+    the modules checked above, and its CLI starts without JAX."""
+    mods = set(_modules())
+    assert {"repro_torch.analysis", "repro_torch.analysis.lint",
+            "repro_torch.analysis.lint.ir", "repro_torch.analysis.lint.rules",
+            "repro_torch.analysis.lint.torchfn",
+            "repro_torch.analysis.lint.kernel_source",
+            "repro_torch.analysis.trace", "repro_torch.analysis.roofline",
+            "repro_torch.launch.analyze"} <= mods
+    code = ("import sys\n"
+            "from repro_torch.launch import analyze\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
