@@ -410,6 +410,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      two training steps (`analysis.trace.memory_dict`): the fused
      step's largest block below the bf16 logits' 2.49 GB, the canonical
      step's at or above it.  Its launches count toward the record.
+ 19. the paper's distributed fused loss (``[dist]`` lines) on a (data 2,
+     model 2) world of 4 ranks sharing the one card over gloo (NCCL
+     takes one rank a card): (a) the loss alone at qwen3-0.6b's head
+     (8192 rows, V 152064, d 1024, bf16), '2d' and 'sp_gather', exact and
+     filtered at eps 1.0, each rank's loss, dH rows and dW vocab slice
+     held to one process's `kernel_loss` over the whole head
+     (`DIST_LOSS_RTOL`, `DIST_GRAD_RTOL`, `DIST_GRAD_FRO`), each rank's
+     forward, dH and dW launched once at its own ``col_offset`` (0 and
+     76032), its collective bytes and calls by kind printed; (c) rank
+     0's loss step recorded: no finding under any rule
+     (logits-materialization and vocab-collectives among them) and
+     `collective_stats` equal to the collectives' counters; (d)
+     `compressed_psum_tree` and a (2, 2) -> (4, 1) `reshard` on the
+     card's tensors bit for bit the same calls on CPU tensors; (b) the
+     train CLI at full width and depth, 3 AdamW steps at 8 x 1024, one
+     rank with ``--loss-impl kernel``, then ``--devices 2,2`` with
+     ``sharded`` and ``sharded_sp``, joining the same world (as under
+     torchrun; (e) takes the CLI's own spawn): step 0's and the last
+     step's loss within `DIST_STEP0_RTOL` / `DIST_LAST_RTOL` of the one
+     rank's, every rank's grad norm at every step within
+     `DIST_GNORM_RTOL` of the one rank's, the params after the steps
+     (the lm_head on the rank's vocab rows, the body's leaves together)
+     within `DIST_PARAM_RTOL` of the one rank's update and each body leaf
+     within `DIST_PARAM_LEAF`, every rank's fused-CE
+     kernels launched 3 times at its own ``col_offset``, its peak memory
+     printed; (e) ``--devices 1,1``,
+     which runs on nccl, one step.  The launches of (b) and (e) count
+     toward the record.
 
 Phase 2 also takes the new cases past the kernels' old limits: the
 top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
@@ -7547,6 +7575,10 @@ def phase_analyze(torch, np, card, dev):
             bad.append(f"{r['entry']} ({r['expect']}): "
                        + "; ".join(f"{f['rule']}: {f['message']} at "
                                    f"{f['where']}" for f in r["findings"]))
+    # ROADMAP §C 2, repaired: the xlstm decode step donates its state
+    xl = [r for r in report["entries"] if r["entry"] == "xlstm/decode_slab"]
+    if not xl or xl[0]["findings"]:
+        bad.append(f"xlstm/decode_slab not clean: {xl}")
     if t["violations"] or t["suppressed"] or t["entries"] != 36 or bad:
         raise AssertionError("phase 18 (a): " + "\n".join(bad))
     n_open = sum(len(r["open"]) for r in report["entries"])
@@ -7698,6 +7730,401 @@ def phase_analyze(torch, np, card, dev):
     return total
 
 
+# phase 19: the paper's distributed fused loss on a (data 2, model 2)
+# world of 4 ranks that share the one card over gloo.  (a) compares each
+# rank's loss, dH rows and dW vocab slice with one process's kernel loss
+# over the whole head on the same inputs: the loss is f32 and moves only
+# by the order of the lse combine (rtol 1e-5); dH and dW are bf16, each
+# one rounding of an f32 sum taken in another order (two partial panels
+# summed across ranks against one kernel over the whole vocab or every
+# row), so an entry may land one bf16 step away: 2^-7 relative (one ulp
+# at the bottom of a binade).  An entry whose sum cancels to near zero
+# has no relative bound (the f32 orders differ by ~1e-7 of the terms'
+# magnitude, not the result's), so each entry may also be off by 2^-12
+# of its block's largest entry; and a relative Frobenius error of 1e-3.
+DIST_MESH = (2, 2)
+DIST_VOCAB, DIST_VALID, DIST_D = 152064, 151936, 1024
+DIST_EPS = 1.0          # far above every target-free 64 x 64 tile's bound
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_RTOL, DIST_GRAD_ATOL_MAX, DIST_GRAD_FRO = 2.0 ** -7, 2.0 ** -12, 1e-3
+# (b) the train CLI on the mesh against one rank on the same seed and
+# batches.  Step 0 has lr 0 (one warmup step), so the loss moves only at
+# the last step, by 3.7e-4 of itself: the gates that see the gradient
+# sync are the grad norm of every step (summed grads and the global norm
+# over one vocab-sharded head; a rank that summed nothing over data
+# reads its half batch's norm, 0.2-0.5 off in a mutation check on the
+# CPU) and the params after the steps, their distance from the one
+# rank's taken relative to the one rank's own update (1 where a rank's
+# update did nothing, above 1 for unsynced leaves in that check): the
+# body's leaves together and the lm_head's rows within DIST_PARAM_RTOL,
+# each body leaf within DIST_PARAM_LEAF.  Step 0's loss differs only by
+# the body's bf16 GEMMs at half the rows and the lse combine (the H100
+# read 0); the bf16 grads summed across data ranks in another order move
+# the last loss by a few bf16 roundings (read 1.4e-5, against 3.7e-4 for
+# one update) and the grad norms by 2e-5 before the first update, 1.2e-3
+# after it; a norm scale near 1, where one bf16 step (2^-8) is as large
+# as the update, reads up to 0.17 where the two updates round apart
+# (PERF.md has the readings)
+DIST_STEP0_RTOL, DIST_LAST_RTOL = 1e-4, 1e-4
+DIST_GNORM_RTOL, DIST_PARAM_RTOL, DIST_PARAM_LEAF = 1e-2, 0.05, 0.5
+DIST_STEPS = 3
+
+
+def _grad_errs(torch, got, want):
+    """(max abs error, relative Frobenius error, whether every entry is
+    within DIST_GRAD_RTOL of its reference or DIST_GRAD_ATOL_MAX of the
+    block's largest entry) of a bf16 gradient block."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    fro = float(diff.norm() / w.norm().clamp_min(1e-30))
+    atol = DIST_GRAD_ATOL_MAX * float(w.abs().max())
+    ok = bool((diff <= DIST_GRAD_RTOL * w.abs() + atol).all())
+    return float(diff.max()), fro, ok
+
+
+def _param_errs(torch, params, ref, init, rows):
+    """{leaf: (|p - ref|, |ref - init|)} (Frobenius, f32) of this rank's
+    params after (b)'s steps against one rank's (`ref`, by leaf name) and
+    that rank's update from the shared init; the lm_head on this rank's
+    vocab `rows`."""
+    from repro_torch.optim.tree import leaves_with_paths
+    start = dict(leaves_with_paths(init))
+    out = {}
+    for path, p in leaves_with_paths(params):
+        name = "/".join(map(str, path))
+        r = ref[name].to(p.device).float()
+        i0 = start[path].float()
+        if name == "lm_head":
+            r, i0 = r[rows], i0[rows]
+        out[name] = (float((p.detach().float() - r).norm()),
+                     float((r - i0).norm()))
+    return out
+
+
+def _param_ratios(errs):
+    """(the lm_head rows', the body's together, {body leaf: its own})
+    |p - one rank's| / one rank's update, from `_param_errs`."""
+    def ratio(err, upd):
+        return err / upd if upd else (0.0 if err == 0 else float("inf"))
+    body = {k: e for k, e in errs.items() if k != "lm_head"}
+    whole = ratio(sum(e * e for e, _ in body.values()) ** 0.5,
+                  sum(u * u for _, u in body.values()) ** 0.5)
+    return (ratio(*errs["lm_head"]), whole,
+            {k: ratio(*e) for k, e in body.items()})
+
+
+def dist_rank(rank, train_argv, ref_path):
+    """Phase 19 (a) to (d) on one rank of the 4-rank world on the card;
+    `ref_path` holds the one rank's params after (b)'s steps."""
+    import gc as gc_
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis.lint import RuleContext, run_rules
+    from repro_torch.analysis.lint.ir import record
+    from repro_torch.analysis.trace import collective_stats
+    from repro_torch.core.sharded import make_sharded_loss
+    from repro_torch.core.types import LossConfig
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compressed_psum_tree, reshard
+    from repro_torch.distributed.elastic import shard_tree
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce.ops import kernel_loss
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import get_arch, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, v, valid, d = TRAIN_BATCH * TRAIN_SEQ, DIST_VOCAB, DIST_VALID, DIST_D
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = M.make_local_mesh(*DIST_MESH, device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    h = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((v, d), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    y = torch.randint(0, valid, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    y[::10] = -100
+    vl = v // mesh.shape["model"]
+    off = mesh.axis_index("model") * vl
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "cases": {}}
+    for name, layout, eps in (("2d", "2d", 0.0),
+                              ("sp_gather", "sp_gather", 0.0),
+                              ("2d_filtered", "2d", DIST_EPS),
+                              ("sp_filtered", "sp_gather", DIST_EPS)):
+        cfg = LossConfig(valid_vocab=valid, grad_filter_eps=eps)
+        hr = h.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        ref = kernel_loss(hr, wr, y, cfg)          # the whole head here
+        ref.backward()
+        axes = ("data", "model") if layout == "sp_gather" else ("data",)
+        per = n // mesh.axis_size(axes)
+        r0 = mesh.axis_index(axes) * per
+        hl = h[r0:r0 + per].clone().requires_grad_(True)
+        wl = w[off:off + vl].clone().requires_grad_(True)
+        f = make_sharded_loss(mesh, cfg, rows_axes=("data",), layout=layout,
+                              impl="kernel")
+        torch.cuda.synchronize(dev)
+        C.STATS.reset()
+        build.reset_counters()
+        t0 = time.perf_counter()
+        loss = f(hl, wl, y[r0:r0 + per])
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        dh = _grad_errs(torch, hl.grad, hr.grad[r0:r0 + per])
+        dw = _grad_errs(torch, wl.grad, wr.grad[off:off + vl])
+        out["cases"][name] = {
+            "loss": float(loss), "ref": float(ref), "dh": dh, "dw": dw,
+            "ms": dt * 1e3, "rows": per, "offset": off,
+            "skipped_dw_rows": int((wl.grad == 0).all(dim=1).sum()),
+            "launches": {k: dict(c.by_offset)
+                         for k, c in build.COUNTERS.items() if c.count},
+            "collectives": C.STATS.to_dict()}
+        del hr, wr, ref, hl, wl, loss
+
+    # (c) one rank's loss step recorded (every rank joins its collectives)
+    cfg = LossConfig(valid_vocab=valid)
+    f = make_sharded_loss(mesh, cfg, rows_axes=("data",), layout="2d",
+                          impl="kernel")
+    per = n // mesh.shape["data"]
+    r0 = mesh.axis_index("data") * per
+    hl = h[r0:r0 + per].clone().requires_grad_(True)
+    wl = w[off:off + vl].clone().requires_grad_(True)
+
+    def step():
+        loss = f(hl, wl, y[r0:r0 + per])
+        loss.backward()
+        return loss
+
+    C.STATS.reset()
+    if rank == 0:
+        _, graph, fn_graph = record(step)
+        torch.cuda.synchronize(dev)
+        ctx = RuleContext(entry="sharded 2d loss step", graph=graph,
+                          fn_graph=fn_graph, batch=per,
+                          vocabs=(valid, v, vl))
+        findings, _ = run_rules(ctx)
+        out["recorded"] = {
+            "stats": collective_stats(graph).to_dict(),
+            "counted": C.STATS.to_dict(),
+            "findings": [f"{x.rule}: {x.message}" for x in findings]}
+    else:
+        step()
+    del hl, wl, h, w
+
+    # (d) the compressed sum and a (2, 2) -> (4, 1) reshard on the card,
+    # against the same calls on CPU tensors through the same world
+    mesh41 = M.make_local_mesh(4, 1, device=dev)
+    rng = np.random.default_rng(rank)
+    grads = {"w": torch.from_numpy(rng.standard_normal(
+        (4, 4096)).astype(np.float32))}
+    res = {"w": torch.from_numpy((rng.standard_normal(
+        (4, 4096)) * 1e-3).astype(np.float32))}
+    whole = {"w": torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (64, 1024)).astype(np.float32))}
+    a, b = {"w": ("data", "model")}, {"w": ("data",)}
+    got, want = [], []
+    for target, sink in ((dev, got), (torch.device("cpu"), want)):
+        mean, new_res = compressed_psum_tree(
+            {k: t.to(target) for k, t in grads.items()},
+            {k: t.to(target) for k, t in res.items()}, mesh, "data")
+        moved = reshard(shard_tree({"w": whole["w"].to(target)}, a, mesh),
+                        a, mesh, b, mesh41)
+        sink += [mean["w"].cpu(), new_res["w"].cpu(), moved["w"].cpu()]
+    direct = shard_tree(whole, b, mesh41)["w"]
+    out["card_vs_cpu"] = all(torch.equal(x, y) for x, y in zip(got, want)) \
+        and torch.equal(got[2], direct)
+
+    # (b) the train CLI in this world: it joins it, as under torchrun
+    del grads, res, whole, got, want, mean, new_res, moved, direct
+    gc_.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    args = train_cli.parse_args(train_argv)
+    init = init_params(get_arch(args.arch, reduced=args.reduced),
+                       torch.Generator(device=dev).manual_seed(args.seed),
+                       dev)
+    out["train"] = {}
+    for impl in ("sharded", "sharded_sp"):
+        C.STATS.reset()
+        build.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, history = train_cli.main(train_argv + [
+            "--devices", "2,2", "--loss-impl", impl])
+        out["train"][impl] = {
+            "history": history, "s": time.perf_counter() - t0,
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+            "launches": {k: (c.count, dict(c.by_offset))
+                         for k, c in build.COUNTERS.items() if c.count},
+            "collectives": C.STATS.to_dict(),
+            "param_errs": _param_errs(torch, state["params"], ref, init,
+                                      slice(off, off + vl))}
+        del state
+        gc_.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_check_loss(ranks, card):
+    """Phase 19 (a) and (c)'s gates and lines over the ranks' reports."""
+    bad = []
+    for r in ranks:
+        for name, c in r["cases"].items():
+            tag = f"rank {r['rank']} {r['coords']} {name}"
+            rel = abs(c["loss"] - c["ref"]) / abs(c["ref"])
+            if rel > DIST_LOSS_RTOL:
+                bad.append(f"{tag}: loss {c['loss']} vs {c['ref']}")
+            for k in ("dh", "dw"):
+                mx, fro, ok = c[k]
+                if not ok or fro > DIST_GRAD_FRO:
+                    bad.append(f"{tag}: {k} max {mx:.3e} fro {fro:.3e}")
+            sfx = "_filtered" if "filtered" in name else ""
+            off = c["offset"]
+            for k in ("fused_ce_fwd", "fused_ce_dh" + sfx,
+                      "fused_ce_dw" + sfx):
+                if c["launches"].get(k) != {off: 1}:
+                    bad.append(f"{tag}: {k} launches {c['launches']}")
+            st = c["collectives"]
+            print(f"[dist] (a) {tag}: loss {c['loss']:.6f} (one process "
+                  f"{c['ref']:.6f}, rel {rel:.2e}); dH max {c['dh'][0]:.2e} "
+                  f"fro {c['dh'][1]:.2e}, dW max {c['dw'][0]:.2e} fro "
+                  f"{c['dw'][1]:.2e}; {c['rows']} TP-rows x {DIST_VOCAB // 2} "
+                  f"at col_offset {off}, launches {c['launches']}; "
+                  f"{c['skipped_dw_rows']} dW rows all zero; fwd+bwd "
+                  f"{c['ms']:.1f} ms; collectives bytes "
+                  f"{st['bytes_by_kind']} calls {st['count_by_kind']} on "
+                  f"{card}", flush=True)
+    rec = ranks[0]["recorded"]
+    if rec["findings"]:
+        bad.append(f"(c) findings: {rec['findings']}")
+    if rec["stats"]["bytes_by_kind"] != rec["counted"]["bytes_by_kind"] or \
+            rec["stats"]["count_by_kind"] != rec["counted"]["count_by_kind"]:
+        bad.append(f"(c) collective_stats {rec['stats']} != counters "
+                   f"{rec['counted']}")
+    print(f"[dist] (c) rank 0's recorded 2d loss step: no finding under "
+          f"every rule; collective_stats {rec['stats']['bytes_by_kind']} "
+          f"{rec['stats']['count_by_kind']} = the counters", flush=True)
+    if not all(r["card_vs_cpu"] for r in ranks):
+        bad.append("(d) compressed_psum_tree / reshard on the card differ "
+                   "from the CPU tensors' results")
+    print("[dist] (d) compressed_psum_tree over data and a (2, 2) -> (4, 1) "
+          "reshard: the card's tensors give the CPU tensors' results bit "
+          "for bit on every rank", flush=True)
+    if bad:
+        raise AssertionError("phase 19: " + "\n".join(bad))
+
+
+def phase_dist(torch, np, card, dev):
+    """Phase 19: the distributed fused loss and the train CLI's
+    ``--devices`` on the one card (see the module docstring).  Returns
+    the fused-CE launches of (b) and (e), the ranks' main paths."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    argv = ["--arch", "qwen3-0.6b", "--steps", str(DIST_STEPS),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--log-every", "1"]
+    from repro_torch.optim.tree import leaves_with_paths
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, single = train_cli.main(argv + ["--loss-impl", "kernel"])
+    peak1 = torch.cuda.max_memory_allocated(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                      prefix="dist_ref_")
+    ref_path = os.path.join(tmp.name, "params.pt")
+    t1 = time.perf_counter()
+    torch.save({"/".join(map(str, p)): x.detach().cpu()
+                for p, x in leaves_with_paths(state["params"])}, ref_path)
+    saved = time.perf_counter() - t1
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = [m["loss"] for _, m in single]
+    want_gn = [m["grad_norm"] for _, m in single]
+    print(f"[dist] (b) one rank, --loss-impl kernel: losses "
+          f"{[round(x, 6) for x in want]}, grad norms "
+          f"{[round(x, 6) for x in want_gn]} in "
+          f"{time.perf_counter() - t0:.1f}s (its params saved for the ranks "
+          f"in {saved:.1f}s), peak {peak1 / 2**30:.2f} GiB", flush=True)
+
+    t1 = time.perf_counter()
+    try:
+        ranks = M.spawn_world(dist_rank, 4, (argv, ref_path),
+                              device="cuda", join_s=900)
+    finally:
+        tmp.cleanup()
+    print(f"[dist] world {DIST_MESH} of {len(ranks)} ranks, backend "
+          f"{ranks[0]['backend']}: (a)-(d) and (b) in "
+          f"{time.perf_counter() - t1:.1f}s", flush=True)
+    dist_check_loss(ranks, card)
+    launches, bad = {}, []
+    for impl in ("sharded", "sharded_sp"):
+        hist = ranks[0]["train"][impl]["history"]
+        got = [m["loss"] for _, m in hist]
+        rel = [abs(x - y) / abs(y) for x, y in zip(got, want)]
+        if len(got) != DIST_STEPS or rel[0] > DIST_STEP0_RTOL or \
+                rel[-1] > DIST_LAST_RTOL:
+            bad.append(f"(b) {impl}: losses {got} vs one rank {want}")
+        for r in ranks:
+            tr = r["train"][impl]
+            off = r["coords"]["model"] * (DIST_VOCAB // 2)
+            for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+                n, by = tr["launches"].get(k, (0, {}))
+                if by != {off: DIST_STEPS}:
+                    bad.append(f"(b) {impl} rank {r['rank']}: {k} {by}")
+                launches[k] = launches.get(k, 0) + n
+            if [m["loss"] for _, m in tr["history"]] != got:
+                bad.append(f"(b) {impl} rank {r['rank']}: another loss")
+            gn = [m["grad_norm"] for _, m in tr["history"]]
+            gn_rel = [abs(x - y) / y for x, y in zip(gn, want_gn)]
+            if len(gn) != DIST_STEPS or max(gn_rel) > DIST_GNORM_RTOL:
+                bad.append(f"(b) {impl} rank {r['rank']}: grad norms {gn} "
+                           f"vs one rank {want_gn}")
+            head, whole, body = _param_ratios(tr["param_errs"])
+            worst = max(body, key=body.get)
+            if max(head, whole) > DIST_PARAM_RTOL or \
+                    body[worst] > DIST_PARAM_LEAF:
+                bad.append(f"(b) {impl} rank {r['rank']}: params off the "
+                           f"one rank's update: lm_head {head}, body "
+                           f"{whole}, leaf {worst} {body[worst]}")
+            print(f"[dist] (b) {impl} rank {r['rank']} {r['coords']}: grad "
+                  f"norms rel to one rank {[f'{x:.2e}' for x in gn_rel]}; "
+                  f"params after {DIST_STEPS} steps, |p - one rank's| / "
+                  f"one rank's update: lm_head rows {head:.3e}, "
+                  f"{len(body)} body leaves {whole:.3e}, each at most "
+                  f"{body[worst]:.3e} ({worst}); peak "
+                  f"{tr['peak_bytes'] / 2**30:.2f} GiB, "
+                  f"launches {tr['launches']}, collectives a run "
+                  f"{tr['collectives']['bytes_by_kind']} calls "
+                  f"{tr['collectives']['count_by_kind']}", flush=True)
+        print(f"[dist] (b) --devices 2,2 --loss-impl {impl}: losses "
+              f"{[round(x, 6) for x in got]}, rel to one rank "
+              f"{[f'{x:.2e}' for x in rel]}, "
+              f"{ranks[0]['train'][impl]['s']:.1f}s on {card}", flush=True)
+
+    t1 = time.perf_counter()
+    reports, hist = train_cli.main(
+        ["--arch", "qwen3-0.6b", "--steps", "1", "--global-batch",
+         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--devices", "1,1",
+         "--loss-impl", "sharded"])
+    rel = abs(hist[0][1]["loss"] - want[0]) / abs(want[0])
+    if reports[0]["backend"] != "nccl" or rel > DIST_STEP0_RTOL:
+        bad.append(f"(e) backend {reports[0]['backend']}, loss "
+                   f"{hist[0][1]['loss']} vs {want[0]}")
+    for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+        launches[k] = launches.get(k, 0) + reports[0]["launches"].get(
+            k, (0, {}))[0]
+    print(f"[dist] (e) --devices 1,1 on {reports[0]['backend']} (spawned by "
+          f"the CLI): step 0 loss {hist[0][1]['loss']:.6f} (rel {rel:.2e}) "
+          f"in {time.perf_counter() - t1:.1f}s", flush=True)
+    if bad:
+        raise AssertionError("phase 19: " + "\n".join(bad))
+    print(f"[dist] phase 19 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7788,6 +8215,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     analyzed = phase_analyze(torch, np, card, dev)      # phase 18
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = phase_dist(torch, np, card, dev)             # phase 19
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{
@@ -7900,9 +8330,10 @@ def main():
         if "event_ms" in row:
             entry["event_ms"] = row["event_ms"]
         record["kernels"].append(entry)
-    for entry in record["kernels"]:    # phases 17 and 18, by counter
+    for entry in record["kernels"]:    # phases 17, 18 and 19, by counter
         entry["launches"] += (tuned.get(entry["name"], 0)
                               + analyzed.get(entry["name"], 0))
+        entry["launches"] += dist.get(entry["name"], 0)
     missing = [k["name"] for k in record["kernels"] if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: "

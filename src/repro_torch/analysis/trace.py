@@ -6,9 +6,10 @@ the compiled module's ``memory_analysis``).
 The logits and dequant helpers are thin wrappers over the op-graph rules
 (`repro_torch.analysis.lint`): they take the `OpGraph` of `lint.record`
 where the reference takes HLO text, and return the offending
-instructions' lines in program order (empty == clean).  The reference's
-``collective_stats`` waits for the distributed port (ROADMAP A9) and its
-``cost_dict`` for the benchmark's (A10).
+instructions' lines in program order (empty == clean).
+`collective_stats` counts the collectives of a recorded run by kind, as
+the reference counts them in the compiled module; its ``cost_dict``
+waits for the benchmark's port (A10).
 """
 
 from __future__ import annotations
@@ -21,6 +22,39 @@ from repro_torch.analysis.lint.ir import OpGraph
 from repro_torch.analysis.lint.rules import (find_logits_defs,
                                              find_wide_copies,
                                              logits_targets)
+from repro_torch.distributed.collectives import CollectiveStats
+
+
+# the collectives' aten-level ops -> (the reference's kind, the input
+# holding the operand): the process group's ``c10d`` ops, which
+# `distributed.collectives` runs (all-reduce: its tensors; the base
+# all-gather and reduce-scatter: (output, input)), and the functional
+# ``_c10d_functional`` ones (the first input)
+COLLECTIVE_OPS = {
+    "c10d.allreduce_": ("all-reduce", None),
+    "c10d._allgather_base_": ("all-gather", 1),
+    "c10d._reduce_scatter_base_": ("reduce-scatter", 1),
+    "_c10d_functional.all_reduce": ("all-reduce", 0),
+    "_c10d_functional.all_gather_into_tensor": ("all-gather", 0),
+    "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", 0),
+}
+
+
+def collective_stats(graph: OpGraph) -> CollectiveStats:
+    """This rank's collective operand bytes and calls by kind in a
+    recorded run (the reference's rules: an all-gather's operand is the
+    local shard, a reduce-scatter's the whole input, an all-reduce's its
+    tensor), read off the op's inputs: the same record that
+    `distributed.collectives` keeps as it runs them."""
+    stats = CollectiveStats()
+    for instr in graph:
+        hit = COLLECTIVE_OPS.get(instr.opcode.rsplit(".", 1)[0])
+        if hit is None:
+            continue
+        kind, arg = hit
+        ins = [s.size_bytes for _, s in instr.inputs]
+        stats.add(kind, sum(ins) if arg is None else ins[arg])
+    return stats
 
 
 def logits_intermediates(graph: OpGraph, batch: int, vocab: int,

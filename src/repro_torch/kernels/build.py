@@ -25,7 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build"
@@ -52,17 +52,24 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Launches of one kernel wrapper; incremented only where it launches."""
+    """Launches of one kernel wrapper; incremented only where it launches.
+    A wrapper that takes a vocab slice passes its ``col_offset``, counted
+    apart in ``by_offset`` (a rank's own slice under the sharded loss)."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_offset: Dict[int, int] = {}
 
-    def inc(self) -> None:
+    def inc(self, col_offset: Optional[int] = None) -> None:
         self.count += 1
+        if col_offset is not None:
+            self.by_offset[col_offset] = self.by_offset.get(col_offset,
+                                                            0) + 1
 
     def reset(self) -> None:
         self.count = 0
+        self.by_offset.clear()
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}

@@ -233,7 +233,7 @@ def fwd_stats(
                 else None, w_scale.data_ptr() if quantized else None, kind,
                 stream)
         _raise_on(err, "fused_ce forward", lib)
-        FWD_LAUNCHES.inc()
+        FWD_LAUNCHES.inc(int(col_offset))
     if return_tile_stats:
         return lse, ztgt, zsum, tmax
     return lse, ztgt, zsum
@@ -269,7 +269,8 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
         with build.kernel_scope(name):
             out = _launch_grad(lib, which, h, w, y, lse, gamma, p_coeff,
                                None, cfg, valid, col_offset)
-            (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc()
+            (DH_LAUNCHES if which == "dh" else DW_LAUNCHES).inc(
+                int(col_offset))
         return out
     if skip_mask.device != h.device:
         raise ValueError(f"skip_mask lies on {skip_mask.device}, h on "
@@ -281,7 +282,7 @@ def _grad(which: str, h, w, y, lse, gamma, p_coeff, cfg: LossConfig, *,
         with build.kernel_scope(name):
             got = _launch_grad(lib, which, *part[:7], cfg, valid, part[7])
             (DH_FILTERED_LAUNCHES if which == "dh"
-             else DW_FILTERED_LAUNCHES).inc()
+             else DW_FILTERED_LAUNCHES).inc(int(part[7]))
         out = got if out is None else out.add_(got)
     return out
 

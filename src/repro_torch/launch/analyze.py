@@ -76,11 +76,7 @@ _MAX_LEN = 48
 # repair, each listed with its text in ROADMAP.md §C "Open": an entry
 # listed here must report exactly these rules, and every other clean
 # entry none, so a new finding and a repaired one both fail the run.
-OPEN_FINDINGS: Dict[str, Tuple[str, ...]] = {
-    # the xlstm step rebinds fresh state tensors instead of updating its
-    # state in place: old and new state are both live during a step
-    "xlstm/decode_slab": ("buffer-donation",),
-}
+OPEN_FINDINGS: Dict[str, Tuple[str, ...]] = {}
 
 # the reduced configs of width 48 at the card's width: the kernels take
 # d % 64 == 0, and paged_attn a head_dim % 8 == 0

@@ -25,7 +25,7 @@ Semantics kept from the JAX package on purpose:
     std is ``1/sqrt(E)``, not ``1/sqrt(d)`` (ROADMAP §C).
 
 The shard_map branch of the reference (expert parallelism over a mesh)
-comes with ROADMAP A9; `_dispatch_ffn_combine` keeps its
+comes with ROADMAP A9 part 2; `_dispatch_ffn_combine` keeps its
 ``n_local_experts`` / ``expert_offset`` arguments for it.
 """
 

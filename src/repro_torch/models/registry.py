@@ -318,15 +318,18 @@ def rollback_slot_caches(caches, n_reject):
 
 def snapshot_caches(caches):
     """A snapshot of a serve-cache tree that the next forward cannot
-    change: the ring buffers (dicts with ``pos``), which a forward writes
-    in place, are copied; every other leaf is shared — the recurrent
-    forwards replace their state leaves (griffin's ``conv`` / ``h``,
-    xlstm's ``conv`` / ``cell``) and every ``len`` with new tensors, and
-    a linear append-only cache rolls back by length arithmetic
-    (`rollback_snapshot_caches`)."""
+    change: the ring buffers (dicts with ``pos``) and xlstm's block
+    states (dicts with ``cell``), which a forward writes in place, are
+    copied; every other leaf is shared — griffin's recurrent forward
+    replaces its state leaves (``conv`` / ``h``) and every ``len`` with
+    new tensors, and a linear append-only cache rolls back by length
+    arithmetic (`rollback_snapshot_caches`)."""
     if isinstance(caches, dict):
         if "pos" in caches:
             return {k: v.clone() for k, v in caches.items()}
+        if "cell" in caches:
+            return {"conv": caches["conv"].clone(),
+                    "cell": [c.clone() for c in caches["cell"]]}
         return {k: snapshot_caches(v) for k, v in caches.items()}
     if isinstance(caches, (list, tuple)):
         return [snapshot_caches(v) for v in caches]

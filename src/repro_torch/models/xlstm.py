@@ -281,6 +281,18 @@ def _valid_steps(x, state, true_len):
     return (torch.arange(t, device=x.device) < true_len)[None]
 
 
+def _write_state(state, conv_state, cell):
+    """Write a block's new serve state into the tensors of `state`, in
+    place, and return `state`'s tensors: the caches are updated as the
+    reference's donated ones are, so the old and the new state are never
+    live together past the step (`registry.snapshot_caches` copies them
+    for the ``'scan'`` rollback)."""
+    state["conv"].copy_(conv_state)
+    for old, new in zip(state["cell"], cell):
+        old.copy_(new)
+    return {"conv": state["conv"], "cell": list(state["cell"])}
+
+
 def apply_mlstm_block(p, x, cfg: XLSTMConfig, state=None,
                       true_len: Optional[int] = None):
     """state: None (training) or ``{'conv', 'cell'}`` (serving).
@@ -314,7 +326,7 @@ def apply_mlstm_block(p, x, cfg: XLSTMConfig, state=None,
     h = L.rmsnorm(p["gn"], h.to(x.dtype), cfg.norm_eps)    # per head
     h = h.reshape(b, t, nh * hd)
     out = (h * F.silu(z.float()).to(x.dtype)) @ p["w_down"]
-    new_state = ({"conv": conv_state, "cell": list(cell)}
+    new_state = (_write_state(state, conv_state, cell)
                  if state is not None else None)
     return x + out, new_state
 
@@ -363,7 +375,7 @@ def apply_slstm_block(p, x, cfg: XLSTMConfig, state=None,
     h = L.rmsnorm(p["gn"], h.to(x.dtype), cfg.norm_eps)
     x = x + h.reshape(b, t, d)
     x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
-    new_state = ({"conv": conv_state, "cell": list(cell)}
+    new_state = (_write_state(state, conv_state, cell)
                  if state is not None else None)
     return x, new_state
 

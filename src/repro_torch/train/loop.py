@@ -1,4 +1,4 @@
-"""Training loop (port of `repro.train.loop`, single device).
+"""Training loop (port of `repro.train.loop`).
 
 Runs the steps, times each one to the end of its device work, and feeds
 the `train.*` instruments of `repro_torch.obs` (the JAX package's names:
@@ -16,6 +16,12 @@ before returning.  `resume_or_init` restores the newest complete
 checkpoint.  A resumed run starts its data over, as the reference's
 does: `train_loop` calls ``iter(data)`` afresh, so the run resumed at
 step s trains step s on the data's first batch, not its s-th.
+
+On a mesh (`train.step.TrainLayout`) every rank runs the loop on its
+own part of the state; a checkpoint gathers the whole state (every rank
+takes part) and rank 0 writes it, in the reference's files
+(``shard_0.npz``); `resume_or_init` restores the whole state on every
+rank and cuts this rank's part, whatever mesh shape wrote it.
 """
 
 from __future__ import annotations
@@ -52,10 +58,13 @@ def train_loop(
     straggler: Optional[StragglerMonitor] = None,
     metrics_hook: Optional[Callable[[int, Dict[str, float]], None]] = None,
     on_start: Optional[Callable[[], Any]] = None,
+    layout=None,
 ):
     """Runs steps ``state['step']`` .. ``num_steps - 1``; returns
     (state, history), history holding ``(step, metrics)`` of the logged
-    steps (every `log_every`-th and the first) as floats."""
+    steps (every `log_every`-th and the first) as floats.  With a
+    `layout` (`train.step.TrainLayout`) the checkpoints gather the whole
+    state and only rank 0 holds a `checkpointer`."""
     preemption = (preemption or PreemptionHandler()).install()
     straggler = straggler or StragglerMonitor()
     history = []
@@ -105,9 +114,11 @@ def train_loop(
             if metrics_hook:
                 metrics_hook(i, m)
 
-        if checkpointer and ((i + 1) % checkpoint_every == 0
-                             or preemption.should_stop):
-            checkpointer.save_async(i + 1, state)
+        if (checkpointer or layout) and ((i + 1) % checkpoint_every == 0
+                                         or preemption.should_stop):
+            whole = layout.gather_state(state) if layout else state
+            if checkpointer:
+                checkpointer.save_async(i + 1, whole)
 
         if preemption.should_stop:
             log.warning("preempted at step %d — checkpoint flushed", i)
@@ -119,15 +130,17 @@ def train_loop(
 
 
 def resume_or_init(checkpointer: Optional[Checkpointer], init_fn,
-                   generator: torch.Generator, device="cpu"):
+                   generator: torch.Generator, device="cpu", layout=None):
     """Restore the latest checkpoint if there is one, else
     ``init_fn(generator, device)``.  The example state of the restore is
     ``init_fn`` on the ``meta`` device (shapes, dtypes and the
     optimizer's structure, no allocation, no random draws), and the
-    restore builds the tensors on `device`."""
+    restore builds the tensors on `device`.  With a `layout` the whole
+    state is cut to this rank's part (`TrainLayout.shard_state`)."""
     if checkpointer is not None and checkpointer.latest_step() is not None:
         example = init_fn(torch.Generator(), "meta")
         state, step = checkpointer.restore(example, device=device)
         log.info("resumed from step %d", step)
-        return state
-    return init_fn(generator, device)
+    else:
+        state = init_fn(generator, device)
+    return layout.shard_state(state) if layout else state

@@ -142,6 +142,15 @@ def test_matrix_matches_the_reference(report):
         "transformer", "griffin", "xlstm", "encdec"]
 
 
+def test_xlstm_decode_updates_its_state_in_place(report):
+    """ROADMAP §C 2, repaired: the xlstm decode step writes its state
+    into the caches it was given, so the buffer-donation rule finds the
+    in-place updates the reference's donation promises."""
+    row = _rows(report, "xlstm")["decode_slab"]
+    assert row["ok"] and row["findings"] == [], row["findings"]
+    assert "xlstm/decode_slab" not in A.OPEN_FINDINGS
+
+
 def test_open_findings_are_listed_in_the_roadmap():
     roadmap = (_ROOT / "ROADMAP.md").read_text()
     for entry, rules in A.OPEN_FINDINGS.items():

@@ -2313,3 +2313,71 @@ def test_memory_dict_reads_the_largest_block(cuda):
     out, mem = memory_dict(make, device=cuda)
     assert mem["largest_alloc_bytes"] >= out.numel() * 4
     assert mem["peak_bytes"] >= out.numel() * 4 and mem["allocs"] >= 1
+
+
+def _sharded_rank(rank, layout, eps):
+    """One rank of a (2, 2) world on the one card: the sharded loss on
+    the per-rank kernels against `kernel_loss` over the whole head."""
+    import torch
+    from repro_torch.core.sharded import make_sharded_loss
+    from repro_torch.core.types import LossConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_ce.ops import kernel_loss
+    from repro_torch.launch import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = M.make_local_mesh(2, 2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, v, d, valid = 512, 4096, 256, 4000
+    h = torch.randn((n, d), generator=g, device=dev).bfloat16()
+    w = (torch.randn((v, d), generator=g, device=dev) * 0.05).bfloat16()
+    y = torch.randint(0, valid, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    y[::7] = -100
+    cfg = LossConfig(valid_vocab=valid, grad_filter_eps=eps)
+    hr, wr = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ref = kernel_loss(hr, wr, y, cfg)
+    ref.backward()
+    axes = ("data", "model") if layout == "sp_gather" else ("data",)
+    per = n // mesh.axis_size(axes)
+    r0 = mesh.axis_index(axes) * per
+    vl = v // 2
+    off = mesh.axis_index("model") * vl
+    hl = h[r0:r0 + per].clone().requires_grad_(True)
+    wl = w[off:off + vl].clone().requires_grad_(True)
+    build.reset_counters()
+    loss = make_sharded_loss(mesh, cfg, layout=layout, impl="kernel")(
+        hl, wl, y[r0:r0 + per])
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"off": off, "loss": (float(loss), float(ref)),
+            "dh": (hl.grad.float().cpu().numpy(),
+                   hr.grad[r0:r0 + per].float().cpu().numpy()),
+            "dw": (wl.grad.float().cpu().numpy(),
+                   wr.grad[off:off + vl].float().cpu().numpy()),
+            "launches": {k: dict(c.by_offset)
+                         for k, c in build.COUNTERS.items() if c.count}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,eps", [("2d", 0.0), ("sp_gather", 0.0),
+                                        ("2d", 1.0)])
+def test_sharded_loss_launches_each_rank_at_its_offset(cuda, layout, eps):
+    """Four ranks share the card over gloo: each launches the forward,
+    dH and dW once at its own vocab slice's col_offset, and its loss and
+    blocks of dH / dW meet the whole head's kernel loss: the loss within
+    1e-5, the bf16 grads within one bf16 step (2^-7 relative) or 2^-12
+    of the block's largest entry (sums in another order, rounded once)."""
+    from repro_torch.launch import mesh as M
+    ranks = M.spawn_world(_sharded_rank, 4, (layout, eps), device="cuda",
+                          join_s=300)
+    sfx = "_filtered" if eps else ""
+    for r in ranks:
+        got, want = r["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want)
+        for k in ("dh", "dw"):
+            g, w = r[k]
+            assert np.all(np.abs(g - w) <= 2.0 ** -7 * np.abs(w)
+                          + 2.0 ** -12 * np.abs(w).max()), k
+        for k in ("fused_ce_fwd", "fused_ce_dh" + sfx, "fused_ce_dw" + sfx):
+            assert r["launches"][k] == {r["off"]: 1}, r["launches"]

@@ -94,3 +94,13 @@ def test_analysis_is_covered():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_distributed_modules_are_covered():
+    """The modules of the distributed slice are among those checked."""
+    mods = set(_modules())
+    for m in ("launch.mesh", "distributed.collectives", "sharding.rules",
+              "serve.partition", "core.sharded", "distributed.compression",
+              "distributed.elastic", "data.loader", "train.state",
+              "analysis.trace"):
+        assert "repro_torch." + m in mods, m

@@ -169,9 +169,16 @@ def test_synthetic_batches_are_bit_identical():
             np.testing.assert_array_equal(tb[key], jb[key])
 
 
-def test_three_train_steps_match_jax(reduced_jax_params):
-    """The port's CLI (JAX weights injected) against JAX build_train_step
-    with the Pallas loss, on the same SyntheticLM batches."""
+_THREE = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps",
+          "3", "--global-batch", "2", "--seq-len", "64", "--log-every", "1"]
+
+
+@pytest.fixture(scope="module")
+def three_steps(reduced_jax_params):
+    """JAX build_train_step with the Pallas loss, three steps on the
+    SyntheticLM batches, and the port's CLI on the same batches with the
+    JAX weights injected: (JAX history, JAX state, CLI history, CLI
+    state)."""
     arch = j_get_arch("qwen3-0.6b", reduced=True)
     tc = JTrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=3,
                       loss_impl="pallas",
@@ -187,9 +194,14 @@ def test_three_train_steps_match_jax(reduced_jax_params):
                                  for k, v in data.batch(i).items()})
         jhist.append({k: float(v) for k, v in m.items()})
     tstate, thist = train_cli.main(
-        ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps",
-         "3", "--global-batch", "2", "--seq-len", "64", "--log-every", "1"],
-        params=params_from_jax(reduced_jax_params))
+        _THREE, params=params_from_jax(reduced_jax_params))
+    return jhist, state, thist, tstate
+
+
+def test_three_train_steps_match_jax(three_steps):
+    """The port's CLI (JAX weights injected) against JAX build_train_step
+    with the Pallas loss, on the same SyntheticLM batches."""
+    jhist, state, thist, tstate = three_steps
     assert [i for i, _ in thist] == [0, 1, 2]
     for (_, tm), jm in zip(thist, jhist):
         for key in ("loss", "ce", "grad_norm", "lr"):
@@ -205,8 +217,22 @@ def test_three_train_steps_match_jax(reduced_jax_params):
 def test_waiting_train_options_raise():
     # gradient accumulation runs now (JAX parity: test_torch_train_mtp.py)
     assert TrainConfig(grad_accum=2).grad_accum == 2
-    with pytest.raises(NotImplementedError):
-        TrainConfig(loss_impl="sharded")
+    # the sharded losses run now (on a mesh: test_torch_distributed.py);
+    # without one the step runs the unsharded streaming loss, as the
+    # reference's step does
+    from repro_torch.models.registry import init_params
+    from repro_torch.train import build_loss_fn
+    arch = get_arch("qwen3-0.6b", reduced=True)
+    params = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, arch.vocab_size, (2, 16)))
+             for k in ("tokens", "targets")}
+    want, _ = build_loss_fn(arch, TrainConfig(loss_impl="streaming"))(
+        params, batch)
+    for impl in ("sharded", "sharded_sp"):
+        got, _ = build_loss_fn(arch, TrainConfig(loss_impl=impl))(
+            params, batch)
+        assert torch.equal(got, want), impl
     with pytest.raises(ValueError):
         TrainConfig(loss_impl="pallas")
     # Adafactor runs now (JAX parity: test_torch_adafactor.py and the
@@ -214,6 +240,29 @@ def test_waiting_train_options_raise():
     state, hist = train_cli.main(["--reduced", "--device", "cpu", "--steps",
                                   "1", "--optimizer", "adafactor"])
     assert state["step"] == 1 and np.isfinite(hist[0][1]["loss"])
+
+
+def test_sharded_train_cli_spawns_its_world(three_steps,
+                                            reduced_jax_params):
+    """`--devices 2,2` with no world in the environment: the CLI spawns
+    its 4 ranks (gloo on the CPU), trains, and reports each rank; on the
+    same JAX weights and global batches the losses are the single
+    process's (itself held to JAX above) within 1e-5."""
+    _, _, want, _ = three_steps
+    reports, hist = train_cli.main(
+        _THREE + ["--devices", "2,2", "--loss-impl", "sharded"],
+        params=params_from_jax(reduced_jax_params))
+    assert [r["coords"] for r in reports] == [
+        {"data": d, "model": m} for d in range(2) for m in range(2)]
+    assert all(r["backend"] == "gloo" for r in reports)
+    for r in reports:
+        assert r["collectives"]["count_by_kind"]["all-reduce"] > 0
+        assert [s for s, _ in r["history"]] == [s for s, _ in want]
+        for (_, g), (_, w) in zip(r["history"], want):
+            for key in ("loss", "ce", "grad_norm"):
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-5,
+                                           err_msg=key)
+    assert hist == reports[0]["history"]
 
 
 def _env():

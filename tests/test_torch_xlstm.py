@@ -401,28 +401,35 @@ def test_registry_and_serve_state():
 def test_cells_as_tuples_and_fresh_state_tensors(model):
     """A state whose cells are tuples (the JAX package's layout) serves as
     one whose cells are lists (what the slot surgery rebuilds), and a
-    forward leaves every input leaf as it was and returns new tensors."""
+    forward writes its new state into the input leaves in place, as the
+    reference's donated caches are updated (ROADMAP §C 2): every
+    returned leaf is the input's tensor, now holding the new state."""
     _, _, tarch, tparams = model
     tok = torch.from_numpy(np.random.default_rng(3).integers(
         1, 211, (2, 9)).astype(np.int32))
+
+    def copy(tree, cell=list):
+        return [{k: {"conv": v["conv"].clone(),
+                     "cell": cell(c.clone() for c in v["cell"])}
+                 for k, v in pair.items()} for pair in tree]
+
     with torch.no_grad():
         _, _, st = TR.forward_hidden(tarch, tparams, {"tokens": tok},
                                      caches=TR.init_serve_caches(tarch, 2,
                                                                  64))
-        as_tuples = [{k: dict(v, cell=tuple(v["cell"])) for k, v in
-                      pair.items()} for pair in st]
-        before = [t.clone() for t in leaves(st)]
         for step_tok in (tok[:, :1], tok[:, :5]):     # step path, chunkwise
+            as_lists, as_tuples = copy(st), copy(st, tuple)
+            before = [t.clone() for t in leaves(as_lists)]
             h1, _, s1 = TR.forward_hidden(tarch, tparams,
-                                          {"tokens": step_tok}, caches=st)
+                                          {"tokens": step_tok},
+                                          caches=as_lists)
             h2, _, s2 = TR.forward_hidden(tarch, tparams,
                                           {"tokens": step_tok},
                                           caches=as_tuples)
             assert torch.equal(h1, h2)
             for a, b in zip(leaves(s1), leaves(s2)):
                 assert torch.equal(a, b)
-            olds = {t.untyped_storage().data_ptr() for t in leaves(st)}
-            assert not olds & {t.untyped_storage().data_ptr()
-                               for t in leaves(s1)}
-    for a, b in zip(before, leaves(st)):
-        assert torch.equal(a, b)
+            assert [t.data_ptr() for t in leaves(s1)] == [
+                t.data_ptr() for t in leaves(as_lists)]
+            assert not all(torch.equal(a, b)
+                           for a, b in zip(before, leaves(as_lists)))
