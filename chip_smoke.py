@@ -296,11 +296,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      random MTP heads (k 2), and the rollback check over the 300-token
      prompt; (g) one sLSTM and one mLSTM block over 2048 tokens and one
      pair over a bucketed 300-token prefill + 4 decode steps on the
-     card and the CPU; (f) training, 12 blocks, AdamW,
-     ``loss_impl='kernel'``, 4 x 1024 tokens (4 x 2048 until phase 15
-     came: the run's time budget), 3 steps, and one sLSTM block against
-     one mLSTM block over that batch.  Gates: one
-     `sample_topk` launch a prefill and a step (two a prefill and K + 1
+     card and the CPU; (f) training at 2 blocks and 4 x 1024 tokens
+     (the run's time budget), AdamW, ``loss_impl='kernel'``, 3 steps,
+     and one sLSTM block against one mLSTM block over that batch.  Gates:
+     one `sample_topk` launch a prefill and a step (two a prefill and K + 1
      or 2 a spec step in (c)), every call held to its plain version;
      every served token within XLSTM_TOL of a cache-free forward's best
      logit (the floor printed); 14,432,352 f32 bytes a slot; (b) first
@@ -424,10 +423,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      `collective_stats` equal to the collectives' counters; (d)
      `compressed_psum_tree` and a (2, 2) -> (4, 1) `reshard` on the
      card's tensors bit for bit the same calls on CPU tensors; (b) the
-     train CLI at full width and depth, 3 AdamW steps at 8 x 1024, one
-     rank with ``--loss-impl kernel``, then ``--devices 2,2`` with
-     ``sharded`` and ``sharded_sp``, joining the same world (as under
-     torchrun; (e) takes the CLI's own spawn): step 0's and the last
+     train CLI at full width, `DIST_LAYERS` layers, 3 AdamW steps at
+     8 x 1024, one rank with ``--loss-impl kernel``, then ``--devices
+     2,2`` with ``sharded`` and ``sharded_sp``, joining the same world (as
+     under torchrun; (e) takes the CLI's own spawn): step 0's and the last
      step's loss within `DIST_STEP0_RTOL` / `DIST_LAST_RTOL` of the one
      rank's, every rank's grad norm at every step within
      `DIST_GNORM_RTOL` of the one rank's, the params after the steps
@@ -436,8 +435,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      within `DIST_PARAM_LEAF`, every rank's fused-CE
      kernels launched 3 times at its own ``col_offset``, its peak memory
      printed; (e) ``--devices 1,1``,
-     which runs on nccl, one step.  The launches of (b) and (e) count
-     toward the record.
+     which runs on nccl, one step; (f) expert parallelism and the
+     d-sharded embedding: qwen3-moe-235b-a22b at full width, 1 layer,
+     through the train CLI on a (1, 4) world against one process, both
+     layouts, with `DIST_MOE_PARAM_RTOL` / `DIST_MOE_PARAM_LEAF` for the
+     params.  The launches of (b), (e) and (f) count toward the record.
 
 Phase 2 also takes the new cases past the kernels' old limits: the
 top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
@@ -480,6 +482,10 @@ and at Tq 5, and the fused-CE forward at 8192 rows on the int8 head,
 twice for bit identity, each timed beside its bound (from the 1-byte
 bytes), its plain version and the library's calls on the dequantized
 head.
+
+Phases 14, 15, 17 and 18 run in turn in a child process (`BESIDE`)
+beside phases 3-9, after phase 2's timed cases, and their lines print
+after phase 9's; every phase prints its wall time on a ``[time]`` line.
 
 The last lines are the `{"kernels": [...]}` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -4206,8 +4212,8 @@ def spy_routes(records):
     from repro_torch.models import moe
     real = moe.route
 
-    def spy(logits, cfg, cap):
-        out = real(logits, cfg, cap)
+    def spy(logits, cfg, cap, mesh=None):
+        out = real(logits, cfg, cap, mesh=mesh)
         records.append((logits.detach(), out, cap, cfg))
         return out
 
@@ -4288,7 +4294,7 @@ class RoutePin:
         torch = self.torch
         real = self.real = moe.route
 
-        def route(logits, cfg, cap):
+        def route(logits, cfg, cap, mesh=None):
             ref = self.ref[self.calls % self.n_layers]
             self.calls += 1
             flat = logits.reshape(-1, logits.shape[-1]).clone()
@@ -4303,7 +4309,7 @@ class RoutePin:
             self.flips += int((own != pin).any(-1).sum())
             self.rows += rows.shape[0]
             flat[:self.n] = ref[j]
-            return real(flat.reshape(logits.shape), cfg, cap)
+            return real(flat.reshape(logits.shape), cfg, cap, mesh=mesh)
 
         moe.route = route
         return self
@@ -5627,6 +5633,8 @@ def phase_griffin(torch, np, card, dev):
 XLSTM_ID = "xlstm-125m"
 XLSTM_NEW = 32                    # (a)'s new tokens a request
 XLSTM_SLOT_BYTES = 14432352       # 6 pairs of f32 state, whatever the context
+XLSTM_TRAIN_LAYERS = 2            # (f): one pair, as the sLSTM's host loop
+                                  # costs each pair ~3 s a training step
 # The reference's fan-in quirk (`dense_init` takes shape[0]) draws the
 # sLSTM recurrent matrices ri / rf / rz / ro (nh, hd, hd) = (4, 192, 192)
 # at std 1/sqrt(nh) = 1/2 where their contraction runs over hd: the
@@ -6033,18 +6041,18 @@ def slstm_grad_growth(torch, arch, dev, t=1024):
 
 
 def phase_xlstm_train(torch, np, card, dev):
-    """Phase 14 (f): xlstm-125m at full width and depth, AdamW, the kernel
-    loss, batch 4 x 1024 (4 mLSTM chunks), 3 steps, the sLSTM recurrent
-    matrices at std 1/sqrt(hd) (`contract_slstm`; the reference's init
-    explodes, `slstm_grad_growth`, printed first); and one sLSTM block
-    against one mLSTM block over that batch, CUDA events."""
+    """Phase 14 (f): xlstm-125m at full width, XLSTM_TRAIN_LAYERS blocks,
+    AdamW, the kernel loss, batch 4 x 1024 (4 mLSTM chunks), 3 steps, the
+    sLSTM recurrent matrices at std 1/sqrt(hd) (`contract_slstm`; the
+    reference's init explodes, `slstm_grad_growth`, printed first); and one
+    sLSTM block against one mLSTM block over that batch, CUDA events."""
     from repro_torch.data import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import build
     from repro_torch.models import xlstm
     from repro_torch.models.registry import get_arch, init_params
     from repro_torch.optim.tree import leaves
     from repro_torch.train import TrainConfig, build_loss_fn
-    arch = get_arch(XLSTM_ID)
+    arch = with_cfg(get_arch(XLSTM_ID), n_layers=XLSTM_TRAIN_LAYERS)
     steps, b, t = 3, 4, 1024
     tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps,
                      loss_impl="kernel", loss_block_v=2048)
@@ -7748,8 +7756,12 @@ DIST_EPS = 1.0          # far above every target-free 64 x 64 tile's bound
 DIST_LOSS_RTOL = 1e-5
 DIST_GRAD_RTOL, DIST_GRAD_ATOL_MAX, DIST_GRAD_FRO = 2.0 ** -7, 2.0 ** -12, 1e-3
 # (b) the train CLI on the mesh against one rank on the same seed and
-# batches.  Step 0 has lr 0 (one warmup step), so the loss moves only at
-# the last step, by 3.7e-4 of itself: the gates that see the gradient
+# batches, at DIST_LAYERS layers (the readings below are the 28 layers'
+# where not said; at 4 layers the H100 read the last loss within 1.7e-6,
+# grad norms within 5.2e-4, the body together 1.6e-2, a leaf 0.15 at
+# most, the loss moving 1.8e-2 at the last step).  Step 0 has lr 0 (one
+# warmup step), so the loss moves only at the last step, by 3.7e-4 of
+# itself at 28 layers: the gates that see the gradient
 # sync are the grad norm of every step (summed grads and the global norm
 # over one vocab-sharded head; a rank that summed nothing over data
 # reads its half batch's norm, 0.2-0.5 off in a mutation check on the
@@ -7768,6 +7780,8 @@ DIST_GRAD_RTOL, DIST_GRAD_ATOL_MAX, DIST_GRAD_FRO = 2.0 ** -7, 2.0 ** -12, 1e-3
 DIST_STEP0_RTOL, DIST_LAST_RTOL = 1e-4, 1e-4
 DIST_GNORM_RTOL, DIST_PARAM_RTOL, DIST_PARAM_LEAF = 1e-2, 0.05, 0.5
 DIST_STEPS = 3
+DIST_LAYERS = 4         # (b) and (e): 4 of qwen3-0.6b's 28 layers, as
+                        # gloo's host copies of the grads set a step's time
 
 
 def _grad_errs(torch, got, want):
@@ -7782,22 +7796,60 @@ def _grad_errs(torch, got, want):
     return float(diff.max()), fro, ok
 
 
-def _param_errs(torch, params, ref, init, rows):
-    """{leaf: (|p - ref|, |ref - init|)} (Frobenius, f32) of this rank's
-    params after (b)'s steps against one rank's (`ref`, by leaf name) and
-    that rank's update from the shared init; the lm_head on this rank's
-    vocab `rows`."""
+class MeshShape:
+    """The shape of a mesh, without a world: what `sharding.rules` and
+    `TrainLayout` read to lay out a tree."""
+
+    def __init__(self, shape, axis_names=("data", "model")):
+        self.shape = dict(zip(axis_names, shape))
+        self.axis_names = tuple(axis_names)
+
+
+def _update_norms(torch, arch, params, init, world):
+    """{leaf: [|p - init|]} (Frobenius, f32) of one process's update from
+    the seeded init (`init`, {path: tensor}, emptied leaf by leaf); for a
+    leaf that the `TrainLayout` of a (data, model) = `world` mesh cuts,
+    one norm a model block."""
+    from repro_torch.models.registry import init_params
     from repro_torch.optim.tree import leaves_with_paths
-    start = dict(leaves_with_paths(init))
+    from repro_torch.train import TrainLayout
+    lay = TrainLayout(arch, MeshShape(world),
+                      init_params(arch, torch.Generator(), "meta"))
     out = {}
-    for path, p in leaves_with_paths(params):
-        name = "/".join(map(str, path))
-        r = ref[name].to(p.device).float()
-        i0 = start[path].float()
-        if name == "lm_head":
-            r, i0 = r[rows], i0[rows]
-        out[name] = (float((p.detach().float() - r).norm()),
-                     float((r - i0).norm()))
+    with torch.no_grad():
+        for path, p in leaves_with_paths(params):
+            d = p.detach().float() - init.pop(path).float()
+            out["/".join(map(str, path))] = (
+                [float(b.norm()) for b in d.chunk(
+                    world[1], list(lay.specs[path]).index("model"))]
+                if path in lay.specs else [float(d.norm())])
+            del d
+    return out
+
+
+def _param_errs(torch, params, ref, upd, model):
+    """{leaf: (|p - ref|, |ref - init|, share)} (Frobenius, f32) of this
+    rank's params after the steps against one process's (`ref`, by leaf
+    name) and that process's update (`upd`, from `_update_norms`), and
+    the share of entries off by more than the update's rms; a leaf the
+    layout cuts (the lm_head's vocab rows, the embedding table's columns,
+    an MoE layer's experts) on this rank's block, `model` its model
+    index."""
+    from repro_torch.optim.tree import leaves_with_paths
+    out = {}
+    with torch.no_grad():
+        for path, p in leaves_with_paths(params):
+            name = "/".join(map(str, path))
+            r, u = ref[name], upd[name]
+            if tuple(r.shape) != tuple(p.shape):          # a cut leaf
+                dim = [a != b for a, b in zip(r.shape, p.shape)].index(True)
+                r = r.narrow(dim, model * p.shape[dim], p.shape[dim])
+                u = u[model:]
+            diff = (p.detach().float() - r.to(p.device).float()).abs()
+            rms = u[0] / diff.numel() ** 0.5
+            out[name] = (float(diff.norm()), u[0],
+                         float((diff > rms).float().mean()))
+            del r, diff
     return out
 
 
@@ -7807,15 +7859,16 @@ def _param_ratios(errs):
     def ratio(err, upd):
         return err / upd if upd else (0.0 if err == 0 else float("inf"))
     body = {k: e for k, e in errs.items() if k != "lm_head"}
-    whole = ratio(sum(e * e for e, _ in body.values()) ** 0.5,
-                  sum(u * u for _, u in body.values()) ** 0.5)
-    return (ratio(*errs["lm_head"]), whole,
-            {k: ratio(*e) for k, e in body.items()})
+    whole = ratio(sum(e[0] ** 2 for e in body.values()) ** 0.5,
+                  sum(e[1] ** 2 for e in body.values()) ** 0.5)
+    return (ratio(*errs["lm_head"][:2]), whole,
+            {k: ratio(*e[:2]) for k, e in body.items()})
 
 
-def dist_rank(rank, train_argv, ref_path):
+def dist_rank(rank, train_argv, ref_path, upd):
     """Phase 19 (a) to (d) on one rank of the 4-rank world on the card;
-    `ref_path` holds the one rank's params after (b)'s steps."""
+    `ref_path` holds the one rank's params after (b)'s steps, `upd` its
+    update (`_update_norms`)."""
     import gc as gc_
 
     import numpy as np
@@ -7832,7 +7885,6 @@ def dist_rank(rank, train_argv, ref_path):
     from repro_torch.kernels.fused_ce.ops import kernel_loss
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as train_cli
-    from repro_torch.models.registry import get_arch, init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     n, v, valid, d = TRAIN_BATCH * TRAIN_SEQ, DIST_VOCAB, DIST_VALID, DIST_D
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -7941,10 +7993,6 @@ def dist_rank(rank, train_argv, ref_path):
     gc_.collect()
     torch.cuda.empty_cache()
     ref = torch.load(ref_path, mmap=True, weights_only=True)
-    args = train_cli.parse_args(train_argv)
-    init = init_params(get_arch(args.arch, reduced=args.reduced),
-                       torch.Generator(device=dev).manual_seed(args.seed),
-                       dev)
     out["train"] = {}
     for impl in ("sharded", "sharded_sp"):
         C.STATS.reset()
@@ -7959,8 +8007,8 @@ def dist_rank(rank, train_argv, ref_path):
             "launches": {k: (c.count, dict(c.by_offset))
                          for k, c in build.COUNTERS.items() if c.count},
             "collectives": C.STATS.to_dict(),
-            "param_errs": _param_errs(torch, state["params"], ref, init,
-                                      slice(off, off + vl))}
+            "param_errs": _param_errs(torch, state["params"], ref, upd,
+                                      mesh.axis_index("model"))}
         del state
         gc_.collect()
         torch.cuda.empty_cache()
@@ -8023,13 +8071,19 @@ def phase_dist(torch, np, card, dev):
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as train_cli
     t0 = time.perf_counter()
-    argv = ["--arch", "qwen3-0.6b", "--steps", str(DIST_STEPS),
-            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
-            "--log-every", "1"]
+    argv = ["--arch", "qwen3-0.6b", "--n-layers", str(DIST_LAYERS),
+            "--steps", str(DIST_STEPS), "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+    from repro_torch.models.registry import init_params
     from repro_torch.optim.tree import leaves_with_paths
     torch.cuda.reset_peak_memory_stats(dev)
     state, single = train_cli.main(argv + ["--loss-impl", "kernel"])
     peak1 = torch.cuda.max_memory_allocated(dev)
+    args = train_cli.parse_args(argv)
+    arch = train_cli.arch_of(args)
+    upd = _update_norms(torch, arch, state["params"], dict(leaves_with_paths(
+        init_params(arch, torch.Generator(device=dev).manual_seed(args.seed),
+                    dev))), DIST_MESH)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                       prefix="dist_ref_")
@@ -8051,7 +8105,7 @@ def phase_dist(torch, np, card, dev):
 
     t1 = time.perf_counter()
     try:
-        ranks = M.spawn_world(dist_rank, 4, (argv, ref_path),
+        ranks = M.spawn_world(dist_rank, 4, (argv, ref_path, upd),
                               device="cuda", join_s=900)
     finally:
         tmp.cleanup()
@@ -8106,9 +8160,9 @@ def phase_dist(torch, np, card, dev):
 
     t1 = time.perf_counter()
     reports, hist = train_cli.main(
-        ["--arch", "qwen3-0.6b", "--steps", "1", "--global-batch",
-         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--devices", "1,1",
-         "--loss-impl", "sharded"])
+        ["--arch", "qwen3-0.6b", "--n-layers", str(DIST_LAYERS), "--steps",
+         "1", "--global-batch", str(TRAIN_BATCH), "--seq-len",
+         str(TRAIN_SEQ), "--devices", "1,1", "--loss-impl", "sharded"])
     rel = abs(hist[0][1]["loss"] - want[0]) / abs(want[0])
     if reports[0]["backend"] != "nccl" or rel > DIST_STEP0_RTOL:
         bad.append(f"(e) backend {reports[0]['backend']}, loss "
@@ -8123,6 +8177,332 @@ def phase_dist(torch, np, card, dev):
         raise AssertionError("phase 19: " + "\n".join(bad))
     print(f"[dist] phase 19 in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches
+
+
+# phase 19 (f): expert parallelism and the d-sharded embedding.
+# qwen3-moe-235b-a22b at its published widths, cut to 1 layer (phase 12
+# (d)'s cut, seed, batches and TrainConfig: the train CLI's defaults at
+# 3 steps, 4 x 512), on a (data 1, model 4) world of 4 ranks sharing the
+# card over gloo: a rank holds 32 of the 128 experts, 1024 of the 4096
+# embedding columns and 38016 lm_head rows, ~0.99 G params and ~11.9 GB
+# of state (bf16 params and grads, f32 AdamW moments), so the 4 ranks
+# fit where one (2, 2) rank's ~22.6 GB would not (the (2, 2) data-axis
+# sums are held on the CPU, tests/test_torch_expert_parallel.py).  Each
+# layout is held to one process's 3 steps on the same seed and batches
+# with phase 19 (b)'s gates: every rank's loss, ce and aux within
+# DIST_MOE_RTOL (phase (b)'s DIST_STEP0_RTOL) at the steps that run on
+# the init (steps 0 and 1: step 0's lr is 0), where the two runs differ
+# only by the bf16 rounding of the 4 ranks' partial sums of the MoE
+# output and of its dx; every step's grad norm within DIST_GNORM_RTOL;
+# and the params after the steps, relative to the one process's update,
+# within DIST_MOE_PARAM_RTOL together (the lm_head rows apart) and
+# DIST_MOE_PARAM_LEAF each, every expert and embedding block against its
+# own block of the one process's update.  The last step runs on params
+# that two updates from differently rounded grads left apart (the gate
+# above), and a router near-tie then routes a token elsewhere: its
+# loss and ce within DIST_MOE_UPDATED_RTOL, its aux (a sum over the
+# experts of token shares times mean probabilities, which every flipped
+# assignment moves) within DIST_MOE_UPDATED_AUX.  The H100 read, at
+# steps 0 and 1, losses within 1.9e-6 and aux within 1.4e-7; grad norms
+# within 4.8e-4; at step 2 losses within 9.2e-5 and aux within 2.4e-3;
+# the params 2.7e-2 to 3.8e-2 of the update together (phase (b)'s
+# dense body reads 1.3e-2), a leaf 0.105 at most (an embedding block,
+# its error in 0.03% of its entries, each off by more than the update's
+# rms: the batch's 2048 tokens touch at most 1.3% of its rows, and
+# every activation gradient passes through the 4 ranks' bf16 partial
+# sums of the MoE dx; each line prints the worst leaf's share).  A
+# rank whose dx was not summed over model reads grad norms ~0.45 off,
+# the params 0.67 together and leaves above 1, in a mutation check of
+# this phase at reduced width on the CPU, in f32: DIST_MOE_PARAM_RTOL
+# and DIST_MOE_PARAM_LEAF sit ~4x above the sound readings and below
+# those.  An aux taken over one rank's rows
+# reads ~0.9 off at step 0 in the same check.
+DIST_MOE_ARGV = ["--arch", MOE_ID, "--n-layers", "1", "--steps", "3",
+                 "--global-batch", "4", "--seq-len", "512", "--lr", "3e-3",
+                 "--log-every", "1"]
+DIST_MOE_WORLD = (1, 4)
+DIST_MOE_RTOL = DIST_STEP0_RTOL
+DIST_MOE_UPDATED_RTOL, DIST_MOE_UPDATED_AUX = 1e-3, 1e-2
+DIST_MOE_PARAM_RTOL, DIST_MOE_PARAM_LEAF = 0.15, 0.5
+
+
+def dist_moe_rank(rank, ref_path, upd):
+    """Phase 19 (f) on one rank of the (1, 4) world: the train CLI under
+    'sharded' and 'sharded_sp', each rank's params after the steps held
+    to the one process's (saved at `ref_path`; its update `upd`, from
+    `_update_norms`)."""
+    import gc as gc_
+
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.tree import leaves_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    out = {"rank": rank, "train": {}}
+    for impl in ("sharded", "sharded_sp"):
+        C.STATS.reset()
+        build.reset_counters()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, history = train_cli.main(DIST_MOE_ARGV + [
+            "--devices", ",".join(map(str, DIST_MOE_WORLD)),
+            "--loss-impl", impl])
+        dt = time.perf_counter() - t0
+        held = {}
+        for path, p in leaves_with_paths(state["params"]):
+            name = "/".join(map(str, path))
+            if tuple(ref[name].shape) != tuple(p.shape):
+                held[name] = tuple(p.shape)
+        out["train"][impl] = {
+            "history": history, "s": dt, "held": held,
+            "params": _param_errs(torch, state["params"], ref, upd,
+                                  rank % DIST_MOE_WORLD[1]),
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+            "launches": {k: (c.count, dict(c.by_offset))
+                         for k, c in build.COUNTERS.items() if c.count},
+            "collectives": C.STATS.to_dict()}
+        del state
+        gc_.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_moe_reference(torch, dev, ref_path):
+    """One process of the train CLI on DIST_MOE_ARGV: (history, peak
+    bytes, each leaf's update from the seeded init, `_update_norms` on
+    the (1, 4) layout).  Its params after the steps go to `ref_path`
+    (host memory, by leaf name), so that the card holds nothing of it
+    while the ranks train."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim.tree import leaves_with_paths
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, history = train_cli.main(DIST_MOE_ARGV + ["--loss-impl",
+                                                     "kernel"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = state["params"]
+    del state                         # the optimizer state goes
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train_cli.parse_args(DIST_MOE_ARGV)
+    arch = train_cli.arch_of(args)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    upd = _update_norms(torch, arch, params, dict(leaves_with_paths(
+        init_params(arch, gen, dev))), DIST_MOE_WORLD)
+    ref = {"/".join(map(str, p)): x.detach().cpu()
+           for p, x in leaves_with_paths(params)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(ref, ref_path)
+    return history, peak, upd
+
+
+def phase_dist_moe(torch, np, card, dev):
+    """Phase 19 (f): expert parallelism and the d-sharded embedding at
+    full width (see DIST_MOE_ARGV).  Returns the fused-CE launches of the
+    ranks' runs."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                      prefix="dist_moe_ref_")
+    ref_path = os.path.join(tmp.name, "params.pt")
+    try:
+        single, peak1, upd = dist_moe_reference(torch, dev, ref_path)
+    except BaseException:
+        tmp.cleanup()
+        raise
+    arch = train_cli.arch_of(train_cli.parse_args(DIST_MOE_ARGV))
+    cfg, m = arch.cfg, DIST_MOE_WORLD[1]
+    v_rank = arch.padded_vocab // m
+    want = {k: [h[k] for _, h in single]
+            for k in ("loss", "ce", "aux", "grad_norm")}
+    # the steps that run on the init: up to the first with an lr
+    fresh = 1 + [h["lr"] > 0 for _, h in single].index(True)
+    print(f"[dist] (f) one process, {arch.arch_id} at d {cfg.d_model}, "
+          f"{cfg.n_layers} layer(s), {cfg.num_experts} experts top-"
+          f"{cfg.top_k}, --loss-impl kernel: losses "
+          f"{[round(x, 6) for x in want['loss']]}, aux "
+          f"{[round(x, 7) for x in want['aux']]}, grad norms "
+          f"{[round(x, 6) for x in want['grad_norm']]}, peak "
+          f"{peak1 / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t1 = time.perf_counter()
+    # the ranks' allocators grow their segments in place: four processes
+    # share the card, and a cached block one of them cannot use is
+    # memory the others lack
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = M.spawn_world(dist_moe_rank, m * DIST_MOE_WORLD[0],
+                              (ref_path, upd), device="cuda", join_s=900)
+    finally:
+        tmp.cleanup()
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    print(f"[dist] (f) world {DIST_MOE_WORLD} of {len(ranks)} ranks: both "
+          f"layouts in {time.perf_counter() - t1:.1f}s", flush=True)
+    launches, bad = {}, []
+    for impl in ("sharded", "sharded_sp"):
+        for r in ranks:
+            tr = r["train"][impl]
+            tag = f"(f) {impl} rank {r['rank']}"
+            got = {k: [h[k] for _, h in tr["history"]] for k in want}
+            rel = {k: [abs(x - y) / abs(y) for x, y in zip(got[k], want[k])]
+                   for k in want}
+            if any(len(v) != len(want["loss"]) for v in got.values()):
+                bad.append(f"{tag}: {len(got['loss'])} steps logged")
+            for k in ("loss", "ce", "aux"):
+                late = (DIST_MOE_UPDATED_AUX if k == "aux"
+                        else DIST_MOE_UPDATED_RTOL)
+                if any(x > (DIST_MOE_RTOL if i < fresh else late)
+                       for i, x in enumerate(rel[k])):
+                    bad.append(f"{tag}: {k} {got[k]} vs one process "
+                               f"{want[k]}")
+            if max(rel["grad_norm"]) > DIST_GNORM_RTOL:
+                bad.append(f"{tag}: grad norms {got['grad_norm']} vs one "
+                           f"process {want['grad_norm']}")
+            head, whole, body = _param_ratios(tr["params"])
+            worst = max(body, key=body.get)
+            far = tr["params"][worst][2]
+            if max(head, whole) > DIST_MOE_PARAM_RTOL or \
+                    body[worst] > DIST_MOE_PARAM_LEAF:
+                bad.append(f"{tag}: params off the one process's update: "
+                           f"lm_head {head}, body {whole}, leaf {worst} "
+                           f"{body[worst]}")
+            held = tr["held"]
+            want_held = {"lm_head": (v_rank, cfg.d_model),
+                         "embed/table": (cfg.vocab_size, cfg.d_model // m)}
+            for i in range(cfg.n_layers):
+                want_held[f"blocks/{i}/moe/wi"] = (
+                    cfg.num_experts // m, cfg.d_model, cfg.d_ff_expert)
+                want_held[f"blocks/{i}/moe/wg"] = want_held[
+                    f"blocks/{i}/moe/wi"]
+                want_held[f"blocks/{i}/moe/wo"] = (
+                    cfg.num_experts // m, cfg.d_ff_expert, cfg.d_model)
+            if held != want_held:
+                bad.append(f"{tag}: holds {held}, expected {want_held}")
+            off = (r["rank"] % m) * v_rank
+            for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+                n, by = tr["launches"].get(k, (0, {}))
+                if by != {off: len(want["loss"])}:
+                    bad.append(f"{tag}: {k} launches {by}")
+                launches[k] = launches.get(k, 0) + n
+            st = tr["collectives"]
+            print(f"[dist] {tag}: holds {held['blocks/0/moe/wi'][0]} "
+                  f"experts, {held['embed/table'][1]} embedding columns, "
+                  f"{held['lm_head'][0]} lm_head rows; loss rel "
+                  f"{[f'{x:.2e}' for x in rel['loss']]}, ce "
+                  f"{[f'{x:.2e}' for x in rel['ce']]}, aux "
+                  f"{[f'{x:.2e}' for x in rel['aux']]}, grad norms "
+                  f"{[f'{x:.2e}' for x in rel['grad_norm']]} (limits "
+                  f"{DIST_MOE_RTOL} at steps 0-{fresh - 1}, then "
+                  f"{DIST_MOE_UPDATED_RTOL} and aux {DIST_MOE_UPDATED_AUX}; "
+                  f"grad norms {DIST_GNORM_RTOL}); params after "
+                  f"{len(want['loss'])} steps, |p - one process's| / its "
+                  f"update: lm_head rows {head:.3e}, {len(body)} other "
+                  f"leaves {whole:.3e}, each at most {body[worst]:.3e} "
+                  f"({worst}, {far:.3%} of its entries off by more than "
+                  f"its update's rms; limits {DIST_MOE_PARAM_RTOL} and "
+                  f"{DIST_MOE_PARAM_LEAF}); peak "
+                  f"{tr['peak_bytes'] / 2**30:.2f} GiB; "
+                  f"launches {tr['launches']}; collectives a run "
+                  f"{st['bytes_by_kind']} calls {st['count_by_kind']}; "
+                  f"{tr['s']:.1f}s on {card}", flush=True)
+        losses = [h["loss"] for _, h in ranks[0]["train"][impl]["history"]]
+        peaks = sum(r["train"][impl]["peak_bytes"] for r in ranks)
+        print(f"[dist] (f) --devices 1,4 --loss-impl {impl}: losses "
+              f"{[round(x, 6) for x in losses]} against one process's "
+              f"{[round(x, 6) for x in want['loss']]}; the 4 ranks' peaks "
+              f"sum to {peaks / 2**30:.2f} GiB", flush=True)
+    if bad:
+        raise AssertionError("phase 19 (f): " + "\n".join(bad))
+    print(f"[dist] phase 19 (f) in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return launches
+
+
+# Phases 14, 15, 17 and 18 are host-bound (the sLSTM's loop a token,
+# enc-dec's f32 attention, CLI runs, recording op graphs) and hold under
+# 35 GiB of the card, so they run in turn in a child process beside
+# phases 3-9 (under 25 GiB) and the script stays inside its time limit;
+# their lines print after phase 9's, and their times, like those of
+# phases 3-9 and phase 17's tuning trials, are taken beside the other
+# process.
+BESIDE = ("phase_xlstm", "phase_encdec", "phase_tune", "phase_analyze")
+BESIDE_JOIN_S = 900
+
+
+def beside_main(names, card, log_path, out_path):
+    """The child: run the phases `names` in turn, its output into
+    `log_path`, then {phase: its launches} as JSON into `out_path`."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    launches = {}
+    for name in names:
+        t0 = time.perf_counter()
+        launches[name] = globals()[name](torch, np, card, dev)
+        print(f"[time] {name} (beside): {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(launches, f)
+
+
+def start_beside(names, card):
+    """Start `beside_main` on `names` in a spawned child; returns the
+    handle that `join_beside` takes."""
+    import multiprocessing
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                      prefix="beside_")
+    log, out = os.path.join(tmp.name, "log"), os.path.join(tmp.name, "out")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=beside_main, args=(names, card, log, out), daemon=True)
+    proc.start()
+    return names, proc, tmp, log, out, time.perf_counter()
+
+
+def join_beside(handle):
+    """Wait for the child (at most BESIDE_JOIN_S), print its output and
+    return {phase: its launches}; raises if it failed or overran."""
+    names, proc, tmp, log, out, t0 = handle
+    try:
+        proc.join(max(1.0, BESIDE_JOIN_S - (time.perf_counter() - t0)))
+        overran = proc.is_alive()
+        if overran:
+            proc.kill()
+            proc.join()
+        with open(log) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        if proc.exitcode != 0 or not os.path.exists(out):
+            raise AssertionError(
+                f"the phases beside, {names}, "
+                + (f"ran past {BESIDE_JOIN_S} s" if overran else
+                   f"failed: exit code {proc.exitcode}"))
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        tmp.cleanup()
 
 
 def main():
@@ -8158,30 +8538,54 @@ def main():
 
     arch = get_arch("qwen3-0.6b")
     dev = torch.device("cuda")
+    clock = [t0, t0]
+
+    def mark(what):         # each phase's wall time, for the script's budget
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - clock[1]:.1f}s ({now - clock[0]:.1f}s "
+              "since the build began)", flush=True)
+        clock[1] = now
+
+    mark("build")
     kernels = phase_topk(torch, np, arch, dev)
+    mark("top-k cases")
     ce, ce_errs = phase_fused_ce(torch, np, arch, dev)
+    mark("fused-CE cases")
     filt = phase_ce_filter(torch, np, arch, dev, {
         k: ce["main"][k]["library_ms"] for k in ("fwd", "dh", "dw")})
+    mark("filter cases")
     _, wide_errs = phase_ce_wide_filter(torch, np, dev, ce)
     filt["errs"].update({f"fused_ce_{k}_filtered": max(
         filt["errs"].get(f"fused_ce_{k}_filtered", 0.0), e)
         for k, e in wide_errs.items()})
+    mark("wide filter cases")
     paged = phase_paged_attn(torch, np, dev)
+    mark("paged_attn cases")
     score = phase_score(torch, np, arch, dev)
+    mark("score_tokens cases")
     quant = phase_quant_kernels(torch, np, arch, dev)
+    mark("quantized cases")
+    beside = start_beside(BESIDE, card)         # phases 14, 15, 17, 18
     launches, params = phase_serve(torch, np, arch, card, dev)
+    mark("phase 3")
     paged_launches, bf16_bytes_per_req = phase_paged_serve(
         torch, np, arch, params, card, dev)
+    mark("phase 5")
     del params
     params, score_launches, spec_topk, spec_paged = phase_spec(
         torch, np, arch, card, dev)
+    mark("phase 6")
     score_launches += phase_eval(torch, np, arch, params, card, dev)
+    mark("phase 7")
     modes = phase_modes(torch, np, arch, params, card, dev)
+    mark("phase 10")
     quant_launches = phase_quant_serve(torch, np, arch, params, card, dev,
                                        bf16_bytes_per_req)
+    mark("phase 11")
     del params
     train_launches, train_p50, state = phase_train(torch, np, arch, card,
                                                    dev)
+    mark("phase 4")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="ckpt_smoke_") as workdir:
@@ -8192,32 +8596,35 @@ def main():
         ftrain = phase_train_filtered(torch, np, arch, card, dev, train_p50)
         phase_checkpoint(torch, np, arch, card, dev, train_p50,
                          adamw_opt_bytes, workdir)
+    mark("phases 9 and 8")
+    beside = join_beside(beside)
+    mark("phases 14, 15, 17 and 18 (their rest after phase 9)")
     torch.cuda.empty_cache()
     family = phase_family(torch, np, card, dev)
+    mark("phase 12")
     gc.collect()
     torch.cuda.empty_cache()
     recurrent = phase_griffin(torch, np, card, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for key, n in phase_xlstm(torch, np, card, dev).items():
-        recurrent[key] = recurrent.get(key, 0) + n      # phases 13 and 14
-    gc.collect()
-    torch.cuda.empty_cache()
-    for key, n in phase_encdec(torch, np, card, dev).items():
-        recurrent[key] = recurrent.get(key, 0) + n      # and phase 15
+    mark("phase 13")
+    for name in ("phase_xlstm", "phase_encdec"):
+        for key, n in beside[name].items():
+            recurrent[key] = recurrent.get(key, 0) + n  # and phases 14, 15
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_wide(torch, np, card, dev).items():
         recurrent[key] = recurrent.get(key, 0) + n      # and phase 16
+    mark("phase 16")
     gc.collect()
     torch.cuda.empty_cache()
-    tuned = phase_tune(torch, np, card, dev)            # phase 17
-    gc.collect()
-    torch.cuda.empty_cache()
-    analyzed = phase_analyze(torch, np, card, dev)      # phase 18
-    gc.collect()
-    torch.cuda.empty_cache()
+    tuned = beside["phase_tune"]                        # phase 17
+    analyzed = beside["phase_analyze"]                  # phase 18
     dist = phase_dist(torch, np, card, dev)             # phase 19
+    mark("phase 19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_dist_moe(torch, np, card, dev).items():
+        dist[key] = dist.get(key, 0) + n               # and its (f)
+    mark("phase 19 (f)")
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{

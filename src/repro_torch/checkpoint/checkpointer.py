@@ -120,7 +120,7 @@ class Checkpointer:
 
     # ----------------------------------------------------------- restore
     def restore(self, example_state: Dict[str, Any],
-                step: Optional[int] = None, device=None
+                step: Optional[int] = None, device=None, select=None
                 ) -> Tuple[Dict[str, Any], int]:
         """Restore into the structure of `example_state` (newest complete
         step unless `step` is given); returns (state, step).
@@ -132,7 +132,10 @@ class Checkpointer:
         restore then moves each leaf once, file -> host -> device: on an
         H100 machine ~12 s for qwen3-0.6b's 7.5 GB AdamW state and ~3 s
         for its 1.5 GB Adafactor state (`chip_smoke.py` phase 9).  A
-        missing key raises `KeyError`, a shape mismatch `ValueError`."""
+        missing key raises `KeyError`, a shape mismatch `ValueError`.
+        ``select(key, array)``, if given, takes the part of each file
+        array that the example holds (a rank's block on a mesh,
+        `train.TrainLayout.select`) before it becomes a tensor."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -142,7 +145,8 @@ class Checkpointer:
             def get(key):
                 if key not in blob:
                     raise KeyError(f"checkpoint missing {key}")
-                return blob[key]
+                return blob[key] if select is None else select(key,
+                                                               blob[key])
 
             state = state_from_jax(get, example_state, device)
         return state, step

@@ -40,7 +40,12 @@ package's winner.
 (data = D, model = M) mesh of D * M ranks: the paper's distributed fused
 loss (`core.sharded`, the '2d' layout or the SP -> TP gather) on each
 rank's fused-CE kernels, the body data-parallel and replicated over
-``model``, the lm_head vocab-sharded over ``model``.  Without ``RANK``
+``model`` but for the leaves cut over it (`train.TrainLayout`): the
+lm_head by vocab, the embedding table by d, and an MoE model's experts
+(expert parallelism: qwen3-moe-235b-a22b, arctic-480b).  A rank builds
+its own part of the params and optimizer state, never the whole state.
+``--n-layers N`` cuts the model to its first N layers at its published
+widths.  Without ``RANK``
 and ``WORLD_SIZE`` in the environment the launcher spawns the ranks
 itself (after building the kernels once) and joins them within
 `JOIN_S` seconds, killing what is left; under `torchrun` it
@@ -60,6 +65,7 @@ JAX package's launcher would fail in its encoder).  Train it through
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 
@@ -73,7 +79,7 @@ from repro_torch.data import (DataConfig, DeviceLoader, ShardedLoader,
 from repro_torch.distributed.fault import PreemptionHandler, StragglerMonitor
 from repro_torch.models.registry import get_arch
 from repro_torch.serve import resolve_device
-from repro_torch.train import (TrainConfig, TrainLayout, build_train_step,
+from repro_torch.train import (TrainConfig, build_train_step,
                                init_state, make_tuning_prewarm,
                                resume_or_init, train_loop)
 
@@ -94,11 +100,38 @@ def train_config(args, arch) -> TrainConfig:
                             cache_path=getattr(args, "tuning_cache", None)))
 
 
+def arch_of(args):
+    """The arch these flags train: the config, cut to ``--n-layers``, with
+    ``--mtp-heads``."""
+    arch = get_arch(args.arch, reduced=args.reduced)
+    if args.n_layers is not None:
+        if not hasattr(arch.cfg, "n_layers"):
+            raise ValueError(f"--n-layers: {args.arch}'s config has no "
+                             "n_layers")
+        arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, n_layers=args.n_layers))
+    if arch.family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: an enc-dec model trains on batches with "
+            "encoder frames ('frontend_embeds'), and this launcher feeds "
+            "SyntheticLM tokens only; call build_train_step / train_loop "
+            "with such batches")
+    if args.mtp_heads:
+        weights = tuple(float(w) for w in args.mtp_weights.split(",")) \
+            if args.mtp_weights else ()
+        arch = with_mtp(arch, args.mtp_heads, head_depth=args.mtp_depth,
+                        loss_weights=weights, track_accuracy=True)
+    return arch
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-friendly)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to its first N layers (the "
+                         "widths stay the config's)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--steps", type=int, default=50)
@@ -246,33 +279,19 @@ def _train(args, params, mesh):
         obs.enable(trace=args.trace_out is not None,
                    profiler_annotate=args.trace_out is not None)
 
-    arch = get_arch(args.arch, reduced=args.reduced)
-    if arch.family == "encdec":
-        raise ValueError(
-            f"--arch {args.arch}: an enc-dec model trains on batches with "
-            "encoder frames ('frontend_embeds'), and this launcher feeds "
-            "SyntheticLM tokens only; call build_train_step / train_loop "
-            "with such batches")
-    if args.mtp_heads:
-        weights = tuple(float(w) for w in args.mtp_weights.split(",")) \
-            if args.mtp_weights else ()
-        arch = with_mtp(arch, args.mtp_heads, head_depth=args.mtp_depth,
-                        loss_weights=weights, track_accuracy=True)
+    arch = arch_of(args)
     tc = train_config(args, arch)
     init_fn, step_fn = build_train_step(arch, tc, mesh)
-    layout = None
-    if mesh is not None:
-        layout = TrainLayout(arch, mesh,
-                             init_fn(torch.Generator(), "meta")["params"])
+    layout = init_fn.layout
     ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        state = resume_or_init(ck, init_fn, gen, device, layout)
+        state = resume_or_init(ck, init_fn, gen, device)
     else:
-        state = init_state(arch, tc, params)
         if layout is not None:
-            state = layout.shard_state(state)
+            params = layout.shard_params(params)
+        state = init_state(arch, tc, params)
 
     dc = DataConfig(vocab_size=arch.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch, seed=args.seed)

@@ -228,12 +228,14 @@ def _train_dec_block(p, x, enc_out, cfg):
 
 def decode_hidden(params, tokens: torch.Tensor, enc_out, cfg: EncDecConfig,
                   *, caches=None, cross=None, decode: bool = False,
-                  prefill_ext: bool = False):
+                  prefill_ext: bool = False, mesh=None):
     """The decoder: (hidden (B, T, d), new self caches).  Training passes
-    `enc_out` alone (each layer projects its cross K/V from it); serving
-    passes the per-layer `cross` K/V and the stacked self `caches`, whose
+    `enc_out` alone (each layer projects its cross K/V from it), and on a
+    mesh its `MeshContext`, which reaches the embedding; serving passes
+    the per-layer `cross` K/V and the stacked self `caches`, whose
     per-layer views each layer writes IN PLACE."""
-    x = L.embed_lookup(params["embed"]["table"], tokens).to(
+    x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
+                       cfg.d_model).to(
         dtype_of(cfg.compute_dtype))
     if cross is None:
         remat = cfg.remat and torch.is_grad_enabled()
@@ -258,7 +260,7 @@ def decode_hidden(params, tokens: torch.Tensor, enc_out, cfg: EncDecConfig,
 
 def forward(params, tokens: torch.Tensor, cfg: EncDecConfig, *,
             frontend_embeds: Optional[torch.Tensor] = None, caches=None,
-            decode: bool = False, prefill_ext: bool = False):
+            decode: bool = False, prefill_ext: bool = False, mesh=None):
     """tokens (B, T) -> (decoder hidden (B, T, d), aux 0, new caches).
 
     Cache-free (training, a reference forward): `frontend_embeds` (B,
@@ -276,7 +278,7 @@ def forward(params, tokens: torch.Tensor, cfg: EncDecConfig, *,
         raise ValueError("an enc-dec forward without caches needs "
                          "frontend_embeds (B, T_enc, d): the encoder input")
     enc_out = encode(params, frontend_embeds, cfg)
-    x, _ = decode_hidden(params, tokens, enc_out, cfg)
+    x, _ = decode_hidden(params, tokens, enc_out, cfg, mesh=mesh)
     return x, aux, None
 
 

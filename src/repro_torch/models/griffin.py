@@ -329,7 +329,7 @@ def init_params(cfg: GriffinConfig, generator: torch.Generator,
 
 def forward(params, tokens: torch.Tensor, cfg: GriffinConfig, *,
             states=None, decode: bool = False,
-            true_len: Optional[int] = None):
+            true_len: Optional[int] = None, mesh=None):
     """tokens (B, T) -> (hidden (B, T, d), aux 0, new_states).
 
     ``true_len`` (serving prefill; a host int): tokens at or past it are
@@ -337,10 +337,12 @@ def forward(params, tokens: torch.Tensor, cfg: GriffinConfig, *,
     carried out equals an exact-length prefill's (up to the scan's
     rounding, module docstring).  A cache-free forward under autograd
     rematerializes each super in its backward when ``remat`` is set, as
-    the JAX package's ``jax.checkpoint`` of the scanned super."""
+    the JAX package's ``jax.checkpoint`` of the scanned super.  `mesh`
+    (a `MeshContext`, training on a mesh) reaches the embedding."""
     if states is None:
         true_len = None                      # training: no carried state
-    x = L.embed_lookup(params["embed"]["table"], tokens).to(
+    x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
+                       cfg.d_model).to(
         _dtype(cfg.compute_dtype))
     n_super, rem = _layout(cfg)
 

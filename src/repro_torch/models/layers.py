@@ -38,12 +38,55 @@ def embed_init(shape, generator: torch.Generator, *, dtype=torch.float32,
     return (t * 0.02).to(dtype)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``, ids clamped; under autograd an id past the table
+    passes no gradient, as the transpose of JAX's gather drops it."""
+    ids = tokens.long()
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = torch.where((ids < table.shape[0])[..., None], rows,
+                           rows.detach())
+    return rows
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None,
+                 d_model: int = 0) -> torch.Tensor:
     """``table[tokens]`` with ids clamped into ``[0, V)``, as JAX's gather
-    clamps (an out-of-range index would be a device-side assert here).
+    clamps (an out-of-range index would be a device-side assert here),
+    and, as its transpose, no gradient from an id past the table.
     Out-of-range ids reach this point from free slots, whose fed-back
-    token may be a padded-vocab id or the sampler's id for a NaN row."""
-    return table[tokens.long().clamp(0, table.shape[0] - 1)]
+    token may be a padded-vocab id or the sampler's id for a NaN row.
+
+    On a mesh (`mesh`, a `MeshContext`, with the model width `d_model`)
+    whose "model" size M > 1 divides d, `table` is this rank's (V, d/M)
+    column block (the reference's ``(None, "model")`` table): the lookup
+    is local and its rows are all-gathered along d, so the body gets the
+    whole width.  Rows replicated over "model": the backward takes this
+    rank's columns of the (replicated) cotangent, with no communication.
+    Rows split over "model": the ids are all-gathered first, and this
+    rank's rows taken from the whole lookup; the backward gathers the
+    rows' cotangents and takes this rank's columns.  Where M does not
+    divide d the table is whole, as in the reference; a table cut for
+    the other case raises."""
+    split = mesh is not None and mesh.model > 1 and d_model % mesh.model == 0
+    if mesh is not None and table.shape[1] != (
+            d_model // mesh.model if split else d_model):
+        raise ValueError(
+            f"embed_lookup: a table of {table.shape[1]} columns where the "
+            f"{'d-sharded' if split else 'whole-table'} lookup of d "
+            f"{d_model} over model = {mesh.model} needs "
+            f"{d_model // mesh.model if split else d_model}")
+    if not split:
+        return _lookup(table, tokens)
+    from repro_torch.distributed import collectives as C
+    m = mesh.mesh
+    if mesh.rows_over_model:
+        tokens = C.all_gather(tokens, m, "model")
+    out = C.gather_ad(_lookup(table, tokens), m, "model", dim=-1,
+                      grad="replicated")
+    if mesh.rows_over_model:
+        out = C.block_ad(out, m, "model")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,17 @@ Semantics kept from the JAX package on purpose:
     their fan-in from axis 0, which is E (`layers.dense_init`): their
     std is ``1/sqrt(E)``, not ``1/sqrt(d)`` (ROADMAP §C).
 
-The shard_map branch of the reference (expert parallelism over a mesh)
-comes with ROADMAP A9 part 2; `_dispatch_ffn_combine` keeps its
-``n_local_experts`` / ``expert_offset`` arguments for it.
+Expert parallelism (the reference's ``shard_map`` branch): on a mesh
+(`distributed.collectives.MeshContext`) whose "model" size M > 1
+divides E, each rank holds the (E/M, ...) block of ``wi`` / ``wg`` /
+``wo`` at ``expert_offset = model_index * E/M`` and runs dispatch, FFN
+and combine for its own experts; the one collective of the layer is the
+sum of the ranks' combined outputs over "model".  Routing stays local to
+each rank's rows (one group a batch row), and the load-balance aux takes
+its means over every row of the mesh, so that every rank's aux is the
+whole batch's.  Without a mesh, or where E % M != 0, every expert runs
+on every rank, as in the reference; experts cut for the other branch
+raise.
 """
 
 from __future__ import annotations
@@ -102,12 +110,28 @@ def capacity(cfg: MoEConfig, tokens_per_group: int) -> int:
     return max(4, -(-c // 4) * 4)
 
 
-def route(router_logits: torch.Tensor, cfg: MoEConfig, cap: int):
+def _mesh_sums(ctx, *sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """`sums` (this rank's row sums) summed over the row-splitting axes of
+    `ctx` in one all-reduce, whose backward is the identity: each rank
+    then holds the mesh's sums, and its rows' share of their gradient.
+    (An all-reduce that summed the cotangent again would multiply the
+    router's gradient by the number of row shards.)"""
+    from repro_torch.distributed import collectives as C
+    flat = torch.cat([t.reshape(-1) for t in sums])
+    flat = C.exit_sum(flat, ctx.mesh, ctx.batch_axes)
+    return tuple(part.view_as(t) for part, t in
+                 zip(flat.split([t.numel() for t in sums]), sums))
+
+
+def route(router_logits: torch.Tensor, cfg: MoEConfig, cap: int,
+          mesh=None):
     """Token -> slot assignment for one batch of groups.
 
     router_logits: (G, S, E) f32.  Returns (slot (G, S*k) int64 [the
     sentinel E*cap = dropped], gate (G, S, k) f32, aux_loss scalar, not
-    yet times ``aux_weight``)."""
+    yet times ``aux_weight``).  With a `mesh` (a `MeshContext`) the
+    aux's means run over every row of the mesh (this rank's rows being
+    one row shard of equal size)."""
     g_, s_, e_ = router_logits.shape
     k = cfg.top_k
     probs = torch.softmax(router_logits.float(), dim=-1)
@@ -127,11 +151,25 @@ def route(router_logits: torch.Tensor, cfg: MoEConfig, cap: int):
                        torch.full_like(eflat, e_ * cap))
 
     # load-balance aux (Switch eq. 4 over all k assignments)
-    frac_tokens = onehot.float().mean(dim=(0, 1)) * (e_ / k)
-    frac_probs = probs.mean(dim=(0, 1)) * e_
+    z = cfg.router_z_weight > 0.0
+    if mesh is None:
+        tokens = onehot.float().mean(dim=(0, 1))
+        probs_m = probs.mean(dim=(0, 1))
+        zl = (torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+              if z else None)
+    else:
+        sums = [onehot.float().sum(dim=(0, 1)), probs.sum(dim=(0, 1))]
+        if z:
+            sums.append(torch.sum(
+                torch.logsumexp(router_logits, dim=-1) ** 2))
+        sums = _mesh_sums(mesh, *sums)
+        n_rows = g_ * s_ * mesh.mesh.axis_size(mesh.batch_axes)
+        tokens, probs_m = sums[0] / (n_rows * k), sums[1] / n_rows
+        zl = sums[2] / n_rows if z else None
+    frac_tokens = tokens * (e_ / k)
+    frac_probs = probs_m * e_
     aux = torch.sum(frac_tokens * frac_probs) / e_
-    if cfg.router_z_weight > 0.0:
-        zl = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    if z:
         aux = aux + cfg.router_z_weight / max(cfg.aux_weight, 1e-9) * zl
     return slot, gate, aux
 
@@ -176,12 +214,52 @@ def _dispatch_ffn_combine(params, x: torch.Tensor, slot: torch.Tensor,
     return out.to(ye.dtype).to(x.dtype)
 
 
-def moe_layer(params, x: torch.Tensor, cfg: MoEConfig
+def expert_parallel(cfg: MoEConfig, mesh) -> bool:
+    """Whether `moe_layer` runs its experts split over "model" on `mesh`
+    (a `MeshContext`, or None): M > 1 and M divides E."""
+    return (mesh is not None and mesh.model > 1
+            and cfg.num_experts % mesh.model == 0)
+
+
+def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (G, S, d) -> (out (G, S, d), aux_loss scalar f32)."""
+    """x: (G, S, d) -> (out (G, S, d), aux_loss scalar f32).
+
+    `mesh` (a `MeshContext`): x is this rank's rows, and under expert
+    parallelism `params` holds this rank's experts (module docstring).
+    Replicated rows (the body replicated over "model") enter the experts
+    through `enter` (the ranks' partial dx and gate cotangents summed in
+    the backward) and the combined outputs leave through `exit_sum`.
+    Rows split over "model" are gathered along G first (the backward
+    reduce-scatters their partial cotangents), and the summed output is
+    reduce-scattered back to this rank's rows."""
+    from repro_torch.distributed import collectives as C
+    e_ = cfg.num_experts
     cap = capacity(cfg, x.shape[1])
     router_logits = torch.einsum("gsd,de->gse", x.float(), params["router"])
-    slot, gate, aux = route(router_logits, cfg, cap)
-    out = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap,
-                                cfg.num_experts, 0)
-    return out, aux * cfg.aux_weight
+    slot, gate, aux = route(router_logits, cfg, cap, mesh=mesh)
+    aux = aux * cfg.aux_weight
+    ep = expert_parallel(cfg, mesh)
+    n_local = e_ // mesh.model if ep else e_
+    if params["wi"].shape[0] != n_local:
+        raise ValueError(
+            f"moe_layer holds {params['wi'].shape[0]} experts where its "
+            f"{'expert-parallel' if ep else 'whole-expert'} branch runs "
+            f"{n_local} of {e_}: the experts must be cut by their spec "
+            "exactly where the mesh's model axis divides E")
+    if not ep:
+        out = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap, e_, 0)
+        return out, aux
+    mesh_, offset = mesh.mesh, mesh.mesh.axis_index("model") * n_local
+    if mesh.rows_over_model:
+        x = C.gather_ad(x, mesh_, "model", grad="partial")
+        gate = C.gather_ad(gate, mesh_, "model", grad="partial")
+        slot = C.all_gather(slot, mesh_, "model")
+    else:
+        x = C.enter(x, mesh_, "model")
+        gate = C.enter(gate, mesh_, "model")
+    y = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap, n_local,
+                              offset)
+    if mesh.rows_over_model:
+        return C.scatter_ad(y, mesh_, "model"), aux
+    return C.exit_sum(y, mesh_, "model"), aux

@@ -118,7 +118,7 @@ def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                    caches=None, decode: bool = False,
                    prefill_ext: bool = False, return_heads: bool = False,
-                   true_len=None):
+                   true_len=None, mesh=None):
     """(hidden (B, T, d), aux_loss, new_caches) for batch['tokens'],
     after batch['frontend_embeds'] (B, F, d) where the batch has them
     (then T counts those F positions too; enc-dec's encoder reads them
@@ -131,17 +131,20 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
     ``return_heads=True`` (needs ``arch.mtp.n_heads > 0``) returns the
     4-tuple (hidden, head_hidden (B, T, n, d), aux_loss, new_caches): the
     training path applies the fused CE to every horizon from this one
-    forward."""
+    forward.  `mesh` (a `distributed.collectives.MeshContext`, training
+    on a mesh): the batch is this rank's rows, and the params its shards
+    (the embedding's columns, the MoE layers' experts), as
+    `train.step.TrainLayout` cuts them."""
     mod = _family_mod(arch)
     if arch.family in ("transformer", "encdec"):
         h, aux, c = mod.forward(
             params, batch["tokens"], arch.cfg,
             frontend_embeds=batch.get("frontend_embeds"), caches=caches,
-            decode=decode, prefill_ext=prefill_ext)
+            decode=decode, prefill_ext=prefill_ext, mesh=mesh)
     else:
         h, aux, c = mod.forward(params, batch["tokens"], arch.cfg,
                                 states=caches, decode=decode,
-                                true_len=true_len)
+                                true_len=true_len, mesh=mesh)
     if return_heads:
         return h, apply_mtp_heads(arch, params, h), aux, c
     return h, aux, c

@@ -138,8 +138,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def apply_block(p, x, cfg: TransformerConfig, *, cache=None,
-                decode: bool = False, prefill_ext: bool = False):
-    """Pre-norm block; returns (x, aux, new_cache)."""
+                decode: bool = False, prefill_ext: bool = False,
+                mesh=None):
+    """Pre-norm block; returns (x, aux, new_cache).  `mesh` (a
+    `distributed.collectives.MeshContext`) reaches the MoE layer."""
     h, new_cache = A.attention_layer(
         p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
         cfg.attn_config(), cache=cache, decode=decode,
@@ -147,7 +149,7 @@ def apply_block(p, x, cfg: TransformerConfig, *, cache=None,
     x = x + h
     xn = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
     if cfg.is_moe:
-        mo, aux = M.moe_layer(p["moe"], xn, cfg.moe_config())
+        mo, aux = M.moe_layer(p["moe"], xn, cfg.moe_config(), mesh)
         if cfg.dense_ff_residual:
             mo = mo + L.mlp(p["mlp"], xn)
         return x + mo, aux, new_cache
@@ -161,6 +163,7 @@ def forward(
     caches: Optional[Dict[str, torch.Tensor]] = None,
     decode: bool = False,
     prefill_ext: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """tokens (B, T) [+ frontend_embeds (B, F, d)] -> (hidden
     (B, F + T, d), aux_loss summed over the layers, new_caches).
@@ -168,8 +171,11 @@ def forward(
     With `caches`, each layer gets its own views of every stacked leaf and
     writes its K/V into them IN PLACE (slab k/v or paged pools); the
     returned tree holds the same tensors and the new lens.
-    ``prefill_ext`` marks a paged suffix prefill (`attention_layer`)."""
-    x = L.embed_lookup(params["embed"]["table"], tokens).to(
+    ``prefill_ext`` marks a paged suffix prefill (`attention_layer`).
+    `mesh` (a `MeshContext`, training on a mesh): tokens are this rank's
+    rows; the embedding and the MoE layers run on its shards of them."""
+    x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
+                       cfg.d_model).to(
         dtype_of(cfg.compute_dtype))
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -178,15 +184,16 @@ def forward(
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
         if remat:
-            x, a = checkpoint(lambda x_, p_=p: apply_block(p_, x_, cfg)[:2],
-                              x, use_reentrant=False)
+            x, a = checkpoint(
+                lambda x_, p_=p: apply_block(p_, x_, cfg, mesh=mesh)[:2],
+                x, use_reentrant=False)
             aux = aux + a
             continue
         cache = None
         if caches is not None:
             cache = {key: val[i] for key, val in caches.items()}
         x, a, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode,
-                                      prefill_ext=prefill_ext)
+                                      prefill_ext=prefill_ext, mesh=mesh)
         aux = aux + a
         if new_cache is not None:
             lens.append(new_cache["len"])

@@ -414,7 +414,7 @@ def _apply_pair(p, x, cfg: XLSTMConfig, st=None, true_len=None):
 
 def forward(params, tokens: torch.Tensor, cfg: XLSTMConfig, *,
             states=None, decode: bool = False,
-            true_len: Optional[int] = None):
+            true_len: Optional[int] = None, mesh=None):
     """tokens (B, T) -> (hidden (B, T, d), aux 0, new_states).
 
     The recurrent state consumes the tokens one after another whatever T
@@ -422,11 +422,13 @@ def forward(params, tokens: torch.Tensor, cfg: XLSTMConfig, *,
     host int): tokens at or past it are bucket pads, which every
     stateful primitive masks.  A cache-free forward under autograd
     rematerializes each pair in its backward when ``remat`` is set, as
-    the JAX package's ``jax.checkpoint`` of the scanned pair."""
+    the JAX package's ``jax.checkpoint`` of the scanned pair.  `mesh`
+    (a `MeshContext`, training on a mesh) reaches the embedding."""
     del decode
     if states is None:
         true_len = None                      # training: no carried state
-    x = L.embed_lookup(params["embed"]["table"], tokens).to(
+    x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
+                       cfg.d_model).to(
         _dtype(cfg.compute_dtype))
     remat = states is None and cfg.remat and torch.is_grad_enabled()
     new_states = [] if states is not None else None

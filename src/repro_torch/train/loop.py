@@ -18,10 +18,12 @@ does: `train_loop` calls ``iter(data)`` afresh, so the run resumed at
 step s trains step s on the data's first batch, not its s-th.
 
 On a mesh (`train.step.TrainLayout`) every rank runs the loop on its
-own part of the state; a checkpoint gathers the whole state (every rank
-takes part) and rank 0 writes it, in the reference's files
-(``shard_0.npz``); `resume_or_init` restores the whole state on every
-rank and cuts this rank's part, whatever mesh shape wrote it.
+own part of the state; a checkpoint gathers the whole state into rank
+0's host memory leaf by leaf (every rank takes part) and rank 0 writes
+it, in the reference's files (``shard_0.npz``); `resume_or_init` reads
+each leaf of the file and keeps this rank's part of it, whatever mesh
+shape wrote it, and a fresh init cuts the params before it makes the
+optimizer state: no rank holds a whole optimizer state.
 """
 
 from __future__ import annotations
@@ -130,17 +132,21 @@ def train_loop(
 
 
 def resume_or_init(checkpointer: Optional[Checkpointer], init_fn,
-                   generator: torch.Generator, device="cpu", layout=None):
+                   generator: torch.Generator, device="cpu"):
     """Restore the latest checkpoint if there is one, else
     ``init_fn(generator, device)``.  The example state of the restore is
     ``init_fn`` on the ``meta`` device (shapes, dtypes and the
     optimizer's structure, no allocation, no random draws), and the
-    restore builds the tensors on `device`.  With a `layout` the whole
-    state is cut to this rank's part (`TrainLayout.shard_state`)."""
+    restore builds the tensors on `device`.  Where ``init_fn`` makes a
+    rank's part (its ``layout``, a `TrainLayout`, from
+    `train.step.build_train_step` on a mesh) the restore reads each file
+    leaf's block (`TrainLayout.select`) into that cut example."""
+    layout = getattr(init_fn, "layout", None)
     if checkpointer is not None and checkpointer.latest_step() is not None:
         example = init_fn(torch.Generator(), "meta")
-        state, step = checkpointer.restore(example, device=device)
+        state, step = checkpointer.restore(
+            example, device=device,
+            select=None if layout is None else layout.select)
         log.info("resumed from step %d", step)
-    else:
-        state = init_fn(generator, device)
-    return layout.shard_state(state) if layout else state
+        return state
+    return init_fn(generator, device)

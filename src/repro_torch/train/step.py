@@ -19,12 +19,17 @@ the cache's winner where one exists, else the kernel's own plan.
 On a mesh (`launch.mesh.Mesh`), 'sharded' and 'sharded_sp' run the
 paper's distributed loss (`core.sharded`, layouts '2d' and 'sp_gather')
 on each rank's fused-CE kernels: the model body data-parallel over
-``data`` (and, under 'sharded_sp', over ``model`` too) and replicated
-over ``model``; the lm_head vocab-sharded over ``model`` by its spec
-(`TrainLayout`).  The body's grads are summed over the row axes, the
-head slice's are already summed inside the loss, and the clip takes the
-global norm (each head slice once, each replicated leaf once).  Without
-a mesh those two impls run the unsharded streaming loss, as the
+``data`` (and, under 'sharded_sp', over ``model`` too) and otherwise
+replicated over ``model``, but for the leaves that `TrainLayout` cuts
+over ``model`` by their specs: the lm_head by vocab, the embedding
+table by d (`models.layers.embed_lookup`), each MoE layer's experts by
+expert (expert parallelism, `models.moe.moe_layer`), and their AdamW
+moments with them.  The whole leaves' grads are summed over every axis
+that splits the rows, the cut leaves' over the row axes only (each
+``model`` rank holds other columns or experts), and the head slice's
+are already summed inside the loss; the clip takes the global norm
+(each cut leaf's squares summed over ``model``, each whole leaf once).
+Without a mesh those two impls run the unsharded streaming loss, as the
 reference's step does.
 """
 
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -225,6 +230,11 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     mtp_w = arch.mtp.resolved_weights()
     plans: Dict[tuple, Any] = {}    # tuned forward plans, once a shape
     use_sharded = _use_sharded(tc, mesh)
+    body = None
+    if use_sharded:
+        from repro_torch.distributed.collectives import MeshContext
+        body = MeshContext(mesh, _rows_axes(mesh),
+                           rows_over_model=tc.loss_impl == "sharded_sp")
     layout = "sp_gather" if tc.loss_impl == "sharded_sp" else "2d"
     impl = "streaming" if tc.loss_impl in SHARDED_IMPLS else tc.loss_impl
     sharded: Dict[tuple, Callable] = {}
@@ -263,9 +273,9 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     def loss_fn(params, batch):
         if n_mtp:
             h, head_h, aux, _ = forward_hidden(arch, params, batch,
-                                               return_heads=True)
+                                               return_heads=True, mesh=body)
         else:
-            h, aux, _ = forward_hidden(arch, params, batch)
+            h, aux, _ = forward_hidden(arch, params, batch, mesh=body)
         d = h.shape[-1]
         rows = h.reshape(-1, d)
         w = params["lm_head"]
@@ -295,60 +305,117 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     return loss_fn
 
 
+def _cut_spec(path) -> Optional[tuple]:
+    """The spec under which `TrainLayout` cuts the leaf at `path`, or
+    None for a leaf that always stays whole: the lm_head by vocab, the
+    embedding table by d, an MoE layer's ``wi`` / ``wg`` / ``wo`` by
+    expert."""
+    if path == ("lm_head",):
+        return ("model",)
+    if path == ("embed", "table"):
+        return (None, "model")
+    if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi", "wg",
+                                                             "wo"):
+        return ("model",)
+    return None
+
+
 class TrainLayout:
     """The physical layout of a train state on a mesh under a sharded
-    loss: the lm_head and its AdamW moments cut into vocab slices by the
-    lm_head's spec (``('model',)``: rank ``model_index`` holds block
-    ``model_index`` of V / M rows), every other leaf whole on every rank.
+    loss.  A set of leaves is cut over ``model``, each by its spec from
+    `sharding.rules.param_specs`: the lm_head by vocab (``('model',)``:
+    rank ``model_index`` holds block ``model_index`` of V / M rows), the
+    embedding table by d (``(None, 'model')``), and each MoE layer's
+    ``wi`` / ``wg`` / ``wo`` by expert (``('model',)``), the AdamW
+    moments of each with it.  A leaf whose spec does not divide it over
+    ``model`` (the rules then move or drop the entry) stays whole, as
+    the layers' whole-table and whole-expert branches expect; so does
+    every other leaf (the router, the norms, attention, the dense MLPs).
 
-    `shard_state` cuts a whole state (a fresh init, a restored
-    checkpoint) to this rank's; `gather_state` puts the whole state back
-    together (on every rank, collectively) for a checkpoint.  A whole
-    state restored under one mesh shape and cut under another is the
-    elastic checkpoint path."""
+    `shard_params` cuts whole params (a fresh init, before any optimizer
+    state is made from them); `gather_state` puts the whole state
+    together on rank 0 for a checkpoint, leaf by leaf; `select` cuts a
+    whole leaf read from a checkpoint file.  A whole state restored
+    under one mesh shape and cut under another is the elastic checkpoint
+    path.  `build_train_step` makes the one layout of a step
+    (``init_fn.layout``)."""
 
     def __init__(self, arch: Arch, mesh, params):
-        from repro_torch.sharding.rules import AxisRules, param_specs
+        from repro_torch.sharding.rules import (AxisRules, leaves_with_specs,
+                                                param_specs, stacked_path)
         self.mesh = mesh
         head = params["lm_head"]
         v = head.shape[0]
         if head.shape[0] != arch.padded_vocab:
             raise ValueError("TrainLayout takes a whole param tree")
-        spec = param_specs({"lm_head": head},
-                           AxisRules(mesh=mesh))["lm_head"]
+        specs = dict(leaves_with_specs(param_specs(params,
+                                                   AxisRules(mesh=mesh))))
         m = mesh.shape["model"]
-        if tuple(spec[:1]) != ("model",) and m > 1:
+        if tuple(specs[("lm_head",)][:1]) != ("model",) and m > 1:
             raise ValueError(
                 f"the lm_head ({v} x {head.shape[1]}) is not vocab-sharded "
-                f"over model = {m} (spec {spec}): the padded vocab must "
-                "divide over the model axis")
-        self.spec = ("model",)
+                f"over model = {m} (spec {specs[('lm_head',)]}): the padded "
+                "vocab must divide over the model axis")
+        # path -> spec of every cut leaf; the lm_head is always one (its
+        # grad is summed inside the loss), a no-op cut where model is 1
+        self.specs: Dict[tuple, tuple] = {("lm_head",): ("model",)}
+        for path, _ in leaves_with_paths(params):
+            want = _cut_spec(path)
+            if want is not None and tuple(specs[path]) == want:
+                self.specs[path] = want
+        # the JAX package's stacked key of each cut leaf -> its spec there
+        self._keys = {stacked_path(p): ((None,) + s if any(
+            isinstance(i, int) for i in p) else s)
+            for p, s in self.specs.items()}
 
-    def _cut(self, x):
+    def cut_indices(self, params) -> List[int]:
+        """The cut leaves' places among the leaves of `params` (and of
+        the optimizer slots made from them), by path: weights moved from
+        the JAX package order their dicts by its names."""
+        return [i for i, (p, _) in enumerate(leaves_with_paths(params))
+                if p in self.specs]
+
+    def shard_params(self, params):
+        """This rank's params from whole ones (the whole leaves shared)."""
         from repro_torch.distributed.elastic import shard_tensor
-        return shard_tensor(x.detach(), self.spec, self.mesh)
-
-    def _whole(self, x):
-        from repro_torch.distributed.elastic import gather_tensor
-        return gather_tensor(x.detach(), self.spec, self.mesh)
-
-    def _apply(self, state, fn):
-        params = dict(state["params"])
-        params["lm_head"] = fn(params["lm_head"]).requires_grad_(True)
-        # the moments follow the order of this state's leaves (weights
-        # moved from the JAX package order their dicts by its names)
-        i = head_index(state["params"])
-        opt = dict(state["opt"])     # AdamW's: build_train_step refuses
-        for k in ("mu", "nu"):        # Adafactor on a mesh
-            opt[k] = list(opt[k])
-            opt[k][i] = fn(opt[k][i])
-        return dict(state, params=params, opt=opt)
-
-    def shard_state(self, state):
-        return self._apply(state, self._cut)
+        from repro_torch.sharding.rules import _map
+        return _map(params, lambda p, x: shard_tensor(
+            x.detach(), self.specs[p], self.mesh) if p in self.specs else x)
 
     def gather_state(self, state):
-        return self._apply(state, self._whole)
+        """The whole state on rank 0, None on the others (every rank takes
+        part): each cut leaf and moment gathered by its spec and moved to
+        host memory before the next, so that no rank holds a whole
+        optimizer state on its device."""
+        from repro_torch.distributed.elastic import gather_tensor
+        from repro_torch.sharding.rules import _map
+        keep = self.mesh.rank == 0
+
+        def whole(x, spec):
+            x = gather_tensor(x.detach(), spec, self.mesh)
+            return x.cpu() if keep else None
+
+        paths = [p for p, _ in leaves_with_paths(state["params"])]
+        params = _map(state["params"], lambda p, x: whole(
+            x, self.specs[p]) if p in self.specs else x)
+        opt = dict(state["opt"])
+        for k in ("mu", "nu"):
+            opt[k] = [whole(t, self.specs[p]) if p in self.specs else t
+                      for p, t in zip(paths, opt[k])]
+        return dict(state, params=params, opt=opt) if keep else None
+
+    def select(self, key: str, arr):
+        """This rank's block of a whole stacked leaf read from a checkpoint
+        file under its JAX-package key (``params/...``, ``opt/mu/...``,
+        ``opt/nu/...``); any other key's array as it is."""
+        from repro_torch.sharding.rules import spec_shard
+        for prefix in ("params/", "opt/mu/", "opt/nu/"):
+            spec = (self._keys.get(key[len(prefix):])
+                    if key.startswith(prefix) else None)
+            if spec is not None:
+                blocks = spec_shard(spec, arr.shape, self.mesh)
+                return arr[tuple(slice(a, a + n) for a, n in blocks)]
+        return arr
 
 
 def head_index(params) -> int:
@@ -357,28 +424,33 @@ def head_index(params) -> int:
     return [p for p, _ in leaves_with_paths(params)].index(("lm_head",))
 
 
-def _sync_grads(grads, head: int, mesh, axes) -> None:
-    """Sum every grad but the lm_head slice's over `axes`, in place: one
-    all-reduce a dtype over the flattened leaves."""
+def _sync_grads(grads, cut, head: int, mesh, rows_axes, sync_axes) -> None:
+    """Sum the grads in place: the whole leaves' over `sync_axes`, the cut
+    leaves' but the lm_head slice's over `rows_axes` (each ``model``
+    rank holds other columns or experts); one all-reduce a set of axes
+    and dtype over the flattened leaves."""
     from repro_torch.distributed import collectives as C
-    by_dtype: Dict[torch.dtype, list] = {}
+    groups: Dict[tuple, list] = {}
     for i, g in enumerate(grads):
         if i != head:
-            by_dtype.setdefault(g.dtype, []).append(g)
-    for gs in by_dtype.values():
+            axes = rows_axes if i in cut else sync_axes
+            groups.setdefault((axes, g.dtype), []).append(g)
+    for (axes, _), gs in groups.items():
+        if mesh.axis_size(axes) == 1:
+            continue
         flat = C.psum(torch.cat([g.reshape(-1) for g in gs]), mesh, axes)
         for g, part in zip(gs, flat.split([g.numel() for g in gs])):
             g.copy_(part.view_as(g))
 
 
-def _global_norm(grads, head: int, mesh) -> torch.Tensor:
-    """The clip's global norm on a mesh: every replicated leaf once, the
-    lm_head's squares summed over its vocab slices."""
+def _global_norm(grads, cut, mesh) -> torch.Tensor:
+    """The clip's global norm on a mesh: every whole leaf once, the cut
+    leaves' squares summed over ``model`` (one all-reduce)."""
     from repro_torch.distributed import collectives as C
     sq = [torch.sum(torch.square(g.float())) for g in grads]
-    head_sq = C.psum(sq[head], mesh, "model")
-    body = [s for i, s in enumerate(sq) if i != head]
-    return (torch.stack(body).sum() + head_sq).sqrt()
+    cut_sq = C.psum(torch.stack([sq[i] for i in cut]).sum(), mesh, "model")
+    body = [s for i, s in enumerate(sq) if i not in cut]
+    return (torch.stack(body).sum() + cut_sq).sqrt()
 
 
 def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
@@ -396,9 +468,11 @@ def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
     metrics averaged.
 
     On a `mesh` with a sharded ``loss_impl`` the state is this rank's
-    (`TrainLayout.shard_state` of ``init_fn``'s whole state) and the
-    batch its rows: over the row axes under 'sharded', over the row axes
-    and ``model`` under 'sharded_sp'."""
+    (``init_fn`` cuts the params by the step's `TrainLayout`,
+    ``init_fn.layout``, before the optimizer state is made from them) and
+    the batch its rows: over the row axes under 'sharded', over the row
+    axes and ``model`` under 'sharded_sp'; elsewhere ``init_fn.layout``
+    is None."""
     loss_fn = build_loss_fn(arch, tc, mesh)
     opt_init, opt_update = make_optimizer(tc.optimizer,
                                           **dict(tc.opt_kwargs))
@@ -409,19 +483,23 @@ def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
             "a sharded loss trains with AdamW: Adafactor's factored "
             "moments of a vocab-sharded lm_head need their own "
             "collectives (ROADMAP A9 part 2)")
-    if sharded and getattr(arch.cfg, "num_experts", 0):
-        raise NotImplementedError(
-            "MoE routing on a mesh (expert parallelism, the router's "
-            "global statistics) waits for ROADMAP A9 part 2")
-    sync_axes = ()
+    from repro_torch.models.registry import init_params
+    sync_axes, layout = (), None
     if sharded:
         sync_axes = _rows_axes(mesh) + (
             ("model",) if tc.loss_impl == "sharded_sp" else ())
+        layout = TrainLayout(arch, mesh, init_params(
+            arch, torch.Generator(), "meta"))
 
     def init_fn(generator: torch.Generator, device="cpu"):
-        from repro_torch.models.registry import init_params
-        return make_train_state(init_params(arch, generator, device),
-                                opt_init)
+        """A fresh state; on a mesh, this rank's: the whole params cut by
+        `layout` first, the optimizer state made from the cut ones."""
+        params = init_params(arch, generator, device)
+        if layout is not None:
+            params = layout.shard_params(params)
+        return make_train_state(params, opt_init)
+
+    init_fn.layout = layout
 
     def grads_of(tree, params, batch):
         loss, metrics = loss_fn(tree, batch)
@@ -462,9 +540,10 @@ def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
         with torch.no_grad():
             norm = None
             if sharded:
-                head = head_index(state["params"])
-                _sync_grads(grads, head, mesh, sync_axes)
-                norm = _global_norm(grads, head, mesh)
+                cut = layout.cut_indices(state["params"])
+                _sync_grads(grads, cut, head_index(state["params"]), mesh,
+                            _rows_axes(mesh), sync_axes)
+                norm = _global_norm(grads, cut, mesh)
             grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm,
                                                norm=norm)
             lr = sched(state["step"])

@@ -127,17 +127,17 @@ def _recorded_step(mesh, impl):
     from repro_torch.distributed import collectives as C
     from repro_torch.launch.analyze import run_entry
     from repro_torch.models.registry import get_arch
-    from repro_torch.train import TrainConfig, TrainLayout, build_train_step
+    from repro_torch.train import TrainConfig, build_train_step
     arch = get_arch("qwen3-0.6b", reduced=True)
     tc = TrainConfig(loss_impl=impl, loss_block_v=128, total_steps=10,
                      warmup_steps=1)
     init_fn, step_fn = build_train_step(arch, tc, mesh)
-    layout = TrainLayout(arch, mesh,
-                         init_fn(torch.Generator(), "meta")["params"])
-    state = layout.shard_state(init_fn(torch.Generator().manual_seed(0),
-                                       "cpu"))
+    state = init_fn(torch.Generator().manual_seed(0), "cpu")
     ways = 4 if impl == "sharded_sp" else 2
-    b, s = 4 // ways, 16
+    # 24 tokens a row: with 16, (rows x seq, V) = (32, 512) would be the
+    # shape of the embedding table's (V, d / M) column block, which a
+    # shape-only logits rule cannot tell from logits
+    b, s = 4 // ways, 24
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(
         0, arch.vocab_size, (4, s), dtype=np.int64)[
@@ -161,8 +161,7 @@ def _checks(rank, tmp):
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as train_cli
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.train import (TrainLayout, build_train_step,
-                                   resume_or_init)
+    from repro_torch.train import build_train_step, resume_or_init
     from repro_torch.train.step import head_index
     mesh = M.make_local_mesh(2, 2)
     mesh41 = M.make_local_mesh(4, 1)
@@ -185,10 +184,7 @@ def _checks(rank, tmp):
     tc = train_cli.train_config(train_cli.parse_args(
         _CLI + ["--loss-impl", "sharded"]), arch)
     init_fn, _ = build_train_step(arch, tc, mesh41)
-    lay = TrainLayout(arch, mesh41,
-                      init_fn(torch.Generator(), "meta")["params"])
-    st = resume_or_init(Checkpointer(ck), init_fn, torch.Generator(), "cpu",
-                        lay)
+    st = resume_or_init(Checkpointer(ck), init_fn, torch.Generator(), "cpu")
     out["restored41"] = (mesh41.axis_index("model"), mesh41.coords,
                          st["params"]["lm_head"].detach().numpy(),
                          st["opt"]["mu"][head_index(st["params"])].numpy())
