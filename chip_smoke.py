@@ -439,7 +439,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      d-sharded embedding: qwen3-moe-235b-a22b at full width, 1 layer,
      through the train CLI on a (1, 4) world against one process, both
      layouts, with `DIST_MOE_PARAM_RTOL` / `DIST_MOE_PARAM_LEAF` for the
-     params.  The launches of (b), (e) and (f) count toward the record.
+     params.  (b) and (f) run the body as Megatron tensor parallelism:
+     every leaf cut over model by its spec, attention by heads, the MLPs
+     by ffn, the router by expert.  (g) (b) again with ``--optimizer
+     adafactor`` under (b)'s gates, and every rank holding 1/M of each
+     layer's wq, wk, wv, wo, wi, wg and mlp/wo and each slot at its
+     spec's shape; (h) xlstm-125m at full width, 2 blocks, 3 AdamW steps
+     at 4 x 256 in (f)'s (1, 4) world under 'sharded' against one
+     process (its recurrent leaves gathered at use).  Every run prints
+     each rank's held bytes of the body's leaves, its collective calls
+     and bytes and its peak beside the card.  The launches of (b), (e),
+     (f), (g) and (h) count toward the record.
 
 Phase 2 also takes the new cases past the kernels' old limits: the
 top-k's list kernel (k > 64) on the padded head at 8 rows and k 65, 100,
@@ -495,6 +505,7 @@ prints no result.
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -7779,9 +7790,21 @@ DIST_GRAD_RTOL, DIST_GRAD_ATOL_MAX, DIST_GRAD_FRO = 2.0 ** -7, 2.0 ** -12, 1e-3
 # (PERF.md has the readings)
 DIST_STEP0_RTOL, DIST_LAST_RTOL = 1e-4, 1e-4
 DIST_GNORM_RTOL, DIST_PARAM_RTOL, DIST_PARAM_LEAF = 1e-2, 0.05, 0.5
+DIST_GATES = {"step0": DIST_STEP0_RTOL, "last": DIST_LAST_RTOL,
+              "gnorm": DIST_GNORM_RTOL, "gnorm_updated": DIST_GNORM_RTOL,
+              "param": DIST_PARAM_RTOL, "leaf": DIST_PARAM_LEAF}
 DIST_STEPS = 3
-DIST_LAYERS = 4         # (b) and (e): 4 of qwen3-0.6b's 28 layers, as
-                        # gloo's host copies of the grads set a step's time
+DIST_LAYERS = 4         # (b), (e) and (g): 4 of qwen3-0.6b's 28 layers,
+                        # as gloo's host copies of the grads set a step's
+                        # time
+# (b) and (g) run the body as Megatron tensor parallelism over model
+# (attention by heads and KV heads, the MLP by ffn, one all-reduce of the
+# (4096, 1024) bf16 rows a region and direction under 'sharded', an
+# all-gather and a reduce-scatter under 'sharded_sp'); (g) trains with
+# Adafactor (the train CLI's --optimizer adafactor: its factored moments
+# summed over model where a cut dim is averaged) under (b)'s gates, and
+# checks that each rank holds 1/M of DIST_TP_LEAVES and their slots'
+# specs' shapes
 
 
 def _grad_errs(torch, got, want):
@@ -7865,10 +7888,106 @@ def _param_ratios(errs):
             {k: ratio(*e[:2]) for k, e in body.items()})
 
 
-def dist_rank(rank, train_argv, ref_path, upd):
-    """Phase 19 (a) to (d) on one rank of the 4-rank world on the card;
-    `ref_path` holds the one rank's params after (b)'s steps, `upd` its
-    update (`_update_norms`)."""
+def _held(torch, arch, world, params, opt):
+    """What this rank holds after a mesh run: every leaf's shape by name,
+    every Adafactor slot's by '<stacked path>/<slot>', and the bytes of
+    the body's leaves (every param but the lm_head and the embedding
+    table; and their whole size) and of the optimizer state
+    (`launch.train.held_bytes` on the run's layout)."""
+    from repro_torch.launch.train import held_bytes
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdafactorConfig
+    from repro_torch.optim.tree import leaves_with_paths
+    from repro_torch.train import TrainLayout
+    lay = TrainLayout(arch, MeshShape(world), init_params(
+        arch, torch.Generator(), "meta"),
+        AdafactorConfig() if "slots" in opt else None)
+    out = {"params": {"/".join(map(str, p)): tuple(t.shape)
+                      for p, t in leaves_with_paths(params)},
+           "bytes": held_bytes({"params": params, "opt": opt}, lay)}
+    if "slots" in opt:
+        out["slots"] = {"/".join(map(str, path)) + "/" + name: tuple(t.shape)
+                        for (path, _, _), slots in zip(opt["groups"],
+                                                       opt["slots"])
+                        for name, t in slots.items()}
+    return out
+
+
+def _whole_layout(torch, arch, world, adafactor: bool):
+    """({leaf: whole shape}, {leaf: its spec over model}, {slot: whole
+    shape}, {slot: its stacked spec}) of `arch` on a (data, model) =
+    `world` mesh, from the meta init (`TrainLayout`)."""
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdafactorConfig
+    from repro_torch.optim.adafactor import init as ada_init
+    from repro_torch.optim.tree import leaves_with_paths
+    from repro_torch.train import TrainLayout
+    meta = init_params(arch, torch.Generator(), "meta")
+    cfg = AdafactorConfig() if adafactor else None
+    lay = TrainLayout(arch, MeshShape(world), meta, cfg)
+    shapes = {"/".join(map(str, p)): tuple(t.shape)
+              for p, t in leaves_with_paths(meta)}
+    specs = {"/".join(map(str, p)): s for p, s in lay.specs.items()}
+    slots, slot_specs = {}, {}
+    if adafactor:
+        st = ada_init(meta, cfg)
+        for (path, _, _), sl in zip(st["groups"], st["slots"]):
+            for name, t in sl.items():
+                key = "/".join(map(str, path)) + "/" + name
+                slots[key] = tuple(t.shape)
+                slot_specs[key] = lay.slot_specs[path][name]
+    return shapes, specs, slots, slot_specs
+
+
+def _cut_shape(shape, spec, m):
+    return tuple(n // m if i < len(spec) and spec[i] == "model" else n
+                 for i, n in enumerate(shape))
+
+
+def _held_line(h) -> str:
+    b = h["bytes"]
+    return (f"holds {b['body'] / 2**30:.3f} GiB of the body's leaves "
+            f"(whole {b['body_whole'] / 2**30:.3f}), optimizer state "
+            f"{b['opt'] / 2**30:.3f} GiB")
+
+
+def _mesh_run(torch, train_cli, argv, ref, upd, model_index, world, dev,
+              params=None):
+    """One train-CLI run in this rank's world (it joins it; `params`, whole,
+    in place of its seeded init): history, seconds, peak, launches,
+    collectives, what the rank holds (`_held`) and its params against
+    one process's (`_param_errs`)."""
+    import gc as gc_
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import build
+    C.STATS.reset()
+    build.reset_counters()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, history = train_cli.main(argv, params)
+    dt = time.perf_counter() - t0
+    arch = train_cli.arch_of(train_cli.parse_args(argv))
+    out = {"history": history, "s": dt,
+           "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+           "launches": {k: (c.count, dict(c.by_offset))
+                        for k, c in build.COUNTERS.items() if c.count},
+           "collectives": C.STATS.to_dict(),
+           "held": _held(torch, arch, world, state["params"], state["opt"]),
+           "param_errs": _param_errs(torch, state["params"], ref, upd,
+                                     model_index)}
+    del state
+    gc_.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(rank, train_argv, ref_path, upd, ada_path, ada_upd):
+    """Phase 19 (a) to (d) and (g) on one rank of the 4-rank world on the
+    card; `ref_path` holds the one rank's params after (b)'s steps,
+    `upd` its update (`_update_norms`), `ada_path` and `ada_upd` the
+    same of (g)'s Adafactor steps."""
     import gc as gc_
 
     import numpy as np
@@ -7992,26 +8111,17 @@ def dist_rank(rank, train_argv, ref_path, upd):
     del grads, res, whole, got, want, mean, new_res, moved, direct
     gc_.collect()
     torch.cuda.empty_cache()
-    ref = torch.load(ref_path, mmap=True, weights_only=True)
-    out["train"] = {}
-    for impl in ("sharded", "sharded_sp"):
-        C.STATS.reset()
-        build.reset_counters()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        state, history = train_cli.main(train_argv + [
-            "--devices", "2,2", "--loss-impl", impl])
-        out["train"][impl] = {
-            "history": history, "s": time.perf_counter() - t0,
-            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
-            "launches": {k: (c.count, dict(c.by_offset))
-                         for k, c in build.COUNTERS.items() if c.count},
-            "collectives": C.STATS.to_dict(),
-            "param_errs": _param_errs(torch, state["params"], ref, upd,
-                                      mesh.axis_index("model"))}
-        del state
-        gc_.collect()
-        torch.cuda.empty_cache()
+    # and (g): the same with --optimizer adafactor
+    for key, path, u, extra in (("train", ref_path, upd, []),
+                                ("ada", ada_path, ada_upd,
+                                 ["--optimizer", "adafactor"])):
+        ref = torch.load(path, mmap=True, weights_only=True)
+        out[key] = {impl: _mesh_run(
+            torch, train_cli, train_argv + extra + [
+                "--devices", "2,2", "--loss-impl", impl], ref, u,
+            mesh.axis_index("model"), DIST_MESH, dev)
+            for impl in ("sharded", "sharded_sp")}
+        del ref
     return out
 
 
@@ -8064,99 +8174,198 @@ def dist_check_loss(ranks, card):
         raise AssertionError("phase 19: " + "\n".join(bad))
 
 
+def _one_process(torch, train_cli, argv, world, dev, tmpdir, tag,
+                 init=None):
+    """One process of the train CLI on `argv`, the reference of a mesh
+    run: (history, peak bytes, each leaf's update from the seeded init,
+    `_update_norms` on the (data, model) = `world` layout, the path of
+    its params after the steps, saved in host memory by leaf name under
+    `tmpdir` so that the card holds nothing of it while the ranks
+    train).  `init(arch, dev)`, if given, makes the whole params in
+    place of the CLI's seeded init."""
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim.tree import leaves_with_paths
+    args = train_cli.parse_args(argv)
+    arch = train_cli.arch_of(args)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, history = train_cli.main(
+        argv, None if init is None else init(arch, dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = state["params"]
+    del state                         # the optimizer state goes
+    gc.collect()
+    torch.cuda.empty_cache()
+    if init is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        first = init_params(arch, gen, dev)
+    else:
+        first = init(arch, dev)
+    upd = _update_norms(torch, arch, params, dict(leaves_with_paths(first)),
+                        world)
+    del first
+    path = os.path.join(tmpdir, f"{tag}.pt")
+    torch.save({"/".join(map(str, p)): x.detach().cpu()
+                for p, x in leaves_with_paths(params)}, path)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return history, peak, upd, path
+
+
+def _check_mesh_runs(tag, ranks, key, single, card, launches, bad,
+                     world=DIST_MESH, vocab=DIST_VOCAB, gates=None):
+    """Gates (`gates`, by default (b)'s: `DIST_GATES`) on the ranks' runs
+    `key` ({layout: `_mesh_run`}) against one process's history
+    `single`: step 0's and the last step's loss, every step's grad norm
+    (those after the first update by ``gnorm_updated``), the params
+    after the steps, each rank's fused-CE kernels once a step at its own
+    ``col_offset``; their launches added to `launches`, each run's line
+    printed."""
+    g = dict(DIST_GATES, **(gates or {}))
+    want = [m["loss"] for _, m in single]
+    want_gn = [m["grad_norm"] for _, m in single]
+    # the steps that run on the init: up to the first with an lr
+    fresh = 1 + [m["lr"] > 0 for _, m in single].index(True)
+    for impl in ("sharded", "sharded_sp"):
+        if impl not in ranks[0][key]:
+            continue
+        hist = ranks[0][key][impl]["history"]
+        got = [m["loss"] for _, m in hist]
+        rel = [abs(x - y) / abs(y) for x, y in zip(got, want)]
+        if len(got) != len(want) or rel[0] > g["step0"] or \
+                rel[-1] > g["last"]:
+            bad.append(f"{tag} {impl}: losses {got} vs one process {want}")
+        for r in ranks:
+            tr = r[key][impl]
+            off = r["coords"]["model"] * (vocab // world[1])
+            for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+                n, by = tr["launches"].get(k, (0, {}))
+                if by != {off: len(want)}:
+                    bad.append(f"{tag} {impl} rank {r['rank']}: {k} {by}")
+                launches[k] = launches.get(k, 0) + n
+            if [m["loss"] for _, m in tr["history"]] != got:
+                bad.append(f"{tag} {impl} rank {r['rank']}: another loss")
+            gn = [m["grad_norm"] for _, m in tr["history"]]
+            gn_rel = [abs(x - y) / y for x, y in zip(gn, want_gn)]
+            if len(gn) != len(want) or any(
+                    x > (g["gnorm"] if i < fresh else g["gnorm_updated"])
+                    for i, x in enumerate(gn_rel)):
+                bad.append(f"{tag} {impl} rank {r['rank']}: grad norms {gn} "
+                           f"vs one process {want_gn}")
+            head, whole, body = _param_ratios(tr["param_errs"])
+            worst = max(body, key=body.get)
+            if max(head, whole) > g["param"] or body[worst] > g["leaf"]:
+                bad.append(f"{tag} {impl} rank {r['rank']}: params off the "
+                           f"one process's update: lm_head {head}, body "
+                           f"{whole}, leaf {worst} {body[worst]}")
+            st = tr["collectives"]
+            print(f"[dist] {tag} {impl} rank {r['rank']} {r['coords']}: "
+                  f"grad norms rel to one process "
+                  f"{[f'{x:.2e}' for x in gn_rel]}; params after "
+                  f"{len(want)} steps, |p - one process's| / its update: "
+                  f"lm_head rows {head:.3e}, {len(body)} body leaves "
+                  f"{whole:.3e}, each at most {body[worst]:.3e} ({worst}, "
+                  f"{tr['param_errs'][worst][2]:.3%} of its entries off by "
+                  f"more than its update's rms); {_held_line(tr['held'])}; "
+                  f"peak {tr['peak_bytes'] / 2**30:.2f} GiB; launches "
+                  f"{tr['launches']}; collectives a run "
+                  f"{st['bytes_by_kind']} calls {st['count_by_kind']}; "
+                  f"{tr['s']:.1f}s on {card}", flush=True)
+        print(f"[dist] {tag} --devices {world[0]},{world[1]} --loss-impl "
+              f"{impl}: losses {[round(x, 6) for x in got]}, rel to one "
+              f"process {[f'{x:.2e}' for x in rel]}", flush=True)
+
+
+# phase 19 (g): each rank of the (2, 2) world holds exactly 1/M of these
+# leaves of every layer (Megatron's column- and row-parallel weights);
+# of their Adafactor slots, a slot that keeps the cut dim holds 1/M and
+# one that removed it is whole
+DIST_TP_LEAVES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi",
+                  "mlp/wg", "mlp/wo")
+
+
+def _check_tp_holds(torch, arch, ranks, key, bad):
+    """(g): every rank holds 1/M of each `DIST_TP_LEAVES` leaf of every
+    layer, each slot of theirs at its spec's shape (1/M where it keeps
+    the cut dim, whole where it removed it), and every other leaf and
+    slot at its spec's shape too."""
+    shapes, specs, slots, slot_specs = _whole_layout(torch, arch, DIST_MESH,
+                                                     True)
+    m = DIST_MESH[1]
+    want = {k: _cut_shape(v, specs.get(k, ()), m) for k, v in shapes.items()}
+    want_slots = {k: _cut_shape(v, slot_specs[k], m)
+                  for k, v in slots.items()}
+    for r in ranks:
+        for impl, tr in r[key].items():
+            held = tr["held"]
+            tag = f"(g) {impl} rank {r['rank']}"
+            for name, shape in want.items():
+                if name.split("/", 2)[-1] in DIST_TP_LEAVES and \
+                        math.prod(shape) * m != math.prod(shapes[name]):
+                    bad.append(f"{tag}: {name} not cut over model")
+            if held["params"] != want:
+                bad.append(f"{tag}: holds {held['params']}, its specs say "
+                           f"{want}")
+            if held["slots"] != want_slots:
+                bad.append(f"{tag}: slots {held['slots']}, their specs say "
+                           f"{want_slots}")
+    tp = [k for k in want_slots if k.split("/", 1)[-1].rsplit("/", 1)[0]
+          in DIST_TP_LEAVES]
+    cut = sum(want_slots[k] != slots[k] for k in tp)
+    print(f"[dist] (g) every rank holds 1/{m} of {', '.join(DIST_TP_LEAVES)} "
+          f"in each of {arch.cfg.n_layers} layers, and {cut} of their "
+          f"{len(tp)} Adafactor slots cut (the others removed the cut dim "
+          f"and are whole); every leaf and slot at its spec's shape",
+          flush=True)
+
+
 def phase_dist(torch, np, card, dev):
     """Phase 19: the distributed fused loss and the train CLI's
     ``--devices`` on the one card (see the module docstring).  Returns
-    the fused-CE launches of (b) and (e), the ranks' main paths."""
+    the fused-CE launches of (b), (e) and (g), the ranks' main paths."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as train_cli
     t0 = time.perf_counter()
     argv = ["--arch", "qwen3-0.6b", "--n-layers", str(DIST_LAYERS),
             "--steps", str(DIST_STEPS), "--global-batch", str(TRAIN_BATCH),
             "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
-    from repro_torch.models.registry import init_params
-    from repro_torch.optim.tree import leaves_with_paths
-    torch.cuda.reset_peak_memory_stats(dev)
-    state, single = train_cli.main(argv + ["--loss-impl", "kernel"])
-    peak1 = torch.cuda.max_memory_allocated(dev)
-    args = train_cli.parse_args(argv)
-    arch = train_cli.arch_of(args)
-    upd = _update_norms(torch, arch, state["params"], dict(leaves_with_paths(
-        init_params(arch, torch.Generator(device=dev).manual_seed(args.seed),
-                    dev))), DIST_MESH)
+    ada = ["--optimizer", "adafactor"]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                       prefix="dist_ref_")
-    ref_path = os.path.join(tmp.name, "params.pt")
-    t1 = time.perf_counter()
-    torch.save({"/".join(map(str, p)): x.detach().cpu()
-                for p, x in leaves_with_paths(state["params"])}, ref_path)
-    saved = time.perf_counter() - t1
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    want = [m["loss"] for _, m in single]
-    want_gn = [m["grad_norm"] for _, m in single]
-    print(f"[dist] (b) one rank, --loss-impl kernel: losses "
-          f"{[round(x, 6) for x in want]}, grad norms "
-          f"{[round(x, 6) for x in want_gn]} in "
-          f"{time.perf_counter() - t0:.1f}s (its params saved for the ranks "
-          f"in {saved:.1f}s), peak {peak1 / 2**30:.2f} GiB", flush=True)
-
-    t1 = time.perf_counter()
     try:
-        ranks = M.spawn_world(dist_rank, 4, (argv, ref_path, upd),
-                              device="cuda", join_s=900)
+        refs = {}
+        for tag, extra in (("(b)", []), ("(g)", ada)):
+            t1 = time.perf_counter()
+            refs[tag] = _one_process(torch, train_cli, argv + extra + [
+                "--loss-impl", "kernel"], DIST_MESH, dev, tmp.name,
+                tag.strip("()"))
+            single, peak1 = refs[tag][:2]
+            print(f"[dist] {tag} one rank, --loss-impl kernel"
+                  f"{' ' + ' '.join(extra) if extra else ''}: losses "
+                  f"{[round(m['loss'], 6) for _, m in single]}, grad norms "
+                  f"{[round(m['grad_norm'], 6) for _, m in single]} in "
+                  f"{time.perf_counter() - t1:.1f}s, peak "
+                  f"{peak1 / 2**30:.2f} GiB", flush=True)
+        t1 = time.perf_counter()
+        ranks = M.spawn_world(dist_rank, 4, (
+            argv, refs["(b)"][3], refs["(b)"][2], refs["(g)"][3],
+            refs["(g)"][2]), device="cuda", join_s=900)
     finally:
         tmp.cleanup()
     print(f"[dist] world {DIST_MESH} of {len(ranks)} ranks, backend "
-          f"{ranks[0]['backend']}: (a)-(d) and (b) in "
+          f"{ranks[0]['backend']}: (a)-(d), (b) and (g) in "
           f"{time.perf_counter() - t1:.1f}s", flush=True)
     dist_check_loss(ranks, card)
     launches, bad = {}, []
-    for impl in ("sharded", "sharded_sp"):
-        hist = ranks[0]["train"][impl]["history"]
-        got = [m["loss"] for _, m in hist]
-        rel = [abs(x - y) / abs(y) for x, y in zip(got, want)]
-        if len(got) != DIST_STEPS or rel[0] > DIST_STEP0_RTOL or \
-                rel[-1] > DIST_LAST_RTOL:
-            bad.append(f"(b) {impl}: losses {got} vs one rank {want}")
-        for r in ranks:
-            tr = r["train"][impl]
-            off = r["coords"]["model"] * (DIST_VOCAB // 2)
-            for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
-                n, by = tr["launches"].get(k, (0, {}))
-                if by != {off: DIST_STEPS}:
-                    bad.append(f"(b) {impl} rank {r['rank']}: {k} {by}")
-                launches[k] = launches.get(k, 0) + n
-            if [m["loss"] for _, m in tr["history"]] != got:
-                bad.append(f"(b) {impl} rank {r['rank']}: another loss")
-            gn = [m["grad_norm"] for _, m in tr["history"]]
-            gn_rel = [abs(x - y) / y for x, y in zip(gn, want_gn)]
-            if len(gn) != DIST_STEPS or max(gn_rel) > DIST_GNORM_RTOL:
-                bad.append(f"(b) {impl} rank {r['rank']}: grad norms {gn} "
-                           f"vs one rank {want_gn}")
-            head, whole, body = _param_ratios(tr["param_errs"])
-            worst = max(body, key=body.get)
-            if max(head, whole) > DIST_PARAM_RTOL or \
-                    body[worst] > DIST_PARAM_LEAF:
-                bad.append(f"(b) {impl} rank {r['rank']}: params off the "
-                           f"one rank's update: lm_head {head}, body "
-                           f"{whole}, leaf {worst} {body[worst]}")
-            print(f"[dist] (b) {impl} rank {r['rank']} {r['coords']}: grad "
-                  f"norms rel to one rank {[f'{x:.2e}' for x in gn_rel]}; "
-                  f"params after {DIST_STEPS} steps, |p - one rank's| / "
-                  f"one rank's update: lm_head rows {head:.3e}, "
-                  f"{len(body)} body leaves {whole:.3e}, each at most "
-                  f"{body[worst]:.3e} ({worst}); peak "
-                  f"{tr['peak_bytes'] / 2**30:.2f} GiB, "
-                  f"launches {tr['launches']}, collectives a run "
-                  f"{tr['collectives']['bytes_by_kind']} calls "
-                  f"{tr['collectives']['count_by_kind']}", flush=True)
-        print(f"[dist] (b) --devices 2,2 --loss-impl {impl}: losses "
-              f"{[round(x, 6) for x in got]}, rel to one rank "
-              f"{[f'{x:.2e}' for x in rel]}, "
-              f"{ranks[0]['train'][impl]['s']:.1f}s on {card}", flush=True)
+    _check_mesh_runs("(b)", ranks, "train", refs["(b)"][0], card, launches,
+                     bad)
+    _check_mesh_runs("(g)", ranks, "ada", refs["(g)"][0], card, launches,
+                     bad)
+    _check_tp_holds(torch, train_cli.arch_of(train_cli.parse_args(argv)),
+                    ranks, "ada", bad)
+    want = [m["loss"] for _, m in refs["(b)"][0]]
 
     t1 = time.perf_counter()
     reports, hist = train_cli.main(
@@ -8183,10 +8392,11 @@ def phase_dist(torch, np, card, dev):
 # qwen3-moe-235b-a22b at its published widths, cut to 1 layer (phase 12
 # (d)'s cut, seed, batches and TrainConfig: the train CLI's defaults at
 # 3 steps, 4 x 512), on a (data 1, model 4) world of 4 ranks sharing the
-# card over gloo: a rank holds 32 of the 128 experts, 1024 of the 4096
-# embedding columns and 38016 lm_head rows, ~0.99 G params and ~11.9 GB
-# of state (bf16 params and grads, f32 AdamW moments), so the 4 ranks
-# fit where one (2, 2) rank's ~22.6 GB would not (the (2, 2) data-axis
+# card over gloo: a rank holds 32 of the 128 experts and their router
+# columns, 16 of the 64 q heads and 1 of the 4 KV heads, 1024 of the
+# 4096 embedding columns and 38016 lm_head rows, ~0.95 G params and
+# ~11.4 GB of state (bf16 params and grads, f32 AdamW moments), so the 4
+# ranks fit where one (2, 2) rank's would not (the (2, 2) data-axis
 # sums are held on the CPU, tests/test_torch_expert_parallel.py).  Each
 # layout is held to one process's 3 steps on the same seed and batches
 # with phase 19 (b)'s gates: every rank's loss, ce and aux within
@@ -8221,101 +8431,96 @@ DIST_MOE_ARGV = ["--arch", MOE_ID, "--n-layers", "1", "--steps", "3",
                  "--global-batch", "4", "--seq-len", "512", "--lr", "3e-3",
                  "--log-every", "1"]
 DIST_MOE_WORLD = (1, 4)
+# phase 19 (h): xlstm-125m at its published widths, cut to 2 blocks (one
+# sLSTM and one mLSTM), 3 AdamW steps at 4 x 256 (one mLSTM chunk) in
+# (f)'s (1, 4) world under 'sharded': the rules cut its recurrent leaves
+# by their rank fallback (the last dim over model), and the body gathers
+# them at use, every rank running the whole recurrences; the sLSTM's
+# MLP runs tensor-parallel.  Against one process, both from phase 14
+# (f)'s contracted sLSTM init (`xl_init`): with the reference's, one
+# process's own grad norms read 3.0e7, 5.7e8 and 1.1e6 on the H100
+# (the JAX package's 1.6e8 at step 0 on the CPU).  Its gates
+# (`DIST_XL_GATES`): (b)'s on the steps that run on the init (steps 0
+# and 1: their losses read within 5.3e-07, their grad norms 4.4e-04 on
+# the H100; PERF.md has the readings); after the first update the MLP
+# region's rounding (its f32 sum of the ranks' partials puts ~0.4% of
+# entries a bf16 ulp from one GEMM's) has passed through the update's
+# near-sign
+# steps and two recurrences over 256 tokens: the last loss read 1.6e-04,
+# step 2's grad norm 8.65e-02, the params 0.10-0.19 of the update
+# together and 0.30 a leaf at most; the gates sit 3x above those (the
+# last loss at (f)'s DIST_MOE_UPDATED_RTOL), and below a leaf left
+# unupdated (1.0) and the grad norms of a rank that sums nothing over
+# model (caught at step 0).
+DIST_XL_GATES = {"last": 1e-3, "gnorm_updated": 0.25, "param": 0.5,
+                 "leaf": 0.75}
+DIST_XL_ARGV = ["--arch", "xlstm-125m", "--n-layers", "2", "--steps", "3",
+                "--global-batch", "4", "--seq-len", "256", "--log-every",
+                "1"]
 DIST_MOE_RTOL = DIST_STEP0_RTOL
 DIST_MOE_UPDATED_RTOL, DIST_MOE_UPDATED_AUX = 1e-3, 1e-2
 DIST_MOE_PARAM_RTOL, DIST_MOE_PARAM_LEAF = 0.15, 0.5
 
 
-def dist_moe_rank(rank, ref_path, upd):
-    """Phase 19 (f) on one rank of the (1, 4) world: the train CLI under
-    'sharded' and 'sharded_sp', each rank's params after the steps held
-    to the one process's (saved at `ref_path`; its update `upd`, from
-    `_update_norms`)."""
-    import gc as gc_
-
+def xl_init(arch, dev):
+    """(h)'s whole params: the seeded init (seed 0) with phase 14 (f)'s
+    contracted sLSTM recurrent matrices."""
     import torch
-    from repro_torch.distributed import collectives as C
-    from repro_torch.kernels import build
+    from repro_torch.models.registry import init_params
+    return contract_slstm(torch, arch, init_params(
+        arch, torch.Generator(device=dev).manual_seed(0), dev))
+
+
+def dist_moe_rank(rank, ref_path, upd, xl_path, xl_upd):
+    """Phase 19 (f) and (h) on one rank of the (1, 4) world: the train
+    CLI under 'sharded' and 'sharded_sp' (qwen3-moe), then 'sharded'
+    (xlstm), each rank's params after the steps held to one process's
+    (saved at `ref_path` / `xl_path`; their updates `upd` / `xl_upd`,
+    from `_update_norms`)."""
+    import torch
     from repro_torch.launch import train as train_cli
-    from repro_torch.optim.tree import leaves_with_paths
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    ref = torch.load(ref_path, mmap=True, weights_only=True)
-    out = {"rank": rank, "train": {}}
-    for impl in ("sharded", "sharded_sp"):
-        C.STATS.reset()
-        build.reset_counters()
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        state, history = train_cli.main(DIST_MOE_ARGV + [
-            "--devices", ",".join(map(str, DIST_MOE_WORLD)),
-            "--loss-impl", impl])
-        dt = time.perf_counter() - t0
-        held = {}
-        for path, p in leaves_with_paths(state["params"]):
-            name = "/".join(map(str, path))
-            if tuple(ref[name].shape) != tuple(p.shape):
-                held[name] = tuple(p.shape)
-        out["train"][impl] = {
-            "history": history, "s": dt, "held": held,
-            "params": _param_errs(torch, state["params"], ref, upd,
-                                  rank % DIST_MOE_WORLD[1]),
-            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
-            "launches": {k: (c.count, dict(c.by_offset))
-                         for k, c in build.COUNTERS.items() if c.count},
-            "collectives": C.STATS.to_dict()}
-        del state
-        gc_.collect()
-        torch.cuda.empty_cache()
+    m = rank % DIST_MOE_WORLD[1]
+    out = {"rank": rank, "coords": {"data": rank // DIST_MOE_WORLD[1],
+                                    "model": m}}
+    devices = ",".join(map(str, DIST_MOE_WORLD))
+    xl_arch = train_cli.arch_of(train_cli.parse_args(DIST_XL_ARGV))
+    for key, argv, path, u, impls, init in (
+            ("train", DIST_MOE_ARGV, ref_path, upd,
+             ("sharded", "sharded_sp"), None),
+            ("xlstm", DIST_XL_ARGV, xl_path, xl_upd, ("sharded",),
+             xl_init)):
+        ref = torch.load(path, mmap=True, weights_only=True)
+        out[key] = {impl: _mesh_run(
+            torch, train_cli, argv + ["--devices", devices, "--loss-impl",
+                                      impl], ref, u, m, DIST_MOE_WORLD, dev,
+            None if init is None else init(xl_arch, dev))
+            for impl in impls}
+        del ref
     return out
 
 
-def dist_moe_reference(torch, dev, ref_path):
-    """One process of the train CLI on DIST_MOE_ARGV: (history, peak
-    bytes, each leaf's update from the seeded init, `_update_norms` on
-    the (1, 4) layout).  Its params after the steps go to `ref_path`
-    (host memory, by leaf name), so that the card holds nothing of it
-    while the ranks train."""
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models.registry import init_params
-    from repro_torch.optim.tree import leaves_with_paths
-    torch.cuda.reset_peak_memory_stats(dev)
-    state, history = train_cli.main(DIST_MOE_ARGV + ["--loss-impl",
-                                                     "kernel"])
-    peak = torch.cuda.max_memory_allocated(dev)
-    params = state["params"]
-    del state                         # the optimizer state goes
-    gc.collect()
-    torch.cuda.empty_cache()
-    args = train_cli.parse_args(DIST_MOE_ARGV)
-    arch = train_cli.arch_of(args)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    upd = _update_norms(torch, arch, params, dict(leaves_with_paths(
-        init_params(arch, gen, dev))), DIST_MOE_WORLD)
-    ref = {"/".join(map(str, p)): x.detach().cpu()
-           for p, x in leaves_with_paths(params)}
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.save(ref, ref_path)
-    return history, peak, upd
-
-
 def phase_dist_moe(torch, np, card, dev):
-    """Phase 19 (f): expert parallelism and the d-sharded embedding at
-    full width (see DIST_MOE_ARGV).  Returns the fused-CE launches of the
-    ranks' runs."""
+    """Phase 19 (f) and (h): expert parallelism and the d-sharded
+    embedding at full width (see DIST_MOE_ARGV), then xlstm's leaves
+    gathered at use (DIST_XL_ARGV), in one (1, 4) world.  Returns the
+    fused-CE launches of the ranks' runs."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as train_cli
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                       prefix="dist_moe_ref_")
-    ref_path = os.path.join(tmp.name, "params.pt")
     try:
-        single, peak1, upd = dist_moe_reference(torch, dev, ref_path)
+        single, peak1, upd, ref_path = _one_process(
+            torch, train_cli, DIST_MOE_ARGV + ["--loss-impl", "kernel"],
+            DIST_MOE_WORLD, dev, tmp.name, "f")
+        t1 = time.perf_counter()
+        xl_single, xl_peak, xl_upd, xl_path = _one_process(
+            torch, train_cli, DIST_XL_ARGV + ["--loss-impl", "kernel"],
+            DIST_MOE_WORLD, dev, tmp.name, "h", init=xl_init)
+        xl_s = time.perf_counter() - t1
     except BaseException:
         tmp.cleanup()
         raise
@@ -8332,8 +8537,15 @@ def phase_dist_moe(torch, np, card, dev):
           f"{[round(x, 6) for x in want['loss']]}, aux "
           f"{[round(x, 7) for x in want['aux']]}, grad norms "
           f"{[round(x, 6) for x in want['grad_norm']]}, peak "
-          f"{peak1 / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f}s",
+          f"{peak1 / 2**30:.2f} GiB, {time.perf_counter() - t0 - xl_s:.1f}s",
           flush=True)
+    xl_arch = train_cli.arch_of(train_cli.parse_args(DIST_XL_ARGV))
+    print(f"[dist] (h) one process, {xl_arch.arch_id} at d "
+          f"{xl_arch.cfg.d_model}, {xl_arch.cfg.n_layers} blocks "
+          f"(contract_slstm), --loss-impl kernel: losses "
+          f"{[round(h['loss'], 6) for _, h in xl_single]}, grad norms "
+          f"{[round(h['grad_norm'], 6) for _, h in xl_single]}, peak "
+          f"{xl_peak / 2**30:.2f} GiB, {xl_s:.1f}s", flush=True)
     t1 = time.perf_counter()
     # the ranks' allocators grow their segments in place: four processes
     # share the card, and a cached block one of them cannot use is
@@ -8342,15 +8554,20 @@ def phase_dist_moe(torch, np, card, dev):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         ranks = M.spawn_world(dist_moe_rank, m * DIST_MOE_WORLD[0],
-                              (ref_path, upd), device="cuda", join_s=900)
+                              (ref_path, upd, xl_path, xl_upd),
+                              device="cuda", join_s=900)
     finally:
         tmp.cleanup()
         if conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
-    print(f"[dist] (f) world {DIST_MOE_WORLD} of {len(ranks)} ranks: both "
-          f"layouts in {time.perf_counter() - t1:.1f}s", flush=True)
+    print(f"[dist] (f), (h) world {DIST_MOE_WORLD} of {len(ranks)} ranks: "
+          f"(f)'s layouts and (h) in {time.perf_counter() - t1:.1f}s",
+          flush=True)
+    shapes, specs, _, _ = _whole_layout(torch, arch, DIST_MOE_WORLD, False)
+    want_held = {k: _cut_shape(v, specs.get(k, ()), m)
+                 for k, v in shapes.items()}
     launches, bad = {}, []
     for impl in ("sharded", "sharded_sp"):
         for r in ranks:
@@ -8371,26 +8588,18 @@ def phase_dist_moe(torch, np, card, dev):
             if max(rel["grad_norm"]) > DIST_GNORM_RTOL:
                 bad.append(f"{tag}: grad norms {got['grad_norm']} vs one "
                            f"process {want['grad_norm']}")
-            head, whole, body = _param_ratios(tr["params"])
+            head, whole, body = _param_ratios(tr["param_errs"])
             worst = max(body, key=body.get)
-            far = tr["params"][worst][2]
+            far = tr["param_errs"][worst][2]
             if max(head, whole) > DIST_MOE_PARAM_RTOL or \
                     body[worst] > DIST_MOE_PARAM_LEAF:
                 bad.append(f"{tag}: params off the one process's update: "
                            f"lm_head {head}, body {whole}, leaf {worst} "
                            f"{body[worst]}")
-            held = tr["held"]
-            want_held = {"lm_head": (v_rank, cfg.d_model),
-                         "embed/table": (cfg.vocab_size, cfg.d_model // m)}
-            for i in range(cfg.n_layers):
-                want_held[f"blocks/{i}/moe/wi"] = (
-                    cfg.num_experts // m, cfg.d_model, cfg.d_ff_expert)
-                want_held[f"blocks/{i}/moe/wg"] = want_held[
-                    f"blocks/{i}/moe/wi"]
-                want_held[f"blocks/{i}/moe/wo"] = (
-                    cfg.num_experts // m, cfg.d_ff_expert, cfg.d_model)
+            held = tr["held"]["params"]
             if held != want_held:
-                bad.append(f"{tag}: holds {held}, expected {want_held}")
+                bad.append(f"{tag}: holds {held}, its specs say "
+                           f"{want_held}")
             off = (r["rank"] % m) * v_rank
             for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
                 n, by = tr["launches"].get(k, (0, {}))
@@ -8399,8 +8608,12 @@ def phase_dist_moe(torch, np, card, dev):
                 launches[k] = launches.get(k, 0) + n
             st = tr["collectives"]
             print(f"[dist] {tag}: holds {held['blocks/0/moe/wi'][0]} "
-                  f"experts, {held['embed/table'][1]} embedding columns, "
-                  f"{held['lm_head'][0]} lm_head rows; loss rel "
+                  f"experts and router columns, "
+                  f"{held['blocks/0/attn/wq'][1]} q and "
+                  f"{held['blocks/0/attn/wk'][1]} KV heads, "
+                  f"{held['embed/table'][1]} embedding columns, "
+                  f"{held['lm_head'][0]} lm_head rows; "
+                  f"{_held_line(tr['held'])}; loss rel "
                   f"{[f'{x:.2e}' for x in rel['loss']]}, ce "
                   f"{[f'{x:.2e}' for x in rel['ce']]}, aux "
                   f"{[f'{x:.2e}' for x in rel['aux']]}, grad norms "
@@ -8424,9 +8637,23 @@ def phase_dist_moe(torch, np, card, dev):
               f"{[round(x, 6) for x in losses]} against one process's "
               f"{[round(x, 6) for x in want['loss']]}; the 4 ranks' peaks "
               f"sum to {peaks / 2**30:.2f} GiB", flush=True)
+    # (h): xlstm's recurrent leaves gathered at use, its sLSTM MLPs
+    # tensor-parallel, against one process with (b)'s gates
+    _check_mesh_runs("(h)", ranks, "xlstm", xl_single, card, launches, bad,
+                     world=DIST_MOE_WORLD, vocab=xl_arch.padded_vocab,
+                     gates=DIST_XL_GATES)
+    shapes, specs, _, _ = _whole_layout(torch, xl_arch, DIST_MOE_WORLD,
+                                        False)
+    want_xl = {k: _cut_shape(v, specs.get(k, ()), m)
+               for k, v in shapes.items()}
+    for r in ranks:
+        if r["xlstm"]["sharded"]["held"]["params"] != want_xl:
+            bad.append(f"(h) rank {r['rank']}: holds "
+                       f"{r['xlstm']['sharded']['held']['params']}, its "
+                       f"specs say {want_xl}")
     if bad:
-        raise AssertionError("phase 19 (f): " + "\n".join(bad))
-    print(f"[dist] phase 19 (f) in {time.perf_counter() - t0:.1f}s",
+        raise AssertionError("phase 19 (f), (h): " + "\n".join(bad))
+    print(f"[dist] phase 19 (f) and (h) in {time.perf_counter() - t0:.1f}s",
           flush=True)
     return launches
 
@@ -8623,8 +8850,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_dist_moe(torch, np, card, dev).items():
-        dist[key] = dist.get(key, 0) + n               # and its (f)
-    mark("phase 19 (f)")
+        dist[key] = dist.get(key, 0) + n               # (f) and (h)
+    mark("phase 19 (f) and (h)")
 
     main_case = kernels["rows8_k1"]          # the greedy decode step
     record = {"kernels": [{

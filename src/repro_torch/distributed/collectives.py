@@ -17,14 +17,14 @@ H100): nothing is staged by hand.
 same collectives under autograd, each with the backward its call site's
 cotangent needs (see each docstring); every collective they run, either
 way, counts in `STATS` as above.  `MeshContext` is what a model body
-reads of its mesh.
+reads of its mesh, the edges of its tensor-parallel regions among it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,11 +68,36 @@ class MeshContext:
     reference's ``shard`` argument): the mesh, the axes that split the
     batch rows (``rows_axes``: "pod" and "data"), and whether the rows
     are split over "model" too (``rows_over_model``: the 'sharded_sp'
-    layout; else the body is replicated over "model")."""
+    layout; else the body is replicated over "model").
+
+    ``specs`` maps each param's stacked path (``sharding.rules.
+    stacked_path``: "blocks/attn/wq") to the spec over "model" that
+    `train.TrainLayout` cut it by, in its per-layer form; a leaf missing
+    from it (or every leaf, where ``specs`` is None) is whole.  A layer
+    reads its own leaves' specs through `sub` (the context at a subtree)
+    and `cut`; ``lead`` leading entries of each spec are dropped (a
+    slice of a stacked leaf, as the MTP heads take).
+
+    A tensor-parallel region (Megatron's column-parallel then
+    row-parallel pair) takes its input through `region_in` (or, fused
+    with its column-parallel products, `column_in`) and leaves through
+    `region_out`: with the body replicated over "model", the identity
+    with a summed backward, then one all-reduce; with the rows split
+    over "model" (Megatron's sequence-parallel form over the batch
+    rows), an all-gather of the rows, then one reduce-scatter back to
+    this rank's rows.  The ranks' partial outputs (`matmul_f32`) and, in
+    `column_in`'s backward, their partial input cotangents are summed in
+    f32 and rounded to the activations' dtype once, as one process's
+    GEMM rounds its f32 accumulator once: M partials rounded apart
+    would move a bf16 body by an ulp where one process's does not."""
 
     mesh: Any
     rows_axes: Tuple[str, ...]
     rows_over_model: bool = False
+    specs: Optional[Mapping[str, tuple]] = dataclasses.field(
+        default=None, compare=False, hash=False)
+    prefix: str = ""
+    lead: int = 0
 
     @property
     def model(self) -> int:
@@ -84,6 +109,134 @@ class MeshContext:
         """Every axis that splits this rank's rows from the others'."""
         return self.rows_axes + (("model",) if self.rows_over_model
                                  and self.model > 1 else ())
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.axis_index("model") if self.model > 1 else 0
+
+    def sub(self, name: str, lead: int = 0) -> "MeshContext":
+        """The context at the subtree `name` (a "/"-joined path below this
+        one), `lead` more leading spec entries dropped."""
+        return dataclasses.replace(
+            self, prefix=f"{self.prefix}/{name}" if self.prefix else name,
+            lead=self.lead + lead)
+
+    def spec(self, name: str) -> tuple:
+        key = f"{self.prefix}/{name}" if self.prefix else name
+        spec = (self.specs or {}).get(key, ())
+        return tuple(spec[self.lead:])
+
+    def cut(self, name: str) -> Optional[int]:
+        """The dim of leaf `name` that is cut over "model", or None."""
+        spec = self.spec(name)
+        return spec.index("model") if "model" in spec else None
+
+    def region_in(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` (this rank's rows) entering a tensor-parallel region: the
+        region's rows, the same on every "model" rank."""
+        if self.rows_over_model:
+            return gather_ad(x, self.mesh, "model", dim=0, grad="partial")
+        return enter(x, self.mesh, "model")
+
+    def column_in(self, x: torch.Tensor, *ws: torch.Tensor):
+        """`x` (this rank's rows, (..., d)) entering a region through its
+        column-parallel products: ``region_in(x) @ w`` for each `w` (d,
+        ...) of this rank's columns.  The backward sums the products'
+        input cotangents in f32 before the region's sum over "model"."""
+        return _ColumnIn.apply(self, x, *ws)
+
+    def region_out(self, y: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The sum over "model" of the ranks' partial outputs `y` of a
+        region, on this rank's rows, cast to `dtype` after the sum."""
+        if self.rows_over_model:
+            y = scatter_ad(y, self.mesh, "model", dim=0)
+        else:
+            y = exit_sum(y, self.mesh, "model")
+        return y if dtype is None else y.to(dtype)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 2-D product ``a @ b`` in f32 without a rounded intermediate: a
+    CUDA GEMM of bf16 / fp16 operands keeps its f32 accumulator
+    (``out_dtype``); elsewhere the operands are widened first."""
+    if a.dtype == b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.dtype == b.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ w`` over a's last dim and w's first with an f32 result (the
+    partial output of a row-parallel product, summed over "model" in
+    f32); the backward, in the operands' dtype, is the product's."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        a2, w2 = a.reshape(-1, w.shape[0]), w.reshape(w.shape[0], -1)
+        ctx.save_for_backward(a2, w2)
+        ctx.shapes = a.shape, w.shape
+        return mm_f32(a2, w2).reshape(a.shape[:-1] + w.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, w2 = ctx.saved_tensors
+        a_shape, w_shape = ctx.shapes
+        g2 = g.reshape(a2.shape[0], -1).to(a2.dtype)
+        da = (g2 @ w2.t()).reshape(a_shape) if ctx.needs_input_grad[0] \
+            else None
+        dw = (a2.t() @ g2).reshape(w_shape) if ctx.needs_input_grad[1] \
+            else None
+        return da, dw
+
+
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`_MatmulF32`: a (..., k) times w (k, ...) -> (..., *w.shape[1:])
+    in f32."""
+    return _MatmulF32.apply(a, w)
+
+
+class _ColumnIn(torch.autograd.Function):
+    """`MeshContext.column_in`: the region's rows (the identity, or an
+    all-gather over "model" of rows split over it) times each weight;
+    the backward sums every product's input cotangent in f32, sums
+    those over "model" (all-reduce, or reduce-scatter back to this
+    rank's rows) and rounds once."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, *ws):
+        xg = all_gather(x, mesh.mesh, "model") if mesh.rows_over_model \
+            else x
+        x2 = xg.reshape(-1, xg.shape[-1])
+        ctx.save_for_backward(x2, *ws)
+        ctx.mesh, ctx.xg_shape = mesh, xg.shape
+        return tuple((x2 @ w.reshape(w.shape[0], -1)).reshape(
+            xg.shape[:-1] + w.shape[1:]) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x2, *ws = ctx.saved_tensors
+        mesh = ctx.mesh
+        dx, dws = None, []
+        for i, (g, w) in enumerate(zip(gs, ws)):
+            if g is None:
+                dws.append(None)
+                continue
+            w2 = w.reshape(w.shape[0], -1)
+            g2 = g.reshape(x2.shape[0], -1).to(x2.dtype)
+            part = mm_f32(g2, w2.t())
+            dx = part if dx is None else dx + part
+            dws.append((x2.t() @ g2).reshape(w.shape)
+                       if ctx.needs_input_grad[2 + i] else None)
+        if dx is not None:
+            dx = dx.reshape(ctx.xg_shape)
+            if mesh.rows_over_model:
+                dx = psum_scatter(dx, mesh.mesh, "model")
+            else:
+                dx = psum(dx, mesh.mesh, "model")
+            dx = dx.to(x2.dtype)
+        return (None, dx, *dws)
+
 
 # torch 2.13 renames the two tensor collectives (same ops underneath)
 _GATHER = getattr(dist, "all_gather_single", None) or \

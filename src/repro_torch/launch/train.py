@@ -37,13 +37,20 @@ whose keys carry ``cuda`` or ``torch_cpu`` and never resolve a JAX
 package's winner.
 
 ``--devices D,M --loss-impl sharded | sharded_sp`` trains on a
-(data = D, model = M) mesh of D * M ranks: the paper's distributed fused
-loss (`core.sharded`, the '2d' layout or the SP -> TP gather) on each
-rank's fused-CE kernels, the body data-parallel and replicated over
-``model`` but for the leaves cut over it (`train.TrainLayout`): the
-lm_head by vocab, the embedding table by d, and an MoE model's experts
-(expert parallelism: qwen3-moe-235b-a22b, arctic-480b).  A rank builds
-its own part of the params and optimizer state, never the whole state.
+(data = D, model = M) mesh of D * M ranks, with AdamW or
+``--optimizer adafactor``: the paper's distributed fused loss
+(`core.sharded`, the '2d' layout or the SP -> TP gather) on each rank's
+fused-CE kernels, the body data-parallel over ``data`` and every leaf
+and optimizer slot cut over ``model`` by its spec (`train.TrainLayout`):
+the lm_head by vocab, the embedding table by d, attention by heads and
+the MLPs by ffn (Megatron tensor parallelism, one sum over ``model`` a
+region), an MoE model's experts and router by expert (expert
+parallelism: qwen3-moe-235b-a22b, arctic-480b), the rest by the rules'
+fallback and gathered at use (norm scales, griffin's and xlstm's
+recurrent leaves); a leaf whose spec has no ``model`` entry stays whole.
+A rank builds its own part of the params and optimizer state, never the
+whole state, and prints what it holds of the body's leaves beside its
+peak memory.
 ``--n-layers N`` cuts the model to its first N layers at its published
 widths.  Without ``RANK``
 and ``WORLD_SIZE`` in the environment the launcher spawns the ranks
@@ -236,15 +243,31 @@ def _rank_main(rank, argv, params):
     from repro_torch.launch import mesh as M
     args = parse_args(argv)
     mesh = M.make_local_mesh(*args.devices, device=_rank_device(args))
-    _, history = _train(args, None if params is None else _own(params),
-                        mesh)
-    peak = (torch.cuda.max_memory_allocated(mesh.device)
-            if mesh.device.type == "cuda" else 0)
+    _, history, held = _run(args, None if params is None else _own(params),
+                            mesh)
     return {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
-            "history": history, "peak_bytes": int(peak),
+            "history": history, "peak_bytes": _peak(mesh.device),
+            "held": held,
             "launches": {k: (c.count, dict(c.by_offset))
                          for k, c in build.COUNTERS.items() if c.count},
             "collectives": C.STATS.to_dict()}
+
+
+def held_bytes(state, layout) -> dict:
+    """What a rank holds of its train state: the body's leaves (every
+    param but the lm_head and the embedding table) against their whole
+    size, and the optimizer state."""
+    from repro_torch.optim.tree import leaves
+    body, whole = layout.held_bytes(state["params"])
+    opt = sum(t.numel() * t.element_size() for t in leaves(
+        {k: v for k, v in state["opt"].items() if k in ("mu", "nu",
+                                                        "slots")}))
+    return {"body": body, "body_whole": whole, "opt": opt}
+
+
+def _peak(device) -> int:
+    return int(torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else 0)
 
 
 def _own(tree):
@@ -267,7 +290,14 @@ def _rank_device(args) -> torch.device:
 
 
 def _train(args, params, mesh):
-    """One process's run: on one device, or as one rank of `mesh`."""
+    """One process's run: on one device, or as one rank of `mesh`:
+    (state, history)."""
+    return _run(args, params, mesh)[:2]
+
+
+def _run(args, params, mesh):
+    """`_train`, and on a mesh what this rank holds (`held_bytes`; else
+    None)."""
     rank0 = mesh is None or mesh.rank == 0
     logging.basicConfig(
         level=logging.INFO if rank0 else logging.WARNING,
@@ -291,7 +321,7 @@ def _train(args, params, mesh):
     else:
         if layout is not None:
             params = layout.shard_params(params)
-        state = init_state(arch, tc, params)
+        state = init_state(arch, tc, params, layout)
 
     dc = DataConfig(vocab_size=arch.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch, seed=args.seed)
@@ -311,6 +341,16 @@ def _train(args, params, mesh):
         checkpoint_every=args.ckpt_every, log_every=args.log_every,
         preemption=PreemptionHandler(), straggler=StragglerMonitor(),
         on_start=on_start, layout=layout if ck is not None else None)
+    held = None
+    if mesh is not None:
+        # each rank's part of the state; a spawned rank's report carries
+        # it too
+        held = h = held_bytes(state, layout)
+        print(f"[train] rank {mesh.rank} {mesh.coords}: holds "
+              f"{h['body'] / 2**20:.1f} MiB of the body's leaves (whole "
+              f"{h['body_whole'] / 2**20:.1f} MiB), optimizer state "
+              f"{h['opt'] / 2**20:.1f} MiB; peak "
+              f"{_peak(device) / 2**20:.1f} MiB", flush=True)
     if mesh is not None and rank0:
         print(f"[train] {mesh.describe()}", flush=True)
     if history and rank0:
@@ -322,7 +362,7 @@ def _train(args, params, mesh):
               f"{first:.4f} -> {last:.4f} over {len(history)} logged steps "
               f"on {device}")
     if not rank0:
-        return state, history
+        return state, history, held
     if args.stats_json is not None:
         obs.export.dump_json(
             {"arch": arch.arch_id, "steps": args.steps,
@@ -336,7 +376,7 @@ def _train(args, params, mesh):
     if args.trace_out is not None:
         obs.export.write_trace(obs.get_tracer(), args.trace_out,
                                fmt=args.trace_format, tag="train")
-    return state, history
+    return state, history, held
 
 
 if __name__ == "__main__":

@@ -33,6 +33,11 @@ back to q's dtype, V in f32), a paged pool through the kernel's int8
 option, and a paged prefix hit's suffix prefill over a dequantized view
 of the chain.  A prefill attends within its own fresh, unquantized K/V.
 
+On a mesh (training, `attention_layer`'s ``mesh``) the cache-free layer
+is a Megatron tensor-parallel region by heads (`_tp_attention`), or
+runs whole on leaves gathered at use where M does not divide the q
+heads.
+
 Paged decode (a cache dict with a ``'table'``) goes through the
 hand-written Hopper kernel `repro_torch.kernels.paged_attn` when
 ``paged_impl='kernel'`` (its plain version for CPU tensors), or through
@@ -104,6 +109,11 @@ def _project_qkv(params, x, positions, cfg: AttnConfig):
     q = torch.einsum("btd,dnh->btnh", x, params["wq"])
     k = torch.einsum("btd,dnh->btnh", x, params["wk"])
     v = torch.einsum("btd,dnh->btnh", x, params["wv"])
+    return _qkv_post(params, q, k, v, positions, cfg)
+
+
+def _qkv_post(params, q, k, v, positions, cfg: AttnConfig):
+    """The projections' biases, qk-norms and RoPE."""
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if cfg.qk_norm:
@@ -111,6 +121,59 @@ def _project_qkv(params, x, positions, cfg: AttnConfig):
         k = L.head_rmsnorm(params["k_norm"], k)
     cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def kv_heads_of(q0: int, nq_local: int, cfg: AttnConfig):
+    """The KV heads that q heads ``q0 .. q0 + nq_local - 1`` read, and
+    whether they form whole GQA groups (each of them read by the same
+    number of those q heads, in order): a range ``[lo, hi)``, else one
+    KV head a q head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    of = [(q0 + i) // g for i in range(nq_local)]
+    lo, n = of[0], of[-1] + 1 - of[0]
+    if nq_local % n == 0 and all(
+            of[i] - lo == i // (nq_local // n) for i in range(nq_local)):
+        return list(range(lo, lo + n))
+    return of
+
+
+def _tp_attention(params, x, cfg: AttnConfig, mesh):
+    """The cache-free attention layer as a tensor-parallel region: rank
+    r's q heads are block r of ``wq`` / ``bq`` (column-parallel), its
+    output projection the same block of ``wo``'s heads (row-parallel),
+    summed over "model" once at the exit.  Its KV heads are its block of
+    ``wk`` / ``wv`` / ``bk`` / ``bv`` where M divides them too (the GQA
+    groups line up); else those leaves are gathered whole inside the
+    region and the KV heads its q heads read are taken from them
+    (`kv_heads_of`).  ``q_norm`` / ``k_norm`` stay whole."""
+    from repro_torch.distributed import collectives as C
+    m = mesh.model
+    nq = cfg.num_heads // m
+    q0 = mesh.model_index * nq
+    aligned = cfg.num_kv_heads % m == 0
+    kv = None if aligned else kv_heads_of(q0, nq, cfg)
+    p = {"wq": L.tp_block(params, "wq", 1, mesh)}
+    for name in ("wk", "wv"):
+        p[name] = L.tp_block(params, name, 1, mesh, index=kv)
+    if cfg.qkv_bias:
+        p["bq"] = L.tp_block(params, "bq", 0, mesh)
+        for name in ("bk", "bv"):
+            p[name] = L.tp_block(params, name, 0, mesh, index=kv)
+    if cfg.qk_norm:
+        # in f32 (the norm widens its scale anyway): each rank's gradient
+        # over its heads is summed over model before it is rounded once
+        for name in ("q_norm", "k_norm"):
+            p[name] = L.gathered_leaf(params[name].float(), name, mesh,
+                                      inside=True)
+    q, k, v = mesh.column_in(x, p["wq"], p["wk"], p["wv"])
+    b, t = q.shape[:2]
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    q, k, v = _qkv_post(p, q, k, v, positions, cfg)
+    out = blockwise_attention(q, k, v, cfg).to(x.dtype)
+    wo = L.tp_block(params, "wo", 0, mesh)
+    y = C.matmul_f32(out.reshape(b, t, -1),
+                     wo.reshape(-1, wo.shape[-1]))
+    return mesh.region_out(y, x.dtype)
 
 
 def _tile_scores(qb, kb, cfg: AttnConfig):
@@ -574,6 +637,7 @@ def attention_layer(
     decode: bool = False,
     prefill_ext: bool = False,
     valid: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention layer: returns (out, new_cache).
 
@@ -594,7 +658,20 @@ def attention_layer(
     cached prefix through `extend_attention`.  The cache's k/v tensors
     or pools are updated in place; the returned cache carries the new
     ``len``.
+
+    `mesh` (a `MeshContext` at the layer's subtree; training only, no
+    cache): where the layout cut ``wq`` by heads the layer is one
+    tensor-parallel region (Megatron, `_tp_attention`); otherwise its
+    leaves are gathered at use and every rank runs the whole layer.
     """
+    if mesh is not None:
+        if cache is not None or positions is not None:
+            raise ValueError("attention_layer takes a mesh in the "
+                             "cache-free training forward only, at "
+                             "positions 0..T-1")
+        if mesh.model > 1 and mesh.cut("wq") == 1:
+            return _tp_attention(params, x, cfg, mesh), None
+        params = L.gathered(params, mesh)
     b, t, _ = x.shape
     is_decode = decode or t == 1
     if cfg.window is not None and cache is not None and "table" in cache \

@@ -209,20 +209,29 @@ def init_params(cfg: EncDecConfig, generator: torch.Generator,
 
 
 def encode(params, frame_embeds: torch.Tensor,
-           cfg: EncDecConfig) -> torch.Tensor:
-    """The encoder output (B, T_enc, d) of frames (B, T_enc, d)."""
+           cfg: EncDecConfig, mesh=None) -> torch.Tensor:
+    """The encoder output (B, T_enc, d) of frames (B, T_enc, d).  On a
+    mesh (`mesh`, a `MeshContext`) every block's leaves are gathered at
+    use and every rank runs the whole block on its rows."""
     x = frame_embeds.to(dtype_of(cfg.compute_dtype))
     remat = cfg.remat and torch.is_grad_enabled()
+    def block(p, x):
+        if mesh is not None:
+            p = L.gathered(p, mesh.sub("enc"))
+        return apply_enc_block(p, x, cfg)
+
     for p in params["enc"]:
         if remat:
-            x = checkpoint(lambda x_, p_=p: apply_enc_block(p_, x_, cfg), x,
+            x = checkpoint(lambda x_, p_=p: block(p_, x_), x,
                            use_reentrant=False)
         else:
-            x = apply_enc_block(p, x, cfg)
+            x = block(p, x)
     return L.rmsnorm(params["ln_enc"], x, cfg.norm_eps)
 
 
-def _train_dec_block(p, x, enc_out, cfg):
+def _train_dec_block(p, x, enc_out, cfg, mesh=None):
+    if mesh is not None:
+        p = L.gathered(p, mesh.sub("dec"))
     return apply_dec_block(p, x, cross_kv(p["cross_attn"], enc_out), cfg)[0]
 
 
@@ -231,7 +240,8 @@ def decode_hidden(params, tokens: torch.Tensor, enc_out, cfg: EncDecConfig,
                   prefill_ext: bool = False, mesh=None):
     """The decoder: (hidden (B, T, d), new self caches).  Training passes
     `enc_out` alone (each layer projects its cross K/V from it), and on a
-    mesh its `MeshContext`, which reaches the embedding; serving passes
+    mesh its `MeshContext`, which reaches the embedding and gathers each
+    block's leaves at use; serving passes
     the per-layer `cross` K/V and the stacked self `caches`, whose
     per-layer views each layer writes IN PLACE."""
     x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
@@ -242,10 +252,11 @@ def decode_hidden(params, tokens: torch.Tensor, enc_out, cfg: EncDecConfig,
         for p in params["dec"]:
             if remat:
                 x = checkpoint(
-                    lambda x_, e_, p_=p: _train_dec_block(p_, x_, e_, cfg),
+                    lambda x_, e_, p_=p: _train_dec_block(p_, x_, e_, cfg,
+                                                          mesh),
                     x, enc_out, use_reentrant=False)
             else:
-                x = _train_dec_block(p, x, enc_out, cfg)
+                x = _train_dec_block(p, x, enc_out, cfg, mesh)
         return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), None
     lens = []
     for i, p in enumerate(params["dec"]):
@@ -277,7 +288,7 @@ def forward(params, tokens: torch.Tensor, cfg: EncDecConfig, *,
     if frontend_embeds is None:
         raise ValueError("an enc-dec forward without caches needs "
                          "frontend_embeds (B, T_enc, d): the encoder input")
-    enc_out = encode(params, frontend_embeds, cfg)
+    enc_out = encode(params, frontend_embeds, cfg, mesh)
     x, _ = decode_hidden(params, tokens, enc_out, cfg, mesh=mesh)
     return x, aux, None
 

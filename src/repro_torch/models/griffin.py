@@ -271,8 +271,24 @@ def init_temporal_block(kind: str, cfg: GriffinConfig,
 
 def apply_temporal_block(p, x, kind: str, cfg: GriffinConfig, state=None,
                          decode: bool = False,
-                         true_len: Optional[int] = None):
-    if kind == "attn":
+                         true_len: Optional[int] = None, mesh=None):
+    """One temporal block and its MLP.  `mesh` (a `MeshContext` at the
+    block's subtree, training on a mesh): the local attention and the
+    MLP run as tensor-parallel regions (`attention_layer`, `layers.mlp`);
+    the recurrent block's leaves and the norms' scales are gathered at
+    use, every rank running the whole recurrence."""
+    ln_mlp = p["ln_mlp"]
+    if mesh is not None:
+        ln_mlp = L.gathered(ln_mlp, mesh.sub("ln_mlp"))
+    if kind == "attn" and mesh is not None:
+        tmesh = mesh.sub("temporal")
+        h, new_state = A.attention_layer(
+            p["temporal"]["attn"],
+            L.rmsnorm(L.gathered(p["temporal"]["ln"], tmesh.sub("ln")), x,
+                      cfg.norm_eps),
+            cfg.attn_config(), mesh=tmesh.sub("attn"))
+        x = x + h
+    elif kind == "attn":
         valid = None
         if true_len is not None and state is not None \
                 and true_len < x.shape[1]:
@@ -284,9 +300,13 @@ def apply_temporal_block(p, x, kind: str, cfg: GriffinConfig, state=None,
             cfg.attn_config(), cache=state, decode=decode, valid=valid)
         x = x + h
     else:
-        x, new_state = apply_recurrent_block(p["temporal"], x, cfg,
+        temporal = p["temporal"]
+        if mesh is not None:
+            temporal = L.gathered(temporal, mesh.sub("temporal"))
+        x, new_state = apply_recurrent_block(temporal, x, cfg,
                                              state=state, true_len=true_len)
-    y = L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    y = L.mlp(p["mlp"], L.rmsnorm(ln_mlp, x, cfg.norm_eps),
+              None if mesh is None else mesh.sub("mlp"))
     return x + y, new_state
 
 
@@ -338,7 +358,8 @@ def forward(params, tokens: torch.Tensor, cfg: GriffinConfig, *,
     rounding, module docstring).  A cache-free forward under autograd
     rematerializes each super in its backward when ``remat`` is set, as
     the JAX package's ``jax.checkpoint`` of the scanned super.  `mesh`
-    (a `MeshContext`, training on a mesh) reaches the embedding."""
+    (a `MeshContext`, training on a mesh) reaches the embedding and
+    every block (`apply_temporal_block`)."""
     if states is None:
         true_len = None                      # training: no carried state
     x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
@@ -346,13 +367,17 @@ def forward(params, tokens: torch.Tensor, cfg: GriffinConfig, *,
         _dtype(cfg.compute_dtype))
     n_super, rem = _layout(cfg)
 
+    def sub(name):
+        return None if mesh is None else mesh.sub(name)
+
     def apply_super(p, x, st):
         new_st = {} if st is not None else None
         for i, kind in enumerate(cfg.pattern):
             s_i = st[f"b{i}"] if st is not None else None
             x, ns = apply_temporal_block(p[f"b{i}"], x, kind, cfg,
                                          state=s_i, decode=decode,
-                                         true_len=true_len)
+                                         true_len=true_len,
+                                         mesh=sub(f"supers/b{i}"))
             if st is not None:
                 new_st[f"b{i}"] = ns
         return x, new_st
@@ -374,7 +399,7 @@ def forward(params, tokens: torch.Tensor, cfg: GriffinConfig, *,
         st = states[f"rem{i}"] if states is not None else None
         x, ns = apply_temporal_block(params[f"rem{i}"], x, kind, cfg,
                                      state=st, decode=decode,
-                                     true_len=true_len)
+                                     true_len=true_len, mesh=sub(f"rem{i}"))
         if states is not None:
             new_states[f"rem{i}"] = ns
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)

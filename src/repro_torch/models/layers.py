@@ -166,23 +166,110 @@ def init_mlp(d_model, d_ff, generator: torch.Generator, *,
     return p
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Gated SiLU MLP ``(silu(x @ wg) * (x @ wi)) @ wo`` or, without
     ``wg``, ``gelu(x @ wi + bi) @ wo + bo``; the activation in f32, the
     GeLU in its tanh form (JAX's ``jax.nn.gelu`` default), the biases
-    added in the input dtype."""
-    up = x @ params["wi"]
-    if "bi" in params:
-        up = up + params["bi"]
-    if "wg" in params:
-        gate = x @ params["wg"]
-        act = F.silu(gate.float()).to(x.dtype) * up
-    else:
-        act = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    out = act @ params["wo"]
+    added in the input dtype.
+
+    On a mesh (`mesh`, a `MeshContext` at the MLP's subtree) whose
+    layout cut ``wi`` by ffn, the MLP is one tensor-parallel region
+    (Megatron): ``wi`` / ``wg`` / ``bi`` column-parallel, ``wo``
+    row-parallel, one sum over "model" at the exit, ``bo`` added once
+    after it.  Otherwise its leaves are gathered at use (`gathered`)."""
+    if mesh is not None and mlp_split(mesh):
+        out = mesh.region_out(mlp_part(params, x, mesh), x.dtype)
+        return out + params["bo"] if "bo" in params else out
+    if mesh is not None:
+        params = gathered(params, mesh)
+    out = _mlp_act(x @ params["wi"], x @ params["wg"] if "wg" in params
+                   else None, params.get("bi"), x.dtype) @ params["wo"]
     if "bo" in params:
         out = out + params["bo"]
     return out
+
+
+def _mlp_act(up, gate, bi, dtype):
+    """The MLP's activation from its up (and gate) products: the bias
+    added in the input dtype, SiLU / GeLU in f32."""
+    if bi is not None:
+        up = up + bi
+    if gate is not None:
+        return F.silu(gate.float()).to(dtype) * up
+    return F.gelu(up.float(), approximate="tanh").to(dtype)
+
+
+def mlp_split(mesh) -> bool:
+    """Whether `mlp` runs tensor-parallel: the layout cut ``wi`` by ffn."""
+    return mesh.model > 1 and mesh.cut("wi") == 1
+
+
+def mlp_part(params, x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's partial output (f32, no ``bo``) of a tensor-parallel
+    MLP on the region's rows, from this rank's rows `x`: its ffn block of
+    ``wi`` / ``wg`` / ``bi`` (column-parallel, `MeshContext.column_in`)
+    and the rows of ``wo`` that match them (row-parallel,
+    `collectives.matmul_f32`)."""
+    from repro_torch.distributed import collectives as C
+    gated = "wg" in params
+    outs = mesh.column_in(x, *[tp_block(params, n, 1, mesh) for n in
+                               (("wi", "wg") if gated else ("wi",))])
+    bi = tp_block(params, "bi", 0, mesh) if "bi" in params else None
+    act = _mlp_act(outs[0], outs[1] if gated else None, bi, x.dtype)
+    return C.matmul_f32(act, tp_block(params, "wo", 0, mesh))
+
+
+# ---------------------------------------------------------------------------
+# leaves on a mesh: gathered at use, or this rank's block in a region
+# ---------------------------------------------------------------------------
+
+
+def gathered_leaf(t: torch.Tensor, name: str, mesh, inside: bool = False
+                  ) -> torch.Tensor:
+    """Leaf `name` of `mesh`'s subtree whole: all-gathered along its cut
+    dim (`collectives.gather_ad`), or as it is where it is whole.  Its
+    backward leaves this rank's block of the gradient summed over the
+    axes on which the ranks saw different rows: outside a
+    tensor-parallel region (``inside=False``) that is "model" only where
+    the rows are split over it; inside one every "model" rank uses the
+    whole leaf for its own part of the region, so the parts are summed
+    over "model" (a whole leaf there takes `collectives.enter`, unless
+    the rows are split over "model", whose whole-leaf gradients the
+    train step sums over it already)."""
+    from repro_torch.distributed import collectives as C
+    dim = mesh.cut(name)
+    if dim is None:
+        if inside and not mesh.rows_over_model:
+            return C.enter(t, mesh.mesh, "model")
+        return t
+    grad = "partial" if inside or mesh.rows_over_model else "replicated"
+    return C.gather_ad(t, mesh.mesh, "model", dim=dim, grad=grad)
+
+
+def gathered(tree, mesh, inside: bool = False):
+    """Every leaf of the param subtree `tree` (at `mesh`'s prefix) whole
+    (`gathered_leaf`): the leaves whose cut does not line up with a
+    tensor-parallel region (griffin's recurrent block, xlstm's cells,
+    the norm scales, attention heads that M does not divide)."""
+    return {k: gathered(v, mesh.sub(k), inside) if isinstance(v, dict)
+            else gathered_leaf(v, k, mesh, inside) for k, v in tree.items()}
+
+
+def tp_block(params, name: str, dim: int, mesh, index=None
+             ) -> torch.Tensor:
+    """This rank's block of leaf `name` along `dim` inside a
+    tensor-parallel region: the leaf itself where the layout cut it
+    there, else the block (or the rows `index`, a list) of the whole
+    leaf (`gathered_leaf` inside the region)."""
+    t = params[name]
+    if index is None and mesh.cut(name) == dim:
+        return t
+    whole = gathered_leaf(t, name, mesh, inside=True)
+    if index is not None:
+        return whole.index_select(dim, torch.tensor(index,
+                                                    device=whole.device))
+    n = whole.shape[dim] // mesh.model
+    return whole.narrow(dim, mesh.model_index * n, n)
 
 
 # ---------------------------------------------------------------------------

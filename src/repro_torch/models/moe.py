@@ -27,14 +27,19 @@ Semantics kept from the JAX package on purpose:
 Expert parallelism (the reference's ``shard_map`` branch): on a mesh
 (`distributed.collectives.MeshContext`) whose "model" size M > 1
 divides E, each rank holds the (E/M, ...) block of ``wi`` / ``wg`` /
-``wo`` at ``expert_offset = model_index * E/M`` and runs dispatch, FFN
-and combine for its own experts; the one collective of the layer is the
-sum of the ranks' combined outputs over "model".  Routing stays local to
-each rank's rows (one group a batch row), and the load-balance aux takes
-its means over every row of the mesh, so that every rank's aux is the
-whole batch's.  Without a mesh, or where E % M != 0, every expert runs
-on every rank, as in the reference; experts cut for the other branch
-raise.
+``wo`` and of the router's columns at ``expert_offset = model_index *
+E/M`` and runs dispatch, FFN and combine for its own experts inside a
+tensor-parallel region (`moe_part`), whose partial outputs are summed
+over "model" once at its exit (with arctic's dense MLP beside it, the
+two are summed together, `models.transformer.apply_block`).  The
+router is gathered at use, its logits computed on each rank's rows as
+one process computes them, so routing runs on the region's rows
+exactly as in one process, and the
+load-balance aux takes its means over every row of the mesh, so that
+every rank's aux is the whole batch's.  Without a mesh, or where
+E % M != 0, every expert runs on every rank, as in the reference, its
+leaves gathered at use where the layout cut them; experts cut for the
+other branch raise.
 """
 
 from __future__ import annotations
@@ -176,8 +181,8 @@ def route(router_logits: torch.Tensor, cfg: MoEConfig, cap: int,
 
 def _dispatch_ffn_combine(params, x: torch.Tensor, slot: torch.Tensor,
                           gate: torch.Tensor, cfg: MoEConfig, cap: int,
-                          n_local_experts: int, expert_offset: int
-                          ) -> torch.Tensor:
+                          n_local_experts: int, expert_offset: int,
+                          partial: bool = False) -> torch.Tensor:
     """Scatter -> expert FFN -> gather for `n_local_experts` experts.
 
     `slot` carries GLOBAL slot ids (expert * cap + pos, sentinel E*cap);
@@ -211,6 +216,8 @@ def _dispatch_ffn_combine(params, x: torch.Tensor, slot: torch.Tensor,
                          ye.new_zeros((g_, 1, d))], dim=1)  # sentinel row
     out_k = ye_flat.reshape(-1, d)[rows.reshape(-1)].reshape(g_, s_, k, d)
     out = (out_k * gate.to(ye.dtype)[..., None]).float().sum(dim=2)
+    if partial:                       # summed over the ranks in f32 first
+        return out
     return out.to(ye.dtype).to(x.dtype)
 
 
@@ -225,41 +232,71 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (G, S, d) -> (out (G, S, d), aux_loss scalar f32).
 
-    `mesh` (a `MeshContext`): x is this rank's rows, and under expert
-    parallelism `params` holds this rank's experts (module docstring).
-    Replicated rows (the body replicated over "model") enter the experts
-    through `enter` (the ranks' partial dx and gate cotangents summed in
-    the backward) and the combined outputs leave through `exit_sum`.
-    Rows split over "model" are gathered along G first (the backward
-    reduce-scatters their partial cotangents), and the summed output is
-    reduce-scattered back to this rank's rows."""
-    from repro_torch.distributed import collectives as C
-    e_ = cfg.num_experts
-    cap = capacity(cfg, x.shape[1])
-    router_logits = torch.einsum("gsd,de->gse", x.float(), params["router"])
-    slot, gate, aux = route(router_logits, cfg, cap, mesh=mesh)
-    aux = aux * cfg.aux_weight
+    `mesh` (a `MeshContext` at the layer's subtree): x is this rank's
+    rows.  Under expert parallelism the layer is one tensor-parallel
+    region (`MeshContext.region_in` / `region_out`: the rows replicated
+    over "model" enter as they are, rows split over it are gathered
+    first) around `moe_part`, whose partial outputs leave summed over
+    "model" (reduce-scattered back to this rank's rows where the rows
+    are split).  Without it every expert runs on every rank, on this
+    rank's rows, the leaves gathered at use where the layout cut
+    them."""
     ep = expert_parallel(cfg, mesh)
-    n_local = e_ // mesh.model if ep else e_
+    if not ep:
+        if mesh is not None:
+            params = L.gathered(params, mesh)
+        _check_experts(params, cfg, cfg.num_experts, ep)
+        cap = capacity(cfg, x.shape[1])
+        logits = torch.einsum("gsd,de->gse", x.float(), params["router"])
+        slot, gate, aux = route(logits, cfg, cap, mesh=mesh)
+        out = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap,
+                                    cfg.num_experts, 0)
+        return out, aux * cfg.aux_weight
+    y, aux = moe_part(params, x, cfg, mesh)
+    return mesh.region_out(y, x.dtype), aux
+
+
+def _check_experts(params, cfg: MoEConfig, n_local: int, ep: bool):
     if params["wi"].shape[0] != n_local:
         raise ValueError(
             f"moe_layer holds {params['wi'].shape[0]} experts where its "
             f"{'expert-parallel' if ep else 'whole-expert'} branch runs "
-            f"{n_local} of {e_}: the experts must be cut by their spec "
-            "exactly where the mesh's model axis divides E")
-    if not ep:
-        out = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap, e_, 0)
-        return out, aux
-    mesh_, offset = mesh.mesh, mesh.mesh.axis_index("model") * n_local
+            f"{n_local} of {cfg.num_experts}: the experts must be cut by "
+            "their spec exactly where the mesh's model axis divides E")
+
+
+def moe_part(params, x: torch.Tensor, cfg: MoEConfig, mesh
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's partial output (f32, summed over "model" before it is
+    rounded) of an expert-parallel layer on the region's rows, from this
+    rank's rows `x`, and the aux.
+
+    Rank r holds the (E/M, ...) block of ``wi`` / ``wg`` / ``wo`` at
+    ``expert_offset = r * E/M`` and the same block of the router's
+    columns.  The router is gathered at use and its logits computed on
+    this rank's rows before they enter the region (all-gathered there
+    where the rows are split over "model"): the same GEMM shape as one
+    process's on its columns, so the logits, and with them routing,
+    ties and drops, are one process's bit for bit (an f32 GEMM over E/M
+    columns accumulates in another order on the card: the H100 read 93%
+    of qwen3-moe's logits an ulp apart).  The gates enter the region
+    through `collectives.enter`, whose backward sums the ranks' partial
+    cotangents; the rows enter through `MeshContext.region_in`.  The
+    region's rows are split over the row axes only, and the aux's means
+    run over them."""
+    from repro_torch.distributed import collectives as C
+    n_local = cfg.num_experts // mesh.model
+    _check_experts(params, cfg, n_local, True)
+    offset = mesh.model_index * n_local
+    cap = capacity(cfg, x.shape[1])
+    router = L.gathered_leaf(params["router"], "router", mesh)
+    logits = torch.einsum("gsd,de->gse", x.float(), router)
     if mesh.rows_over_model:
-        x = C.gather_ad(x, mesh_, "model", grad="partial")
-        gate = C.gather_ad(gate, mesh_, "model", grad="partial")
-        slot = C.all_gather(slot, mesh_, "model")
-    else:
-        x = C.enter(x, mesh_, "model")
-        gate = C.enter(gate, mesh_, "model")
-    y = _dispatch_ffn_combine(params, x, slot, gate, cfg, cap, n_local,
-                              offset)
-    if mesh.rows_over_model:
-        return C.scatter_ad(y, mesh_, "model"), aux
-    return C.exit_sum(y, mesh_, "model"), aux
+        logits = C.gather_ad(logits, mesh.mesh, "model", grad="replicated")
+    slot, gate, aux = route(logits, cfg, cap,
+                            mesh=dataclasses.replace(mesh,
+                                                     rows_over_model=False))
+    gate = C.enter(gate, mesh.mesh, "model")
+    y = _dispatch_ffn_combine(params, mesh.region_in(x), slot, gate, cfg,
+                              cap, n_local, offset, partial=True)
+    return y, aux * cfg.aux_weight

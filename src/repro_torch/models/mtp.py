@@ -48,18 +48,22 @@ def init_heads(generator: torch.Generator, d_model: int, mcfg: MTPConfig,
 
 
 def apply_heads(params: Dict[str, Any], x: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
+                eps: float = 1e-6, mesh=None) -> torch.Tensor:
     """Per-head hidden states (..., n, d) for trunk hiddens x (..., d):
     position i's head h predicts the token at offset h+1 (the trunk
-    itself predicts offset 1)."""
+    itself predicts offset 1).  `mesh` (a `MeshContext` at the heads'
+    subtree, training on a mesh): each head block's MLP runs as a
+    tensor-parallel region, cut by ffn as the trunk's; the norms stay
+    whole."""
     n, depth = params["ln"]["scale"].shape[:2]
+    mlp_mesh = None if mesh is None else mesh.sub("mlp", lead=2)
     outs = []
     for h in range(n):
         xi = x
         for b in range(depth):
             mp = {k: v[h, b] for k, v in params["mlp"].items()}
             xi = xi + L.mlp(mp, L.rmsnorm(
-                {"scale": params["ln"]["scale"][h, b]}, xi, eps))
+                {"scale": params["ln"]["scale"][h, b]}, xi, eps), mlp_mesh)
         outs.append(L.rmsnorm({"scale": params["ln_out"]["scale"][h]}, xi,
                               eps))
     return torch.stack(outs, dim=-2)

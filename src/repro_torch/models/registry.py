@@ -105,14 +105,17 @@ def init_params(arch: Arch, generator: torch.Generator, device="cpu"):
     return params
 
 
-def apply_mtp_heads(arch: Arch, params, h: torch.Tensor) -> torch.Tensor:
-    """Per-head hidden states (..., n, d) from trunk hiddens (..., d)."""
+def apply_mtp_heads(arch: Arch, params, h: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
+    """Per-head hidden states (..., n, d) from trunk hiddens (..., d);
+    `mesh` as `forward_hidden`'s."""
     if "mtp" not in params:
         raise ValueError(
             "params carry no 'mtp' head subtree: init them via init_params "
             "on an arch with mtp.n_heads > 0")
     from repro_torch.models.mtp import apply_heads
-    return apply_heads(params["mtp"], h, eps=arch.cfg.norm_eps)
+    return apply_heads(params["mtp"], h, eps=arch.cfg.norm_eps,
+                       mesh=None if mesh is None else mesh.sub("mtp"))
 
 
 def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
@@ -133,8 +136,10 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
     training path applies the fused CE to every horizon from this one
     forward.  `mesh` (a `distributed.collectives.MeshContext`, training
     on a mesh): the batch is this rank's rows, and the params its shards
-    (the embedding's columns, the MoE layers' experts), as
-    `train.step.TrainLayout` cuts them."""
+    as `train.step.TrainLayout` cuts them (every leaf by its spec: the
+    embedding's columns, the attention heads, the MLPs' ffn, the MoE
+    layers' experts and router columns, the rest by the rules' rank
+    fallback)."""
     mod = _family_mod(arch)
     if arch.family in ("transformer", "encdec"):
         h, aux, c = mod.forward(
@@ -146,7 +151,7 @@ def forward_hidden(arch: Arch, params, batch: Dict[str, Any], *,
                                 states=caches, decode=decode,
                                 true_len=true_len, mesh=mesh)
     if return_heads:
-        return h, apply_mtp_heads(arch, params, h), aux, c
+        return h, apply_mtp_heads(arch, params, h, mesh), aux, c
     return h, aux, c
 
 

@@ -140,21 +140,44 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def apply_block(p, x, cfg: TransformerConfig, *, cache=None,
                 decode: bool = False, prefill_ext: bool = False,
                 mesh=None):
-    """Pre-norm block; returns (x, aux, new_cache).  `mesh` (a
-    `distributed.collectives.MeshContext`) reaches the MoE layer."""
+    """Pre-norm block; returns (x, aux, new_cache).
+
+    `mesh` (a `distributed.collectives.MeshContext` at the blocks'
+    subtree, training on a mesh): attention and the dense MLP run as
+    tensor-parallel regions over "model" (Megatron) where the layout cut
+    them so, the MoE layer as expert parallelism, the norms' scales
+    gathered at use.  Arctic's dense MLP beside an expert-parallel MoE
+    shares its region: their partial outputs are summed over "model"
+    once."""
+    ln_attn, ln_mlp = p["ln_attn"], p["ln_mlp"]
+    if mesh is not None:
+        ln_attn = L.gathered(ln_attn, mesh.sub("ln_attn"))
+        ln_mlp = L.gathered(ln_mlp, mesh.sub("ln_mlp"))
     h, new_cache = A.attention_layer(
-        p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
+        p["attn"], L.rmsnorm(ln_attn, x, cfg.norm_eps),
         cfg.attn_config(), cache=cache, decode=decode,
-        prefill_ext=prefill_ext)
+        prefill_ext=prefill_ext,
+        mesh=None if mesh is None else mesh.sub("attn"))
     x = x + h
-    xn = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
-    if cfg.is_moe:
-        mo, aux = M.moe_layer(p["moe"], xn, cfg.moe_config(), mesh)
-        if cfg.dense_ff_residual:
-            mo = mo + L.mlp(p["mlp"], xn)
+    xn = L.rmsnorm(ln_mlp, x, cfg.norm_eps)
+    mlp_mesh = None if mesh is None else mesh.sub("mlp")
+    if not cfg.is_moe:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + L.mlp(p["mlp"], xn, mlp_mesh), aux, new_cache
+    mcfg = cfg.moe_config()
+    moe_mesh = None if mesh is None else mesh.sub("moe")
+    if cfg.dense_ff_residual and M.expert_parallel(mcfg, moe_mesh) and \
+            L.mlp_split(mlp_mesh):
+        part, aux = M.moe_part(p["moe"], xn, mcfg, moe_mesh)
+        mo = mesh.region_out(part + L.mlp_part(p["mlp"], xn, mlp_mesh),
+                             xn.dtype)
+        if "bo" in p["mlp"]:
+            mo = mo + p["mlp"]["bo"]
         return x + mo, aux, new_cache
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.mlp(p["mlp"], xn), aux, new_cache
+    mo, aux = M.moe_layer(p["moe"], xn, mcfg, moe_mesh)
+    if cfg.dense_ff_residual:
+        mo = mo + L.mlp(p["mlp"], xn, mlp_mesh)
+    return x + mo, aux, new_cache
 
 
 def forward(
@@ -173,7 +196,8 @@ def forward(
     returned tree holds the same tensors and the new lens.
     ``prefill_ext`` marks a paged suffix prefill (`attention_layer`).
     `mesh` (a `MeshContext`, training on a mesh): tokens are this rank's
-    rows; the embedding and the MoE layers run on its shards of them."""
+    rows; the embedding and the blocks run on its shards of them
+    (`apply_block`)."""
     x = L.embed_lookup(params["embed"]["table"], tokens, mesh,
                        cfg.d_model).to(
         dtype_of(cfg.compute_dtype))
@@ -182,10 +206,11 @@ def forward(
     lens = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = caches is None and cfg.remat and torch.is_grad_enabled()
+    blocks = None if mesh is None else mesh.sub("blocks")
     for i, p in enumerate(params["blocks"]):
         if remat:
             x, a = checkpoint(
-                lambda x_, p_=p: apply_block(p_, x_, cfg, mesh=mesh)[:2],
+                lambda x_, p_=p: apply_block(p_, x_, cfg, mesh=blocks)[:2],
                 x, use_reentrant=False)
             aux = aux + a
             continue
@@ -193,7 +218,7 @@ def forward(
         if caches is not None:
             cache = {key: val[i] for key, val in caches.items()}
         x, a, new_cache = apply_block(p, x, cfg, cache=cache, decode=decode,
-                                      prefill_ext=prefill_ext, mesh=mesh)
+                                      prefill_ext=prefill_ext, mesh=blocks)
         aux = aux + a
         if new_cache is not None:
             lens.append(new_cache["len"])

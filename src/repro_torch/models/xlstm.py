@@ -354,9 +354,10 @@ def init_slstm_block(cfg: XLSTMConfig, generator: torch.Generator, dtype,
 
 
 def apply_slstm_block(p, x, cfg: XLSTMConfig, state=None,
-                      true_len: Optional[int] = None):
+                      true_len: Optional[int] = None, mlp_mesh=None):
     """The forget bias is added in the model's dtype, before the cell's
-    per-step upcast (as the reference)."""
+    per-step upcast (as the reference).  `mlp_mesh` (a `MeshContext` at
+    the MLP's subtree) runs the MLP as a tensor-parallel region."""
     b, t, d = x.shape
     nh = cfg.num_heads
     xin = L.rmsnorm(p["ln"], x, cfg.norm_eps)
@@ -374,7 +375,8 @@ def apply_slstm_block(p, x, cfg: XLSTMConfig, state=None,
         {n: p[n] for n in ("ri", "rf", "rz", "ro")}, cell, valid=valid)
     h = L.rmsnorm(p["gn"], h.to(x.dtype), cfg.norm_eps)
     x = x + h.reshape(b, t, d)
-    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps),
+                  mlp_mesh)
     new_state = (_write_state(state, conv_state, cell)
                  if state is not None else None)
     return x, new_state
@@ -402,11 +404,22 @@ def init_params(cfg: XLSTMConfig, generator: torch.Generator,
     }
 
 
-def _apply_pair(p, x, cfg: XLSTMConfig, st=None, true_len=None):
-    x, s_st = apply_slstm_block(p["slstm"], x, cfg,
+def _apply_pair(p, x, cfg: XLSTMConfig, st=None, true_len=None,
+                mesh=None):
+    """An (sLSTM, mLSTM) pair.  `mesh` (a `MeshContext` at the pairs'
+    subtree, training on a mesh): the sLSTM block's MLP runs as a
+    tensor-parallel region; every other leaf is gathered at use and
+    every rank runs the whole recurrences."""
+    ps, pm, mlp_mesh = p["slstm"], p["mlstm"], None
+    if mesh is not None:
+        smesh = mesh.sub("slstm")
+        ps = dict(L.gathered({k: v for k, v in ps.items() if k != "mlp"},
+                             smesh), mlp=ps["mlp"])
+        pm, mlp_mesh = L.gathered(pm, mesh.sub("mlstm")), smesh.sub("mlp")
+    x, s_st = apply_slstm_block(ps, x, cfg,
                                 st["slstm"] if st is not None else None,
-                                true_len=true_len)
-    x, m_st = apply_mlstm_block(p["mlstm"], x, cfg,
+                                true_len=true_len, mlp_mesh=mlp_mesh)
+    x, m_st = apply_mlstm_block(pm, x, cfg,
                                 st["mlstm"] if st is not None else None,
                                 true_len=true_len)
     return x, ({"slstm": s_st, "mlstm": m_st} if st is not None else None)
@@ -423,7 +436,8 @@ def forward(params, tokens: torch.Tensor, cfg: XLSTMConfig, *,
     stateful primitive masks.  A cache-free forward under autograd
     rematerializes each pair in its backward when ``remat`` is set, as
     the JAX package's ``jax.checkpoint`` of the scanned pair.  `mesh`
-    (a `MeshContext`, training on a mesh) reaches the embedding."""
+    (a `MeshContext`, training on a mesh) reaches the embedding and
+    every pair (`_apply_pair`)."""
     del decode
     if states is None:
         true_len = None                      # training: no carried state
@@ -432,14 +446,15 @@ def forward(params, tokens: torch.Tensor, cfg: XLSTMConfig, *,
         _dtype(cfg.compute_dtype))
     remat = states is None and cfg.remat and torch.is_grad_enabled()
     new_states = [] if states is not None else None
+    pairs = None if mesh is None else mesh.sub("pairs")
     for i, p in enumerate(params["pairs"]):
         if remat:
-            x = checkpoint(lambda x_, p_=p: _apply_pair(p_, x_, cfg)[0], x,
-                           use_reentrant=False)
+            x = checkpoint(lambda x_, p_=p: _apply_pair(
+                p_, x_, cfg, mesh=pairs)[0], x, use_reentrant=False)
             continue
         x, st = _apply_pair(p, x, cfg,
                             states[i] if states is not None else None,
-                            true_len)
+                            true_len, mesh=pairs)
         if states is not None:
             new_states.append(st)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)

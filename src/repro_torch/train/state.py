@@ -5,9 +5,19 @@ The specs are the reference's, computed on the JAX package's stacked
 leaves (`sharding.rules`): a slot takes the spec of the first param of
 its shape in the JAX tree's leaf order (dict keys sorted), or of a param
 one dim larger with the removed dim's entry dropped (Adafactor's
-factored slots), else none.  They are specs only: the one layout this
-port applies is the lm_head's vocab slices under the sharded losses
-(`train.step`).
+factored slots), else none.
+
+`layout_specs` is the layout the port applies on a mesh under the
+sharded losses (`train.step.TrainLayout`): every leaf by its repaired
+spec over "model", every optimizer slot by its own param's (an
+Adafactor factored slot's without the dim it removed).  That is
+`state_specs` wherever the reference's match by shape lands on the
+slot's own param; where an earlier param of the same shape carries
+another spec (the lm_head's AdamW moments after an embedding table of
+the same shape; a factored slot of a norm scale's shape) the reference
+holds the slot elsewhere than its param and GSPMD moves it to the
+param's layout for the update, and the port keeps it at its param's
+layout, with the same values.
 """
 
 from __future__ import annotations
@@ -146,3 +156,48 @@ def state_specs(state: Dict[str, Any], rules, zero1_axes=None):
             "count": (), "groups": ()}
     return {"params": param_specs(params, rules), "opt": opt_specs,
             "step": ()}
+
+
+def model_spec(spec) -> tuple:
+    """`spec` over "model" alone: other axes' entries None, trailing
+    Nones dropped."""
+    axes = [e if e == "model" else None for e in spec]
+    while axes and axes[-1] is None:
+        axes.pop()
+    return tuple(axes)
+
+
+def layout_specs(params, mesh, adafactor=None) -> Dict[str, Any]:
+    """The layout of a train state on `mesh` (anything with ``shape`` and
+    ``axis_names``) from WHOLE `params`: ``{'params': {path: spec}}`` of
+    every leaf (its per-layer form, over "model" alone: `model_spec` of
+    `sharding.rules.param_specs`), and with `adafactor` (an
+    `optim.AdafactorConfig`) ``'slots'``: ``{stacked path: {name:
+    stacked spec}}`` (the `stacked_groups` paths), each slot by its
+    param's stacked spec, a factored slot's without the dim it removes
+    (whole where that dim was the cut one).  AdamW's moments are laid
+    out as their params."""
+    from repro_torch.optim.adafactor import slot_dims
+    from repro_torch.sharding.rules import (AxisRules, leaves_with_specs,
+                                            param_specs)
+    from repro_torch.optim.tree import leaves as leaves_of
+    specs = {p: model_spec(s) for p, s in leaves_with_specs(
+        param_specs(params, AxisRules(mesh=mesh)))}
+    out: Dict[str, Any] = {"params": specs}
+    if adafactor is not None:
+        ps = leaves_of(params)
+        paths = list(specs)
+        slots: Dict[tuple, Dict[str, tuple]] = {}
+        for key, idx, per_layer in stacked_groups(params):
+            spec = specs[paths[idx[0]]]
+            shape = ((len(idx),) if per_layer else ()) + tuple(
+                ps[idx[0]].shape)
+            if per_layer:
+                spec = (None,) + spec
+            full = list(spec) + [None] * (len(shape) - len(spec))
+            slots[key] = {
+                name: model_spec(full if removed is None else
+                                 full[:removed] + full[removed + 1:])
+                for name, removed in slot_dims(shape, adafactor).items()}
+        out["slots"] = slots
+    return out

@@ -18,19 +18,22 @@ the cache's winner where one exists, else the kernel's own plan.
 
 On a mesh (`launch.mesh.Mesh`), 'sharded' and 'sharded_sp' run the
 paper's distributed loss (`core.sharded`, layouts '2d' and 'sp_gather')
-on each rank's fused-CE kernels: the model body data-parallel over
-``data`` (and, under 'sharded_sp', over ``model`` too) and otherwise
-replicated over ``model``, but for the leaves that `TrainLayout` cuts
-over ``model`` by their specs: the lm_head by vocab, the embedding
-table by d (`models.layers.embed_lookup`), each MoE layer's experts by
-expert (expert parallelism, `models.moe.moe_layer`), and their AdamW
-moments with them.  The whole leaves' grads are summed over every axis
-that splits the rows, the cut leaves' over the row axes only (each
-``model`` rank holds other columns or experts), and the head slice's
-are already summed inside the loss; the clip takes the global norm
-(each cut leaf's squares summed over ``model``, each whole leaf once).
-Without a mesh those two impls run the unsharded streaming loss, as the
-reference's step does.
+on each rank's fused-CE kernels, and the model body data-parallel over
+``data`` (and, under 'sharded_sp', its rows over ``model`` too) with
+every leaf cut over ``model`` as `TrainLayout` lays it out: attention
+and the MLPs as Megatron tensor-parallel regions, the MoE layers as
+expert parallelism, the embedding by d, the lm_head by vocab, the
+leaves whose cut lines up with no region gathered at use
+(`models.layers.gathered`), and the optimizer slots with their params
+(AdamW's moments; Adafactor's factored moments, averaged and clipped
+over the whole leaf through `optim.adafactor.Shards`).  The whole
+leaves' grads are summed over every axis that splits the rows, the cut
+leaves' over the row axes only (each ``model`` rank holds another
+block, its gradient summed over ``model`` inside the region), and the
+head slice's are already summed inside the loss; the clip takes the
+global norm (each cut leaf's squares summed over ``model``, each whole
+leaf once).  Without a mesh those two impls run the unsharded streaming
+loss, as the reference's step does.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from repro_torch.core.fused_ce import IMPLS
 from repro_torch.models.registry import forward_hidden
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim import schedules as S
-from repro_torch.optim.tree import leaves, leaves_with_paths
+from repro_torch.optim.tree import leaves, leaves_with_paths, stacked_groups
 from repro_torch.train.state import make_train_state
 
 SHARDED_IMPLS = ("sharded", "sharded_sp")
@@ -210,7 +213,8 @@ def _sharded_accuracy(rows, w, targets, lcfg: LossConfig, mesh,
         return hit / torch.clamp_min(n, 1.0)
 
 
-def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
+def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None,
+                  layout=None) -> Callable:
     """(params, batch) -> (loss, metrics).
 
     With ``arch.mtp.n_heads > 0`` the loss is multi-horizon: horizon 0 is
@@ -224,7 +228,9 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     one sharded loss a panel shape (`core.sharded.make_sharded_loss` on
     the per-rank 'kernel' impl, built once and keyed on the local panel),
     ``params['lm_head']`` being this rank's vocab slice; the ce metrics
-    are global, ``aux`` this rank's."""
+    are global, ``aux`` this rank's.  The body reads its leaves' specs
+    from `layout` (a `TrainLayout`; by default the one of the arch's
+    params on `mesh`) and runs its tensor-parallel regions by them."""
     lcfg = _loss_cfg(arch, tc)
     n_mtp = arch.mtp.n_heads
     mtp_w = arch.mtp.resolved_weights()
@@ -233,8 +239,13 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     body = None
     if use_sharded:
         from repro_torch.distributed.collectives import MeshContext
+        from repro_torch.models.registry import init_params
+        if layout is None:
+            layout = TrainLayout(arch, mesh, init_params(
+                arch, torch.Generator(), "meta"))
         body = MeshContext(mesh, _rows_axes(mesh),
-                           rows_over_model=tc.loss_impl == "sharded_sp")
+                           rows_over_model=tc.loss_impl == "sharded_sp",
+                           specs=layout.body_specs)
     layout = "sp_gather" if tc.loss_impl == "sharded_sp" else "2d"
     impl = "streaming" if tc.loss_impl in SHARDED_IMPLS else tc.loss_impl
     sharded: Dict[tuple, Callable] = {}
@@ -305,32 +316,22 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None) -> Callable:
     return loss_fn
 
 
-def _cut_spec(path) -> Optional[tuple]:
-    """The spec under which `TrainLayout` cuts the leaf at `path`, or
-    None for a leaf that always stays whole: the lm_head by vocab, the
-    embedding table by d, an MoE layer's ``wi`` / ``wg`` / ``wo`` by
-    expert."""
-    if path == ("lm_head",):
-        return ("model",)
-    if path == ("embed", "table"):
-        return (None, "model")
-    if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi", "wg",
-                                                             "wo"):
-        return ("model",)
-    return None
-
-
 class TrainLayout:
     """The physical layout of a train state on a mesh under a sharded
-    loss.  A set of leaves is cut over ``model``, each by its spec from
-    `sharding.rules.param_specs`: the lm_head by vocab (``('model',)``:
-    rank ``model_index`` holds block ``model_index`` of V / M rows), the
-    embedding table by d (``(None, 'model')``), and each MoE layer's
-    ``wi`` / ``wg`` / ``wo`` by expert (``('model',)``), the AdamW
-    moments of each with it.  A leaf whose spec does not divide it over
-    ``model`` (the rules then move or drop the entry) stays whole, as
-    the layers' whole-table and whole-expert branches expect; so does
-    every other leaf (the router, the norms, attention, the dense MLPs).
+    loss: every leaf cut over ``model`` by its spec from
+    `train.state.layout_specs` (the reference's `param_specs`, repaired):
+    the lm_head by vocab (``('model',)``: rank ``model_index`` holds
+    block ``model_index`` of V / M rows), the embedding table by d,
+    attention by heads (and KV heads, or their head_dim where M does not
+    divide them), the MLPs by ffn, each MoE layer's experts and router
+    columns by expert, the rest by the rules' rank fallback (norm
+    scales, griffin's and xlstm's recurrent leaves); a leaf whose spec
+    has no ``model`` entry stays whole, as the reference replicates it.
+    The optimizer slots go with their params: AdamW's moments as the
+    param, Adafactor's factored slots without the dim they remove
+    (``slot_specs``, stacked).  The model body reads the same specs
+    (``body_specs``, through its `MeshContext`) to run each region
+    tensor-parallel, or to gather a leaf at use.
 
     `shard_params` cuts whole params (a fresh init, before any optimizer
     state is made from them); `gather_state` puts the whole state
@@ -340,33 +341,51 @@ class TrainLayout:
     path.  `build_train_step` makes the one layout of a step
     (``init_fn.layout``)."""
 
-    def __init__(self, arch: Arch, mesh, params):
-        from repro_torch.sharding.rules import (AxisRules, leaves_with_specs,
-                                                param_specs, stacked_path)
+    def __init__(self, arch: Arch, mesh, params, adafactor=None):
+        from repro_torch.optim.adafactor import Shards
+        from repro_torch.sharding.rules import stacked_path
+        from repro_torch.train.state import layout_specs
         self.mesh = mesh
         head = params["lm_head"]
         v = head.shape[0]
         if head.shape[0] != arch.padded_vocab:
             raise ValueError("TrainLayout takes a whole param tree")
-        specs = dict(leaves_with_specs(param_specs(params,
-                                                   AxisRules(mesh=mesh))))
+        lay = layout_specs(params, mesh, adafactor)
         m = mesh.shape["model"]
-        if tuple(specs[("lm_head",)][:1]) != ("model",) and m > 1:
+        if lay["params"][("lm_head",)] != ("model",) and m > 1:
             raise ValueError(
                 f"the lm_head ({v} x {head.shape[1]}) is not vocab-sharded "
-                f"over model = {m} (spec {specs[('lm_head',)]}): the padded "
-                "vocab must divide over the model axis")
+                f"over model = {m} (spec {lay['params'][('lm_head',)]}): "
+                "the padded vocab must divide over the model axis")
         # path -> spec of every cut leaf; the lm_head is always one (its
         # grad is summed inside the loss), a no-op cut where model is 1
         self.specs: Dict[tuple, tuple] = {("lm_head",): ("model",)}
-        for path, _ in leaves_with_paths(params):
-            want = _cut_spec(path)
-            if want is not None and tuple(specs[path]) == want:
-                self.specs[path] = want
-        # the JAX package's stacked key of each cut leaf -> its spec there
-        self._keys = {stacked_path(p): ((None,) + s if any(
-            isinstance(i, int) for i in p) else s)
-            for p, s in self.specs.items()}
+        for path, spec in lay["params"].items():
+            if "model" in spec:
+                self.specs[path] = spec
+        self.body_specs = {stacked_path(p): s for p, s in self.specs.items()}
+        # {stacked path: {slot: stacked spec}} of Adafactor's slots
+        self.slot_specs: Optional[Dict[tuple, Dict[str, tuple]]] = \
+            lay.get("slots")
+        # the JAX package's stacked key of each cut leaf and slot -> its
+        # spec there, and each stacked leaf's cut dim (Adafactor's sums);
+        # by path, as weights moved from the JAX package order their
+        # dicts by its names
+        self._keys: Dict[str, tuple] = {}
+        cuts: Dict[tuple, int] = {}
+        paths = [p for p, _ in leaves_with_paths(params)]
+        for path, idx, per_layer in stacked_groups(params):
+            spec = self.specs.get(paths[idx[0]], ())
+            key = "/".join(map(str, path))
+            if spec:
+                spec = (None,) + spec if per_layer else spec
+                cuts[path] = spec.index("model")
+                for prefix in ("params/", "opt/mu/", "opt/nu/"):
+                    self._keys[prefix + key] = spec
+            for name, sspec in (self.slot_specs or {}).get(path, {}).items():
+                if "model" in sspec:
+                    self._keys[f"opt/slots/{key}/{name}"] = sspec
+        self.shards = Shards(mesh, cuts)
 
     def cut_indices(self, params) -> List[int]:
         """The cut leaves' places among the leaves of `params` (and of
@@ -374,6 +393,18 @@ class TrainLayout:
         the JAX package order their dicts by its names."""
         return [i for i, (p, _) in enumerate(leaves_with_paths(params))
                 if p in self.specs]
+
+    def held_bytes(self, params) -> Tuple[int, int]:
+        """(bytes this rank holds, bytes of the whole) of the body's
+        leaves: every param but the lm_head and the embedding table."""
+        held = whole = 0
+        for p, t in leaves_with_paths(params):
+            if p in (("lm_head",), ("embed", "table")):
+                continue
+            n = t.numel() * t.element_size()
+            held += n
+            whole += n * (self.mesh.shape["model"] if p in self.specs else 1)
+        return held, whole
 
     def shard_params(self, params):
         """This rank's params from whole ones (the whole leaves shared)."""
@@ -384,7 +415,7 @@ class TrainLayout:
 
     def gather_state(self, state):
         """The whole state on rank 0, None on the others (every rank takes
-        part): each cut leaf and moment gathered by its spec and moved to
+        part): each cut leaf and slot gathered by its spec and moved to
         host memory before the next, so that no rank holds a whole
         optimizer state on its device."""
         from repro_torch.distributed.elastic import gather_tensor
@@ -399,23 +430,29 @@ class TrainLayout:
         params = _map(state["params"], lambda p, x: whole(
             x, self.specs[p]) if p in self.specs else x)
         opt = dict(state["opt"])
-        for k in ("mu", "nu"):
-            opt[k] = [whole(t, self.specs[p]) if p in self.specs else t
-                      for p, t in zip(paths, opt[k])]
+        if "slots" in opt:
+            opt["slots"] = [
+                {name: whole(t, self.slot_specs[path][name])
+                 if "model" in self.slot_specs[path][name] else t
+                 for name, t in slots.items()}
+                for (path, _, _), slots in zip(opt["groups"], opt["slots"])]
+        else:
+            for k in ("mu", "nu"):
+                opt[k] = [whole(t, self.specs[p]) if p in self.specs else t
+                          for p, t in zip(paths, opt[k])]
         return dict(state, params=params, opt=opt) if keep else None
 
     def select(self, key: str, arr):
-        """This rank's block of a whole stacked leaf read from a checkpoint
-        file under its JAX-package key (``params/...``, ``opt/mu/...``,
-        ``opt/nu/...``); any other key's array as it is."""
+        """This rank's block of a whole stacked leaf or slot read from a
+        checkpoint file under its JAX-package key (``params/...``,
+        ``opt/mu/...``, ``opt/nu/...``, ``opt/slots/.../<slot>``); any
+        other key's array as it is."""
         from repro_torch.sharding.rules import spec_shard
-        for prefix in ("params/", "opt/mu/", "opt/nu/"):
-            spec = (self._keys.get(key[len(prefix):])
-                    if key.startswith(prefix) else None)
-            if spec is not None:
-                blocks = spec_shard(spec, arr.shape, self.mesh)
-                return arr[tuple(slice(a, a + n) for a, n in blocks)]
-        return arr
+        spec = self._keys.get(key)
+        if spec is None:
+            return arr
+        blocks = spec_shard(spec, arr.shape, self.mesh)
+        return arr[tuple(slice(a, a + n) for a, n in blocks)]
 
 
 def head_index(params) -> int:
@@ -427,8 +464,10 @@ def head_index(params) -> int:
 def _sync_grads(grads, cut, head: int, mesh, rows_axes, sync_axes) -> None:
     """Sum the grads in place: the whole leaves' over `sync_axes`, the cut
     leaves' but the lm_head slice's over `rows_axes` (each ``model``
-    rank holds other columns or experts); one all-reduce a set of axes
-    and dtype over the flattened leaves."""
+    rank holds another block, whose gradient the body summed over
+    ``model`` already: a region's rows are the same on every ``model``
+    rank, and a leaf gathered at use reduce-scatters its gradient); one
+    all-reduce a set of axes and dtype over the flattened leaves."""
     from repro_torch.distributed import collectives as C
     groups: Dict[tuple, list] = {}
     for i, g in enumerate(grads):
@@ -473,23 +512,22 @@ def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
     the batch its rows: over the row axes under 'sharded', over the row
     axes and ``model`` under 'sharded_sp'; elsewhere ``init_fn.layout``
     is None."""
-    loss_fn = build_loss_fn(arch, tc, mesh)
-    opt_init, opt_update = make_optimizer(tc.optimizer,
-                                          **dict(tc.opt_kwargs))
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdafactorConfig
     sched = tc.make_schedule()
     sharded = _use_sharded(tc, mesh)
-    if sharded and tc.optimizer != "adamw":
-        raise NotImplementedError(
-            "a sharded loss trains with AdamW: Adafactor's factored "
-            "moments of a vocab-sharded lm_head need their own "
-            "collectives (ROADMAP A9 part 2)")
-    from repro_torch.models.registry import init_params
     sync_axes, layout = (), None
     if sharded:
         sync_axes = _rows_axes(mesh) + (
             ("model",) if tc.loss_impl == "sharded_sp" else ())
-        layout = TrainLayout(arch, mesh, init_params(
-            arch, torch.Generator(), "meta"))
+        layout = TrainLayout(
+            arch, mesh, init_params(arch, torch.Generator(), "meta"),
+            AdafactorConfig(**dict(tc.opt_kwargs))
+            if tc.optimizer == "adafactor" else None)
+    loss_fn = build_loss_fn(arch, tc, mesh, layout)
+    opt_init, opt_update = make_optimizer(
+        tc.optimizer, shards=None if layout is None else layout.shards,
+        **dict(tc.opt_kwargs))
 
     def init_fn(generator: torch.Generator, device="cpu"):
         """A fresh state; on a mesh, this rank's: the whole params cut by
@@ -554,9 +592,14 @@ def build_train_step(arch: Arch, tc: TrainConfig, mesh=None):
     return init_fn, step_fn
 
 
-def init_state(arch: Arch, tc: TrainConfig, params) -> Dict[str, Any]:
+def init_state(arch: Arch, tc: TrainConfig, params,
+               layout: Optional[TrainLayout] = None) -> Dict[str, Any]:
     """A train state around given params (e.g. moved from the JAX
-    package with `repro_torch.weights.params_from_jax`)."""
-    opt_init, _ = make_optimizer(tc.optimizer, **dict(tc.opt_kwargs))
+    package with `repro_torch.weights.params_from_jax`); on a mesh,
+    params already cut by `layout` (the step's ``init_fn.layout``),
+    whose optimizer slots it makes as the step's own init does."""
+    opt_init, _ = make_optimizer(
+        tc.optimizer, shards=None if layout is None else layout.shards,
+        **dict(tc.opt_kwargs))
     return make_train_state(params, opt_init)
 

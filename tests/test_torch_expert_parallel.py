@@ -16,6 +16,7 @@ layers), so a flat 1e-6 would sit below the port's own distance; the
 train CLI on the mesh against one process of the port at rtol 1e-5.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -114,8 +115,16 @@ def _wait(path, timeout=300.0):
         time.sleep(0.2)
 
 
+def _whole(blob, arch_id):
+    """The JAX init of `arch_id` as the port's whole params."""
+    from repro_torch.weights import params_from_jax
+    return params_from_jax(T.nest({
+        k[len(arch_id) + 1:]: v for k, v in blob.items()
+        if k.startswith(arch_id + "/")}))
+
+
 def _model_cases(mesh, params_path):
-    """The reduced MoE models' loss, aux and gradients on this rank's
+    """The reduced models' loss, aux and gradients on this rank's
     shards, from the JAX init: whole grads summed over the row axes as
     the step sums them, cut ones gathered whole."""
     from repro_torch.distributed.elastic import gather_tensor
@@ -123,17 +132,15 @@ def _model_cases(mesh, params_path):
     from repro_torch.optim.tree import leaves, leaves_with_paths
     from repro_torch.train import TrainConfig, TrainLayout, build_loss_fn
     from repro_torch.train.step import _sync_grads, head_index
-    from repro_torch.weights import params_from_jax
     _wait(params_path)
     blob = dict(np.load(params_path))
     out = {}
-    for a in T.ARCHS:
+    for a in T.ARCHS + T.BODY_ARCHS:
         arch = get_arch(a, reduced=True)
-        whole = params_from_jax(T.nest({k[len(a) + 1:]: v for k, v in
-                                        blob.items() if k.startswith(a)}))
+        whole = _whole(blob, a)
         lay = TrainLayout(arch, mesh, whole)
         batch = T.model_batch(arch.vocab_size)
-        for impl in T.IMPLS:
+        for impl in T.model_impls(a):
             rows = "data_model" if impl == "sharded_sp" else "data"
             r0, n = _rows(mesh, rows, T.BATCH)
             params = lay.shard_params(whole)
@@ -155,6 +162,140 @@ def _model_cases(mesh, params_path):
                 got["/".join(map(str, path))] = g.numpy()
             out[f"{a}/{impl}"] = {"loss": float(loss), "aux": float(m["aux"]),
                                   "ce": float(m["ce"]), "grads": got}
+    return out
+
+
+def _flat_state(state):
+    """A whole state by its JAX-package checkpoint keys (numpy)."""
+    from repro_torch.weights import state_to_jax
+    return state_to_jax(state)
+
+
+def _slot_shapes(state):
+    """{'<stacked path>/<slot>': shape} of an Adafactor state."""
+    return {"/".join(map(str, path)) + "/" + name: tuple(t.shape)
+            for (path, _, _), slots in zip(state["opt"]["groups"],
+                                           state["opt"]["slots"])
+            for name, t in slots.items()}
+
+
+def _step_rows(mesh, step_fn, state, impl, vocab, seed):
+    """One train step on this rank's rows of `T.model_batch` (`seed`)."""
+    r0, n = _rows(mesh, "data_model" if impl == "sharded_sp" else "data",
+                  T.BATCH)
+    b = T.model_batch(vocab, seed=seed)
+    return step_fn(state, {k: torch.from_numpy(v[r0:r0 + n])
+                           for k, v in b.items()})
+
+
+def _ada_cases(mesh, mesh14, params_path, tmp):
+    """T.ADA_STEPS Adafactor steps of each T.ADA model on the (2, 2) mesh
+    from the JAX init (rank 0 returns the whole state after them, by its
+    checkpoint keys); the qwen3-moe state checkpointed there, restored
+    on (1, 4) and gathered again, and one more step on each mesh."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, resume_or_init)
+    blob = dict(np.load(params_path))
+    out = {}
+    for a, impl in T.ADA.items():
+        arch = get_arch(a, reduced=True)
+        v = arch.vocab_size
+        tc = TrainConfig(loss_impl=impl, **T.ada_config())
+        init_fn, step_fn = build_train_step(arch, tc, mesh)
+        lay = init_fn.layout
+        state = init_state(arch, tc, lay.shard_params(_whole(blob, a)), lay)
+        got = {"loss": [], "slots": _slot_shapes(state)}
+        for i in range(T.ADA_STEPS):
+            state, m = _step_rows(mesh, step_fn, state, impl, v, 20 + i)
+            got["loss"].append(float(m["loss"]))
+        whole = lay.gather_state(state)
+        if whole is not None:
+            got["state"] = _flat_state(whole)
+        if a == MOE:
+            path = os.path.join(tmp, "ck_ada")
+            if whole is not None:
+                Checkpointer(path).save(T.ADA_STEPS, whole)
+            torch.distributed.barrier()
+            # made after the save: a Checkpointer clears the incomplete
+            # steps it finds, which a rank's would do to rank 0's write
+            ck = Checkpointer(path)
+            init14, step14 = build_train_step(arch, tc, mesh14)
+            st14 = resume_or_init(ck, init14, torch.Generator(), "cpu")
+            got["slots14"] = _slot_shapes(st14)
+            again = init14.layout.gather_state(st14)
+            if again is not None:
+                got["state14"] = _flat_state(again)
+            # one more step on each mesh, from the same state
+            _, m22 = _step_rows(mesh, step_fn, state, impl, v, 30)
+            _, m14 = _step_rows(mesh14, step14, st14, impl, v, 30)
+            got["next"] = (float(m22["loss"]), float(m14["loss"]))
+        out[a] = got
+    return out
+
+
+# (1, 4) against one process of the port: heads that M = 4 does not
+# divide, the recurrent families' leaves gathered at use, MTP heads
+# (their MLPs tensor-parallel by ffn), and a bf16 body
+ONE_PROCESS = ("mistral-large-123b", "qwen3-0.6b", "recurrentgemma-9b",
+               "xlstm-125m", "qwen3-0.6b+mtp", "qwen3-moe-235b-a22b+bf16")
+
+
+def _relocated_cases(mesh14):
+    """ONE_PROCESS on (1, 4) under both layouts: reduced mistral's 6 q
+    heads (every attention leaf gathered at use), qwen3-0.6b's 2 KV
+    heads (gathered inside the region, each rank taking the KV heads its
+    q heads read), griffin's and xlstm's recurrent leaves; the loss and
+    the grads (cut ones gathered whole) beside one process's of the
+    port."""
+    from repro_torch.configs import with_mtp
+    from repro_torch.distributed.elastic import gather_tensor
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves, leaves_with_paths
+    from repro_torch.train import TrainConfig, TrainLayout, build_loss_fn
+    from repro_torch.train.step import _sync_grads, head_index
+    out = {}
+    for a in ONE_PROCESS:
+        arch = get_arch(a.split("+")[0], reduced=True)
+        if a.endswith("+mtp"):
+            arch = with_mtp(arch, 2, track_accuracy=True)
+        if a.endswith("+bf16"):
+            arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+                arch.cfg, param_dtype="bfloat16",
+                compute_dtype="bfloat16"))
+        whole = init_params(arch, torch.Generator().manual_seed(3))
+        batch = {k: torch.from_numpy(v) for k, v in
+                 T.model_batch(arch.vocab_size).items()}
+        ps = [t.requires_grad_(True) for t in leaves(whole)]
+        loss1, _ = build_loss_fn(arch, TrainConfig(
+            loss_impl="kernel", loss_block_v=T.BLOCK_V))(whole, batch)
+        want = [g.float().numpy() for g in torch.autograd.grad(loss1, ps)]
+        lay = TrainLayout(arch, mesh14, whole)
+        for impl in T.IMPLS:
+            r0, n = _rows(mesh14, "data_model" if impl == "sharded_sp"
+                          else "data", T.BATCH)
+            params = lay.shard_params(whole)
+            ps = [t.requires_grad_(True) for t in leaves(params)]
+            f = build_loss_fn(arch, TrainConfig(loss_impl=impl,
+                                                loss_block_v=T.BLOCK_V),
+                              mesh14, lay)
+            loss, _ = f(params, {k: v[r0:r0 + n] for k, v in batch.items()})
+            grads = [g.clone() for g in torch.autograd.grad(loss, ps)]
+            cut = lay.cut_indices(params)
+            sync = ("data", "model") if impl == "sharded_sp" else ("data",)
+            _sync_grads(grads, cut, head_index(params), mesh14, ("data",),
+                        sync)
+            paths = [p for p, _ in leaves_with_paths(params)]
+            got = {}
+            for i, (path, g) in enumerate(zip(paths, grads)):
+                if i in cut:
+                    g = gather_tensor(g, lay.specs[path], mesh14)
+                got["/".join(map(str, path))] = (g.float().numpy(), want[i])
+            out[f"{a}/{impl}"] = {
+                "loss": (float(loss), float(loss1)), "grads": got,
+                "held": {"/".join(map(str, p)): tuple(t.shape)
+                         for p, t in zip(paths, ps)}}
     return out
 
 
@@ -257,6 +398,9 @@ def _checks(rank, tmp, params_path):
         _CLI[:6] + ["4"] + _CLI[7:] + ["--devices", "4,1", "--loss-impl",
                                        "sharded", "--ckpt-dir", ck])
     out["models"] = _model_cases(mesh, params_path)
+    mesh14 = M.make_local_mesh(1, 4)
+    out["ada"] = _ada_cases(mesh, mesh14, params_path, tmp)
+    out["relocated"] = _relocated_cases(mesh14)
     return out
 
 
@@ -331,11 +475,9 @@ def test_embed_lookup_matches_the_reference(world, case, rows):
                                    **LAYER_TOL)
 
 
-@pytest.mark.parametrize("impl", T.IMPLS)
-@pytest.mark.parametrize("arch_id", T.ARCHS)
-def test_moe_models_match_the_reference(world, arch_id, impl):
-    """Loss, ce, aux and every gradient of the reduced MoE models on the
-    (2, 2) mesh against the JAX package's `build_loss_fn` on its mesh."""
+def _check_model(world, arch_id, impl):
+    """Loss, ce, aux and every gradient of a reduced model on the (2, 2)
+    mesh against the JAX package's `build_loss_fn` on its mesh."""
     from repro_torch.optim.tree import leaves_with_paths
     from repro_torch.weights import params_from_jax
     key = f"model/{arch_id}/{impl}"
@@ -345,7 +487,6 @@ def test_moe_models_match_the_reference(world, arch_id, impl):
                                    if k.startswith(pre)}))
     want = {"/".join(map(str, p)): t.numpy()
             for p, t in leaves_with_paths(want)}
-    assert float(jax[key + "/aux"]) > 0
     for r in world["ranks"]:
         got = r["models"][f"{arch_id}/{impl}"]
         for k in ("loss", "ce", "aux"):
@@ -358,26 +499,74 @@ def test_moe_models_match_the_reference(world, arch_id, impl):
                                        err_msg=path)
 
 
+@pytest.mark.parametrize("impl", T.IMPLS)
+@pytest.mark.parametrize("arch_id", T.ARCHS)
+def test_moe_models_match_the_reference(world, arch_id, impl):
+    """The MoE trunks: attention tensor-parallel by heads, the experts
+    and the router by expert (arctic's dense MLP by ffn, in the experts'
+    region), the norm scales gathered at use."""
+    assert float(world["jax"][f"model/{arch_id}/{impl}/aux"]) > 0
+    _check_model(world, arch_id, impl)
+
+
+@pytest.mark.parametrize("arch_id,impl", list(T.BODY.items()))
+def test_body_models_match_the_reference(world, arch_id, impl):
+    """A recurrent trunk: xlstm's cells gathered at use beside its
+    tensor-parallel sLSTM MLPs.  (Its other layout, griffin's and M = 4
+    in `test_gathered_at_use_on_four_model_ranks`; the dense trunk's
+    tensor-parallel body through `test_adafactor_on_the_mesh_matches_
+    the_reference`.)"""
+    _check_model(world, arch_id, impl)
+
+
+def _held(whole_shapes, specs, m):
+    """Each leaf's shape on a rank: the dim its spec cuts over model
+    divided by `m`."""
+    out = {}
+    for path, shape in whole_shapes.items():
+        spec = specs[path]
+        out[path] = tuple(n // m if i < len(spec) and spec[i] == "model"
+                          else n for i, n in enumerate(shape))
+    return out
+
+
 def test_each_rank_holds_its_experts_and_columns(world):
-    """E / M experts, d / M embedding columns and V / M head rows a rank,
-    every other leaf whole, and AdamW moments of exactly its own
-    params' shapes."""
-    from repro_torch.models.registry import get_arch
-    cfg = get_arch(MOE, reduced=True).cfg
+    """Every leaf held as its spec lays it out (`layout_specs`): E / M
+    experts and router columns, d / M embedding columns, V / M head rows,
+    half the q and KV heads, half the ffn, half the norm scales (the
+    rules' rank fallback); the q / k norms whole; AdamW moments of
+    exactly their own params' shapes."""
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim.tree import leaves_with_paths
+    from repro_torch.train.state import layout_specs
+    arch = get_arch(MOE, reduced=True)
+    cfg = arch.cfg
     e, d = cfg.num_experts, cfg.d_model
+    whole = init_params(arch, torch.Generator(), "meta")
+    specs = {"/".join(map(str, p)): s
+             for p, s in layout_specs(whole, _Shape())["params"].items()}
+    want = _held({"/".join(map(str, p)): tuple(t.shape)
+                  for p, t in leaves_with_paths(whole)}, specs, 2)
     for r in world["ranks"]:
         lay = r["layout"]
         sh = lay["shapes"]
+        assert sh == want
         assert sh["embed/table"] == (cfg.vocab_size, d // 2)
-        assert sh["lm_head"][0] == get_arch(MOE, reduced=True).padded_vocab \
-            // 2
+        assert sh["lm_head"][0] == arch.padded_vocab // 2
         for i in range(cfg.n_layers):
             assert sh[f"blocks/{i}/moe/wi"] == (e // 2, d, cfg.d_ff_expert)
             assert sh[f"blocks/{i}/moe/wo"] == (e // 2, cfg.d_ff_expert, d)
-            assert sh[f"blocks/{i}/moe/router"] == (d, e)
-            assert sh[f"blocks/{i}/attn/wq"][0] == d
+            assert sh[f"blocks/{i}/moe/router"] == (d, e // 2)
+            assert sh[f"blocks/{i}/attn/wq"] == (
+                d, cfg.num_heads // 2, cfg.resolved_head_dim)
+            assert sh[f"blocks/{i}/attn/wo"][0] == cfg.num_heads // 2
+            assert sh[f"blocks/{i}/attn/wk"][1] == cfg.num_kv_heads // 2
+            assert sh[f"blocks/{i}/ln_attn/scale"] == (d // 2,)
+            assert sh[f"blocks/{i}/attn/q_norm"] == (
+                cfg.resolved_head_dim,)
         assert lay["mu"] == lay["nu"] == list(sh.values())
-        assert len(lay["cut"]) == 2 + 3 * cfg.n_layers
+        # every leaf but the q / k norms and the final norm is cut
+        assert len(lay["cut"]) == len(sh) - 1 - 2 * cfg.n_layers
 
 
 @pytest.mark.parametrize("impl", T.IMPLS)
@@ -472,19 +661,257 @@ def test_moe_checkpoint_restores_on_another_mesh(world, single):
 
 class _Shape:
     """A (data 2, model 2) mesh's shape without a world: what the step's
-    layout reads."""
+    layout reads (rank 0's blocks)."""
     shape = {"data": 2, "model": 2}
     axis_names = ("data", "model")
+
+    def axis_index(self, axes):
+        return 0
 
 
 @pytest.mark.parametrize("impl", T.IMPLS)
 @pytest.mark.parametrize("arch_id", T.ARCHS)
 def test_build_train_step_takes_moe_on_a_mesh_and_refuses_adafactor(
         arch_id, impl):
+    """build_train_step takes both MoE trunks on a mesh with AdamW and
+    with Adafactor, whose init factors each cut leaf by its whole shape:
+    the reduced qwen3-moe's wq (3, 64, 8, 8) at ``min_dim_size_to_factor``
+    8 factors d and head_dim although its rank's (3, 64, 4, 8) part
+    would factor the same dims, and its router (64, 8) factors both dims
+    where the rank's (64, 4) part would not be factored at all."""
     from repro_torch.models.registry import get_arch
     from repro_torch.train import TrainConfig, build_train_step
     arch = get_arch(arch_id, reduced=True)
     build_train_step(arch, TrainConfig(loss_impl=impl), _Shape())
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        build_train_step(arch, TrainConfig(loss_impl=impl,
-                                           optimizer="adafactor"), _Shape())
+    init_fn, _ = build_train_step(arch, TrainConfig(
+        loss_impl=impl, **T.ada_config()), _Shape())
+    state = init_fn(torch.Generator(), "meta")
+    slots = _slot_shapes(state)
+    assert slots["blocks/moe/router/vr"] == (arch.cfg.n_layers,
+                                             arch.cfg.d_model)
+    assert slots["blocks/moe/router/vc"] == (arch.cfg.n_layers,
+                                             arch.cfg.num_experts // 2)
+    assert "blocks/moe/router/v" not in slots
+
+
+def _reference_source(shape, groups):
+    """(the param whose spec the reference's `state_specs` gives a slot of
+    `shape`, the dim it takes the slot to remove): the first param of
+    that shape in the JAX tree's order (None), else the first one dim
+    larger that its factored-slot rule accepts (the first dim that does
+    not match in order, or the last)."""
+    from repro_torch.train.state import _slot_spec_from_param
+    for path, pshape, _, _, _ in groups:
+        if tuple(shape) == tuple(pshape):
+            return path, None
+    for path, pshape, spec, _, _ in groups:
+        if len(shape) == len(pshape) - 1 and _slot_spec_from_param(
+                shape, pshape, spec) != ():
+            j = 0
+            for i, n in enumerate(pshape):
+                if j < len(shape) and shape[j] == n:
+                    j += 1
+                else:
+                    return path, i
+            return path, len(pshape) - 1
+    return None, None
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+@pytest.mark.parametrize("arch_id", T.ARCHS + T.BODY_ARCHS)
+def test_slots_held_as_state_specs_lays_them_out(arch_id, opt):
+    """Every optimizer slot is held by its own param's spec (a factored
+    slot's without the dim it removes), which is the reference's
+    `state_specs` wherever that spec comes from the slot's own param and
+    the dim the slot removes; where the reference's match by shape lands
+    on another param (an embedding table of the lm_head's shape, a norm
+    scale of a factored slot's shape) or guesses another removed dim
+    (two equal dims), the reference holds the slot apart from its param
+    and GSPMD moves it for the update, and the port holds it with it
+    (the values are the same)."""
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim import AdafactorConfig, make_optimizer
+    from repro_torch.optim.adafactor import slot_dims
+    from repro_torch.optim.tree import leaves_with_paths, stacked_groups
+    from repro_torch.sharding.rules import AxisRules
+    from repro_torch.train.state import (_stacked_params, layout_specs,
+                                         model_spec, state_specs)
+    arch = get_arch(arch_id, reduced=True)
+    whole = init_params(arch, torch.Generator(), "meta")
+    kw = dict(T.ADA_KW) if opt == "adafactor" else {}
+    cfg = AdafactorConfig(**kw) if opt == "adafactor" else None
+    opt_init, _ = make_optimizer(opt, **kw)
+    st = {"params": whole, "opt": opt_init(whole), "step": 0}
+    rules = AxisRules(mesh=_Shape())
+    ref = state_specs(st, rules)
+    held = layout_specs(whole, _Shape(), cfg)
+    groups = _stacked_params(whole, rules)
+    leaf = dict(leaves_with_paths(whole))
+    paths = list(leaf)
+    same = apart = 0
+    for g, (key, idx, per_layer) in enumerate(stacked_groups(whole)):
+        shape = ((len(idx),) if per_layer else ()) + tuple(
+            leaf[paths[idx[0]]].shape)
+        if opt == "adamw":
+            slots = {"mu": (None, [ref["opt"]["mu"][i] for i in idx],
+                            [held["params"][paths[i]] for i in idx])}
+        else:
+            slots = {name: (removed, [ref["opt"]["slots"][g][name]],
+                            [held["slots"][key][name]])
+                     for name, removed in slot_dims(shape, cfg).items()}
+        for name, (removed, refs, ours) in slots.items():
+            sshape = tuple(n for i, n in enumerate(shape) if i != removed)
+            for r, o in zip(refs, ours):
+                if model_spec(r) == o:
+                    same += 1
+                    continue
+                # a difference only where the reference's match is
+                # another param's spec or another removed dim
+                assert _reference_source(sshape, groups) != (key, removed), (
+                    key, name, r, o)
+                apart += 1
+    assert same > 0
+
+
+def _slot_layout(arch_id, m):
+    """{'<stacked path>/<slot>': shape} of a rank's Adafactor slots at
+    ``min_dim_size_to_factor`` 8 on a mesh of model size `m`: each
+    whole slot's shape, the dim its `layout_specs` spec cuts divided by
+    `m`."""
+    from repro_torch.models.registry import get_arch, init_params
+    from repro_torch.optim import AdafactorConfig
+    from repro_torch.optim.adafactor import init as ada_init
+    from repro_torch.optim.tree import stacked_groups
+    from repro_torch.train.state import layout_specs
+
+    class Shape:
+        shape = {"data": 4 // m, "model": m}
+        axis_names = ("data", "model")
+
+    cfg = AdafactorConfig(**dict(T.ADA_KW))
+    whole = init_params(get_arch(arch_id, reduced=True), torch.Generator(),
+                        "meta")
+    specs = layout_specs(whole, Shape(), cfg)["slots"]
+    out = {}
+    for (key, _, _), slots in zip(stacked_groups(whole),
+                                  ada_init(whole, cfg)["slots"]):
+        sp = specs[key]
+        for name, t in slots.items():
+            out["/".join(map(str, key)) + "/" + name] = tuple(
+                n // m if i < len(sp[name]) and sp[name][i] == "model"
+                else n for i, n in enumerate(t.shape))
+    return out
+
+
+@pytest.mark.parametrize("arch_id", list(T.ADA))
+def test_adafactor_on_the_mesh_matches_the_reference(world, arch_id):
+    """T.ADA_STEPS Adafactor steps (``min_dim_size_to_factor`` 8, so
+    that cut dims are factored) on the (2, 2) mesh against the JAX
+    package's train step under `state_shardings` on its mesh (the train
+    CLI's ``--optimizer adafactor --devices``): every step's loss at
+    rtol 1e-5; the whole state after them (every param and every slot,
+    by the checkpoint's keys) at rtol 1e-4 and an atol of 1e-5 of each
+    leaf's largest entry (1e-7 at the least): the updates divide the
+    grads by their factored RMS, so the grads' f32 rounding (see
+    `_check_model`) reaches the params as it is; and each rank's slots of
+    their specs' shapes (`layout_specs`)."""
+    jax = world["jax"]
+    pre = f"ada/{arch_id}/state/"
+    want = {k[len(pre):]: v for k, v in jax.items() if k.startswith(pre)}
+    wslots = _slot_layout(arch_id, 2)
+    for r in world["ranks"]:
+        got = r["ada"][arch_id]
+        np.testing.assert_allclose(
+            got["loss"], [float(jax[f"ada/{arch_id}/loss{i}"])
+                          for i in range(T.ADA_STEPS)], rtol=1e-5)
+        assert got["slots"] == wslots
+    state = world["ranks"][0]["ada"][arch_id]["state"]
+    assert sorted(state) == sorted(want)
+    for k, v in state.items():
+        w = np.asarray(want[k], dtype=np.float64)
+        atol = max(1e-7, 1e-5 * float(np.abs(w).max()))
+        np.testing.assert_allclose(np.asarray(v, dtype=np.float64), w,
+                                   rtol=1e-4, atol=atol, err_msg=k)
+
+
+def test_adafactor_checkpoint_restores_on_another_mesh(world):
+    """The qwen3-moe Adafactor state checkpointed on (2, 2) and restored
+    on (1, 4): each rank holds its slots at the (1, 4) layout's shapes
+    (a quarter of every cut dim), the state gathered there again is the
+    file's bit for bit, and one more step from it gives the (2, 2)
+    state's next loss at rtol 1e-5."""
+    want14 = _slot_layout(MOE, 4)
+    for r in world["ranks"]:
+        got = r["ada"][MOE]
+        assert got["slots14"] == want14
+        assert any(a != b for a, b in zip(want14.values(),
+                                          got["slots"].values()))
+        a, b = got["next"]
+        np.testing.assert_allclose(b, a, rtol=1e-5)
+    r0 = world["ranks"][0]["ada"][MOE]
+    assert sorted(r0["state14"]) == sorted(r0["state"])
+    for k, v in r0["state"].items():
+        np.testing.assert_array_equal(r0["state14"][k], v, err_msg=k)
+
+
+def _check_one_process(world, arch_id, impl):
+    """(1, 4): the loss at rtol 1e-5 and every gradient at
+    `_check_model`'s limits against one process of the port on the whole
+    params; what rank 0 holds."""
+    for r in world["ranks"]:
+        got = r["relocated"][f"{arch_id}/{impl}"]
+        np.testing.assert_allclose(*got["loss"], rtol=1e-5)
+        for path, (g, w) in got["grads"].items():
+            atol = max(1e-6, GRAD_ATOL_SCALE * np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=atol,
+                                       err_msg=path)
+    return world["ranks"][0]["relocated"][f"{arch_id}/{impl}"]["held"]
+
+
+@pytest.mark.parametrize("impl", T.IMPLS)
+@pytest.mark.parametrize("arch_id", ["recurrentgemma-9b", "xlstm-125m"])
+def test_gathered_at_use_on_four_model_ranks(world, arch_id, impl):
+    """griffin's and xlstm's recurrent leaves, cut by the rules' rank
+    fallback, gathered at use on (1, 4)."""
+    held = _check_one_process(world, arch_id, impl)
+    if arch_id == "xlstm-125m":
+        assert held["pairs/0/mlstm/wq"] == (96, 24)
+        assert held["pairs/0/slstm/mlp/wi"] == (48, 16)
+    else:
+        assert held["supers/0/b0/temporal/w_rnn"] == (48, 12)
+        assert held["supers/0/b0/temporal/rglru/wa"] == (1, 12, 12)
+
+
+@pytest.mark.parametrize("impl", T.IMPLS)
+def test_bf16_body_sums_its_regions_in_f32(world, impl):
+    """The reduced qwen3-moe in bf16 on (1, 4): the ranks' partial outputs
+    of every region (attention, the experts) are summed in f32 and
+    rounded once, as one process's GEMMs round their f32 sums, so the
+    loss is one process's at rtol 1e-6 (bf16 partials rounded apart and
+    summed move it by ~1e-4 here)."""
+    for r in world["ranks"]:
+        got = r["relocated"][f"qwen3-moe-235b-a22b+bf16/{impl}"]
+        np.testing.assert_allclose(*got["loss"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("impl", T.IMPLS)
+def test_mtp_heads_on_four_model_ranks(world, impl):
+    """Two MTP heads on the reduced qwen3-0.6b, (1, 4): each head block's
+    MLP a tensor-parallel region by ffn, the heads' norms whole."""
+    held = _check_one_process(world, "qwen3-0.6b+mtp", impl)
+    assert held["mtp/mlp/wi"][-1] == held["mtp/mlp/wo"][-2] == 128 // 4
+    assert held["mtp/ln/scale"][-1] == 64
+
+
+@pytest.mark.parametrize("impl", T.IMPLS)
+@pytest.mark.parametrize("arch_id", ["mistral-large-123b", "qwen3-0.6b"])
+def test_heads_that_model_does_not_divide(world, arch_id, impl):
+    """(1, 4): reduced mistral's 6 q heads relocated by the rules (every
+    attention leaf gathered at use), qwen3-0.6b's 2 KV heads relocated to
+    head_dim (gathered inside the region)."""
+    held = _check_one_process(world, arch_id, impl)
+    if arch_id == "qwen3-0.6b":
+        assert held["blocks/0/attn/wq"][1] == 1            # 4 heads / 4
+        assert held["blocks/0/attn/wk"][1:] == (2, 4)      # head_dim / 4
+    else:
+        assert held["blocks/0/attn/wq"][1] == 6            # heads whole

@@ -26,7 +26,17 @@ V_EMB = 50
 EMBED = {"split": 16, "whole": 15}
 ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
 IMPLS = ("sharded", "sharded_sp")
+# a recurrent body on the mesh, one layout (the other, and griffin's
+# recurrent blocks, are held to one process of the port on (1, 4)):
+# xlstm's cells gathered at use beside its tensor-parallel MLPs
+BODY = {"xlstm-125m": "sharded_sp"}
+BODY_ARCHS = tuple(BODY)
 BATCH, SEQ, BLOCK_V = 4, 24, 128     # the models' global batch
+# two Adafactor steps on the mesh (one layout an arch), its factoring
+# brought down to the reduced widths so that cut dims are factored
+ADA = {"qwen3-0.6b": "sharded", "qwen3-moe-235b-a22b": "sharded_sp"}
+ADA_KW = (("min_dim_size_to_factor", 8),)
+ADA_STEPS = 2
 
 
 def moe_inputs(case: str):
@@ -56,10 +66,22 @@ def embed_inputs(case: str):
     return table, tokens, ct
 
 
-def model_batch(vocab: int):
-    rng = np.random.default_rng(5)
+def model_batch(vocab: int, seed: int = 5):
+    rng = np.random.default_rng(seed)
     return {k: rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
             for k in ("tokens", "targets")}
+
+
+def model_impls(arch_id):
+    """The layouts the models' check runs `arch_id` under."""
+    return (BODY[arch_id],) if arch_id in BODY else IMPLS
+
+
+def ada_config(**kw):
+    """The Adafactor steps' TrainConfig keywords (either package's)."""
+    return dict(optimizer="adafactor", opt_kwargs=ADA_KW,
+                schedule="constant", peak_lr=3e-3, loss_block_v=BLOCK_V,
+                **kw)
 
 
 def flat(tree, prefix=""):
@@ -94,19 +116,25 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.compat import make_mesh
 from repro.models.layers import embed_lookup
 from repro.models.moe import MoEConfig, moe_layer
+from repro.checkpoint.checkpointer import _flatten
 from repro.models.registry import get_arch, init_params
+from repro.optim import make_optimizer
 from repro.sharding.rules import AxisRules
-from repro.train.step import TrainConfig, build_loss_fn
+from repro.train.state import make_train_state, state_shardings
+from repro.train.step import TrainConfig, build_loss_fn, build_train_step
 import torch_ep_problem as T
 
 mesh = make_mesh(T.MESH, ("data", "model"))
 rules = AxisRules(mesh=mesh)
 
-# the models' weights first: the port's ranks wait for this file
-params = {a: init_params(get_arch(a, reduced=True), jax.random.PRNGKey(0))
-          for a in T.ARCHS}
+# the models' weights first: the port's ranks wait for this file (a
+# jitted init: the eager one runs op by op)
+ALL = T.ARCHS + T.BODY_ARCHS + tuple(a for a in T.ADA if a not in T.ARCHS)
+params = {a: jax.jit(lambda k, a=a: init_params(get_arch(a, reduced=True),
+                                                 k))(jax.random.PRNGKey(0))
+          for a in ALL}
 tmp = sys.argv[2] + ".tmp.npz"
-np.savez(tmp, **{f"{a}/{k}": v for a in T.ARCHS
+np.savez(tmp, **{f"{a}/{k}": v for a in ALL
                  for k, v in T.flat(params[a]).items()})
 os.replace(tmp, sys.argv[2])
 
@@ -140,13 +168,36 @@ for case in T.EMBED:
         out[f"embed/{case}/{rows}/out"] = np.asarray(val)
         out[f"embed/{case}/{rows}/dtable"] = np.asarray(g)
 
-batch = T.model_batch(512)
-for a in T.ARCHS:
+def rows(impl, batch):
+    ax = ("data", "model") if impl == "sharded_sp" else ("data",)
+    return {k: jax.device_put(v, NamedSharding(mesh, P(ax, None)))
+            for k, v in batch.items()}
+
+# the reference's train CLI on the mesh with --optimizer adafactor: the
+# state laid out by state_shardings, the step jitted under them
+for a, impl in T.ADA.items():
     arch = get_arch(a, reduced=True)
-    for impl in T.IMPLS:
-        ax = ("data", "model") if impl == "sharded_sp" else ("data",)
-        b = {k: jax.device_put(v, NamedSharding(mesh, P(ax, None)))
-             for k, v in batch.items()}
+    _, step_fn = build_train_step(
+        arch, TrainConfig(loss_impl=impl, **T.ada_config()), rules)
+    # its init_fn's state, around the params written above
+    state = make_train_state(params[a], make_optimizer(
+        "adafactor", **dict(T.ADA_KW))[0])
+    sh = state_shardings(state, rules)
+    state = jax.device_put(state, sh)
+    jstep = jax.jit(step_fn, in_shardings=(sh, None),
+                    out_shardings=(sh, None))
+    for i in range(T.ADA_STEPS):
+        state, m = jstep(state, rows(impl, T.model_batch(arch.vocab_size,
+                                                         seed=20 + i)))
+        out[f"ada/{a}/loss{i}"] = np.asarray(m["loss"])
+    for k, v in _flatten(state).items():
+        out[f"ada/{a}/state/{k}"] = v
+
+for a in T.ARCHS + T.BODY_ARCHS:
+    arch = get_arch(a, reduced=True)
+    batch = T.model_batch(arch.vocab_size)
+    for impl in T.model_impls(a):
+        b = rows(impl, batch)
         f = build_loss_fn(arch, TrainConfig(loss_impl=impl,
                                             loss_block_v=T.BLOCK_V), rules)
         (loss, m), g = jax.jit(jax.value_and_grad(f, has_aux=True))(
