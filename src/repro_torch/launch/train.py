@@ -208,15 +208,15 @@ def main(argv=None, params=None):
     history); under `torchrun`, this rank's (state, history)."""
     args = parse_args(argv)
     if args.devices is None:
-        return _train(args, params, None)
+        return _run(args, params, None)[:2]
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as M
     d, m = args.devices
     if dist.is_available() and dist.is_initialized():
         # a world this process is already in: a mesh over it, left open
-        return _train(args, params, M.make_local_mesh(d, m, _rank_device(
-            args)))
+        return _run(args, params, M.make_local_mesh(d, m, _rank_device(
+            args)))[:2]
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         if world != d * m:
@@ -224,7 +224,7 @@ def main(argv=None, params=None):
                              f"world has {world}")
         dev = M.init_world(rank, world, device=args.device)
         try:
-            return _train(args, params, M.make_local_mesh(d, m, dev))
+            return _run(args, params, M.make_local_mesh(d, m, dev))[:2]
         finally:
             M.close_world()
     resolve_device(args.device)
@@ -289,15 +289,10 @@ def _rank_device(args) -> torch.device:
     return torch.device("cpu")
 
 
-def _train(args, params, mesh):
-    """One process's run: on one device, or as one rank of `mesh`:
-    (state, history)."""
-    return _run(args, params, mesh)[:2]
-
-
 def _run(args, params, mesh):
-    """`_train`, and on a mesh what this rank holds (`held_bytes`; else
-    None)."""
+    """One process's run, on one device or as one rank of `mesh`:
+    (state, history, what this rank holds on a mesh (`held_bytes`; else
+    None))."""
     rank0 = mesh is None or mesh.rank == 0
     logging.basicConfig(
         level=logging.INFO if rank0 else logging.WARNING,

@@ -229,8 +229,8 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None,
     the per-rank 'kernel' impl, built once and keyed on the local panel),
     ``params['lm_head']`` being this rank's vocab slice; the ce metrics
     are global, ``aux`` this rank's.  The body reads its leaves' specs
-    from `layout` (a `TrainLayout`; by default the one of the arch's
-    params on `mesh`) and runs its tensor-parallel regions by them."""
+    from `layout`, the step's `TrainLayout` (required there), and runs
+    its tensor-parallel regions by them."""
     lcfg = _loss_cfg(arch, tc)
     n_mtp = arch.mtp.n_heads
     mtp_w = arch.mtp.resolved_weights()
@@ -239,10 +239,9 @@ def build_loss_fn(arch: Arch, tc: TrainConfig, mesh=None,
     body = None
     if use_sharded:
         from repro_torch.distributed.collectives import MeshContext
-        from repro_torch.models.registry import init_params
         if layout is None:
-            layout = TrainLayout(arch, mesh, init_params(
-                arch, torch.Generator(), "meta"))
+            raise ValueError("a sharded loss needs the step's TrainLayout "
+                             "(layout=)")
         body = MeshContext(mesh, _rows_axes(mesh),
                            rows_over_model=tc.loss_impl == "sharded_sp",
                            specs=layout.body_specs)
